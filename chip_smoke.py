@@ -5,26 +5,53 @@ Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
-   nvcc build of both kernels from osu_diffusion_tpu_torch/csrc.
-2. Kernel A (banded attention) against its plain version on the card: at
-   the DiT-B sampling shape and at ragged shapes, against the plain version
-   with bf16-rounded operands and against the f32 plain version.
-3. Kernel B (fused adaLN-MLP), the same way.
-4. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
+   nvcc build of every kernel library from osu_diffusion_tpu_torch/csrc
+   (one nvcc per source, all at once).
+2. Inference kernel A (banded attention) against its plain version on the
+   card: at the DiT-B sampling shape and at ragged shapes, against the plain
+   version with bf16-rounded operands and against the f32 plain version.
+3. Inference kernel B (fused adaLN-MLP), the same way.
+4. The training kernels, the same way, at the DiT-B training shapes (q/k/v
+   (256, 12, 128, 64), x (256, 128, 768), bf16 stream) and ragged ones (T not
+   a tile multiple, valid_len < T, band < T, the DiT-S width 384, the f32
+   stream): the banded attention forward with LSE, its dq and dk/dv kernels
+   (the LSE and all three gradients checked), and kernel B's training forward
+   (out and the a / mlp residuals checked).
+5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
-   50 CFG denoise steps, the .osu written and reparsed, and each kernel's
-   launch count equal to steps x depth. A second, timed run gives the
-   seconds per denoise step, and a profiled run the device time by kernel.
-5. The model against its plain versions: one DiT-B forward at the sampling
+   50 CFG denoise steps, the .osu written and reparsed, and each inference
+   kernel's launch count equal to steps x depth. A second, timed run gives
+   the seconds per denoise step, and a profiled run the device time by kernel.
+6. The model against its plain versions: one DiT-B forward at the sampling
    inputs on the card (kernels) and on the CPU (plain versions).
+7. The train CLI end to end at DiT-B width with 52670 classes (seeded
+   random init) on a Track dataset of kimi_no_bouken copies: global batch
+   256, seq-len 128, 20 optimizer steps, a checkpoint inside the run that a
+   second run resumes from for one more step. Checks finite "Train Loss:"
+   lines and each training kernel's launch count (steps x depth x 2 for the
+   two forward kernels, recomputed under --remat; steps x depth for dq and
+   dk/dv). Prints seconds per optimizer step (CUDA events, steady state),
+   the device busy share and the top device ops (torch.profiler).
+8. One DiT-B training step at batch 4, card (kernels) against CPU (plain
+   versions), same weights and draws: the L1 loss's terms (loss, l1, vb),
+   then the MSE loss and every parameter gradient.
 
-Then one JSON line describing the kernels, and last, the device JSON line.
-Exits non-zero, printing no result, without a CUDA device.
+Every kernel is timed beside its plain version, its bound (the least time
+this card could take: bytes over 3.35 TB/s or bf16 operations over
+989 TFLOP/s, whichever is larger, counted from this run's inputs) and, where
+one PyTorch call computes the same function, that call (`library_ms`; the
+port never calls it). Then one JSON line describing the kernels, and last,
+the device JSON line. Exits non-zero, printing no result, without a CUDA
+device.
 """
 import contextlib
+import copy
 import io
 import json
+import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -41,9 +68,34 @@ ATTN_TOL_BF16 = 5e-3
 ATTN_TOL_F32 = 3e-2
 MLP_TOL_BF16 = 5e-3  # 1e-3 failed on an H100 at 1.48e-3 (x ~ N(0, 1), gate ~ N(0, 0.3))
 MLP_TOL_F32 = 5e-2  # bf16 rounding over D=768 and H=3072 terms: ~1.2e-2 seen on the CPU
+# The training kernels, as max |kernel - plain| / max |plain| per output.
+# Against the same bf16 operands: a bf16 stream rounds every output to 2^-8
+# of itself (so one flipped rounding is ~4e-3 of a max), and a flipped bf16
+# rounding of P, dS or the hidden activation moves a sum by 2^-8 of a term.
+# Against f32: the operand rounding over 128-3072-term sums, a few 2^-9.
+TRAIN_TOL_BF16 = 1e-2
+TRAIN_TOL_F32 = 5e-2
+LSE_TOL = 1e-3  # absolute; f32 log-sum-exp of the same (bf16) scores
+LSE_TOL_F32 = 1e-2  # absolute; against f32 scores (bf16 q.k rounding, |s| ~ 1)
 # one DiT-B forward, kernels on the card vs plain bf16 versions on the CPU:
 # max |diff| / max |plain output|
 FORWARD_REL_TOL = 2e-2
+# one DiT-B training step, card vs CPU plain versions, bf16 stream under the
+# MSE loss (the L1 loss's gradient is sign(eps - noise): wherever bf16
+# rounding moves a prediction across its target a whole term flips, which
+# the CPU parity test measured at ~10% of a tensor's max; MSE's gradient is
+# continuous). Each gradient within this share of its max, the loss within
+# this relative error: bf16 rounds the stream, projections and kernel
+# operands at the same points on both sides, but sums run in other orders.
+# The L1 loss's terms (continuous in the prediction) are held to the same
+# relative error.
+STEP_GRAD_REL_TOL = 5e-2
+STEP_LOSS_REL_TOL = 1e-2
+
+# published H100 SXM peaks (NVIDIA's data sheet): the bound of a kernel is
+# the larger of its bytes over HBM_BPS and its bf16 operations over BF16_FLOPS
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
 
 BEATMAP = os.path.join("assets", "toy_datasets", "kimi_no_bouken.osu")
 MODEL = "DiT-B"
@@ -52,6 +104,26 @@ STEPS = 50
 CFG_SCALE = 2.0
 BAND = 128
 SEED = 0
+TRAIN_BATCH = 256
+TRAIN_SEQ = 128
+TRAIN_STEPS = 20
+TRAIN_CKPT_EVERY = 15
+TRAIN_COPIES = 16  # kimi copies: ~40 windows each, >= 2 batches of 256 an epoch
+# training-kernel checks: (name, N, H, T, valid_len, band, stream), the
+# DiT-B training shape first
+ATTN_TRAIN_CASES = [
+    ("main", 256, 12, 128, 128, 128, "bf16"),
+    ("t_not_tile_multiple_band_lt_t", 2, 3, 200, 190, 20, "bf16"),
+    ("valid_lt_t", 2, 12, 100, 77, 128, "bf16"),
+    ("fully_masked_rows", 1, 2, 256, 60, 16, "bf16"),
+    ("dit_s_heads", 4, 6, 128, 128, 128, "bf16"),
+    ("f32_stream", 4, 12, 128, 128, 128, "f32"),
+]
+# (name, N, T, D, stream)
+MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
+                   ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
+TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA events
+PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -80,6 +152,36 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
+def rel_err(a, b):
+    """max |a - b| / max |b|."""
+    return max_err(a, b) / max(b.float().abs().max().item(), 1e-30)
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    bf16 operations over the tensor-core rate, whichever is larger."""
+    mem_ms, ops_ms = n_bytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    return {"bound_ms": max(mem_ms, ops_ms), "bound_by": "bytes" if mem_ms >= ops_ms else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(a.numel() * a.element_size() for a in tensors)
+
+
+def attention_pairs(t, band, valid, query_valid=False) -> int:
+    """(query, key) pairs the banded attention computes at these inputs, per
+    (batch, head): keys in the band and below valid_len (and, in the
+    backward, queries below valid_len too)."""
+    import torch
+    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention_mask
+
+    keep = torch.arange(t) < valid
+    allowed = banded_attention_mask(t, band) & keep[None, :]
+    if query_valid:
+        allowed &= keep[:, None]
+    return int(allowed.sum())
+
+
 def phase_build():
     import torch
     from osu_diffusion_tpu_torch.ops import cuda_build
@@ -91,8 +193,11 @@ def phase_build():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    for name in ("banded_attention", "adaln_mlp"):
-        cuda_build.load_library(name)
+    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp")
+    wall = time.perf_counter()
+    cuda_build.build_all(names)  # one nvcc per source, all at once
+    print(f"[build] {len(names)} libraries in {time.perf_counter() - wall:.1f} s wall")
+    for name in names:
         info = cuda_build.build_info[name]
         print(f"[build] {name}: {info['seconds']:.1f} s")
         for line in info["log"].splitlines():
@@ -103,8 +208,10 @@ def phase_build():
 
 def phase_attention(dev):
     import torch
+    import torch.nn.functional as F
     from osu_diffusion_tpu_torch.ops.banded_attention import (
         banded_attention,
+        banded_attention_mask,
         banded_attention_reference,
     )
 
@@ -140,9 +247,15 @@ def phase_attention(dev):
             ms = cuda_ms(lambda: banded_attention(q, k, v, band, valid))
             plain_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.float32))
             plain16_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.bfloat16))
+            # yardstick: SDPA with the band and the valid keys as a boolean mask
+            mask = banded_attention_mask(t, band, dev) & (torch.arange(t, device=dev) < valid)[None, :]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            b = bound(nbytes(q, k, v, got), 4 * 64 * n * h * attention_pairs(t, band, valid))
             print(f"[attn] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
-                  f"plain bf16-rounded {plain16_ms:.4f} ms")
-            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms}
+                  f"plain bf16-rounded {plain16_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b,
+                      "library_ms": library_ms}
     return result
 
 
@@ -183,9 +296,151 @@ def phase_mlp(dev):
                 x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.float32))
             plain16_ms = cuda_ms(lambda: adaln_mlp_reference(
                 x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, torch.bfloat16))
+            b = bound(nbytes(x, shift, scale, gate, w1p, b1, w2p, b2, got), 4 * n * t * d * hdim)
             print(f"[mlp] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
-                  f"plain bf16-rounded {plain16_ms:.4f} ms")
-            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms}
+                  f"plain bf16-rounded {plain16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}); no single PyTorch call computes it")
+            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+    return result
+
+
+def phase_attention_train(dev):
+    """Rows 2-4: the forward with LSE, dq and dk/dv against their plain
+    versions (bf16 operands, and f32), every output checked."""
+    import torch
+    import torch.nn.functional as F
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    for name, n, h, t, valid, band, stream in ATTN_TRAIN_CASES:
+        dtype = f32 if stream == "f32" else bf16
+        qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=dev).to(dtype)
+        q, k, v = (a.view(n, t, h, 64).transpose(1, 2) for a in qkv.split(h * 64, dim=-1))
+        # the gradient arrives in the (N, T, H, Dh) layout of the head merge
+        do = torch.randn((n, t, h, 64), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
+        o, lse = ba.banded_attention_fwd_lse(q, k, v, band, valid)
+        dq = ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
+        dk, dv = ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
+        torch.cuda.synchronize()
+        o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, bf16)
+        grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, bf16)
+        o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, f32)
+        grads32 = ba.banded_attention_bwd_reference(q, k, v, o32, lse32, do, band, valid, f32)
+        has_key = lse16 > -1e29  # rows whose band holds a valid key
+        errs = {"lse": (max_err(lse[has_key], lse16[has_key]), max_err(lse[has_key], lse32[has_key]))}
+        for out, got, w16, w32 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
+                                      (o16, *grads16), (o32, *grads32)):
+            check(bool(torch.isfinite(got).all()), f"attention train {name}: non-finite {out}")
+            errs[out] = (rel_err(got, w16), rel_err(got, w32))
+        print(f"[attn-train] {name}: N={n} H={h} T={t} valid={valid} band={band} {stream} "
+              + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
+              + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
+              f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
+        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"lse {name}: {errs['lse']}")
+        check(bool((lse[~has_key] < -1e29).all()), f"lse {name}: rows without a key not ~-1e30")
+        for out in ("o", "dq", "dk", "dv"):
+            check(errs[out][0] <= TRAIN_TOL_BF16, f"{out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
+            check(errs[out][1] <= TRAIN_TOL_F32, f"{out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
+        check(bool((dq[:, :, valid:] == 0).all() and (dk[:, :, valid:] == 0).all()
+                   and (dv[:, :, valid:] == 0).all()), f"{name}: gradient past valid_len")
+        if name == "fully_masked_rows":
+            check(bool((o[:, :, valid + band:] == 0).all()), "masked rows not 0")
+        if name != "main":
+            continue
+        fwd_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse(q, k, v, band, valid))
+        dq_ms = cuda_ms(lambda: ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid))
+        dkv_ms = cuda_ms(lambda: ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid))
+        fwd_plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, f32))
+        bwd_plain_ms = cuda_ms(lambda: ba.banded_attention_bwd_reference(
+            q, k, v, o32, lse32, do, band, valid, f32))
+        # yardstick: SDPA at T = band = valid_len is full attention, the same
+        # function; its forward with inputs that need grad also keeps the
+        # LSE, and its backward computes dq, dk and dv in one call
+        ql, kl, vl = (a.detach().requires_grad_() for a in (q, k, v))
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
+        out = F.scaled_dot_product_attention(ql, kl, vl)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+        pairs_f = attention_pairs(t, band, valid) * n * h
+        pairs_b = attention_pairs(t, band, valid, query_valid=True) * n * h
+        bounds = {
+            "fwd_lse": bound(nbytes(q, k, v, o, lse), 4 * 64 * pairs_f),
+            "dq": bound(nbytes(q, k, v, o, do, lse, dq), 6 * 64 * pairs_b),
+            "dkv": bound(nbytes(q, k, v, o, do, lse, dk, dv), 8 * 64 * pairs_b),
+        }
+        print(f"[attn-train] main: fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
+              f"plain f32 fwd {fwd_plain_ms:.4f} ms, bwd (dq, dk, dv) {bwd_plain_ms:.4f} ms; "
+              f"SDPA fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms; bounds "
+              + ", ".join(f"{k} {b['bound_ms']:.4f} ms ({b['bound_by']})" for k, b in bounds.items()))
+        results = {
+            "banded_attention_fwd_lse": {"max_abs_err": max_err(o, o16), "ms": fwd_ms,
+                                         "plain_ms": fwd_plain_ms, **bounds["fwd_lse"],
+                                         "library_ms": sdpa_fwd_ms},
+            "banded_attention_bwd_dq": {"max_abs_err": max_err(dq, grads16[0]), "ms": dq_ms,
+                                        "plain_ms": bwd_plain_ms, **bounds["dq"],
+                                        "library_ms": sdpa_bwd_ms},
+            "banded_attention_bwd_dkv": {"max_abs_err": max(max_err(dk, grads16[1]), max_err(dv, grads16[2])),
+                                         "ms": dkv_ms, "plain_ms": bwd_plain_ms, **bounds["dkv"],
+                                         "library_ms": sdpa_bwd_ms},
+        }
+    return results
+
+
+def phase_mlp_train(dev):
+    """Row 8: kernel B's training forward (out, a, mlp) against its plain
+    version (bf16 operands, and f32)."""
+    import torch
+    from osu_diffusion_tpu_torch.ops.adaln_mlp import (
+        adaln_mlp_train,
+        adaln_mlp_train_reference,
+        pack_weights,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(4)
+    bf16, f32 = torch.bfloat16, torch.float32
+    result = None
+    for name, n, t, d, stream in MLP_TRAIN_CASES:
+        dtype = f32 if stream == "f32" else bf16
+        hdim = 4 * d
+
+        def rnd(*shape, std):
+            return torch.randn(shape, generator=g, device=dev) * std
+
+        x = rnd(n, t, d, std=1.0).to(dtype)
+        mod = rnd(n, 6 * d, std=0.3)
+        shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+        w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
+        b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
+        w1b, w2b = w1.to(bf16), w2.to(bf16)
+        w1p, w2p = pack_weights(w1b, w2b)
+        got = adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)
+        torch.cuda.synchronize()
+        want16 = adaln_mlp_train_reference(x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16)
+        want32 = adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
+        errs = {}
+        for out, a, w16, w32 in zip(("out", "a", "mlp"), got, want16, want32):
+            check(bool(torch.isfinite(a).all()), f"mlp train {name}: non-finite {out}")
+            check(a.shape == w16.shape and a.dtype == w16.dtype, f"mlp train {name}: {out} shape/type")
+            errs[out] = (rel_err(a, w16), rel_err(a, w32))
+        print(f"[mlp-train] {name}: x=({n}, {t}, {d}) {stream} "
+              + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
+              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32})")
+        for out, (e16, e32) in errs.items():
+            check(e16 <= TRAIN_TOL_BF16, f"mlp train {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"mlp train {name} {out}: {e32} > {TRAIN_TOL_F32}")
+        if name == "main":
+            ms = cuda_ms(lambda: adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2))
+            plain_ms = cuda_ms(lambda: adaln_mlp_train_reference(
+                x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32))
+            plain16_ms = cuda_ms(lambda: adaln_mlp_train_reference(
+                x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16))
+            b = bound(nbytes(x, shift, scale, gate, w1p, b1, w2p, b2, *got), 4 * n * t * d * hdim)
+            print(f"[mlp-train] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+                  f"plain bf16-rounded {plain16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}); no single PyTorch call computes it")
+            result = {"max_abs_err": max_err(got[0], want16[0]), "ms": ms, "plain_ms": plain_ms,
+                      **b, "library_ms": None}
     return result
 
 
@@ -224,11 +479,9 @@ class _Tee(io.TextIOBase):
 
 def phase_slice(dev, ckpt_path, results_dir):
     import torch
-    from osu_diffusion_tpu.beatmap import Beatmap
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
     from osu_diffusion_tpu_torch import sampling
     from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
-    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp
-    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention
 
     runs = []  # (sampler, inputs, output, chain ms) of each CLI run
     orig_call = sampling.Sampler.__call__
@@ -251,19 +504,19 @@ def phase_slice(dev, ckpt_path, results_dir):
     args = build_sample_parser().parse_args(argv)
 
     buf = io.StringIO()
-    banded_attention.launches = 0
-    adaln_mlp.launches = 0
+    read_counts = reset_launch_counts()
     wall = time.perf_counter()
     with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
         written = sample_main(args)
     wall = time.perf_counter() - wall
-    launches = {"banded_attention": banded_attention.launches, "adaln_mlp": adaln_mlp.launches}
+    counts = read_counts()
     depth = len(runs[-1][0].model.blocks)
-    print(f"[slice] launches {launches} (expected {STEPS} steps x depth {depth} = "
-          f"{STEPS * depth} each), wall {wall:.2f} s")
+    print(f"[slice] launches {counts} (expected {STEPS} steps x depth {depth} = "
+          f"{STEPS * depth} for each inference kernel, 0 for the training ones), wall {wall:.2f} s")
     check("seq len 757" in buf.getvalue(), "CLI did not report seq len 757")
-    for name, count in launches.items():
-        check(count == STEPS * depth, f"{name} launched {count} times, not {STEPS * depth}")
+    launches = {"banded_attention": STEPS * depth, "adaln_mlp": STEPS * depth}
+    check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
+    launches = {name: counts[name] for name in launches}
     _, _, samples, first_ms = runs[-1]
     check(tuple(samples.shape) == (2, 757, 2), f"samples shape {tuple(samples.shape)}")
     check(bool(torch.isfinite(samples).all()), "non-finite coordinates")
@@ -333,6 +586,199 @@ def phase_forward_vs_plain(dev, sampler, call_args):
     check(rel <= FORWARD_REL_TOL, f"forward disagrees: {rel} > {FORWARD_REL_TOL}")
 
 
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0; returns a reader of them."""
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+
+    wrappers = {"banded_attention": ba.banded_attention,
+                "banded_attention_fwd_lse": ba.banded_attention_fwd_lse,
+                "banded_attention_bwd_dq": ba.banded_attention_bwd_dq,
+                "banded_attention_bwd_dkv": ba.banded_attention_bwd_dkv,
+                "adaln_mlp": am.adaln_mlp, "adaln_mlp_train": am.adaln_mlp_train}
+    for fn in wrappers.values():
+        fn.launches = 0
+    return lambda: {name: fn.launches for name, fn in wrappers.items()}
+
+
+def phase_train(dev, tmp):
+    """The train CLI at DiT-B width: launch counts, finite losses, a
+    checkpoint that resumes, seconds per step and the device's busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
+    from osu_diffusion_tpu_torch.train import trainer
+    from osu_diffusion_tpu_torch.train.checkpoint import latest_checkpoint, load_train_checkpoint
+
+    data = os.path.join(tmp, "tracks")
+    for i in range(TRAIN_COPIES):  # label i: the file name's integer prefix
+        track = os.path.join(data, f"Track{i % 2:05d}", "beatmaps")
+        os.makedirs(track, exist_ok=True)
+        shutil.copy(BEATMAP, os.path.join(track, f"{i:06d} kimi.osu"))
+    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
+            "--log-every", "5", "--ckpt-every", str(TRAIN_CKPT_EVERY),
+            "--results-dir", os.path.join(tmp, "train"), "--device", dev]
+
+    events = []  # (start, end) CUDA events around each train_step call
+    prof = {}
+    orig_step = trainer.train_step
+
+    def timed_step(*args, **kwargs):
+        i = len(events)
+        if i == PROFILED_STEPS.start:
+            torch.cuda.synchronize()
+            prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof["p"].start()
+            prof["wall"] = time.perf_counter()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = orig_step(*args, **kwargs)
+        end.record()
+        events.append((start, end))
+        if i == PROFILED_STEPS.stop - 1:
+            torch.cuda.synchronize()
+            prof["wall"] = time.perf_counter() - prof["wall"]
+            prof["p"].stop()
+        return out
+
+    trainer.train_step = timed_step
+    read_counts = reset_launch_counts()
+    wall = time.perf_counter()
+    try:
+        summary = train_main(build_train_parser().parse_args(argv + ["--max-steps", str(TRAIN_STEPS)]))
+    finally:
+        trainer.train_step = orig_step
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - wall
+    launches = read_counts()
+
+    ckpt_path = latest_checkpoint(summary["checkpoint_dir"])
+    check(ckpt_path is not None and ckpt_path.endswith(f"{TRAIN_CKPT_EVERY:07d}.pt"),
+          f"no checkpoint of step {TRAIN_CKPT_EVERY}: {ckpt_path}")
+    ckpt = load_train_checkpoint(ckpt_path)
+    check(set(ckpt) == {"model", "ema", "opt", "args", "step"} and ckpt["step"] == TRAIN_CKPT_EVERY,
+          f"checkpoint layout {sorted(ckpt)} step {ckpt.get('step')}")
+    depth = len({k.split(".")[1] for k in ckpt["model"] if k.startswith("blocks.")})
+    del ckpt
+    with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
+    print(f"[train] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
+          f"launches {launches}")
+    check(summary["final_step"] == TRAIN_STEPS, f"stopped at step {summary['final_step']}")
+    check(len(losses) == TRAIN_STEPS // 5 and all(math.isfinite(v) for v in losses),
+          f"Train Loss lines: {losses}")
+    check("Done!" in log, "no Done! in the log")
+    expected = {"banded_attention": 0, "adaln_mlp": 0,  # the inference kernels
+                "banded_attention_fwd_lse": TRAIN_STEPS * depth * 2,  # forward + remat recompute
+                "adaln_mlp_train": TRAIN_STEPS * depth * 2,
+                "banded_attention_bwd_dq": TRAIN_STEPS * depth,
+                "banded_attention_bwd_dkv": TRAIN_STEPS * depth}
+    check(launches == expected, f"launches {launches}, expected {expected}")
+
+    # steady state: the train_step calls in TIMED_STEPS, by CUDA events
+    first, last = TIMED_STEPS.start, TIMED_STEPS.stop - 1
+    step_ms = sum(events[i][0].elapsed_time(events[i][1]) for i in TIMED_STEPS) / len(TIMED_STEPS)
+    period_ms = events[first][0].elapsed_time(events[last][0]) / (last - first)
+    print(f"[train] steady state over steps {first}..{last}: {period_ms / 1000:.6f} s per optimizer "
+          f"step start to start ({TRAIN_BATCH * TRAIN_SEQ / period_ms * 1000:.0f} tokens/s), "
+          f"{step_ms / 1000:.6f} s inside train_step ({MODEL}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"bf16 stream, remat)")
+    events_dev = [e for e in prof["p"].key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
+    device_us = sum(e.self_device_time_total for e in events_dev)
+    n_prof = len(PROFILED_STEPS)
+    print(f"[train-profile] device time {device_us / 1000:.2f} ms over {n_prof} steps "
+          f"({len(events_dev)} kinds of device op); busy {100 * device_us / 1000 / (prof['wall'] * 1000):.1f}% "
+          f"of {prof['wall'] * 1000:.2f} ms wall (profiler on)")
+    for e in sorted(events_dev, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[train-profile]   {e.self_device_time_total / 1000 / n_prof:9.3f} ms/step  "
+              f"{e.count // n_prof:6d}x/step  {e.key[:90]}")
+
+    # resume from the checkpoint for one more step
+    summary2 = train_main(build_train_parser().parse_args(
+        argv + ["--max-steps", str(TRAIN_CKPT_EVERY + 1), "--ckpt", ckpt_path, "--log-every", "1"]))
+    with open(os.path.join(summary2["experiment_dir"], "log.txt")) as f:
+        log2 = f.read()
+    print(f"[train] resumed from {ckpt_path}: final step {summary2['final_step']}, "
+          f"loss {summary2['last_loss']}")
+    check("Restored from checkpoint" in log2, "the resumed run did not restore")
+    check(summary2["final_step"] == TRAIN_CKPT_EVERY + 1 and math.isfinite(summary2["last_loss"]),
+          f"resume: {summary2}")
+
+    # the loader alone, as the trainer builds it, to split the step's period
+    # between waiting for data and the step itself
+    loader = get_data_loader(
+        dataset_path=data, start=0, end=2,
+        iterable_factory=BeatmapDatasetIterableFactory(TRAIN_SEQ, 16, seed=SEED),
+        cycle_length=TRAIN_BATCH // 2, batch_size=TRAIN_BATCH, num_workers=2,
+        shuffle=True, drop_last=True, seed=SEED)
+    wall, batches = time.perf_counter(), 0
+    for _ in range(3):
+        batches += sum(1 for _ in loader)
+    print(f"[train] the loader alone (2 threads, Python featurizer): "
+          f"{(time.perf_counter() - wall) / batches:.6f} s per batch of {TRAIN_BATCH} over {batches} batches")
+    return launches
+
+
+def phase_train_step_vs_plain(dev):
+    """One DiT-B training step's loss and parameter gradients at batch 4:
+    the card's kernels against the CPU's plain versions, same weights and
+    draws."""
+    import numpy as np
+    import torch
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
+    from osu_diffusion_tpu_torch.data.dataset import default_win_func
+    from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.train.train_step import StepDraws, draw_step, loss_terms
+
+    seq = beatmap_to_sequence(Beatmap.from_path(BEATMAP))
+    wins = [default_win_func(seq, s, s + TRAIN_SEQ) for s in (0, 150, 300, 450)]
+    batch = (torch.from_numpy(np.stack([w for w, _ in wins])),
+             torch.from_numpy(np.stack([p for _, p in wins])),
+             torch.tensor([3, 17, 100, NUM_CLASSES - 1]))
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2)
+    model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED + 1)))
+    draws = draw_step(4, TRAIN_SEQ, 1000, 0.2, "cpu", torch.Generator().manual_seed(SEED + 2))
+    draws = draws._replace(drop=torch.tensor([True, False, False, False]))
+    results, l1_terms = {}, {}
+    for where in ("cpu", dev):
+        m = copy.deepcopy(model).to(where).train()
+        args = (tuple(a.to(where) for a in batch), StepDraws(*(a.to(where) for a in draws)))
+        # the main path's L1 loss: its terms (forward with grad, as in training)
+        diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=where)
+        terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
+        l1_terms[where] = {k: v.mean().item() for k, v in terms.items()}
+        del terms
+        # MSE for the gradients (see STEP_GRAD_REL_TOL)
+        diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=False, device=where)
+        terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
+        loss = terms["loss"].mean()
+        loss.backward()
+        results[where] = (loss.item(), {n: p.grad.float().cpu() for n, p in m.named_parameters()})
+        del m, terms, loss
+    l1_rel = {k: abs(l1_terms[dev][k] - v) / abs(v) for k, v in l1_terms["cpu"].items()}
+    print(f"[step] {MODEL} L1 loss terms, batch 4 x {TRAIN_SEQ}, bf16 stream: card {l1_terms[dev]} "
+          f"cpu {l1_terms['cpu']}; relative errors {l1_rel} (tol {STEP_LOSS_REL_TOL})")
+    check(set(l1_rel) == {"loss", "l1", "vb"} and max(l1_rel.values()) <= STEP_LOSS_REL_TOL,
+          f"L1 step terms: {l1_rel}")
+    (loss_cpu, g_cpu), (loss_dev, g_dev) = results["cpu"], results[dev]
+    loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
+    errs = sorted(((rel_err(g_dev[n], g_cpu[n]), n) for n in g_cpu), reverse=True)
+    print(f"[step] {MODEL} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
+          f"cpu {loss_cpu:.6f} (rel {loss_rel:.2e}, tol {STEP_LOSS_REL_TOL}); gradient error of max, "
+          f"worst {errs[0][0]:.2e} ({errs[0][1]}), median {errs[len(errs) // 2][0]:.2e} over "
+          f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL})")
+    check(loss_rel <= STEP_LOSS_REL_TOL, f"step loss: {loss_rel} > {STEP_LOSS_REL_TOL}")
+    check(errs[0][0] <= STEP_GRAD_REL_TOL, f"step gradients: {errs[:5]}")
+
+
 def main() -> int:
     import torch
 
@@ -346,8 +792,9 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     phase_build()
-    attn = phase_attention(dev)
-    mlp = phase_mlp(dev)
+    measured = {"banded_attention": phase_attention(dev), "adaln_mlp": phase_mlp(dev)}
+    measured.update(phase_attention_train(dev))
+    measured["adaln_mlp_train"] = phase_mlp_train(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -357,17 +804,29 @@ def main() -> int:
         del model, sd
         launches, sampler, call_args = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
         phase_forward_vs_plain(dev, sampler, call_args)
+        del sampler, call_args
+        launches.update({k: v for k, v in phase_train(dev, tmp).items() if k not in launches})
+    phase_train_step_vs_plain(dev)
 
-    kernels = [
-        {"name": "banded_attention", "route": "cuda",
-         "source": "osu_diffusion_tpu_torch/csrc/banded_attention.cu",
-         "replaces": "osu_diffusion_tpu/ops/pallas_attention.py:72",
-         "launches": launches["banded_attention"], **attn},
-        {"name": "adaln_mlp", "route": "cuda",
-         "source": "osu_diffusion_tpu_torch/csrc/adaln_mlp.cu",
-         "replaces": "osu_diffusion_tpu/ops/pallas_mlp.py:53",
-         "launches": launches["adaln_mlp"], **mlp},
-    ]
+    attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"
+    bwd_src = "osu_diffusion_tpu_torch/csrc/banded_attention_bwd.cu"
+    mlp_src = "osu_diffusion_tpu_torch/csrc/adaln_mlp.cu"
+    attn_ref = "osu_diffusion_tpu/ops/pallas_attention.py"
+    mlp_ref = "osu_diffusion_tpu/ops/pallas_mlp.py:53"
+    where = {
+        "banded_attention": (attn_src, f"{attn_ref}:72"),
+        "adaln_mlp": (mlp_src, mlp_ref),
+        "banded_attention_fwd_lse": (attn_src, f"{attn_ref}:72"),
+        "banded_attention_bwd_dq": (bwd_src, f"{attn_ref}:379"),
+        "banded_attention_bwd_dkv": (bwd_src, f"{attn_ref}:461"),
+        "adaln_mlp_train": (mlp_src, mlp_ref),
+    }
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": launches[name], **{k: measured[name][k] for k in keys}}
+               for name, (src, rep) in where.items()]
+    for kern in kernels:
+        check(kern["launches"] > 0, f"{kern['name']} was not launched on its main path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

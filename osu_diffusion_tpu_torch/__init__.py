@@ -7,11 +7,12 @@ by hand-written CUDA C++ kernels for Hopper (sm_90a):
 - ops.banded_attention  <- osu_diffusion_tpu/ops/pallas_attention.py
 - ops.adaln_mlp         <- osu_diffusion_tpu/ops/pallas_mlp.py
 
-Module layout mirrors the JAX package (data/, ops/, models/dit.py,
-diffusion/, sampling.py, train/checkpoint.py, cli.py). Beatmap parsing,
-writing and export are imported from the JAX package's jax-free modules
-(`osu_diffusion_tpu.beatmap`, `osu_diffusion_tpu.export`). Nothing in this
-package imports jax, and importing this file imports nothing at all.
+Module layout mirrors the JAX package (beatmap/, export/, data/, ops/,
+models/dit.py, diffusion/, sampling.py, train/, utils/, cli.py). Modules the
+port needs from the JAX package are kept here as copies (beatmap I/O,
+export, featurize, schedule), so nothing in this package imports jax or any
+module of `osu_diffusion_tpu`, and importing this file imports nothing at
+all.
 """
 
 __version__ = "0.1.0"

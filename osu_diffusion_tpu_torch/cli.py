@@ -1,13 +1,20 @@
-"""Sample command line (port of the sample half of osu_diffusion_tpu/cli.py).
+"""Sample and train command lines (port of osu_diffusion_tpu/cli.py).
 
-Reads a beatmap, featurizes its rhythm skeleton, samples new coordinates
-with a DiT checkpoint through classifier-free guidance, and writes each
-result as a .osu file. On a CUDA device every DiT block runs the two CUDA
-kernels (banded attention with band = --seq-len, and the fused adaLN-MLP).
+sample: reads a beatmap, featurizes its rhythm skeleton, samples new
+coordinates with a DiT checkpoint through classifier-free guidance, and
+writes each result as a .osu file. On a CUDA device every DiT block runs the
+inference kernels (banded attention with band = --seq-len, and the fused
+adaLN-MLP).
+
+train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
+every block runs the training kernels. The JAX trainer's TPU-only knobs
+(--use-pallas, --pallas-ops, --flash-block, --scan-blocks, --steps-per-call,
+--multihost, --num-model, --context-parallel) have no counterpart here.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 import re
@@ -16,8 +23,8 @@ from datetime import datetime
 import numpy as np
 import torch
 
-from osu_diffusion_tpu.beatmap import Beatmap
-from osu_diffusion_tpu.export import create_beatmap
+from osu_diffusion_tpu_torch.beatmap import Beatmap
+from osu_diffusion_tpu_torch.export import create_beatmap
 from osu_diffusion_tpu_torch import CONTEXT_SIZE
 from osu_diffusion_tpu_torch.data.dataset import get_beatmap_idx
 from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
@@ -26,6 +33,7 @@ from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
 from osu_diffusion_tpu_torch.sampling import Sampler, prepare_cfg_inputs
 from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
+from osu_diffusion_tpu_torch.train.trainer import TrainConfig, train
 
 CLEAN_FILENAME_RX = re.compile(r"[/\\?%*:|\"<>\x7F\x00-\x1F]")
 
@@ -101,3 +109,41 @@ def sample_main(args) -> list[str]:
         except Exception as e:  # one undecodable variant must not lose the others
             logging.error("Failed to create beatmap.", exc_info=e)
     return written
+
+
+def build_train_parser() -> argparse.ArgumentParser:
+    d = TrainConfig(data_path="")
+    parser = argparse.ArgumentParser()
+    parser.add_argument("--data-path", type=str, required=True)
+    parser.add_argument("--num-classes", type=int, default=d.num_classes)
+    parser.add_argument("--data-start", type=int, default=d.data_start)
+    parser.add_argument("--data-end", type=int, default=d.data_end)
+    parser.add_argument("--results-dir", type=str, default=d.results_dir)
+    parser.add_argument("--model", type=str, choices=list(DiT_models.keys()), default=d.model)
+    parser.add_argument("--epochs", type=int, default=d.epochs)
+    parser.add_argument("--global-batch-size", type=int, default=d.global_batch_size)
+    parser.add_argument("--global-seed", type=int, default=d.global_seed)
+    parser.add_argument("--num-workers", type=int, default=d.num_workers)
+    parser.add_argument("--log-every", type=int, default=d.log_every)
+    parser.add_argument("--ckpt-every", type=int, default=d.ckpt_every)
+    parser.add_argument("--seq-len", type=int, default=d.seq_len,
+                        help="training window; also the attention band")
+    parser.add_argument("--stride", type=int, default=d.stride)
+    parser.add_argument("--ckpt", type=str, default=None,
+                        help="resume from this .pt (model, ema, opt and step where present)")
+    parser.add_argument("--noise-schedule", type=str, default=d.noise_schedule)
+    parser.add_argument("--lr", type=float, default=d.lr)
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--l1-loss", action=argparse.BooleanOptionalAction, default=d.l1_loss)
+    parser.add_argument("--use-bf16", action=argparse.BooleanOptionalAction, default=d.use_bf16,
+                        help="bf16 residual stream over f32 master weights")
+    parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=d.remat,
+                        help="recompute each block in the backward")
+    parser.add_argument("--device", type=str, default=d.device)
+    return parser
+
+
+def train_main(args) -> dict:
+    """Train from parsed `build_train_parser` arguments."""
+    return train(TrainConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
+                                if hasattr(args, f.name)}))

@@ -1,12 +1,20 @@
-// Fused adaLN-modulated MLP forward (inference) for Hopper, sm_90a.
+// Fused adaLN-modulated MLP forward for Hopper, sm_90a: inference, and
+// training with the backward's residuals.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_mlp.py, _adaln_mlp_kernel in
-//   inference mode (a_ref = mlp_ref = None; called via _adaln_mlp_fwd_impl).
+//   inference mode (a_ref = mlp_ref = None; called via _adaln_mlp_fwd_impl)
+//   and in training mode (with_residuals=True, called via _fwd).
 //
 // Computes the MLP half of a DiT block:
 //   out = x + gate * (fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift))))
 // with a non-affine two-pass LayerNorm (eps given), bf16 matmul operands,
-// f32 accumulation, and f32 LN, bias, GELU, gate and residual.
+// f32 accumulation, and f32 LN, bias, GELU, gate and residual. x and out
+// are f32 or bf16 (the training stream), one type per call. In training it
+// also writes the residuals of the backward: the pre-GELU activation
+// a = fc1(...) + b1, (N, T, H) in x's type, written per 128-wide hidden
+// chunk as each CTA computes it, and the pre-gate mlp = fc2(...) + b2,
+// (N, T, D) f32, written by the epilogue kernel that sums the hidden-split
+// partials (that sum plus b2 is mlp).
 //
 // Weights are bf16 in a packed layout (ops/adaln_mlp.py, pack_weights),
 // made once by the model: w1 (D, H) cut into 128-column chunks, chunk-major,
@@ -17,7 +25,10 @@
 // What bounds it on the card: at DiT-B sampling (x 2 x 768 x 768, H = 3072)
 // one call is 14.5 GFLOP against 9.4 MB of bf16 weights and 9.4 MB of f32
 // activations in and out, far above the H100's bf16 ridge, so in principle
-// the matmuls bound it. Two things stand in the way: the (N, T, 4D) hidden
+// the matmuls bound it. At DiT-B training (x 256 x 128 x 768 bf16) it is
+// 155 GFLOP (157 us at 989 TFLOP/s) against ~420 MB moved (x, out, a, mlp
+// and the weights: 125 us at 3.35 TB/s): bound by the matmuls, with the
+// 201 MB write of `a` close behind. Two things stand in the way: the (N, T, 4D) hidden
 // activation, which must not round-trip through HBM (written and read back
 // in f32 it would add ~38 MB per call), and the weights, which every
 // 32-row tile of tokens has to stream through its SM (48 tiles x 9.4 MB =
@@ -49,6 +60,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "tile_io.cuh"
 
 using namespace nvcuda;
 
@@ -136,13 +149,13 @@ __device__ __forceinline__ void issue_tile(Smem<D>& sm, int i, int chunk0,
   bulk_copy(sm.ring[i % STAGES], src, bytes, mbar);
 }
 
-template <int D>
+template <int D, typename TX>
 __global__ void __launch_bounds__(THREADS)
-adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ shift,
+adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shift,
                          const float* __restrict__ scale, long long mod_stride,
                          const __nv_bfloat16* __restrict__ w1p, const float* __restrict__ b1,
                          const __nv_bfloat16* __restrict__ w2p, float* __restrict__ ws,
-                         int n, int t, int t_pad, int hdim, float eps) {
+                         TX* __restrict__ a_out, int n, int t, int t_pad, int hdim, float eps) {
   using C = Cfg<D>;
   constexpr int V4 = D / 128;  // float4 per lane in one row
   extern __shared__ unsigned char smem_raw[];
@@ -155,7 +168,7 @@ adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
   const int ntiles = chunks * (C::T1 + C::T2);
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const float* xb = x + (long long)nb * t * D;
+  const TX* xb = x + (long long)nb * t * D;
   const float* sh = shift + nb * mod_stride;
   const float* sc = scale + nb * mod_stride;
 
@@ -177,8 +190,7 @@ adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
 #pragma unroll
     for (int i = 0; i < V4; ++i) {
       xv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + row < t)
-        xv[i] = *reinterpret_cast<const float4*>(xb + (long long)(t0 + row) * D + (i * 32 + lane) * 4);
+      if (t0 + row < t) xv[i] = tile_io::load4(xb + (long long)(t0 + row) * D + (i * 32 + lane) * 4);
       sum += xv[i].x + xv[i].y + xv[i].z + xv[i].w;
     }
 #pragma unroll
@@ -238,7 +250,7 @@ adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
           wmma::mma_sync(f1[j], a, b, f1[j]);
         }
       }
-      if (r == C::T1 - 1) {  // chunk's fc1 done: bias + GELU -> bf16 chunk
+      if (r == C::T1 - 1) {  // chunk's fc1 done: bias (+ the a residual) + GELU -> bf16 chunk
 #pragma unroll
         for (int j = 0; j < 2; ++j)
           wmma::store_matrix_sync(sm.s + rt * 16 * LDS + (cg * 2 + j) * 16, f1[j], LDS,
@@ -248,7 +260,10 @@ adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
         for (int idx = threadIdx.x; idx < BT * BH; idx += THREADS) {
           const int row = idx / BH;
           const int col = idx % BH;
-          sm.g[row * LDG + col] = __float2bfloat16_rn(gelu_tanh(sm.s[row * LDS + col] + b1[c + col]));
+          const float pre = sm.s[row * LDS + col] + b1[c + col];
+          if (a_out != nullptr && t0 + row < t)
+            a_out[((long long)nb * t + t0 + row) * hdim + c + col] = tile_io::from_float<TX>(pre);
+          sm.g[row * LDG + col] = __float2bfloat16_rn(gelu_tanh(pre));
         }
       }
     } else {
@@ -274,11 +289,14 @@ adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ 
     wmma::store_matrix_sync(wp + (cg * C::NT + j) * 16, acc[j], D, wmma::mem_row_major);
 }
 
-// out = x + gate * (b2 + sum over splits of the partials), float4 per thread
-__global__ void adaln_mlp_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ ws,
+// mlp = b2 + sum over splits of the partials (written when mlp is given),
+// out = x + gate * mlp; four elements per thread
+template <typename TX>
+__global__ void adaln_mlp_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ ws,
                                           const float* __restrict__ gate, long long mod_stride,
-                                          const float* __restrict__ b2, float* __restrict__ out,
-                                          int n, int t, int t_pad, int d, int split) {
+                                          const float* __restrict__ b2, TX* __restrict__ out,
+                                          float* __restrict__ mlp, int n, int t, int t_pad, int d,
+                                          int split) {
   const long long i4 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long total4 = (long long)n * t * d / 4;
   if (i4 >= total4) return;
@@ -293,60 +311,76 @@ __global__ void adaln_mlp_epilogue_kernel(const float* __restrict__ x, const flo
         ws + (((long long)s * n + nb) * t_pad + row) * d + col);
     acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
   }
-  const float4 xv = *reinterpret_cast<const float4*>(x + e);
+  if (mlp != nullptr) tile_io::store4(mlp + e, acc);
+  const float4 xv = tile_io::load4(x + e);
   const float4 g = *reinterpret_cast<const float4*>(gate + nb * mod_stride + col);
-  *reinterpret_cast<float4*>(out + e) = make_float4(
-      xv.x + g.x * acc.x, xv.y + g.y * acc.y, xv.z + g.z * acc.z, xv.w + g.w * acc.w);
+  tile_io::store4(out + e, make_float4(xv.x + g.x * acc.x, xv.y + g.y * acc.y,
+                                       xv.z + g.z * acc.z, xv.w + g.w * acc.w));
 }
 
-template <int D>
-int launch(const float* x, const float* shift, const float* scale, const float* gate,
+template <int D, typename TX>
+int launch(const void* xv, const float* shift, const float* scale, const float* gate,
            long long mod_stride, const __nv_bfloat16* w1, const float* b1,
-           const __nv_bfloat16* w2, const float* b2, float* ws, float* out, int n, int t,
-           int hdim, int split, float eps, cudaStream_t stream) {
+           const __nv_bfloat16* w2, const float* b2, float* ws, void* outv, void* av,
+           float* mlp, int n, int t, int hdim, int split, float eps, cudaStream_t stream) {
+  const auto* x = static_cast<const TX*>(xv);
+  auto* out = static_cast<TX*>(outv);
   const int smem = static_cast<int>(sizeof(Smem<D>));
   cudaError_t err = cudaFuncSetAttribute(
-      adaln_mlp_partial_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      adaln_mlp_partial_kernel<D, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int t_pad = (t + BT - 1) / BT * BT;
   const dim3 grid(t_pad / BT, n, split);
-  adaln_mlp_partial_kernel<D><<<grid, THREADS, smem, stream>>>(
-      x, shift, scale, mod_stride, w1, b1, w2, ws, n, t, t_pad, hdim, eps);
+  adaln_mlp_partial_kernel<D, TX><<<grid, THREADS, smem, stream>>>(
+      x, shift, scale, mod_stride, w1, b1, w2, ws, static_cast<TX*>(av), n, t, t_pad, hdim, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total4 = (long long)n * t * D / 4;
   const int blocks = static_cast<int>((total4 + 255) / 256);
-  adaln_mlp_epilogue_kernel<<<blocks, 256, 0, stream>>>(x, ws, gate, mod_stride, b2, out, n, t,
-                                                       t_pad, D, split);
+  adaln_mlp_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, ws, gate, mod_stride, b2, out, mlp,
+                                                           n, t, t_pad, D, split);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename TX>
+int dispatch(const void* x, const float* shift, const float* scale, const float* gate,
+             long long mod_stride, const __nv_bfloat16* w1, const float* b1,
+             const __nv_bfloat16* w2, const float* b2, float* ws, void* out, void* a, float* mlp,
+             int n, int t, int d, int hdim, int split, float eps, cudaStream_t s) {
+  switch (d) {
+    case 384:
+      return launch<384, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+    case 768:
+      return launch<768, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+    case 1024:
+      return launch<1024, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// x, out: f32 (N, T, D) contiguous; shift/scale/gate: f32 rows of D with row
-// stride mod_stride; w1: bf16 packed (H / 128, D, 136); b1: f32 (H); w2:
-// bf16 packed (H, D + 8); b2: f32 (D); ws: f32 workspace of
-// split * N * (32 * ceil(T / 32)) * D. D in {384, 768, 1024}; H / 128
-// divisible by split. Launches on `stream` without synchronizing; returns
-// cudaGetLastError().
-extern "C" int adaln_mlp_fwd(const float* x, const float* shift, const float* scale,
+// x, out: (N, T, D) contiguous, f32 (bf16 = 0) or bf16 (bf16 = 1);
+// shift/scale/gate: f32 rows of D with row stride mod_stride; w1: bf16
+// packed (H / 128, D, 136); b1: f32 (H); w2: bf16 packed (H, D + 8); b2: f32
+// (D); ws: f32 workspace of split * N * (32 * ceil(T / 32)) * D; a: null
+// (inference) or (N, T, H) contiguous in x's type; mlp: null or f32
+// (N, T, D) contiguous. D in {384, 768, 1024}; H / 128 divisible by split.
+// Launches on `stream` without synchronizing; returns cudaGetLastError().
+extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* scale,
                              const float* gate, long long mod_stride, const void* w1,
                              const float* b1, const void* w2, const float* b2, float* ws,
-                             float* out, int n, int t, int d, int hdim, int split, float eps,
-                             void* stream) {
+                             void* out, void* a, float* mlp, int n, int t, int d, int hdim,
+                             int split, float eps, int bf16, void* stream) {
   const auto* w1b = static_cast<const __nv_bfloat16*>(w1);
   const auto* w2b = static_cast<const __nv_bfloat16*>(w2);
   const auto s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 384:
-      return launch<384>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, n, t, hdim, split, eps, s);
-    case 768:
-      return launch<768>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, n, t, hdim, split, eps, s);
-    case 1024:
-      return launch<1024>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, n, t, hdim, split, eps, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (bf16)
+    return dispatch<__nv_bfloat16>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, a,
+                                   mlp, n, t, d, hdim, split, eps, s);
+  return dispatch<float>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, a, mlp, n,
+                         t, d, hdim, split, eps, s);
 }
 
 extern "C" const char* adaln_mlp_error_string(int err) {

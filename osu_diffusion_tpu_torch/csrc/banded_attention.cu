@@ -1,38 +1,48 @@
-// Banded attention forward (inference) for Hopper, sm_90a.
+// Banded attention forward for Hopper, sm_90a: inference, and training with
+// the per-row log-sum-exp.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_attention.py,
-//   _banded_attn_fwd_kernel without LSE (called via _banded_flash_fwd_impl).
+//   _banded_attn_fwd_kernel without LSE (called via _banded_flash_fwd_impl,
+//   entry banded_attention_fwd) and with LSE (with_lse=True via _fwd,
+//   entry banded_attention_fwd_lse).
 //
 // Computes, per (batch, head) and query row q:
 //   o[q] = sum_k softmax_k(s[q, k]) v[k],  s = bf16(q * Dh^-1/2) . bf16(k)
 // over the keys allowed by the band  q - L < k <= q + L  and k < valid_len,
-// with bf16 operands, f32 accumulation and an f32 online softmax. valid_len
-// is a runtime argument, so one build serves every sequence length. A row
-// whose band holds no valid key writes 0, never NaN: such rows are padding,
-// and the next layer reads them as K/V rows, where 0 * NaN would poison the
-// valid rows.
+// with bf16 operands, f32 accumulation and an f32 online softmax, and with
+// LSE the row's m + log(max(l, 1e-30)) into an (N*H, T) f32 array (the one
+// layout the port keeps: the TPU kernel's lane-broadcast and sublane-packed
+// layouts only work around Mosaic's (8, 128) tile). q/k/v/o are f32 or bf16
+// (the training stream), one type per call. valid_len is a runtime
+// argument, so one build serves every sequence length. A row whose band
+// holds no valid key writes 0, never NaN: such rows are padding, and the
+// next layer reads them as K/V rows, where 0 * NaN would poison the valid
+// rows. Its LSE is about -1e30; the backward masks such rows itself.
 //
 // What bounds it on the card: at the sampling shape (N*H = 24, T = 768,
-// Dh = 64, L = 128) the whole call reads ~14 MB of f32 q/k/v and does
-// ~1.5 GFLOP of band-limited matmul work (about five 64-key tiles per
-// query tile). That is ~4 us of HBM time and ~2 us of bf16 tensor-core
-// time, so the kernel is bound by latency: the serial tile loop of each CTA
-// (load, sync, two small products, softmax) and how many CTAs are in flight
-// (288 CTAs of 4 warps on 132 SMs).
+// Dh = 64, L = 128, f32) the call reads ~14 MB of q/k/v and does ~1.5 GFLOP
+// of band-limited matmul work: ~4 us of HBM time, ~2 us of tensor-core
+// time. At the training shape (N*H = 3072, T = L = 128, bf16) it moves
+// 4 x 3072 x 128 x 64 x 2 B = 201 MB plus a 1.6 MB LSE (60 us at 3.35 TB/s)
+// against 6.4 GFLOP (6.5 us at 989 TFLOP/s): bound by memory. Both shapes
+// are short per CTA, so the serial tile loop of each CTA (load, sync, two
+// small products, softmax) and the CTAs in flight decide the time.
 //
 // What the design does about it: one CTA per (n*h, 64-row query tile), four
-// warps of 16 rows each, so the grid is large enough to spread over the
-// SMs. Each CTA walks only the 64-key tiles that meet the band (the GPU form
-// of the TPU kernel's static trim), stages each K/V tile once in shared
-// memory as bf16, and runs both products on the tensor cores through WMMA
-// (bf16 16x16x16, f32 accumulate). The softmax state (row max, row sum and
-// the 64-wide output row) lives in registers, two lanes per row. Inputs are
-// read through strides, so q/k/v can be head views of the packed qkv
-// projection without a transpose copy; the output is written through
-// strides too. wgmma/TMA pipelining is left to a later change.
+// warps of 16 rows each, so the grid spreads over the SMs (6144 CTAs at the
+// training shape). Each CTA walks only the 64-key tiles that meet the band
+// (the GPU form of the TPU kernel's static trim), stages each K/V tile once
+// in shared memory as bf16, and runs both products on the tensor cores
+// through WMMA (bf16 16x16x16, f32 accumulate). The softmax state (row max,
+// row sum and the 64-wide output row) lives in registers, two lanes per
+// row. Inputs are read through strides, so q/k/v can be head views of the
+// packed qkv projection without a transpose copy; the output is written
+// through strides too. wgmma/TMA pipelining is left to a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
+
+#include "tile_io.cuh"
 
 using namespace nvcuda;
 
@@ -55,29 +65,13 @@ struct __align__(128) Smem {
   float s[WARPS][16 * LDS];          // scores, then the P.V tile
 };
 
-// rows [r0, r0 + 64) of a (t, 64) f32 slab with row stride `st` -> bf16
-// shared tile, times `mul`; rows past t read as 0
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const float* src,
-                                          int r0, int t, long long st, float mul) {
-  for (int idx = threadIdx.x; idx < BK * (DH / 4); idx += THREADS) {
-    const int row = idx / (DH / 4);
-    const int c4 = idx % (DH / 4);
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + row < t) {
-      val = *reinterpret_cast<const float4*>(src + (long long)(r0 + row) * st + c4 * 4);
-    }
-    __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(dst + row * LDB + c4 * 4);
-    d[0] = __floats2bfloat162_rn(val.x * mul, val.y * mul);
-    d[1] = __floats2bfloat162_rn(val.z * mul, val.w * mul);
-  }
-}
-
+template <typename T>
 __global__ void __launch_bounds__(THREADS)
-banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o, int h,
-                       int t, long long sn, long long sh, long long st,
-                       long long osn, long long osh, long long ost, int band,
-                       int valid, float scale) {
+banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int h, int t, long long sn,
+                       long long sh, long long st, long long osn, long long osh,
+                       long long ost, int band, int valid, float scale) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -93,7 +87,7 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int c0 = (lane & 1) * 32;
   const int qi = q0 + warp * 16 + r;
 
-  load_tile(sm.q, q + base, q0, t, st, scale);
+  tile_io::load_tile<BQ, DH, LDB, THREADS>(sm.q, q + base, q0, t, st, scale);
 
   float m = NEG_INF;
   float l = 0.f;
@@ -110,8 +104,8 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int kt = k_lo / BK; k_lo <= k_hi && kt <= k_hi / BK; ++kt) {
     const int kbase = kt * BK;
     __syncthreads();  // every warp is done with the previous K/V tile
-    load_tile(sm.k, k + base, kbase, t, st, 1.f);
-    load_tile(sm.v, v + base, kbase, t, st, 1.f);
+    tile_io::load_tile<BK, DH, LDB, THREADS>(sm.k, k + base, kbase, t, st, 1.f);
+    tile_io::load_tile<BK, DH, LDB, THREADS>(sm.v, v + base, kbase, t, st, 1.f);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -190,33 +184,64 @@ banded_attn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   if (qi < t) {
     const float denom = fmaxf(l, 1e-30f);
-    float* orow = o + nb * osn + hb * osh + (long long)qi * ost + c0;
+    T* orow = o + nb * osn + hb * osh + (long long)qi * ost + c0;
 #pragma unroll
     for (int j = 0; j < 32; j += 4) {
-      *reinterpret_cast<float4*>(orow + j) = make_float4(
-          acc[j] / denom, acc[j + 1] / denom, acc[j + 2] / denom, acc[j + 3] / denom);
+      tile_io::store4(orow + j, make_float4(acc[j] / denom, acc[j + 1] / denom,
+                                            acc[j + 2] / denom, acc[j + 3] / denom));
     }
+    if (lse != nullptr && c0 == 0) lse[(long long)blockIdx.y * t + qi] = m + logf(denom);
   }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
+           int t, long long sn, long long sh, long long st, long long osn, long long osh,
+           long long ost, int band, int valid_len, float scale, cudaStream_t stream) {
+  const int smem = static_cast<int>(sizeof(Smem));
+  cudaError_t err = cudaFuncSetAttribute(
+      banded_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((t + BQ - 1) / BQ, n * h);
+  banded_attn_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), lse, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
+             int t, long long sn, long long sh, long long st, long long osn, long long osh,
+             long long ost, int band, int valid_len, float scale, int bf16, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16)
+    return launch<__nv_bfloat16>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
+                                 valid_len, scale, s);
+  return launch<float>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len,
+                       scale, s);
 }
 
 }  // namespace
 
-// q, k, v: f32 (N, H, T, 64) with shared strides (sn, sh, st) and unit stride
-// over the head dim; o: f32 with strides (osn, osh, ost). Launches on
-// `stream` without synchronizing; returns cudaGetLastError().
-extern "C" int banded_attention_fwd(const float* q, const float* k, const float* v,
-                                    float* o, int n, int h, int t, long long sn,
-                                    long long sh, long long st, long long osn,
-                                    long long osh, long long ost, int band,
-                                    int valid_len, float scale, void* stream) {
-  const int smem = static_cast<int>(sizeof(Smem));
-  cudaError_t err = cudaFuncSetAttribute(
-      banded_attn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((t + BQ - 1) / BQ, n * h);
-  banded_attn_fwd_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
-      q, k, v, o, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale);
-  return static_cast<int>(cudaGetLastError());
+// q, k, v: (N, H, T, 64), f32 (bf16 = 0) or bf16 (bf16 = 1), with shared
+// strides (sn, sh, st) and unit stride over the head dim; o: the same type
+// with strides (osn, osh, ost). Launches on `stream` without synchronizing;
+// returns cudaGetLastError().
+extern "C" int banded_attention_fwd(const void* q, const void* k, const void* v, void* o, int n,
+                                    int h, int t, long long sn, long long sh, long long st,
+                                    long long osn, long long osh, long long ost, int band,
+                                    int valid_len, float scale, int bf16, void* stream) {
+  return dispatch(q, k, v, o, nullptr, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len,
+                  scale, bf16, stream);
+}
+
+// The same, also writing lse: f32 (N*H, T) contiguous, row n*H + h.
+extern "C" int banded_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
+                                        float* lse, int n, int h, int t, long long sn,
+                                        long long sh, long long st, long long osn, long long osh,
+                                        long long ost, int band, int valid_len, float scale,
+                                        int bf16, void* stream) {
+  return dispatch(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale,
+                  bf16, stream);
 }
 
 extern "C" const char* banded_attention_error_string(int err) {

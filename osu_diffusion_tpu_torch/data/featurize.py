@@ -19,7 +19,7 @@ from datetime import timedelta
 
 import numpy as np
 
-from osu_diffusion_tpu.beatmap.objects import (
+from osu_diffusion_tpu_torch.beatmap.objects import (
     Beatmap,
     Catmull,
     Linear,

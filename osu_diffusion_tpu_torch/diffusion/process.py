@@ -1,4 +1,5 @@
-"""Gaussian diffusion, sampling half (port of osu_diffusion_tpu/diffusion/process.py).
+"""Gaussian diffusion (port of osu_diffusion_tpu/diffusion/process.py):
+the sampling chain and the training losses.
 
 - Coefficient tables are computed in float64 numpy and stored as float32
   tensors on the process's device.
@@ -9,10 +10,13 @@
 - Channel layout is (N, T, C); the eps/variance split is over the last axis.
 
 The model predicts eps and a learned-range variance (the DiT's
-learn_sigma head), the only parameterization the sampler meets. Quirks
-kept from the reference: the x0 clamp to [-1, 2] (the playfield-normalized
-range; the sampler always clips), and the learned_range variance
-interpolated in log space between the posterior and beta.
+learn_sigma head), the only parameterization the port meets. Quirks kept
+from the reference: the x0 clamp to [-1, 2] under `clip_denoised` (the
+playfield-normalized range; the sampler always clips, the VLB term never
+does), the learned_range variance interpolated in log space between the
+posterior and beta, the VLB computed on a detached mean prediction, and the
+discretized decoder likelihood with 1/255 bins and a tanh CDF.
+`loss_type` is "l1" or "mse" (the eps loss; the VLB is added unscaled).
 """
 from __future__ import annotations
 
@@ -26,6 +30,39 @@ from osu_diffusion_tpu_torch.diffusion import schedule as sched
 
 ModelFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 NoiseFn = Callable[[int, tuple], torch.Tensor]
+
+
+def mean_flat(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch axes."""
+    return x.mean(dim=tuple(range(1, x.ndim)))
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL divergence between two gaussians, broadcasting."""
+    return 0.5 * (
+        -1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+        + ((mean1 - mean2) ** 2) * torch.exp(-logvar2)
+    )
+
+
+def approx_standard_normal_cdf(x):
+    """tanh approximation of the standard normal CDF."""
+    return 0.5 * (1.0 + torch.tanh(np.sqrt(2.0 / np.pi) * (x + 0.044715 * torch.pow(x, 3))))
+
+
+def discretized_gaussian_log_likelihood(x, *, means, log_scales):
+    """Log-likelihood of data discretized to 1/255 bins, the outer bins
+    open-ended at -0.999 and 0.999."""
+    centered_x = x - means
+    inv_stdv = torch.exp(-log_scales)
+    cdf_plus = approx_standard_normal_cdf(inv_stdv * (centered_x + 1.0 / 255.0))
+    cdf_min = approx_standard_normal_cdf(inv_stdv * (centered_x - 1.0 / 255.0))
+    log_cdf_plus = torch.log(cdf_plus.clamp(min=1e-12))
+    log_one_minus_cdf_min = torch.log((1.0 - cdf_min).clamp(min=1e-12))
+    log_cdf_delta = torch.log((cdf_plus - cdf_min).clamp(min=1e-12))
+    return torch.where(
+        x < -0.999, log_cdf_plus, torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta)
+    )
 
 
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -57,6 +94,15 @@ class GaussianDiffusion:
     timestep_map: torch.Tensor  # int64 (S,): local step -> original timestep
     num_timesteps: int
     original_num_steps: int
+    loss_type: str = "mse"  # "l1" | "mse"
+
+    def q_sample(self, x_start, t, noise):
+        """Sample q(x_t | x_0) with the given noise."""
+        nd = x_start.ndim
+        return (
+            _extract(self.sqrt_alphas_cumprod, t, nd) * x_start
+            + _extract(self.sqrt_one_minus_alphas_cumprod, t, nd) * noise
+        )
 
     def q_posterior_mean(self, x_start, x_t, t):
         """Mean of q(x_{t-1} | x_t, x_0)."""
@@ -66,6 +112,15 @@ class GaussianDiffusion:
             + _extract(self.posterior_mean_coef2, t, nd) * x_t
         )
 
+    def q_posterior_mean_variance(self, x_start, x_t, t):
+        """q(x_{t-1} | x_t, x_0): (mean, variance, clipped log variance)."""
+        nd = x_t.ndim
+        return (
+            self.q_posterior_mean(x_start, x_t, t),
+            _extract(self.posterior_variance, t, nd),
+            _extract(self.posterior_log_variance_clipped, t, nd),
+        )
+
     def _predict_xstart_from_eps(self, x_t, t, eps):
         nd = x_t.ndim
         return (
@@ -73,9 +128,11 @@ class GaussianDiffusion:
             - _extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps
         )
 
-    def p_mean_variance(self, model_fn: ModelFn, x, t) -> dict[str, torch.Tensor]:
-        """p(x_{t-1} | x_t) and the clamped x_0 prediction. The model output
-        is (..., 2C): eps, then the learned-range variance values."""
+    def p_mean_variance(self, model_fn: ModelFn, x, t,
+                        clip_denoised: bool = True) -> dict[str, torch.Tensor]:
+        """p(x_{t-1} | x_t) and the x_0 prediction, clamped to [-1, 2] under
+        `clip_denoised`. The model output is (..., 2C): eps, then the
+        learned-range variance values."""
         nd = x.ndim
         c = x.shape[-1]
         model_output = model_fn(x, self.timestep_map[t])
@@ -84,8 +141,9 @@ class GaussianDiffusion:
         max_log = _extract(self.log_betas, t, nd)
         frac = (var_values + 1) / 2
         model_log_variance = frac * max_log + (1 - frac) * min_log
-        # playfield-normalized clamp, as the reference does
-        pred_xstart = self._predict_xstart_from_eps(x, t, eps).clamp(-1.0, 2.0)
+        pred_xstart = self._predict_xstart_from_eps(x, t, eps)
+        if clip_denoised:  # playfield-normalized clamp, as the reference does
+            pred_xstart = pred_xstart.clamp(-1.0, 2.0)
         return {
             "mean": self.q_posterior_mean(pred_xstart, x, t),
             "log_variance": model_log_variance,
@@ -123,9 +181,41 @@ class GaussianDiffusion:
             x = self.p_sample(model_fn, x, t, step_noise)["sample"]
         return x
 
+    def _vb_terms_bpd(self, model_fn: ModelFn, x_start, x_t, t,
+                      clip_denoised: bool = True) -> dict[str, torch.Tensor]:
+        """Variational-bound term in bits per dim: KL(q || p) for t > 0, the
+        discretized decoder NLL at t = 0."""
+        true_mean, _, true_log_var = self.q_posterior_mean_variance(x_start, x_t, t)
+        out = self.p_mean_variance(model_fn, x_t, t, clip_denoised=clip_denoised)
+        kl = normal_kl(true_mean, true_log_var, out["mean"], out["log_variance"])
+        kl = mean_flat(kl) / np.log(2.0)
+        decoder_nll = -discretized_gaussian_log_likelihood(
+            x_start, means=out["mean"], log_scales=0.5 * out["log_variance"]
+        )
+        decoder_nll = mean_flat(decoder_nll) / np.log(2.0)
+        return {"output": torch.where(t == 0, decoder_nll, kl), "pred_xstart": out["pred_xstart"]}
+
+    def training_losses(self, model_fn: ModelFn, x_start, t, noise) -> dict[str, torch.Tensor]:
+        """Per-sample training loss at local timesteps t with the given
+        noise: {"loss", "l1" or "mse", "vb"}. The eps loss trains the mean;
+        the VLB trains the variance through a detached mean prediction."""
+        x_t = self.q_sample(x_start, t, noise)
+        model_output = model_fn(x_t, self.timestep_map[t])
+        c = x_t.shape[-1]
+        eps = model_output[..., :c]
+        frozen_out = torch.cat([eps.detach(), model_output[..., c:]], dim=-1)
+        vb = self._vb_terms_bpd(lambda *_: frozen_out, x_start, x_t, t, clip_denoised=False)["output"]
+        if self.loss_type == "l1":
+            key, err = "l1", (noise - eps).abs()
+        else:
+            key, err = "mse", (noise - eps) ** 2
+        terms = {key: mean_flat(err), "vb": vb}
+        terms["loss"] = terms[key] + vb
+        return terms
+
 
 def _build(betas: np.ndarray, timestep_map: np.ndarray, original_num_steps: int,
-           device) -> GaussianDiffusion:
+           device, loss_type: str = "mse") -> GaussianDiffusion:
     betas = np.asarray(betas, dtype=np.float64)
     if betas.ndim != 1 or not ((betas > 0).all() and (betas <= 1).all()):
         raise ValueError("betas must be a 1-D array in (0, 1]")
@@ -169,6 +259,7 @@ def _build(betas: np.ndarray, timestep_map: np.ndarray, original_num_steps: int,
         timestep_map=torch.as_tensor(np.asarray(timestep_map, dtype=np.int64), device=device),
         num_timesteps=int(betas.shape[0]),
         original_num_steps=int(original_num_steps),
+        loss_type=loss_type,
     )
 
 
@@ -177,12 +268,15 @@ def create_diffusion(
     noise_schedule: str = "linear",
     diffusion_steps: int = 1000,
     device="cpu",
+    use_l1: bool = False,
 ) -> GaussianDiffusion:
     """The JAX factory with its defaults (eps prediction, learned-range
-    variance), the tables on `device`."""
+    variance, unscaled VLB), the tables on `device`; `use_l1` picks the L1
+    eps loss over MSE."""
     betas = sched.get_named_beta_schedule(noise_schedule, diffusion_steps)
     if timestep_respacing is None or timestep_respacing == "":
         timestep_respacing = [diffusion_steps]
     use_timesteps = sched.space_timesteps(diffusion_steps, timestep_respacing)
     new_betas, timestep_map = sched.respace_betas(betas, use_timesteps)
-    return _build(new_betas, timestep_map, original_num_steps=diffusion_steps, device=device)
+    return _build(new_betas, timestep_map, original_num_steps=diffusion_steps, device=device,
+                  loss_type="l1" if use_l1 else "mse")

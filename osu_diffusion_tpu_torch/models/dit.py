@@ -1,5 +1,5 @@
-"""Diffusion Transformer with adaLN-Zero conditioning, inference forward (port
-of osu_diffusion_tpu/models/dit.py).
+"""Diffusion Transformer with adaLN-Zero conditioning: the inference and the
+training forward (port of osu_diffusion_tpu/models/dit.py).
 
 Modules and parameter names follow the reference torch model, so a
 reference state dict loads with `load_state_dict`:
@@ -13,22 +13,37 @@ reference state dict loads with `load_state_dict`:
     final_layer.{linear, adaLN_modulation.1}
 
 Layout is (N, T, C) throughout. In each block the MLP half is the fused
-`adaln_mlp` (kernel B on the card) and, with a band, the attention core is
-`banded_attention` (kernel A); the attention-side LayerNorm/modulate and
-gate+residual stay plain torch, as they are plain jnp in the JAX package.
-`matmul_dtype` is the operand type of both kernels: bfloat16 (the kernels'
-contract, the default) or float32, which only the plain versions on the CPU
-take.
+adaLN-MLP (kernel B on the card) and, with a band, the attention core is
+banded attention (kernel A, and in training its dq and dk/dv kernels); the
+attention-side LayerNorm/modulate and gate+residual stay plain torch, as
+they are plain jnp in the JAX package. `matmul_dtype` is the operand type of
+the kernels: bfloat16 (the kernels' contract, the default) or float32, which
+only the plain versions on the CPU take.
+
+The residual stream runs in `dtype` (float32, or bfloat16 in training over
+f32 master weights), cast where the JAX package casts, not where autocast
+would: FirstLayer rounds its f32 sincos and context to the stream type
+before `proj`; the adaLN projections, qkv and out projections multiply in
+the stream type with weights cast at use, and add their bias in it;
+LayerNorm takes f32 statistics; the MLP kernel takes f32 modulation
+vectors; the final head runs in f32, so the output is f32.
+
+Training (`train=True`): labels drop to the null class `num_classes` with
+probability `class_dropout_prob` (from a generator, or a given mask), and
+with `remat` each block is recomputed in the backward
+(`torch.utils.checkpoint`, the JAX package's `nn.remat`).
 """
 from __future__ import annotations
 
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from osu_diffusion_tpu_torch import PLAYFIELD
-from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, pack_weights
+from osu_diffusion_tpu_torch.ops.adaln_mlp import AdalnMlp, adaln_mlp, pack_weights
 from osu_diffusion_tpu_torch.ops.attention import multi_head_attention
 from osu_diffusion_tpu_torch.ops.embeddings import (
     offset_sequence_embedding,
@@ -43,15 +58,22 @@ def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch
 
 
 def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """Non-affine LayerNorm with the two-pass variance, statistics in f32."""
+    """Non-affine LayerNorm with the two-pass variance, statistics in f32,
+    result in x's type."""
     xf = x.to(torch.float32)
     xc = xf - xf.mean(dim=-1, keepdim=True)
     var = (xc * xc).mean(dim=-1, keepdim=True)
     return (xc * torch.rsqrt(var + eps)).to(x.dtype)
 
 
+def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    """A Linear layer computed in `dtype`: input and weight cast at use, the
+    product rounded to `dtype`, then the bias (cast to `dtype`) added."""
+    return F.linear(x.to(dtype), linear.weight.to(dtype)) + linear.bias.to(dtype)
+
+
 class TimestepEmbedder(nn.Module):
-    """256-dim sinusoid -> MLP(SiLU) -> hidden."""
+    """256-dim sinusoid -> MLP(SiLU) -> hidden, in f32."""
 
     def __init__(self, hidden_size: int, frequency_embedding_size: int = 256):
         super().__init__()
@@ -68,20 +90,31 @@ class TimestepEmbedder(nn.Module):
 
 class LabelEmbedder(nn.Module):
     """Class-label table; with dropout_prob > 0 it has a null-class row at
-    index num_classes (the CFG unconditional label)."""
+    index num_classes (the CFG unconditional label), to which labels drop in
+    training."""
 
     def __init__(self, num_classes: int, hidden_size: int, dropout_prob: float):
         super().__init__()
+        self.num_classes = num_classes
+        self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
 
-    def forward(self, labels: torch.Tensor) -> torch.Tensor:
+    def forward(self, labels: torch.Tensor, train: bool = False, drop: torch.Tensor | None = None,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """`drop`: a bool mask of the labels to drop (the draw when given);
+        else, in training, a Bernoulli(dropout_prob) draw from `generator`."""
+        if drop is None and train and self.dropout_prob > 0:
+            u = torch.rand(labels.shape, generator=generator, device=labels.device)
+            drop = u < self.dropout_prob
+        if drop is not None:
+            labels = torch.where(drop, self.num_classes, labels)
         return self.embedding_table(labels)
 
 
 class FirstLayer(nn.Module):
     """Per-coordinate 128-dim sincos of x * playfield (256) + 128-dim sincos
     of o / 10 + context -> Linear to hidden. The sincos are computed from f32
-    inputs."""
+    inputs; only their result drops to the stream type."""
 
     def __init__(self, in_channels: int, context_size: int, hidden_size: int,
                  frequency_embedding_size: int = 128):
@@ -93,11 +126,12 @@ class FirstLayer(nn.Module):
         # checkpoints are checked to hold this value
         self.register_buffer("playfield_size", torch.tensor(PLAYFIELD, dtype=torch.float32))
 
-    def forward(self, x: torch.Tensor, o: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    def forward(self, x, o, c, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         fe = self.frequency_embedding_size
         x_freq = position_sequence_embedding(x.to(torch.float32) * self.playfield_size, fe)
         o_freq = offset_sequence_embedding(o.to(torch.float32) / 10.0, fe)
-        return self.mlp(torch.cat([x_freq, o_freq, c.to(torch.float32)], dim=-1))
+        xoc = torch.cat([x_freq.to(dtype), o_freq.to(dtype), c.to(dtype)], dim=-1)
+        return dense(xoc, self.mlp[0], dtype)
 
 
 class SelfAttention(nn.Module):
@@ -120,7 +154,8 @@ class SelfAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc1 -> GELU-tanh -> fc2 parameters; the forward is `adaln_mlp`."""
+    """fc1 -> GELU-tanh -> fc2 parameters; the forward is the fused
+    adaLN-MLP."""
 
     def __init__(self, hidden_size: int, mlp_hidden: int):
         super().__init__()
@@ -130,9 +165,10 @@ class Mlp(nn.Module):
 
     def kernel_weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
         """fc1/fc2 weights in `dtype`, packed as `adaln_mlp` takes them
-        (ops/adaln_mlp.py, pack_weights). Made once and kept until the
-        weights change (a load, an in-place update or a move to another
-        device)."""
+        (ops/adaln_mlp.py, pack_weights), for the inference forward. Made
+        once and kept until the weights change (a load, an in-place update
+        or a move to another device). They carry no autograd history: the
+        training forward packs inside `AdalnMlp` instead."""
         w1, w2 = self.fc1.weight, self.fc2.weight
         key = (dtype, w1.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
         if self._kernel_weights is None or self._kernel_weights[0] != key:
@@ -152,20 +188,22 @@ class DiTBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
 
     def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype):
-        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = (
-            self.adaLN_modulation(cond).chunk(6, dim=-1)
-        )
+        mod = dense(F.silu(cond), self.adaLN_modulation[1], x.dtype)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
         x = x + gate_msa[:, None, :] * self.attn(h, band, valid_len, matmul_dtype)
+        # the MLP kernel takes its modulation vectors in f32
+        shift, scale, gate = (a.to(torch.float32) for a in (shift_mlp, scale_mlp, gate_mlp))
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        if torch.is_grad_enabled() and (x.requires_grad or fc1.weight.requires_grad):
+            return AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight,
+                                  fc2.bias, 1e-6, matmul_dtype)
         w1p, w2p = self.mlp.kernel_weights(matmul_dtype)
-        return adaln_mlp(
-            x, shift_mlp, scale_mlp, gate_mlp, w1p, self.mlp.fc1.bias, w2p,
-            self.mlp.fc2.bias, 1e-6, matmul_dtype,
-        )
+        return adaln_mlp(x, shift, scale, gate, w1p, fc1.bias, w2p, fc2.bias, 1e-6, matmul_dtype)
 
 
 class FinalLayer(nn.Module):
-    """adaLN (shift/scale) + linear head."""
+    """adaLN (shift/scale, in the stream type) + linear head in f32."""
 
     def __init__(self, hidden_size: int, out_channels: int):
         super().__init__()
@@ -173,15 +211,15 @@ class FinalLayer(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
 
     def forward(self, x, cond):
-        shift, scale = self.adaLN_modulation(cond).chunk(2, dim=-1)
-        return self.linear(modulate(layer_norm(x), shift, scale))
+        shift, scale = dense(F.silu(cond), self.adaLN_modulation[1], x.dtype).chunk(2, dim=-1)
+        return self.linear(modulate(layer_norm(x), shift, scale).to(torch.float32))
 
 
 class DiT(nn.Module):
     """Diffusion Transformer.
 
     forward(x (N, T, C), t (N,), o (N, T), c (N, T, E), y (N,)) ->
-    (N, T, out_channels): eps channels, then variance channels."""
+    (N, T, out_channels) f32: eps channels, then variance channels."""
 
     def __init__(
         self,
@@ -195,12 +233,14 @@ class DiT(nn.Module):
         num_classes: int = 1000,
         learn_sigma: bool = True,
         matmul_dtype: torch.dtype = torch.bfloat16,
+        remat: bool = True,
     ):
         super().__init__()
         self.in_channels = in_channels
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.num_classes = num_classes
         self.matmul_dtype = matmul_dtype
+        self.remat = remat
         self.xoc_embedder = FirstLayer(in_channels, context_size, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
@@ -209,13 +249,48 @@ class DiT(nn.Module):
         )
         self.final_layer = FinalLayer(hidden_size, self.out_channels)
 
-    def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | None = None):
-        """`band`: attention half-width (None = full attention); `valid_len`:
-        the real length when T is padded (keys past it are masked)."""
-        x = self.xoc_embedder(x, o, c)
-        cond = self.t_embedder(t) + self.y_embedder(y)
+    @torch.no_grad()
+    def initialize_weights(self, generator: torch.Generator | None = None) -> None:
+        """The reference's init: xavier-uniform linears with zero bias;
+        std-0.02 normals for the first-layer projection, the timestep MLP and
+        the label table; zeros for every adaLN modulation and the final
+        linear (adaLN-Zero: each block starts as the identity)."""
+        g = generator
+        for module in self.modules():
+            if isinstance(module, nn.Linear):
+                nn.init.xavier_uniform_(module.weight, generator=g)
+                nn.init.zeros_(module.bias)
         for block in self.blocks:
-            x = block(x, cond, band, valid_len, self.matmul_dtype)
+            nn.init.xavier_uniform_(block.attn.in_proj_weight, generator=g)
+            nn.init.zeros_(block.attn.in_proj_bias)
+        for linear in (self.xoc_embedder.mlp[0], self.t_embedder.mlp[0], self.t_embedder.mlp[2]):
+            nn.init.normal_(linear.weight, std=0.02, generator=g)
+        nn.init.normal_(self.y_embedder.embedding_table.weight, std=0.02, generator=g)
+        for linear in [b.adaLN_modulation[1] for b in self.blocks] + [
+            self.final_layer.adaLN_modulation[1], self.final_layer.linear
+        ]:
+            nn.init.zeros_(linear.weight)
+            nn.init.zeros_(linear.bias)
+
+    def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | None = None,
+                train: bool = False, drop: torch.Tensor | None = None,
+                generator: torch.Generator | None = None,
+                dtype: torch.dtype = torch.float32):
+        """`band`: attention half-width (None = full attention); `valid_len`:
+        the real length when T is padded (keys past it are masked);
+        `train`: label dropout (`drop` mask, else drawn from `generator`)
+        and, with `remat` under grad, recomputed blocks; `dtype`: the
+        residual stream's type."""
+        x = self.xoc_embedder(x, o, c, dtype)
+        cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator)
+        use_remat = train and self.remat and torch.is_grad_enabled()
+        for block in self.blocks:
+            if use_remat:
+                # blocks draw no random numbers, so no RNG state is kept
+                x = checkpoint(block, x, cond, band, valid_len, self.matmul_dtype,
+                               use_reentrant=False, preserve_rng_state=False)
+            else:
+                x = block(x, cond, band, valid_len, self.matmul_dtype)
         return self.final_layer(x, cond)
 
     def forward_with_cfg(self, x, t, o, c, y, cfg_scale: float,

@@ -1,10 +1,11 @@
 """Multi-head self-attention with an optional band (port of
 osu_diffusion_tpu/ops/attention.py, packed qkv layout only).
 
-The qkv and output projections are plain `F.linear`, as the JAX package
-leaves them to XLA. With a band the attention core is
-`banded_attention` (the CUDA kernel on a CUDA tensor); without one it is
-the plain masked softmax below.
+The qkv and output projections are plain `F.linear` in x's type (weights
+cast at use, bias added after the product, as the JAX package casts), left
+to cuBLAS as the JAX package leaves them to XLA. With a band the attention
+core is `banded_attention` (the CUDA kernels on a CUDA tensor); without one
+it is the plain masked softmax below.
 """
 from __future__ import annotations
 
@@ -22,13 +23,16 @@ from osu_diffusion_tpu_torch.ops.banded_attention import (  # noqa: F401 (re-exp
 def dot_product_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor | None = None
 ) -> torch.Tensor:
-    """Scaled dot-product attention in f32. q, k, v: (N, H, T, Dh); mask
-    broadcastable to (T, T), True = allowed. Masked scores take the f32
-    minimum, as in the JAX package, so a fully masked row averages all keys."""
-    scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    """Scaled dot-product attention, scores and softmax in f32, the result
+    in v's type. q, k, v: (N, H, T, Dh); mask broadcastable to (T, T), True =
+    allowed. Masked scores take the f32 minimum, as in the JAX package, so a
+    fully masked row averages all keys."""
+    f32 = torch.float32
+    scores = torch.matmul(q.to(f32), k.to(f32).transpose(-1, -2)) / math.sqrt(q.shape[-1])
     if mask is not None:
-        scores = torch.where(mask, scores, torch.finfo(torch.float32).min)
-    return torch.matmul(torch.softmax(scores, dim=-1), v)
+        scores = torch.where(mask, scores, torch.finfo(f32).min)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    return torch.matmul(probs.to(f32), v.to(f32)).to(v.dtype)
 
 
 def multi_head_attention(
@@ -46,7 +50,8 @@ def multi_head_attention(
     packed [q|k|v] projection (in_proj_weight (3D, D)). `valid_len` masks
     keys of a padded tail; `matmul_dtype` is the banded core's operand type."""
     n, t, d = x.shape
-    qkv = F.linear(x, in_proj_weight, in_proj_bias)
+    dt = x.dtype
+    qkv = F.linear(x, in_proj_weight.to(dt)) + in_proj_bias.to(dt)
     # head views of the packed projection: (N, H, T, Dh), no copy
     q, k, v = (a.view(n, t, num_heads, d // num_heads).transpose(1, 2) for a in qkv.split(d, dim=-1))
     if band is not None:
@@ -54,4 +59,4 @@ def multi_head_attention(
     else:
         mask = None if valid_len is None else torch.arange(t, device=x.device) < valid_len
         o = dot_product_attention(q, k, v, mask)
-    return F.linear(o.transpose(1, 2).reshape(n, t, d), out_proj_weight, out_proj_bias)
+    return F.linear(o.transpose(1, 2).reshape(n, t, d), out_proj_weight.to(dt)) + out_proj_bias.to(dt)

@@ -1,15 +1,30 @@
-"""Banded attention forward: kernel A and its plain PyTorch version.
+"""Banded attention: the forward (with and without LSE), its dq and dk/dv
+backward, the CUDA kernels' wrappers and their plain PyTorch versions.
 
-Port of the inference forward of osu_diffusion_tpu/ops/pallas_attention.py
-(`_banded_attn_fwd_kernel` without LSE). The CUDA kernel is
-csrc/banded_attention.cu.
+Port of osu_diffusion_tpu/ops/pallas_attention.py:
+- `banded_attention` without grad: `_banded_attn_fwd_kernel` without LSE
+  (inference), csrc/banded_attention.cu, entry `banded_attention_fwd`;
+- `banded_attention_fwd_lse`: the same kernel with LSE (training forward),
+  same source, entry `banded_attention_fwd_lse`;
+- `banded_attention_bwd_dq` / `banded_attention_bwd_dkv`:
+  `_banded_attn_bwd_dq_kernel` / `_banded_attn_bwd_dkv_kernel`,
+  csrc/banded_attention_bwd.cu.
 
 The band is the reference's: query q attends key k iff q - L < k <= q + L
 (asymmetric by one), and keys at or past the runtime `valid_len` are masked.
-A query row whose band holds no valid key returns 0.
+A query row whose band holds no valid key returns 0, and its LSE is about
+-1e30. In the backward, queries at or past `valid_len` get no gradient, and
+delta = rowsum(o * do) is derived from o and do.
+
+q, k, v (and o, do) are float32 or bfloat16, all of one type; matmul
+operands are rounded to `matmul_dtype` and accumulated in f32, the softmax
+and LSE are f32, and outputs come back in q's type. The LSE is one
+(N*H, T) float32 array.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel or raises. Each kernel launch adds one to `banded_attention.launches`.
+kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+`banded_attention` under grad (an input requires it) runs the
+`BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
 """
 from __future__ import annotations
 
@@ -21,8 +36,9 @@ import torch
 
 from osu_diffusion_tpu_torch.ops import cuda_build
 
-HEAD_DIM = 64  # the only head dim the kernel is built for (DiT-S/B/L)
+HEAD_DIM = 64  # the only head dim the kernels are built for (DiT-S/B/L)
 NEG_INF = -1e30
+ACT_DTYPES = (torch.float32, torch.bfloat16)  # activation types the kernels take
 
 
 def banded_attention_mask(seq_len: int, half_width: int, device=None) -> torch.Tensor:
@@ -32,75 +48,285 @@ def banded_attention_mask(seq_len: int, half_width: int, device=None) -> torch.T
     return (k > q - half_width) & (k <= q + half_width)
 
 
-def banded_attention_reference(
+def _allowed(t: int, band: int, valid_len: int, device, query_valid: bool = False):
+    keep = torch.arange(t, device=device) < valid_len
+    allowed = banded_attention_mask(t, band, device) & keep[None, :]
+    return allowed & keep[:, None] if query_valid else allowed
+
+
+def _rounder(matmul_dtype):
+    def rnd(a):
+        return a.to(torch.float32).to(matmul_dtype).to(torch.float32)
+    return rnd
+
+
+def _scores(q, k, matmul_dtype):
+    """bf16(q * Dh^-1/2) . bf16(k)^T in f32, and the rounded scaled q."""
+    rnd = _rounder(matmul_dtype)
+    qs = rnd(q.to(torch.float32) * (1.0 / math.sqrt(q.shape[-1])))
+    return torch.matmul(qs, rnd(k).transpose(-1, -2)), qs
+
+
+def banded_attention_fwd_lse_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
     valid_len: int, matmul_dtype: torch.dtype = torch.float32,
-) -> torch.Tensor:
-    """Plain version: the dense-mask softmax, (N, H, T, Dh) -> (N, H, T, Dh).
-
-    Matmul operands are rounded to `matmul_dtype` and multiplied in f32, so
-    with bfloat16 it follows the kernel's precision contract (bf16 operands,
-    f32 accumulation) and with float32 it is the f32 attention."""
-    t, dh = q.shape[-2], q.shape[-1]
-    f32 = torch.float32
-
-    def rnd(a):
-        return a.to(matmul_dtype).to(f32)
-
-    s = torch.matmul(rnd(q.to(f32) * (1.0 / math.sqrt(dh))), rnd(k.to(f32)).transpose(-1, -2))
-    allowed = banded_attention_mask(t, band, q.device) & (
-        torch.arange(t, device=q.device) < valid_len
-    )[None, :]
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the forward with LSE: (o (N, H, T, Dh) in q's type,
+    lse (N*H, T) f32 = m + log(max(l, 1e-30)) of the masked row softmax)."""
+    n, h, t, dh = q.shape
+    rnd = _rounder(matmul_dtype)
+    s, _ = _scores(q, k, matmul_dtype)
+    allowed = _allowed(t, band, valid_len, q.device)
     s = torch.where(allowed, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(rnd(p), rnd(v.to(f32))) / l.clamp_min(1e-30)
-    return o.to(q.dtype)
+    o = torch.matmul(rnd(p), rnd(v)) / l.clamp_min(1e-30)
+    lse = (m + torch.log(l.clamp_min(1e-30))).reshape(n * h, t)
+    return o.to(q.dtype), lse
+
+
+def banded_attention_reference(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
+    valid_len: int, matmul_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of the inference forward: (N, H, T, Dh) -> (N, H, T, Dh).
+
+    Matmul operands are rounded to `matmul_dtype` and multiplied in f32, so
+    with bfloat16 it follows the kernel's precision contract (bf16 operands,
+    f32 accumulation) and with float32 it is the f32 attention."""
+    return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)[0]
+
+
+def banded_attention_bwd_reference(
+    q, k, v, o, lse, do, band: int, valid_len: int,
+    matmul_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernels: (dq, dk, dv) in q's type.
+
+    P is recomputed from q.k and the saved LSE where allowed (queries past
+    valid_len included in the mask), delta = rowsum(o * do) in f32,
+    dS = P * (dP - delta) with dP = do.v^T; dq = dS.k * Dh^-1/2,
+    dk = dS^T.(q * Dh^-1/2), dv = P^T.do, every product over rounded
+    operands with f32 accumulation."""
+    n, h, t, dh = q.shape
+    f32 = torch.float32
+    rnd = _rounder(matmul_dtype)
+    s, qs = _scores(q, k, matmul_dtype)
+    allowed = _allowed(t, band, valid_len, q.device, query_valid=True)
+    lse4 = lse.reshape(n, h, t, 1)
+    p = torch.where(allowed, torch.exp(torch.where(allowed, s - lse4, 0.0)), 0.0)
+    dor = rnd(do)
+    dp = torch.matmul(dor, rnd(v).transpose(-1, -2))
+    delta = (o.to(f32) * do.to(f32)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(rnd(ds), rnd(k)) * (1.0 / math.sqrt(dh))
+    dk = torch.matmul(rnd(ds).transpose(-1, -2), qs)
+    dv = torch.matmul(rnd(p).transpose(-1, -2), dor)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bind(lib, name: str, argtypes) -> None:
+    fn = getattr(lib, name)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("banded_attention")
-    fn = lib.banded_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_longlong] * 6
-        + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    )
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # (q, k, v, o, [lse,] n, h, t, sn, sh, st, osn, osh, ost, band, valid,
+    #  scale, bf16, stream)
+    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     lib.banded_attention_error_string.restype = ctypes.c_char_p
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
-def _check_kernel_inputs(q, k, v, matmul_dtype) -> None:
+@functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("banded_attention_bwd")
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    # (q, k, v, o, do, lse, grad outputs, n, h, t, q/k/v strides, o/do/grad
+    #  strides, band, valid, scale, bf16, stream)
+    _bind(lib, "banded_attention_bwd_dq", [p] * 7 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dkv", [p] * 8 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    lib.banded_attention_bwd_error_string.restype = ctypes.c_char_p
+    lib.banded_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
+    """Every tensor: the first one's device, type, shape and strides, a
+    contiguous head dim, strides in multiples of 4 elements, 16-byte
+    aligned."""
     if matmul_dtype != torch.bfloat16:
-        raise ValueError("the CUDA kernel computes with bf16 operands; "
+        raise ValueError("the CUDA kernels compute with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
-    for name, a in (("q", q), ("k", k), ("v", v)):
-        if a.device != q.device:
-            raise ValueError(f"{name} is on {a.device}, q on {q.device}")
-        if a.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {a.dtype}")
-        if a.shape != q.shape:
-            raise ValueError(f"{name} has shape {tuple(a.shape)}, q {tuple(q.shape)}")
-        if a.stride() != q.stride():
-            raise ValueError("q, k and v must share strides")
+    (first_name, first), *_ = tensors.items()
+    if first.dtype not in ACT_DTYPES:
+        raise TypeError(f"{first_name} must be one of {ACT_DTYPES}, got {first.dtype}")
+    for name, a in tensors.items():
+        if a.device != first.device:
+            raise ValueError(f"{name} is on {a.device}, {first_name} on {first.device}")
+        if a.dtype != first.dtype:
+            raise TypeError(f"{name} is {a.dtype}, {first_name} {first.dtype}")
+        if a.shape != first.shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, {first_name} {tuple(first.shape)}")
+        if a.stride() != first.stride():
+            raise ValueError(f"{name} and {first_name} must share strides")
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if q.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {HEAD_DIM}, got {q.shape[-1]}")
-    if q.stride(-1) != 1 or any(s % 4 for s in q.stride()[:-1]):
+    if first.shape[-1] != HEAD_DIM:
+        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {first.shape[-1]}")
+    if first.stride(-1) != 1 or any(s % 4 for s in first.stride()[:-1]):
         raise ValueError(
             "q/k/v need a contiguous head dim and strides that are multiples "
-            f"of 4 elements, got strides {q.stride()}"
+            f"of 4 elements, got strides {first.stride()}"
         )
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"q is on {q.device}, the current device is "
+    if first.device.index != torch.cuda.current_device():
+        raise ValueError(f"{first_name} is on {first.device}, the current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    n, h, t, _ = q.shape
+    n, h = first.shape[:2]
     if n * h > 65535:
-        raise ValueError(f"N*H = {n * h} exceeds the kernel's grid limit 65535")
+        raise ValueError(f"N*H = {n * h} exceeds the kernels' grid limit 65535")
+
+
+def _check_args(q, band: int, valid_len: int | None) -> int:
+    t = q.shape[-2]
+    valid_len = t if valid_len is None else int(valid_len)
+    if band < 1:
+        raise ValueError(f"band must be >= 1, got {band}")
+    if not 1 <= valid_len <= t:
+        raise ValueError(f"valid_len {valid_len} outside [1, {t}]")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no banded attention for device {q.device}")
+    return valid_len
+
+
+def _heads_out(q: torch.Tensor) -> torch.Tensor:
+    """An (N, T, H, Dh) buffer in q's type, returned as its (N, H, T, Dh)
+    view: the head merge after attention is then a free reshape."""
+    n, h, t, dh = q.shape
+    return torch.empty((n, t, h, dh), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+
+
+def _raise_on(err: int, lib, entry: str, what: str) -> None:
+    if err:
+        msg = getattr(lib, f"{entry}_error_string")(err).decode()
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def _stream(a: torch.Tensor) -> int:
+    return torch.cuda.current_stream(a.device).cuda_stream
+
+
+def _launch_fwd(q, k, v, band, valid_len, with_lse: bool):
+    n, h, t, dh = q.shape
+    out = _heads_out(q)
+    lse = torch.empty((n * h, t), device=q.device, dtype=torch.float32) if with_lse else None
+    lib = _lib()
+    sn, sh, st, _ = q.stride()
+    osn, osh, ost, _ = out.stride()
+    lse_arg = (lse.data_ptr(),) if with_lse else ()
+    fn = lib.banded_attention_fwd_lse if with_lse else lib.banded_attention_fwd
+    err = fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t,
+        sn, sh, st, osn, osh, ost, band, valid_len, 1.0 / math.sqrt(dh),
+        int(q.dtype == torch.bfloat16), _stream(q),
+    )
+    _raise_on(err, lib, "banded_attention", "banded_attention")
+    return out, lse
+
+
+def banded_attention_fwd_lse(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
+    valid_len: int | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Training forward: (o (N, H, T, Dh), lse (N*H, T) f32)."""
+    valid_len = _check_args(q, band, valid_len)
+    if q.device.type == "cpu":
+        return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    out = _launch_fwd(q, k, v, band, valid_len, with_lse=True)
+    banded_attention_fwd_lse.launches += 1
+    return out
+
+
+def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype):
+    # q/k/v share one set of strides, o/do (and the gradients, written in
+    # o's layout) another
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, o=o, do=do)
+    if o.dtype != q.dtype or o.shape != q.shape:
+        raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
+    n, h, t, dh = q.shape
+    if lse.shape != (n * h, t) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be a contiguous f32 ({n * h}, {t}), got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    grads = [_heads_out(q) for _ in range(1 if entry == "dq" else 2)]
+    if grads[0].stride() != o.stride():
+        raise ValueError(f"o must have the (N, T, H, Dh) buffer's strides {grads[0].stride()}, "
+                         f"got {o.stride()}")
+    lib = _bwd_lib()
+    err = getattr(lib, f"banded_attention_bwd_{entry}")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+        lse.data_ptr(), *(g.data_ptr() for g in grads), n, h, t,
+        *q.stride()[:3], *grads[0].stride()[:3], band, valid_len,
+        1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q),
+    )
+    _raise_on(err, lib, "banded_attention_bwd", f"banded_attention_bwd_{entry}")
+    return grads
+
+
+def banded_attention_bwd_dq(
+    q, k, v, o, lse, do, band: int, valid_len: int | None = None,
+    matmul_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """dq of the banded attention, from the forward's o and LSE."""
+    valid_len = _check_args(q, band, valid_len)
+    if q.device.type == "cpu":
+        return banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid_len, matmul_dtype)[0]
+    (dq,) = _launch_bwd("dq", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
+    banded_attention_bwd_dq.launches += 1
+    return dq
+
+
+def banded_attention_bwd_dkv(
+    q, k, v, o, lse, do, band: int, valid_len: int | None = None,
+    matmul_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the banded attention, from the forward's o and LSE."""
+    valid_len = _check_args(q, band, valid_len)
+    if q.device.type == "cpu":
+        return banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid_len, matmul_dtype)[1:]
+    dk, dv = _launch_bwd("dkv", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
+    banded_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class BandedAttention(torch.autograd.Function):
+    """Banded attention with the kernels' backward (LSE forward, then the
+    dq and dk/dv kernels; their plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, band: int, valid_len: int, matmul_dtype):
+        o, lse = banded_attention_fwd_lse(q, k, v, band, valid_len, matmul_dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (band, valid_len, matmul_dtype)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.to(q.dtype)
+        if q.device.type == "cuda" and do.stride() != o.stride():
+            do = _heads_out(q).copy_(do)  # the kernels read do through o's strides
+        dq = banded_attention_bwd_dq(q, k, v, o, lse, do, *ctx.args)
+        dk, dv = banded_attention_bwd_dkv(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 def banded_attention(
@@ -110,34 +336,23 @@ def banded_attention(
     """q, k, v: (N, H, T, Dh) -> (N, H, T, Dh), band half-width L.
 
     `valid_len`: the real (unpadded) length when T was padded; keys at or
-    past it are masked. On a CUDA tensor the kernel reads q/k/v through their
-    strides (head views of a packed qkv projection need no copy) and writes
-    an (N, T, H, Dh) buffer returned as its (N, H, T, Dh) view."""
-    n, h, t, dh = q.shape
-    valid_len = t if valid_len is None else int(valid_len)
-    if band < 1:
-        raise ValueError(f"band must be >= 1, got {band}")
-    if not 1 <= valid_len <= t:
-        raise ValueError(f"valid_len {valid_len} outside [1, {t}]")
+    past it are masked. On a CUDA tensor the kernels read q/k/v through their
+    strides (head views of a packed qkv projection need no copy) and write
+    an (N, T, H, Dh) buffer returned as its (N, H, T, Dh) view. Under grad
+    the call is differentiable through `BandedAttention`; otherwise it is
+    the inference forward (no LSE)."""
+    valid_len = _check_args(q, band, valid_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return BandedAttention.apply(q, k, v, band, valid_len, matmul_dtype)
     if q.device.type == "cpu":
         return banded_attention_reference(q, k, v, band, valid_len, matmul_dtype)
-    if q.device.type != "cuda":
-        raise ValueError(f"no banded attention for device {q.device}")
-    _check_kernel_inputs(q, k, v, matmul_dtype)
-    out = torch.empty((n, t, h, dh), device=q.device, dtype=torch.float32).permute(0, 2, 1, 3)
-    lib = _lib()
-    sn, sh, st, _ = q.stride()
-    osn, osh, ost, _ = out.stride()
-    err = lib.banded_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, h, t,
-        sn, sh, st, osn, osh, ost, band, valid_len, 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err:
-        msg = lib.banded_attention_error_string(err).decode()
-        raise RuntimeError(f"banded_attention kernel launch failed: CUDA error {err} ({msg})")
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    out, _ = _launch_fwd(q, k, v, band, valid_len, with_lse=False)
     banded_attention.launches += 1
     return out
 
 
 banded_attention.launches = 0
+banded_attention_fwd_lse.launches = 0
+banded_attention_bwd_dq.launches = 0
+banded_attention_bwd_dkv.launches = 0

@@ -2,19 +2,22 @@
 
 Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled by
 nvcc for sm_90a into a shared library under the package's `build/` directory
-(named by a hash of the source, so an edited source rebuilds), then loaded
-with ctypes. Nothing here runs at import time, and nothing here imports
-torch's CUDA pieces.
+(named by a hash of the source and the shared `csrc/*.cuh` headers, so an
+edited source rebuilds), then loaded with ctypes. `build_all` starts one nvcc
+per source at once. Nothing here runs at import time, and nothing here
+imports torch's CUDA pieces.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -24,7 +27,8 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
-_lock = threading.Lock()
+_lock = threading.Lock()  # guards _name_locks
+_name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": compile seconds (0.0 when a built library was reused),
 #          "log": nvcc's output, including ptxas register/shared-memory lines}
@@ -44,14 +48,23 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
+def _digest(src: str) -> str:
+    h = hashlib.sha256()
+    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
 def load_library(name: str) -> ctypes.CDLL:
     """Compile `csrc/<name>.cu` if its library is missing, then load it."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        with open(src, "rb") as f:
-            digest = hashlib.sha256(f.read()).hexdigest()[:16]
+        digest = _digest(src)
         lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         if os.path.isfile(lib_path):
             build_info[name] = {"seconds": 0.0, "log": "reused " + lib_path}
@@ -76,3 +89,10 @@ def load_library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(lib_path)
         _libs[name] = lib
         return lib
+
+
+def build_all(names) -> None:
+    """Build (or reuse) several libraries at once, one nvcc process each."""
+    names = list(names)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        list(pool.map(load_library, names))

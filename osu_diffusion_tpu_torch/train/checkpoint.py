@@ -1,7 +1,12 @@
-"""Checkpoints for the port: reference `.pt` files and the JAX parameter tree.
+"""Checkpoints for the port: reference `.pt` files, the train state, and the
+JAX parameter tree.
 
 The port's modules carry the reference torch state-dict names (see
 models/dit.py), so a reference checkpoint loads with `load_state_dict`.
+A training checkpoint is one `torch.save` dict in the reference layout,
+{"model", "ema", "opt", "args", "step"}, written as
+`<checkpoint dir>/<step, 7 digits>.pt`; `load_checkpoint` takes its EMA
+weights for sampling.
 `state_dict_from_jax_params` converts the JAX package's flax tree (as numpy
 arrays, no jax needed) into that layout; it mirrors
 osu_diffusion_tpu/train/checkpoint.py:params_to_torch_state_dict.
@@ -91,16 +96,44 @@ def state_dict_from_jax_params(
     return sd
 
 
-def load_checkpoint(ckpt_path: str) -> dict[str, Any]:
-    """State dict from a reference `.pt` file: a training checkpoint
-    {"model", "ema", "opt", "scaler", "args"} (the EMA weights when there
-    are any) or a raw state dict. Loaded with torch's weights-only
-    unpickler."""
+def load_train_checkpoint(ckpt_path: str) -> dict[str, Any]:
+    """The whole dict of a `.pt` file, loaded on the CPU with torch's
+    weights-only unpickler."""
     if not os.path.isfile(ckpt_path):
         raise FileNotFoundError(f"no DiT checkpoint at {ckpt_path}")
     # reference training checkpoints also pickle their argparse Namespace
     with torch.serialization.safe_globals([argparse.Namespace]):
-        ckpt = torch.load(ckpt_path, map_location="cpu", weights_only=True)
+        return torch.load(ckpt_path, map_location="cpu", weights_only=True)
+
+
+def save_checkpoint(checkpoint_dir: str, step: int, model, ema, optimizer, args: dict) -> str:
+    """Write {"model", "ema", "opt", "args", "step"} to
+    `<checkpoint_dir>/<step:07d>.pt` (through a temporary file, so a reader
+    never sees half a checkpoint); returns the path."""
+    path = os.path.join(checkpoint_dir, f"{step:07d}.pt")
+    tmp = f"{path}.{os.getpid()}.tmp"
+    torch.save({"model": model.state_dict(), "ema": ema.state_dict(),
+                "opt": optimizer.state_dict(), "args": dict(args), "step": int(step)}, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def latest_checkpoint(checkpoint_dir: str) -> str | None:
+    """The checkpoint of the highest step in `checkpoint_dir`, or None."""
+    if not os.path.isdir(checkpoint_dir):
+        return None
+    steps = [name[:-3] for name in os.listdir(checkpoint_dir)
+             if name.endswith(".pt") and name[:-3].isdigit()]
+    if not steps:
+        return None
+    return os.path.join(checkpoint_dir, max(steps, key=int) + ".pt")
+
+
+def load_checkpoint(ckpt_path: str) -> dict[str, Any]:
+    """State dict from a reference `.pt` file: a training checkpoint
+    {"model", "ema", "opt", "args", ...} (the EMA weights when there are
+    any) or a raw state dict. Loaded with torch's weights-only unpickler."""
+    ckpt = load_train_checkpoint(ckpt_path)
     for key in ("ema", "model"):
         if key in ckpt:
             ckpt = ckpt[key]

@@ -1,0 +1,105 @@
+"""One training step: featurize, loss, backward, AdamW, EMA (port of
+osu_diffusion_tpu/parallel/train_step.py, one device).
+
+The step's random draws (flip bits, time offsets, timesteps, noise, the
+label-drop mask) come from an explicit `torch.Generator`, or are handed in
+whole as `draws` so a test can feed in the JAX step's draws. The residual
+stream runs in `dtype` (bf16 in training) over f32 master weights; the
+optimizer state and the EMA are f32.
+"""
+from __future__ import annotations
+
+import copy
+from typing import NamedTuple
+
+import torch
+
+from osu_diffusion_tpu_torch.data.process import draw_flips, process_batch
+from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion
+from osu_diffusion_tpu_torch.models.dit import DiT
+
+
+class StepDraws(NamedTuple):
+    flip_x: torch.Tensor    # (N,) bool
+    flip_y: torch.Tensor    # (N,) bool
+    offset01: torch.Tensor  # (N, 1) uniform in [0, 1): the window's time offset
+    t: torch.Tensor         # (N,) int64 local timesteps
+    noise: torch.Tensor     # (N, T, 2) f32
+    drop: torch.Tensor      # (N,) bool label-drop mask
+
+
+def make_optimizer(params, lr: float = 1e-4) -> torch.optim.AdamW:
+    """AdamW with the reference's settings: lr 1e-4, betas (0.9, 0.999),
+    eps 1e-8 and weight decay 0 (torch's default decay is 0.01)."""
+    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+
+
+def make_ema(model: DiT) -> DiT:
+    """The EMA model starts as a copy of the weights."""
+    return copy.deepcopy(model).requires_grad_(False)
+
+
+@torch.no_grad()
+def update_ema(ema: DiT, model: DiT, decay: float = 0.9999) -> None:
+    """ema = ema * decay + params * (1 - decay), over every parameter."""
+    ema_params = list(ema.parameters())
+    params = list(model.parameters())
+    torch._foreach_mul_(ema_params, decay)
+    torch._foreach_add_(ema_params, params, alpha=1.0 - decay)
+
+
+def draw_step(n: int, t_len: int, num_timesteps: int, dropout_prob: float, device,
+              generator: torch.Generator | None = None) -> StepDraws:
+    """A step's draws, in a fixed order from one generator; t is uniform in
+    [0, num_timesteps)."""
+    flip_x, flip_y = draw_flips((n,), generator, device)
+    offset01 = torch.rand((n, 1), generator=generator, device=device)
+    t = torch.randint(0, num_timesteps, (n,), generator=generator, device=device)
+    noise = torch.randn((n, t_len, 2), generator=generator, device=device)
+    drop = torch.rand((n,), generator=generator, device=device) < dropout_prob
+    return StepDraws(flip_x, flip_y, offset01, t, noise, drop)
+
+
+def loss_terms(model: DiT, diffusion: GaussianDiffusion, batch, draws: StepDraws,
+               band: int | None, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+    """Per-sample {loss, l1|mse, vb} of one batch (raw (N, T, 19), prev_xy
+    (N, 2), labels (N,)) under the given draws, with grad."""
+    raw, prev_xy, y = batch
+    x, o, c = process_batch(raw, prev_xy, flips=(draws.flip_x, draws.flip_y),
+                            offset01=draws.offset01)
+
+    def model_fn(xt, tt):
+        return model(xt, tt, o, c, y, band=band, train=True, drop=draws.drop, dtype=dtype).float()
+
+    return diffusion.training_losses(model_fn, x, draws.t, draws.noise)
+
+
+def train_step(
+    model: DiT,
+    ema: DiT,
+    optimizer: torch.optim.Optimizer,
+    diffusion: GaussianDiffusion,
+    batch,
+    *,
+    band: int | None,
+    dtype: torch.dtype = torch.bfloat16,
+    generator: torch.Generator | None = None,
+    draws: StepDraws | None = None,
+    max_timestep: int | None = None,
+    ema_decay: float = 0.9999,
+) -> dict[str, torch.Tensor]:
+    """One optimizer step on `batch`; returns the step's mean {loss, l1|mse,
+    vb} as device scalars (no host sync). `max_timestep` caps the timestep
+    draw (1 trains t = 0 only, the refine model)."""
+    raw = batch[0]
+    if draws is None:
+        t_hi = diffusion.num_timesteps if max_timestep is None else max_timestep
+        draws = draw_step(raw.shape[0], raw.shape[1], t_hi, model.y_embedder.dropout_prob,
+                          raw.device, generator)
+    terms = loss_terms(model, diffusion, batch, draws, band, dtype)
+    loss = terms["loss"].mean()
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    optimizer.step()
+    update_ema(ema, model, ema_decay)
+    return {k: v.detach().mean() for k, v in terms.items()}

@@ -1,20 +1,27 @@
-"""The PyTorch port never imports jax or flax, directly or through any
-import chain, and importing it builds nothing and needs no CUDA."""
+"""The PyTorch port never imports jax, flax or any module of the JAX package
+(`osu_diffusion_tpu`, `osu_diffusion_tpu.*`), directly or through any import
+chain, and importing it builds nothing and needs no CUDA."""
 import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# modules the port may never pull in: jax and its kin, and the JAX package
+# (whose jax-free modules are copied into the port instead)
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "osu_diffusion_tpu")
 
 PROBE = r"""
 import importlib, pkgutil, sys
 import osu_diffusion_tpu_torch as pkg
 assert "torch" not in sys.modules, "the package root imports torch"
-import osu_diffusion_tpu_torch.cli  # the sample entry point and all it pulls in
+import osu_diffusion_tpu_torch.cli  # both entry points and all they pull in
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import torch
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "triton"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in FORBIDDEN + ("triton",))
 assert not bad, bad
 assert not torch.cuda.is_initialized()
 from osu_diffusion_tpu_torch.ops import cuda_build
@@ -25,15 +32,28 @@ print("ok")
 
 def test_port_imports_no_jax():
     env = {k: v for k, v in os.environ.items() if not k.startswith(("JAX_", "XLA_"))}
-    res = subprocess.run([sys.executable, "-c", PROBE], cwd=ROOT, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", f"FORBIDDEN = {FORBIDDEN!r}\n" + PROBE],
+                         cwd=ROOT, env=env, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
     assert res.stdout.strip() == "ok"
 
 
+def _launcher_probe(launcher: str) -> subprocess.CompletedProcess:
+    """Run a root launcher as a module (its main not called) and list what
+    of jax or the JAX package it pulled in."""
+    probe = (f"import sys, runpy; runpy.run_path({launcher!r}, run_name='not_main'); "
+             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]; "
+             "assert not bad, bad")
+    return subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+
+
 def test_sample_launcher_imports_no_jax():
-    probe = ("import sys, runpy; runpy.run_path('sample_torch.py', run_name='not_main'); "
-             "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax')]")
-    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
-                         capture_output=True, text=True, timeout=120)
+    res = _launcher_probe("sample_torch.py")
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize("launcher", ["train_torch.py", "chip_smoke.py"])
+def test_train_and_smoke_launchers_import_no_jax(launcher):
+    res = _launcher_probe(launcher)
     assert res.returncode == 0, res.stdout + res.stderr

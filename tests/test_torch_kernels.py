@@ -1,5 +1,8 @@
-"""The two CUDA kernels against their plain versions, and the wrappers'
-dispatch. Imports torch only (no jax), so the card's machine runs it:
+"""The CUDA kernels against their plain versions, and the wrappers'
+dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv)
+and the fused adaLN-MLP (inference and training forward), each alone and
+inside its autograd Function. Imports torch only (no jax), so the card's
+machine runs it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
 
@@ -98,3 +101,132 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     m = torch.zeros(1, 384, device=cuda_device)
     with pytest.raises(ValueError):
         tam.adaln_mlp(x, m, m, m, w1, torch.zeros(1536, device=cuda_device), w1.t(), m[0])
+
+
+def _rel(got, want) -> float:
+    """max |got - want| / max |want|, in f32."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _qkv_heads(n, t, h, dtype, g, device):
+    qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=device).to(dtype)
+    return [a.view(n, t, h, 64).transpose(1, 2) for a in qkv.split(h * 64, dim=-1)]
+
+
+# (T, valid_len, band): the training shape's T = band = 128, T not a tile
+# multiple, valid_len < T, band < T, and rows with no valid key
+TRAIN_ATTN_CASES = [(128, 128, 128), (200, 190, 20), (100, 77, 128), (256, 60, 16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("t,valid,band", TRAIN_ATTN_CASES)
+def test_banded_attention_train_kernels_match_plain(cuda_device, t, valid, band, dtype):
+    """Forward with LSE, dq and dk/dv kernels against the plain versions on
+    the same bf16-rounded operands. Tolerances (of each output's max): o and
+    the gradients 1e-2 (f32 sums in another order can flip one bf16
+    rounding of P or dS, 2^-8 of a term; bf16 outputs are themselves rounded
+    to 2^-8); the LSE 1e-3 absolute (f32 from the same operands)."""
+    g = torch.Generator(device=cuda_device).manual_seed(t + band)
+    n, h = 2, 3
+    q, k, v = _qkv_heads(n, t, h, dtype, g, cuda_device)
+    counts = (tba.banded_attention_fwd_lse.launches, tba.banded_attention_bwd_dq.launches,
+              tba.banded_attention_bwd_dkv.launches)
+    o, lse = tba.banded_attention_fwd_lse(q, k, v, band, valid)
+    do = torch.randn((n, t, h, 64), generator=g, device=cuda_device).to(dtype).permute(0, 2, 1, 3)
+    dq = tba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
+    dk, dv = tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
+    torch.cuda.synchronize()
+    assert (tba.banded_attention_fwd_lse.launches, tba.banded_attention_bwd_dq.launches,
+            tba.banded_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
+    want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
+    assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
+    assert _rel(o, want_o) <= 1e-2
+    valid_rows = want_lse > -1e29  # rows with at least one valid key
+    assert ((lse - want_lse).abs()[valid_rows].max().item()) <= 1e-3
+    assert (lse[~valid_rows] < -1e29).all()
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, w) <= 1e-2, name
+    assert (dq[:, :, valid:] == 0).all() and (dk[:, :, valid:] == 0).all()
+
+
+@pytest.mark.cuda
+def test_banded_attention_function_on_card_matches_cpu(cuda_device):
+    """The autograd Function under grad: one LSE forward, one dq and one
+    dk/dv launch, no inference launch; outputs and gradients against the
+    same Function on the CPU (plain versions), within 1e-2 of each max."""
+    g = torch.Generator().manual_seed(3)
+    n, h, t = 2, 2, 128
+    base = [torch.randn(n, h, t, 64, generator=g).to(torch.bfloat16) for _ in range(4)]
+    results = {}
+    for dev in ("cpu", cuda_device):
+        # fresh leaves on each device (.to("cpu") of a CPU tensor is the tensor itself)
+        q, k, v = (a.detach().to(dev).requires_grad_() for a in base[:3])
+        before = (tba.banded_attention.launches, tba.banded_attention_fwd_lse.launches,
+                  tba.banded_attention_bwd_dq.launches, tba.banded_attention_bwd_dkv.launches)
+        o = tba.banded_attention(q, k, v, t, 100)
+        o.backward(base[3].to(dev))
+        after = (tba.banded_attention.launches, tba.banded_attention_fwd_lse.launches,
+                 tba.banded_attention_bwd_dq.launches, tba.banded_attention_bwd_dkv.launches)
+        if dev != "cpu":
+            assert tuple(b - a for a, b in zip(before, after)) == (0, 1, 1, 1)
+        results[str(dev)] = [a.detach().cpu() for a in (o, q.grad, k.grad, v.grad)]
+    for got, want in zip(results[str(cuda_device)], results["cpu"]):
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384)])
+def test_adaln_mlp_train_kernel_matches_plain(cuda_device, n, t, d, dtype):
+    """The training forward's out, a and mlp against the plain version on
+    the same bf16 operands, within 1e-2 of each max (a bf16 rounding flip of
+    the hidden activation moves mlp by 2^-8 of a term; bf16 out and a are
+    themselves rounded to 2^-8)."""
+    g = torch.Generator(device=cuda_device).manual_seed(d + t)
+
+    def rnd(*shape, std):
+        return torch.randn(shape, generator=g, device=cuda_device) * std
+
+    x, mod = rnd(n, t, d, std=1.0).to(dtype), rnd(n, 6 * d, std=0.3)
+    shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+    w1 = rnd(d, 4 * d, std=d ** -0.5).to(torch.bfloat16)
+    w2 = rnd(4 * d, d, std=(4 * d) ** -0.5).to(torch.bfloat16)
+    b1, b2 = rnd(4 * d, std=0.02), rnd(d, std=0.02)
+    w1p, w2p = tam.pack_weights(w1, w2)
+    before = tam.adaln_mlp_train.launches
+    out, a, mlp = tam.adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)
+    torch.cuda.synchronize()
+    assert tam.adaln_mlp_train.launches == before + 1
+    want = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.bfloat16)
+    assert out.dtype == a.dtype == dtype and mlp.dtype == torch.float32
+    assert a.shape == (n, t, 4 * d) and mlp.shape == (n, t, d)
+    for name, got, w in zip(("out", "a", "mlp"), (out, a, mlp), want):
+        assert _rel(got, w) <= 1e-2, name
+    # the inference kernel gives the training forward's out
+    assert torch.equal(tam.adaln_mlp(x, shift, scale, gate, w1p, b1, w2p, b2), out)
+
+
+@pytest.mark.cuda
+def test_adaln_mlp_function_on_card_matches_cpu(cuda_device):
+    """AdalnMlp under grad on the card (kernel forward, f32-result bf16
+    matmuls in the backward) against the CPU Function: the output and all
+    eight gradients within 1e-2 of each max."""
+    g = torch.Generator().manual_seed(4)
+    n, t, d = 2, 64, 384
+    x = torch.randn(n, t, d, generator=g).to(torch.bfloat16)
+    mods = [torch.randn(n, d, generator=g) * 0.3 for _ in range(3)]
+    fc1_w, fc2_w = torch.randn(4 * d, d, generator=g) * d ** -0.5, torch.randn(d, 4 * d, generator=g) * (4 * d) ** -0.5
+    b1, b2 = torch.randn(4 * d, generator=g) * 0.02, torch.randn(d, generator=g) * 0.02
+    gout = torch.randn(n, t, d, generator=g).to(torch.bfloat16)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        ins = [a.detach().to(dev).requires_grad_() for a in (x, *mods, fc1_w, b1, fc2_w, b2)]
+        out = tam.AdalnMlp.apply(*ins, 1e-6, torch.bfloat16)
+        out.backward(gout.to(dev))
+        results[str(dev)] = [out.detach().cpu()] + [a.grad.cpu() for a in ins]
+    for got, want in zip(results[str(cuda_device)], results["cpu"]):
+        assert _rel(got, want) <= 1e-2

@@ -189,9 +189,10 @@ def test_sampler_slice_matches_jax(tmp_path):
     from osu_diffusion_tpu.data import beatmap_to_sequence as jax_featurize
     from osu_diffusion_tpu.data.process import split_and_process_sequence_no_augment as jax_split
     from osu_diffusion_tpu.diffusion import create_diffusion as jax_create
-    from osu_diffusion_tpu.export import create_beatmap
     from osu_diffusion_tpu.sampling import Sampler as JaxSampler
+    from osu_diffusion_tpu_torch.beatmap import Beatmap as PortBeatmap
     from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+    from osu_diffusion_tpu_torch.export import create_beatmap
     from osu_diffusion_tpu_torch.data.process import split_and_process_sequence_no_augment
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
     from osu_diffusion_tpu_torch.sampling import Sampler
@@ -203,7 +204,8 @@ def test_sampler_slice_matches_jax(tmp_path):
     y = np.array([3, CLASSES])
 
     (_, jo, jc), t_real = jax_split(jnp.asarray(jax_featurize(beatmap)))
-    seq = beatmap_to_sequence(beatmap)
+    port_beatmap = PortBeatmap.from_path(FIXTURE)  # the port parses with its own copy
+    seq = beatmap_to_sequence(port_beatmap)
     (_, to, tc), _ = split_and_process_sequence_no_augment(torch.from_numpy(seq))
     assert 20 <= t_real <= 48
     z_half = np.random.RandomState(2).randn(1, t_real, 2).astype(np.float32)
@@ -232,7 +234,7 @@ def test_sampler_slice_matches_jax(tmp_path):
 
     out_seq = np.concatenate([got[0], seq[:, 2:]], axis=-1)
     path = str(tmp_path / "port.osu")
-    create_beatmap(out_seq, beatmap, "port slice").write_path(path)
+    create_beatmap(out_seq, port_beatmap, "port slice").write_path(path)
     assert len(Beatmap.from_path(path).hit_objects()) == len(beatmap.hit_objects())
 
 

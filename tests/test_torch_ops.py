@@ -81,6 +81,7 @@ def test_featurize_and_process_match_jax(path):
     embedding within the sincos bound above, doubled for that ulp."""
     from osu_diffusion_tpu.beatmap import Beatmap
     from osu_diffusion_tpu.data.featurize import beatmap_to_sequence as jax_featurize
+    from osu_diffusion_tpu_torch.beatmap import Beatmap as PortBeatmap
     from osu_diffusion_tpu.data.process import calc_distances as jax_distances
     from osu_diffusion_tpu.data.process import split_and_process_sequence_no_augment as jax_split
     from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
@@ -89,9 +90,9 @@ def test_featurize_and_process_match_jax(path):
         split_and_process_sequence_no_augment,
     )
 
-    beatmap = Beatmap.from_path(path)
-    seq = beatmap_to_sequence(beatmap)
-    np.testing.assert_array_equal(seq, jax_featurize(beatmap))
+    # each package parses with its own beatmap layer
+    seq = beatmap_to_sequence(PortBeatmap.from_path(path))
+    np.testing.assert_array_equal(seq, jax_featurize(Beatmap.from_path(path)))
 
     (x, o, c), t = split_and_process_sequence_no_augment(torch.from_numpy(seq))
     # JAX side on a 64-row padded copy: a few shapes to compile, not one per
