@@ -35,6 +35,19 @@ Phases (any failure raises and exits non-zero):
 8. One DiT-B training step at batch 4, card (kernels) against CPU (plain
    versions), same weights and draws: the L1 loss's terms (loss, l1, vb),
    then the MSE loss and every parameter gradient.
+9. The int8 weight-only kernels (`[quant]`): the adaLN projection
+   (int8_matmul), the qkv projection with LayerNorm and modulation folded
+   in (int8_modulated_matmul), the out projection with gate and residual
+   (int8_out_residual) and the int8 fused MLP (adaln_mlp_quant), against
+   their plain versions with the same bf16 operands and int8 codes and
+   against the f32 dequantised ones, at the DiT-B sampling shapes and ragged
+   ones; each timed beside the cuBLAS bf16 product of its shape.
+10. The sample CLI with --quantize-weights (`[slice-int8]`), as in 5: every
+   int8 kernel and banded attention launched steps x depth times, the f32
+   MLP kernel never; seconds per denoise step beside the f32 run's, and a
+   profile. Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
+   and its gap to the f32 forward on the card (the quantisation error,
+   printed, not checked).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -92,6 +105,14 @@ FORWARD_REL_TOL = 2e-2
 STEP_GRAD_REL_TOL = 5e-2
 STEP_LOSS_REL_TOL = 1e-2
 
+# the int8 kernels, max |kernel - plain| / max |plain|. Against the same
+# bf16 operands and int8 codes: f32 sums in another order, and where a
+# LayerNorm or GELU comes first an ulp-level difference that flips one bf16
+# rounding of an operand (2^-8 of one term). Against the f32 dequantised
+# plain version: bf16 rounding of the activations (2^-9) over K-term sums.
+QUANT_TOL_BF16 = 2e-3
+QUANT_TOL_F32 = 1e-2
+
 # published H100 SXM peaks (NVIDIA's data sheet): the bound of a kernel is
 # the larger of its bytes over HBM_BPS and its bf16 operations over BF16_FLOPS
 HBM_BPS = 3.35e12
@@ -126,14 +147,40 @@ TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA e
 PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 
 
+def host_us(fn, iters=50):
+    """Mean host microseconds per call of fn() back to back, without
+    waiting for the card (the launch path's Python and enqueue cost)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - start) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean milliseconds per call of fn(), with CUDA events."""
+    """Mean device milliseconds per call of fn(), with CUDA events. A spin
+    kernel holds the stream while the host enqueues the timed calls, so the
+    events time the calls' device work back to back and not the host's
+    launch path (the card runs a 20-us kernel faster than the host launches
+    it)."""
     import torch
 
     for _ in range(warmup):
         fn()
+    torch.cuda.synchronize()
+    host = time.perf_counter()
+    fn()
+    host = time.perf_counter() - host  # one call's enqueue while the card is idle
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # ~2 GHz bounds the SM clock from above, so this spins at least as long
+    torch.cuda._sleep(int(min(2.0, 2 * iters * host + 1e-3) * 2e9))
     start.record()
     for _ in range(iters):
         fn()
@@ -193,7 +240,7 @@ def phase_build():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp")
+    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp", "int8_matmul")
     wall = time.perf_counter()
     cuda_build.build_all(names)  # one nvcc per source, all at once
     print(f"[build] {len(names)} libraries in {time.perf_counter() - wall:.1f} s wall")
@@ -444,6 +491,122 @@ def phase_mlp_train(dev):
     return result
 
 
+def phase_quant(dev):
+    """Rows 10-13 against their plain versions (bf16 operands and int8
+    codes, and the f32 dequantised math), the DiT-B sampling shape of each
+    first; times, bounds and the cuBLAS bf16 product of the same shape."""
+    import torch
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import quant as tq
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def rnd(*shape, std=1.0):
+        return torch.randn(shape, generator=g, device=dev) * std
+
+    def weight(m, k):  # (codes (M, K), scale (M,)) of unit-variance outputs
+        return tq.quantize_weight(rnd(m, k, std=k ** -0.5))
+
+    def qkv_like(n, t, d, m):
+        mod = rnd(n, 6 * d, std=0.3)
+        return (rnd(n, t, d), mod[:, :d], mod[:, d:2 * d], *weight(m, d), rnd(m, std=0.02))
+
+    def out_like(n, t, d, m):
+        return (rnd(n, t, d), rnd(n, t, d), rnd(n, 6 * d, std=0.3)[:, 2 * d:3 * d], *weight(d, d),
+                rnd(d, std=0.02))
+
+    def mlp_like(n, t, d, m):
+        mod = rnd(n, 6 * d, std=0.3)
+        (w1q, s1), (w2q, s2) = weight(4 * d, d), weight(d, 4 * d)
+        return (rnd(n, t, d), mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:],
+                w1q.t(), s1, rnd(4 * d, std=0.02), w2q.t(), s2, rnd(d, std=0.02))
+
+    def adaln_like(lead, k, m, act):
+        return (rnd(*lead, k), *weight(m, k), rnd(m, std=0.02), act)
+
+    def mlp_kernel(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2):
+        w1p, w2p = am.pack_weights(w1q, w2q, torch.int8)
+        return am.adaln_mlp_quant(x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2)
+
+    def mlp_plain(*args, matmul_dtype):
+        return am.adaln_mlp_quant_reference(*args, 1e-6, matmul_dtype)
+
+    def matmul_plain(x, wq, s, b, act, matmul_dtype):
+        return tq.int8_matmul_reference(x, wq, s, b, act, matmul_dtype)
+
+    # name -> (kernel, plain(*args, matmul_dtype), inputs, cases (the main
+    # path's shape first), (bytes args, flops, cuBLAS product shapes) of a case)
+    kernels = {
+        "int8_matmul": (tq.int8_matmul, matmul_plain, adaln_like, [
+            ("main", (2,), 768, 4608, None), ("r1", (1,), 768, 4608, None),
+            ("ragged_rows_gelu", (3, 37), 768, 2304, "gelu_tanh"),
+            ("m_not_64_gelu", (100,), 64, 96, "gelu_tanh"), ("k1024", (8, 128), 1024, 1000, None)]),
+        "int8_modulated_matmul": (
+            tq.int8_modulated_matmul,
+            lambda *a, matmul_dtype: tq.int8_modulated_matmul_reference(*a, 1e-6, matmul_dtype),
+            qkv_like, [("main", 2, 768, 768, 2304), ("t757", 2, 757, 768, 2304),
+                       ("ragged_t", 3, 50, 768, 2304), ("n8_d384", 8, 128, 384, 1152),
+                       ("n6_d1024", 6, 128, 1024, 3072), ("m_not_64", 2, 40, 768, 1000)]),
+        "int8_out_residual": (
+            tq.int8_out_residual, tq.int8_out_residual_reference, out_like,
+            [("main", 2, 768, 768, 768), ("t757", 2, 757, 768, 768), ("ragged_t", 3, 50, 768, 768),
+             ("n8_d384", 8, 128, 384, 384), ("n6_d1024", 6, 128, 1024, 1024)]),
+        "adaln_mlp_quant": (mlp_kernel, mlp_plain, mlp_like, [
+            ("main", 2, 768, 768, 3072), ("t757", 2, 757, 768, 3072), ("ragged_t", 3, 50, 768, 3072),
+            ("n8_d384", 8, 128, 384, 1536), ("n6_d1024", 6, 128, 1024, 4096)]),
+    }
+    results = {}
+    for name, (kernel, plain, make, cases) in kernels.items():
+        for case, *shape in cases:
+            args = make(*shape)
+            got = kernel(*args)
+            torch.cuda.synchronize()
+            want16 = plain(*args, matmul_dtype=bf16)
+            want32 = plain(*args, matmul_dtype=f32)
+            e16, e32 = rel_err(got, want16), rel_err(got, want32)
+            print(f"[quant] {name} {case}: {shape} max_abs_err bf16={max_err(got, want16):.3e} "
+                  f"f32={max_err(got, want32):.3e}; of max |plain| bf16={e16:.2e} (tol "
+                  f"{QUANT_TOL_BF16}) f32={e32:.2e} (tol {QUANT_TOL_F32})")
+            check(got.shape == want16.shape and bool(torch.isfinite(got).all()),
+                  f"{name} {case}: shape {tuple(got.shape)} or non-finite output")
+            check(e16 <= QUANT_TOL_BF16, f"{name} {case}: {e16} > {QUANT_TOL_BF16}")
+            check(e32 <= QUANT_TOL_F32, f"{name} {case}: {e32} > {QUANT_TOL_F32}")
+            if case != "main":
+                continue
+            if name == "adaln_mlp_quant":
+                x, w1q, w2q = args[0], args[4], args[7]
+                rows, d, h = x.shape[0] * x.shape[1], x.shape[2], w1q.shape[1]
+                w1p, w2p = am.pack_weights(w1q, w2q, torch.int8)
+                moved = nbytes(*args[:4], w1p, *args[5:7], w2p, *args[8:], got)
+                flops = 4 * rows * d * h
+                products = [(rows, d, h), (rows, h, d)]
+                ms = cuda_ms(lambda: am.adaln_mlp_quant(*args[:4], w1p, *args[5:7], w2p, *args[8:]))
+            else:
+                tensors = [a for a in args if isinstance(a, torch.Tensor)]
+                wq = tensors[-3]
+                rows, k, m = got.numel() // got.shape[-1], wq.shape[1], wq.shape[0]
+                moved = nbytes(*tensors, got)
+                flops = 2 * rows * k * m
+                products = [(rows, k, m)]
+                ms = cuda_ms(lambda: kernel(*args))
+            launch_us = host_us(lambda: kernel(*args) if name != "adaln_mlp_quant" else
+                                am.adaln_mlp_quant(*args[:4], w1p, *args[5:7], w2p, *args[8:]))
+            plain_ms = cuda_ms(lambda: plain(*args, matmul_dtype=f32))
+            mats = [(torch.randn(r, k, device=dev, dtype=bf16), torch.randn(k, c, device=dev, dtype=bf16))
+                    for r, k, c in products]
+            cublas_ms = cuda_ms(lambda: [torch.mm(a, b, out_dtype=f32) for a, b in mats])
+            b = bound(moved, flops)
+            print(f"[quant] {name} main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {moved / 1e6:.2f} MB, "
+                  f"{flops:.3e} FLOP); yardstick, not the same function: cuBLAS bf16 product(s) "
+                  f"{products} alone {cublas_ms:.4f} ms; no single PyTorch call computes it; "
+                  f"host {launch_us:.1f} us per call")
+            results[name] = {"max_abs_err": max_err(got, want16), "ms": ms, "plain_ms": plain_ms,
+                             **b, "library_ms": None, "cublas_product_ms": cublas_ms}
+    return results
+
+
 def random_state_dict(model, generator):
     """Seeded random weights, none zero: adaLN-Zero's zero adaLN and final
     layer would gate both kernels' outputs out of the result, so those get
@@ -477,23 +640,28 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def phase_slice(dev, ckpt_path, results_dir):
+def phase_slice(dev, ckpt_path, results_dir, quantize=False):
+    """The sample CLI at DiT-B (f32, or int8 with --quantize-weights):
+    launch counts, the written .osu, seconds per denoise step, a profile.
+    Returns (launches of the path's kernels, sampler, its inputs, step ms)."""
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
     from osu_diffusion_tpu_torch import sampling
     from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
 
-    runs = []  # (sampler, inputs, output, chain ms) of each CLI run
+    runs = []  # (sampler, inputs, output, chain ms, host enqueue ms) of each CLI run
     orig_call = sampling.Sampler.__call__
 
     def timed_call(self, *args, **kwargs):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        out = orig_call(self, *args, **kwargs)
+        host = time.perf_counter()
+        out = orig_call(self, *args, **kwargs)  # the chain never waits for the card
+        host = (time.perf_counter() - host) * 1000
         end.record()
         torch.cuda.synchronize()
-        runs.append((self, args, out, start.elapsed_time(end)))
+        runs.append((self, args, out, start.elapsed_time(end), host))
         return out
 
     sampling.Sampler.__call__ = timed_call
@@ -501,7 +669,8 @@ def phase_slice(dev, ckpt_path, results_dir):
             "--num-classes", str(NUM_CLASSES), "--num-sampling-steps", str(STEPS),
             "--cfg-scale", str(CFG_SCALE), "--seq-len", str(BAND), "--seed", str(SEED),
             "--device", dev, "--results-dir", results_dir]
-    args = build_sample_parser().parse_args(argv)
+    tag = "slice-int8" if quantize else "slice"
+    args = build_sample_parser().parse_args(argv + ["--quantize-weights"] * quantize)
 
     buf = io.StringIO()
     read_counts = reset_launch_counts()
@@ -511,30 +680,32 @@ def phase_slice(dev, ckpt_path, results_dir):
     wall = time.perf_counter() - wall
     counts = read_counts()
     depth = len(runs[-1][0].model.blocks)
-    print(f"[slice] launches {counts} (expected {STEPS} steps x depth {depth} = "
-          f"{STEPS * depth} for each inference kernel, 0 for the training ones), wall {wall:.2f} s")
+    path = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
+             "adaln_mlp_quant"] if quantize else ["banded_attention", "adaln_mlp"])
+    print(f"[{tag}] launches {counts} (expected {STEPS} steps x depth {depth} = "
+          f"{STEPS * depth} for each of {path}, 0 for the others), wall {wall:.2f} s")
     check("seq len 757" in buf.getvalue(), "CLI did not report seq len 757")
-    launches = {"banded_attention": STEPS * depth, "adaln_mlp": STEPS * depth}
+    launches = dict.fromkeys(path, STEPS * depth)
     check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
     launches = {name: counts[name] for name in launches}
-    _, _, samples, first_ms = runs[-1]
+    _, _, samples, first_ms, _ = runs[-1]
     check(tuple(samples.shape) == (2, 757, 2), f"samples shape {tuple(samples.shape)}")
     check(bool(torch.isfinite(samples).all()), "non-finite coordinates")
     check(len(written) == 1, written)
     hit_objects = Beatmap.from_path(written[0]).hit_objects()
     check(len(hit_objects) > 0, "the written .osu has no hit objects")
-    print(f"[slice] wrote {written[0]} ({len(hit_objects)} hit objects), "
+    print(f"[{tag}] wrote {written[0]} ({len(hit_objects)} hit objects), "
           f"coords range [{samples.min().item():.3f}, {samples.max().item():.3f}]")
 
     # steady state: the same CLI command again, timed with CUDA events
     with contextlib.redirect_stdout(io.StringIO()):
         sample_main(args)
     sampling.Sampler.__call__ = orig_call
-    sampler, call_args, _, chain_ms = runs[-1]
+    sampler, call_args, _, chain_ms, enqueue_ms = runs[-1]
     step_ms = chain_ms / STEPS
-    print(f"[slice] denoise chain {chain_ms:.2f} ms (first run {first_ms:.2f} ms): "
+    print(f"[{tag}] denoise chain {chain_ms:.2f} ms (first run {first_ms:.2f} ms): "
           f"{step_ms / 1000:.6f} s per denoise step, {1000 / step_ms:.2f} denoise steps/s "
-          f"(DiT-B, T=757 padded to 768, CFG batch 2)")
+          f"(DiT-B, T=757 padded to 768, CFG batch 2); the host enqueued it in {enqueue_ms:.2f} ms")
 
     # device time by kernel over one more chain
     from torch.profiler import ProfilerActivity, profile
@@ -546,15 +717,16 @@ def phase_slice(dev, ckpt_path, results_dir):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
-    print(f"[profile] device time {device_us / 1000:.2f} ms over {STEPS} steps "
+    ptag = "profile-int8" if quantize else "profile"
+    print(f"[{ptag}] device time {device_us / 1000:.2f} ms over {STEPS} steps "
           f"({len(events)} kinds of device op); busy {100 * device_us / 1000 / chain_ms:.1f}% "
           f"of the timed chain")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"[profile]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    return launches, sampler, call_args
+        print(f"[{ptag}]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    return launches, sampler, call_args, step_ms
 
 
-def phase_forward_vs_plain(dev, sampler, call_args):
+def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=None):
     """One DiT-B forward_with_cfg at the sampling inputs (T padded to 768,
     valid 757, band 128) on the card (kernels) and on the CPU (plain bf16
     versions), same weights: the whole model against its plain versions.
@@ -571,31 +743,73 @@ def phase_forward_vs_plain(dev, sampler, call_args):
     t_pad = _bucketed(t_real, sampler.bucket)
     t = torch.full((z.shape[0],), 500, dtype=torch.long)
     outs = {}
+    # name -> (model, device): the card's kernels, the CPU's plain versions,
+    # and the f32 model on the card for the quantisation error
+    runs = {dev: (sampler.model, dev), "cpu": (copy.deepcopy(sampler.model).to("cpu"), "cpu")}
+    if f32_model is not None:
+        runs["f32"] = (f32_model, dev)
     with torch.no_grad():
-        for where in (dev, "cpu"):
-            model = sampler.model if where == dev else copy.deepcopy(sampler.model).to("cpu")
-            x, op, cp = (_pad_time(a.to(where), t_pad) for a in (z, o, c))
+        for where, (model, on) in runs.items():
+            x, op, cp = (_pad_time(a.to(on), t_pad) for a in (z, o, c))
             outs[where] = model.forward_with_cfg(
-                x, t.to(where), op, cp, y.to(where), sampler.cfg_scale,
+                x, t.to(on), op, cp, y.to(on), sampler.cfg_scale,
                 band=sampler.band, valid_len=t_real,
             )[:, :t_real].cpu()
     err = max_err(outs[dev], outs["cpu"])
     rel = err / outs["cpu"].abs().max().item()
-    print(f"[forward] DiT-B forward_with_cfg, card kernels vs CPU plain bf16: "
+    print(f"[{tag}] DiT-B forward_with_cfg, card kernels vs CPU plain bf16: "
           f"max_abs_err {err:.3e}, relative to max |out| {rel:.3e} (tol {FORWARD_REL_TOL})")
-    check(rel <= FORWARD_REL_TOL, f"forward disagrees: {rel} > {FORWARD_REL_TOL}")
+    check(rel <= FORWARD_REL_TOL and bool(torch.isfinite(outs[dev]).all()),
+          f"forward disagrees: {rel} > {FORWARD_REL_TOL}")
+    if f32_model is not None:
+        # the host's cost of one block call, f32 and int8, at these inputs
+        x = _pad_time(z.to(dev), t_pad)
+        with torch.no_grad():
+            h = sampler.model.xoc_embedder(x, _pad_time(o.to(dev), t_pad), _pad_time(c.to(dev), t_pad))
+            cond = sampler.model.t_embedder(t.to(dev)) + sampler.model.y_embedder(y.to(dev))
+            per_block = {name: host_us(lambda m=m: m.blocks[0](h, cond, sampler.band, t_real, m.matmul_dtype))
+                         for name, m in (("f32", f32_model), ("int8", sampler.model))}
+        print(f"[{tag}] host per block call: f32 {per_block['f32']:.1f} us, int8 {per_block['int8']:.1f} us")
+        gap = max_err(outs[dev], outs["f32"])
+        print(f"[{tag}] quantisation error on the card, int8 vs f32 forward (same weights): "
+              f"max_abs {gap:.3e}, relative to max |f32 out| "
+              f"{gap / outs['f32'].abs().max().item():.3e} (printed, not a kernel check)")
+
+
+def phase_in_turns(dev, samplers, call_args):
+    """Seconds per denoise step of each sampler's chain, run in turns (the
+    host's speed drifts within a call; turns keep the comparison fair)."""
+    import torch
+
+    order = list(samplers) + list(samplers)[::-1]
+    step_ms = {name: [] for name in samplers}
+    for name in order:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        samplers[name](*call_args, generator=torch.Generator(device=dev).manual_seed(SEED))
+        end.record()
+        torch.cuda.synchronize()
+        step_ms[name].append(start.elapsed_time(end) / STEPS)
+    print("[slice-int8] in turns " + ", ".join(order) + ": " + "; ".join(
+        f"{name} " + ", ".join(f"{ms / 1000:.6f}" for ms in v) + " s per denoise step"
+        for name, v in step_ms.items()))
+    return {name: sum(v) / len(v) for name, v in step_ms.items()}
 
 
 def reset_launch_counts():
     """Every kernel wrapper's launch count to 0; returns a reader of them."""
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.ops import quant as tq
 
     wrappers = {"banded_attention": ba.banded_attention,
                 "banded_attention_fwd_lse": ba.banded_attention_fwd_lse,
                 "banded_attention_bwd_dq": ba.banded_attention_bwd_dq,
                 "banded_attention_bwd_dkv": ba.banded_attention_bwd_dkv,
-                "adaln_mlp": am.adaln_mlp, "adaln_mlp_train": am.adaln_mlp_train}
+                "adaln_mlp": am.adaln_mlp, "adaln_mlp_train": am.adaln_mlp_train,
+                "int8_matmul": tq.int8_matmul, "int8_modulated_matmul": tq.int8_modulated_matmul,
+                "int8_out_residual": tq.int8_out_residual, "adaln_mlp_quant": am.adaln_mlp_quant}
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
@@ -673,7 +887,7 @@ def phase_train(dev, tmp):
     check(len(losses) == TRAIN_STEPS // 5 and all(math.isfinite(v) for v in losses),
           f"Train Loss lines: {losses}")
     check("Done!" in log, "no Done! in the log")
-    expected = {"banded_attention": 0, "adaln_mlp": 0,  # the inference kernels
+    expected = {**dict.fromkeys(launches, 0),  # the inference kernels
                 "banded_attention_fwd_lse": TRAIN_STEPS * depth * 2,  # forward + remat recompute
                 "adaln_mlp_train": TRAIN_STEPS * depth * 2,
                 "banded_attention_bwd_dq": TRAIN_STEPS * depth,
@@ -795,6 +1009,7 @@ def main() -> int:
     measured = {"banded_attention": phase_attention(dev), "adaln_mlp": phase_mlp(dev)}
     measured.update(phase_attention_train(dev))
     measured["adaln_mlp_train"] = phase_mlp_train(dev)
+    measured.update(phase_quant(dev))
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -802,17 +1017,28 @@ def main() -> int:
         ckpt = os.path.join(tmp, "dit_b_random.pt")
         torch.save({"ema": sd}, ckpt)
         del model, sd
-        launches, sampler, call_args = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
+        launches, sampler, call_args, f32_step_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
         phase_forward_vs_plain(dev, sampler, call_args)
-        del sampler, call_args
+        quant_launches, qsampler, _, int8_step_ms = phase_slice(
+            dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
+        turns = phase_in_turns(dev, {"f32": sampler, "int8": qsampler}, call_args)
+        print(f"[slice-int8] int8 against f32 in this call: {int8_step_ms / 1000:.6f} against "
+              f"{f32_step_ms / 1000:.6f} s per denoise step in the CLI runs "
+              f"({f32_step_ms / int8_step_ms:.3f}x), {turns['int8'] / 1000:.6f} against "
+              f"{turns['f32'] / 1000:.6f} in turns ({turns['f32'] / turns['int8']:.3f}x)")
+        phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
+        launches.update({k: v for k, v in quant_launches.items() if k not in launches})
+        del sampler, qsampler, call_args
         launches.update({k: v for k, v in phase_train(dev, tmp).items() if k not in launches})
     phase_train_step_vs_plain(dev)
 
     attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"
     bwd_src = "osu_diffusion_tpu_torch/csrc/banded_attention_bwd.cu"
     mlp_src = "osu_diffusion_tpu_torch/csrc/adaln_mlp.cu"
+    int8_src = "osu_diffusion_tpu_torch/csrc/int8_matmul.cu"
     attn_ref = "osu_diffusion_tpu/ops/pallas_attention.py"
     mlp_ref = "osu_diffusion_tpu/ops/pallas_mlp.py:53"
+    quant_ref = "osu_diffusion_tpu/ops/pallas_quant.py"
     where = {
         "banded_attention": (attn_src, f"{attn_ref}:72"),
         "adaln_mlp": (mlp_src, mlp_ref),
@@ -820,6 +1046,10 @@ def main() -> int:
         "banded_attention_bwd_dq": (bwd_src, f"{attn_ref}:379"),
         "banded_attention_bwd_dkv": (bwd_src, f"{attn_ref}:461"),
         "adaln_mlp_train": (mlp_src, mlp_ref),
+        "adaln_mlp_quant": (mlp_src, "osu_diffusion_tpu/ops/pallas_mlp.py:184"),
+        "int8_modulated_matmul": (int8_src, f"{quant_ref}:95"),
+        "int8_out_residual": (int8_src, f"{quant_ref}:156"),
+        "int8_matmul": (int8_src, f"{quant_ref}:221"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -4,7 +4,9 @@ sample: reads a beatmap, featurizes its rhythm skeleton, samples new
 coordinates with a DiT checkpoint through classifier-free guidance, and
 writes each result as a .osu file. On a CUDA device every DiT block runs the
 inference kernels (banded attention with band = --seq-len, and the fused
-adaLN-MLP).
+adaLN-MLP). With --quantize-weights the f32 checkpoint is quantized to int8
+weight-only blocks at load (models/quantize.py) and every block runs the
+int8 kernels around the banded attention core instead.
 
 train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
 every block runs the training kernels. The JAX trainer's TPU-only knobs
@@ -31,6 +33,7 @@ from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
 from osu_diffusion_tpu_torch.data.process import split_and_process_sequence_no_augment
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
+from osu_diffusion_tpu_torch.models.quantize import restore_quantized
 from osu_diffusion_tpu_torch.sampling import Sampler, prepare_cfg_inputs
 from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
 from osu_diffusion_tpu_torch.train.trainer import TrainConfig, train
@@ -55,6 +58,9 @@ def build_sample_parser() -> argparse.ArgumentParser:
     parser.add_argument("--num-variants", type=int, default=1)
     parser.add_argument("--results-dir", type=str, default="results")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--quantize-weights", action=argparse.BooleanOptionalAction, default=False,
+                        help="serve int8 weight-only blocks (symmetric per-output-channel "
+                             "absmax/127, quantized at load); embedders and final layer stay f32")
     return parser
 
 
@@ -79,8 +85,12 @@ def sample_main(args) -> list[str]:
     seq_o = seq_o - seq_o[0]
     print(f"seq len {seq_len}")
 
-    model = DiT_models[args.model](num_classes=args.num_classes, context_size=CONTEXT_SIZE)
-    model.load_state_dict(load_checkpoint(args.ckpt))
+    model_kwargs = dict(num_classes=args.num_classes, context_size=CONTEXT_SIZE)
+    if args.quantize_weights:
+        model = restore_quantized(args.ckpt, DiT_models[args.model], **model_kwargs)
+    else:
+        model = DiT_models[args.model](**model_kwargs)
+        model.load_state_dict(load_checkpoint(args.ckpt))
     model.to(device).eval()
     diffusion = create_diffusion(
         str(args.num_sampling_steps), noise_schedule="squaredcos_cap_v2", device=device

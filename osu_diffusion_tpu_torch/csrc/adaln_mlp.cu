@@ -1,9 +1,11 @@
 // Fused adaLN-modulated MLP forward for Hopper, sm_90a: inference, and
-// training with the backward's residuals.
+// training with the backward's residuals, with bf16 weights; and inference
+// with int8 weight-only weights for serving.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_mlp.py, _adaln_mlp_kernel in
 //   inference mode (a_ref = mlp_ref = None; called via _adaln_mlp_fwd_impl)
-//   and in training mode (with_residuals=True, called via _fwd).
+//   and in training mode (with_residuals=True, called via _fwd); and
+//   _adaln_mlp_quant_kernel (:184), the int8 serving variant.
 //
 // Computes the MLP half of a DiT block:
 //   out = x + gate * (fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift))))
@@ -21,6 +23,23 @@
 // each row padded by 8 -> (H / 128, D, 136); w2 (H, D) with each row padded
 // by 8 -> (H, D + 8). Every weight tile the kernel streams is then one
 // contiguous block whose rows already carry the shared-memory padding.
+//
+// int8 weights (entry adaln_mlp_quant_fwd; f32 x only): the same packed
+// layout with int8 codes, and per-output-channel f32 scales s1 (H) and s2
+// (D). Each tile streams half the bytes; once it lands, the CTA upcasts it
+// to bf16 (exact, |q| <= 127) into one more shared tile, which the MMAs
+// read, and the ring stage is refilled at once. s1 scales the fc1
+// accumulator before b1 and GELU; s2 scales the summed fc2 partials before
+// b2 (a scale does not vary along the reduction, so this equals the TPU
+// kernel's per-hidden-block application up to f32 rounding). Bound as
+// below (the MMAs at sampling), with 4.7 MB of weights instead of 9.4; the
+// upcast adds a pass over every tile and one barrier per tile, and its
+// instructions take the MMA warps' issue slots. (Measured on an H100 at
+// DiT-B sampling: with int-to-float conversions in the upcast, 0.372 ms,
+// 1.7x the bf16-weight kernel, and the same 0.372 when tile i + 1 was
+// upcast into a second buffer during tile i with one barrier per tile: the
+// conversions' issue rate cost, not the barrier; the byte-permute upcast
+// of tile_io.cuh took it to 0.312.)
 //
 // What bounds it on the card: at DiT-B sampling (x 2 x 768 x 768, H = 3072)
 // one call is 14.5 GFLOP against 9.4 MB of bf16 weights and 9.4 MB of f32
@@ -61,6 +80,8 @@
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include <cstdint>
+
 #include "tile_io.cuh"
 
 using namespace nvcuda;
@@ -89,12 +110,18 @@ struct Cfg {
   static constexpr int NT = D / 64;           // fc2 output column tiles per warp
 };
 
-template <int D>
+// W: the weight type, __nv_bfloat16 or int8_t (int8 codes upcast on chip)
+template <typename W>
+constexpr bool kInt8 = sizeof(W) == 1;
+
+template <int D, typename W>
 struct __align__(128) Smem {
   __nv_bfloat16 h[BT * Cfg<D>::LDH];       // modulated LN(x), bf16
   __nv_bfloat16 g[BT * LDG];               // gelu(fc1) chunk, bf16
   float s[BT * LDS];                       // fc1 chunk accumulator spill
-  __nv_bfloat16 ring[STAGES][Cfg<D>::STAGE];  // streamed weight tiles
+  W ring[STAGES][Cfg<D>::STAGE];           // streamed weight tiles
+  // int8: the landed tile upcast to bf16, which the MMAs read
+  __nv_bfloat16 wide[kInt8<W> ? Cfg<D>::STAGE : 16];
   unsigned long long full[STAGES];            // mbarrier: the stage's tile landed
 };
 
@@ -132,34 +159,45 @@ __device__ __forceinline__ float gelu_tanh(float v) {
 // Stage weight tile i of this CTA into ring[i % STAGES]; called by one
 // thread. Per 128-wide hidden chunk the tiles are T1 slices of w1 (K1 rows
 // of the chunk's block), then T2 slices of w2 (K2 of the chunk's rows).
-template <int D>
-__device__ __forceinline__ void issue_tile(Smem<D>& sm, int i, int chunk0,
-                                           const __nv_bfloat16* __restrict__ w1p,
-                                           const __nv_bfloat16* __restrict__ w2p) {
+template <int D, typename W>
+__device__ __forceinline__ void issue_tile(Smem<D, W>& sm, int i, int chunk0,
+                                           const W* __restrict__ w1p, const W* __restrict__ w2p) {
   using C = Cfg<D>;
   const int r = i % (C::T1 + C::T2);
   const int chunk = chunk0 + i / (C::T1 + C::T2);
   const unsigned mbar = smem_addr(&sm.full[i % STAGES]);
   const bool fc1 = r < C::T1;
-  const unsigned bytes = (fc1 ? K1 * LDW1 : K2 * C::LDW2) * sizeof(__nv_bfloat16);
-  const __nv_bfloat16* src = fc1 ? w1p + ((long long)chunk * D + r * K1) * LDW1
+  const unsigned bytes = (fc1 ? K1 * LDW1 : K2 * C::LDW2) * sizeof(W);
+  const W* src = fc1 ? w1p + ((long long)chunk * D + r * K1) * LDW1
                                  : w2p + ((long long)chunk * BH + (r - C::T1) * K2) * C::LDW2;
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
                ::"r"(mbar), "r"(bytes) : "memory");
   bulk_copy(sm.ring[i % STAGES], src, bytes, mbar);
 }
 
-template <int D, typename TX>
+// int8 -> bf16 upcast of one landed tile of `elems` codes (a multiple of 8)
+__device__ __forceinline__ void upcast_tile(__nv_bfloat16* dst, const int8_t* src, int elems) {
+  for (int e = threadIdx.x * 8; e < elems; e += THREADS * 8) {
+    const uint2 q = *reinterpret_cast<const uint2*>(src + e);
+    const uint2 lo = tile_io::int8x4_to_bf16x4(q.x);
+    const uint2 hi = tile_io::int8x4_to_bf16x4(q.y);
+    *reinterpret_cast<uint4*>(dst + e) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+}
+
+// s1: null (bf16 weights) or the int8 fc1 weight's per-column scales
+template <int D, typename TX, typename W>
 __global__ void __launch_bounds__(THREADS)
 adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shift,
                          const float* __restrict__ scale, long long mod_stride,
-                         const __nv_bfloat16* __restrict__ w1p, const float* __restrict__ b1,
-                         const __nv_bfloat16* __restrict__ w2p, float* __restrict__ ws,
-                         TX* __restrict__ a_out, int n, int t, int t_pad, int hdim, float eps) {
+                         const W* __restrict__ w1p, const float* __restrict__ s1,
+                         const float* __restrict__ b1, const W* __restrict__ w2p,
+                         float* __restrict__ ws, TX* __restrict__ a_out, int n, int t, int t_pad,
+                         int hdim, float eps) {
   using C = Cfg<D>;
   constexpr int V4 = D / 128;  // float4 per lane in one row
   extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  Smem<D, W>& sm = *reinterpret_cast<Smem<D, W>*>(smem_raw);
 
   const int t0 = blockIdx.x * BT;
   const int nb = blockIdx.y;
@@ -180,7 +218,7 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
   __syncthreads();
   // the first tiles load while the LayerNorm runs
   if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES && i < ntiles; ++i) issue_tile<D>(sm, i, chunk0, w1p, w2p);
+    for (int i = 0; i < STAGES && i < ntiles; ++i) issue_tile<D, W>(sm, i, chunk0, w1p, w2p);
   }
 
   // LayerNorm (two-pass, f32) + modulate -> bf16, one warp per row
@@ -231,8 +269,17 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
   for (int i = 0; i < ntiles; ++i) {
     // tile i is the (i / STAGES)-th use of its stage
     mbar_wait(smem_addr(&sm.full[i % STAGES]), (i / STAGES) & 1);
-    const __nv_bfloat16* buf = sm.ring[i % STAGES];
     const int r = i % (C::T1 + C::T2);
+    const __nv_bfloat16* buf;
+    if constexpr (kInt8<W>) {
+      upcast_tile(sm.wide, sm.ring[i % STAGES], r < C::T1 ? K1 * LDW1 : K2 * C::LDW2);
+      __syncthreads();  // the tile is upcast: its stage takes tile i + STAGES now
+      if (threadIdx.x == 0 && i + STAGES < ntiles)
+        issue_tile<D, W>(sm, i + STAGES, chunk0, w1p, w2p);
+      buf = sm.wide;
+    } else {
+      buf = sm.ring[i % STAGES];
+    }
     if (r < C::T1) {
       // fc1: rows r*K1 .. +K1 of the reduction over D
       if (r == 0) {
@@ -260,7 +307,8 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
         for (int idx = threadIdx.x; idx < BT * BH; idx += THREADS) {
           const int row = idx / BH;
           const int col = idx % BH;
-          const float pre = sm.s[row * LDS + col] + b1[c + col];
+          const float sum = sm.s[row * LDS + col];
+          const float pre = (s1 != nullptr ? sum * s1[c + col] : sum) + b1[c + col];
           if (a_out != nullptr && t0 + row < t)
             a_out[((long long)nb * t + t0 + row) * hdim + c + col] = tile_io::from_float<TX>(pre);
           sm.g[row * LDG + col] = __float2bfloat16_rn(gelu_tanh(pre));
@@ -277,8 +325,11 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
         wmma::mma_sync(acc[j], a, b, acc[j]);
       }
     }
-    __syncthreads();  // every warp is done with tile i: its stage takes tile i + STAGES
-    if (threadIdx.x == 0 && i + STAGES < ntiles) issue_tile<D>(sm, i + STAGES, chunk0, w1p, w2p);
+    __syncthreads();  // every warp is done with tile i: its stage (bf16) takes tile i + STAGES
+    if constexpr (!kInt8<W>) {
+      if (threadIdx.x == 0 && i + STAGES < ntiles)
+        issue_tile<D, W>(sm, i + STAGES, chunk0, w1p, w2p);
+    }
   }
 
   // this split's f32 partial of fc2 (before b2), rows past t included: the
@@ -289,11 +340,12 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
     wmma::store_matrix_sync(wp + (cg * C::NT + j) * 16, acc[j], D, wmma::mem_row_major);
 }
 
-// mlp = b2 + sum over splits of the partials (written when mlp is given),
-// out = x + gate * mlp; four elements per thread
+// mlp = b2 + sum over splits of the partials (int8: b2 + s2 * that sum;
+// written when mlp is given), out = x + gate * mlp; four elements per thread
 template <typename TX>
 __global__ void adaln_mlp_epilogue_kernel(const TX* __restrict__ x, const float* __restrict__ ws,
                                           const float* __restrict__ gate, long long mod_stride,
+                                          const float* __restrict__ s2,
                                           const float* __restrict__ b2, TX* __restrict__ out,
                                           float* __restrict__ mlp, int n, int t, int t_pad, int d,
                                           int split) {
@@ -305,11 +357,17 @@ __global__ void adaln_mlp_epilogue_kernel(const TX* __restrict__ x, const float*
   const long long rowg = e / d;  // nb * t + row
   const int nb = static_cast<int>(rowg / t);
   const int row = static_cast<int>(rowg % t);
-  float4 acc = *reinterpret_cast<const float4*>(b2 + col);
+  const float4 bias = *reinterpret_cast<const float4*>(b2 + col);
+  float4 acc = s2 != nullptr ? make_float4(0.f, 0.f, 0.f, 0.f) : bias;
   for (int s = 0; s < split; ++s) {
     const float4 p = *reinterpret_cast<const float4*>(
         ws + (((long long)s * n + nb) * t_pad + row) * d + col);
     acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
+  }
+  if (s2 != nullptr) {
+    const float4 sc = *reinterpret_cast<const float4*>(s2 + col);
+    acc = make_float4(acc.x * sc.x + bias.x, acc.y * sc.y + bias.y, acc.z * sc.z + bias.z,
+                      acc.w * sc.w + bias.w);
   }
   if (mlp != nullptr) tile_io::store4(mlp + e, acc);
   const float4 xv = tile_io::load4(x + e);
@@ -318,42 +376,42 @@ __global__ void adaln_mlp_epilogue_kernel(const TX* __restrict__ x, const float*
                                        xv.z + g.z * acc.z, xv.w + g.w * acc.w));
 }
 
-template <int D, typename TX>
+template <int D, typename TX, typename W>
 int launch(const void* xv, const float* shift, const float* scale, const float* gate,
-           long long mod_stride, const __nv_bfloat16* w1, const float* b1,
-           const __nv_bfloat16* w2, const float* b2, float* ws, void* outv, void* av,
-           float* mlp, int n, int t, int hdim, int split, float eps, cudaStream_t stream) {
+           long long mod_stride, const W* w1, const float* s1, const float* b1, const W* w2,
+           const float* s2, const float* b2, float* ws, void* outv, void* av, float* mlp, int n,
+           int t, int hdim, int split, float eps, cudaStream_t stream) {
   const auto* x = static_cast<const TX*>(xv);
   auto* out = static_cast<TX*>(outv);
-  const int smem = static_cast<int>(sizeof(Smem<D>));
+  const int smem = static_cast<int>(sizeof(Smem<D, W>));
   cudaError_t err = cudaFuncSetAttribute(
-      adaln_mlp_partial_kernel<D, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      adaln_mlp_partial_kernel<D, TX, W>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int t_pad = (t + BT - 1) / BT * BT;
   const dim3 grid(t_pad / BT, n, split);
-  adaln_mlp_partial_kernel<D, TX><<<grid, THREADS, smem, stream>>>(
-      x, shift, scale, mod_stride, w1, b1, w2, ws, static_cast<TX*>(av), n, t, t_pad, hdim, eps);
+  adaln_mlp_partial_kernel<D, TX, W><<<grid, THREADS, smem, stream>>>(
+      x, shift, scale, mod_stride, w1, s1, b1, w2, ws, static_cast<TX*>(av), n, t, t_pad, hdim, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long total4 = (long long)n * t * D / 4;
   const int blocks = static_cast<int>((total4 + 255) / 256);
-  adaln_mlp_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, ws, gate, mod_stride, b2, out, mlp,
-                                                           n, t, t_pad, D, split);
+  adaln_mlp_epilogue_kernel<TX><<<blocks, 256, 0, stream>>>(x, ws, gate, mod_stride, s2, b2, out,
+                                                           mlp, n, t, t_pad, D, split);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename TX>
+template <typename TX, typename W>
 int dispatch(const void* x, const float* shift, const float* scale, const float* gate,
-             long long mod_stride, const __nv_bfloat16* w1, const float* b1,
-             const __nv_bfloat16* w2, const float* b2, float* ws, void* out, void* a, float* mlp,
-             int n, int t, int d, int hdim, int split, float eps, cudaStream_t s) {
+             long long mod_stride, const W* w1, const float* s1, const float* b1, const W* w2,
+             const float* s2, const float* b2, float* ws, void* out, void* a, float* mlp, int n,
+             int t, int d, int hdim, int split, float eps, cudaStream_t s) {
   switch (d) {
     case 384:
-      return launch<384, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+      return launch<384, TX, W>(x, shift, scale, gate, mod_stride, w1, s1, b1, w2, s2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
     case 768:
-      return launch<768, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+      return launch<768, TX, W>(x, shift, scale, gate, mod_stride, w1, s1, b1, w2, s2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
     case 1024:
-      return launch<1024, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
+      return launch<1024, TX, W>(x, shift, scale, gate, mod_stride, w1, s1, b1, w2, s2, b2, ws, out, a, mlp, n, t, hdim, split, eps, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -377,10 +435,25 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
   const auto* w2b = static_cast<const __nv_bfloat16*>(w2);
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return dispatch<__nv_bfloat16>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, a,
-                                   mlp, n, t, d, hdim, split, eps, s);
-  return dispatch<float>(x, shift, scale, gate, mod_stride, w1b, b1, w2b, b2, ws, out, a, mlp, n,
-                         t, d, hdim, split, eps, s);
+    return dispatch<__nv_bfloat16>(x, shift, scale, gate, mod_stride, w1b, nullptr, b1, w2b,
+                                   nullptr, b2, ws, out, a, mlp, n, t, d, hdim, split, eps, s);
+  return dispatch<float>(x, shift, scale, gate, mod_stride, w1b, nullptr, b1, w2b, nullptr, b2, ws,
+                         out, a, mlp, n, t, d, hdim, split, eps, s);
+}
+
+// The int8 serving forward: x, out f32 (N, T, D) contiguous; w1, w2 int8
+// codes in the packed layout above; s1 (H) and s2 (D) their f32
+// per-output-channel scales; the other arguments as adaln_mlp_fwd's, without
+// residuals. Launches on `stream` without synchronizing; returns
+// cudaGetLastError().
+extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const float* scale,
+                                   const float* gate, long long mod_stride, const void* w1,
+                                   const float* s1, const float* b1, const void* w2,
+                                   const float* s2, const float* b2, float* ws, float* out, int n,
+                                   int t, int d, int hdim, int split, float eps, void* stream) {
+  return dispatch<float>(x, shift, scale, gate, mod_stride, static_cast<const int8_t*>(w1), s1, b1,
+                         static_cast<const int8_t*>(w2), s2, b2, ws, out, nullptr, nullptr, n, t,
+                         d, hdim, split, eps, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* adaln_mlp_error_string(int err) {

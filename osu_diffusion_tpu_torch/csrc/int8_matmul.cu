@@ -1,0 +1,314 @@
+// int8 weight-only projections for serving, for Hopper, sm_90a: one tiled
+// kernel template with three prologue/epilogue variants.
+//
+// Replaces (osu_diffusion_tpu/ops/pallas_quant.py):
+//   PLAIN         _kernel (int8_matmul, :221): act(x @ (w_q * s) + b), act
+//                 none or GELU-tanh; the DiT block's adaLN projection
+//   MODULATED     _modulated_kernel (:95): (LN(x) * (1 + scale) + shift)
+//                 @ (w_q * s) + b, the qkv projection with the non-affine
+//                 two-pass LayerNorm and the adaLN modulation folded in
+//   OUT_RESIDUAL  _out_residual_kernel (:156): res + gate * (o @ (w_q * s)
+//                 + b), the out projection with the gate and the residual
+//                 add folded in
+//
+// Weights are int8 codes in torch's Linear layout, w (M, K) row-major, with
+// a float32 scale s (M) per output channel. Activations in and out are
+// float32. Each CTA computes a (32 rows x 64 columns) output tile at a time:
+// - prologue: the CTA's (32, K) activation tile, rounded to bf16, is
+//   written to shared memory once: x itself (PLAIN, OUT_RESIDUAL), or
+//   LN(x) * (1 + scale) + shift with f32 two-pass statistics over the whole
+//   row, one warp per row held in registers (MODULATED, K <= 1024);
+// - loop: K is walked in 64-deep chunks. Each 64 x 64 int8 weight chunk is
+//   read with 16-byte loads into registers one chunk ahead (the loads of
+//   chunk i + 1 are in flight during the MMAs of chunk i), upcast to bf16
+//   (exact, |q| <= 127) into a double-buffered shared tile, and multiplied
+//   with WMMA bf16 16x16x16, f32 accumulation; four warps, each 16 rows x 32
+//   columns;
+// - epilogue: acc * s + b in f32, then GELU-tanh (PLAIN, when asked) or
+//   res + gate * y (OUT_RESIDUAL); ragged rows and columns are masked.
+// A CTA walks `tiles_per_cta` column tiles with the same activation tile,
+// so the LayerNorm is not redone for every 64 columns; the wrapper picks
+// the count so the grid stays within about two CTAs per SM.
+//
+// What bounds it on the card: at DiT-B sampling (CFG batch 2, T = 768,
+// D = 768) every variant is bound by bytes, not operations: the qkv
+// projection moves 4.7 MB of x, 1.8 MB of int8 weight and 14.2 MB of f32
+// output (6 us at 3.35 TB/s) for 5.4 GFLOP (5.5 us at 989 TFLOP/s bf16);
+// the out projection 14.8 MB; the adaLN projection reads a 3.5 MB int8
+// weight for 2 rows. What stands in the way of that bound here: each row
+// tile re-reads the weight from L2 (48 row tiles x 1.8 MB for qkv), the
+// upcast pass, WMMA instead of wgmma, and a shallow load pipeline at two
+// CTAs per SM; 288 CTAs for qkv and out at two per SM are 1.09 waves.
+// (Measured on an H100 inside the sampling chain, 288-CTA grids, int-to-
+// float upcast: 0.093 ms for qkv, 0.042 for out, 0.015 for adaLN. A
+// 4-stage cp.async ring of int8 chunks three ahead, each thread upcasting
+// its own pieces, was slower for qkv and out, 0.158 and 0.064 ms, and
+// faster only for adaLN, 0.012.) The adaLN
+// projection has 2 rows:
+// a 32-row tile wastes 30 of them, and its grid over M (4608 / 64 = 72
+// CTAs) under-fills the 132 SMs. Those are a later change's levers.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <mma.h>
+
+#include <cstdint>
+
+#include "tile_io.cuh"
+
+using namespace nvcuda;
+
+namespace {
+
+constexpr int BM = 32;           // rows per CTA
+constexpr int BN = 64;           // output columns per tile
+constexpr int BK = 64;           // K depth of one staged weight chunk
+constexpr int WARPS = 4;
+constexpr int THREADS = WARPS * 32;
+constexpr int LDW = BK + 8;      // bf16 row stride of a staged weight chunk
+constexpr int LDC = BN + 4;      // f32 row stride of the accumulator spill
+constexpr int MAX_K = 2048;      // the (32, K) bf16 activation tile fits shared memory
+constexpr int MAX_LN_K = 1024;   // the modulated prologue holds a row in registers
+constexpr int PIECES = BK / 16;  // 16-byte pieces of one weight row's chunk
+constexpr int W_LOADS = BN * PIECES / THREADS;  // 16-byte weight loads per thread per chunk
+constexpr int W_BYTES = 2 * BN * LDW * 2;       // the double-buffered bf16 weight chunk
+constexpr int C_BYTES = BM * LDC * 4;           // the f32 accumulator spill
+
+enum Mode { PLAIN = 0, MODULATED = 1, OUT_RESIDUAL = 2 };
+
+struct Params {
+  const float* x;       // (n, t, k): x, or o for OUT_RESIDUAL
+  const float* shift;   // MODULATED: rows of k, row stride mod_stride
+  const float* scale;
+  const float* gate;    // OUT_RESIDUAL: rows of m, row stride mod_stride
+  long long mod_stride;
+  const int8_t* w;      // (m, k) int8 codes
+  const float* s;       // (m) per-output-channel scale
+  const float* b;       // (m) bias
+  const float* res;     // OUT_RESIDUAL: (n, t, m)
+  float* out;           // (n, t, m)
+  int t, k, m, tiles_per_cta;
+  float eps;
+  int gelu;
+};
+
+int smem_bytes(int k) { return W_BYTES + C_BYTES + BM * (k + 8) * 2; }
+
+__device__ __forceinline__ float gelu_tanh(float v) {
+  const float c0 = 0.7978845608028654f;  // sqrt(2 / pi)
+  return 0.5f * v * (1.f + tanhf(c0 * (v + 0.044715f * v * v * v)));
+}
+
+// this thread's 16-byte pieces of weight chunk kc for columns col0 .. +BN;
+// rows past m read as 0
+__device__ __forceinline__ void load_w(int4 (&r)[W_LOADS], const int8_t* __restrict__ w, int col0,
+                                       int kc, int k, int m) {
+#pragma unroll
+  for (int i = 0; i < W_LOADS; ++i) {
+    const int j = threadIdx.x + i * THREADS;
+    const int row = j / PIECES;
+    r[i] = make_int4(0, 0, 0, 0);
+    if (col0 + row < m)
+      r[i] = *reinterpret_cast<const int4*>(w + (long long)(col0 + row) * k + kc * BK + (j % PIECES) * 16);
+  }
+}
+
+// those pieces upcast to bf16 into the staged chunk (BN rows of BK)
+__device__ __forceinline__ void store_w(__nv_bfloat16* dst, const int4 (&r)[W_LOADS]) {
+#pragma unroll
+  for (int i = 0; i < W_LOADS; ++i) {
+    const int j = threadIdx.x + i * THREADS;
+    uint4* d = reinterpret_cast<uint4*>(dst + (j / PIECES) * LDW + (j % PIECES) * 16);
+    const uint2 a = tile_io::int8x4_to_bf16x4(static_cast<unsigned>(r[i].x));
+    const uint2 b = tile_io::int8x4_to_bf16x4(static_cast<unsigned>(r[i].y));
+    const uint2 c = tile_io::int8x4_to_bf16x4(static_cast<unsigned>(r[i].z));
+    const uint2 e = tile_io::int8x4_to_bf16x4(static_cast<unsigned>(r[i].w));
+    d[0] = make_uint4(a.x, a.y, b.x, b.y);
+    d[1] = make_uint4(c.x, c.y, e.x, e.y);
+  }
+}
+
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a, float b, float c, float d) {
+  __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(dst);
+  p[0] = __floats2bfloat162_rn(a, b);
+  p[1] = __floats2bfloat162_rn(c, d);
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  auto* wbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);                     // [2][BN][LDW]
+  auto* cbuf = reinterpret_cast<float*>(smem_raw + W_BYTES);                   // [BM][LDC]
+  auto* abuf = reinterpret_cast<__nv_bfloat16*>(smem_raw + W_BYTES + C_BYTES);  // [BM][k + 8]
+  const int lda = p.k + 8;
+  const int t0 = blockIdx.y * BM;
+  const int nb = blockIdx.z;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long row0 = (long long)nb * p.t + t0;  // the tile's first row of (n * t)
+  const int m_tiles = (p.m + BN - 1) / BN;
+  const int tile0 = blockIdx.x * p.tiles_per_cta;
+  const int tile1 = min(tile0 + p.tiles_per_cta, m_tiles);
+  const int nk = p.k / BK;
+
+  int4 wr[W_LOADS];  // the next weight chunk, in flight while the prologue runs
+  load_w(wr, p.w, tile0 * BN, 0, p.k, p.m);
+
+  if constexpr (MODE == MODULATED) {
+    // two-pass f32 LayerNorm + modulate -> bf16, one warp per row
+    const float* sh = p.shift + nb * p.mod_stride;
+    const float* sc = p.scale + nb * p.mod_stride;
+    for (int r = warp; r < BM; r += WARPS) {
+      constexpr int V4 = MAX_LN_K / 128;
+      float4 v[V4];
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < V4; ++i) {
+        const int c = (i * 32 + lane) * 4;
+        v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (t0 + r < p.t && c < p.k) v[i] = tile_io::load4(p.x + (row0 + r) * p.k + c);
+        sum += v[i].x + v[i].y + v[i].z + v[i].w;
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      const float mean = sum / p.k;
+      float sq = 0.f;
+#pragma unroll
+      for (int i = 0; i < V4; ++i) {
+        if ((i * 32 + lane) * 4 < p.k) {
+          v[i].x -= mean; v[i].y -= mean; v[i].z -= mean; v[i].w -= mean;
+          sq += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      const float inv = rsqrtf(sq / p.k + p.eps);
+#pragma unroll
+      for (int i = 0; i < V4; ++i) {
+        const int c = (i * 32 + lane) * 4;
+        if (c < p.k) {
+          const float4 s4 = tile_io::load4(sh + c);
+          const float4 k4 = tile_io::load4(sc + c);
+          store_bf16x4(abuf + r * lda + c, v[i].x * inv * (1.f + k4.x) + s4.x,
+                       v[i].y * inv * (1.f + k4.y) + s4.y, v[i].z * inv * (1.f + k4.z) + s4.z,
+                       v[i].w * inv * (1.f + k4.w) + s4.w);
+        }
+      }
+    }
+  } else {
+    // bf16(x); rows past t are 0
+    const int k4 = p.k / 4;
+    for (int idx = threadIdx.x; idx < BM * k4; idx += THREADS) {
+      const int r = idx / k4;
+      const int c = (idx % k4) * 4;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t0 + r < p.t) v = tile_io::load4(p.x + (row0 + r) * p.k + c);
+      store_bf16x4(abuf + r * lda + c, v.x, v.y, v.z, v.w);
+    }
+  }
+
+  const int rt = warp & 1;   // the warp's 16-row half of the tile
+  const int ch = warp >> 1;  // its 32-column half
+  int buf = 0;
+  for (int tile = tile0; tile < tile1; ++tile) {
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
+    wmma::fill_fragment(acc[0], 0.f);
+    wmma::fill_fragment(acc[1], 0.f);
+    for (int kc = 0; kc < nk; ++kc) {
+      // chunk kc into buffer `buf`, whose last readers (the MMAs two chunks
+      // back) passed the barrier of the previous chunk
+      __nv_bfloat16* wb = wbuf + buf * BN * LDW;
+      store_w(wb, wr);
+      __syncthreads();  // the chunk (and, the first time, the activation tile) is written
+      if (kc + 1 < nk)
+        load_w(wr, p.w, tile * BN, kc + 1, p.k, p.m);
+      else if (tile + 1 < tile1)
+        load_w(wr, p.w, (tile + 1) * BN, 0, p.k, p.m);
+#pragma unroll
+      for (int kk = 0; kk < BK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+        wmma::load_matrix_sync(a, abuf + rt * 16 * lda + kc * BK + kk, lda);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // B(k, col) = w[col][k]: the staged chunk read column-major
+          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> bf;
+          wmma::load_matrix_sync(bf, wb + (ch * 32 + j * 16) * LDW + kk, LDW);
+          wmma::mma_sync(acc[j], a, bf, acc[j]);
+        }
+      }
+      buf ^= 1;
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+      wmma::store_matrix_sync(cbuf + rt * 16 * LDC + ch * 32 + j * 16, acc[j], LDC, wmma::mem_row_major);
+    __syncthreads();  // the tile's sums are spilled
+    for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
+      const int r = idx / BN;
+      const int col = tile * BN + idx % BN;
+      if (t0 + r >= p.t || col >= p.m) continue;
+      float y = cbuf[r * LDC + idx % BN] * p.s[col] + p.b[col];
+      const long long o = (row0 + r) * p.m + col;
+      if constexpr (MODE == PLAIN) {
+        if (p.gelu) y = gelu_tanh(y);
+      } else if constexpr (MODE == OUT_RESIDUAL) {
+        y = p.res[o] + p.gate[nb * p.mod_stride + col] * y;
+      }
+      p.out[o] = y;
+    }
+    // the spill is next written after the next tile's first barrier
+  }
+}
+
+template <int MODE>
+int launch(const Params& p, int n, void* stream) {
+  const int limit = MODE == MODULATED ? MAX_LN_K : MAX_K;
+  if (p.k % BK || p.k < BK || p.k > limit || p.m < 1 || p.t < 1 || n < 1 || p.tiles_per_cta < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(p.k);
+  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m_tiles = (p.m + BN - 1) / BN;
+  const dim3 grid((m_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta, (p.t + BM - 1) / BM, n);
+  int8_matmul_kernel<MODE><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Every pointer 16-byte aligned and every array contiguous, except the
+// modulation rows (row stride mod_stride / gate_stride, a multiple of 4).
+// K a multiple of 64, at most 2048 (1024 for the modulated variant). Each
+// launches on `stream` without synchronizing and returns cudaGetLastError().
+
+// out (rows, m) = act(x (rows, k) @ (w * s)^T + b); gelu: 0 or 1
+extern "C" int int8_matmul_fwd(const float* x, const void* w, const float* s, const float* b,
+                               float* out, int rows, int k, int m, int gelu, int tiles_per_cta,
+                               void* stream) {
+  const Params p{x, nullptr, nullptr, nullptr, 0, static_cast<const int8_t*>(w), s, b, nullptr,
+                 out, rows, k, m, tiles_per_cta, 0.f, gelu};
+  return launch<PLAIN>(p, 1, stream);
+}
+
+// out (n, t, m) = (LN(x) * (1 + scale) + shift) @ (w * s)^T + b; x (n, t, k)
+extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, const float* scale,
+                                         long long mod_stride, const void* w, const float* s,
+                                         const float* b, float* out, int n, int t, int k, int m,
+                                         int tiles_per_cta, float eps, void* stream) {
+  const Params p{x, shift, scale, nullptr, mod_stride, static_cast<const int8_t*>(w), s, b,
+                 nullptr, out, t, k, m, tiles_per_cta, eps, 0};
+  return launch<MODULATED>(p, n, stream);
+}
+
+// out (n, t, d) = res + gate * (o @ (w * s)^T + b); o, res (n, t, d); w (d, d)
+extern "C" int int8_out_residual_fwd(const float* o, const float* res, const float* gate,
+                                     long long gate_stride, const void* w, const float* s,
+                                     const float* b, float* out, int n, int t, int d,
+                                     int tiles_per_cta, void* stream) {
+  const Params p{o, nullptr, nullptr, gate, gate_stride, static_cast<const int8_t*>(w), s, b, res,
+                 out, t, d, d, tiles_per_cta, 0.f, 0};
+  return launch<OUT_RESIDUAL>(p, n, stream);
+}
+
+extern "C" const char* int8_matmul_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,7 +1,8 @@
 // Typed 4-element loads and stores shared by the kernels: activations are
 // float32 or bfloat16 (the training stream), and the kernels compute in f32
-// with bf16 matmul operands. Every pointer passed here is aligned to four
-// elements (16 bytes for f32, 8 for bf16); the wrappers check it.
+// with bf16 matmul operands (int8 weight codes are upcast to bf16 first).
+// Every pointer passed here is aligned to four elements (16 bytes for f32,
+// 8 for bf16); the wrappers check it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -43,6 +44,25 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16_rn(v);
+}
+
+// four int8 weight codes (one 32-bit word, lowest byte first) -> four bf16
+// values, exact, with full-rate byte permutes and adds instead of int-to-
+// float conversions (those issue at a quarter of the rate and bound the
+// upcast): byte q + 128 placed in the mantissa of 2^23 is the float
+// 2^23 + 128 + q, minus 2^23 + 128 is q, and a float that small an integer
+// (|q| <= 127, 8 significant bits) is exactly its high 16 bits as bf16.
+__device__ __forceinline__ uint2 int8x4_to_bf16x4(unsigned v) {
+  const unsigned u = v ^ 0x80808080u;  // each byte q + 128
+  const float magic = 8388736.f;       // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - magic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - magic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - magic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - magic;
+  uint2 r;
+  r.x = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
+  r.y = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
+  return r;
 }
 
 // rows [r0, r0 + ROWS) of a (t, COLS) slab with row stride `st` -> bf16

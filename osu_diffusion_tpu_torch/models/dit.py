@@ -32,6 +32,26 @@ Training (`train=True`): labels drop to the null class `num_classes` with
 probability `class_dropout_prob` (from a generator, or a given mask), and
 with `remat` each block is recomputed in the backward
 (`torch.utils.checkpoint`, the JAX package's `nn.remat`).
+
+int8 weight-only serving (`quant=True`, the JAX package's
+`DiTConfig.quant`): every block's projections hold int8 codes with a
+float32 scale per output channel, as buffers (not parameters), filled by
+`models/quantize.py` from an f32 state dict. The names stay beside the
+reference's, each int8 weight with its scale:
+
+    blocks.N.attn.{in_proj_weight (int8, (3D, D)), in_proj_scale, in_proj_bias}
+    blocks.N.attn.out_proj.{weight (int8), scale, bias}
+    blocks.N.mlp.fc{1,2}.{weight (int8), scale, bias}
+    blocks.N.adaLN_modulation.1.{weight (int8), scale, bias}
+
+Embedders, label table and final layer stay f32. A quant block makes four
+int8 dispatches around the attention core: the adaLN projection
+(`int8_matmul` of silu(cond)), the qkv projection with LayerNorm and
+modulation folded in (`int8_modulated_matmul`), the out projection with
+gate and residual folded in (`int8_out_residual`), and the whole MLP half
+(`adaln_mlp_quant`). The stream is float32 only (the int8 wrappers raise
+TypeError on another type), and the quant model serves only: it raises
+under `train=True` and under grad.
 """
 from __future__ import annotations
 
@@ -43,13 +63,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from osu_diffusion_tpu_torch import PLAYFIELD
-from osu_diffusion_tpu_torch.ops.adaln_mlp import AdalnMlp, adaln_mlp, pack_weights
+from osu_diffusion_tpu_torch.ops.adaln_mlp import AdalnMlp, adaln_mlp, adaln_mlp_quant, pack_weights
 from osu_diffusion_tpu_torch.ops.attention import multi_head_attention
 from osu_diffusion_tpu_torch.ops.embeddings import (
     offset_sequence_embedding,
     position_sequence_embedding,
     timestep_embedding,
 )
+from osu_diffusion_tpu_torch.ops.quant import int8_matmul
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -202,6 +223,80 @@ class DiTBlock(nn.Module):
         return adaln_mlp(x, shift, scale, gate, w1p, fc1.bias, w2p, fc2.bias, 1e-6, matmul_dtype)
 
 
+class QuantLinear(nn.Module):
+    """int8 weight-only Linear for serving: buffers `weight` (out, in) int8
+    codes, `scale` (out,) f32 per output channel, `bias` (out,) f32."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.register_buffer("weight", torch.zeros(out_features, in_features, dtype=torch.int8))
+        self.register_buffer("scale", torch.ones(out_features))
+        self.register_buffer("bias", torch.zeros(out_features))
+
+
+class QuantSelfAttention(nn.Module):
+    """Packed-qkv attention over int8 projections; x is the raw residual
+    stream, and the forward returns the next one (see `multi_head_attention`
+    with `quant_scales`)."""
+
+    def __init__(self, hidden_size: int, num_heads: int):
+        super().__init__()
+        self.num_heads = num_heads
+        d = hidden_size
+        self.register_buffer("in_proj_weight", torch.zeros(3 * d, d, dtype=torch.int8))
+        self.register_buffer("in_proj_scale", torch.ones(3 * d))
+        self.register_buffer("in_proj_bias", torch.zeros(3 * d))
+        self.out_proj = QuantLinear(d, d)
+
+    def forward(self, x, quant_mod, band: int | None, valid_len: int | None, matmul_dtype):
+        return multi_head_attention(
+            x, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias,
+            self.num_heads, band, valid_len, matmul_dtype,
+            quant_scales=(self.in_proj_scale, self.out_proj.scale), quant_mod=quant_mod,
+        )
+
+
+class QuantMlp(nn.Module):
+    """int8 fc1/fc2; the forward is the int8 fused adaLN-MLP."""
+
+    def __init__(self, hidden_size: int, mlp_hidden: int):
+        super().__init__()
+        self.fc1 = QuantLinear(hidden_size, mlp_hidden)
+        self.fc2 = QuantLinear(mlp_hidden, hidden_size)
+        self._kernel_weights = None
+
+    def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 codes packed as `adaln_mlp_quant` takes them, made once
+        and kept until the codes change (a load or a move)."""
+        w1, w2 = self.fc1.weight, self.fc2.weight
+        key = (w1.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
+        if self._kernel_weights is None or self._kernel_weights[0] != key:
+            self._kernel_weights = (key, pack_weights(w1.t(), w2.t(), torch.int8))
+        return self._kernel_weights[1]
+
+
+class QuantDiTBlock(nn.Module):
+    """adaLN-Zero block over int8 projections (serving only)."""
+
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0):
+        super().__init__()
+        self.attn = QuantSelfAttention(hidden_size, num_heads)
+        self.mlp = QuantMlp(hidden_size, int(hidden_size * mlp_ratio))
+        self.adaLN_modulation = nn.Sequential(nn.SiLU(), QuantLinear(hidden_size, 6 * hidden_size))
+
+    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype):
+        if torch.is_grad_enabled():
+            raise RuntimeError("the int8 model serves only: call it under torch.no_grad()")
+        ada = self.adaLN_modulation[1]
+        mod = int8_matmul(F.silu(cond), ada.weight, ada.scale, ada.bias, matmul_dtype=matmul_dtype)
+        shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
+        x = self.attn(x, (shift_msa, scale_msa, gate_msa), band, valid_len, matmul_dtype)
+        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        w1p, w2p = self.mlp.kernel_weights()
+        return adaln_mlp_quant(x, shift_mlp, scale_mlp, gate_mlp, w1p, fc1.scale, fc1.bias,
+                               w2p, fc2.scale, fc2.bias, 1e-6, matmul_dtype)
+
+
 class FinalLayer(nn.Module):
     """adaLN (shift/scale, in the stream type) + linear head in f32."""
 
@@ -234,8 +329,10 @@ class DiT(nn.Module):
         learn_sigma: bool = True,
         matmul_dtype: torch.dtype = torch.bfloat16,
         remat: bool = True,
+        quant: bool = False,
     ):
         super().__init__()
+        self.quant = quant
         self.in_channels = in_channels
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
         self.num_classes = num_classes
@@ -244,9 +341,8 @@ class DiT(nn.Module):
         self.xoc_embedder = FirstLayer(in_channels, context_size, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
-        self.blocks = nn.ModuleList(
-            DiTBlock(hidden_size, num_heads, mlp_ratio) for _ in range(depth)
-        )
+        block = QuantDiTBlock if quant else DiTBlock
+        self.blocks = nn.ModuleList(block(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
         self.final_layer = FinalLayer(hidden_size, self.out_channels)
 
     @torch.no_grad()
@@ -281,6 +377,8 @@ class DiT(nn.Module):
         `train`: label dropout (`drop` mask, else drawn from `generator`)
         and, with `remat` under grad, recomputed blocks; `dtype`: the
         residual stream's type."""
+        if self.quant and train:
+            raise RuntimeError("the int8 model serves only: train=True has no int8 path")
         x = self.xoc_embedder(x, o, c, dtype)
         cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator)
         use_remat = train and self.remat and torch.is_grad_enabled()

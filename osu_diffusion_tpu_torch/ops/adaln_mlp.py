@@ -1,8 +1,10 @@
-"""Fused adaLN-modulated MLP: kernel B (inference and training forward),
-the training backward, and their plain PyTorch versions.
+"""Fused adaLN-modulated MLP: kernel B (inference and training forward,
+and the int8 serving forward), the training backward, and their plain
+PyTorch versions.
 
 Port of osu_diffusion_tpu/ops/pallas_mlp.py: `_adaln_mlp_kernel` without
-residuals (`adaln_mlp`, inference) and with them (`adaln_mlp_train`), both
+residuals (`adaln_mlp`, inference) and with them (`adaln_mlp_train`), and
+`_adaln_mlp_quant_kernel` (`adaln_mlp_quant`, int8 weights), all
 csrc/adaln_mlp.cu, and the default plain backward `_bwd`
 (`adaln_mlp_bwd`). It computes the MLP half of a DiT block,
 
@@ -14,7 +16,9 @@ stream); shift/scale/gate and the biases are f32. The kernel's weights come
 in the packed layout of `pack_weights`, in which every tile the kernel
 streams is one contiguous block. In training the forward also returns the
 backward's residuals: the pre-GELU `a` (N, T, H) in x's type and the
-pre-gate `mlp` (N, T, D) in f32.
+pre-gate `mlp` (N, T, D) in f32. The int8 serving forward takes f32 x
+only, int8 weight codes in the same packed layout (`pack_weights(...,
+dtype=torch.int8)`) and their per-output-channel scales s1 (H,), s2 (D,).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
@@ -31,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from osu_diffusion_tpu_torch.ops import cuda_build
+from osu_diffusion_tpu_torch.ops.quant import dequant_matmul
 
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # activation types the kernel takes
 GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
@@ -100,6 +105,23 @@ def adaln_mlp_reference(
     return adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)[0]
 
 
+def adaln_mlp_quant_reference(
+    x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps: float = 1e-6,
+    matmul_dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """Plain version of the int8 serving forward. w1q: (D, H), w2q: (H, D)
+    int8 codes; s1: (H,), s2: (D,) their per-output-channel f32 scales.
+    bfloat16: the kernel's rounding (bf16 activations times the exact codes,
+    each scale applied to its f32 product); float32: the f32 MLP over the
+    dequantised weights (`ops/quant.py`, dequant_matmul)."""
+    f32 = torch.float32
+    xn, _ = _layer_norm_f32(x, eps)
+    h = xn * (1.0 + scale.to(f32)[:, None, :]) + shift.to(f32)[:, None, :]
+    pre = dequant_matmul(h, w1q.t(), s1, matmul_dtype) + b1
+    mlp = dequant_matmul(F.gelu(pre, approximate="tanh"), w2q.t(), s2, matmul_dtype) + b2
+    return x + gate.to(f32)[:, None, :] * mlp
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, matmul_dtype) -> torch.Tensor:
     """a @ b with operands rounded to `matmul_dtype` and an f32 result.
 
@@ -167,6 +189,14 @@ def _lib() -> ctypes.CDLL:
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
         + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
+    fn = lib.adaln_mlp_quant_fwd
+    fn.restype = ctypes.c_int
+    # (x, shift, scale, gate, mod_stride, w1p, s1, b1, w2p, s2, b2, ws, out,
+    #  n, t, d, hdim, split, eps, stream)
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+    )
     lib.adaln_mlp_error_string.restype = ctypes.c_char_p
     lib.adaln_mlp_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -187,7 +217,10 @@ def hidden_split(n: int, t: int, hdim: int, sm_count: int) -> int:
     return max(s for s in range(1, chunks + 1) if chunks % s == 0 and (s == 1 or tiles * s <= sm_count))
 
 
-def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype) -> None:
+def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype,
+                         w_dtype=torch.bfloat16, **scales) -> None:
+    """`w_dtype`: the packed weights' type, bf16 or int8 (then `scales`
+    holds s1 and s2)."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
@@ -204,10 +237,11 @@ def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype) 
         "shift": (shift, torch.float32, (n, d)),
         "scale": (scale, torch.float32, (n, d)),
         "gate": (gate, torch.float32, (n, d)),
-        "w1p": (w1p, torch.bfloat16, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
+        "w1p": (w1p, w_dtype, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
         "b1": (b1, torch.float32, (hdim,)),
-        "w2p": (w2p, torch.bfloat16, (hdim, d + ROW_PAD)),
+        "w2p": (w2p, w_dtype, (hdim, d + ROW_PAD)),
         "b2": (b2, torch.float32, (d,)),
+        **{name: (a, torch.float32, (hdim,) if name == "s1" else (d,)) for name, a in scales.items()},
     }
     for name, (a, dtype, shape) in expect.items():
         if a.device != x.device:
@@ -321,5 +355,44 @@ class AdalnMlp(torch.autograd.Function):
         return (*grads, None, None)
 
 
+def adaln_mlp_quant(
+    x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2, eps: float = 1e-6,
+    matmul_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """int8 serving forward (inference only). x: (N, T, D) float32 (the
+    serving stream; anything else raises TypeError); shift/scale/gate: (N, D)
+    f32; w1p, w2p: int8 fc1/fc2 codes packed by `pack_weights(w1q, w2q,
+    torch.int8)` from w1q (D, H), w2q (H, D); s1: (H,), s2: (D,) f32 scales;
+    b1: (H,), b2: (D,) f32. Returns x + gate * MLP(modulate(LN(x))) in f32."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"adaln_mlp_quant requires float32 activations, got {x.dtype}")
+    _check_device(x)
+    if x.device.type == "cpu":
+        w1q, w2q = unpack_weights(w1p, w2p)
+        return adaln_mlp_quant_reference(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps,
+                                         matmul_dtype)
+    _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype, torch.int8,
+                         s1=s1, s2=s2)
+    n, t, d = x.shape
+    hdim = w2p.shape[0]
+    split = hidden_split(n, t, hdim, _sm_count(x.device.index))
+    workspace = torch.empty((split, n, -(-t // ROW_TILE) * ROW_TILE, d), device=x.device,
+                            dtype=torch.float32)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.adaln_mlp_quant_fwd(
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), gate.data_ptr(), shift.stride(0),
+        w1p.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2p.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        workspace.data_ptr(), out.data_ptr(), n, t, d, hdim, split, eps,
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        msg = lib.adaln_mlp_error_string(err).decode()
+        raise RuntimeError(f"adaln_mlp_quant kernel launch failed: CUDA error {err} ({msg})")
+    adaln_mlp_quant.launches += 1
+    return out
+
+
 adaln_mlp.launches = 0
 adaln_mlp_train.launches = 0
+adaln_mlp_quant.launches = 0

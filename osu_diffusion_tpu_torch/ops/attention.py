@@ -6,6 +6,13 @@ cast at use, bias added after the product, as the JAX package casts), left
 to cuBLAS as the JAX package leaves them to XLA. With a band the attention
 core is `banded_attention` (the CUDA kernels on a CUDA tensor); without one
 it is the plain masked softmax below.
+
+int8 weight-only serving (`quant_scales`, with `quant_mod`): the
+projection weights are int8 codes with per-output-channel scales, x is the
+raw residual stream, the adaLN LayerNorm and modulation fold into the qkv
+projection (`int8_modulated_matmul`) and the gate and residual into the out
+projection (`int8_out_residual`), and the result is the next residual
+stream. The attention core is the same.
 """
 from __future__ import annotations
 
@@ -18,6 +25,7 @@ from osu_diffusion_tpu_torch.ops.banded_attention import (  # noqa: F401 (re-exp
     banded_attention,
     banded_attention_mask,
 )
+from osu_diffusion_tpu_torch.ops.quant import int8_modulated_matmul, int8_out_residual
 
 
 def dot_product_attention(
@@ -45,13 +53,29 @@ def multi_head_attention(
     band: int | None = None,
     valid_len: int | None = None,
     matmul_dtype: torch.dtype = torch.bfloat16,
+    quant_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
+    quant_mod: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
 ) -> torch.Tensor:
     """Self-attention over x (N, T, D) with the torch MultiheadAttention
     packed [q|k|v] projection (in_proj_weight (3D, D)). `valid_len` masks
-    keys of a padded tail; `matmul_dtype` is the banded core's operand type."""
+    keys of a padded tail; `matmul_dtype` is the operand type of the banded
+    core (and of the int8 projections).
+
+    int8 serving: `quant_scales` = (in_proj scale (3D,), out_proj scale
+    (D,)) with int8 in_proj_weight and out_proj_weight, and `quant_mod` =
+    (shift, scale, gate), each (N, D), of the attention half; x is the raw
+    residual stream, and the result is x + gate * attention(modulate(LN x))."""
     n, t, d = x.shape
     dt = x.dtype
-    qkv = F.linear(x, in_proj_weight.to(dt)) + in_proj_bias.to(dt)
+    if quant_scales is not None:
+        if quant_mod is None:
+            raise ValueError("int8 serving folds the adaLN modulation into the projections: "
+                             "pass quant_mod=(shift, scale, gate)")
+        shift, scale, gate = quant_mod
+        qkv = int8_modulated_matmul(x, shift, scale, in_proj_weight, quant_scales[0], in_proj_bias,
+                                    matmul_dtype=matmul_dtype)
+    else:
+        qkv = F.linear(x, in_proj_weight.to(dt)) + in_proj_bias.to(dt)
     # head views of the packed projection: (N, H, T, Dh), no copy
     q, k, v = (a.view(n, t, num_heads, d // num_heads).transpose(1, 2) for a in qkv.split(d, dim=-1))
     if band is not None:
@@ -59,4 +83,8 @@ def multi_head_attention(
     else:
         mask = None if valid_len is None else torch.arange(t, device=x.device) < valid_len
         o = dot_product_attention(q, k, v, mask)
-    return F.linear(o.transpose(1, 2).reshape(n, t, d), out_proj_weight.to(dt)) + out_proj_bias.to(dt)
+    o = o.transpose(1, 2).reshape(n, t, d)
+    if quant_scales is not None:
+        return int8_out_residual(o, x, gate, out_proj_weight, quant_scales[1], out_proj_bias,
+                                 matmul_dtype=matmul_dtype)
+    return F.linear(o, out_proj_weight.to(dt)) + out_proj_bias.to(dt)

@@ -1,0 +1,262 @@
+"""int8 weight-only projections for serving: symmetric per-output-channel
+quantization, the three projection kernels' wrappers and their plain
+PyTorch versions.
+
+Port of osu_diffusion_tpu/ops/pallas_quant.py:
+- `quantize_weight`: `quantize_weight`, on torch's (out, in) layout;
+- `int8_matmul`: `_kernel` (act(x @ (w_q * s) + b), optional GELU-tanh);
+- `int8_modulated_matmul`: `_modulated_kernel` (the qkv projection with
+  the non-affine LayerNorm and the adaLN shift/scale folded in);
+- `int8_out_residual`: `_out_residual_kernel` (the out projection with the
+  adaLN gate and the residual add folded in);
+all three csrc/int8_matmul.cu.
+
+Weights are int8 codes in torch's Linear layout, w_q (M, K) = (out, in),
+with a float32 scale per output channel s (M,): w ~= w_q * s[:, None].
+Activations are float32 (the serving stream); the scale, bias, GELU, gate
+and residual apply in f32. The kernels multiply bf16-rounded activations by
+the int8 codes upcast to bf16 (exact, |q| <= 127) with f32 accumulation and
+apply the scale to the sum, as the TPU kernels do. The plain versions take
+`matmul_dtype`: bfloat16 rounds as the kernels do; float32 is the f32 math
+over the dequantised weight w_q * s.
+
+Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
+kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from osu_diffusion_tpu_torch.ops import cuda_build
+
+ROW_TILE = 32  # rows per CTA
+COL_TILE = 64  # output columns per tile
+K_CHUNK = 64  # the kernels walk K in chunks of this depth
+MAX_K = 2048  # the (32, K) bf16 activation tile lives in shared memory
+MAX_LN_K = 1024  # the modulated prologue holds a row in registers
+MATMUL_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-output-channel int8 quantization of a (..., out, in)
+    weight: scale = absmax / 127 over each output row (1.0 where the row is
+    all zero), w_q = round(w / scale), half to even. Returns (w_q int8 of
+    w's shape, scale float32 (..., out))."""
+    w = w.to(torch.float32)
+    absmax = w.abs().amax(dim=-1)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    return torch.round(w / scale[..., None]).to(torch.int8), scale
+
+
+def dequant_matmul(a: torch.Tensor, w_q: torch.Tensor, s: torch.Tensor,
+                   matmul_dtype: torch.dtype) -> torch.Tensor:
+    """a (..., K) @ (w_q (M, K) * s[:, None]).T in f32. bfloat16: a rounded
+    to bf16, multiplied by the exact int8 codes, the scale applied to the
+    f32 sum (the kernels' rounding); float32: the dequantised weight in f32."""
+    if matmul_dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul_dtype must be one of {MATMUL_DTYPES}, got {matmul_dtype}")
+    a = a.to(torch.float32)
+    if matmul_dtype == torch.float32:
+        return torch.matmul(a, (w_q.to(torch.float32) * s[:, None]).t())
+    a = a.to(torch.bfloat16).to(torch.float32)
+    return torch.matmul(a, w_q.to(torch.float32).t()) * s
+
+
+def _layer_norm_f32(x: torch.Tensor, eps: float) -> torch.Tensor:
+    """The non-affine two-pass LayerNorm, in f32."""
+    xf = x.to(torch.float32)
+    xc = xf - xf.mean(dim=-1, keepdim=True)
+    return xc * torch.rsqrt((xc * xc).mean(dim=-1, keepdim=True) + eps)
+
+
+def int8_matmul_reference(x, w_q, s, b, activation: str | None = None,
+                          matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of `int8_matmul`: act(x @ (w_q * s).T + b)."""
+    y = dequant_matmul(x, w_q, s, matmul_dtype) + b
+    return F.gelu(y, approximate="tanh") if activation == "gelu_tanh" else y
+
+
+def int8_modulated_matmul_reference(x, shift, scale, w_q, s, b, eps: float = 1e-6,
+                                    matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of `int8_modulated_matmul`:
+    (LN(x) * (1 + scale) + shift) @ (w_q * s).T + b."""
+    h = _layer_norm_f32(x, eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    return dequant_matmul(h, w_q, s, matmul_dtype) + b
+
+
+def int8_out_residual_reference(o, res, gate, w_q, s, b,
+                                matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Plain version of `int8_out_residual`: res + gate * (o @ (w_q * s).T + b)."""
+    return res + gate[:, None, :] * (dequant_matmul(o, w_q, s, matmul_dtype) + b)
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("int8_matmul")
+    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    for name, argtypes in {
+        # (x, w, s, b, out, rows, k, m, gelu, tiles_per_cta, stream)
+        "int8_matmul_fwd": [p] * 5 + [i] * 5 + [p],
+        # (x, shift, scale, mod_stride, w, s, b, out, n, t, k, m, tiles_per_cta, eps, stream)
+        "int8_modulated_matmul_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 5 + [f, p],
+        # (o, res, gate, gate_stride, w, s, b, out, n, t, d, tiles_per_cta, stream)
+        "int8_out_residual_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 4 + [p],
+    }.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    lib.int8_matmul_error_string.restype = ctypes.c_char_p
+    lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+def tiles_per_cta(row_tiles: int, m: int, sm_count: int) -> int:
+    """How many 64-column output tiles one CTA walks (reusing its prepared
+    (32, K) activation tile): the fewest that still give at least two CTAs
+    per SM (what fits beside the activation tile at K = 768), the CTAs per
+    row tile rounded up, so short inputs still spread over the card.
+    (Rounding down, to stay inside one wave, measured slower on an H100:
+    these kernels are bound by throughput, not by a straggling tail.)"""
+    m_tiles = -(-m // COL_TILE)
+    groups = min(m_tiles, max(1, -(-2 * sm_count // row_tiles)))
+    return -(-m_tiles // groups)
+
+
+def _check_input(x: torch.Tensor, what: str) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no {what} for device {x.device}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{what} takes float32 activations (the serving stream), got {x.dtype}")
+
+
+def _check_kernel_inputs(matmul_dtype, k: int, max_k: int, w_q, **tensors) -> None:
+    """Types, shapes (checked by the caller), contiguity, alignment and the
+    widths the kernels are built for; `tensors` are f32, their first the
+    activation."""
+    if matmul_dtype != torch.bfloat16:
+        raise ValueError("the CUDA kernels compute with bf16 operands; "
+                         f"matmul_dtype={matmul_dtype} has no kernel")
+    if k % K_CHUNK or not K_CHUNK <= k <= max_k:
+        raise ValueError(f"the kernels take K a multiple of {K_CHUNK} up to {max_k}, got {k}")
+    first = next(iter(tensors.values()))
+    if w_q.dtype != torch.int8:
+        raise TypeError(f"w_q must be int8, got {w_q.dtype}")
+    for name, a in {"w_q": w_q, **tensors}.items():
+        if a.device != first.device:
+            raise ValueError(f"{name} is on {a.device}, the activation on {first.device}")
+        if name != "w_q" and a.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {a.dtype}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+        if name in ("shift", "scale", "gate"):
+            if a.stride(1) != 1 or a.stride(0) % 4 or a.stride() != tensors.get("shift", a).stride():
+                raise ValueError("shift/scale/gate need one shared row stride, a multiple of 4, "
+                                 f"and unit column stride; {name} has {a.stride()}")
+        elif not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if first.device.index != torch.cuda.current_device():
+        raise ValueError(f"the activation is on {first.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _check_shapes(w_q, s, b, k: int) -> int:
+    if w_q.ndim != 2 or w_q.shape[1] != k:
+        raise ValueError(f"w_q must be (M, {k}), got {tuple(w_q.shape)}")
+    m = w_q.shape[0]
+    if tuple(s.shape) != (m,) or tuple(b.shape) != (m,):
+        raise ValueError(f"scale and bias must be ({m},), got {tuple(s.shape)} and {tuple(b.shape)}")
+    return m
+
+
+def _launch(entry: str, args, rows_n: int, rows_t: int, m: int, device) -> None:
+    if rows_n > 65535 or -(-rows_t // ROW_TILE) > 65535:
+        raise ValueError(f"batch {rows_n} x rows {rows_t} exceeds the kernels' grid limits")
+    lib = _lib()
+    per = tiles_per_cta(rows_n * -(-rows_t // ROW_TILE), m, _sm_count(device.index))
+    err = getattr(lib, entry)(*args(per), torch.cuda.current_stream(device).cuda_stream)
+    if err:
+        msg = lib.int8_matmul_error_string(err).decode()
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def int8_matmul(x, w_q, s, b, activation: str | None = None,
+                matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """act(x @ (w_q * s).T + b), reading w_q as int8. x: (..., K) f32;
+    w_q: (M, K) int8; s, b: (M,) f32; `activation`: None or "gelu_tanh".
+    Returns (..., M) f32."""
+    if activation not in (None, "gelu_tanh"):
+        raise ValueError(f"unknown activation: {activation}")
+    _check_input(x, "int8_matmul")
+    k = x.shape[-1]
+    m = _check_shapes(w_q, s, b, k)
+    if x.device.type == "cpu":
+        return int8_matmul_reference(x, w_q, s, b, activation, matmul_dtype)
+    x2 = x.reshape(-1, k)
+    rows = x2.shape[0]
+    _check_kernel_inputs(matmul_dtype, k, MAX_K, w_q, x=x2, s=s, b=b)
+    out = torch.empty((rows, m), device=x.device, dtype=torch.float32)
+    _launch("int8_matmul_fwd", lambda per: (
+        x2.data_ptr(), w_q.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, m,
+        int(activation == "gelu_tanh"), per), 1, rows, m, x.device)
+    int8_matmul.launches += 1
+    return out.reshape(*x.shape[:-1], m)
+
+
+def int8_modulated_matmul(x, shift, scale, w_q, s, b, eps: float = 1e-6,
+                          matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """(LN(x) * (1 + scale) + shift) @ (w_q * s).T + b with a non-affine
+    two-pass LayerNorm, reading w_q as int8. x: (N, T, D) f32; shift,
+    scale: (N, D) f32 (row views of one modulation tensor are fine);
+    w_q: (M, D) int8; s, b: (M,) f32. Returns (N, T, M) f32."""
+    _check_input(x, "int8_modulated_matmul")
+    n, t, d = x.shape
+    m = _check_shapes(w_q, s, b, d)
+    if x.device.type == "cpu":
+        return int8_modulated_matmul_reference(x, shift, scale, w_q, s, b, eps, matmul_dtype)
+    for name, a in (("shift", shift), ("scale", scale)):
+        if tuple(a.shape) != (n, d):
+            raise ValueError(f"{name} must be ({n}, {d}), got {tuple(a.shape)}")
+    _check_kernel_inputs(matmul_dtype, d, MAX_LN_K, w_q, x=x, shift=shift, scale=scale, s=s, b=b)
+    out = torch.empty((n, t, m), device=x.device, dtype=torch.float32)
+    _launch("int8_modulated_matmul_fwd", lambda per: (
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0), w_q.data_ptr(),
+        s.data_ptr(), b.data_ptr(), out.data_ptr(), n, t, d, m, per, eps), n, t, m, x.device)
+    int8_modulated_matmul.launches += 1
+    return out
+
+
+def int8_out_residual(o, res, gate, w_q, s, b,
+                      matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """res + gate * (o @ (w_q * s).T + b), reading w_q as int8. o, res:
+    (N, T, D) f32; gate: (N, D) f32 (a row view is fine); w_q: (D, D)
+    int8; s, b: (D,) f32. Returns (N, T, D) f32."""
+    _check_input(o, "int8_out_residual")
+    n, t, d = o.shape
+    if _check_shapes(w_q, s, b, d) != d:
+        raise ValueError(f"w_q must be ({d}, {d}), got {tuple(w_q.shape)}")
+    if o.device.type == "cpu":
+        return int8_out_residual_reference(o, res, gate, w_q, s, b, matmul_dtype)
+    if tuple(res.shape) != (n, t, d) or tuple(gate.shape) != (n, d):
+        raise ValueError(f"res must be ({n}, {t}, {d}) and gate ({n}, {d}), got "
+                         f"{tuple(res.shape)} and {tuple(gate.shape)}")
+    _check_kernel_inputs(matmul_dtype, d, MAX_K, w_q, o=o, res=res, gate=gate, s=s, b=b)
+    out = torch.empty_like(res)
+    _launch("int8_out_residual_fwd", lambda per: (
+        o.data_ptr(), res.data_ptr(), gate.data_ptr(), gate.stride(0), w_q.data_ptr(),
+        s.data_ptr(), b.data_ptr(), out.data_ptr(), n, t, d, per), n, t, d, o.device)
+    int8_out_residual.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+int8_modulated_matmul.launches = 0
+int8_out_residual.launches = 0

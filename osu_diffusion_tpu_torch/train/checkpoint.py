@@ -22,7 +22,11 @@ torch Linear weights (out, in)):
     blocks_N.adaLN                     -> blocks.N.adaLN_modulation.1
     final_layer.{linear,adaLN}         -> final_layer.{linear,adaLN_modulation.1}
 (the stacked layout keeps every block under "blocks" with a leading depth
-axis instead of blocks_N scopes)
+axis instead of blocks_N scopes). The JAX quant tree (DiTConfig.quant:
+`qkv_kernel_q`/`qkv_scale`, `out_kernel_q`/`out_scale`, `kernel_q`/`scale`)
+maps to the int8 weights of DiT(quant=True): the codes transposed to
+(out, in), each scale beside its weight as `in_proj_scale` or `<layer>.scale`
+(see models/dit.py).
 """
 from __future__ import annotations
 
@@ -70,7 +74,7 @@ def state_dict_from_jax_params(
 
     if "blocks" in params:
         stacked = params["blocks"]
-        depth = np.asarray(stacked["adaLN"]["kernel"]).shape[0]
+        depth = np.asarray(stacked["adaLN"]["bias"]).shape[0]
         blocks = [_index_tree(stacked, i) for i in range(depth)]
     else:
         blocks = []
@@ -78,16 +82,27 @@ def state_dict_from_jax_params(
             blocks.append(params[f"blocks_{len(blocks)}"])
     for i, b in enumerate(blocks):
         p = f"blocks.{i}."
-        sd[p + "attn.in_proj_weight"] = _t(b["attn"]["qkv_kernel"])
-        sd[p + "attn.in_proj_bias"] = _a(b["attn"]["qkv_bias"])
-        sd[p + "attn.out_proj.weight"] = _t(b["attn"]["out_kernel"])
-        sd[p + "attn.out_proj.bias"] = _a(b["attn"]["out_bias"])
-        sd[p + "mlp.fc1.weight"] = _t(b["mlp_fc1"]["kernel"])
-        sd[p + "mlp.fc1.bias"] = _a(b["mlp_fc1"]["bias"])
-        sd[p + "mlp.fc2.weight"] = _t(b["mlp_fc2"]["kernel"])
-        sd[p + "mlp.fc2.bias"] = _a(b["mlp_fc2"]["bias"])
-        sd[p + "adaLN_modulation.1.weight"] = _t(b["adaLN"]["kernel"])
-        sd[p + "adaLN_modulation.1.bias"] = _a(b["adaLN"]["bias"])
+        attn = b["attn"]
+        if "qkv_kernel_q" in attn:  # the int8 serving tree
+            sd[p + "attn.in_proj_weight"] = _t(attn["qkv_kernel_q"])
+            sd[p + "attn.in_proj_scale"] = _a(attn["qkv_scale"])
+            sd[p + "attn.in_proj_bias"] = _a(attn["qkv_bias"])
+            sd[p + "attn.out_proj.weight"] = _t(attn["out_kernel_q"])
+            sd[p + "attn.out_proj.scale"] = _a(attn["out_scale"])
+        else:
+            sd[p + "attn.in_proj_weight"] = _t(attn["qkv_kernel"])
+            sd[p + "attn.in_proj_bias"] = _a(attn["qkv_bias"])
+            sd[p + "attn.out_proj.weight"] = _t(attn["out_kernel"])
+        sd[p + "attn.out_proj.bias"] = _a(attn["out_bias"])
+        for jax_name, name in (("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2"),
+                               ("adaLN", "adaLN_modulation.1")):
+            layer = b[jax_name]
+            if "kernel_q" in layer:
+                sd[f"{p}{name}.weight"] = _t(layer["kernel_q"])
+                sd[f"{p}{name}.scale"] = _a(layer["scale"])
+            else:
+                sd[f"{p}{name}.weight"] = _t(layer["kernel"])
+            sd[f"{p}{name}.bias"] = _a(layer["bias"])
     fl = params["final_layer"]
     sd["final_layer.adaLN_modulation.1.weight"] = _t(fl["adaLN"]["kernel"])
     sd["final_layer.adaLN_modulation.1.bias"] = _a(fl["adaLN"]["bias"])

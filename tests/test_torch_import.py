@@ -18,6 +18,7 @@ import importlib, pkgutil, sys
 import osu_diffusion_tpu_torch as pkg
 assert "torch" not in sys.modules, "the package root imports torch"
 import osu_diffusion_tpu_torch.cli  # both entry points and all they pull in
+import osu_diffusion_tpu_torch.models.quantize, osu_diffusion_tpu_torch.ops.quant  # int8 serving
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import torch

@@ -1,7 +1,8 @@
 """The CUDA kernels against their plain versions, and the wrappers'
-dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv)
-and the fused adaLN-MLP (inference and training forward), each alone and
-inside its autograd Function. Imports torch only (no jax), so the card's
+dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv),
+the fused adaLN-MLP (inference and training forward, int8 serving) and the
+int8 projections, each alone and, where it has one, inside its autograd
+Function. Imports torch only (no jax), so the card's
 machine runs it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -14,6 +15,7 @@ import torch
 
 from osu_diffusion_tpu_torch.ops import adaln_mlp as tam
 from osu_diffusion_tpu_torch.ops import banded_attention as tba
+from osu_diffusion_tpu_torch.ops import quant as tq
 
 
 @pytest.fixture
@@ -230,3 +232,178 @@ def test_adaln_mlp_function_on_card_matches_cpu(cuda_device):
         results[str(dev)] = [out.detach().cpu()] + [a.grad.cpu() for a in ins]
     for got, want in zip(results[str(cuda_device)], results["cpu"]):
         assert _rel(got, want) <= 1e-2
+
+
+# ---------------------------------------------------------------------------
+# int8 weight-only serving: rows 10-13
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| / max |plain|. Against the plain version with the
+# same bf16 operands and int8 codes: f32 sums in another order (~1e-6), and
+# where a LayerNorm or GELU comes first, an ulp-level difference that flips
+# one bf16 rounding of an operand (2^-8 of one term). Against the f32
+# dequantised plain version: bf16 rounding of the activations (2^-9
+# relative) over K-term sums.
+QUANT_TOL_BF16 = 2e-3
+QUANT_TOL_F32 = 1e-2
+
+
+def _quant_weight(m, k, g, device):
+    """Seeded (M, K) f32 weight of unit-variance outputs: (codes, scale)."""
+    return tq.quantize_weight(torch.randn((m, k), generator=g, device=device) * k ** -0.5)
+
+
+def test_quant_wrappers_take_the_plain_versions_on_cpu():
+    """CPU tensors go to the plain versions (bf16 operands) and launch
+    nothing."""
+    g = torch.Generator().manual_seed(5)
+    n, t, d = 2, 10, 64
+    x, res = torch.randn(n, t, d, generator=g), torch.randn(n, t, d, generator=g)
+    mod = torch.randn(n, 6 * d, generator=g) * 0.3
+    wq, s = _quant_weight(3 * d, d, g, "cpu")
+    b = torch.randn(3 * d, generator=g) * 0.02
+    counts = [f.launches for f in (tq.int8_matmul, tq.int8_modulated_matmul,
+                                   tq.int8_out_residual, tam.adaln_mlp_quant)]
+    assert torch.equal(tq.int8_matmul(x, wq, s, b, "gelu_tanh"),
+                       tq.int8_matmul_reference(x, wq, s, b, "gelu_tanh", torch.bfloat16))
+    assert torch.equal(tq.int8_modulated_matmul(x, mod[:, :d], mod[:, d:2 * d], wq, s, b),
+                       tq.int8_modulated_matmul_reference(x, mod[:, :d], mod[:, d:2 * d], wq, s, b,
+                                                          1e-6, torch.bfloat16))
+    wo, so = _quant_weight(d, d, g, "cpu")
+    assert torch.equal(tq.int8_out_residual(x, res, mod[:, 2 * d:3 * d], wo, so, b[:d]),
+                       tq.int8_out_residual_reference(x, res, mod[:, 2 * d:3 * d], wo, so, b[:d],
+                                                      torch.bfloat16))
+    w1q, s1 = _quant_weight(4 * d, d, g, "cpu")
+    w2q, s2 = _quant_weight(d, 4 * d, g, "cpu")
+    b1 = torch.zeros(4 * d)
+    w1p, w2p = tam.pack_weights(w1q.t(), w2q.t(), torch.int8)
+    got = tam.adaln_mlp_quant(x, mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:],
+                              w1p, s1, b1, w2p, s2, b[:d])
+    want = tam.adaln_mlp_quant_reference(x, mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d],
+                                         mod[:, 5 * d:], w1q.t(), s1, b1, w2q.t(), s2, b[:d],
+                                         1e-6, torch.bfloat16)
+    assert torch.equal(got, want)
+    assert counts == [f.launches for f in (tq.int8_matmul, tq.int8_modulated_matmul,
+                                           tq.int8_out_residual, tam.adaln_mlp_quant)]
+
+
+@pytest.mark.parametrize("row_tiles,m,grid", [
+    (48, 2304, 288),  # the DiT-B qkv projection: 6 of its 36 column tiles per CTA
+    (48, 768, 288),   # the out projection: 2 of 12
+    (1, 4608, 72),    # the adaLN projection, 2 rows: one column tile per CTA
+    (300, 1000, 300), # more row tiles than two per SM: all columns in one CTA
+])
+def test_tiles_per_cta_gives_two_ctas_per_sm(row_tiles, m, grid):
+    """The int8 projections' grid on a 132-SM card: at least two CTAs per
+    SM where the columns allow (fewer would leave SMs idle), each CTA with
+    as many column tiles as that allows, every column tile covered."""
+    per = tq.tiles_per_cta(row_tiles, m, 132)
+    m_tiles = -(-m // tq.COL_TILE)
+    ctas_per_row_tile = -(-m_tiles // per)
+    assert row_tiles * ctas_per_row_tile == grid
+    assert ctas_per_row_tile * per >= m_tiles
+    assert grid >= min(2 * 132, row_tiles * m_tiles)
+
+
+def _check_quant(got, plain, *args, **kwargs):
+    want16 = plain(*args, **kwargs, matmul_dtype=torch.bfloat16)
+    want32 = plain(*args, **kwargs, matmul_dtype=torch.float32)
+    assert got.shape == want16.shape and got.dtype == torch.float32
+    assert torch.isfinite(got).all()
+    assert _rel(got, want16) <= QUANT_TOL_BF16, _rel(got, want16)
+    assert _rel(got, want32) <= QUANT_TOL_F32, _rel(got, want32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lead,k,m,act", [
+    ((2,), 768, 4608, None),          # the DiT-B adaLN projection
+    ((1,), 768, 4608, None),          # one row
+    ((3, 37), 768, 2304, None),       # lead dims, 111 rows
+    ((100,), 64, 96, "gelu_tanh"),    # M not a multiple of 64, GELU
+    ((8, 128), 1024, 1000, "gelu_tanh"),
+])
+def test_int8_matmul_kernel_matches_plain(cuda_device, lead, k, m, act):
+    g = torch.Generator(device=cuda_device).manual_seed(k + m)
+    x = torch.randn((*lead, k), generator=g, device=cuda_device)
+    wq, s = _quant_weight(m, k, g, cuda_device)
+    b = torch.randn(m, generator=g, device=cuda_device) * 0.02
+    before = tq.int8_matmul.launches
+    got = tq.int8_matmul(x, wq, s, b, act)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul.launches == before + 1
+    _check_quant(got, tq.int8_matmul_reference, x, wq, s, b, act)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d,m", [(2, 768, 768, 2304), (2, 757, 768, 2304), (3, 50, 768, 2304),
+                                     (8, 128, 384, 1152), (6, 128, 1024, 3072),
+                                     (2, 40, 768, 1000)])
+def test_int8_modulated_matmul_kernel_matches_plain(cuda_device, n, t, d, m):
+    g = torch.Generator(device=cuda_device).manual_seed(n * t + m)
+    x = torch.randn((n, t, d), generator=g, device=cuda_device)
+    mod = torch.randn((n, 6 * d), generator=g, device=cuda_device) * 0.3
+    wq, s = _quant_weight(m, d, g, cuda_device)
+    b = torch.randn(m, generator=g, device=cuda_device) * 0.02
+    before = tq.int8_modulated_matmul.launches
+    got = tq.int8_modulated_matmul(x, mod[:, :d], mod[:, d:2 * d], wq, s, b)
+    torch.cuda.synchronize()
+    assert tq.int8_modulated_matmul.launches == before + 1
+    _check_quant(got, tq.int8_modulated_matmul_reference, x, mod[:, :d], mod[:, d:2 * d], wq, s, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d", [(2, 768, 768), (3, 50, 768), (8, 128, 384), (6, 128, 1024)])
+def test_int8_out_residual_kernel_matches_plain(cuda_device, n, t, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n * t + d)
+    o, res = (torch.randn((n, t, d), generator=g, device=cuda_device) for _ in range(2))
+    gate = torch.randn((n, 6 * d), generator=g, device=cuda_device)[:, 2 * d:3 * d] * 0.3
+    wq, s = _quant_weight(d, d, g, cuda_device)
+    b = torch.randn(d, generator=g, device=cuda_device) * 0.02
+    before = tq.int8_out_residual.launches
+    got = tq.int8_out_residual(o, res, gate, wq, s, b)
+    torch.cuda.synchronize()
+    assert tq.int8_out_residual.launches == before + 1
+    _check_quant(got, tq.int8_out_residual_reference, o, res, gate, wq, s, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,t,d", [(2, 768, 768), (2, 757, 768), (3, 50, 768), (8, 128, 384),
+                                   (6, 128, 1024)])
+def test_adaln_mlp_quant_kernel_matches_plain(cuda_device, n, t, d):
+    g = torch.Generator(device=cuda_device).manual_seed(n * t + d)
+    x = torch.randn((n, t, d), generator=g, device=cuda_device)
+    mod = torch.randn((n, 6 * d), generator=g, device=cuda_device) * 0.3
+    shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+    w1q, s1 = _quant_weight(4 * d, d, g, cuda_device)
+    w2q, s2 = _quant_weight(d, 4 * d, g, cuda_device)
+    b1, b2 = (torch.randn(k, generator=g, device=cuda_device) * 0.02 for k in (4 * d, d))
+    w1p, w2p = tam.pack_weights(w1q.t(), w2q.t(), torch.int8)
+    before = tam.adaln_mlp_quant.launches
+    got = tam.adaln_mlp_quant(x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2)
+    torch.cuda.synchronize()
+    assert tam.adaln_mlp_quant.launches == before + 1
+    _check_quant(got, tam.adaln_mlp_quant_reference, x, shift, scale, gate, w1q.t(), s1, b1,
+                 w2q.t(), s2, b2)
+
+
+@pytest.mark.cuda
+def test_quant_kernels_reject_what_they_do_not_take(cuda_device):
+    dev = cuda_device
+    x = torch.randn(4, 100, device=dev)  # K = 100: not a multiple of 64
+    wq = torch.zeros(64, 100, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        tq.int8_matmul(x, wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    x = torch.randn(1, 8, 2048, device=dev)  # the LayerNorm prologue takes K <= 1024
+    wq = torch.zeros(64, 2048, dtype=torch.int8, device=dev)
+    m = torch.zeros(1, 2048, device=dev)
+    with pytest.raises(ValueError):
+        tq.int8_modulated_matmul(x, m, m, wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    with pytest.raises(TypeError):  # the serving stream is f32
+        tq.int8_matmul(x.to(torch.bfloat16), wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    x = torch.randn(1, 8, 64, device=dev)  # D = 64 has no MLP kernel
+    w1p, w2p = tam.pack_weights(torch.zeros(64, 256, dtype=torch.int8, device=dev),
+                                torch.zeros(256, 64, dtype=torch.int8, device=dev), torch.int8)
+    m = torch.zeros(1, 64, device=dev)
+    with pytest.raises(ValueError):
+        tam.adaln_mlp_quant(x, m, m, m, w1p, torch.ones(256, device=dev), torch.zeros(256, device=dev),
+                            w2p, m[0] + 1, m[0])
