@@ -48,6 +48,19 @@ Phases (any failure raises and exits non-zero):
    profile. Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
    and its gap to the f32 forward on the card (the quantisation error,
    printed, not checked).
+11. The fused MLP backward's two kernels (`[mlp-bwd]`): prologue and
+   epilogue against their plain versions (bf16 operands, and f32) at the
+   DiT-B training shape and ragged ones (T = 50 with N = 3, the DiT-S
+   width, the f32 stream), every output; times beside bounds, plain
+   versions and the cuBLAS product of each stage's shape; the whole fused
+   backward against the plain one at the same inputs, in turns.
+12. The train CLI with --mlp-bwd fused (`[train-fused]`), as in 7 without
+   the checkpoint: each backward kernel launched steps x depth times;
+   seconds per step, busy share and top ops beside the default run's (whose
+   count of both backward kernels must stay 0). Then train_nodist_torch.py
+   with --embed-only-epochs 1 resumed from the default run's checkpoint for
+   3 steps (`[train-modes]`: only the label table moves), and one DiT-B
+   step card vs CPU with the fused backward (`[step-fused]`).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -143,6 +156,10 @@ ATTN_TRAIN_CASES = [
 # (name, N, T, D, stream)
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
                    ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
+# the fused MLP backward's checks: (name, N, T, D, stream), the DiT-B
+# training shape first
+MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "bf16"),
+                 ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
 TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA events
 PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 
@@ -240,7 +257,7 @@ def phase_build():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp", "int8_matmul")
+    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp", "adaln_mlp_bwd", "int8_matmul")
     wall = time.perf_counter()
     cuda_build.build_all(names)  # one nvcc per source, all at once
     print(f"[build] {len(names)} libraries in {time.perf_counter() - wall:.1f} s wall")
@@ -489,6 +506,109 @@ def phase_mlp_train(dev):
             result = {"max_abs_err": max_err(got[0], want16[0]), "ms": ms, "plain_ms": plain_ms,
                       **b, "library_ms": None}
     return result
+
+
+def phase_mlp_bwd(dev):
+    """Rows 9a/9b: the fused backward's prologue and epilogue against their
+    plain versions (bf16 operands, and f32), each of the ten outputs; at the
+    DiT-B training shape their times beside their bounds, their plain
+    versions and the cuBLAS bf16 product of their shape, and the whole fused
+    backward beside the plain backward (`adaln_mlp_bwd`) at the same inputs.
+    Returns (the two kernels' numbers, {plain, fused: mean ms of the whole
+    backward})."""
+    import torch
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results, whole_ms = {}, None
+    for name, n, t, d, stream in MLP_BWD_CASES:
+        dtype = f32 if stream == "f32" else bf16
+        hdim = 4 * d
+
+        def rnd(*shape, std):
+            return torch.randn(shape, generator=g, device=dev) * std
+
+        x = rnd(n, t, d, std=1.0).to(dtype)
+        mod = rnd(n, 6 * d, std=0.3)
+        shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+        w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
+        b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
+        w1b, w2b = w1.to(bf16), w2.to(bf16)
+        w1p, w2p = am.pack_weights(w1b, w2b)
+        _, a, mlp = am.adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)  # the residuals
+        gout = rnd(n, t, d, std=1.0).to(dtype)
+        pro = am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p)
+        epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, w1p)
+        torch.cuda.synchronize()
+        # each stage against its plain versions on the same inputs (the
+        # epilogue on the kernel prologue's da)
+        wants = [
+            (am.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2b, bf16),
+             am.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2, f32)),
+            (am.adaln_mlp_bwd_epilogue_reference(pro[0], x, gout, shift, scale, w1b, 1e-6, bf16),
+             am.adaln_mlp_bwd_epilogue_reference(pro[0], x, gout, shift, scale, w1, 1e-6, f32)),
+        ]
+        names = (("da", "gelu_out", "dmlp", "dgate", "db1", "db2"), ("dx", "h1", "dshift", "dscale"))
+        errs = {}
+        for outs, got, (w16, w32) in zip(names, (pro, epi), wants):
+            for out, u, v16, v32 in zip(outs, got, w16, w32):
+                check(bool(torch.isfinite(u).all()), f"mlp bwd {name}: non-finite {out}")
+                check(u.shape == v16.shape and u.dtype == v16.dtype, f"mlp bwd {name}: {out} shape/type")
+                errs[out] = (rel_err(u, v16), rel_err(u, v32))
+        print(f"[mlp-bwd] {name}: x=({n}, {t}, {d}) {stream} "
+              + " ".join(f"{k}={u:.2e}/{v:.2e}" for k, (u, v) in errs.items())
+              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32})")
+        for out, (e16, e32) in errs.items():
+            check(e16 <= TRAIN_TOL_BF16, f"mlp bwd {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"mlp bwd {name} {out}: {e32} > {TRAIN_TOL_F32}")
+        if name != "main":
+            continue
+        pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p))
+        epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, w1p))
+        pro_plain_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2, f32))
+        epi_plain_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue_reference(
+            pro[0], x, gout, shift, scale, w1, 1e-6, f32))
+        flops = 2 * n * t * d * hdim
+        bounds = {"prologue": bound(nbytes(gout, mlp, a, gate, w2p, *pro), flops),
+                  "epilogue": bound(nbytes(pro[0], x, gout, shift, scale, w1p, *epi), flops)}
+        mats = {"prologue": (torch.randn(n * t, d, device=dev, dtype=bf16),
+                             torch.randn(d, hdim, device=dev, dtype=bf16)),
+                "epilogue": (torch.randn(n * t, hdim, device=dev, dtype=bf16),
+                             torch.randn(hdim, d, device=dev, dtype=bf16))}
+        cublas = {k: cuda_ms(lambda u=u, v=v: torch.mm(u, v, out_dtype=f32)) for k, (u, v) in mats.items()}
+        del mats
+        # the whole backward, fused against plain, at the same inputs, in turns
+        fc1_w, fc2_w = w1.t(), w2.t()  # the f32 master weights in torch's layout
+        runs = {"plain": lambda: am.adaln_mlp_bwd(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, gout,
+                                                  1e-6, bf16),
+                "fused": lambda: am.adaln_mlp_bwd_fused(x, shift, scale, gate, fc1_w, fc2_w, a, mlp,
+                                                        gout, 1e-6, bf16, packed=(w1p, w2p))}
+        diff = max(rel_err(u, v) for u, v in zip(runs["fused"](), runs["plain"]()))
+        whole = {k: [] for k in runs}
+        for k in ("plain", "fused", "fused", "plain"):
+            whole[k].append(cuda_ms(runs[k], iters=10))
+        print(f"[mlp-bwd] main: prologue {pro_ms:.4f} ms (bound {bounds['prologue']['bound_ms']:.4f}, "
+              f"{bounds['prologue']['bound_by']}; plain f32 {pro_plain_ms:.4f}; yardstick, not the same "
+              f"function: cuBLAS bf16 ({n * t}, {d}) x ({d}, {hdim}) {cublas['prologue']:.4f}), epilogue "
+              f"{epi_ms:.4f} ms (bound {bounds['epilogue']['bound_ms']:.4f}, {bounds['epilogue']['bound_by']}; "
+              f"plain f32 {epi_plain_ms:.4f}; cuBLAS bf16 ({n * t}, {hdim}) x ({hdim}, {d}) "
+              f"{cublas['epilogue']:.4f}); no single PyTorch call computes either")
+        print(f"[mlp-bwd] main: whole MLP backward in turns (plain, fused, fused, plain): plain "
+              + ", ".join(f"{v:.4f}" for v in whole["plain"]) + " ms, fused "
+              + ", ".join(f"{v:.4f}" for v in whole["fused"]) + f" ms (fused = both kernels + the two "
+              f"cuBLAS weight-gradient products); fused vs plain gradients differ by {diff:.2e} of max "
+              f"(tol {TRAIN_TOL_F32})")
+        check(diff <= TRAIN_TOL_F32, f"fused vs plain MLP backward: {diff}")
+        for kern, ms, plain_ms, err in (("adaln_mlp_bwd_prologue", pro_ms, pro_plain_ms,
+                                         max_err(pro[0], wants[0][0][0])),
+                                        ("adaln_mlp_bwd_epilogue", epi_ms, epi_plain_ms,
+                                         max_err(epi[0], wants[1][0][0]))):
+            stage = kern.rsplit("_", 1)[1]
+            results[kern] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **bounds[stage],
+                             "library_ms": None, "cublas_product_ms": cublas[stage]}
+        whole_ms = {k: sum(v) / len(v) for k, v in whole.items()}
+    return results, whole_ms
 
 
 def phase_quant(dev):
@@ -808,6 +928,8 @@ def reset_launch_counts():
                 "banded_attention_bwd_dq": ba.banded_attention_bwd_dq,
                 "banded_attention_bwd_dkv": ba.banded_attention_bwd_dkv,
                 "adaln_mlp": am.adaln_mlp, "adaln_mlp_train": am.adaln_mlp_train,
+                "adaln_mlp_bwd_prologue": am.adaln_mlp_bwd_prologue,
+                "adaln_mlp_bwd_epilogue": am.adaln_mlp_bwd_epilogue,
                 "int8_matmul": tq.int8_matmul, "int8_modulated_matmul": tq.int8_modulated_matmul,
                 "int8_out_residual": tq.int8_out_residual, "adaln_mlp_quant": am.adaln_mlp_quant}
     for fn in wrappers.values():
@@ -815,26 +937,27 @@ def reset_launch_counts():
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
 
 
-def phase_train(dev, tmp):
-    """The train CLI at DiT-B width: launch counts, finite losses, a
-    checkpoint that resumes, seconds per step and the device's busy share."""
+def phase_train(dev, tmp, mlp_bwd="xla"):
+    """The train CLI at DiT-B width with --mlp-bwd `mlp_bwd`: launch counts,
+    finite losses, seconds per step and the device's busy share; with the
+    default backward also a checkpoint that resumes and the loader alone.
+    Returns (launches, {period_ms, step_ms, busy})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.train import trainer
     from osu_diffusion_tpu_torch.train.checkpoint import latest_checkpoint, load_train_checkpoint
 
-    data = os.path.join(tmp, "tracks")
-    for i in range(TRAIN_COPIES):  # label i: the file name's integer prefix
-        track = os.path.join(data, f"Track{i % 2:05d}", "beatmaps")
-        os.makedirs(track, exist_ok=True)
-        shutil.copy(BEATMAP, os.path.join(track, f"{i:06d} kimi.osu"))
+    default = mlp_bwd == "xla"
+    tag = "train" if default else f"train-{mlp_bwd}"
+    data = train_dataset(tmp)
     argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
             "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
             "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
-            "--log-every", "5", "--ckpt-every", str(TRAIN_CKPT_EVERY),
-            "--results-dir", os.path.join(tmp, "train"), "--device", dev]
+            "--log-every", "5", "--ckpt-every", str(TRAIN_CKPT_EVERY if default else 10 ** 9),
+            "--results-dir", os.path.join(tmp, "train"), "--device", dev, "--mlp-bwd", mlp_bwd]
 
     events = []  # (start, end) CUDA events around each train_step call
     prof = {}
@@ -870,18 +993,11 @@ def phase_train(dev, tmp):
     wall = time.perf_counter() - wall
     launches = read_counts()
 
-    ckpt_path = latest_checkpoint(summary["checkpoint_dir"])
-    check(ckpt_path is not None and ckpt_path.endswith(f"{TRAIN_CKPT_EVERY:07d}.pt"),
-          f"no checkpoint of step {TRAIN_CKPT_EVERY}: {ckpt_path}")
-    ckpt = load_train_checkpoint(ckpt_path)
-    check(set(ckpt) == {"model", "ema", "opt", "args", "step"} and ckpt["step"] == TRAIN_CKPT_EVERY,
-          f"checkpoint layout {sorted(ckpt)} step {ckpt.get('step')}")
-    depth = len({k.split(".")[1] for k in ckpt["model"] if k.startswith("blocks.")})
-    del ckpt
+    depth = len(DiT_models[MODEL](num_classes=2).blocks)
     with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
         log = f.read()
     losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
-    print(f"[train] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
+    print(f"[{tag}] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
           f"launches {launches}")
     check(summary["final_step"] == TRAIN_STEPS, f"stopped at step {summary['final_step']}")
     check(len(losses) == TRAIN_STEPS // 5 and all(math.isfinite(v) for v in losses),
@@ -892,26 +1008,43 @@ def phase_train(dev, tmp):
                 "adaln_mlp_train": TRAIN_STEPS * depth * 2,
                 "banded_attention_bwd_dq": TRAIN_STEPS * depth,
                 "banded_attention_bwd_dkv": TRAIN_STEPS * depth}
+    if not default:  # the backward runs once per block and step; remat recomputes the forward only
+        expected.update(dict.fromkeys(("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue"),
+                                      TRAIN_STEPS * depth))
     check(launches == expected, f"launches {launches}, expected {expected}")
 
     # steady state: the train_step calls in TIMED_STEPS, by CUDA events
     first, last = TIMED_STEPS.start, TIMED_STEPS.stop - 1
     step_ms = sum(events[i][0].elapsed_time(events[i][1]) for i in TIMED_STEPS) / len(TIMED_STEPS)
     period_ms = events[first][0].elapsed_time(events[last][0]) / (last - first)
-    print(f"[train] steady state over steps {first}..{last}: {period_ms / 1000:.6f} s per optimizer "
+    print(f"[{tag}] steady state over steps {first}..{last}: {period_ms / 1000:.6f} s per optimizer "
           f"step start to start ({TRAIN_BATCH * TRAIN_SEQ / period_ms * 1000:.0f} tokens/s), "
           f"{step_ms / 1000:.6f} s inside train_step ({MODEL}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-          f"bf16 stream, remat)")
+          f"bf16 stream, remat, --mlp-bwd {mlp_bwd})")
     events_dev = [e for e in prof["p"].key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events_dev)
     n_prof = len(PROFILED_STEPS)
-    print(f"[train-profile] device time {device_us / 1000:.2f} ms over {n_prof} steps "
-          f"({len(events_dev)} kinds of device op); busy {100 * device_us / 1000 / (prof['wall'] * 1000):.1f}% "
+    busy = 100 * device_us / 1000 / (prof["wall"] * 1000)
+    print(f"[{tag}-profile] device time {device_us / 1000:.2f} ms over {n_prof} steps "
+          f"({len(events_dev)} kinds of device op); busy {busy:.1f}% "
           f"of {prof['wall'] * 1000:.2f} ms wall (profiler on)")
     for e in sorted(events_dev, key=lambda e: -e.self_device_time_total)[:12]:
-        print(f"[train-profile]   {e.self_device_time_total / 1000 / n_prof:9.3f} ms/step  "
+        print(f"[{tag}-profile]   {e.self_device_time_total / 1000 / n_prof:9.3f} ms/step  "
               f"{e.count // n_prof:6d}x/step  {e.key[:90]}")
+    numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
+               "device_ms": device_us / 1000 / n_prof}
+    if not default:
+        return launches, numbers
+
+    ckpt_path = latest_checkpoint(summary["checkpoint_dir"])
+    check(ckpt_path is not None and ckpt_path.endswith(f"{TRAIN_CKPT_EVERY:07d}.pt"),
+          f"no checkpoint of step {TRAIN_CKPT_EVERY}: {ckpt_path}")
+    ckpt = load_train_checkpoint(ckpt_path)
+    check(set(ckpt) == {"model", "ema", "opt", "args", "step"} and ckpt["step"] == TRAIN_CKPT_EVERY,
+          f"checkpoint layout {sorted(ckpt)} step {ckpt.get('step')}")
+    del ckpt
+    numbers["ckpt"] = ckpt_path
 
     # resume from the checkpoint for one more step
     summary2 = train_main(build_train_parser().parse_args(
@@ -936,13 +1069,25 @@ def phase_train(dev, tmp):
         batches += sum(1 for _ in loader)
     print(f"[train] the loader alone (2 threads, Python featurizer): "
           f"{(time.perf_counter() - wall) / batches:.6f} s per batch of {TRAIN_BATCH} over {batches} batches")
-    return launches
+    return launches, numbers
 
 
-def phase_train_step_vs_plain(dev):
+def train_dataset(tmp):
+    """A Track dataset of TRAIN_COPIES kimi copies under tmp (made once)."""
+    data = os.path.join(tmp, "tracks")
+    for i in range(TRAIN_COPIES):  # label i: the file name's integer prefix
+        track = os.path.join(data, f"Track{i % 2:05d}", "beatmaps")
+        os.makedirs(track, exist_ok=True)
+        shutil.copy(BEATMAP, os.path.join(track, f"{i:06d} kimi.osu"))
+    return data
+
+
+def phase_train_step_vs_plain(dev, mlp_bwd="xla"):
     """One DiT-B training step's loss and parameter gradients at batch 4:
     the card's kernels against the CPU's plain versions, same weights and
-    draws."""
+    draws, with the MLP backward `mlp_bwd` (with "fused" the card runs the
+    two backward kernels, once per block, and the CPU their plain stages;
+    only the MSE gradients are compared then)."""
     import numpy as np
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
@@ -952,12 +1097,14 @@ def phase_train_step_vs_plain(dev):
     from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.train.train_step import StepDraws, draw_step, loss_terms
 
+    tag = "step" if mlp_bwd == "xla" else f"step-{mlp_bwd}"
+
     seq = beatmap_to_sequence(Beatmap.from_path(BEATMAP))
     wins = [default_win_func(seq, s, s + TRAIN_SEQ) for s in (0, 150, 300, 450)]
     batch = (torch.from_numpy(np.stack([w for w, _ in wins])),
              torch.from_numpy(np.stack([p for _, p in wins])),
              torch.tensor([3, 17, 100, NUM_CLASSES - 1]))
-    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2)
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2, mlp_bwd=mlp_bwd)
     model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED + 1)))
     draws = draw_step(4, TRAIN_SEQ, 1000, 0.2, "cpu", torch.Generator().manual_seed(SEED + 2))
     draws = draws._replace(drop=torch.tensor([True, False, False, False]))
@@ -965,32 +1112,98 @@ def phase_train_step_vs_plain(dev):
     for where in ("cpu", dev):
         m = copy.deepcopy(model).to(where).train()
         args = (tuple(a.to(where) for a in batch), StepDraws(*(a.to(where) for a in draws)))
-        # the main path's L1 loss: its terms (forward with grad, as in training)
-        diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=where)
-        terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
-        l1_terms[where] = {k: v.mean().item() for k, v in terms.items()}
-        del terms
+        if mlp_bwd == "xla":
+            # the main path's L1 loss: its terms (forward with grad, as in training)
+            diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=where)
+            terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
+            l1_terms[where] = {k: v.mean().item() for k, v in terms.items()}
+            del terms
         # MSE for the gradients (see STEP_GRAD_REL_TOL)
         diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=False, device=where)
+        read_counts = reset_launch_counts()
         terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
         loss = terms["loss"].mean()
         loss.backward()
+        counts = read_counts()
         results[where] = (loss.item(), {n: p.grad.float().cpu() for n, p in m.named_parameters()})
         del m, terms, loss
-    l1_rel = {k: abs(l1_terms[dev][k] - v) / abs(v) for k, v in l1_terms["cpu"].items()}
-    print(f"[step] {MODEL} L1 loss terms, batch 4 x {TRAIN_SEQ}, bf16 stream: card {l1_terms[dev]} "
-          f"cpu {l1_terms['cpu']}; relative errors {l1_rel} (tol {STEP_LOSS_REL_TOL})")
-    check(set(l1_rel) == {"loss", "l1", "vb"} and max(l1_rel.values()) <= STEP_LOSS_REL_TOL,
-          f"L1 step terms: {l1_rel}")
+    depth = len(model.blocks)
+    fused = (counts["adaln_mlp_bwd_prologue"], counts["adaln_mlp_bwd_epilogue"])
+    check(fused == ((depth, depth) if mlp_bwd == "fused" else (0, 0)),
+          f"{tag}: backward kernel launches {fused} on the card")
+    if l1_terms:
+        l1_rel = {k: abs(l1_terms[dev][k] - v) / abs(v) for k, v in l1_terms["cpu"].items()}
+        print(f"[step] {MODEL} L1 loss terms, batch 4 x {TRAIN_SEQ}, bf16 stream: card {l1_terms[dev]} "
+              f"cpu {l1_terms['cpu']}; relative errors {l1_rel} (tol {STEP_LOSS_REL_TOL})")
+        check(set(l1_rel) == {"loss", "l1", "vb"} and max(l1_rel.values()) <= STEP_LOSS_REL_TOL,
+              f"L1 step terms: {l1_rel}")
     (loss_cpu, g_cpu), (loss_dev, g_dev) = results["cpu"], results[dev]
     loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     errs = sorted(((rel_err(g_dev[n], g_cpu[n]), n) for n in g_cpu), reverse=True)
-    print(f"[step] {MODEL} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
+    print(f"[{tag}] {MODEL} --mlp-bwd {mlp_bwd} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
           f"cpu {loss_cpu:.6f} (rel {loss_rel:.2e}, tol {STEP_LOSS_REL_TOL}); gradient error of max, "
           f"worst {errs[0][0]:.2e} ({errs[0][1]}), median {errs[len(errs) // 2][0]:.2e} over "
-          f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL})")
-    check(loss_rel <= STEP_LOSS_REL_TOL, f"step loss: {loss_rel} > {STEP_LOSS_REL_TOL}")
-    check(errs[0][0] <= STEP_GRAD_REL_TOL, f"step gradients: {errs[:5]}")
+          f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL}); backward kernel launches on the card {fused}")
+    check(loss_rel <= STEP_LOSS_REL_TOL, f"{tag} loss: {loss_rel} > {STEP_LOSS_REL_TOL}")
+    check(errs[0][0] <= STEP_GRAD_REL_TOL, f"{tag} gradients: {errs[:5]}")
+
+
+def phase_train_modes(dev, tmp, ckpt_path):
+    """train_nodist_torch.py (the refine model: timestep 0 only) with
+    --embed-only-epochs 1, resumed from the [train] run's checkpoint (from
+    the adaLN-Zero init the label table gets no gradient until the zero-init
+    layers move), 3 steps at DiT-B inside the frozen epoch (stride 8: ~4
+    batches an epoch): every parameter but the label table keeps the
+    checkpoint's value bit for bit, the table moves, losses are finite, and
+    the log has the freeze line."""
+    import runpy
+
+    import torch
+    from osu_diffusion_tpu_torch.train import trainer
+    from osu_diffusion_tpu_torch.train.checkpoint import load_train_checkpoint
+
+    data = train_dataset(tmp)
+    start = int(load_train_checkpoint(ckpt_path)["step"])
+    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "8", "--num-workers", "2", "--log-every", "1",
+            "--ckpt-every", str(10 ** 9), "--results-dir", os.path.join(tmp, "train-modes"),
+            "--device", dev, "--embed-only-epochs", "1", "--ckpt", ckpt_path,
+            "--max-steps", str(start + 3)]
+    seen = {}
+    orig_train, orig_step = trainer.train, trainer.train_step
+
+    def spy_train(config):
+        seen["config"] = config
+        seen["summary"] = orig_train(config)
+        return seen["summary"]
+
+    def spy_step(model, *args, **kwargs):
+        seen["model"] = model
+        return orig_step(model, *args, **kwargs)
+
+    trainer.train, trainer.train_step = spy_train, spy_step
+    argv0 = sys.argv
+    sys.argv = ["train_nodist_torch.py", *argv]
+    try:
+        runpy.run_path("train_nodist_torch.py", run_name="__main__")
+    finally:
+        trainer.train, trainer.train_step, sys.argv = orig_train, orig_step, argv0
+    config, summary = seen["config"], seen["summary"]
+    with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
+        log = f.read()
+    losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
+    before = load_train_checkpoint(ckpt_path)["model"]
+    after = {k: v.cpu() for k, v in seen["model"].state_dict().items()}
+    moved = [k for k in before if not torch.equal(before[k], after[k])]
+    print(f"[train-modes] train_nodist_torch.py, max_timestep {config.max_timestep}, --embed-only-epochs "
+          f"{config.embed_only_epochs}, from step {start}: final step {summary['final_step']}, losses "
+          f"{losses}; tensors that moved {moved} of {len(before)}")
+    check(config.max_timestep == 1 and summary["final_step"] == start + 3, f"train modes: {summary}")
+    check(len(losses) == 3 and all(math.isfinite(v) for v in losses), f"train modes losses {losses}")
+    check("Freezing non-embedding layers for 1 epochs" in log and "Un-freezing" not in log,
+          "train modes: the freeze line, or an epoch boundary inside the 3 steps")
+    check(moved == [trainer.LABEL_TABLE], f"train modes: moved {moved}")
 
 
 def main() -> int:
@@ -1009,6 +1222,8 @@ def main() -> int:
     measured = {"banded_attention": phase_attention(dev), "adaln_mlp": phase_mlp(dev)}
     measured.update(phase_attention_train(dev))
     measured["adaln_mlp_train"] = phase_mlp_train(dev)
+    mlp_bwd, mlp_bwd_ms = phase_mlp_bwd(dev)
+    measured.update(mlp_bwd)
     measured.update(phase_quant(dev))
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -1029,12 +1244,24 @@ def main() -> int:
         phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
         launches.update({k: v for k, v in quant_launches.items() if k not in launches})
         del sampler, qsampler, call_args
-        launches.update({k: v for k, v in phase_train(dev, tmp).items() if k not in launches})
+        train_launches, default = phase_train(dev, tmp)
+        launches.update({k: v for k, v in train_launches.items() if k not in launches})
+        fused_launches, fused = phase_train(dev, tmp, "fused")
+        launches.update({k: fused_launches[k] for k in ("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue")})
+        print(f"[train-fused] against the default run in this call: {fused['period_ms'] / 1000:.6f} against "
+              f"{default['period_ms'] / 1000:.6f} s per optimizer step start to start, "
+              f"{fused['step_ms'] / 1000:.6f} against {default['step_ms'] / 1000:.6f} s inside train_step, "
+              f"device {fused['device_ms']:.2f} against {default['device_ms']:.2f} ms per step, busy "
+              f"{fused['busy']:.1f}% against {default['busy']:.1f}%; the MLP backward alone (fused, plain) "
+              f"{mlp_bwd_ms['fused']:.4f}, {mlp_bwd_ms['plain']:.4f} ms per block")
+        phase_train_modes(dev, tmp, default["ckpt"])
     phase_train_step_vs_plain(dev)
+    phase_train_step_vs_plain(dev, "fused")
 
     attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"
     bwd_src = "osu_diffusion_tpu_torch/csrc/banded_attention_bwd.cu"
     mlp_src = "osu_diffusion_tpu_torch/csrc/adaln_mlp.cu"
+    mlp_bwd_src = "osu_diffusion_tpu_torch/csrc/adaln_mlp_bwd.cu"
     int8_src = "osu_diffusion_tpu_torch/csrc/int8_matmul.cu"
     attn_ref = "osu_diffusion_tpu/ops/pallas_attention.py"
     mlp_ref = "osu_diffusion_tpu/ops/pallas_mlp.py:53"
@@ -1046,6 +1273,8 @@ def main() -> int:
         "banded_attention_bwd_dq": (bwd_src, f"{attn_ref}:379"),
         "banded_attention_bwd_dkv": (bwd_src, f"{attn_ref}:461"),
         "adaln_mlp_train": (mlp_src, mlp_ref),
+        "adaln_mlp_bwd_prologue": (mlp_bwd_src, "osu_diffusion_tpu/ops/pallas_mlp.py:315"),
+        "adaln_mlp_bwd_epilogue": (mlp_bwd_src, "osu_diffusion_tpu/ops/pallas_mlp.py:390"),
         "adaln_mlp_quant": (mlp_src, "osu_diffusion_tpu/ops/pallas_mlp.py:184"),
         "int8_modulated_matmul": (int8_src, f"{quant_ref}:95"),
         "int8_out_residual": (int8_src, f"{quant_ref}:156"),

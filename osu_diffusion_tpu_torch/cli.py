@@ -9,14 +9,16 @@ weight-only blocks at load (models/quantize.py) and every block runs the
 int8 kernels around the banded attention core instead.
 
 train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
-every block runs the training kernels. The JAX trainer's TPU-only knobs
-(--use-pallas, --pallas-ops, --flash-block, --scan-blocks, --steps-per-call,
---multihost, --num-model, --context-parallel) have no counterpart here.
+every block runs the training kernels (with --mlp-bwd fused also the MLP
+half's two backward kernels). --embed-only-epochs and --relearn-embeds are
+the reference's fine-tuning flow; train_nodist_torch.py is the refine-model
+trainer (timestep 0 only). The JAX trainer's TPU-only knobs (--use-pallas,
+--pallas-ops, --flash-block, --scan-blocks, --steps-per-call, --multihost,
+--num-model, --context-parallel) have no counterpart here.
 """
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import logging
 import os
 import re
@@ -143,17 +145,43 @@ def build_train_parser() -> argparse.ArgumentParser:
                         help="resume from this .pt (model, ema, opt and step where present)")
     parser.add_argument("--noise-schedule", type=str, default=d.noise_schedule)
     parser.add_argument("--lr", type=float, default=d.lr)
+    parser.add_argument("--embed-only-epochs", type=int, default=d.embed_only_epochs,
+                        help="train only the label table for this many epochs first")
+    parser.add_argument("--relearn-embeds", action=argparse.BooleanOptionalAction,
+                        default=d.relearn_embeds,
+                        help="with --ckpt: keep a freshly initialised label table (the "
+                             "checkpoint's may have another class count) and start a fresh "
+                             "optimizer at step 0")
     parser.add_argument("--max-steps", type=int, default=None)
     parser.add_argument("--l1-loss", action=argparse.BooleanOptionalAction, default=d.l1_loss)
     parser.add_argument("--use-bf16", action=argparse.BooleanOptionalAction, default=d.use_bf16,
                         help="bf16 residual stream over f32 master weights")
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=d.remat,
                         help="recompute each block in the backward")
+    parser.add_argument("--mlp-bwd", choices=["fused", "xla"], default=d.mlp_bwd,
+                        help="the adaLN-MLP backward: the plain 'xla' (default) or the "
+                             "fused reduction/LayerNorm-backward kernels")
     parser.add_argument("--device", type=str, default=d.device)
     return parser
 
 
+def train_config_kwargs(args) -> dict:
+    """Parsed train-CLI arguments -> TrainConfig keyword arguments. Shared by
+    train_main and train_nodist_torch.py (which adds max_timestep=1), so the
+    two cannot drift when flags are added."""
+    return dict(
+        data_path=args.data_path, num_classes=args.num_classes, data_start=args.data_start,
+        data_end=args.data_end, results_dir=args.results_dir, model=args.model,
+        epochs=args.epochs, global_batch_size=args.global_batch_size,
+        global_seed=args.global_seed, num_workers=args.num_workers, log_every=args.log_every,
+        ckpt_every=args.ckpt_every, seq_len=args.seq_len, stride=args.stride, ckpt=args.ckpt,
+        noise_schedule=args.noise_schedule, l1_loss=args.l1_loss, lr=args.lr,
+        relearn_embeds=args.relearn_embeds, embed_only_epochs=args.embed_only_epochs,
+        use_bf16=args.use_bf16, remat=args.remat, max_steps=args.max_steps,
+        mlp_bwd=args.mlp_bwd, device=args.device,
+    )
+
+
 def train_main(args) -> dict:
     """Train from parsed `build_train_parser` arguments."""
-    return train(TrainConfig(**{f.name: getattr(args, f.name) for f in dataclasses.fields(TrainConfig)
-                                if hasattr(args, f.name)}))
+    return train(TrainConfig(**train_config_kwargs(args)))

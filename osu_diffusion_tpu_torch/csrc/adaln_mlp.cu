@@ -93,7 +93,6 @@ constexpr int BH = 128;   // hidden chunk width
 constexpr int K1 = 64;    // w1 rows per streamed tile
 constexpr int K2 = 16;    // w2 rows per streamed tile
 constexpr int STAGES = 4; // weight tiles in the shared-memory ring
-constexpr long long SPIN_LIMIT = 1ll << 24;  // mbarrier polls before trapping
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
 constexpr int LDG = BH + 8;   // bf16 row stride of the hidden chunk
@@ -125,31 +124,10 @@ struct __align__(128) Smem {
   unsigned long long full[STAGES];            // mbarrier: the stage's tile landed
 };
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// global -> shared bulk copy of `bytes` (multiple of 16, both ends 16-byte
-// aligned) that reports its bytes to the mbarrier at `mbar`
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, unsigned mbar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(mbar) : "memory");
-}
-
-// block until the mbarrier at `mbar` completes the phase of `parity`; a
-// tile that never lands traps (a launch error) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
-  for (long long spin = 0;; ++spin) {
-    unsigned done;
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(mbar), "r"(parity) : "memory");
-    if (done) return;
-    if (spin > SPIN_LIMIT) asm volatile("trap;");
-  }
-}
+using tile_io::issue_bulk;
+using tile_io::mbar_init;
+using tile_io::mbar_wait;
+using tile_io::smem_addr;
 
 __device__ __forceinline__ float gelu_tanh(float v) {
   const float c0 = 0.7978845608028654f;  // sqrt(2 / pi)
@@ -170,9 +148,7 @@ __device__ __forceinline__ void issue_tile(Smem<D, W>& sm, int i, int chunk0,
   const unsigned bytes = (fc1 ? K1 * LDW1 : K2 * C::LDW2) * sizeof(W);
   const W* src = fc1 ? w1p + ((long long)chunk * D + r * K1) * LDW1
                                  : w2p + ((long long)chunk * BH + (r - C::T1) * K2) * C::LDW2;
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(mbar), "r"(bytes) : "memory");
-  bulk_copy(sm.ring[i % STAGES], src, bytes, mbar);
+  issue_bulk(sm.ring[i % STAGES], src, bytes, mbar);
 }
 
 // int8 -> bf16 upcast of one landed tile of `elems` codes (a multiple of 8)
@@ -210,11 +186,7 @@ adaln_mlp_partial_kernel(const TX* __restrict__ x, const float* __restrict__ shi
   const float* sh = shift + nb * mod_stride;
   const float* sc = scale + nb * mod_stride;
 
-  if (threadIdx.x == 0) {
-    for (int st = 0; st < STAGES; ++st)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&sm.full[st])));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
+  if (threadIdx.x == 0) mbar_init(sm.full, STAGES);
   __syncthreads();
   // the first tiles load while the LayerNorm runs
   if (threadIdx.x == 0) {

@@ -1,6 +1,7 @@
 // Typed 4-element loads and stores shared by the kernels: activations are
 // float32 or bfloat16 (the training stream), and the kernels compute in f32
 // with bf16 matmul operands (int8 weight codes are upcast to bf16 first).
+// Also the mbarrier-completed bulk copies of the MLP kernels' weight rings.
 // Every pointer passed here is aligned to four elements (16 bytes for f32,
 // 8 for bf16); the wrappers check it.
 #pragma once
@@ -63,6 +64,50 @@ __device__ __forceinline__ uint2 int8x4_to_bf16x4(unsigned v) {
   r.x = __byte_perm(__float_as_uint(f0), __float_as_uint(f1), 0x7632);
   r.y = __byte_perm(__float_as_uint(f2), __float_as_uint(f3), 0x7632);
   return r;
+}
+
+// The bulk-copy ring of the MLP kernels: one thread issues each weight tile
+// as a single cp.async.bulk that completes on its stage's mbarrier.
+constexpr long long SPIN_LIMIT = 1ll << 24;  // mbarrier polls before trapping
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// global -> shared bulk copy of `bytes` (multiple of 16, both ends 16-byte
+// aligned) that reports its bytes to the mbarrier at `mbar`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes, unsigned mbar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(mbar) : "memory");
+}
+
+// arm the mbarrier at `mbar` for `bytes`, then copy them into `dst`
+__device__ __forceinline__ void issue_bulk(void* dst, const void* src, unsigned bytes, unsigned mbar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(mbar), "r"(bytes) : "memory");
+  bulk_copy(dst, src, bytes, mbar);
+}
+
+// one thread: `count` mbarriers, each completed by one arrival
+__device__ __forceinline__ void mbar_init(unsigned long long* bars, int count) {
+  for (int st = 0; st < count; ++st)
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(&bars[st])));
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// block until the mbarrier at `mbar` completes the phase of `parity`; a
+// tile that never lands traps (a launch error) instead of hanging the card
+__device__ __forceinline__ void mbar_wait(unsigned mbar, unsigned parity) {
+  for (long long spin = 0;; ++spin) {
+    unsigned done;
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(mbar), "r"(parity) : "memory");
+    if (done) return;
+    if (spin > SPIN_LIMIT) asm volatile("trap;");
+  }
 }
 
 // rows [r0, r0 + ROWS) of a (t, COLS) slab with row stride `st` -> bf16

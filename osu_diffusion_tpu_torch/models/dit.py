@@ -31,7 +31,9 @@ vectors; the final head runs in f32, so the output is f32.
 Training (`train=True`): labels drop to the null class `num_classes` with
 probability `class_dropout_prob` (from a generator, or a given mask), and
 with `remat` each block is recomputed in the backward
-(`torch.utils.checkpoint`, the JAX package's `nn.remat`).
+(`torch.utils.checkpoint`, the JAX package's `nn.remat`). `mlp_bwd` picks
+the MLP half's backward, as the JAX `DiTConfig.mlp_bwd` does: "xla" (the
+plain backward, the default) or "fused" (the two backward kernels).
 
 int8 weight-only serving (`quant=True`, the JAX package's
 `DiTConfig.quant`): every block's projections hold int8 codes with a
@@ -63,7 +65,13 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from osu_diffusion_tpu_torch import PLAYFIELD
-from osu_diffusion_tpu_torch.ops.adaln_mlp import AdalnMlp, adaln_mlp, adaln_mlp_quant, pack_weights
+from osu_diffusion_tpu_torch.ops.adaln_mlp import (
+    BWD_IMPLS,
+    AdalnMlp,
+    adaln_mlp,
+    adaln_mlp_quant,
+    pack_weights,
+)
 from osu_diffusion_tpu_torch.ops.attention import multi_head_attention
 from osu_diffusion_tpu_torch.ops.embeddings import (
     offset_sequence_embedding,
@@ -200,10 +208,13 @@ class Mlp(nn.Module):
 
 class DiTBlock(nn.Module):
     """adaLN-Zero block. Modulation order: shift/scale/gate of the attention
-    half, then of the MLP half."""
+    half, then of the MLP half. `mlp_bwd`: the MLP half's backward in
+    training, "xla" (plain) or "fused" (ops/adaln_mlp.py, `AdalnMlp`)."""
 
-    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0):
+    def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0,
+                 mlp_bwd: str = "xla"):
         super().__init__()
+        self.mlp_bwd = mlp_bwd
         self.attn = SelfAttention(hidden_size, num_heads)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
@@ -218,7 +229,7 @@ class DiTBlock(nn.Module):
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         if torch.is_grad_enabled() and (x.requires_grad or fc1.weight.requires_grad):
             return AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight,
-                                  fc2.bias, 1e-6, matmul_dtype)
+                                  fc2.bias, 1e-6, matmul_dtype, self.mlp_bwd)
         w1p, w2p = self.mlp.kernel_weights(matmul_dtype)
         return adaln_mlp(x, shift, scale, gate, w1p, fc1.bias, w2p, fc2.bias, 1e-6, matmul_dtype)
 
@@ -330,8 +341,11 @@ class DiT(nn.Module):
         matmul_dtype: torch.dtype = torch.bfloat16,
         remat: bool = True,
         quant: bool = False,
+        mlp_bwd: str = "xla",
     ):
         super().__init__()
+        if mlp_bwd not in BWD_IMPLS:
+            raise ValueError(f"mlp_bwd must be one of {BWD_IMPLS}, got {mlp_bwd!r}")
         self.quant = quant
         self.in_channels = in_channels
         self.out_channels = in_channels * 2 if learn_sigma else in_channels
@@ -341,8 +355,10 @@ class DiT(nn.Module):
         self.xoc_embedder = FirstLayer(in_channels, context_size, hidden_size)
         self.t_embedder = TimestepEmbedder(hidden_size)
         self.y_embedder = LabelEmbedder(num_classes, hidden_size, class_dropout_prob)
-        block = QuantDiTBlock if quant else DiTBlock
-        self.blocks = nn.ModuleList(block(hidden_size, num_heads, mlp_ratio) for _ in range(depth))
+        self.blocks = nn.ModuleList(
+            QuantDiTBlock(hidden_size, num_heads, mlp_ratio) if quant
+            else DiTBlock(hidden_size, num_heads, mlp_ratio, mlp_bwd) for _ in range(depth)
+        )
         self.final_layer = FinalLayer(hidden_size, self.out_channels)
 
     @torch.no_grad()

@@ -5,8 +5,11 @@ PyTorch versions.
 Port of osu_diffusion_tpu/ops/pallas_mlp.py: `_adaln_mlp_kernel` without
 residuals (`adaln_mlp`, inference) and with them (`adaln_mlp_train`), and
 `_adaln_mlp_quant_kernel` (`adaln_mlp_quant`, int8 weights), all
-csrc/adaln_mlp.cu, and the default plain backward `_bwd`
-(`adaln_mlp_bwd`). It computes the MLP half of a DiT block,
+csrc/adaln_mlp.cu; the default plain backward `_bwd` (`adaln_mlp_bwd`);
+and the fused backward `_bwd_fused_impl` (`adaln_mlp_bwd_fused`), whose
+two stages `_bwd_prologue_kernel` and `_bwd_epilogue_kernel` are
+`adaln_mlp_bwd_prologue` and `adaln_mlp_bwd_epilogue`,
+csrc/adaln_mlp_bwd.cu. It computes the MLP half of a DiT block,
 
     out = x + gate * fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift)))
 
@@ -24,7 +27,7 @@ Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
 `AdalnMlp` is the autograd Function of the training path: it takes fc1/fc2
 weights in torch's (out, in) layout, packs them itself, and returns their
-gradients in that layout.
+gradients in that layout; `bwd_impl` picks the plain or the fused backward.
 """
 from __future__ import annotations
 
@@ -137,6 +140,18 @@ def _mm(a: torch.Tensor, b: torch.Tensor, matmul_dtype) -> torch.Tensor:
     return torch.mm(rnd(a), rnd(b))
 
 
+def _gelu_and_grad(af: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """GELU-tanh of the f32 pre-activation and its derivative."""
+    th = torch.tanh(GELU_C0 * (af + GELU_C1 * af * af * af))
+    dgelu_da = 0.5 * (1.0 + th) + 0.5 * af * (1.0 - th * th) * GELU_C0 * (1.0 + 3.0 * GELU_C1 * af * af)
+    return 0.5 * af * (1.0 + th), dgelu_da
+
+
+def _layer_norm_bwd(dxn, xn, inv):
+    """The non-affine LayerNorm's input gradient from dL/dxn."""
+    return inv * (dxn - dxn.mean(dim=-1, keepdim=True) - xn * (dxn * xn).mean(dim=-1, keepdim=True))
+
+
 def adaln_mlp_bwd(
     x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float = 1e-6,
     matmul_dtype: torch.dtype = torch.float32,
@@ -153,10 +168,7 @@ def adaln_mlp_bwd(
     xn, inv = _layer_norm_f32(x, eps)
     scale1 = 1.0 + scale.to(f32)[:, None, :]
     h1 = xn * scale1 + shift.to(f32)[:, None, :]
-    af = a.to(f32)
-    th = torch.tanh(GELU_C0 * (af + GELU_C1 * af * af * af))
-    gelu_out = 0.5 * af * (1.0 + th)
-    dgelu_da = 0.5 * (1.0 + th) + 0.5 * af * (1.0 - th * th) * GELU_C0 * (1.0 + 3.0 * GELU_C1 * af * af)
+    gelu_out, dgelu_da = _gelu_and_grad(a.to(f32))
 
     # out = x + gate * mlp
     dgate = (g * mlp.to(f32)).sum(dim=1)
@@ -172,10 +184,47 @@ def adaln_mlp_bwd(
     # h1 = xn * (1 + scale) + shift, then the non-affine LayerNorm
     dshift = dh1.sum(dim=1)
     dscale = (dh1 * xn).sum(dim=1)
-    dxn = dh1 * scale1
-    dx_ln = inv * (dxn - dxn.mean(dim=-1, keepdim=True) - xn * (dxn * xn).mean(dim=-1, keepdim=True))
-    return ((g + dx_ln).to(x.dtype), dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1,
+    dx = g + _layer_norm_bwd(dh1 * scale1, xn, inv)
+    return (dx.to(x.dtype), dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1,
             dfc2_w.to(fc2_w.dtype), db2)
+
+
+def adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, w2, matmul_dtype: torch.dtype = torch.float32):
+    """Plain version of the fused backward's first stage (JAX
+    `_bwd_prologue_kernel`). g: (N, T, D) upstream gradient in the stream's
+    type; mlp: (N, T, D) f32 and a: (N, T, H) the forward's residuals; gate:
+    (N, D); w2: (H, D). Returns (da, gelu(a) (N, T, H), dmlp (N, T, D) in g's
+    type; dgate (N, D), db1 (H,), db2 (D,) f32). dgelu = dmlp @ w2^T takes
+    operands rounded to `matmul_dtype` and sums in f32; GELU' comes from the
+    f32 `a`; db1 sums the unrounded da."""
+    f32 = torch.float32
+    n, t, d = g.shape
+    gf = g.to(f32)
+    dmlp = gf * gate.to(f32)[:, None, :]
+    dgate = (gf * mlp.to(f32)).sum(dim=1)
+    dgelu = _mm(dmlp.reshape(n * t, d), w2.t(), matmul_dtype).reshape(n, t, -1)
+    gelu_out, dgelu_da = _gelu_and_grad(a.to(f32))
+    da = dgelu * dgelu_da
+    return (da.to(g.dtype), gelu_out.to(g.dtype), dmlp.to(g.dtype), dgate, da.sum(dim=(0, 1)),
+            dmlp.sum(dim=(0, 1)))
+
+
+def adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, w1, eps: float = 1e-6,
+                                     matmul_dtype: torch.dtype = torch.float32):
+    """Plain version of the fused backward's second stage (JAX
+    `_bwd_epilogue_kernel`). da: (N, T, H) and x, g: (N, T, D) in the
+    stream's type; shift/scale: (N, D); w1: (D, H). Returns (dx, h1 (N, T, D)
+    in x's type; dshift, dscale (N, D) f32): dh1 = da @ w1^T (operands
+    rounded to `matmul_dtype`, f32 sums), then the modulation and LayerNorm
+    backward."""
+    f32 = torch.float32
+    n, t, d = x.shape
+    xn, inv = _layer_norm_f32(x, eps)
+    scale1 = 1.0 + scale.to(f32)[:, None, :]
+    h1 = xn * scale1 + shift.to(f32)[:, None, :]
+    dh1 = _mm(da.reshape(n * t, -1), w1.t(), matmul_dtype).reshape(n, t, d)
+    dx = g.to(f32) + _layer_norm_bwd(dh1 * scale1, xn, inv)
+    return dx.to(x.dtype), h1.to(x.dtype), dh1.sum(dim=1), (dh1 * xn).sum(dim=1)
 
 
 @functools.cache
@@ -203,6 +252,26 @@ def _lib() -> ctypes.CDLL:
 
 
 @functools.cache
+def _bwd_lib() -> ctypes.CDLL:
+    lib = cuda_build.load_library("adaln_mlp_bwd")
+    fn = lib.adaln_mlp_bwd_prologue
+    fn.restype = ctypes.c_int
+    # (g, mlp, a, gate, mod_stride, w2p, da, gelu_out, dmlp, dgate, db1, db2,
+    #  ws, n, t, d, hdim, split, bf16, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+    fn = lib.adaln_mlp_bwd_epilogue
+    fn.restype = ctypes.c_int
+    # (da, x, g, shift, scale, mod_stride, w1p, dx, h1, dshift, dscale, ws,
+    #  n, t, d, hdim, eps, bf16, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
+                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.adaln_mlp_bwd_error_string.restype = ctypes.c_char_p
+    lib.adaln_mlp_bwd_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
@@ -217,21 +286,58 @@ def hidden_split(n: int, t: int, hdim: int, sm_count: int) -> int:
     return max(s for s in range(1, chunks + 1) if chunks % s == 0 and (s == 1 or tiles * s <= sm_count))
 
 
-def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype,
-                         w_dtype=torch.bfloat16, **scales) -> None:
-    """`w_dtype`: the packed weights' type, bf16 or int8 (then `scales`
-    holds s1 and s2)."""
+def _check_widths(x, hdim: int, matmul_dtype) -> None:
+    """What every adaLN-MLP kernel takes: bf16 operands, D in
+    KERNEL_WIDTHS, H a multiple of 128, an f32 or bf16 stream, N <= 65535."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
-    n, t, d = x.shape
-    hdim = w2p.shape[0]
+    n, _, d = x.shape
     if d not in KERNEL_WIDTHS:
         raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS}, got {d}")
     if hdim % HIDDEN_CHUNK:
         raise ValueError(f"hidden width {hdim} is not a multiple of {HIDDEN_CHUNK}")
     if x.dtype not in ACT_DTYPES:
         raise TypeError(f"x must be one of {ACT_DTYPES}, got {x.dtype}")
+    if n > 65535:
+        raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
+
+
+def _check_specs(x, expect: dict, mod_names) -> None:
+    """Each `name: (tensor, dtype, shape)` of `expect` on x's device (the
+    current one), of that type and shape, 16-byte aligned and contiguous;
+    the `mod_names` ones may instead be row views of one modulation tensor
+    (one shared row stride, a multiple of 4)."""
+    mods = [expect[m][0] for m in mod_names if m in expect]
+    for name, (a, dtype, shape) in expect.items():
+        if a.device != x.device:
+            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
+        if a.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
+        if tuple(a.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shape}")
+        if a.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned")
+        if name in mod_names:
+            if a.stride() != mods[0].stride() or a.stride(1) != 1 or a.stride(0) % 4:
+                raise ValueError(
+                    f"{'/'.join(mod_names)} need one shared row stride, a multiple "
+                    f"of 4, and unit column stride; {name} has {a.stride()}"
+                )
+        elif not a.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if x.device.index != torch.cuda.current_device():
+        raise ValueError(f"x is on {x.device}, the current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+
+
+def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype,
+                         w_dtype=torch.bfloat16, **scales) -> None:
+    """`w_dtype`: the packed weights' type, bf16 or int8 (then `scales`
+    holds s1 and s2)."""
+    n, t, d = x.shape
+    hdim = w2p.shape[0]
+    _check_widths(x, hdim, matmul_dtype)
     expect = {
         "x": (x, x.dtype, (n, t, d)),
         "shift": (shift, torch.float32, (n, d)),
@@ -243,28 +349,7 @@ def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype,
         "b2": (b2, torch.float32, (d,)),
         **{name: (a, torch.float32, (hdim,) if name == "s1" else (d,)) for name, a in scales.items()},
     }
-    for name, (a, dtype, shape) in expect.items():
-        if a.device != x.device:
-            raise ValueError(f"{name} is on {a.device}, x on {x.device}")
-        if a.dtype != dtype:
-            raise TypeError(f"{name} must be {dtype}, got {a.dtype}")
-        if tuple(a.shape) != shape:
-            raise ValueError(f"{name} has shape {tuple(a.shape)}, expected {shape}")
-        if a.data_ptr() % 16:
-            raise ValueError(f"{name} must be 16-byte aligned")
-        if name in ("shift", "scale", "gate"):
-            if a.stride() != shift.stride() or a.stride(1) != 1 or a.stride(0) % 4:
-                raise ValueError(
-                    "shift/scale/gate need one shared row stride, a multiple "
-                    f"of 4, and unit column stride; {name} has {a.stride()}"
-                )
-        elif not a.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if x.device.index != torch.cuda.current_device():
-        raise ValueError(f"x is on {x.device}, the current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    if n > 65535:
-        raise ValueError(f"batch {n} exceeds the kernel's grid limit 65535")
+    _check_specs(x, expect, ("shift", "scale", "gate"))
 
 
 def _launch(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype, residuals: bool):
@@ -328,31 +413,151 @@ def adaln_mlp_train(
     return res
 
 
+def _bwd_error(lib, err: int, stage: str) -> RuntimeError:
+    return RuntimeError(f"adaln_mlp_bwd_{stage} kernel launch failed: CUDA error {err} "
+                        f"({lib.adaln_mlp_bwd_error_string(err).decode()})")
+
+
+def adaln_mlp_bwd_prologue(g, mlp, a, gate, w2p, matmul_dtype: torch.dtype = torch.bfloat16):
+    """The fused backward's first stage: the inputs of
+    `adaln_mlp_bwd_prologue_reference`, with fc2's weight packed by
+    `pack_weights` (w2p (H, D + ROW_PAD), bf16 on the card; gate may be a
+    row view of the modulation tensor). Returns (da, gelu(a), dmlp, dgate,
+    db1, db2)."""
+    _check_device(g)
+    n, t, d = g.shape
+    if g.device.type == "cpu":
+        return adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, w2p[:, :d], matmul_dtype)
+    hdim = w2p.shape[0]
+    _check_widths(g, hdim, matmul_dtype)
+    _check_specs(g, {
+        "g": (g, g.dtype, (n, t, d)), "mlp": (mlp, torch.float32, (n, t, d)),
+        "a": (a, g.dtype, (n, t, hdim)), "gate": (gate, torch.float32, (n, d)),
+        "w2p": (w2p, torch.bfloat16, (hdim, d + ROW_PAD)),
+    }, ("gate",))
+    split = hidden_split(n, t, hdim, _sm_count(g.device.index))
+    tiles = -(-t // ROW_TILE)
+    ws = torch.empty(n * tiles * (2 * d + hdim), device=g.device, dtype=torch.float32)
+    da = torch.empty_like(a)
+    gelu_out = torch.empty_like(a)
+    dmlp = torch.empty_like(g)
+    dgate = torch.empty((n, d), device=g.device, dtype=torch.float32)
+    db1 = torch.empty(hdim, device=g.device, dtype=torch.float32)
+    db2 = torch.empty(d, device=g.device, dtype=torch.float32)
+    lib = _bwd_lib()
+    err = lib.adaln_mlp_bwd_prologue(
+        g.data_ptr(), mlp.data_ptr(), a.data_ptr(), gate.data_ptr(), gate.stride(0),
+        w2p.data_ptr(), da.data_ptr(), gelu_out.data_ptr(), dmlp.data_ptr(), dgate.data_ptr(),
+        db1.data_ptr(), db2.data_ptr(), ws.data_ptr(), n, t, d, hdim, split,
+        int(g.dtype == torch.bfloat16), torch.cuda.current_stream(g.device).cuda_stream,
+    )
+    if err:
+        raise _bwd_error(lib, err, "prologue")
+    adaln_mlp_bwd_prologue.launches += 1
+    return da, gelu_out, dmlp, dgate, db1, db2
+
+
+def adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1p, eps: float = 1e-6,
+                           matmul_dtype: torch.dtype = torch.bfloat16):
+    """The fused backward's second stage: the inputs of
+    `adaln_mlp_bwd_epilogue_reference`, with fc1's weight packed by
+    `pack_weights` (w1p (H / 128, D, 128 + ROW_PAD), bf16 on the card).
+    Returns (dx, h1, dshift, dscale)."""
+    _check_device(x)
+    n, t, d = x.shape
+    if x.device.type == "cpu":
+        w1 = w1p[..., :HIDDEN_CHUNK].permute(1, 0, 2).reshape(d, -1)
+        return adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, w1, eps, matmul_dtype)
+    hdim = w1p.shape[0] * HIDDEN_CHUNK
+    _check_widths(x, hdim, matmul_dtype)
+    _check_specs(x, {
+        "da": (da, x.dtype, (n, t, hdim)), "x": (x, x.dtype, (n, t, d)),
+        "g": (g, x.dtype, (n, t, d)), "shift": (shift, torch.float32, (n, d)),
+        "scale": (scale, torch.float32, (n, d)),
+        "w1p": (w1p, torch.bfloat16, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
+    }, ("shift", "scale"))
+    ws = torch.empty(2 * n * -(-t // ROW_TILE) * d, device=x.device, dtype=torch.float32)
+    dx = torch.empty_like(x)
+    h1 = torch.empty_like(x)
+    dshift = torch.empty((n, d), device=x.device, dtype=torch.float32)
+    dscale = torch.empty((n, d), device=x.device, dtype=torch.float32)
+    lib = _bwd_lib()
+    err = lib.adaln_mlp_bwd_epilogue(
+        da.data_ptr(), x.data_ptr(), g.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+        shift.stride(0), w1p.data_ptr(), dx.data_ptr(), h1.data_ptr(), dshift.data_ptr(),
+        dscale.data_ptr(), ws.data_ptr(), n, t, d, hdim, eps, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        raise _bwd_error(lib, err, "epilogue")
+    adaln_mlp_bwd_epilogue.launches += 1
+    return dx, h1, dshift, dscale
+
+
+def adaln_mlp_bwd_fused(
+    x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float = 1e-6,
+    matmul_dtype: torch.dtype = torch.float32, packed=None,
+):
+    """The fused backward (JAX `_bwd_fused_impl`), with the arguments and
+    returns of `adaln_mlp_bwd`: the prologue stage, dfc2_w = dmlp^T @
+    gelu(a), the epilogue stage, dfc1_w = da^T @ h1. The two weight-gradient
+    products stay on cuBLAS (`_mm`), as JAX leaves them to XLA. `packed`:
+    (w1p, w2p) of the forward, else fc1_w/fc2_w are packed here."""
+    n, t, d = x.shape
+    hdim = fc1_w.shape[0]
+    w1p, w2p = packed if packed is not None else pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
+    g = g.to(x.dtype).contiguous()
+    da, gelu_out, dmlp, dgate, db1, db2 = adaln_mlp_bwd_prologue(g, mlp, a, gate, w2p, matmul_dtype)
+    dfc2_w = _mm(dmlp.reshape(n * t, d).t(), gelu_out.reshape(n * t, hdim), matmul_dtype)
+    dx, h1, dshift, dscale = adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1p, eps, matmul_dtype)
+    dfc1_w = _mm(da.reshape(n * t, hdim).t(), h1.reshape(n * t, d), matmul_dtype)
+    return (dx, dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1, dfc2_w.to(fc2_w.dtype), db2)
+
+
+BWD_IMPLS = ("xla", "fused")  # AdalnMlp's backwards, under the JAX package's names
+
+
 class AdalnMlp(torch.autograd.Function):
     """The MLP half of a DiT block, differentiable: the training forward
-    (kernel B with residuals on the card), then `adaln_mlp_bwd`.
+    (kernel B with residuals on the card), then `adaln_mlp_bwd`
+    (`bwd_impl="xla"`, the JAX default) or `adaln_mlp_bwd_fused`
+    (`"fused"`: the two backward kernels on the card).
 
     fc1_w (H, D) and fc2_w (D, H) are the Linear weights themselves (not a
     cached packed copy, which holds no autograd history): the forward packs
-    them and the backward returns their gradients."""
+    them and the backward returns their gradients. The fused backward reads
+    the forward's packed tiles, kept in ctx (9.4 MB per DiT-B block in bf16)
+    rather than packed a second time: keeping them against repacking is not
+    measured."""
 
     @staticmethod
-    def forward(ctx, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float, matmul_dtype):
+    def forward(ctx, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float, matmul_dtype,
+                bwd_impl: str = "xla"):
+        if bwd_impl not in BWD_IMPLS:
+            raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         _check_device(x)
+        packed = ()
         if x.is_cuda:
             w1p, w2p = pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
             out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype)
+            if bwd_impl == "fused":
+                packed = (w1p, w2p)
         else:
             out, a, mlp = adaln_mlp_train_reference(
                 x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype)
-        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp)
-        ctx.args = (eps, matmul_dtype)
+        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, *packed)
+        ctx.args = (eps, matmul_dtype, bwd_impl)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        grads = adaln_mlp_bwd(*ctx.saved_tensors, g, *ctx.args)
-        return (*grads, None, None)
+        eps, matmul_dtype, bwd_impl = ctx.args
+        res = ctx.saved_tensors
+        if bwd_impl == "fused":
+            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, packed=tuple(res[8:]) or None)
+        else:
+            grads = adaln_mlp_bwd(*res, g, eps, matmul_dtype)
+        return (*grads, None, None, None)
 
 
 def adaln_mlp_quant(
@@ -396,3 +601,5 @@ def adaln_mlp_quant(
 adaln_mlp.launches = 0
 adaln_mlp_train.launches = 0
 adaln_mlp_quant.launches = 0
+adaln_mlp_bwd_prologue.launches = 0
+adaln_mlp_bwd_epilogue.launches = 0

@@ -87,10 +87,14 @@ def train_step(
     draws: StepDraws | None = None,
     max_timestep: int | None = None,
     ema_decay: float = 0.9999,
+    trainable_mask: dict[str, bool] | None = None,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on `batch`; returns the step's mean {loss, l1|mse,
     vb} as device scalars (no host sync). `max_timestep` caps the timestep
-    draw (1 trains t = 0 only, the refine model)."""
+    draw (1 trains t = 0 only, the refine model). `trainable_mask`: parameter
+    name -> trainable, as the JAX step's mask: a frozen parameter gets a zero
+    gradient (so AdamW's moments and step count advance as optax's do) and
+    keeps its value bit for bit; the EMA still covers every parameter."""
     raw = batch[0]
     if draws is None:
         t_hi = diffusion.num_timesteps if max_timestep is None else max_timestep
@@ -100,6 +104,20 @@ def train_step(
     loss = terms["loss"].mean()
     optimizer.zero_grad(set_to_none=True)
     loss.backward()
+    frozen = [] if trainable_mask is None else [
+        p for name, p in model.named_parameters() if not trainable_mask[name]]
+    if frozen:
+        for p in frozen:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        torch._foreach_zero_([p.grad for p in frozen])
+        # AdamW moves a weight with a zero gradient by its first moment:
+        # restore the values, as the JAX step keeps the old params
+        kept = [p.detach().clone() for p in frozen]
     optimizer.step()
+    if frozen:
+        with torch.no_grad():
+            for p, k in zip(frozen, kept):
+                p.copy_(k)
     update_ema(ema, model, ema_decay)
     return {k: v.detach().mean() for k, v in terms.items()}

@@ -9,12 +9,18 @@
 - The log line "(step=…) Train Loss: x, Train Steps/Sec: y" every
   `log_every` steps (evals/plot_loss.py reads it), then "Done!".
 - Resume from `ckpt`: model, EMA, optimizer state and step, where the file
-  has them.
+  has them. With `relearn_embeds` the label table keeps its fresh seeded
+  initialisation (the file's may have another class count) and the run
+  starts a fresh optimizer at step 0, as the JAX trainer does from a `.pt`.
+- `embed_only_epochs`: the first N epochs train the label table alone (the
+  other parameters frozen, JAX `_embed_mask`); `max_timestep` caps the
+  timestep draw (1: the refine model of train_nodist_torch.py).
 
 On a CUDA device every block runs the training kernels: the banded
 attention forward with LSE and its dq and dk/dv kernels at band =
 `seq_len` (exactly full attention at T = seq_len), and the fused adaLN-MLP
-forward with residuals.
+forward with residuals, and with `mlp_bwd="fused"` its two backward
+kernels.
 """
 from __future__ import annotations
 
@@ -56,25 +62,42 @@ class TrainConfig:
     noise_schedule: str = "squaredcos_cap_v2"
     l1_loss: bool = True
     lr: float = 1e-4
+    relearn_embeds: bool = False
+    embed_only_epochs: int = 0
     use_bf16: bool = True  # a bf16 residual stream over f32 master weights
     remat: bool = True  # recompute each block in the backward
     max_steps: int | None = None  # optional hard stop
+    max_timestep: int | None = None  # cap the timestep draw; 1 = refine-model mode
+    mlp_bwd: str = "xla"  # the MLP half's backward: "xla" (plain) or "fused" (kernels)
     device: str = "cuda"
 
 
 CLASS_DROPOUT_PROB = 0.2  # the reference trainer's label dropout (the DiT default is 0.1)
+LABEL_TABLE = "y_embedder.embedding_table.weight"
+
+
+def embed_only_mask(model) -> dict[str, bool]:
+    """Trainable: the label table alone (JAX `_embed_mask(params, True)`)."""
+    return {name: "embedding_table" in name for name, _ in model.named_parameters()}
 
 
 def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
     """Restore from config.ckpt where the file has each part; returns the
-    step to continue from."""
+    step to continue from. With relearn_embeds: the weights without the
+    label table, and step 0 with the fresh optimizer."""
     ckpt = ckpt_lib.load_train_checkpoint(config.ckpt)
     if "model" in ckpt or "ema" in ckpt:
-        model.load_state_dict(ckpt.get("model", ckpt.get("ema")))
-        ema.load_state_dict(ckpt.get("ema", ckpt.get("model")))
+        model_sd, ema_sd = ckpt.get("model", ckpt.get("ema")), ckpt.get("ema", ckpt.get("model"))
     else:  # a raw state dict
-        model.load_state_dict(ckpt)
-        ema.load_state_dict(ckpt)
+        model_sd = ema_sd = ckpt
+    if config.relearn_embeds:
+        model_sd = {**model_sd, LABEL_TABLE: model.state_dict()[LABEL_TABLE]}
+        ema_sd = {**ema_sd, LABEL_TABLE: ema.state_dict()[LABEL_TABLE]}
+    model.load_state_dict(model_sd)
+    ema.load_state_dict(ema_sd)
+    if config.relearn_embeds:
+        logger.info(f"Restored from checkpoint at {config.ckpt} (label table re-initialised)")
+        return 0
     if "opt" in ckpt:
         optimizer.load_state_dict(ckpt["opt"])
     logger.info(f"Restored from checkpoint at {config.ckpt}")
@@ -101,7 +124,7 @@ def train(config: TrainConfig) -> dict:
 
     model = DiT_models[config.model](
         num_classes=config.num_classes, context_size=CONTEXT_SIZE,
-        class_dropout_prob=CLASS_DROPOUT_PROB, remat=config.remat,
+        class_dropout_prob=CLASS_DROPOUT_PROB, remat=config.remat, mlp_bwd=config.mlp_bwd,
     )
     model.initialize_weights(torch.Generator().manual_seed(config.global_seed))
     model.to(device).train()
@@ -126,6 +149,10 @@ def train(config: TrainConfig) -> dict:
     generator = torch.Generator(device=device).manual_seed(config.global_seed + train_steps)
     args = dataclasses.asdict(config)
 
+    embed_only = config.embed_only_epochs > 0
+    if embed_only:
+        logger.info(f"Freezing non-embedding layers for {config.embed_only_epochs} epochs")
+
     log_steps = 0
     running_loss = torch.zeros((), device=device)
     last_avg_loss = float("nan")
@@ -136,11 +163,16 @@ def train(config: TrainConfig) -> dict:
         if stop:
             break
         logger.info(f"Beginning epoch {epoch}...")
+        if embed_only and epoch == config.embed_only_epochs:
+            logger.info("Un-freezing non-embedding layers")
+            embed_only = False
+        mask = embed_only_mask(model) if embed_only else None
         for (win, prev_xy), y in loader:
             batch = tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in (win, prev_xy, y))
             metrics = train_step(
                 model, ema, optimizer, diffusion, (batch[0], batch[1], batch[2].long()),
                 band=config.seq_len, dtype=dtype, generator=generator,
+                max_timestep=config.max_timestep, trainable_mask=mask,
             )
             running_loss += metrics["loss"]
             log_steps += 1

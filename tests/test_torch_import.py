@@ -54,7 +54,7 @@ def test_sample_launcher_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("launcher", ["train_torch.py", "chip_smoke.py"])
+@pytest.mark.parametrize("launcher", ["train_torch.py", "chip_smoke.py", "train_nodist_torch.py"])
 def test_train_and_smoke_launchers_import_no_jax(launcher):
     res = _launcher_probe(launcher)
     assert res.returncode == 0, res.stdout + res.stderr

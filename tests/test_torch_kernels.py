@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, and the wrappers'
 dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv),
-the fused adaLN-MLP (inference and training forward, int8 serving) and the
+the fused adaLN-MLP (inference and training forward, the two stages of the
+fused backward, int8 serving) and the
 int8 projections, each alone and, where it has one, inside its autograd
 Function. Imports torch only (no jax), so the card's
 machine runs it:
@@ -232,6 +233,98 @@ def test_adaln_mlp_function_on_card_matches_cpu(cuda_device):
         results[str(dev)] = [out.detach().cpu()] + [a.grad.cpu() for a in ins]
     for got, want in zip(results[str(cuda_device)], results["cpu"]):
         assert _rel(got, want) <= 1e-2
+
+
+def _bwd_inputs(n, t, d, dtype, g, device):
+    """The fused backward's inputs at a seeded forward: (x, shift, scale,
+    gate (row views of one modulation tensor), w1, w2 (bf16), a, mlp (the
+    training forward's residuals on the card), upstream gradient)."""
+    def rnd(*shape, std):
+        return torch.randn(shape, generator=g, device=device) * std
+
+    x, mod = rnd(n, t, d, std=1.0).to(dtype), rnd(n, 6 * d, std=0.3)
+    shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+    w1 = rnd(d, 4 * d, std=d ** -0.5).to(torch.bfloat16)
+    w2 = rnd(4 * d, d, std=(4 * d) ** -0.5).to(torch.bfloat16)
+    b1, b2 = rnd(4 * d, std=0.02), rnd(d, std=0.02)
+    _, a, mlp = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6,
+                                              torch.bfloat16)
+    return x, shift, scale, gate, w1, w2, a, mlp, rnd(n, t, d, std=1.0).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024)])
+def test_adaln_mlp_bwd_kernels_match_plain(cuda_device, n, t, d, dtype):
+    """The fused backward's two stages against their plain versions on the
+    same bf16 operands, each output within 1e-2 of its max (the reasons of
+    test_adaln_mlp_train_kernel_matches_plain: a bf16 rounding flip of dmlp
+    or da moves a sum by 2^-8 of a term, and stream-type outputs are
+    themselves rounded to 2^-8); each wrapper launches once."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + t + d)
+    x, shift, scale, gate, w1, w2, a, mlp, gout = _bwd_inputs(n, t, d, dtype, g, cuda_device)
+    w1p, w2p = tam.pack_weights(w1, w2)
+    counts = (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
+    got = tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p)
+    torch.cuda.synchronize()
+    want = tam.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2, torch.bfloat16)
+    for name, u, v in zip(("da", "gelu_out", "dmlp", "dgate", "db1", "db2"), got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape, name
+        assert torch.isfinite(u).all(), name
+        assert _rel(u, v) <= 1e-2, (name, _rel(u, v))
+    da = want[0]  # the epilogue on the plain prologue's da: each stage alone
+    got = tam.adaln_mlp_bwd_epilogue(da, x, gout, shift, scale, w1p)
+    torch.cuda.synchronize()
+    want = tam.adaln_mlp_bwd_epilogue_reference(da, x, gout, shift, scale, w1, 1e-6, torch.bfloat16)
+    for name, u, v in zip(("dx", "h1", "dshift", "dscale"), got, want):
+        assert u.dtype == v.dtype and u.shape == v.shape, name
+        assert torch.isfinite(u).all(), name
+        assert _rel(u, v) <= 1e-2, (name, _rel(u, v))
+    assert (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches) == \
+        tuple(c + 1 for c in counts)
+
+
+@pytest.mark.cuda
+def test_adaln_mlp_fused_function_on_card_matches_cpu(cuda_device):
+    """AdalnMlp(bwd_impl="fused") under grad on the card (kernel forward,
+    both backward kernels, cuBLAS weight gradients) against the CPU
+    Function: the output and all eight gradients within 1e-2 of each max;
+    one launch of each backward kernel, none on the CPU."""
+    g = torch.Generator().manual_seed(5)
+    n, t, d = 2, 64, 384
+    x = torch.randn(n, t, d, generator=g).to(torch.bfloat16)
+    mods = [torch.randn(n, d, generator=g) * 0.3 for _ in range(3)]
+    fc1_w, fc2_w = torch.randn(4 * d, d, generator=g) * d ** -0.5, torch.randn(d, 4 * d, generator=g) * (4 * d) ** -0.5
+    b1, b2 = torch.randn(4 * d, generator=g) * 0.02, torch.randn(d, generator=g) * 0.02
+    gout = torch.randn(n, t, d, generator=g).to(torch.bfloat16)
+    results = {}
+    for dev in ("cpu", cuda_device):
+        counts = (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
+        ins = [a.detach().to(dev).requires_grad_() for a in (x, *mods, fc1_w, b1, fc2_w, b2)]
+        out = tam.AdalnMlp.apply(*ins, 1e-6, torch.bfloat16, "fused")
+        out.backward(gout.to(dev))
+        launched = tuple(b - a for a, b in zip(counts, (tam.adaln_mlp_bwd_prologue.launches,
+                                                         tam.adaln_mlp_bwd_epilogue.launches)))
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        results[str(dev)] = [out.detach().cpu()] + [a.grad.cpu() for a in ins]
+    for got, want in zip(results[str(cuda_device)], results["cpu"]):
+        assert _rel(got, want) <= 1e-2
+
+
+@pytest.mark.cuda
+def test_adaln_mlp_bwd_kernels_reject_what_they_do_not_take(cuda_device):
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(0)
+    x, shift, scale, gate, w1, w2, a, mlp, gout = _bwd_inputs(2, 8, 384, torch.float32, g, dev)
+    w1p, w2p = tam.pack_weights(w1, w2)
+    with pytest.raises(ValueError):  # f32 operands have no kernel
+        tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p, torch.float32)
+    with pytest.raises(TypeError):  # a in another type than the stream
+        tam.adaln_mlp_bwd_prologue(gout, mlp, a.to(torch.bfloat16), gate, w2p)
+    with pytest.raises(ValueError):  # unpacked weight
+        tam.adaln_mlp_bwd_epilogue(a, x, gout, shift, scale, w1)
+    with pytest.raises(ValueError):  # shift and scale with different strides
+        tam.adaln_mlp_bwd_epilogue(a, x, gout, shift.contiguous(), scale, w1p)
 
 
 # ---------------------------------------------------------------------------

@@ -4,8 +4,9 @@ size (depth 2, hidden 128, 2 heads of 64, 7 classes, T 32, batch 2-4).
 process_batch and training_losses with the same draws; the dataset's
 windows for one seed; the DiT's loss and every parameter gradient in
 training mode (XLA path at f32, and the Pallas path in interpret mode at the
-f32 and the bf16 stream); two full AdamW + EMA train steps against
-`make_train_step`. JAX parameters reach the port through
+f32 and the bf16 stream, with the plain and the fused MLP backward); two
+full AdamW + EMA train steps against `make_train_step`, and two with the
+embed-only mask. JAX parameters reach the port through
 `state_dict_from_jax_params`; inputs and draws are made with numpy (or by
 jax.random on the JAX side and handed over as arrays).
 """
@@ -160,12 +161,13 @@ def test_dataset_yields_the_jax_windows(tmp_path, monkeypatch):
         np.testing.assert_array_equal(gy, wy)
 
 
-def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2):
+def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla"):
     """The JAX DiT and its params (adaLN-Zero layers perturbed, so every
     block contributes and gets gradient), and the port with the same
     weights."""
     jm = JaxDiT(DiTConfig(hidden_size=HIDDEN, depth=DEPTH, num_heads=HEADS, num_classes=CLASSES,
-                          context_size=CTX, class_dropout_prob=dropout, flash_block=16))
+                          context_size=CTX, class_dropout_prob=dropout, flash_block=16,
+                          mlp_bwd=mlp_bwd))
     params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 2)), jnp.zeros((1,), jnp.int32),
                      jnp.zeros((1, 8)), jnp.zeros((1, 8, CTX)), jnp.zeros((1,), jnp.int32))["params"]
     r = np.random.RandomState(seed)
@@ -179,8 +181,9 @@ def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2):
 
     params = jax.tree_util.tree_map_with_path(perturb, params)
     port = DiT(hidden_size=HIDDEN, depth=DEPTH, num_heads=HEADS, num_classes=CLASSES,
-               context_size=CTX, class_dropout_prob=dropout, matmul_dtype=matmul_dtype)
-    port.load_state_dict(state_dict_from_jax_params(params, num_label_rows=CLASSES + 1))
+               context_size=CTX, class_dropout_prob=dropout, matmul_dtype=matmul_dtype,
+               mlp_bwd=mlp_bwd)
+    port.load_state_dict(state_dict_from_jax_params(params, num_label_rows=CLASSES + (dropout > 0)))
     return jm, params, port.train()
 
 
@@ -190,7 +193,8 @@ def _grads_as_state_dict(grads):
         if not k.endswith("playfield_size")}
 
 
-@pytest.mark.parametrize("path,stream", [("xla", "f32"), ("pallas", "f32"), ("pallas", "bf16")])
+@pytest.mark.parametrize("path,stream", [("xla", "f32"), ("pallas", "f32"), ("pallas", "bf16"),
+                                         ("fused", "f32"), ("fused", "bf16")])
 def test_dit_loss_and_grads_match_jax(interpret_mode, path, stream):
     """The DiT's training loss and every parameter gradient, train=True with
     remat and a given label-drop mask, on the same x0, t and noise.
@@ -207,11 +211,14 @@ def test_dit_loss_and_grads_match_jax(interpret_mode, path, stream):
       points). The bf16 stream is compared under the MSE loss: the L1
       gradient is sign(eps - noise), so wherever bf16 rounding moves a
       prediction across its target a whole term flips (measured: ~10% of
-      the max in every tensor), while MSE's gradient is continuous."""
-    use_pallas = path == "pallas"
+      the max in every tensor), while MSE's gradient is continuous.
+    - fused: the pallas path with the MLP's fused backward on both sides
+      (JAX `DiTConfig.mlp_bwd="fused"`, the port's `DiT(mlp_bwd="fused")`),
+      at the pallas path's tolerances."""
+    use_pallas = path != "xla"
     md = torch.bfloat16 if use_pallas else torch.float32
     dtype = torch.bfloat16 if stream == "bf16" else torch.float32
-    jm, params, port = _models(use_pallas, md)
+    jm, params, port = _models(use_pallas, md, mlp_bwd="fused" if path == "fused" else "xla")
     band = T if use_pallas else None
     raw, prev_xy, y = _raw_batch(n=2, seed=4)
     r = np.random.RandomState(5)
@@ -245,7 +252,7 @@ def test_dit_loss_and_grads_match_jax(interpret_mode, path, stream):
     loss = td.training_losses(model_fn, torch.from_numpy(x0), torch.from_numpy(t),
                               torch.from_numpy(noise))["loss"].mean()
     loss.backward()
-    tol = {"xla": 1e-4, "pallas": 5e-3 if stream == "f32" else 5e-2}[path]
+    tol = 1e-4 if path == "xla" else 5e-3 if stream == "f32" else 5e-2
     np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5 if path == "xla" else tol)
     got = dict(port.named_parameters())
     assert set(got) == set(want)
@@ -328,6 +335,66 @@ def test_two_train_steps_match_jax():
     for name, w in want_move.items():
         np.testing.assert_allclose(got_move[name].numpy(), w.numpy(), rtol=0, atol=0.05 * largest,
                                    err_msg=name)
+
+
+def test_two_embed_only_steps_match_jax():
+    """One unmasked step, then two port train_steps with the trainer's
+    embed-only mask against make_train_step(trainable_mask=_embed_mask(
+    params, True)) (the trainer's order when its frozen epochs end is the
+    reverse; this one gives the frozen weights nonzero Adam moments, which
+    would move them), as test_two_train_steps_match_jax (AdamW eps 1e-4, EMA
+    decay 0.5, f32 stream), at class dropout 0 so that both sides' labels are
+    the batch's own (no drop draw to share) and several table rows move.
+    Params and EMA within 5e-6 of JAX's; over the masked steps every
+    parameter but the label table keeps its value bit for bit on both sides,
+    the table moves, and AdamW counted every step for all parameters."""
+    import optax
+
+    from osu_diffusion_tpu.parallel.train_step import create_train_state, make_train_step
+    from osu_diffusion_tpu.train.trainer import _embed_mask
+    from osu_diffusion_tpu_torch.train.train_step import make_ema, train_step
+    from osu_diffusion_tpu_torch.train.trainer import LABEL_TABLE, embed_only_mask
+
+    jm, params, port = _models(False, torch.float32, seed=3, dropout=0.0)
+    jd = jax_create("", noise_schedule="squaredcos_cap_v2", use_l1=True)
+    td = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True)
+    jax_opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=1e-4, weight_decay=0.0)
+    steps = [jax.jit(make_train_step(jm, jd, jax_opt, compute_dtype=jnp.float32, band=T, ema_decay=0.5,
+                                     trainable_mask=m)) for m in (None, _embed_mask(params, True))]
+    state = create_train_state(params, jax_opt)
+    ema = make_ema(port)
+    opt = torch.optim.AdamW(port.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-4, weight_decay=0.0)
+    mask = embed_only_mask(port)
+    assert [k for k, v in mask.items() if v] == [LABEL_TABLE]
+    rng = jax.random.PRNGKey(12)
+    for i in range(3):
+        if i == 1:  # the masked steps start
+            init = {k: v.clone() for k, v in port.state_dict().items()}
+            jax_init = state_dict_from_jax_params(jax.tree.map(np.asarray, state.params),
+                                                  num_label_rows=CLASSES)
+        raw, prev_xy, y = _raw_batch(n=3, seed=20 + i)
+        state, jm_metrics = steps[i > 0](state, (jnp.asarray(raw), jnp.asarray(prev_xy), jnp.asarray(y)),
+                                         rng)
+        d = _jax_step_draws(jax.random.fold_in(rng, i), 3, jd.num_timesteps)
+        metrics = train_step(port, ema, opt, td, (torch.from_numpy(raw), torch.from_numpy(prev_xy),
+                                                  torch.from_numpy(y).long()),
+                             band=T, dtype=torch.float32, draws=_port_draws(d, np.zeros(3, bool)),
+                             ema_decay=0.5, trainable_mask=mask if i > 0 else None)
+        for k in metrics:
+            np.testing.assert_allclose(metrics[k].item(), float(jm_metrics[k]), rtol=1e-5, err_msg=k)
+    want_params = state_dict_from_jax_params(jax.tree.map(np.asarray, state.params), num_label_rows=CLASSES)
+    for got_sd, tree in ((port.state_dict(), state.params), (ema.state_dict(), state.ema_params)):
+        want = state_dict_from_jax_params(jax.tree.map(np.asarray, tree), num_label_rows=CLASSES)
+        for name, w in want.items():
+            np.testing.assert_allclose(got_sd[name].numpy(), w.numpy(), rtol=0, atol=5e-6, err_msg=name)
+    got = port.state_dict()
+    for name, w in init.items():
+        if name != LABEL_TABLE:
+            assert torch.equal(got[name], w), name
+            assert np.array_equal(want_params[name].numpy(), jax_init[name].numpy()), name
+    moved = (got[LABEL_TABLE] - init[LABEL_TABLE]).abs().amax(dim=1)
+    assert (moved > 1e-5).sum() >= 2, moved
+    assert all(opt.state[p]["step"].item() == 3 for p in port.parameters())
 
 
 def test_update_ema_formula():

@@ -74,3 +74,116 @@ def test_train_cli_logs_saves_resumes_and_samples(tmp_path, capsys):
     assert "seq len 34" in capsys.readouterr().out
     assert len(written) == 1
     assert len(Beatmap.from_path(written[0]).hit_objects()) == len(Beatmap.from_path(fixture).hit_objects())
+
+
+def _train_argv(data, results, *extra):
+    """DiT-S, 100 classes, batch 8, seq-len 32 on the CPU; stride 32 keeps
+    an epoch to a few steps."""
+    return ["--data-path", data, "--data-start", "0", "--data-end", "2", "--num-classes", "100",
+            "--model", "DiT-S", "--global-batch-size", "8", "--seq-len", "32", "--stride", "32",
+            "--num-workers", "2", "--log-every", "1", "--results-dir", results, "--device", "cpu",
+            *extra]
+
+
+def _fresh_init(num_classes):
+    from osu_diffusion_tpu_torch import CONTEXT_SIZE
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.train.trainer import CLASS_DROPOUT_PROB
+
+    model = DiT_models["DiT-S"](num_classes=num_classes, context_size=CONTEXT_SIZE,
+                                class_dropout_prob=CLASS_DROPOUT_PROB)
+    model.initialize_weights(torch.Generator().manual_seed(0))
+    return model.state_dict()
+
+
+def test_embed_only_epochs_freeze_then_unfreeze(tmp_path):
+    """--embed-only-epochs 1, resumed from a 3-step checkpoint (from the
+    adaLN-Zero init the label table gets no gradient until the zero-init
+    layers have moved, so the fine-tuning flow starts from trained weights):
+    the log has the freeze line at the start and the un-freeze line when
+    epoch 1 begins, before its first step; a checkpoint inside epoch 0 has
+    every weight but the label table equal to the loaded ones, bit for bit
+    (though AdamW's restored moments would move them), and the table moved;
+    after epoch 0 the other weights train."""
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.train.trainer import LABEL_TABLE
+
+    data = str(tmp_path / "data")
+    _dataset(data)
+    first = train_main(build_train_parser().parse_args(
+        _train_argv(data, str(tmp_path / "a"), "--max-steps", "3", "--ckpt-every", "3")))
+    src = os.path.join(first["checkpoint_dir"], "0000003.pt")
+    argv = _train_argv(data, str(tmp_path / "b"), "--epochs", "2", "--ckpt-every", "1",
+                       "--embed-only-epochs", "1", "--ckpt", src)
+    summary = train_main(build_train_parser().parse_args(argv))
+    log = open(os.path.join(summary["experiment_dir"], "log.txt")).read()
+    assert "Freezing non-embedding layers for 1 epochs" in log
+    # as the JAX trainer logs it: at the start of the first unfrozen epoch
+    assert log.index("Beginning epoch 1") < log.index("Un-freezing non-embedding layers") \
+        < log.index("Train Loss:", log.index("Beginning epoch 1"))
+    steps_epoch0 = log[:log.index("Beginning epoch 1")].count("Train Loss:")
+    assert 1 <= steps_epoch0 < summary["final_step"] - 3
+    losses = parse_losses(os.path.join(summary["experiment_dir"], "log.txt"))
+    assert all(math.isfinite(v) for v in losses)
+    loaded = torch.load(src, weights_only=True)["model"]
+    ckpt_dir = summary["checkpoint_dir"]
+    frozen = torch.load(os.path.join(ckpt_dir, f"{3 + steps_epoch0:07d}.pt"), weights_only=True)["model"]
+    after = torch.load(os.path.join(ckpt_dir, f"{summary['final_step']:07d}.pt"), weights_only=True)["model"]
+    for name, w in loaded.items():
+        if name != LABEL_TABLE:
+            assert torch.equal(frozen[name], w), name
+    assert not torch.equal(frozen[LABEL_TABLE], loaded[LABEL_TABLE])
+    assert not torch.equal(after["blocks.0.mlp.fc1.weight"], loaded["blocks.0.mlp.fc1.weight"])
+
+
+def test_relearn_embeds_resumes_with_another_class_count(tmp_path):
+    """--relearn-embeds with --ckpt from a 100-class run, at 150 classes (the
+    dataset's labels reach 99): the weights load except the label table,
+    which keeps its seeded 151-row init;
+    the run starts again at step 0 with a fresh optimizer. lr 0 keeps every
+    weight where the load put it, so the saved step shows exactly that."""
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.train.trainer import LABEL_TABLE
+
+    data = str(tmp_path / "data")
+    _dataset(data)
+    first = train_main(build_train_parser().parse_args(
+        _train_argv(data, str(tmp_path / "a"), "--max-steps", "2", "--ckpt-every", "2")))
+    src = os.path.join(first["checkpoint_dir"], "0000002.pt")
+    argv = _train_argv(data, str(tmp_path / "b"), "--max-steps", "1", "--ckpt-every", "1",
+                       "--ckpt", src, "--relearn-embeds", "--lr", "0")
+    argv[argv.index("--num-classes") + 1] = "150"
+    args = build_train_parser().parse_args(argv)
+    assert args.relearn_embeds
+    resumed = train_main(args)
+    assert resumed["final_step"] == 1  # from step 0, not the file's 2
+    log = open(os.path.join(resumed["experiment_dir"], "log.txt")).read()
+    assert "Restored from checkpoint" in log
+    saved = torch.load(os.path.join(resumed["checkpoint_dir"], "0000001.pt"), weights_only=True)
+    source = torch.load(src, weights_only=True)
+    assert torch.equal(saved["model"][LABEL_TABLE], _fresh_init(150)[LABEL_TABLE])
+    assert saved["model"][LABEL_TABLE].shape[0] == 151 and source["model"][LABEL_TABLE].shape[0] == 101
+    for name, w in source["model"].items():
+        if name != LABEL_TABLE:
+            assert torch.equal(saved["model"][name], w), name
+    assert all(s["step"].item() == 1 for s in saved["opt"]["state"].values())
+
+
+def test_train_nodist_launcher_pins_the_refine_timestep(monkeypatch):
+    """train_nodist_torch.py builds the train command's config with
+    max_timestep = 1 and nothing else changed."""
+    import runpy
+    import sys
+
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_config_kwargs
+    from osu_diffusion_tpu_torch.train import trainer
+
+    seen = []
+    monkeypatch.setattr(trainer, "train", seen.append)
+    argv = ["--data-path", "d", "--model", "DiT-S", "--mlp-bwd", "fused", "--embed-only-epochs", "2"]
+    monkeypatch.setattr(sys, "argv", ["train_nodist_torch.py", *argv])
+    runpy.run_path(os.path.join(ROOT, "train_nodist_torch.py"), run_name="__main__")
+    assert len(seen) == 1 and seen[0].max_timestep == 1
+    want = trainer.TrainConfig(**train_config_kwargs(build_train_parser().parse_args(argv)))
+    assert seen[0] == trainer.TrainConfig(**{**want.__dict__, "max_timestep": 1})
+    assert (want.max_timestep, want.mlp_bwd, want.embed_only_epochs) == (None, "fused", 2)
