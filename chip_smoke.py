@@ -61,6 +61,24 @@ Phases (any failure raises and exits non-zero):
    with --embed-only-epochs 1 resumed from the default run's checkpoint for
    3 steps (`[train-modes]`: only the label table moves), and one DiT-B
    step card vs CPU with the fused backward (`[step-fused]`).
+13. Context parallelism. The four ranged entries (`[attn-cp]`) against their
+   plain versions (bf16 operands, and f32): the CP training shard (q/k/v
+   (32, 12, 512, 64) bf16: seq-len 512 over 2 ranks, halo 128) at the left-
+   and the right-edge bounds, the sampling shard (kimi T 757 -> 768 over 2
+   ranks, T_ext 640, f32), and ragged cases; each timed beside its bound
+   (the bytes of the rows the function needs: q, o, lse and do on the
+   shard's own rows, k and v on the keys they reach), its plain version
+   and SDPA with the band-and-bounds mask on the shard's own query rows.
+   Then two gloo ranks share the card (this script again, with --cp-rank,
+   in torchrun's environment): one DiT-B forward_with_cfg at the kimi
+   inputs against the one-device forward and a CP sampling chain
+   (`[forward-cp]`), context_parallel_banded_attention's output and
+   gradients through the halo exchange against the one-device kernels in
+   the f32 and the bf16 stream (`[attn-cp-exchange]`), one DiT-B CP
+   training step against the one-device step (`[step-cp]`), and the
+   train CLI with --num-model 2 --context-parallel --dist gloo beside a
+   one-process run of the same seed (`[train-cp]`: losses, launch counts on
+   every rank, seconds per optimizer step). Every rank must exit 0.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -160,6 +178,49 @@ MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf
 # training shape first
 MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "bf16"),
                  ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
+# context parallelism: two ranks share the card over gloo (NCCL refuses two
+# ranks on one device), so its times say nothing of NCCL across cards
+CP_RANKS = 2
+CP_SEQ = 512  # the CP training window: two shards of 256
+CP_BATCH = 32
+CP_STEPS = 6
+CP_SAMPLE_STEPS = 10
+CP_TIMEOUT = 600  # seconds for the ranks' run (the process group's own timeout is 5 minutes)
+# the CP train run against the one-process run, relative difference of each
+# logged loss: the two differ only in rounding order (the halo rows' dk/dv
+# are two bf16 partial sums, the projections run at another row count, the
+# gradients are summed over two ranks), ~2^-8 of a term where it shows;
+# the default and fused MLP backward runs, which differ the same way,
+# agreed within 3e-4 over 20 steps
+CP_LOSS_REL_TOL = 1e-2
+# [step-cp] and [forward-cp], CP on two ranks against one device on the
+# card: each gradient and the output within this share of its max, the
+# loss within this relative error (the same kernels on the same bf16
+# operands; only the halo's partial sums and the summation order differ)
+CP_REL_TOL = 1e-2
+# [attn-cp-exchange]: context_parallel_banded_attention on CP_RANKS ranks
+# against the one-device banded_attention, forward and backward through the
+# halo exchange, each in the f32 and the bf16 stream: (name, N, T, valid_len)
+# at H 12, Dh 64, band BAND; the CP training shard and the sampling tail
+CP_EXCHANGE_CASES = [("train_shard", 32, CP_SEQ, None), ("sample_tail", 2, 768, 757)]
+# its tolerance, of max, per stream: f32 as CP_REL_TOL; in bf16 a halo row's
+# dk/dv is rounded three times (each rank's partial, then their sum) where
+# one device rounds once, each rounding up to 2^-8 of the value: <= 1.6e-2
+CP_EXCHANGE_TOL = {"f32": CP_REL_TOL, "bf16": 2e-2}
+# the ranged checks: (name, N, H, T_loc, band, shard index, shards,
+# valid_len, stream); the CP training shard's two edges and the sampling
+# shards first
+ATTN_CP_CASES = [
+    ("train_left_edge", 32, 12, 256, 128, 0, 2, None, "bf16"),
+    ("train_right_edge", 32, 12, 256, 128, 1, 2, None, "bf16"),
+    ("sample_shard0", 2, 12, 384, 128, 0, 2, 757, "f32"),
+    ("sample_shard1_tail", 2, 12, 384, 128, 1, 2, 757, "f32"),
+    ("interior", 2, 3, 256, 96, 1, 3, None, "bf16"),
+    ("band48", 2, 3, 128, 48, 0, 2, None, "bf16"),
+    ("band160_halo256", 2, 3, 256, 160, 1, 3, None, "bf16"),
+    ("tail_inside_shard", 2, 3, 256, 96, 1, 2, 380, "bf16"),
+    ("f32_stream", 4, 12, 256, 128, 0, 2, None, "f32"),
+]
 TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA events
 PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 
@@ -927,6 +988,10 @@ def reset_launch_counts():
                 "banded_attention_fwd_lse": ba.banded_attention_fwd_lse,
                 "banded_attention_bwd_dq": ba.banded_attention_bwd_dq,
                 "banded_attention_bwd_dkv": ba.banded_attention_bwd_dkv,
+                "banded_attention_ranged": ba.banded_attention_ranged,
+                "banded_attention_ranged_fwd_lse": ba.banded_attention_ranged_fwd_lse,
+                "banded_attention_ranged_bwd_dq": ba.banded_attention_ranged_bwd_dq,
+                "banded_attention_ranged_bwd_dkv": ba.banded_attention_ranged_bwd_dkv,
                 "adaln_mlp": am.adaln_mlp, "adaln_mlp_train": am.adaln_mlp_train,
                 "adaln_mlp_bwd_prologue": am.adaln_mlp_bwd_prologue,
                 "adaln_mlp_bwd_epilogue": am.adaln_mlp_bwd_epilogue,
@@ -1206,20 +1271,494 @@ def phase_train_modes(dev, tmp, ckpt_path):
     check(moved == [trainer.LABEL_TABLE], f"train modes: moved {moved}")
 
 
+def phase_attention_cp(dev):
+    """Rows 5-6: the four ranged entries against their plain versions (bf16
+    operands, and f32), every output on the rows it defines; at the main
+    shapes their times beside bounds, plain versions and SDPA with the
+    band-and-bounds mask."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.parallel.context import BLOCK, shard_bounds
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf16, f32 = torch.bfloat16, torch.float32
+    results = {}
+    for name, n, h, t_loc, band, idx, p, valid, stream in ATTN_CP_CASES:
+        dtype = f32 if stream == "f32" else bf16
+        halo = -(-band // BLOCK) * BLOCK
+        bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
+        k_lo, k_hi, q_lo, q_hi = bounds
+        t = t_loc + 2 * halo
+        # one contiguous layout for q/k/v, as parallel/context.py builds them
+        q, k, v = (torch.randn((n, h, t, 64), generator=g, device=dev).to(dtype) for _ in range(3))
+        do = torch.randn((n, t, h, 64), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
+        o_inf = ba.banded_attention_ranged(q, k, v, band, bounds)
+        o, lse = ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds)
+        dq = ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)
+        dk, dv = ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
+        torch.cuda.synchronize()
+        o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
+        grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
+        o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)
+        grads32 = ba.banded_attention_bwd_reference(q, k, v, o32, lse32, do, band, t, f32, bounds)
+        rows = slice(q_lo, q_hi)  # the rows the forward defines
+        lse_r, lse16_r, lse32_r = (a.view(n, h, t)[:, :, rows] for a in (lse, lse16, lse32))
+        has_key = lse16_r > -1e29
+        errs = {"lse": (max_err(lse_r[has_key], lse16_r[has_key]), max_err(lse_r[has_key], lse32_r[has_key]))}
+        for out, got, w16, w32 in (("o", o[:, :, rows], o16[:, :, rows], o32[:, :, rows]),
+                                   ("o_inf", o_inf[:, :, rows], o16[:, :, rows], o32[:, :, rows]),
+                                   *zip(("dq", "dk", "dv"), (dq, dk, dv), grads16, grads32)):
+            check(bool(torch.isfinite(got).all()), f"ranged {name}: non-finite {out}")
+            errs[out] = (rel_err(got, w16), rel_err(got, w32))
+        print(f"[attn-cp] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} band={band} shard {idx} of {p} "
+              f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
+              + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
+              + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
+              f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
+        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"ranged lse {name}: {errs['lse']}")
+        check(bool((lse_r[~has_key] < -1e29).all()), f"ranged lse {name}: rows without a key not ~-1e30")
+        for out in ("o", "o_inf", "dq", "dk", "dv"):
+            check(errs[out][0] <= TRAIN_TOL_BF16, f"ranged {out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
+            check(errs[out][1] <= TRAIN_TOL_F32, f"ranged {out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
+        check(not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any(), f"{name}: dq on pad query rows")
+        check(not dk[:, :, :k_lo].any() and not dv[:, :, max(k_lo, k_hi):].any(), f"{name}: dk/dv on masked keys")
+        if name not in ("train_left_edge", "sample_shard0"):
+            continue
+        # SDPA with the band and the key bounds as a boolean mask on the
+        # query rows [q_lo, q_hi): the same function as the ranged entries
+        idx_t = torch.arange(t, device=dev)
+        keys = (idx_t >= k_lo) & (idx_t < k_hi)
+        mask = (ba.banded_attention_mask(t, band, dev) & keys[None, :])[rows]
+        q_rows = q[:, :, rows]
+        allowed = ba._allowed(t, band, t, "cpu", query_valid=True, bounds=bounds)
+        pairs = int(allowed.sum()) * n * h
+        # the bytes the function needs: q, o, lse, do and dq on the rows
+        # [q_lo, q_hi), k, v, dk and dv on the keys some query there reaches
+        row_bytes = n * h * 64 * q.element_size()
+        n_q, n_k = q_hi - q_lo, int(allowed.any(dim=0).sum())
+        lse_bytes = n_q * n * h * 4
+
+        def ranged_bytes(q_tensors, k_tensors, with_lse=True):
+            return row_bytes * (n_q * q_tensors + n_k * k_tensors) + (lse_bytes if with_lse else 0)
+
+        if name == "sample_shard0":  # the sampling shard: the inference entry
+            ms = cuda_ms(lambda: ba.banded_attention_ranged(q, k, v, band, bounds))
+            plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds))
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_rows, k, v, attn_mask=mask))
+            b = bound(ranged_bytes(2, 2, with_lse=False), 4 * 64 * pairs)  # q, o; k, v
+            print(f"[attn-cp] {name}: ranged (no LSE) {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, SDPA "
+                  f"(masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            results["banded_attention_ranged"] = {
+                "max_abs_err": max_err(o_inf[:, :, rows], o16[:, :, rows]), "ms": ms,
+                "plain_ms": plain_ms, **b, "library_ms": library_ms}
+            continue
+        fwd_ms = cuda_ms(lambda: ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds))
+        dq_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds))
+        dkv_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds))
+        fwd_plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds))
+        bwd_plain_ms = cuda_ms(lambda: ba.banded_attention_bwd_reference(
+            q, k, v, o32, lse32, do, band, t, f32, bounds))
+        ql, kl, vl = (a.detach().requires_grad_() for a in (q_rows, k, v))
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+        out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+        sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do[:, :, rows], retain_graph=True))
+        bounds_ms = {"fwd_lse": bound(ranged_bytes(2, 2), 4 * 64 * pairs),  # q, o; k, v
+                     "dq": bound(ranged_bytes(4, 2), 6 * 64 * pairs),  # q, o, do, dq; k, v
+                     "dkv": bound(ranged_bytes(3, 4), 8 * 64 * pairs)}  # q, o, do; k, v, dk, dv
+        print(f"[attn-cp] {name}: fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
+              f"plain f32 fwd {fwd_plain_ms:.4f} ms, bwd (dq, dk, dv) {bwd_plain_ms:.4f} ms; SDPA (masked) "
+              f"fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms; bounds "
+              + ", ".join(f"{k_} {b['bound_ms']:.4f} ms ({b['bound_by']})" for k_, b in bounds_ms.items()))
+        results.update({
+            "banded_attention_ranged_fwd_lse": {
+                "max_abs_err": max_err(o[:, :, rows], o16[:, :, rows]), "ms": fwd_ms,
+                "plain_ms": fwd_plain_ms, **bounds_ms["fwd_lse"], "library_ms": sdpa_fwd_ms},
+            "banded_attention_ranged_bwd_dq": {
+                "max_abs_err": max_err(dq, grads16[0]), "ms": dq_ms, "plain_ms": bwd_plain_ms,
+                **bounds_ms["dq"], "library_ms": sdpa_bwd_ms},
+            "banded_attention_ranged_bwd_dkv": {
+                "max_abs_err": max(max_err(dk, grads16[1]), max_err(dv, grads16[2])), "ms": dkv_ms,
+                "plain_ms": bwd_plain_ms, **bounds_ms["dkv"], "library_ms": sdpa_bwd_ms},
+        })
+    return results
+
+
+def cp_step_inputs():
+    """[step-cp]'s seeded DiT-B (52670 classes, dropout 0.2, random
+    weights), a batch of 4 kimi windows of CP_SEQ rows and the step's draws,
+    on the CPU."""
+    import numpy as np
+    import torch
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
+    from osu_diffusion_tpu_torch.data.dataset import default_win_func
+    from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.train.train_step import draw_step
+
+    seq = beatmap_to_sequence(Beatmap.from_path(BEATMAP))
+    wins = [default_win_func(seq, s, s + CP_SEQ) for s in (0, 80, 160, len(seq) - CP_SEQ)]
+    batch = (torch.from_numpy(np.stack([w for w, _ in wins])),
+             torch.from_numpy(np.stack([p for _, p in wins])),
+             torch.tensor([3, 17, 100, NUM_CLASSES - 1]))
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2)
+    model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED + 1)))
+    draws = draw_step(4, CP_SEQ, 1000, 0.2, "cpu", torch.Generator().manual_seed(SEED + 2))
+    return model, batch, draws._replace(drop=torch.tensor([True, False, False, False]))
+
+
+def cp_step_grads(dev, mesh=None):
+    """The MSE loss and every parameter gradient of one DiT-B step at
+    cp_step_inputs, bf16 stream, band 128; over `mesh` each rank takes its
+    rows and the gradients and loss are summed and averaged over the ranks."""
+    import torch
+    import torch.distributed as dist
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.train.train_step import StepDraws, all_reduce_grads, loss_terms
+
+    model, batch, draws = cp_step_inputs()
+    model = model.to(dev).train()
+    diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=False, device=dev)
+    world = 1 if mesh is None else mesh.world
+    terms = loss_terms(model, diffusion, tuple(a.to(dev) for a in batch),
+                       StepDraws(*(a.to(dev) for a in draws)), band=BAND, dtype=torch.bfloat16, cp=mesh)
+    loss = terms["loss"].mean()
+    (loss / world).backward()
+    loss = loss.detach()
+    if mesh is not None:
+        all_reduce_grads(list(model.parameters()))
+        dist.all_reduce(loss)
+    return (loss / world).item(), {n: p.grad.float().cpu() for n, p in model.named_parameters()}
+
+
+def cp_exchange_errors(dev, mesh) -> dict:
+    """[attn-cp-exchange] on this rank: context_parallel_banded_attention
+    on its rows against the one-device banded_attention on the whole
+    sequence, both on the card: the output and the gradients of
+    sum(sin(out)) over the rows below valid_len (the one-device backward
+    gives the pad queries past valid_len no gradient; CP, as the JAX
+    package, does), each as its error of max and whether it is finite."""
+    import torch
+    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention
+    from osu_diffusion_tpu_torch.parallel.context import context_parallel_banded_attention, shard_rows
+
+    out = {}
+    for name, n, t, valid in CP_EXCHANGE_CASES:
+        rows = shard_rows(t, mesh)
+        keep = (torch.arange(t, device=dev) < (valid or t)).float()[:, None]
+        for stream, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            g = torch.Generator(device=dev).manual_seed(SEED + 3)
+            full = [torch.randn((n, 12, t, 64), generator=g, device=dev).to(dtype).requires_grad_()
+                    for _ in range(3)]
+            local = [a.detach()[:, :, rows].clone().requires_grad_() for a in full]
+            o_cp = context_parallel_banded_attention(*local, BAND, mesh, valid)
+            (torch.sin(o_cp.float()) * keep[rows]).sum().backward()
+            o_one = banded_attention(*full, BAND, valid)
+            (torch.sin(o_one.float()) * keep).sum().backward()
+            got = {"out": o_cp, **{f"d{x}": a.grad for x, a in zip("qkv", local)}}
+            want = {"out": o_one[:, :, rows], **{f"d{x}": a.grad[:, :, rows] for x, a in zip("qkv", full)}}
+            out[f"{name}_{stream}"] = {key: (rel_err(got[key], want[key]), bool(torch.isfinite(got[key]).all()))
+                                       for key in got}
+    return out
+
+
+def cp_argv(data, results, num_model):
+    """The train CLI at DiT-B on the kimi copies: seq-len 512, band 128,
+    batch 32, CP_STEPS steps, one loader thread-free (num-workers 0: the two
+    runs then read the same batches in the same order)."""
+    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(CP_BATCH),
+            "--seq-len", str(CP_SEQ), "--band", str(BAND), "--stride", "16", "--num-workers", "0",
+            "--log-every", "1", "--ckpt-every", str(10 ** 9), "--results-dir", results,
+            "--device", "cuda", "--max-steps", str(CP_STEPS), "--num-model", str(num_model)]
+    return argv + (["--context-parallel", "--dist", "gloo"] if num_model > 1 else [])
+
+
+def cp_rank_main(workdir) -> int:
+    """One process of the CP phases, run by phase_context_parallel: in
+    torchrun's environment, one of CP_RANKS gloo ranks sharing the card
+    ([forward-cp], [step-cp], then the CP train CLI); without it, the
+    one-process train CLI run. Writes its numbers to
+    <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.parallel import make_mesh
+    from osu_diffusion_tpu_torch.parallel.context import gather_slots, shard_rows
+    from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
+    from osu_diffusion_tpu_torch.train import trainer
+    from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
+
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    world, rank = int(os.environ.get("WORLD_SIZE", 1)), int(os.environ.get("RANK", 0))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    out = {}
+    if world > 1:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{job['check_port']}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(minutes=5))
+        mesh = make_mesh(world)
+        # [forward-cp]: one forward_with_cfg at the kimi inputs, then a chain
+        model = DiT_models[MODEL](num_classes=NUM_CLASSES)
+        model.load_state_dict(load_checkpoint(job["ckpt"]))
+        model.to(dev).eval()
+        z, o, c, y = (a.to(dev) for a in torch.load(job["inputs"]))
+        t_real = z.shape[1]
+        sampler = Sampler(model, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2",
+                                                  device=dev), cfg_scale=CFG_SCALE, band=BAND, cp=mesh)
+        t_pad = _bucketed(t_real, sampler.bucket)
+        rows = shard_rows(t_pad, mesh)
+        with torch.no_grad():
+            x, op, cpad = (_pad_time(a, t_pad)[:, rows] for a in (z, o, c))
+            fwd = model.forward_with_cfg(x, torch.full((z.shape[0],), 500, device=dev), op, cpad, y,
+                                         CFG_SCALE, band=BAND, valid_len=t_real, cp=mesh)
+            fwd = torch.cat(gather_slots(fwd, mesh).unbind(), dim=1)[:, :t_real]
+        read_counts = reset_launch_counts()
+        chain = sampler(z, o, c, y, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        out["chain_launches"] = read_counts()
+        if rank == 0:
+            torch.save({"forward": fwd.cpu(), "chain": chain.cpu()}, os.path.join(workdir, "forward.pt"))
+        del model, sampler
+        out["exchange"] = cp_exchange_errors(dev, mesh)
+        # [step-cp]
+        loss, grads = cp_step_grads(dev, mesh)
+        if rank == 0:
+            torch.save({"loss": loss, "grads": grads}, os.path.join(workdir, "step.pt"))
+        n_params = sum(g.numel() for g in grads.values())
+        del grads
+        # the train step's two collectives alone, on the host's clock: the
+        # gradient sum (one flat f32 buffer) and one block's k/v halo exchange
+        # at the [train-cp] shard (batch 32, 256 rows, halo 128, bf16)
+        flat = torch.zeros(n_params, device=dev)
+        kv = torch.zeros((2, CP_BATCH, 12, CP_SEQ // CP_RANKS, 64), device=dev, dtype=torch.bfloat16)
+        for name, fn in (("grad_all_reduce", lambda: dist.all_reduce(flat)),
+                         ("halo_exchange", lambda: gather_slots(torch.stack((kv[..., :BAND, :], kv[..., -BAND:, :])),
+                                                                mesh))):
+            fn()
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            out[f"{name}_s"] = (time.perf_counter() - start) / 3
+        out["grad_mb"] = flat.numel() * 4 / 1e6
+        del flat, kv
+        dist.barrier()
+        dist.destroy_process_group()
+        torch.cuda.empty_cache()
+    # [train-cp]: the train CLI (it joins its own process group under torchrun)
+    events = []
+    orig_step = trainer.train_step
+
+    def timed_step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        events.append(start)
+        return orig_step(*args, **kwargs)
+
+    trainer.train_step = timed_step
+    read_counts = reset_launch_counts()
+    wall = time.perf_counter()
+    summary = train_main(build_train_parser().parse_args(
+        cp_argv(job["data"], os.path.join(workdir, f"results_w{world}"), world)))
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - wall
+    trainer.train_step = orig_step
+    out["train_launches"] = read_counts()
+    out["final_step"] = summary["final_step"]
+    # start to start over the steady steps 2..CP_STEPS-1
+    out["period_ms"] = events[2].elapsed_time(events[-1]) / (len(events) - 3)
+    if rank == 0:
+        with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
+            log = f.read()
+        out["losses"] = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
+        out["done"] = "Done!" in log
+        out["mesh_line"] = "context parallel, band" in log
+    with open(os.path.join(workdir, f"rank{rank}_w{world}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def run_cp_ranks(workdir, world) -> list[dict]:
+    """This script with --cp-rank, as `world` ranks in torchrun's
+    environment (or one plain process); fails unless every rank exits 0."""
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
+    if world > 1:
+        env.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
+    procs = []
+    for rank in range(world):
+        renv = {**env, "RANK": str(rank), "LOCAL_RANK": str(rank)} if world > 1 else env
+        log = open(os.path.join(workdir, f"rank{rank}_w{world}.log"), "w")
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-rank", workdir],
+                                       env=renv, stdout=log, stderr=subprocess.STDOUT), log))
+    deadline = time.time() + CP_TIMEOUT
+    rcs = []
+    try:
+        for proc, _ in procs:
+            rcs.append(proc.wait(timeout=max(1.0, deadline - time.time())))
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    for rank, rc in enumerate(rcs):
+        with open(os.path.join(workdir, f"rank{rank}_w{world}.log")) as f:
+            tail = f.read()[-3000:]
+        for line in tail.splitlines():
+            if line.startswith(("[cp]", "[rank")):
+                print(f"[train-cp] rank {rank} of {world}: {line}")
+        check(rc == 0, f"CP rank {rank} of {world} exited {rc}:\n{tail}")
+    out = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"rank{rank}_w{world}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
+    """[forward-cp], [step-cp] and [train-cp]: CP_RANKS gloo ranks on the
+    card against one device. Returns the ranged kernels' launches on the
+    CP main paths (rank 0's)."""
+    import torch
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
+
+    workdir = os.path.join(tmp, "cp")
+    os.makedirs(workdir, exist_ok=True)
+    z, o, c, y = (a.cpu() for a in call_args)
+    torch.save((z, o, c, y), os.path.join(workdir, "inputs.pt"))
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump({"ckpt": ckpt, "inputs": os.path.join(workdir, "inputs.pt"), "data": train_dataset(tmp),
+                   "check_port": free_port()}, f)
+    wall = time.perf_counter()
+    ranks = run_cp_ranks(workdir, CP_RANKS)
+    cp_wall = time.perf_counter() - wall
+    single = run_cp_ranks(workdir, 1)[0]
+    depth = len(DiT_models[MODEL](num_classes=2).blocks)
+
+    # [forward-cp]: the one-device forward and chain on the card, same weights and inputs
+    got = torch.load(os.path.join(workdir, "forward.pt"))
+    model, t_real = sampler.model, z.shape[1]
+    t_pad = _bucketed(t_real, 128)
+    with torch.no_grad():
+        x, op, cpad = (_pad_time(a.to(dev), t_pad) for a in (z, o, c))
+        want = model.forward_with_cfg(x, torch.full((z.shape[0],), 500, device=dev), op, cpad, y.to(dev),
+                                      CFG_SCALE, band=BAND, valid_len=t_real)[:, :t_real].cpu()
+    one = Sampler(model, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2", device=dev),
+                  cfg_scale=CFG_SCALE, band=BAND)(*(a.to(dev) for a in (z, o, c, y)),
+                                                 generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+    rel = rel_err(got["forward"], want)
+    chain_diff = (got["chain"] - one).abs()
+    print(f"[forward-cp] DiT-B forward_with_cfg at the kimi inputs (T 757 -> 768 over {CP_RANKS} ranks, band "
+          f"{BAND}), CP vs one device on the card: {rel:.3e} of max (tol {CP_REL_TOL}); a {CP_SAMPLE_STEPS}-step "
+          f"CP chain: shape {tuple(got['chain'].shape)}, |CP - one device| max {chain_diff.max().item():.3e}, "
+          f"median {chain_diff.median().item():.3e} (printed: at t near T the x0 prediction amplifies the "
+          f"forward's bf16 rounding differences before the clamp)")
+    check(rel <= CP_REL_TOL and bool(torch.isfinite(got["forward"]).all()), f"forward-cp: {rel}")
+    check(tuple(got["chain"].shape) == (2, t_real, 2) and bool(torch.isfinite(got["chain"]).all()),
+          "forward-cp chain: shape or non-finite")
+    chain_expected = {**dict.fromkeys(ranks[0]["chain_launches"], 0),
+                      "banded_attention_ranged": CP_SAMPLE_STEPS * depth, "adaln_mlp": CP_SAMPLE_STEPS * depth}
+    for rank, r in enumerate(ranks):
+        print(f"[forward-cp] rank {rank} chain launches {r['chain_launches']}")
+        check(r["chain_launches"] == chain_expected, f"forward-cp rank {rank} launches {r['chain_launches']}")
+
+    # [attn-cp-exchange]: each rank's errors against the one-device kernels
+    for rank, r in enumerate(ranks):
+        for case, errs in r["exchange"].items():
+            tol = CP_EXCHANGE_TOL[case.rsplit("_", 1)[1]]
+            print(f"[attn-cp-exchange] rank {rank} of {CP_RANKS}, {case} (band {BAND}): CP against one device, "
+                  "error of max " + " ".join(f"{k}={e:.2e}" for k, (e, _) in errs.items()) + f" (tol {tol})")
+            check(all(ok and e <= tol for e, ok in errs.values()), f"attn-cp-exchange rank {rank} {case}: {errs}")
+
+    # [step-cp]: the one-device step on the card, same weights, batch and draws
+    step = torch.load(os.path.join(workdir, "step.pt"))
+    loss_one, grads_one = cp_step_grads(dev)
+    loss_rel = abs(step["loss"] - loss_one) / abs(loss_one)
+    errs = sorted(((rel_err(step["grads"][n], grads_one[n]), n) for n in grads_one), reverse=True)
+    print(f"[step-cp] {MODEL} train step, batch 4 x {CP_SEQ} over {CP_RANKS} ranks, band {BAND}, bf16 stream, "
+          f"MSE: loss CP {step['loss']:.6f} one device {loss_one:.6f} (rel {loss_rel:.2e}); gradient error of "
+          f"max, worst {errs[0][0]:.2e} ({errs[0][1]}), median {errs[len(errs) // 2][0]:.2e} over {len(errs)} "
+          f"tensors (tol {CP_REL_TOL})")
+    check(loss_rel <= CP_REL_TOL, f"step-cp loss: {loss_rel}")
+    check(errs[0][0] <= CP_REL_TOL, f"step-cp gradients: {errs[:5]}")
+    del step, grads_one
+
+    # [train-cp]
+    expected_cp = {**dict.fromkeys(ranks[0]["train_launches"], 0),
+                   "banded_attention_ranged_fwd_lse": CP_STEPS * depth * 2,  # forward + remat recompute
+                   "banded_attention_ranged_bwd_dq": CP_STEPS * depth,
+                   "banded_attention_ranged_bwd_dkv": CP_STEPS * depth,
+                   "adaln_mlp_train": CP_STEPS * depth * 2}
+    expected_one = {**dict.fromkeys(expected_cp, 0), "banded_attention_fwd_lse": CP_STEPS * depth * 2,
+                    "banded_attention_bwd_dq": CP_STEPS * depth, "banded_attention_bwd_dkv": CP_STEPS * depth,
+                    "adaln_mlp_train": CP_STEPS * depth * 2}
+    for rank, r in enumerate(ranks):
+        print(f"[train-cp] rank {rank} of {CP_RANKS}: {r['final_step']} steps, launches {r['train_launches']}")
+        check(r["final_step"] == CP_STEPS and r["train_launches"] == expected_cp,
+              f"train-cp rank {rank}: {r['final_step']} steps, launches {r['train_launches']}")
+    print(f"[train-cp] one process: launches {single['train_launches']}")
+    check(single["train_launches"] == expected_one, f"train-cp one process launches {single['train_launches']}")
+    cp_losses, one_losses = ranks[0]["losses"], single["losses"]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(cp_losses, one_losses)]
+    print(f"[train-cp] losses CP {cp_losses}; one process {one_losses}; relative differences "
+          + ", ".join(f"{d:.2e}" for d in diffs) + f" (tol {CP_LOSS_REL_TOL})")
+    check(len(cp_losses) == len(one_losses) == CP_STEPS and all(math.isfinite(v) for v in cp_losses + one_losses),
+          f"train-cp losses {cp_losses} {one_losses}")
+    check(max(diffs) <= CP_LOSS_REL_TOL, f"train-cp losses differ: {diffs}")
+    check(ranks[0]["done"] and ranks[0]["mesh_line"], "train-cp: no Done! or no mesh line in rank 0's log")
+    print(f"[train-cp] {card}: {ranks[0]['period_ms'] / 1000:.6f} s per optimizer step start to start with "
+          f"{CP_RANKS} gloo ranks sharing the card (rank 1 {ranks[1]['period_ms'] / 1000:.6f}), "
+          f"{single['period_ms'] / 1000:.6f} s in one process ({MODEL}, batch {CP_BATCH} x {CP_SEQ}, band {BAND}, "
+          f"bf16 stream, remat); wall {ranks[0]['wall_s']:.1f} s and {single['wall_s']:.1f} s for "
+          f"{CP_STEPS} steps; the CP ranks' run took {cp_wall:.1f} s in all")
+    print(f"[train-cp] {card}: the step's collectives alone on gloo (rank 0, host clock): the gradient sum "
+          f"({ranks[0]['grad_mb']:.1f} MB f32) {ranks[0]['grad_all_reduce_s']:.4f} s, one block's k/v halo "
+          f"exchange {ranks[0]['halo_exchange_s']:.4f} s (x 3 a block a step: forward, remat, backward; "
+          f"x {depth} blocks)")
+    return {"banded_attention_ranged": ranks[0]["chain_launches"]["banded_attention_ranged"],
+            **{k: ranks[0]["train_launches"][k] for k in ("banded_attention_ranged_fwd_lse",
+                                                          "banded_attention_ranged_bwd_dq",
+                                                          "banded_attention_ranged_bwd_dkv")}}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cp-rank"]:  # one process of phase_context_parallel
+        return cp_rank_main(sys.argv[2])
     from osu_diffusion_tpu_torch.models.dit import DiT_models
 
     # the plain f32 versions and projections in full f32, as the JAX f32 path
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
-    phase_build()
+    card = phase_build()
     measured = {"banded_attention": phase_attention(dev), "adaln_mlp": phase_mlp(dev)}
+    measured.update(phase_attention_cp(dev))
     measured.update(phase_attention_train(dev))
     measured["adaln_mlp_train"] = phase_mlp_train(dev)
     mlp_bwd, mlp_bwd_ms = phase_mlp_bwd(dev)
@@ -1234,6 +1773,7 @@ def main() -> int:
         del model, sd
         launches, sampler, call_args, f32_step_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
         phase_forward_vs_plain(dev, sampler, call_args)
+        launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
         turns = phase_in_turns(dev, {"f32": sampler, "int8": qsampler}, call_args)
@@ -1279,6 +1819,10 @@ def main() -> int:
         "int8_modulated_matmul": (int8_src, f"{quant_ref}:95"),
         "int8_out_residual": (int8_src, f"{quant_ref}:156"),
         "int8_matmul": (int8_src, f"{quant_ref}:221"),
+        "banded_attention_ranged": (attn_src, f"{attn_ref}:249"),
+        "banded_attention_ranged_fwd_lse": (attn_src, f"{attn_ref}:249"),
+        "banded_attention_ranged_bwd_dq": (bwd_src, f"{attn_ref}:348"),
+        "banded_attention_ranged_bwd_dkv": (bwd_src, f"{attn_ref}:360"),
     }
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [{"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -12,9 +12,15 @@ train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
 every block runs the training kernels (with --mlp-bwd fused also the MLP
 half's two backward kernels). --embed-only-epochs and --relearn-embeds are
 the reference's fine-tuning flow; train_nodist_torch.py is the refine-model
-trainer (timestep 0 only). The JAX trainer's TPU-only knobs (--use-pallas,
---pallas-ops, --flash-block, --scan-blocks, --steps-per-call, --multihost,
---num-model, --context-parallel) have no counterpart here.
+trainer (timestep 0 only). Under torchrun (one process per device) the
+ranks train data-parallel; --num-model N --context-parallel splits each
+window's sequence over N of them (ranged attention kernels behind a halo
+exchange), --band narrows the attention for long windows, and --dist picks
+the backend (nccl on CUDA, gloo on the CPU by default; gloo also runs
+several ranks on one card). --num-model without --context-parallel (tensor
+parallelism) is not ported and raises. The JAX trainer's TPU-only knobs
+(--use-pallas, --pallas-ops, --flash-block, --scan-blocks,
+--steps-per-call, --multihost) have no counterpart here.
 """
 from __future__ import annotations
 
@@ -162,13 +168,42 @@ def build_train_parser() -> argparse.ArgumentParser:
                         help="the adaLN-MLP backward: the plain 'xla' (default) or the "
                              "fused reduction/LayerNorm-backward kernels")
     parser.add_argument("--device", type=str, default=d.device)
+    parser.add_argument("--num-model", type=int, default=d.num_model,
+                        help="ranks on the mesh's model axis (with --context-parallel: the "
+                             "ranks that split one window's sequence)")
+    parser.add_argument("--context-parallel", action=argparse.BooleanOptionalAction,
+                        default=False,
+                        help="split the sequence over the --num-model ranks (seq-len a multiple "
+                             "of num-model * 128); attention exchanges band-sized halos")
+    parser.add_argument("--band", type=int, default=d.band,
+                        help="attention half-width (default: --seq-len, full attention)")
+    parser.add_argument("--dist", dest="dist_backend", choices=["nccl", "gloo"],
+                        default=d.dist_backend,
+                        help="torch.distributed backend under torchrun (default: nccl on CUDA, "
+                             "gloo on the CPU)")
     return parser
 
 
+def check_context_parallel(args) -> None:
+    """--context-parallel names what --num-model > 1 does in the port: tensor
+    parallelism (--num-model without it) is not ported, and it needs model
+    ranks to split the sequence over."""
+    if args.num_model > 1 and not args.context_parallel:
+        raise ValueError(
+            f"--num-model {args.num_model} without --context-parallel is tensor parallelism "
+            "(the Megatron MLP and the vocab-parallel label table), which is not ported; add "
+            "--context-parallel to split the sequence over the model ranks")
+    if args.context_parallel and args.num_model < 2:
+        raise ValueError("--context-parallel splits the sequence over the mesh's model axis: "
+                         "it needs --num-model > 1")
+
+
 def train_config_kwargs(args) -> dict:
-    """Parsed train-CLI arguments -> TrainConfig keyword arguments. Shared by
-    train_main and train_nodist_torch.py (which adds max_timestep=1), so the
-    two cannot drift when flags are added."""
+    """Parsed train-CLI arguments -> TrainConfig keyword arguments (the
+    context-parallel flags checked: the trainer splits the sequence whenever
+    num_model > 1). Shared by train_main and train_nodist_torch.py (which
+    adds max_timestep=1), so the two cannot drift when flags are added."""
+    check_context_parallel(args)
     return dict(
         data_path=args.data_path, num_classes=args.num_classes, data_start=args.data_start,
         data_end=args.data_end, results_dir=args.results_dir, model=args.model,
@@ -178,7 +213,8 @@ def train_config_kwargs(args) -> dict:
         noise_schedule=args.noise_schedule, l1_loss=args.l1_loss, lr=args.lr,
         relearn_embeds=args.relearn_embeds, embed_only_epochs=args.embed_only_epochs,
         use_bf16=args.use_bf16, remat=args.remat, max_steps=args.max_steps,
-        mlp_bwd=args.mlp_bwd, device=args.device,
+        mlp_bwd=args.mlp_bwd, device=args.device, num_model=args.num_model,
+        band=args.band, dist_backend=args.dist_backend,
     )
 
 

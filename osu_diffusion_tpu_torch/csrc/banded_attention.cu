@@ -1,10 +1,20 @@
 // Banded attention forward for Hopper, sm_90a: inference, and training with
-// the per-row log-sum-exp.
+// the per-row log-sum-exp; each also ranged, for context parallelism.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_attention.py,
 //   _banded_attn_fwd_kernel without LSE (called via _banded_flash_fwd_impl,
 //   entry banded_attention_fwd) and with LSE (with_lse=True via _fwd,
-//   entry banded_attention_fwd_lse).
+//   entry banded_attention_fwd_lse); and the same kernel body with its
+//   bounds_ref, called via _ranged_fwd_impl (entries
+//   banded_attention_fwd_ranged and banded_attention_fwd_ranged_lse).
+//
+// Ranged (the RANGED template flag; the unranged build is the same code):
+// q/k/v are one context-parallel shard's halo-extended rows, and the
+// runtime bounds mask keys outside [k_lo, k_hi) (the halo an edge shard has
+// no neighbour for, and the global padded tail). Query rows outside
+// [q_lo, q_hi) are the pad rows of q: whole 64-row tiles there are not
+// computed (0 and LSE -1e30 are written), and the key loop walks only the
+// tiles that meet [k_lo, k_hi).
 //
 // Computes, per (batch, head) and query row q:
 //   o[q] = sum_k softmax_k(s[q, k]) v[k],  s = bf16(q * Dh^-1/2) . bf16(k)
@@ -26,7 +36,11 @@
 // 4 x 3072 x 128 x 64 x 2 B = 201 MB plus a 1.6 MB LSE (60 us at 3.35 TB/s)
 // against 6.4 GFLOP (6.5 us at 989 TFLOP/s): bound by memory. Both shapes
 // are short per CTA, so the serial tile loop of each CTA (load, sync, two
-// small products, softmax) and the CTAs in flight decide the time.
+// small products, softmax) and the CTAs in flight decide the time. At the
+// context-parallel training shard (N*H = 384, T_ext = 512 of which 256 are
+// pad query rows, L = 128, bf16) the ranged call reads 3 x 25 MB of q/k/v
+// and writes o and the LSE; the pad query tiles return at once, so the
+// work is that of the shard's 256 real rows.
 //
 // What the design does about it: one CTA per (n*h, 64-row query tile), four
 // warps of 16 rows each, so the grid spreads over the SMs (6144 CTAs at the
@@ -57,6 +71,19 @@ constexpr int LDB = DH + 8;    // bf16 row stride in shared memory (elements)
 constexpr int LDS = BK + 4;    // f32 row stride of the score scratch
 constexpr float NEG_INF = -1e30f;
 
+// runtime bounds of the ranged entries: keys in [k_lo, k_hi), query rows in
+// [q_lo, q_hi); unused by the unranged entries
+struct Bounds {
+  int k_lo, k_hi, q_lo, q_hi;
+};
+
+template <bool RANGED>
+__device__ __forceinline__ bool key_allowed(int kj, int qi, int band, int valid, const Bounds& b) {
+  bool ok = kj > qi - band && kj <= qi + band && kj < valid;
+  if constexpr (RANGED) ok = ok && kj >= b.k_lo && kj < b.k_hi;
+  return ok;
+}
+
 struct __align__(128) Smem {
   __nv_bfloat16 q[BQ * LDB];
   __nv_bfloat16 k[BK * LDB];
@@ -65,13 +92,13 @@ struct __align__(128) Smem {
   float s[WARPS][16 * LDS];          // scores, then the P.V tile
 };
 
-template <typename T>
+template <typename T, bool RANGED>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o,
                        float* __restrict__ lse, int h, int t, long long sn,
                        long long sh, long long st, long long osn, long long osh,
-                       long long ost, int band, int valid, float scale) {
+                       long long ost, int band, int valid, float scale, Bounds bounds) {
   extern __shared__ unsigned char smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
 
@@ -86,6 +113,19 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = lane >> 1;
   const int c0 = (lane & 1) * 32;
   const int qi = q0 + warp * 16 + r;
+  T* const orow = o + nb * osn + hb * osh + (long long)qi * ost + c0;
+
+  if constexpr (RANGED) {
+    // a tile of pad query rows (outside [q_lo, q_hi)) is not computed
+    if (q0 + BQ <= bounds.q_lo || q0 >= bounds.q_hi) {
+      if (qi < t) {
+#pragma unroll
+        for (int j = 0; j < 32; j += 4) tile_io::store4(orow + j, make_float4(0.f, 0.f, 0.f, 0.f));
+        if (lse != nullptr && c0 == 0) lse[(long long)blockIdx.y * t + qi] = NEG_INF;
+      }
+      return;
+    }
+  }
 
   tile_io::load_tile<BQ, DH, LDB, THREADS>(sm.q, q + base, q0, t, st, scale);
 
@@ -96,8 +136,13 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int j = 0; j < 32; ++j) acc[j] = 0.f;
 
   // keys any row of this tile may attend: (q0 - L, q0 + BQ - 1 + L], < valid
-  const int k_lo = max(0, q0 - band + 1);
-  const int k_hi = min(valid - 1, q0 + BQ - 1 + band);
+  // (ranged: and in [k_lo, k_hi))
+  int k_lo = max(0, q0 - band + 1);
+  int k_hi = min(valid - 1, q0 + BQ - 1 + band);
+  if constexpr (RANGED) {
+    k_lo = max(k_lo, bounds.k_lo);
+    k_hi = min(k_hi, bounds.k_hi - 1);
+  }
   float* srow = sm.s[warp] + r * LDS + c0;
   __nv_bfloat16* prow = sm.p[warp] + r * LDB + c0;
 
@@ -133,8 +178,7 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float mx = NEG_INF;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const int kj = kbase + c0 + j;
-      const bool ok = kj > qi - band && kj <= qi + band && kj < valid;
+      const bool ok = key_allowed<RANGED>(kbase + c0 + j, qi, band, valid, bounds);
       sv[j] = ok ? srow[j] : NEG_INF;
       mx = fmaxf(mx, sv[j]);
     }
@@ -144,8 +188,7 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float psum = 0.f;
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const int kj = kbase + c0 + j;
-      const bool ok = kj > qi - band && kj <= qi + band && kj < valid;
+      const bool ok = key_allowed<RANGED>(kbase + c0 + j, qi, band, valid, bounds);
       // explicit 0 for masked keys: while a row's max is still NEG_INF,
       // exp(s - m_new) would be exp(0) = 1 for them
       const float p = ok ? expf(sv[j] - m_new) : 0.f;
@@ -184,7 +227,6 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   if (qi < t) {
     const float denom = fmaxf(l, 1e-30f);
-    T* orow = o + nb * osn + hb * osh + (long long)qi * ost + c0;
 #pragma unroll
     for (int j = 0; j < 32; j += 4) {
       tile_io::store4(orow + j, make_float4(acc[j] / denom, acc[j + 1] / denom,
@@ -194,30 +236,33 @@ banded_attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+template <typename T, bool RANGED>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
            int t, long long sn, long long sh, long long st, long long osn, long long osh,
-           long long ost, int band, int valid_len, float scale, cudaStream_t stream) {
+           long long ost, int band, int valid_len, float scale, Bounds bounds,
+           cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem));
   cudaError_t err = cudaFuncSetAttribute(
-      banded_attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      banded_attn_fwd_kernel<T, RANGED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((t + BQ - 1) / BQ, n * h);
-  banded_attn_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
+  banded_attn_fwd_kernel<T, RANGED><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale);
+      static_cast<T*>(o), lse, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale, bounds);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool RANGED>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
              int t, long long sn, long long sh, long long st, long long osn, long long osh,
-             long long ost, int band, int valid_len, float scale, int bf16, void* stream) {
+             long long ost, int band, int valid_len, float scale, Bounds bounds, int bf16,
+             void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (bf16)
-    return launch<__nv_bfloat16>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
-                                 valid_len, scale, s);
-  return launch<float>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len,
-                       scale, s);
+    return launch<__nv_bfloat16, RANGED>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost,
+                                         band, valid_len, scale, bounds, s);
+  return launch<float, RANGED>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
+                               valid_len, scale, bounds, s);
 }
 
 }  // namespace
@@ -230,8 +275,8 @@ extern "C" int banded_attention_fwd(const void* q, const void* k, const void* v,
                                     int h, int t, long long sn, long long sh, long long st,
                                     long long osn, long long osh, long long ost, int band,
                                     int valid_len, float scale, int bf16, void* stream) {
-  return dispatch(q, k, v, o, nullptr, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len,
-                  scale, bf16, stream);
+  return dispatch<false>(q, k, v, o, nullptr, n, h, t, sn, sh, st, osn, osh, ost, band,
+                         valid_len, scale, Bounds{}, bf16, stream);
 }
 
 // The same, also writing lse: f32 (N*H, T) contiguous, row n*H + h.
@@ -240,8 +285,32 @@ extern "C" int banded_attention_fwd_lse(const void* q, const void* k, const void
                                         long long sh, long long st, long long osn, long long osh,
                                         long long ost, int band, int valid_len, float scale,
                                         int bf16, void* stream) {
-  return dispatch(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len, scale,
-                  bf16, stream);
+  return dispatch<false>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, valid_len,
+                         scale, Bounds{}, bf16, stream);
+}
+
+// Ranged: as banded_attention_fwd over all T (halo-extended) rows, with
+// keys masked to [k_lo, k_hi) and only the query tiles that meet
+// [q_lo, q_hi) computed (the others get 0).
+extern "C" int banded_attention_fwd_ranged(const void* q, const void* k, const void* v, void* o,
+                                           int n, int h, int t, long long sn, long long sh,
+                                           long long st, long long osn, long long osh,
+                                           long long ost, int band, int k_lo, int k_hi,
+                                           int q_lo, int q_hi, float scale, int bf16,
+                                           void* stream) {
+  return dispatch<true>(q, k, v, o, nullptr, n, h, t, sn, sh, st, osn, osh, ost, band, t, scale,
+                        Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, stream);
+}
+
+// Ranged with lse (rows of uncomputed tiles get -1e30).
+extern "C" int banded_attention_fwd_ranged_lse(const void* q, const void* k, const void* v,
+                                               void* o, float* lse, int n, int h, int t,
+                                               long long sn, long long sh, long long st,
+                                               long long osn, long long osh, long long ost,
+                                               int band, int k_lo, int k_hi, int q_lo, int q_hi,
+                                               float scale, int bf16, void* stream) {
+  return dispatch<true>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band, t, scale,
+                        Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, stream);
 }
 
 extern "C" const char* banded_attention_error_string(int err) {

@@ -4,7 +4,18 @@
 //   _banded_attn_bwd_dq_kernel (entry banded_attention_bwd_dq) and
 //   _banded_attn_bwd_dkv_kernel (entry banded_attention_bwd_dkv), both
 //   called via _banded_flash_bwd_impl in the default slim-stats mode
-//   (delta derived in-kernel from o and do).
+//   (delta derived in-kernel from o and do); and the same two kernel bodies
+//   with has_bounds, called via _ranged_bwd_impl for context parallelism
+//   (entries banded_attention_bwd_dq_ranged and banded_attention_bwd_dkv_ranged).
+//
+// Ranged (the RANGED template flag; the unranged build is the same code):
+// "allowed" also needs the key in [k_lo, k_hi) and the query in
+// [q_lo, q_hi). The pad query rows of q (outside [q_lo, q_hi)) have an LSE
+// of about -1e30 and an o the forward did not compute, so they must reach
+// no gradient: dS is 0 wherever not allowed (not P * (dP - delta), whose
+// delta is not trusted there); a query tile outside [q_lo, q_hi) writes 0
+// to dq at once, a key tile outside [k_lo, k_hi) 0 to dk and dv, and the
+// loops walk only the tiles inside the bounds.
 //
 // Math (scale = Dh^-1/2, every product bf16 operands with f32 accumulation):
 //   P  = exp(bf16(q * scale) . bf16(k) - lse)  where allowed, else 0
@@ -24,7 +35,12 @@
 // 3 products of 2 x 128 x 128 x 64 per row block, 9.7 GFLOP (10 us at
 // 989 TFLOP/s); dk/dv read the same and write two gradients: 352 MB,
 // 105 us, against 4 products, 12.9 GFLOP. Both are bound by memory, and in
-// practice by the latency of each CTA's short serial tile loop.
+// practice by the latency of each CTA's short serial tile loop. At the
+// context-parallel training shard (N*H = 384, T_ext = 512, half of it pad
+// query rows, L = 128, bf16) the ranged dq reads q, k, v, o, do (5 x 25 MB)
+// and the LSE and writes 25 MB (45 us), dk/dv writes two gradients (53 us);
+// the pad tiles return at once, and a real tile walks up to 5 tiles of the
+// other side.
 //
 // What the design does about it. On a GPU nothing carries over between
 // CTAs, so every cross-tile sum stays inside one CTA (no atomics: the
@@ -62,6 +78,39 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 using RowA = wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using RowB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>;
 using ColB = wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major>;
+
+// runtime bounds of the ranged entries: keys in [k_lo, k_hi), query rows in
+// [q_lo, q_hi); unused by the unranged entries
+struct Bounds {
+  int k_lo, k_hi, q_lo, q_hi;
+};
+
+// the forward's band and valid_len mask, both rows valid, and (ranged) the bounds
+template <bool RANGED>
+__device__ __forceinline__ bool pair_allowed(int kj, int qi, int band, int valid,
+                                             const Bounds& b) {
+  bool ok = kj > qi - band && kj <= qi + band && kj < valid && qi < valid;
+  if constexpr (RANGED) ok = ok && kj >= b.k_lo && kj < b.k_hi && qi >= b.q_lo && qi < b.q_hi;
+  return ok;
+}
+
+// dS of one pair: P * (dP - delta); ranged, exactly 0 where not allowed
+template <bool RANGED>
+__device__ __forceinline__ float pair_ds(bool ok, float p, float dp, float delta) {
+  if constexpr (RANGED) return ok ? p * (dp - delta) : 0.f;
+  return p * (dp - delta);
+}
+
+// zeros to this lane pair's row `row` of dst (row stride gt) if row < t
+template <typename T>
+__device__ __forceinline__ void zero_row(T* dst, int row, int t, long long gt) {
+  const int c0 = ((threadIdx.x % 32) & 1) * 32;
+  if (row < t) {
+    T* drow = dst + (long long)row * gt + c0;
+#pragma unroll
+    for (int j = 0; j < 32; j += 4) tile_io::store4(drow + j, make_float4(0.f, 0.f, 0.f, 0.f));
+  }
+}
 
 // out[16 x 64] = a[16 x 64] . b[64 x 64]^T for b staged row-major (rows are
 // the output's columns), into this warp's f32 scratch
@@ -146,14 +195,14 @@ struct __align__(128) SmemDq {
   float dp[WARPS][16 * LDS];
 };
 
-template <typename T>
+template <typename T, bool RANGED>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v, const T* __restrict__ o,
                           const T* __restrict__ dout, const float* __restrict__ lse,
                           T* __restrict__ dq, int h, int t, long long sn, long long sh,
                           long long st, long long gn, long long gh, long long gt, int band,
-                          int valid, float scale) {
+                          int valid, float scale, Bounds bounds) {
   extern __shared__ unsigned char smem_raw[];
   SmemDq& sm = *reinterpret_cast<SmemDq*>(smem_raw);
 
@@ -167,6 +216,13 @@ banded_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int r = lane >> 1;
   const int c0 = (lane & 1) * 32;
   const int qi = q0 + warp * 16 + r;
+
+  if constexpr (RANGED) {
+    if (q0 + BQ <= bounds.q_lo || q0 >= bounds.q_hi) {  // pad query rows: no gradient
+      zero_row(dq + gbase, qi, t, gt);
+      return;
+    }
+  }
 
   tile_io::load_tile<BQ, DH, LDB, THREADS>(sm.q, q + base, q0, t, st, scale);
   tile_io::load_tile<BQ, DH, LDB, THREADS>(sm.dout, dout + gbase, q0, t, gt, 1.f);
@@ -184,8 +240,13 @@ banded_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int n = 0; n < 4; ++n) wmma::fill_fragment(acc[n], 0.f);
 
   // keys any valid row of this tile may see: (q0 - L, q0 + BQ - 1 + L], < valid
-  const int k_lo = max(0, q0 - band + 1);
-  const int k_hi = q0 >= valid ? -1 : min(valid - 1, q0 + BQ - 1 + band);
+  // (ranged: and in [k_lo, k_hi))
+  int k_lo = max(0, q0 - band + 1);
+  int k_hi = q0 >= valid ? -1 : min(valid - 1, q0 + BQ - 1 + band);
+  if constexpr (RANGED) {
+    k_lo = max(k_lo, bounds.k_lo);
+    k_hi = min(k_hi, bounds.k_hi - 1);
+  }
   const float* srow = sm.s[warp] + r * LDS + c0;
   const float* dprow = sm.dp[warp] + r * LDS + c0;
   __nv_bfloat16* dsrow = sm.ds[warp] + r * LDB + c0;
@@ -202,10 +263,9 @@ banded_attn_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
-      const int kj = kbase + c0 + j;
-      const bool ok = kj > qi - band && kj <= qi + band && kj < valid && qi < valid;
+      const bool ok = pair_allowed<RANGED>(kbase + c0 + j, qi, band, valid, bounds);
       const float p = ok ? expf(srow[j] - lse_q) : 0.f;
-      dsrow[j] = __float2bfloat16_rn(p * (dprow[j] - delta));
+      dsrow[j] = __float2bfloat16_rn(pair_ds<RANGED>(ok, p, dprow[j], delta));
     }
     __syncwarp();
     accumulate_ab(acc, sm.ds[warp], sm.k);  // dQ += dS K
@@ -226,14 +286,14 @@ struct __align__(128) SmemDkv {
   float delta[BQ];
 };
 
-template <typename T>
+template <typename T, bool RANGED>
 __global__ void __launch_bounds__(THREADS)
 banded_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, const T* __restrict__ o,
                            const T* __restrict__ dout, const float* __restrict__ lse,
                            T* __restrict__ dk, T* __restrict__ dv, int h, int t, long long sn,
                            long long sh, long long st, long long gn, long long gh,
-                           long long gt, int band, int valid, float scale) {
+                           long long gt, int band, int valid, float scale, Bounds bounds) {
   extern __shared__ unsigned char smem_raw[];
   SmemDkv& sm = *reinterpret_cast<SmemDkv*>(smem_raw);
 
@@ -248,6 +308,14 @@ banded_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int c0 = (lane & 1) * 32;
   const int ki = k0 + warp * 16 + r;
 
+  if constexpr (RANGED) {
+    if (k0 + BK <= bounds.k_lo || k0 >= bounds.k_hi) {  // masked keys: no gradient
+      zero_row(dk + gbase, ki, t, gt);
+      zero_row(dv + gbase, ki, t, gt);
+      return;
+    }
+  }
+
   tile_io::load_tile<BK, DH, LDB, THREADS>(sm.k, k + base, k0, t, st, 1.f);
   tile_io::load_tile<BK, DH, LDB, THREADS>(sm.v, v + base, k0, t, st, 1.f);
 
@@ -259,8 +327,13 @@ banded_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   // valid queries that see any key of this tile: [k0 - L, k0 + BK - 1 + L)
-  const int q_lo = max(0, k0 - band);
-  const int q_hi = k0 >= valid ? -1 : min(valid - 1, k0 + BK - 2 + band);
+  // (ranged: and in [q_lo, q_hi))
+  int q_lo = max(0, k0 - band);
+  int q_hi = k0 >= valid ? -1 : min(valid - 1, k0 + BK - 2 + band);
+  if constexpr (RANGED) {
+    q_lo = max(q_lo, bounds.q_lo);
+    q_hi = min(q_hi, bounds.q_hi - 1);
+  }
   const float* srow = sm.s[warp] + r * LDS + c0;
   const float* dprow = sm.dp[warp] + r * LDS + c0;
   __nv_bfloat16* ptrow = sm.pt[warp] + r * LDB + c0;
@@ -292,11 +365,10 @@ banded_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < 32; ++j) {
       const int col = c0 + j;
-      const int qj = qbase + col;
-      const bool ok = ki > qj - band && ki <= qj + band && ki < valid && qj < valid;
+      const bool ok = pair_allowed<RANGED>(ki, qbase + col, band, valid, bounds);
       const float p = ok ? expf(srow[j] - sm.lse[col]) : 0.f;
       ptrow[j] = __float2bfloat16_rn(p);
-      dsrow[j] = __float2bfloat16_rn(p * (dprow[j] - sm.delta[col]));
+      dsrow[j] = __float2bfloat16_rn(pair_ds<RANGED>(ok, p, dprow[j], sm.delta[col]));
     }
     __syncwarp();
     accumulate_ab(acc_v, sm.pt[warp], sm.dout);  // dV += P^T dO
@@ -316,6 +388,52 @@ int launch(Kernel kernel, int n, int h, int t, cudaStream_t stream, Args... args
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool RANGED>
+int dq_entry(const void* q, const void* k, const void* v, const void* o, const void* dout,
+             const float* lse, void* dq, int n, int h, int t, long long sn, long long sh,
+             long long st, long long gn, long long gh, long long gt, int band, int valid_len,
+             float scale, Bounds bounds, int bf16, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T, RANGED>, n, h, t, s,
+                             static_cast<const T*>(q), static_cast<const T*>(k),
+                             static_cast<const T*>(v), static_cast<const T*>(o),
+                             static_cast<const T*>(dout), lse, static_cast<T*>(dq), h, t, sn, sh,
+                             st, gn, gh, gt, band, valid_len, scale, bounds);
+  }
+  using T = float;
+  return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T, RANGED>, n, h, t, s,
+                           static_cast<const T*>(q), static_cast<const T*>(k),
+                           static_cast<const T*>(v), static_cast<const T*>(o),
+                           static_cast<const T*>(dout), lse, static_cast<T*>(dq), h, t, sn, sh, st,
+                           gn, gh, gt, band, valid_len, scale, bounds);
+}
+
+template <bool RANGED>
+int dkv_entry(const void* q, const void* k, const void* v, const void* o, const void* dout,
+              const float* lse, void* dk, void* dv, int n, int h, int t, long long sn,
+              long long sh, long long st, long long gn, long long gh, long long gt, int band,
+              int valid_len, float scale, Bounds bounds, int bf16, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T, RANGED>, n, h, t, s,
+                              static_cast<const T*>(q), static_cast<const T*>(k),
+                              static_cast<const T*>(v), static_cast<const T*>(o),
+                              static_cast<const T*>(dout), lse, static_cast<T*>(dk),
+                              static_cast<T*>(dv), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
+                              scale, bounds);
+  }
+  using T = float;
+  return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T, RANGED>, n, h, t, s,
+                            static_cast<const T*>(q), static_cast<const T*>(k),
+                            static_cast<const T*>(v), static_cast<const T*>(o),
+                            static_cast<const T*>(dout), lse, static_cast<T*>(dk),
+                            static_cast<T*>(dv), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
+                            scale, bounds);
+}
+
 }  // namespace
 
 // q, k, v: (N, H, T, 64) with shared strides (sn, sh, st); o, do and the
@@ -329,21 +447,8 @@ extern "C" int banded_attention_bwd_dq(const void* q, const void* k, const void*
                                        long long st, long long gn, long long gh, long long gt,
                                        int band, int valid_len, float scale, int bf16,
                                        void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T>, n, h, t, s, static_cast<const T*>(q),
-                             static_cast<const T*>(k), static_cast<const T*>(v),
-                             static_cast<const T*>(o), static_cast<const T*>(dout), lse,
-                             static_cast<T*>(dq), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
-                             scale);
-  }
-  using T = float;
-  return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T>, n, h, t, s, static_cast<const T*>(q),
-                           static_cast<const T*>(k), static_cast<const T*>(v),
-                           static_cast<const T*>(o), static_cast<const T*>(dout), lse,
-                           static_cast<T*>(dq), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
-                           scale);
+  return dq_entry<false>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt, band,
+                         valid_len, scale, Bounds{}, bf16, stream);
 }
 
 extern "C" int banded_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -352,22 +457,33 @@ extern "C" int banded_attention_bwd_dkv(const void* q, const void* k, const void
                                         long long sh, long long st, long long gn, long long gh,
                                         long long gt, int band, int valid_len, float scale,
                                         int bf16, void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T>, n, h, t, s,
-                              static_cast<const T*>(q), static_cast<const T*>(k),
-                              static_cast<const T*>(v), static_cast<const T*>(o),
-                              static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-                              static_cast<T*>(dv), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
-                              scale);
-  }
-  using T = float;
-  return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T>, n, h, t, s, static_cast<const T*>(q),
-                            static_cast<const T*>(k), static_cast<const T*>(v),
-                            static_cast<const T*>(o), static_cast<const T*>(dout), lse,
-                            static_cast<T*>(dk), static_cast<T*>(dv), h, t, sn, sh, st, gn, gh,
-                            gt, band, valid_len, scale);
+  return dkv_entry<false>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh, gt, band,
+                          valid_len, scale, Bounds{}, bf16, stream);
+}
+
+// Ranged: as above over all T (halo-extended) rows with valid_len = T, keys
+// in [k_lo, k_hi) and queries in [q_lo, q_hi); lse from
+// banded_attention_fwd_ranged_lse.
+extern "C" int banded_attention_bwd_dq_ranged(const void* q, const void* k, const void* v,
+                                              const void* o, const void* dout, const float* lse,
+                                              void* dq, int n, int h, int t, long long sn,
+                                              long long sh, long long st, long long gn,
+                                              long long gh, long long gt, int band, int k_lo,
+                                              int k_hi, int q_lo, int q_hi, float scale,
+                                              int bf16, void* stream) {
+  return dq_entry<true>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt, band, t,
+                        scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, stream);
+}
+
+extern "C" int banded_attention_bwd_dkv_ranged(const void* q, const void* k, const void* v,
+                                               const void* o, const void* dout, const float* lse,
+                                               void* dk, void* dv, int n, int h, int t,
+                                               long long sn, long long sh, long long st,
+                                               long long gn, long long gh, long long gt,
+                                               int band, int k_lo, int k_hi, int q_lo, int q_hi,
+                                               float scale, int bf16, void* stream) {
+  return dkv_entry<true>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh, gt, band, t,
+                         scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, stream);
 }
 
 extern "C" const char* banded_attention_bwd_error_string(int err) {

@@ -28,6 +28,13 @@ the stream type with weights cast at use, and add their bias in it;
 LayerNorm takes f32 statistics; the MLP kernel takes f32 modulation
 vectors; the final head runs in f32, so the output is f32.
 
+Context parallelism (`cp`, a parallel/mesh.py `Mesh`): x, o and c hold
+this rank's rows of the sequence. Everything but attention works per token
+(the first layer, the MLP half, the final layer) or per sample (the
+conditioning), so each rank runs the whole model on its rows and attention
+alone exchanges halos with the neighbouring ranks; `valid_len` is the
+global real length.
+
 Training (`train=True`): labels drop to the null class `num_classes` with
 probability `class_dropout_prob` (from a generator, or a given mask), and
 with `remat` each block is recomputed in the backward
@@ -175,10 +182,11 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(hidden_size, hidden_size)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, band: int | None, valid_len: int | None, matmul_dtype) -> torch.Tensor:
+    def forward(self, x, band: int | None, valid_len: int | None, matmul_dtype,
+                cp=None) -> torch.Tensor:
         return multi_head_attention(
             x, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
-            self.out_proj.bias, self.num_heads, band, valid_len, matmul_dtype,
+            self.out_proj.bias, self.num_heads, band, valid_len, matmul_dtype, cp=cp,
         )
 
 
@@ -219,11 +227,11 @@ class DiTBlock(nn.Module):
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
 
-    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype):
+    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
         mod = dense(F.silu(cond), self.adaLN_modulation[1], x.dtype)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
-        x = x + gate_msa[:, None, :] * self.attn(h, band, valid_len, matmul_dtype)
+        x = x + gate_msa[:, None, :] * self.attn(h, band, valid_len, matmul_dtype, cp)
         # the MLP kernel takes its modulation vectors in f32
         shift, scale, gate = (a.to(torch.float32) for a in (shift_mlp, scale_mlp, gate_mlp))
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
@@ -387,33 +395,39 @@ class DiT(nn.Module):
     def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | None = None,
                 train: bool = False, drop: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                dtype: torch.dtype = torch.float32):
+                dtype: torch.dtype = torch.float32, cp=None):
         """`band`: attention half-width (None = full attention); `valid_len`:
         the real length when T is padded (keys past it are masked);
         `train`: label dropout (`drop` mask, else drawn from `generator`)
         and, with `remat` under grad, recomputed blocks; `dtype`: the
-        residual stream's type."""
+        residual stream's type; `cp`: the context-parallel mesh (x, o, c
+        are this rank's rows)."""
         if self.quant and train:
             raise RuntimeError("the int8 model serves only: train=True has no int8 path")
+        if self.quant and cp is not None:
+            raise NotImplementedError("int8 serving with context parallelism is not ported")
         x = self.xoc_embedder(x, o, c, dtype)
         cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator)
         use_remat = train and self.remat and torch.is_grad_enabled()
+        extra = () if cp is None else (cp,)  # the int8 blocks take no cp (refused above)
         for block in self.blocks:
             if use_remat:
-                # blocks draw no random numbers, so no RNG state is kept
-                x = checkpoint(block, x, cond, band, valid_len, self.matmul_dtype,
+                # blocks draw no random numbers, so no RNG state is kept;
+                # every CP rank recomputes the same blocks in the same
+                # order, so the recompute's halo exchanges stay matched
+                x = checkpoint(block, x, cond, band, valid_len, self.matmul_dtype, *extra,
                                use_reentrant=False, preserve_rng_state=False)
             else:
-                x = block(x, cond, band, valid_len, self.matmul_dtype)
+                x = block(x, cond, band, valid_len, self.matmul_dtype, *extra)
         return self.final_layer(x, cond)
 
     def forward_with_cfg(self, x, t, o, c, y, cfg_scale: float,
-                         band: int | None = None, valid_len: int | None = None):
+                         band: int | None = None, valid_len: int | None = None, cp=None):
         """Classifier-free guidance over the batch [cond | uncond], which
         shares the first half's x. Guidance applies to the eps channels only
         (the reference's quirk); the variance channels pass through."""
         half = x[: x.shape[0] // 2]
-        out = self.forward(torch.cat([half, half], dim=0), t, o, c, y, band, valid_len)
+        out = self.forward(torch.cat([half, half], dim=0), t, o, c, y, band, valid_len, cp=cp)
         eps, rest = out[..., : self.in_channels], out[..., self.in_channels:]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)

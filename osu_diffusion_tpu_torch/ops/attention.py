@@ -13,6 +13,11 @@ raw residual stream, the adaLN LayerNorm and modulation fold into the qkv
 projection (`int8_modulated_matmul`) and the gate and residual into the out
 projection (`int8_out_residual`), and the result is the next residual
 stream. The attention core is the same.
+
+Context parallelism (`cp`, a parallel/mesh.py `Mesh`): x holds this rank's
+rows of the sequence, and the core is `context_parallel_banded_attention`
+(a halo exchange with the neighbouring ranks, then the ranged kernels);
+`valid_len` is then the global real length.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from osu_diffusion_tpu_torch.ops.banded_attention import (  # noqa: F401 (re-exp
     banded_attention_mask,
 )
 from osu_diffusion_tpu_torch.ops.quant import int8_modulated_matmul, int8_out_residual
+from osu_diffusion_tpu_torch.parallel.context import context_parallel_banded_attention
 
 
 def dot_product_attention(
@@ -55,6 +61,7 @@ def multi_head_attention(
     matmul_dtype: torch.dtype = torch.bfloat16,
     quant_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
     quant_mod: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    cp=None,
 ) -> torch.Tensor:
     """Self-attention over x (N, T, D) with the torch MultiheadAttention
     packed [q|k|v] projection (in_proj_weight (3D, D)). `valid_len` masks
@@ -64,7 +71,10 @@ def multi_head_attention(
     int8 serving: `quant_scales` = (in_proj scale (3D,), out_proj scale
     (D,)) with int8 in_proj_weight and out_proj_weight, and `quant_mod` =
     (shift, scale, gate), each (N, D), of the attention half; x is the raw
-    residual stream, and the result is x + gate * attention(modulate(LN x))."""
+    residual stream, and the result is x + gate * attention(modulate(LN x)).
+
+    `cp`: the mesh of context parallelism (needs a band); x is this rank's
+    sequence shard."""
     n, t, d = x.shape
     dt = x.dtype
     if quant_scales is not None:
@@ -78,7 +88,11 @@ def multi_head_attention(
         qkv = F.linear(x, in_proj_weight.to(dt)) + in_proj_bias.to(dt)
     # head views of the packed projection: (N, H, T, Dh), no copy
     q, k, v = (a.view(n, t, num_heads, d // num_heads).transpose(1, 2) for a in qkv.split(d, dim=-1))
-    if band is not None:
+    if cp is not None:
+        if band is None:
+            raise ValueError("context parallelism needs a band")
+        o = context_parallel_banded_attention(q, k, v, band, cp, valid_len, matmul_dtype)
+    elif band is not None:
         o = banded_attention(q, k, v, band, valid_len, matmul_dtype)
     else:
         mask = None if valid_len is None else torch.arange(t, device=x.device) < valid_len

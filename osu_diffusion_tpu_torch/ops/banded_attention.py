@@ -1,5 +1,6 @@
 """Banded attention: the forward (with and without LSE), its dq and dk/dv
-backward, the CUDA kernels' wrappers and their plain PyTorch versions.
+backward, each also ranged for context parallelism, the CUDA kernels'
+wrappers and their plain PyTorch versions.
 
 Port of osu_diffusion_tpu/ops/pallas_attention.py:
 - `banded_attention` without grad: `_banded_attn_fwd_kernel` without LSE
@@ -8,7 +9,13 @@ Port of osu_diffusion_tpu/ops/pallas_attention.py:
   same source, entry `banded_attention_fwd_lse`;
 - `banded_attention_bwd_dq` / `banded_attention_bwd_dkv`:
   `_banded_attn_bwd_dq_kernel` / `_banded_attn_bwd_dkv_kernel`,
-  csrc/banded_attention_bwd.cu.
+  csrc/banded_attention_bwd.cu;
+- the ranged entries, `banded_attention_ranged` (no LSE),
+  `banded_attention_ranged_fwd_lse`, `banded_attention_ranged_bwd_dq` and
+  `banded_attention_ranged_bwd_dkv`, and the `BandedAttentionRanged`
+  autograd Function: `_ranged_fwd_impl` and `_ranged_bwd_impl`, the same
+  kernel bodies with their bounds (the same two sources, entries
+  `*_ranged`).
 
 The band is the reference's: query q attends key k iff q - L < k <= q + L
 (asymmetric by one), and keys at or past the runtime `valid_len` are masked.
@@ -25,6 +32,16 @@ Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
 `banded_attention` under grad (an input requires it) runs the
 `BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
+
+Ranged (parallel/context.py): q, k, v are one shard's halo-extended rows
+(T_ext), `bounds` = (k_lo, k_hi, q_lo, q_hi) are runtime ints, and the band
+holds in extended coordinates. Keys outside [k_lo, k_hi) are masked (the
+halo an edge shard has no neighbour for, the global padded tail); query
+rows outside [q_lo, q_hi) are q's pad rows. The forward's output and LSE
+rows outside [q_lo, q_hi) are undefined (the kernel writes 0 and -1e30
+there, the plain version computes them; the caller slices them off), and
+in the backward those rows get no gradient and give none to dk/dv. There is
+no valid_len: [k_lo, k_hi) carries it.
 """
 from __future__ import annotations
 
@@ -48,10 +65,18 @@ def banded_attention_mask(seq_len: int, half_width: int, device=None) -> torch.T
     return (k > q - half_width) & (k <= q + half_width)
 
 
-def _allowed(t: int, band: int, valid_len: int, device, query_valid: bool = False):
-    keep = torch.arange(t, device=device) < valid_len
-    allowed = banded_attention_mask(t, band, device) & keep[None, :]
-    return allowed & keep[:, None] if query_valid else allowed
+def _allowed(t: int, band: int, valid_len: int, device, query_valid: bool = False,
+             bounds: tuple[int, int, int, int] | None = None):
+    """(T, T) mask: the band, keys below valid_len (and in [k_lo, k_hi)),
+    with `query_valid` also queries below valid_len (and in [q_lo, q_hi))."""
+    idx = torch.arange(t, device=device)
+    keys = rows = idx < valid_len
+    if bounds is not None:
+        k_lo, k_hi, q_lo, q_hi = bounds
+        keys = keys & (idx >= k_lo) & (idx < k_hi)
+        rows = rows & (idx >= q_lo) & (idx < q_hi)
+    allowed = banded_attention_mask(t, band, device) & keys[None, :]
+    return allowed & rows[:, None] if query_valid else allowed
 
 
 def _rounder(matmul_dtype):
@@ -70,13 +95,16 @@ def _scores(q, k, matmul_dtype):
 def banded_attention_fwd_lse_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
     valid_len: int, matmul_dtype: torch.dtype = torch.float32,
+    bounds: tuple[int, int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward with LSE: (o (N, H, T, Dh) in q's type,
-    lse (N*H, T) f32 = m + log(max(l, 1e-30)) of the masked row softmax)."""
+    lse (N*H, T) f32 = m + log(max(l, 1e-30)) of the masked row softmax).
+    `bounds`: the ranged forward's (k_lo, k_hi, q_lo, q_hi); keys outside
+    [k_lo, k_hi) are masked, and every query row is computed."""
     n, h, t, dh = q.shape
     rnd = _rounder(matmul_dtype)
     s, _ = _scores(q, k, matmul_dtype)
-    allowed = _allowed(t, band, valid_len, q.device)
+    allowed = _allowed(t, band, valid_len, q.device, bounds=bounds)
     s = torch.where(allowed, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(allowed, torch.exp(s - m), 0.0)
@@ -101,25 +129,27 @@ def banded_attention_reference(
 def banded_attention_bwd_reference(
     q, k, v, o, lse, do, band: int, valid_len: int,
     matmul_dtype: torch.dtype = torch.float32,
+    bounds: tuple[int, int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the backward kernels: (dq, dk, dv) in q's type.
 
     P is recomputed from q.k and the saved LSE where allowed (queries past
     valid_len included in the mask), delta = rowsum(o * do) in f32,
-    dS = P * (dP - delta) with dP = do.v^T; dq = dS.k * Dh^-1/2,
-    dk = dS^T.(q * Dh^-1/2), dv = P^T.do, every product over rounded
-    operands with f32 accumulation."""
+    dS = P * (dP - delta) where allowed (else 0) with dP = do.v^T;
+    dq = dS.k * Dh^-1/2, dk = dS^T.(q * Dh^-1/2), dv = P^T.do, every
+    product over rounded operands with f32 accumulation. `bounds`: the
+    ranged backward's (k_lo, k_hi, q_lo, q_hi), in the mask too."""
     n, h, t, dh = q.shape
     f32 = torch.float32
     rnd = _rounder(matmul_dtype)
     s, qs = _scores(q, k, matmul_dtype)
-    allowed = _allowed(t, band, valid_len, q.device, query_valid=True)
+    allowed = _allowed(t, band, valid_len, q.device, query_valid=True, bounds=bounds)
     lse4 = lse.reshape(n, h, t, 1)
     p = torch.where(allowed, torch.exp(torch.where(allowed, s - lse4, 0.0)), 0.0)
     dor = rnd(do)
     dp = torch.matmul(dor, rnd(v).transpose(-1, -2))
     delta = (o.to(f32) * do.to(f32)).sum(dim=-1, keepdim=True)
-    ds = p * (dp - delta)
+    ds = torch.where(allowed, p * (dp - delta), 0.0)
     dq = torch.matmul(rnd(ds), rnd(k)) * (1.0 / math.sqrt(dh))
     dk = torch.matmul(rnd(ds).transpose(-1, -2), qs)
     dv = torch.matmul(rnd(p).transpose(-1, -2), dor)
@@ -140,6 +170,9 @@ def _lib() -> ctypes.CDLL:
     #  scale, bf16, stream)
     _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    # ranged: (band, k_lo, k_hi, q_lo, q_hi) in place of (band, valid)
+    _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd_ranged_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_error_string.restype = ctypes.c_char_p
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -153,6 +186,8 @@ def _bwd_lib() -> ctypes.CDLL:
     #  strides, band, valid, scale, bf16, stream)
     _bind(lib, "banded_attention_bwd_dq", [p] * 7 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     _bind(lib, "banded_attention_bwd_dkv", [p] * 8 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dq_ranged", [p] * 7 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dkv_ranged", [p] * 8 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.banded_attention_bwd_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -206,6 +241,18 @@ def _check_args(q, band: int, valid_len: int | None) -> int:
     return valid_len
 
 
+def _check_bounds(q, band: int, bounds) -> tuple[int, int, int, int]:
+    """The ranged calls' (k_lo, k_hi, q_lo, q_hi) as ints: k_lo >= 0 and
+    0 <= q_lo <= q_hi <= T (k_hi may be below k_lo: no key is valid)."""
+    _check_args(q, band, None)
+    k_lo, k_hi, q_lo, q_hi = (int(b) for b in bounds)
+    t = q.shape[-2]
+    if k_lo < 0 or not 0 <= q_lo <= q_hi <= t:
+        raise ValueError(f"bounds (k_lo {k_lo}, k_hi {k_hi}, q_lo {q_lo}, q_hi {q_hi}) "
+                         f"outside T = {t}")
+    return k_lo, k_hi, q_lo, q_hi
+
+
 def _heads_out(q: torch.Tensor) -> torch.Tensor:
     """An (N, T, H, Dh) buffer in q's type, returned as its (N, H, T, Dh)
     view: the head merge after attention is then a free reshape."""
@@ -223,7 +270,7 @@ def _stream(a: torch.Tensor) -> int:
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, band, valid_len, with_lse: bool):
+def _launch_fwd(q, k, v, band, valid_len, with_lse: bool, bounds=None):
     n, h, t, dh = q.shape
     out = _heads_out(q)
     lse = torch.empty((n * h, t), device=q.device, dtype=torch.float32) if with_lse else None
@@ -231,10 +278,11 @@ def _launch_fwd(q, k, v, band, valid_len, with_lse: bool):
     sn, sh, st, _ = q.stride()
     osn, osh, ost, _ = out.stride()
     lse_arg = (lse.data_ptr(),) if with_lse else ()
-    fn = lib.banded_attention_fwd_lse if with_lse else lib.banded_attention_fwd
-    err = fn(
+    entry = "banded_attention_fwd" + ("_ranged" if bounds is not None else "") + ("_lse" if with_lse else "")
+    mask_args = (band, valid_len) if bounds is None else (band, *bounds)
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t,
-        sn, sh, st, osn, osh, ost, band, valid_len, 1.0 / math.sqrt(dh),
+        sn, sh, st, osn, osh, ost, *mask_args, 1.0 / math.sqrt(dh),
         int(q.dtype == torch.bfloat16), _stream(q),
     )
     _raise_on(err, lib, "banded_attention", "banded_attention")
@@ -255,7 +303,7 @@ def banded_attention_fwd_lse(
     return out
 
 
-def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype):
+def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
     # o's layout) another
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
@@ -271,13 +319,15 @@ def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype):
         raise ValueError(f"o must have the (N, T, H, Dh) buffer's strides {grads[0].stride()}, "
                          f"got {o.stride()}")
     lib = _bwd_lib()
-    err = getattr(lib, f"banded_attention_bwd_{entry}")(
+    name = f"banded_attention_bwd_{entry}" + ("_ranged" if bounds is not None else "")
+    mask_args = (band, valid_len) if bounds is None else (band, *bounds)
+    err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
         lse.data_ptr(), *(g.data_ptr() for g in grads), n, h, t,
-        *q.stride()[:3], *grads[0].stride()[:3], band, valid_len,
+        *q.stride()[:3], *grads[0].stride()[:3], *mask_args,
         1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q),
     )
-    _raise_on(err, lib, "banded_attention_bwd", f"banded_attention_bwd_{entry}")
+    _raise_on(err, lib, "banded_attention_bwd", name)
     return grads
 
 
@@ -307,6 +357,15 @@ def banded_attention_bwd_dkv(
     return dk, dv
 
 
+def _do_as_o(do: torch.Tensor, q: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """The upstream gradient in q's type and, on the card, o's strides (the
+    kernels read do through them)."""
+    do = do.to(q.dtype)
+    if q.device.type == "cuda" and do.stride() != o.stride():
+        do = _heads_out(q).copy_(do)
+    return do
+
+
 class BandedAttention(torch.autograd.Function):
     """Banded attention with the kernels' backward (LSE forward, then the
     dq and dk/dv kernels; their plain versions on the CPU)."""
@@ -321,9 +380,7 @@ class BandedAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        do = do.to(q.dtype)
-        if q.device.type == "cuda" and do.stride() != o.stride():
-            do = _heads_out(q).copy_(do)  # the kernels read do through o's strides
+        do = _do_as_o(do, q, o)
         dq = banded_attention_bwd_dq(q, k, v, o, lse, do, *ctx.args)
         dk, dv = banded_attention_bwd_dkv(q, k, v, o, lse, do, *ctx.args)
         return dq, dk, dv, None, None, None
@@ -352,7 +409,94 @@ def banded_attention(
     return out
 
 
+def banded_attention_ranged_fwd_lse(
+    q, k, v, band: int, bounds, matmul_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Ranged training forward (row 5 with LSE): (o (N, H, T, Dh), lse
+    (N*H, T) f32); rows outside [q_lo, q_hi) undefined."""
+    bounds = _check_bounds(q, band, bounds)
+    t = q.shape[-2]
+    if q.device.type == "cpu":
+        return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    out = _launch_fwd(q, k, v, band, t, with_lse=True, bounds=bounds)
+    banded_attention_ranged_fwd_lse.launches += 1
+    return out
+
+
+def banded_attention_ranged_bwd_dq(
+    q, k, v, o, lse, do, band: int, bounds, matmul_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """dq of the ranged attention (row 6): 0 outside [q_lo, q_hi)."""
+    bounds = _check_bounds(q, band, bounds)
+    t = q.shape[-2]
+    if q.device.type == "cpu":
+        return banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, matmul_dtype, bounds)[0]
+    (dq,) = _launch_bwd("dq", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
+    banded_attention_ranged_bwd_dq.launches += 1
+    return dq
+
+
+def banded_attention_ranged_bwd_dkv(
+    q, k, v, o, lse, do, band: int, bounds, matmul_dtype: torch.dtype = torch.bfloat16,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dk, dv) of the ranged attention (row 6): from query rows in
+    [q_lo, q_hi) only, 0 outside [k_lo, k_hi)."""
+    bounds = _check_bounds(q, band, bounds)
+    t = q.shape[-2]
+    if q.device.type == "cpu":
+        return banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, matmul_dtype, bounds)[1:]
+    dk, dv = _launch_bwd("dkv", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
+    banded_attention_ranged_bwd_dkv.launches += 1
+    return dk, dv
+
+
+class BandedAttentionRanged(torch.autograd.Function):
+    """Ranged banded attention with the ranged kernels' backward (the JAX
+    `_ranged_vjp`): LSE forward, then dq and dk/dv, all with the bounds."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, band: int, bounds, matmul_dtype):
+        o, lse = banded_attention_ranged_fwd_lse(q, k, v, band, bounds, matmul_dtype)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (band, bounds, matmul_dtype)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = _do_as_o(do, q, o)
+        dq = banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, *ctx.args)
+        dk, dv = banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, *ctx.args)
+        return dq, dk, dv, None, None, None
+
+
+def banded_attention_ranged(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int, bounds,
+    matmul_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Ranged banded attention over one shard's halo-extended q, k, v
+    (N, H, T_ext, Dh), bounds (k_lo, k_hi, q_lo, q_hi): (N, H, T_ext, Dh),
+    rows outside [q_lo, q_hi) undefined. Under grad it runs
+    `BandedAttentionRanged`; otherwise the inference forward (row 5, no
+    LSE)."""
+    bounds = _check_bounds(q, band, bounds)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return BandedAttentionRanged.apply(q, k, v, band, bounds, matmul_dtype)
+    t = q.shape[-2]
+    if q.device.type == "cpu":
+        return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)[0]
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    out, _ = _launch_fwd(q, k, v, band, t, with_lse=False, bounds=bounds)
+    banded_attention_ranged.launches += 1
+    return out
+
+
 banded_attention.launches = 0
 banded_attention_fwd_lse.launches = 0
 banded_attention_bwd_dq.launches = 0
 banded_attention_bwd_dkv.launches = 0
+banded_attention_ranged.launches = 0
+banded_attention_ranged_fwd_lse.launches = 0
+banded_attention_ranged_bwd_dq.launches = 0
+banded_attention_ranged_bwd_dkv.launches = 0

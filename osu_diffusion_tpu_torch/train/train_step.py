@@ -1,11 +1,22 @@
 """One training step: featurize, loss, backward, AdamW, EMA (port of
-osu_diffusion_tpu/parallel/train_step.py, one device).
+osu_diffusion_tpu/parallel/train_step.py).
 
 The step's random draws (flip bits, time offsets, timesteps, noise, the
 label-drop mask) come from an explicit `torch.Generator`, or are handed in
 whole as `draws` so a test can feed in the JAX step's draws. The residual
 stream runs in `dtype` (bf16 in training) over f32 master weights; the
 optimizer state and the EMA are f32.
+
+Over a parallel/mesh.py `Mesh` of more than one rank, each rank holds a full
+replica and its DP shard of the batch. With context parallelism (the mesh's
+"model" axis > 1) the ranks of a CP group take the same batch and the same
+draws (one generator seed), featurize the whole window, and keep their rows
+of x, o, c and the noise; every shard has T_loc rows, so a sample's loss is
+the mean over the CP ranks of the local per-token means. Each rank back-
+propagates its local mean loss / world, and one sum `all_reduce` of all
+gradients (one flat buffer) over the world gives every rank the global
+mean gradient, DP included; the metrics are reduced the same way. Every
+replica then takes the same AdamW step.
 """
 from __future__ import annotations
 
@@ -13,10 +24,12 @@ import copy
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
 from osu_diffusion_tpu_torch.data.process import draw_flips, process_batch
 from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion
 from osu_diffusion_tpu_torch.models.dit import DiT
+from osu_diffusion_tpu_torch.parallel.context import shard_rows
 
 
 class StepDraws(NamedTuple):
@@ -61,17 +74,39 @@ def draw_step(n: int, t_len: int, num_timesteps: int, dropout_prob: float, devic
 
 
 def loss_terms(model: DiT, diffusion: GaussianDiffusion, batch, draws: StepDraws,
-               band: int | None, dtype: torch.dtype) -> dict[str, torch.Tensor]:
+               band: int | None, dtype: torch.dtype, cp=None) -> dict[str, torch.Tensor]:
     """Per-sample {loss, l1|mse, vb} of one batch (raw (N, T, 19), prev_xy
-    (N, 2), labels (N,)) under the given draws, with grad."""
+    (N, 2), labels (N,)) under the given draws, with grad. With `cp` (a
+    mesh whose "model" axis splits the sequence) the window is featurized
+    whole and the terms are the means over this rank's rows."""
     raw, prev_xy, y = batch
     x, o, c = process_batch(raw, prev_xy, flips=(draws.flip_x, draws.flip_y),
                             offset01=draws.offset01)
+    noise = draws.noise
+    if cp is not None:
+        rows = shard_rows(x.shape[1], cp)
+        x, o, c, noise = x[:, rows], o[:, rows], c[:, rows], noise[:, rows]
 
     def model_fn(xt, tt):
-        return model(xt, tt, o, c, y, band=band, train=True, drop=draws.drop, dtype=dtype).float()
+        return model(xt, tt, o, c, y, band=band, train=True, drop=draws.drop, dtype=dtype,
+                     cp=cp).float()
 
-    return diffusion.training_losses(model_fn, x, draws.t, draws.noise)
+    return diffusion.training_losses(model_fn, x, draws.t, noise)
+
+
+def all_reduce_grads(params: list[torch.nn.Parameter]) -> None:
+    """Sum every parameter's gradient over the world, through one flat
+    buffer (a missing gradient counts as zeros, so every rank sends the
+    same layout)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat)
+    offset = 0
+    for p in params:
+        p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
+        offset += p.numel()
 
 
 def train_step(
@@ -88,22 +123,29 @@ def train_step(
     max_timestep: int | None = None,
     ema_decay: float = 0.9999,
     trainable_mask: dict[str, bool] | None = None,
+    mesh=None,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on `batch`; returns the step's mean {loss, l1|mse,
     vb} as device scalars (no host sync). `max_timestep` caps the timestep
     draw (1 trains t = 0 only, the refine model). `trainable_mask`: parameter
     name -> trainable, as the JAX step's mask: a frozen parameter gets a zero
     gradient (so AdamW's moments and step count advance as optax's do) and
-    keeps its value bit for bit; the EMA still covers every parameter."""
+    keeps its value bit for bit; the EMA still covers every parameter.
+    `mesh`: a parallel/mesh.py `Mesh`; `batch` and `draws` are then this
+    rank's DP shard (whole windows), and the metrics the global means."""
     raw = batch[0]
     if draws is None:
         t_hi = diffusion.num_timesteps if max_timestep is None else max_timestep
         draws = draw_step(raw.shape[0], raw.shape[1], t_hi, model.y_embedder.dropout_prob,
                           raw.device, generator)
-    terms = loss_terms(model, diffusion, batch, draws, band, dtype)
+    world = 1 if mesh is None else mesh.world
+    cp = mesh if mesh is not None and mesh.num_model > 1 else None
+    terms = loss_terms(model, diffusion, batch, draws, band, dtype, cp)
     loss = terms["loss"].mean()
     optimizer.zero_grad(set_to_none=True)
-    loss.backward()
+    (loss / world).backward()
+    if world > 1:
+        all_reduce_grads(list(model.parameters()))
     frozen = [] if trainable_mask is None else [
         p for name, p in model.named_parameters() if not trainable_mask[name]]
     if frozen:
@@ -120,4 +162,9 @@ def train_step(
             for p, k in zip(frozen, kept):
                 p.copy_(k)
     update_ema(ema, model, ema_decay)
-    return {k: v.detach().mean() for k, v in terms.items()}
+    metrics = {k: v.detach().mean() for k, v in terms.items()}
+    if world > 1:
+        reduced = torch.stack(list(metrics.values()))
+        dist.all_reduce(reduced)
+        metrics = dict(zip(metrics, reduced / world))
+    return metrics

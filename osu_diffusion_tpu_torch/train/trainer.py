@@ -1,4 +1,4 @@
-"""The training loop (port of osu_diffusion_tpu/train/trainer.py, one device).
+"""The training loop (port of osu_diffusion_tpu/train/trainer.py).
 
 - An experiment directory `<results_dir>/NNN-<model>/` with `log.txt` and
   `checkpoints/<step, 7 digits>.pt` every `ckpt_every` steps.
@@ -18,23 +18,49 @@
 
 On a CUDA device every block runs the training kernels: the banded
 attention forward with LSE and its dq and dk/dv kernels at band =
-`seq_len` (exactly full attention at T = seq_len), and the fused adaLN-MLP
-forward with residuals, and with `mlp_bwd="fused"` its two backward
-kernels.
+`seq_len` (exactly full attention at T = seq_len; `band` narrows it for
+long windows), and the fused adaLN-MLP forward with residuals, and with
+`mlp_bwd="fused"` its two backward kernels.
+
+One process, or one per device under torchrun (RANK, WORLD_SIZE and
+LOCAL_RANK in the environment): each rank joins the process group
+(`dist_backend`, nccl on CUDA and gloo on the CPU by default, with a
+timeout of a few minutes so a hang fails), takes `cuda:{LOCAL_RANK %
+device count}`, and sits on the parallel/mesh.py grid of `world //
+num_model` data by `num_model` model ranks. Every rank holds a full
+replica. The data ranks read their own contiguous share of the beatmap
+sets with seed `global_seed + data rank` (as the JAX trainer's processes
+do), at `global_batch_size // data ranks` each; the gradients are summed
+over the world in the step. With `num_model > 1` the ranks of one row
+split each window's sequence (`seq_len` a multiple of num_model * 128) and
+run the ranged attention kernels behind a halo exchange: they take the
+same batch (their first rank's, broadcast) and the same draws. Rank 0
+picks the experiment index and broadcasts it; only rank 0 logs and writes
+checkpoints, each the whole model in the reference layout, so a run
+resumes on any world size. Tensor parallelism (the JAX trainer's
+`--num-model` without `--context-parallel`) is not ported; the CLI refuses
+it. The data ranks' shares give different batch counts, so every step they
+agree (a flag `all_reduce` on a CPU gloo group) whether each still has a
+batch, and an epoch ends on all of them when the shortest share runs out.
 """
 from __future__ import annotations
 
 import dataclasses
+import datetime
+import math
 import os
 import time
 from glob import glob
 
 import torch
+import torch.distributed as dist
 
 from osu_diffusion_tpu_torch import CONTEXT_SIZE
 from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
+from osu_diffusion_tpu_torch.parallel.context import BLOCK
+from osu_diffusion_tpu_torch.parallel.mesh import make_mesh
 from osu_diffusion_tpu_torch.train import checkpoint as ckpt_lib
 from osu_diffusion_tpu_torch.train.train_step import make_ema, make_optimizer, train_step
 from osu_diffusion_tpu_torch.utils.logger import create_logger
@@ -70,6 +96,9 @@ class TrainConfig:
     max_timestep: int | None = None  # cap the timestep draw; 1 = refine-model mode
     mlp_bwd: str = "xla"  # the MLP half's backward: "xla" (plain) or "fused" (kernels)
     device: str = "cuda"
+    num_model: int = 1  # the mesh's "model" axis: > 1 splits each window's sequence over it
+    band: int | None = None  # attention half-width; None: seq_len (full attention)
+    dist_backend: str | None = None  # under torchrun; None: nccl on CUDA, gloo on the CPU
 
 
 CLASS_DROPOUT_PROB = 0.2  # the reference trainer's label dropout (the DiT default is 0.1)
@@ -79,6 +108,65 @@ LABEL_TABLE = "y_embedder.embedding_table.weight"
 def embed_only_mask(model) -> dict[str, bool]:
     """Trainable: the label table alone (JAX `_embed_mask(params, True)`)."""
     return {name: "embedding_table" in name for name, _ in model.named_parameters()}
+
+
+def check_parallel(config: TrainConfig) -> int:
+    """The JAX trainer's checks of the mesh flags (its trainer.py:158-160,
+    264-272), before any process group exists; returns the band. (The CLI
+    checks that --context-parallel comes with --num-model > 1 and TP is
+    not asked for.)"""
+    band = config.seq_len if config.band is None else config.band
+    if band < 1:
+        raise ValueError(f"--band must be >= 1, got {band}")
+    if config.num_model < 1:
+        raise ValueError(f"--num-model must be >= 1, got {config.num_model}")
+    if config.num_model > 1:  # context parallelism
+        step = config.num_model * BLOCK
+        if config.seq_len % step:
+            raise ValueError(f"--seq-len {config.seq_len} must be a multiple of num_model * "
+                             f"{BLOCK} = {step} for context parallelism")
+        if -(-band // BLOCK) * BLOCK > config.seq_len // config.num_model:
+            raise ValueError(f"--band {band} needs a halo beyond a shard's "
+                             f"{config.seq_len // config.num_model} rows; use fewer model ranks")
+    if config.dist_backend not in (None, "nccl", "gloo"):
+        raise ValueError(f"--dist must be nccl or gloo, got {config.dist_backend}")
+    return band
+
+
+def _join_process_group(config: TrainConfig) -> tuple[torch.device, bool]:
+    """Under torchrun, join the process group (unless the caller did) and
+    take this rank's device; returns (device, whether this call joined)."""
+    device = torch.device(config.device)
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return device, False
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)) % torch.cuda.device_count())
+        torch.cuda.set_device(device)
+    joined = not dist.is_initialized()
+    if joined:
+        backend = config.dist_backend or ("nccl" if device.type == "cuda" else "gloo")
+        dist.init_process_group(backend, timeout=datetime.timedelta(minutes=5))
+    print(f"[rank {dist.get_rank()} of {dist.get_world_size()}] {dist.get_backend()} on {device}",
+          flush=True)
+    return device, joined
+
+
+def _batches_of_every_rank(loader, group):
+    """The loader's batches while every rank of `group` still has one: the
+    data ranks' shares give different batch counts, and each step's
+    collectives need every rank, so an epoch ends on all of them when the
+    shortest share runs out."""
+    it = iter(loader)
+    try:
+        while True:
+            item = next(it, None)
+            flag = torch.tensor(int(item is not None))
+            dist.all_reduce(flag, op=dist.ReduceOp.MIN, group=group)
+            if not flag:
+                return
+            yield item
+    finally:
+        it.close()
 
 
 def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
@@ -107,20 +195,44 @@ def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
 def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
     experiment_dir, checkpoint_dir}."""
-    device = torch.device(config.device)
+    band = check_parallel(config)
+    device, joined = _join_process_group(config)
+    try:
+        return _train(config, band, device)
+    finally:
+        if joined:
+            dist.barrier()
+            dist.destroy_process_group()
+
+
+def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
+    mesh = make_mesh(config.num_model)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if config.global_batch_size % mesh.num_data:
+        raise ValueError(f"--global-batch-size {config.global_batch_size} must be divisible by "
+                         f"the {mesh.num_data} data ranks")
     # f32 products in full f32, and bf16 products with f32 reductions, as
     # the JAX package computes them
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    os.makedirs(config.results_dir, exist_ok=True)
-    experiment_index = len(glob(f"{config.results_dir}/*"))
-    experiment_dir = f"{config.results_dir}/{experiment_index:03d}-{config.model.replace('/', '-')}"
+    experiment_index = [0]
+    if rank == 0:
+        os.makedirs(config.results_dir, exist_ok=True)
+        experiment_index = [len(glob(f"{config.results_dir}/*"))]
+    if mesh.world > 1:
+        dist.broadcast_object_list(experiment_index, src=0)
+    experiment_dir = f"{config.results_dir}/{experiment_index[0]:03d}-{config.model.replace('/', '-')}"
     checkpoint_dir = f"{experiment_dir}/checkpoints"
-    os.makedirs(checkpoint_dir, exist_ok=True)
-    logger = create_logger(experiment_dir)
+    if rank == 0:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+    logger = create_logger(experiment_dir, rank)
     logger.info(f"Experiment directory created at {experiment_dir}")
+    if mesh.world > 1:
+        logger.info(f"Mesh: {mesh.num_data} data x {mesh.num_model} model ranks over "
+                    f"{dist.get_backend()}" + (f", context parallel, band {band}"
+                                               if mesh.num_model > 1 else ""))
 
     model = DiT_models[config.model](
         num_classes=config.num_classes, context_size=CONTEXT_SIZE,
@@ -136,17 +248,29 @@ def train(config: TrainConfig) -> dict:
     dtype = torch.bfloat16 if config.use_bf16 else torch.float32
     train_steps = _load_state(config, model, ema, optimizer, logger) if config.ckpt else 0
 
+    # this data rank's share of the beatmap sets, batch and seed
+    num_sets = config.data_end - config.data_start
+    per_rank = math.ceil(num_sets / mesh.num_data)
+    if (mesh.num_data - 1) * per_rank >= num_sets:
+        raise ValueError(f"{num_sets} beatmap sets in shares of {per_rank} leave the last of "
+                         f"{mesh.num_data} data ranks none")
+    ds_start = config.data_start + mesh.data_rank * per_rank
+    ds_end = min(ds_start + per_rank, config.data_end)
+    batch_size = config.global_batch_size // mesh.num_data
+    seed = config.global_seed + mesh.data_rank
     loader = get_data_loader(
-        dataset_path=config.data_path, start=config.data_start, end=config.data_end,
-        iterable_factory=BeatmapDatasetIterableFactory(config.seq_len, config.stride,
-                                                       seed=config.global_seed),
-        cycle_length=max(1, config.global_batch_size // 2),
-        batch_size=config.global_batch_size, num_workers=config.num_workers,
-        shuffle=True, drop_last=True, seed=config.global_seed,
+        dataset_path=config.data_path, start=ds_start, end=ds_end,
+        iterable_factory=BeatmapDatasetIterableFactory(config.seq_len, config.stride, seed=seed),
+        cycle_length=max(1, batch_size // 2), batch_size=batch_size,
+        num_workers=config.num_workers, shuffle=True, drop_last=True, seed=seed,
     )
-    logger.info(f"Dataset contains {config.data_end - config.data_start:,} beatmap sets "
-                f"({config.data_path})")
-    generator = torch.Generator(device=device).manual_seed(config.global_seed + train_steps)
+    logger.info(f"Dataset contains {ds_end - ds_start:,} beatmap sets ({config.data_path})")
+    # one stream per data rank; the ranks of a CP group draw the same
+    generator = torch.Generator(device=device).manual_seed(
+        (config.global_seed + train_steps) * mesh.num_data + mesh.data_rank)
+    cp_leader = mesh.data_rank * mesh.num_model  # the CP group's first rank
+    # the data ranks agree on every step over a CPU group, which never waits for the card
+    step_group = dist.new_group(backend="gloo") if mesh.num_data > 1 else None
     args = dataclasses.asdict(config)
 
     embed_only = config.embed_only_epochs > 0
@@ -167,12 +291,19 @@ def train(config: TrainConfig) -> dict:
             logger.info("Un-freezing non-embedding layers")
             embed_only = False
         mask = embed_only_mask(model) if embed_only else None
-        for (win, prev_xy), y in loader:
+        batches = loader if step_group is None else _batches_of_every_rank(loader, step_group)
+        for (win, prev_xy), y in batches:
             batch = tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in (win, prev_xy, y))
+            if mesh.num_model > 1:
+                # threaded loaders may order a shard's batches differently on
+                # each rank: the CP group takes its first rank's
+                for a in batch:
+                    dist.broadcast(a, src=cp_leader, group=mesh.cp_group)
             metrics = train_step(
                 model, ema, optimizer, diffusion, (batch[0], batch[1], batch[2].long()),
-                band=config.seq_len, dtype=dtype, generator=generator,
+                band=band, dtype=dtype, generator=generator,
                 max_timestep=config.max_timestep, trainable_mask=mask,
+                mesh=mesh if mesh.world > 1 else None,
             )
             running_loss += metrics["loss"]
             log_steps += 1
@@ -185,7 +316,7 @@ def train(config: TrainConfig) -> dict:
                 running_loss.zero_()
                 log_steps = 0
                 start_time = time.time()
-            if train_steps % config.ckpt_every == 0:
+            if train_steps % config.ckpt_every == 0 and rank == 0:
                 path = ckpt_lib.save_checkpoint(checkpoint_dir, train_steps, model, ema, optimizer, args)
                 logger.info(f"Saved checkpoint to {path}")
             if config.max_steps is not None and train_steps >= config.max_steps:

@@ -19,6 +19,7 @@ import osu_diffusion_tpu_torch as pkg
 assert "torch" not in sys.modules, "the package root imports torch"
 import osu_diffusion_tpu_torch.cli  # both entry points and all they pull in
 import osu_diffusion_tpu_torch.models.quantize, osu_diffusion_tpu_torch.ops.quant  # int8 serving
+import osu_diffusion_tpu_torch.parallel  # the mesh and context parallelism
 for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
     importlib.import_module(mod.name)
 import torch

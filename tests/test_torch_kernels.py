@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain versions, and the wrappers'
-dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv),
+dispatch: banded attention (inference forward, forward with LSE, dq, dk/dv,
+and the four ranged entries of context parallelism),
 the fused adaLN-MLP (inference and training forward, the two stages of the
 fused backward, int8 serving) and the
 int8 projections, each alone and, where it has one, inside its autograd
@@ -11,12 +12,15 @@ machine runs it:
 (--noconftest: tests/conftest.py sets up jax). Tests marked `cuda` skip
 without a card; the rest run anywhere.
 """
+import types
+
 import pytest
 import torch
 
 from osu_diffusion_tpu_torch.ops import adaln_mlp as tam
 from osu_diffusion_tpu_torch.ops import banded_attention as tba
 from osu_diffusion_tpu_torch.ops import quant as tq
+from osu_diffusion_tpu_torch.parallel.context import shard_bounds
 
 
 @pytest.fixture
@@ -179,6 +183,89 @@ def test_banded_attention_function_on_card_matches_cpu(cuda_device):
         results[str(dev)] = [a.detach().cpu() for a in (o, q.grad, k.grad, v.grad)]
     for got, want in zip(results[str(cuda_device)], results["cpu"]):
         assert _rel(got, want) <= 1e-2
+
+
+def _ranged_inputs(n, h, t_loc, band, idx, p, valid, dtype, g, device):
+    """A shard's halo-extended (N, H, T_ext, 64) q, k, v (one contiguous
+    layout, as parallel/context.py builds them), an upstream gradient in
+    the kernels' output layout, and the shard's bounds."""
+    halo = -(-band // 128) * 128
+    bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
+    t_ext = t_loc + 2 * halo
+    q, k, v = (torch.randn((n, h, t_ext, 64), generator=g, device=device).to(dtype) for _ in range(3))
+    do = torch.randn((n, t_ext, h, 64), generator=g, device=device).to(dtype).permute(0, 2, 1, 3)
+    return q, k, v, do, bounds
+
+
+def test_ranged_wrappers_take_the_plain_versions_on_cpu():
+    """A CPU tensor goes to the ranged plain versions and launches nothing;
+    the ranged backward gives no gradient to pad query rows, nor to masked
+    keys."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v, do, bounds = _ranged_inputs(1, 2, 128, 96, 0, 2, None, torch.float32, g, "cpu")
+    k_lo, k_hi, q_lo, q_hi = bounds
+    wrappers = (tba.banded_attention_ranged, tba.banded_attention_ranged_fwd_lse,
+                tba.banded_attention_ranged_bwd_dq, tba.banded_attention_ranged_bwd_dkv)
+    before = [f.launches for f in wrappers]
+    t = q.shape[2]
+    o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, 96, bounds)
+    want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, 96, t, torch.bfloat16, bounds)
+    assert torch.equal(o, want_o) and torch.equal(lse, want_lse)
+    assert torch.equal(tba.banded_attention_ranged(q, k, v, 96, bounds), want_o)
+    dq = tba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, 96, bounds)
+    dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, 96, bounds)
+    want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, 96, t, torch.bfloat16, bounds)
+    for got, w in zip((dq, dk, dv), want):
+        assert torch.equal(got, w)
+    assert not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any() and dq[:, :, q_lo:q_hi].any()
+    assert not dk[:, :, :k_lo].any() and not dv[:, :, :k_lo].any() and dk[:, :, k_lo:].any()
+    assert [f.launches for f in wrappers] == before
+    with pytest.raises(ValueError):  # q rows beyond T
+        tba.banded_attention_ranged(q, k, v, 96, (k_lo, k_hi, q_lo, t + 1))
+
+
+# (T_loc, band, shard index, shards, valid_len): the CP training shard's
+# left and right edges (seq-len 512 over 2), an interior shard, a band
+# below one tile, a halo of two blocks, the sampling tail inside a shard
+RANGED_KERNEL_CASES = [(256, 128, 0, 2, None), (256, 128, 1, 2, None), (256, 96, 1, 3, None),
+                       (128, 48, 0, 2, None), (256, 160, 1, 3, None), (384, 128, 1, 2, 757)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("t_loc,band,idx,p,valid", RANGED_KERNEL_CASES)
+def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, idx, p, valid, dtype):
+    """The four ranged entries against their plain versions on the same
+    bf16-rounded operands, at the tolerances of the unranged kernels: o and
+    the LSE on the rows [q_lo, q_hi), dq there (0 on the pad rows), dk and
+    dv on every row (0 on masked keys); one launch of each wrapper."""
+    g = torch.Generator(device=cuda_device).manual_seed(t_loc + band + idx)
+    q, k, v, do, bounds = _ranged_inputs(2, 3, t_loc, band, idx, p, valid, dtype, g, cuda_device)
+    k_lo, k_hi, q_lo, q_hi = bounds
+    wrappers = (tba.banded_attention_ranged, tba.banded_attention_ranged_fwd_lse,
+                tba.banded_attention_ranged_bwd_dq, tba.banded_attention_ranged_bwd_dkv)
+    counts = [f.launches for f in wrappers]
+    o_inf = tba.banded_attention_ranged(q, k, v, band, bounds)
+    o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds)
+    dq = tba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)
+    dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
+    torch.cuda.synchronize()
+    assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    t = q.shape[2]
+    want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, t, torch.bfloat16, bounds)
+    want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, torch.bfloat16, bounds)
+    rows = slice(q_lo, q_hi)
+    assert torch.equal(o_inf[:, :, rows], o[:, :, rows])
+    assert _rel(o[:, :, rows], want_o[:, :, rows]) <= 1e-2
+    has_key = want_lse.view(2, 3, t)[:, :, rows] > -1e29
+    got_lse = lse.view(2, 3, t)[:, :, rows]
+    assert (got_lse - want_lse.view(2, 3, t)[:, :, rows]).abs()[has_key].max().item() <= 1e-3
+    assert (got_lse[~has_key] < -1e29).all()
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, w) <= 1e-2, name
+    assert not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any()
+    assert not dk[:, :, :k_lo].any() and not dv[:, :, max(k_lo, k_hi):].any()
 
 
 @pytest.mark.cuda
