@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero):
    a tile multiple, valid_len < T, band < T, the DiT-S width 384, the f32
    stream): the banded attention forward with LSE, its dq and dk/dv kernels
    (the LSE and all three gradients checked), and kernel B's training forward
-   (out and the a / mlp residuals checked).
+   (out and the a / mlp residuals checked). `[attn-train]` and `[attn-cp]`
+   (13) print the registers, spill bytes (required 0) and shared memory of
+   the bf16 Hopper bodies of the forward and dk/dv, and for each case the
+   body its calls took (bf16: sm90, f32: the WMMA body of PRs 1-2).
 5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
    50 CFG denoise steps, the .osu written and reparsed, and each inference
@@ -169,8 +172,12 @@ ATTN_TRAIN_CASES = [
     ("valid_lt_t", 2, 12, 100, 77, 128, "bf16"),
     ("fully_masked_rows", 1, 2, 256, 60, 16, "bf16"),
     ("dit_s_heads", 4, 6, 128, 128, 128, "bf16"),
+    ("three_blocks_odd_heads", 3, 5, 384, 370, 128, "bf16"),
     ("f32_stream", 4, 12, 128, 128, 128, "f32"),
 ]
+# the body each stream's forward and dk/dv take (`.body` of the wrappers):
+# bf16 the Hopper body, f32 the WMMA body of PRs 1-2
+BODY = {"bf16": "sm90", "f32": "wmma"}
 # (name, N, T, D, stream)
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
                    ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
@@ -331,6 +338,44 @@ def phase_build():
     return card
 
 
+def sm90_resources() -> dict:
+    """Registers, spill bytes (stores + loads) and dynamic shared memory per
+    CTA of the Hopper attention bodies, each build (ranged or not), from this
+    build's ptxas lines (cuda_build.build_info) and the libraries."""
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    smem = ba.sm90_smem_bytes()
+    found = {}
+    for lib, kernel, key in (("banded_attention", "banded_attn_fwd_sm90_kernel", "fwd"),
+                             ("banded_attention_bwd", "banded_attn_bwd_dkv_sm90_kernel", "dkv")):
+        entry = None
+        for line in cuda_build.build_info[lib]["log"].splitlines():
+            m = re.search(r"entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+                continue
+            if entry is None or kernel not in entry:
+                continue
+            name = ("ranged " if "ILb1E" in entry else "") + key
+            res = found.setdefault(name, {"smem_bytes": smem[key]})
+            if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+                res["spill_bytes"] = int(m[1]) + int(m[2])
+            if (m := re.search(r"Used (\d+) registers", line)):
+                res["registers"] = int(m[1])
+    check(len(found) == 4 and all(len(r) == 3 for r in found.values()),
+          f"ptxas lines of the four Hopper attention builds not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper attention bodies spill: {found}")
+    return found
+
+
+def print_sm90_resources(tag, names) -> None:
+    res = sm90_resources()
+    print(f"[{tag}] Hopper bodies (ptxas): " + "; ".join(
+        f"{n} {res[n]['registers']} registers, {res[n]['spill_bytes']} spill bytes, "
+        f"{res[n]['smem_bytes']} B shared memory a CTA" for n in names))
+
+
 def phase_attention(dev):
     import torch
     import torch.nn.functional as F
@@ -439,6 +484,7 @@ def phase_attention_train(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
+    print_sm90_resources("attn-train", ("fwd", "dkv"))
     for name, n, h, t, valid, band, stream in ATTN_TRAIN_CASES:
         dtype = f32 if stream == "f32" else bf16
         qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=dev).to(dtype)
@@ -449,6 +495,8 @@ def phase_attention_train(dev):
         dq = ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
         dk, dv = ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
         torch.cuda.synchronize()
+        body = {"fwd": ba.banded_attention_fwd_lse.body, "dkv": ba.banded_attention_bwd_dkv.body}
+        check(set(body.values()) == {BODY[stream]}, f"attention train {name}: bodies {body}, want {BODY[stream]}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, bf16)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, bf16)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, f32)
@@ -460,6 +508,7 @@ def phase_attention_train(dev):
             check(bool(torch.isfinite(got).all()), f"attention train {name}: non-finite {out}")
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
         print(f"[attn-train] {name}: N={n} H={h} T={t} valid={valid} band={band} {stream} "
+              f"body fwd={body['fwd']} dkv={body['dkv']} "
               + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
@@ -1097,6 +1146,10 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     for e in sorted(events_dev, key=lambda e: -e.self_device_time_total)[:12]:
         print(f"[{tag}-profile]   {e.self_device_time_total / 1000 / n_prof:9.3f} ms/step  "
               f"{e.count // n_prof:6d}x/step  {e.key[:90]}")
+    attn_us = {e.key: e.self_device_time_total for e in events_dev if "banded_attn" in e.key}
+    print(f"[{tag}-profile] banded attention kernels {sum(attn_us.values()) / 1000 / n_prof:.3f} ms/step, "
+          f"{100 * sum(attn_us.values()) / device_us:.1f}% of device time: " + ", ".join(
+              f"{k[:60]} {v / 1000 / n_prof:.3f}" for k, v in sorted(attn_us.items(), key=lambda kv: -kv[1])))
     numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
                "device_ms": device_us / 1000 / n_prof}
     if not default:
@@ -1286,6 +1339,7 @@ def phase_attention_cp(dev):
     g = torch.Generator(device=dev).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
+    print_sm90_resources("attn-cp", ("ranged fwd", "ranged dkv"))
     for name, n, h, t_loc, band, idx, p, valid, stream in ATTN_CP_CASES:
         dtype = f32 if stream == "f32" else bf16
         halo = -(-band // BLOCK) * BLOCK
@@ -1300,6 +1354,9 @@ def phase_attention_cp(dev):
         dq = ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)
         dk, dv = ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
         torch.cuda.synchronize()
+        body = {"no-lse": ba.banded_attention_ranged.body, "fwd": ba.banded_attention_ranged_fwd_lse.body,
+                "dkv": ba.banded_attention_ranged_bwd_dkv.body}
+        check(set(body.values()) == {BODY[stream]}, f"ranged {name}: bodies {body}, want {BODY[stream]}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)
@@ -1315,6 +1372,7 @@ def phase_attention_cp(dev):
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
         print(f"[attn-cp] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} band={band} shard {idx} of {p} "
               f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
+              f"body no-lse={body['no-lse']} fwd={body['fwd']} dkv={body['dkv']} "
               + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")

@@ -55,12 +55,50 @@
 //   V.dO^T), so no transpose passes through shared memory.
 // Per-row LSE and delta come in with each query tile (delta from o and do:
 // two lanes per row, one shuffle). Inputs and outputs go through strides,
-// like the forward. wgmma/TMA pipelining is left to a later change.
+// like the forward. These WMMA bodies serve dq in both streams and dk/dv
+// in the f32 stream.
+//
+// dk/dv in the bf16 stream (row 4, and row 6's dk/dv) takes the Hopper body
+// below the WMMA ones; the C entries choose it by dtype (`dkv_entry`). What
+// bounds it: bytes, 352 MB at the training shape (105 us). What its design
+// does about it:
+// - Work items are (n*h, 128-key block): two consumer warpgroups of 64
+//   keys share every query tile, so at T = L = 128 one item holds the whole
+//   (n, h) and reads its q, do and o from device memory once.
+// - Persistent: as many CTAs as fit at once (1 per SM) walk the items,
+//   and the first warp of a producer warpgroup runs ahead of the
+//   consumers (setmaxnreg hands the producer's registers to them: 232 a
+//   consumer thread, where 9 warps a CTA capped all at 168 and spilled):
+//   each item's K and V into one of two buffers,
+//   its query tiles into a ring of STAGES on mbarriers: q, do and o by TMA
+//   (tensor maps built on the host from the wrapper's strides; rows past T
+//   read as 0) and the 64 LSE values by 4-byte cp.async copies that arrive
+//   on the same barrier. So the next item's loads are in flight while the
+//   current one is multiplied and its dK/dV stored (a first design with one
+//   CTA per item left each SM idle between items).
+// - S^T = K.Q^T and dP^T = V.dO^T run as wgmma into registers, so P^T and
+//   dS^T = P^T * (dP^T - delta) are formed there, packed to bf16 and fed as
+//   the register A operands of dV += P^T.dO and dK += dS^T.Q (dO and Q the
+//   MN-major B operands); dK and dV accumulate in registers for the whole
+//   walk and are stored from them. delta = rowsum(o * do) comes from the
+//   tile's o and do in shared memory, two threads a row, once per
+//   warpgroup.
+// - Scale folding: for Dh = 64 the scale 1/8 is a power of two, so raw q
+//   goes through TMA, S^T is scaled in f32 and dK at the end, bit-identical
+//   to bf16(q * scale) (static_assert(DH == 64)).
+// - No atomics: one CTA owns each key block, so dk/dv are the same bits run to
+//   run. A warpgroup skips the query tiles outside its keys' band; a block
+//   of masked keys (ranged) loads nothing and writes 0.
+// Resources (ptxas, printed by chip_smoke.py [attn-train]): 168 registers a
+// thread at launch, 232 in the consumers after setmaxnreg (40 in the
+// producer warpgroup), 0 spill bytes, 142672 bytes of dynamic shared memory
+// a CTA, 1 CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
 #include "tile_io.cuh"
+#include "wgmma_tma.cuh"
 
 using namespace nvcuda;
 
@@ -378,6 +416,322 @@ banded_attn_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store_rows(acc_v, sm.dp[warp], dv + gbase, k0 + warp * 16, t, gt, 1.f);
 }
 
+// ---- dk/dv in bf16 for Hopper (sm_90a): wgmma, TMA ring, P^T and dS^T in registers
+namespace hopper {
+
+using sm90::bar_arrive;
+using sm90::bar_expect;
+using sm90::bar_init;
+using sm90::bar_wait;
+using sm90::desc;
+using sm90::tma_load;
+
+static_assert(DH == 64, "scale folding: bf16(q * 1/8) == bf16(q) / 8 only for Dh = 64");
+constexpr int BKV = 128;                  // keys per CTA: two consumer warpgroups
+constexpr int STAGES = 3;                 // query tiles in flight
+constexpr int CONSUMERS = 256;            // two warpgroups of 64 keys
+constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup (one warp loads)
+// setmaxnreg: the producer warpgroup gives its registers to the consumers
+// (168 a thread at launch: 384 x 168 fits the SM's 64K)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert(CONSUMERS * CONSUMER_REGS + 128 * PRODUCER_REGS <= THREADS * 168, "register pool");
+constexpr unsigned TILE_BYTES = 64 * DH * 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
+struct Smem {  // every tile 1024-byte aligned (the 128-byte swizzle's period)
+  __nv_bfloat16 k[2][2][64 * DH];  // two key blocks in flight, a 64-key half per warpgroup
+  __nv_bfloat16 v[2][2][64 * DH];
+  __nv_bfloat16 q[STAGES][BQ * DH];  // raw q: the scale goes on S^T and dK
+  __nv_bfloat16 dout[STAGES][BQ * DH];
+  __nv_bfloat16 o[STAGES][BQ * DH];
+  float lse[STAGES][BQ];
+  float delta[2][STAGES][BQ];  // each warpgroup's copy
+  unsigned long long kv_full[2], kv_empty[2], full[STAGES], empty[STAGES];
+};
+constexpr int SMEM_BYTES = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
+
+// the query tiles [qt0, qt0 + ntiles) that a key block at k0 walks, and the
+// valid queries [q_lo, q_hi] that see any of its keys: [k0 - L, k0 + BKV - 2 + L]
+// (ranged: in [q_lo, q_hi), and none for a block of masked keys)
+struct Walk {
+  int qt0, ntiles, q_lo, q_hi;
+};
+
+template <bool RANGED>
+__device__ __forceinline__ Walk walk(int k0, int band, int valid, const Bounds& bounds) {
+  int q_lo = max(0, k0 - band);
+  int q_hi = k0 >= valid ? -1 : min(valid - 1, k0 + BKV - 2 + band);
+  if constexpr (RANGED) {
+    q_lo = max(q_lo, bounds.q_lo);
+    q_hi = min(q_hi, bounds.q_hi - 1);
+    if (k0 + BKV <= bounds.k_lo || k0 >= bounds.k_hi) q_hi = -1;
+  }
+  const int qt0 = q_lo / BQ;
+  return {qt0, q_lo <= q_hi ? q_hi / BQ - qt0 + 1 : 0, q_lo, q_hi};
+}
+
+// Persistent: CTA c walks the items c, c + gridDim.x, ... of the
+// (key block, n*h) grid (item = block * N*H + bh; numbered by bh first, a
+// grid that is a multiple of the block count would hand each CTA one kind
+// of block, pad or inner, and idle the SMs with the pad ones), so the producer
+// loads the next item's K/V and query tiles while the consumers finish the
+// current one. The ring position g and the key-block count jj run on over
+// items, the same on both sides.
+template <bool RANGED>
+__global__ void __launch_bounds__(THREADS, 1)
+banded_attn_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                                const __grid_constant__ CUtensorMap k_map,
+                                const __grid_constant__ CUtensorMap v_map,
+                                const __grid_constant__ CUtensorMap o_map,
+                                const __grid_constant__ CUtensorMap do_map,
+                                const float* __restrict__ lse, __nv_bfloat16* __restrict__ dk,
+                                __nv_bfloat16* __restrict__ dv, int nbh, int h, int t, long long gn,
+                                long long gh, long long gt, int band, int valid, float scale,
+                                Bounds bounds) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (-sm90::smem_addr(smem_raw) & 1023));  // 1024-aligned
+  const int nkb = (t + BKV - 1) / BKV;  // key blocks per (n, h)
+  const int items = nkb * nbh;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b) {
+      bar_init(&sm.kv_full[b], 1);
+      bar_init(&sm.kv_empty[b], CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&sm.full[s], 1 + 32);  // the TMA arrival and the 32 LSE copiers
+      bar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: its first warp issues every load
+    sm90::registers_dec<PRODUCER_REGS>();
+    if (threadIdx.x < CONSUMERS + 32) {
+      const int lane = threadIdx.x % 32;
+      int g = 0, jj = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x) {
+        const int bh = item % nbh;
+        const int k0 = item / nbh * BKV;
+        const Walk w = walk<RANGED>(k0, band, valid, bounds);
+        if (w.ntiles == 0) continue;
+        const int nb = bh / h;
+        const int hb = bh % h;
+        const int b = jj & 1;
+        if (jj >= 2) bar_wait(&sm.kv_empty[b], ((jj >> 1) - 1) & 1);
+        if (lane == 0) {
+          bar_expect(&sm.kv_full[b], 4 * TILE_BYTES);
+          tma_load(sm.k[b][0], &k_map, &sm.kv_full[b], k0, hb, nb);
+          tma_load(sm.v[b][0], &v_map, &sm.kv_full[b], k0, hb, nb);
+        }
+        const float* lse_bh = lse + (long long)bh * t;
+        for (int i = 0; i < w.ntiles; ++i, ++g) {
+          const int s = g % STAGES;
+          const int qbase = (w.qt0 + i) * BQ;
+          if (g >= STAGES) bar_wait(&sm.empty[s], (g / STAGES - 1) & 1);
+          if (lane == 0) {
+            bar_expect(&sm.full[s], 3 * TILE_BYTES);
+            tma_load(sm.q[s], &q_map, &sm.full[s], qbase, hb, nb);
+            tma_load(sm.dout[s], &do_map, &sm.full[s], qbase, hb, nb);
+            tma_load(sm.o[s], &o_map, &sm.full[s], qbase, hb, nb);
+          }
+#pragma unroll
+          for (int half = 0; half < BQ; half += 32) {
+            const int row = qbase + half + lane;
+            sm90::cp_async4(&sm.lse[s][half + lane], row < t ? lse_bh + row : lse, row < t);
+          }
+          sm90::cp_async_arrive(&sm.full[s]);
+        }
+        ++jj;
+      }
+    }
+  } else {  // the two consumer warpgroups
+    sm90::registers_inc<CONSUMER_REGS>();
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int cq = 2 * (lane % 4);  // this thread's first column in each 8-column chunk
+    const float c = scale * LOG2E;  // exact: scale is a power of two
+    int g = 0, jj = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int bh = item % nbh;
+      const int k0 = item / nbh * BKV;
+      const Walk w = walk<RANGED>(k0, band, valid, bounds);
+      const int kw = k0 + wg * 64;                 // this warpgroup's first key
+      const int key0 = kw + warp * 16 + lane / 4;  // its keys: key0 and key0 + 8
+      // the queries that see this warpgroup's keys; none for keys past
+      // valid_len or (ranged) a half of masked keys
+      const int w_lo = max(w.q_lo, kw - band);
+      int w_hi = min(w.q_hi, kw + 62 + band);
+      if (kw >= valid) w_hi = -1;
+      if constexpr (RANGED) {
+        if (kw + 64 <= bounds.k_lo || kw >= bounds.k_hi) w_hi = -1;
+      }
+      // the queries that see key key0 + 8r, [lo[r], hi[r]]: pair_allowed as one
+      // interval (empty for a key past valid_len or, ranged, outside [k_lo, k_hi))
+      int lo[2], hi[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        lo[r] = max(key - band, RANGED ? bounds.q_lo : 0);
+        hi[r] = min(key + band - 1, RANGED ? min(valid, bounds.q_hi) - 1 : valid - 1);
+        bool key_ok = key < valid;
+        if constexpr (RANGED) key_ok = key_ok && key >= bounds.k_lo && key < bounds.k_hi;
+        if (!key_ok) hi[r] = -1;
+      }
+
+      float acc_k[32], acc_v[32];
+#pragma unroll
+      for (int j = 0; j < 32; ++j) acc_k[j] = acc_v[j] = 0.f;
+
+      if (w.ntiles > 0) {
+        const int b = jj & 1;
+        bar_wait(&sm.kv_full[b], (jj >> 1) & 1);
+        for (int i = 0; i < w.ntiles; ++i, ++g) {
+          const int s = g % STAGES;
+          const int qbase = (w.qt0 + i) * BQ;
+          bar_wait(&sm.full[s], (g / STAGES) & 1);
+          {  // delta of the tile's 64 queries into this warpgroup's copy, two threads a row
+            const int row = (threadIdx.x % 128) >> 1;
+            const int half = threadIdx.x & 1;
+            const unsigned char* ob = reinterpret_cast<const unsigned char*>(sm.o[s]);
+            const unsigned char* db = reinterpret_cast<const unsigned char*>(sm.dout[s]);
+            float d = 0.f;
+#pragma unroll
+            for (int c8 = 0; c8 < 4; ++c8) {
+              const int off = sm90::swizzled(row, (half * 4 + c8) * 8);
+              const uint4 a = *reinterpret_cast<const uint4*>(ob + off);
+              const uint4 e = *reinterpret_cast<const uint4*>(db + off);
+              const unsigned aw[4] = {a.x, a.y, a.z, a.w};
+              const unsigned ew[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+              for (int x = 0; x < 4; ++x) {
+                const float2 fa =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[x]));
+                const float2 fe =
+                    __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ew[x]));
+                d += fa.x * fe.x + fa.y * fe.y;
+              }
+            }
+            d += __shfl_xor_sync(0xffffffffu, d, 1);
+            // the slot's last reader passed this barrier STAGES tiles ago
+            if (half == 0) sm.delta[wg][s][row] = d;
+            sm90::warpgroup_sync(1 + wg);
+          }
+          if (qbase <= w_hi && qbase + BQ - 1 >= w_lo) {  // uniform over the warpgroup
+            float st[32], dpt[32];
+            sm90::fence();
+#pragma unroll
+            for (int kk = 0; kk < DH / 16; ++kk)  // S^T = K Q^T
+              sm90::mma_ss(st, desc(sm.k[b][wg], 32 * kk), desc(sm.q[s], 32 * kk), kk);
+#pragma unroll
+            for (int kk = 0; kk < DH / 16; ++kk)  // dP^T = V dO^T
+              sm90::mma_ss(dpt, desc(sm.v[b][wg], 32 * kk), desc(sm.dout[s], 32 * kk), kk);
+            sm90::commit();
+            sm90::wait_all();
+            sm90::pin(st);
+            sm90::pin(dpt);
+
+            // P^T and dS^T, packed to bf16 as they are formed: register
+            // 4n + 2r + j is key key0 + 8r, query qbase + 8n + cq + j, and the
+            // A fragment of k-step kk is registers 8kk .. 8kk+7 in pairs
+            unsigned pa[4][4], da[4][4];
+#pragma unroll
+            for (int n = 0; n < BQ / 8; ++n) {
+              const float2 ls = *reinterpret_cast<const float2*>(&sm.lse[s][8 * n + cq]);
+              const float2 dl = *reinterpret_cast<const float2*>(&sm.delta[wg][s][8 * n + cq]);
+              const int query = qbase + 8 * n + cq;
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+                const int idx = 4 * n + 2 * r;
+                const bool ok0 = query >= lo[r] && query <= hi[r];
+                const bool ok1 = query + 1 >= lo[r] && query + 1 <= hi[r];
+                const float p0 = ok0 ? exp2f(fmaf(st[idx], c, -ls.x * LOG2E)) : 0.f;
+                const float p1 = ok1 ? exp2f(fmaf(st[idx + 1], c, -ls.y * LOG2E)) : 0.f;
+                pa[n >> 1][2 * (n & 1) + r] = sm90::pack_bf16(p0, p1);
+                const float ds0 = ok0 ? p0 * (dpt[idx] - dl.x) : 0.f;
+                const float ds1 = ok1 ? p1 * (dpt[idx + 1] - dl.y) : 0.f;
+                da[n >> 1][2 * (n & 1) + r] = sm90::pack_bf16(ds0, ds1);
+              }
+            }
+            sm90::fence();
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)  // dV += P^T dO
+              sm90::mma_rs(acc_v, pa[kk], desc(sm.dout[s], 2048 * kk));
+#pragma unroll
+            for (int kk = 0; kk < BQ / 16; ++kk)  // dK += dS^T Q
+              sm90::mma_rs(acc_k, da[kk], desc(sm.q[s], 2048 * kk));
+            sm90::commit();
+            sm90::wait_all();
+            sm90::pin(acc_v);
+            sm90::pin(acc_k);
+          }
+          __syncwarp();
+          if (lane == 0) bar_arrive(&sm.empty[s]);  // this warp is done with stage s
+        }
+        __syncwarp();
+        if (lane == 0) bar_arrive(&sm.kv_empty[b]);  // and with this key block's K/V
+        ++jj;
+      }
+
+      const long long gbase = (bh / h) * gn + (bh % h) * gh;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int key = key0 + 8 * r;
+        if (key >= t) continue;
+        __nv_bfloat16* dkrow = dk + gbase + key * gt + cq;
+        __nv_bfloat16* dvrow = dv + gbase + key * gt + cq;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) {
+          const int idx = 4 * n + 2 * r;
+          *reinterpret_cast<__nv_bfloat162*>(dkrow + 8 * n) =
+              __floats2bfloat162_rn(acc_k[idx] * scale, acc_k[idx + 1] * scale);
+          *reinterpret_cast<__nv_bfloat162*>(dvrow + 8 * n) =
+              __floats2bfloat162_rn(acc_v[idx], acc_v[idx + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <bool RANGED>
+int launch_dkv(const void* q, const void* k, const void* v, const void* o, const void* dout,
+               const float* lse, void* dk, void* dv, int n, int h, int t, long long sn,
+               long long sh, long long st, long long gn, long long gh, long long gt, int band,
+               int valid_len, float scale, Bounds bounds, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, o_map, do_map;
+  int err = sm90::make_map(&q_map, q, n, h, t, sn, sh, st, BQ);
+  if (err == 0) err = sm90::make_map(&k_map, k, n, h, t, sn, sh, st, BKV);
+  if (err == 0) err = sm90::make_map(&v_map, v, n, h, t, sn, sh, st, BKV);
+  if (err == 0) err = sm90::make_map(&o_map, o, n, h, t, gn, gh, gt, BQ);
+  if (err == 0) err = sm90::make_map(&do_map, dout, n, h, t, gn, gh, gt, BQ);
+  if (err != 0) return err;
+  // persistent: as many CTAs as fit at once (the occupancy times the SMs),
+  // at most one per item
+  const auto kernel = banded_attn_bwd_dkv_sm90_kernel<RANGED>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // the CTA does not fit
+  const int grid = min(per_sm * sms, (t + BKV - 1) / BKV * n * h);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      q_map, k_map, v_map, o_map, do_map, lse, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), n * h, h, t, gn, gh, gt, band, valid_len, scale, bounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper
+
+// the body the last dk/dv call took: "sm90" (bf16) or "wmma" (f32)
+const char* last_dkv_body = "none";
+
 template <typename T, typename Smem, typename Kernel, typename... Args>
 int launch(Kernel kernel, int n, int h, int t, cudaStream_t stream, Args... args) {
   const int smem = static_cast<int>(sizeof(Smem));
@@ -416,15 +770,13 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* o, const 
               long long sh, long long st, long long gn, long long gh, long long gt, int band,
               int valid_len, float scale, Bounds bounds, int bf16, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  // the body by dtype: bf16 takes the Hopper body, f32 the PR 2 WMMA body
   if (bf16) {
-    using T = __nv_bfloat16;
-    return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T, RANGED>, n, h, t, s,
-                              static_cast<const T*>(q), static_cast<const T*>(k),
-                              static_cast<const T*>(v), static_cast<const T*>(o),
-                              static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-                              static_cast<T*>(dv), h, t, sn, sh, st, gn, gh, gt, band, valid_len,
-                              scale, bounds);
+    last_dkv_body = "sm90";
+    return hopper::launch_dkv<RANGED>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh,
+                                      gt, band, valid_len, scale, bounds, s);
   }
+  last_dkv_body = "wmma";
   using T = float;
   return launch<T, SmemDkv>(banded_attn_bwd_dkv_kernel<T, RANGED>, n, h, t, s,
                             static_cast<const T*>(q), static_cast<const T*>(k),
@@ -487,5 +839,11 @@ extern "C" int banded_attention_bwd_dkv_ranged(const void* q, const void* k, con
 }
 
 extern "C" const char* banded_attention_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+  return sm90::error_string(err);
 }
+
+// "sm90" or "wmma": the body the last dk/dv call took (dq has one body)
+extern "C" const char* banded_attention_bwd_last_dkv_body() { return last_dkv_body; }
+
+// the Hopper dk/dv body's dynamic shared memory per CTA, bytes
+extern "C" int banded_attention_bwd_sm90_smem_bytes() { return hopper::SMEM_BYTES; }

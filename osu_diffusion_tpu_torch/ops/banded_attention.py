@@ -30,6 +30,15 @@ and LSE are f32, and outputs come back in q's type. The LSE is one
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+Two bodies sit behind the forward and dk/dv entries, chosen by the C entry
+by dtype: a bf16 call runs the Hopper body (wgmma, a TMA ring, the softmax
+in registers), an f32 call the WMMA body of PRs 1-2; after a launch the
+wrapper's `.body` names the one that ran ("sm90" or "wmma"). dq has the
+WMMA body in both streams. TMA reads q/k/v through strides in multiples of
+16 bytes: a bf16 q/k/v whose strides are multiples of 4 elements but not
+of 8 is copied to a contiguous layout first (`_fit_tma`); the model's
+layouts (head views of the packed qkv projection, contiguous shards) need
+no copy.
 `banded_attention` under grad (an input requires it) runs the
 `BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
 
@@ -175,6 +184,8 @@ def _lib() -> ctypes.CDLL:
     _bind(lib, "banded_attention_fwd_ranged_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_error_string.restype = ctypes.c_char_p
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
+    lib.banded_attention_last_body.restype = ctypes.c_char_p
+    lib.banded_attention_last_body.argtypes = []
     return lib
 
 
@@ -190,7 +201,15 @@ def _bwd_lib() -> ctypes.CDLL:
     _bind(lib, "banded_attention_bwd_dkv_ranged", [p] * 8 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.banded_attention_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.banded_attention_bwd_last_dkv_body.restype = ctypes.c_char_p
+    lib.banded_attention_bwd_last_dkv_body.argtypes = []
     return lib
+
+
+def sm90_smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory per CTA of the two Hopper bodies, bytes."""
+    return {"fwd": _lib().banded_attention_sm90_smem_bytes(),
+            "dkv": _bwd_lib().banded_attention_bwd_sm90_smem_bytes()}
 
 
 def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
@@ -253,6 +272,16 @@ def _check_bounds(q, band: int, bounds) -> tuple[int, int, int, int]:
     return k_lo, k_hi, q_lo, q_hi
 
 
+def _fit_tma(q, k, v):
+    """q, k, v as the bf16 Hopper bodies take them: TMA needs strides in
+    multiples of 16 bytes (8 bf16 elements), so other bf16 layouts are
+    copied to contiguous ones (a stated copy; never the model's layouts).
+    f32 inputs go to the WMMA body as they are."""
+    if q.dtype != torch.bfloat16 or not any(s % 8 for s in q.stride()[:3]):
+        return q, k, v
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
 def _heads_out(q: torch.Tensor) -> torch.Tensor:
     """An (N, T, H, Dh) buffer in q's type, returned as its (N, H, T, Dh)
     view: the head merge after attention is then a free reshape."""
@@ -270,7 +299,9 @@ def _stream(a: torch.Tensor) -> int:
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def _launch_fwd(q, k, v, band, valid_len, with_lse: bool, bounds=None):
+def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None):
+    """Launch the forward entry of wrapper `fn` and record its body in `fn.body`."""
+    q, k, v = _fit_tma(q, k, v)
     n, h, t, dh = q.shape
     out = _heads_out(q)
     lse = torch.empty((n * h, t), device=q.device, dtype=torch.float32) if with_lse else None
@@ -286,6 +317,7 @@ def _launch_fwd(q, k, v, band, valid_len, with_lse: bool, bounds=None):
         int(q.dtype == torch.bfloat16), _stream(q),
     )
     _raise_on(err, lib, "banded_attention", "banded_attention")
+    fn.body = lib.banded_attention_last_body().decode()
     return out, lse
 
 
@@ -298,16 +330,18 @@ def banded_attention_fwd_lse(
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out = _launch_fwd(q, k, v, band, valid_len, with_lse=True)
+    out = _launch_fwd(banded_attention_fwd_lse, q, k, v, band, valid_len, with_lse=True)
     banded_attention_fwd_lse.launches += 1
     return out
 
 
-def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
+def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
-    # o's layout) another
+    # o's layout) another; dk/dv records its body in `fn.body`
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
     _check_kernel_inputs(matmul_dtype, o=o, do=do)
+    if entry == "dkv":
+        q, k, v = _fit_tma(q, k, v)
     if o.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
     n, h, t, dh = q.shape
@@ -328,6 +362,8 @@ def _launch_bwd(entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, 
         1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q),
     )
     _raise_on(err, lib, "banded_attention_bwd", name)
+    if entry == "dkv":
+        fn.body = lib.banded_attention_bwd_last_dkv_body().decode()
     return grads
 
 
@@ -339,7 +375,7 @@ def banded_attention_bwd_dq(
     valid_len = _check_args(q, band, valid_len)
     if q.device.type == "cpu":
         return banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid_len, matmul_dtype)[0]
-    (dq,) = _launch_bwd("dq", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
+    (dq,) = _launch_bwd(banded_attention_bwd_dq, "dq", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
     banded_attention_bwd_dq.launches += 1
     return dq
 
@@ -352,7 +388,7 @@ def banded_attention_bwd_dkv(
     valid_len = _check_args(q, band, valid_len)
     if q.device.type == "cpu":
         return banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid_len, matmul_dtype)[1:]
-    dk, dv = _launch_bwd("dkv", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
+    dk, dv = _launch_bwd(banded_attention_bwd_dkv, "dkv", q, k, v, o, lse, do, band, valid_len, matmul_dtype)
     banded_attention_bwd_dkv.launches += 1
     return dk, dv
 
@@ -404,7 +440,7 @@ def banded_attention(
     if q.device.type == "cpu":
         return banded_attention_reference(q, k, v, band, valid_len, matmul_dtype)
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out, _ = _launch_fwd(q, k, v, band, valid_len, with_lse=False)
+    out, _ = _launch_fwd(banded_attention, q, k, v, band, valid_len, with_lse=False)
     banded_attention.launches += 1
     return out
 
@@ -419,7 +455,7 @@ def banded_attention_ranged_fwd_lse(
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out = _launch_fwd(q, k, v, band, t, with_lse=True, bounds=bounds)
+    out = _launch_fwd(banded_attention_ranged_fwd_lse, q, k, v, band, t, with_lse=True, bounds=bounds)
     banded_attention_ranged_fwd_lse.launches += 1
     return out
 
@@ -432,7 +468,7 @@ def banded_attention_ranged_bwd_dq(
     t = q.shape[-2]
     if q.device.type == "cpu":
         return banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, matmul_dtype, bounds)[0]
-    (dq,) = _launch_bwd("dq", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
+    (dq,) = _launch_bwd(banded_attention_ranged_bwd_dq, "dq", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
     banded_attention_ranged_bwd_dq.launches += 1
     return dq
 
@@ -446,7 +482,7 @@ def banded_attention_ranged_bwd_dkv(
     t = q.shape[-2]
     if q.device.type == "cpu":
         return banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, matmul_dtype, bounds)[1:]
-    dk, dv = _launch_bwd("dkv", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
+    dk, dv = _launch_bwd(banded_attention_ranged_bwd_dkv, "dkv", q, k, v, o, lse, do, band, t, matmul_dtype, bounds)
     banded_attention_ranged_bwd_dkv.launches += 1
     return dk, dv
 
@@ -487,7 +523,7 @@ def banded_attention_ranged(
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)[0]
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out, _ = _launch_fwd(q, k, v, band, t, with_lse=False, bounds=bounds)
+    out, _ = _launch_fwd(banded_attention_ranged, q, k, v, band, t, with_lse=False, bounds=bounds)
     banded_attention_ranged.launches += 1
     return out
 
@@ -500,3 +536,9 @@ banded_attention_ranged.launches = 0
 banded_attention_ranged_fwd_lse.launches = 0
 banded_attention_ranged_bwd_dq.launches = 0
 banded_attention_ranged_bwd_dkv.launches = 0
+# the body the last launch took ("sm90" or "wmma"); None before any launch
+for _fn in (banded_attention, banded_attention_fwd_lse, banded_attention_bwd_dkv,
+            banded_attention_ranged, banded_attention_ranged_fwd_lse,
+            banded_attention_ranged_bwd_dkv):
+    _fn.body = None
+del _fn

@@ -31,7 +31,8 @@ _lock = threading.Lock()  # guards _name_locks
 _name_locks: dict[str, threading.Lock] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": compile seconds (0.0 when a built library was reused),
-#          "log": nvcc's output, including ptxas register/shared-memory lines}
+#          "log": nvcc's output, including ptxas register/shared-memory lines
+#          (kept beside the library, so a reused one still has it)}
 build_info: dict[str, dict] = {}
 
 
@@ -67,7 +68,9 @@ def load_library(name: str) -> ctypes.CDLL:
         digest = _digest(src)
         lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
         if os.path.isfile(lib_path):
-            build_info[name] = {"seconds": 0.0, "log": "reused " + lib_path}
+            log_path = lib_path + ".log"
+            log = open(log_path).read() if os.path.isfile(log_path) else ""
+            build_info[name] = {"seconds": 0.0, "log": f"reused {lib_path}\n{log}"}
         else:
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib_path}.{os.getpid()}.tmp"
@@ -81,6 +84,9 @@ def load_library(name: str) -> ctypes.CDLL:
                     f"nvcc failed for {src} (exit {res.returncode}):\n"
                     f"{res.stdout}{res.stderr}"
                 )
+            with open(f"{tmp}.log", "w") as f:
+                f.write(res.stdout + res.stderr)
+            os.replace(f"{tmp}.log", lib_path + ".log")
             os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
             build_info[name] = {
                 "seconds": time.perf_counter() - start,

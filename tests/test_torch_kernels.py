@@ -122,8 +122,12 @@ def _qkv_heads(n, t, h, dtype, g, device):
 
 
 # (T, valid_len, band): the training shape's T = band = 128, T not a tile
-# multiple, valid_len < T, band < T, and rows with no valid key
-TRAIN_ATTN_CASES = [(128, 128, 128), (200, 190, 20), (100, 77, 128), (256, 60, 16)]
+# multiple, valid_len < T, band < T, rows with no valid key, and three
+# 128-row blocks with the band reaching across them
+TRAIN_ATTN_CASES = [(128, 128, 128), (200, 190, 20), (100, 77, 128), (256, 60, 16), (384, 370, 128)]
+
+# the body each stream takes: bf16 the Hopper body, f32 the WMMA body
+BODY = {torch.bfloat16: "sm90", torch.float32: "wmma"}
 
 
 @pytest.mark.cuda
@@ -147,6 +151,7 @@ def test_banded_attention_train_kernels_match_plain(cuda_device, t, valid, band,
     torch.cuda.synchronize()
     assert (tba.banded_attention_fwd_lse.launches, tba.banded_attention_bwd_dq.launches,
             tba.banded_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
+    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == BODY[dtype]
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
     assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
@@ -183,6 +188,119 @@ def test_banded_attention_function_on_card_matches_cpu(cuda_device):
         results[str(dev)] = [a.detach().cpu() for a in (o, q.grad, k.grad, v.grad)]
     for got, want in zip(results[str(cuda_device)], results["cpu"]):
         assert _rel(got, want) <= 1e-2
+
+
+def _train_attention(q, k, v, do, band, valid):
+    """(o, lse, dq, dk, dv) of the forward with LSE and the two backward kernels."""
+    o, lse = tba.banded_attention_fwd_lse(q, k, v, band, valid)
+    dq = tba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
+    dk, dv = tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid,band", [(128, 128, 128), (384, 380, 128)])
+def test_banded_attention_train_kernels_odd_head_count(cuda_device, t, valid, band):
+    """bf16 rows 2-4 at N = 3, H = 5 (15 (n, h) pairs, no multiple of any
+    CTA count), held to the plain versions at the tolerances above."""
+    g = torch.Generator(device=cuda_device).manual_seed(t + 5)
+    n, h = 3, 5
+    q, k, v = _qkv_heads(n, t, h, torch.bfloat16, g, cuda_device)
+    do = torch.randn((n, t, h, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
+    o, lse, dq, dk, dv = _train_attention(q, k, v, do, band, valid)
+    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == "sm90"
+    want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
+    want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
+    assert _rel(o, want_o) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranged", [False, True], ids=["banded", "ranged"])
+def test_banded_attention_persistent_ctas_walk_many_items(cuda_device, ranged):
+    """More (n*h, block) items than CTAs fit on the card at once, so every
+    persistent CTA of the bf16 bodies walks several items through its ring
+    (and, ranged, past pad blocks that load nothing): rows 2 and 4 (5 and 6)
+    against the plain versions at the tolerances above."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    if ranged:
+        q, k, v, do, bounds = _ranged_inputs(24, 12, 256, 128, 1, 2, None, torch.bfloat16, g, cuda_device)
+        o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, 128, bounds)
+        dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, 128, bounds)
+        t = q.shape[2]
+        want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, 128, t, torch.bfloat16, bounds)
+        want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, 128, t, torch.bfloat16, bounds)
+        rows = slice(bounds[2], bounds[3])
+        o, want_o = o[:, :, rows], want_o[:, :, rows]
+        lse, want_lse = lse.view(24, 12, t)[:, :, rows], want_lse.view(24, 12, t)[:, :, rows]
+    else:
+        q, k, v = _qkv_heads(64, 256, 12, torch.bfloat16, g, cuda_device)
+        do = torch.randn((64, 256, 12, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
+        o, lse = tba.banded_attention_fwd_lse(q, k, v, 128, 250)
+        dk, dv = tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, 128, 250)
+        want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, 128, 250, torch.bfloat16)
+        want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, 128, 250, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert _rel(o, want_o) <= 1e-2
+    assert (lse - want_lse).abs().max().item() <= 1e-3
+    for name, got, w in zip(("dk", "dv"), (dk, dv), want[1:]):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+def test_banded_attention_bf16_layouts_agree(cuda_device):
+    """The Hopper bodies read through strides: head views of a packed qkv
+    projection and contiguous copies of the same values give the same bits
+    (o, LSE, dk, dv); so does a q/k/v whose strides TMA cannot take (a row
+    stride of 68 elements, 136 bytes), which the wrapper copies to a
+    contiguous layout first; and a `do` given contiguous (N, H, T, Dh)
+    through the autograd Function, which copies it to the (N, T, H, Dh)
+    layout the kernels read."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    n, h, t, band, valid = 2, 3, 200, 128, 190
+    q, k, v = _qkv_heads(n, t, h, torch.bfloat16, g, cuda_device)
+    do = torch.randn((n, t, h, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
+    packed = _train_attention(q, k, v, do, band, valid)
+    contiguous = _train_attention(q.contiguous(), k.contiguous(), v.contiguous(), do, band, valid)
+    wide = [torch.zeros((n, h, t, 68), device=cuda_device, dtype=torch.bfloat16) for _ in range(3)]
+    for w, a in zip(wide, (q, k, v)):
+        w[..., :64] = a
+    odd = [w[..., :64] for w in wide]
+    assert odd[0].stride(2) == 68
+    odd_strides = _train_attention(*odd, do, band, valid)
+    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == "sm90"
+    for name, a, b, c in zip(("o", "lse", "dq", "dk", "dv"), packed, contiguous, odd_strides):
+        assert torch.equal(a, b), name
+        assert torch.equal(a, c), name
+    leaves = [a.detach().clone().requires_grad_() for a in (q, k, v)]
+    out = tba.banded_attention(*leaves, band, valid)
+    out.backward(do.contiguous())  # (N, H, T, Dh) contiguous, not the kernels' layout
+    assert torch.equal(out, packed[0])
+    for name, leaf, want in zip(("dq", "dk", "dv"), leaves, packed[2:]):
+        assert torch.equal(leaf.grad, want), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ranged", [False, True], ids=["banded", "ranged"])
+def test_banded_attention_dkv_is_bit_identical_run_to_run(cuda_device, ranged):
+    """No atomics: two dk/dv calls on the same inputs give the same bits."""
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    if ranged:
+        q, k, v, do, bounds = _ranged_inputs(4, 12, 256, 128, 0, 2, None, torch.bfloat16, g, cuda_device)
+        o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, 128, bounds)
+        runs = [tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, 128, bounds) for _ in range(2)]
+    else:
+        q, k, v = _qkv_heads(8, 128, 12, torch.bfloat16, g, cuda_device)
+        do = torch.randn((8, 128, 12, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
+        o, lse = tba.banded_attention_fwd_lse(q, k, v, 128, 128)
+        runs = [tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, 128, 128) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
+    assert runs[0][0].abs().max().item() > 0
 
 
 def _ranged_inputs(n, h, t_loc, band, idx, p, valid, dtype, g, device):
@@ -251,6 +369,8 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
     dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == [c + 1 for c in counts]
+    assert (tba.banded_attention_ranged.body == tba.banded_attention_ranged_fwd_lse.body
+            == tba.banded_attention_ranged_bwd_dkv.body == BODY[dtype])
     t = q.shape[2]
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, t, torch.bfloat16, bounds)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, torch.bfloat16, bounds)
