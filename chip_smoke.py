@@ -18,8 +18,9 @@ Phases (any failure raises and exits non-zero):
    (the LSE and all three gradients checked), and kernel B's training forward
    (out and the a / mlp residuals checked). `[attn-train]` and `[attn-cp]`
    (13) print the registers, spill bytes (required 0) and shared memory of
-   the bf16 Hopper bodies of the forward and dk/dv, and for each case the
-   body its calls took (bf16: sm90, f32: the WMMA body of PRs 1-2).
+   the bf16 Hopper bodies of the forward, dq and dk/dv, and for each case
+   the body its calls took (bf16: sm90, f32: the WMMA body); at
+   the main shapes, two dq calls on the same inputs must give the same bits.
 5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
    50 CFG denoise steps, the .osu written and reparsed, and each inference
@@ -175,8 +176,8 @@ ATTN_TRAIN_CASES = [
     ("three_blocks_odd_heads", 3, 5, 384, 370, 128, "bf16"),
     ("f32_stream", 4, 12, 128, 128, 128, "f32"),
 ]
-# the body each stream's forward and dk/dv take (`.body` of the wrappers):
-# bf16 the Hopper body, f32 the WMMA body of PRs 1-2
+# the body each stream's forward, dq and dk/dv take (`.body` of the
+# wrappers): bf16 the Hopper body, f32 the WMMA body
 BODY = {"bf16": "sm90", "f32": "wmma"}
 # (name, N, T, D, stream)
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
@@ -348,6 +349,7 @@ def sm90_resources() -> dict:
     smem = ba.sm90_smem_bytes()
     found = {}
     for lib, kernel, key in (("banded_attention", "banded_attn_fwd_sm90_kernel", "fwd"),
+                             ("banded_attention_bwd", "banded_attn_bwd_dq_sm90_kernel", "dq"),
                              ("banded_attention_bwd", "banded_attn_bwd_dkv_sm90_kernel", "dkv")):
         entry = None
         for line in cuda_build.build_info[lib]["log"].splitlines():
@@ -363,8 +365,8 @@ def sm90_resources() -> dict:
                 res["spill_bytes"] = int(m[1]) + int(m[2])
             if (m := re.search(r"Used (\d+) registers", line)):
                 res["registers"] = int(m[1])
-    check(len(found) == 4 and all(len(r) == 3 for r in found.values()),
-          f"ptxas lines of the four Hopper attention builds not found: {found}")
+    check(len(found) == 6 and all(len(r) == 3 for r in found.values()),
+          f"ptxas lines of the six Hopper attention builds not found: {found}")
     check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper attention bodies spill: {found}")
     return found
 
@@ -484,7 +486,7 @@ def phase_attention_train(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-train", ("fwd", "dkv"))
+    print_sm90_resources("attn-train", ("fwd", "dq", "dkv"))
     for name, n, h, t, valid, band, stream in ATTN_TRAIN_CASES:
         dtype = f32 if stream == "f32" else bf16
         qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=dev).to(dtype)
@@ -495,7 +497,8 @@ def phase_attention_train(dev):
         dq = ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
         dk, dv = ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
         torch.cuda.synchronize()
-        body = {"fwd": ba.banded_attention_fwd_lse.body, "dkv": ba.banded_attention_bwd_dkv.body}
+        body = {"fwd": ba.banded_attention_fwd_lse.body, "dq": ba.banded_attention_bwd_dq.body,
+                "dkv": ba.banded_attention_bwd_dkv.body}
         check(set(body.values()) == {BODY[stream]}, f"attention train {name}: bodies {body}, want {BODY[stream]}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, bf16)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, bf16)
@@ -508,7 +511,7 @@ def phase_attention_train(dev):
             check(bool(torch.isfinite(got).all()), f"attention train {name}: non-finite {out}")
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
         print(f"[attn-train] {name}: N={n} H={h} T={t} valid={valid} band={band} {stream} "
-              f"body fwd={body['fwd']} dkv={body['dkv']} "
+              f"body fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
               + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
@@ -523,6 +526,9 @@ def phase_attention_train(dev):
             check(bool((o[:, :, valid + band:] == 0).all()), "masked rows not 0")
         if name != "main":
             continue
+        # no atomics: one CTA owns each query block, so dq is the same bits run to run
+        check(torch.equal(dq, ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)),
+              "dq differs run to run")
         fwd_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse(q, k, v, band, valid))
         dq_ms = cuda_ms(lambda: ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid))
         dkv_ms = cuda_ms(lambda: ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid))
@@ -1339,7 +1345,7 @@ def phase_attention_cp(dev):
     g = torch.Generator(device=dev).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-cp", ("ranged fwd", "ranged dkv"))
+    print_sm90_resources("attn-cp", ("ranged fwd", "ranged dq", "ranged dkv"))
     for name, n, h, t_loc, band, idx, p, valid, stream in ATTN_CP_CASES:
         dtype = f32 if stream == "f32" else bf16
         halo = -(-band // BLOCK) * BLOCK
@@ -1355,7 +1361,7 @@ def phase_attention_cp(dev):
         dk, dv = ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
         torch.cuda.synchronize()
         body = {"no-lse": ba.banded_attention_ranged.body, "fwd": ba.banded_attention_ranged_fwd_lse.body,
-                "dkv": ba.banded_attention_ranged_bwd_dkv.body}
+                "dq": ba.banded_attention_ranged_bwd_dq.body, "dkv": ba.banded_attention_ranged_bwd_dkv.body}
         check(set(body.values()) == {BODY[stream]}, f"ranged {name}: bodies {body}, want {BODY[stream]}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
@@ -1372,7 +1378,7 @@ def phase_attention_cp(dev):
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
         print(f"[attn-cp] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} band={band} shard {idx} of {p} "
               f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
-              f"body no-lse={body['no-lse']} fwd={body['fwd']} dkv={body['dkv']} "
+              f"body no-lse={body['no-lse']} fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
               + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
@@ -1413,6 +1419,8 @@ def phase_attention_cp(dev):
                 "max_abs_err": max_err(o_inf[:, :, rows], o16[:, :, rows]), "ms": ms,
                 "plain_ms": plain_ms, **b, "library_ms": library_ms}
             continue
+        check(torch.equal(dq, ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)),
+              f"ranged dq {name} differs run to run")
         fwd_ms = cuda_ms(lambda: ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds))
         dq_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds))
         dkv_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds))

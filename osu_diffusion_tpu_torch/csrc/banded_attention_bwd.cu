@@ -34,17 +34,20 @@
 // and the LSE and writes dq (50 MB): 302 MB, 90 us at 3.35 TB/s, against
 // 3 products of 2 x 128 x 128 x 64 per row block, 9.7 GFLOP (10 us at
 // 989 TFLOP/s); dk/dv read the same and write two gradients: 352 MB,
-// 105 us, against 4 products, 12.9 GFLOP. Both are bound by memory, and in
-// practice by the latency of each CTA's short serial tile loop. At the
+// 105 us, against 4 products, 12.9 GFLOP. Both are bound by memory. At the
 // context-parallel training shard (N*H = 384, T_ext = 512, half of it pad
-// query rows, L = 128, bf16) the ranged dq reads q, k, v, o, do (5 x 25 MB)
-// and the LSE and writes 25 MB (45 us), dk/dv writes two gradients (53 us);
-// the pad tiles return at once, and a real tile walks up to 5 tiles of the
-// other side.
+// query rows, L = 128, bf16) the ranged dq reads q, k, v, o, do and the LSE
+// on the rows it needs and writes dq there (26 us), dk/dv writes two
+// gradients (34 us); the pad blocks return at once, and a real block walks
+// up to 6 key tiles.
 //
-// What the design does about it. On a GPU nothing carries over between
-// CTAs, so every cross-tile sum stays inside one CTA (no atomics: the
-// gradients are deterministic run to run):
+// Two bodies of each kernel; the C entries choose by dtype (`dq_entry`,
+// `dkv_entry`): bf16 (the training stream) takes the Hopper bodies below,
+// f32 the WMMA bodies. On a GPU nothing carries over between CTAs,
+// so in both every cross-tile sum stays inside one CTA (no atomics: the
+// gradients are the same bits run to run).
+//
+// The WMMA bodies (f32 stream):
 // - dq: one CTA per (n*h, 64-row query tile); Q and dO are staged once,
 //   the loop walks the 64-key tiles that meet the tile's band (as the
 //   forward), and dQ accumulates in WMMA registers.
@@ -55,44 +58,53 @@
 //   V.dO^T), so no transpose passes through shared memory.
 // Per-row LSE and delta come in with each query tile (delta from o and do:
 // two lanes per row, one shuffle). Inputs and outputs go through strides,
-// like the forward. These WMMA bodies serve dq in both streams and dk/dv
-// in the f32 stream.
+// like the forward.
 //
-// dk/dv in the bf16 stream (row 4, and row 6's dk/dv) takes the Hopper body
-// below the WMMA ones; the C entries choose it by dtype (`dkv_entry`). What
-// bounds it: bytes, 352 MB at the training shape (105 us). What its design
-// does about it:
-// - Work items are (n*h, 128-key block): two consumer warpgroups of 64
-//   keys share every query tile, so at T = L = 128 one item holds the whole
-//   (n, h) and reads its q, do and o from device memory once.
+// The Hopper bodies (bf16 stream: rows 3 and 4, and row 6's dq and dk/dv),
+// wgmma and TMA from wgmma_tma.cuh. Both:
 // - Persistent: as many CTAs as fit at once (1 per SM) walk the items,
-//   and the first warp of a producer warpgroup runs ahead of the
-//   consumers (setmaxnreg hands the producer's registers to them: 232 a
-//   consumer thread, where 9 warps a CTA capped all at 168 and spilled):
-//   each item's K and V into one of two buffers,
-//   its query tiles into a ring of STAGES on mbarriers: q, do and o by TMA
-//   (tensor maps built on the host from the wrapper's strides; rows past T
-//   read as 0) and the 64 LSE values by 4-byte cp.async copies that arrive
-//   on the same barrier. So the next item's loads are in flight while the
-//   current one is multiplied and its dK/dV stored (a first design with one
-//   CTA per item left each SM idle between items).
-// - S^T = K.Q^T and dP^T = V.dO^T run as wgmma into registers, so P^T and
-//   dS^T = P^T * (dP^T - delta) are formed there, packed to bf16 and fed as
-//   the register A operands of dV += P^T.dO and dK += dS^T.Q (dO and Q the
-//   MN-major B operands); dK and dV accumulate in registers for the whole
-//   walk and are stored from them. delta = rowsum(o * do) comes from the
-//   tile's o and do in shared memory, two threads a row, once per
-//   warpgroup.
+//   numbered block-major, while a producer runs ahead of two consumer
+//   warpgroups, loading tiles by TMA (tensor maps built on the host from
+//   the wrapper's strides; rows past T read as 0) and the LSE by 4-byte
+//   cp.async copies that arrive on the same mbarrier. So the next item's
+//   loads are in flight while the current one is multiplied and stored (a
+//   CTA per item left each SM idle between items: 26% slower for dq, 18%
+//   for dk/dv on an H100).
 // - Scale folding: for Dh = 64 the scale 1/8 is a power of two, so raw q
-//   goes through TMA, S^T is scaled in f32 and dK at the end, bit-identical
-//   to bf16(q * scale) (static_assert(DH == 64)).
-// - No atomics: one CTA owns each key block, so dk/dv are the same bits run to
-//   run. A warpgroup skips the query tiles outside its keys' band; a block
-//   of masked keys (ranged) loads nothing and writes 0.
-// Resources (ptxas, printed by chip_smoke.py [attn-train]): 168 registers a
-// thread at launch, 232 in the consumers after setmaxnreg (40 in the
-// producer warpgroup), 0 spill bytes, 142672 bytes of dynamic shared memory
-// a CTA, 1 CTA an SM.
+//   goes through TMA and the scores are scaled in f32, bit-identical to
+//   bf16(q * scale) (static_assert(DH == 64)).
+// - delta = rowsum(o * do) comes from the o and do tiles in shared memory.
+// - No atomics: one CTA owns each query block (dq) or key block (dk/dv).
+//   A warpgroup skips the tiles outside its rows' band; a block that gets
+//   no gradient (past valid_len, or ranged pad query rows or masked keys)
+//   loads nothing and writes 0.
+// dq: an item is (n*h, 128-row query block), two consumer warpgroups of 64
+// rows sharing every K/V tile, so at T = L = 128 one item holds the whole
+// (n, h) and reads each byte of q, k, v, o and do once. One producer warp
+// loads the block's q, do and o (one 128-row box each) and its 128 LSE
+// values into one of QBUF buffers, and walks the key tiles of its band
+// through a ring of STAGES K/V tiles. S = Q.K^T and dP = dO.V^T run as wgmma
+// into registers; the mask, P and dS = P * (dP - delta) are formed there,
+// packed to bf16 and fed as the register A operand of dQ += dS.K (K the
+// MN-major B operand, through a second descriptor on the same tile); dQ
+// accumulates in registers for the whole walk and is stored once, times
+// the scale. delta: the four lanes that share a row sum 16 columns each.
+// dk/dv: an item is (n*h, 128-key block), two consumer warpgroups of 64
+// keys sharing every query tile. A producer warpgroup (setmaxnreg hands its
+// registers to the consumers: 232 a consumer thread, where 9 warps a CTA
+// capped all at 168 and spilled) loads each item's K and V into one of two
+// buffers and its query tiles into a ring of STAGES: q, do and o by TMA and
+// 64 LSE values. S^T = K.Q^T and dP^T = V.dO^T run as wgmma into registers,
+// P^T and dS^T are packed to bf16 there as the register A operands of
+// dV += P^T.dO and dK += dS^T.Q (dO and Q the MN-major B operands); dK and
+// dV are stored from registers, dK times the scale. delta: two threads a
+// row, once per warpgroup.
+// Resources (ptxas, printed by chip_smoke.py [attn-train] and [attn-cp]):
+// dq 151 registers (152 ranged), 0 spill bytes, 165984 bytes of dynamic
+// shared memory a CTA, 1 CTA an SM (9 warps: ptxas caps them at 168, and S,
+// dP and dQ hold 96 f32 a thread; 2 CTAs an SM would cap at 96). dk/dv 168
+// registers at launch, 232 in the consumers after setmaxnreg (40 in the
+// producer warpgroup), 0 spill bytes, 142672 bytes a CTA, 1 CTA an SM.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -729,7 +741,301 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* o, const
 
 }  // namespace hopper
 
-// the body the last dk/dv call took: "sm90" (bf16) or "wmma" (f32)
+// ---- dq in bf16 for Hopper (sm_90a): wgmma, K/V through a TMA ring, dS in registers
+namespace hopper_dq {
+
+using hopper::LOG2E;
+using hopper::TILE_BYTES;
+using sm90::bar_arrive;
+using sm90::bar_expect;
+using sm90::bar_init;
+using sm90::bar_wait;
+using sm90::desc;
+using sm90::tma_load;
+
+constexpr int BQB = 128;                  // query rows per item: two consumer warpgroups
+constexpr int QBUF = 2;                   // query blocks in flight (q, do, o and the LSE)
+constexpr int STAGES = 4;                 // K/V tiles in flight
+constexpr int CONSUMERS = 256;            // two warpgroups of 64 query rows
+constexpr int THREADS = CONSUMERS + 32;   // and one producer warp
+
+struct Smem {  // every tile 1024-byte aligned (the 128-byte swizzle's period)
+  __nv_bfloat16 q[QBUF][2][64 * DH];  // raw q: the scale goes on S and dQ; a 64-row half per warpgroup
+  __nv_bfloat16 dout[QBUF][2][64 * DH];
+  __nv_bfloat16 o[QBUF][2][64 * DH];
+  __nv_bfloat16 k[STAGES][BK * DH];
+  __nv_bfloat16 v[STAGES][BK * DH];
+  float lse[QBUF][BQB];
+  unsigned long long q_full[QBUF], q_empty[QBUF], full[STAGES], empty[STAGES];
+};
+constexpr int SMEM_BYTES = static_cast<int>(sizeof(Smem)) + 1024;  // + alignment slack
+
+// the key tiles [kt0, kt0 + ntiles) that a query block at q0 walks, and the
+// keys [k_lo, k_hi] any valid row of it may see: (q0 - L, q0 + BQB - 1 + L],
+// < valid (ranged: in [k_lo, k_hi), and none for a block of pad query rows)
+struct Walk {
+  int kt0, ntiles, k_lo, k_hi;
+};
+
+template <bool RANGED>
+__device__ __forceinline__ Walk walk(int q0, int band, int valid, const Bounds& bounds) {
+  int k_lo = max(0, q0 - band + 1);
+  int k_hi = q0 >= valid ? -1 : min(valid - 1, q0 + BQB - 1 + band);
+  if constexpr (RANGED) {
+    k_lo = max(k_lo, bounds.k_lo);
+    k_hi = min(k_hi, bounds.k_hi - 1);
+    if (q0 + BQB <= bounds.q_lo || q0 >= bounds.q_hi) k_hi = -1;
+  }
+  const int kt0 = k_lo / BK;
+  return {kt0, k_lo <= k_hi ? k_hi / BK - kt0 + 1 : 0, k_lo, k_hi};
+}
+
+// Persistent: CTA c walks the items c, c + gridDim.x, ... of the (query
+// block, n*h) grid, numbered block-major (item = block * N*H + bh), so the
+// producer loads the next item's q, do, o and K/V tiles while the consumers
+// finish the current one. The ring position g and the query-block count jj
+// run on over items, the same on both sides.
+template <bool RANGED>
+__global__ void __launch_bounds__(THREADS, 1)
+banded_attn_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap o_map,
+                               const __grid_constant__ CUtensorMap do_map,
+                               const float* __restrict__ lse, __nv_bfloat16* __restrict__ dq,
+                               int nbh, int h, int t, long long gn, long long gh, long long gt,
+                               int band, int valid, float scale, Bounds bounds) {
+  extern __shared__ unsigned char smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw + (-sm90::smem_addr(smem_raw) & 1023));  // 1024-aligned
+  const int items = (t + BQB - 1) / BQB * nbh;
+
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < QBUF; ++b) {
+      bar_init(&sm.q_full[b], 1 + 32);  // the TMA arrival and the 32 LSE copiers
+      bar_init(&sm.q_empty[b], CONSUMERS / 32);  // one arrival per consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      bar_init(&sm.full[s], 1);
+      bar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {  // the producer warp: lane 0 issues the TMA loads
+    const int lane = threadIdx.x % 32;
+    int g = 0, jj = 0;
+    for (int item = blockIdx.x; item < items; item += gridDim.x) {
+      const int bh = item % nbh;
+      const int q0 = item / nbh * BQB;
+      const Walk w = walk<RANGED>(q0, band, valid, bounds);
+      if (w.ntiles == 0) continue;
+      const int nb = bh / h;
+      const int hb = bh % h;
+      const int b = jj % QBUF;
+      if (jj >= QBUF) bar_wait(&sm.q_empty[b], (jj / QBUF - 1) & 1);
+      if (lane == 0) {
+        bar_expect(&sm.q_full[b], 6 * TILE_BYTES);
+        tma_load(sm.q[b][0], &q_map, &sm.q_full[b], q0, hb, nb);
+        tma_load(sm.dout[b][0], &do_map, &sm.q_full[b], q0, hb, nb);
+        tma_load(sm.o[b][0], &o_map, &sm.q_full[b], q0, hb, nb);
+      }
+      const float* lse_bh = lse + (long long)bh * t;
+#pragma unroll
+      for (int r = 0; r < BQB; r += 32) {
+        const int row = q0 + r + lane;
+        sm90::cp_async4(&sm.lse[b][r + lane], row < t ? lse_bh + row : lse, row < t);
+      }
+      sm90::cp_async_arrive(&sm.q_full[b]);
+      for (int i = 0; i < w.ntiles; ++i, ++g) {
+        const int s = g % STAGES;
+        if (g >= STAGES) bar_wait(&sm.empty[s], (g / STAGES - 1) & 1);
+        if (lane == 0) {
+          bar_expect(&sm.full[s], 2 * TILE_BYTES);
+          tma_load(sm.k[s], &k_map, &sm.full[s], (w.kt0 + i) * BK, hb, nb);
+          tma_load(sm.v[s], &v_map, &sm.full[s], (w.kt0 + i) * BK, hb, nb);
+        }
+      }
+      ++jj;
+    }
+    return;
+  }
+
+  // the two consumer warpgroups
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int lane = threadIdx.x % 32;
+  const int cq = 2 * (lane % 4);          // this thread's first column in each 8-column chunk
+  const int rloc = warp * 16 + lane / 4;  // its rows in the warpgroup's 64: rloc and rloc + 8
+  const float c = scale * LOG2E;          // exact: scale is a power of two
+  int g = 0, jj = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const int bh = item % nbh;
+    const int q0 = item / nbh * BQB;
+    const Walk w = walk<RANGED>(q0, band, valid, bounds);
+    const int qw = q0 + wg * 64;  // this warpgroup's first row
+    // the keys this warpgroup's rows may see; none for rows past valid_len
+    // or (ranged) a half of pad query rows
+    const int w_lo = max(w.k_lo, qw - band + 1);
+    int w_hi = min(w.k_hi, qw + 63 + band);
+    if (qw >= valid) w_hi = -1;
+    if constexpr (RANGED) {
+      if (qw + 64 <= bounds.q_lo || qw >= bounds.q_hi) w_hi = -1;
+    }
+    // the keys row qw + rloc + 8r sees, [lo[r], hi[r]]: pair_allowed as one
+    // interval (empty for a row past valid_len or, ranged, outside [q_lo, q_hi))
+    int lo[2], hi[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw + rloc + 8 * r;
+      lo[r] = max(row - band + 1, RANGED ? bounds.k_lo : 0);
+      hi[r] = min(row + band, RANGED ? min(valid, bounds.k_hi) - 1 : valid - 1);
+      bool row_ok = row < valid;
+      if constexpr (RANGED) row_ok = row_ok && row >= bounds.q_lo && row < bounds.q_hi;
+      if (!row_ok) hi[r] = -1;
+    }
+
+    float acc[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+
+    if (w.ntiles > 0) {
+      const int b = jj % QBUF;
+      bar_wait(&sm.q_full[b], (jj / QBUF) & 1);
+      // delta = rowsum(o * do) and the LSE (times log2 e) of this thread's
+      // two rows: the four lanes that share them sum 16 columns each
+      float delta[2], ml[2];
+      const unsigned char* ob = reinterpret_cast<const unsigned char*>(sm.o[b][wg]);
+      const unsigned char* db = reinterpret_cast<const unsigned char*>(sm.dout[b][wg]);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = rloc + 8 * r;
+        float d = 0.f;
+#pragma unroll
+        for (int c8 = 0; c8 < 2; ++c8) {
+          const int off = sm90::swizzled(row, (cq + c8) * 8);
+          const uint4 a = *reinterpret_cast<const uint4*>(ob + off);
+          const uint4 e = *reinterpret_cast<const uint4*>(db + off);
+          const unsigned aw[4] = {a.x, a.y, a.z, a.w};
+          const unsigned ew[4] = {e.x, e.y, e.z, e.w};
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&aw[x]));
+            const float2 fe = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ew[x]));
+            d += fa.x * fe.x + fa.y * fe.y;
+          }
+        }
+        d += __shfl_xor_sync(0xffffffffu, d, 1);
+        d += __shfl_xor_sync(0xffffffffu, d, 2);
+        delta[r] = d;
+        ml[r] = sm.lse[b][wg * 64 + row] * LOG2E;
+      }
+
+      for (int i = 0; i < w.ntiles; ++i, ++g) {
+        const int s = g % STAGES;
+        const int kbase = (w.kt0 + i) * BK;
+        bar_wait(&sm.full[s], (g / STAGES) & 1);
+        if (kbase <= w_hi && kbase + BK - 1 >= w_lo) {  // uniform over the warpgroup
+          float sc[32], dp[32];
+          sm90::fence();
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk)  // S = Q K^T
+            sm90::mma_ss(sc, desc(sm.q[b][wg], 32 * kk), desc(sm.k[s], 32 * kk), kk);
+#pragma unroll
+          for (int kk = 0; kk < DH / 16; ++kk)  // dP = dO V^T
+            sm90::mma_ss(dp, desc(sm.dout[b][wg], 32 * kk), desc(sm.v[s], 32 * kk), kk);
+          sm90::commit();
+          sm90::wait_all();
+          sm90::pin(sc);
+          sm90::pin(dp);
+
+          // dS = P * (dP - delta), packed to bf16 as it is formed: register
+          // 4n + 2r + j is row qw + rloc + 8r, key kbase + 8n + cq + j, and
+          // the A fragment of k-step kk is registers 8kk .. 8kk+7 in pairs
+          unsigned da[4][4];
+#pragma unroll
+          for (int n = 0; n < BK / 8; ++n) {
+            const int key = kbase + 8 * n + cq;
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+              const int idx = 4 * n + 2 * r;
+              const bool ok0 = key >= lo[r] && key <= hi[r];
+              const bool ok1 = key + 1 >= lo[r] && key + 1 <= hi[r];
+              const float p0 = ok0 ? exp2f(fmaf(sc[idx], c, -ml[r])) : 0.f;
+              const float p1 = ok1 ? exp2f(fmaf(sc[idx + 1], c, -ml[r])) : 0.f;
+              const float ds0 = ok0 ? p0 * (dp[idx] - delta[r]) : 0.f;
+              const float ds1 = ok1 ? p1 * (dp[idx + 1] - delta[r]) : 0.f;
+              da[n >> 1][2 * (n & 1) + r] = sm90::pack_bf16(ds0, ds1);
+            }
+          }
+          sm90::fence();
+#pragma unroll
+          for (int kk = 0; kk < BK / 16; ++kk)  // dQ += dS K, K the MN-major B operand
+            sm90::mma_rs(acc, da[kk], desc(sm.k[s], 2048 * kk));
+          sm90::commit();
+          sm90::wait_all();
+          sm90::pin(acc);
+        }
+        __syncwarp();
+        if (lane == 0) bar_arrive(&sm.empty[s]);  // this warp is done with stage s
+      }
+      __syncwarp();
+      if (lane == 0) bar_arrive(&sm.q_empty[b]);  // and with this block's q, do, o
+      ++jj;
+    }
+
+    // dq = dQ * scale from registers; 0 for rows that get no gradient
+    const long long gbase = (bh / h) * gn + (bh % h) * gh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qw + rloc + 8 * r;
+      if (row >= t) continue;
+      __nv_bfloat16* dqrow = dq + gbase + row * gt + cq;
+#pragma unroll
+      for (int n = 0; n < DH / 8; ++n) {
+        const int idx = 4 * n + 2 * r;
+        *reinterpret_cast<__nv_bfloat162*>(dqrow + 8 * n) =
+            __floats2bfloat162_rn(acc[idx] * scale, acc[idx + 1] * scale);
+      }
+    }
+  }
+}
+
+template <bool RANGED>
+int launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+           const float* lse, void* dq, int n, int h, int t, long long sn, long long sh,
+           long long st, long long gn, long long gh, long long gt, int band, int valid_len,
+           float scale, Bounds bounds, cudaStream_t stream) {
+  CUtensorMap q_map, k_map, v_map, o_map, do_map;
+  int err = sm90::make_map(&q_map, q, n, h, t, sn, sh, st, BQB);
+  if (err == 0) err = sm90::make_map(&k_map, k, n, h, t, sn, sh, st, BK);
+  if (err == 0) err = sm90::make_map(&v_map, v, n, h, t, sn, sh, st, BK);
+  if (err == 0) err = sm90::make_map(&o_map, o, n, h, t, gn, gh, gt, BQB);
+  if (err == 0) err = sm90::make_map(&do_map, dout, n, h, t, gn, gh, gt, BQB);
+  if (err != 0) return err;
+  // persistent: as many CTAs as fit at once (the occupancy times the SMs),
+  // at most one per item
+  const auto kernel = banded_attn_bwd_dq_sm90_kernel<RANGED>;
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (e == cudaSuccess) e = cudaGetDevice(&device);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, THREADS, SMEM_BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);  // the CTA does not fit
+  const int grid = min(per_sm * sms, (t + BQB - 1) / BQB * n * h);
+  kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(q_map, k_map, v_map, o_map, do_map, lse,
+                                                static_cast<__nv_bfloat16*>(dq), n * h, h, t, gn,
+                                                gh, gt, band, valid_len, scale, bounds);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace hopper_dq
+
+// the body the last dq and dk/dv calls took: "sm90" (bf16) or "wmma" (f32)
+const char* last_dq_body = "none";
 const char* last_dkv_body = "none";
 
 template <typename T, typename Smem, typename Kernel, typename... Args>
@@ -748,14 +1054,13 @@ int dq_entry(const void* q, const void* k, const void* v, const void* o, const v
              long long st, long long gn, long long gh, long long gt, int band, int valid_len,
              float scale, Bounds bounds, int bf16, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  // the body by dtype: bf16 takes the Hopper body, f32 the WMMA body
   if (bf16) {
-    using T = __nv_bfloat16;
-    return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T, RANGED>, n, h, t, s,
-                             static_cast<const T*>(q), static_cast<const T*>(k),
-                             static_cast<const T*>(v), static_cast<const T*>(o),
-                             static_cast<const T*>(dout), lse, static_cast<T*>(dq), h, t, sn, sh,
-                             st, gn, gh, gt, band, valid_len, scale, bounds);
+    last_dq_body = "sm90";
+    return hopper_dq::launch<RANGED>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt,
+                                     band, valid_len, scale, bounds, s);
   }
+  last_dq_body = "wmma";
   using T = float;
   return launch<T, SmemDq>(banded_attn_bwd_dq_kernel<T, RANGED>, n, h, t, s,
                            static_cast<const T*>(q), static_cast<const T*>(k),
@@ -842,8 +1147,10 @@ extern "C" const char* banded_attention_bwd_error_string(int err) {
   return sm90::error_string(err);
 }
 
-// "sm90" or "wmma": the body the last dk/dv call took (dq has one body)
+// "sm90" or "wmma": the body the last dq (dk/dv) call took
+extern "C" const char* banded_attention_bwd_last_dq_body() { return last_dq_body; }
 extern "C" const char* banded_attention_bwd_last_dkv_body() { return last_dkv_body; }
 
-// the Hopper dk/dv body's dynamic shared memory per CTA, bytes
-extern "C" int banded_attention_bwd_sm90_smem_bytes() { return hopper::SMEM_BYTES; }
+// the Hopper dq (dk/dv) body's dynamic shared memory per CTA, bytes
+extern "C" int banded_attention_bwd_sm90_dq_smem_bytes() { return hopper_dq::SMEM_BYTES; }
+extern "C" int banded_attention_bwd_sm90_dkv_smem_bytes() { return hopper::SMEM_BYTES; }

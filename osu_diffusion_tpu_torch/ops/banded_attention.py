@@ -30,15 +30,14 @@ and LSE are f32, and outputs come back in q's type. The LSE is one
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
-Two bodies sit behind the forward and dk/dv entries, chosen by the C entry
-by dtype: a bf16 call runs the Hopper body (wgmma, a TMA ring, the softmax
-in registers), an f32 call the WMMA body of PRs 1-2; after a launch the
-wrapper's `.body` names the one that ran ("sm90" or "wmma"). dq has the
-WMMA body in both streams. TMA reads q/k/v through strides in multiples of
-16 bytes: a bf16 q/k/v whose strides are multiples of 4 elements but not
-of 8 is copied to a contiguous layout first (`_fit_tma`); the model's
-layouts (head views of the packed qkv projection, contiguous shards) need
-no copy.
+Two bodies sit behind every entry (forward, dq and dk/dv), chosen by the C
+entry by dtype: a bf16 call runs the Hopper body (wgmma, a TMA ring, the
+softmax or dS in registers), an f32 call the WMMA body; after a
+launch the wrapper's `.body` names the one that ran ("sm90" or "wmma").
+TMA reads q/k/v through strides in multiples of 16 bytes: a bf16 q/k/v
+whose strides are multiples of 4 elements but not of 8 is copied to a
+contiguous layout first (`_fit_tma`); the model's layouts (head views of
+the packed qkv projection, contiguous shards) need no copy.
 `banded_attention` under grad (an input requires it) runs the
 `BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
 
@@ -201,15 +200,18 @@ def _bwd_lib() -> ctypes.CDLL:
     _bind(lib, "banded_attention_bwd_dkv_ranged", [p] * 8 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.banded_attention_bwd_error_string.argtypes = [ctypes.c_int]
-    lib.banded_attention_bwd_last_dkv_body.restype = ctypes.c_char_p
-    lib.banded_attention_bwd_last_dkv_body.argtypes = []
+    for entry in ("dq", "dkv"):
+        body = getattr(lib, f"banded_attention_bwd_last_{entry}_body")
+        body.restype = ctypes.c_char_p
+        body.argtypes = []
     return lib
 
 
 def sm90_smem_bytes() -> dict[str, int]:
-    """Dynamic shared memory per CTA of the two Hopper bodies, bytes."""
+    """Dynamic shared memory per CTA of the three Hopper bodies, bytes."""
     return {"fwd": _lib().banded_attention_sm90_smem_bytes(),
-            "dkv": _bwd_lib().banded_attention_bwd_sm90_smem_bytes()}
+            "dq": _bwd_lib().banded_attention_bwd_sm90_dq_smem_bytes(),
+            "dkv": _bwd_lib().banded_attention_bwd_sm90_dkv_smem_bytes()}
 
 
 def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
@@ -337,11 +339,10 @@ def banded_attention_fwd_lse(
 
 def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
-    # o's layout) another; dk/dv records its body in `fn.body`
+    # o's layout) another; records the body that ran in `fn.body`
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
     _check_kernel_inputs(matmul_dtype, o=o, do=do)
-    if entry == "dkv":
-        q, k, v = _fit_tma(q, k, v)
+    q, k, v = _fit_tma(q, k, v)
     if o.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
     n, h, t, dh = q.shape
@@ -362,8 +363,7 @@ def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dty
         1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q),
     )
     _raise_on(err, lib, "banded_attention_bwd", name)
-    if entry == "dkv":
-        fn.body = lib.banded_attention_bwd_last_dkv_body().decode()
+    fn.body = getattr(lib, f"banded_attention_bwd_last_{entry}_body")().decode()
     return grads
 
 
@@ -537,8 +537,8 @@ banded_attention_ranged_fwd_lse.launches = 0
 banded_attention_ranged_bwd_dq.launches = 0
 banded_attention_ranged_bwd_dkv.launches = 0
 # the body the last launch took ("sm90" or "wmma"); None before any launch
-for _fn in (banded_attention, banded_attention_fwd_lse, banded_attention_bwd_dkv,
-            banded_attention_ranged, banded_attention_ranged_fwd_lse,
-            banded_attention_ranged_bwd_dkv):
+for _fn in (banded_attention, banded_attention_fwd_lse, banded_attention_bwd_dq,
+            banded_attention_bwd_dkv, banded_attention_ranged, banded_attention_ranged_fwd_lse,
+            banded_attention_ranged_bwd_dq, banded_attention_ranged_bwd_dkv):
     _fn.body = None
 del _fn

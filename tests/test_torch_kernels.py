@@ -151,7 +151,8 @@ def test_banded_attention_train_kernels_match_plain(cuda_device, t, valid, band,
     torch.cuda.synchronize()
     assert (tba.banded_attention_fwd_lse.launches, tba.banded_attention_bwd_dq.launches,
             tba.banded_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
-    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == BODY[dtype]
+    assert (tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dq.body
+            == tba.banded_attention_bwd_dkv.body == BODY[dtype])
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
     assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
@@ -208,7 +209,8 @@ def test_banded_attention_train_kernels_odd_head_count(cuda_device, t, valid, ba
     q, k, v = _qkv_heads(n, t, h, torch.bfloat16, g, cuda_device)
     do = torch.randn((n, t, h, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
     o, lse, dq, dk, dv = _train_attention(q, k, v, do, band, valid)
-    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == "sm90"
+    assert (tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dq.body
+            == tba.banded_attention_bwd_dkv.body == "sm90")
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
     assert _rel(o, want_o) <= 1e-2
@@ -224,12 +226,15 @@ def test_banded_attention_persistent_ctas_walk_many_items(cuda_device, ranged):
     """More (n*h, block) items than CTAs fit on the card at once, so every
     persistent CTA of the bf16 bodies walks several items through its ring
     (and, ranged, past pad blocks that load nothing): rows 2 and 4 (5 and 6)
-    against the plain versions at the tolerances above."""
+    against the plain versions at the tolerances above; dq (row 3, row 6's
+    dq) the same way, 0 on pad query rows."""
     g = torch.Generator(device=cuda_device).manual_seed(17)
     if ranged:
         q, k, v, do, bounds = _ranged_inputs(24, 12, 256, 128, 1, 2, None, torch.bfloat16, g, cuda_device)
         o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, 128, bounds)
+        dq = tba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, 128, bounds)
         dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, 128, bounds)
+        assert not dq[:, :, :bounds[2]].any() and not dq[:, :, bounds[3]:].any()
         t = q.shape[2]
         want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, 128, t, torch.bfloat16, bounds)
         want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, 128, t, torch.bfloat16, bounds)
@@ -240,13 +245,14 @@ def test_banded_attention_persistent_ctas_walk_many_items(cuda_device, ranged):
         q, k, v = _qkv_heads(64, 256, 12, torch.bfloat16, g, cuda_device)
         do = torch.randn((64, 256, 12, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
         o, lse = tba.banded_attention_fwd_lse(q, k, v, 128, 250)
+        dq = tba.banded_attention_bwd_dq(q, k, v, o, lse, do, 128, 250)
         dk, dv = tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, 128, 250)
         want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, 128, 250, torch.bfloat16)
         want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, 128, 250, torch.bfloat16)
     torch.cuda.synchronize()
     assert _rel(o, want_o) <= 1e-2
     assert (lse - want_lse).abs().max().item() <= 1e-3
-    for name, got, w in zip(("dk", "dv"), (dk, dv), want[1:]):
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert torch.isfinite(got).all(), name
         assert _rel(got, w) <= 1e-2, name
 
@@ -255,7 +261,7 @@ def test_banded_attention_persistent_ctas_walk_many_items(cuda_device, ranged):
 def test_banded_attention_bf16_layouts_agree(cuda_device):
     """The Hopper bodies read through strides: head views of a packed qkv
     projection and contiguous copies of the same values give the same bits
-    (o, LSE, dk, dv); so does a q/k/v whose strides TMA cannot take (a row
+    (o, LSE, dq, dk, dv); so does a q/k/v whose strides TMA cannot take (a row
     stride of 68 elements, 136 bytes), which the wrapper copies to a
     contiguous layout first; and a `do` given contiguous (N, H, T, Dh)
     through the autograd Function, which copies it to the (N, T, H, Dh)
@@ -272,7 +278,8 @@ def test_banded_attention_bf16_layouts_agree(cuda_device):
     odd = [w[..., :64] for w in wide]
     assert odd[0].stride(2) == 68
     odd_strides = _train_attention(*odd, do, band, valid)
-    assert tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dkv.body == "sm90"
+    assert (tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dq.body
+            == tba.banded_attention_bwd_dkv.body == "sm90")
     for name, a, b, c in zip(("o", "lse", "dq", "dk", "dv"), packed, contiguous, odd_strides):
         assert torch.equal(a, b), name
         assert torch.equal(a, c), name
@@ -285,22 +292,28 @@ def test_banded_attention_bf16_layouts_agree(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["dq", "dkv"])
 @pytest.mark.parametrize("ranged", [False, True], ids=["banded", "ranged"])
-def test_banded_attention_dkv_is_bit_identical_run_to_run(cuda_device, ranged):
-    """No atomics: two dk/dv calls on the same inputs give the same bits."""
+def test_banded_attention_backward_is_bit_identical_run_to_run(cuda_device, ranged, entry):
+    """No atomics: two dq (dk/dv) calls on the same bf16 inputs give the
+    same bits."""
     g = torch.Generator(device=cuda_device).manual_seed(13)
     if ranged:
         q, k, v, do, bounds = _ranged_inputs(4, 12, 256, 128, 0, 2, None, torch.bfloat16, g, cuda_device)
         o, lse = tba.banded_attention_ranged_fwd_lse(q, k, v, 128, bounds)
-        runs = [tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, 128, bounds) for _ in range(2)]
+        fn = getattr(tba, f"banded_attention_ranged_bwd_{entry}")
+        runs = [fn(q, k, v, o, lse, do, 128, bounds) for _ in range(2)]
     else:
         q, k, v = _qkv_heads(8, 128, 12, torch.bfloat16, g, cuda_device)
         do = torch.randn((8, 128, 12, 64), generator=g, device=cuda_device).to(torch.bfloat16).permute(0, 2, 1, 3)
         o, lse = tba.banded_attention_fwd_lse(q, k, v, 128, 128)
-        runs = [tba.banded_attention_bwd_dkv(q, k, v, o, lse, do, 128, 128) for _ in range(2)]
+        fn = getattr(tba, f"banded_attention_bwd_{entry}")
+        runs = [fn(q, k, v, o, lse, do, 128, 128) for _ in range(2)]
     torch.cuda.synchronize()
-    assert torch.equal(runs[0][0], runs[1][0]) and torch.equal(runs[0][1], runs[1][1])
-    assert runs[0][0].abs().max().item() > 0
+    assert fn.body == "sm90"
+    first, second = ((r,) if entry == "dq" else r for r in runs)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert first[0].abs().max().item() > 0
 
 
 def _ranged_inputs(n, h, t_loc, band, idx, p, valid, dtype, g, device):
@@ -370,7 +383,8 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == [c + 1 for c in counts]
     assert (tba.banded_attention_ranged.body == tba.banded_attention_ranged_fwd_lse.body
-            == tba.banded_attention_ranged_bwd_dkv.body == BODY[dtype])
+            == tba.banded_attention_ranged_bwd_dq.body == tba.banded_attention_ranged_bwd_dkv.body
+            == BODY[dtype])
     t = q.shape[2]
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, t, torch.bfloat16, bounds)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, torch.bfloat16, bounds)
