@@ -10,13 +10,18 @@ Phases (any failure raises and exits non-zero):
 2. Inference kernel A (banded attention) against its plain version on the
    card: at the DiT-B sampling shape and at ragged shapes, against the plain
    version with bf16-rounded operands and against the f32 plain version.
-3. Inference kernel B (fused adaLN-MLP), the same way.
+3. Inference kernel B (fused adaLN-MLP), the same way, with the body its
+   calls took (bf16 weights: sm90) and the same bits on a second call;
+   timed beside a cuBLAS bf16 fc1 + fc2 of its shapes (`library_ms`).
 4. The training kernels, the same way, at the DiT-B training shapes (q/k/v
    (256, 12, 128, 64), x (256, 128, 768), bf16 stream) and ragged ones (T not
    a tile multiple, valid_len < T, band < T, the DiT-S width 384, the f32
    stream): the banded attention forward with LSE, its dq and dk/dv kernels
    (the LSE and all three gradients checked), and kernel B's training forward
-   (out and the a / mlp residuals checked). `[attn-train]` and `[attn-cp]`
+   (out and the a / mlp residuals checked; its body, the same bits on a
+   second call, its three stages' times beside the whole, the registers,
+   spill bytes and shared memory of its eight GEMM builds, and a cuBLAS
+   bf16 fc1 + fc2 of its shapes). `[attn-train]` and `[attn-cp]`
    (13) print the registers, spill bytes (required 0) and shared memory of
    the bf16 Hopper bodies of the forward, dq and dk/dv, and for each case
    the body its calls took (bf16: sm90, f32: the WMMA body); at
@@ -25,7 +30,8 @@ Phases (any failure raises and exits non-zero):
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
    50 CFG denoise steps, the .osu written and reparsed, and each inference
    kernel's launch count equal to steps x depth. A second, timed run gives
-   the seconds per denoise step, and a profiled run the device time by kernel.
+   the seconds per denoise step, and a profiled run the device time by kernel
+   (kernel B's own per denoise step).
 6. The model against its plain versions: one DiT-B forward at the sampling
    inputs on the card (kernels) and on the CPU (plain versions).
 7. The train CLI end to end at DiT-B width with 52670 classes (seeded
@@ -35,7 +41,8 @@ Phases (any failure raises and exits non-zero):
    lines and each training kernel's launch count (steps x depth x 2 for the
    two forward kernels, recomputed under --remat; steps x depth for dq and
    dk/dv). Prints seconds per optimizer step (CUDA events, steady state),
-   the device busy share and the top device ops (torch.profiler).
+   the device busy share, the top device ops and kernel B's device time
+   per step (torch.profiler).
 8. One DiT-B training step at batch 4, card (kernels) against CPU (plain
    versions), same weights and draws: the L1 loss's terms (loss, l1, vb),
    then the MSE loss and every parameter gradient.
@@ -181,7 +188,10 @@ ATTN_TRAIN_CASES = [
 BODY = {"bf16": "sm90", "f32": "wmma"}
 # (name, N, T, D, stream)
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
-                   ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
+                   ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32"),
+                   ("dit_l_width_t757", 1, 757, 1024, "bf16")]
+# kernel B's Hopper body: its kernels' names in a profile
+MLP_SM90_KERNELS = ("adaln_mlp_modulate_kernel", "adaln_mlp_gemm_kernel")
 # the fused MLP backward's checks: (name, N, T, D, stream), the DiT-B
 # training shape first
 MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "bf16"),
@@ -431,12 +441,55 @@ def phase_attention(dev):
     return result
 
 
+def cublas_mlp_ms(n, t, d, hdim, dev) -> float:
+    """Yardstick, not the same function: cuBLAS bf16 fc1 + fc2 of kernel B's
+    shapes, (N*T, D) x (D, H) and (N*T, H) x (H, D), bf16 results."""
+    import torch
+
+    bf16 = torch.bfloat16
+    h, w1 = torch.randn(n * t, d, device=dev, dtype=bf16), torch.randn(d, hdim, device=dev, dtype=bf16)
+    g, w2 = torch.randn(n * t, hdim, device=dev, dtype=bf16), torch.randn(hdim, d, device=dev, dtype=bf16)
+    return cuda_ms(lambda: (torch.mm(h, w1), torch.mm(g, w2)))
+
+
+def mlp_sm90_resources() -> str:
+    """Registers and spill bytes (0 required) of the eight builds of kernel
+    B's Hopper GEMM (tile width, up or down, x's type) from this build's
+    ptxas lines, and the dynamic shared memory a CTA at each width."""
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    found, entry = {}, None
+    for line in cuda_build.build_info["adaln_mlp"]["log"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        if entry is None or "adaln_mlp_gemm_kernel" not in entry:
+            continue
+        k = re.search(r"ILi(\d+)ELi(\d)E(\w)", entry)
+        name = f"{k[1]} {'up' if k[2] == '0' else 'down'} {'bf16' if k[3] == '1' else 'f32'}"
+        res = found.setdefault(name, {})
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res["spill_bytes"] = int(m[1]) + int(m[2])
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res["registers"] = int(m[1])
+    check(len(found) == 8 and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the eight Hopper MLP GEMM builds not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper MLP GEMMs spill: {found}")
+    smem = am.sm90_smem_bytes()
+    return ("; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
+                      for n, r in sorted(found.items()))
+            + "; shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
+
+
 def phase_mlp(dev):
     import torch
-    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_reference, pack_weights
+    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_reference
 
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = [("main", 2, 768, 768), ("ragged_t", 3, 50, 768), ("dit_s_width", 2, 100, 384)]
+    cases = [("main", 2, 768, 768), ("ragged_t", 3, 50, 768), ("dit_s_width", 2, 100, 384),
+             ("dit_l_width_t757", 1, 757, 1024)]
     result = None
     for name, n, t, d in cases:
         hdim = 4 * d
@@ -450,29 +503,35 @@ def phase_mlp(dev):
         w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
         b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
         w1b, w2b = w1.to(torch.bfloat16), w2.to(torch.bfloat16)
-        w1p, w2p = pack_weights(w1b, w2b)  # the layout the kernel streams
-        got = adaln_mlp(x, shift, scale, gate, w1p, b1, w2p, b2)
+        fc1_w, fc2_w = w1b.t().contiguous(), w2b.t().contiguous()  # torch's Linear layout
+        got = adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
         torch.cuda.synchronize()
+        body = adaln_mlp.body
+        same = torch.equal(adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2), got)
         ref16 = adaln_mlp_reference(x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, torch.bfloat16)
         ref32 = adaln_mlp_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.float32)
         e16, e32 = max_err(got, ref16), max_err(got, ref32)
-        print(f"[mlp] {name}: x=({n}, {t}, {d}) w1=({d}, {hdim}) "
+        print(f"[mlp] {name}: x=({n}, {t}, {d}) w1=({d}, {hdim}) body {body} "
               f"max_abs_err bf16={e16:.3e} (tol {MLP_TOL_BF16}) "
-              f"f32={e32:.3e} (tol {MLP_TOL_F32})")
+              f"f32={e32:.3e} (tol {MLP_TOL_F32}); same bits on a second call: {same}")
+        check(body == "sm90", f"mlp {name}: body {body}, expected sm90")
+        check(same, f"mlp {name}: a second call gave other bits")
         check(bool(torch.isfinite(got).all()), f"mlp {name}: non-finite output")
         check(e16 <= MLP_TOL_BF16, f"mlp {name}: {e16} > {MLP_TOL_BF16}")
         check(e32 <= MLP_TOL_F32, f"mlp {name}: {e32} > {MLP_TOL_F32}")
         if name == "main":
-            ms = cuda_ms(lambda: adaln_mlp(x, shift, scale, gate, w1p, b1, w2p, b2))
+            ms = cuda_ms(lambda: adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2))
             plain_ms = cuda_ms(lambda: adaln_mlp_reference(
                 x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.float32))
             plain16_ms = cuda_ms(lambda: adaln_mlp_reference(
                 x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, torch.bfloat16))
-            b = bound(nbytes(x, shift, scale, gate, w1p, b1, w2p, b2, got), 4 * n * t * d * hdim)
+            library_ms = cublas_mlp_ms(n, t, d, hdim, dev)
+            b = bound(nbytes(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, got), 4 * n * t * d * hdim)
             print(f"[mlp] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
                   f"plain bf16-rounded {plain16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}); no single PyTorch call computes it")
-            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": None}
+                  f"({b['bound_by']}); yardstick, not the same function: cuBLAS bf16 fc1 + fc2 "
+                  f"({n * t}, {d}) x ({d}, {hdim}), ({n * t}, {hdim}) x ({hdim}, {d}) {library_ms:.4f} ms")
+            result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
     return result
 
 
@@ -569,16 +628,15 @@ def phase_attention_train(dev):
 
 def phase_mlp_train(dev):
     """Row 8: kernel B's training forward (out, a, mlp) against its plain
-    version (bf16 operands, and f32)."""
+    version (bf16 operands, and f32); its body and repeatability; at the
+    main shape its three stages' times beside the whole, and the Hopper
+    GEMM builds' resources."""
     import torch
-    from osu_diffusion_tpu_torch.ops.adaln_mlp import (
-        adaln_mlp_train,
-        adaln_mlp_train_reference,
-        pack_weights,
-    )
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
 
     g = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
+    print(f"[mlp-train] Hopper GEMM builds (ptxas): {mlp_sm90_resources()}")
     result = None
     for name, n, t, d, stream in MLP_TRAIN_CASES:
         dtype = f32 if stream == "f32" else bf16
@@ -593,34 +651,51 @@ def phase_mlp_train(dev):
         w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
         b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
         w1b, w2b = w1.to(bf16), w2.to(bf16)
-        w1p, w2p = pack_weights(w1b, w2b)
-        got = adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)
+        fc1_w, fc2_w = w1b.t().contiguous(), w2b.t().contiguous()
+        args = (x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
+        got = am.adaln_mlp_train(*args)
         torch.cuda.synchronize()
-        want16 = adaln_mlp_train_reference(x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16)
-        want32 = adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
+        body = am.adaln_mlp_train.body
+        same = all(torch.equal(u, v) for u, v in zip(am.adaln_mlp_train(*args), got))
+        want16 = am.adaln_mlp_train_reference(x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16)
+        want32 = am.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
         errs = {}
         for out, a, w16, w32 in zip(("out", "a", "mlp"), got, want16, want32):
             check(bool(torch.isfinite(a).all()), f"mlp train {name}: non-finite {out}")
             check(a.shape == w16.shape and a.dtype == w16.dtype, f"mlp train {name}: {out} shape/type")
             errs[out] = (rel_err(a, w16), rel_err(a, w32))
-        print(f"[mlp-train] {name}: x=({n}, {t}, {d}) {stream} "
+        print(f"[mlp-train] {name}: x=({n}, {t}, {d}) {stream} body {body} "
               + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
-              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32})")
+              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); "
+              f"same bits on a second call: {same}")
+        check(body == "sm90", f"mlp train {name}: body {body}, expected sm90")
+        check(same, f"mlp train {name}: a second call gave other bits")
         for out, (e16, e32) in errs.items():
             check(e16 <= TRAIN_TOL_BF16, f"mlp train {name} {out}: {e16} > {TRAIN_TOL_BF16}")
             check(e32 <= TRAIN_TOL_F32, f"mlp train {name} {out}: {e32} > {TRAIN_TOL_F32}")
         if name == "main":
-            ms = cuda_ms(lambda: adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2))
-            plain_ms = cuda_ms(lambda: adaln_mlp_train_reference(
+            ms = cuda_ms(lambda: am.adaln_mlp_train(*args))
+            # each stage alone (a timing run: the other stages' outputs unwritten)
+            stage_ms = {stage: cuda_ms(lambda m=mask: am._launch(
+                am.adaln_mlp_train, *args, 1e-6, bf16, residuals=True, stages=m))
+                for stage, mask in (("modulate", 1), ("up", 2), ("down", 4))}
+            up, down = am.mlp_plan(n, t, d, hdim, torch.cuda.get_device_properties(0).multi_processor_count)
+            plain_ms = cuda_ms(lambda: am.adaln_mlp_train_reference(
                 x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32))
-            plain16_ms = cuda_ms(lambda: adaln_mlp_train_reference(
+            plain16_ms = cuda_ms(lambda: am.adaln_mlp_train_reference(
                 x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16))
-            b = bound(nbytes(x, shift, scale, gate, w1p, b1, w2p, b2, *got), 4 * n * t * d * hdim)
-            print(f"[mlp-train] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
-                  f"plain bf16-rounded {plain16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
-                  f"({b['bound_by']}); no single PyTorch call computes it")
+            library_ms = cublas_mlp_ms(n, t, d, hdim, dev)
+            b = bound(nbytes(*args, *got), 4 * n * t * d * hdim)
+            print(f"[mlp-train] main: kernel {ms:.4f} ms (stages alone: modulate "
+                  f"{stage_ms['modulate']:.4f}, up {stage_ms['up']:.4f} ({up.width}-wide tiles, "
+                  f"{up.tiles} on {up.grid} CTAs), down {stage_ms['down']:.4f} ({down.width}-wide, "
+                  f"{down.tiles} on {down.grid}); sum {sum(stage_ms.values()):.4f}), plain f32 "
+                  f"{plain_ms:.4f} ms, plain bf16-rounded {plain16_ms:.4f} ms, bound "
+                  f"{b['bound_ms']:.4f} ms ({b['bound_by']}); yardstick, not the same function: "
+                  f"cuBLAS bf16 fc1 + fc2 ({n * t}, {d}) x ({d}, {hdim}), ({n * t}, {hdim}) x "
+                  f"({hdim}, {d}) {library_ms:.4f} ms")
             result = {"max_abs_err": max_err(got[0], want16[0]), "ms": ms, "plain_ms": plain_ms,
-                      **b, "library_ms": None}
+                      **b, "library_ms": library_ms}
     return result
 
 
@@ -651,8 +726,10 @@ def phase_mlp_bwd(dev):
         w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
         b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
         w1b, w2b = w1.to(bf16), w2.to(bf16)
-        w1p, w2p = am.pack_weights(w1b, w2b)
-        _, a, mlp = am.adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)  # the residuals
+        w1p, w2p = am.pack_weights(w1b, w2b)  # the layout the backward kernels read
+        # the residuals, from the training forward
+        _, a, mlp = am.adaln_mlp_train(x, shift, scale, gate, w1b.t().contiguous(), b1,
+                                       w2b.t().contiguous(), b2)
         gout = rnd(n, t, d, std=1.0).to(dtype)
         pro = am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p)
         epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, w1p)
@@ -959,6 +1036,11 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
           f"of the timed chain")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{ptag}]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    # kernel B's own device time: the Hopper body (f32) or the int8 WMMA body
+    names = ("adaln_mlp_partial_kernel", "adaln_mlp_epilogue_kernel") if quantize else MLP_SM90_KERNELS
+    mlp_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in names))
+    print(f"[{tag}] kernel B ({', '.join(names)}) {mlp_us / 1000 / STEPS:.3f} ms of device time per "
+          f"denoise step, {100 * mlp_us / max(device_us, 1e-9):.1f}% of the chain's")
     return launches, sampler, call_args, step_ms
 
 
@@ -1156,6 +1238,9 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     print(f"[{tag}-profile] banded attention kernels {sum(attn_us.values()) / 1000 / n_prof:.3f} ms/step, "
           f"{100 * sum(attn_us.values()) / device_us:.1f}% of device time: " + ", ".join(
               f"{k[:60]} {v / 1000 / n_prof:.3f}" for k, v in sorted(attn_us.items(), key=lambda kv: -kv[1])))
+    mlp_us = sum(e.self_device_time_total for e in events_dev if any(k in e.key for k in MLP_SM90_KERNELS))
+    print(f"[{tag}] kernel B's training forward (the Hopper body: {', '.join(MLP_SM90_KERNELS)}) "
+          f"{mlp_us / 1000 / n_prof:.3f} ms of {device_us / 1000 / n_prof:.2f} ms device time per step")
     numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
                "device_ms": device_us / 1000 / n_prof}
     if not default:

@@ -27,6 +27,7 @@ from osu_diffusion_tpu_torch.beatmap.objects import (
     TimingPoint,
     make_slider,
 )
+from osu_diffusion_tpu_torch.beatmap.parser import MAX_TIME_MS
 
 
 def position_to_progress(slider_path: SliderPath, pos: np.ndarray) -> float:
@@ -151,10 +152,14 @@ def create_beatmap(seq, ref_beatmap: Beatmap, version: str) -> Beatmap:
                     if span_duration > 0
                     else 0.0
                 )
+                # a fitted length so near 0 (a slider ending on its head: the
+                # fit's descent can stop at t ~ 1e-14, not 0) that -100 / SV
+                # would pass the beat length a parser accepts takes the
+                # zero-length fallback, as a length of 0 does
                 timing_points.append(
                     TimingPoint(
                         curr_object.time,
-                        -100 / new_sv_multiplier if new_sv_multiplier > 0 else -100,
+                        -100 / new_sv_multiplier if new_sv_multiplier > 100 / MAX_TIME_MS else -100,
                         tp.meter,
                         tp.sample_type,
                         tp.sample_set,

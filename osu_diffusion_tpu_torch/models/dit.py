@@ -201,16 +201,16 @@ class Mlp(nn.Module):
         self._kernel_weights = None
 
     def kernel_weights(self, dtype: torch.dtype) -> tuple[torch.Tensor, torch.Tensor]:
-        """fc1/fc2 weights in `dtype`, packed as `adaln_mlp` takes them
-        (ops/adaln_mlp.py, pack_weights), for the inference forward. Made
+        """fc1/fc2 weights in `dtype`, contiguous in torch's (out, in)
+        layout, as `adaln_mlp` takes them, for the inference forward. Made
         once and kept until the weights change (a load, an in-place update
         or a move to another device). They carry no autograd history: the
-        training forward packs inside `AdalnMlp` instead."""
+        training forward casts inside `AdalnMlp` instead."""
         w1, w2 = self.fc1.weight, self.fc2.weight
         key = (dtype, w1.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
         if self._kernel_weights is None or self._kernel_weights[0] != key:
             with torch.no_grad():
-                self._kernel_weights = (key, pack_weights(w1.t(), w2.t(), dtype))
+                self._kernel_weights = (key, tuple(w.to(dtype).contiguous() for w in (w1, w2)))
         return self._kernel_weights[1]
 
 
@@ -238,8 +238,8 @@ class DiTBlock(nn.Module):
         if torch.is_grad_enabled() and (x.requires_grad or fc1.weight.requires_grad):
             return AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight,
                                   fc2.bias, 1e-6, matmul_dtype, self.mlp_bwd)
-        w1p, w2p = self.mlp.kernel_weights(matmul_dtype)
-        return adaln_mlp(x, shift, scale, gate, w1p, fc1.bias, w2p, fc2.bias, 1e-6, matmul_dtype)
+        w1, w2 = self.mlp.kernel_weights(matmul_dtype)
+        return adaln_mlp(x, shift, scale, gate, w1, fc1.bias, w2, fc2.bias, 1e-6, matmul_dtype)
 
 
 class QuantLinear(nn.Module):

@@ -13,26 +13,36 @@ csrc/adaln_mlp_bwd.cu. It computes the MLP half of a DiT block,
 
     out = x + gate * fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift)))
 
-with a non-affine two-pass LayerNorm, and keeps the (N, T, 4D) hidden
-activation on chip. x and out are float32 or bfloat16 (the training
-stream); shift/scale/gate and the biases are f32. The kernel's weights come
-in the packed layout of `pack_weights`, in which every tile the kernel
-streams is one contiguous block. In training the forward also returns the
-backward's residuals: the pre-GELU `a` (N, T, H) in x's type and the
-pre-gate `mlp` (N, T, D) in f32. The int8 serving forward takes f32 x
-only, int8 weight codes in the same packed layout (`pack_weights(...,
-dtype=torch.int8)`) and their per-output-channel scales s1 (H,), s2 (D,).
+with a non-affine two-pass LayerNorm. x and out are float32 or bfloat16
+(the training stream); shift/scale/gate and the biases are f32. In
+training the forward also returns the backward's residuals: the pre-GELU
+`a` (N, T, H) in x's type and the pre-gate `mlp` (N, T, D) in f32.
+
+Two bodies. bf16 weights (`adaln_mlp`, `adaln_mlp_train`) take the Hopper
+body: a modulate pass, then two persistent wgmma GEMMs (up, with bias and
+GELU in its epilogue; down, with bias, gate and residual in its), sized by
+the tile plan `mlp_plan`; the weights come in torch's Linear layout (fc1
+(H, D), fc2 (D, H)), and the hidden activation goes through device memory
+as bf16. The int8 serving forward (`adaln_mlp_quant`, f32 x only) takes the
+WMMA body, which keeps the hidden activation on chip: int8 weight codes in
+the packed layout of `pack_weights(..., dtype=torch.int8)`, in which every
+tile it streams is one contiguous block, and their per-output-channel
+scales s1 (H,), s2 (D,). The fused backward's kernels read the bf16 packed
+layout. After a launch the wrapper's `.body` names the body that ran
+("sm90" or "wmma").
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
 `AdalnMlp` is the autograd Function of the training path: it takes fc1/fc2
-weights in torch's (out, in) layout, packs them itself, and returns their
-gradients in that layout; `bwd_impl` picks the plain or the fused backward.
+weights in torch's (out, in) layout, casts (and, for the fused backward,
+packs) them itself, and returns their gradients in that layout; `bwd_impl`
+picks the plain or the fused backward.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -44,10 +54,16 @@ ACT_DTYPES = (torch.float32, torch.bfloat16)  # activation types the kernel take
 GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 GELU_C1 = 0.044715
 
-KERNEL_WIDTHS = (384, 768, 1024)  # D of DiT-S/B/L; the kernel is built for these
-HIDDEN_CHUNK = 128  # the kernel walks the hidden dim in chunks of this width
-ROW_PAD = 8  # zero elements after each packed row: the kernel's shared-memory row padding
-ROW_TILE = 32  # tokens per CTA
+KERNEL_WIDTHS = (384, 768, 1024)  # D of DiT-S/B/L; the kernels are built for these
+# the packed layout of the int8 body and the fused backward
+HIDDEN_CHUNK = 128  # those kernels walk the hidden dim in chunks of this width
+ROW_PAD = 8  # zero elements after each packed row: their shared-memory row padding
+ROW_TILE = 32  # tokens per CTA of those kernels
+# the Hopper body's GEMMs
+GEMM_ROWS = 128  # rows of an output tile: two consumer warpgroups of 64
+GEMM_DEPTH = 64  # the reduction slab each ring stage holds
+GEMM_WIDTHS = (256, 128)  # output tile widths the kernel is built for, widest first
+TILE_FIXED_COLS = 64  # gemm_plan's fixed cost of a tile, in columns of work (not tuned)
 
 
 def pack_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
@@ -106,6 +122,90 @@ def adaln_mlp_reference(
     """Plain version of the inference forward (the training forward's
     output alone)."""
     return adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)[0]
+
+
+class GemmPlan(NamedTuple):
+    """One persistent GEMM of the Hopper body: C (rows, cols) = A (rows,
+    depth) . B (cols, depth)^T in (GEMM_ROWS, width) output tiles, numbered
+    row block-major (tile = row block * tiles_n + column block), CTA c of
+    `grid` taking tiles c, c + grid, ... (csrc/adaln_mlp.cu numbers them the
+    same way)."""
+    rows: int
+    cols: int
+    depth: int
+    width: int
+    grid: int
+
+    @property
+    def tiles_n(self) -> int:
+        return self.cols // self.width
+
+    @property
+    def tiles(self) -> int:
+        return -(-self.rows // GEMM_ROWS) * self.tiles_n
+
+    def tiles_of(self, cta: int) -> list[tuple[int, int]]:
+        """(first row, first column) of each tile CTA `cta` computes, in order."""
+        return [(i // self.tiles_n * GEMM_ROWS, i % self.tiles_n * self.width)
+                for i in range(cta, self.tiles, self.grid)]
+
+
+def gemm_plan(rows: int, cols: int, depth: int, sm_count: int) -> GemmPlan:
+    """The tile width and grid of one GEMM: of the GEMM_WIDTHS that divide
+    `cols`, the one whose busiest CTA has the least work, counting a tile as
+    its width plus TILE_FIXED_COLS columns' worth of fixed cost (its
+    pipeline's fill and its epilogue's); the widest on a tie. One persistent
+    CTA an SM, at most one per tile."""
+    if depth % GEMM_DEPTH:
+        raise ValueError(f"reduction depth {depth} is not a multiple of {GEMM_DEPTH}")
+    best = None
+    for width in GEMM_WIDTHS:
+        if cols % width:
+            continue
+        tiles = -(-rows // GEMM_ROWS) * (cols // width)
+        cost = -(-tiles // sm_count) * (width + TILE_FIXED_COLS)
+        if best is None or cost < best[0]:
+            best = (cost, GemmPlan(rows, cols, depth, width, min(sm_count, tiles)))
+    if best is None:
+        raise ValueError(f"no tile width of {GEMM_WIDTHS} divides {cols}")
+    return best[1]
+
+
+def mlp_plan(n: int, t: int, d: int, hdim: int, sm_count: int) -> tuple[GemmPlan, GemmPlan]:
+    """The Hopper body's two GEMMs over the N*T token rows: up (h . W1^T,
+    H columns over a depth of D) and down (g . W2^T, D columns over H)."""
+    return gemm_plan(n * t, hdim, d, sm_count), gemm_plan(n * t, d, hdim, sm_count)
+
+
+def adaln_mlp_train_staged(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float,
+                           plan: tuple[GemmPlan, GemmPlan]):
+    """The Hopper body's stages in plain PyTorch, at bf16 operands: the
+    modulate pass, then the up and down GEMMs tile by tile, in the order
+    each CTA of `plan` (`mlp_plan`) walks them, with the epilogues' bias,
+    GELU, gate and residual; each tile sums its whole reduction (no
+    split-K). Returns (out, a, mlp) as `adaln_mlp_train_reference`. fc1_w
+    (H, D) and fc2_w (D, H) in torch's Linear layout."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, t, d = x.shape
+    hdim = fc1_w.shape[0]
+    up, down = plan
+    xn, _ = _layer_norm_f32(x, eps)
+    h = (xn * (1.0 + scale.to(f32)[:, None, :]) + shift.to(f32)[:, None, :]).to(bf16)
+    h = h.reshape(n * t, d).to(f32)
+
+    def gemm(a, w, bias, p: GemmPlan):
+        c = torch.full((n * t, p.cols), float("nan"))  # a tile no CTA computes stays NaN
+        for cta in range(p.grid):
+            for r0, c0 in p.tiles_of(cta):
+                rows, cols = slice(r0, r0 + GEMM_ROWS), slice(c0, c0 + p.width)
+                c[rows, cols] = a[rows] @ w[cols].to(bf16).to(f32).t() + bias[cols].to(f32)
+        return c
+
+    pre = gemm(h, fc1_w, b1, up)
+    g = F.gelu(pre, approximate="tanh").to(bf16).to(f32)
+    mlp = gemm(g, fc2_w, b2, down).reshape(n, t, d)
+    out = x.to(f32) + gate.to(f32)[:, None, :] * mlp
+    return out.to(x.dtype), pre.reshape(n, t, hdim).to(x.dtype), mlp
 
 
 def adaln_mlp_quant_reference(
@@ -232,11 +332,11 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("adaln_mlp")
     fn = lib.adaln_mlp_fwd
     fn.restype = ctypes.c_int
-    # (x, shift, scale, gate, mod_stride, w1p, b1, w2p, b2, ws, out, a, mlp,
-    #  n, t, d, hdim, split, eps, bf16, stream)
+    # (x, shift, scale, gate, mod_stride, w1, b1, w2, b2, h, g, out, a, mlp,
+    #  n, t, d, hdim, bn_up, grid_up, bn_down, grid_down, eps, bf16, stages, stream)
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     )
     fn = lib.adaln_mlp_quant_fwd
     fn.restype = ctypes.c_int
@@ -248,7 +348,15 @@ def _lib() -> ctypes.CDLL:
     )
     lib.adaln_mlp_error_string.restype = ctypes.c_char_p
     lib.adaln_mlp_error_string.argtypes = [ctypes.c_int]
+    lib.adaln_mlp_last_body.restype = ctypes.c_char_p
+    lib.adaln_mlp_sm90_smem_bytes.restype = ctypes.c_int
+    lib.adaln_mlp_sm90_smem_bytes.argtypes = [ctypes.c_int]
     return lib
+
+
+def sm90_smem_bytes() -> dict[int, int]:
+    """The Hopper GEMM's dynamic shared memory per CTA, bytes, by tile width."""
+    return {width: _lib().adaln_mlp_sm90_smem_bytes(width) for width in GEMM_WIDTHS}
 
 
 @functools.cache
@@ -331,48 +439,56 @@ def _check_specs(x, expect: dict, mod_names) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
-def _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype,
-                         w_dtype=torch.bfloat16, **scales) -> None:
-    """`w_dtype`: the packed weights' type, bf16 or int8 (then `scales`
-    holds s1 and s2)."""
+def _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim: int, matmul_dtype, **weights) -> None:
+    """What both forward bodies take besides the activations: `weights`
+    maps each weight's name to (tensor, dtype, shape)."""
     n, t, d = x.shape
-    hdim = w2p.shape[0]
     _check_widths(x, hdim, matmul_dtype)
     expect = {
         "x": (x, x.dtype, (n, t, d)),
         "shift": (shift, torch.float32, (n, d)),
         "scale": (scale, torch.float32, (n, d)),
         "gate": (gate, torch.float32, (n, d)),
-        "w1p": (w1p, w_dtype, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
         "b1": (b1, torch.float32, (hdim,)),
-        "w2p": (w2p, w_dtype, (hdim, d + ROW_PAD)),
         "b2": (b2, torch.float32, (d,)),
-        **{name: (a, torch.float32, (hdim,) if name == "s1" else (d,)) for name, a in scales.items()},
+        **weights,
     }
     _check_specs(x, expect, ("shift", "scale", "gate"))
 
 
-def _launch(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype, residuals: bool):
-    _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype)
+ALL_STAGES = 7  # the Hopper body's stage mask: 1 modulate, 2 up, 4 down
+
+
+def _launch(fn, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype, residuals: bool,
+            stages: int = ALL_STAGES):
+    """The Hopper body on x's device: (out, a, mlp), a and mlp None without
+    residuals; records the body that ran in `fn.body`. `stages` below
+    ALL_STAGES runs only those kernels (a timing run; the outputs of the
+    others are left unwritten)."""
     n, t, d = x.shape
-    hdim = w2p.shape[0]
-    split = hidden_split(n, t, hdim, _sm_count(x.device.index))
-    t_pad = -(-t // ROW_TILE) * ROW_TILE
-    workspace = torch.empty((split, n, t_pad, d), device=x.device, dtype=torch.float32)
+    hdim = fc1_w.shape[0]
+    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
+                      fc1_w=(fc1_w, torch.bfloat16, (hdim, d)),
+                      fc2_w=(fc2_w, torch.bfloat16, (d, hdim)))
+    up, down = mlp_plan(n, t, d, hdim, _sm_count(x.device.index))
+    h = torch.empty((n * t, d), device=x.device, dtype=torch.bfloat16)
+    g = torch.empty((n * t, hdim), device=x.device, dtype=torch.bfloat16)
     out = torch.empty_like(x)
     a = torch.empty((n, t, hdim), device=x.device, dtype=x.dtype) if residuals else None
     mlp = torch.empty((n, t, d), device=x.device, dtype=torch.float32) if residuals else None
     lib = _lib()
     err = lib.adaln_mlp_fwd(
-        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), gate.data_ptr(),
-        shift.stride(0), w1p.data_ptr(), b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(),
-        workspace.data_ptr(), out.data_ptr(), a.data_ptr() if residuals else None,
-        mlp.data_ptr() if residuals else None, n, t, d, hdim, split, eps,
-        int(x.dtype == torch.bfloat16), torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), gate.data_ptr(), shift.stride(0),
+        fc1_w.data_ptr(), b1.data_ptr(), fc2_w.data_ptr(), b2.data_ptr(), h.data_ptr(),
+        g.data_ptr(), out.data_ptr(), a.data_ptr() if residuals else None,
+        mlp.data_ptr() if residuals else None, n, t, d, hdim, up.width, up.grid, down.width,
+        down.grid, eps, int(x.dtype == torch.bfloat16), stages,
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
         msg = lib.adaln_mlp_error_string(err).decode()
-        raise RuntimeError(f"adaln_mlp kernel launch failed: CUDA error {err} ({msg})")
+        raise RuntimeError(f"adaln_mlp kernel launch failed: error {err} ({msg})")
+    fn.body = lib.adaln_mlp_last_body().decode()
     return out, a, mlp
 
 
@@ -382,33 +498,36 @@ def _check_device(x) -> None:
 
 
 def adaln_mlp(
-    x, shift, scale, gate, w1p, b1, w2p, b2, eps: float = 1e-6,
+    x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float = 1e-6,
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Inference forward. x: (N, T, D) f32 or bf16; shift/scale/gate: (N, D)
-    f32 (row views of one modulation tensor are fine); w1p, w2p: fc1/fc2
-    weights packed by `pack_weights` (bf16 on the card); b1: (H,), b2: (D,)
-    f32. Returns x + gate * MLP(modulate(LN(x))) in x's type."""
+    f32 (row views of one modulation tensor are fine); fc1_w (H, D), fc2_w
+    (D, H): the Linear weights in torch's layout (bf16 and contiguous on the
+    card); b1: (H,), b2: (D,) f32. Returns x + gate * MLP(modulate(LN(x)))
+    in x's type."""
     _check_device(x)
     if x.device.type == "cpu":
-        w1, w2 = unpack_weights(w1p, w2p)
-        return adaln_mlp_reference(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)
-    out, _, _ = _launch(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype, residuals=False)
+        return adaln_mlp_reference(x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps,
+                                   matmul_dtype)
+    out, _, _ = _launch(adaln_mlp, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype,
+                        residuals=False)
     adaln_mlp.launches += 1
     return out
 
 
 def adaln_mlp_train(
-    x, shift, scale, gate, w1p, b1, w2p, b2, eps: float = 1e-6,
+    x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float = 1e-6,
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training forward, the inputs of `adaln_mlp`: (out, a (N, T, H) in
     x's type, mlp (N, T, D) f32)."""
     _check_device(x)
     if x.device.type == "cpu":
-        w1, w2 = unpack_weights(w1p, w2p)
-        return adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)
-    res = _launch(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype, residuals=True)
+        return adaln_mlp_train_reference(x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps,
+                                         matmul_dtype)
+    res = _launch(adaln_mlp_train, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype,
+                  residuals=True)
     adaln_mlp_train.launches += 1
     return res
 
@@ -524,11 +643,12 @@ class AdalnMlp(torch.autograd.Function):
     (`"fused"`: the two backward kernels on the card).
 
     fc1_w (H, D) and fc2_w (D, H) are the Linear weights themselves (not a
-    cached packed copy, which holds no autograd history): the forward packs
-    them and the backward returns their gradients. The fused backward reads
-    the forward's packed tiles, kept in ctx (9.4 MB per DiT-B block in bf16)
-    rather than packed a second time: keeping them against repacking is not
-    measured."""
+    cached bf16 copy, which holds no autograd history): the forward casts
+    them to `matmul_dtype` for the kernel and the backward returns their
+    gradients. With the fused backward the forward also packs them
+    (`pack_weights`, the layout the backward kernels read) and keeps the
+    packed pair in ctx (9.4 MB per DiT-B block in bf16) rather than packing
+    them in the backward: keeping them against repacking is not measured."""
 
     @staticmethod
     def forward(ctx, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float, matmul_dtype,
@@ -538,10 +658,10 @@ class AdalnMlp(torch.autograd.Function):
         _check_device(x)
         packed = ()
         if x.is_cuda:
-            w1p, w2p = pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
-            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2, eps, matmul_dtype)
-            if bwd_impl == "fused":
-                packed = (w1p, w2p)
+            w1, w2 = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
+            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)
+            if bwd_impl == "fused":  # the backward kernels read the packed layout
+                packed = pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
         else:
             out, a, mlp = adaln_mlp_train_reference(
                 x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype)
@@ -576,10 +696,12 @@ def adaln_mlp_quant(
         w1q, w2q = unpack_weights(w1p, w2p)
         return adaln_mlp_quant_reference(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps,
                                          matmul_dtype)
-    _check_kernel_inputs(x, shift, scale, gate, w1p, b1, w2p, b2, matmul_dtype, torch.int8,
-                         s1=s1, s2=s2)
     n, t, d = x.shape
     hdim = w2p.shape[0]
+    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
+                      w1p=(w1p, torch.int8, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
+                      w2p=(w2p, torch.int8, (hdim, d + ROW_PAD)),
+                      s1=(s1, torch.float32, (hdim,)), s2=(s2, torch.float32, (d,)))
     split = hidden_split(n, t, hdim, _sm_count(x.device.index))
     workspace = torch.empty((split, n, -(-t // ROW_TILE) * ROW_TILE, d), device=x.device,
                             dtype=torch.float32)
@@ -594,6 +716,7 @@ def adaln_mlp_quant(
     if err:
         msg = lib.adaln_mlp_error_string(err).decode()
         raise RuntimeError(f"adaln_mlp_quant kernel launch failed: CUDA error {err} ({msg})")
+    adaln_mlp_quant.body = lib.adaln_mlp_last_body().decode()
     adaln_mlp_quant.launches += 1
     return out
 
@@ -601,5 +724,6 @@ def adaln_mlp_quant(
 adaln_mlp.launches = 0
 adaln_mlp_train.launches = 0
 adaln_mlp_quant.launches = 0
+adaln_mlp.body = adaln_mlp_train.body = adaln_mlp_quant.body = None
 adaln_mlp_bwd_prologue.launches = 0
 adaln_mlp_bwd_epilogue.launches = 0

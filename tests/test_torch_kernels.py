@@ -43,8 +43,7 @@ def test_wrappers_take_the_plain_versions_on_cpu():
     w1, w2 = torch.randn(32, 128, generator=g) * 0.1, torch.randn(128, 32, generator=g) * 0.1
     b1, b2 = torch.zeros(128), torch.zeros(32)
     before = tam.adaln_mlp.launches
-    w1p, w2p = tam.pack_weights(w1, w2)
-    got = tam.adaln_mlp(x, mod[:, 0], mod[:, 1], mod[:, 2], w1p, b1, w2p, b2)
+    got = tam.adaln_mlp(x, mod[:, 0], mod[:, 1], mod[:, 2], w1.t(), b1, w2.t(), b2)
     want = tam.adaln_mlp_reference(x, mod[:, 0], mod[:, 1], mod[:, 2], w1, b1, w2, b2,
                                    1e-6, torch.bfloat16)
     assert torch.equal(got, want)
@@ -68,8 +67,12 @@ def test_banded_attention_kernel_matches_plain(cuda_device, t, valid, band):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,t,d", [(2, 768, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024)])
+@pytest.mark.parametrize("n,t,d", [(2, 768, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024),
+                                   (1, 757, 1024), (3, 757, 384)])
 def test_adaln_mlp_kernel_matches_plain(cuda_device, n, t, d):
+    """The Hopper body (bf16 weights) against the plain version on the same
+    bf16 operands, ragged T (50, 757: a last 128-row block that is part
+    pad) at each of the three widths; the same bits on a second call."""
     g = torch.Generator(device=cuda_device).manual_seed(0)
 
     def rnd(*shape, std):
@@ -80,13 +83,16 @@ def test_adaln_mlp_kernel_matches_plain(cuda_device, n, t, d):
     w1 = rnd(d, 4 * d, std=d ** -0.5).to(torch.bfloat16)
     w2 = rnd(4 * d, d, std=(4 * d) ** -0.5).to(torch.bfloat16)
     b1, b2 = rnd(4 * d, std=0.02), rnd(d, std=0.02)
-    w1p, w2p = tam.pack_weights(w1, w2)
+    fc1_w, fc2_w = w1.t().contiguous(), w2.t().contiguous()
     before = tam.adaln_mlp.launches
-    got = tam.adaln_mlp(x, shift, scale, gate, w1p, b1, w2p, b2)
+    got = tam.adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
     torch.cuda.synchronize()
     assert tam.adaln_mlp.launches == before + 1
+    assert tam.adaln_mlp.body == "sm90"
     want = tam.adaln_mlp_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.bfloat16)
+    assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-3  # the bf16 contract, see chip_smoke.py
+    assert torch.equal(tam.adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2), got)
 
 
 @pytest.mark.cuda
@@ -98,16 +104,18 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tba.banded_attention(q, q, q, 8, matmul_dtype=torch.float32)
     x = torch.randn(1, 8, 64, device=cuda_device)  # D = 64 has no kernel
-    w1p, w2p = tam.pack_weights(torch.zeros(64, 256, device=cuda_device),
-                                torch.zeros(256, 64, device=cuda_device))
+    w1 = torch.zeros(256, 64, device=cuda_device, dtype=torch.bfloat16)
     m = torch.zeros(1, 64, device=cuda_device)
     with pytest.raises(ValueError):
-        tam.adaln_mlp(x, m, m, m, w1p, torch.zeros(256, device=cuda_device), w2p, m[0])
-    x = torch.randn(1, 8, 384, device=cuda_device)  # D = 384 takes packed weights only
+        tam.adaln_mlp(x, m, m, m, w1, torch.zeros(256, device=cuda_device), w1.t().contiguous(), m[0])
+    x = torch.randn(1, 8, 384, device=cuda_device)  # weights in torch's (out, in) layout only
     w1 = torch.zeros(384, 1536, device=cuda_device, dtype=torch.bfloat16)
     m = torch.zeros(1, 384, device=cuda_device)
     with pytest.raises(ValueError):
         tam.adaln_mlp(x, m, m, m, w1, torch.zeros(1536, device=cuda_device), w1.t(), m[0])
+    with pytest.raises(TypeError):  # f32 weights have no kernel
+        tam.adaln_mlp(x, m, m, m, w1.t().float(), torch.zeros(1536, device=cuda_device),
+                      w1.float(), m[0])
 
 
 def _rel(got, want) -> float:
@@ -404,12 +412,13 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384)])
+@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (2, 757, 1024)])
 def test_adaln_mlp_train_kernel_matches_plain(cuda_device, n, t, d, dtype):
     """The training forward's out, a and mlp against the plain version on
     the same bf16 operands, within 1e-2 of each max (a bf16 rounding flip of
     the hidden activation moves mlp by 2^-8 of a term; bf16 out and a are
-    themselves rounded to 2^-8)."""
+    themselves rounded to 2^-8); the Hopper body, the same bits on a second
+    call, and the inference forward's out bit-equal to the training one's."""
     g = torch.Generator(device=cuda_device).manual_seed(d + t)
 
     def rnd(*shape, std):
@@ -420,18 +429,21 @@ def test_adaln_mlp_train_kernel_matches_plain(cuda_device, n, t, d, dtype):
     w1 = rnd(d, 4 * d, std=d ** -0.5).to(torch.bfloat16)
     w2 = rnd(4 * d, d, std=(4 * d) ** -0.5).to(torch.bfloat16)
     b1, b2 = rnd(4 * d, std=0.02), rnd(d, std=0.02)
-    w1p, w2p = tam.pack_weights(w1, w2)
+    fc1_w, fc2_w = w1.t().contiguous(), w2.t().contiguous()
     before = tam.adaln_mlp_train.launches
-    out, a, mlp = tam.adaln_mlp_train(x, shift, scale, gate, w1p, b1, w2p, b2)
+    out, a, mlp = tam.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
     torch.cuda.synchronize()
     assert tam.adaln_mlp_train.launches == before + 1
+    assert tam.adaln_mlp_train.body == "sm90"
     want = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.bfloat16)
     assert out.dtype == a.dtype == dtype and mlp.dtype == torch.float32
     assert a.shape == (n, t, 4 * d) and mlp.shape == (n, t, d)
     for name, got, w in zip(("out", "a", "mlp"), (out, a, mlp), want):
         assert _rel(got, w) <= 1e-2, name
+    again = tam.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
+    assert all(torch.equal(u, v) for u, v in zip(again, (out, a, mlp)))
     # the inference kernel gives the training forward's out
-    assert torch.equal(tam.adaln_mlp(x, shift, scale, gate, w1p, b1, w2p, b2), out)
+    assert torch.equal(tam.adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2), out)
 
 
 @pytest.mark.cuda
@@ -696,6 +708,7 @@ def test_adaln_mlp_quant_kernel_matches_plain(cuda_device, n, t, d):
     got = tam.adaln_mlp_quant(x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2)
     torch.cuda.synchronize()
     assert tam.adaln_mlp_quant.launches == before + 1
+    assert tam.adaln_mlp_quant.body == "wmma"  # int8 weights keep the WMMA body
     _check_quant(got, tam.adaln_mlp_quant_reference, x, shift, scale, gate, w1q.t(), s1, b1,
                  w2q.t(), s2, b2)
 

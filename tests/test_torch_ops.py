@@ -246,10 +246,10 @@ def _mlp_inputs(n, t, d, h, seed=0):
 
 def _packed(args):
     """numpy (x, shift, scale, gate, w1, b1, w2, b2) -> the port's arguments,
-    with w1/w2 in `pack_weights`' layout (f32: the plain version rounds)."""
+    with w1/w2 as the Linear weights in torch's (out, in) layout, as
+    `adaln_mlp` takes them (f32: the plain version rounds)."""
     x, shift, scale, gate, w1, b1, w2, b2 = (torch.from_numpy(a) for a in args)
-    w1p, w2p = tam.pack_weights(w1, w2, torch.float32)
-    return x, shift, scale, gate, w1p, b1, w2p, b2
+    return x, shift, scale, gate, w1.t().contiguous(), b1, w2.t().contiguous(), b2
 
 
 def test_pack_weights_layout():

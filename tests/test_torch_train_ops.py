@@ -147,8 +147,8 @@ def test_adaln_mlp_vjp_matches_jax(interpret_mode, act, md):
         assert rel_err(gg, w) <= tol, name
 
     # the residuals, through the training wrapper's plain version
-    w1p, w2p = tam.pack_weights(torch.from_numpy(w1), torch.from_numpy(w2), tmd)
+    w1t, w2t = (torch.from_numpy(w).t().to(tmd).contiguous() for w in (w1, w2))
     _, a, mlp = tam.adaln_mlp_train(tx.detach(), *(torch.from_numpy(v) for v in (shift, scale, gate)),
-                                    w1p, torch.from_numpy(b1), w2p, torch.from_numpy(b2), 1e-6, tmd)
+                                    w1t, torch.from_numpy(b1), w2t, torch.from_numpy(b2), 1e-6, tmd)
     assert a.dtype == tdt and mlp.dtype == torch.float32
     assert rel_err(a, want_a) <= tol and rel_err(mlp, want_mlp) <= tol
