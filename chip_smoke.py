@@ -62,13 +62,19 @@ Phases (any failure raises and exits non-zero):
 11. The fused MLP backward's two kernels (`[mlp-bwd]`): prologue and
    epilogue against their plain versions (bf16 operands, and f32) at the
    DiT-B training shape and ragged ones (T = 50 with N = 3, the DiT-S
-   width, the f32 stream), every output; times beside bounds, plain
-   versions and the cuBLAS product of each stage's shape; the whole fused
-   backward against the plain one at the same inputs, in turns.
+   width, the DiT-L width at T = 757, the f32 stream), every output, with
+   the body each stream's calls took (bf16: the Hopper body, f32: the WMMA
+   body) and the same bits on a second call; the registers, spill bytes
+   (required 0) and shared memory of the Hopper body's kernels; times
+   beside bounds, plain versions and the cuBLAS product of each stage's
+   shape, and the Hopper body's four kernels alone (the dmlp pass, the
+   dgelu GEMM, the dh1 GEMM, the row pass); the whole fused backward
+   against the plain one at the same inputs, in turns.
 12. The train CLI with --mlp-bwd fused (`[train-fused]`), as in 7 without
    the checkpoint: each backward kernel launched steps x depth times;
-   seconds per step, busy share and top ops beside the default run's (whose
-   count of both backward kernels must stay 0). Then train_nodist_torch.py
+   seconds per step, busy share, top ops and the backward kernels' device
+   time per step beside the default run's (whose count of both backward
+   kernels must stay 0). Then train_nodist_torch.py
    with --embed-only-epochs 1 resumed from the default run's checkpoint for
    3 steps (`[train-modes]`: only the label table moves), and one DiT-B
    step card vs CPU with the fused backward (`[step-fused]`).
@@ -192,10 +198,16 @@ MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf
                    ("dit_l_width_t757", 1, 757, 1024, "bf16")]
 # kernel B's Hopper body: its kernels' names in a profile
 MLP_SM90_KERNELS = ("adaln_mlp_modulate_kernel", "adaln_mlp_gemm_kernel")
+# the fused MLP backward's Hopper body (rows 9a/9b): its kernels' names in a
+# profile (sum_partials_kernel: the five sums of partials, also the WMMA
+# body's)
+MLP_BWD_SM90_KERNELS = ("adaln_mlp_bwd_dmlp_kernel", "adaln_mlp_bwd_gemm_kernel",
+                        "adaln_mlp_bwd_ln_kernel", "sum_partials_kernel")
 # the fused MLP backward's checks: (name, N, T, D, stream), the DiT-B
 # training shape first
 MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "bf16"),
-                 ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32")]
+                 ("dit_s_width", 2, 100, 384, "bf16"), ("dit_l_width_t757", 1, 757, 1024, "bf16"),
+                 ("f32_stream", 4, 128, 768, "f32")]
 # context parallelism: two ranks share the card over gloo (NCCL refuses two
 # ranks on one device), so its times say nothing of NCCL across cards
 CP_RANKS = 2
@@ -483,6 +495,39 @@ def mlp_sm90_resources() -> str:
             + "; shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
 
 
+def mlp_bwd_sm90_resources() -> str:
+    """Registers and spill bytes (0 required) of the fused backward's Hopper
+    body from this build's ptxas lines: the three GEMM builds (dgelu at 128,
+    dh1 at 128 and 256) and the dmlp and row passes at each D; and the GEMM's
+    dynamic shared memory a CTA at each width."""
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    found, entry = {}, None
+    for line in cuda_build.build_info["adaln_mlp_bwd"]["log"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        k = entry and re.search(r"adaln_mlp_bwd_(gemm|dmlp|ln)_kernelILi(\d+)E(?:Li(\d)E)?", entry)
+        if not k:  # the WMMA body's and the sums' kernels
+            continue
+        name = (f"{k[2]} {'dgelu' if k[3] == '0' else 'dh1'} GEMM" if k[1] == "gemm"
+                else f"{k[1]} pass D {k[2]}")
+        res = found.setdefault(name, {})
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res["spill_bytes"] = int(m[1]) + int(m[2])
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res["registers"] = int(m[1])
+    check(len(found) == 9 and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the nine Hopper MLP backward builds not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper MLP backward spills: {found}")
+    smem = am.bwd_sm90_smem_bytes()
+    return ("; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
+                      for n, r in sorted(found.items()))
+            + "; GEMM shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
+
+
 def phase_mlp(dev):
     import torch
     from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_reference
@@ -701,17 +746,19 @@ def phase_mlp_train(dev):
 
 def phase_mlp_bwd(dev):
     """Rows 9a/9b: the fused backward's prologue and epilogue against their
-    plain versions (bf16 operands, and f32), each of the ten outputs; at the
-    DiT-B training shape their times beside their bounds, their plain
-    versions and the cuBLAS bf16 product of their shape, and the whole fused
-    backward beside the plain backward (`adaln_mlp_bwd`) at the same inputs.
-    Returns (the two kernels' numbers, {plain, fused: mean ms of the whole
-    backward})."""
+    plain versions (bf16 operands, and f32), each of the ten outputs, with
+    their bodies and the same bits on a second call; at the DiT-B training
+    shape their times and their Hopper body's four kernels alone beside
+    their bounds, their plain versions and the cuBLAS bf16 product of their
+    shape, and the whole fused backward beside the plain backward
+    (`adaln_mlp_bwd`) at the same inputs. Returns (the two kernels'
+    numbers, {plain, fused: mean ms of the whole backward})."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
 
     g = torch.Generator(device=dev).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
+    print(f"[mlp-bwd] Hopper body builds (ptxas): {mlp_bwd_sm90_resources()}")
     results, whole_ms = {}, None
     for name, n, t, d, stream in MLP_BWD_CASES:
         dtype = f32 if stream == "f32" else bf16
@@ -726,14 +773,18 @@ def phase_mlp_bwd(dev):
         w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
         b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
         w1b, w2b = w1.to(bf16), w2.to(bf16)
-        w1p, w2p = am.pack_weights(w1b, w2b)  # the layout the backward kernels read
+        fc1_w, fc2_w = w1b.t().contiguous(), w2b.t().contiguous()  # torch's Linear layout
         # the residuals, from the training forward
-        _, a, mlp = am.adaln_mlp_train(x, shift, scale, gate, w1b.t().contiguous(), b1,
-                                       w2b.t().contiguous(), b2)
+        _, a, mlp = am.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1, fc2_w, b2)
         gout = rnd(n, t, d, std=1.0).to(dtype)
-        pro = am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p)
-        epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, w1p)
+        pro = am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w)
+        epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w)
         torch.cuda.synchronize()
+        body = (am.adaln_mlp_bwd_prologue.body, am.adaln_mlp_bwd_epilogue.body)
+        # no atomics: the same bits on a second call
+        same = (all(torch.equal(u, v) for u, v in zip(am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w), pro))
+                and all(torch.equal(u, v) for u, v in zip(
+                    am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w), epi)))
         # each stage against its plain versions on the same inputs (the
         # epilogue on the kernel prologue's da)
         wants = [
@@ -749,22 +800,36 @@ def phase_mlp_bwd(dev):
                 check(bool(torch.isfinite(u).all()), f"mlp bwd {name}: non-finite {out}")
                 check(u.shape == v16.shape and u.dtype == v16.dtype, f"mlp bwd {name}: {out} shape/type")
                 errs[out] = (rel_err(u, v16), rel_err(u, v32))
-        print(f"[mlp-bwd] {name}: x=({n}, {t}, {d}) {stream} "
+        print(f"[mlp-bwd] {name}: x=({n}, {t}, {d}) {stream} body prologue={body[0]} epilogue={body[1]} "
               + " ".join(f"{k}={u:.2e}/{v:.2e}" for k, (u, v) in errs.items())
-              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32})")
+              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); "
+              f"same bits on a second call: {same}")
+        check(body == (BODY[stream],) * 2, f"mlp bwd {name}: bodies {body}, want {BODY[stream]}")
+        check(same, f"mlp bwd {name}: a second call gave other bits")
         for out, (e16, e32) in errs.items():
             check(e16 <= TRAIN_TOL_BF16, f"mlp bwd {name} {out}: {e16} > {TRAIN_TOL_BF16}")
             check(e32 <= TRAIN_TOL_F32, f"mlp bwd {name} {out}: {e32} > {TRAIN_TOL_F32}")
         if name != "main":
             continue
-        pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p))
-        epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, w1p))
+        pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w))
+        epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w))
+        # the Hopper body's kernels alone (timing runs: the others' outputs unwritten)
+        stage_ms = {
+            "dmlp pass": cuda_ms(lambda: am._bwd_prologue_launch(gout, mlp, a, gate, fc2_w, bf16, 1)),
+            "dgelu GEMM": cuda_ms(lambda: am._bwd_prologue_launch(gout, mlp, a, gate, fc2_w, bf16, 2)),
+            "dh1 GEMM": cuda_ms(lambda: am._bwd_epilogue_launch(pro[0], x, gout, shift, scale, fc1_w,
+                                                                1e-6, bf16, 1)),
+            "row pass": cuda_ms(lambda: am._bwd_epilogue_launch(pro[0], x, gout, shift, scale, fc1_w,
+                                                                1e-6, bf16, 2)),
+        }
+        dgelu_plan, dh1_plan = am.mlp_bwd_plan(n, t, d, hdim,
+                                               torch.cuda.get_device_properties(0).multi_processor_count)
         pro_plain_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2, f32))
         epi_plain_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue_reference(
             pro[0], x, gout, shift, scale, w1, 1e-6, f32))
         flops = 2 * n * t * d * hdim
-        bounds = {"prologue": bound(nbytes(gout, mlp, a, gate, w2p, *pro), flops),
-                  "epilogue": bound(nbytes(pro[0], x, gout, shift, scale, w1p, *epi), flops)}
+        bounds = {"prologue": bound(nbytes(gout, mlp, a, gate, fc2_w, *pro), flops),
+                  "epilogue": bound(nbytes(pro[0], x, gout, shift, scale, fc1_w, *epi), flops)}
         mats = {"prologue": (torch.randn(n * t, d, device=dev, dtype=bf16),
                              torch.randn(d, hdim, device=dev, dtype=bf16)),
                 "epilogue": (torch.randn(n * t, hdim, device=dev, dtype=bf16),
@@ -772,11 +837,11 @@ def phase_mlp_bwd(dev):
         cublas = {k: cuda_ms(lambda u=u, v=v: torch.mm(u, v, out_dtype=f32)) for k, (u, v) in mats.items()}
         del mats
         # the whole backward, fused against plain, at the same inputs, in turns
-        fc1_w, fc2_w = w1.t(), w2.t()  # the f32 master weights in torch's layout
-        runs = {"plain": lambda: am.adaln_mlp_bwd(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, gout,
+        fc1_m, fc2_m = w1.t(), w2.t()  # the f32 master weights in torch's layout
+        runs = {"plain": lambda: am.adaln_mlp_bwd(x, shift, scale, gate, fc1_m, fc2_m, a, mlp, gout,
                                                   1e-6, bf16),
-                "fused": lambda: am.adaln_mlp_bwd_fused(x, shift, scale, gate, fc1_w, fc2_w, a, mlp,
-                                                        gout, 1e-6, bf16, packed=(w1p, w2p))}
+                "fused": lambda: am.adaln_mlp_bwd_fused(x, shift, scale, gate, fc1_m, fc2_m, a, mlp,
+                                                        gout, 1e-6, bf16, weights=(fc1_w, fc2_w))}
         diff = max(rel_err(u, v) for u, v in zip(runs["fused"](), runs["plain"]()))
         whole = {k: [] for k in runs}
         for k in ("plain", "fused", "fused", "plain"):
@@ -787,6 +852,11 @@ def phase_mlp_bwd(dev):
               f"{epi_ms:.4f} ms (bound {bounds['epilogue']['bound_ms']:.4f}, {bounds['epilogue']['bound_by']}; "
               f"plain f32 {epi_plain_ms:.4f}; cuBLAS bf16 ({n * t}, {hdim}) x ({hdim}, {d}) "
               f"{cublas['epilogue']:.4f}); no single PyTorch call computes either")
+        print(f"[mlp-bwd] main: the Hopper body's kernels alone: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+              + f" ms (dgelu {dgelu_plan.width}-wide tiles, {dgelu_plan.tiles} on {dgelu_plan.grid} CTAs; "
+              f"dh1 {dh1_plan.width}-wide, {dh1_plan.tiles} on {dh1_plan.grid}; each GEMM with its sums "
+              f"of partials, the row passes with theirs)")
         print(f"[mlp-bwd] main: whole MLP backward in turns (plain, fused, fused, plain): plain "
               + ", ".join(f"{v:.4f}" for v in whole["plain"]) + " ms, fused "
               + ", ".join(f"{v:.4f}" for v in whole["fused"]) + f" ms (fused = both kernels + the two "
@@ -1241,6 +1311,10 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     mlp_us = sum(e.self_device_time_total for e in events_dev if any(k in e.key for k in MLP_SM90_KERNELS))
     print(f"[{tag}] kernel B's training forward (the Hopper body: {', '.join(MLP_SM90_KERNELS)}) "
           f"{mlp_us / 1000 / n_prof:.3f} ms of {device_us / 1000 / n_prof:.2f} ms device time per step")
+    bwd_us = {k: sum(e.self_device_time_total for e in events_dev if k in e.key) for k in MLP_BWD_SM90_KERNELS}
+    print(f"[{tag}-profile] the fused MLP backward's Hopper body (rows 9a/9b) "
+          f"{sum(bwd_us.values()) / 1000 / n_prof:.3f} ms of {device_us / 1000 / n_prof:.2f} ms device time "
+          f"per step: " + ", ".join(f"{k} {v / 1000 / n_prof:.3f}" for k, v in bwd_us.items()))
     numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
                "device_ms": device_us / 1000 / n_prof}
     if not default:

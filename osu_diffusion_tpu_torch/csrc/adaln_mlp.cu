@@ -46,7 +46,8 @@
 //    once (50 MB at training) where every CTA of the first body recomputed
 //    the LayerNorm of its rows.
 // 2. up (adaln_mlp_gemm_kernel, UP): h . W1^T -> (N*T, H); 3. down (DOWN):
-//    g . W2^T -> (N*T, D). Both the same persistent kernel: one CTA an SM
+//    g . W2^T -> (N*T, D). Both the same persistent kernel, whose mainloop
+//    the fused backward shares (csrc/gemm_sm90.cuh): one CTA an SM
 //    walks the (128-row block, BN-column block) tiles c, c + grid, ...
 //    (column blocks fastest, so the CTAs at work at one time share their
 //    A rows in L2; the weights, 4.7 MB each, stay in L2). One producer
@@ -117,8 +118,8 @@
 
 #include <cstdint>
 
+#include "gemm_sm90.cuh"
 #include "tile_io.cuh"
-#include "wgmma_tma.cuh"
 
 using namespace nvcuda;
 
@@ -193,47 +194,14 @@ adaln_mlp_modulate_kernel(const TX* __restrict__ x, const float* __restrict__ sh
   }
 }
 
-// ---- 2, 3. the persistent GEMMs (wgmma, TMA ring) -------------------------
+// ---- 2, 3. the persistent GEMMs (wgmma, TMA ring: csrc/gemm_sm90.cuh) -------
 namespace gemm {
 
-using sm90::bar_arrive;
-using sm90::bar_expect;
-using sm90::bar_init;
-using sm90::bar_wait;
-using sm90::desc;
-
-constexpr int BM = 128;                 // rows per tile: two consumer warpgroups of 64
-constexpr int BK = 64;                  // reduction slab: one 128-byte swizzled row
-constexpr int CONSUMERS = 256;
-constexpr int THREADS = CONSUMERS + 128;  // and a producer warpgroup (one thread loads)
-// setmaxnreg: the producer warpgroup gives its registers to the consumers
-// (168 a thread at launch: 384 x 168 fits the SM's 64K)
-constexpr int PRODUCER_REGS = 40;
-constexpr int CONSUMER_REGS = 232;
-static_assert(CONSUMERS * CONSUMER_REGS + 128 * PRODUCER_REGS <= THREADS * 168, "register pool");
-constexpr unsigned A_BYTES = BM * BK * 2;
-
-template <int BN>
-struct Cfg {
-  static constexpr int STAGES = BN == 256 ? 4 : 6;  // 192 KB of slabs either way
-  static constexpr unsigned B_BYTES = BN * BK * 2;
-};
-
-constexpr int STAGE_ROW = 128;  // bytes of a staged row: 64 bf16 columns
-
-template <int BN>
-struct Smem {  // every slab 1024-byte aligned (the 128-byte swizzle's period)
-  __nv_bfloat16 a[Cfg<BN>::STAGES][BM * BK];
-  __nv_bfloat16 b[Cfg<BN>::STAGES][BN * BK];
-  // each consumer warp's (16 rows, 64 columns) bf16 staging tile of the up
-  // epilogue, its 16-byte chunks XOR-swizzled by row
-  unsigned char stage[CONSUMERS / 32][16 * STAGE_ROW];
-  unsigned long long full[Cfg<BN>::STAGES], empty[Cfg<BN>::STAGES];
-};
+using gemm_sm90::THREADS;
 
 template <int BN>
 constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(Smem<BN>)) + 1024;  // + alignment slack
+  return static_cast<int>(sizeof(gemm_sm90::Smem<BN>)) + 1024;  // + alignment slack
 }
 
 enum Epi { UP, DOWN };
@@ -251,114 +219,19 @@ struct EpiArgs {
   float* mlp;                // down: pre-gate mlp in f32, or null (inference)
 };
 
-// One warp's (16 rows, 64 columns) block of a bf16 output through its
-// staging tile `st`: vals[n][i] is the packed pair at row lane / 4 + 8 i,
-// columns 8 n + 2 (lane % 4), +1 of the block (the accumulator's layout),
-// written to row row0 + r, columns col0 .. + 64 of `dst` (row stride ld)
-// for rows below m, as 16-byte stores that each cover 4 whole 128-byte rows
-// (stored straight from the accumulator layout, each warp store touches 8
-// rows at 16 bytes each: on an H100 at the training shape the up GEMM then
-// took 0.56-0.57 ms against 0.36-0.37, tools/mlp_variants.py).
-__device__ __forceinline__ void stage_store(unsigned char* st, const unsigned (&vals)[8][2],
-                                            __nv_bfloat16* dst, int row0, int col0, int m,
-                                            long long ld, int lane) {
-  __syncwarp();  // the warp's reads of the last block are done
-#pragma unroll
-  for (int n = 0; n < 8; ++n)
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lane / 4 + 8 * i;
-      *reinterpret_cast<unsigned*>(st + r * STAGE_ROW + ((n ^ (r & 7)) << 4) + (lane % 4) * 4) =
-          vals[n][i];
-    }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int r = it * 4 + lane / 8;
-    const int ch = lane % 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(st + r * STAGE_ROW + ((ch ^ (r & 7)) << 4));
-    if (row0 + r < m) *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * ld + col0 + ch * 8) = v;
-  }
-}
-
-// Persistent: CTA c walks tiles c, c + gridDim.x, ... of the (ceil(m / BM)
-// row blocks) x (ncols / BN column blocks) grid, tile = row block * (ncols /
-// BN) + column block (the wrapper's tile plan, gemm_plan, numbers them the
-// same way). The ring position g runs on over tiles, the same on both sides.
-// C[m, ncols] = A[m, kdim] . B[ncols, kdim]^T, both bf16 row-major.
+// C[m, ncols] = A[m, kdim] . B[ncols, kdim]^T, both bf16 row-major (B
+// K-major: torch's Linear weight), persistent, with the up or down epilogue.
 template <int BN, int EPI, typename TX>
 __global__ void __launch_bounds__(THREADS, 1)
 adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ CUtensorMap b_map, int m, int ncols, int kdim,
                       EpiArgs ep) {
-  using C = Cfg<BN>;
   extern __shared__ unsigned char smem_raw[];
-  Smem<BN>& sm = *reinterpret_cast<Smem<BN>*>(smem_raw + (-sm90::smem_addr(smem_raw) & 1023));
-  const int tiles_n = ncols / BN;
-  const int tiles = (m + BM - 1) / BM * tiles_n;
-  const int ktiles = kdim / BK;
-
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < C::STAGES; ++s) {
-      bar_init(&sm.full[s], 1);
-      bar_init(&sm.empty[s], CONSUMERS / 32);  // one arrival per consumer warp
-    }
-    sm90::bar_init_fence();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= CONSUMERS) {  // the producer warpgroup: one thread issues every load
-    sm90::registers_dec<PRODUCER_REGS>();
-    if (threadIdx.x == CONSUMERS) {
-      int g = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-        const int r0 = tile / tiles_n * BM;
-        const int c0 = tile % tiles_n * BN;
-        for (int kt = 0; kt < ktiles; ++kt, ++g) {
-          const int s = g % C::STAGES;
-          if (g >= C::STAGES) bar_wait(&sm.empty[s], (g / C::STAGES - 1) & 1);
-          bar_expect(&sm.full[s], A_BYTES + C::B_BYTES);
-          sm90::tma_load_2d(sm.a[s], &a_map, &sm.full[s], kt * BK, r0);
-          sm90::tma_load_2d(sm.b[s], &b_map, &sm.full[s], kt * BK, c0);
-        }
-      }
-    }
-    return;
-  }
-
-  // the two consumer warpgroups: warpgroup wg owns rows r0 + 64 wg .. + 64
-  sm90::registers_inc<CONSUMER_REGS>();
-  const int wg = threadIdx.x / 128;
-  const int warp = (threadIdx.x / 32) % 4;
-  const int lane = threadIdx.x % 32;
-  float acc[BN / 2];
-#pragma unroll
-  for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
-  int g = 0;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int r0 = tile / tiles_n * BM;
-    const int c0 = tile % tiles_n * BN;
-    for (int kt = 0; kt < ktiles; ++kt, ++g) {
-      const int s = g % C::STAGES;
-      bar_wait(&sm.full[s], (g / C::STAGES) & 1);
-      sm90::fence();
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        sm90::mma_ss_n<BN>(acc, desc(sm.a[s] + wg * 64 * BK, 32 * kk), desc(sm.b[s], 32 * kk),
-                           kt > 0 || kk > 0);
-      sm90::commit();
-      // the previous slab's products have retired: its stage takes a new slab
-      sm90::wait<1>();
-      if (kt > 0) {
-        __syncwarp();
-        if (lane == 0) bar_arrive(&sm.empty[(g - 1) % C::STAGES]);
-      }
-    }
-    sm90::wait<0>();
-    __syncwarp();
-    if (lane == 0) bar_arrive(&sm.empty[(g - 1) % C::STAGES]);
-    sm90::pin(acc);
-
+  auto& sm = gemm_sm90::aligned_smem<gemm_sm90::Smem<BN>>(smem_raw);
+  const auto epilogue = [&](float(&acc)[BN / 2], int r0, int c0) {
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
     // epilogue: register 4n + 2i + j holds row rw + 8i, column cq + 8n + j
     const int rw = r0 + wg * 64 + warp * 16 + lane / 4;
     const int cq = c0 + 2 * (lane % 4);
@@ -390,10 +263,10 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
         if constexpr (sizeof(TX) == 2) {
           if (a_out != nullptr)
-            stage_store(st, av, reinterpret_cast<__nv_bfloat16*>(a_out), row0, c0 + cb * 64, m,
-                        ncols, lane);
+            gemm_sm90::stage_store(st, av, reinterpret_cast<__nv_bfloat16*>(a_out), row0,
+                                   c0 + cb * 64, m, ncols, lane);
         }
-        stage_store(st, gv, ep.g, row0, c0 + cb * 64, m, ncols, lane);
+        gemm_sm90::stage_store(st, gv, ep.g, row0, c0 + cb * 64, m, ncols, lane);
       }
     } else {
       const TX* x = static_cast<const TX*>(ep.x);
@@ -419,7 +292,9 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
       }
     }
-  }
+  };
+  gemm_sm90::run<BN, gemm_sm90::B_K_MAJOR>(a_map, b_map, sm, m, ncols, kdim, [](int, int) {},
+                                           epilogue);
 }
 
 // C = A . B^T for A (m, kdim) and B (ncols, kdim) bf16 row-major, on `grid`
@@ -428,8 +303,7 @@ template <int BN, int EPI, typename TX>
 int launch(const void* a, const void* b, int m, int ncols, int kdim, int grid, const EpiArgs& ep,
            cudaStream_t stream) {
   CUtensorMap a_map, b_map;
-  int err = sm90::make_map_2d(&a_map, a, m, kdim, BM);
-  if (err == 0) err = sm90::make_map_2d(&b_map, b, ncols, kdim, BN);
+  const int err = gemm_sm90::make_maps<BN, gemm_sm90::B_K_MAJOR>(&a_map, &b_map, a, b, m, ncols, kdim);
   if (err != 0) return err;
   const auto kernel = adaln_mlp_gemm_kernel<BN, EPI, TX>;
   const cudaError_t e =
@@ -442,7 +316,8 @@ int launch(const void* a, const void* b, int m, int ncols, int kdim, int grid, c
 template <int EPI, typename TX>
 int launch_width(int bn, const void* a, const void* b, int m, int ncols, int kdim, int grid,
                  const EpiArgs& ep, cudaStream_t stream) {
-  if (grid < 1 || kdim % BK != 0 || ncols % bn != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid < 1 || kdim % gemm_sm90::BK != 0 || ncols % bn != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
     case 256:
       return launch<256, EPI, TX>(a, b, m, ncols, kdim, grid, ep, stream);

@@ -5,34 +5,74 @@
 //   _bwd_fused_impl (:493, :519), the `bwd_impl="fused"` backward.
 //
 // With the forward's residuals a (pre-GELU, (N, T, H)) and mlp (pre-gate,
-// (N, T, D) f32), the upstream gradient g (N, T, D) and the packed bf16
-// weights of ops/adaln_mlp.py (pack_weights: w1p (H / 128, D, 136), w2p
-// (H, D + 8)):
+// (N, T, D) f32), the upstream gradient g (N, T, D) and the bf16 weights
+// w1 = fc1.weight (H, D), w2 = fc2.weight (D, H):
 //   prologue: dmlp = g * gate; dgate = sum_t g * mlp; db2 = sum dmlp;
-//             dgelu = bf16(dmlp) @ w2^T; da = dgelu * gelu'(a); db1 = sum da;
+//             dgelu = bf16(dmlp) . w2; da = dgelu * gelu'(a); db1 = sum da;
 //             writes da, gelu(a) and dmlp in the stream's type.
-//   epilogue: dh1 = bf16(da) @ w1^T; h1 = LN(x) * (1 + scale) + shift;
+//   epilogue: dh1 = bf16(da) . w1; h1 = LN(x) * (1 + scale) + shift;
 //             dshift = sum_t dh1, dscale = sum_t dh1 * LN(x);
 //             dx = g + LayerNorm backward of dh1 * (1 + scale);
 //             writes dx and h1 in the stream's type.
-// The weight gradients dmlp^T @ gelu(a) and da^T @ h1 stay outside, as the
+// The weight gradients dmlp^T . gelu(a) and da^T . h1 stay outside, as the
 // JAX package leaves them to XLA. g, a, x and the emitted tensors are f32 or
-// bf16 (the training stream), one type per call; every sum is f32.
+// bf16 (the training stream), one type per call; every sum is f32, and
+// every sum of partials runs in a fixed order (no atomics: the same bits
+// run to run). The TPU grid runs in order and carries dgate/db1/db2/dshift/
+// dscale in resident output blocks from program to program; here CTAs run
+// in no order, so each writes its partial sums to a workspace and
+// sum_partials_kernel adds them in a fixed order.
 //
 // What bounds them on the card, at DiT-B training (N*T = 32,768 tokens,
 // D 768, H 3072, bf16 stream): each stage is 154.6 GFLOP (0.156 ms at
 // 989 TFLOP/s). The prologue moves 805 MB (g, mlp, a in; da, gelu(a), dmlp
 // out: 0.240 ms at 3.35 TB/s), so bytes bound it; the epilogue moves ~403 MB
-// (0.120 ms), so its product bounds it. As in kernel B, every 32-token tile
-// streams all of its weight (4.7 MB) through its SM: ~4.8 GB of L2 reads per
-// call and stage.
+// (0.120 ms), so its product bounds it.
 //
-// What the design does about it:
-// - The TPU grid runs in order and carries dgate/db1/db2/dshift/dscale in
-//   resident output blocks from program to program. Here CTAs run in no
-//   order: each writes its partial sums (per token tile) to a workspace, and
-//   a second pass (sum_partials_kernel) adds them in a fixed order. No
-//   atomics: the result is deterministic, like the attention backward's.
+// ---- The Hopper body (bf16 stream: rows 9a and 9b) ----
+// The first body (the WMMA body below) gave each CTA a 32-token tile whose
+// (32, D) f32 dh1 lived in registers, so the tile could not grow: every 32
+// tokens streamed the whole 4.7 MB weight through their SM (~4.8 GB of L2
+// reads per call and stage), on WMMA 16x16x16 from shared memory, 7-9x the
+// bounds. As kernel B's forward did (csrc/adaln_mlp.cu), the Hopper body
+// gives up fusing the rows' elementwise work into the product's CTA, so
+// that the products run as the forward's persistent wgmma GEMM
+// (csrc/gemm_sm90.cuh: 128 x BN tiles, TMA ring, two consumer warpgroups)
+// and each 128-row block reads the weight once. torch's layout is the
+// MN-major B operand of both products (the reduction index is the weight's
+// row index), which the GEMM reads as it is: no packed or transposed copy.
+// Five kernels on the caller's stream:
+// 1. adaln_mlp_bwd_dmlp_kernel, one warp per token row (a CTA of 4 warps per
+//    (n, 32-token tile)): dmlp = g * gate in f32, written in bf16 (the dgelu
+//    GEMM's A: the same bits), and the tile's dgate / db2 partials.
+// 2. the dgelu GEMM (adaln_mlp_bwd_gemm_kernel, DGELU): dmlp (N*T, D) . w2
+//    -> (N*T, H), depth D, in 128-wide tiles (at 256 the epilogue's state
+//    beside 128 accumulators a thread spilled, and ran slower; PERF.md).
+//    Epilogue per warp and 64-column block: the block of `a` comes in as
+//    whole-row 16-byte loads (the tile's first block while its products
+//    run, the next one halfway through this one's math) through the warp's
+//    staging tile into the accumulator's layout; gelu(a) and gelu'(a) in f32 (tanh-GELU,
+//    accurate tanhf, as the forward); da = dgelu * gelu'(a); da and gelu(a)
+//    go out through the staging tile as whole 128-byte rows; the f32 da's
+//    column sums over the warp's 16 rows (a shuffle tree), then over the
+//    CTA's 8 warps in order, are the db1 partial of the 128-row block
+//    (workspace (row blocks, H)). Rows past N*T (A reads them as 0) are
+//    masked. Per-batch sums stay in the row passes: a 128-row block
+//    straddles batch rows whenever 128 does not divide T.
+// 3. the dh1 GEMM (DH1): da (N*T, H) . w1 -> (N*T, D), depth H; dh1 is
+//    written in f32 straight from the registers (8-byte pairs fill whole
+//    32-byte sectors): never rounded (100 MB at training). A CTA cannot
+//    hold whole 768-wide f32 rows, which the LayerNorm backward needs.
+// 4. adaln_mlp_bwd_ln_kernel, one warp per token row: reads dh1, x and g,
+//    recomputes the two-pass LayerNorm, writes h1 and dx, and the tile's
+//    dshift / dscale partials.
+// 5. sum_partials_kernel for each of the five sums.
+// The tile plans (BN, grid) come from ops/adaln_mlp.py, mlp_bwd_plan: dgelu
+// has the forward's up GEMM's shape, dh1 its down GEMM's.
+//
+// ---- The WMMA body (f32 stream) ----
+// Weights in the packed bf16 layout of ops/adaln_mlp.py (pack_w1: (H / 128,
+// D, 136); pack_w2: (H, D + 8)).
 // - Prologue, one CTA of 8 warps per (32-token tile, n, hidden split): the
 //   (32, D) g tile becomes bf16(dmlp) in shared memory once; the w2 rows of
 //   each 128-wide hidden chunk stream as contiguous 16-row tiles (the tiles
@@ -44,7 +84,7 @@
 //   f32 (N, T, H) tensor in device memory) and the db1 partial. That pass
 //   reads the chunk's `a`, fetched into registers before the chunk's MMAs
 //   so its latency hides behind them; it works on 4 columns a thread with
-//   16-byte (f32) or 8-byte (bf16) accesses.
+//   16-byte accesses.
 // - Epilogue, one CTA per (32-token tile, n): dh1 (32, D) accumulates in
 //   registers over every hidden chunk, like kernel B's fc2 phase; the w1p
 //   tiles (64 rows of D by the chunk's 128, contiguous) stream through the
@@ -55,12 +95,11 @@
 // - At the training shape both grids hold 1,024 CTAs (7.8 waves on 132
 //   SMs), so no hidden split is needed there; small shapes split the
 //   prologue's hidden range as kernel B does.
-// wgmma, TMA multicast of the weight tiles and persistent CTAs are left to
-// a later change.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 
+#include "gemm_sm90.cuh"
 #include "tile_io.cuh"
 
 using namespace nvcuda;
@@ -119,12 +158,13 @@ struct __align__(128) ESmem {
 // Prologue. Grid (token tiles, N, split); the split's CTAs share the hidden
 // chunks evenly. Workspace rows are (n, token tile): dgate_ws and db2_ws
 // (N, tiles, D), written by split 0; db1_ws (N, tiles, H).
-template <int D, typename TX>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-bwd_prologue_kernel(const TX* __restrict__ g, const float* __restrict__ mlp,
-                    const TX* __restrict__ a, const float* __restrict__ gate, long long mod_stride,
-                    const __nv_bfloat16* __restrict__ w2p, TX* __restrict__ da,
-                    TX* __restrict__ gelu_out, TX* __restrict__ dmlp, float* __restrict__ dgate_ws,
+bwd_prologue_kernel(const float* __restrict__ g, const float* __restrict__ mlp,
+                    const float* __restrict__ a, const float* __restrict__ gate,
+                    long long mod_stride, const __nv_bfloat16* __restrict__ w2p,
+                    float* __restrict__ da, float* __restrict__ gelu_out,
+                    float* __restrict__ dmlp, float* __restrict__ dgate_ws,
                     float* __restrict__ db2_ws, float* __restrict__ db1_ws, int t, int hdim) {
   using C = Cfg<D>;
   constexpr int STAGES = C::P_STAGES;
@@ -167,7 +207,7 @@ bwd_prologue_kernel(const TX* __restrict__ g, const float* __restrict__ mlp,
       const float m = first && in ? mlp[e] : 0.f;
       const float dm = v * gc;
       sm.dm[r * C::LDD + c] = __float2bfloat16_rn(dm);
-      if (first && in) dmlp[e] = tile_io::from_float<TX>(dm);
+      if (first && in) dmlp[e] = dm;
       sg += v * m;
       sb += dm;
     }
@@ -274,12 +314,13 @@ bwd_prologue_kernel(const TX* __restrict__ g, const float* __restrict__ mlp,
 
 // Epilogue. Grid (token tiles, N). Workspace rows (n, token tile):
 // dshift_ws, dscale_ws (N, tiles, D).
-template <int D, typename TX>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-bwd_epilogue_kernel(const TX* __restrict__ da, const TX* __restrict__ x, const TX* __restrict__ g,
-                    const float* __restrict__ shift, const float* __restrict__ scale,
+bwd_epilogue_kernel(const float* __restrict__ da, const float* __restrict__ x,
+                    const float* __restrict__ g, const float* __restrict__ shift,
+                    const float* __restrict__ scale,
                     long long mod_stride, const __nv_bfloat16* __restrict__ w1p,
-                    TX* __restrict__ dx, TX* __restrict__ h1, float* __restrict__ dshift_ws,
+                    float* __restrict__ dx, float* __restrict__ h1, float* __restrict__ dshift_ws,
                     float* __restrict__ dscale_ws, int t, int hdim, float eps) {
   using C = Cfg<D>;
   constexpr int NT = C::E_TILES;
@@ -309,7 +350,7 @@ bwd_epilogue_kernel(const TX* __restrict__ da, const TX* __restrict__ x, const T
   }
 
   // da of one chunk: fetched into registers, then stored as bf16; rows past t are 0
-  const TX* dab = da + (long long)nb * t * hdim;
+  const float* dab = da + (long long)nb * t * hdim;
   float4 pre[PRE];
   auto fetch = [&](int chunk) {
 #pragma unroll
@@ -487,13 +528,13 @@ int sum_partials(const float* ws, float* out, int o_count, int p_count, int c_co
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename TX>
+template <int D>
 int launch_prologue(const void* g, const float* mlp, const void* a, const float* gate,
                     long long mod_stride, const __nv_bfloat16* w2p, void* da, void* gelu_out,
                     void* dmlp, float* dgate, float* db1, float* db2, float* ws, int n, int t,
                     int hdim, int split, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(PSmem<D>));
-  cudaError_t err = cudaFuncSetAttribute(bwd_prologue_kernel<D, TX>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_prologue_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (t + BT - 1) / BT;
@@ -501,10 +542,10 @@ int launch_prologue(const void* g, const float* mlp, const void* a, const float*
   float* dgate_ws = ws;
   float* db2_ws = ws + rows * D;
   float* db1_ws = ws + 2 * rows * D;
-  bwd_prologue_kernel<D, TX><<<dim3(tiles, n, split), THREADS, smem, stream>>>(
-      static_cast<const TX*>(g), mlp, static_cast<const TX*>(a), gate, mod_stride, w2p,
-      static_cast<TX*>(da), static_cast<TX*>(gelu_out), static_cast<TX*>(dmlp), dgate_ws, db2_ws,
-      db1_ws, t, hdim);
+  bwd_prologue_kernel<D><<<dim3(tiles, n, split), THREADS, smem, stream>>>(
+      static_cast<const float*>(g), mlp, static_cast<const float*>(a), gate, mod_stride, w2p,
+      static_cast<float*>(da), static_cast<float*>(gelu_out), static_cast<float*>(dmlp), dgate_ws,
+      db2_ws, db1_ws, t, hdim);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   int e = sum_partials(dgate_ws, dgate, n, tiles, D, stream);
@@ -514,22 +555,22 @@ int launch_prologue(const void* g, const float* mlp, const void* a, const float*
   return sum_partials(db1_ws, db1, 1, static_cast<int>(rows), hdim, stream);
 }
 
-template <int D, typename TX>
+template <int D>
 int launch_epilogue(const void* da, const void* x, const void* g, const float* shift,
                     const float* scale, long long mod_stride, const __nv_bfloat16* w1p, void* dx,
                     void* h1, float* dshift, float* dscale, float* ws, int n, int t, int hdim,
                     float eps, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(ESmem<D>));
-  cudaError_t err = cudaFuncSetAttribute(bwd_epilogue_kernel<D, TX>,
+  cudaError_t err = cudaFuncSetAttribute(bwd_epilogue_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = (t + BT - 1) / BT;
   float* dshift_ws = ws;
   float* dscale_ws = ws + (long long)n * tiles * D;
-  bwd_epilogue_kernel<D, TX><<<dim3(tiles, n), THREADS, smem, stream>>>(
-      static_cast<const TX*>(da), static_cast<const TX*>(x), static_cast<const TX*>(g), shift,
-      scale, mod_stride, w1p, static_cast<TX*>(dx), static_cast<TX*>(h1), dshift_ws, dscale_ws, t,
-      hdim, eps);
+  bwd_epilogue_kernel<D><<<dim3(tiles, n), THREADS, smem, stream>>>(
+      static_cast<const float*>(da), static_cast<const float*>(x), static_cast<const float*>(g),
+      shift, scale, mod_stride, w1p, static_cast<float*>(dx), static_cast<float*>(h1), dshift_ws,
+      dscale_ws, t, hdim, eps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int e = sum_partials(dshift_ws, dshift, n, tiles, D, stream);
@@ -537,54 +578,486 @@ int launch_epilogue(const void* da, const void* x, const void* g, const float* s
   return sum_partials(dscale_ws, dscale, n, tiles, D, stream);
 }
 
-#define BWD_DISPATCH(LAUNCH, ...)                                                 \
-  switch (d) {                                                                    \
-    case 384:                                                                     \
-      return bf16 ? LAUNCH<384, __nv_bfloat16>(__VA_ARGS__) : LAUNCH<384, float>(__VA_ARGS__);  \
-    case 768:                                                                     \
-      return bf16 ? LAUNCH<768, __nv_bfloat16>(__VA_ARGS__) : LAUNCH<768, float>(__VA_ARGS__);  \
-    case 1024:                                                                    \
-      return bf16 ? LAUNCH<1024, __nv_bfloat16>(__VA_ARGS__) : LAUNCH<1024, float>(__VA_ARGS__); \
-    default:                                                                      \
-      return static_cast<int>(cudaErrorInvalidValue);                             \
+// ---- the Hopper body (bf16 stream) -------------------------------------------
+namespace sm90_body {
+
+using bf16 = __nv_bfloat16;
+using gemm_sm90::BM;
+using gemm_sm90::CONSUMERS;
+using gemm_sm90::THREADS;
+
+// A row pass's CTA: one (n, BT-token tile), one warp per row, four warps
+// (each its rows w, w + 4, ...). A warp adds its rows' column partials into
+// its row of a shared-memory array, not registers, so that a thread holds
+// little beyond one row (~100 registers at D = 768 with the partials in
+// registers left 8-16 warps an SM: 2 TB/s).
+constexpr int ROW_WARPS = 4;
+
+__device__ __forceinline__ float4 mul4(float4 a, float4 b) {
+  return make_float4(a.x * b.x, a.y * b.y, a.z * b.z, a.w * b.w);
+}
+__device__ __forceinline__ void add4(float* s, float4 v) {
+  float4& p = *reinterpret_cast<float4*>(s);
+  p.x += v.x; p.y += v.y; p.z += v.z; p.w += v.w;
+}
+
+// the warp's rows of both partials to 0 (lane's columns (i * 32 + lane) * 4
+// .. + 4)
+template <int D>
+__device__ __forceinline__ void zero_partials(float (*red)[ROW_WARPS][D], int warp, int lane) {
+#pragma unroll
+  for (int i = 0; i < D / 128; ++i)
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      *reinterpret_cast<float4*>(&red[k][warp][(i * 32 + lane) * 4]) = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// The CTA's two column sums to their workspace rows: the ROW_WARPS warps'
+// partials added in warp order.
+template <int D>
+__device__ __forceinline__ void warp_sums(float (*red)[ROW_WARPS][D], float* __restrict__ ws0,
+                                          float* __restrict__ ws1) {
+  __syncthreads();  // every warp's partials are in red
+  for (int c = threadIdx.x; c < D; c += ROW_WARPS * 32) {
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+    for (int w = 0; w < ROW_WARPS; ++w) {
+      s0 += red[0][w][c];
+      s1 += red[1][w][c];
+    }
+    ws0[c] = s0;
+    ws1[c] = s1;
+  }
+}
+
+// 1. dmlp = g * gate (f32), written in bf16; the (n, token tile)'s dgate =
+// sum g * mlp and db2 = sum dmlp partials (workspace rows n * tiles + tile).
+// Grid (tiles, N).
+template <int D>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+adaln_mlp_bwd_dmlp_kernel(const bf16* __restrict__ g, const float* __restrict__ mlp,
+                          const float* __restrict__ gate, long long mod_stride,
+                          bf16* __restrict__ dmlp, float* __restrict__ dgate_ws,
+                          float* __restrict__ db2_ws, int t) {
+  constexpr int V4 = D / 128;  // float4 per lane in one row
+  __shared__ __align__(16) float red[2][ROW_WARPS][D];  // dgate, db2
+  const int t0 = blockIdx.x * BT;
+  const int nb = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long wrow = (long long)nb * gridDim.x + blockIdx.x;
+  const float* gt = gate + nb * mod_stride;  // the CTA's gate row (L1 after the first row)
+  zero_partials<D>(red, warp, lane);
+  for (int r = warp; r < BT && t0 + r < t; r += ROW_WARPS) {
+    const long long base = ((long long)nb * t + t0 + r) * D;
+#pragma unroll
+    for (int i = 0; i < V4; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      const float4 g4 = tile_io::load4(g + base + c);
+      const float4 dm = mul4(g4, *reinterpret_cast<const float4*>(gt + c));
+      tile_io::store4(dmlp + base + c, dm);
+      add4(&red[0][warp][c], mul4(g4, *reinterpret_cast<const float4*>(mlp + base + c)));
+      add4(&red[1][warp][c], dm);
+    }
+  }
+  warp_sums<D>(red, dgate_ws + wrow * D, db2_ws + wrow * D);
+}
+
+// 4. The LayerNorm backward of the token rows of one (n, token tile): the
+// two-pass LayerNorm of x, h1 = xn * (1 + scale) + shift, dx = g + inv *
+// (dxn - mean(dxn) - xn * mean(dxn * xn)) with dxn = dh1 * (1 + scale); and
+// the dshift = sum dh1, dscale = sum dh1 * xn partials. Grid (tiles, N).
+template <int D>
+__global__ void __launch_bounds__(ROW_WARPS * 32)
+adaln_mlp_bwd_ln_kernel(const float* __restrict__ dh1, const bf16* __restrict__ x,
+                        const bf16* __restrict__ g, const float* __restrict__ shift,
+                        const float* __restrict__ scale, long long mod_stride,
+                        bf16* __restrict__ dx, bf16* __restrict__ h1,
+                        float* __restrict__ dshift_ws, float* __restrict__ dscale_ws, int t,
+                        float eps) {
+  constexpr int V4 = D / 128;
+  __shared__ __align__(16) float red[2][ROW_WARPS][D];  // dshift, dscale
+  const int t0 = blockIdx.x * BT;
+  const int nb = blockIdx.y;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const long long wrow = (long long)nb * gridDim.x + blockIdx.x;
+  const float* sh = shift + nb * mod_stride;
+  const float* sc = scale + nb * mod_stride;
+  zero_partials<D>(red, warp, lane);
+  for (int r = warp; r < BT && t0 + r < t; r += ROW_WARPS) {
+    const long long base = ((long long)nb * t + t0 + r) * D;
+    float4 xv[V4], dv[V4];
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < V4; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      xv[i] = tile_io::load4(x + base + c);
+      dv[i] = *reinterpret_cast<const float4*>(dh1 + base + c);
+      sum += xv[i].x + xv[i].y + xv[i].z + xv[i].w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+    const float mean = sum / D;
+    float sq = 0.f;
+#pragma unroll
+    for (int i = 0; i < V4; ++i) {
+      xv[i].x -= mean; xv[i].y -= mean; xv[i].z -= mean; xv[i].w -= mean;
+      sq += xv[i].x * xv[i].x + xv[i].y * xv[i].y + xv[i].z * xv[i].z + xv[i].w * xv[i].w;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    const float inv = rsqrtf(sq / D + eps);
+    // xv becomes LN(x); s1 = sum dxn, s2 = sum dxn * xn
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+    for (int i = 0; i < V4; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      const float4 s4 = *reinterpret_cast<const float4*>(sh + c);
+      const float4 k4 = *reinterpret_cast<const float4*>(sc + c);
+      xv[i] = make_float4(xv[i].x * inv, xv[i].y * inv, xv[i].z * inv, xv[i].w * inv);
+      tile_io::store4(h1 + base + c,
+                      make_float4(xv[i].x * (1.f + k4.x) + s4.x, xv[i].y * (1.f + k4.y) + s4.y,
+                                  xv[i].z * (1.f + k4.z) + s4.z, xv[i].w * (1.f + k4.w) + s4.w));
+      const float4 n4 = make_float4(dv[i].x * (1.f + k4.x), dv[i].y * (1.f + k4.y),
+                                    dv[i].z * (1.f + k4.z), dv[i].w * (1.f + k4.w));
+      s1 += n4.x + n4.y + n4.z + n4.w;
+      s2 += n4.x * xv[i].x + n4.y * xv[i].y + n4.z * xv[i].z + n4.w * xv[i].w;
+      add4(&red[0][warp][c], dv[i]);
+      add4(&red[1][warp][c], mul4(dv[i], xv[i]));
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+      s2 += __shfl_xor_sync(0xffffffffu, s2, off);
+    }
+    const float m1 = s1 / D;
+    const float m2 = s2 / D;
+#pragma unroll
+    for (int i = 0; i < V4; ++i) {
+      const int c = (i * 32 + lane) * 4;
+      const float4 k4 = *reinterpret_cast<const float4*>(sc + c);
+      const float4 g4 = tile_io::load4(g + base + c);
+      tile_io::store4(dx + base + c, make_float4(
+          g4.x + inv * (dv[i].x * (1.f + k4.x) - m1 - xv[i].x * m2),
+          g4.y + inv * (dv[i].y * (1.f + k4.y) - m1 - xv[i].y * m2),
+          g4.z + inv * (dv[i].z * (1.f + k4.z) - m1 - xv[i].z * m2),
+          g4.w + inv * (dv[i].w * (1.f + k4.w) - m1 - xv[i].w * m2)));
+    }
+  }
+  warp_sums<D>(red, dshift_ws + wrow * D, dscale_ws + wrow * D);
+}
+
+// 2, 3. the persistent GEMMs: C[m, ncols] = A[m, kdim] . B[kdim, ncols], A
+// bf16 row-major, B torch's Linear weight read MN-major
+enum Epi { DGELU, DH1 };
+
+struct EpiArgs {
+  const bf16* a;   // dgelu: the pre-GELU residual a (m, ncols)
+  bf16* da;        // dgelu: da = dgelu * gelu'(a) (m, ncols)
+  bf16* gelu;      // dgelu: gelu(a) (m, ncols)
+  float* db1_ws;   // dgelu: (row blocks, ncols) column sums of the f32 da
+  float* dh1;      // dh1: the f32 product (m, ncols)
+};
+
+template <int BN>
+struct Smem {
+  gemm_sm90::Smem<BN> ring;
+  float red[CONSUMERS / 32][BN];  // dgelu: each consumer warp's db1 sums of a tile
+};
+
+template <int BN>
+constexpr int smem_bytes() {
+  return static_cast<int>(sizeof(Smem<BN>)) + 1024;  // + alignment slack
+}
+
+// gelu(v) and dgelu/dv of tanh-GELU, f32, accurate tanhf (the forward's)
+__device__ __forceinline__ float gelu_and_grad(float v, float& grad) {
+  const float th = tanhf(GELU_C0 * (v + GELU_C1 * v * v * v));
+  grad = 0.5f * (1.f + th) + 0.5f * v * (1.f - th * th) * GELU_C0 * (1.f + 3.f * GELU_C1 * v * v);
+  return 0.5f * v * (1.f + th);
+}
+
+template <int BN, int EPI>
+__global__ void __launch_bounds__(THREADS, 1)
+adaln_mlp_bwd_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
+                          const __grid_constant__ CUtensorMap b_map, int m, int ncols, int kdim,
+                          EpiArgs ep) {
+  extern __shared__ unsigned char smem_raw[];
+  auto& sm = gemm_sm90::aligned_smem<Smem<BN>>(smem_raw);
+  const int lane = threadIdx.x % 32;
+  // dgelu: the warp's first block of `a` loads while the tile's products run
+  gemm_sm90::StagedLoad a_blk;
+  const auto begin = [&](int r0, int c0) {
+    if constexpr (EPI == DGELU)
+      a_blk.fetch(ep.a, r0 + (threadIdx.x / 32) * 16, c0, m, ncols, lane);
+  };
+  const auto epilogue = [&](float(&acc)[BN / 2], int r0, int c0) {
+    const int wg = threadIdx.x / 128;
+    const int warp = (threadIdx.x / 32) % 4;
+    // register 4n + 2i + j holds row rw + 8i, column cq + 8n + j
+    const int row0 = r0 + wg * 64 + warp * 16;  // the warp's first row
+    const int rw = row0 + lane / 4;
+    const int cq = c0 + 2 * (lane % 4);
+    if constexpr (EPI == DH1) {
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = rw + 8 * i;
+          if (row < m)
+            *reinterpret_cast<float2*>(ep.dh1 + (long long)row * ncols + cq + 8 * n) =
+                make_float2(acc[4 * n + 2 * i], acc[4 * n + 2 * i + 1]);
+        }
+    } else {
+      unsigned char* st = sm.ring.stage[threadIdx.x / 32];
+      float* red = sm.red[threadIdx.x / 32];
+#pragma unroll
+      for (int cb = 0; cb < BN / 64; ++cb) {
+        unsigned av[8][2];  // a's pairs, then gelu(a)'s
+        a_blk.load(st, av, lane);
+        __syncwarp();  // the warp has read a from the staging tile: da's pairs take it
+#pragma unroll
+        for (int nn = 0; nn < 8; ++nn) {
+          // the next block of a loads from here on: half of this block's
+          // accumulators are spent, which leaves it the registers (ptxas
+          // holds the kernel to its 168-register launch cap)
+          if (nn == 4 && cb + 1 < BN / 64)
+            a_blk.fetch(ep.a, row0, c0 + (cb + 1) * 64, m, ncols, lane);
+          const int n = cb * 8 + nn;
+          float cs[2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            const float2 af = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&av[nn][i]));
+            float gp0, gp1;
+            const float gl0 = gelu_and_grad(af.x, gp0);
+            const float gl1 = gelu_and_grad(af.y, gp1);
+            const bool in = rw + 8 * i < m;
+            const float d0 = in ? acc[4 * n + 2 * i] * gp0 : 0.f;
+            const float d1 = in ? acc[4 * n + 2 * i + 1] * gp1 : 0.f;
+            *gemm_sm90::stage_slot(st, nn, i, lane) = sm90::pack_bf16(d0, d1);
+            av[nn][i] = sm90::pack_bf16(gl0, gl1);
+            cs[0] = i == 0 ? d0 : cs[0] + d0;
+            cs[1] = i == 0 ? d1 : cs[1] + d1;
+          }
+          // the warp's 16-row sums of these two columns: lanes l ^ 4, l ^ 8,
+          // l ^ 16 hold the same columns, rows 1, 2, 4 apart
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            float v = cs[j];
+            v += __shfl_xor_sync(0xffffffffu, v, 4);
+            v += __shfl_xor_sync(0xffffffffu, v, 8);
+            v += __shfl_xor_sync(0xffffffffu, v, 16);
+            if (lane < 4) red[cb * 64 + 8 * nn + 2 * lane + j] = v;
+          }
+        }
+        gemm_sm90::stage_flush(st, ep.da, row0, c0 + cb * 64, m, ncols, lane);
+        gemm_sm90::stage_store(st, av, ep.gelu, row0, c0 + cb * 64, m, ncols, lane);
+      }
+      gemm_sm90::consumers_sync();  // every warp's sums are in red
+      for (int c = threadIdx.x; c < BN; c += CONSUMERS) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < CONSUMERS / 32; ++w) s += sm.red[w][c];
+        ep.db1_ws[(long long)(r0 / BM) * ncols + c0 + c] = s;
+      }
+      gemm_sm90::consumers_sync();  // red is read: the next tile may write it
+    }
+  };
+  gemm_sm90::run<BN, gemm_sm90::B_MN_MAJOR>(a_map, b_map, sm.ring, m, ncols, kdim, begin, epilogue);
+}
+
+template <int BN, int EPI>
+int launch_gemm(const void* a, const void* b, int m, int ncols, int kdim, int grid,
+                const EpiArgs& ep, cudaStream_t stream) {
+  CUtensorMap a_map, b_map;
+  const int err = gemm_sm90::make_maps<BN, gemm_sm90::B_MN_MAJOR>(&a_map, &b_map, a, b, m, ncols,
+                                                                 kdim);
+  if (err != 0) return err;
+  const auto kernel = adaln_mlp_bwd_gemm_kernel<BN, EPI>;
+  const cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BN>());
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<grid, THREADS, smem_bytes<BN>(), stream>>>(a_map, b_map, m, ncols, kdim, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int EPI>
+int launch_gemm_width(int bn, const void* a, const void* b, int m, int ncols, int kdim, int grid,
+                      const EpiArgs& ep, cudaStream_t stream) {
+  if (grid < 1 || kdim % gemm_sm90::BK != 0 || ncols % bn != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (bn == 128) return launch_gemm<128, EPI>(a, b, m, ncols, kdim, grid, ep, stream);
+  // dgelu: 128-wide tiles only (ops/adaln_mlp.py, BWD_DGELU_WIDTHS)
+  if (bn == 256 && EPI == DH1) return launch_gemm<256, DH1>(a, b, m, ncols, kdim, grid, ep, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// the prologue's kernels; `stages` a mask: 1 the dmlp pass (and the dgate,
+// db2 sums), 2 the dgelu GEMM (and the db1 sum)
+template <int D>
+int prologue(const void* g, const float* mlp, const void* a, const float* gate,
+             long long mod_stride, const void* w2, void* da, void* gelu_out, void* dmlp,
+             float* dgate, float* db1, float* db2, float* ws, int n, int t, int hdim, int bn,
+             int grid, int stages, cudaStream_t stream) {
+  const int tiles = (t + BT - 1) / BT;
+  const long long ws_rows = (long long)n * tiles;
+  const int rows = n * t;
+  float* dgate_ws = ws;
+  float* db2_ws = ws + ws_rows * D;
+  float* db1_ws = ws + 2 * ws_rows * D;
+  if (stages & 1) {
+    adaln_mlp_bwd_dmlp_kernel<D><<<dim3(tiles, n), ROW_WARPS * 32, 0, stream>>>(
+        static_cast<const bf16*>(g), mlp, gate, mod_stride, static_cast<bf16*>(dmlp), dgate_ws,
+        db2_ws, t);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    int err = sum_partials(dgate_ws, dgate, n, tiles, D, stream);
+    if (err == 0) err = sum_partials(db2_ws, db2, 1, static_cast<int>(ws_rows), D, stream);
+    if (err != 0) return err;
+  }
+  if (stages & 2) {
+    const EpiArgs ep{static_cast<const bf16*>(a), static_cast<bf16*>(da),
+                     static_cast<bf16*>(gelu_out), db1_ws, nullptr};
+    int err = launch_gemm_width<DGELU>(bn, dmlp, w2, rows, hdim, D, grid, ep, stream);
+    if (err == 0) err = sum_partials(db1_ws, db1, 1, (rows + BM - 1) / BM, hdim, stream);
+    if (err != 0) return err;
+  }
+  return 0;
+}
+
+// the epilogue's kernels; `stages` a mask: 1 the dh1 GEMM, 2 the row pass
+// (and the dshift, dscale sums)
+template <int D>
+int epilogue(const void* da, const void* x, const void* g, const float* shift,
+             const float* scale, long long mod_stride, const void* w1, void* dx, void* h1,
+             float* dshift, float* dscale, float* ws, int n, int t, int hdim, int bn, int grid,
+             float eps, int stages, cudaStream_t stream) {
+  const int tiles = (t + BT - 1) / BT;
+  const long long ws_rows = (long long)n * tiles;
+  float* dshift_ws = ws;
+  float* dscale_ws = ws + ws_rows * D;
+  float* dh1 = ws + 2 * ws_rows * D;
+  if (stages & 1) {
+    const EpiArgs ep{nullptr, nullptr, nullptr, nullptr, dh1};
+    const int err = launch_gemm_width<DH1>(bn, da, w1, n * t, D, hdim, grid, ep, stream);
+    if (err != 0) return err;
+  }
+  if (stages & 2) {
+    adaln_mlp_bwd_ln_kernel<D><<<dim3(tiles, n), ROW_WARPS * 32, 0, stream>>>(
+        dh1, static_cast<const bf16*>(x), static_cast<const bf16*>(g), shift, scale, mod_stride,
+        static_cast<bf16*>(dx), static_cast<bf16*>(h1), dshift_ws, dscale_ws, t, eps);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const int err = sum_partials(dshift_ws, dshift, n, tiles, D, stream);
+    if (err != 0) return err;
+    return sum_partials(dscale_ws, dscale, n, tiles, D, stream);
+  }
+  return 0;
+}
+
+}  // namespace sm90_body
+
+#define BWD_DISPATCH(CALL)                            \
+  switch (d) {                                        \
+    case 384:                                         \
+      return CALL(384);                               \
+    case 768:                                         \
+      return CALL(768);                               \
+    case 1024:                                        \
+      return CALL(1024);                              \
+    default:                                          \
+      return static_cast<int>(cudaErrorInvalidValue); \
   }
 
 }  // namespace
 
-// Stage 1. g (N, T, D), a (N, T, H) contiguous in the stream's type (f32:
-// bf16 = 0, bf16: bf16 = 1); mlp (N, T, D) f32 contiguous; gate: f32 rows of
-// D with row stride mod_stride; w2p: bf16 packed (H, D + 8). Writes da and
-// gelu_out (N, T, H) and dmlp (N, T, D) in the stream's type, dgate (N, D),
-// db1 (H) and db2 (D) f32. ws: f32 workspace of N * ceil(T / 32) * (2 D + H).
-// D in {384, 768, 1024}; H / 128 divisible by split. Launches on `stream`
-// without synchronizing; returns cudaGetLastError().
-extern "C" int adaln_mlp_bwd_prologue(const void* g, const float* mlp, const void* a,
-                                      const float* gate, long long mod_stride, const void* w2p,
-                                      void* da, void* gelu_out, void* dmlp, float* dgate,
-                                      float* db1, float* db2, float* ws, int n, int t, int d,
-                                      int hdim, int split, int bf16, void* stream) {
+// ---- the Hopper body: the bf16 stream ----
+// Stage 1. g, dmlp (N, T, D) and a, da, gelu_out (N, T, H) bf16 contiguous;
+// mlp (N, T, D) f32 contiguous; gate: f32 rows of D with row stride
+// mod_stride; w2: fc2.weight (D, H) bf16 contiguous. Writes da, gelu_out,
+// dmlp, dgate (N, D), db1 (H) and db2 (D) f32. ws: f32 workspace of 2 N
+// ceil(T / 32) D + ceil(N T / 128) H. D in {384, 768, 1024}; bn (256 or 128,
+// dividing H) and grid the tile plan of the dgelu GEMM; stages: 3 (a mask:
+// 1 the dmlp pass, 2 the GEMM). Launches on `stream` without
+// synchronizing; returns 0, a CUDA error code, or TMA_ENCODE_ERROR + a
+// CUresult (adaln_mlp_bwd_error_string names either).
+extern "C" int adaln_mlp_bwd_prologue_sm90(const void* g, const float* mlp, const void* a,
+                                           const float* gate, long long mod_stride, const void* w2,
+                                           void* da, void* gelu_out, void* dmlp, float* dgate,
+                                           float* db1, float* db2, float* ws, int n, int t, int d,
+                                           int hdim, int bn, int grid, int stages, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define PROLOGUE(D)                                                                           \
+  sm90_body::prologue<D>(g, mlp, a, gate, mod_stride, w2, da, gelu_out, dmlp, dgate, db1, db2, \
+                         ws, n, t, hdim, bn, grid, stages, s)
+  BWD_DISPATCH(PROLOGUE)
+#undef PROLOGUE
+}
+
+// Stage 2. da (N, T, H), x, g, dx and h1 (N, T, D) bf16 contiguous;
+// shift/scale: f32 rows of D with row stride mod_stride; w1: fc1.weight
+// (H, D) bf16 contiguous. Writes dx, h1, dshift and dscale (N, D) f32. ws:
+// f32 workspace of 2 N ceil(T / 32) D + N T D (the last N T D: the f32
+// dh1). bn and grid the tile plan of the dh1 GEMM; stages: 3 (1 the GEMM, 2
+// the row pass). Returns as stage 1.
+extern "C" int adaln_mlp_bwd_epilogue_sm90(const void* da, const void* x, const void* g,
+                                           const float* shift, const float* scale,
+                                           long long mod_stride, const void* w1, void* dx,
+                                           void* h1, float* dshift, float* dscale, float* ws,
+                                           int n, int t, int d, int hdim, int bn, int grid,
+                                           float eps, int stages, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+#define EPILOGUE(D)                                                                          \
+  sm90_body::epilogue<D>(da, x, g, shift, scale, mod_stride, w1, dx, h1, dshift, dscale, ws, \
+                         n, t, hdim, bn, grid, eps, stages, s)
+  BWD_DISPATCH(EPILOGUE)
+#undef EPILOGUE
+}
+
+// ---- the WMMA body: the f32 stream ----
+// Stage 1. g (N, T, D), a (N, T, H) f32 contiguous; mlp (N, T, D) f32
+// contiguous; gate: f32 rows of D with row stride mod_stride; w2p: bf16
+// packed (H, D + 8). Writes da and gelu_out (N, T, H) and dmlp (N, T, D)
+// f32, dgate (N, D), db1 (H) and db2 (D). ws: f32 workspace of N * ceil(T /
+// 32) * (2 D + H). D in {384, 768, 1024}; H / 128 divisible by split.
+// Launches on `stream` without synchronizing; returns cudaGetLastError().
+extern "C" int adaln_mlp_bwd_prologue_wmma(const void* g, const float* mlp, const void* a,
+                                           const float* gate, long long mod_stride,
+                                           const void* w2p, void* da, void* gelu_out, void* dmlp,
+                                           float* dgate, float* db1, float* db2, float* ws, int n,
+                                           int t, int d, int hdim, int split, void* stream) {
   const auto* w2 = static_cast<const __nv_bfloat16*>(w2p);
   const auto s = static_cast<cudaStream_t>(stream);
-  BWD_DISPATCH(launch_prologue, g, mlp, a, gate, mod_stride, w2, da, gelu_out, dmlp, dgate, db1,
-               db2, ws, n, t, hdim, split, s)
+#define PROLOGUE(D)                                                                          \
+  launch_prologue<D>(g, mlp, a, gate, mod_stride, w2, da, gelu_out, dmlp, dgate, db1, \
+                            db2, ws, n, t, hdim, split, s)
+  BWD_DISPATCH(PROLOGUE)
+#undef PROLOGUE
 }
 
-// Stage 2. da (N, T, H), x and g (N, T, D) contiguous in the stream's type;
-// shift/scale: f32 rows of D with row stride mod_stride; w1p: bf16 packed
-// (H / 128, D, 136). Writes dx and h1 (N, T, D) in the stream's type, dshift
-// and dscale (N, D) f32. ws: f32 workspace of 2 * N * ceil(T / 32) * D.
-// Launches on `stream` without synchronizing; returns cudaGetLastError().
-extern "C" int adaln_mlp_bwd_epilogue(const void* da, const void* x, const void* g,
-                                      const float* shift, const float* scale, long long mod_stride,
-                                      const void* w1p, void* dx, void* h1, float* dshift,
-                                      float* dscale, float* ws, int n, int t, int d, int hdim,
-                                      float eps, int bf16, void* stream) {
+// Stage 2. da (N, T, H), x and g (N, T, D) f32 contiguous; shift/scale: f32
+// rows of D with row stride mod_stride; w1p: bf16 packed (H / 128, D, 136).
+// Writes dx and h1 (N, T, D), dshift and dscale (N, D). ws: f32 workspace
+// of 2 * N * ceil(T / 32) * D. Launches on `stream` without synchronizing;
+// returns cudaGetLastError().
+extern "C" int adaln_mlp_bwd_epilogue_wmma(const void* da, const void* x, const void* g,
+                                           const float* shift, const float* scale,
+                                           long long mod_stride, const void* w1p, void* dx,
+                                           void* h1, float* dshift, float* dscale, float* ws,
+                                           int n, int t, int d, int hdim, float eps, void* stream) {
   const auto* w1 = static_cast<const __nv_bfloat16*>(w1p);
   const auto s = static_cast<cudaStream_t>(stream);
-  BWD_DISPATCH(launch_epilogue, da, x, g, shift, scale, mod_stride, w1, dx, h1, dshift, dscale, ws,
-               n, t, hdim, eps, s)
+#define EPILOGUE(D)                                                                            \
+  launch_epilogue<D>(da, x, g, shift, scale, mod_stride, w1, dx, h1, dshift, dscale, ws, \
+                            n, t, hdim, eps, s)
+  BWD_DISPATCH(EPILOGUE)
+#undef EPILOGUE
 }
 
-extern "C" const char* adaln_mlp_bwd_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
+// the Hopper GEMM's dynamic shared memory per CTA at tile width bn, bytes
+extern "C" int adaln_mlp_bwd_sm90_smem_bytes(int bn) {
+  return bn == 256 ? sm90_body::smem_bytes<256>() : sm90_body::smem_bytes<128>();
 }
+
+extern "C" const char* adaln_mlp_bwd_error_string(int err) { return sm90::error_string(err); }

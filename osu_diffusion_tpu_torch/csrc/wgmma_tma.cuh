@@ -15,7 +15,9 @@
 //   8-row groups 1024 bytes apart (SBO), a k16 step 32 bytes further along
 //   the row;
 // - MN-major (tnspB = 1: the reduction dim runs over the rows, as V in P.V
-//   and dO, Q in P^T.dO, dS^T.Q): a k16 step is 16 rows, 2048 bytes.
+//   and dO, Q in P^T.dO, dS^T.Q, and torch's Linear weights in the adaLN-MLP
+//   backward's products): a k16 step is 16 rows, 2048 bytes; an operand
+//   wider than 64 is several such tiles, a leading byte offset apart.
 //
 // Register fragments of m64nNk16 (per warp w of the warpgroup, lane l):
 // accumulator register 4n + 2i + j holds row 16w + l/4 + 8i, column
@@ -207,6 +209,17 @@ __device__ __forceinline__ unsigned long long desc(const void* tile, unsigned of
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// descriptor of an MN-major operand wider than 64: `boxes` 128-byte swizzled
+// 64-wide tiles (rows: the reduction dim) `box_bytes` apart (the leading
+// byte offset), the first at `tile` (1024-byte aligned) advanced by `offset`
+// bytes (a k16 step: 16 rows, 2048 bytes); SBO 1024 bytes (8 rows)
+__device__ __forceinline__ unsigned long long desc_mn(const void* tile, unsigned offset,
+                                                      unsigned box_bytes) {
+  const unsigned long long addr = smem_addr(tile) + offset;
+  return ((addr & 0x3FFFF) >> 4) | (static_cast<unsigned long long>(box_bytes >> 4) << 16) |
+         (64ull << 32) | (1ull << 62);
+}
+
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
 __device__ __forceinline__ void commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
@@ -263,26 +276,25 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const unsigned (&a)[4],
 #undef SM90_ACC32
 #undef SM90_D32
 
-// d[64 x N] (+)= A[64 x 16] . B[16 x N], both K-major tiles in shared memory
-// (B: N rows of the swizzled 64-wide tile, 8-row groups 1024 bytes apart,
-// which the same descriptor covers), d zeroed first when !accumulate; the
-// accumulator layout above with n running to N / 8
-template <int N>
-__device__ void mma_ss_n(float (&d)[N / 2], unsigned long long da, unsigned long long db,
-                         int accumulate);
-
-template <>
-__device__ __forceinline__ void mma_ss_n<128>(float (&d)[64], unsigned long long da,
-                                             unsigned long long db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+// d[64 x N] (+)= A[64 x 16] . B[16 x N], A a K-major tile in shared memory,
+// B K-major (TRANS_B = 0: N rows of the swizzled 64-wide tile, 8-row groups
+// 1024 bytes apart, which the same descriptor covers) or MN-major (TRANS_B =
+// 1: 16 rows of N / 64 swizzled 64-wide boxes, desc_mn), d zeroed first when
+// !accumulate; the accumulator layout above with n running to N / 8
+template <int N, int TRANS_B = 0>
+__device__ __forceinline__ void mma_ss_n(float (&d)[N / 2], unsigned long long da,
+                                         unsigned long long db, int accumulate) {
+  static_assert(N == 128 || N == 256, "wgmma widths of the GEMMs");
+  if constexpr (N == 128) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
@@ -290,25 +302,21 @@ __device__ __forceinline__ void mma_ss_n<128>(float (&d)[64], unsigned long long
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void mma_ss_n<256>(float (&d)[128], unsigned long long da,
-                                             unsigned long long db, int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+        "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+        "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+        "}, %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
@@ -324,7 +332,8 @@ __device__ __forceinline__ void mma_ss_n<256>(float (&d)[128], unsigned long lon
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(accumulate));
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TRANS_B));
+  }
 }
 
 __device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {

@@ -27,16 +27,20 @@ as bf16. The int8 serving forward (`adaln_mlp_quant`, f32 x only) takes the
 WMMA body, which keeps the hidden activation on chip: int8 weight codes in
 the packed layout of `pack_weights(..., dtype=torch.int8)`, in which every
 tile it streams is one contiguous block, and their per-output-channel
-scales s1 (H,), s2 (D,). The fused backward's kernels read the bf16 packed
-layout. After a launch the wrapper's `.body` names the body that ran
-("sm90" or "wmma").
+scales s1 (H,), s2 (D,). The fused backward's two stages take the Linear
+weights in torch's layout too (fc2 (D, H) for the prologue, fc1 (H, D) for
+the epilogue, bf16): in the bf16 stream their Hopper body (a row pass and a
+persistent wgmma GEMM each, sized by `mlp_bwd_plan`) reads them as they are;
+the f32 stream's WMMA body packs them first (`pack_w1`, `pack_w2`). After
+a launch the wrapper's `.body` names the body that ran ("sm90" or
+"wmma").
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
 `AdalnMlp` is the autograd Function of the training path: it takes fc1/fc2
-weights in torch's (out, in) layout, casts (and, for the fused backward,
-packs) them itself, and returns their gradients in that layout; `bwd_impl`
-picks the plain or the fused backward.
+weights in torch's (out, in) layout, casts them itself (the fused backward
+reads the forward's casts), and returns their gradients in that layout;
+`bwd_impl` picks the plain or the fused backward.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 GELU_C1 = 0.044715
 
 KERNEL_WIDTHS = (384, 768, 1024)  # D of DiT-S/B/L; the kernels are built for these
-# the packed layout of the int8 body and the fused backward
+# the packed layout of the int8 body and the fused backward's f32 stream
 HIDDEN_CHUNK = 128  # those kernels walk the hidden dim in chunks of this width
 ROW_PAD = 8  # zero elements after each packed row: their shared-memory row padding
 ROW_TILE = 32  # tokens per CTA of those kernels
@@ -63,16 +67,30 @@ ROW_TILE = 32  # tokens per CTA of those kernels
 GEMM_ROWS = 128  # rows of an output tile: two consumer warpgroups of 64
 GEMM_DEPTH = 64  # the reduction slab each ring stage holds
 GEMM_WIDTHS = (256, 128)  # output tile widths the kernel is built for, widest first
+# the fused backward's dgelu GEMM: its epilogue's state (gelu'(a), da, the
+# db1 sums, the next block of `a`) beside 256-wide tiles' 128 accumulators a
+# thread spilled out of ptxas's 168-register cap and ran slower (PERF.md)
+BWD_DGELU_WIDTHS = (128,)
 TILE_FIXED_COLS = 64  # gemm_plan's fixed cost of a tile, in columns of work (not tuned)
 
 
-def pack_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
-    """(w1 (D, H), w2 (H, D)) -> (w1p, w2p), the layout `adaln_mlp` takes:
-    w1p (H/128, D, 128 + ROW_PAD), w1 cut into 128-column chunks, chunk-major;
-    w2p (H, D + ROW_PAD). Rows are padded with zeros that are never read."""
+def pack_w1(w1: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """w1 (D, H) -> w1p (H/128, D, 128 + ROW_PAD): w1 cut into 128-column
+    chunks, chunk-major, each row padded with zeros that are never read."""
     d, h = w1.shape
     chunks = w1.to(dtype).reshape(d, h // HIDDEN_CHUNK, HIDDEN_CHUNK).permute(1, 0, 2)
-    return F.pad(chunks, (0, ROW_PAD)).contiguous(), F.pad(w2.to(dtype), (0, ROW_PAD)).contiguous()
+    return F.pad(chunks, (0, ROW_PAD)).contiguous()
+
+
+def pack_w2(w2: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """w2 (H, D) -> w2p (H, D + ROW_PAD), each row padded with zeros."""
+    return F.pad(w2.to(dtype), (0, ROW_PAD)).contiguous()
+
+
+def pack_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype = torch.bfloat16):
+    """(w1 (D, H), w2 (H, D)) -> (w1p, w2p), the packed layout of the WMMA
+    bodies (`pack_w1`, `pack_w2`)."""
+    return pack_w1(w1, dtype), pack_w2(w2, dtype)
 
 
 def unpack_weights(w1p: torch.Tensor, w2p: torch.Tensor):
@@ -125,11 +143,12 @@ def adaln_mlp_reference(
 
 
 class GemmPlan(NamedTuple):
-    """One persistent GEMM of the Hopper body: C (rows, cols) = A (rows,
-    depth) . B (cols, depth)^T in (GEMM_ROWS, width) output tiles, numbered
-    row block-major (tile = row block * tiles_n + column block), CTA c of
-    `grid` taking tiles c, c + grid, ... (csrc/adaln_mlp.cu numbers them the
-    same way)."""
+    """One persistent GEMM of the Hopper bodies: C (rows, cols) = A (rows,
+    depth) . B, B a Linear weight read K-major ((cols, depth), the forward)
+    or MN-major ((depth, cols), the fused backward), in (GEMM_ROWS, width)
+    output tiles, numbered row block-major (tile = row block * tiles_n +
+    column block), CTA c of `grid` taking tiles c, c + grid, ...
+    (csrc/gemm_sm90.cuh numbers them the same way)."""
     rows: int
     cols: int
     depth: int
@@ -150,8 +169,9 @@ class GemmPlan(NamedTuple):
                 for i in range(cta, self.tiles, self.grid)]
 
 
-def gemm_plan(rows: int, cols: int, depth: int, sm_count: int) -> GemmPlan:
-    """The tile width and grid of one GEMM: of the GEMM_WIDTHS that divide
+def gemm_plan(rows: int, cols: int, depth: int, sm_count: int,
+              widths: tuple[int, ...] = GEMM_WIDTHS) -> GemmPlan:
+    """The tile width and grid of one GEMM: of the `widths` that divide
     `cols`, the one whose busiest CTA has the least work, counting a tile as
     its width plus TILE_FIXED_COLS columns' worth of fixed cost (its
     pipeline's fill and its epilogue's); the widest on a tie. One persistent
@@ -159,7 +179,7 @@ def gemm_plan(rows: int, cols: int, depth: int, sm_count: int) -> GemmPlan:
     if depth % GEMM_DEPTH:
         raise ValueError(f"reduction depth {depth} is not a multiple of {GEMM_DEPTH}")
     best = None
-    for width in GEMM_WIDTHS:
+    for width in widths:
         if cols % width:
             continue
         tiles = -(-rows // GEMM_ROWS) * (cols // width)
@@ -167,7 +187,7 @@ def gemm_plan(rows: int, cols: int, depth: int, sm_count: int) -> GemmPlan:
         if best is None or cost < best[0]:
             best = (cost, GemmPlan(rows, cols, depth, width, min(sm_count, tiles)))
     if best is None:
-        raise ValueError(f"no tile width of {GEMM_WIDTHS} divides {cols}")
+        raise ValueError(f"no tile width of {widths} divides {cols}")
     return best[1]
 
 
@@ -175,6 +195,14 @@ def mlp_plan(n: int, t: int, d: int, hdim: int, sm_count: int) -> tuple[GemmPlan
     """The Hopper body's two GEMMs over the N*T token rows: up (h . W1^T,
     H columns over a depth of D) and down (g . W2^T, D columns over H)."""
     return gemm_plan(n * t, hdim, d, sm_count), gemm_plan(n * t, d, hdim, sm_count)
+
+
+def mlp_bwd_plan(n: int, t: int, d: int, hdim: int, sm_count: int) -> tuple[GemmPlan, GemmPlan]:
+    """The fused backward's two GEMMs over the N*T token rows, the forward's
+    shapes: dgelu (dmlp . fc2_w, H columns over a depth of D, in
+    BWD_DGELU_WIDTHS) and dh1 (da . fc1_w, D columns over H)."""
+    return (gemm_plan(n * t, hdim, d, sm_count, BWD_DGELU_WIDTHS),
+            gemm_plan(n * t, d, hdim, sm_count))
 
 
 def adaln_mlp_train_staged(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float,
@@ -206,6 +234,133 @@ def adaln_mlp_train_staged(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: flo
     mlp = gemm(g, fc2_w, b2, down).reshape(n, t, d)
     out = x.to(f32) + gate.to(f32)[:, None, :] * mlp
     return out.to(x.dtype), pre.reshape(n, t, hdim).to(x.dtype), mlp
+
+
+def _sum_partials(ws: torch.Tensor) -> torch.Tensor:
+    """ws (O, P, C) f32 summed over P in sum_partials_kernel's order: eight
+    running sums over p = k, k + 8, ..., then those eight in turn."""
+    lanes = torch.zeros((8, ws.shape[0], ws.shape[2]))
+    for p in range(ws.shape[1]):
+        lanes[p % 8] += ws[:, p]
+    total = torch.zeros_like(lanes[0])
+    for k in range(8):
+        total += lanes[k]
+    return total
+
+
+ROW_PASS_WARPS = 4  # warps of a row pass's CTA (one (n, ROW_TILE-token tile))
+
+
+def _tile_partials(v: torch.Tensor) -> torch.Tensor:
+    """v (N, T, C) f32 -> (N, ceil(T / ROW_TILE), C): the row passes'
+    per-(n, token tile) sums. Warp w of a tile's CTA adds its rows w, w +
+    ROW_PASS_WARPS, ... in turn, then the CTA adds the warps' sums in warp
+    order."""
+    n, t, c = v.shape
+    tiles, warps = -(-t // ROW_TILE), ROW_PASS_WARPS
+    rows = F.pad(v, (0, 0, 0, tiles * ROW_TILE - t)).reshape(n, tiles, ROW_TILE // warps, warps, c)
+    partial = rows[:, :, 0].clone()
+    for j in range(1, ROW_TILE // warps):
+        partial += rows[:, :, j]
+    total = partial[:, :, 0].clone()
+    for w in range(1, warps):
+        total += partial[:, :, w]
+    return total
+
+
+def _block_column_sums(v: torch.Tensor) -> torch.Tensor:
+    """v (GEMM_ROWS, C) f32, one row block of a tile -> (C,): the dgelu
+    epilogue's db1 partial. Consumer warp w holds rows 16 w + g + 8 i (g =
+    lane / 4): its lanes add i = 0 and 1, then a shuffle tree pairs g with g
+    ^ 1, ^ 2, ^ 4; the CTA adds the eight warps' sums in warp order."""
+    x = v.reshape(8, 2, 8, -1)
+    p = x[:, 0] + x[:, 1]  # (warp, g, C)
+    for _ in range(3):  # g ^ 1, g ^ 2, g ^ 4: the lowest remaining bit of g
+        p = p.reshape(8, -1, 2, p.shape[-1])
+        p = p[:, :, 0] + p[:, :, 1]
+    p = p.reshape(8, -1)
+    total = p[0].clone()
+    for w in range(1, 8):
+        total += p[w]
+    return total
+
+
+def adaln_mlp_bwd_staged(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float,
+                         plan: tuple[GemmPlan, GemmPlan]):
+    """The fused backward's Hopper body in plain PyTorch, stage by stage: the
+    dmlp pass; the dgelu GEMM (bf16(dmlp) . fc2_w) tile by tile in the order
+    each CTA of `plan[0]` walks them, with its epilogue (gelu(a), gelu'(a),
+    da, and the per-row-block db1 partials); the dh1 GEMM (bf16(da) . fc1_w)
+    by `plan[1]`; the LayerNorm-backward row pass; every sum of partials in
+    the kernels' fixed order. fc1_w (H, D) and fc2_w (D, H) in torch's
+    layout, read as bf16; `plan` as `mlp_bwd_plan` gives it. Returns the
+    prologue's (da, gelu(a), dmlp, dgate, db1, db2) and the epilogue's (dx,
+    h1, dshift, dscale), as `adaln_mlp_bwd_prologue_reference` and
+    `adaln_mlp_bwd_epilogue_reference` (the epilogue on this da)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, t, d = x.shape
+    hdim = fc1_w.shape[0]
+    m = n * t
+    stream = x.dtype
+    dgelu_plan, dh1_plan = plan
+    padded = -(-m // GEMM_ROWS) * GEMM_ROWS  # TMA reads rows past N*T as 0
+
+    def rows(v):  # (N, T, C) -> (padded, C) f32
+        return F.pad(v.reshape(m, -1).to(f32), (0, 0, 0, padded - m))
+
+    def gemm(a_op, w, p: GemmPlan, epilogue):
+        """A (padded, depth) . w (depth, cols), w read as bf16 in torch's
+        layout; epilogue(tile, r0, c0) for each tile in each CTA's order."""
+        wb = w.to(bf16).to(f32)
+        for cta in range(p.grid):
+            for r0, c0 in p.tiles_of(cta):
+                epilogue(a_op[r0:r0 + GEMM_ROWS] @ wb[:, c0:c0 + p.width], r0, c0)
+
+    # 1. the dmlp pass
+    gf = g.to(f32)
+    dmlp = gf * gate.to(f32)[:, None, :]
+    dgate = _sum_partials(_tile_partials(gf * mlp.to(f32)))
+    db2 = _sum_partials(_tile_partials(dmlp).reshape(1, -1, d))[0]
+    dmlp = dmlp.to(stream)
+
+    # 2. the dgelu GEMM and its epilogue (a tile no CTA computes stays NaN)
+    a_rows = rows(a)
+    da = torch.full((padded, hdim), float("nan"))
+    gelu_out = torch.full((padded, hdim), float("nan"))
+    db1_ws = torch.full((padded // GEMM_ROWS, hdim), float("nan"))
+
+    def dgelu_epilogue(dgelu, r0, c0):
+        cols = slice(c0, c0 + dgelu.shape[1])
+        gl, gp = _gelu_and_grad(a_rows[r0:r0 + GEMM_ROWS, cols])
+        d_tile = dgelu * gp
+        d_tile[max(m - r0, 0):] = 0.0  # rows past N*T
+        da[r0:r0 + GEMM_ROWS, cols] = d_tile
+        gelu_out[r0:r0 + GEMM_ROWS, cols] = gl
+        db1_ws[r0 // GEMM_ROWS, cols] = _block_column_sums(d_tile)
+
+    gemm(rows(dmlp).to(bf16).to(f32), fc2_w, dgelu_plan, dgelu_epilogue)
+    db1 = _sum_partials(db1_ws[None])[0]
+    da = da[:m].to(stream)
+    gelu_out = gelu_out[:m].reshape(n, t, hdim).to(stream)
+
+    # 3. the dh1 GEMM, f32
+    dh1 = torch.full((padded, d), float("nan"))
+
+    def dh1_epilogue(tile, r0, c0):
+        dh1[r0:r0 + GEMM_ROWS, c0:c0 + tile.shape[1]] = tile
+
+    gemm(rows(da).to(bf16).to(f32), fc1_w, dh1_plan, dh1_epilogue)
+    dh1 = dh1[:m].reshape(n, t, d)
+
+    # 4. the row pass
+    xn, inv = _layer_norm_f32(x, eps)
+    scale1 = 1.0 + scale.to(f32)[:, None, :]
+    h1 = xn * scale1 + shift.to(f32)[:, None, :]
+    dx = gf + _layer_norm_bwd(dh1 * scale1, xn, inv)
+    dshift = _sum_partials(_tile_partials(dh1))
+    dscale = _sum_partials(_tile_partials(dh1 * xn))
+    return (da.reshape(n, t, hdim), gelu_out, dmlp, dgate, db1, db2,
+            dx.to(stream), h1.to(stream), dshift, dscale)
 
 
 def adaln_mlp_quant_reference(
@@ -362,21 +517,32 @@ def sm90_smem_bytes() -> dict[int, int]:
 @functools.cache
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("adaln_mlp_bwd")
-    fn = lib.adaln_mlp_bwd_prologue
-    fn.restype = ctypes.c_int
+    i, f, p, ll = ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_longlong
+    # (g, mlp, a, gate, mod_stride, w2, da, gelu_out, dmlp, dgate, db1, db2,
+    #  ws, n, t, d, hdim, bn, grid, stages, stream)
+    lib.adaln_mlp_bwd_prologue_sm90.argtypes = [p] * 4 + [ll] + [p] * 8 + [i] * 7 + [p]
+    # (da, x, g, shift, scale, mod_stride, w1, dx, h1, dshift, dscale, ws,
+    #  n, t, d, hdim, bn, grid, eps, stages, stream)
+    lib.adaln_mlp_bwd_epilogue_sm90.argtypes = [p] * 5 + [ll] + [p] * 6 + [i] * 6 + [f, i, p]
     # (g, mlp, a, gate, mod_stride, w2p, da, gelu_out, dmlp, dgate, db1, db2,
-    #  ws, n, t, d, hdim, split, bf16, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-    fn = lib.adaln_mlp_bwd_epilogue
-    fn.restype = ctypes.c_int
+    #  ws, n, t, d, hdim, split, stream)
+    lib.adaln_mlp_bwd_prologue_wmma.argtypes = [p] * 4 + [ll] + [p] * 8 + [i] * 5 + [p]
     # (da, x, g, shift, scale, mod_stride, w1p, dx, h1, dshift, dscale, ws,
-    #  n, t, d, hdim, eps, bf16, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_void_p] * 6
-                   + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    #  n, t, d, hdim, eps, stream)
+    lib.adaln_mlp_bwd_epilogue_wmma.argtypes = [p] * 5 + [ll] + [p] * 6 + [i] * 4 + [f, p]
+    for name in ("prologue_sm90", "epilogue_sm90", "prologue_wmma", "epilogue_wmma"):
+        getattr(lib, f"adaln_mlp_bwd_{name}").restype = i
     lib.adaln_mlp_bwd_error_string.restype = ctypes.c_char_p
-    lib.adaln_mlp_bwd_error_string.argtypes = [ctypes.c_int]
+    lib.adaln_mlp_bwd_error_string.argtypes = [i]
+    lib.adaln_mlp_bwd_sm90_smem_bytes.restype = i
+    lib.adaln_mlp_bwd_sm90_smem_bytes.argtypes = [i]
     return lib
+
+
+def bwd_sm90_smem_bytes() -> dict[int, int]:
+    """The backward's Hopper GEMM's dynamic shared memory per CTA, bytes,
+    by tile width."""
+    return {width: _bwd_lib().adaln_mlp_bwd_sm90_smem_bytes(width) for width in GEMM_WIDTHS}
 
 
 @functools.cache
@@ -533,102 +699,150 @@ def adaln_mlp_train(
 
 
 def _bwd_error(lib, err: int, stage: str) -> RuntimeError:
-    return RuntimeError(f"adaln_mlp_bwd_{stage} kernel launch failed: CUDA error {err} "
+    return RuntimeError(f"adaln_mlp_bwd_{stage} kernel launch failed: error {err} "
                         f"({lib.adaln_mlp_bwd_error_string(err).decode()})")
 
 
-def adaln_mlp_bwd_prologue(g, mlp, a, gate, w2p, matmul_dtype: torch.dtype = torch.bfloat16):
-    """The fused backward's first stage: the inputs of
-    `adaln_mlp_bwd_prologue_reference`, with fc2's weight packed by
-    `pack_weights` (w2p (H, D + ROW_PAD), bf16 on the card; gate may be a
-    row view of the modulation tensor). Returns (da, gelu(a), dmlp, dgate,
-    db1, db2)."""
-    _check_device(g)
+# the stage mask of each backward stage's Hopper body: prologue 1 the dmlp
+# pass, 2 the dgelu GEMM; epilogue 1 the dh1 GEMM, 2 the row pass
+BWD_ALL_STAGES = 3
+
+
+def _bwd_prologue_launch(g, mlp, a, gate, fc2_w, matmul_dtype, stages: int = BWD_ALL_STAGES):
+    """The prologue on g's device: bf16 stream, the Hopper body (`stages`
+    below BWD_ALL_STAGES runs only those kernels: 1 the dmlp pass, 2 the
+    dgelu GEMM; a timing run, the others' outputs left unwritten); f32, the
+    WMMA body over the packed fc2 weight. Records the body in `.body`."""
     n, t, d = g.shape
-    if g.device.type == "cpu":
-        return adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, w2p[:, :d], matmul_dtype)
-    hdim = w2p.shape[0]
+    hdim = fc2_w.shape[1]
     _check_widths(g, hdim, matmul_dtype)
     _check_specs(g, {
         "g": (g, g.dtype, (n, t, d)), "mlp": (mlp, torch.float32, (n, t, d)),
         "a": (a, g.dtype, (n, t, hdim)), "gate": (gate, torch.float32, (n, d)),
-        "w2p": (w2p, torch.bfloat16, (hdim, d + ROW_PAD)),
+        "fc2_w": (fc2_w, torch.bfloat16, (d, hdim)),
     }, ("gate",))
-    split = hidden_split(n, t, hdim, _sm_count(g.device.index))
     tiles = -(-t // ROW_TILE)
-    ws = torch.empty(n * tiles * (2 * d + hdim), device=g.device, dtype=torch.float32)
     da = torch.empty_like(a)
     gelu_out = torch.empty_like(a)
     dmlp = torch.empty_like(g)
     dgate = torch.empty((n, d), device=g.device, dtype=torch.float32)
     db1 = torch.empty(hdim, device=g.device, dtype=torch.float32)
     db2 = torch.empty(d, device=g.device, dtype=torch.float32)
+    outs = (da.data_ptr(), gelu_out.data_ptr(), dmlp.data_ptr(), dgate.data_ptr(), db1.data_ptr(),
+            db2.data_ptr())
+    ins = (g.data_ptr(), mlp.data_ptr(), a.data_ptr(), gate.data_ptr(), gate.stride(0))
+    stream = torch.cuda.current_stream(g.device).cuda_stream
+    sm_count = _sm_count(g.device.index)
     lib = _bwd_lib()
-    err = lib.adaln_mlp_bwd_prologue(
-        g.data_ptr(), mlp.data_ptr(), a.data_ptr(), gate.data_ptr(), gate.stride(0),
-        w2p.data_ptr(), da.data_ptr(), gelu_out.data_ptr(), dmlp.data_ptr(), dgate.data_ptr(),
-        db1.data_ptr(), db2.data_ptr(), ws.data_ptr(), n, t, d, hdim, split,
-        int(g.dtype == torch.bfloat16), torch.cuda.current_stream(g.device).cuda_stream,
-    )
+    if g.dtype == torch.bfloat16:
+        plan = mlp_bwd_plan(n, t, d, hdim, sm_count)[0]
+        ws = torch.empty(2 * n * tiles * d + -(-n * t // GEMM_ROWS) * hdim, device=g.device,
+                         dtype=torch.float32)
+        err = lib.adaln_mlp_bwd_prologue_sm90(*ins, fc2_w.data_ptr(), *outs, ws.data_ptr(), n, t, d,
+                                              hdim, plan.width, plan.grid, stages, stream)
+        body = "sm90"
+    else:
+        w2p = pack_w2(fc2_w.t())
+        ws = torch.empty(n * tiles * (2 * d + hdim), device=g.device, dtype=torch.float32)
+        err = lib.adaln_mlp_bwd_prologue_wmma(*ins, w2p.data_ptr(), *outs, ws.data_ptr(), n, t, d,
+                                              hdim, hidden_split(n, t, hdim, sm_count), stream)
+        body = "wmma"
     if err:
         raise _bwd_error(lib, err, "prologue")
-    adaln_mlp_bwd_prologue.launches += 1
+    adaln_mlp_bwd_prologue.body = body
     return da, gelu_out, dmlp, dgate, db1, db2
 
 
-def adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1p, eps: float = 1e-6,
-                           matmul_dtype: torch.dtype = torch.bfloat16):
-    """The fused backward's second stage: the inputs of
-    `adaln_mlp_bwd_epilogue_reference`, with fc1's weight packed by
-    `pack_weights` (w1p (H / 128, D, 128 + ROW_PAD), bf16 on the card).
-    Returns (dx, h1, dshift, dscale)."""
-    _check_device(x)
+def adaln_mlp_bwd_prologue(g, mlp, a, gate, fc2_w, matmul_dtype: torch.dtype = torch.bfloat16):
+    """The fused backward's first stage: the inputs of
+    `adaln_mlp_bwd_prologue_reference`, with fc2's weight in torch's layout
+    (fc2_w (D, H), bf16 and contiguous on the card; gate may be a row view
+    of the modulation tensor). Returns (da, gelu(a), dmlp, dgate, db1,
+    db2)."""
+    _check_device(g)
+    if g.device.type == "cpu":
+        return adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, fc2_w.t(), matmul_dtype)
+    res = _bwd_prologue_launch(g, mlp, a, gate, fc2_w, matmul_dtype)
+    adaln_mlp_bwd_prologue.launches += 1
+    return res
+
+
+def _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype,
+                         stages: int = BWD_ALL_STAGES):
+    """The epilogue on x's device: bf16 stream, the Hopper body (`stages`: 1
+    the dh1 GEMM, 2 the row pass, as `_bwd_prologue_launch`); f32, the WMMA
+    body over the packed fc1 weight. Records the body in `.body`."""
     n, t, d = x.shape
-    if x.device.type == "cpu":
-        w1 = w1p[..., :HIDDEN_CHUNK].permute(1, 0, 2).reshape(d, -1)
-        return adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, w1, eps, matmul_dtype)
-    hdim = w1p.shape[0] * HIDDEN_CHUNK
+    hdim = fc1_w.shape[0]
     _check_widths(x, hdim, matmul_dtype)
     _check_specs(x, {
         "da": (da, x.dtype, (n, t, hdim)), "x": (x, x.dtype, (n, t, d)),
         "g": (g, x.dtype, (n, t, d)), "shift": (shift, torch.float32, (n, d)),
         "scale": (scale, torch.float32, (n, d)),
-        "w1p": (w1p, torch.bfloat16, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
+        "fc1_w": (fc1_w, torch.bfloat16, (hdim, d)),
     }, ("shift", "scale"))
-    ws = torch.empty(2 * n * -(-t // ROW_TILE) * d, device=x.device, dtype=torch.float32)
+    tiles = -(-t // ROW_TILE)
     dx = torch.empty_like(x)
     h1 = torch.empty_like(x)
     dshift = torch.empty((n, d), device=x.device, dtype=torch.float32)
     dscale = torch.empty((n, d), device=x.device, dtype=torch.float32)
+    ins = (da.data_ptr(), x.data_ptr(), g.data_ptr(), shift.data_ptr(), scale.data_ptr(),
+           shift.stride(0))
+    outs = (dx.data_ptr(), h1.data_ptr(), dshift.data_ptr(), dscale.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _bwd_lib()
-    err = lib.adaln_mlp_bwd_epilogue(
-        da.data_ptr(), x.data_ptr(), g.data_ptr(), shift.data_ptr(), scale.data_ptr(),
-        shift.stride(0), w1p.data_ptr(), dx.data_ptr(), h1.data_ptr(), dshift.data_ptr(),
-        dscale.data_ptr(), ws.data_ptr(), n, t, d, hdim, eps, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    if x.dtype == torch.bfloat16:
+        plan = mlp_bwd_plan(n, t, d, hdim, _sm_count(x.device.index))[1]
+        # the row pass's partials, then the f32 dh1 (N*T, D)
+        ws = torch.empty(2 * n * tiles * d + n * t * d, device=x.device, dtype=torch.float32)
+        err = lib.adaln_mlp_bwd_epilogue_sm90(*ins, fc1_w.data_ptr(), *outs, ws.data_ptr(), n, t, d,
+                                              hdim, plan.width, plan.grid, eps, stages, stream)
+        body = "sm90"
+    else:
+        w1p = pack_w1(fc1_w.t())
+        ws = torch.empty(2 * n * tiles * d, device=x.device, dtype=torch.float32)
+        err = lib.adaln_mlp_bwd_epilogue_wmma(*ins, w1p.data_ptr(), *outs, ws.data_ptr(), n, t, d,
+                                              hdim, eps, stream)
+        body = "wmma"
     if err:
         raise _bwd_error(lib, err, "epilogue")
-    adaln_mlp_bwd_epilogue.launches += 1
+    adaln_mlp_bwd_epilogue.body = body
     return dx, h1, dshift, dscale
+
+
+def adaln_mlp_bwd_epilogue(da, x, g, shift, scale, fc1_w, eps: float = 1e-6,
+                           matmul_dtype: torch.dtype = torch.bfloat16):
+    """The fused backward's second stage: the inputs of
+    `adaln_mlp_bwd_epilogue_reference`, with fc1's weight in torch's layout
+    (fc1_w (H, D), bf16 and contiguous on the card). Returns (dx, h1,
+    dshift, dscale)."""
+    _check_device(x)
+    if x.device.type == "cpu":
+        return adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, fc1_w.t(), eps, matmul_dtype)
+    res = _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype)
+    adaln_mlp_bwd_epilogue.launches += 1
+    return res
 
 
 def adaln_mlp_bwd_fused(
     x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float = 1e-6,
-    matmul_dtype: torch.dtype = torch.float32, packed=None,
+    matmul_dtype: torch.dtype = torch.float32, weights=None,
 ):
     """The fused backward (JAX `_bwd_fused_impl`), with the arguments and
     returns of `adaln_mlp_bwd`: the prologue stage, dfc2_w = dmlp^T @
     gelu(a), the epilogue stage, dfc1_w = da^T @ h1. The two weight-gradient
-    products stay on cuBLAS (`_mm`), as JAX leaves them to XLA. `packed`:
-    (w1p, w2p) of the forward, else fc1_w/fc2_w are packed here."""
+    products stay on cuBLAS (`_mm`), as JAX leaves them to XLA. `weights`:
+    the forward's (fc1_w, fc2_w) cast to `matmul_dtype` and contiguous, else
+    they are cast here."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
-    w1p, w2p = packed if packed is not None else pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
+    if weights is None:
+        weights = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
+    w1, w2 = weights
     g = g.to(x.dtype).contiguous()
-    da, gelu_out, dmlp, dgate, db1, db2 = adaln_mlp_bwd_prologue(g, mlp, a, gate, w2p, matmul_dtype)
+    da, gelu_out, dmlp, dgate, db1, db2 = adaln_mlp_bwd_prologue(g, mlp, a, gate, w2, matmul_dtype)
     dfc2_w = _mm(dmlp.reshape(n * t, d).t(), gelu_out.reshape(n * t, hdim), matmul_dtype)
-    dx, h1, dshift, dscale = adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1p, eps, matmul_dtype)
+    dx, h1, dshift, dscale = adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1, eps, matmul_dtype)
     dfc1_w = _mm(da.reshape(n * t, hdim).t(), h1.reshape(n * t, d), matmul_dtype)
     return (dx, dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1, dfc2_w.to(fc2_w.dtype), db2)
 
@@ -645,10 +859,10 @@ class AdalnMlp(torch.autograd.Function):
     fc1_w (H, D) and fc2_w (D, H) are the Linear weights themselves (not a
     cached bf16 copy, which holds no autograd history): the forward casts
     them to `matmul_dtype` for the kernel and the backward returns their
-    gradients. With the fused backward the forward also packs them
-    (`pack_weights`, the layout the backward kernels read) and keeps the
-    packed pair in ctx (9.4 MB per DiT-B block in bf16) rather than packing
-    them in the backward: keeping them against repacking is not measured."""
+    gradients. With the fused backward the forward keeps those casts in ctx
+    (9.4 MB per DiT-B block in bf16), which the backward kernels read as
+    they are, rather than casting again in the backward: keeping them
+    against recasting is not measured."""
 
     @staticmethod
     def forward(ctx, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float, matmul_dtype,
@@ -656,16 +870,16 @@ class AdalnMlp(torch.autograd.Function):
         if bwd_impl not in BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         _check_device(x)
-        packed = ()
+        casts = ()
         if x.is_cuda:
             w1, w2 = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
             out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)
-            if bwd_impl == "fused":  # the backward kernels read the packed layout
-                packed = pack_weights(fc1_w.t(), fc2_w.t(), matmul_dtype)
+            if bwd_impl == "fused":  # the backward kernels read the same casts
+                casts = (w1, w2)
         else:
             out, a, mlp = adaln_mlp_train_reference(
                 x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype)
-        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, *packed)
+        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, *casts)
         ctx.args = (eps, matmul_dtype, bwd_impl)
         return out
 
@@ -674,7 +888,7 @@ class AdalnMlp(torch.autograd.Function):
         eps, matmul_dtype, bwd_impl = ctx.args
         res = ctx.saved_tensors
         if bwd_impl == "fused":
-            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, packed=tuple(res[8:]) or None)
+            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, weights=tuple(res[8:]) or None)
         else:
             grads = adaln_mlp_bwd(*res, g, eps, matmul_dtype)
         return (*grads, None, None, None)
@@ -727,3 +941,4 @@ adaln_mlp_quant.launches = 0
 adaln_mlp.body = adaln_mlp_train.body = adaln_mlp_quant.body = None
 adaln_mlp_bwd_prologue.launches = 0
 adaln_mlp_bwd_epilogue.launches = 0
+adaln_mlp_bwd_prologue.body = adaln_mlp_bwd_epilogue.body = None

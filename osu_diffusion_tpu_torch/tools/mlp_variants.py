@@ -1,11 +1,13 @@
 """Time variants of kernel B's Hopper body (the bf16-weight adaLN-MLP
 forward) on the card, in turns.
 
-Builds two copies of csrc/adaln_mlp.cu side by side, one nvcc each, into
-the package's build directory: the committed body, and one whose up
-epilogue stores a and g straight from the accumulator layout (4 bytes a
-lane, each warp store touching 8 rows) instead of through the warp's
-shared-memory staging tile. With the committed build it also runs other
+Builds copies of csrc/adaln_mlp.cu side by side, one nvcc each, into the
+package's build directory: the committed body, and one whose up epilogue
+stores a and g straight from the accumulator layout (4 bytes a lane, each
+warp store touching 8 rows) instead of through the warp's shared-memory
+staging tile (csrc/gemm_sm90.cuh, stage_store); with `--baseline DIR`,
+also the forward of another checkout of the repository at DIR, which
+must give the committed body's bits. With the committed build it also runs other
 tile widths than the plan's (`mlp_plan`): 128-wide tiles for both GEMMs,
 and 256-wide for both. Times the training forward at the DiT-B training
 shape (x (256, 128, 768) bf16) and the inference forward at the sampling
@@ -15,11 +17,13 @@ and back. The direct-store build must give the committed body's bits;
 the other widths' bits are reported (another wgmma width may sum in
 another order). Run from the repository root on a card:
 
-    python -m osu_diffusion_tpu_torch.tools.mlp_variants
+    python -m osu_diffusion_tpu_torch.tools.mlp_variants [--baseline DIR]
 """
 from __future__ import annotations
 
+import argparse
 import ctypes
+import glob
 import os
 import subprocess
 
@@ -32,19 +36,8 @@ STAGED = """  __syncwarp();  // the warp's reads of the last block are done
 #pragma unroll
   for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = lane / 4 + 8 * i;
-      *reinterpret_cast<unsigned*>(st + r * STAGE_ROW + ((n ^ (r & 7)) << 4) + (lane % 4) * 4) =
-          vals[n][i];
-    }
-  __syncwarp();
-#pragma unroll
-  for (int it = 0; it < 4; ++it) {
-    const int r = it * 4 + lane / 8;
-    const int ch = lane % 8;
-    const uint4 v = *reinterpret_cast<const uint4*>(st + r * STAGE_ROW + ((ch ^ (r & 7)) << 4));
-    if (row0 + r < m) *reinterpret_cast<uint4*>(dst + (long long)(row0 + r) * ld + col0 + ch * 8) = v;
-  }
+    for (int i = 0; i < 2; ++i) *stage_slot(st, n, i, lane) = vals[n][i];
+  stage_flush(st, dst, row0, col0, m, ld, lane);
 """
 DIRECT = """#pragma unroll
   for (int n = 0; n < 8; ++n)
@@ -58,43 +51,65 @@ DIRECT = """#pragma unroll
 """
 
 
-def variant_sources() -> dict[str, str]:
-    src = open(os.path.join(cuda_build.CSRC_DIR, "adaln_mlp.cu")).read()
-    if src.count(STAGED) != 1:
-        raise RuntimeError("mlp_variants: the staged store is not in the source once")
-    return {"committed": src, "direct_stores": src.replace(STAGED, DIRECT)}
+def variant_sources(baseline: str | None) -> dict[str, dict[str, str]]:
+    """Each variant's files (name -> text) beside its adaln_mlp.cu: a file
+    given here takes the place of the committed csrc/ file of that name."""
+    def read(path):
+        with open(path) as f:
+            return f.read()
+
+    src = read(os.path.join(cuda_build.CSRC_DIR, "adaln_mlp.cu"))
+    header = read(os.path.join(cuda_build.CSRC_DIR, "gemm_sm90.cuh"))
+    if header.count(STAGED) != 1:
+        raise RuntimeError("mlp_variants: the staged store is not in gemm_sm90.cuh once")
+    variants = {"committed": {"adaln_mlp.cu": src},
+                "direct_stores": {"adaln_mlp.cu": src, "gemm_sm90.cuh": header.replace(STAGED, DIRECT)}}
+    if baseline is not None:
+        csrc = os.path.join(baseline, "osu_diffusion_tpu_torch", "csrc")
+        variants["baseline"] = {os.path.basename(p): read(p)
+                                for p in glob.glob(os.path.join(csrc, "*.cu*"))}
+    return variants
 
 
-def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
-    """One nvcc per variant, all at once."""
-    out_dir = os.path.join(cuda_build.BUILD_DIR, "mlp_variants")
-    os.makedirs(out_dir, exist_ok=True)
+def build(sources: dict[str, dict[str, str]], main: str = "adaln_mlp.cu",
+          out: str = "mlp_variants") -> tuple[dict[str, ctypes.CDLL], dict[str, str]]:
+    """One nvcc per variant of the source `main`, all at once, each in its
+    own directory under the build directory's `out` (a quoted include finds
+    the variant's own files first). Returns the libraries and nvcc's logs
+    (with ptxas's registers and spills)."""
+    out_dir = os.path.join(cuda_build.BUILD_DIR, out)
     procs = {}
-    for name, text in sources.items():
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
+    for name, files in sources.items():
+        os.makedirs(os.path.join(out_dir, name), exist_ok=True)
+        for file, text in files.items():
+            with open(os.path.join(out_dir, name, file), "w") as f:
+                f.write(text)
+        path = os.path.join(out_dir, name, main)
         procs[name] = subprocess.Popen(
             [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", cuda_build.CSRC_DIR,
              "-o", os.path.join(out_dir, f"{name}.so"), path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    libs, logs = {}, {}
     for name, proc in procs.items():
-        log = proc.communicate()[0]
+        logs[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for variant {name}:\n{log}")
+            raise RuntimeError(f"nvcc failed for variant {name}:\n{logs[name]}")
         libs[name] = ctypes.CDLL(os.path.join(out_dir, f"{name}.so"))
-    return libs
+    return libs, logs
 
 
 def main() -> None:
     from chip_smoke import cuda_ms  # the repository's kernel timer (run from the root)
 
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--baseline", help="another checkout of the repository, whose kernel B "
+                        "forward must give the committed body's bits")
+    opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mlp_variants: no CUDA device")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    libs = build(variant_sources())
+    libs, _ = build(variant_sources(opts.baseline))
     load, plan = cuda_build.load_library, am.mlp_plan
 
     def use(lib, widths):
@@ -120,6 +135,8 @@ def main() -> None:
         cases[name] = (args, residuals, d)
     variants = [("committed", None), ("direct_stores", None), ("committed", (128, 128)),
                 ("committed", (256, 256))]
+    if opts.baseline is not None:
+        variants.insert(1, ("baseline", None))
     want = {}
     for lib, widths in [*variants, *reversed(variants)]:
         use(lib, widths)

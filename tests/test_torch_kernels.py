@@ -487,34 +487,68 @@ def _bwd_inputs(n, t, d, dtype, g, device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024)])
+@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024),
+                                   (2, 757, 1024)])
 def test_adaln_mlp_bwd_kernels_match_plain(cuda_device, n, t, d, dtype):
     """The fused backward's two stages against their plain versions on the
     same bf16 operands, each output within 1e-2 of its max (the reasons of
     test_adaln_mlp_train_kernel_matches_plain: a bf16 rounding flip of dmlp
     or da moves a sum by 2^-8 of a term, and stream-type outputs are
-    themselves rounded to 2^-8); each wrapper launches once."""
+    themselves rounded to 2^-8); the weights in torch's layout; each wrapper
+    launches once, runs the stream's body (bf16: the Hopper body, f32: the
+    WMMA body) and gives the same bits on a second call."""
     g = torch.Generator(device=cuda_device).manual_seed(n + t + d)
     x, shift, scale, gate, w1, w2, a, mlp, gout = _bwd_inputs(n, t, d, dtype, g, cuda_device)
-    w1p, w2p = tam.pack_weights(w1, w2)
+    fc1_w, fc2_w = w1.t().contiguous(), w2.t().contiguous()
     counts = (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
-    got = tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p)
+    got = tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w)
     torch.cuda.synchronize()
+    assert tam.adaln_mlp_bwd_prologue.body == BODY[dtype]
+    assert all(torch.equal(u, v) for u, v in zip(tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w), got))
     want = tam.adaln_mlp_bwd_prologue_reference(gout, mlp, a, gate, w2, torch.bfloat16)
     for name, u, v in zip(("da", "gelu_out", "dmlp", "dgate", "db1", "db2"), got, want):
         assert u.dtype == v.dtype and u.shape == v.shape, name
         assert torch.isfinite(u).all(), name
         assert _rel(u, v) <= 1e-2, (name, _rel(u, v))
     da = want[0]  # the epilogue on the plain prologue's da: each stage alone
-    got = tam.adaln_mlp_bwd_epilogue(da, x, gout, shift, scale, w1p)
+    got = tam.adaln_mlp_bwd_epilogue(da, x, gout, shift, scale, fc1_w)
     torch.cuda.synchronize()
+    assert tam.adaln_mlp_bwd_epilogue.body == BODY[dtype]
+    assert all(torch.equal(u, v) for u, v in zip(tam.adaln_mlp_bwd_epilogue(da, x, gout, shift, scale, fc1_w), got))
     want = tam.adaln_mlp_bwd_epilogue_reference(da, x, gout, shift, scale, w1, 1e-6, torch.bfloat16)
     for name, u, v in zip(("dx", "h1", "dshift", "dscale"), got, want):
         assert u.dtype == v.dtype and u.shape == v.shape, name
         assert torch.isfinite(u).all(), name
         assert _rel(u, v) <= 1e-2, (name, _rel(u, v))
     assert (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches) == \
+        tuple(c + 2 for c in counts)
+
+
+@pytest.mark.cuda
+def test_adaln_mlp_fused_bf16_packs_no_weights(cuda_device, monkeypatch):
+    """Under the fused backward with a bf16 stream, a training step's
+    forward and backward read the weights in torch's layout: nothing
+    packs them."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("packed weights on the bf16 path")
+
+    for name in ("pack_weights", "pack_w1", "pack_w2"):
+        monkeypatch.setattr(tam, name, refuse)
+    g = torch.Generator().manual_seed(6)
+    n, t, d = 2, 64, 384
+    ins = [torch.randn(n, t, d, generator=g).to(torch.bfloat16)]
+    ins += [torch.randn(n, d, generator=g) * 0.3 for _ in range(3)]
+    ins += [torch.randn(4 * d, d, generator=g) * d ** -0.5, torch.randn(4 * d, generator=g) * 0.02,
+            torch.randn(d, 4 * d, generator=g) * (4 * d) ** -0.5, torch.randn(d, generator=g) * 0.02]
+    ins = [a.to(cuda_device).requires_grad_() for a in ins]
+    counts = (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
+    out = tam.AdalnMlp.apply(*ins, 1e-6, torch.bfloat16, "fused")
+    out.backward(torch.ones_like(out))
+    torch.cuda.synchronize()
+    assert (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches) == \
         tuple(c + 1 for c in counts)
+    assert tam.adaln_mlp_bwd_prologue.body == tam.adaln_mlp_bwd_epilogue.body == "sm90"
+    assert all(torch.isfinite(a.grad).all() for a in ins)
 
 
 @pytest.mark.cuda
@@ -549,15 +583,17 @@ def test_adaln_mlp_bwd_kernels_reject_what_they_do_not_take(cuda_device):
     dev = cuda_device
     g = torch.Generator(device=dev).manual_seed(0)
     x, shift, scale, gate, w1, w2, a, mlp, gout = _bwd_inputs(2, 8, 384, torch.float32, g, dev)
-    w1p, w2p = tam.pack_weights(w1, w2)
+    fc1_w, fc2_w = w1.t().contiguous(), w2.t().contiguous()
     with pytest.raises(ValueError):  # f32 operands have no kernel
-        tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2p, torch.float32)
+        tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w, torch.float32)
     with pytest.raises(TypeError):  # a in another type than the stream
-        tam.adaln_mlp_bwd_prologue(gout, mlp, a.to(torch.bfloat16), gate, w2p)
-    with pytest.raises(ValueError):  # unpacked weight
+        tam.adaln_mlp_bwd_prologue(gout, mlp, a.to(torch.bfloat16), gate, fc2_w)
+    with pytest.raises(ValueError):  # fc1's weight not in torch's (H, D) layout
         tam.adaln_mlp_bwd_epilogue(a, x, gout, shift, scale, w1)
+    with pytest.raises(ValueError):  # a weight that is not contiguous
+        tam.adaln_mlp_bwd_prologue(gout, mlp, a, gate, w2.t())
     with pytest.raises(ValueError):  # shift and scale with different strides
-        tam.adaln_mlp_bwd_epilogue(a, x, gout, shift.contiguous(), scale, w1p)
+        tam.adaln_mlp_bwd_epilogue(a, x, gout, shift.contiguous(), scale, fc1_w)
 
 
 # ---------------------------------------------------------------------------

@@ -101,18 +101,19 @@ def test_stages_match_the_pallas_kernels(recorded_calls, stream, t, block_t, blo
 
 
 def test_stage_wrappers_take_the_plain_versions_on_cpu():
-    """On CPU tensors the wrappers unpack the packed weights and return the
-    plain versions' outputs exactly, launching nothing."""
+    """On CPU tensors the wrappers take the weights in torch's Linear layout
+    (fc2 (D, H), fc1 (H, D)) and return the plain versions' outputs exactly,
+    launching nothing."""
     args, g = _inputs(2, 10, 32, 128, seed=1)
     x, shift, scale, gate, w1, b1, w2, b2 = (torch.from_numpy(a) for a in args)
     g = torch.from_numpy(g)
     _, a, mlp = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2)
-    w1p, w2p = tam.pack_weights(w1, w2)
+    fc1_w, fc2_w = w1.t().contiguous(), w2.t().contiguous()
     counts = (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
-    got = tam.adaln_mlp_bwd_prologue(g, mlp, a, gate, w2p)
+    got = tam.adaln_mlp_bwd_prologue(g, mlp, a, gate, fc2_w)
     want = tam.adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, w2, torch.bfloat16)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
-    got = tam.adaln_mlp_bwd_epilogue(want[0], x, g, shift, scale, w1p)
+    got = tam.adaln_mlp_bwd_epilogue(want[0], x, g, shift, scale, fc1_w)
     want = tam.adaln_mlp_bwd_epilogue_reference(want[0], x, g, shift, scale, w1, 1e-6, torch.bfloat16)
     assert all(torch.equal(u, v) for u, v in zip(got, want))
     assert counts == (tam.adaln_mlp_bwd_prologue.launches, tam.adaln_mlp_bwd_epilogue.launches)
