@@ -52,11 +52,18 @@ Phases (any failure raises and exits non-zero):
    (int8_out_residual) and the int8 fused MLP (adaln_mlp_quant), against
    their plain versions with the same bf16 operands and int8 codes and
    against the f32 dequantised ones, at the DiT-B sampling shapes and ragged
-   ones; each timed beside the cuBLAS bf16 product of its shape.
+   ones (M = 1000 for the qkv projection), with the same bits on a second
+   call; each timed beside the cuBLAS bf16 product of its shape. The qkv
+   projection and the MLP run kernel B's Hopper body over int8 codes (body
+   sm90 required): their kernels are timed alone (modulate and GEMM; modulate,
+   up and down), their six int8 GEMM builds' registers and spills printed
+   (0 spill bytes required), and torch._weight_int8pack_mm is probed for
+   the qkv product (`library_ms` where it runs on CUDA).
 10. The sample CLI with --quantize-weights (`[slice-int8]`), as in 5: every
    int8 kernel and banded attention launched steps x depth times, the f32
    MLP kernel never; seconds per denoise step beside the f32 run's, and a
-   profile. Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
+   profile (`[profile-int8]`: the device time of rows 10 and 11's kernels
+   by name). Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
    and its gap to the f32 forward on the card (the quantisation error,
    printed, not checked).
 11. The fused MLP backward's two kernels (`[mlp-bwd]`): prologue and
@@ -464,10 +471,12 @@ def cublas_mlp_ms(n, t, d, hdim, dev) -> float:
     return cuda_ms(lambda: (torch.mm(h, w1), torch.mm(g, w2)))
 
 
-def mlp_sm90_resources() -> str:
-    """Registers and spill bytes (0 required) of the eight builds of kernel
-    B's Hopper GEMM (tile width, up or down, x's type) from this build's
-    ptxas lines, and the dynamic shared memory a CTA at each width."""
+def mlp_sm90_resources(int8: bool = False) -> str:
+    """Registers and spill bytes (0 required) of kernel B's Hopper GEMM
+    builds from this build's ptxas lines, and the dynamic shared memory a
+    CTA at each width: over bf16 weights the eight builds (tile width, up
+    or down, x's type); over int8 codes (`int8`) the six of rows 10 and 11
+    (tile width; up, down or qkv; f32 x)."""
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import cuda_build
 
@@ -477,19 +486,23 @@ def mlp_sm90_resources() -> str:
         if m:
             entry = m.group(1)
             continue
-        if entry is None or "adaln_mlp_gemm_kernel" not in entry:
+        # <BN, EPI, TX, BL>: EPI 0 up, 1 down, 2 qkv; TX f or __nv_bfloat16; BL 2 int8
+        k = entry and re.search(r"adaln_mlp_gemm_kernelILi(\d+)ELi(\d)E(f|13__nv_bfloat16)Li(\d)E",
+                                entry)
+        if not k or (k[4] == "2") != int8:
             continue
-        k = re.search(r"ILi(\d+)ELi(\d)E(\w)", entry)
-        name = f"{k[1]} {'up' if k[2] == '0' else 'down'} {'bf16' if k[3] == '1' else 'f32'}"
+        name = f"{k[1]} {('up', 'down', 'qkv')[int(k[2])]} {'bf16' if k[3] != 'f' else 'f32'}"
         res = found.setdefault(name, {})
         if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             res["spill_bytes"] = int(m[1]) + int(m[2])
         if (m := re.search(r"Used (\d+) registers", line)):
             res["registers"] = int(m[1])
-    check(len(found) == 8 and all(len(r) == 2 for r in found.values()),
-          f"ptxas lines of the eight Hopper MLP GEMM builds not found: {found}")
-    check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper MLP GEMMs spill: {found}")
-    smem = am.sm90_smem_bytes()
+    want = 6 if int8 else 8
+    what = "int8" if int8 else "bf16"
+    check(len(found) == want and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the {want} {what} Hopper MLP GEMM builds not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"{what} Hopper MLP GEMMs spill: {found}")
+    smem = am.sm90_smem_bytes(int8)
     return ("; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
                       for n, r in sorted(found.items()))
             + "; shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
@@ -874,16 +887,36 @@ def phase_mlp_bwd(dev):
     return results, whole_ms
 
 
+def int8pack_ms(h, wq, s) -> float | None:
+    """torch._weight_int8pack_mm (x . (w_q * s)^T, bf16, no bias) timed on
+    the card at one int8 product's shape, or None where it does not run on
+    CUDA. Probed once; the port never calls it."""
+    import torch
+
+    try:
+        fn = lambda: torch._weight_int8pack_mm(h, wq, s.to(h.dtype))  # noqa: E731
+        fn()
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        print(f"[quant] torch._weight_int8pack_mm does not run here: {type(e).__name__}: "
+              f"{str(e).splitlines()[0][:160]}")
+        return None
+    return cuda_ms(fn)
+
+
 def phase_quant(dev):
     """Rows 10-13 against their plain versions (bf16 operands and int8
     codes, and the f32 dequantised math), the DiT-B sampling shape of each
-    first; times, bounds and the cuBLAS bf16 product of the same shape."""
+    first; the same bits on a second call, and rows 10 and 11's body; at
+    the main shape times, bounds, the cuBLAS bf16 product of the same shape,
+    rows 10 and 11's kernels alone and their int8 GEMM builds' resources."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import quant as tq
 
     g = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
+    print(f"[quant] int8 Hopper GEMM builds (ptxas): {mlp_sm90_resources(int8=True)}")
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
@@ -899,94 +932,129 @@ def phase_quant(dev):
         return (rnd(n, t, d), rnd(n, t, d), rnd(n, 6 * d, std=0.3)[:, 2 * d:3 * d], *weight(d, d),
                 rnd(d, std=0.02))
 
-    def mlp_like(n, t, d, m):
+    def mlp_like(n, t, d, m):  # fc1 (H, D) and fc2 (D, H) codes in torch's layout
         mod = rnd(n, 6 * d, std=0.3)
         (w1q, s1), (w2q, s2) = weight(4 * d, d), weight(d, 4 * d)
         return (rnd(n, t, d), mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:],
-                w1q.t(), s1, rnd(4 * d, std=0.02), w2q.t(), s2, rnd(d, std=0.02))
+                w1q, s1, rnd(4 * d, std=0.02), w2q, s2, rnd(d, std=0.02))
 
     def adaln_like(lead, k, m, act):
         return (rnd(*lead, k), *weight(m, k), rnd(m, std=0.02), act)
 
-    def mlp_kernel(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2):
-        w1p, w2p = am.pack_weights(w1q, w2q, torch.int8)
-        return am.adaln_mlp_quant(x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2)
-
-    def mlp_plain(*args, matmul_dtype):
-        return am.adaln_mlp_quant_reference(*args, 1e-6, matmul_dtype)
+    def mlp_plain(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, matmul_dtype):
+        return am.adaln_mlp_quant_reference(x, shift, scale, gate, w1q.t(), s1, b1, w2q.t(), s2, b2,
+                                            1e-6, matmul_dtype)
 
     def matmul_plain(x, wq, s, b, act, matmul_dtype):
         return tq.int8_matmul_reference(x, wq, s, b, act, matmul_dtype)
 
     # name -> (kernel, plain(*args, matmul_dtype), inputs, cases (the main
-    # path's shape first), (bytes args, flops, cuBLAS product shapes) of a case)
+    # path's shape first), the stage timing run (args, mask) and its stages
+    # (rows 10 and 11))
     kernels = {
         "int8_matmul": (tq.int8_matmul, matmul_plain, adaln_like, [
             ("main", (2,), 768, 4608, None), ("r1", (1,), 768, 4608, None),
             ("ragged_rows_gelu", (3, 37), 768, 2304, "gelu_tanh"),
-            ("m_not_64_gelu", (100,), 64, 96, "gelu_tanh"), ("k1024", (8, 128), 1024, 1000, None)]),
+            ("m_not_64_gelu", (100,), 64, 96, "gelu_tanh"), ("k1024", (8, 128), 1024, 1000, None)],
+            None),
         "int8_modulated_matmul": (
             tq.int8_modulated_matmul,
             lambda *a, matmul_dtype: tq.int8_modulated_matmul_reference(*a, 1e-6, matmul_dtype),
             qkv_like, [("main", 2, 768, 768, 2304), ("t757", 2, 757, 768, 2304),
                        ("ragged_t", 3, 50, 768, 2304), ("n8_d384", 8, 128, 384, 1152),
-                       ("n6_d1024", 6, 128, 1024, 3072), ("m_not_64", 2, 40, 768, 1000)]),
+                       ("n6_d1024", 6, 128, 1024, 3072), ("m_not_64", 2, 40, 768, 1000)],
+            (lambda args, mask: tq._modulated_launch(*args, 1e-6, bf16, stages=mask),
+             (("modulate", 1), ("GEMM", 2)))),
         "int8_out_residual": (
             tq.int8_out_residual, tq.int8_out_residual_reference, out_like,
             [("main", 2, 768, 768, 768), ("t757", 2, 757, 768, 768), ("ragged_t", 3, 50, 768, 768),
-             ("n8_d384", 8, 128, 384, 384), ("n6_d1024", 6, 128, 1024, 1024)]),
-        "adaln_mlp_quant": (mlp_kernel, mlp_plain, mlp_like, [
+             ("n8_d384", 8, 128, 384, 384), ("n6_d1024", 6, 128, 1024, 1024)], None),
+        "adaln_mlp_quant": (am.adaln_mlp_quant, mlp_plain, mlp_like, [
             ("main", 2, 768, 768, 3072), ("t757", 2, 757, 768, 3072), ("ragged_t", 3, 50, 768, 3072),
-            ("n8_d384", 8, 128, 384, 1536), ("n6_d1024", 6, 128, 1024, 4096)]),
+            ("n8_d384", 8, 128, 384, 1536), ("n6_d1024", 6, 128, 1024, 4096)],
+            (lambda args, mask: am._quant_launch(*args, 1e-6, bf16, stages=mask),
+             (("modulate", 1), ("up", 2), ("down", 4)))),
     }
+    bodies = {"int8_modulated_matmul": tq.int8_modulated_matmul, "adaln_mlp_quant": am.adaln_mlp_quant}
     results = {}
-    for name, (kernel, plain, make, cases) in kernels.items():
+    for name, (kernel, plain, make, cases, staged) in kernels.items():
         for case, *shape in cases:
             args = make(*shape)
             got = kernel(*args)
             torch.cuda.synchronize()
+            body = bodies[name].body if name in bodies else "wmma"
+            # no atomics, one CTA per output tile: the same bits run to run
+            same = torch.equal(kernel(*args), got)
             want16 = plain(*args, matmul_dtype=bf16)
             want32 = plain(*args, matmul_dtype=f32)
             e16, e32 = rel_err(got, want16), rel_err(got, want32)
-            print(f"[quant] {name} {case}: {shape} max_abs_err bf16={max_err(got, want16):.3e} "
-                  f"f32={max_err(got, want32):.3e}; of max |plain| bf16={e16:.2e} (tol "
-                  f"{QUANT_TOL_BF16}) f32={e32:.2e} (tol {QUANT_TOL_F32})")
+            print(f"[quant] {name} {case}: {shape} body {body} max_abs_err bf16="
+                  f"{max_err(got, want16):.3e} f32={max_err(got, want32):.3e}; of max |plain| "
+                  f"bf16={e16:.2e} (tol {QUANT_TOL_BF16}) f32={e32:.2e} (tol {QUANT_TOL_F32}); "
+                  f"same bits on a second call: {same}")
             check(got.shape == want16.shape and bool(torch.isfinite(got).all()),
                   f"{name} {case}: shape {tuple(got.shape)} or non-finite output")
             check(e16 <= QUANT_TOL_BF16, f"{name} {case}: {e16} > {QUANT_TOL_BF16}")
             check(e32 <= QUANT_TOL_F32, f"{name} {case}: {e32} > {QUANT_TOL_F32}")
+            check(same, f"{name} {case}: a second call gave other bits")
+            check(name not in bodies or body == "sm90", f"{name} {case}: body {body}, expected sm90")
             if case != "main":
                 continue
+            tensors = [a for a in args if isinstance(a, torch.Tensor)]
             if name == "adaln_mlp_quant":
-                x, w1q, w2q = args[0], args[4], args[7]
-                rows, d, h = x.shape[0] * x.shape[1], x.shape[2], w1q.shape[1]
-                w1p, w2p = am.pack_weights(w1q, w2q, torch.int8)
-                moved = nbytes(*args[:4], w1p, *args[5:7], w2p, *args[8:], got)
+                x, w1q = args[0], args[4]
+                rows, d, h = x.shape[0] * x.shape[1], x.shape[2], w1q.shape[0]
                 flops = 4 * rows * d * h
                 products = [(rows, d, h), (rows, h, d)]
-                ms = cuda_ms(lambda: am.adaln_mlp_quant(*args[:4], w1p, *args[5:7], w2p, *args[8:]))
             else:
-                tensors = [a for a in args if isinstance(a, torch.Tensor)]
                 wq = tensors[-3]
                 rows, k, m = got.numel() // got.shape[-1], wq.shape[1], wq.shape[0]
-                moved = nbytes(*tensors, got)
                 flops = 2 * rows * k * m
                 products = [(rows, k, m)]
-                ms = cuda_ms(lambda: kernel(*args))
-            launch_us = host_us(lambda: kernel(*args) if name != "adaln_mlp_quant" else
-                                am.adaln_mlp_quant(*args[:4], w1p, *args[5:7], w2p, *args[8:]))
+            moved = nbytes(*tensors, got)
+            ms = cuda_ms(lambda: kernel(*args))
+            launch_us = host_us(lambda: kernel(*args))
             plain_ms = cuda_ms(lambda: plain(*args, matmul_dtype=f32))
             mats = [(torch.randn(r, k, device=dev, dtype=bf16), torch.randn(k, c, device=dev, dtype=bf16))
                     for r, k, c in products]
             cublas_ms = cuda_ms(lambda: [torch.mm(a, b, out_dtype=f32) for a, b in mats])
+            library_ms, stages = None, ""
+            if staged is not None:
+                launch, masks = staged
+                stage_ms = {stage: cuda_ms(lambda m=mask: launch(args, m)) for stage, mask in masks}
+                stages = (" (kernels alone: " + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+                          + f"; sum {sum(stage_ms.values()):.4f})")
+            if name == "adaln_mlp_quant":
+                # the up and down GEMMs beside row 7's over the same codes as
+                # bf16 weights (the upcast done ahead, in device memory), in
+                # turns: what the on-chip upcast costs each GEMM
+                x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2 = args
+                wide = (x, shift, scale, gate, w1q.to(bf16), b1, w2q.to(bf16), b2)
+                turns = {}
+                for kind in ("int8", "bf16", "bf16", "int8"):
+                    for stage, mask in (("up", 2), ("down", 4)):
+                        fn = ((lambda m=mask: am._quant_launch(*args, 1e-6, bf16, stages=m))
+                              if kind == "int8" else
+                              (lambda m=mask: am._launch(am.adaln_mlp, *wide, 1e-6, bf16,
+                                                         residuals=False, stages=m)))
+                        turns.setdefault(f"{kind} {stage}", []).append(cuda_ms(fn))
+                print("[quant] adaln_mlp_quant main: GEMMs alone in turns (int8, bf16, bf16, int8), "
+                      "int8 codes against row 7's bf16 weights: " + "; ".join(
+                          f"{k} " + ", ".join(f"{v:.4f}" for v in vs) + " ms" for k, vs in turns.items()))
+            if name == "int8_modulated_matmul":
+                # the qkv product alone through PyTorch's int8 weight-only call
+                x, shift, scale, wq, s_q, _ = args
+                hq = (am._layer_norm_f32(x, 1e-6)[0] * (1 + scale[:, None]) + shift[:, None])
+                library_ms = int8pack_ms(hq.reshape(-1, hq.shape[-1]).to(bf16), wq, s_q)
             b = bound(moved, flops)
-            print(f"[quant] {name} main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+            library = ("none" if library_ms is None else
+                       f"torch._weight_int8pack_mm of its product (no LayerNorm, bias) {library_ms:.4f} ms")
+            print(f"[quant] {name} main: kernel {ms:.4f} ms{stages}, plain f32 {plain_ms:.4f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {moved / 1e6:.2f} MB, "
-                  f"{flops:.3e} FLOP); yardstick, not the same function: cuBLAS bf16 product(s) "
-                  f"{products} alone {cublas_ms:.4f} ms; no single PyTorch call computes it; "
-                  f"host {launch_us:.1f} us per call")
+                  f"{flops:.3e} FLOP); library: {library}; yardstick, not the same function: cuBLAS "
+                  f"bf16 product(s) {products} alone {cublas_ms:.4f} ms; host {launch_us:.1f} us per call")
             results[name] = {"max_abs_err": max_err(got, want16), "ms": ms, "plain_ms": plain_ms,
-                             **b, "library_ms": None, "cublas_product_ms": cublas_ms}
+                             **b, "library_ms": library_ms, "cublas_product_ms": cublas_ms}
     return results
 
 
@@ -1106,12 +1174,33 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
           f"of the timed chain")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{ptag}]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
-    # kernel B's own device time: the Hopper body (f32) or the int8 WMMA body
-    names = ("adaln_mlp_partial_kernel", "adaln_mlp_epilogue_kernel") if quantize else MLP_SM90_KERNELS
-    mlp_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in names))
-    print(f"[{tag}] kernel B ({', '.join(names)}) {mlp_us / 1000 / STEPS:.3f} ms of device time per "
-          f"denoise step, {100 * mlp_us / max(device_us, 1e-9):.1f}% of the chain's")
+    # kernel B's own device time (its Hopper body: MLP_SM90_KERNELS); in the
+    # int8 chain the same kernels also run row 11, split by the GEMM's epilogue
+    mlp_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in MLP_SM90_KERNELS))
+    what = "rows 10 and 11" if quantize else "kernel B"
+    print(f"[{tag}] {what} ({', '.join(MLP_SM90_KERNELS)}) {mlp_us / 1000 / STEPS:.3f} ms of device "
+          f"time per denoise step, {100 * mlp_us / max(device_us, 1e-9):.1f}% of the chain's")
+    if quantize:
+        parts = {"modulate passes (rows 10 and 11)": 0.0, "up + down GEMMs (row 10)": 0.0,
+                 "qkv GEMM (row 11)": 0.0, "GEMMs of an unread name": 0.0}
+        for e in events:
+            if MLP_SM90_KERNELS[0] in e.key:
+                parts["modulate passes (rows 10 and 11)"] += e.self_device_time_total
+            elif MLP_SM90_KERNELS[1] in e.key:
+                epi = gemm_epilogue(e.key)
+                part = ("GEMMs of an unread name" if epi is None else
+                        "qkv GEMM (row 11)" if epi == 2 else "up + down GEMMs (row 10)")
+                parts[part] += e.self_device_time_total
+        print(f"[{tag}] int8 Hopper bodies, device ms per denoise step: " + ", ".join(
+            f"{k} {v / 1000 / STEPS:.3f}" for k, v in parts.items()))
     return launches, sampler, call_args, step_ms
+
+
+def gemm_epilogue(name: str) -> int | None:
+    """The epilogue (0 up, 1 down, 2 qkv) of an adaln_mlp_gemm_kernel build
+    from its name in a profile (demangled or not), or None."""
+    m = re.search(r"adaln_mlp_gemm_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)", name)
+    return None if m is None else int(m[1] or m[2])
 
 
 def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=None):
@@ -2041,7 +2130,7 @@ def main() -> int:
         "adaln_mlp_bwd_prologue": (mlp_bwd_src, "osu_diffusion_tpu/ops/pallas_mlp.py:315"),
         "adaln_mlp_bwd_epilogue": (mlp_bwd_src, "osu_diffusion_tpu/ops/pallas_mlp.py:390"),
         "adaln_mlp_quant": (mlp_src, "osu_diffusion_tpu/ops/pallas_mlp.py:184"),
-        "int8_modulated_matmul": (int8_src, f"{quant_ref}:95"),
+        "int8_modulated_matmul": (mlp_src, f"{quant_ref}:95"),
         "int8_out_residual": (int8_src, f"{quant_ref}:156"),
         "int8_matmul": (int8_src, f"{quant_ref}:221"),
         "banded_attention_ranged": (attn_src, f"{attn_ref}:249"),

@@ -1,12 +1,15 @@
 // The adaLN-modulated MLP forward for Hopper, sm_90a: inference, and
-// training with the backward's residuals, with bf16 weights (the Hopper
-// body: a modulate pass and two persistent wgmma GEMMs); and inference with
-// int8 weight-only weights for serving (the WMMA body).
+// training with the backward's residuals, with bf16 weights, and inference
+// with int8 weight-only weights for serving; each a modulate pass and two
+// persistent wgmma GEMMs (the Hopper body). Also the int8 qkv projection,
+// which is the same modulate pass and one such GEMM.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_mlp.py, _adaln_mlp_kernel (:53)
 //   in inference mode (a_ref = mlp_ref = None; called via
 //   _adaln_mlp_fwd_impl) and in training mode (with_residuals=True, called
-//   via _fwd); and _adaln_mlp_quant_kernel (:184), the int8 serving variant.
+//   via _fwd); _adaln_mlp_quant_kernel (:184), the int8 serving variant;
+//   and osu_diffusion_tpu/ops/pallas_quant.py, _modulated_kernel (:95),
+//   the int8 qkv projection with the LayerNorm and modulation folded in.
 //
 // Computes the MLP half of a DiT block,
 //   out = x + gate * (fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift))))
@@ -72,7 +75,7 @@
 //    once: ~0.12 ms of HBM time) was meant to hide under the products; at
 //    sampling g is 9.4 MB and stays in L2.
 // BN, the tile's width, and the grid come from the wrapper's tile plan
-// (ops/adaln_mlp.py, gemm_plan): BN = 256 or 128, whichever leaves the card
+// (ops/gemm_plan.py, gemm_plan): BN = 256 or 128, whichever leaves the card
 // less idle in the last round of tiles; the grid is min(SMs, tiles). No
 // split-K and no atomics: one CTA owns each output tile and sums its whole
 // reduction in one order, so the result is the same bits run to run.
@@ -85,47 +88,41 @@
 // streams g back from device memory: not overlapping the two is left to a
 // later change.
 //
-// ---- The WMMA body (int8 weights: row 10, entry adaln_mlp_quant_fwd) ----
-// x and out f32. Weights: int8 codes in the packed layout of
-// ops/adaln_mlp.py (pack_weights): w1 cut into 128-column chunks,
-// chunk-major, each row padded by 8 -> (H / 128, D, 136); w2 (H, D) with
-// each row padded by 8 -> (H, D + 8); every weight tile the kernel streams
-// is one contiguous block whose rows already carry the shared-memory
-// padding. Per-output-channel f32 scales s1 (H) and s2 (D).
-// - kernel 1, one CTA of 8 warps per (32-row token tile, n, hidden split):
-//   LN + modulate once into shared memory as bf16; then for each 128-wide
-//   chunk of the split's hidden range, fc1 (WMMA bf16 16x16x16, f32
-//   accumulate), s1 and bias + GELU into a bf16 shared chunk, and fc2 of
-//   that chunk accumulated into the (32, D) partial output held in
-//   registers. The hidden activation never leaves the SM.
-// - weight tiles (64 x 128 of w1, 16 x D of w2) stream through a four-stage
-//   shared-memory ring as single bulk async copies (cp.async.bulk, one
-//   thread) that complete on the stage's mbarrier. Once a tile lands, the
-//   CTA upcasts it to bf16 (exact, |q| <= 127; the byte-permute upcast of
-//   tile_io.cuh) into one more shared tile, which the MMAs read, and the
-//   ring stage is refilled at once. (Measured on an H100 at DiT-B sampling:
-//   int-to-float conversions in the upcast 0.372 ms, the byte permutes
-//   0.312.)
-// - the hidden dim is split over `split` CTAs (the wrapper picks it so the
-//   grid fills the SMs). Each writes its f32 partial to a workspace;
-//   kernel 2 sums the partials in a fixed order (deterministic), applies s2
-//   (a scale does not vary along the reduction, so this equals the TPU
-//   kernel's per-hidden-block application up to f32 rounding), b2, gate
-//   and the residual.
+// ---- The int8 serving bodies (rows 10 and 11) ----
+// The same three kernels over int8 weight codes for serving (x and out
+// f32): fc1 (H, D) and fc2 (D, H) int8 in torch's Linear layout, as
+// QuantLinear holds them, with f32 per-output-channel scales s1 (H) and s2
+// (D). The GEMMs take csrc/gemm_sm90.cuh's int8 B operand: TMA loads each
+// (BN, 64)-byte slab of codes into the stage, the consumers upcast it to
+// bf16 in shared memory (exact: |q| <= 127) in the swizzled layout their
+// wgmma reads, each slab while the products of the one before run, and
+// each epilogue takes the f32 sum times the column's scale plus the bias
+// (acc * s + b, the TPU kernels' order). No bf16 copy of a weight exists outside the
+// ring. Row 10 (entry adaln_mlp_quant_fwd) is modulate, up and down as
+// above; row 11 (int8_modulated_matmul_fwd, the qkv projection
+// (LN(x) * (1 + scale) + shift) . (w * s)^T + b) is the modulate pass and
+// one GEMM whose epilogue writes f32 (N*T, M) straight from the registers,
+// M any even count (the last column block masked: TMA reads its codes past
+// M as 0, the epilogue stores no column past M).
+// What bounds them at DiT-B sampling (x 2 x 768 x 768 f32): row 10 as row
+// 7, the products (14.5 GFLOP, 14.7 us); row 11 the bytes (x 4.7 MB, codes
+// 1.8 MB, out 14.2 MB f32: 6.2 us, against 5.4 GFLOP, 5.5 us).
+// What replaced what: row 10's first body streamed all 4.7 MB of codes
+// through each 32-token CTA and upcast each tile in shared memory before
+// WMMA 16x16x16 products (0.30 ms at DiT-B sampling, 20x its bound); row
+// 11's re-read its weight from L2 once per 32-row tile, also on WMMA (0.088
+// ms). Here each weight slab is read once per 128-row block and multiplied
+// on wgmma. At DiT-B sampling (1536 token rows) 12 row blocks under-fill
+// the card as they do for row 7.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
-
-#include <cstdint>
 
 #include "gemm_sm90.cuh"
 #include "tile_io.cuh"
 
-using namespace nvcuda;
-
 namespace {
 
-// the body the last entry call launched: "sm90" (bf16 weights) or "wmma" (int8)
+// the body the last entry call launched ("sm90": every entry's)
 const char* last_body = "none";
 
 __device__ __forceinline__ float gelu_tanh(float v) {
@@ -197,37 +194,53 @@ adaln_mlp_modulate_kernel(const TX* __restrict__ x, const float* __restrict__ sh
 // ---- 2, 3. the persistent GEMMs (wgmma, TMA ring: csrc/gemm_sm90.cuh) -------
 namespace gemm {
 
+using gemm_sm90::B_INT8;
+using gemm_sm90::B_K_MAJOR;
 using gemm_sm90::THREADS;
 
-template <int BN>
+template <int BN, int BL>
 constexpr int smem_bytes() {
-  return static_cast<int>(sizeof(gemm_sm90::Smem<BN>)) + 1024;  // + alignment slack
+  return static_cast<int>(sizeof(gemm_sm90::SmemOf<BN, BL>)) + 1024;  // + alignment slack
 }
 
-enum Epi { UP, DOWN };
+enum Epi { UP, DOWN, QKV };
 
 // what the epilogues read and write besides the accumulator
 struct EpiArgs {
-  const float* bias;         // b1 (up) or b2 (down)
+  const float* bias;         // b1 (up), b2 (down) or b (qkv)
   void* a;                   // up: pre-GELU a in x's type, or null (inference)
   __nv_bfloat16* g;          // up: bf16(gelu(pre)), the down GEMM's A
   const void* x;             // down: the residual stream
   const float* gate;         // down: gate rows, row stride mod_stride
   long long mod_stride;
   int t;                     // tokens per batch row: a token row's batch is row / t
-  void* out;                 // down: x + gate * mlp in x's type
+  void* out;                 // down: x + gate * mlp in x's type; qkv: f32 (m, ncols)
   float* mlp;                // down: pre-gate mlp in f32, or null (inference)
+  const float* scale;        // int8 B: the codes' per-column scales s1, s2 or s
 };
 
-// C[m, ncols] = A[m, kdim] . B[ncols, kdim]^T, both bf16 row-major (B
-// K-major: torch's Linear weight), persistent, with the up or down epilogue.
-template <int BN, int EPI, typename TX>
+// a column's f32 value from its sum: + bias; int8 codes' sums times the
+// column's scale first
+template <int BL>
+__device__ __forceinline__ float biased(float acc, float s, float b) {
+  if constexpr (BL == B_INT8) return acc * s + b;
+  return acc + b;
+}
+
+// C[m, ncols] = A[m, kdim] . B[ncols, kdim]^T, A bf16 and B bf16 or int8
+// codes (BL), both row-major (B K-major: torch's Linear weight),
+// persistent, with the up, down or qkv epilogue.
+template <int BN, int EPI, typename TX, int BL>
 __global__ void __launch_bounds__(THREADS, 1)
 adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
                       const __grid_constant__ CUtensorMap b_map, int m, int ncols, int kdim,
                       EpiArgs ep) {
   extern __shared__ unsigned char smem_raw[];
-  auto& sm = gemm_sm90::aligned_smem<gemm_sm90::Smem<BN>>(smem_raw);
+  auto& sm = gemm_sm90::aligned_smem<gemm_sm90::SmemOf<BN, BL>>(smem_raw);
+  const auto scales = [&](int c) {  // the codes' scales of columns c, c + 1
+    if constexpr (BL == B_INT8) return *reinterpret_cast<const float2*>(ep.scale + c);
+    return make_float2(1.f, 1.f);
+  };
   const auto epilogue = [&](float(&acc)[BN / 2], int r0, int c0) {
     const int wg = threadIdx.x / 128;
     const int warp = (threadIdx.x / 32) % 4;
@@ -249,10 +262,11 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           const int n = cb * 8 + nn;
           const int c = cq + 8 * n;
           const float2 bias = *reinterpret_cast<const float2*>(ep.bias + c);
+          const float2 sc = scales(c);
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
-            const float p0 = acc[4 * n + 2 * i] + bias.x;
-            const float p1 = acc[4 * n + 2 * i + 1] + bias.y;
+            const float p0 = biased<BL>(acc[4 * n + 2 * i], sc.x, bias.x);
+            const float p1 = biased<BL>(acc[4 * n + 2 * i + 1], sc.y, bias.y);
             av[nn][i] = sm90::pack_bf16(p0, p1);
             gv[nn][i] = sm90::pack_bf16(gelu_tanh(p0), gelu_tanh(p1));
             if constexpr (sizeof(TX) == 4) {
@@ -268,7 +282,7 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
         gemm_sm90::stage_store(st, gv, ep.g, row0, c0 + cb * 64, m, ncols, lane);
       }
-    } else {
+    } else if constexpr (EPI == DOWN) {
       const TX* x = static_cast<const TX*>(ep.x);
       TX* out = static_cast<TX*>(ep.out);
       const float* gate_row[2];
@@ -278,12 +292,13 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
       for (int n = 0; n < BN / 8; ++n) {
         const int c = cq + 8 * n;
         const float2 bias = *reinterpret_cast<const float2*>(ep.bias + c);
+        const float2 sc = scales(c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = rw + 8 * i;
           if (row >= m) continue;
-          const float v0 = acc[4 * n + 2 * i] + bias.x;
-          const float v1 = acc[4 * n + 2 * i + 1] + bias.y;
+          const float v0 = biased<BL>(acc[4 * n + 2 * i], sc.x, bias.x);
+          const float v1 = biased<BL>(acc[4 * n + 2 * i + 1], sc.y, bias.y);
           const long long off = (long long)row * ncols + c;
           if (ep.mlp != nullptr) store2(ep.mlp + off, v0, v1);
           const float2 gt = *reinterpret_cast<const float2*>(gate_row[i] + c);
@@ -291,38 +306,55 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           store2(out + off, __fmaf_rn(gt.x, v0, xv.x), __fmaf_rn(gt.y, v1, xv.y));
         }
       }
+    } else {  // QKV: f32 (m, ncols), columns past ncols (a ragged block) not stored
+      float* out = static_cast<float*>(ep.out);
+#pragma unroll
+      for (int n = 0; n < BN / 8; ++n) {
+        const int c = cq + 8 * n;
+        if (c >= ncols) continue;  // ncols even: the pair's second column is in too
+        const float2 bias = *reinterpret_cast<const float2*>(ep.bias + c);
+        const float2 sc = scales(c);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int row = rw + 8 * i;
+          if (row < m)
+            store2(out + (long long)row * ncols + c, biased<BL>(acc[4 * n + 2 * i], sc.x, bias.x),
+                   biased<BL>(acc[4 * n + 2 * i + 1], sc.y, bias.y));
+        }
+      }
     }
   };
-  gemm_sm90::run<BN, gemm_sm90::B_K_MAJOR>(a_map, b_map, sm, m, ncols, kdim, [](int, int) {},
-                                           epilogue);
+  gemm_sm90::run<BN, BL>(a_map, b_map, sm, m, ncols, kdim, [](int, int) {}, epilogue);
 }
 
-// C = A . B^T for A (m, kdim) and B (ncols, kdim) bf16 row-major, on `grid`
-// persistent CTAs
-template <int BN, int EPI, typename TX>
+// C = A . B^T for A (m, kdim) bf16 and B (ncols, kdim) bf16 or int8
+// codes, row-major, on `grid` persistent CTAs
+template <int BN, int EPI, typename TX, int BL>
 int launch(const void* a, const void* b, int m, int ncols, int kdim, int grid, const EpiArgs& ep,
            cudaStream_t stream) {
   CUtensorMap a_map, b_map;
-  const int err = gemm_sm90::make_maps<BN, gemm_sm90::B_K_MAJOR>(&a_map, &b_map, a, b, m, ncols, kdim);
+  const int err = gemm_sm90::make_maps<BN, BL>(&a_map, &b_map, a, b, m, ncols, kdim);
   if (err != 0) return err;
-  const auto kernel = adaln_mlp_gemm_kernel<BN, EPI, TX>;
-  const cudaError_t e =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes<BN>());
+  const auto kernel = adaln_mlp_gemm_kernel<BN, EPI, TX, BL>;
+  constexpr int smem = smem_bytes<BN, BL>();
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  kernel<<<grid, THREADS, smem_bytes<BN>(), stream>>>(a_map, b_map, m, ncols, kdim, ep);
+  kernel<<<grid, THREADS, smem, stream>>>(a_map, b_map, m, ncols, kdim, ep);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int EPI, typename TX>
+// the up and down GEMMs take whole column blocks; qkv an even ncols, its
+// last block ragged
+template <int EPI, typename TX, int BL>
 int launch_width(int bn, const void* a, const void* b, int m, int ncols, int kdim, int grid,
                  const EpiArgs& ep, cudaStream_t stream) {
-  if (grid < 1 || kdim % gemm_sm90::BK != 0 || ncols % bn != 0)
+  if (grid < 1 || kdim % gemm_sm90::BK != 0 || (EPI == QKV ? ncols % 2 : ncols % bn) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
     case 256:
-      return launch<256, EPI, TX>(a, b, m, ncols, kdim, grid, ep, stream);
+      return launch<256, EPI, TX, BL>(a, b, m, ncols, kdim, grid, ep, stream);
     case 128:
-      return launch<128, EPI, TX>(a, b, m, ncols, kdim, grid, ep, stream);
+      return launch<128, EPI, TX, BL>(a, b, m, ncols, kdim, grid, ep, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -330,295 +362,45 @@ int launch_width(int bn, const void* a, const void* b, int m, int ncols, int kdi
 
 }  // namespace gemm
 
-// the three kernels of the Hopper body; `stages` a mask of the ones to run
-// (1 modulate, 2 up, 4 down: all but a stage timing run pass 7)
+// the modulate pass of x (rows of D) into the bf16 workspace h
 template <int D, typename TX>
-int sm90_forward(const void* x, const float* shift, const float* scale, const float* gate,
-                 long long mod_stride, const void* w1, const float* b1, const void* w2,
-                 const float* b2, void* h, void* g, void* out, void* a, float* mlp, int n, int t,
-                 int hdim, int bn_up, int grid_up, int bn_down, int grid_down, float eps,
-                 int stages, cudaStream_t stream) {
-  const int rows = n * t;
-  auto* hb = static_cast<__nv_bfloat16*>(h);
-  auto* gb = static_cast<__nv_bfloat16*>(g);
-  if (stages & 1) {
-    adaln_mlp_modulate_kernel<D, TX><<<(rows + MOD_WARPS - 1) / MOD_WARPS, MOD_WARPS * 32, 0,
-                                       stream>>>(static_cast<const TX*>(x), shift, scale,
-                                                 mod_stride, hb, rows, t, eps);
-    const cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  if (stages & 2) {
-    const gemm::EpiArgs up{b1, a, gb, nullptr, nullptr, 0, t, nullptr, nullptr};
-    const int err = gemm::launch_width<gemm::UP, TX>(bn_up, hb, w1, rows, hdim, D, grid_up, up,
-                                                     stream);
-    if (err != 0) return err;
-  }
-  if (stages & 4) {
-    const gemm::EpiArgs down{b2, nullptr, nullptr, x, gate, mod_stride, t, out, mlp};
-    return gemm::launch_width<gemm::DOWN, TX>(bn_down, gb, w2, rows, D, hdim, grid_down, down,
-                                              stream);
-  }
-  return 0;
-}
-
-// ---- the int8 WMMA body (row 10) -------------------------------------------
-namespace int8_body {
-
-constexpr int BT = 32;    // rows (tokens) per CTA
-constexpr int BH = 128;   // hidden chunk width
-constexpr int K1 = 64;    // w1 rows per streamed tile
-constexpr int K2 = 16;    // w2 rows per streamed tile
-constexpr int STAGES = 4; // weight tiles in the shared-memory ring
-constexpr int WARPS = 8;
-constexpr int THREADS = WARPS * 32;
-constexpr int LDG = BH + 8;   // bf16 row stride of the hidden chunk
-constexpr int LDS = BH + 4;   // f32 row stride of the fc1 scratch
-constexpr int LDW1 = BH + 8;  // row stride of a staged w1 tile
-
-template <int D>
-struct Cfg {
-  static constexpr int LDH = D + 8;           // bf16 row stride of LN(x)
-  static constexpr int LDW2 = D + 8;          // row stride of a staged w2 tile
-  static constexpr int T1 = D / K1;           // w1 tiles per chunk
-  static constexpr int T2 = BH / K2;          // w2 tiles per chunk
-  static constexpr int STAGE = K1 * LDW1 > K2 * LDW2 ? K1 * LDW1 : K2 * LDW2;
-  static constexpr int NT = D / 64;           // fc2 output column tiles per warp
-};
-
-template <int D>
-struct __align__(128) Smem {
-  __nv_bfloat16 h[BT * Cfg<D>::LDH];       // modulated LN(x), bf16
-  __nv_bfloat16 g[BT * LDG];               // gelu(fc1) chunk, bf16
-  float s[BT * LDS];                       // fc1 chunk accumulator spill
-  int8_t ring[STAGES][Cfg<D>::STAGE];      // streamed int8 weight tiles
-  __nv_bfloat16 wide[Cfg<D>::STAGE];       // the landed tile upcast to bf16, which the MMAs read
-  unsigned long long full[STAGES];         // mbarrier: the stage's tile landed
-};
-
-using tile_io::issue_bulk;
-using tile_io::mbar_init;
-using tile_io::mbar_wait;
-using tile_io::smem_addr;
-
-// Stage weight tile i of this CTA into ring[i % STAGES]; called by one
-// thread. Per 128-wide hidden chunk the tiles are T1 slices of w1 (K1 rows
-// of the chunk's block), then T2 slices of w2 (K2 of the chunk's rows).
-template <int D>
-__device__ __forceinline__ void issue_tile(Smem<D>& sm, int i, int chunk0,
-                                           const int8_t* __restrict__ w1p,
-                                           const int8_t* __restrict__ w2p) {
-  using C = Cfg<D>;
-  const int r = i % (C::T1 + C::T2);
-  const int chunk = chunk0 + i / (C::T1 + C::T2);
-  const unsigned mbar = smem_addr(&sm.full[i % STAGES]);
-  const bool fc1 = r < C::T1;
-  const unsigned bytes = fc1 ? K1 * LDW1 : K2 * C::LDW2;
-  const int8_t* src = fc1 ? w1p + ((long long)chunk * D + r * K1) * LDW1
-                          : w2p + ((long long)chunk * BH + (r - C::T1) * K2) * C::LDW2;
-  issue_bulk(sm.ring[i % STAGES], src, bytes, mbar);
-}
-
-// int8 -> bf16 upcast of one landed tile of `elems` codes (a multiple of 8)
-__device__ __forceinline__ void upcast_tile(__nv_bfloat16* dst, const int8_t* src, int elems) {
-  for (int e = threadIdx.x * 8; e < elems; e += THREADS * 8) {
-    const uint2 q = *reinterpret_cast<const uint2*>(src + e);
-    const uint2 lo = tile_io::int8x4_to_bf16x4(q.x);
-    const uint2 hi = tile_io::int8x4_to_bf16x4(q.y);
-    *reinterpret_cast<uint4*>(dst + e) = make_uint4(lo.x, lo.y, hi.x, hi.y);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(THREADS)
-adaln_mlp_partial_kernel(const float* __restrict__ x, const float* __restrict__ shift,
-                         const float* __restrict__ scale, long long mod_stride,
-                         const int8_t* __restrict__ w1p, const float* __restrict__ s1,
-                         const float* __restrict__ b1, const int8_t* __restrict__ w2p,
-                         float* __restrict__ ws, int n, int t, int t_pad, int hdim, float eps) {
-  using C = Cfg<D>;
-  constexpr int V4 = D / 128;  // float4 per lane in one row
-  extern __shared__ unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-
-  const int t0 = blockIdx.x * BT;
-  const int nb = blockIdx.y;
-  const int chunks = hdim / BH / gridDim.z;  // chunks of this split
-  const int chunk0 = blockIdx.z * chunks;
-  const int ntiles = chunks * (C::T1 + C::T2);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const float* xb = x + (long long)nb * t * D;
-  const float* sh = shift + nb * mod_stride;
-  const float* sc = scale + nb * mod_stride;
-
-  if (threadIdx.x == 0) mbar_init(sm.full, STAGES);
-  __syncthreads();
-  // the first tiles load while the LayerNorm runs
-  if (threadIdx.x == 0) {
-    for (int i = 0; i < STAGES && i < ntiles; ++i) issue_tile<D>(sm, i, chunk0, w1p, w2p);
-  }
-
-  // LayerNorm (two-pass, f32) + modulate -> bf16, one warp per row
-  for (int row = warp; row < BT; row += WARPS) {
-    float4 xv[V4];
-    float sum = 0.f;
-#pragma unroll
-    for (int i = 0; i < V4; ++i) {
-      xv[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + row < t) xv[i] = tile_io::load4(xb + (long long)(t0 + row) * D + (i * 32 + lane) * 4);
-      sum += xv[i].x + xv[i].y + xv[i].z + xv[i].w;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    const float mean = sum / D;
-    float sq = 0.f;
-#pragma unroll
-    for (int i = 0; i < V4; ++i) {
-      xv[i].x -= mean; xv[i].y -= mean; xv[i].z -= mean; xv[i].w -= mean;
-      sq += xv[i].x * xv[i].x + xv[i].y * xv[i].y + xv[i].z * xv[i].z + xv[i].w * xv[i].w;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-    const float inv = rsqrtf(sq / D + eps);
-#pragma unroll
-    for (int i = 0; i < V4; ++i) {
-      const int c = (i * 32 + lane) * 4;
-      const float4 s4 = *reinterpret_cast<const float4*>(sh + c);
-      const float4 k4 = *reinterpret_cast<const float4*>(sc + c);
-      __nv_bfloat162* d = reinterpret_cast<__nv_bfloat162*>(sm.h + row * C::LDH + c);
-      d[0] = __floats2bfloat162_rn(xv[i].x * inv * (1.f + k4.x) + s4.x,
-                                   xv[i].y * inv * (1.f + k4.y) + s4.y);
-      d[1] = __floats2bfloat162_rn(xv[i].z * inv * (1.f + k4.z) + s4.z,
-                                   xv[i].w * inv * (1.f + k4.w) + s4.w);
-    }
-  }
-
-  // warp w: row tile rt of the two; fc1 column tiles 2*(w/2), +1 of the
-  // chunk's eight; fc2 output column tiles NT*(w/2) .. +NT of D/16
-  const int rt = warp & 1;
-  const int cg = warp >> 1;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::NT];
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j) wmma::fill_fragment(acc[j], 0.f);
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> f1[2];
-
-  __syncthreads();  // LN(x) is written
-  for (int i = 0; i < ntiles; ++i) {
-    // tile i is the (i / STAGES)-th use of its stage
-    mbar_wait(smem_addr(&sm.full[i % STAGES]), (i / STAGES) & 1);
-    const int r = i % (C::T1 + C::T2);
-    upcast_tile(sm.wide, sm.ring[i % STAGES], r < C::T1 ? K1 * LDW1 : K2 * C::LDW2);
-    __syncthreads();  // the tile is upcast: its stage takes tile i + STAGES now
-    if (threadIdx.x == 0 && i + STAGES < ntiles) issue_tile<D>(sm, i + STAGES, chunk0, w1p, w2p);
-    const __nv_bfloat16* buf = sm.wide;
-    if (r < C::T1) {
-      // fc1: rows r*K1 .. +K1 of the reduction over D
-      if (r == 0) {
-        wmma::fill_fragment(f1[0], 0.f);
-        wmma::fill_fragment(f1[1], 0.f);
-      }
-#pragma unroll
-      for (int kk = 0; kk < K1; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, sm.h + rt * 16 * C::LDH + r * K1 + kk, C::LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, buf + kk * LDW1 + (cg * 2 + j) * 16, LDW1);
-          wmma::mma_sync(f1[j], a, b, f1[j]);
-        }
-      }
-      if (r == C::T1 - 1) {  // chunk's fc1 done: scale + bias + GELU -> bf16 chunk
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::store_matrix_sync(sm.s + rt * 16 * LDS + (cg * 2 + j) * 16, f1[j], LDS,
-                                  wmma::mem_row_major);
-        __syncthreads();
-        const int c = (chunk0 + i / (C::T1 + C::T2)) * BH;
-        for (int idx = threadIdx.x; idx < BT * BH; idx += THREADS) {
-          const int row = idx / BH;
-          const int col = idx % BH;
-          const float pre = sm.s[row * LDS + col] * s1[c + col] + b1[c + col];
-          sm.g[row * LDG + col] = __float2bfloat16_rn(gelu_tanh(pre));
-        }
-      }
-    } else {
-      // fc2: rows (r - T1)*K2 .. +K2 of the chunk, accumulated in registers
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-      wmma::load_matrix_sync(a, sm.g + rt * 16 * LDG + (r - C::T1) * K2, LDG);
-#pragma unroll
-      for (int j = 0; j < C::NT; ++j) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(b, buf + (cg * C::NT + j) * 16, C::LDW2);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-    __syncthreads();  // every warp is done with tile i's upcast copy and chunk
-  }
-
-  // this split's f32 partial of fc2 (before s2 and b2), rows past t
-  // included: the workspace has t_pad = 32 * ceil(t / 32) rows
-  float* wp = ws + ((long long)blockIdx.z * n + nb) * t_pad * D + (long long)(t0 + rt * 16) * D;
-#pragma unroll
-  for (int j = 0; j < C::NT; ++j)
-    wmma::store_matrix_sync(wp + (cg * C::NT + j) * 16, acc[j], D, wmma::mem_row_major);
-}
-
-// mlp = b2 + s2 * (the sum over splits of the partials), out = x + gate *
-// mlp; four elements per thread
-__global__ void adaln_mlp_epilogue_kernel(const float* __restrict__ x, const float* __restrict__ ws,
-                                          const float* __restrict__ gate, long long mod_stride,
-                                          const float* __restrict__ s2,
-                                          const float* __restrict__ b2, float* __restrict__ out,
-                                          int n, int t, int t_pad, int d, int split) {
-  const long long i4 = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long total4 = (long long)n * t * d / 4;
-  if (i4 >= total4) return;
-  const long long e = i4 * 4;
-  const int col = static_cast<int>(e % d);
-  const long long rowg = e / d;  // nb * t + row
-  const int nb = static_cast<int>(rowg / t);
-  const int row = static_cast<int>(rowg % t);
-  const float4 bias = *reinterpret_cast<const float4*>(b2 + col);
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int s = 0; s < split; ++s) {
-    const float4 p = *reinterpret_cast<const float4*>(
-        ws + (((long long)s * n + nb) * t_pad + row) * d + col);
-    acc.x += p.x; acc.y += p.y; acc.z += p.z; acc.w += p.w;
-  }
-  const float4 sc = *reinterpret_cast<const float4*>(s2 + col);
-  acc = make_float4(acc.x * sc.x + bias.x, acc.y * sc.y + bias.y, acc.z * sc.z + bias.z,
-                    acc.w * sc.w + bias.w);
-  const float4 xv = *reinterpret_cast<const float4*>(x + e);
-  const float4 g = *reinterpret_cast<const float4*>(gate + nb * mod_stride + col);
-  *reinterpret_cast<float4*>(out + e) = make_float4(xv.x + g.x * acc.x, xv.y + g.y * acc.y,
-                                                    xv.z + g.z * acc.z, xv.w + g.w * acc.w);
-}
-
-template <int D>
-int launch(const float* x, const float* shift, const float* scale, const float* gate,
-           long long mod_stride, const int8_t* w1, const float* s1, const float* b1,
-           const int8_t* w2, const float* s2, const float* b2, float* ws, float* out, int n, int t,
-           int hdim, int split, float eps, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<D>));
-  cudaError_t err = cudaFuncSetAttribute(adaln_mlp_partial_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int t_pad = (t + BT - 1) / BT * BT;
-  const dim3 grid(t_pad / BT, n, split);
-  adaln_mlp_partial_kernel<D><<<grid, THREADS, smem, stream>>>(
-      x, shift, scale, mod_stride, w1, s1, b1, w2, ws, n, t, t_pad, hdim, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const long long total4 = (long long)n * t * D / 4;
-  const int blocks = static_cast<int>((total4 + 255) / 256);
-  adaln_mlp_epilogue_kernel<<<blocks, 256, 0, stream>>>(x, ws, gate, mod_stride, s2, b2, out, n, t,
-                                                        t_pad, D, split);
+int modulate(const void* x, const float* shift, const float* scale, long long mod_stride, void* h,
+             int rows, int t, float eps, cudaStream_t stream) {
+  adaln_mlp_modulate_kernel<D, TX><<<(rows + MOD_WARPS - 1) / MOD_WARPS, MOD_WARPS * 32, 0,
+                                     stream>>>(static_cast<const TX*>(x), shift, scale,
+                                               mod_stride, static_cast<__nv_bfloat16*>(h), rows,
+                                               t, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace int8_body
+// the three kernels of the Hopper body, bf16 weights or int8 codes (BL,
+// with their scales s1, s2); `stages` a mask of the ones to run (1
+// modulate, 2 up, 4 down: all but a stage timing run pass 7)
+template <int D, typename TX, int BL>
+int sm90_forward(const void* x, const float* shift, const float* scale, const float* gate,
+                 long long mod_stride, const void* w1, const float* s1, const float* b1,
+                 const void* w2, const float* s2, const float* b2, void* h, void* g, void* out,
+                 void* a, float* mlp, int n, int t, int hdim, int bn_up, int grid_up, int bn_down,
+                 int grid_down, float eps, int stages, cudaStream_t stream) {
+  const int rows = n * t;
+  auto* gb = static_cast<__nv_bfloat16*>(g);
+  if (stages & 1) {
+    const int err = modulate<D, TX>(x, shift, scale, mod_stride, h, rows, t, eps, stream);
+    if (err != 0) return err;
+  }
+  if (stages & 2) {
+    const gemm::EpiArgs up{b1, a, gb, nullptr, nullptr, 0, t, nullptr, nullptr, s1};
+    const int err = gemm::launch_width<gemm::UP, TX, BL>(bn_up, h, w1, rows, hdim, D, grid_up, up,
+                                                         stream);
+    if (err != 0) return err;
+  }
+  if (stages & 4) {
+    const gemm::EpiArgs down{b2, nullptr, nullptr, x, gate, mod_stride, t, out, mlp, s2};
+    return gemm::launch_width<gemm::DOWN, TX, BL>(bn_down, gb, w2, rows, D, hdim, grid_down, down,
+                                                  stream);
+  }
+  return 0;
+}
 
 }  // namespace
 
@@ -642,8 +424,9 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
   last_body = "sm90";
   const auto s = static_cast<cudaStream_t>(stream);
 #define ADALN_MLP_SM90(D, TX)                                                                   \
-  sm90_forward<D, TX>(x, shift, scale, gate, mod_stride, w1, b1, w2, b2, h, g, out, a, mlp, n, \
-                      t, hdim, bn_up, grid_up, bn_down, grid_down, eps, stages, s)
+  sm90_forward<D, TX, gemm::B_K_MAJOR>(x, shift, scale, gate, mod_stride, w1, nullptr, b1, w2,  \
+                                       nullptr, b2, h, g, out, a, mlp, n, t, hdim, bn_up,       \
+                                       grid_up, bn_down, grid_down, eps, stages, s)
   switch (d) {
     case 384:
       return bf16 ? ADALN_MLP_SM90(384, __nv_bfloat16) : ADALN_MLP_SM90(384, float);
@@ -657,41 +440,81 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
 #undef ADALN_MLP_SM90
 }
 
-// The int8 serving forward (the WMMA body): x, out f32 (N, T, D)
-// contiguous; w1, w2 int8 codes in the packed layout above; s1 (H) and s2
-// (D) their f32 per-output-channel scales; ws: f32 workspace of split * N *
-// (32 * ceil(T / 32)) * D; H / 128 divisible by split; the other arguments
-// as adaln_mlp_fwd's, without residuals. Launches on `stream` without
-// synchronizing; returns cudaGetLastError().
+// The int8 serving forward (row 10): x, out f32 (N, T, D) contiguous; w1:
+// fc1's int8 codes (H, D) and w2: fc2's (D, H), torch's layout,
+// contiguous; s1 (H) and s2 (D) their f32 per-output-channel scales; the
+// other arguments as adaln_mlp_fwd's, without residuals. Returns as
+// adaln_mlp_fwd.
 extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const float* scale,
                                    const float* gate, long long mod_stride, const void* w1,
                                    const float* s1, const float* b1, const void* w2,
-                                   const float* s2, const float* b2, float* ws, float* out, int n,
-                                   int t, int d, int hdim, int split, float eps, void* stream) {
-  last_body = "wmma";
-  const auto* w1q = static_cast<const int8_t*>(w1);
-  const auto* w2q = static_cast<const int8_t*>(w2);
+                                   const float* s2, const float* b2, void* h, void* g, float* out,
+                                   int n, int t, int d, int hdim, int bn_up, int grid_up,
+                                   int bn_down, int grid_down, float eps, int stages,
+                                   void* stream) {
+  last_body = "sm90";
   const auto s = static_cast<cudaStream_t>(stream);
+#define ADALN_MLP_INT8(D)                                                                        \
+  sm90_forward<D, float, gemm::B_INT8>(x, shift, scale, gate, mod_stride, w1, s1, b1, w2, s2, b2, \
+                                       h, g, out, nullptr, nullptr, n, t, hdim, bn_up, grid_up,    \
+                                       bn_down, grid_down, eps, stages, s)
   switch (d) {
     case 384:
-      return int8_body::launch<384>(x, shift, scale, gate, mod_stride, w1q, s1, b1, w2q, s2, b2,
-                                    ws, out, n, t, hdim, split, eps, s);
+      return ADALN_MLP_INT8(384);
     case 768:
-      return int8_body::launch<768>(x, shift, scale, gate, mod_stride, w1q, s1, b1, w2q, s2, b2,
-                                    ws, out, n, t, hdim, split, eps, s);
+      return ADALN_MLP_INT8(768);
     case 1024:
-      return int8_body::launch<1024>(x, shift, scale, gate, mod_stride, w1q, s1, b1, w2q, s2, b2,
-                                     ws, out, n, t, hdim, split, eps, s);
+      return ADALN_MLP_INT8(1024);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef ADALN_MLP_INT8
+}
+
+// The int8 qkv projection (row 11): out (N, T, M) f32 = (LN(x) * (1 +
+// scale) + shift) . (w * s)^T + b; x (N, T, D) f32; shift/scale as
+// adaln_mlp_fwd's; w (M, D) int8 codes, contiguous; s, b f32 (M); h: bf16
+// workspace (N*T, D); M even; bn (256 or 128) and grid the tile plan's;
+// stages: 3 (1 modulate, 2 the GEMM). Returns as adaln_mlp_fwd.
+extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, const float* scale,
+                                         long long mod_stride, const void* w, const float* s,
+                                         const float* b, void* h, float* out, int n, int t, int d,
+                                         int m, int bn, int grid, float eps, int stages,
+                                         void* stream) {
+  last_body = "sm90";
+  const auto st = static_cast<cudaStream_t>(stream);
+  const int rows = n * t;
+  if (stages & 1) {
+    int err;
+    switch (d) {
+      case 384:
+        err = modulate<384, float>(x, shift, scale, mod_stride, h, rows, t, eps, st);
+        break;
+      case 768:
+        err = modulate<768, float>(x, shift, scale, mod_stride, h, rows, t, eps, st);
+        break;
+      case 1024:
+        err = modulate<1024, float>(x, shift, scale, mod_stride, h, rows, t, eps, st);
+        break;
+      default:
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    if (err != 0) return err;
+  }
+  if (stages & 2) {
+    const gemm::EpiArgs ep{b, nullptr, nullptr, nullptr, nullptr, 0, t, out, nullptr, s};
+    return gemm::launch_width<gemm::QKV, float, gemm::B_INT8>(bn, h, w, rows, m, d, grid, ep, st);
+  }
+  return 0;
 }
 
 extern "C" const char* adaln_mlp_last_body() { return last_body; }
 
-// the Hopper GEMM's dynamic shared memory per CTA at tile width bn, bytes
-extern "C" int adaln_mlp_sm90_smem_bytes(int bn) {
-  return bn == 256 ? gemm::smem_bytes<256>() : gemm::smem_bytes<128>();
+// the Hopper GEMM's dynamic shared memory per CTA at tile width bn, bytes,
+// over bf16 weights (int8 = 0) or int8 codes (int8 = 1)
+extern "C" int adaln_mlp_sm90_smem_bytes(int bn, int int8) {
+  if (int8) return bn == 256 ? gemm::smem_bytes<256, gemm::B_INT8>() : gemm::smem_bytes<128, gemm::B_INT8>();
+  return bn == 256 ? gemm::smem_bytes<256, gemm::B_K_MAJOR>() : gemm::smem_bytes<128, gemm::B_K_MAJOR>();
 }
 
 extern "C" const char* adaln_mlp_error_string(int err) { return sm90::error_string(err); }

@@ -1,7 +1,8 @@
 // The persistent wgmma GEMM of the adaLN-MLP Hopper bodies: kernel B's
-// forward (csrc/adaln_mlp.cu: the up and down products) and the fused
-// backward (csrc/adaln_mlp_bwd.cu: dgelu and dh1). Each source defines its
-// own __global__ kernel, which calls `run` with its epilogue.
+// forward over bf16 weights or int8 codes and the int8 qkv projection
+// (csrc/adaln_mlp.cu: the up, down and qkv products) and the fused backward
+// (csrc/adaln_mlp_bwd.cu: dgelu and dh1). Each source defines its own
+// __global__ kernel, which calls `run` with its epilogue.
 //
 // C[m, ncols] = A[m, kdim] . B, f32 sums, where A is a bf16 row-major (m,
 // kdim) matrix (the N*T token rows) and B is bf16 in torch's Linear layout:
@@ -13,10 +14,27 @@
 //   TMA boxes of 64 rows x 64 columns (8 KB), which one wgmma reads through
 //   a descriptor whose leading byte offset steps from box to box.
 // So neither product needs a transposed or packed copy of a weight.
+// - int8 (B_INT8): B given as int8 codes in the K-major layout, (ncols,
+//   kdim) row-major (QuantLinear's weight), for the int8 serving products;
+//   the caller scales each column's f32 sum in its epilogue. The producer
+//   thread loads each (BN rows, 64 bytes) slab of codes by TMA (unswizzled)
+//   into the stage beside A, completing on the stage's `qfull` barrier. The
+//   consumers upcast it to bf16, exactly (|q| <= 127, tile_io.cuh's
+//   byte-permute upcast), into the stage's B slab in the 128-byte-swizzled
+//   K-major layout that TMA writes for B_K_MAJOR, each thread its share of
+//   slab g + 1 while its warpgroup's products of slab g run; they fence the
+//   stores to the async proxy and meet at a barrier before slab g + 1's
+//   products. Column blocks may be ragged: rows of B past ncols read as 0,
+//   and the epilogue stores no column past ncols. No bf16 copy of the
+//   weight exists outside the ring. (On an H100 at DiT-B sampling the
+//   upcast makes the up and down GEMMs 1.3x and 1.6x the same GEMMs over
+//   bf16 weights, which they match with the upcast skipped; the producer
+//   warpgroup's three idle warps upcasting instead were up to 13% slower:
+//   tools/quant_variants.py, PERF.md.)
 //
 // Persistent: CTA c walks tiles c, c + gridDim.x, ... of the (ceil(m / BM)
-// row blocks) x (ncols / BN column blocks) grid, tile = row block * (ncols /
-// BN) + column block (the wrapper's tile plan, ops/adaln_mlp.py gemm_plan,
+// row blocks) x (tiles_n = ceil(ncols / BN) column blocks) grid, tile = row
+// block * tiles_n + column block (the wrapper's tile plan, ops/gemm_plan.py,
 // numbers them the same way; column blocks fastest, so the CTAs at work at
 // one time share their A rows in L2). One producer thread keeps the tiles'
 // BK-deep slabs of A and B in flight by TMA (128-byte swizzle, rows of A
@@ -35,6 +53,9 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 #include "wgmma_tma.cuh"
 
@@ -58,12 +79,15 @@ static_assert(CONSUMERS * CONSUMER_REGS + 128 * PRODUCER_REGS <= THREADS * 168, 
 constexpr unsigned A_BYTES = BM * BK * 2;
 constexpr unsigned BOX_BYTES = BK * 64 * 2;  // one MN-major B box: BK rows x 64 columns
 
-enum BLayout { B_K_MAJOR, B_MN_MAJOR };
+enum BLayout { B_K_MAJOR, B_MN_MAJOR, B_INT8 };
 
-template <int BN>
+template <int BN, int BL = B_K_MAJOR>
 struct Cfg {
-  static constexpr int STAGES = BN == 256 ? 4 : 6;  // 192 KB of slabs either way
+  // bf16 B: 192 KB of slabs either way; int8 B: a stage also holds the
+  // codes (64 KB a stage at BN = 256, 40 KB at 128)
+  static constexpr int STAGES = BL == B_INT8 ? (BN == 256 ? 3 : 5) : (BN == 256 ? 4 : 6);
   static constexpr unsigned B_BYTES = BN * BK * 2;
+  static constexpr unsigned Q_BYTES = BN * BK;  // an int8 slab of codes
 };
 
 constexpr int STAGE_ROW = 128;  // bytes of a staged row: 64 bf16 columns
@@ -77,6 +101,21 @@ struct Smem {  // every slab 1024-byte aligned (the 128-byte swizzle's period)
   unsigned char stage[CONSUMERS / 32][16 * STAGE_ROW];
   unsigned long long full[Cfg<BN>::STAGES], empty[Cfg<BN>::STAGES];
 };
+
+// B_INT8's: the stage's codes beside its A and upcast B slabs, and the
+// barrier their TMA completes on
+template <int BN>
+struct SmemInt8 {
+  using C = Cfg<BN, B_INT8>;
+  __nv_bfloat16 a[C::STAGES][BM * BK];
+  __nv_bfloat16 b[C::STAGES][BN * BK];
+  int8_t q[C::STAGES][BN * BK];  // row r of a slab at byte 64 r
+  unsigned char stage[CONSUMERS / 32][16 * STAGE_ROW];
+  unsigned long long full[C::STAGES], empty[C::STAGES], qfull[C::STAGES];
+};
+
+template <int BN, int BL>
+using SmemOf = std::conditional_t<BL == B_INT8, SmemInt8<BN>, Smem<BN>>;
 
 // the Smem of a kernel's dynamic shared memory (aligned up to 1024 bytes:
 // the launch adds that much slack)
@@ -161,32 +200,71 @@ struct StagedLoad {
 };
 
 // the tensor maps of one GEMM: A (m, kdim) in BM-row boxes; B (ncols, kdim)
-// in BN-row boxes (K-major) or (kdim, ncols) in BK-row boxes (MN-major).
-// Returns 0 or sm90::TMA_ENCODE_ERROR + the CUresult.
+// in BN-row boxes (K-major; int8: 64-byte rows) or (kdim, ncols) in BK-row
+// boxes (MN-major). Returns 0 or sm90::TMA_ENCODE_ERROR + the CUresult.
 template <int BN, int BL>
 int make_maps(CUtensorMap* a_map, CUtensorMap* b_map, const void* a, const void* b, int m,
               int ncols, int kdim) {
   const int err = sm90::make_map_2d(a_map, a, m, kdim, BM);
   if (err != 0) return err;
+  if (BL == B_INT8) return sm90::make_map_2d_int8(b_map, b, ncols, kdim, BN);
   return BL == B_K_MAJOR ? sm90::make_map_2d(b_map, b, ncols, kdim, BN)
                          : sm90::make_map_2d(b_map, b, kdim, ncols, BK);
 }
 
+// a barrier over the CONSUMERS threads alone (id 1; 0 is __syncthreads)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
+}
+
+// A consumer thread's share of upcasting slab g of the CTA's walk, once the
+// slab's codes land, into the stage's B slab, the stores then fenced to the
+// async proxy. A thread takes 16 codes at a time (row r = p / 4, codes 16
+// (p % 4) ..), which become the row's bf16 chunks 2 (p % 4) and 2 (p % 4)
+// + 1, each at its swizzled place (chunk c of row r at c ^ (r % 8)); a
+// quarter warp reads 128 contiguous bytes and writes all eight chunk
+// positions of two rows, so neither side conflicts on a bank.
+template <int BN>
+__device__ __forceinline__ void upcast_slab(SmemInt8<BN>& sm, int g) {
+  using C = Cfg<BN, B_INT8>;
+  const int s = g % C::STAGES;
+  sm90::bar_wait(&sm.qfull[s], (g / C::STAGES) & 1);
+  const unsigned char* q = reinterpret_cast<const unsigned char*>(sm.q[s]);
+  unsigned char* b = reinterpret_cast<unsigned char*>(sm.b[s]);
+#pragma unroll 2
+  for (int p = threadIdx.x; p < BN * 4; p += CONSUMERS) {
+    const uint4 v = *reinterpret_cast<const uint4*>(q + p * 16);
+    const int r = p >> 2;
+    const int c = 2 * (p & 3);
+    const uint2 e0 = tile_io::int8x4_to_bf16x4(v.x);
+    const uint2 e1 = tile_io::int8x4_to_bf16x4(v.y);
+    const uint2 e2 = tile_io::int8x4_to_bf16x4(v.z);
+    const uint2 e3 = tile_io::int8x4_to_bf16x4(v.w);
+    unsigned char* row = b + r * 128;
+    *reinterpret_cast<uint4*>(row + ((c ^ (r & 7)) << 4)) = make_uint4(e0.x, e0.y, e1.x, e1.y);
+    *reinterpret_cast<uint4*>(row + (((c + 1) ^ (r & 7)) << 4)) = make_uint4(e2.x, e2.y, e3.x, e3.y);
+  }
+  sm90::fence_proxy_async();  // the stores, before wgmma reads them
+}
+
 // The GEMM's body, called by every thread of a THREADS-thread CTA: the
-// producer loads, the consumers call begin(r0, c0) as a tile's products
-// start (to issue loads the epilogue will need) and epi(acc, r0, c0) once
-// they are done, with the tile's rows r0 .. + BM and columns c0 .. + BN in
-// the accumulator layout (register 4n + 2i + j of consumer thread
-// (warpgroup wg, warp w of it, lane l) holds row r0 + 64 wg + 16 w + l / 4 +
-// 8 i, column c0 + 8 n + 2 (l % 4) + j). The producer warpgroup returns
-// early: an epilogue synchronises the consumers alone (named barriers over
-// CONSUMERS threads).
-template <int BN, int BL, typename Begin, typename Epi>
-__device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap& b_map,
-                                    Smem<BN>& sm, int m, int ncols, int kdim, Begin&& begin,
-                                    Epi&& epi) {
-  using C = Cfg<BN>;
-  const int tiles_n = ncols / BN;
+// producer loads, the consumers (upcasting B_INT8's codes) call begin(r0,
+// c0) as a tile's products start (to issue loads the epilogue will need)
+// and epi(acc, r0, c0) once they are done, with the tile's rows r0 .. + BM
+// and columns c0 .. + BN in the accumulator layout (register 4n + 2i + j
+// of consumer thread (warpgroup wg, warp w of it, lane l) holds row r0 +
+// 64 wg + 16 w + l / 4 + 8 i, column c0 + 8 n + 2 (l % 4) + j). The
+// producer warpgroup returns early: an epilogue synchronises the consumers
+// alone (named barriers over CONSUMERS threads). `sm` is SmemOf<BN, BL>.
+template <int BN, int BL, typename S, typename Begin, typename Epi>
+__device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap& b_map, S& sm,
+                                    int m, int ncols, int kdim, Begin&& begin, Epi&& epi) {
+  using C = Cfg<BN, BL>;
+  constexpr bool INT8 = BL == B_INT8;
+  // the consumers upcast slab g + 1 while slabs g and g - 1 may be in
+  // flight, into a stage whose last slab g + 1 - STAGES was released before
+  static_assert(!INT8 || C::STAGES >= 3, "B_INT8 needs three stages");
+  const int tiles_n = (ncols + BN - 1) / BN;
   const int tiles = (m + BM - 1) / BM * tiles_n;
   const int ktiles = kdim / BK;
 
@@ -194,6 +272,7 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
     for (int s = 0; s < C::STAGES; ++s) {
       bar_init(&sm.full[s], 1);
       bar_init(&sm.empty[s], CONSUMERS / 32);  // one arrival per consumer warp
+      if constexpr (INT8) bar_init(&sm.qfull[s], 1);
     }
     sm90::bar_init_fence();
   }
@@ -209,9 +288,12 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
         for (int kt = 0; kt < ktiles; ++kt, ++g) {
           const int s = g % C::STAGES;
           if (g >= C::STAGES) bar_wait(&sm.empty[s], (g / C::STAGES - 1) & 1);
-          bar_expect(&sm.full[s], A_BYTES + C::B_BYTES);
+          bar_expect(&sm.full[s], INT8 ? A_BYTES : A_BYTES + C::B_BYTES);
           sm90::tma_load_2d(sm.a[s], &a_map, &sm.full[s], kt * BK, r0);
-          if constexpr (BL == B_K_MAJOR) {
+          if constexpr (INT8) {
+            bar_expect(&sm.qfull[s], C::Q_BYTES);
+            sm90::tma_load_2d(sm.q[s], &b_map, &sm.qfull[s], kt * BK, c0);
+          } else if constexpr (BL == B_K_MAJOR) {
             sm90::tma_load_2d(sm.b[s], &b_map, &sm.full[s], kt * BK, c0);
           } else {
 #pragma unroll
@@ -232,6 +314,13 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
   float acc[BN / 2];
 #pragma unroll
   for (int j = 0; j < BN / 2; ++j) acc[j] = 0.f;
+  // B_INT8: the slabs of this CTA's walk, the first upcast before the loop
+  [[maybe_unused]] const int slabs =
+      ((tiles - 1 - static_cast<int>(blockIdx.x)) / static_cast<int>(gridDim.x) + 1) * ktiles;
+  if constexpr (INT8) {
+    upcast_slab<BN>(sm, 0);
+    consumers_sync();
+  }
   int g = 0;
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int r0 = tile / tiles_n * BM;
@@ -243,7 +332,7 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
       sm90::fence();
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
-        if constexpr (BL == B_K_MAJOR)
+        if constexpr (BL != B_MN_MAJOR)
           sm90::mma_ss_n<BN>(acc, desc(sm.a[s] + wg * 64 * BK, 32 * kk), desc(sm.b[s], 32 * kk),
                              kt > 0 || kk > 0);
         else
@@ -251,12 +340,16 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
                                 sm90::desc_mn(sm.b[s], 2048 * kk, BOX_BYTES), kt > 0 || kk > 0);
       }
       sm90::commit();
+      if constexpr (INT8) {  // the next slab, while these products run
+        if (g + 1 < slabs) upcast_slab<BN>(sm, g + 1);
+      }
       // the previous slab's products have retired: its stage takes a new slab
       sm90::wait<1>();
       if (kt > 0) {
         __syncwarp();
         if (lane == 0) bar_arrive(&sm.empty[(g - 1) % C::STAGES]);
       }
+      if constexpr (INT8) consumers_sync();  // every share of the next slab is upcast
     }
     sm90::wait<0>();
     __syncwarp();
@@ -264,11 +357,6 @@ __device__ __forceinline__ void run(const CUtensorMap& a_map, const CUtensorMap&
     sm90::pin(acc);
     epi(acc, r0, c0);
   }
-}
-
-// a barrier over the CONSUMERS threads alone (id 1; 0 is __syncthreads)
-__device__ __forceinline__ void consumers_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(CONSUMERS) : "memory");
 }
 
 }  // namespace gemm_sm90

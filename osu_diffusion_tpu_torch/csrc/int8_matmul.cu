@@ -1,12 +1,11 @@
 // int8 weight-only projections for serving, for Hopper, sm_90a: one tiled
-// kernel template with three prologue/epilogue variants.
+// kernel template with two epilogue variants. (The third int8 projection,
+// the qkv projection with the LayerNorm and modulation folded in, is the
+// adaLN-MLP's modulate pass and Hopper GEMM: csrc/adaln_mlp.cu.)
 //
 // Replaces (osu_diffusion_tpu/ops/pallas_quant.py):
 //   PLAIN         _kernel (int8_matmul, :221): act(x @ (w_q * s) + b), act
 //                 none or GELU-tanh; the DiT block's adaLN projection
-//   MODULATED     _modulated_kernel (:95): (LN(x) * (1 + scale) + shift)
-//                 @ (w_q * s) + b, the qkv projection with the non-affine
-//                 two-pass LayerNorm and the adaLN modulation folded in
 //   OUT_RESIDUAL  _out_residual_kernel (:156): res + gate * (o @ (w_q * s)
 //                 + b), the out projection with the gate and the residual
 //                 add folded in
@@ -15,9 +14,7 @@
 // a float32 scale s (M) per output channel. Activations in and out are
 // float32. Each CTA computes a (32 rows x 64 columns) output tile at a time:
 // - prologue: the CTA's (32, K) activation tile, rounded to bf16, is
-//   written to shared memory once: x itself (PLAIN, OUT_RESIDUAL), or
-//   LN(x) * (1 + scale) + shift with f32 two-pass statistics over the whole
-//   row, one warp per row held in registers (MODULATED, K <= 1024);
+//   written to shared memory once;
 // - loop: K is walked in 64-deep chunks. Each 64 x 64 int8 weight chunk is
 //   read with 16-byte loads into registers one chunk ahead (the loads of
 //   chunk i + 1 are in flight during the MMAs of chunk i), upcast to bf16
@@ -26,25 +23,22 @@
 //   columns;
 // - epilogue: acc * s + b in f32, then GELU-tanh (PLAIN, when asked) or
 //   res + gate * y (OUT_RESIDUAL); ragged rows and columns are masked.
-// A CTA walks `tiles_per_cta` column tiles with the same activation tile,
-// so the LayerNorm is not redone for every 64 columns; the wrapper picks
-// the count so the grid stays within about two CTAs per SM.
+// A CTA walks `tiles_per_cta` column tiles with the same activation tile;
+// the wrapper picks the count so the grid stays within about two CTAs per
+// SM.
 //
 // What bounds it on the card: at DiT-B sampling (CFG batch 2, T = 768,
-// D = 768) every variant is bound by bytes, not operations: the qkv
-// projection moves 4.7 MB of x, 1.8 MB of int8 weight and 14.2 MB of f32
-// output (6 us at 3.35 TB/s) for 5.4 GFLOP (5.5 us at 989 TFLOP/s bf16);
-// the out projection 14.8 MB; the adaLN projection reads a 3.5 MB int8
-// weight for 2 rows. What stands in the way of that bound here: each row
-// tile re-reads the weight from L2 (48 row tiles x 1.8 MB for qkv), the
-// upcast pass, WMMA instead of wgmma, and a shallow load pipeline at two
-// CTAs per SM; 288 CTAs for qkv and out at two per SM are 1.09 waves.
-// (Measured on an H100 inside the sampling chain, 288-CTA grids, int-to-
-// float upcast: 0.093 ms for qkv, 0.042 for out, 0.015 for adaLN. A
-// 4-stage cp.async ring of int8 chunks three ahead, each thread upcasting
-// its own pieces, was slower for qkv and out, 0.158 and 0.064 ms, and
-// faster only for adaLN, 0.012.) The adaLN
-// projection has 2 rows:
+// D = 768) both variants are bound by bytes, not operations: the out
+// projection moves 14.8 MB (4.4 us at 3.35 TB/s); the adaLN projection
+// reads a 3.5 MB int8 weight for 2 rows. What stands in the way of that
+// bound here: each row tile re-reads the weight from L2 (48 row tiles x
+// 1.2 MB for out), the upcast pass, WMMA instead of wgmma, and a shallow
+// load pipeline at two CTAs per SM; 288 CTAs for out at two per SM are
+// 1.09 waves. (Measured on an H100 inside the sampling chain, 288-CTA
+// grids, int-to-float upcast: 0.042 ms for out, 0.015 for adaLN. A 4-stage
+// cp.async ring of int8 chunks three ahead, each thread upcasting its own
+// pieces, was slower for out, 0.064 ms, and faster only for adaLN,
+// 0.012.) The adaLN projection has 2 rows:
 // a 32-row tile wastes 30 of them, and its grid over M (4608 / 64 = 72
 // CTAs) under-fills the 132 SMs. Those are a later change's levers.
 #include <cuda_bf16.h>
@@ -67,18 +61,15 @@ constexpr int THREADS = WARPS * 32;
 constexpr int LDW = BK + 8;      // bf16 row stride of a staged weight chunk
 constexpr int LDC = BN + 4;      // f32 row stride of the accumulator spill
 constexpr int MAX_K = 2048;      // the (32, K) bf16 activation tile fits shared memory
-constexpr int MAX_LN_K = 1024;   // the modulated prologue holds a row in registers
 constexpr int PIECES = BK / 16;  // 16-byte pieces of one weight row's chunk
 constexpr int W_LOADS = BN * PIECES / THREADS;  // 16-byte weight loads per thread per chunk
 constexpr int W_BYTES = 2 * BN * LDW * 2;       // the double-buffered bf16 weight chunk
 constexpr int C_BYTES = BM * LDC * 4;           // the f32 accumulator spill
 
-enum Mode { PLAIN = 0, MODULATED = 1, OUT_RESIDUAL = 2 };
+enum Mode { PLAIN = 0, OUT_RESIDUAL = 1 };
 
 struct Params {
   const float* x;       // (n, t, k): x, or o for OUT_RESIDUAL
-  const float* shift;   // MODULATED: rows of k, row stride mod_stride
-  const float* scale;
   const float* gate;    // OUT_RESIDUAL: rows of m, row stride mod_stride
   long long mod_stride;
   const int8_t* w;      // (m, k) int8 codes
@@ -87,7 +78,6 @@ struct Params {
   const float* res;     // OUT_RESIDUAL: (n, t, m)
   float* out;           // (n, t, m)
   int t, k, m, tiles_per_cta;
-  float eps;
   int gelu;
 };
 
@@ -143,7 +133,6 @@ __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
   const int t0 = blockIdx.y * BM;
   const int nb = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const long long row0 = (long long)nb * p.t + t0;  // the tile's first row of (n * t)
   const int m_tiles = (p.m + BN - 1) / BN;
   const int tile0 = blockIdx.x * p.tiles_per_cta;
@@ -153,57 +142,14 @@ __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
   int4 wr[W_LOADS];  // the next weight chunk, in flight while the prologue runs
   load_w(wr, p.w, tile0 * BN, 0, p.k, p.m);
 
-  if constexpr (MODE == MODULATED) {
-    // two-pass f32 LayerNorm + modulate -> bf16, one warp per row
-    const float* sh = p.shift + nb * p.mod_stride;
-    const float* sc = p.scale + nb * p.mod_stride;
-    for (int r = warp; r < BM; r += WARPS) {
-      constexpr int V4 = MAX_LN_K / 128;
-      float4 v[V4];
-      float sum = 0.f;
-#pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        const int c = (i * 32 + lane) * 4;
-        v[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (t0 + r < p.t && c < p.k) v[i] = tile_io::load4(p.x + (row0 + r) * p.k + c);
-        sum += v[i].x + v[i].y + v[i].z + v[i].w;
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float mean = sum / p.k;
-      float sq = 0.f;
-#pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        if ((i * 32 + lane) * 4 < p.k) {
-          v[i].x -= mean; v[i].y -= mean; v[i].z -= mean; v[i].w -= mean;
-          sq += v[i].x * v[i].x + v[i].y * v[i].y + v[i].z * v[i].z + v[i].w * v[i].w;
-        }
-      }
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, off);
-      const float inv = rsqrtf(sq / p.k + p.eps);
-#pragma unroll
-      for (int i = 0; i < V4; ++i) {
-        const int c = (i * 32 + lane) * 4;
-        if (c < p.k) {
-          const float4 s4 = tile_io::load4(sh + c);
-          const float4 k4 = tile_io::load4(sc + c);
-          store_bf16x4(abuf + r * lda + c, v[i].x * inv * (1.f + k4.x) + s4.x,
-                       v[i].y * inv * (1.f + k4.y) + s4.y, v[i].z * inv * (1.f + k4.z) + s4.z,
-                       v[i].w * inv * (1.f + k4.w) + s4.w);
-        }
-      }
-    }
-  } else {
-    // bf16(x); rows past t are 0
-    const int k4 = p.k / 4;
-    for (int idx = threadIdx.x; idx < BM * k4; idx += THREADS) {
-      const int r = idx / k4;
-      const int c = (idx % k4) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (t0 + r < p.t) v = tile_io::load4(p.x + (row0 + r) * p.k + c);
-      store_bf16x4(abuf + r * lda + c, v.x, v.y, v.z, v.w);
-    }
+  // bf16(x); rows past t are 0
+  const int k4 = p.k / 4;
+  for (int idx = threadIdx.x; idx < BM * k4; idx += THREADS) {
+    const int r = idx / k4;
+    const int c = (idx % k4) * 4;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t0 + r < p.t) v = tile_io::load4(p.x + (row0 + r) * p.k + c);
+    store_bf16x4(abuf + r * lda + c, v.x, v.y, v.z, v.w);
   }
 
   const int rt = warp & 1;   // the warp's 16-row half of the tile
@@ -260,8 +206,7 @@ __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
 
 template <int MODE>
 int launch(const Params& p, int n, void* stream) {
-  const int limit = MODE == MODULATED ? MAX_LN_K : MAX_K;
-  if (p.k % BK || p.k < BK || p.k > limit || p.m < 1 || p.t < 1 || n < 1 || p.tiles_per_cta < 1)
+  if (p.k % BK || p.k < BK || p.k > MAX_K || p.m < 1 || p.t < 1 || n < 1 || p.tiles_per_cta < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int smem = smem_bytes(p.k);
   cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MODE>,
@@ -276,27 +221,17 @@ int launch(const Params& p, int n, void* stream) {
 }  // namespace
 
 // Every pointer 16-byte aligned and every array contiguous, except the
-// modulation rows (row stride mod_stride / gate_stride, a multiple of 4).
-// K a multiple of 64, at most 2048 (1024 for the modulated variant). Each
-// launches on `stream` without synchronizing and returns cudaGetLastError().
+// gate rows (row stride gate_stride, a multiple of 4). K a multiple of 64,
+// at most 2048. Each launches on `stream` without synchronizing and returns
+// cudaGetLastError().
 
 // out (rows, m) = act(x (rows, k) @ (w * s)^T + b); gelu: 0 or 1
 extern "C" int int8_matmul_fwd(const float* x, const void* w, const float* s, const float* b,
                                float* out, int rows, int k, int m, int gelu, int tiles_per_cta,
                                void* stream) {
-  const Params p{x, nullptr, nullptr, nullptr, 0, static_cast<const int8_t*>(w), s, b, nullptr,
-                 out, rows, k, m, tiles_per_cta, 0.f, gelu};
+  const Params p{x, nullptr, 0, static_cast<const int8_t*>(w), s, b, nullptr, out, rows, k, m,
+                 tiles_per_cta, gelu};
   return launch<PLAIN>(p, 1, stream);
-}
-
-// out (n, t, m) = (LN(x) * (1 + scale) + shift) @ (w * s)^T + b; x (n, t, k)
-extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, const float* scale,
-                                         long long mod_stride, const void* w, const float* s,
-                                         const float* b, float* out, int n, int t, int k, int m,
-                                         int tiles_per_cta, float eps, void* stream) {
-  const Params p{x, shift, scale, nullptr, mod_stride, static_cast<const int8_t*>(w), s, b,
-                 nullptr, out, t, k, m, tiles_per_cta, eps, 0};
-  return launch<MODULATED>(p, n, stream);
 }
 
 // out (n, t, d) = res + gate * (o @ (w * s)^T + b); o, res (n, t, d); w (d, d)
@@ -304,8 +239,8 @@ extern "C" int int8_out_residual_fwd(const float* o, const float* res, const flo
                                      long long gate_stride, const void* w, const float* s,
                                      const float* b, float* out, int n, int t, int d,
                                      int tiles_per_cta, void* stream) {
-  const Params p{o, nullptr, nullptr, gate, gate_stride, static_cast<const int8_t*>(w), s, b, res,
-                 out, t, d, d, tiles_per_cta, 0.f, 0};
+  const Params p{o, gate, gate_stride, static_cast<const int8_t*>(w), s, b, res, out, t, d, d,
+                 tiles_per_cta, 0};
   return launch<OUT_RESIDUAL>(p, n, stream);
 }
 

@@ -1,7 +1,7 @@
 // Hopper building blocks of the bf16 banded-attention bodies and of the
 // adaLN-MLP GEMMs: TMA tensor maps over an (N, H, T, 64) bf16 tensor read
-// through its strides, or over a row-major (rows, cols) bf16 matrix read
-// 64 columns at a time; the mbarrier ring that the loads complete on; and
+// through its strides, or over a row-major (rows, cols) bf16 or int8
+// matrix read 64 columns at a time; the mbarrier ring that the loads complete on; and
 // warpgroup MMAs (wgmma m64nNk16 with N = 64, 128 or 256, bf16 operands,
 // f32 accumulators in registers) on tiles that TMA wrote with the 128-byte
 // swizzle.
@@ -92,23 +92,42 @@ inline int make_map(CUtensorMap* map, const void* base, int n, int h, int t, lon
   return r == CUDA_SUCCESS ? 0 : TMA_ENCODE_ERROR + static_cast<int>(r);
 }
 
-// A map of the row-major (rows, cols) bf16 matrix at `base` (cols a
-// multiple of 8, base 16-byte aligned), loading boxes of `box_rows` x 64
-// with the 128-byte swizzle; rows past `rows` read as 0. Returns 0 or
+// A map of a row-major (rows, cols) matrix of `type` (elements of
+// `elem_bytes`) at `base`, loading boxes of `box_rows` rows x 64 elements
+// with `swizzle`; rows past `rows` read as 0. Returns 0 or
 // TMA_ENCODE_ERROR + the CUresult.
-inline int make_map_2d(CUtensorMap* map, const void* base, long long rows, long long cols,
-                       int box_rows) {
+inline int make_map_rows(CUtensorMap* map, CUtensorMapDataType type, int elem_bytes,
+                         CUtensorMapSwizzle swizzle, const void* base, long long rows,
+                         long long cols, int box_rows) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return TMA_ENCODE_ERROR + CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * elem_bytes};
   const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
   const cuuint32_t elem_strides[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                            elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_ENCODE_ERROR + static_cast<int>(r);
+}
+
+// A map of the row-major (rows, cols) bf16 matrix at `base` (cols a
+// multiple of 8, base 16-byte aligned), loading boxes of `box_rows` x 64
+// with the 128-byte swizzle; rows past `rows` read as 0.
+inline int make_map_2d(CUtensorMap* map, const void* base, long long rows, long long cols,
+                       int box_rows) {
+  return make_map_rows(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, CU_TENSOR_MAP_SWIZZLE_128B, base,
+                       rows, cols, box_rows);
+}
+
+// A map of the row-major (rows, cols) int8 matrix at `base` (cols a
+// multiple of 16, base 16-byte aligned), loading boxes of `box_rows` rows x
+// 64 bytes unswizzled (row r of a box at byte 64 r); rows past `rows` read
+// as 0.
+inline int make_map_2d_int8(CUtensorMap* map, const void* base, long long rows, long long cols,
+                            int box_rows) {
+  return make_map_rows(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, CU_TENSOR_MAP_SWIZZLE_NONE, base,
+                       rows, cols, box_rows);
 }
 
 inline const char* error_string(int err) {
@@ -221,6 +240,11 @@ __device__ __forceinline__ unsigned long long desc_mn(const void* tile, unsigned
 }
 
 __device__ __forceinline__ void fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+// orders this thread's shared-memory stores before later reads of them by
+// the async proxy (wgmma operands written by threads, not by TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 __device__ __forceinline__ void commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }

@@ -58,7 +58,10 @@ int8 dispatches around the attention core: the adaLN projection
 (`int8_matmul` of silu(cond)), the qkv projection with LayerNorm and
 modulation folded in (`int8_modulated_matmul`), the out projection with
 gate and residual folded in (`int8_out_residual`), and the whole MLP half
-(`adaln_mlp_quant`). The stream is float32 only (the int8 wrappers raise
+(`adaln_mlp_quant`). Each reads its int8 codes as the buffers hold them
+(torch's Linear layout; the qkv projection and the MLP half upcast them on
+chip in kernel B's Hopper GEMM), so nothing packs or copies a weight. The
+stream is float32 only (the int8 wrappers raise
 TypeError on another type), and the quant model serves only: it raises
 under `train=True` and under grad.
 """
@@ -77,7 +80,6 @@ from osu_diffusion_tpu_torch.ops.adaln_mlp import (
     AdalnMlp,
     adaln_mlp,
     adaln_mlp_quant,
-    pack_weights,
 )
 from osu_diffusion_tpu_torch.ops.attention import multi_head_attention
 from osu_diffusion_tpu_torch.ops.embeddings import (
@@ -282,16 +284,6 @@ class QuantMlp(nn.Module):
         super().__init__()
         self.fc1 = QuantLinear(hidden_size, mlp_hidden)
         self.fc2 = QuantLinear(mlp_hidden, hidden_size)
-        self._kernel_weights = None
-
-    def kernel_weights(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The int8 codes packed as `adaln_mlp_quant` takes them, made once
-        and kept until the codes change (a load or a move)."""
-        w1, w2 = self.fc1.weight, self.fc2.weight
-        key = (w1.device, w1.data_ptr(), w1._version, w2.data_ptr(), w2._version)
-        if self._kernel_weights is None or self._kernel_weights[0] != key:
-            self._kernel_weights = (key, pack_weights(w1.t(), w2.t(), torch.int8))
-        return self._kernel_weights[1]
 
 
 class QuantDiTBlock(nn.Module):
@@ -311,9 +303,8 @@ class QuantDiTBlock(nn.Module):
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         x = self.attn(x, (shift_msa, scale_msa, gate_msa), band, valid_len, matmul_dtype)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        w1p, w2p = self.mlp.kernel_weights()
-        return adaln_mlp_quant(x, shift_mlp, scale_mlp, gate_mlp, w1p, fc1.scale, fc1.bias,
-                               w2p, fc2.scale, fc2.bias, 1e-6, matmul_dtype)
+        return adaln_mlp_quant(x, shift_mlp, scale_mlp, gate_mlp, fc1.weight, fc1.scale, fc1.bias,
+                               fc2.weight, fc2.scale, fc2.bias, 1e-6, matmul_dtype)
 
 
 class FinalLayer(nn.Module):

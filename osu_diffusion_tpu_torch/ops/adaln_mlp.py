@@ -18,22 +18,22 @@ with a non-affine two-pass LayerNorm. x and out are float32 or bfloat16
 training the forward also returns the backward's residuals: the pre-GELU
 `a` (N, T, H) in x's type and the pre-gate `mlp` (N, T, D) in f32.
 
-Two bodies. bf16 weights (`adaln_mlp`, `adaln_mlp_train`) take the Hopper
-body: a modulate pass, then two persistent wgmma GEMMs (up, with bias and
-GELU in its epilogue; down, with bias, gate and residual in its), sized by
-the tile plan `mlp_plan`; the weights come in torch's Linear layout (fc1
-(H, D), fc2 (D, H)), and the hidden activation goes through device memory
-as bf16. The int8 serving forward (`adaln_mlp_quant`, f32 x only) takes the
-WMMA body, which keeps the hidden activation on chip: int8 weight codes in
-the packed layout of `pack_weights(..., dtype=torch.int8)`, in which every
-tile it streams is one contiguous block, and their per-output-channel
-scales s1 (H,), s2 (D,). The fused backward's two stages take the Linear
-weights in torch's layout too (fc2 (D, H) for the prologue, fc1 (H, D) for
-the epilogue, bf16): in the bf16 stream their Hopper body (a row pass and a
-persistent wgmma GEMM each, sized by `mlp_bwd_plan`) reads them as they are;
-the f32 stream's WMMA body packs them first (`pack_w1`, `pack_w2`). After
-a launch the wrapper's `.body` names the body that ran ("sm90" or
-"wmma").
+The forwards take the Hopper body: a modulate pass, then two persistent
+wgmma GEMMs (up, with bias and GELU in its epilogue; down, with bias, gate
+and residual in its), sized by the tile plan `mlp_plan`; the weights come
+in torch's Linear layout (fc1 (H, D), fc2 (D, H)), and the hidden
+activation goes through device memory as bf16. `adaln_mlp` and
+`adaln_mlp_train` take bf16 weights; the int8 serving forward
+(`adaln_mlp_quant`, f32 x only) takes int8 codes in that layout, as
+QuantLinear holds them, with their per-output-channel scales s1 (H,), s2
+(D,): the GEMMs upcast each slab of codes to bf16 on chip and scale each
+column's f32 sum in their epilogues. The fused backward's two stages take
+the Linear weights in torch's layout too (fc2 (D, H) for the prologue, fc1
+(H, D) for the epilogue, bf16): in the bf16 stream their Hopper body (a row
+pass and a persistent wgmma GEMM each, sized by `mlp_bwd_plan`) reads them
+as they are; the f32 stream's WMMA body packs them first (`pack_w1`,
+`pack_w2`). After a launch the wrapper's `.body` names the body that ran
+("sm90" or "wmma").
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
@@ -46,32 +46,32 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from osu_diffusion_tpu_torch.ops import cuda_build
+from osu_diffusion_tpu_torch.ops.gemm_plan import (
+    GEMM_ROWS,
+    GEMM_WIDTHS,
+    KERNEL_WIDTHS,
+    GemmPlan,
+    gemm_plan,
+)
 from osu_diffusion_tpu_torch.ops.quant import dequant_matmul
 
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # activation types the kernel takes
 GELU_C0 = 0.7978845608028654  # sqrt(2 / pi)
 GELU_C1 = 0.044715
 
-KERNEL_WIDTHS = (384, 768, 1024)  # D of DiT-S/B/L; the kernels are built for these
-# the packed layout of the int8 body and the fused backward's f32 stream
+# the packed layout of the fused backward's f32 stream (its WMMA body)
 HIDDEN_CHUNK = 128  # those kernels walk the hidden dim in chunks of this width
 ROW_PAD = 8  # zero elements after each packed row: their shared-memory row padding
 ROW_TILE = 32  # tokens per CTA of those kernels
-# the Hopper body's GEMMs
-GEMM_ROWS = 128  # rows of an output tile: two consumer warpgroups of 64
-GEMM_DEPTH = 64  # the reduction slab each ring stage holds
-GEMM_WIDTHS = (256, 128)  # output tile widths the kernel is built for, widest first
 # the fused backward's dgelu GEMM: its epilogue's state (gelu'(a), da, the
 # db1 sums, the next block of `a`) beside 256-wide tiles' 128 accumulators a
 # thread spilled out of ptxas's 168-register cap and ran slower (PERF.md)
 BWD_DGELU_WIDTHS = (128,)
-TILE_FIXED_COLS = 64  # gemm_plan's fixed cost of a tile, in columns of work (not tuned)
 
 
 def pack_w1(w1: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -91,13 +91,6 @@ def pack_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype = torch.
     """(w1 (D, H), w2 (H, D)) -> (w1p, w2p), the packed layout of the WMMA
     bodies (`pack_w1`, `pack_w2`)."""
     return pack_w1(w1, dtype), pack_w2(w2, dtype)
-
-
-def unpack_weights(w1p: torch.Tensor, w2p: torch.Tensor):
-    """Inverse of `pack_weights`: (w1 (D, H), w2 (H, D))."""
-    chunks, d, _ = w1p.shape
-    w1 = w1p[..., :HIDDEN_CHUNK].permute(1, 0, 2).reshape(d, chunks * HIDDEN_CHUNK)
-    return w1, w2p[:, :d]
 
 
 def _rounder(matmul_dtype):
@@ -140,55 +133,6 @@ def adaln_mlp_reference(
     """Plain version of the inference forward (the training forward's
     output alone)."""
     return adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)[0]
-
-
-class GemmPlan(NamedTuple):
-    """One persistent GEMM of the Hopper bodies: C (rows, cols) = A (rows,
-    depth) . B, B a Linear weight read K-major ((cols, depth), the forward)
-    or MN-major ((depth, cols), the fused backward), in (GEMM_ROWS, width)
-    output tiles, numbered row block-major (tile = row block * tiles_n +
-    column block), CTA c of `grid` taking tiles c, c + grid, ...
-    (csrc/gemm_sm90.cuh numbers them the same way)."""
-    rows: int
-    cols: int
-    depth: int
-    width: int
-    grid: int
-
-    @property
-    def tiles_n(self) -> int:
-        return self.cols // self.width
-
-    @property
-    def tiles(self) -> int:
-        return -(-self.rows // GEMM_ROWS) * self.tiles_n
-
-    def tiles_of(self, cta: int) -> list[tuple[int, int]]:
-        """(first row, first column) of each tile CTA `cta` computes, in order."""
-        return [(i // self.tiles_n * GEMM_ROWS, i % self.tiles_n * self.width)
-                for i in range(cta, self.tiles, self.grid)]
-
-
-def gemm_plan(rows: int, cols: int, depth: int, sm_count: int,
-              widths: tuple[int, ...] = GEMM_WIDTHS) -> GemmPlan:
-    """The tile width and grid of one GEMM: of the `widths` that divide
-    `cols`, the one whose busiest CTA has the least work, counting a tile as
-    its width plus TILE_FIXED_COLS columns' worth of fixed cost (its
-    pipeline's fill and its epilogue's); the widest on a tie. One persistent
-    CTA an SM, at most one per tile."""
-    if depth % GEMM_DEPTH:
-        raise ValueError(f"reduction depth {depth} is not a multiple of {GEMM_DEPTH}")
-    best = None
-    for width in widths:
-        if cols % width:
-            continue
-        tiles = -(-rows // GEMM_ROWS) * (cols // width)
-        cost = -(-tiles // sm_count) * (width + TILE_FIXED_COLS)
-        if best is None or cost < best[0]:
-            best = (cost, GemmPlan(rows, cols, depth, width, min(sm_count, tiles)))
-    if best is None:
-        raise ValueError(f"no tile width of {widths} divides {cols}")
-    return best[1]
 
 
 def mlp_plan(n: int, t: int, d: int, hdim: int, sm_count: int) -> tuple[GemmPlan, GemmPlan]:
@@ -380,6 +324,35 @@ def adaln_mlp_quant_reference(
     return x + gate.to(f32)[:, None, :] * mlp
 
 
+def adaln_mlp_quant_staged(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps: float,
+                           plan: tuple[GemmPlan, GemmPlan]):
+    """The int8 Hopper body's stages in plain PyTorch: the modulate pass
+    (h in bf16), then the up and down GEMMs tile by tile in the order each
+    CTA of `plan` (`mlp_plan`) walks them, each tile's codes upcast exactly
+    and its whole reduction summed before the epilogue scales it (acc * s +
+    b), then GELU into bf16 g (up) or the gate and residual (down). w1q (H,
+    D) and w2q (D, H) int8 codes in torch's Linear layout. Returns out as
+    `adaln_mlp_quant_reference` at bf16 operands."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    n, t, d = x.shape
+    up, down = plan
+    xn, _ = _layer_norm_f32(x, eps)
+    h = (xn * (1.0 + scale.to(f32)[:, None, :]) + shift.to(f32)[:, None, :]).to(bf16)
+    h = h.reshape(n * t, d).to(f32)
+
+    def gemm(a, wq, s, bias, p: GemmPlan):
+        c = torch.full((n * t, p.cols), float("nan"))  # a tile no CTA computes stays NaN
+        for cta in range(p.grid):
+            for r0, c0 in p.tiles_of(cta):
+                rows, cols = slice(r0, r0 + GEMM_ROWS), slice(c0, c0 + p.width)
+                c[rows, cols] = (a[rows] @ wq[cols].to(f32).t()) * s[cols] + bias[cols]
+        return c
+
+    g = F.gelu(gemm(h, w1q, s1, b1, up), approximate="tanh").to(bf16).to(f32)
+    mlp = gemm(g, w2q, s2, b2, down).reshape(n, t, d)
+    return x + gate.to(f32)[:, None, :] * mlp
+
+
 def _mm(a: torch.Tensor, b: torch.Tensor, matmul_dtype) -> torch.Tensor:
     """a @ b with operands rounded to `matmul_dtype` and an f32 result.
 
@@ -495,23 +468,25 @@ def _lib() -> ctypes.CDLL:
     )
     fn = lib.adaln_mlp_quant_fwd
     fn.restype = ctypes.c_int
-    # (x, shift, scale, gate, mod_stride, w1p, s1, b1, w2p, s2, b2, ws, out,
-    #  n, t, d, hdim, split, eps, stream)
+    # (x, shift, scale, gate, mod_stride, w1q, s1, b1, w2q, s2, b2, h, g, out,
+    #  n, t, d, hdim, bn_up, grid_up, bn_down, grid_down, eps, stages, stream)
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 8
-        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     lib.adaln_mlp_error_string.restype = ctypes.c_char_p
     lib.adaln_mlp_error_string.argtypes = [ctypes.c_int]
     lib.adaln_mlp_last_body.restype = ctypes.c_char_p
     lib.adaln_mlp_sm90_smem_bytes.restype = ctypes.c_int
-    lib.adaln_mlp_sm90_smem_bytes.argtypes = [ctypes.c_int]
+    lib.adaln_mlp_sm90_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
-def sm90_smem_bytes() -> dict[int, int]:
-    """The Hopper GEMM's dynamic shared memory per CTA, bytes, by tile width."""
-    return {width: _lib().adaln_mlp_sm90_smem_bytes(width) for width in GEMM_WIDTHS}
+def sm90_smem_bytes(int8: bool = False) -> dict[int, int]:
+    """The Hopper GEMM's dynamic shared memory per CTA, bytes, by tile width,
+    over bf16 weights or (`int8`) int8 codes, whose stages also hold the
+    codes."""
+    return {width: _lib().adaln_mlp_sm90_smem_bytes(width, int(int8)) for width in GEMM_WIDTHS}
 
 
 @functools.cache
@@ -894,43 +869,48 @@ class AdalnMlp(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
+def _quant_launch(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_dtype,
+                  stages: int = ALL_STAGES) -> torch.Tensor:
+    """The int8 Hopper body on x's device; `stages` as `_launch`'s."""
+    n, t, d = x.shape
+    hdim = w1q.shape[0]
+    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
+                      w1q=(w1q, torch.int8, (hdim, d)), w2q=(w2q, torch.int8, (d, hdim)),
+                      s1=(s1, torch.float32, (hdim,)), s2=(s2, torch.float32, (d,)))
+    up, down = mlp_plan(n, t, d, hdim, _sm_count(x.device.index))
+    h = torch.empty((n * t, d), device=x.device, dtype=torch.bfloat16)
+    g = torch.empty((n * t, hdim), device=x.device, dtype=torch.bfloat16)
+    out = torch.empty_like(x)
+    lib = _lib()
+    err = lib.adaln_mlp_quant_fwd(
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), gate.data_ptr(), shift.stride(0),
+        w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(), s2.data_ptr(), b2.data_ptr(),
+        h.data_ptr(), g.data_ptr(), out.data_ptr(), n, t, d, hdim, up.width, up.grid, down.width,
+        down.grid, eps, stages, torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if err:
+        msg = lib.adaln_mlp_error_string(err).decode()
+        raise RuntimeError(f"adaln_mlp_quant kernel launch failed: error {err} ({msg})")
+    adaln_mlp_quant.body = lib.adaln_mlp_last_body().decode()
+    return out
+
+
 def adaln_mlp_quant(
-    x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2, eps: float = 1e-6,
+    x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps: float = 1e-6,
     matmul_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """int8 serving forward (inference only). x: (N, T, D) float32 (the
     serving stream; anything else raises TypeError); shift/scale/gate: (N, D)
-    f32; w1p, w2p: int8 fc1/fc2 codes packed by `pack_weights(w1q, w2q,
-    torch.int8)` from w1q (D, H), w2q (H, D); s1: (H,), s2: (D,) f32 scales;
+    f32; w1q (H, D), w2q (D, H): fc1's and fc2's int8 codes in torch's
+    Linear layout (contiguous on the card); s1: (H,), s2: (D,) f32 scales;
     b1: (H,), b2: (D,) f32. Returns x + gate * MLP(modulate(LN(x))) in f32."""
     if x.dtype != torch.float32:
         raise TypeError(f"adaln_mlp_quant requires float32 activations, got {x.dtype}")
     _check_device(x)
     if x.device.type == "cpu":
-        w1q, w2q = unpack_weights(w1p, w2p)
-        return adaln_mlp_quant_reference(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps,
-                                         matmul_dtype)
-    n, t, d = x.shape
-    hdim = w2p.shape[0]
-    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
-                      w1p=(w1p, torch.int8, (hdim // HIDDEN_CHUNK, d, HIDDEN_CHUNK + ROW_PAD)),
-                      w2p=(w2p, torch.int8, (hdim, d + ROW_PAD)),
-                      s1=(s1, torch.float32, (hdim,)), s2=(s2, torch.float32, (d,)))
-    split = hidden_split(n, t, hdim, _sm_count(x.device.index))
-    workspace = torch.empty((split, n, -(-t // ROW_TILE) * ROW_TILE, d), device=x.device,
-                            dtype=torch.float32)
-    out = torch.empty_like(x)
-    lib = _lib()
-    err = lib.adaln_mlp_quant_fwd(
-        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), gate.data_ptr(), shift.stride(0),
-        w1p.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2p.data_ptr(), s2.data_ptr(), b2.data_ptr(),
-        workspace.data_ptr(), out.data_ptr(), n, t, d, hdim, split, eps,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    if err:
-        msg = lib.adaln_mlp_error_string(err).decode()
-        raise RuntimeError(f"adaln_mlp_quant kernel launch failed: CUDA error {err} ({msg})")
-    adaln_mlp_quant.body = lib.adaln_mlp_last_body().decode()
+        return adaln_mlp_quant_reference(x, shift, scale, gate, w1q.t(), s1, b1, w2q.t(), s2, b2,
+                                         eps, matmul_dtype)
+    out = _quant_launch(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_dtype)
     adaln_mlp_quant.launches += 1
     return out
 

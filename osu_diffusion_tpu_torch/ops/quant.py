@@ -6,10 +6,13 @@ Port of osu_diffusion_tpu/ops/pallas_quant.py:
 - `quantize_weight`: `quantize_weight`, on torch's (out, in) layout;
 - `int8_matmul`: `_kernel` (act(x @ (w_q * s) + b), optional GELU-tanh);
 - `int8_modulated_matmul`: `_modulated_kernel` (the qkv projection with
-  the non-affine LayerNorm and the adaLN shift/scale folded in);
+  the non-affine LayerNorm and the adaLN shift/scale folded in),
+  csrc/adaln_mlp.cu: kernel B's modulate pass and its persistent Hopper
+  GEMM over int8 codes (`int8_modulated_matmul_staged` walks its tile
+  plan, `qkv_plan`, in plain PyTorch);
 - `int8_out_residual`: `_out_residual_kernel` (the out projection with the
   adaLN gate and the residual add folded in);
-all three csrc/int8_matmul.cu.
+`int8_matmul` and `int8_out_residual` csrc/int8_matmul.cu.
 
 Weights are int8 codes in torch's Linear layout, w_q (M, K) = (out, in),
 with a float32 scale per output channel s (M,): w ~= w_q * s[:, None].
@@ -32,13 +35,15 @@ import torch
 import torch.nn.functional as F
 
 from osu_diffusion_tpu_torch.ops import cuda_build
+from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, KERNEL_WIDTHS, GemmPlan, gemm_plan
 
+# int8_matmul and int8_out_residual (csrc/int8_matmul.cu)
 ROW_TILE = 32  # rows per CTA
 COL_TILE = 64  # output columns per tile
 K_CHUNK = 64  # the kernels walk K in chunks of this depth
 MAX_K = 2048  # the (32, K) bf16 activation tile lives in shared memory
-MAX_LN_K = 1024  # the modulated prologue holds a row in registers
 MATMUL_DTYPES = (torch.bfloat16, torch.float32)
+QKV_STAGES = 3  # int8_modulated_matmul's kernels (a mask): 1 the modulate pass, 2 the GEMM
 
 
 def quantize_weight(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -88,6 +93,37 @@ def int8_modulated_matmul_reference(x, shift, scale, w_q, s, b, eps: float = 1e-
     return dequant_matmul(h, w_q, s, matmul_dtype) + b
 
 
+def qkv_plan(n: int, t: int, d: int, m: int, sm_count: int) -> GemmPlan:
+    """The tile plan of `int8_modulated_matmul`'s GEMM over the N*T token
+    rows: M columns over a depth of D, the last column block ragged where
+    the tile width does not divide M."""
+    return gemm_plan(n * t, m, d, sm_count, ragged=True)
+
+
+def int8_modulated_matmul_staged(x, shift, scale, w_q, s, b, eps: float,
+                                 plan: GemmPlan) -> torch.Tensor:
+    """The kernel's stages in plain PyTorch: the modulate pass (h in bf16),
+    then the GEMM tile by tile in the order each CTA of `plan` (`qkv_plan`)
+    walks them, each tile's codes upcast exactly (rows past M read as 0,
+    as TMA reads them) and its whole reduction summed before the epilogue
+    takes acc * s + b and stores the columns below M. Returns (N, T, M) as
+    `int8_modulated_matmul_reference` at bf16 operands."""
+    f32 = torch.float32
+    n, t, d = x.shape
+    m = w_q.shape[0]
+    h = _layer_norm_f32(x, eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
+    h = h.reshape(n * t, d).to(torch.bfloat16).to(f32)
+    codes = F.pad(w_q.to(f32), (0, 0, 0, plan.tiles_n * plan.width - m))
+    out = torch.full((n * t, m), float("nan"))  # a tile no CTA computes stays NaN
+    for cta in range(plan.grid):
+        for r0, c0 in plan.tiles_of(cta):
+            rows, width = slice(r0, r0 + GEMM_ROWS), min(plan.width, m - c0)
+            acc = h[rows] @ codes[c0:c0 + plan.width].t()
+            cols = slice(c0, c0 + width)
+            out[rows, cols] = acc[:, :width] * s[cols] + b[cols]
+    return out.reshape(n, t, m)
+
+
 def int8_out_residual_reference(o, res, gate, w_q, s, b,
                                 matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of `int8_out_residual`: res + gate * (o @ (w_q * s).T + b)."""
@@ -97,12 +133,10 @@ def int8_out_residual_reference(o, res, gate, w_q, s, b,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("int8_matmul")
-    p, i, ll, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in {
         # (x, w, s, b, out, rows, k, m, gelu, tiles_per_cta, stream)
         "int8_matmul_fwd": [p] * 5 + [i] * 5 + [p],
-        # (x, shift, scale, mod_stride, w, s, b, out, n, t, k, m, tiles_per_cta, eps, stream)
-        "int8_modulated_matmul_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 5 + [f, p],
         # (o, res, gate, gate_stride, w, s, b, out, n, t, d, tiles_per_cta, stream)
         "int8_out_residual_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 4 + [p],
     }.items():
@@ -111,6 +145,22 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = argtypes
     lib.int8_matmul_error_string.restype = ctypes.c_char_p
     lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+@functools.cache
+def _qkv_lib() -> ctypes.CDLL:
+    """The adaLN-MLP library, whose modulate pass and Hopper GEMM compute
+    `int8_modulated_matmul`."""
+    lib = cuda_build.load_library("adaln_mlp")
+    fn = lib.int8_modulated_matmul_fwd
+    fn.restype = ctypes.c_int
+    # (x, shift, scale, mod_stride, w, s, b, h, out, n, t, d, m, bn, grid, eps, stages, stream)
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
+                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    lib.adaln_mlp_error_string.restype = ctypes.c_char_p
+    lib.adaln_mlp_error_string.argtypes = [ctypes.c_int]
+    lib.adaln_mlp_last_body.restype = ctypes.c_char_p
     return lib
 
 
@@ -211,25 +261,49 @@ def int8_matmul(x, w_q, s, b, activation: str | None = None,
     return out.reshape(*x.shape[:-1], m)
 
 
+def _modulated_launch(x, shift, scale, w_q, s, b, eps: float, matmul_dtype,
+                      stages: int = QKV_STAGES) -> torch.Tensor:
+    """`int8_modulated_matmul`'s two kernels on x's device; `stages` below
+    QKV_STAGES runs only those (a timing run; the others' outputs left
+    unwritten). Records the body in `.body`."""
+    n, t, d = x.shape
+    m = w_q.shape[0]
+    for name, a in (("shift", shift), ("scale", scale)):
+        if tuple(a.shape) != (n, d):
+            raise ValueError(f"{name} must be ({n}, {d}), got {tuple(a.shape)}")
+    if d not in KERNEL_WIDTHS:
+        raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS}, got {d}")
+    if m % 2:
+        raise ValueError(f"the kernel takes an even M, got {m}")
+    _check_kernel_inputs(matmul_dtype, d, MAX_K, w_q, x=x, shift=shift, scale=scale, s=s, b=b)
+    plan = qkv_plan(n, t, d, m, _sm_count(x.device.index))
+    h = torch.empty((n * t, d), device=x.device, dtype=torch.bfloat16)
+    out = torch.empty((n, t, m), device=x.device, dtype=torch.float32)
+    lib = _qkv_lib()
+    err = lib.int8_modulated_matmul_fwd(
+        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0), w_q.data_ptr(),
+        s.data_ptr(), b.data_ptr(), h.data_ptr(), out.data_ptr(), n, t, d, m, plan.width,
+        plan.grid, eps, stages, torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = lib.adaln_mlp_error_string(err).decode()
+        raise RuntimeError(f"int8_modulated_matmul kernel launch failed: error {err} ({msg})")
+    int8_modulated_matmul.body = lib.adaln_mlp_last_body().decode()
+    return out
+
+
 def int8_modulated_matmul(x, shift, scale, w_q, s, b, eps: float = 1e-6,
                           matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """(LN(x) * (1 + scale) + shift) @ (w_q * s).T + b with a non-affine
     two-pass LayerNorm, reading w_q as int8. x: (N, T, D) f32; shift,
     scale: (N, D) f32 (row views of one modulation tensor are fine);
-    w_q: (M, D) int8; s, b: (M,) f32. Returns (N, T, M) f32."""
+    w_q: (M, D) int8; s, b: (M,) f32. Returns (N, T, M) f32. The kernel
+    takes D in KERNEL_WIDTHS and an even M."""
     _check_input(x, "int8_modulated_matmul")
-    n, t, d = x.shape
-    m = _check_shapes(w_q, s, b, d)
+    d = x.shape[-1]
+    _check_shapes(w_q, s, b, d)
     if x.device.type == "cpu":
         return int8_modulated_matmul_reference(x, shift, scale, w_q, s, b, eps, matmul_dtype)
-    for name, a in (("shift", shift), ("scale", scale)):
-        if tuple(a.shape) != (n, d):
-            raise ValueError(f"{name} must be ({n}, {d}), got {tuple(a.shape)}")
-    _check_kernel_inputs(matmul_dtype, d, MAX_LN_K, w_q, x=x, shift=shift, scale=scale, s=s, b=b)
-    out = torch.empty((n, t, m), device=x.device, dtype=torch.float32)
-    _launch("int8_modulated_matmul_fwd", lambda per: (
-        x.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0), w_q.data_ptr(),
-        s.data_ptr(), b.data_ptr(), out.data_ptr(), n, t, d, m, per, eps), n, t, m, x.device)
+    out = _modulated_launch(x, shift, scale, w_q, s, b, eps, matmul_dtype)
     int8_modulated_matmul.launches += 1
     return out
 
@@ -260,3 +334,4 @@ def int8_out_residual(o, res, gate, w_q, s, b,
 int8_matmul.launches = 0
 int8_modulated_matmul.launches = 0
 int8_out_residual.launches = 0
+int8_modulated_matmul.body = None

@@ -638,9 +638,8 @@ def test_quant_wrappers_take_the_plain_versions_on_cpu():
     w1q, s1 = _quant_weight(4 * d, d, g, "cpu")
     w2q, s2 = _quant_weight(d, 4 * d, g, "cpu")
     b1 = torch.zeros(4 * d)
-    w1p, w2p = tam.pack_weights(w1q.t(), w2q.t(), torch.int8)
     got = tam.adaln_mlp_quant(x, mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:],
-                              w1p, s1, b1, w2p, s2, b[:d])
+                              w1q, s1, b1, w2q, s2, b[:d])
     want = tam.adaln_mlp_quant_reference(x, mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d],
                                          mod[:, 5 * d:], w1q.t(), s1, b1, w2q.t(), s2, b[:d],
                                          1e-6, torch.bfloat16)
@@ -710,7 +709,9 @@ def test_int8_modulated_matmul_kernel_matches_plain(cuda_device, n, t, d, m):
     got = tq.int8_modulated_matmul(x, mod[:, :d], mod[:, d:2 * d], wq, s, b)
     torch.cuda.synchronize()
     assert tq.int8_modulated_matmul.launches == before + 1
+    assert tq.int8_modulated_matmul.body == "sm90"  # kernel B's modulate pass and Hopper GEMM
     _check_quant(got, tq.int8_modulated_matmul_reference, x, mod[:, :d], mod[:, d:2 * d], wq, s, b)
+    assert torch.equal(tq.int8_modulated_matmul(x, mod[:, :d], mod[:, d:2 * d], wq, s, b), got)
 
 
 @pytest.mark.cuda
@@ -739,14 +740,38 @@ def test_adaln_mlp_quant_kernel_matches_plain(cuda_device, n, t, d):
     w1q, s1 = _quant_weight(4 * d, d, g, cuda_device)
     w2q, s2 = _quant_weight(d, 4 * d, g, cuda_device)
     b1, b2 = (torch.randn(k, generator=g, device=cuda_device) * 0.02 for k in (4 * d, d))
-    w1p, w2p = tam.pack_weights(w1q.t(), w2q.t(), torch.int8)
     before = tam.adaln_mlp_quant.launches
-    got = tam.adaln_mlp_quant(x, shift, scale, gate, w1p, s1, b1, w2p, s2, b2)
+    got = tam.adaln_mlp_quant(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2)
     torch.cuda.synchronize()
     assert tam.adaln_mlp_quant.launches == before + 1
-    assert tam.adaln_mlp_quant.body == "wmma"  # int8 weights keep the WMMA body
+    assert tam.adaln_mlp_quant.body == "sm90"  # int8 codes take the Hopper body
     _check_quant(got, tam.adaln_mlp_quant_reference, x, shift, scale, gate, w1q.t(), s1, b1,
                  w2q.t(), s2, b2)
+    # one CTA owns each output tile: the same bits on a second call
+    assert torch.equal(tam.adaln_mlp_quant(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2), got)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_allocate_no_bf16_weight_copy(cuda_device):
+    """Rows 10 and 11 read the int8 codes as they are: at 16 token rows one
+    call allocates its activations (tens of KB), never a weight's worth of
+    bf16 (fc1 at D = 768: 4.7 MB)."""
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    n, t, d = 1, 16, 768
+    x = torch.randn((n, t, d), generator=g, device=cuda_device)
+    mod = torch.randn((n, 6 * d), generator=g, device=cuda_device) * 0.3
+    (w1q, s1), (w2q, s2), (wq, s) = (_quant_weight(m, k, g, cuda_device)
+                                     for m, k in ((4 * d, d), (d, 4 * d), (3 * d, d)))
+    b1, b2, b = (torch.zeros(k, device=cuda_device) for k in (4 * d, d, 3 * d))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    tam.adaln_mlp_quant(x, mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:], w1q, s1, b1, w2q,
+                        s2, b2)
+    tq.int8_modulated_matmul(x, mod[:, :d], mod[:, d:2 * d], wq, s, b)
+    torch.cuda.synchronize()
+    bf16_fc1 = 4 * d * d * 2
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < bf16_fc1 // 8
 
 
 @pytest.mark.cuda
@@ -756,17 +781,22 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda_device):
     wq = torch.zeros(64, 100, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         tq.int8_matmul(x, wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
-    x = torch.randn(1, 8, 2048, device=dev)  # the LayerNorm prologue takes K <= 1024
+    x = torch.randn(1, 8, 2048, device=dev)  # the modulate pass takes D in KERNEL_WIDTHS
     wq = torch.zeros(64, 2048, dtype=torch.int8, device=dev)
     m = torch.zeros(1, 2048, device=dev)
     with pytest.raises(ValueError):
         tq.int8_modulated_matmul(x, m, m, wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
     with pytest.raises(TypeError):  # the serving stream is f32
         tq.int8_matmul(x.to(torch.bfloat16), wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
+    x = torch.randn(1, 8, 384, device=dev)  # the qkv epilogue stores column pairs: M even
+    wq = torch.zeros(63, 384, dtype=torch.int8, device=dev)
+    m = torch.zeros(1, 384, device=dev)
+    with pytest.raises(ValueError):
+        tq.int8_modulated_matmul(x, m, m, wq, torch.ones(63, device=dev), torch.zeros(63, device=dev))
     x = torch.randn(1, 8, 64, device=dev)  # D = 64 has no MLP kernel
-    w1p, w2p = tam.pack_weights(torch.zeros(64, 256, dtype=torch.int8, device=dev),
-                                torch.zeros(256, 64, dtype=torch.int8, device=dev), torch.int8)
+    w1q = torch.zeros(256, 64, dtype=torch.int8, device=dev)
+    w2q = torch.zeros(64, 256, dtype=torch.int8, device=dev)
     m = torch.zeros(1, 64, device=dev)
     with pytest.raises(ValueError):
-        tam.adaln_mlp_quant(x, m, m, m, w1p, torch.ones(256, device=dev), torch.zeros(256, device=dev),
-                            w2p, m[0] + 1, m[0])
+        tam.adaln_mlp_quant(x, m, m, m, w1q, torch.ones(256, device=dev), torch.zeros(256, device=dev),
+                            w2q, m[0] + 1, m[0])

@@ -37,6 +37,7 @@ import torch
 
 import osu_diffusion_tpu.ops.pallas_mlp as pm
 from osu_diffusion_tpu_torch.ops import adaln_mlp as tam
+from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_DEPTH
 
 H100_SMS = 132
 STREAMS = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -98,7 +99,7 @@ def test_bwd_plan_covers_every_tile_once(n, t, d):
     for plan, cols, depth in ((dgelu, hdim, d), (dh1, d, hdim)):
         assert (plan.rows, plan.cols, plan.depth) == (n * t, cols, depth)
         assert plan.width in tam.GEMM_WIDTHS and cols % plan.width == 0
-        assert depth % tam.GEMM_DEPTH == 0  # whole reduction slabs of the MN-major B
+        assert depth % GEMM_DEPTH == 0  # whole reduction slabs of the MN-major B
         assert 1 <= plan.grid <= min(H100_SMS, plan.tiles)
         seen = [tile for cta in range(plan.grid) for tile in plan.tiles_of(cta)]
         assert len(seen) == len(set(seen)) == plan.tiles == blocks * (cols // plan.width)

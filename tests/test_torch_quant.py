@@ -202,7 +202,8 @@ def test_int8_out_residual_plain_matches_pallas(interpret_mode, n):
 def test_adaln_mlp_quant_plain_matches_pallas(interpret_mode, n):
     """h = 2048: two JAX H blocks, whose fc2 partials carry s2 each (the
     port applies s2 once to the whole sum); n = 8 and 6 at T = 128. The
-    wrapper takes the packed int8 weights, as the model passes them."""
+    wrapper takes the int8 codes in torch's Linear layout, as the model
+    passes them."""
     rng = np.random.default_rng(20 + n)
     t, d, h = 128, 128, 2048
     w1q, s1, _ = _quantized(rng, d, h, 0.05)
@@ -217,9 +218,9 @@ def test_adaln_mlp_quant_plain_matches_pallas(interpret_mode, n):
     tmod = torch.from_numpy(mod)
     targs = (torch.from_numpy(x), tmod[:, 0], tmod[:, 1], tmod[:, 2])
     weights = (_t(w1q), _t(s1), torch.from_numpy(b1), _t(w2q), _t(s2), torch.from_numpy(b2))
-    w1p, w2p = tam.pack_weights(weights[0], weights[3], torch.int8)
-    assert w1p.dtype == torch.int8
-    got = tam.adaln_mlp_quant(*targs, w1p, weights[1], weights[2], w2p, weights[4], weights[5])
+    fc1_q, fc2_q = weights[0].t(), weights[3].t()  # (H, D), (D, H)
+    assert fc1_q.dtype == torch.int8
+    got = tam.adaln_mlp_quant(*targs, fc1_q, weights[1], weights[2], fc2_q, weights[4], weights[5])
     assert got.shape == (n, t, d) and got.dtype == f32
     _check_three_ways(got, tam.adaln_mlp_quant_reference(*targs, *weights, matmul_dtype=f32),
                       pallas, math)
@@ -227,11 +228,10 @@ def test_adaln_mlp_quant_plain_matches_pallas(interpret_mode, n):
 
 def test_adaln_mlp_quant_rejects_a_bf16_stream():
     x = torch.zeros(1, 4, 128, dtype=bf16)
-    w1p, w2p = tam.pack_weights(torch.zeros(128, 256, dtype=torch.int8),
-                                torch.zeros(256, 128, dtype=torch.int8), torch.int8)
+    fc1_q, fc2_q = torch.zeros(256, 128, dtype=torch.int8), torch.zeros(128, 256, dtype=torch.int8)
     m = torch.zeros(1, 128)
     with pytest.raises(TypeError, match="float32"):
-        tam.adaln_mlp_quant(x, m, m, m, w1p, torch.ones(256), torch.zeros(256), w2p,
+        tam.adaln_mlp_quant(x, m, m, m, fc1_q, torch.ones(256), torch.zeros(256), fc2_q,
                             torch.ones(128), m[0])
 
 
