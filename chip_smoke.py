@@ -7,9 +7,12 @@ Phases (any failure raises and exits non-zero):
 1. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
    nvcc build of every kernel library from osu_diffusion_tpu_torch/csrc
    (one nvcc per source, all at once).
-2. Inference kernel A (banded attention) against its plain version on the
-   card: at the DiT-B sampling shape and at ragged shapes, against the plain
-   version with bf16-rounded operands and against the f32 plain version.
+2. Inference kernel A (banded attention, f32 q/k/v) against its plain
+   version on the card: at the DiT-B sampling shape and at ragged shapes,
+   against the plain version with bf16-rounded operands and against the f32
+   plain version; its body (sm90), the same bits on a second call, o in
+   bf16 (the int8 block's) equal to the rounded f32 o, and the registers,
+   spill bytes (0 required) and shared memory of its f32 builds.
 3. Inference kernel B (fused adaLN-MLP), the same way, with the body its
    calls took (bf16 weights: sm90) and the same bits on a second call;
    timed beside a cuBLAS bf16 fc1 + fc2 of its shapes (`library_ms`).
@@ -23,9 +26,11 @@ Phases (any failure raises and exits non-zero):
    spill bytes and shared memory of its eight GEMM builds, and a cuBLAS
    bf16 fc1 + fc2 of its shapes). `[attn-train]` and `[attn-cp]`
    (13) print the registers, spill bytes (required 0) and shared memory of
-   the bf16 Hopper bodies of the forward, dq and dk/dv, and for each case
-   the body its calls took (bf16: sm90, f32: the WMMA body); at
-   the main shapes, two dq calls on the same inputs must give the same bits.
+   the Hopper builds of the forward (both types), dq and dk/dv, and for
+   each case the body its calls took (the forward: sm90 in both streams;
+   dq and dk/dv: bf16 sm90, f32 the WMMA body); at the main shapes, two dq
+   calls on the same inputs must give the same bits, and in `[attn-cp]` a
+   second forward call in every case.
 5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
    50 CFG denoise steps, the .osu written and reparsed, and each inference
@@ -49,21 +54,23 @@ Phases (any failure raises and exits non-zero):
 9. The int8 weight-only kernels (`[quant]`): the adaLN projection
    (int8_matmul), the qkv projection with LayerNorm and modulation folded
    in (int8_modulated_matmul), the out projection with gate and residual
-   (int8_out_residual) and the int8 fused MLP (adaln_mlp_quant), against
+   (int8_out_residual, o in bf16) and the int8 fused MLP (adaln_mlp_quant), against
    their plain versions with the same bf16 operands and int8 codes and
    against the f32 dequantised ones, at the DiT-B sampling shapes and ragged
    ones (M = 1000 for the qkv projection), with the same bits on a second
    call; each timed beside the cuBLAS bf16 product of its shape. The qkv
-   projection and the MLP run kernel B's Hopper body over int8 codes (body
-   sm90 required): their kernels are timed alone (modulate and GEMM; modulate,
-   up and down), their six int8 GEMM builds' registers and spills printed
-   (0 spill bytes required), and torch._weight_int8pack_mm is probed for
-   the qkv product (`library_ms` where it runs on CUDA).
+   and out projections and the MLP run kernel B's Hopper body over int8
+   codes (body sm90 required): their kernels are timed alone (modulate and
+   GEMM; modulate, up and down), their eight int8 GEMM builds' registers
+   and spills printed (0 spill bytes required), and
+   torch._weight_int8pack_mm is probed for the qkv product (`library_ms`
+   where it runs on CUDA).
 10. The sample CLI with --quantize-weights (`[slice-int8]`), as in 5: every
    int8 kernel and banded attention launched steps x depth times, the f32
-   MLP kernel never; seconds per denoise step beside the f32 run's, and a
-   profile (`[profile-int8]`: the device time of rows 10 and 11's kernels
-   by name). Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
+   MLP kernel never, and no f32 o cast to bf16 before the out projection;
+   seconds per denoise step beside the f32 run's, and a profile
+   (`[profile-int8]`: the device time of rows 1 and 10-12's kernels by
+   name; `[profile]` gives rows 1 and 7's). Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
    and its gap to the f32 forward on the card (the quantisation error,
    printed, not checked).
 11. The fused MLP backward's two kernels (`[mlp-bwd]`): prologue and
@@ -96,7 +103,9 @@ Phases (any failure raises and exits non-zero):
    Then two gloo ranks share the card (this script again, with --cp-rank,
    in torchrun's environment): one DiT-B forward_with_cfg at the kimi
    inputs against the one-device forward and a CP sampling chain
-   (`[forward-cp]`), context_parallel_banded_attention's output and
+   (`[forward-cp]`: the chain's gap to one device within
+   CP_CHAIN_FLOOR_MULTIPLE of its noise floor, the one-device chain
+   against itself with the plain bf16 rows 1 and 7), context_parallel_banded_attention's output and
    gradients through the halo exchange against the one-device kernels in
    the f32 and the bf16 stream (`[attn-cp-exchange]`), one DiT-B CP
    training step against the one-device step (`[step-cp]`), and the
@@ -197,7 +206,9 @@ ATTN_TRAIN_CASES = [
     ("f32_stream", 4, 12, 128, 128, 128, "f32"),
 ]
 # the body each stream's forward, dq and dk/dv take (`.body` of the
-# wrappers): bf16 the Hopper body, f32 the WMMA body
+# wrappers): every forward entry the Hopper body in both streams; dq and
+# dk/dv bf16 the Hopper body, f32 the WMMA body
+FWD_BODY = {"bf16": "sm90", "f32": "sm90"}
 BODY = {"bf16": "sm90", "f32": "wmma"}
 # (name, N, T, D, stream)
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
@@ -205,6 +216,8 @@ MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf
                    ("dit_l_width_t757", 1, 757, 1024, "bf16")]
 # kernel B's Hopper body: its kernels' names in a profile
 MLP_SM90_KERNELS = ("adaln_mlp_modulate_kernel", "adaln_mlp_gemm_kernel")
+# the banded-attention forward's (row 1's, in the sampling chains)
+ATTN_FWD_KERNEL = "banded_attn_fwd_sm90_kernel"
 # the fused MLP backward's Hopper body (rows 9a/9b): its kernels' names in a
 # profile (sum_partials_kernel: the five sums of partials, also the WMMA
 # body's)
@@ -235,6 +248,15 @@ CP_LOSS_REL_TOL = 1e-2
 # loss within this relative error (the same kernels on the same bf16
 # operands; only the halo's partial sums and the summation order differ)
 CP_REL_TOL = 1e-2
+# [forward-cp]'s CP_SAMPLE_STEPS-step chain against the one-device chain:
+# its gap's max and median within this multiple of the noise floor's, the
+# gap between the one-device chain with the kernels and the same chain with
+# the plain bf16 versions of rows 1 and 7 (two correct chains; at t near T
+# the x0 prediction amplifies the forwards' rounding differences before
+# the clamp). On an H100 the CP gap was 1.08x (max) and 1.01x (median) the
+# floor; a fault in the ranged kernels or the halo exchange moves the
+# median by O(0.1-1).
+CP_CHAIN_FLOOR_MULTIPLE = 3.0
 # [attn-cp-exchange]: context_parallel_banded_attention on CP_RANKS ranks
 # against the one-device banded_attention, forward and backward through the
 # halo exchange, each in the f32 and the bf16 stream: (name, N, T, valid_len)
@@ -368,10 +390,29 @@ def phase_build():
     return card
 
 
+# the Hopper attention builds: the forward's five (q/k/v type, o type;
+# bf16 o from f32 q/k/v unranged only) and dq's and dk/dv's two, each
+# unranged and ranged
+SM90_ATTN_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32",
+                    "dq", "ranged dq", "dkv", "ranged dkv")
+
+
+def attn_build_name(entry: str, kernel: str, key: str) -> str:
+    """The SM90_ATTN_BUILDS name of a mangled Hopper attention kernel:
+    <RANGED[, q/k/v type, o type]> for the forward."""
+    name = ("ranged " if f"{kernel}ILb1E" in entry else "") + key
+    if key != "fwd":
+        return name
+    types = entry.split(f"{kernel}ILb", 1)[1][2:]  # past the flag and its E
+    if types.startswith("ff"):
+        return name + " f32"
+    return name + (" f32->bf16" if types.startswith("f13__nv_bfloat16") else " bf16")
+
+
 def sm90_resources() -> dict:
     """Registers, spill bytes (stores + loads) and dynamic shared memory per
-    CTA of the Hopper attention bodies, each build (ranged or not), from this
-    build's ptxas lines (cuda_build.build_info) and the libraries."""
+    CTA of the Hopper attention builds (SM90_ATTN_BUILDS), from this build's
+    ptxas lines (cuda_build.build_info) and the libraries."""
     from osu_diffusion_tpu_torch.ops import banded_attention as ba
     from osu_diffusion_tpu_torch.ops import cuda_build
 
@@ -388,14 +429,14 @@ def sm90_resources() -> dict:
                 continue
             if entry is None or kernel not in entry:
                 continue
-            name = ("ranged " if "ILb1E" in entry else "") + key
-            res = found.setdefault(name, {"smem_bytes": smem[key]})
+            name = attn_build_name(entry, kernel, key)
+            res = found.setdefault(name, {"smem_bytes": smem["fwd f32" if "fwd f32" in name else key]})
             if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
                 res["spill_bytes"] = int(m[1]) + int(m[2])
             if (m := re.search(r"Used (\d+) registers", line)):
                 res["registers"] = int(m[1])
-    check(len(found) == 6 and all(len(r) == 3 for r in found.values()),
-          f"ptxas lines of the six Hopper attention builds not found: {found}")
+    check(set(found) == set(SM90_ATTN_BUILDS) and all(len(r) == 3 for r in found.values()),
+          f"ptxas lines of the {len(SM90_ATTN_BUILDS)} Hopper attention builds not found: {found}")
     check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper attention bodies spill: {found}")
     return found
 
@@ -408,6 +449,11 @@ def print_sm90_resources(tag, names) -> None:
 
 
 def phase_attention(dev):
+    """Row 1: the inference forward on f32 q/k/v (the sampling stream)
+    against its plain versions, its body (sm90) and the same bits on a
+    second call in every case; o in bf16 (the int8 block's) equal to the
+    rounded f32 o; at the main shape its times (f32 and bf16 o) beside the
+    bound, the plain versions and SDPA."""
     import torch
     import torch.nn.functional as F
     from osu_diffusion_tpu_torch.ops.banded_attention import (
@@ -417,6 +463,7 @@ def phase_attention(dev):
     )
 
     g = torch.Generator(device=dev).manual_seed(1)
+    print_sm90_resources("attn", ("fwd f32", "fwd f32->bf16"))
     # (name, N, H, T, valid_len, band): the DiT-B main-path shape first
     cases = [
         ("main", 2, 12, 768, 757, BAND),
@@ -431,13 +478,24 @@ def phase_attention(dev):
         q, k, v = (a.view(n, t, h, 64).transpose(1, 2) for a in qkv.split(h * 64, dim=-1))
         got = banded_attention(q, k, v, band, valid)
         torch.cuda.synchronize()
+        body = banded_attention.body
+        same = torch.equal(banded_attention(q, k, v, band, valid), got)
+        # o in bf16 from the same f32 q/k/v: the f32 o, rounded
+        got16 = banded_attention(q, k, v, band, valid, out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        rounded = got16.dtype == torch.bfloat16 and torch.equal(got16, got.to(torch.bfloat16))
+        body16 = banded_attention.body
         ref16 = banded_attention_reference(q, k, v, band, valid, torch.bfloat16)
         ref32 = banded_attention_reference(q, k, v, band, valid, torch.float32)
         e16, e32 = max_err(got, ref16), max_err(got, ref32)
         finite = bool(torch.isfinite(got).all())
-        print(f"[attn] {name}: N={n} H={h} T={t} valid={valid} band={band} "
-              f"max_abs_err bf16={e16:.3e} (tol {ATTN_TOL_BF16}) "
-              f"f32={e32:.3e} (tol {ATTN_TOL_F32}) finite={finite}")
+        print(f"[attn] {name}: N={n} H={h} T={t} valid={valid} band={band} body {body} "
+              f"(bf16 o: {body16}) max_abs_err bf16={e16:.3e} (tol {ATTN_TOL_BF16}) "
+              f"f32={e32:.3e} (tol {ATTN_TOL_F32}) finite={finite}; same bits on a second call: "
+              f"{same}; bf16 o is the rounded f32 o: {rounded}")
+        check(body == body16 == "sm90", f"attention {name}: bodies {body}, {body16}, expected sm90")
+        check(same, f"attention {name}: a second call gave other bits")
+        check(rounded, f"attention {name}: bf16 o is not the rounded f32 o")
         check(finite, f"attention {name}: non-finite output")
         check(e16 <= ATTN_TOL_BF16, f"attention {name}: {e16} > {ATTN_TOL_BF16}")
         check(e32 <= ATTN_TOL_F32, f"attention {name}: {e32} > {ATTN_TOL_F32}")
@@ -446,15 +504,18 @@ def phase_attention(dev):
             check(bool((got[:, :, valid + band:] == 0).all()), "masked rows not 0")
         if name == "main":
             ms = cuda_ms(lambda: banded_attention(q, k, v, band, valid))
+            ms16 = cuda_ms(lambda: banded_attention(q, k, v, band, valid, out_dtype=torch.bfloat16))
             plain_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.float32))
             plain16_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.bfloat16))
             # yardstick: SDPA with the band and the valid keys as a boolean mask
             mask = banded_attention_mask(t, band, dev) & (torch.arange(t, device=dev) < valid)[None, :]
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
-            b = bound(nbytes(q, k, v, got), 4 * 64 * n * h * attention_pairs(t, band, valid))
-            print(f"[attn] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+            flops = 4 * 64 * n * h * attention_pairs(t, band, valid)
+            b = bound(nbytes(q, k, v, got), flops)
+            b16 = bound(nbytes(q, k, v, got16), flops)
+            print(f"[attn] main: kernel {ms:.4f} ms (bf16 o {ms16:.4f} ms), plain f32 {plain_ms:.4f} ms, "
                   f"plain bf16-rounded {plain16_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, "
-                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bf16 o {b16['bound_ms']:.4f} ms)")
             result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b,
                       "library_ms": library_ms}
     return result
@@ -475,8 +536,8 @@ def mlp_sm90_resources(int8: bool = False) -> str:
     """Registers and spill bytes (0 required) of kernel B's Hopper GEMM
     builds from this build's ptxas lines, and the dynamic shared memory a
     CTA at each width: over bf16 weights the eight builds (tile width, up
-    or down, x's type); over int8 codes (`int8`) the six of rows 10 and 11
-    (tile width; up, down or qkv; f32 x)."""
+    or down, x's type); over int8 codes (`int8`) the eight of rows 10, 11
+    and 12 (tile width; up, down, qkv or out; f32 x)."""
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import cuda_build
 
@@ -486,18 +547,18 @@ def mlp_sm90_resources(int8: bool = False) -> str:
         if m:
             entry = m.group(1)
             continue
-        # <BN, EPI, TX, BL>: EPI 0 up, 1 down, 2 qkv; TX f or __nv_bfloat16; BL 2 int8
+        # <BN, EPI, TX, BL>: EPI 0 up, 1 down, 2 qkv, 3 out; TX f or __nv_bfloat16; BL 2 int8
         k = entry and re.search(r"adaln_mlp_gemm_kernelILi(\d+)ELi(\d)E(f|13__nv_bfloat16)Li(\d)E",
                                 entry)
         if not k or (k[4] == "2") != int8:
             continue
-        name = f"{k[1]} {('up', 'down', 'qkv')[int(k[2])]} {'bf16' if k[3] != 'f' else 'f32'}"
+        name = f"{k[1]} {('up', 'down', 'qkv', 'out')[int(k[2])]} {'bf16' if k[3] != 'f' else 'f32'}"
         res = found.setdefault(name, {})
         if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             res["spill_bytes"] = int(m[1]) + int(m[2])
         if (m := re.search(r"Used (\d+) registers", line)):
             res["registers"] = int(m[1])
-    want = 6 if int8 else 8
+    want = 8
     what = "int8" if int8 else "bf16"
     check(len(found) == want and all(len(r) == 2 for r in found.values()),
           f"ptxas lines of the {want} {what} Hopper MLP GEMM builds not found: {found}")
@@ -603,7 +664,7 @@ def phase_attention_train(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-train", ("fwd", "dq", "dkv"))
+    print_sm90_resources("attn-train", ("fwd bf16", "fwd f32", "dq", "dkv"))
     for name, n, h, t, valid, band, stream in ATTN_TRAIN_CASES:
         dtype = f32 if stream == "f32" else bf16
         qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=dev).to(dtype)
@@ -616,7 +677,8 @@ def phase_attention_train(dev):
         torch.cuda.synchronize()
         body = {"fwd": ba.banded_attention_fwd_lse.body, "dq": ba.banded_attention_bwd_dq.body,
                 "dkv": ba.banded_attention_bwd_dkv.body}
-        check(set(body.values()) == {BODY[stream]}, f"attention train {name}: bodies {body}, want {BODY[stream]}")
+        want = {"fwd": FWD_BODY[stream], "dq": BODY[stream], "dkv": BODY[stream]}
+        check(body == want, f"attention train {name}: bodies {body}, want {want}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, bf16)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, bf16)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, f32)
@@ -907,9 +969,11 @@ def int8pack_ms(h, wq, s) -> float | None:
 def phase_quant(dev):
     """Rows 10-13 against their plain versions (bf16 operands and int8
     codes, and the f32 dequantised math), the DiT-B sampling shape of each
-    first; the same bits on a second call, and rows 10 and 11's body; at
-    the main shape times, bounds, the cuBLAS bf16 product of the same shape,
-    rows 10 and 11's kernels alone and their int8 GEMM builds' resources."""
+    first; the same bits on a second call, and rows 10, 11 and 12's body
+    (row 12 takes o in bf16, as the banded attention writes it for the
+    int8 block); at the main shape times, bounds, the cuBLAS bf16 product
+    of the same shape, rows 10 and 11's kernels alone and the int8 GEMM
+    builds' resources."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import quant as tq
@@ -928,9 +992,9 @@ def phase_quant(dev):
         mod = rnd(n, 6 * d, std=0.3)
         return (rnd(n, t, d), mod[:, :d], mod[:, d:2 * d], *weight(m, d), rnd(m, std=0.02))
 
-    def out_like(n, t, d, m):
-        return (rnd(n, t, d), rnd(n, t, d), rnd(n, 6 * d, std=0.3)[:, 2 * d:3 * d], *weight(d, d),
-                rnd(d, std=0.02))
+    def out_like(n, t, d, m):  # o in bf16, as row 1 writes it in the int8 block
+        return (rnd(n, t, d).to(bf16), rnd(n, t, d), rnd(n, 6 * d, std=0.3)[:, 2 * d:3 * d],
+                *weight(d, d), rnd(d, std=0.02))
 
     def mlp_like(n, t, d, m):  # fc1 (H, D) and fc2 (D, H) codes in torch's layout
         mod = rnd(n, 6 * d, std=0.3)
@@ -975,7 +1039,8 @@ def phase_quant(dev):
             (lambda args, mask: am._quant_launch(*args, 1e-6, bf16, stages=mask),
              (("modulate", 1), ("up", 2), ("down", 4)))),
     }
-    bodies = {"int8_modulated_matmul": tq.int8_modulated_matmul, "adaln_mlp_quant": am.adaln_mlp_quant}
+    bodies = {"int8_modulated_matmul": tq.int8_modulated_matmul, "int8_out_residual": tq.int8_out_residual,
+              "adaln_mlp_quant": am.adaln_mlp_quant}
     results = {}
     for name, (kernel, plain, make, cases, staged) in kernels.items():
         for case, *shape in cases:
@@ -1047,6 +1112,9 @@ def phase_quant(dev):
                 hq = (am._layer_norm_f32(x, 1e-6)[0] * (1 + scale[:, None]) + shift[:, None])
                 library_ms = int8pack_ms(hq.reshape(-1, hq.shape[-1]).to(bf16), wq, s_q)
             b = bound(moved, flops)
+            if name == "int8_out_residual":  # the bound before o came in bf16
+                f32_o = bound(moved + args[0].numel() * 2, flops)["bound_ms"]
+                stages = f" (bound with an f32 o, as before: {f32_o:.4f} ms)"
             library = ("none" if library_ms is None else
                        f"torch._weight_int8pack_mm of its product (no LayerNorm, bias) {library_ms:.4f} ms")
             print(f"[quant] {name} main: kernel {ms:.4f} ms{stages}, plain f32 {plain_ms:.4f} ms, "
@@ -1099,6 +1167,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     from osu_diffusion_tpu_torch.beatmap import Beatmap
     from osu_diffusion_tpu_torch import sampling
     from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
+    from osu_diffusion_tpu_torch.ops import quant as tq
 
     runs = []  # (sampler, inputs, output, chain ms, host enqueue ms) of each CLI run
     orig_call = sampling.Sampler.__call__
@@ -1125,16 +1194,21 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
 
     buf = io.StringIO()
     read_counts = reset_launch_counts()
+    o_casts = tq.int8_out_residual.o_casts
     wall = time.perf_counter()
     with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
         written = sample_main(args)
     wall = time.perf_counter() - wall
     counts = read_counts()
+    o_casts = tq.int8_out_residual.o_casts - o_casts
     depth = len(runs[-1][0].model.blocks)
     path = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
              "adaln_mlp_quant"] if quantize else ["banded_attention", "adaln_mlp"])
     print(f"[{tag}] launches {counts} (expected {STEPS} steps x depth {depth} = "
-          f"{STEPS * depth} for each of {path}, 0 for the others), wall {wall:.2f} s")
+          f"{STEPS * depth} for each of {path}, 0 for the others), wall {wall:.2f} s; "
+          f"f32 o cast to bf16 before the out projection {o_casts} times (0 expected: row 1 "
+          f"writes it in bf16)")
+    check(o_casts == 0, f"{tag}: {o_casts} casts of o before the out projection")
     check("seq len 757" in buf.getvalue(), "CLI did not report seq len 757")
     launches = dict.fromkeys(path, STEPS * depth)
     check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
@@ -1177,27 +1251,30 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     # kernel B's own device time (its Hopper body: MLP_SM90_KERNELS); in the
     # int8 chain the same kernels also run row 11, split by the GEMM's epilogue
     mlp_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in MLP_SM90_KERNELS))
-    what = "rows 10 and 11" if quantize else "kernel B"
+    what = "rows 10, 11 and 12" if quantize else "kernel B"
     print(f"[{tag}] {what} ({', '.join(MLP_SM90_KERNELS)}) {mlp_us / 1000 / STEPS:.3f} ms of device "
           f"time per denoise step, {100 * mlp_us / max(device_us, 1e-9):.1f}% of the chain's")
+    attn_us = sum(e.self_device_time_total for e in events if ATTN_FWD_KERNEL in e.key)
+    print(f"[{ptag}] row 1 ({ATTN_FWD_KERNEL}) {attn_us / 1000 / STEPS:.3f} ms of device time per "
+          f"denoise step")
     if quantize:
         parts = {"modulate passes (rows 10 and 11)": 0.0, "up + down GEMMs (row 10)": 0.0,
-                 "qkv GEMM (row 11)": 0.0, "GEMMs of an unread name": 0.0}
+                 "qkv GEMM (row 11)": 0.0, "out GEMM (row 12)": 0.0, "GEMMs of an unread name": 0.0}
         for e in events:
             if MLP_SM90_KERNELS[0] in e.key:
                 parts["modulate passes (rows 10 and 11)"] += e.self_device_time_total
             elif MLP_SM90_KERNELS[1] in e.key:
                 epi = gemm_epilogue(e.key)
-                part = ("GEMMs of an unread name" if epi is None else
-                        "qkv GEMM (row 11)" if epi == 2 else "up + down GEMMs (row 10)")
+                part = ("GEMMs of an unread name" if epi is None else "qkv GEMM (row 11)" if epi == 2
+                        else "out GEMM (row 12)" if epi == 3 else "up + down GEMMs (row 10)")
                 parts[part] += e.self_device_time_total
-        print(f"[{tag}] int8 Hopper bodies, device ms per denoise step: " + ", ".join(
+        print(f"[{ptag}] int8 Hopper bodies, device ms per denoise step: " + ", ".join(
             f"{k} {v / 1000 / STEPS:.3f}" for k, v in parts.items()))
     return launches, sampler, call_args, step_ms
 
 
 def gemm_epilogue(name: str) -> int | None:
-    """The epilogue (0 up, 1 down, 2 qkv) of an adaln_mlp_gemm_kernel build
+    """The epilogue (0 up, 1 down, 2 qkv, 3 out) of an adaln_mlp_gemm_kernel build
     from its name in a profile (demangled or not), or None."""
     m = re.search(r"adaln_mlp_gemm_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)", name)
     return None if m is None else int(m[1] or m[2])
@@ -1593,7 +1670,7 @@ def phase_attention_cp(dev):
     g = torch.Generator(device=dev).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-cp", ("ranged fwd", "ranged dq", "ranged dkv"))
+    print_sm90_resources("attn-cp", ("ranged fwd bf16", "ranged fwd f32", "ranged dq", "ranged dkv"))
     for name, n, h, t_loc, band, idx, p, valid, stream in ATTN_CP_CASES:
         dtype = f32 if stream == "f32" else bf16
         halo = -(-band // BLOCK) * BLOCK
@@ -1610,7 +1687,13 @@ def phase_attention_cp(dev):
         torch.cuda.synchronize()
         body = {"no-lse": ba.banded_attention_ranged.body, "fwd": ba.banded_attention_ranged_fwd_lse.body,
                 "dq": ba.banded_attention_ranged_bwd_dq.body, "dkv": ba.banded_attention_ranged_bwd_dkv.body}
-        check(set(body.values()) == {BODY[stream]}, f"ranged {name}: bodies {body}, want {BODY[stream]}")
+        want = {"no-lse": FWD_BODY[stream], "fwd": FWD_BODY[stream], "dq": BODY[stream], "dkv": BODY[stream]}
+        check(body == want, f"ranged {name}: bodies {body}, want {want}")
+        # the forward entries, no atomics: the same bits on a second call
+        again = ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds)
+        same = (torch.equal(ba.banded_attention_ranged(q, k, v, band, bounds), o_inf)
+                and torch.equal(again[0], o) and torch.equal(again[1], lse))
+        check(same, f"ranged {name}: a second forward call gave other bits")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)
@@ -1627,6 +1710,7 @@ def phase_attention_cp(dev):
         print(f"[attn-cp] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} band={band} shard {idx} of {p} "
               f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
               f"body no-lse={body['no-lse']} fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
+              f"(forward: same bits on a second call {same}) "
               + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
@@ -1954,7 +2038,11 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     CP main paths (rank 0's)."""
     import torch
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models import dit
     from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.ops import attention as attention_ops
+    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp_reference
+    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention_reference
     from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
 
     workdir = os.path.join(tmp, "cp")
@@ -1978,17 +2066,45 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
         x, op, cpad = (_pad_time(a.to(dev), t_pad) for a in (z, o, c))
         want = model.forward_with_cfg(x, torch.full((z.shape[0],), 500, device=dev), op, cpad, y.to(dev),
                                       CFG_SCALE, band=BAND, valid_len=t_real)[:, :t_real].cpu()
-    one = Sampler(model, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2", device=dev),
-                  cfg_scale=CFG_SCALE, band=BAND)(*(a.to(dev) for a in (z, o, c, y)),
-                                                 generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+    def one_device_chain():
+        sampler = Sampler(model, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2",
+                                                  device=dev), cfg_scale=CFG_SCALE, band=BAND)
+        return sampler(*(a.to(dev) for a in (z, o, c, y)),
+                       generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+
+    one = one_device_chain()
+    # the noise floor of such a gap: the same one-device chain (same weights,
+    # same noise) with the plain bf16 versions of rows 1 and 7 in place of
+    # their kernels for this run only; two correct chains that differ only
+    # in the kernels' rounding order
+    kernels = (attention_ops.banded_attention, dit.adaln_mlp)
+    attention_ops.banded_attention = (
+        lambda q, k, v, band, valid_len=None, matmul_dtype=None, out_dtype=None:
+        banded_attention_reference(q, k, v, band, q.shape[-2] if valid_len is None else valid_len,
+                                   torch.bfloat16).to(out_dtype or q.dtype))
+    dit.adaln_mlp = (lambda x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype:
+                     adaln_mlp_reference(x, shift, scale, gate, w1.t(), b1, w2.t(), b2, eps, torch.bfloat16))
+    try:
+        plain = one_device_chain()
+    finally:
+        attention_ops.banded_attention, dit.adaln_mlp = kernels
     rel = rel_err(got["forward"], want)
     chain_diff = (got["chain"] - one).abs()
+    floor = (plain - one).abs()
     print(f"[forward-cp] DiT-B forward_with_cfg at the kimi inputs (T 757 -> 768 over {CP_RANKS} ranks, band "
           f"{BAND}), CP vs one device on the card: {rel:.3e} of max (tol {CP_REL_TOL}); a {CP_SAMPLE_STEPS}-step "
           f"CP chain: shape {tuple(got['chain'].shape)}, |CP - one device| max {chain_diff.max().item():.3e}, "
-          f"median {chain_diff.median().item():.3e} (printed: at t near T the x0 prediction amplifies the "
-          f"forward's bf16 rounding differences before the clamp)")
+          f"median {chain_diff.median().item():.3e}; noise floor, |one device with the plain bf16 rows 1 and "
+          f"7 - with the kernels| max {floor.max().item():.3e}, median {floor.median().item():.3e}: CP gap / "
+          f"floor max {chain_diff.max().item() / max(floor.max().item(), 1e-30):.3f}, median "
+          f"{chain_diff.median().item() / max(floor.median().item(), 1e-30):.3f} (tol "
+          f"{CP_CHAIN_FLOOR_MULTIPLE})")
     check(rel <= CP_REL_TOL and bool(torch.isfinite(got["forward"]).all()), f"forward-cp: {rel}")
+    for stat in ("max", "median"):
+        gap, noise = getattr(chain_diff, stat)().item(), getattr(floor, stat)().item()
+        check(gap <= CP_CHAIN_FLOOR_MULTIPLE * noise,
+              f"forward-cp chain: |CP - one device| {stat} {gap} above {CP_CHAIN_FLOOR_MULTIPLE} x the "
+              f"noise floor's {noise}")
     check(tuple(got["chain"].shape) == (2, t_real, 2) and bool(torch.isfinite(got["chain"]).all()),
           "forward-cp chain: shape or non-finite")
     chain_expected = {**dict.fromkeys(ranks[0]["chain_launches"], 0),
@@ -2131,7 +2247,7 @@ def main() -> int:
         "adaln_mlp_bwd_epilogue": (mlp_bwd_src, "osu_diffusion_tpu/ops/pallas_mlp.py:390"),
         "adaln_mlp_quant": (mlp_src, "osu_diffusion_tpu/ops/pallas_mlp.py:184"),
         "int8_modulated_matmul": (mlp_src, f"{quant_ref}:95"),
-        "int8_out_residual": (int8_src, f"{quant_ref}:156"),
+        "int8_out_residual": (mlp_src, f"{quant_ref}:156"),
         "int8_matmul": (int8_src, f"{quant_ref}:221"),
         "banded_attention_ranged": (attn_src, f"{attn_ref}:249"),
         "banded_attention_ranged_fwd_lse": (attn_src, f"{attn_ref}:249"),

@@ -2,14 +2,17 @@
 // training with the backward's residuals, with bf16 weights, and inference
 // with int8 weight-only weights for serving; each a modulate pass and two
 // persistent wgmma GEMMs (the Hopper body). Also the int8 qkv projection,
-// which is the same modulate pass and one such GEMM.
+// which is the same modulate pass and one such GEMM, and the int8 out
+// projection with the gate and the residual, which is one such GEMM.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_mlp.py, _adaln_mlp_kernel (:53)
 //   in inference mode (a_ref = mlp_ref = None; called via
 //   _adaln_mlp_fwd_impl) and in training mode (with_residuals=True, called
 //   via _fwd); _adaln_mlp_quant_kernel (:184), the int8 serving variant;
 //   and osu_diffusion_tpu/ops/pallas_quant.py, _modulated_kernel (:95),
-//   the int8 qkv projection with the LayerNorm and modulation folded in.
+//   the int8 qkv projection with the LayerNorm and modulation folded in,
+//   and _out_residual_kernel (:156), the int8 out projection with the
+//   adaLN gate and the residual add folded in.
 //
 // Computes the MLP half of a DiT block,
 //   out = x + gate * (fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift))))
@@ -114,6 +117,22 @@
 // ms). Here each weight slab is read once per 128-row block and multiplied
 // on wgmma. At DiT-B sampling (1536 token rows) 12 row blocks under-fill
 // the card as they do for row 7.
+//
+// ---- The int8 out projection (row 12) ----
+// out = res + gate[n] * (o . (w * s)^T + b) in f32, o the attention's
+// output (N*T, D) in bf16 (the TPU kernel rounds o to bf16 first; the
+// banded-attention forward writes it so), w (D, D) int8 codes in torch's
+// layout: one GEMM over int8 codes with o as its TMA-loaded A, no modulate
+// pass. Its epilogue (OUT) is the down GEMM's: the column's scale and bias
+// on the f32 sum, then res + gate * y (gate indexed by the row's batch,
+// row / T: a 128-row block spans two batch rows when T is ragged), stored
+// from the registers; a build of its own, so that a profile tells it from
+// row 10's down GEMM. What bounds it at DiT-B sampling (o 2 x 768 x 768
+// bf16): the bytes (o 2.4 MB, res and out 4.7 MB each f32, codes 0.6 MB:
+// 3.7 us) against 1.8 GFLOP (1.8 us). What it replaced: a WMMA kernel
+// (csrc/int8_matmul.cu, PR 3) that re-read the weight from L2 once per
+// 32-row tile and upcast each chunk into shared memory before 16x16x16
+// products (0.0359 ms at DiT-B sampling on an H100, 8.1x its bound).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -203,18 +222,18 @@ constexpr int smem_bytes() {
   return static_cast<int>(sizeof(gemm_sm90::SmemOf<BN, BL>)) + 1024;  // + alignment slack
 }
 
-enum Epi { UP, DOWN, QKV };
+enum Epi { UP, DOWN, QKV, OUT };  // OUT: row 12, the down epilogue without mlp
 
 // what the epilogues read and write besides the accumulator
 struct EpiArgs {
   const float* bias;         // b1 (up), b2 (down) or b (qkv)
   void* a;                   // up: pre-GELU a in x's type, or null (inference)
   __nv_bfloat16* g;          // up: bf16(gelu(pre)), the down GEMM's A
-  const void* x;             // down: the residual stream
+  const void* x;             // down, out: the residual stream
   const float* gate;         // down: gate rows, row stride mod_stride
   long long mod_stride;
   int t;                     // tokens per batch row: a token row's batch is row / t
-  void* out;                 // down: x + gate * mlp in x's type; qkv: f32 (m, ncols)
+  void* out;                 // down, out: x + gate * mlp in x's type; qkv: f32 (m, ncols)
   float* mlp;                // down: pre-gate mlp in f32, or null (inference)
   const float* scale;        // int8 B: the codes' per-column scales s1, s2 or s
 };
@@ -282,7 +301,7 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
         }
         gemm_sm90::stage_store(st, gv, ep.g, row0, c0 + cb * 64, m, ncols, lane);
       }
-    } else if constexpr (EPI == DOWN) {
+    } else if constexpr (EPI == DOWN || EPI == OUT) {
       const TX* x = static_cast<const TX*>(ep.x);
       TX* out = static_cast<TX*>(ep.out);
       const float* gate_row[2];
@@ -506,6 +525,21 @@ extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, con
     return gemm::launch_width<gemm::QKV, float, gemm::B_INT8>(bn, h, w, rows, m, d, grid, ep, st);
   }
   return 0;
+}
+
+// The int8 out projection (row 12): out (N, T, D) f32 = res + gate * (o .
+// (w * s)^T + b); o (N, T, D) bf16 and res (N, T, D) f32, contiguous; gate
+// f32 rows of D with row stride gate_stride; w (D, D) int8 codes,
+// contiguous; s, b f32 (D); bn (256 or 128, dividing D) and grid the tile
+// plan's (quant.out_plan). Returns as adaln_mlp_fwd.
+extern "C" int int8_out_residual_fwd(const void* o, const float* res, const float* gate,
+                                     long long gate_stride, const void* w, const float* s,
+                                     const float* b, float* out, int n, int t, int d, int bn,
+                                     int grid, void* stream) {
+  last_body = "sm90";
+  const gemm::EpiArgs ep{b, nullptr, nullptr, res, gate, gate_stride, t, out, nullptr, s};
+  return gemm::launch_width<gemm::OUT, float, gemm::B_INT8>(bn, o, w, n * t, d, d, grid, ep,
+                                                           static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* adaln_mlp_last_body() { return last_body; }

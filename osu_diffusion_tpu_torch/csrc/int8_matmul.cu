@@ -1,14 +1,11 @@
-// int8 weight-only projections for serving, for Hopper, sm_90a: one tiled
-// kernel template with two epilogue variants. (The third int8 projection,
-// the qkv projection with the LayerNorm and modulation folded in, is the
-// adaLN-MLP's modulate pass and Hopper GEMM: csrc/adaln_mlp.cu.)
+// The int8 weight-only adaLN projection for serving, for Hopper, sm_90a:
+// act(x @ (w_q * s) + b), act none or GELU-tanh. (The other int8
+// projections, the qkv projection with the LayerNorm and modulation folded
+// in and the out projection with the gate and the residual folded in, run
+// the adaLN-MLP's persistent Hopper GEMM over int8 codes: csrc/adaln_mlp.cu.)
 //
-// Replaces (osu_diffusion_tpu/ops/pallas_quant.py):
-//   PLAIN         _kernel (int8_matmul, :221): act(x @ (w_q * s) + b), act
-//                 none or GELU-tanh; the DiT block's adaLN projection
-//   OUT_RESIDUAL  _out_residual_kernel (:156): res + gate * (o @ (w_q * s)
-//                 + b), the out projection with the gate and the residual
-//                 add folded in
+// Replaces osu_diffusion_tpu/ops/pallas_quant.py, _kernel (int8_matmul,
+// :221); the DiT block's adaLN projection.
 //
 // Weights are int8 codes in torch's Linear layout, w (M, K) row-major, with
 // a float32 scale s (M) per output channel. Activations in and out are
@@ -21,26 +18,20 @@
 //   (exact, |q| <= 127) into a double-buffered shared tile, and multiplied
 //   with WMMA bf16 16x16x16, f32 accumulation; four warps, each 16 rows x 32
 //   columns;
-// - epilogue: acc * s + b in f32, then GELU-tanh (PLAIN, when asked) or
-//   res + gate * y (OUT_RESIDUAL); ragged rows and columns are masked.
+// - epilogue: acc * s + b in f32, then GELU-tanh when asked; ragged rows
+//   and columns are masked.
 // A CTA walks `tiles_per_cta` column tiles with the same activation tile;
 // the wrapper picks the count so the grid stays within about two CTAs per
 // SM.
 //
-// What bounds it on the card: at DiT-B sampling (CFG batch 2, T = 768,
-// D = 768) both variants are bound by bytes, not operations: the out
-// projection moves 14.8 MB (4.4 us at 3.35 TB/s); the adaLN projection
-// reads a 3.5 MB int8 weight for 2 rows. What stands in the way of that
-// bound here: each row tile re-reads the weight from L2 (48 row tiles x
-// 1.2 MB for out), the upcast pass, WMMA instead of wgmma, and a shallow
-// load pipeline at two CTAs per SM; 288 CTAs for out at two per SM are
-// 1.09 waves. (Measured on an H100 inside the sampling chain, 288-CTA
-// grids, int-to-float upcast: 0.042 ms for out, 0.015 for adaLN. A 4-stage
-// cp.async ring of int8 chunks three ahead, each thread upcasting its own
-// pieces, was slower for out, 0.064 ms, and faster only for adaLN,
-// 0.012.) The adaLN projection has 2 rows:
-// a 32-row tile wastes 30 of them, and its grid over M (4608 / 64 = 72
-// CTAs) under-fills the 132 SMs. Those are a later change's levers.
+// What bounds it on the card: at DiT-B sampling (CFG batch 2, D = 768) it
+// reads a 3.5 MB int8 weight for 2 rows: bytes (1.1 us at 3.35 TB/s). What
+// stands in the way of that bound here: the upcast pass, WMMA instead of
+// wgmma, and a 32-row tile that wastes 30 of them; its grid over M (4608 /
+// 64 = 72 CTAs) under-fills the 132 SMs. (Measured on an H100 inside the
+// sampling chain, int-to-float upcast: 0.015 ms; a 4-stage cp.async ring
+// of int8 chunks three ahead, each thread upcasting its own pieces, took
+// 0.012.) Those are a later change's levers.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -66,18 +57,13 @@ constexpr int W_LOADS = BN * PIECES / THREADS;  // 16-byte weight loads per thre
 constexpr int W_BYTES = 2 * BN * LDW * 2;       // the double-buffered bf16 weight chunk
 constexpr int C_BYTES = BM * LDC * 4;           // the f32 accumulator spill
 
-enum Mode { PLAIN = 0, OUT_RESIDUAL = 1 };
-
 struct Params {
-  const float* x;       // (n, t, k): x, or o for OUT_RESIDUAL
-  const float* gate;    // OUT_RESIDUAL: rows of m, row stride mod_stride
-  long long mod_stride;
+  const float* x;       // (rows, k)
   const int8_t* w;      // (m, k) int8 codes
   const float* s;       // (m) per-output-channel scale
   const float* b;       // (m) bias
-  const float* res;     // OUT_RESIDUAL: (n, t, m)
-  float* out;           // (n, t, m)
-  int t, k, m, tiles_per_cta;
+  float* out;           // (rows, m)
+  int t, k, m, tiles_per_cta;  // t: the rows
   int gelu;
 };
 
@@ -123,7 +109,6 @@ __device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float a, float 
   p[1] = __floats2bfloat162_rn(c, d);
 }
 
-template <int MODE>
 __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   auto* wbuf = reinterpret_cast<__nv_bfloat16*>(smem_raw);                     // [2][BN][LDW]
@@ -131,9 +116,8 @@ __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
   auto* abuf = reinterpret_cast<__nv_bfloat16*>(smem_raw + W_BYTES + C_BYTES);  // [BM][k + 8]
   const int lda = p.k + 8;
   const int t0 = blockIdx.y * BM;
-  const int nb = blockIdx.z;
   const int warp = threadIdx.x / 32;
-  const long long row0 = (long long)nb * p.t + t0;  // the tile's first row of (n * t)
+  const long long row0 = t0;  // the tile's first row
   const int m_tiles = (p.m + BN - 1) / BN;
   const int tile0 = blockIdx.x * p.tiles_per_cta;
   const int tile1 = min(tile0 + p.tiles_per_cta, m_tiles);
@@ -192,56 +176,33 @@ __global__ void __launch_bounds__(THREADS) int8_matmul_kernel(const Params p) {
       const int col = tile * BN + idx % BN;
       if (t0 + r >= p.t || col >= p.m) continue;
       float y = cbuf[r * LDC + idx % BN] * p.s[col] + p.b[col];
-      const long long o = (row0 + r) * p.m + col;
-      if constexpr (MODE == PLAIN) {
-        if (p.gelu) y = gelu_tanh(y);
-      } else if constexpr (MODE == OUT_RESIDUAL) {
-        y = p.res[o] + p.gate[nb * p.mod_stride + col] * y;
-      }
-      p.out[o] = y;
+      if (p.gelu) y = gelu_tanh(y);
+      p.out[(row0 + r) * p.m + col] = y;
     }
     // the spill is next written after the next tile's first barrier
   }
 }
 
-template <int MODE>
-int launch(const Params& p, int n, void* stream) {
-  if (p.k % BK || p.k < BK || p.k > MAX_K || p.m < 1 || p.t < 1 || n < 1 || p.tiles_per_cta < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = smem_bytes(p.k);
-  cudaError_t err = cudaFuncSetAttribute(int8_matmul_kernel<MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int m_tiles = (p.m + BN - 1) / BN;
-  const dim3 grid((m_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta, (p.t + BM - 1) / BM, n);
-  int8_matmul_kernel<MODE><<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// Every pointer 16-byte aligned and every array contiguous, except the
-// gate rows (row stride gate_stride, a multiple of 4). K a multiple of 64,
-// at most 2048. Each launches on `stream` without synchronizing and returns
+// out (rows, m) = act(x (rows, k) @ (w * s)^T + b); gelu: 0 or 1. Every
+// pointer 16-byte aligned and every array contiguous; K a multiple of 64,
+// at most 2048. Launches on `stream` without synchronizing and returns
 // cudaGetLastError().
-
-// out (rows, m) = act(x (rows, k) @ (w * s)^T + b); gelu: 0 or 1
 extern "C" int int8_matmul_fwd(const float* x, const void* w, const float* s, const float* b,
                                float* out, int rows, int k, int m, int gelu, int tiles_per_cta,
                                void* stream) {
-  const Params p{x, nullptr, 0, static_cast<const int8_t*>(w), s, b, nullptr, out, rows, k, m,
-                 tiles_per_cta, gelu};
-  return launch<PLAIN>(p, 1, stream);
-}
-
-// out (n, t, d) = res + gate * (o @ (w * s)^T + b); o, res (n, t, d); w (d, d)
-extern "C" int int8_out_residual_fwd(const float* o, const float* res, const float* gate,
-                                     long long gate_stride, const void* w, const float* s,
-                                     const float* b, float* out, int n, int t, int d,
-                                     int tiles_per_cta, void* stream) {
-  const Params p{o, gate, gate_stride, static_cast<const int8_t*>(w), s, b, res, out, t, d, d,
-                 tiles_per_cta, 0};
-  return launch<OUT_RESIDUAL>(p, n, stream);
+  const Params p{x, static_cast<const int8_t*>(w), s, b, out, rows, k, m, tiles_per_cta, gelu};
+  if (p.k % BK || p.k < BK || p.k > MAX_K || p.m < 1 || p.t < 1 || p.tiles_per_cta < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = smem_bytes(p.k);
+  cudaError_t err =
+      cudaFuncSetAttribute(int8_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int m_tiles = (p.m + BN - 1) / BN;
+  const dim3 grid((m_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta, (p.t + BM - 1) / BM);
+  int8_matmul_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" const char* int8_matmul_error_string(int err) {

@@ -1,10 +1,11 @@
-// Hopper building blocks of the bf16 banded-attention bodies and of the
+// Hopper building blocks of the banded-attention bodies and of the
 // adaLN-MLP GEMMs: TMA tensor maps over an (N, H, T, 64) bf16 tensor read
 // through its strides, or over a row-major (rows, cols) bf16 or int8
 // matrix read 64 columns at a time; the mbarrier ring that the loads complete on; and
 // warpgroup MMAs (wgmma m64nNk16 with N = 64, 128 or 256, bf16 operands,
-// f32 accumulators in registers) on tiles that TMA wrote with the 128-byte
-// swizzle.
+// f32 accumulators in registers) on tiles in the 128-byte swizzle, which
+// TMA writes (or threads, at `swizzled` offsets, where an operand is
+// converted on chip).
 //
 // Tile layout: every operand tile is R rows x 64 bf16 (one 128-byte row per
 // row of the tensor), loaded by one TMA box {64, R} with

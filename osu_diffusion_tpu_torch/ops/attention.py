@@ -12,7 +12,9 @@ projection weights are int8 codes with per-output-channel scales, x is the
 raw residual stream, the adaLN LayerNorm and modulation fold into the qkv
 projection (`int8_modulated_matmul`) and the gate and residual into the out
 projection (`int8_out_residual`), and the result is the next residual
-stream. The attention core is the same.
+stream. The attention core is the same; with a band it writes o in bf16,
+which the out projection takes as its operand (the contract rounds o to
+bf16 there first), so no f32 o is written or cast.
 
 Context parallelism (`cp`, a parallel/mesh.py `Mesh`): x holds this rank's
 rows of the sequence, and the core is `context_parallel_banded_attention`
@@ -93,7 +95,10 @@ def multi_head_attention(
             raise ValueError("context parallelism needs a band")
         o = context_parallel_banded_attention(q, k, v, band, cp, valid_len, matmul_dtype)
     elif band is not None:
-        o = banded_attention(q, k, v, band, valid_len, matmul_dtype)
+        # the int8 out projection's bf16 operand (bf16 matmuls), written by the kernel
+        bf16_o = quant_scales is not None and matmul_dtype == torch.bfloat16
+        out_dtype = torch.bfloat16 if bf16_o else None
+        o = banded_attention(q, k, v, band, valid_len, matmul_dtype, out_dtype)
     else:
         mask = None if valid_len is None else torch.arange(t, device=x.device) < valid_len
         o = dot_product_attention(q, k, v, mask)

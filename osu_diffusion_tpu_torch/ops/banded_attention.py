@@ -4,7 +4,8 @@ wrappers and their plain PyTorch versions.
 
 Port of osu_diffusion_tpu/ops/pallas_attention.py:
 - `banded_attention` without grad: `_banded_attn_fwd_kernel` without LSE
-  (inference), csrc/banded_attention.cu, entry `banded_attention_fwd`;
+  (inference), csrc/banded_attention.cu, entry `banded_attention_fwd`
+  (`banded_attention_fwd_staged` walks its Hopper body in plain PyTorch);
 - `banded_attention_fwd_lse`: the same kernel with LSE (training forward),
   same source, entry `banded_attention_fwd_lse`;
 - `banded_attention_bwd_dq` / `banded_attention_bwd_dkv`:
@@ -30,14 +31,19 @@ and LSE are f32, and outputs come back in q's type. The LSE is one
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
-Two bodies sit behind every entry (forward, dq and dk/dv), chosen by the C
-entry by dtype: a bf16 call runs the Hopper body (wgmma, a TMA ring, the
-softmax or dS in registers), an f32 call the WMMA body; after a
-launch the wrapper's `.body` names the one that ran ("sm90" or "wmma").
-TMA reads q/k/v through strides in multiples of 16 bytes: a bf16 q/k/v
-whose strides are multiples of 4 elements but not of 8 is copied to a
-contiguous layout first (`_fit_tma`); the model's layouts (head views of
-the packed qkv projection, contiguous shards) need no copy.
+Every forward entry runs the Hopper body (wgmma, the softmax in registers)
+in both types: bf16 q/k/v arrive by a TMA ring, f32 ones by the consumer
+threads' own 16-byte loads, rounded to bf16 on the chip. dq and dk/dv have
+two bodies, chosen by the C entry by dtype: a bf16 call runs the Hopper
+body (wgmma, a TMA ring, dS in registers), an f32 call the WMMA body.
+After a launch the wrapper's `.body` names the one that ran ("sm90" or
+"wmma"). TMA reads q/k/v through strides in multiples of 16 bytes: a bf16
+q/k/v whose strides are multiples of 4 elements but not of 8 is copied to
+a contiguous layout first (`_fit_tma`); the model's layouts (head views of
+the packed qkv projection, contiguous shards) need no copy. The inference
+forward takes `out_dtype`: torch.bfloat16 for f32 q/k/v writes o in bf16
+from the kernel's registers (the int8 block's out projection rounds o to
+bf16 first; the plain version's o is rounded the same way).
 `banded_attention` under grad (an input requires it) runs the
 `BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
 
@@ -63,6 +69,8 @@ from osu_diffusion_tpu_torch.ops import cuda_build
 
 HEAD_DIM = 64  # the only head dim the kernels are built for (DiT-S/B/L)
 NEG_INF = -1e30
+FWD_BLOCK = 128  # query rows of a CTA of the Hopper forward: two warpgroups of 64
+KEY_TILE = 64  # keys of one K/V tile of its ring
 ACT_DTYPES = (torch.float32, torch.bfloat16)  # activation types the kernels take
 
 
@@ -134,6 +142,69 @@ def banded_attention_reference(
     return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)[0]
 
 
+def banded_attention_fwd_staged(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int, valid_len: int | None = None,
+    bounds: tuple[int, int, int, int] | None = None, out_dtype: torch.dtype | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Hopper forward's walk in plain PyTorch, bf16 operands: (o
+    (N, H, T, Dh) in `out_dtype` (default q's type), lse (N*H, T) f32).
+
+    Per FWD_BLOCK-row query block: the KEY_TILE-key tiles that meet the
+    block's band, below valid_len (ranged: in [k_lo, k_hi), none for a
+    block of pad query rows); per 64-row half (a warpgroup), the tiles that
+    meet its own rows' band (none for a half past T or, ranged, of pad
+    query rows: its o is 0, its LSE ~-1e30), each folded into an f32
+    online softmax (row max, rescaled sum and accumulator) tile by tile.
+    Scores are bf16(q) . bf16(k) scaled in f32 (scale folding: bf16(q / 8)
+    = bf16(q) / 8), P is rounded to bf16 for P.V."""
+    n, h, t, dh = q.shape
+    f32 = torch.float32
+    rnd = _rounder(torch.bfloat16)
+    valid = t if valid_len is None or bounds is not None else int(valid_len)
+    scale = 1.0 / math.sqrt(dh)
+    tiles = -(-t // KEY_TILE) * KEY_TILE  # key rows past T read as 0, as TMA reads them
+    qr = rnd(q)
+    kr, vr = (torch.nn.functional.pad(rnd(a), (0, 0, 0, tiles - t)) for a in (k, v))
+    dev = q.device
+    o = torch.zeros((n, h, t, dh), dtype=f32, device=dev)
+    lse = torch.full((n, h, t), NEG_INF, dtype=f32, device=dev)
+    for q0 in range(0, t, FWD_BLOCK):
+        k_lo, k_hi = max(0, q0 - band + 1), min(valid - 1, q0 + FWD_BLOCK - 1 + band)
+        if bounds is not None:
+            k_lo, k_hi = max(k_lo, bounds[0]), min(k_hi, bounds[1] - 1)
+            if q0 + FWD_BLOCK <= bounds[2] or q0 >= bounds[3]:
+                k_hi = -1
+        kt0 = k_lo // KEY_TILE
+        ntiles = k_hi // KEY_TILE - kt0 + 1 if k_lo <= k_hi else 0
+        for qw in range(q0, min(q0 + FWD_BLOCK, t), 64):
+            w_lo, w_hi = max(k_lo, qw - band + 1), min(k_hi, qw + 63 + band)
+            if bounds is not None and (qw + 64 <= bounds[2] or qw >= bounds[3]):
+                w_hi = -1
+            rows = torch.arange(qw, min(qw + 64, t), device=dev)
+            m = torch.full((n, h, len(rows), 1), NEG_INF, dtype=f32, device=dev)
+            l = torch.zeros((n, h, len(rows), 1), dtype=f32, device=dev)
+            acc = torch.zeros((n, h, len(rows), dh), dtype=f32, device=dev)
+            for kbase in range(kt0 * KEY_TILE, (kt0 + ntiles) * KEY_TILE, KEY_TILE):
+                if not (kbase <= w_hi and kbase + KEY_TILE - 1 >= w_lo):
+                    continue  # the warpgroup skips the tile
+                keys = torch.arange(kbase, kbase + KEY_TILE, device=dev)
+                allowed = ((keys[None, :] > rows[:, None] - band) & (keys[None, :] <= rows[:, None] + band)
+                           & (keys[None, :] < valid))
+                if bounds is not None:
+                    allowed &= (keys[None, :] >= bounds[0]) & (keys[None, :] < bounds[1])
+                s = torch.matmul(qr[:, :, rows], kr[:, :, kbase:kbase + KEY_TILE].transpose(-1, -2)) * scale
+                mx = torch.maximum(m, torch.where(allowed, s, NEG_INF).amax(dim=-1, keepdim=True))
+                alpha = torch.exp(m - mx)
+                p = torch.where(allowed, torch.exp(s - mx), 0.0)
+                l = l * alpha + p.sum(dim=-1, keepdim=True)
+                acc = acc * alpha + torch.matmul(rnd(p), vr[:, :, kbase:kbase + KEY_TILE])
+                m = mx
+            denom = l.clamp_min(1e-30)
+            o[:, :, rows] = acc / denom
+            lse[:, :, rows] = (m + torch.log(denom))[..., 0]
+    return o.to(out_dtype or q.dtype), lse.reshape(n * h, t)
+
+
 def banded_attention_bwd_reference(
     q, k, v, o, lse, do, band: int, valid_len: int,
     matmul_dtype: torch.dtype = torch.float32,
@@ -175,8 +246,8 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("banded_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # (q, k, v, o, [lse,] n, h, t, sn, sh, st, osn, osh, ost, band, valid,
-    #  scale, bf16, stream)
-    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    #  scale, bf16, [out_bf16,] stream)
+    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, i, p])
     _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     # ranged: (band, k_lo, k_hi, q_lo, q_hi) in place of (band, valid)
     _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
@@ -185,6 +256,7 @@ def _lib() -> ctypes.CDLL:
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
     lib.banded_attention_last_body.restype = ctypes.c_char_p
     lib.banded_attention_last_body.argtypes = []
+    lib.banded_attention_sm90_smem_bytes.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -208,8 +280,10 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def sm90_smem_bytes() -> dict[str, int]:
-    """Dynamic shared memory per CTA of the three Hopper bodies, bytes."""
-    return {"fwd": _lib().banded_attention_sm90_smem_bytes(),
+    """Dynamic shared memory per CTA of the forward (bf16 and f32 q/k/v)
+    and of the dq and dk/dv Hopper bodies, bytes."""
+    lib = _lib()
+    return {"fwd": lib.banded_attention_sm90_smem_bytes(0), "fwd f32": lib.banded_attention_sm90_smem_bytes(1),
             "dq": _bwd_lib().banded_attention_bwd_sm90_dq_smem_bytes(),
             "dkv": _bwd_lib().banded_attention_bwd_sm90_dkv_smem_bytes()}
 
@@ -275,20 +349,22 @@ def _check_bounds(q, band: int, bounds) -> tuple[int, int, int, int]:
 
 
 def _fit_tma(q, k, v):
-    """q, k, v as the bf16 Hopper bodies take them: TMA needs strides in
-    multiples of 16 bytes (8 bf16 elements), so other bf16 layouts are
-    copied to contiguous ones (a stated copy; never the model's layouts).
-    f32 inputs go to the WMMA body as they are."""
+    """q, k, v as the kernels take them: TMA needs strides in multiples of
+    16 bytes (8 bf16 elements), so other bf16 layouts are copied to
+    contiguous ones (a stated copy; never the model's layouts). f32 inputs
+    go as they are: the forward's 16-byte loads and the f32 backward take
+    any stride of 4 elements that `_check_kernel_inputs` lets through."""
     if q.dtype != torch.bfloat16 or not any(s % 8 for s in q.stride()[:3]):
         return q, k, v
     return q.contiguous(), k.contiguous(), v.contiguous()
 
 
-def _heads_out(q: torch.Tensor) -> torch.Tensor:
-    """An (N, T, H, Dh) buffer in q's type, returned as its (N, H, T, Dh)
-    view: the head merge after attention is then a free reshape."""
+def _heads_out(q: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """An (N, T, H, Dh) buffer in `dtype` (default q's type), returned as
+    its (N, H, T, Dh) view: the head merge after attention is then a free
+    reshape."""
     n, h, t, dh = q.shape
-    return torch.empty((n, t, h, dh), device=q.device, dtype=q.dtype).permute(0, 2, 1, 3)
+    return torch.empty((n, t, h, dh), device=q.device, dtype=dtype or q.dtype).permute(0, 2, 1, 3)
 
 
 def _raise_on(err: int, lib, entry: str, what: str) -> None:
@@ -301,11 +377,13 @@ def _stream(a: torch.Tensor) -> int:
     return torch.cuda.current_stream(a.device).cuda_stream
 
 
-def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None):
-    """Launch the forward entry of wrapper `fn` and record its body in `fn.body`."""
+def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None, out_dtype=None):
+    """Launch the forward entry of wrapper `fn` (o in `out_dtype`, default
+    q's type: only the unranged inference entry takes another) and record
+    its body in `fn.body`."""
     q, k, v = _fit_tma(q, k, v)
     n, h, t, dh = q.shape
-    out = _heads_out(q)
+    out = _heads_out(q, out_dtype)
     lse = torch.empty((n * h, t), device=q.device, dtype=torch.float32) if with_lse else None
     lib = _lib()
     sn, sh, st, _ = q.stride()
@@ -313,10 +391,12 @@ def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None):
     lse_arg = (lse.data_ptr(),) if with_lse else ()
     entry = "banded_attention_fwd" + ("_ranged" if bounds is not None else "") + ("_lse" if with_lse else "")
     mask_args = (band, valid_len) if bounds is None else (band, *bounds)
+    # the inference entry's o type
+    out_arg = (int(out.dtype == torch.bfloat16),) if entry == "banded_attention_fwd" else ()
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t,
         sn, sh, st, osn, osh, ost, *mask_args, 1.0 / math.sqrt(dh),
-        int(q.dtype == torch.bfloat16), _stream(q),
+        int(q.dtype == torch.bfloat16), *out_arg, _stream(q),
     )
     _raise_on(err, lib, "banded_attention", "banded_attention")
     fn.body = lib.banded_attention_last_body().decode()
@@ -425,6 +505,7 @@ class BandedAttention(torch.autograd.Function):
 def banded_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
     valid_len: int | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """q, k, v: (N, H, T, Dh) -> (N, H, T, Dh), band half-width L.
 
@@ -433,14 +514,21 @@ def banded_attention(
     strides (head views of a packed qkv projection need no copy) and write
     an (N, T, H, Dh) buffer returned as its (N, H, T, Dh) view. Under grad
     the call is differentiable through `BandedAttention`; otherwise it is
-    the inference forward (no LSE)."""
+    the inference forward (no LSE), whose o is in `out_dtype`: q's type
+    (the default) or, for f32 q, torch.bfloat16 (o rounded from f32, as
+    the int8 out projection takes it; the kernel writes it so from its
+    registers, the plain version rounds its f32 o)."""
     valid_len = _check_args(q, band, valid_len)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    if out_dtype not in (None, q.dtype) and (grad or (q.dtype, out_dtype) != (torch.float32, torch.bfloat16)):
+        raise ValueError(f"out_dtype {out_dtype} for {q.dtype} q: the inference forward writes "
+                         "o in q's type, or bf16 for f32 q")
+    if grad:
         return BandedAttention.apply(q, k, v, band, valid_len, matmul_dtype)
     if q.device.type == "cpu":
-        return banded_attention_reference(q, k, v, band, valid_len, matmul_dtype)
+        return banded_attention_reference(q, k, v, band, valid_len, matmul_dtype).to(out_dtype or q.dtype)
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out, _ = _launch_fwd(banded_attention, q, k, v, band, valid_len, with_lse=False)
+    out, _ = _launch_fwd(banded_attention, q, k, v, band, valid_len, with_lse=False, out_dtype=out_dtype)
     banded_attention.launches += 1
     return out
 

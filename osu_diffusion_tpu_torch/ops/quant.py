@@ -11,13 +11,16 @@ Port of osu_diffusion_tpu/ops/pallas_quant.py:
   GEMM over int8 codes (`int8_modulated_matmul_staged` walks its tile
   plan, `qkv_plan`, in plain PyTorch);
 - `int8_out_residual`: `_out_residual_kernel` (the out projection with the
-  adaLN gate and the residual add folded in);
-`int8_matmul` and `int8_out_residual` csrc/int8_matmul.cu.
+  adaLN gate and the residual add folded in), csrc/adaln_mlp.cu: the same
+  Hopper GEMM over int8 codes with o as its bf16 A operand
+  (`int8_out_residual_staged` walks its tile plan, `out_plan`);
+`int8_matmul` csrc/int8_matmul.cu.
 
 Weights are int8 codes in torch's Linear layout, w_q (M, K) = (out, in),
 with a float32 scale per output channel s (M,): w ~= w_q * s[:, None].
-Activations are float32 (the serving stream); the scale, bias, GELU, gate
-and residual apply in f32. The kernels multiply bf16-rounded activations by
+Activations are float32 (the serving stream; the out projection's o may
+come in bf16, its rounded form); the scale, bias, GELU, gate and residual
+apply in f32. The kernels multiply bf16-rounded activations by
 the int8 codes upcast to bf16 (exact, |q| <= 127) with f32 accumulation and
 apply the scale to the sum, as the TPU kernels do. The plain versions take
 `matmul_dtype`: bfloat16 rounds as the kernels do; float32 is the f32 math
@@ -37,7 +40,7 @@ import torch.nn.functional as F
 from osu_diffusion_tpu_torch.ops import cuda_build
 from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, KERNEL_WIDTHS, GemmPlan, gemm_plan
 
-# int8_matmul and int8_out_residual (csrc/int8_matmul.cu)
+# int8_matmul (csrc/int8_matmul.cu)
 ROW_TILE = 32  # rows per CTA
 COL_TILE = 64  # output columns per tile
 K_CHUNK = 64  # the kernels walk K in chunks of this depth
@@ -130,34 +133,62 @@ def int8_out_residual_reference(o, res, gate, w_q, s, b,
     return res + gate[:, None, :] * (dequant_matmul(o, w_q, s, matmul_dtype) + b)
 
 
+def out_plan(n: int, t: int, d: int, sm_count: int) -> GemmPlan:
+    """The tile plan of `int8_out_residual`'s GEMM over the N*T token rows:
+    D columns over a depth of D, whole column blocks (its epilogue reads
+    res and gate a column pair at a time up to D)."""
+    return gemm_plan(n * t, d, d, sm_count)
+
+
+def int8_out_residual_staged(o, res, gate, w_q, s, b, plan: GemmPlan) -> torch.Tensor:
+    """The kernel in plain PyTorch: the GEMM tile by tile in the order each
+    CTA of `plan` (`out_plan`) walks them, bf16(o) times each tile's codes
+    upcast exactly, the whole reduction summed before the epilogue takes y
+    = acc * s + b and res + gate[row / T] * y (a 128-row block may span two
+    batch rows). Returns (N, T, D) as `int8_out_residual_reference` at bf16
+    operands."""
+    f32 = torch.float32
+    n, t, d = res.shape
+    a = o.reshape(n * t, d).to(f32).to(torch.bfloat16).to(f32)
+    codes = w_q.to(f32)
+    batch = torch.arange(n * t) // t  # the batch row of each token row
+    res2, out = res.reshape(n * t, d), torch.full((n * t, d), float("nan"))
+    for cta in range(plan.grid):
+        for r0, c0 in plan.tiles_of(cta):
+            rows, cols = slice(r0, r0 + GEMM_ROWS), slice(c0, c0 + plan.width)
+            y = a[rows] @ codes[cols].t() * s[cols] + b[cols]
+            out[rows, cols] = res2[rows, cols] + gate[batch[rows], cols] * y
+    return out.reshape(n, t, d)
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("int8_matmul")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name, argtypes in {
-        # (x, w, s, b, out, rows, k, m, gelu, tiles_per_cta, stream)
-        "int8_matmul_fwd": [p] * 5 + [i] * 5 + [p],
-        # (o, res, gate, gate_stride, w, s, b, out, n, t, d, tiles_per_cta, stream)
-        "int8_out_residual_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 4 + [p],
-    }.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = argtypes
+    fn = lib.int8_matmul_fwd
+    fn.restype = ctypes.c_int
+    # (x, w, s, b, out, rows, k, m, gelu, tiles_per_cta, stream)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     lib.int8_matmul_error_string.restype = ctypes.c_char_p
     lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
 @functools.cache
-def _qkv_lib() -> ctypes.CDLL:
+def _gemm_lib() -> ctypes.CDLL:
     """The adaLN-MLP library, whose modulate pass and Hopper GEMM compute
-    `int8_modulated_matmul`."""
+    `int8_modulated_matmul` and whose Hopper GEMM computes
+    `int8_out_residual`."""
     lib = cuda_build.load_library("adaln_mlp")
-    fn = lib.int8_modulated_matmul_fwd
-    fn.restype = ctypes.c_int
-    # (x, shift, scale, mod_stride, w, s, b, h, out, n, t, d, m, bn, grid, eps, stages, stream)
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5
-                   + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    for name, argtypes in {
+        # (x, shift, scale, mod_stride, w, s, b, h, out, n, t, d, m, bn, grid, eps, stages, stream)
+        "int8_modulated_matmul_fwd": [p] * 3 + [ll] + [p] * 5 + [i] * 6 + [ctypes.c_float, i, p],
+        # (o, res, gate, gate_stride, w, s, b, out, n, t, d, bn, grid, stream)
+        "int8_out_residual_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 5 + [p],
+    }.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     lib.adaln_mlp_error_string.restype = ctypes.c_char_p
     lib.adaln_mlp_error_string.argtypes = [ctypes.c_int]
     lib.adaln_mlp_last_body.restype = ctypes.c_char_p
@@ -170,10 +201,11 @@ def _sm_count(device_index: int) -> int:
 
 
 def tiles_per_cta(row_tiles: int, m: int, sm_count: int) -> int:
-    """How many 64-column output tiles one CTA walks (reusing its prepared
-    (32, K) activation tile): the fewest that still give at least two CTAs
-    per SM (what fits beside the activation tile at K = 768), the CTAs per
-    row tile rounded up, so short inputs still spread over the card.
+    """How many 64-column output tiles one CTA of `int8_matmul` walks
+    (reusing its prepared (32, K) activation tile): the fewest that still
+    give at least two CTAs per SM (what fits beside the activation tile at
+    K = 768), the CTAs per row tile rounded up, so short inputs still
+    spread over the card.
     (Rounding down, to stay inside one wave, measured slower on an H100:
     these kernels are bound by throughput, not by a straggling tail.)"""
     m_tiles = -(-m // COL_TILE)
@@ -227,15 +259,6 @@ def _check_shapes(w_q, s, b, k: int) -> int:
     return m
 
 
-def _launch(entry: str, args, rows_n: int, rows_t: int, m: int, device) -> None:
-    if rows_n > 65535 or -(-rows_t // ROW_TILE) > 65535:
-        raise ValueError(f"batch {rows_n} x rows {rows_t} exceeds the kernels' grid limits")
-    lib = _lib()
-    per = tiles_per_cta(rows_n * -(-rows_t // ROW_TILE), m, _sm_count(device.index))
-    err = getattr(lib, entry)(*args(per), torch.cuda.current_stream(device).cuda_stream)
-    if err:
-        msg = lib.int8_matmul_error_string(err).decode()
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {err} ({msg})")
 
 
 def int8_matmul(x, w_q, s, b, activation: str | None = None,
@@ -253,10 +276,17 @@ def int8_matmul(x, w_q, s, b, activation: str | None = None,
     x2 = x.reshape(-1, k)
     rows = x2.shape[0]
     _check_kernel_inputs(matmul_dtype, k, MAX_K, w_q, x=x2, s=s, b=b)
+    if -(-rows // ROW_TILE) > 65535:
+        raise ValueError(f"{rows} rows exceed the kernel's grid limit")
     out = torch.empty((rows, m), device=x.device, dtype=torch.float32)
-    _launch("int8_matmul_fwd", lambda per: (
-        x2.data_ptr(), w_q.data_ptr(), s.data_ptr(), b.data_ptr(), out.data_ptr(), rows, k, m,
-        int(activation == "gelu_tanh"), per), 1, rows, m, x.device)
+    lib = _lib()
+    per = tiles_per_cta(-(-rows // ROW_TILE), m, _sm_count(x.device.index))
+    err = lib.int8_matmul_fwd(x2.data_ptr(), w_q.data_ptr(), s.data_ptr(), b.data_ptr(),
+                              out.data_ptr(), rows, k, m, int(activation == "gelu_tanh"), per,
+                              torch.cuda.current_stream(x.device).cuda_stream)
+    if err:
+        msg = lib.int8_matmul_error_string(err).decode()
+        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} ({msg})")
     int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], m)
 
@@ -279,7 +309,7 @@ def _modulated_launch(x, shift, scale, w_q, s, b, eps: float, matmul_dtype,
     plan = qkv_plan(n, t, d, m, _sm_count(x.device.index))
     h = torch.empty((n * t, d), device=x.device, dtype=torch.bfloat16)
     out = torch.empty((n, t, m), device=x.device, dtype=torch.float32)
-    lib = _qkv_lib()
+    lib = _gemm_lib()
     err = lib.int8_modulated_matmul_fwd(
         x.data_ptr(), shift.data_ptr(), scale.data_ptr(), shift.stride(0), w_q.data_ptr(),
         s.data_ptr(), b.data_ptr(), h.data_ptr(), out.data_ptr(), n, t, d, m, plan.width,
@@ -310,23 +340,43 @@ def int8_modulated_matmul(x, shift, scale, w_q, s, b, eps: float = 1e-6,
 
 def int8_out_residual(o, res, gate, w_q, s, b,
                       matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
-    """res + gate * (o @ (w_q * s).T + b), reading w_q as int8. o, res:
-    (N, T, D) f32; gate: (N, D) f32 (a row view is fine); w_q: (D, D)
-    int8; s, b: (D,) f32. Returns (N, T, D) f32."""
-    _check_input(o, "int8_out_residual")
-    n, t, d = o.shape
+    """res + gate * (o @ (w_q * s).T + b), reading w_q as int8. o: (N, T,
+    D) bf16 (the banded attention's `out_dtype`) or f32; res: (N, T, D)
+    f32; gate: (N, D) f32 (a row view is fine); w_q: (D, D) int8; s, b:
+    (D,) f32. Returns (N, T, D) f32. The kernel multiplies bf16(o): on the
+    card an f32 o is first rounded to a bf16 copy (the contract's own
+    rounding, for callers with no bf16 o; each such copy adds one to
+    `.o_casts`). The kernel takes D a multiple of 128."""
+    _check_input(res, "int8_out_residual")
+    if o.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"o must be float32 or bfloat16, got {o.dtype}")
+    n, t, d = res.shape
     if _check_shapes(w_q, s, b, d) != d:
         raise ValueError(f"w_q must be ({d}, {d}), got {tuple(w_q.shape)}")
     if o.device.type == "cpu":
         return int8_out_residual_reference(o, res, gate, w_q, s, b, matmul_dtype)
-    if tuple(res.shape) != (n, t, d) or tuple(gate.shape) != (n, d):
-        raise ValueError(f"res must be ({n}, {t}, {d}) and gate ({n}, {d}), got "
-                         f"{tuple(res.shape)} and {tuple(gate.shape)}")
-    _check_kernel_inputs(matmul_dtype, d, MAX_K, w_q, o=o, res=res, gate=gate, s=s, b=b)
+    if tuple(o.shape) != (n, t, d) or tuple(gate.shape) != (n, d):
+        raise ValueError(f"o must be ({n}, {t}, {d}) and gate ({n}, {d}), got "
+                         f"{tuple(o.shape)} and {tuple(gate.shape)}")
+    if o.device != res.device:
+        raise ValueError(f"o is on {o.device}, res on {res.device}")
+    if o.dtype == torch.float32:
+        o = o.to(torch.bfloat16)
+        int8_out_residual.o_casts += 1
+    if not o.is_contiguous() or o.data_ptr() % 16:
+        raise ValueError("o must be contiguous and 16-byte aligned (the GEMM's TMA-loaded A)")
+    _check_kernel_inputs(matmul_dtype, d, MAX_K, w_q, res=res, gate=gate, s=s, b=b)
+    plan = out_plan(n, t, d, _sm_count(res.device.index))
     out = torch.empty_like(res)
-    _launch("int8_out_residual_fwd", lambda per: (
-        o.data_ptr(), res.data_ptr(), gate.data_ptr(), gate.stride(0), w_q.data_ptr(),
-        s.data_ptr(), b.data_ptr(), out.data_ptr(), n, t, d, per), n, t, d, o.device)
+    lib = _gemm_lib()
+    err = lib.int8_out_residual_fwd(
+        o.data_ptr(), res.data_ptr(), gate.data_ptr(), gate.stride(0), w_q.data_ptr(), s.data_ptr(),
+        b.data_ptr(), out.data_ptr(), n, t, d, plan.width, plan.grid,
+        torch.cuda.current_stream(res.device).cuda_stream)
+    if err:
+        msg = lib.adaln_mlp_error_string(err).decode()
+        raise RuntimeError(f"int8_out_residual kernel launch failed: error {err} ({msg})")
+    int8_out_residual.body = lib.adaln_mlp_last_body().decode()
     int8_out_residual.launches += 1
     return out
 
@@ -334,4 +384,6 @@ def int8_out_residual(o, res, gate, w_q, s, b,
 int8_matmul.launches = 0
 int8_modulated_matmul.launches = 0
 int8_out_residual.launches = 0
+int8_out_residual.o_casts = 0  # f32 o rounded to a bf16 copy before a launch
 int8_modulated_matmul.body = None
+int8_out_residual.body = None

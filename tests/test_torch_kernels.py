@@ -61,9 +61,27 @@ def test_banded_attention_kernel_matches_plain(cuda_device, t, valid, band):
     got = tba.banded_attention(q, k, v, band, valid)
     torch.cuda.synchronize()
     assert tba.banded_attention.launches == before + 1
+    assert tba.banded_attention.body == "sm90"  # f32 q/k/v take the Hopper body too
     want = tba.banded_attention_reference(q, k, v, band, valid, torch.bfloat16)
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 5e-3  # the bf16 contract, see chip_smoke.py
+    assert torch.equal(tba.banded_attention(q, k, v, band, valid), got)  # no atomics
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,valid,band", [(768, 757, 128), (200, 190, 20), (50, 50, 128)])
+def test_banded_attention_bf16_out_from_f32_is_the_rounded_f32_out(cuda_device, t, valid, band):
+    """out_dtype=bf16 on f32 q/k/v (the int8 block's out projection takes o
+    so): one launch of the Hopper body, o exactly bf16 of the f32 call's o."""
+    g = torch.Generator(device=cuda_device).manual_seed(t)
+    q, k, v = _qkv_heads(2, t, 3, torch.float32, g, cuda_device)
+    o32 = tba.banded_attention(q, k, v, band, valid)
+    before = tba.banded_attention.launches
+    o16 = tba.banded_attention(q, k, v, band, valid, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert tba.banded_attention.launches == before + 1 and tba.banded_attention.body == "sm90"
+    assert o16.dtype == torch.bfloat16 and o16.shape == o32.shape
+    assert torch.equal(o16, o32.to(torch.bfloat16))
 
 
 @pytest.mark.cuda
@@ -134,7 +152,10 @@ def _qkv_heads(n, t, h, dtype, g, device):
 # 128-row blocks with the band reaching across them
 TRAIN_ATTN_CASES = [(128, 128, 128), (200, 190, 20), (100, 77, 128), (256, 60, 16), (384, 370, 128)]
 
-# the body each stream takes: bf16 the Hopper body, f32 the WMMA body
+# the body each stream takes: every forward entry the Hopper body; the
+# backward (attention dq and dk/dv, the fused MLP backward) bf16 the Hopper
+# body, f32 the WMMA body
+FWD_BODY = {torch.bfloat16: "sm90", torch.float32: "sm90"}
 BODY = {torch.bfloat16: "sm90", torch.float32: "wmma"}
 
 
@@ -159,8 +180,8 @@ def test_banded_attention_train_kernels_match_plain(cuda_device, t, valid, band,
     torch.cuda.synchronize()
     assert (tba.banded_attention_fwd_lse.launches, tba.banded_attention_bwd_dq.launches,
             tba.banded_attention_bwd_dkv.launches) == tuple(c + 1 for c in counts)
-    assert (tba.banded_attention_fwd_lse.body == tba.banded_attention_bwd_dq.body
-            == tba.banded_attention_bwd_dkv.body == BODY[dtype])
+    assert tba.banded_attention_fwd_lse.body == FWD_BODY[dtype]
+    assert tba.banded_attention_bwd_dq.body == tba.banded_attention_bwd_dkv.body == BODY[dtype]
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
     assert o.dtype == dq.dtype == dtype and lse.dtype == torch.float32
@@ -390,9 +411,8 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
     dk, dv = tba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds)
     torch.cuda.synchronize()
     assert [f.launches for f in wrappers] == [c + 1 for c in counts]
-    assert (tba.banded_attention_ranged.body == tba.banded_attention_ranged_fwd_lse.body
-            == tba.banded_attention_ranged_bwd_dq.body == tba.banded_attention_ranged_bwd_dkv.body
-            == BODY[dtype])
+    assert tba.banded_attention_ranged.body == tba.banded_attention_ranged_fwd_lse.body == FWD_BODY[dtype]
+    assert tba.banded_attention_ranged_bwd_dq.body == tba.banded_attention_ranged_bwd_dkv.body == BODY[dtype]
     t = q.shape[2]
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, t, torch.bfloat16, bounds)
     want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, torch.bfloat16, bounds)
@@ -717,16 +737,44 @@ def test_int8_modulated_matmul_kernel_matches_plain(cuda_device, n, t, d, m):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,t,d", [(2, 768, 768), (3, 50, 768), (8, 128, 384), (6, 128, 1024)])
 def test_int8_out_residual_kernel_matches_plain(cuda_device, n, t, d):
+    """Row 12 on the Hopper GEMM over int8 codes, o in bf16 (as the banded
+    attention writes it for the int8 block) and in f32 (rounded to a bf16
+    copy first): the same bits either way and on a second call."""
     g = torch.Generator(device=cuda_device).manual_seed(n * t + d)
     o, res = (torch.randn((n, t, d), generator=g, device=cuda_device) for _ in range(2))
     gate = torch.randn((n, 6 * d), generator=g, device=cuda_device)[:, 2 * d:3 * d] * 0.3
     wq, s = _quant_weight(d, d, g, cuda_device)
     b = torch.randn(d, generator=g, device=cuda_device) * 0.02
-    before = tq.int8_out_residual.launches
-    got = tq.int8_out_residual(o, res, gate, wq, s, b)
+    o16 = o.to(torch.bfloat16)
+    before = (tq.int8_out_residual.launches, tq.int8_out_residual.o_casts)
+    got = tq.int8_out_residual(o16, res, gate, wq, s, b)
     torch.cuda.synchronize()
-    assert tq.int8_out_residual.launches == before + 1
+    assert (tq.int8_out_residual.launches, tq.int8_out_residual.o_casts) == (before[0] + 1, before[1])
+    assert tq.int8_out_residual.body == "sm90"  # kernel B's Hopper GEMM over int8 codes
     _check_quant(got, tq.int8_out_residual_reference, o, res, gate, wq, s, b)
+    assert torch.equal(tq.int8_out_residual(o16, res, gate, wq, s, b), got)
+    assert torch.equal(tq.int8_out_residual(o, res, gate, wq, s, b), got)
+    assert tq.int8_out_residual.o_casts == before[1] + 1  # the f32 o's stated copy
+
+
+@pytest.mark.cuda
+def test_int8_out_residual_allocates_no_f32_o(cuda_device):
+    """Row 12 reads the bf16 o as it is: at the DiT-B sampling shape one
+    call allocates its f32 output (4.7 MB) and nothing of o's size in f32."""
+    g = torch.Generator(device=cuda_device).manual_seed(10)
+    n, t, d = 2, 768, 768
+    o = torch.randn((n, t, d), generator=g, device=cuda_device).to(torch.bfloat16)
+    res = torch.randn((n, t, d), generator=g, device=cuda_device)
+    gate = torch.randn((n, d), generator=g, device=cuda_device) * 0.3
+    wq, s = _quant_weight(d, d, g, cuda_device)
+    b = torch.zeros(d, device=cuda_device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda_device)
+    base = torch.cuda.memory_allocated(cuda_device)
+    tq.int8_out_residual(o, res, gate, wq, s, b)
+    torch.cuda.synchronize()
+    f32_o = n * t * d * 4
+    assert torch.cuda.max_memory_allocated(cuda_device) - base < f32_o + f32_o // 4
 
 
 @pytest.mark.cuda
@@ -800,3 +848,10 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda_device):
     with pytest.raises(ValueError):
         tam.adaln_mlp_quant(x, m, m, m, w1q, torch.ones(256, device=dev), torch.zeros(256, device=dev),
                             w2q, m[0] + 1, m[0])
+    o = torch.zeros(1, 8, 192, device=dev, dtype=torch.bfloat16)  # no tile width divides D = 192
+    res, gate = torch.zeros(1, 8, 192, device=dev), torch.zeros(1, 192, device=dev)
+    wq = torch.zeros(192, 192, dtype=torch.int8, device=dev)
+    with pytest.raises(ValueError):
+        tq.int8_out_residual(o, res, gate, wq, torch.ones(192, device=dev), torch.zeros(192, device=dev))
+    with pytest.raises(TypeError):  # o in another type than f32 or bf16
+        tq.int8_out_residual(o.half(), res, gate, wq, torch.ones(192, device=dev), torch.zeros(192, device=dev))
