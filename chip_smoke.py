@@ -57,19 +57,23 @@ Phases (any failure raises and exits non-zero):
    (int8_out_residual, o in bf16) and the int8 fused MLP (adaln_mlp_quant), against
    their plain versions with the same bf16 operands and int8 codes and
    against the f32 dequantised ones, at the DiT-B sampling shapes and ragged
-   ones (M = 1000 for the qkv projection), with the same bits on a second
-   call; each timed beside the cuBLAS bf16 product of its shape. The qkv
-   and out projections and the MLP run kernel B's Hopper body over int8
+   ones (M = 1000 for the qkv projection; 1 to 256 rows and the DiT-XL
+   shape for the adaLN projection), with the same bits on a second call;
+   each timed beside the cuBLAS bf16 product of its shape. The adaLN
+   projection runs the body `quant.adaln_plan` names (its skinny body at
+   few rows, the int8 GEMM on wide batches; required), timed warm (back to
+   back) and cold (rotating over more weight copies than L2 holds). The
+   qkv and out projections and the MLP run kernel B's Hopper body over int8
    codes (body sm90 required): their kernels are timed alone (modulate and
-   GEMM; modulate, up and down), their eight int8 GEMM builds' registers
-   and spills printed (0 spill bytes required), and
-   torch._weight_int8pack_mm is probed for the qkv product (`library_ms`
-   where it runs on CUDA).
+   GEMM; modulate, up and down), the ten int8 GEMM builds' and the four
+   skinny builds' registers and spills printed (0 spill bytes required), and
+   torch._weight_int8pack_mm is probed for the adaLN, qkv and out products
+   (`library_ms` where it runs on CUDA).
 10. The sample CLI with --quantize-weights (`[slice-int8]`), as in 5: every
    int8 kernel and banded attention launched steps x depth times, the f32
    MLP kernel never, and no f32 o cast to bf16 before the out projection;
    seconds per denoise step beside the f32 run's, and a profile
-   (`[profile-int8]`: the device time of rows 1 and 10-12's kernels by
+   (`[profile-int8]`: the device time of rows 1 and 10-13's kernels by
    name; `[profile]` gives rows 1 and 7's). Then one int8 DiT-B forward card against CPU (`[forward-int8]`)
    and its gap to the f32 forward on the card (the quantisation error,
    printed, not checked).
@@ -124,6 +128,7 @@ device.
 import contextlib
 import copy
 import io
+import itertools
 import json
 import math
 import os
@@ -218,6 +223,11 @@ MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf
 MLP_SM90_KERNELS = ("adaln_mlp_modulate_kernel", "adaln_mlp_gemm_kernel")
 # the banded-attention forward's (row 1's, in the sampling chains)
 ATTN_FWD_KERNEL = "banded_attn_fwd_sm90_kernel"
+# the int8 adaLN projection's skinny body (row 13's on the sampling chain)
+ADALN_SKINNY_KERNEL = "int8_matmul_skinny_kernel"
+# weight copies the cold timing of row 13 rotates over: 24 x 3.54 MB at
+# DiT-B, more than the H100's 50 MB L2
+COLD_COPIES = 24
 # the fused MLP backward's Hopper body (rows 9a/9b): its kernels' names in a
 # profile (sum_partials_kernel: the five sums of partials, also the WMMA
 # body's)
@@ -536,8 +546,8 @@ def mlp_sm90_resources(int8: bool = False) -> str:
     """Registers and spill bytes (0 required) of kernel B's Hopper GEMM
     builds from this build's ptxas lines, and the dynamic shared memory a
     CTA at each width: over bf16 weights the eight builds (tile width, up
-    or down, x's type); over int8 codes (`int8`) the eight of rows 10, 11
-    and 12 (tile width; up, down, qkv or out; f32 x)."""
+    or down, x's type); over int8 codes (`int8`) the ten of rows 10 to 13
+    (tile width; up, down, qkv, out or ada; f32 x)."""
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import cuda_build
 
@@ -547,18 +557,18 @@ def mlp_sm90_resources(int8: bool = False) -> str:
         if m:
             entry = m.group(1)
             continue
-        # <BN, EPI, TX, BL>: EPI 0 up, 1 down, 2 qkv, 3 out; TX f or __nv_bfloat16; BL 2 int8
+        # <BN, EPI, TX, BL>: EPI 0 up, 1 down, 2 qkv, 3 out, 4 ada; TX f or __nv_bfloat16; BL 2 int8
         k = entry and re.search(r"adaln_mlp_gemm_kernelILi(\d+)ELi(\d)E(f|13__nv_bfloat16)Li(\d)E",
                                 entry)
         if not k or (k[4] == "2") != int8:
             continue
-        name = f"{k[1]} {('up', 'down', 'qkv', 'out')[int(k[2])]} {'bf16' if k[3] != 'f' else 'f32'}"
+        name = f"{k[1]} {('up', 'down', 'qkv', 'out', 'ada')[int(k[2])]} {'bf16' if k[3] != 'f' else 'f32'}"
         res = found.setdefault(name, {})
         if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
             res["spill_bytes"] = int(m[1]) + int(m[2])
         if (m := re.search(r"Used (\d+) registers", line)):
             res["registers"] = int(m[1])
-    want = 8
+    want = 10 if int8 else 8
     what = "int8" if int8 else "bf16"
     check(len(found) == want and all(len(r) == 2 for r in found.values()),
           f"ptxas lines of the {want} {what} Hopper MLP GEMM builds not found: {found}")
@@ -567,6 +577,34 @@ def mlp_sm90_resources(int8: bool = False) -> str:
     return ("; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
                       for n, r in sorted(found.items()))
             + "; shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
+
+
+def skinny_resources() -> str:
+    """Registers and spill bytes (0 required) of row 13's skinny body, one
+    build per row block (1, 2, 4 and 8 n8 tiles), from this build's ptxas
+    lines."""
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    found, entry = {}, None
+    for line in cuda_build.build_info["int8_matmul"]["log"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        k = entry and re.search(r"int8_matmul_skinny_kernelILi(\d+)E", entry)
+        if not k:
+            continue
+        res = found.setdefault(f"{k[1]} n8 tiles", {})
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res["spill_bytes"] = int(m[1]) + int(m[2])
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res["registers"] = int(m[1])
+    want = {f"{nt} n8 tiles" for nt in (1, 2, 4, 8)}
+    check(set(found) == want and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the four skinny builds not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"the skinny builds spill: {found}")
+    return "; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
+                     for n, r in sorted(found.items(), key=lambda kv: int(kv[0].split()[0])))
 
 
 def mlp_bwd_sm90_resources() -> str:
@@ -952,7 +990,7 @@ def phase_mlp_bwd(dev):
 def int8pack_ms(h, wq, s) -> float | None:
     """torch._weight_int8pack_mm (x . (w_q * s)^T, bf16, no bias) timed on
     the card at one int8 product's shape, or None where it does not run on
-    CUDA. Probed once; the port never calls it."""
+    CUDA. The port never calls it."""
     import torch
 
     try:
@@ -969,18 +1007,21 @@ def int8pack_ms(h, wq, s) -> float | None:
 def phase_quant(dev):
     """Rows 10-13 against their plain versions (bf16 operands and int8
     codes, and the f32 dequantised math), the DiT-B sampling shape of each
-    first; the same bits on a second call, and rows 10, 11 and 12's body
-    (row 12 takes o in bf16, as the banded attention writes it for the
-    int8 block); at the main shape times, bounds, the cuBLAS bf16 product
-    of the same shape, rows 10 and 11's kernels alone and the int8 GEMM
-    builds' resources."""
+    first; the same bits on a second call, and each call's body (row 13's
+    the one `adaln_plan` names; row 12 takes o in bf16, as the banded
+    attention writes it for the int8 block); at the main shape times (row
+    13 warm and cold), bounds, the cuBLAS bf16 product of the same shape,
+    torch._weight_int8pack_mm of rows 11-13's products, rows 10 and 11's
+    kernels alone and the int8 GEMM builds' resources."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import quant as tq
 
     g = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
+    sm_count = torch.cuda.get_device_properties(0).multi_processor_count
     print(f"[quant] int8 Hopper GEMM builds (ptxas): {mlp_sm90_resources(int8=True)}")
+    print(f"[quant] int8_matmul skinny builds (ptxas): {skinny_resources()}")
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
@@ -1019,7 +1060,10 @@ def phase_quant(dev):
         "int8_matmul": (tq.int8_matmul, matmul_plain, adaln_like, [
             ("main", (2,), 768, 4608, None), ("r1", (1,), 768, 4608, None),
             ("ragged_rows_gelu", (3, 37), 768, 2304, "gelu_tanh"),
-            ("m_not_64_gelu", (100,), 64, 96, "gelu_tanh"), ("k1024", (8, 128), 1024, 1000, None)],
+            ("m_not_64_gelu", (100,), 64, 96, "gelu_tanh"), ("k1024", (8, 128), 1024, 1000, None),
+            ("r16_gelu", (16,), 768, 4608, "gelu_tanh"), ("r64", (64,), 768, 4608, None),
+            ("r96", (96,), 768, 4608, None), ("r256", (256,), 768, 4608, None),
+            ("dit_xl", (2,), 1152, 6912, None)],
             None),
         "int8_modulated_matmul": (
             tq.int8_modulated_matmul,
@@ -1039,21 +1083,31 @@ def phase_quant(dev):
             (lambda args, mask: am._quant_launch(*args, 1e-6, bf16, stages=mask),
              (("modulate", 1), ("up", 2), ("down", 4)))),
     }
-    bodies = {"int8_modulated_matmul": tq.int8_modulated_matmul, "int8_out_residual": tq.int8_out_residual,
-              "adaln_mlp_quant": am.adaln_mlp_quant}
     results = {}
     for name, (kernel, plain, make, cases, staged) in kernels.items():
         for case, *shape in cases:
             args = make(*shape)
             got = kernel(*args)
             torch.cuda.synchronize()
-            body = bodies[name].body if name in bodies else "wmma"
+            body, want_body, plan_note = kernel.body, "sm90", ""
+            if name == "int8_matmul":
+                x, wq = args[0], args[1]
+                plan = tq.adaln_plan(x.numel() // x.shape[-1], x.shape[-1], wq.shape[0], sm_count)
+                want_body = plan.body
+                plan_note = (f" (plan: GEMM {plan.gemm.width}-wide tiles, {plan.gemm.grid} CTAs)"
+                             if plan.gemm is not None else
+                             f" (plan: {plan.cw}-column CTAs, row block "
+                             f"{plan.row_block}, grid {plan.grid}, {plan.smem_bytes} B shared memory)")
+                if plan.gemm is None:
+                    lib_smem = tq._lib().int8_matmul_skinny_smem_bytes(plan.k, plan.cw, plan.row_block)
+                    check(lib_smem == plan.smem_bytes,
+                          f"{name} {case}: the kernel lays out {lib_smem} B, the plan {plan.smem_bytes}")
             # no atomics, one CTA per output tile: the same bits run to run
             same = torch.equal(kernel(*args), got)
             want16 = plain(*args, matmul_dtype=bf16)
             want32 = plain(*args, matmul_dtype=f32)
             e16, e32 = rel_err(got, want16), rel_err(got, want32)
-            print(f"[quant] {name} {case}: {shape} body {body} max_abs_err bf16="
+            print(f"[quant] {name} {case}: {shape} body {body}{plan_note} max_abs_err bf16="
                   f"{max_err(got, want16):.3e} f32={max_err(got, want32):.3e}; of max |plain| "
                   f"bf16={e16:.2e} (tol {QUANT_TOL_BF16}) f32={e32:.2e} (tol {QUANT_TOL_F32}); "
                   f"same bits on a second call: {same}")
@@ -1062,7 +1116,7 @@ def phase_quant(dev):
             check(e16 <= QUANT_TOL_BF16, f"{name} {case}: {e16} > {QUANT_TOL_BF16}")
             check(e32 <= QUANT_TOL_F32, f"{name} {case}: {e32} > {QUANT_TOL_F32}")
             check(same, f"{name} {case}: a second call gave other bits")
-            check(name not in bodies or body == "sm90", f"{name} {case}: body {body}, expected sm90")
+            check(body == want_body, f"{name} {case}: body {body}, expected {want_body}")
             if case != "main":
                 continue
             tensors = [a for a in args if isinstance(a, torch.Tensor)]
@@ -1106,23 +1160,36 @@ def phase_quant(dev):
                 print("[quant] adaln_mlp_quant main: GEMMs alone in turns (int8, bf16, bf16, int8), "
                       "int8 codes against row 7's bf16 weights: " + "; ".join(
                           f"{k} " + ", ".join(f"{v:.4f}" for v in vs) + " ms" for k, vs in turns.items()))
+            # the product alone through PyTorch's int8 weight-only call
+            if name == "int8_matmul":
+                x, wq, s_q, b_q, act = args
+                library_ms = int8pack_ms(x.to(bf16), wq, s_q)
+                # cold: each call finds its weight copy out of L2
+                copies = itertools.cycle([wq.clone() for _ in range(COLD_COPIES)])
+                cold_ms = cuda_ms(lambda: kernel(x, next(copies), s_q, b_q, act), iters=2 * COLD_COPIES)
+                stages = (f" warm (back to back), {cold_ms:.4f} ms cold (rotating over {COLD_COPIES} "
+                          f"weight copies, {COLD_COPIES * wq.numel() / 1e6:.1f} MB)")
             if name == "int8_modulated_matmul":
-                # the qkv product alone through PyTorch's int8 weight-only call
                 x, shift, scale, wq, s_q, _ = args
                 hq = (am._layer_norm_f32(x, 1e-6)[0] * (1 + scale[:, None]) + shift[:, None])
                 library_ms = int8pack_ms(hq.reshape(-1, hq.shape[-1]).to(bf16), wq, s_q)
+            if name == "int8_out_residual":
+                o, wq, s_q = args[0], args[3], args[4]
+                library_ms = int8pack_ms(o.reshape(-1, o.shape[-1]), wq, s_q)
             b = bound(moved, flops)
             if name == "int8_out_residual":  # the bound before o came in bf16
                 f32_o = bound(moved + args[0].numel() * 2, flops)["bound_ms"]
                 stages = f" (bound with an f32 o, as before: {f32_o:.4f} ms)"
             library = ("none" if library_ms is None else
-                       f"torch._weight_int8pack_mm of its product (no LayerNorm, bias) {library_ms:.4f} ms")
+                       f"torch._weight_int8pack_mm of its product alone (bf16 out, no bias) {library_ms:.4f} ms")
             print(f"[quant] {name} main: kernel {ms:.4f} ms{stages}, plain f32 {plain_ms:.4f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {moved / 1e6:.2f} MB, "
                   f"{flops:.3e} FLOP); library: {library}; yardstick, not the same function: cuBLAS "
                   f"bf16 product(s) {products} alone {cublas_ms:.4f} ms; host {launch_us:.1f} us per call")
             results[name] = {"max_abs_err": max_err(got, want16), "ms": ms, "plain_ms": plain_ms,
                              **b, "library_ms": library_ms, "cublas_product_ms": cublas_ms}
+            if name == "int8_matmul":
+                results[name]["cold_ms"] = cold_ms
     return results
 
 
@@ -1209,6 +1276,9 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
           f"f32 o cast to bf16 before the out projection {o_casts} times (0 expected: row 1 "
           f"writes it in bf16)")
     check(o_casts == 0, f"{tag}: {o_casts} casts of o before the out projection")
+    if quantize:
+        print(f"[{tag}] int8_matmul (row 13) body {tq.int8_matmul.body}")
+        check(tq.int8_matmul.body == "sm90_skinny", f"{tag}: row 13 took body {tq.int8_matmul.body}")
     check("seq len 757" in buf.getvalue(), "CLI did not report seq len 757")
     launches = dict.fromkeys(path, STEPS * depth)
     check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
@@ -1258,15 +1328,21 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     print(f"[{ptag}] row 1 ({ATTN_FWD_KERNEL}) {attn_us / 1000 / STEPS:.3f} ms of device time per "
           f"denoise step")
     if quantize:
+        skinny_us = sum(e.self_device_time_total for e in events if ADALN_SKINNY_KERNEL in e.key)
+        print(f"[{ptag}] row 13 ({ADALN_SKINNY_KERNEL}) {skinny_us / 1000 / STEPS:.3f} ms of device "
+              f"time per denoise step")
         parts = {"modulate passes (rows 10 and 11)": 0.0, "up + down GEMMs (row 10)": 0.0,
-                 "qkv GEMM (row 11)": 0.0, "out GEMM (row 12)": 0.0, "GEMMs of an unread name": 0.0}
+                 "qkv GEMM (row 11)": 0.0, "out GEMM (row 12)": 0.0,
+                 "cast + ada GEMM (row 13's wide body)": 0.0, "GEMMs of an unread name": 0.0}
         for e in events:
             if MLP_SM90_KERNELS[0] in e.key:
                 parts["modulate passes (rows 10 and 11)"] += e.self_device_time_total
+            elif "adaln_mlp_cast_kernel" in e.key:
+                parts["cast + ada GEMM (row 13's wide body)"] += e.self_device_time_total
             elif MLP_SM90_KERNELS[1] in e.key:
                 epi = gemm_epilogue(e.key)
-                part = ("GEMMs of an unread name" if epi is None else "qkv GEMM (row 11)" if epi == 2
-                        else "out GEMM (row 12)" if epi == 3 else "up + down GEMMs (row 10)")
+                part = {None: "GEMMs of an unread name", 2: "qkv GEMM (row 11)", 3: "out GEMM (row 12)",
+                        4: "cast + ada GEMM (row 13's wide body)"}.get(epi, "up + down GEMMs (row 10)")
                 parts[part] += e.self_device_time_total
         print(f"[{ptag}] int8 Hopper bodies, device ms per denoise step: " + ", ".join(
             f"{k} {v / 1000 / STEPS:.3f}" for k, v in parts.items()))
@@ -1274,7 +1350,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
 
 
 def gemm_epilogue(name: str) -> int | None:
-    """The epilogue (0 up, 1 down, 2 qkv, 3 out) of an adaln_mlp_gemm_kernel build
+    """The epilogue (0 up, 1 down, 2 qkv, 3 out, 4 ada) of an adaln_mlp_gemm_kernel build
     from its name in a profile (demangled or not), or None."""
     m = re.search(r"adaln_mlp_gemm_kernel(?:<\d+, (\d)|ILi\d+ELi(\d)E)", name)
     return None if m is None else int(m[1] or m[2])

@@ -3,7 +3,8 @@
 // with int8 weight-only weights for serving; each a modulate pass and two
 // persistent wgmma GEMMs (the Hopper body). Also the int8 qkv projection,
 // which is the same modulate pass and one such GEMM, and the int8 out
-// projection with the gate and the residual, which is one such GEMM.
+// projection with the gate and the residual, which is one such GEMM; and the
+// wide body of the int8 adaLN projection, a cast pass and one such GEMM.
 //
 // Replaces: osu_diffusion_tpu/ops/pallas_mlp.py, _adaln_mlp_kernel (:53)
 //   in inference mode (a_ref = mlp_ref = None; called via
@@ -11,8 +12,10 @@
 //   via _fwd); _adaln_mlp_quant_kernel (:184), the int8 serving variant;
 //   and osu_diffusion_tpu/ops/pallas_quant.py, _modulated_kernel (:95),
 //   the int8 qkv projection with the LayerNorm and modulation folded in,
-//   and _out_residual_kernel (:156), the int8 out projection with the
-//   adaLN gate and the residual add folded in.
+//   _out_residual_kernel (:156), the int8 out projection with the
+//   adaLN gate and the residual add folded in, and _kernel (:221,
+//   int8_matmul) for batches wider than the skinny body of
+//   csrc/int8_matmul.cu takes.
 //
 // Computes the MLP half of a DiT block,
 //   out = x + gate * (fc2(gelu_tanh(fc1(LN(x) * (1 + scale) + shift))))
@@ -133,6 +136,15 @@
 // (csrc/int8_matmul.cu, PR 3) that re-read the weight from L2 once per
 // 32-row tile and upcast each chunk into shared memory before 16x16x16
 // products (0.0359 ms at DiT-B sampling on an H100, 8.1x its bound).
+//
+// ---- The int8 adaLN projection's wide body (row 13 above SKINNY_ROWS) ----
+// out = act(x . (w * s)^T + b), act none or GELU-tanh, x (rows, K) f32, w
+// (M, K) int8 codes, for more activation rows than the skinny body
+// (csrc/int8_matmul.cu) takes and an even M: a cast pass writes bf16(x)
+// (rows, K) (adaln_mlp_cast_kernel, the contract's own rounding), then one
+// GEMM over int8 codes whose epilogue (ADA) is the qkv one's, acc * s + b
+// in f32 with a ragged last column block, plus GELU-tanh when asked; a
+// build of its own, so that a profile tells it from row 11's.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -222,7 +234,9 @@ constexpr int smem_bytes() {
   return static_cast<int>(sizeof(gemm_sm90::SmemOf<BN, BL>)) + 1024;  // + alignment slack
 }
 
-enum Epi { UP, DOWN, QKV, OUT };  // OUT: row 12, the down epilogue without mlp
+// OUT: row 12, the down epilogue without mlp; ADA: row 13's wide body, the
+// qkv epilogue with an optional GELU
+enum Epi { UP, DOWN, QKV, OUT, ADA };
 
 // what the epilogues read and write besides the accumulator
 struct EpiArgs {
@@ -236,6 +250,7 @@ struct EpiArgs {
   void* out;                 // down, out: x + gate * mlp in x's type; qkv: f32 (m, ncols)
   float* mlp;                // down: pre-gate mlp in f32, or null (inference)
   const float* scale;        // int8 B: the codes' per-column scales s1, s2 or s
+  int gelu;                  // ada: GELU-tanh after acc * s + b
 };
 
 // a column's f32 value from its sum: + bias; int8 codes' sums times the
@@ -325,7 +340,7 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           store2(out + off, __fmaf_rn(gt.x, v0, xv.x), __fmaf_rn(gt.y, v1, xv.y));
         }
       }
-    } else {  // QKV: f32 (m, ncols), columns past ncols (a ragged block) not stored
+    } else {  // QKV, ADA: f32 (m, ncols), columns past ncols (a ragged block) not stored
       float* out = static_cast<float*>(ep.out);
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n) {
@@ -336,9 +351,16 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
           const int row = rw + 8 * i;
-          if (row < m)
-            store2(out + (long long)row * ncols + c, biased<BL>(acc[4 * n + 2 * i], sc.x, bias.x),
-                   biased<BL>(acc[4 * n + 2 * i + 1], sc.y, bias.y));
+          if (row >= m) continue;
+          float v0 = biased<BL>(acc[4 * n + 2 * i], sc.x, bias.x);
+          float v1 = biased<BL>(acc[4 * n + 2 * i + 1], sc.y, bias.y);
+          if constexpr (EPI == ADA) {
+            if (ep.gelu) {
+              v0 = gelu_tanh(v0);
+              v1 = gelu_tanh(v1);
+            }
+          }
+          store2(out + (long long)row * ncols + c, v0, v1);
         }
       }
     }
@@ -362,12 +384,13 @@ int launch(const void* a, const void* b, int m, int ncols, int kdim, int grid, c
   return static_cast<int>(cudaGetLastError());
 }
 
-// the up and down GEMMs take whole column blocks; qkv an even ncols, its
-// last block ragged
+// the up and down GEMMs take whole column blocks; qkv and ada an even
+// ncols, the last block ragged
 template <int EPI, typename TX, int BL>
 int launch_width(int bn, const void* a, const void* b, int m, int ncols, int kdim, int grid,
                  const EpiArgs& ep, cudaStream_t stream) {
-  if (grid < 1 || kdim % gemm_sm90::BK != 0 || (EPI == QKV ? ncols % 2 : ncols % bn) != 0)
+  const bool ragged = EPI == QKV || EPI == ADA;
+  if (grid < 1 || kdim % gemm_sm90::BK != 0 || (ragged ? ncols % 2 : ncols % bn) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   switch (bn) {
     case 256:
@@ -380,6 +403,18 @@ int launch_width(int bn, const void* a, const void* b, int m, int ncols, int kdi
 }
 
 }  // namespace gemm
+
+// ---- the cast pass of row 13's wide body ----------------------------------
+
+constexpr int CAST_THREADS = 256;
+
+// y = bf16(x) over n4 groups of four values
+__global__ void __launch_bounds__(CAST_THREADS)
+adaln_mlp_cast_kernel(const float* __restrict__ x, __nv_bfloat16* __restrict__ y, long long n4) {
+  for (long long i = blockIdx.x * (long long)CAST_THREADS + threadIdx.x; i < n4;
+       i += (long long)gridDim.x * CAST_THREADS)
+    tile_io::store4(y + 4 * i, tile_io::load4(x + 4 * i));
+}
 
 // the modulate pass of x (rows of D) into the bf16 workspace h
 template <int D, typename TX>
@@ -540,6 +575,26 @@ extern "C" int int8_out_residual_fwd(const void* o, const float* res, const floa
   const gemm::EpiArgs ep{b, nullptr, nullptr, res, gate, gate_stride, t, out, nullptr, s};
   return gemm::launch_width<gemm::OUT, float, gemm::B_INT8>(bn, o, w, n * t, d, d, grid, ep,
                                                            static_cast<cudaStream_t>(stream));
+}
+
+// The int8 adaLN projection's wide body (row 13): out (rows, M) f32 =
+// act(x . (w * s)^T + b), act GELU-tanh when gelu = 1; x (rows, K) f32 and
+// w (M, K) int8 codes, contiguous; s, b f32 (M); xb: bf16 workspace (rows,
+// K); K a multiple of 64, M even; bn (256 or 128) and grid the tile plan's
+// (quant.adaln_plan's GemmPlan). Returns as adaln_mlp_fwd.
+extern "C" int int8_matmul_wide_fwd(const float* x, const void* w, const float* s, const float* b,
+                                    void* xb, float* out, int rows, int k, int m, int gelu, int bn,
+                                    int grid, void* stream) {
+  last_body = "sm90";
+  const auto st = static_cast<cudaStream_t>(stream);
+  const long long n4 = (long long)rows * k / 4;
+  const long long blocks = (n4 + CAST_THREADS - 1) / CAST_THREADS;
+  adaln_mlp_cast_kernel<<<static_cast<int>(blocks < 4096 ? blocks : 4096), CAST_THREADS, 0, st>>>(
+      x, static_cast<__nv_bfloat16*>(xb), n4);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const gemm::EpiArgs ep{b, nullptr, nullptr, nullptr, nullptr, 0, 1, out, nullptr, s, gelu};
+  return gemm::launch_width<gemm::ADA, float, gemm::B_INT8>(bn, xb, w, rows, m, k, grid, ep, st);
 }
 
 extern "C" const char* adaln_mlp_last_body() { return last_body; }

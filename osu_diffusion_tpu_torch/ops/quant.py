@@ -4,7 +4,11 @@ PyTorch versions.
 
 Port of osu_diffusion_tpu/ops/pallas_quant.py:
 - `quantize_weight`: `quantize_weight`, on torch's (out, in) layout;
-- `int8_matmul`: `_kernel` (act(x @ (w_q * s) + b), optional GELU-tanh);
+- `int8_matmul`: `_kernel` (act(x @ (w_q * s) + b), optional GELU-tanh),
+  csrc/int8_matmul.cu's skinny body for few activation rows (the adaLN
+  projection of the sampling chain), csrc/adaln_mlp.cu's cast pass and
+  Hopper GEMM over int8 codes for wide batches (`adaln_plan` picks the body
+  and its walk; `int8_matmul_staged` walks it in plain PyTorch);
 - `int8_modulated_matmul`: `_modulated_kernel` (the qkv projection with
   the non-affine LayerNorm and the adaLN shift/scale folded in),
   csrc/adaln_mlp.cu: kernel B's modulate pass and its persistent Hopper
@@ -13,8 +17,7 @@ Port of osu_diffusion_tpu/ops/pallas_quant.py:
 - `int8_out_residual`: `_out_residual_kernel` (the out projection with the
   adaLN gate and the residual add folded in), csrc/adaln_mlp.cu: the same
   Hopper GEMM over int8 codes with o as its bf16 A operand
-  (`int8_out_residual_staged` walks its tile plan, `out_plan`);
-`int8_matmul` csrc/int8_matmul.cu.
+  (`int8_out_residual_staged` walks its tile plan, `out_plan`).
 
 Weights are int8 codes in torch's Linear layout, w_q (M, K) = (out, in),
 with a float32 scale per output channel s (M,): w ~= w_q * s[:, None].
@@ -33,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -40,11 +44,8 @@ import torch.nn.functional as F
 from osu_diffusion_tpu_torch.ops import cuda_build
 from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, KERNEL_WIDTHS, GemmPlan, gemm_plan
 
-# int8_matmul (csrc/int8_matmul.cu)
-ROW_TILE = 32  # rows per CTA
-COL_TILE = 64  # output columns per tile
 K_CHUNK = 64  # the kernels walk K in chunks of this depth
-MAX_K = 2048  # the (32, K) bf16 activation tile lives in shared memory
+MAX_K = 2048  # the deepest K the kernels take (the skinny body holds x's K part in shared memory)
 MATMUL_DTYPES = (torch.bfloat16, torch.float32)
 QKV_STAGES = 3  # int8_modulated_matmul's kernels (a mask): 1 the modulate pass, 2 the GEMM
 
@@ -88,6 +89,179 @@ def int8_matmul_reference(x, w_q, s, b, activation: str | None = None,
     return F.gelu(y, approximate="tanh") if activation == "gelu_tanh" else y
 
 
+# int8_matmul: the skinny body (csrc/int8_matmul.cu) for few rows, the int8
+# GEMM (csrc/adaln_mlp.cu, int8_matmul_wide_fwd) for wider batches at an
+# even M. On an H100 at w (4608, 768) the skinny body beat the wide one up
+# to 96 rows and lost at 128 (tools/adaln_proj_variants.py, PERF.md).
+SKINNY_ROWS = 96  # the most activation rows the skinny body takes at an even M
+SKINNY_WIDTHS = (16, 32, 64)  # weight rows (output columns) a skinny CTA owns
+SKINNY_ROW_BLOCKS = (8, 16, 32, 64)  # activation rows of a CTA: 1, 2, 4 or 8 n8 tiles
+SKINNY_MT = 16  # weight rows of one mma m-tile
+SKINNY_K_WARPS = 4  # warps per m-tile, warp kg taking every 4th slab from kg
+SMEM_LIMIT = 232448  # dynamic shared memory a CTA may take on an H100
+SMEM_PER_SM = 233472  # shared memory of an H100 SM, 1 KB of it reserved per resident CTA
+SKINNY_CTAS_PER_SM = 2  # the most 512-thread skinny CTAs an SM holds (their registers)
+
+
+def skinny_smem_bytes(k: int, cw: int, row_block: int) -> int:
+    """A skinny CTA's dynamic shared memory, as csrc/int8_matmul.cu's Layout:
+    its codes or, over them once the products are done, every warp's
+    partial sums, whichever is larger; x's rows in bf16 (rows 8 elements
+    longer); a barrier a slab and 128 bytes of alignment slack."""
+    slabs = k // K_CHUNK
+    warps = cw // SKINNY_MT * SKINNY_K_WARPS
+    partials = warps * (row_block // 8) * 4 * 32 * 4
+    return max(slabs * cw * K_CHUNK, partials) + row_block * (k + 8) * 2 + slabs * 8 + 128
+
+
+def skinny_resident(k: int, cw: int, row_block: int, sm_count: int) -> int:
+    """How many skinny CTAs the card holds at once: as many an SM as shared
+    memory allows, SKINNY_CTAS_PER_SM at most."""
+    per_sm = SMEM_PER_SM // (skinny_smem_bytes(k, cw, row_block) + 1024)
+    return sm_count * min(per_sm, SKINNY_CTAS_PER_SM)
+
+
+class AdalnPlan(NamedTuple):
+    """How `int8_matmul` computes out (rows, M) = act(x (rows, K) . (w_q *
+    s)^T + b). Body "sm90_skinny" (csrc/int8_matmul.cu): CTA (c, r) of a
+    `grid` of (col_slabs, row_blocks) owns output columns c * cw .. + cw
+    and activation rows r * row_block .. + row_block; in it warp (mt, kg)
+    multiplies m-tile mt's 16 columns over the slabs `warp_slabs(kg)`, and
+    warp (mt, 0) sums the partials warp by warp. Body "sm90" (wide
+    batches): `gemm`, the int8 GEMM's tile plan over bf16(x)."""
+    body: str
+    rows: int
+    k: int
+    m: int
+    cw: int = 0
+    row_block: int = 0
+    gemm: GemmPlan | None = None
+
+    @property
+    def col_slabs(self) -> int:
+        return -(-self.m // self.cw)
+
+    @property
+    def row_blocks(self) -> int:
+        return -(-self.rows // self.row_block)
+
+    @property
+    def grid(self) -> tuple[int, int]:
+        return self.col_slabs, self.row_blocks
+
+    @property
+    def ctas(self) -> int:
+        return self.gemm.grid if self.gemm is not None else self.grid[0] * self.grid[1]
+
+    @property
+    def smem_bytes(self) -> int:
+        return skinny_smem_bytes(self.k, self.cw, self.row_block)
+
+    def warp_slabs(self, kg: int) -> range:
+        """The 64-deep slabs warp kg of an m-tile multiplies, in order."""
+        return range(kg, self.k // K_CHUNK, SKINNY_K_WARPS)
+
+
+def skinny_width(rows: int) -> int:
+    """A skinny CTA's width: every CTA reads all of x's rows, so the CTAs
+    together read x (rows x K f32) once per `cw` columns; the narrowest
+    width (the most CTAs in flight) at which that stays within half the
+    weight's bytes, cw >= 8 rows, 64 at most. (On an H100 at w (4608, 768):
+    16 columns fastest at 2 rows, 64 from 8 rows on.)"""
+    return next((w for w in SKINNY_WIDTHS if w >= 8 * rows), SKINNY_WIDTHS[-1])
+
+
+@functools.cache
+def adaln_plan(rows: int, k: int, m: int, sm_count: int, cw: int | None = None) -> AdalnPlan:
+    """The body and walk of `int8_matmul` (cached: the host path adds
+    nothing). More than SKINNY_ROWS rows at an even M take the int8 GEMM
+    (its epilogue stores column pairs); the rest the skinny body, its CTAs
+    `skinny_width` columns wide (unless `cw` is given), its row block the
+    fewest n8 tiles that hold the rows (at most 64, fewer where x's K would
+    overflow shared memory), halved down to 16 while the grid stays within
+    what the card holds at once (`skinny_resident`): more, smaller CTAs
+    share the products and x's loads (on an H100 at w (4608, 768): 64 rows
+    0.0152 ms in one 72-CTA wave of 64-row blocks, 0.0132 in 32-row
+    ones)."""
+    if k % K_CHUNK or not K_CHUNK <= k <= MAX_K:
+        raise ValueError(f"the kernels take K a multiple of {K_CHUNK} up to {MAX_K}, got {k}")
+    if rows < 1 or m < 1:
+        raise ValueError(f"no rows or columns: rows {rows}, M {m}")
+    if rows > SKINNY_ROWS and m % 2 == 0:
+        return AdalnPlan("sm90", rows, k, m, gemm=gemm_plan(rows, m, k, sm_count, ragged=True))
+    cw = skinny_width(rows) if cw is None else cw
+    if cw not in SKINNY_WIDTHS:
+        raise ValueError(f"the skinny body takes CTA widths {SKINNY_WIDTHS}, got {cw}")
+    row_block = next(r for r in SKINNY_ROW_BLOCKS if r >= min(rows, SKINNY_ROW_BLOCKS[-1]))
+    while row_block > SKINNY_ROW_BLOCKS[0] and skinny_smem_bytes(k, cw, row_block) > SMEM_LIMIT:
+        row_block //= 2
+    col_slabs = -(-m // cw)
+    while (row_block > SKINNY_ROW_BLOCKS[1]
+           and col_slabs * -(-rows // (row_block // 2))
+           <= skinny_resident(k, cw, row_block // 2, sm_count)):
+        row_block //= 2
+    plan = AdalnPlan("sm90_skinny", rows, k, m, cw, row_block)
+    if plan.row_blocks > 65535:
+        raise ValueError(f"{rows} rows exceed the skinny body's grid")
+    return plan
+
+
+def _gemm_walk(a, w_q, s, b, plan: GemmPlan) -> torch.Tensor:
+    """The int8 GEMM (csrc/gemm_sm90.cuh B_INT8) in plain PyTorch: a (rows,
+    depth) f32 holding bf16 values, times each tile's codes upcast exactly
+    (rows past M read as 0, as TMA reads them), tile by tile in the order
+    each CTA of `plan` walks them, the whole reduction summed before the
+    epilogue takes acc * s + b and stores the columns below M. A tile no CTA
+    computes stays NaN. Returns (rows, M) f32."""
+    f32 = torch.float32
+    rows, m = a.shape[0], w_q.shape[0]
+    codes = F.pad(w_q.to(f32), (0, 0, 0, plan.tiles_n * plan.width - m))
+    out = torch.full((rows, m), float("nan"))
+    for cta in range(plan.grid):
+        for r0, c0 in plan.tiles_of(cta):
+            rs, width = slice(r0, r0 + GEMM_ROWS), min(plan.width, m - c0)
+            acc = a[rs] @ codes[c0:c0 + plan.width].t()
+            cols = slice(c0, c0 + width)
+            out[rs, cols] = acc[:, :width] * s[cols] + b[cols]
+    return out
+
+
+def int8_matmul_staged(x, w_q, s, b, activation: str | None, plan: AdalnPlan) -> torch.Tensor:
+    """The kernels of `int8_matmul` in plain PyTorch, walking `plan`
+    (`adaln_plan`). Skinny: for each CTA's column slab and row block, each
+    warp's slabs multiplied (bf16(x) times the exact codes, columns past M
+    read as 0), the warps' partial sums added in the kernel's fixed order
+    (warp by warp), then acc * s
+    + b and GELU-tanh on the columns below M. Wide: bf16(x), then the int8
+    GEMM's tile walk with the GELU after it. Columns no CTA computes stay
+    NaN. Returns (..., M) as `int8_matmul_reference` at bf16 operands."""
+    f32 = torch.float32
+    k, m = x.shape[-1], w_q.shape[0]
+    a = x.reshape(-1, k).to(f32).to(torch.bfloat16).to(f32)
+    if plan.body == "sm90":
+        out = _gemm_walk(a, w_q, s, b, plan.gemm)
+    else:
+        cw, rb = plan.cw, plan.row_block
+        codes = F.pad(w_q.to(f32), (0, 0, 0, plan.col_slabs * cw - m))
+        out = torch.full((a.shape[0], m), float("nan"))
+        for c0 in range(0, plan.col_slabs * cw, cw):
+            width = min(cw, m - c0)
+            for r0 in range(0, plan.rows, rb):
+                rows = slice(r0, r0 + rb)
+                acc = None
+                for kg in range(SKINNY_K_WARPS):
+                    part = torch.zeros(a[rows].shape[0], cw)
+                    for j in plan.warp_slabs(kg):
+                        ks = slice(j * K_CHUNK, (j + 1) * K_CHUNK)
+                        part = part + a[rows, ks] @ codes[c0:c0 + cw, ks].t()
+                    acc = part if acc is None else acc + part
+                cols = slice(c0, c0 + width)
+                out[rows, cols] = acc[:, :width] * s[cols] + b[cols]
+    if activation == "gelu_tanh":
+        out = F.gelu(out, approximate="tanh")
+    return out.reshape(*x.shape[:-1], m)
+
+
 def int8_modulated_matmul_reference(x, shift, scale, w_q, s, b, eps: float = 1e-6,
                                     matmul_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """Plain version of `int8_modulated_matmul`:
@@ -111,20 +285,10 @@ def int8_modulated_matmul_staged(x, shift, scale, w_q, s, b, eps: float,
     as TMA reads them) and its whole reduction summed before the epilogue
     takes acc * s + b and stores the columns below M. Returns (N, T, M) as
     `int8_modulated_matmul_reference` at bf16 operands."""
-    f32 = torch.float32
     n, t, d = x.shape
-    m = w_q.shape[0]
     h = _layer_norm_f32(x, eps) * (1.0 + scale[:, None, :]) + shift[:, None, :]
-    h = h.reshape(n * t, d).to(torch.bfloat16).to(f32)
-    codes = F.pad(w_q.to(f32), (0, 0, 0, plan.tiles_n * plan.width - m))
-    out = torch.full((n * t, m), float("nan"))  # a tile no CTA computes stays NaN
-    for cta in range(plan.grid):
-        for r0, c0 in plan.tiles_of(cta):
-            rows, width = slice(r0, r0 + GEMM_ROWS), min(plan.width, m - c0)
-            acc = h[rows] @ codes[c0:c0 + plan.width].t()
-            cols = slice(c0, c0 + width)
-            out[rows, cols] = acc[:, :width] * s[cols] + b[cols]
-    return out.reshape(n, t, m)
+    h = h.reshape(n * t, d).to(torch.bfloat16).to(torch.float32)
+    return _gemm_walk(h, w_q, s, b, plan).reshape(n, t, w_q.shape[0])
 
 
 def int8_out_residual_reference(o, res, gate, w_q, s, b,
@@ -163,21 +327,26 @@ def int8_out_residual_staged(o, res, gate, w_q, s, b, plan: GemmPlan) -> torch.T
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
+    """The skinny body of `int8_matmul`."""
     lib = cuda_build.load_library("int8_matmul")
-    fn = lib.int8_matmul_fwd
+    fn = lib.int8_matmul_skinny_fwd
     fn.restype = ctypes.c_int
-    # (x, w, s, b, out, rows, k, m, gelu, tiles_per_cta, stream)
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    # (x, w, s, b, out, rows, k, m, gelu, cw, row_block, stream)
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    lib.int8_matmul_skinny_smem_bytes.restype = ctypes.c_int
+    lib.int8_matmul_skinny_smem_bytes.argtypes = [ctypes.c_int] * 3
     lib.int8_matmul_error_string.restype = ctypes.c_char_p
     lib.int8_matmul_error_string.argtypes = [ctypes.c_int]
+    lib.int8_matmul_last_body.restype = ctypes.c_char_p
     return lib
 
 
 @functools.cache
 def _gemm_lib() -> ctypes.CDLL:
     """The adaLN-MLP library, whose modulate pass and Hopper GEMM compute
-    `int8_modulated_matmul` and whose Hopper GEMM computes
-    `int8_out_residual`."""
+    `int8_modulated_matmul`, whose Hopper GEMM computes `int8_out_residual`,
+    and whose cast pass and Hopper GEMM compute `int8_matmul` on wide
+    batches."""
     lib = cuda_build.load_library("adaln_mlp")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, argtypes in {
@@ -185,6 +354,8 @@ def _gemm_lib() -> ctypes.CDLL:
         "int8_modulated_matmul_fwd": [p] * 3 + [ll] + [p] * 5 + [i] * 6 + [ctypes.c_float, i, p],
         # (o, res, gate, gate_stride, w, s, b, out, n, t, d, bn, grid, stream)
         "int8_out_residual_fwd": [p] * 3 + [ll] + [p] * 4 + [i] * 5 + [p],
+        # (x, w, s, b, xb, out, rows, k, m, gelu, bn, grid, stream)
+        "int8_matmul_wide_fwd": [p] * 6 + [i] * 6 + [p],
     }.items():
         fn = getattr(lib, name)
         fn.restype = ctypes.c_int
@@ -198,19 +369,6 @@ def _gemm_lib() -> ctypes.CDLL:
 @functools.cache
 def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
-
-
-def tiles_per_cta(row_tiles: int, m: int, sm_count: int) -> int:
-    """How many 64-column output tiles one CTA of `int8_matmul` walks
-    (reusing its prepared (32, K) activation tile): the fewest that still
-    give at least two CTAs per SM (what fits beside the activation tile at
-    K = 768), the CTAs per row tile rounded up, so short inputs still
-    spread over the card.
-    (Rounding down, to stay inside one wave, measured slower on an H100:
-    these kernels are bound by throughput, not by a straggling tail.)"""
-    m_tiles = -(-m // COL_TILE)
-    groups = min(m_tiles, max(1, -(-2 * sm_count // row_tiles)))
-    return -(-m_tiles // groups)
 
 
 def _check_input(x: torch.Tensor, what: str) -> None:
@@ -259,13 +417,40 @@ def _check_shapes(w_q, s, b, k: int) -> int:
     return m
 
 
+def _adaln_launch(x2, w_q, s, b, activation: str | None, plan: AdalnPlan) -> torch.Tensor:
+    """`int8_matmul`'s kernels on x2's (rows, K) device as `plan` says.
+    Records the body in `.body`."""
+    rows, k = x2.shape
+    m = w_q.shape[0]
+    out = torch.empty((rows, m), device=x2.device, dtype=torch.float32)
+    gelu = int(activation == "gelu_tanh")
+    stream = torch.cuda.current_stream(x2.device).cuda_stream
+    ptrs = (x2.data_ptr(), w_q.data_ptr(), s.data_ptr(), b.data_ptr())
+    if plan.body == "sm90_skinny":
+        lib = _lib()
+        err = lib.int8_matmul_skinny_fwd(*ptrs, out.data_ptr(), rows, k, m, gelu, plan.cw,
+                                         plan.row_block, stream)
+        error_string, last_body = lib.int8_matmul_error_string, lib.int8_matmul_last_body
+    else:
+        xb = torch.empty((rows, k), device=x2.device, dtype=torch.bfloat16)
+        lib = _gemm_lib()
+        err = lib.int8_matmul_wide_fwd(*ptrs, xb.data_ptr(), out.data_ptr(), rows, k, m, gelu,
+                                       plan.gemm.width, plan.gemm.grid, stream)
+        error_string, last_body = lib.adaln_mlp_error_string, lib.adaln_mlp_last_body
+    if err:
+        raise RuntimeError(f"int8_matmul kernel launch failed: error {err} "
+                           f"({error_string(err).decode()})")
+    int8_matmul.body = last_body().decode()
+    return out
 
 
 def int8_matmul(x, w_q, s, b, activation: str | None = None,
                 matmul_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """act(x @ (w_q * s).T + b), reading w_q as int8. x: (..., K) f32;
     w_q: (M, K) int8; s, b: (M,) f32; `activation`: None or "gelu_tanh".
-    Returns (..., M) f32."""
+    Returns (..., M) f32. On the card `adaln_plan` picks the body (and
+    refuses a K the kernels do not take: not a multiple of 64, or past
+    MAX_K); a CPU tensor takes the plain version at any K."""
     if activation not in (None, "gelu_tanh"):
         raise ValueError(f"unknown activation: {activation}")
     _check_input(x, "int8_matmul")
@@ -274,19 +459,9 @@ def int8_matmul(x, w_q, s, b, activation: str | None = None,
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, s, b, activation, matmul_dtype)
     x2 = x.reshape(-1, k)
-    rows = x2.shape[0]
     _check_kernel_inputs(matmul_dtype, k, MAX_K, w_q, x=x2, s=s, b=b)
-    if -(-rows // ROW_TILE) > 65535:
-        raise ValueError(f"{rows} rows exceed the kernel's grid limit")
-    out = torch.empty((rows, m), device=x.device, dtype=torch.float32)
-    lib = _lib()
-    per = tiles_per_cta(-(-rows // ROW_TILE), m, _sm_count(x.device.index))
-    err = lib.int8_matmul_fwd(x2.data_ptr(), w_q.data_ptr(), s.data_ptr(), b.data_ptr(),
-                              out.data_ptr(), rows, k, m, int(activation == "gelu_tanh"), per,
-                              torch.cuda.current_stream(x.device).cuda_stream)
-    if err:
-        msg = lib.int8_matmul_error_string(err).decode()
-        raise RuntimeError(f"int8_matmul kernel launch failed: CUDA error {err} ({msg})")
+    plan = adaln_plan(x2.shape[0], k, m, _sm_count(x.device.index))
+    out = _adaln_launch(x2, w_q, s, b, activation, plan)
     int8_matmul.launches += 1
     return out.reshape(*x.shape[:-1], m)
 
@@ -385,5 +560,6 @@ int8_matmul.launches = 0
 int8_modulated_matmul.launches = 0
 int8_out_residual.launches = 0
 int8_out_residual.o_casts = 0  # f32 o rounded to a bf16 copy before a launch
+int8_matmul.body = None
 int8_modulated_matmul.body = None
 int8_out_residual.body = None

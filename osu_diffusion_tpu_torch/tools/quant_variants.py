@@ -121,7 +121,7 @@ def main() -> None:
     def use(lib):
         cuda_build.load_library = lambda name: libs[lib] if name == "adaln_mlp" else load(name)
         am._lib.cache_clear()
-        tq._qkv_lib.cache_clear()
+        tq._gemm_lib.cache_clear()
 
     dev, bf16 = "cuda", torch.bfloat16
     g = torch.Generator(device=dev).manual_seed(11)

@@ -668,24 +668,6 @@ def test_quant_wrappers_take_the_plain_versions_on_cpu():
                                            tq.int8_out_residual, tam.adaln_mlp_quant)]
 
 
-@pytest.mark.parametrize("row_tiles,m,grid", [
-    (48, 2304, 288),  # the DiT-B qkv projection: 6 of its 36 column tiles per CTA
-    (48, 768, 288),   # the out projection: 2 of 12
-    (1, 4608, 72),    # the adaLN projection, 2 rows: one column tile per CTA
-    (300, 1000, 300), # more row tiles than two per SM: all columns in one CTA
-])
-def test_tiles_per_cta_gives_two_ctas_per_sm(row_tiles, m, grid):
-    """The int8 projections' grid on a 132-SM card: at least two CTAs per
-    SM where the columns allow (fewer would leave SMs idle), each CTA with
-    as many column tiles as that allows, every column tile covered."""
-    per = tq.tiles_per_cta(row_tiles, m, 132)
-    m_tiles = -(-m // tq.COL_TILE)
-    ctas_per_row_tile = -(-m_tiles // per)
-    assert row_tiles * ctas_per_row_tile == grid
-    assert ctas_per_row_tile * per >= m_tiles
-    assert grid >= min(2 * 132, row_tiles * m_tiles)
-
-
 def _check_quant(got, plain, *args, **kwargs):
     want16 = plain(*args, **kwargs, matmul_dtype=torch.bfloat16)
     want32 = plain(*args, **kwargs, matmul_dtype=torch.float32)
@@ -697,13 +679,24 @@ def _check_quant(got, plain, *args, **kwargs):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("lead,k,m,act", [
-    ((2,), 768, 4608, None),          # the DiT-B adaLN projection
+    ((2,), 768, 4608, None),          # the DiT-B adaLN projection: the skinny body
     ((1,), 768, 4608, None),          # one row
-    ((3, 37), 768, 2304, None),       # lead dims, 111 rows
+    ((3, 37), 768, 2304, None),       # lead dims, 111 rows: the wide body
     ((100,), 64, 96, "gelu_tanh"),    # M not a multiple of 64, GELU
     ((8, 128), 1024, 1000, "gelu_tanh"),
+    ((16,), 768, 4608, "gelu_tanh"),  # two n8 tiles, 64-column CTAs
+    ((64,), 768, 4608, None),         # 64 rows: two 32-row blocks
+    ((96,), 768, 4608, None),         # SKINNY_ROWS
+    ((256,), 768, 4608, None),
+    ((2,), 1152, 6912, None),         # the DiT-XL adaLN projection
+    ((1,), 1024, 1000, None),         # 63 column slabs
+    ((3,), 256, 97, "gelu_tanh"),     # odd M, 32-column CTAs
+    ((70,), 128, 33, None),           # odd M: five 16-row blocks
+    ((2,), 2048, 5, None),            # M below a CTA's width, the deepest K
 ])
 def test_int8_matmul_kernel_matches_plain(cuda_device, lead, k, m, act):
+    """The body `adaln_plan` names, one launch counted, the same bits on a
+    second call (no atomics: the partial sums meet in a fixed order)."""
     g = torch.Generator(device=cuda_device).manual_seed(k + m)
     x = torch.randn((*lead, k), generator=g, device=cuda_device)
     wq, s = _quant_weight(m, k, g, cuda_device)
@@ -712,7 +705,31 @@ def test_int8_matmul_kernel_matches_plain(cuda_device, lead, k, m, act):
     got = tq.int8_matmul(x, wq, s, b, act)
     torch.cuda.synchronize()
     assert tq.int8_matmul.launches == before + 1
+    plan = tq.adaln_plan(x.numel() // k, k, m, torch.cuda.get_device_properties(0).multi_processor_count)
+    assert tq.int8_matmul.body == plan.body
     _check_quant(got, tq.int8_matmul_reference, x, wq, s, b, act)
+    assert torch.equal(tq.int8_matmul(x, wq, s, b, act), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cw", [16, 32, 64])
+@pytest.mark.parametrize("rows", [5, 40, 64])
+def test_int8_matmul_skinny_widths_match_plain(cuda_device, cw, rows):
+    """Every CTA width the skinny body takes, at 5, 40 and 64 rows (one row
+    block of one n8 tile, then the plan's row blocks) and an odd M, against
+    the plain version; the same bits on a second call."""
+    g = torch.Generator(device=cuda_device).manual_seed(cw + rows)
+    k, m = 768, 999
+    x = torch.randn((rows, k), generator=g, device=cuda_device)
+    wq, s = _quant_weight(m, k, g, cuda_device)
+    b = torch.randn(m, generator=g, device=cuda_device) * 0.02
+    plan = tq.adaln_plan(rows, k, m, 132, cw=cw)
+    got = tq._adaln_launch(x, wq, s, b, "gelu_tanh", plan)
+    torch.cuda.synchronize()
+    assert tq.int8_matmul.body == "sm90_skinny"
+    assert tq._lib().int8_matmul_skinny_smem_bytes(k, cw, plan.row_block) == plan.smem_bytes
+    _check_quant(got, tq.int8_matmul_reference, x, wq, s, b, "gelu_tanh")
+    assert torch.equal(tq._adaln_launch(x, wq, s, b, "gelu_tanh", plan), got)
 
 
 @pytest.mark.cuda
