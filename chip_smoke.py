@@ -116,6 +116,24 @@ Phases (any failure raises and exits non-zero):
    train CLI with --num-model 2 --context-parallel --dist gloo beside a
    one-process run of the same seed (`[train-cp]`: losses, launch counts on
    every rank, seconds per optimizer step). Every rank must exit 0.
+14. The serving paths beyond the main chain, at DiT-B on kimi (after 6),
+   every launch count checked: the sample CLI with --sampling-method ddim
+   (`[slice-ddim]`) and --compute-dtype bf16 (`[slice-bf16]`: its device
+   time by kernel, one bf16 forward on the card within BF16_FORWARD_TOL of
+   the CPU's f32 one, rows 1 and 7 on bf16 inputs at the sampling shape
+   against their plain versions), each reparsed and timed in turns with the
+   f32 chain (`[serving]`); an in-painted chain whose known rows end at
+   known_x (`[inpaint]`); the Δ-cache on the f32 and the int8 model
+   (`[slice-accel]`, `[slice-accel-int8]`: the CLI at interval 2 with
+   launches full x depth + skipped x (depth - 8), tau 0 bit-equal to the
+   exact chain with 50 full steps, one forward recorded then applied at the
+   same input (record: the full forward's bits and block 2's input left as
+   it was; apply: the full forward within DELTA_APPLY_REL_TOL), then
+   intervals 1-3 and two taus on both drift modes: launches, device time,
+   the gap to the exact chain, s per step in turns and its ratio to both
+   chains that run every block (the exact one and tau 0), and tau 0 against
+   the exact chain for the cost of the per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
+   depth more launches). `[serving]` prints these phases' wall time.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -134,6 +152,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -290,6 +309,29 @@ ATTN_CP_CASES = [
     ("tail_inside_shard", 2, 3, 256, 96, 1, 2, 380, "bf16"),
     ("f32_stream", 4, 12, 256, 128, 0, 2, None, "f32"),
 ]
+# the serving paths (14): the Δ-cache span at DiT-B, (depth // 6, depth -
+# depth // 6); a skipped step runs the blocks outside it
+ACCEL_SPAN = (2, 10)
+# the sweep's fixed intervals, and the quantiles of the exact chain's
+# one-step drifts taken as its two taus (so both land where the chain can
+# skip, whatever the weights)
+ACCEL_INTERVALS = (2, 3)
+ACCEL_TAU_QUANTILES = (0.5, 0.9)
+# [slice-bf16]: a bf16-stream DiT-B forward on the card against the CPU's
+# f32-stream forward, max |diff| (the JAX package's bf16 test holds its
+# bf16 forward to f32 at this atol)
+BF16_FORWARD_TOL = 0.03
+# [inpaint]: known rows against known_x (the last step's mean is its x0
+# there, which the in-painting pinned; f32 coefficients near 1)
+INPAINT_TOL = 1e-5
+# the Δ applied to the input it was recorded at against the full forward:
+# they differ by the f32 rounding of before + (after - before) at block hi,
+# which flips a few bf16 roundings in the kernels of the blocks after the
+# span (~5e-4 of max |out| at DiT-B on an H100, ~1e-7 in the plain f32
+# versions); a Δ at the wrong block, a lost residual or a snapshot written
+# in place moves the output by the span's whole contribution (~0.4)
+DELTA_APPLY_REL_TOL = 1e-3
+REFINE_ITERS = 10
 TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA events
 PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 
@@ -1226,6 +1268,14 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
+def sample_argv(dev, ckpt_path, results_dir) -> list[str]:
+    """The sample CLI at DiT-B on kimi: STEPS CFG steps, band BAND, seed SEED."""
+    return ["--beatmap", BEATMAP, "--ckpt", ckpt_path, "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--num-sampling-steps", str(STEPS),
+            "--cfg-scale", str(CFG_SCALE), "--seq-len", str(BAND), "--seed", str(SEED),
+            "--device", dev, "--results-dir", results_dir]
+
+
 def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     """The sample CLI at DiT-B (f32, or int8 with --quantize-weights):
     launch counts, the written .osu, seconds per denoise step, a profile.
@@ -1252,10 +1302,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
         return out
 
     sampling.Sampler.__call__ = timed_call
-    argv = ["--beatmap", BEATMAP, "--ckpt", ckpt_path, "--model", MODEL,
-            "--num-classes", str(NUM_CLASSES), "--num-sampling-steps", str(STEPS),
-            "--cfg-scale", str(CFG_SCALE), "--seq-len", str(BAND), "--seed", str(SEED),
-            "--device", dev, "--results-dir", results_dir]
+    argv = sample_argv(dev, ckpt_path, results_dir)
     tag = "slice-int8" if quantize else "slice"
     args = build_sample_parser().parse_args(argv + ["--quantize-weights"] * quantize)
 
@@ -1362,7 +1409,8 @@ def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=Non
     versions), same weights: the whole model against its plain versions.
     (A whole chain is no fair check: at t near T the x0 prediction is
     x / sqrt(alpha_bar) - ..., a ~1e4 gain that makes the clamp to [-1, 2]
-    decide on ulp-level eps differences.)"""
+    decide on ulp-level eps differences.) Returns the outputs by where they
+    ran ("cpu": the CPU's f32-stream forward)."""
     import copy
 
     import torch
@@ -1404,27 +1452,390 @@ def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=Non
         print(f"[{tag}] quantisation error on the card, int8 vs f32 forward (same weights): "
               f"max_abs {gap:.3e}, relative to max |f32 out| "
               f"{gap / outs['f32'].abs().max().item():.3e} (printed, not a kernel check)")
+    return outs
 
 
-def phase_in_turns(dev, samplers, call_args):
-    """Seconds per denoise step of each sampler's chain, run in turns (the
-    host's speed drifts within a call; turns keep the comparison fair)."""
+def run_cli(dev, ckpt_path, results_dir, flags):
+    """One sample CLI run at DiT-B on kimi with extra `flags`: (each
+    kernel's launches in it, the paths written, the (name, sampler, args,
+    kwargs) of each Sampler call and refine pass it made)."""
+    import torch
+    from osu_diffusion_tpu_torch import sampling
+    from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
+
+    calls = []
+    originals = {name: getattr(sampling.Sampler, name) for name in ("__call__", "refine")}
+
+    def recording(name):
+        def call(self, *args, **kwargs):
+            calls.append((name, self, args, kwargs))
+            return originals[name](self, *args, **kwargs)
+        return call
+
+    args = build_sample_parser().parse_args(sample_argv(dev, ckpt_path, results_dir) + list(flags))
+    read_counts = reset_launch_counts()
+    for name in originals:
+        setattr(sampling.Sampler, name, recording(name))
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            written = sample_main(args)
+        torch.cuda.synchronize()
+    finally:
+        for name, fn in originals.items():
+            setattr(sampling.Sampler, name, fn)
+    return read_counts(), written, calls
+
+
+def check_written(tag, written, n, suffix=""):
+    """The CLI wrote `n` .osu files, the last ending in `suffix`.osu, each of
+    which reparses with hit objects."""
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
+
+    check(len(written) == n and written[-1].endswith(f"{suffix}.osu"), f"{tag}: wrote {written}")
+    for path in written:
+        check(len(Beatmap.from_path(path).hit_objects()) > 0, f"{tag}: {path} has no hit objects")
+
+
+def check_launches(tag, counts, expected):
+    """Each kernel in `expected` launched that many times, every other 0."""
+    print(f"[{tag}] launches {({k: v for k, v in counts.items() if v})} (expected {expected}, "
+          f"0 for the others)")
+    check(counts == {**dict.fromkeys(counts, 0), **expected}, f"{tag}: launches {counts}")
+
+
+def chain_ms(dev, sampler, call_args, **kwargs):
+    """(output, ms per denoise step) of one chain of `sampler` on call_args
+    with a fresh generator of SEED, CUDA events around it."""
     import torch
 
-    order = list(samplers) + list(samplers)[::-1]
-    step_ms = {name: [] for name in samplers}
-    for name in order:
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        samplers[name](*call_args, generator=torch.Generator(device=dev).manual_seed(SEED))
-        end.record()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = sampler(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED), **kwargs)
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end) / sampler.diffusion.num_timesteps
+
+
+def chain_profile(dev, sampler, call_args, host_ops=True, **kwargs):
+    """Device ms per denoise step of one more chain, by device op (kernels,
+    copies, memsets; torch.profiler, without recording host ops unless
+    `host_ops`): (total, [(ms per step, calls, name)] largest first)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
+        sampler(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED), **kwargs)
         torch.cuda.synchronize()
-        step_ms[name].append(start.elapsed_time(end) / STEPS)
-    print("[slice-int8] in turns " + ", ".join(order) + ": " + "; ".join(
-        f"{name} " + ", ".join(f"{ms / 1000:.6f}" for ms in v) + " s per denoise step"
-        for name, v in step_ms.items()))
-    return {name: sum(v) / len(v) for name, v in step_ms.items()}
+    steps = sampler.diffusion.num_timesteps
+    ops = sorted(((e.self_device_time_total / 1000 / steps, e.count, e.key) for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0),
+                 reverse=True)
+    check(len(ops) > 0, "the profiler saw no device op")
+    return sum(op[0] for op in ops), ops
+
+
+def chains_in_turns(dev, tag, samplers, call_args, rounds=3):
+    """Ms per denoise step of each sampler's chain, every sampler once a
+    round, the order reversed each round (the host's speed drifts within a
+    call): {name: [ms of each round]}, printed with the medians."""
+    order = list(samplers)
+    turns = {name: [] for name in order}
+    for r in range(rounds):
+        for name in order[::-1] if r % 2 else order:
+            turns[name].append(chain_ms(dev, samplers[name], call_args)[1])
+    print(f"[{tag}] in turns ({rounds} rounds, order reversed each round), s per denoise step: " + "; ".join(
+        f"{name} " + ", ".join(f"{ms / 1000:.6f}" for ms in v) for name, v in turns.items()))
+    return turns
+
+
+def phase_slice_ddim(dev, ckpt_path, tmp):
+    """[slice-ddim]: the sample CLI with --sampling-method ddim: rows 1 and
+    7 launched steps x depth times, the .osu reparses. Returns its sampler."""
+    counts, written, calls = run_cli(dev, ckpt_path, os.path.join(tmp, "results-ddim"),
+                                     ["--sampling-method", "ddim"])
+    _, sampler, args, _ = calls[-1]
+    depth = len(sampler.model.blocks)
+    check(sampler.method == "ddim", f"slice-ddim: method {sampler.method}")
+    check_launches("slice-ddim", counts, dict.fromkeys(("banded_attention", "adaln_mlp"), STEPS * depth))
+    check_written("slice-ddim", written, 1)
+    device_ms, _ = chain_profile(dev, sampler, args, host_ops=False)
+    print(f"[slice-ddim] wrote {os.path.basename(written[0])}; device {device_ms:.3f} ms per step")
+    return sampler, device_ms
+
+
+def phase_slice_bf16(dev, ckpt_path, tmp, call_args, cpu_out):
+    """[slice-bf16]: the sample CLI with --compute-dtype bf16: rows 1 and 7
+    launched steps x depth times on the bf16 stream, the .osu reparses; s
+    per denoise step and the device time by kernel; one bf16 forward on the
+    card against the CPU's f32-stream forward (`cpu_out`, at
+    phase_forward_vs_plain's inputs: call_args at t = 500); rows 1 and 7 on
+    bf16 inputs at the sampling shape against their plain versions.
+    Returns its sampler and device ms per step."""
+    import torch
+    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_reference
+    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention, banded_attention_reference
+    from osu_diffusion_tpu_torch.sampling import _bucketed, _pad_time
+
+    bf16 = torch.bfloat16
+    counts, written, calls = run_cli(dev, ckpt_path, os.path.join(tmp, "results-bf16"),
+                                     ["--compute-dtype", "bf16"])
+    _, sampler, args, _ = calls[-1]
+    depth = len(sampler.model.blocks)
+    print(f"[slice-bf16] row 1 body {banded_attention.body}, row 7 body {adaln_mlp.body}")
+    check(sampler.compute_dtype == bf16, f"slice-bf16: stream {sampler.compute_dtype}")
+    check(banded_attention.body == adaln_mlp.body == "sm90",
+          f"slice-bf16: bodies {banded_attention.body}, {adaln_mlp.body}")
+    check_launches("slice-bf16", counts, dict.fromkeys(("banded_attention", "adaln_mlp"), STEPS * depth))
+    check_written("slice-bf16", written, 1)
+    out, _ = chain_ms(dev, sampler, args)
+    check(out.dtype == torch.float32 and bool(torch.isfinite(out).all()), "slice-bf16: samples")
+    device_ms, ops = chain_profile(dev, sampler, args)
+    print(f"[slice-bf16] device {device_ms:.3f} ms per step ({len(ops)} kinds of device op)")
+    for ms, n, name in ops[:8]:
+        print(f"[slice-bf16]   {ms:9.4f} ms per step  {n:6d}x  {name[:90]}")
+    row1 = sum(ms for ms, _, name in ops if ATTN_FWD_KERNEL in name)
+    row7 = sum(ms for ms, _, name in ops if any(k in name for k in MLP_SM90_KERNELS))
+    print(f"[slice-bf16] row 1 {row1:.3f} ms, kernel B {row7:.3f} ms of device time per denoise step")
+
+    # one forward, bf16 stream on the card against the f32 stream on the CPU
+    z, o, c, y = call_args
+    t_real = z.shape[1]
+    t_pad = _bucketed(t_real, sampler.bucket)
+    t = torch.full((z.shape[0],), 500, dtype=torch.long, device=dev)
+    with torch.no_grad():
+        got = sampler.model.forward_with_cfg(
+            _pad_time(z, t_pad), t, _pad_time(o, t_pad), _pad_time(c, t_pad), y, sampler.cfg_scale,
+            band=sampler.band, valid_len=t_real, dtype=bf16)[:, :t_real].cpu()
+    err = max_err(got, cpu_out)
+    print(f"[slice-bf16] DiT-B forward_with_cfg, bf16 stream on the card vs the f32 stream on the CPU: "
+          f"max_abs {err:.3e} (tol {BF16_FORWARD_TOL}), relative to max |out| "
+          f"{err / cpu_out.abs().max().item():.3e}")
+    check(got.dtype == torch.float32 and err <= BF16_FORWARD_TOL, f"slice-bf16: forward {err}")
+
+    # rows 1 and 7 on bf16 inputs at the sampling shape ([attn]/[mlp] hold their f32 calls)
+    g = torch.Generator(device=dev).manual_seed(3)
+    n, h, d = z.shape[0], 12, 768
+    qkv = torch.randn((n, t_pad, 3 * d), generator=g, device=dev).to(bf16)
+    q, k, v = (a.view(n, t_pad, h, 64).transpose(1, 2) for a in qkv.split(d, dim=-1))
+    attn = banded_attention(q, k, v, BAND, t_real)
+    e_attn = rel_err(attn, banded_attention_reference(q, k, v, BAND, t_real, bf16))
+    x = torch.randn((n, t_pad, d), generator=g, device=dev).to(bf16)
+    mod = torch.randn((n, 3 * d), generator=g, device=dev) * 0.3
+    shift, scale, gate = mod[:, :d], mod[:, d:2 * d], mod[:, 2 * d:]
+    w1 = torch.randn((4 * d, d), generator=g, device=dev).mul(d ** -0.5).to(bf16)
+    w2 = torch.randn((d, 4 * d), generator=g, device=dev).mul((4 * d) ** -0.5).to(bf16)
+    b1, b2 = (torch.randn(m, generator=g, device=dev) * 0.02 for m in (4 * d, d))
+    mlp = adaln_mlp(x, shift, scale, gate, w1, b1, w2, b2)
+    e_mlp = rel_err(mlp, adaln_mlp_reference(x, shift, scale, gate, w1.t(), b1, w2.t(), b2, 1e-6, bf16))
+    attn_ms = cuda_ms(lambda: banded_attention(q, k, v, BAND, t_real))
+    mlp_ms = cuda_ms(lambda: adaln_mlp(x, shift, scale, gate, w1, b1, w2, b2))
+    print(f"[slice-bf16] row 1 on bf16 q/k/v {tuple(q.shape)} (body {banded_attention.body}): "
+          f"{e_attn:.3e} of max from its plain version, {attn_ms:.4f} ms; row 7 on bf16 x "
+          f"{tuple(x.shape)} (body {adaln_mlp.body}): {e_mlp:.3e}, {mlp_ms:.4f} ms "
+          f"(tol {TRAIN_TOL_BF16} of max: a bf16 output rounds to 2^-8 of itself)")
+    check(attn.dtype == mlp.dtype == bf16, f"slice-bf16: outputs {attn.dtype}, {mlp.dtype}")
+    check(e_attn <= TRAIN_TOL_BF16 and e_mlp <= TRAIN_TOL_BF16, f"slice-bf16: rows 1/7 {e_attn}, {e_mlp}")
+    return sampler, device_ms
+
+
+def phase_inpaint(dev, sampler, call_args):
+    """[inpaint]: the f32 Sampler with the second half of the sequence known:
+    those rows end at known_x, the others are sampled; rows 1 and 7 launched
+    steps x depth times."""
+    import torch
+
+    z = call_args[0]
+    g = torch.Generator(device=dev).manual_seed(4)
+    known_x = torch.rand(z.shape, generator=g, device=dev)
+    free = torch.ones(z.shape, dtype=torch.bool, device=dev)
+    free[:, z.shape[1] // 2:] = False  # False: pinned to known_x
+    read_counts = reset_launch_counts()
+    out, step_ms = chain_ms(dev, sampler, call_args, known_x=known_x, known_mask=free)
+    depth = len(sampler.model.blocks)
+    check_launches("inpaint", read_counts(), dict.fromkeys(("banded_attention", "adaln_mlp"), STEPS * depth))
+    err = max_err(out[~free], known_x[~free])
+    moved = max_err(out[free], known_x[free])
+    print(f"[inpaint] {int((~free).sum()) // 2} of {z.numel() // 2} points known: their max |out - "
+          f"known_x| {err:.3e} (tol {INPAINT_TOL}); the free points' {moved:.3f}; "
+          f"{step_ms / 1000:.6f} s per denoise step")
+    check(err <= INPAINT_TOL and moved > 1e-2 and bool(torch.isfinite(out).all()),
+          f"inpaint: known rows {err}, free rows {moved}")
+
+
+def accel_launches(kernels, steps_full: int, steps_skipped: int, depth: int) -> dict:
+    """Each kernel of the path once a block: every block on a full step,
+    the blocks outside ACCEL_SPAN on a skipped one."""
+    span = ACCEL_SPAN[1] - ACCEL_SPAN[0]
+    return dict.fromkeys(kernels, steps_full * depth + steps_skipped * (depth - span))
+
+
+def delta_roundtrip(tag, sampler, args) -> None:
+    """One forward_with_cfg at the chain's x_T and a middle step, off, then
+    "record", then "apply" with the recorded Δ, on the card: "record" gives
+    the full forward's bits and leaves block lo's input (the Δ snapshot) as
+    it was, and "apply" gives the full forward within DELTA_APPLY_REL_TOL of
+    max |out|."""
+    import torch
+
+    x, model_fn, _, _, finish = sampler._setup(*args, None, None, True, None, None)
+    t = sampler.diffusion.timestep_map[torch.full((x.shape[0],), STEPS // 2, device=x.device)]
+    span = dict(delta_span=ACCEL_SPAN)
+    snapshot = {}
+
+    def keep_input(module, inputs):
+        snapshot["x"], snapshot["copy"] = inputs[0], inputs[0].clone()
+
+    with torch.no_grad():
+        full = model_fn(x, t)
+        hook = sampler.model.blocks[ACCEL_SPAN[0]].register_forward_pre_hook(keep_input)
+        try:
+            recorded, delta = model_fn(x, t, delta_mode="record", **span)
+        finally:
+            hook.remove()
+        applied, _ = model_fn(x, t, delta_mode="apply", delta=delta, **span)
+    kept = torch.equal(snapshot["x"], snapshot["copy"])
+    same = torch.equal(recorded, full)
+    rel = max_err(finish(applied), finish(full)) / finish(full).abs().max().item()
+    print(f"[{tag}] Δ round trip at step {STEPS // 2}: record gives the full forward's bits: {same}; "
+          f"block {ACCEL_SPAN[0]}'s input unchanged by it: {kept}; apply against the full forward "
+          f"{rel:.3e} of max |out| (tol {DELTA_APPLY_REL_TOL}); |Δ| max {delta.abs().max().item():.3e}")
+    check(same and kept and rel <= DELTA_APPLY_REL_TOL and bool(torch.isfinite(applied).all()),
+          f"{tag}: Δ round trip: record bits {same}, snapshot kept {kept}, apply {rel}")
+
+
+def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
+    """[slice-accel] (f32) or [slice-accel-int8] (--quantize-weights): the
+    sample CLI with --accel-interval 2 (launches from the schedule, the .osu
+    reparses); tau 0 bit-equal to the exact chain with every step full; a
+    record-then-apply round trip of one forward (`delta_roundtrip`); a
+    sweep through the Sampler (intervals, two taus on both drift modes):
+    full steps, launches, device ms per step and the gap to the exact chain,
+    then s per denoise step in turns, with the cost of the adaptive chain's
+    per-step read of the drift (tau 0 against the exact chain: the same
+    work)."""
+    import torch
+    from osu_diffusion_tpu_torch import sampling
+
+    tag = "slice-accel-int8" if quantize else "slice-accel"
+    kernels = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
+                "adaln_mlp_quant"] if quantize else ["banded_attention", "adaln_mlp"])
+    counts, written, calls = run_cli(dev, ckpt_path, os.path.join(tmp, f"results-{tag}"),
+                                     ["--accel-interval", "2"] + ["--quantize-weights"] * quantize)
+    _, cli_sampler, args, _ = calls[-1]
+    model, diffusion = cli_sampler.model, cli_sampler.diffusion
+    depth = len(model.blocks)
+    check(cli_sampler.accel_span == ACCEL_SPAN, f"{tag}: span {cli_sampler.accel_span}")
+    full = cli_sampler.last_full_model_steps
+    check(full == STEPS // 2 + 1, f"{tag}: {full} full steps at interval 2")
+    check_launches(tag, counts, accel_launches(kernels, full, STEPS - full, depth))
+    check_written(tag, written, 1)
+
+    def make(**kw):
+        return sampling.Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND, **kw)
+
+    # tau 0: every step full (the drift is > 0 after the first), the exact chain's bits
+    drifts = []
+    orig_drift = sampling.drift
+
+    def recorded(*a):
+        d = orig_drift(*a)
+        drifts.append(d.item())
+        return d
+
+    exact = make()
+    exact_out, _ = chain_ms(dev, exact, args)
+    tau0 = make(accel_tau=0.0)
+    sampling.drift = recorded
+    try:
+        tau0_out, _ = chain_ms(dev, tau0, args)
+    finally:
+        sampling.drift = orig_drift
+    same = torch.equal(tau0_out, exact_out)
+    print(f"[{tag}] tau 0: {tau0.last_full_model_steps} full steps of {STEPS}, bit-equal to the exact "
+          f"chain: {same}")
+    check(same and tau0.last_full_model_steps == STEPS, f"{tag}: tau 0 chain")
+    delta_roundtrip(tag, exact, args)
+    # the sweep's two taus: quantiles of the exact chain's one-step drifts
+    taus = [float(torch.tensor(drifts).quantile(q)) for q in ACCEL_TAU_QUANTILES]
+    settings = [("exact (interval 1)", {})]
+    settings += [(f"interval {k}", dict(accel_interval=k)) for k in ACCEL_INTERVALS]
+    settings += [(f"tau {tau:.4f} ({q:.0%} of one-step drifts) {mode}",
+                  dict(accel_tau=tau, accel_drift=mode))
+                 for q, tau in zip(ACCEL_TAU_QUANTILES, taus) for mode in sampling.ACCEL_DRIFTS]
+    samplers, device, ms = {}, {}, {}
+    for name, kw in settings:
+        samplers[name] = sampler = make(**kw)
+        read_counts = reset_launch_counts()
+        out, _ = chain_ms(dev, sampler, args)
+        full = STEPS if sampler.last_full_model_steps is None else sampler.last_full_model_steps
+        check_launches(tag, read_counts(), accel_launches(kernels, full, STEPS - full, depth))
+        device[name], _ = chain_profile(dev, sampler, args, host_ops=False)
+        diff = (out - exact_out).abs()
+        print(f"[{tag}] {name}: {full} full steps of {STEPS}, device {device[name]:.3f} ms per step; "
+              f"gap to the exact chain max {diff.max().item():.3e}, median {diff.median().item():.3e}")
+    # s per step in turns; tau 0 (a drift read a step, every step full)
+    # against the exact chain (no read) is what the adaptive chain's host
+    # read of the drift costs
+    samplers["tau 0"] = tau0
+    for name, v in chains_in_turns(dev, tag, samplers, args).items():
+        ms[name] = statistics.median(v)
+    print(f"[{tag}] medians, s per denoise step (busy share of the device time): " + "; ".join(
+        f"{name} {v / 1000:.6f}" + (f" ({100 * device[name] / v:.1f}%)" if name in device else "")
+        for name, v in ms.items()))
+    exact_ms = ms[settings[0][0]]
+    print(f"[{tag}] s per step against the two chains that run every block (exact, tau 0): " + "; ".join(
+        f"{name} {v / exact_ms:.3f}x, {v / ms['tau 0']:.3f}x" for name, v in ms.items()
+        if name not in (settings[0][0], "tau 0")))
+    print(f"[{tag}] per-step drift read (.item()): tau 0 {ms['tau 0'] / 1000:.6f} against exact "
+          f"{ms[settings[0][0]] / 1000:.6f} s per denoise step, {ms['tau 0'] - ms[settings[0][0]]:+.4f} ms")
+
+
+def phase_refine(dev, ckpt_path, tmp):
+    """[refine]: the sample CLI with --refine-ckpt (the same checkpoint) and
+    --refine-iters REFINE_ITERS: a second .osu that reparses, and
+    REFINE_ITERS x depth more launches of rows 1 and 7."""
+    import torch
+
+    counts, written, calls = run_cli(dev, ckpt_path, os.path.join(tmp, "results-refine"),
+                                     ["--refine-ckpt", ckpt_path, "--refine-iters", str(REFINE_ITERS)])
+    (_, refiner, args, _), = [call for call in calls if call[0] == "refine"]
+    depth = len(refiner.model.blocks)
+    check_launches("refine", counts, dict.fromkeys(("banded_attention", "adaln_mlp"),
+                                                   (STEPS + REFINE_ITERS) * depth))
+    check_written("refine", written, 2, f" {REFINE_ITERS}")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    refiner.refine(*args, generator=torch.Generator(device=dev).manual_seed(SEED))
+    end.record()
+    torch.cuda.synchronize()
+    print(f"[refine] wrote {os.path.basename(written[-1])}; "
+          f"{start.elapsed_time(end) / REFINE_ITERS / 1000:.6f} s per refine step")
+
+
+def phase_serving(dev, tmp, ckpt_path, sampler, call_args, cpu_out):
+    """The serving paths beyond the main chain (14): DDIM, the bf16 stream
+    (each in turns with the f32 ancestral chain), in-painting, the Δ-cache
+    on f32 and int8 blocks, and the refine pass."""
+    wall = time.perf_counter()
+    ddim, ddim_device_ms = phase_slice_ddim(dev, ckpt_path, tmp)
+    bf16, bf16_device_ms = phase_slice_bf16(dev, ckpt_path, tmp, call_args, cpu_out)
+    f32_device_ms, _ = chain_profile(dev, sampler, call_args, host_ops=False)
+    turns = chains_in_turns(dev, "serving", {"f32 ancestral": sampler, "ddim": ddim, "bf16": bf16},
+                            call_args)
+    ms = {name: statistics.median(v) for name, v in turns.items()}
+    device = {"f32 ancestral": f32_device_ms, "ddim": ddim_device_ms, "bf16": bf16_device_ms}
+    print("[serving] medians, s per denoise step (device ms per step, busy share): " + "; ".join(
+        f"{name} {ms[name] / 1000:.6f} ({device[name]:.3f}, {100 * device[name] / ms[name]:.1f}%)"
+        for name in ms))
+    del ddim, bf16
+    phase_inpaint(dev, sampler, call_args)
+    phase_slice_accel(dev, ckpt_path, tmp)
+    phase_slice_accel(dev, ckpt_path, tmp, quantize=True)
+    phase_refine(dev, ckpt_path, tmp)
+    print(f"[serving] the serving phases took {time.perf_counter() - wall:.1f} s")
 
 
 def reset_launch_counts():
@@ -2278,11 +2689,13 @@ def main() -> int:
         torch.save({"ema": sd}, ckpt)
         del model, sd
         launches, sampler, call_args, f32_step_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
-        phase_forward_vs_plain(dev, sampler, call_args)
+        forward = phase_forward_vs_plain(dev, sampler, call_args)
+        phase_serving(dev, tmp, ckpt, sampler, call_args, forward["cpu"])
         launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
-        turns = phase_in_turns(dev, {"f32": sampler, "int8": qsampler}, call_args)
+        turns = {name: sum(v) / len(v) for name, v in chains_in_turns(
+            dev, "slice-int8", {"f32": sampler, "int8": qsampler}, call_args, rounds=2).items()}
         print(f"[slice-int8] int8 against f32 in this call: {int8_step_ms / 1000:.6f} against "
               f"{f32_step_ms / 1000:.6f} s per denoise step in the CLI runs "
               f"({f32_step_ms / int8_step_ms:.3f}x), {turns['int8'] / 1000:.6f} against "

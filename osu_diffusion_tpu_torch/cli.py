@@ -6,7 +6,16 @@ writes each result as a .osu file. On a CUDA device every DiT block runs the
 inference kernels (banded attention with band = --seq-len, and the fused
 adaLN-MLP). With --quantize-weights the f32 checkpoint is quantized to int8
 weight-only blocks at load (models/quantize.py) and every block runs the
-int8 kernels around the banded attention core instead.
+int8 kernels around the banded attention core instead. The JAX CLI's
+sampling flags: --sampling-method ddim, --compute-dtype bf16 (a bf16
+residual stream; refused with --quantize-weights), the Δ-cache
+(--accel-interval, --accel-span, --accel-tau, --accel-max-skip),
+--augment-flip, the refine pass (--refine-ckpt, --refine-iters: a second
+.osu per variant), and --plot-time/--plot-width/--make-animation (which
+import matplotlib when asked; nothing else needs it). --use-amp is accepted
+and changes nothing. The JAX CLI's --use-pallas and --scan-blocks have no
+counterpart, and its `serving_regime_warnings` (thresholds measured on a
+TPU) is not ported.
 
 train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
 every block runs the training kernels (with --mlp-bwd fused also the MLP
@@ -34,11 +43,14 @@ import numpy as np
 import torch
 
 from osu_diffusion_tpu_torch.beatmap import Beatmap
-from osu_diffusion_tpu_torch.export import create_beatmap
+from osu_diffusion_tpu_torch.export import create_beatmap, plot_beatmap
 from osu_diffusion_tpu_torch import CONTEXT_SIZE
 from osu_diffusion_tpu_torch.data.dataset import get_beatmap_idx
 from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
-from osu_diffusion_tpu_torch.data.process import split_and_process_sequence_no_augment
+from osu_diffusion_tpu_torch.data.process import (
+    split_and_process_sequence,
+    split_and_process_sequence_no_augment,
+)
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
 from osu_diffusion_tpu_torch.models.quantize import restore_quantized
@@ -63,13 +75,74 @@ def build_sample_parser() -> argparse.ArgumentParser:
     parser.add_argument("--seq-len", type=int, default=128,
                         help="attention band half-width (the training window)")
     parser.add_argument("--style-id", type=int, default=None)
+    parser.add_argument("--plot-time", type=float, default=None,
+                        help="trim the map to --seq-len points from this time (ms) and plot "
+                             "each result there (needs matplotlib)")
+    parser.add_argument("--plot-width", type=float, default=2000)
     parser.add_argument("--num-variants", type=int, default=1)
+    parser.add_argument("--refine-ckpt", type=str, default=None,
+                        help="a refine model (train_nodist_torch.py): after sampling, "
+                             "--refine-iters t = 0 steps with its weights, written as a second "
+                             ".osu per variant")
+    parser.add_argument("--refine-iters", type=int, default=10)
+    parser.add_argument("--compute-dtype", choices=["f32", "bf16"], default="f32",
+                        help="the model's residual stream; the diffusion math and the model's "
+                             "head stay f32 (bf16 is refused with --quantize-weights). bf16 is "
+                             "slower end to end than f32 for now: every forward casts the "
+                             "projections' f32 weights to bf16 again (ROADMAP.md Queue 1)")
     parser.add_argument("--results-dir", type=str, default="results")
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--make-animation", action=argparse.BooleanOptionalAction, default=False,
+                        help="with --plot-time: animation.gif of the denoising chain")
+    parser.add_argument("--augment-flip", action=argparse.BooleanOptionalAction, default=False,
+                        help="flip the map at random before sampling, as the reference's "
+                             "sampler did (drawn from --seed)")
     parser.add_argument("--quantize-weights", action=argparse.BooleanOptionalAction, default=False,
                         help="serve int8 weight-only blocks (symmetric per-output-channel "
                              "absmax/127, quantized at load); embedders and final layer stay f32")
+    parser.add_argument("--use-amp", action=argparse.BooleanOptionalAction, default=True,
+                        help="accepted for the reference's flag surface; --compute-dtype sets "
+                             "the stream")
+    parser.add_argument("--sampling-method", type=str, default="ancestral",
+                        choices=["ancestral", "ddim"])
+    parser.add_argument("--accel-interval", type=int, default=1,
+                        help="Δ-cache sampling (approximate): every block every Nth denoise "
+                             "step and on the last, the cached middle-span residual in "
+                             "between; 1 = exact sampling")
+    parser.add_argument("--accel-span", type=int, nargs=2, default=None, metavar=("LO", "HI"),
+                        help="block range [LO, HI) the Δ-cache covers (default: the middle "
+                             "two-thirds of the depth)")
+    parser.add_argument("--accel-tau", type=float, default=None,
+                        help="adaptive Δ-cache: reuse the cached Δ while the model input's "
+                             "relative drift since the last full step stays at or below TAU "
+                             "(replaces the --accel-interval schedule)")
+    parser.add_argument("--accel-max-skip", type=int, default=7,
+                        help="adaptive Δ-cache: a full step after this many skips in a row")
     return parser
+
+
+def _load_model(ckpt: str, args, device) -> torch.nn.Module:
+    """The f32 checkpoint as a DiT on `device` (int8 blocks under
+    --quantize-weights), in eval mode."""
+    kwargs = dict(num_classes=args.num_classes, context_size=CONTEXT_SIZE)
+    if args.quantize_weights:
+        model = restore_quantized(ckpt, DiT_models[args.model], **kwargs)
+    else:
+        model = DiT_models[args.model](**kwargs)
+        model.load_state_dict(load_checkpoint(ckpt))
+    return model.to(device).eval()
+
+
+def _plot_axes():
+    """A matplotlib figure and axes over the playfield (matplotlib is
+    imported here only: the serving path does not need it)."""
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots()
+    ax.axis("equal")
+    ax.set_xlim([0, 512])
+    ax.set_ylim([384, 0])
+    return plt, fig, ax
 
 
 def sample_main(args) -> list[str]:
@@ -87,19 +160,19 @@ def sample_main(args) -> list[str]:
     os.makedirs(result_dir, exist_ok=True)
 
     seq_no_embed = beatmap_to_sequence(beatmap)  # (T, 19)
-    (_, seq_o, seq_c), seq_len = split_and_process_sequence_no_augment(
-        torch.from_numpy(seq_no_embed).to(device)
-    )
+    if args.plot_time is not None:
+        start = int(np.nonzero(seq_no_embed[:, 2] >= args.plot_time)[0][0])
+        seq_no_embed = seq_no_embed[start:start + args.seq_len]
+        print(f"Sequence trimmed to length {seq_no_embed.shape[0]}")
+    seq = torch.from_numpy(seq_no_embed).to(device)
+    if args.augment_flip:
+        (_, seq_o, seq_c), seq_len = split_and_process_sequence(seq, generator=generator)
+    else:
+        (_, seq_o, seq_c), seq_len = split_and_process_sequence_no_augment(seq)
     seq_o = seq_o - seq_o[0]
     print(f"seq len {seq_len}")
 
-    model_kwargs = dict(num_classes=args.num_classes, context_size=CONTEXT_SIZE)
-    if args.quantize_weights:
-        model = restore_quantized(args.ckpt, DiT_models[args.model], **model_kwargs)
-    else:
-        model = DiT_models[args.model](**model_kwargs)
-        model.load_state_dict(load_checkpoint(args.ckpt))
-    model.to(device).eval()
+    model = _load_model(args.ckpt, args, device)
     diffusion = create_diffusion(
         str(args.num_sampling_steps), noise_schedule="squaredcos_cap_v2", device=device
     )
@@ -111,21 +184,65 @@ def sample_main(args) -> list[str]:
         class_labels = [args.num_classes]
 
     z, o, c, y = prepare_cfg_inputs(seq_o, seq_c, class_labels, args.num_classes, generator)
-    sampler = Sampler(model, diffusion, cfg_scale=args.cfg_scale, band=args.seq_len)
-    samples = sampler(z, o, c, y, generator=generator)
+    sampler = Sampler(
+        model, diffusion, cfg_scale=args.cfg_scale, band=args.seq_len,
+        method=args.sampling_method,
+        compute_dtype=torch.bfloat16 if args.compute_dtype == "bf16" else torch.float32,
+        accel_interval=args.accel_interval,
+        accel_span=tuple(args.accel_span) if args.accel_span else None,
+        accel_tau=args.accel_tau, accel_max_skip=args.accel_max_skip,
+    )
 
     n = len(class_labels)
-    coords = samples[:n].cpu().numpy()  # drop the null-class half
-    rest = np.broadcast_to(seq_no_embed[None, :, 2:], (n, seq_len, 17))
+
+    def to_seq(samples):
+        coords = samples[:n].cpu().numpy()  # drop the null-class half
+        rest = np.broadcast_to(seq_no_embed[None, :, 2:], (n, seq_len, 17))
+        return np.concatenate([coords, rest], axis=-1)
+
     written: list[str] = []
-    for i, seq in enumerate(np.concatenate([coords, rest], axis=-1)):
-        try:
-            new_beatmap = create_beatmap(seq, beatmap, f"Diffusion {args.style_id} {i} {datetime.now()}")
-            out_path = os.path.join(result_dir, f"{beatmap.beatmap_id} result {args.style_id} {i}.osu")
-            new_beatmap.write_path(out_path)
-            written.append(out_path)
-        except Exception as e:  # one undecodable variant must not lose the others
-            logging.error("Failed to create beatmap.", exc_info=e)
+
+    def save_sequence(sampled_seq, iteration=None):
+        suffix = "" if iteration is None else f" {iteration}"
+        for i, seq in enumerate(sampled_seq):
+            try:
+                new_beatmap = create_beatmap(
+                    seq, beatmap, f"Diffusion {args.style_id} {i} {datetime.now()}{suffix}")
+                out_path = os.path.join(
+                    result_dir, f"{beatmap.beatmap_id} result {args.style_id} {i}{suffix}.osu")
+                new_beatmap.write_path(out_path)
+                written.append(out_path)
+                if args.plot_time is not None:
+                    plt, _, ax = _plot_axes()
+                    plot_beatmap(ax, new_beatmap, args.plot_time, args.plot_width)
+                    plt.show()
+            except Exception as e:  # one undecodable variant must not lose the others
+                logging.error("Failed to create beatmap.", exc_info=e)
+
+    if args.plot_time is not None and args.make_animation:
+        from matplotlib import animation
+
+        frames = sampler.progressive(z, o, c, y, generator=generator)
+        _, fig, ax = _plot_axes()
+        artists = []
+        for frame in frames:
+            sampled_seq = to_seq(frame)
+            frame_map = create_beatmap(sampled_seq[0], beatmap, f"Diffusion {args.style_id}")
+            artists.append(plot_beatmap(ax, frame_map, args.plot_time, args.plot_width))
+        ani = animation.ArtistAnimation(fig=fig, artists=artists, interval=1000 // 24)
+        ani.save(filename=os.path.join(result_dir, "animation.gif"), writer="pillow")
+        save_sequence(sampled_seq)
+        return written
+
+    samples = sampler(z, o, c, y, generator=generator)
+    save_sequence(to_seq(samples))
+    if args.refine_ckpt is not None:
+        # the refine model's t = 0 steps over the samples, with the band of
+        # the main chain and the f32 stream (as the JAX CLI runs it)
+        refiner = Sampler(_load_model(args.refine_ckpt, args, device), diffusion,
+                          cfg_scale=args.cfg_scale, band=args.seq_len)
+        save_sequence(to_seq(refiner.refine(samples, o, c, y, args.refine_iters,
+                                            generator=generator)), args.refine_iters)
     return written
 
 

@@ -1,20 +1,23 @@
 """Gaussian diffusion (port of osu_diffusion_tpu/diffusion/process.py):
-the sampling chain and the training losses.
+the sampling chains and the training losses.
 
 - Coefficient tables are computed in float64 numpy and stored as float32
   tensors on the process's device.
 - Respacing is data: `timestep_map[t]` is gathered before the model call.
-- `p_sample_loop` is a Python loop over t = S-1 .. 0. Each step's noise comes
-  from an explicit `torch.Generator`, or from `noise_fn(step_index, shape)`
-  so a test can feed in another framework's draws.
+- The chains (`p_sample_loop`, `p_sample_loop_progressive`,
+  `ddim_sample_loop`) are Python loops over t = S-1 .. 0. Each step's noise
+  comes from an explicit `torch.Generator`, or from `noise_fn(step_index,
+  shape)` so a test can feed in another framework's draws (DDIM steps draw
+  theirs too, scaled by eta). `denoised_fn` (in-painting) edits each x0
+  prediction before the clamp.
 - Channel layout is (N, T, C); the eps/variance split is over the last axis.
 
 The model predicts eps and a learned-range variance (the DiT's
 learn_sigma head), the only parameterization the port meets. Quirks kept
 from the reference: the x0 clamp to [-1, 2] under `clip_denoised` (the
-playfield-normalized range; the sampler always clips, the VLB term never
-does), the learned_range variance interpolated in log space between the
-posterior and beta, the VLB computed on a detached mean prediction, and the
+playfield-normalized range; the sampler clips, the VLB term never does),
+the learned_range variance interpolated in log space between the posterior
+and beta, the VLB computed on a detached mean prediction, and the
 discretized decoder likelihood with 1/255 bins and a tanh CDF.
 `loss_type` is "l1" or "mse" (the eps loss; the VLB is added unscaled).
 """
@@ -63,6 +66,15 @@ def discretized_gaussian_log_likelihood(x, *, means, log_scales):
     return torch.where(
         x < -0.999, log_cdf_plus, torch.where(x > 0.999, log_one_minus_cdf_min, log_cdf_delta)
     )
+
+
+def draw_noise(k: int, x: torch.Tensor, generator: torch.Generator | None,
+               noise_fn: NoiseFn | None) -> torch.Tensor:
+    """Step k's noise at x's shape: `noise_fn(k, shape)` when given, else a
+    draw from `generator` on x's device."""
+    if noise_fn is not None:
+        return noise_fn(k, tuple(x.shape))
+    return torch.randn(x.shape, generator=generator, device=x.device, dtype=x.dtype)
 
 
 def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -128,11 +140,17 @@ class GaussianDiffusion:
             - _extract(self.sqrt_recipm1_alphas_cumprod, t, nd) * eps
         )
 
-    def p_mean_variance(self, model_fn: ModelFn, x, t,
-                        clip_denoised: bool = True) -> dict[str, torch.Tensor]:
-        """p(x_{t-1} | x_t) and the x_0 prediction, clamped to [-1, 2] under
-        `clip_denoised`. The model output is (..., 2C): eps, then the
-        learned-range variance values."""
+    def _predict_eps_from_xstart(self, x_t, t, pred_xstart):
+        nd = x_t.ndim
+        return (
+            _extract(self.sqrt_recip_alphas_cumprod, t, nd) * x_t - pred_xstart
+        ) / _extract(self.sqrt_recipm1_alphas_cumprod, t, nd)
+
+    def p_mean_variance(self, model_fn: ModelFn, x, t, clip_denoised: bool = True,
+                        denoised_fn: Callable | None = None) -> dict[str, torch.Tensor]:
+        """p(x_{t-1} | x_t) and the x_0 prediction: `denoised_fn` applied to
+        it first, then the clamp to [-1, 2] under `clip_denoised`. The model
+        output is (..., 2C): eps, then the learned-range variance values."""
         nd = x.ndim
         c = x.shape[-1]
         model_output = model_fn(x, self.timestep_map[t])
@@ -142,6 +160,8 @@ class GaussianDiffusion:
         frac = (var_values + 1) / 2
         model_log_variance = frac * max_log + (1 - frac) * min_log
         pred_xstart = self._predict_xstart_from_eps(x, t, eps)
+        if denoised_fn is not None:
+            pred_xstart = denoised_fn(pred_xstart)
         if clip_denoised:  # playfield-normalized clamp, as the reference does
             pred_xstart = pred_xstart.clamp(-1.0, 2.0)
         return {
@@ -150,36 +170,86 @@ class GaussianDiffusion:
             "pred_xstart": pred_xstart,
         }
 
-    def p_sample(self, model_fn: ModelFn, x, t, noise: torch.Tensor) -> dict[str, torch.Tensor]:
+    def p_sample(self, model_fn: ModelFn, x, t, noise: torch.Tensor, clip_denoised: bool = True,
+                 denoised_fn: Callable | None = None) -> dict[str, torch.Tensor]:
         """One ancestral step x_t -> x_{t-1}, with the step's noise given."""
-        out = self.p_mean_variance(model_fn, x, t)
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
         nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (x.ndim - 1))
         sample = out["mean"] + nonzero * torch.exp(0.5 * out["log_variance"]) * noise
         return {"sample": sample, "pred_xstart": out["pred_xstart"]}
 
-    def p_sample_loop(
-        self,
-        model_fn: ModelFn,
-        noise: torch.Tensor,
-        generator: torch.Generator | None = None,
-        noise_fn: NoiseFn | None = None,
-    ) -> torch.Tensor:
+    def ddim_sample(self, model_fn: ModelFn, x, t, noise: torch.Tensor, clip_denoised: bool = True,
+                    denoised_fn: Callable | None = None,
+                    eta: float = 0.0) -> dict[str, torch.Tensor]:
+        """One DDIM step x_t -> x_{t-1}; `eta` scales the step's noise (0:
+        the deterministic ODE step)."""
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        nd = x.ndim
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar = _extract(self.alphas_cumprod, t, nd)
+        alpha_bar_prev = _extract(self.alphas_cumprod_prev, t, nd)
+        sigma = (eta * torch.sqrt((1 - alpha_bar_prev) / (1 - alpha_bar))
+                 * torch.sqrt(1 - alpha_bar / alpha_bar_prev))
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_prev)
+                     + torch.sqrt(1 - alpha_bar_prev - sigma ** 2) * eps)
+        nonzero = (t != 0).to(x.dtype).reshape((-1,) + (1,) * (nd - 1))
+        return {"sample": mean_pred + nonzero * sigma * noise, "pred_xstart": out["pred_xstart"]}
+
+    def ddim_reverse_sample(self, model_fn: ModelFn, x, t, clip_denoised: bool = True,
+                            denoised_fn: Callable | None = None,
+                            eta: float = 0.0) -> dict[str, torch.Tensor]:
+        """One reverse DDIM step x_t -> x_{t+1} (the deterministic ODE only)."""
+        if eta != 0.0:
+            raise ValueError("the reverse ODE is deterministic: eta must be 0")
+        out = self.p_mean_variance(model_fn, x, t, clip_denoised, denoised_fn)
+        eps = self._predict_eps_from_xstart(x, t, out["pred_xstart"])
+        alpha_bar_next = _extract(self.alphas_cumprod_next, t, x.ndim)
+        mean_pred = (out["pred_xstart"] * torch.sqrt(alpha_bar_next)
+                     + torch.sqrt(1 - alpha_bar_next) * eps)
+        return {"sample": mean_pred, "pred_xstart": out["pred_xstart"]}
+
+    def _loop(self, step: Callable, model_fn: ModelFn, noise: torch.Tensor, generator, noise_fn,
+              progressive: bool, **step_kwargs):
+        """Run `step` over t = S-1 .. 0 from x_T = `noise`; step k draws its
+        noise by `draw_noise`. The last sample, or every sample stacked (S,
+        ...) when `progressive`."""
+        x = noise
+        frames = []
+        for k, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
+            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+            x = step(model_fn, x, t, draw_noise(k, x, generator, noise_fn), **step_kwargs)["sample"]
+            if progressive:
+                frames.append(x)
+        return torch.stack(frames) if progressive else x
+
+    def p_sample_loop(self, model_fn: ModelFn, noise: torch.Tensor,
+                      generator: torch.Generator | None = None, noise_fn: NoiseFn | None = None,
+                      clip_denoised: bool = True,
+                      denoised_fn: Callable | None = None) -> torch.Tensor:
         """Full ancestral chain from x_T = `noise`, over t = S-1 .. 0.
 
         Step k (t = S-1-k) draws its noise from `noise_fn(k, shape)` when
         given, else from `generator` on the noise's device."""
-        x = noise
-        n = x.shape[0]
-        for k, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            t = torch.full((n,), i, dtype=torch.long, device=x.device)
-            if noise_fn is not None:
-                step_noise = noise_fn(k, tuple(x.shape))
-            else:
-                step_noise = torch.randn(
-                    x.shape, generator=generator, device=x.device, dtype=x.dtype
-                )
-            x = self.p_sample(model_fn, x, t, step_noise)["sample"]
-        return x
+        return self._loop(self.p_sample, model_fn, noise, generator, noise_fn, False,
+                          clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+
+    def p_sample_loop_progressive(self, model_fn: ModelFn, noise: torch.Tensor,
+                                  generator: torch.Generator | None = None,
+                                  noise_fn: NoiseFn | None = None, clip_denoised: bool = True,
+                                  denoised_fn: Callable | None = None) -> torch.Tensor:
+        """`p_sample_loop`, returning every step's sample stacked (S, ...)
+        (the frames of a denoising animation)."""
+        return self._loop(self.p_sample, model_fn, noise, generator, noise_fn, True,
+                          clip_denoised=clip_denoised, denoised_fn=denoised_fn)
+
+    def ddim_sample_loop(self, model_fn: ModelFn, noise: torch.Tensor,
+                         generator: torch.Generator | None = None, noise_fn: NoiseFn | None = None,
+                         clip_denoised: bool = True, denoised_fn: Callable | None = None,
+                         eta: float = 0.0) -> torch.Tensor:
+        """Full DDIM chain from x_T = `noise`, with the noise contract of
+        `p_sample_loop` (each step draws its noise, scaled by eta)."""
+        return self._loop(self.ddim_sample, model_fn, noise, generator, noise_fn, False,
+                          clip_denoised=clip_denoised, denoised_fn=denoised_fn, eta=eta)
 
     def _vb_terms_bpd(self, model_fn: ModelFn, x_start, x_t, t,
                       clip_denoised: bool = True) -> dict[str, torch.Tensor]:

@@ -62,8 +62,16 @@ gate and residual folded in (`int8_out_residual`), and the whole MLP half
 (torch's Linear layout; the qkv projection and the MLP half upcast them on
 chip in kernel B's Hopper GEMM), so nothing packs or copies a weight. The
 stream is float32 only (the int8 wrappers raise
-TypeError on another type), and the quant model serves only: it raises
+TypeError on another type; the sampler refuses a bf16 stream over int8
+blocks), and the quant model serves only: it raises
 under `train=True` and under grad.
+
+Δ-cache (`delta_mode`, the JAX package's cross-step reuse of the middle
+blocks): "record" returns Δ = x after block hi-1 minus x before block lo
+beside the output; "apply" adds a given Δ at block lo and never runs blocks
+lo..hi-1. The same loop serves the f32 and the int8 blocks, and every block
+returns a new tensor (no kernel writes its residual in place), so the x
+kept at block lo is still the block's input when Δ is taken.
 """
 from __future__ import annotations
 
@@ -386,22 +394,45 @@ class DiT(nn.Module):
     def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | None = None,
                 train: bool = False, drop: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
-                dtype: torch.dtype = torch.float32, cp=None):
+                dtype: torch.dtype = torch.float32, cp=None, delta_mode: str = "off",
+                delta_span: tuple[int, int] | None = None, delta: torch.Tensor | None = None):
         """`band`: attention half-width (None = full attention); `valid_len`:
         the real length when T is padded (keys past it are masked);
         `train`: label dropout (`drop` mask, else drawn from `generator`)
         and, with `remat` under grad, recomputed blocks; `dtype`: the
         residual stream's type; `cp`: the context-parallel mesh (x, o, c
-        are this rank's rows)."""
+        are this rank's rows).
+
+        Δ-cache (cross-step reuse of the middle blocks' contribution, the
+        JAX package's `delta_mode`): "off" returns the output; "record"
+        runs every block and returns (out, Δ), Δ = x after block hi-1 minus
+        x before block lo for `delta_span` = (lo, hi), in the stream's type;
+        "apply" adds the given `delta` at block lo in place of blocks
+        lo..hi-1, which never run, and returns (out, delta)."""
         if self.quant and train:
             raise RuntimeError("the int8 model serves only: train=True has no int8 path")
         if self.quant and cp is not None:
             raise NotImplementedError("int8 serving with context parallelism is not ported")
+        if delta_mode not in ("off", "record", "apply"):
+            raise ValueError(f"unknown delta_mode: {delta_mode}")
+        lo = hi = -1
+        if delta_mode != "off":
+            lo, hi = delta_span
+            if not 0 <= lo < hi <= len(self.blocks):
+                raise ValueError(f"delta_span {delta_span} outside depth {len(self.blocks)}")
+            if delta_mode == "apply" and delta is None:
+                raise ValueError("delta_mode='apply' needs the recorded delta")
         x = self.xoc_embedder(x, o, c, dtype)
         cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator)
         use_remat = train and self.remat and torch.is_grad_enabled()
         extra = () if cp is None else (cp,)  # the int8 blocks take no cp (refused above)
-        for block in self.blocks:
+        for i, block in enumerate(self.blocks):
+            if delta_mode == "apply" and lo <= i < hi:
+                if i == lo:
+                    x = x + delta.to(x.dtype)
+                continue  # the cached span's blocks never run
+            if delta_mode == "record" and i == lo:
+                before = x  # every block returns a new tensor, so this one stays as it is
             if use_remat:
                 # blocks draw no random numbers, so no RNG state is kept;
                 # every CP rank recomputes the same blocks in the same
@@ -410,19 +441,31 @@ class DiT(nn.Module):
                                use_reentrant=False, preserve_rng_state=False)
             else:
                 x = block(x, cond, band, valid_len, self.matmul_dtype, *extra)
-        return self.final_layer(x, cond)
+            if delta_mode == "record" and i == hi - 1:
+                delta = x - before
+        out = self.final_layer(x, cond)
+        return out if delta_mode == "off" else (out, delta)
 
     def forward_with_cfg(self, x, t, o, c, y, cfg_scale: float,
-                         band: int | None = None, valid_len: int | None = None, cp=None):
+                         band: int | None = None, valid_len: int | None = None, cp=None,
+                         dtype: torch.dtype = torch.float32, delta_mode: str = "off",
+                         delta_span: tuple[int, int] | None = None,
+                         delta: torch.Tensor | None = None):
         """Classifier-free guidance over the batch [cond | uncond], which
         shares the first half's x. Guidance applies to the eps channels only
-        (the reference's quirk); the variance channels pass through."""
+        (the reference's quirk); the variance channels pass through.
+        `dtype` and the Δ-cache arguments are `forward`'s (the Δ covers the
+        doubled batch); under a Δ mode the result is (out, Δ)."""
         half = x[: x.shape[0] // 2]
-        out = self.forward(torch.cat([half, half], dim=0), t, o, c, y, band, valid_len, cp=cp)
+        out = self.forward(torch.cat([half, half], dim=0), t, o, c, y, band, valid_len, cp=cp,
+                           dtype=dtype, delta_mode=delta_mode, delta_span=delta_span, delta=delta)
+        if delta_mode != "off":
+            out, delta = out
         eps, rest = out[..., : self.in_channels], out[..., self.in_channels:]
         cond_eps, uncond_eps = eps.chunk(2, dim=0)
         half_eps = uncond_eps + cfg_scale * (cond_eps - uncond_eps)
-        return torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=-1)
+        out = torch.cat([torch.cat([half_eps, half_eps], dim=0), rest], dim=-1)
+        return out if delta_mode == "off" else (out, delta)
 
 
 def DiT_XL(**kwargs) -> DiT:

@@ -1,12 +1,30 @@
-"""Classifier-free-guidance ancestral sampler (port of the sampling core of
-osu_diffusion_tpu/sampling.py, with context parallelism; no Δ-cache or
-in-painting yet).
+"""The sampler (port of osu_diffusion_tpu/sampling.py): classifier-free
+guidance or the plain forward, ancestral or DDIM steps, in-painting, an f32
+or bf16 model stream, Δ-cache acceleration, context parallelism, and the
+refine pass and animation frames of the sample CLI.
 
 Length bucketing: sequences are padded to a multiple of `bucket` (default
 128), and the real length rides along as a runtime `valid_len`, which masks
 padded keys in every attention call; padded rows are sliced off the result.
 On the card the kernels take `valid_len` as an argument, so one build serves
 every length.
+
+The diffusion math runs in f32 whatever the model stream: x, o and c enter
+the model in f32 (the first layer's sincos needs them), only the residual
+stream runs in `compute_dtype`, and the model's head returns f32.
+
+Δ-cache (`accel_interval`, `accel_tau`): a full step runs every block and
+records Δ, the middle span's contribution (`DiT.forward`'s "record"); a
+skipped step adds the cached Δ in place of the span's blocks ("apply"). The
+fixed schedule runs a full step every `accel_interval`-th step and on the
+last one, decided on the host before the chain. The adaptive schedule
+(`accel_tau`) skips while the model input's relative drift since the last
+full step, ||x - x_ref|| / ||x_ref|| (over the batch, or the largest of its
+rows' under `accel_drift="per_sample_max"`), stays at or below tau, at most
+`accel_max_skip` steps in a row, never on the first or the last step. JAX
+decides inside `lax.cond`; here the host reads the drift (one `.item()` a
+step that may skip), so the adaptive chain waits for the card once a step
+where the fixed chain never waits.
 
 Context parallelism (`cp`, a parallel/mesh.py `Mesh`): the bucket is raised
 to a multiple of num_model * 128, each rank of the CP group keeps its rows
@@ -21,9 +39,12 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion, NoiseFn
+from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion, NoiseFn, draw_noise
 from osu_diffusion_tpu_torch.models.dit import DiT
 from osu_diffusion_tpu_torch.parallel.context import BLOCK, gather_slots, shard_rows
+
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+ACCEL_DRIFTS = ("global", "per_sample_max")
 
 
 def _bucketed(t: int, bucket: int) -> int:
@@ -52,15 +73,47 @@ def _shard_noise(noise_fn: NoiseFn | None, generator, like: torch.Tensor, t_pad:
     return draw
 
 
+def drift(x: torch.Tensor, x_ref: torch.Tensor, per_sample_max: bool) -> torch.Tensor:
+    """Relative drift of x from x_ref, a 0-d tensor: over the whole batch,
+    or the largest of the rows' (each norm divided by max(||x_ref||, 1e-6))."""
+    if per_sample_max:
+        diff = (x - x_ref).reshape(x.shape[0], -1)
+        ref = x_ref.reshape(x.shape[0], -1)
+        return (diff.norm(dim=1) / ref.norm(dim=1).clamp(min=1e-6)).max()
+    return (x - x_ref).norm() / x_ref.norm().clamp(min=1e-6)
+
+
 class Sampler:
-    """Inputs are the CFG-doubled batch [cond | uncond] along axis 0; the
-    eps-only guidance happens inside DiT.forward_with_cfg."""
+    """With CFG (the default) the inputs are the doubled batch [cond |
+    uncond] along axis 0 and the eps-only guidance happens inside
+    DiT.forward_with_cfg; `use_cfg=False` runs the plain forward (the toy
+    evals' null-class protocol), any batch size."""
 
     def __init__(self, model: DiT, diffusion: GaussianDiffusion, cfg_scale: float = 1.0,
-                 band: int | None = None, bucket: int = 128, cp=None):
+                 band: int | None = None, bucket: int = 128, cp=None, clip_denoised: bool = True,
+                 method: str = "ancestral", compute_dtype: torch.dtype = torch.float32,
+                 accel_interval: int = 1, accel_span: tuple[int, int] | None = None,
+                 accel_tau: float | None = None, accel_max_skip: int = 7,
+                 accel_drift: str = "global"):
         """`cp`: the mesh of context parallelism (needs a band); the bucket
         is rounded up to a multiple of num_model * 128, so every padded
-        length splits evenly over the shards."""
+        length splits evenly over the shards. `method`: "ancestral" or
+        "ddim" (eta 0). `compute_dtype`: the model stream, float32 or
+        bfloat16 (not with int8 blocks). `accel_*`: the Δ-cache (module
+        docstring); `accel_span` defaults to (depth // 6, depth - depth //
+        6), and interval 1 with no tau is the exact chain. After an
+        accelerated call `last_full_model_steps` holds the number of steps
+        that ran every block."""
+        if method not in ("ancestral", "ddim"):
+            raise ValueError(f"unknown sampling method: {method}")
+        if compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype must be one of {COMPUTE_DTYPES}, got {compute_dtype}")
+        if model.quant and compute_dtype != torch.float32:
+            raise ValueError("int8 blocks take the f32 stream only: the bf16 stream under "
+                             "--quantize-weights is still to port (ROADMAP.md Queue 1, "
+                             "'int8 under the bf16 stream')")
+        if accel_drift not in ACCEL_DRIFTS:
+            raise ValueError(f"unknown accel_drift: {accel_drift}")
         self.model = model
         self.diffusion = diffusion
         self.cfg_scale = float(cfg_scale)
@@ -72,31 +125,146 @@ class Sampler:
             step = cp.num_model * BLOCK
             bucket = -(-max(bucket, 1) // step) * step
         self.bucket = bucket
+        self.clip_denoised = clip_denoised
+        self.method = method
+        self.compute_dtype = compute_dtype
+        self.accel_interval = int(accel_interval)
+        self.accel_tau = None if accel_tau is None else float(accel_tau)
+        self.accel_max_skip = int(accel_max_skip)
+        self.accel_drift = accel_drift
+        self.accel = self.accel_interval > 1 or self.accel_tau is not None
+        self.last_full_model_steps = None
+        if self.accel:
+            if cp is not None:
+                raise ValueError("Δ-cache sampling is not supported with context parallelism "
+                                 "(the Δ carry is per-device state)")
+            depth = len(model.blocks)
+            if accel_span is None:
+                accel_span = (depth // 6, depth - depth // 6)
+            lo, hi = accel_span
+            if not 0 <= lo < hi <= depth:
+                raise ValueError(f"accel_span {accel_span} outside depth {depth}")
+        self.accel_span = accel_span
 
-    @torch.no_grad()
-    def __call__(self, z, o, c, y, generator: torch.Generator | None = None,
-                 noise_fn: NoiseFn | None = None) -> torch.Tensor:
-        """z: (N, T, 2) initial noise; o: (N, T); c: (N, T, 144); y: (N,).
-        N is even ([cond | uncond]). Per-step noise comes from `generator`
-        on z's device, or from `noise_fn(step_index, padded_shape)`.
-        Returns (N, T, 2)."""
+    def _setup(self, z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn):
+        """Pad to the bucket (and shard under CP): (x_T, model_fn(x, t,
+        **delta_kwargs), denoised_fn, noise_fn, finish(out) -> (N, T, 2))."""
         t_real = z.shape[1]
         t_pad = _bucketed(t_real, self.bucket)
         zp, op, cpad = (_pad_time(a, t_pad) for a in (z, o, c))
+        denoised_fn = None
+        if known_x is not None:
+            # known_mask True = free to generate, False = pinned to known_x;
+            # pad rows are pinned (to the padded zeros)
+            kx, km = _pad_time(known_x, t_pad), _pad_time(known_mask.to(torch.bool), t_pad)
         if self.cp is not None:
             rows = shard_rows(t_pad, self.cp)
             zp, op, cpad = zp[:, rows], op[:, rows], cpad[:, rows]
+            if known_x is not None:
+                kx, km = kx[:, rows], km[:, rows]
             noise_fn = _shard_noise(noise_fn, generator, z, t_pad, rows)
+        if known_x is not None:
+            def denoised_fn(x0):
+                return torch.where(km, x0, kx)
 
-        def model_fn(x, t):
-            return self.model.forward_with_cfg(
-                x, t, op, cpad, y, self.cfg_scale, band=self.band, valid_len=t_real, cp=self.cp
-            )
+        kwargs = dict(band=self.band, valid_len=t_real, cp=self.cp, dtype=self.compute_dtype)
 
-        out = self.diffusion.p_sample_loop(model_fn, zp, generator=generator, noise_fn=noise_fn)
-        if self.cp is not None:
-            out = torch.cat(gather_slots(out, self.cp).unbind(), dim=1)
-        return out[:, :t_real]
+        def model_fn(x, t, **delta_kwargs):
+            if use_cfg:
+                return self.model.forward_with_cfg(x, t, op, cpad, y, self.cfg_scale, **kwargs,
+                                                   **delta_kwargs)
+            return self.model.forward(x, t, op, cpad, y, **kwargs, **delta_kwargs)
+
+        def finish(out):
+            if self.cp is not None:
+                out = torch.cat(gather_slots(out, self.cp).unbind(), dim=-2)
+            return out[..., :t_real, :]
+
+        return zp, model_fn, denoised_fn, noise_fn, finish
+
+    @torch.no_grad()
+    def __call__(self, z, o, c, y, generator: torch.Generator | None = None,
+                 noise_fn: NoiseFn | None = None, known_x: torch.Tensor | None = None,
+                 known_mask: torch.Tensor | None = None, use_cfg: bool = True) -> torch.Tensor:
+        """z: (N, T, 2) initial noise; o: (N, T); c: (N, T, 144); y: (N,).
+        With CFG, N is even ([cond | uncond]). Per-step noise comes from
+        `generator` on z's device, or from `noise_fn(step_index,
+        padded_shape)`. In-painting: `known_x` (N, T, 2) and `known_mask`
+        (N, T, 2), True where the sampler generates and False where each x0
+        prediction is replaced by known_x. Returns (N, T, 2)."""
+        zp, model_fn, denoised_fn, noise_fn, finish = self._setup(
+            z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn)
+        if self.accel:
+            return finish(self._accel_chain(model_fn, zp, denoised_fn, generator, noise_fn))
+        loop = (self.diffusion.ddim_sample_loop if self.method == "ddim"
+                else self.diffusion.p_sample_loop)
+        return finish(loop(model_fn, zp, generator=generator, noise_fn=noise_fn,
+                           clip_denoised=self.clip_denoised, denoised_fn=denoised_fn))
+
+    def _accel_chain(self, model_fn, x, denoised_fn, generator, noise_fn) -> torch.Tensor:
+        """The Δ-cache chain: a full ("record") or a skipped ("apply") model
+        call a step, by the fixed or the adaptive schedule."""
+        diffusion = self.diffusion
+        s = diffusion.num_timesteps
+        step_fn = diffusion.ddim_sample if self.method == "ddim" else diffusion.p_sample
+        adaptive = self.accel_tau is not None
+        # fixed: full every accel_interval-th step and on the last one
+        fixed_skip = [k % self.accel_interval != 0 and k < s - 1 for k in range(s)]
+        delta = x_ref = None
+        skips = n_full = 0
+        for k, i in enumerate(range(s - 1, -1, -1)):
+            if adaptive:
+                # a zero Δ is never applied (n_full > 0); the drift is read
+                # only where the other conditions let the step skip
+                skip = (n_full > 0 and i > 0 and skips < self.accel_max_skip
+                        and drift(x, x_ref, self.accel_drift == "per_sample_max").item()
+                        <= self.accel_tau)
+            else:
+                skip = fixed_skip[k]
+            cell = {}  # the step calls the model once; its Δ comes out here
+
+            def step_model(xx, tt):
+                out, cell["delta"] = model_fn(xx, tt, delta_mode="apply" if skip else "record",
+                                              delta_span=self.accel_span, delta=delta)
+                return out
+
+            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
+            x_next = step_fn(step_model, x, t, draw_noise(k, x, generator, noise_fn),
+                             clip_denoised=self.clip_denoised, denoised_fn=denoised_fn)["sample"]
+            delta = cell["delta"]
+            if skip:
+                skips += 1
+            else:
+                x_ref, skips, n_full = x, 0, n_full + 1
+            x = x_next
+        self.last_full_model_steps = n_full
+        return x
+
+    @torch.no_grad()
+    def progressive(self, z, o, c, y, generator: torch.Generator | None = None,
+                    noise_fn: NoiseFn | None = None) -> torch.Tensor:
+        """Every step's sample of the CFG ancestral chain, (S, N, T, 2): the
+        frames of the denoising animation (as the JAX CLI, ancestral steps
+        and every block whatever the method and Δ-cache)."""
+        zp, model_fn, _, noise_fn, finish = self._setup(
+            z, o, c, y, None, None, True, generator, noise_fn)
+        return finish(self.diffusion.p_sample_loop_progressive(
+            model_fn, zp, generator=generator, noise_fn=noise_fn, clip_denoised=self.clip_denoised))
+
+    @torch.no_grad()
+    def refine(self, x, o, c, y, iters: int, generator: torch.Generator | None = None,
+               noise_fn: NoiseFn | None = None) -> torch.Tensor:
+        """The refine pass: `iters` CFG ancestral steps at t = 0 from the
+        samples x (N, T, 2), every block (a refine model is trained on t = 0
+        only). At t = 0 a step adds no noise; each still draws its own, by
+        the noise contract."""
+        xp, model_fn, _, noise_fn, finish = self._setup(x, o, c, y, None, None, True, generator,
+                                                         noise_fn)
+        t0 = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+        for k in range(iters):
+            xp = self.diffusion.p_sample(model_fn, xp, t0, draw_noise(k, xp, generator, noise_fn),
+                                         clip_denoised=self.clip_denoised)["sample"]
+        return finish(xp)
 
 
 def prepare_cfg_inputs(seq_o: torch.Tensor, seq_c: torch.Tensor, class_labels: list[int],

@@ -59,3 +59,22 @@ def test_sample_launcher_imports_no_jax():
 def test_train_and_smoke_launchers_import_no_jax(launcher):
     res = _launcher_probe(launcher)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_port_and_its_launchers_import_no_matplotlib():
+    """The GPU machine has no matplotlib: the package, the sample launcher
+    and chip_smoke.py import it only inside the sample CLI's plot and
+    animation branches."""
+    probe = (
+        "import importlib, pkgutil, runpy, sys\n"
+        "import osu_diffusion_tpu_torch as pkg\n"
+        "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
+        "    importlib.import_module(mod.name)\n"
+        "for launcher in ('sample_torch.py', 'chip_smoke.py'):\n"
+        "    runpy.run_path(launcher, run_name='not_main')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'matplotlib']\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
