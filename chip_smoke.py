@@ -134,6 +134,26 @@ Phases (any failure raises and exits non-zero):
    chains that run every block (the exact one and tau 0), and tau 0 against
    the exact chain for the cost of the per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
    depth more launches). `[serving]` prints these phases' wall time.
+15. The in-paint accuracy protocol (`[toy]`, evals/toy.py's main) at DiT-B on
+   the stream suite: 100 predictions a fixture, the null class, no CFG,
+   seq_len and band 128, 25 sampling steps (the protocol's 1000, cut), f32
+   and then --quantize-weights: launches by the schedule (rows 1 and 7, or
+   rows 1 and 10-13, steps x depth x fixtures), row 13 on its wide body at
+   100 rows, every pinned row exactly its known_x, every prediction finite;
+   the accuracy (random weights: not a gate), s per fixture, one fixture's
+   device ms per step and busy share (torch.profiler). Then main --generate
+   on one fixture, whose printed lines must parse as hit objects.
+16. Pattern repair (`[unfuck]`, evals/unfuck.py's main) at DiT-B on the
+   geometry suite: 100 predictions, 5 px, 10 t = 0 steps (the protocol's
+   1000, cut): rows 1 and 7 by the schedule, the rows outside each span
+   equal to their input bit for bit, both distances finite.
+17. The toy learning run (`[longrun]`, tools/longrun_toy.py in a child
+   process: this script with --longrun-child) at DiT-S, batch 64, seq-len
+   128, --pad-rows 160: two chunks of 10 steps, the second resumed from the
+   first's checkpoint, an eval round of 10 predictions and 10 sampling steps
+   on one suite after each (cuts); two JSON lines, and the launches counted
+   in the child: the training rows 2, 3, 4 and 8 and the eval's rows 1 and 7
+   by the schedule. Each of 15-17 prints its wall time.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -334,6 +354,24 @@ DELTA_APPLY_REL_TOL = 1e-3
 REFINE_ITERS = 10
 TIMED_STEPS = range(3, 14)  # steady-state steps (0-based calls) timed by CUDA events
 PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
+# the evals (15-17), at the protocols' widths with their step counts cut:
+# [toy] the in-paint accuracy protocol (100 predictions, the null class, no
+# CFG, seq_len and band 128) on one suite, f32 and int8; [unfuck] pattern
+# repair (100 predictions, 5 px) on one suite; [longrun] the toy learning
+# run at DiT-S in a child process, two chunks and an eval round after each
+TOY_SUITE = "stream"
+TOY_PREDICTIONS = 100
+TOY_STEPS = 25  # the protocol's 1000, cut
+TOY_SEQ = 128
+UNFUCK_SUITE = "geometry"
+UNFUCK_STEPS = 10  # the protocol's 1000 t = 0 steps, cut
+UNFUCK_MAGNITUDE = 5.0
+LONGRUN_MODEL = "DiT-S"
+LONGRUN_CHUNK = 10  # steps a chunk, two chunks
+LONGRUN_PREDICTIONS = 10  # the protocol's 100, cut
+LONGRUN_SAMPLING_STEPS = 10  # the protocol's 1000, cut
+LONGRUN_SUITE = "stream"
+LONGRUN_TIMEOUT = 600  # seconds for the child
 
 
 def host_us(fn, iters=50):
@@ -1403,14 +1441,18 @@ def gemm_epilogue(name: str) -> int | None:
     return None if m is None else int(m[1] or m[2])
 
 
-def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=None):
-    """One DiT-B forward_with_cfg at the sampling inputs (T padded to 768,
-    valid 757, band 128) on the card (kernels) and on the CPU (plain bf16
-    versions), same weights: the whole model against its plain versions.
-    (A whole chain is no fair check: at t near T the x0 prediction is
-    x / sqrt(alpha_bar) - ..., a ~1e4 gain that makes the clamp to [-1, 2]
-    decide on ulp-level eps differences.) Returns the outputs by where they
-    ran ("cpu": the CPU's f32-stream forward)."""
+def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=None, use_cfg=True,
+                           step=500):
+    """One DiT-B forward at `sampler`'s inputs call_args (z, o, c, y), padded
+    to its bucket with the real length as valid_len, at its band and at
+    timestep `step`, on the card (kernels) and on the CPU (plain bf16
+    versions), same weights: the whole model against its plain versions, at
+    the shapes its path gives the kernels (kimi: forward_with_cfg, T padded
+    to 768, valid 757; the evals: the plain forward at batch 100 over the
+    128-row bucket). (A whole chain is no fair check: at t near T the x0
+    prediction is x / sqrt(alpha_bar) - ..., a ~1e4 gain that makes the
+    clamp to [-1, 2] decide on ulp-level eps differences.) Returns the
+    outputs by where they ran ("cpu": the CPU's f32-stream forward)."""
     import copy
 
     import torch
@@ -1419,7 +1461,9 @@ def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=Non
     z, o, c, y = call_args
     t_real = z.shape[1]
     t_pad = _bucketed(t_real, sampler.bucket)
-    t = torch.full((z.shape[0],), 500, dtype=torch.long)
+    t = torch.full((z.shape[0],), step, dtype=torch.long)
+    kwargs = dict(band=sampler.band, valid_len=t_real)
+    what = "forward_with_cfg" if use_cfg else "forward"
     outs = {}
     # name -> (model, device): the card's kernels, the CPU's plain versions,
     # and the f32 model on the card for the quantisation error
@@ -1429,16 +1473,16 @@ def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=Non
     with torch.no_grad():
         for where, (model, on) in runs.items():
             x, op, cp = (_pad_time(a.to(on), t_pad) for a in (z, o, c))
-            outs[where] = model.forward_with_cfg(
-                x, t.to(on), op, cp, y.to(on), sampler.cfg_scale,
-                band=sampler.band, valid_len=t_real,
-            )[:, :t_real].cpu()
+            out = (model.forward_with_cfg(x, t.to(on), op, cp, y.to(on), sampler.cfg_scale, **kwargs)
+                   if use_cfg else model.forward(x, t.to(on), op, cp, y.to(on), **kwargs))
+            outs[where] = out[:, :t_real].cpu()
     err = max_err(outs[dev], outs["cpu"])
     rel = err / outs["cpu"].abs().max().item()
-    print(f"[{tag}] DiT-B forward_with_cfg, card kernels vs CPU plain bf16: "
-          f"max_abs_err {err:.3e}, relative to max |out| {rel:.3e} (tol {FORWARD_REL_TOL})")
+    print(f"[{tag}] DiT-B {what} at batch {z.shape[0]} x {t_pad} (valid_len {t_real}, band "
+          f"{sampler.band}, t {step}), card kernels vs CPU plain bf16: max_abs_err {err:.3e}, "
+          f"relative to max |out| {rel:.3e} (tol {FORWARD_REL_TOL})")
     check(rel <= FORWARD_REL_TOL and bool(torch.isfinite(outs[dev]).all()),
-          f"forward disagrees: {rel} > {FORWARD_REL_TOL}")
+          f"{tag}: forward disagrees: {rel} > {FORWARD_REL_TOL}")
     if f32_model is not None:
         # the host's cost of one block call, f32 and int8, at these inputs
         x = _pad_time(z.to(dev), t_pad)
@@ -1455,35 +1499,50 @@ def phase_forward_vs_plain(dev, sampler, call_args, tag="forward", f32_model=Non
     return outs
 
 
+class RecordingCalls:
+    """While in use, records every call of the Sampler methods `names`
+    ("__call__", "refine") in `calls`: (name, sampler, args, kwargs,
+    output, wall seconds with the card waited for)."""
+
+    def __init__(self, *names):
+        from osu_diffusion_tpu_torch import sampling
+
+        self.cls, self.calls = sampling.Sampler, []
+        self.originals = {name: getattr(self.cls, name) for name in names}
+
+    def __enter__(self):
+        import torch
+
+        def recording(name, orig):
+            def call(sampler, *args, **kwargs):
+                torch.cuda.synchronize()
+                wall = time.perf_counter()
+                out = orig(sampler, *args, **kwargs)
+                torch.cuda.synchronize()
+                self.calls.append((name, sampler, args, kwargs, out, time.perf_counter() - wall))
+                return out
+            return call
+
+        for name, orig in self.originals.items():
+            setattr(self.cls, name, recording(name, orig))
+        return self
+
+    def __exit__(self, *exc):
+        for name, orig in self.originals.items():
+            setattr(self.cls, name, orig)
+
+
 def run_cli(dev, ckpt_path, results_dir, flags):
     """One sample CLI run at DiT-B on kimi with extra `flags`: (each
     kernel's launches in it, the paths written, the (name, sampler, args,
     kwargs) of each Sampler call and refine pass it made)."""
-    import torch
-    from osu_diffusion_tpu_torch import sampling
     from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
-
-    calls = []
-    originals = {name: getattr(sampling.Sampler, name) for name in ("__call__", "refine")}
-
-    def recording(name):
-        def call(self, *args, **kwargs):
-            calls.append((name, self, args, kwargs))
-            return originals[name](self, *args, **kwargs)
-        return call
 
     args = build_sample_parser().parse_args(sample_argv(dev, ckpt_path, results_dir) + list(flags))
     read_counts = reset_launch_counts()
-    for name in originals:
-        setattr(sampling.Sampler, name, recording(name))
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            written = sample_main(args)
-        torch.cuda.synchronize()
-    finally:
-        for name, fn in originals.items():
-            setattr(sampling.Sampler, name, fn)
-    return read_counts(), written, calls
+    with RecordingCalls("__call__", "refine") as rec, contextlib.redirect_stdout(io.StringIO()):
+        written = sample_main(args)
+    return read_counts(), written, [call[:4] for call in rec.calls]
 
 
 def check_written(tag, written, n, suffix=""):
@@ -1836,6 +1895,219 @@ def phase_serving(dev, tmp, ckpt_path, sampler, call_args, cpu_out):
     phase_slice_accel(dev, ckpt_path, tmp, quantize=True)
     phase_refine(dev, ckpt_path, tmp)
     print(f"[serving] the serving phases took {time.perf_counter() - wall:.1f} s")
+
+
+
+def phase_toy(dev, ckpt_path):
+    """[toy] (15): evals/toy.py's main at DiT-B on TOY_SUITE, f32 then with
+    --quantize-weights: launches by the schedule (rows 1 and 7, or rows 1
+    and 10-13, steps x depth x fixtures), row 13 on its wide body (100 rows),
+    every pinned row exactly its known_x and every prediction finite; one
+    forward at the first fixture's inputs (batch 100 x 128, the null class,
+    no CFG) on the card against the plain versions on the CPU; the accuracy
+    (random weights: not a gate), s per fixture, and one fixture's chain
+    profiled (device ms per step, busy share). Then main --generate on one
+    fixture, whose printed lines parse as hit objects."""
+    import torch
+    from osu_diffusion_tpu_torch.beatmap.parser import parse_beatmap
+    from osu_diffusion_tpu_torch.evals import toy
+    from osu_diffusion_tpu_torch.ops import quant as tq
+
+    wall = time.perf_counter()
+    fixtures = sorted(os.listdir(os.path.join(toy._toy_root(), TOY_SUITE)))
+    argv = ["--ckpt", ckpt_path, "--model", MODEL, "--num-classes", str(NUM_CLASSES),
+            "--num-sampling-steps", str(TOY_STEPS), "--num-predictions", str(TOY_PREDICTIONS),
+            "--seq-len", str(TOY_SEQ), "--seed", str(SEED), "--device", dev]
+    print(f"[toy] cut: {TOY_STEPS} sampling steps (the protocol runs 1000); {TOY_PREDICTIONS} "
+          f"predictions, seq_len and band {TOY_SEQ}, the null class, no CFG, on the "
+          f"{len(fixtures)} {TOY_SUITE} fixtures")
+    for quantize in (False, True):
+        tag = "toy-int8" if quantize else "toy"
+        read_counts = reset_launch_counts()
+        buf = io.StringIO()
+        with RecordingCalls("__call__") as rec, contextlib.redirect_stdout(buf):
+            toy.main(argv + ["--tests", TOY_SUITE] + ["--quantize-weights"] * quantize)
+        counts = read_counts()
+        depth = len(rec.calls[0][1].model.blocks)
+        n = TOY_STEPS * depth * len(fixtures)
+        path = (("banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
+                 "adaln_mlp_quant") if quantize else ("banded_attention", "adaln_mlp"))
+        check_launches(tag, counts, dict.fromkeys(path, n))
+        check(len(rec.calls) == len(fixtures), f"{tag}: {len(rec.calls)} chains")
+        pinned = finite = True
+        for _, _, _, kwargs, out, _ in rec.calls:
+            free, known_x = kwargs["known_mask"], kwargs["known_x"]
+            check(tuple(out.shape) == (TOY_PREDICTIONS, TOY_SEQ, 2) and int(free.sum()) == 2 * TOY_PREDICTIONS,
+                  f"{tag}: output {tuple(out.shape)}, {int(free.sum())} free values")
+            pinned &= torch.equal(out[~free], known_x[~free])
+            finite &= bool(torch.isfinite(out).all())
+        check(pinned and finite, f"{tag}: pinned rows equal known_x {pinned}, finite {finite}")
+        if quantize:
+            check(tq.int8_matmul.body == "sm90",
+                  f"{tag}: row 13 at {TOY_PREDICTIONS} rows took body {tq.int8_matmul.body}")
+        per_fixture = statistics.mean(c[-1] for c in rec.calls)
+        _, sampler, args, kwargs, _, _ = rec.calls[0]
+        phase_forward_vs_plain(dev, sampler, args, f"{tag}-forward", use_cfg=False)
+        inpaint = {k: kwargs[k] for k in ("known_x", "known_mask", "use_cfg")}
+        _, step_ms = chain_ms(dev, sampler, args, **inpaint)
+        device_ms, ops = chain_profile(dev, sampler, args, host_ops=False, **inpaint)
+        result = buf.getvalue().strip().splitlines()
+        print(f"[{tag}] {result[-1]} (random weights: not a gate); pinned rows exactly known_x, "
+              f"all finite; {per_fixture:.3f} s per fixture ({TOY_STEPS} steps at batch "
+              f"{TOY_PREDICTIONS} x {TOY_SEQ}); one fixture's chain {step_ms / 1000:.6f} s per "
+              f"step, device {device_ms:.3f} ms per step (torch.profiler), busy "
+              f"{100 * device_ms / step_ms:.1f}%" + (f"; row 13 body {tq.int8_matmul.body}"
+                                                         if quantize else ""))
+        for ms, calls, name in ops[:6]:
+            print(f"[{tag}-profile]   {ms:9.3f} ms/step  {calls // TOY_STEPS:6d}x/step  {name[:90]}")
+        del rec, sampler, args, kwargs
+
+    fixture = os.path.join(TOY_SUITE, fixtures[0])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        toy.main(argv + ["--generate", fixture])
+    lines = buf.getvalue().strip().splitlines()
+    with open(os.path.join(toy._toy_root(), fixture)) as f:
+        text = f.read()
+    reparsed = parse_beatmap(text[:text.index("[HitObjects]")] + "[HitObjects]\n" + "\n".join(lines[1:]) + "\n")
+    print(f"[toy] --generate {fixture}: {lines[0]}; {len(reparsed.hit_objects())} printed lines "
+          f"reparse as hit objects, the first {lines[1]!r}")
+    check(lines[0].startswith("Generate example correct predictions = ")
+          and len(lines) == TOY_PREDICTIONS + 1 and len(reparsed.hit_objects()) == TOY_PREDICTIONS,
+          f"--generate printed {lines[:3]}...")
+    print(f"[toy] the phase took {time.perf_counter() - wall:.1f} s")
+
+
+def phase_unfuck(dev, ckpt_path):
+    """[unfuck] (16): evals/unfuck.py's main at DiT-B on UNFUCK_SUITE:
+    rows 1 and 7 launched steps x depth x fixtures times, the rows outside
+    each span equal to their input bit for bit, both distances finite; one
+    t = 0 forward at the shortest fixture's inputs (batch 100, valid_len
+    well below the 128-row bucket) on the card against the plain versions
+    on the CPU."""
+    import torch
+    from osu_diffusion_tpu_torch.evals import toy, unfuck
+
+    wall = time.perf_counter()
+    fixtures = sorted(os.listdir(os.path.join(toy._toy_root(), UNFUCK_SUITE)))
+    print(f"[unfuck] cut: {UNFUCK_STEPS} t = 0 steps (the protocol runs 1000); {TOY_PREDICTIONS} "
+          f"predictions, magnitude {UNFUCK_MAGNITUDE} px, band 128, on the {len(fixtures)} "
+          f"{UNFUCK_SUITE} fixtures")
+    read_counts = reset_launch_counts()
+    buf = io.StringIO()
+    with RecordingCalls("refine") as rec, contextlib.redirect_stdout(buf):
+        unfuck.main(["--ckpt", ckpt_path, "--model", MODEL, "--num-classes", str(NUM_CLASSES),
+                     "--num-sampling-steps", str(UNFUCK_STEPS), "--num-predictions", str(TOY_PREDICTIONS),
+                     "--tests", UNFUCK_SUITE, "--fucking-magnitude", str(UNFUCK_MAGNITUDE),
+                     "--seed", str(SEED), "--device", dev])
+    counts = read_counts()
+    depth = len(rec.calls[0][1].model.blocks)
+    check_launches("unfuck", counts, dict.fromkeys(("banded_attention", "adaln_mlp"),
+                                                   UNFUCK_STEPS * depth * len(fixtures)))
+    kept = True
+    for _, _, args, kwargs, out, _ in rec.calls:
+        x, free = args[0], kwargs["known_mask"]
+        kept &= torch.equal(out[~free], x[~free]) and bool(torch.isfinite(out).all())
+    lines = buf.getvalue().strip().splitlines()
+    before, after = (float(re.search(r"= (\S+) units", line).group(1)) for line in lines[1:3])
+    print(f"[unfuck] mean distance before {before:.4f} px, after {after:.4f} px over "
+          f"{re.search(r'out of (\d+)', lines[1]).group(1)} points (random weights: not a gate); "
+          f"rows outside the spans kept bit for bit: {kept}; "
+          f"{statistics.mean(c[-1] for c in rec.calls):.3f} s per fixture")
+    check(kept and math.isfinite(before) and math.isfinite(after) and len(rec.calls) == len(fixtures),
+          f"unfuck: kept {kept}, distances {before}, {after}, {len(rec.calls)} chains")
+    _, sampler, args, _, _, _ = min(rec.calls, key=lambda call: call[2][0].shape[1])
+    check(args[0].shape[1] <= TOY_SEQ // 4, f"unfuck: the shortest fixture has {args[0].shape[1]} rows")
+    phase_forward_vs_plain(dev, sampler, args[:4], "unfuck-forward", use_cfg=False, step=0)
+    print(f"[unfuck] the phase took {time.perf_counter() - wall:.1f} s")
+
+
+def longrun_argv(workdir) -> list[str]:
+    return ["--model", LONGRUN_MODEL, "--total-steps", str(2 * LONGRUN_CHUNK),
+            "--chunk", str(LONGRUN_CHUNK), "--batch", "64", "--seq-len", "128", "--stride", "16",
+            "--pad-rows", "160", "--num-predictions", str(LONGRUN_PREDICTIONS),
+            "--num-sampling-steps", str(LONGRUN_SAMPLING_STEPS), "--suites", LONGRUN_SUITE,
+            "--results-dir", os.path.join(workdir, "results"),
+            "--data-dir", os.path.join(workdir, "data"),
+            "--log", os.path.join(workdir, "evals.jsonl"), "--device", "cuda"]
+
+
+def longrun_child_main(workdir) -> int:
+    """The child of [longrun]: tools/longrun_toy.py's main, each kernel's
+    launches counted over the training chunks and the eval rounds apart,
+    written to <workdir>/launches.json."""
+    from osu_diffusion_tpu_torch.evals import toy
+    from osu_diffusion_tpu_torch.tools import longrun_toy
+
+    read_counts = reset_launch_counts()
+    evals = {}
+    evaluate_suite = toy.evaluate_suite
+
+    def counted(*args, **kwargs):
+        before = read_counts()
+        out = evaluate_suite(*args, **kwargs)
+        for name, n in read_counts().items():
+            evals[name] = evals.get(name, 0) + n - before[name]
+        return out
+
+    toy.evaluate_suite = counted  # longrun_toy's main imports it when it starts
+    longrun_toy.main(longrun_argv(workdir))
+    total = read_counts()
+    with open(os.path.join(workdir, "launches.json"), "w") as f:
+        json.dump({"train": {k: v - evals.get(k, 0) for k, v in total.items()}, "eval": evals}, f)
+    return 0
+
+
+def phase_longrun(tmp):
+    """[longrun] (17): tools/longrun_toy.py at DiT-S in a child process
+    (this script with --longrun-child): two chunks of LONGRUN_CHUNK steps,
+    the second resumed from the first's checkpoint, an eval round after
+    each; the training rows 2, 3, 4 and 8 and the eval's rows 1 and 7
+    launched by the schedule."""
+    wall = time.perf_counter()
+    workdir = os.path.join(tmp, "longrun")
+    os.makedirs(workdir)
+    print(f"[longrun] cut: {2 * LONGRUN_CHUNK} training steps in two chunks, each eval round "
+          f"{LONGRUN_PREDICTIONS} predictions of {LONGRUN_SAMPLING_STEPS} sampling steps on "
+          f"{LONGRUN_SUITE} (the protocol: 100 of 1000 on four suites); {LONGRUN_MODEL}, batch 64, "
+          f"seq-len 128, stride 16, --pad-rows 160")
+    log_path = os.path.join(workdir, "child.log")
+    with open(log_path, "w") as log:
+        try:
+            rc = subprocess.run([sys.executable, os.path.abspath(__file__), "--longrun-child", workdir],
+                                stdout=log, stderr=subprocess.STDOUT, timeout=LONGRUN_TIMEOUT).returncode
+        except subprocess.TimeoutExpired:  # run() has killed the child
+            rc = "killed at the time limit"
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    check(rc == 0, f"longrun child exited {rc}:\n{tail}")
+    with open(os.path.join(workdir, "evals.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(workdir, "launches.json")) as f:
+        launches = json.load(f)
+    results = os.path.join(workdir, "results")
+    exps = sorted(os.listdir(results))
+    first_ckpt = os.path.join(results, exps[0], "checkpoints", f"{LONGRUN_CHUNK:07d}.pt")
+    with open(os.path.join(results, exps[-1], "log.txt")) as f:
+        resumed = f"Restored from checkpoint at {first_ckpt}" in f.read()
+    for rec in recs:
+        print(f"[longrun] {json.dumps(rec)}")
+    print(f"[longrun] the second chunk resumed from step {LONGRUN_CHUNK}'s checkpoint: {resumed}; "
+          f"launches in training {({k: v for k, v in launches['train'].items() if v})}, in the eval "
+          f"rounds {({k: v for k, v in launches['eval'].items() if v})}")
+    check(len(recs) == 2 and [r["step"] for r in recs] == [LONGRUN_CHUNK, 2 * LONGRUN_CHUNK]
+          and all(0.0 <= r[LONGRUN_SUITE] <= 1.0 for r in recs), f"longrun eval lines {recs}")
+    check(len(exps) == 2 and resumed, f"longrun: experiments {exps}, resumed {resumed}")
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    depth, steps = len(DiT_models[LONGRUN_MODEL](num_classes=2).blocks), 2 * LONGRUN_CHUNK
+    fixtures = len(os.listdir(os.path.join("assets", "toy_datasets", LONGRUN_SUITE)))
+    check_launches("longrun-train", launches["train"], {
+        "banded_attention_fwd_lse": steps * depth * 2, "adaln_mlp_train": steps * depth * 2,
+        "banded_attention_bwd_dq": steps * depth, "banded_attention_bwd_dkv": steps * depth})
+    check_launches("longrun-eval", launches["eval"], dict.fromkeys(
+        ("banded_attention", "adaln_mlp"), 2 * fixtures * LONGRUN_SAMPLING_STEPS * depth))
+    print(f"[longrun] the phase took {time.perf_counter() - wall:.1f} s")
 
 
 def reset_launch_counts():
@@ -2667,6 +2939,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--cp-rank"]:  # one process of phase_context_parallel
         return cp_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--longrun-child"]:  # the child of phase_longrun
+        return longrun_child_main(sys.argv[2])
     from osu_diffusion_tpu_torch.models.dit import DiT_models
 
     # the plain f32 versions and projections in full f32, as the JAX f32 path
@@ -2691,6 +2965,9 @@ def main() -> int:
         launches, sampler, call_args, f32_step_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
         forward = phase_forward_vs_plain(dev, sampler, call_args)
         phase_serving(dev, tmp, ckpt, sampler, call_args, forward["cpu"])
+        phase_toy(dev, ckpt)
+        phase_unfuck(dev, ckpt)
+        phase_longrun(tmp)
         launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)

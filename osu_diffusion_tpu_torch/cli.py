@@ -121,7 +121,7 @@ def build_sample_parser() -> argparse.ArgumentParser:
     return parser
 
 
-def _load_model(ckpt: str, args, device) -> torch.nn.Module:
+def load_model(ckpt: str, args, device) -> torch.nn.Module:
     """The f32 checkpoint as a DiT on `device` (int8 blocks under
     --quantize-weights), in eval mode."""
     kwargs = dict(num_classes=args.num_classes, context_size=CONTEXT_SIZE)
@@ -172,7 +172,7 @@ def sample_main(args) -> list[str]:
     seq_o = seq_o - seq_o[0]
     print(f"seq len {seq_len}")
 
-    model = _load_model(args.ckpt, args, device)
+    model = load_model(args.ckpt, args, device)
     diffusion = create_diffusion(
         str(args.num_sampling_steps), noise_schedule="squaredcos_cap_v2", device=device
     )
@@ -239,7 +239,7 @@ def sample_main(args) -> list[str]:
     if args.refine_ckpt is not None:
         # the refine model's t = 0 steps over the samples, with the band of
         # the main chain and the f32 stream (as the JAX CLI runs it)
-        refiner = Sampler(_load_model(args.refine_ckpt, args, device), diffusion,
+        refiner = Sampler(load_model(args.refine_ckpt, args, device), diffusion,
                           cfg_scale=args.cfg_scale, band=args.seq_len)
         save_sequence(to_seq(refiner.refine(samples, o, c, y, args.refine_iters,
                                             generator=generator)), args.refine_iters)

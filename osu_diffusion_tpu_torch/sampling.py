@@ -253,17 +253,22 @@ class Sampler:
 
     @torch.no_grad()
     def refine(self, x, o, c, y, iters: int, generator: torch.Generator | None = None,
-               noise_fn: NoiseFn | None = None) -> torch.Tensor:
-        """The refine pass: `iters` CFG ancestral steps at t = 0 from the
+               noise_fn: NoiseFn | None = None, known_mask: torch.Tensor | None = None,
+               use_cfg: bool = True) -> torch.Tensor:
+        """The refine pass: `iters` ancestral steps at t = 0 from the
         samples x (N, T, 2), every block (a refine model is trained on t = 0
-        only). At t = 0 a step adds no noise; each still draws its own, by
-        the noise contract."""
-        xp, model_fn, _, noise_fn, finish = self._setup(x, o, c, y, None, None, True, generator,
-                                                         noise_fn)
+        only), CFG unless `use_cfg=False`. With `known_mask` (N, T, 2), the
+        rows where it is False are pinned to x in every x0 prediction (the
+        pattern repair of evals/unfuck.py). At t = 0 a step adds no noise;
+        each still draws its own, by the noise contract."""
+        xp, model_fn, denoised_fn, noise_fn, finish = self._setup(
+            x, o, c, y, None if known_mask is None else x, known_mask, use_cfg, generator,
+            noise_fn)
         t0 = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
         for k in range(iters):
             xp = self.diffusion.p_sample(model_fn, xp, t0, draw_noise(k, xp, generator, noise_fn),
-                                         clip_denoised=self.clip_denoised)["sample"]
+                                         clip_denoised=self.clip_denoised,
+                                         denoised_fn=denoised_fn)["sample"]
         return finish(xp)
 
 

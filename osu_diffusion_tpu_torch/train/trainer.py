@@ -194,7 +194,8 @@ def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
 
 def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
-    experiment_dir, checkpoint_dir}."""
+    experiment_dir, checkpoint_dir, ema} (`ema`: the EMA model, on the
+    training device)."""
     band = check_parallel(config)
     device, joined = _join_process_group(config)
     try:
@@ -325,4 +326,4 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
 
     logger.info("Done!")
     return {"final_step": train_steps, "last_loss": last_avg_loss,
-            "experiment_dir": experiment_dir, "checkpoint_dir": checkpoint_dir}
+            "experiment_dir": experiment_dir, "checkpoint_dir": checkpoint_dir, "ema": ema}

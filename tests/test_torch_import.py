@@ -78,3 +78,30 @@ def test_port_and_its_launchers_import_no_matplotlib():
     res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True,
                          timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# what a GPU host may lack besides jax: the evals import these inside the
+# functions that use them
+ANALYTICS = ("sklearn", "pandas", "matplotlib")
+
+
+@pytest.mark.parametrize("entry", [
+    "runpy.run_path('osu_diffusion_tpu_torch/tools/longrun_toy.py', run_name='not_main')",
+    # `python -m osu_diffusion_tpu_torch.evals.toy --help`: main parses, prints and exits 0
+    "sys.argv = ['toy', '--help']\n"
+    "try:\n"
+    "    runpy.run_module('osu_diffusion_tpu_torch.evals.toy', run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert e.code == 0, e.code\n",
+    # every module of the evals package
+    "import pkgutil, importlib, osu_diffusion_tpu_torch.evals as ev\n"
+    "for mod in pkgutil.walk_packages(ev.__path__, ev.__name__ + '.'):\n"
+    "    importlib.import_module(mod.name)\n",
+])
+def test_evals_and_longrun_import_no_jax_or_analytics(entry):
+    probe = (f"import runpy, sys\n{entry}\n"
+             f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN + ANALYTICS!r}]\n"
+             "assert not bad, bad\n")
+    res = subprocess.run([sys.executable, "-c", probe], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr
