@@ -4,9 +4,10 @@
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-1. The card (nvidia-smi name and power limit), torch/CUDA versions, and the
+1. The card (nvidia-smi name and power limit), torch/CUDA versions, the
    nvcc build of every kernel library from osu_diffusion_tpu_torch/csrc
-   (one nvcc per source, all at once).
+   (one nvcc per source, all at once), and the g++ build of the native
+   featurizer (csrc/osu_native.cpp).
 2. Inference kernel A (banded attention, f32 q/k/v) against its plain
    version on the card: at the DiT-B sampling shape and at ragged shapes,
    against the plain version with bf16-rounded operands and against the f32
@@ -39,7 +40,14 @@ Phases (any failure raises and exits non-zero):
    (kernel B's own per denoise step).
 6. The model against its plain versions: one DiT-B forward at the sampling
    inputs on the card (kernels) and on the CPU (plain versions).
-7. The train CLI end to end at DiT-B width with 52670 classes (seeded
+7. The training input path on the card's host (`[loader]`): the native
+   featurizer built by g++ from osu_diffusion_tpu_torch/csrc/osu_native.cpp
+   (no g++ or a failed build fails the run), tools/make_corpus.py's corpus
+   of 4096 maps, native against the Python featurizer on every fixture
+   (<= 2e-3) and on 64 corpus maps (<= 2e-2), maps/s both ways on one
+   thread, the trainer's loader alone at 2 and 4 threads on both
+   featurizers, and the cached loader over 256 maps. Then the train CLI
+   end to end at DiT-B width with 52670 classes (seeded
    random init) on a Track dataset of kimi_no_bouken copies: global batch
    256, seq-len 128, 20 optimizer steps, a checkpoint inside the run that a
    second run resumes from for one more step. Checks finite "Train Loss:"
@@ -47,7 +55,11 @@ Phases (any failure raises and exits non-zero):
    two forward kernels, recomputed under --remat; steps x depth for dq and
    dk/dv). Prints seconds per optimizer step (CUDA events, steady state),
    the device busy share, the top device ops and kernel B's device time
-   per step (torch.profiler).
+   per step (torch.profiler), and the loader alone on both featurizers.
+   Then the train CLI on the corpus at the trainer's defaults (4 threads,
+   the native featurizer) for 16 steps with --profile-dir
+   (`[train-corpus]`: the launch counts, the trace written, start to start
+   against inside train_step, the busy share).
 8. One DiT-B training step at batch 4, card (kernels) against CPU (plain
    versions), same weights and draws: the L1 loss's terms (loss, l1, vb),
    then the MSE loss and every parameter gradient.
@@ -165,6 +177,7 @@ device.
 """
 import contextlib
 import copy
+import glob
 import io
 import itertools
 import json
@@ -238,6 +251,23 @@ TRAIN_SEQ = 128
 TRAIN_STEPS = 20
 TRAIN_CKPT_EVERY = 15
 TRAIN_COPIES = 16  # kimi copies: ~40 windows each, >= 2 batches of 256 an epoch
+# the training input path ([loader], [train-corpus]): tools/make_corpus.py's
+# corpus at ~1/13 of the reference's ORS13402 (52,670 maps in 13,402 sets),
+# with its layout (Track folders of 4 maps) and labels (the file names'
+# integer prefixes); each map has >= 176 rows, ~4 windows of 128 at stride 16
+CORPUS_MAPS = 4096
+CORPUS_MAPS_PER_TRACK = 4
+CORPUS_MIN_DATAPOINTS = 176
+NATIVE_FIXTURE_TOL = 2e-3  # max |native - python| on the fixtures (tests/test_native.py's bound)
+NATIVE_CORPUS_TOL = 2e-2  # on corpus maps (tests/test_corpus.py's bound)
+CORPUS_PARITY_MAPS = 64
+FEATURIZE_MAPS = 256  # maps/s of both featurizers over the first corpus maps
+FEATURIZE_NATIVE_PASSES = 16
+LOADER_THREADS = (2, 4)
+LOADER_BATCHES = {"native": 20, "python": 10}  # timed batches; the Python loader is slow
+CACHE_MAPS = 256
+TRAIN_CORPUS_STEPS = 16
+TRAIN_CORPUS_PROFILED = range(14, 16)  # after TIMED_STEPS
 # training-kernel checks: (name, N, H, T, valid_len, band, stream), the
 # DiT-B training shape first
 ATTN_TRAIN_CASES = [
@@ -458,6 +488,7 @@ def attention_pairs(t, band, valid, query_valid=False) -> int:
 
 def phase_build():
     import torch
+    from osu_diffusion_tpu_torch import native
     from osu_diffusion_tpu_torch.ops import cuda_build
 
     card = subprocess.run(
@@ -477,6 +508,9 @@ def phase_build():
         for line in info["log"].splitlines():
             if "registers" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+    # the native featurizer, before any phase's trainer or loader builds it
+    check(native.available(), "no g++ on PATH: the native featurizer is not built")
+    print(f"[build] osu_native ({native.build_info['compiler']}): {native.build_info['seconds']:.1f} s")
     return card
 
 
@@ -2134,27 +2168,17 @@ def reset_launch_counts():
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
 
 
-def phase_train(dev, tmp, mlp_bwd="xla"):
-    """The train CLI at DiT-B width with --mlp-bwd `mlp_bwd`: launch counts,
-    finite losses, seconds per step and the device's busy share; with the
-    default backward also a checkpoint that resumes and the loader alone.
-    Returns (launches, {period_ms, step_ms, busy})."""
+def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
+    """The train CLI at DiT-B width for `steps` steps with --mlp-bwd
+    `mlp_bwd`: launch counts, finite losses (logged every 5 steps), seconds
+    per step over TIMED_STEPS and the device's busy share over the steps
+    `profiled`. Returns (summary, launches, {period_ms, step_ms, busy,
+    device_ms})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
-    from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
     from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.train import trainer
-    from osu_diffusion_tpu_torch.train.checkpoint import latest_checkpoint, load_train_checkpoint
-
-    default = mlp_bwd == "xla"
-    tag = "train" if default else f"train-{mlp_bwd}"
-    data = train_dataset(tmp)
-    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
-            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
-            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
-            "--log-every", "5", "--ckpt-every", str(TRAIN_CKPT_EVERY if default else 10 ** 9),
-            "--results-dir", os.path.join(tmp, "train"), "--device", dev, "--mlp-bwd", mlp_bwd]
 
     events = []  # (start, end) CUDA events around each train_step call
     prof = {}
@@ -2162,7 +2186,7 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
 
     def timed_step(*args, **kwargs):
         i = len(events)
-        if i == PROFILED_STEPS.start:
+        if i == profiled.start:
             torch.cuda.synchronize()
             prof["p"] = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             prof["p"].start()
@@ -2173,7 +2197,7 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
         out = orig_step(*args, **kwargs)
         end.record()
         events.append((start, end))
-        if i == PROFILED_STEPS.stop - 1:
+        if i == profiled.stop - 1:
             torch.cuda.synchronize()
             prof["wall"] = time.perf_counter() - prof["wall"]
             prof["p"].stop()
@@ -2183,7 +2207,7 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     read_counts = reset_launch_counts()
     wall = time.perf_counter()
     try:
-        summary = train_main(build_train_parser().parse_args(argv + ["--max-steps", str(TRAIN_STEPS)]))
+        summary = train_main(build_train_parser().parse_args(argv + ["--max-steps", str(steps)]))
     finally:
         trainer.train_step = orig_step
     torch.cuda.synchronize()
@@ -2196,18 +2220,18 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
     print(f"[{tag}] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
           f"launches {launches}")
-    check(summary["final_step"] == TRAIN_STEPS, f"stopped at step {summary['final_step']}")
-    check(len(losses) == TRAIN_STEPS // 5 and all(math.isfinite(v) for v in losses),
+    check(summary["final_step"] == steps, f"stopped at step {summary['final_step']}")
+    check(len(losses) == steps // 5 and all(math.isfinite(v) for v in losses),
           f"Train Loss lines: {losses}")
     check("Done!" in log, "no Done! in the log")
     expected = {**dict.fromkeys(launches, 0),  # the inference kernels
-                "banded_attention_fwd_lse": TRAIN_STEPS * depth * 2,  # forward + remat recompute
-                "adaln_mlp_train": TRAIN_STEPS * depth * 2,
-                "banded_attention_bwd_dq": TRAIN_STEPS * depth,
-                "banded_attention_bwd_dkv": TRAIN_STEPS * depth}
-    if not default:  # the backward runs once per block and step; remat recomputes the forward only
+                "banded_attention_fwd_lse": steps * depth * 2,  # forward + remat recompute
+                "adaln_mlp_train": steps * depth * 2,
+                "banded_attention_bwd_dq": steps * depth,
+                "banded_attention_bwd_dkv": steps * depth}
+    if mlp_bwd == "fused":  # the backward runs once per block and step; remat recomputes the forward only
         expected.update(dict.fromkeys(("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue"),
-                                      TRAIN_STEPS * depth))
+                                      steps * depth))
     check(launches == expected, f"launches {launches}, expected {expected}")
 
     # steady state: the train_step calls in TIMED_STEPS, by CUDA events
@@ -2221,7 +2245,7 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
     events_dev = [e for e in prof["p"].key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events_dev)
-    n_prof = len(PROFILED_STEPS)
+    n_prof = len(profiled)
     busy = 100 * device_us / 1000 / (prof["wall"] * 1000)
     print(f"[{tag}-profile] device time {device_us / 1000:.2f} ms over {n_prof} steps "
           f"({len(events_dev)} kinds of device op); busy {busy:.1f}% "
@@ -2242,6 +2266,28 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
           f"per step: " + ", ".join(f"{k} {v / 1000 / n_prof:.3f}" for k, v in bwd_us.items()))
     numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
                "device_ms": device_us / 1000 / n_prof}
+    return summary, launches, numbers
+
+
+def phase_train(dev, tmp, mlp_bwd="xla"):
+    """The train CLI at DiT-B width on kimi copies with --mlp-bwd `mlp_bwd`
+    (run_train_cli); with the default backward also a checkpoint that
+    resumes and the loader alone on both featurizers. Returns (launches,
+    {period_ms, step_ms, busy, device_ms[, ckpt]})."""
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.data.dataset import featurizer_name
+    from osu_diffusion_tpu_torch.train.checkpoint import latest_checkpoint, load_train_checkpoint
+
+    default = mlp_bwd == "xla"
+    tag = "train" if default else f"train-{mlp_bwd}"
+    data = train_dataset(tmp)
+    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
+            "--log-every", "5", "--ckpt-every", str(TRAIN_CKPT_EVERY if default else 10 ** 9),
+            "--results-dir", os.path.join(tmp, "train"), "--device", dev, "--mlp-bwd", mlp_bwd]
+    print(f"[{tag}] the loader's featurizer: {featurizer_name()}")
+    summary, launches, numbers = run_train_cli(tag, argv, TRAIN_STEPS, mlp_bwd)
     if not default:
         return launches, numbers
 
@@ -2267,17 +2313,197 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
 
     # the loader alone, as the trainer builds it, to split the step's period
     # between waiting for data and the step itself
-    loader = get_data_loader(
-        dataset_path=data, start=0, end=2,
-        iterable_factory=BeatmapDatasetIterableFactory(TRAIN_SEQ, 16, seed=SEED),
-        cycle_length=TRAIN_BATCH // 2, batch_size=TRAIN_BATCH, num_workers=2,
-        shuffle=True, drop_last=True, seed=SEED)
-    wall, batches = time.perf_counter(), 0
-    for _ in range(3):
-        batches += sum(1 for _ in loader)
-    print(f"[train] the loader alone (2 threads, Python featurizer): "
-          f"{(time.perf_counter() - wall) / batches:.6f} s per batch of {TRAIN_BATCH} over {batches} batches")
+    for name in FEATURIZERS:
+        with featurizer(name):
+            loader = train_loader(data, 2, 2)
+            wall, batches = time.perf_counter(), 0
+            for _ in range(3):
+                batches += sum(1 for _ in loader)
+            print(f"[train] the loader alone (2 threads, {name} featurizer): "
+                  f"{(time.perf_counter() - wall) / batches:.6f} s per batch of {TRAIN_BATCH} "
+                  f"over {batches} batches")
     return launches, numbers
+
+
+FEATURIZERS = ("native", "python")
+
+
+@contextlib.contextmanager
+def featurizer(name):
+    """The loader's featurizer inside the block: 'native'
+    (OSU_DIFFUSION_NO_NATIVE unset) or 'python' (set); checked."""
+    from osu_diffusion_tpu_torch.data.dataset import featurizer_name
+
+    old = os.environ.pop("OSU_DIFFUSION_NO_NATIVE", None)
+    if name == "python":
+        os.environ["OSU_DIFFUSION_NO_NATIVE"] = "1"
+    try:
+        check(featurizer_name() == name, f"the loader's featurizer is {featurizer_name()}, not {name}")
+        yield
+    finally:
+        os.environ.pop("OSU_DIFFUSION_NO_NATIVE", None)
+        if old is not None:
+            os.environ["OSU_DIFFUSION_NO_NATIVE"] = old
+
+
+def train_loader(data, end, threads):
+    """The loader as the trainer builds it (trainer.py: batch 256, seq-len
+    128, stride 16, cycle_length 128, shuffled, seed 0) over Track [0, end)."""
+    from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
+
+    return get_data_loader(
+        dataset_path=data, start=0, end=end,
+        iterable_factory=BeatmapDatasetIterableFactory(TRAIN_SEQ, 16, seed=SEED),
+        cycle_length=TRAIN_BATCH // 2, batch_size=TRAIN_BATCH, num_workers=threads,
+        shuffle=True, drop_last=True, seed=SEED)
+
+
+def loader_s_per_batch(data, end, threads, batches) -> float:
+    """Seconds per batch of the trainer's loader with `threads` threads over
+    `batches` batches, after max(2, threads) warm-up batches: the threads
+    start together, so the first round of batches arrives at once (on the
+    native featurizer) and is left out."""
+    it = iter(train_loader(data, end, threads))
+    try:
+        for _ in range(max(2, threads)):
+            next(it)
+        start = time.perf_counter()
+        for _ in range(batches):
+            next(it)
+        return (time.perf_counter() - start) / batches
+    finally:
+        it.close()
+
+
+def make_corpus_module():
+    """tools/make_corpus.py (standard library only), loaded by its path."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("make_corpus", os.path.join("tools", "make_corpus.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def phase_loader(tmp):
+    """The training input path on the card's host: the native featurizer
+    (built in phase_build), its parity with the Python featurizer (the fixtures and
+    CORPUS_PARITY_MAPS corpus maps), maps/s both ways on one thread, the
+    trainer's loader at 2 and 4 threads on both featurizers, and the cached
+    loader. Returns the corpus's path."""
+    import numpy as np
+    from osu_diffusion_tpu_torch import native
+    from osu_diffusion_tpu_torch.beatmap.objects import Beatmap
+    from osu_diffusion_tpu_torch.data.dataset import (
+        BeatmapDatasetIterableFactory,
+        cache_dataset,
+        get_cached_data_loader,
+    )
+    from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+
+    wall = time.perf_counter()
+    check(native.available(), "no g++ on PATH: the native featurizer is not built")
+    info = native.build_info
+    built = f"built in {info['seconds']:.1f} s" if info["seconds"] else "reused"
+    print(f"[loader] native featurizer: {info['compiler']}; {built}: {os.path.relpath(info['path'])}, "
+          f"{time.perf_counter() - wall:.1f} s to load")
+
+    corpus = os.path.join(tmp, "corpus")
+    start = time.perf_counter()
+    make_corpus_module().write_corpus(corpus, CORPUS_MAPS, CORPUS_MAPS_PER_TRACK, SEED,
+                                      CORPUS_MIN_DATAPOINTS, progress_every=0)
+    tracks = CORPUS_MAPS // CORPUS_MAPS_PER_TRACK
+    files = sorted(glob.glob(os.path.join(corpus, "Track*", "beatmaps", "*.osu")))
+    check(len(files) == CORPUS_MAPS, f"{len(files)} corpus maps")
+    print(f"[loader] corpus: {CORPUS_MAPS} maps in {tracks} tracks of {CORPUS_MAPS_PER_TRACK}, seed {SEED}, "
+          f"min datapoints {CORPUS_MIN_DATAPOINTS}, written in {time.perf_counter() - start:.1f} s")
+
+    def python_rows(path):
+        return beatmap_to_sequence(Beatmap.from_path(path))
+
+    # parity, and maps/s on one thread
+    fixtures = sorted(glob.glob(os.path.join("assets", "toy_datasets", "**", "*.osu"), recursive=True))
+    for what, paths, tol in (("fixture", fixtures, NATIVE_FIXTURE_TOL),
+                             ("corpus", files[:CORPUS_PARITY_MAPS], NATIVE_CORPUS_TOL)):
+        worst, rows = 0.0, 0
+        for path in paths:
+            got, want = native.featurize_file(path), python_rows(path)
+            check(got.shape == want.shape, f"{path}: native {got.shape}, python {want.shape}")
+            rows += got.shape[0]
+            if got.size:
+                worst = max(worst, float(np.abs(got - want).max()))
+        print(f"[loader] parity, {len(paths)} {what} maps ({rows} rows): max |native - python| "
+              f"{worst:.3e} (tolerance {tol:g})")
+        check(len(paths) > 0 and worst <= tol, f"{what} parity {worst} > {tol}")
+    rates = {}  # the same maps both ways, native FEATURIZE_NATIVE_PASSES times over
+    for name, fn, passes in (("native", native.featurize_file, FEATURIZE_NATIVE_PASSES),
+                             ("python", python_rows, 1)):
+        start = time.perf_counter()
+        for _ in range(passes):
+            for path in files[:FEATURIZE_MAPS]:
+                fn(path)
+        rates[name] = passes * FEATURIZE_MAPS / (time.perf_counter() - start)
+    print(f"[loader] featurize on one thread, {FEATURIZE_MAPS} corpus maps: native {rates['native']:.1f} "
+          f"maps/s ({FEATURIZE_NATIVE_PASSES} passes), python {rates['python']:.1f} maps/s (1 pass): "
+          f"{rates['native'] / rates['python']:.1f}x")
+
+    # the trainer's loader alone, both featurizers
+    for name in FEATURIZERS:
+        with featurizer(name):
+            for threads in LOADER_THREADS:
+                batches = LOADER_BATCHES[name]
+                s = loader_s_per_batch(corpus, tracks, threads, batches)
+                print(f"[loader] the trainer's loader ({name} featurizer, {threads} threads): "
+                      f"{s:.6f} s per batch of {TRAIN_BATCH} x {TRAIN_SEQ} over {batches} batches "
+                      f"after {max(2, threads)} warm-up")
+
+    # the cached loader over CACHE_MAPS maps
+    cache = os.path.join(tmp, "corpus-cache.pkl")
+    start = time.perf_counter()
+    cache_dataset(cache, dataset_path=corpus, start=0, end=CACHE_MAPS // CORPUS_MAPS_PER_TRACK,
+                  iterable_factory=BeatmapDatasetIterableFactory(TRAIN_SEQ, 16, seed=SEED))
+    cache_s = time.perf_counter() - start
+    loader = get_cached_data_loader(cache, batch_size=TRAIN_BATCH, shuffle=True, drop_last=True, seed=SEED)
+    check(len(loader) > 0, "an empty cache")
+    start, batches = time.perf_counter(), 0
+    while batches < LOADER_BATCHES["native"]:
+        for (win, prev), y in loader:
+            check(win.shape == (TRAIN_BATCH, TRAIN_SEQ, 19) and prev.shape == (TRAIN_BATCH, 2),
+                  f"cached batch {win.shape} {prev.shape}")
+            batches += 1
+    print(f"[loader] cached loader: cache_dataset over {CACHE_MAPS} maps in {cache_s:.2f} s "
+          f"({len(loader)} batches a pass, {os.path.getsize(cache) / 2 ** 20:.1f} MiB), then "
+          f"{(time.perf_counter() - start) / batches:.6f} s per batch of {TRAIN_BATCH} over {batches} batches")
+    print(f"[loader] {time.perf_counter() - wall:.1f} s wall")
+    return corpus
+
+
+def phase_train_corpus(dev, tmp, corpus):
+    """The train CLI on the corpus at the trainer's defaults (4 threads, the
+    native featurizer, bf16 stream, remat, --mlp-bwd xla) with
+    --profile-dir: the trace written, the featurizer logged, and whether
+    the loader still sets the pace (start to start against inside-step)."""
+    profile_dir = os.path.join(tmp, "train-corpus-profile")
+    argv = ["--data-path", corpus, "--data-start", "0", "--data-end",
+            str(CORPUS_MAPS // CORPUS_MAPS_PER_TRACK), "--model", MODEL, "--num-classes", str(NUM_CLASSES),
+            "--global-batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--log-every", "5",
+            "--ckpt-every", str(10 ** 9), "--results-dir", os.path.join(tmp, "train-corpus"),
+            "--device", dev, "--profile-dir", profile_dir]
+    with featurizer("native"):
+        summary, _, numbers = run_train_cli("train-corpus", argv, TRAIN_CORPUS_STEPS,
+                                            profiled=TRAIN_CORPUS_PROFILED)
+    with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
+        log = f.read()
+    check("Featurizer: native" in log, "the trainer did not log the native featurizer")
+    trace = os.path.join(profile_dir, "trace-rank0.json")
+    check(os.path.isfile(trace) and os.path.getsize(trace) > 0, f"no profiler trace at {trace}")
+    check(f"Profiler trace written to {trace}" in log, "the trainer did not log its trace")
+    print(f"[train-corpus] --profile-dir: {os.path.getsize(trace) / 2 ** 20:.1f} MiB trace of the "
+          f"first 3 steps; start to start {numbers['period_ms'] / 1000:.6f} s against "
+          f"{numbers['step_ms'] / 1000:.6f} s inside train_step "
+          f"({numbers['period_ms'] / numbers['step_ms']:.3f}x), busy {numbers['busy']:.1f}% "
+          f"over steps {TRAIN_CORPUS_PROFILED.start}..{TRAIN_CORPUS_PROFILED.stop - 1}")
+    return numbers
 
 
 def train_dataset(tmp):
@@ -2980,8 +3206,10 @@ def main() -> int:
         phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
         launches.update({k: v for k, v in quant_launches.items() if k not in launches})
         del sampler, qsampler, call_args
+        corpus = phase_loader(tmp)
         train_launches, default = phase_train(dev, tmp)
         launches.update({k: v for k, v in train_launches.items() if k not in launches})
+        phase_train_corpus(dev, tmp, corpus)
         fused_launches, fused = phase_train(dev, tmp, "fused")
         launches.update({k: fused_launches[k] for k in ("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue")})
         print(f"[train-fused] against the default run in this call: {fused['period_ms'] / 1000:.6f} against "

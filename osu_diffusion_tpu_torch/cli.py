@@ -279,6 +279,12 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--l1-loss", action=argparse.BooleanOptionalAction, default=d.l1_loss)
     parser.add_argument("--use-bf16", action=argparse.BooleanOptionalAction, default=d.use_bf16,
                         help="bf16 residual stream over f32 master weights")
+    parser.add_argument("--use-amp", action=argparse.BooleanOptionalAction, default=None,
+                        help="the reference's name for --use-bf16; overrides it when given")
+    parser.add_argument("--fine-tune-ids", type=str, default=None,
+                        help="accepted for flag parity with the reference, which never uses it")
+    parser.add_argument("--profile-dir", type=str, default=d.profile_dir,
+                        help="write a torch.profiler trace of the first optimizer steps here")
     parser.add_argument("--remat", action=argparse.BooleanOptionalAction, default=d.remat,
                         help="recompute each block in the backward")
     parser.add_argument("--mlp-bwd", choices=["fused", "xla"], default=d.mlp_bwd,
@@ -329,9 +335,10 @@ def train_config_kwargs(args) -> dict:
         ckpt_every=args.ckpt_every, seq_len=args.seq_len, stride=args.stride, ckpt=args.ckpt,
         noise_schedule=args.noise_schedule, l1_loss=args.l1_loss, lr=args.lr,
         relearn_embeds=args.relearn_embeds, embed_only_epochs=args.embed_only_epochs,
-        use_bf16=args.use_bf16, remat=args.remat, max_steps=args.max_steps,
-        mlp_bwd=args.mlp_bwd, device=args.device, num_model=args.num_model,
-        band=args.band, dist_backend=args.dist_backend,
+        use_bf16=args.use_bf16 if args.use_amp is None else args.use_amp, remat=args.remat,
+        max_steps=args.max_steps, mlp_bwd=args.mlp_bwd, device=args.device,
+        num_model=args.num_model, band=args.band, dist_backend=args.dist_backend,
+        profile_dir=args.profile_dir,
     )
 
 

@@ -8,6 +8,8 @@ batch loading (port of osu_diffusion_tpu/data/dataset.py, host side).
   and the same index retried, so no shard is skipped.
 - `DataLoader` splits the beatmap-set range over `num_workers` threads, each
   producing whole batches into a bounded queue.
+- `cache_dataset` pickles every window of a range once, and
+  `get_cached_data_loader` batches them with no featurizer in the loop.
 
 An item is a RAW window, ((seq_len, 19) float32 rows, the predecessor's (2,)
 coordinates) and the integer label; the distance embedding, flips and time
@@ -15,9 +17,13 @@ offset run in the train step (data/process.py, `process_batch`).
 
 Randomness: `_mix_seed` and the `random.Random` streams are the JAX
 package's, so for one seed this loader yields the same windows in the same
-order as the JAX loader with its Python featurizer. The port featurizes
-with its Python featurizer (data/featurize.py); the JAX package's C++
-featurizer (native/osu_native.cpp) is not ported.
+order as the JAX loader on the same featurizer. Files are featurized by the
+native featurizer (osu_diffusion_tpu_torch/native, the C++ of
+csrc/osu_native.cpp, built with g++ at first use; its calls release the GIL,
+so the threads run in parallel), or by the Python one (data/featurize.py)
+when OSU_DIFFUSION_NO_NATIVE is set or no g++ is on PATH. A failed build
+raises. The cache's pickle layout is the JAX package's: a cache written by
+either package loads in the other.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ import numpy as np
 
 from osu_diffusion_tpu_torch.beatmap.objects import Beatmap
 from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+from osu_diffusion_tpu_torch.ops.cuda_build import BuildError
 
 CENTER = np.array([256.0, 192.0], dtype=np.float32)
 
@@ -45,9 +52,29 @@ def _mix_seed(seed: int, epoch: int, sub: int = 0) -> int:
     return ((seed * 1000003 + epoch) * 1000003 + sub) & 0xFFFFFFFFFFFF
 
 
+def _native_featurizer():
+    """The native featurizer module, or None where the Python one runs:
+    OSU_DIFFUSION_NO_NATIVE set (read at each call), or no g++ on PATH
+    (warned once). Builds the library at first use; a failed build raises."""
+    if os.environ.get("OSU_DIFFUSION_NO_NATIVE"):
+        return None
+    from osu_diffusion_tpu_torch import native
+
+    return native if native.available() else None
+
+
+def featurizer_name() -> str:
+    """'native' or 'python': what `default_seq_func` runs now."""
+    return "python" if _native_featurizer() is None else "native"
+
+
 def default_seq_func(beatmap_path: str):
     """(T, 19) raw featurization of a file; returns (seq, T)."""
-    seq = beatmap_to_sequence(Beatmap.from_path(beatmap_path))
+    native = _native_featurizer()
+    if native is not None:
+        seq = native.featurize_file(beatmap_path)
+    else:
+        seq = beatmap_to_sequence(Beatmap.from_path(beatmap_path))
     return seq, seq.shape[0]
 
 
@@ -106,6 +133,8 @@ class BeatmapDatasetIterable:
             self.index += 1
             try:
                 self.current_seq, self.current_seq_len = self.seq_func(str(beatmap_path))
+            except BuildError:  # no file can be read: not a file's fault
+                raise
             except Exception as e:
                 # one malformed file must not stop a loader thread mid-run
                 logging.getLogger(__name__).warning(
@@ -249,6 +278,97 @@ def get_beatmap_files(name: str, data_path: str) -> list[PurePosixPath]:
     with Path(name).open("rb") as f:
         relative = pickle.load(f)
     return [PurePosixPath(data_path, *PureWindowsPath(f).parts) for f in relative]
+
+
+class CachedDataset:
+    """The windows of a cache: a list of ((window, prev_xy), label)."""
+
+    __slots__ = ("cached_data",)
+
+    def __init__(self, cached_data):
+        self.cached_data = cached_data
+
+    def __getitem__(self, index):
+        return self.cached_data[index]
+
+    def __len__(self):
+        return len(self.cached_data)
+
+    def __iter__(self):
+        return iter(self.cached_data)
+
+
+def cache_dataset(
+    out_path: str,
+    dataset_path: str,
+    start: int,
+    end: int,
+    iterable_factory: Callable,
+    cycle_length: int = 1,
+    beatmap_files: Optional[list[str]] = None,
+) -> None:
+    """Pickle every item of one unshuffled pass over the dataset to
+    `out_path`, as a list of ((window, prev_xy), label)."""
+    dataset = BeatmapDataset(
+        dataset_path=dataset_path, start=start, end=end,
+        iterable_factory=iterable_factory, cycle_length=cycle_length,
+        shuffle=False, beatmap_files=beatmap_files,
+    )
+    cached = list(dataset)
+    with open(out_path, "wb") as f:
+        pickle.dump(cached, f)
+
+
+class CachedDataLoader:
+    """Batches of a `CachedDataset`, a fresh pass per iteration. With
+    `shuffle` and a seed, pass p shuffles with
+    random.Random((seed * 1_000_003 + p) & 0xFFFFFFFF), p counting the
+    shuffled passes of this loader (the JAX package's order)."""
+
+    def __init__(self, dataset: CachedDataset, batch_size: int, shuffle: bool, drop_last: bool,
+                 seed: int | None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.seed = seed
+        self.passes = 0
+
+    def __iter__(self):
+        order = list(range(len(self.dataset)))
+        if self.shuffle:
+            if self.seed is not None:
+                rng = random.Random((self.seed * 1_000_003 + self.passes) & 0xFFFFFFFF)
+                self.passes += 1
+            else:
+                rng = random
+            rng.shuffle(order)
+        batch = []
+        for i in order:
+            batch.append(self.dataset[i])
+            if len(batch) == self.batch_size:
+                yield _collate(batch)
+                batch = []
+        if batch and not self.drop_last:
+            yield _collate(batch)
+
+    def __len__(self):
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+
+def get_cached_data_loader(
+    data_path: str,
+    batch_size: int = 1,
+    shuffle: bool = False,
+    drop_last: bool = False,
+    seed: int | None = None,
+) -> CachedDataLoader:
+    """A loader over the cache `cache_dataset` wrote (by either package).
+    Unpickle only caches written by this repository's code."""
+    with open(data_path, "rb") as f:
+        cached = pickle.load(f)
+    return CachedDataLoader(CachedDataset(cached), batch_size, shuffle, drop_last, seed)
 
 
 def _collate(items):

@@ -77,6 +77,14 @@ def split_and_process_sequence(
     return _split(seq, torch.stack([x, y], dim=-1), prev_xy), seq.shape[-2]
 
 
+def window_and_relative_time(seq_tuple, s: int, e: int, rand01: float):
+    """The rows [s, e) of (seq_x, seq_o, seq_c), time re-zeroed at row s
+    plus rand01 * MAX_TIME_OFFSET ms."""
+    seq_x, seq_o, seq_c = seq_tuple
+    o = seq_o[..., s:e] - seq_o[..., s, None] + rand01 * MAX_TIME_OFFSET
+    return seq_x[..., s:e, :], o, seq_c[..., s:e, :]
+
+
 def process_batch(
     raw: torch.Tensor,
     prev_xy: torch.Tensor,

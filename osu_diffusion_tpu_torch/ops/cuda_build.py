@@ -4,8 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface. At first use it is compiled by
 nvcc for sm_90a into a shared library under the package's `build/` directory
 (named by a hash of the source and the shared `csrc/*.cuh` headers, so an
 edited source rebuilds), then loaded with ctypes. `build_all` starts one nvcc
-per source at once. Nothing here runs at import time, and nothing here
-imports torch's CUDA pieces.
+per source at once. `digest` and `compile_library` also build the native
+featurizer (native/build.py). Nothing here runs at import time, and nothing
+here imports torch's CUDA pieces.
 """
 from __future__ import annotations
 
@@ -49,12 +50,43 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: put it on PATH or set CUDA_HOME")
 
 
-def _digest(src: str) -> str:
+class BuildError(RuntimeError):
+    """A compiler failed; the message holds its output."""
+
+
+def digest(paths, *extra: str) -> str:
+    """A short hash of the files' bytes and the extra strings."""
     h = hashlib.sha256()
-    for path in [src, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
+    for path in paths:
         with open(path, "rb") as f:
             h.update(f.read())
+    for text in extra:
+        h.update(text.encode())
     return h.hexdigest()[:16]
+
+
+def compile_library(cmd: list[str], lib_path: str) -> dict:
+    """Reuse `lib_path` if it exists, else run `cmd + ["-o", <temporary
+    file>]` and move its output there. Returns {"seconds": compile seconds
+    (0.0 when reused), "log": the compiler's output, kept beside the
+    library}. Several processes may build the same library at once: each
+    writes its own temporary file, and `os.replace` is atomic, so a reader
+    never sees half a file."""
+    log_path = lib_path + ".log"
+    if os.path.isfile(lib_path):
+        log = open(log_path).read() if os.path.isfile(log_path) else ""
+        return {"seconds": 0.0, "log": f"reused {lib_path}\n{log}"}
+    os.makedirs(os.path.dirname(lib_path), exist_ok=True)
+    tmp = f"{lib_path}.{os.getpid()}.tmp"
+    start = time.perf_counter()
+    res = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise BuildError(f"{' '.join(cmd)} failed (exit {res.returncode}):\n{res.stdout}{res.stderr}")
+    with open(f"{tmp}.log", "w") as f:
+        f.write(res.stdout + res.stderr)
+    os.replace(f"{tmp}.log", log_path)
+    os.replace(tmp, lib_path)
+    return {"seconds": time.perf_counter() - start, "log": res.stdout + res.stderr}
 
 
 def load_library(name: str) -> ctypes.CDLL:
@@ -65,33 +97,10 @@ def load_library(name: str) -> ctypes.CDLL:
         if name in _libs:
             return _libs[name]
         src = os.path.join(CSRC_DIR, f"{name}.cu")
-        digest = _digest(src)
-        lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-        if os.path.isfile(lib_path):
-            log_path = lib_path + ".log"
-            log = open(log_path).read() if os.path.isfile(log_path) else ""
-            build_info[name] = {"seconds": 0.0, "log": f"reused {lib_path}\n{log}"}
-        else:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            tmp = f"{lib_path}.{os.getpid()}.tmp"
-            start = time.perf_counter()
-            res = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                capture_output=True, text=True,
-            )
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src} (exit {res.returncode}):\n"
-                    f"{res.stdout}{res.stderr}"
-                )
-            with open(f"{tmp}.log", "w") as f:
-                f.write(res.stdout + res.stderr)
-            os.replace(f"{tmp}.log", lib_path + ".log")
-            os.replace(tmp, lib_path)  # atomic: a reader never sees half a file
-            build_info[name] = {
-                "seconds": time.perf_counter() - start,
-                "log": res.stdout + res.stderr,
-            }
+        # an edited source or shared header rebuilds
+        headers = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+        lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest([src, *headers])}.so")
+        build_info[name] = compile_library([nvcc_path(), *NVCC_FLAGS, src], lib_path)
         lib = ctypes.CDLL(lib_path)
         _libs[name] = lib
         return lib

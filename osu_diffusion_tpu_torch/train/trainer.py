@@ -15,6 +15,10 @@
 - `embed_only_epochs`: the first N epochs train the label table alone (the
   other parameters frozen, JAX `_embed_mask`); `max_timestep` caps the
   timestep draw (1: the refine model of train_nodist_torch.py).
+- The log names the featurizer the loader runs (native or python).
+- `profile_dir`: torch.profiler (CPU and, on a card, CUDA activities) over
+  the run's first `profile_steps` optimizer steps, written to
+  `<profile_dir>/trace-rank<r>.json` as a Chrome trace.
 
 On a CUDA device every block runs the training kernels: the banded
 attention forward with LSE and its dq and dk/dv kernels at band =
@@ -54,9 +58,14 @@ from glob import glob
 
 import torch
 import torch.distributed as dist
+from torch.profiler import ProfilerActivity, profile
 
 from osu_diffusion_tpu_torch import CONTEXT_SIZE
-from osu_diffusion_tpu_torch.data.dataset import BeatmapDatasetIterableFactory, get_data_loader
+from osu_diffusion_tpu_torch.data.dataset import (
+    BeatmapDatasetIterableFactory,
+    featurizer_name,
+    get_data_loader,
+)
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
 from osu_diffusion_tpu_torch.parallel.context import BLOCK
@@ -99,6 +108,8 @@ class TrainConfig:
     num_model: int = 1  # the mesh's "model" axis: > 1 splits each window's sequence over it
     band: int | None = None  # attention half-width; None: seq_len (full attention)
     dist_backend: str | None = None  # under torchrun; None: nccl on CUDA, gloo on the CPU
+    profile_dir: str | None = None  # write a torch.profiler trace of the first steps here
+    profile_steps: int = 3  # optimizer steps to trace
 
 
 CLASS_DROPOUT_PROB = 0.2  # the reference trainer's label dropout (the DiT default is 0.1)
@@ -192,6 +203,16 @@ def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
     return int(ckpt.get("step", 0))
 
 
+def _write_trace(profiler, device, profile_dir: str, rank: int, logger) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    profiler.stop()
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"trace-rank{rank}.json")
+    profiler.export_chrome_trace(path)
+    logger.info(f"Profiler trace written to {path}")
+
+
 def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
     experiment_dir, checkpoint_dir, ema} (`ema`: the EMA model, on the
@@ -266,6 +287,8 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
         num_workers=config.num_workers, shuffle=True, drop_last=True, seed=seed,
     )
     logger.info(f"Dataset contains {ds_end - ds_start:,} beatmap sets ({config.data_path})")
+    # builds the native featurizer before the loader's threads start, so a failed build raises here
+    logger.info(f"Featurizer: {featurizer_name()}")
     # one stream per data rank; the ranks of a CP group draw the same
     generator = torch.Generator(device=device).manual_seed(
         (config.global_seed + train_steps) * mesh.num_data + mesh.data_rank)
@@ -277,6 +300,14 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     embed_only = config.embed_only_epochs > 0
     if embed_only:
         logger.info(f"Freezing non-embedding layers for {config.embed_only_epochs} epochs")
+
+    profiler = None
+    if config.profile_dir is not None:
+        profiler = profile(activities=[ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if device.type == "cuda" else []))
+        profiler.start()
+        logger.info(f"Profiling the first {config.profile_steps} steps to {config.profile_dir}")
+    profile_until = train_steps + config.profile_steps
 
     log_steps = 0
     running_loss = torch.zeros((), device=device)
@@ -309,6 +340,9 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
             running_loss += metrics["loss"]
             log_steps += 1
             train_steps += 1
+            if profiler is not None and train_steps == profile_until:
+                _write_trace(profiler, device, config.profile_dir, rank, logger)
+                profiler = None
             if train_steps % config.log_every == 0:
                 last_avg_loss = running_loss.item() / log_steps  # the one host sync
                 steps_per_sec = log_steps / (time.time() - start_time)
@@ -324,6 +358,8 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
                 stop = True
                 break
 
+    if profiler is not None:  # the run ended first
+        _write_trace(profiler, device, config.profile_dir, rank, logger)
     logger.info("Done!")
     return {"final_step": train_steps, "last_loss": last_avg_loss,
             "experiment_dir": experiment_dir, "checkpoint_dir": checkpoint_dir, "ema": ema}

@@ -1,6 +1,7 @@
 """The PyTorch port never imports jax, flax or any module of the JAX package
 (`osu_diffusion_tpu`, `osu_diffusion_tpu.*`), directly or through any import
-chain, and importing it builds nothing and needs no CUDA."""
+chain, and importing it builds nothing (no kernel, no native featurizer)
+and needs no CUDA."""
 import os
 import subprocess
 import sys
@@ -28,6 +29,8 @@ assert not bad, bad
 assert not torch.cuda.is_initialized()
 from osu_diffusion_tpu_torch.ops import cuda_build
 assert not cuda_build.build_info, "a kernel was built at import"
+from osu_diffusion_tpu_torch import native
+assert not native.build_info, "the native featurizer was built at import"
 print("ok")
 """
 
@@ -55,22 +58,24 @@ def test_sample_launcher_imports_no_jax():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize("launcher", ["train_torch.py", "chip_smoke.py", "train_nodist_torch.py"])
+@pytest.mark.parametrize("launcher", ["train_torch.py", "chip_smoke.py", "train_nodist_torch.py",
+                                      "data_loading_torch.py"])
 def test_train_and_smoke_launchers_import_no_jax(launcher):
     res = _launcher_probe(launcher)
     assert res.returncode == 0, res.stdout + res.stderr
 
 
 def test_port_and_its_launchers_import_no_matplotlib():
-    """The GPU machine has no matplotlib: the package, the sample launcher
-    and chip_smoke.py import it only inside the sample CLI's plot and
-    animation branches."""
+    """The GPU machine has no matplotlib: the package, the sample launcher,
+    chip_smoke.py and data_loading_torch.py import it only inside the
+    sample CLI's plot and animation branches and the loader CLI's
+    plotfirst."""
     probe = (
         "import importlib, pkgutil, runpy, sys\n"
         "import osu_diffusion_tpu_torch as pkg\n"
         "for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
         "    importlib.import_module(mod.name)\n"
-        "for launcher in ('sample_torch.py', 'chip_smoke.py'):\n"
+        "for launcher in ('sample_torch.py', 'chip_smoke.py', 'data_loading_torch.py'):\n"
         "    runpy.run_path(launcher, run_name='not_main')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] == 'matplotlib']\n"
         "assert not bad, bad\n"

@@ -7,6 +7,7 @@ import math
 import os
 import shutil
 
+import pytest
 import torch
 
 from osu_diffusion_tpu.evals.plot_loss import parse_losses
@@ -187,3 +188,52 @@ def test_train_nodist_launcher_pins_the_refine_timestep(monkeypatch):
     want = trainer.TrainConfig(**train_config_kwargs(build_train_parser().parse_args(argv)))
     assert seen[0] == trainer.TrainConfig(**{**want.__dict__, "max_timestep": 1})
     assert (want.max_timestep, want.mlp_bwd, want.embed_only_epochs) == (None, "fused", 2)
+
+
+@pytest.mark.parametrize("amp", [[], ["--use-amp"], ["--no-use-amp"], ["--use-amp", "--no-use-bf16"],
+                                 ["--no-use-amp", "--use-bf16"]])
+def test_train_flags_give_the_jax_config(amp):
+    """--use-amp (the reference's name) overrides --use-bf16 when given, and
+    --fine-tune-ids and --profile-dir are taken: every config key that both
+    packages have gets JAX's value for the same arguments."""
+    from osu_diffusion_tpu.cli import build_train_parser as jax_parser
+    from osu_diffusion_tpu.cli import train_config_kwargs as jax_kwargs
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_config_kwargs
+
+    argv = ["--data-path", "d", "--model", "DiT-S", "--fine-tune-ids", "3,5", "--profile-dir", "p",
+            *amp]
+    want = jax_kwargs(jax_parser().parse_args(argv))
+    got = train_config_kwargs(build_train_parser().parse_args(argv))
+    shared = set(want) & set(got)
+    assert {"use_bf16", "profile_dir", "model", "seq_len", "num_workers"} <= shared
+    assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
+    assert got["use_bf16"] == ("--no-use-amp" not in amp)
+    assert got["profile_dir"] == "p"
+
+
+@pytest.mark.parametrize("steps", [2, 4])
+def test_profile_dir_writes_a_trace(tmp_path, steps):
+    """DiT-S on the CPU with --profile-dir: the trace of the first
+    profile_steps (3) steps is written after step 3, or at the end of a
+    shorter run; the log names it and the featurizer."""
+    import json
+
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.data.dataset import featurizer_name
+
+    data = str(tmp_path / "data")
+    _dataset(data)
+    profile_dir = str(tmp_path / "profile")
+    summary = train_main(build_train_parser().parse_args(_train_argv(
+        data, str(tmp_path / "results"), "--max-steps", str(steps), "--profile-dir", profile_dir)))
+    assert summary["final_step"] == steps
+    trace = os.path.join(profile_dir, "trace-rank0.json")
+    assert os.path.getsize(trace) > 0
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name", "").startswith("aten::") for e in events)
+    log = open(os.path.join(summary["experiment_dir"], "log.txt")).read()
+    written = log.index(f"Profiler trace written to {trace}")
+    # after the third step, before its log line; or after the last step
+    assert log.index("(step=0000002)") < written < log.index("(step=0000003)" if steps > 3 else "Done!")
+    assert f"Featurizer: {featurizer_name()}" in log
