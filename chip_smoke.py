@@ -166,6 +166,21 @@ Phases (any failure raises and exits non-zero):
    on one suite after each (cuts); two JSON lines, and the launches counted
    in the child: the training rows 2, 3, 4 and 8 and the eval's rows 1 and 7
    by the schedule. Each of 15-17 prints its wall time.
+18. DiT-XL serving (hidden 1152, 28 blocks, 16 heads of 72). After 9, the
+   kernels at XL's shapes against their plain versions at the unchanged
+   tolerances: rows 1 and 5 without LSE at head dim 72, f32 and bf16 q/k/v,
+   o in bf16 too, with their five builds' registers and spills (0
+   required) and the main shape's time beside its bound and SDPA
+   (`[attn-xl]`); row 7 at D 1152 (`[mlp-xl]`) and rows 10-13 (`[quant-xl]`),
+   each with its time, bound and library time. After 10, the sample CLI at
+   --model DiT-XL on kimi from a seeded random checkpoint, 20 steps, f32 and
+   --quantize-weights (`[slice-xl]`, `[slice-xl-int8]`: 28 x steps
+   launches of each path kernel, the .osu reparsed, s per step, device ms
+   a step, busy share); one XL forward of each stream against the same
+   forward with every kernel's plain version patched in on the card
+   (`[xl-forward]`, `[xl-bf16-forward]`, `[xl-int8-forward]`); and the
+   train CLI at XL, refused at its first step with the ValueError that
+   names XL training (`[xl-train]`).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -515,22 +530,24 @@ def phase_build():
 
 
 # the Hopper attention builds: the forward's five (q/k/v type, o type;
-# bf16 o from f32 q/k/v unranged only) and dq's and dk/dv's two, each
-# unranged and ranged
-SM90_ATTN_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32",
-                    "dq", "ranged dq", "dkv", "ranged dkv")
+# bf16 o from f32 q/k/v unranged only) at Dh 64 and at Dh 72 (DiT-XL), and
+# dq's and dk/dv's two, each unranged and ranged
+SM90_FWD_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32")
+SM90_FWD_XL_BUILDS = tuple(f"{name} dh72" for name in SM90_FWD_BUILDS)
+SM90_ATTN_BUILDS = SM90_FWD_BUILDS + SM90_FWD_XL_BUILDS + ("dq", "ranged dq", "dkv", "ranged dkv")
 
 
 def attn_build_name(entry: str, kernel: str, key: str) -> str:
     """The SM90_ATTN_BUILDS name of a mangled Hopper attention kernel:
-    <RANGED[, q/k/v type, o type]> for the forward."""
+    <RANGED[, q/k/v type, o type, head dim]> for the forward."""
     name = ("ranged " if f"{kernel}ILb1E" in entry else "") + key
     if key != "fwd":
         return name
     types = entry.split(f"{kernel}ILb", 1)[1][2:]  # past the flag and its E
+    dh = " dh72" if "Li72E" in types else ""
     if types.startswith("ff"):
-        return name + " f32"
-    return name + (" f32->bf16" if types.startswith("f13__nv_bfloat16") else " bf16")
+        return name + " f32" + dh
+    return name + (" f32->bf16" if types.startswith("f13__nv_bfloat16") else " bf16") + dh
 
 
 def sm90_resources() -> dict:
@@ -554,7 +571,10 @@ def sm90_resources() -> dict:
             if entry is None or kernel not in entry:
                 continue
             name = attn_build_name(entry, kernel, key)
-            res = found.setdefault(name, {"smem_bytes": smem["fwd f32" if "fwd f32" in name else key]})
+            smem_key = key
+            if key == "fwd":  # the f32 staging buffer, and Dh 72's second slabs
+                smem_key += " f32" * (" f32" in name) + " dh72" * name.endswith("dh72")
+            res = found.setdefault(name, {"smem_bytes": smem[smem_key]})
             if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
                 res["spill_bytes"] = int(m[1]) + int(m[2])
             if (m := re.search(r"Used (\d+) registers", line)):
@@ -643,6 +663,159 @@ def phase_attention(dev):
             result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b,
                       "library_ms": library_ms}
     return result
+
+
+# [attn-xl]: row 1 at DiT-XL's head dim (1152 / 16 heads = 72): (name, N,
+# H, T, valid_len, band), the XL sampling shape first, then [attn]'s edge
+# cases; and row 5 without LSE on the XL sampling shard (T 757 -> 768 over
+# 2 ranks, halo 128: T_ext 640), each shard
+XL_HEAD_DIM = 72
+ATTN_XL_CASES = [("main", 2, 16, 768, 757, BAND), ("band_not_tile_multiple", 1, 3, 200, 190, 20),
+                 ("t_below_band", 2, 2, 50, 50, 128), ("fully_masked_rows", 1, 2, 256, 60, 16)]
+ATTN_XL_CP_SHARDS = 2
+
+
+def head_views(qkv, n, t, h, dh):
+    """q, k, v as head views (N, H, T, Dh) of a packed (N, T, 3 H Dh)
+    projection, as the model passes them."""
+    return tuple(a.view(n, t, h, dh).transpose(1, 2) for a in qkv.split(h * dh, dim=-1))
+
+
+def phase_attention_xl(dev):
+    """[attn-xl]: rows 1 and 5 (no LSE) at Dh 72 against their plain
+    versions, f32 and bf16 q/k/v, o in q's type and (f32 q/k/v) in bf16;
+    the body (sm90) and the same bits on a second call in every case; the
+    five Dh 72 builds' registers and spills (0 required); at the XL
+    sampling shape the time beside the bound (4 x 72 FLOP a pair), the
+    plain versions and SDPA with the band mask. Returns row 1's and row 5's
+    numbers at their main shapes."""
+    import types
+
+    import torch
+    import torch.nn.functional as F
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.parallel.context import BLOCK, shard_bounds
+
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf16, f32, dh = torch.bfloat16, torch.float32, XL_HEAD_DIM
+    print_sm90_resources("attn-xl", SM90_FWD_XL_BUILDS)
+    results = {}
+    for name, n, h, t, valid, band in ATTN_XL_CASES:
+        qkv = torch.randn((n, t, 3 * h * dh), generator=g, device=dev)
+        for stream in ("f32", "bf16"):
+            q, k, v = head_views(qkv if stream == "f32" else qkv.to(bf16), n, t, h, dh)
+            got = ba.banded_attention(q, k, v, band, valid)
+            torch.cuda.synchronize()
+            body = ba.banded_attention.body
+            same = torch.equal(ba.banded_attention(q, k, v, band, valid), got)
+            ref16 = ba.banded_attention_reference(q, k, v, band, valid, bf16)
+            ref32 = ba.banded_attention_reference(q, k, v, band, valid, f32)
+            finite = bool(torch.isfinite(got).all())
+            extra = ""
+            if stream == "f32":
+                # o in bf16 from the same f32 q/k/v: the f32 o, rounded
+                got16 = ba.banded_attention(q, k, v, band, valid, out_dtype=bf16)
+                torch.cuda.synchronize()
+                rounded = got16.dtype == bf16 and torch.equal(got16, got.to(bf16))
+                if not rounded:
+                    diff = (got16.float() - got.to(bf16).float()).abs()
+                    where = diff.nonzero()
+                    print(f"[attn-xl] {name}: bf16 o differs from the rounded f32 o at {len(where)} of "
+                          f"{diff.numel()} elements, max {diff.max().item():.3e}; columns "
+                          f"{sorted(set(where[:, 3].tolist()))[:20]}, rows {sorted(set(where[:, 2].tolist()))[:20]}; "
+                          f"bf16 o against the plain bf16 version {max_err(got16, ref16):.3e}; same bits "
+                          f"on a second call {torch.equal(got16, ba.banded_attention(q, k, v, band, valid, out_dtype=bf16))}")
+                check(ba.banded_attention.body == "sm90", f"attn-xl {name}: bf16 o body {ba.banded_attention.body}")
+                check(rounded, f"attn-xl {name}: bf16 o is not the rounded f32 o")
+                e16, e32 = max_err(got, ref16), max_err(got, ref32)
+                tol16, tol32, how = ATTN_TOL_BF16, ATTN_TOL_F32, "max_abs_err"
+                extra = f"; bf16 o is the rounded f32 o: {rounded}"
+            else:
+                # a bf16 o rounds to 2^-8 of itself: held as [slice-bf16] holds row 1's bf16 stream
+                e16, e32 = rel_err(got, ref16), rel_err(got, ref32)
+                tol16, tol32, how = TRAIN_TOL_BF16, TRAIN_TOL_F32, "error of max |plain|"
+            print(f"[attn-xl] {name} {stream} q/k/v: N={n} H={h} T={t} Dh={dh} valid={valid} band={band} "
+                  f"body {body} {how} bf16={e16:.3e} (tol {tol16}) f32={e32:.3e} (tol {tol32}) "
+                  f"finite={finite}; same bits on a second call: {same}{extra}")
+            check(got.dtype == q.dtype and got.shape == q.shape, f"attn-xl {name} {stream}: {got.dtype} {got.shape}")
+            check(body == "sm90", f"attn-xl {name} {stream}: body {body}, expected sm90")
+            check(same, f"attn-xl {name} {stream}: a second call gave other bits")
+            check(finite, f"attn-xl {name} {stream}: non-finite output")
+            check(e16 <= tol16, f"attn-xl {name} {stream}: {e16} > {tol16}")
+            check(e32 <= tol32, f"attn-xl {name} {stream}: {e32} > {tol32}")
+            if name == "fully_masked_rows":
+                check(bool((got[:, :, valid + band:] == 0).all()), f"attn-xl {name}: masked rows not 0")
+            if name != "main":
+                continue
+            pairs = attention_pairs(t, band, valid)
+            flops = 4 * dh * n * h * pairs
+            ms = cuda_ms(lambda: ba.banded_attention(q, k, v, band, valid))
+            plain_ms = cuda_ms(lambda: ba.banded_attention_reference(q, k, v, band, valid, f32))
+            mask = ba.banded_attention_mask(t, band, dev) & (torch.arange(t, device=dev) < valid)[None, :]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
+            b = bound(nbytes(q, k, v, got), flops)
+            ms16 = ""
+            if stream == "f32":
+                ms_o16 = cuda_ms(lambda: ba.banded_attention(q, k, v, band, valid, out_dtype=bf16))
+                ms16 = f" (bf16 o {ms_o16:.4f} ms)"
+            print(f"[attn-xl] main {stream} q/k/v: kernel {ms:.4f} ms{ms16}, "
+                  f"{ms * 1e6 / (n * h * pairs):.4f} ns per (query, key) pair per head, plain f32 "
+                  f"{plain_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}, {nbytes(q, k, v, got) / 1e6:.2f} MB, {flops:.3e} FLOP)")
+            results[f"banded_attention {stream}"] = {"max_abs_err": max_err(got, ref16), "ms": ms,
+                                                     "plain_ms": plain_ms, **b, "library_ms": library_ms}
+
+    # row 5 without LSE: the XL sampling shard of each of ATTN_XL_CP_SHARDS ranks
+    n, h, t_real, band = 2, 16, 757, BAND
+    t_glob = -(-t_real // (BLOCK * ATTN_XL_CP_SHARDS)) * BLOCK * ATTN_XL_CP_SHARDS
+    t_loc, halo = t_glob // ATTN_XL_CP_SHARDS, -(-band // BLOCK) * BLOCK
+    t = t_loc + 2 * halo
+    for idx in range(ATTN_XL_CP_SHARDS):
+        bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=ATTN_XL_CP_SHARDS),
+                              t_real)
+        rows = slice(bounds[2], bounds[3])
+        qkv = torch.randn((n, t, 3 * h * dh), generator=g, device=dev)
+        for stream in ("f32", "bf16"):
+            q, k, v = head_views(qkv if stream == "f32" else qkv.to(bf16), n, t, h, dh)
+            got = ba.banded_attention_ranged(q, k, v, band, bounds)
+            torch.cuda.synchronize()
+            body = ba.banded_attention_ranged.body
+            same = torch.equal(ba.banded_attention_ranged(q, k, v, band, bounds), got)
+            ref16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)[0]
+            ref32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)[0]
+            got_r, ref16_r, ref32_r = got[:, :, rows], ref16[:, :, rows], ref32[:, :, rows]
+            if stream == "f32":
+                e16, e32 = max_err(got_r, ref16_r), max_err(got_r, ref32_r)
+                tol16, tol32, how = ATTN_TOL_BF16, ATTN_TOL_F32, "max_abs_err"
+            else:
+                e16, e32 = rel_err(got_r, ref16_r), rel_err(got_r, ref32_r)
+                tol16, tol32, how = TRAIN_TOL_BF16, TRAIN_TOL_F32, "error of max |plain|"
+            finite = bool(torch.isfinite(got_r).all())
+            print(f"[attn-xl] ranged shard {idx} of {ATTN_XL_CP_SHARDS} {stream} q/k/v: N={n} H={h} "
+                  f"T_ext={t} Dh={dh} bounds {bounds} band={band} body {body} {how} on the shard's rows "
+                  f"bf16={e16:.3e} (tol {tol16}) f32={e32:.3e} (tol {tol32}) finite={finite}; same "
+                  f"bits on a second call: {same}")
+            check(body == "sm90" and same and finite, f"attn-xl ranged {idx} {stream}: body {body}, "
+                  f"same {same}, finite {finite}")
+            check(e16 <= tol16 and e32 <= tol32, f"attn-xl ranged {idx} {stream}: {e16}, {e32}")
+            if idx != 0 or stream != "f32":
+                continue
+            allowed = ba._allowed(t, band, t, "cpu", query_valid=True, bounds=bounds)
+            pairs = int(allowed.sum()) * n * h
+            n_q, n_k = bounds[3] - bounds[2], int(allowed.any(dim=0).sum())
+            row_bytes = n * h * dh * q.element_size()
+            b = bound(row_bytes * 2 * (n_q + n_k), 4 * dh * pairs)  # q, o on the rows; k, v on the keys
+            ms = cuda_ms(lambda: ba.banded_attention_ranged(q, k, v, band, bounds))
+            plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds))
+            idx_t = torch.arange(t, device=dev)
+            keys = (idx_t >= bounds[0]) & (idx_t < bounds[1])
+            mask = (ba.banded_attention_mask(t, band, dev) & keys[None, :])[rows]
+            library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q[:, :, rows], k, v, attn_mask=mask))
+            print(f"[attn-xl] ranged shard 0 f32: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, SDPA "
+                  f"(masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            results["banded_attention_ranged f32"] = {"max_abs_err": max_err(got_r, ref16_r), "ms": ms,
+                                                      "plain_ms": plain_ms, **b, "library_ms": library_ms}
+    return results
 
 
 def cublas_mlp_ms(n, t, d, hdim, dev) -> float:
@@ -754,13 +927,23 @@ def mlp_bwd_sm90_resources() -> str:
             + "; GEMM shared memory a CTA " + ", ".join(f"{w}-wide {b} B" for w, b in smem.items()))
 
 
-def phase_mlp(dev):
+# [mlp]: (name, N, T, D) of row 7, the DiT-B sampling shape first;
+# [mlp-xl]: DiT-XL's (D 1152, H 4608) and a ragged T at that width
+MLP_CASES = [("main", 2, 768, 768), ("ragged_t", 3, 50, 768), ("dit_s_width", 2, 100, 384),
+             ("dit_l_width_t757", 1, 757, 1024)]
+MLP_XL_CASES = [("main", 2, 768, 1152), ("ragged_t", 3, 50, 1152)]
+
+
+def phase_mlp(dev, tag="mlp", cases=MLP_CASES):
+    """Row 7 on f32 x against its plain versions in each case (`cases`,
+    the main path's shape first): its body, the same bits on a second call;
+    at the main shape its time beside the bound, the plain versions and
+    cuBLAS's two products. [mlp-xl] also holds the bf16 stream at the main
+    shape, as [slice-bf16] holds it at DiT-B."""
     import torch
     from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp, adaln_mlp_reference
 
     g = torch.Generator(device=dev).manual_seed(2)
-    cases = [("main", 2, 768, 768), ("ragged_t", 3, 50, 768), ("dit_s_width", 2, 100, 384),
-             ("dit_l_width_t757", 1, 757, 1024)]
     result = None
     for name, n, t, d in cases:
         hdim = 4 * d
@@ -782,14 +965,14 @@ def phase_mlp(dev):
         ref16 = adaln_mlp_reference(x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, torch.bfloat16)
         ref32 = adaln_mlp_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.float32)
         e16, e32 = max_err(got, ref16), max_err(got, ref32)
-        print(f"[mlp] {name}: x=({n}, {t}, {d}) w1=({d}, {hdim}) body {body} "
+        print(f"[{tag}] {name}: x=({n}, {t}, {d}) w1=({d}, {hdim}) body {body} "
               f"max_abs_err bf16={e16:.3e} (tol {MLP_TOL_BF16}) "
               f"f32={e32:.3e} (tol {MLP_TOL_F32}); same bits on a second call: {same}")
-        check(body == "sm90", f"mlp {name}: body {body}, expected sm90")
-        check(same, f"mlp {name}: a second call gave other bits")
-        check(bool(torch.isfinite(got).all()), f"mlp {name}: non-finite output")
-        check(e16 <= MLP_TOL_BF16, f"mlp {name}: {e16} > {MLP_TOL_BF16}")
-        check(e32 <= MLP_TOL_F32, f"mlp {name}: {e32} > {MLP_TOL_F32}")
+        check(body == "sm90", f"{tag} {name}: body {body}, expected sm90")
+        check(same, f"{tag} {name}: a second call gave other bits")
+        check(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite output")
+        check(e16 <= MLP_TOL_BF16, f"{tag} {name}: {e16} > {MLP_TOL_BF16}")
+        check(e32 <= MLP_TOL_F32, f"{tag} {name}: {e32} > {MLP_TOL_F32}")
         if name == "main":
             ms = cuda_ms(lambda: adaln_mlp(x, shift, scale, gate, fc1_w, b1, fc2_w, b2))
             plain_ms = cuda_ms(lambda: adaln_mlp_reference(
@@ -798,11 +981,23 @@ def phase_mlp(dev):
                 x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, torch.bfloat16))
             library_ms = cublas_mlp_ms(n, t, d, hdim, dev)
             b = bound(nbytes(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, got), 4 * n * t * d * hdim)
-            print(f"[mlp] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
+            print(f"[{tag}] main: kernel {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, "
                   f"plain bf16-rounded {plain16_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
                   f"({b['bound_by']}); yardstick, not the same function: cuBLAS bf16 fc1 + fc2 "
                   f"({n * t}, {d}) x ({d}, {hdim}), ({n * t}, {hdim}) x ({hdim}, {d}) {library_ms:.4f} ms")
             result = {"max_abs_err": e16, "ms": ms, "plain_ms": plain_ms, **b, "library_ms": library_ms}
+            if tag == "mlp":
+                continue
+            # the bf16 stream at this shape ([xl-bf16-forward] runs it end to end)
+            xb = x.to(torch.bfloat16)
+            got_b = adaln_mlp(xb, shift, scale, gate, fc1_w, b1, fc2_w, b2)
+            e_b = rel_err(got_b, adaln_mlp_reference(xb, shift, scale, gate, w1b, b1, w2b, b2, 1e-6,
+                                                     torch.bfloat16))
+            ms_b = cuda_ms(lambda: adaln_mlp(xb, shift, scale, gate, fc1_w, b1, fc2_w, b2))
+            print(f"[{tag}] main, bf16 x: body {adaln_mlp.body} {e_b:.3e} of max from its plain version "
+                  f"(tol {TRAIN_TOL_BF16}: a bf16 output rounds to 2^-8 of itself), {ms_b:.4f} ms")
+            check(got_b.dtype == torch.bfloat16 and adaln_mlp.body == "sm90" and e_b <= TRAIN_TOL_BF16,
+                  f"{tag} bf16 x: {got_b.dtype}, body {adaln_mlp.body}, {e_b}")
     return result
 
 
@@ -1118,7 +1313,15 @@ def int8pack_ms(h, wq, s) -> float | None:
     return cuda_ms(fn)
 
 
-def phase_quant(dev):
+# [quant-xl]: rows 10-13 at DiT-XL's sampling shapes (x (2, 768, 1152),
+# H 4608, qkv M 3456, the adaLN projection's 6912 columns over 2 rows)
+QUANT_XL_CASES = {"int8_matmul": [("main", (2,), 1152, 6912, None)],
+                  "int8_modulated_matmul": [("main", 2, 768, 1152, 3456)],
+                  "int8_out_residual": [("main", 2, 768, 1152, 1152)],
+                  "adaln_mlp_quant": [("main", 2, 768, 1152, 4608)]}
+
+
+def phase_quant(dev, tag="quant", xl_cases=None):
     """Rows 10-13 against their plain versions (bf16 operands and int8
     codes, and the f32 dequantised math), the DiT-B sampling shape of each
     first; the same bits on a second call, and each call's body (row 13's
@@ -1126,7 +1329,8 @@ def phase_quant(dev):
     attention writes it for the int8 block); at the main shape times (row
     13 warm and cold), bounds, the cuBLAS bf16 product of the same shape,
     torch._weight_int8pack_mm of rows 11-13's products, rows 10 and 11's
-    kernels alone and the int8 GEMM builds' resources."""
+    kernels alone and the int8 GEMM builds' resources. `xl_cases`
+    (QUANT_XL_CASES, under `tag` quant-xl) replace each row's cases."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import quant as tq
@@ -1134,8 +1338,9 @@ def phase_quant(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     bf16, f32 = torch.bfloat16, torch.float32
     sm_count = torch.cuda.get_device_properties(0).multi_processor_count
-    print(f"[quant] int8 Hopper GEMM builds (ptxas): {mlp_sm90_resources(int8=True)}")
-    print(f"[quant] int8_matmul skinny builds (ptxas): {skinny_resources()}")
+    if xl_cases is None:
+        print(f"[quant] int8 Hopper GEMM builds (ptxas): {mlp_sm90_resources(int8=True)}")
+        print(f"[quant] int8_matmul skinny builds (ptxas): {skinny_resources()}")
 
     def rnd(*shape, std=1.0):
         return torch.randn(shape, generator=g, device=dev) * std
@@ -1199,7 +1404,7 @@ def phase_quant(dev):
     }
     results = {}
     for name, (kernel, plain, make, cases, staged) in kernels.items():
-        for case, *shape in cases:
+        for case, *shape in (cases if xl_cases is None else xl_cases[name]):
             args = make(*shape)
             got = kernel(*args)
             torch.cuda.synchronize()
@@ -1221,7 +1426,7 @@ def phase_quant(dev):
             want16 = plain(*args, matmul_dtype=bf16)
             want32 = plain(*args, matmul_dtype=f32)
             e16, e32 = rel_err(got, want16), rel_err(got, want32)
-            print(f"[quant] {name} {case}: {shape} body {body}{plan_note} max_abs_err bf16="
+            print(f"[{tag}] {name} {case}: {shape} body {body}{plan_note} max_abs_err bf16="
                   f"{max_err(got, want16):.3e} f32={max_err(got, want32):.3e}; of max |plain| "
                   f"bf16={e16:.2e} (tol {QUANT_TOL_BF16}) f32={e32:.2e} (tol {QUANT_TOL_F32}); "
                   f"same bits on a second call: {same}")
@@ -1271,7 +1476,7 @@ def phase_quant(dev):
                               (lambda m=mask: am._launch(am.adaln_mlp, *wide, 1e-6, bf16,
                                                          residuals=False, stages=m)))
                         turns.setdefault(f"{kind} {stage}", []).append(cuda_ms(fn))
-                print("[quant] adaln_mlp_quant main: GEMMs alone in turns (int8, bf16, bf16, int8), "
+                print(f"[{tag}] adaln_mlp_quant main: GEMMs alone in turns (int8, bf16, bf16, int8), "
                       "int8 codes against row 7's bf16 weights: " + "; ".join(
                           f"{k} " + ", ".join(f"{v:.4f}" for v in vs) + " ms" for k, vs in turns.items()))
             # the product alone through PyTorch's int8 weight-only call
@@ -1296,7 +1501,7 @@ def phase_quant(dev):
                 stages = f" (bound with an f32 o, as before: {f32_o:.4f} ms)"
             library = ("none" if library_ms is None else
                        f"torch._weight_int8pack_mm of its product alone (bf16 out, no bias) {library_ms:.4f} ms")
-            print(f"[quant] {name} main: kernel {ms:.4f} ms{stages}, plain f32 {plain_ms:.4f} ms, "
+            print(f"[{tag}] {name} main: kernel {ms:.4f} ms{stages}, plain f32 {plain_ms:.4f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}, {moved / 1e6:.2f} MB, "
                   f"{flops:.3e} FLOP); library: {library}; yardstick, not the same function: cuBLAS "
                   f"bf16 product(s) {products} alone {cublas_ms:.4f} ms; host {launch_us:.1f} us per call")
@@ -1340,17 +1545,19 @@ class _Tee(io.TextIOBase):
             st.flush()
 
 
-def sample_argv(dev, ckpt_path, results_dir) -> list[str]:
-    """The sample CLI at DiT-B on kimi: STEPS CFG steps, band BAND, seed SEED."""
-    return ["--beatmap", BEATMAP, "--ckpt", ckpt_path, "--model", MODEL,
-            "--num-classes", str(NUM_CLASSES), "--num-sampling-steps", str(STEPS),
+def sample_argv(dev, ckpt_path, results_dir, model=MODEL, steps=STEPS) -> list[str]:
+    """The sample CLI at `model` (DiT-B) on kimi: `steps` (STEPS) CFG steps,
+    band BAND, seed SEED."""
+    return ["--beatmap", BEATMAP, "--ckpt", ckpt_path, "--model", model,
+            "--num-classes", str(NUM_CLASSES), "--num-sampling-steps", str(steps),
             "--cfg-scale", str(CFG_SCALE), "--seq-len", str(BAND), "--seed", str(SEED),
             "--device", dev, "--results-dir", results_dir]
 
 
-def phase_slice(dev, ckpt_path, results_dir, quantize=False):
-    """The sample CLI at DiT-B (f32, or int8 with --quantize-weights):
-    launch counts, the written .osu, seconds per denoise step, a profile.
+def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=STEPS, xl=False):
+    """The sample CLI at `model` (DiT-B; f32, or int8 with
+    --quantize-weights) over `steps` steps: launch counts, the written
+    .osu, seconds per denoise step, a profile. `xl`: the [slice-xl] tags.
     Returns (launches of the path's kernels, sampler, its inputs, step ms)."""
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
@@ -1374,8 +1581,8 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
         return out
 
     sampling.Sampler.__call__ = timed_call
-    argv = sample_argv(dev, ckpt_path, results_dir)
-    tag = "slice-int8" if quantize else "slice"
+    argv = sample_argv(dev, ckpt_path, results_dir, model, steps)
+    tag = ("slice-xl" if xl else "slice") + "-int8" * quantize
     args = build_sample_parser().parse_args(argv + ["--quantize-weights"] * quantize)
 
     buf = io.StringIO()
@@ -1390,8 +1597,8 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     depth = len(runs[-1][0].model.blocks)
     path = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
              "adaln_mlp_quant"] if quantize else ["banded_attention", "adaln_mlp"])
-    print(f"[{tag}] launches {counts} (expected {STEPS} steps x depth {depth} = "
-          f"{STEPS * depth} for each of {path}, 0 for the others), wall {wall:.2f} s; "
+    print(f"[{tag}] launches {counts} (expected {steps} steps x depth {depth} = "
+          f"{steps * depth} for each of {path}, 0 for the others), wall {wall:.2f} s; "
           f"f32 o cast to bf16 before the out projection {o_casts} times (0 expected: row 1 "
           f"writes it in bf16)")
     check(o_casts == 0, f"{tag}: {o_casts} casts of o before the out projection")
@@ -1399,7 +1606,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
         print(f"[{tag}] int8_matmul (row 13) body {tq.int8_matmul.body}")
         check(tq.int8_matmul.body == "sm90_skinny", f"{tag}: row 13 took body {tq.int8_matmul.body}")
     check("seq len 757" in buf.getvalue(), "CLI did not report seq len 757")
-    launches = dict.fromkeys(path, STEPS * depth)
+    launches = dict.fromkeys(path, steps * depth)
     check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
     launches = {name: counts[name] for name in launches}
     _, _, samples, first_ms, _ = runs[-1]
@@ -1416,10 +1623,10 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
         sample_main(args)
     sampling.Sampler.__call__ = orig_call
     sampler, call_args, _, chain_ms, enqueue_ms = runs[-1]
-    step_ms = chain_ms / STEPS
+    step_ms = chain_ms / steps
     print(f"[{tag}] denoise chain {chain_ms:.2f} ms (first run {first_ms:.2f} ms): "
           f"{step_ms / 1000:.6f} s per denoise step, {1000 / step_ms:.2f} denoise steps/s "
-          f"(DiT-B, T=757 padded to 768, CFG batch 2); the host enqueued it in {enqueue_ms:.2f} ms")
+          f"({model}, T=757 padded to 768, CFG batch 2); the host enqueued it in {enqueue_ms:.2f} ms")
 
     # device time by kernel over one more chain
     from torch.profiler import ProfilerActivity, profile
@@ -1431,24 +1638,24 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events)
-    ptag = "profile-int8" if quantize else "profile"
-    print(f"[{ptag}] device time {device_us / 1000:.2f} ms over {STEPS} steps "
-          f"({len(events)} kinds of device op); busy {100 * device_us / 1000 / chain_ms:.1f}% "
-          f"of the timed chain")
+    ptag = ("profile-xl" if xl else "profile") + "-int8" * quantize
+    print(f"[{ptag}] device time {device_us / 1000:.2f} ms over {steps} steps, "
+          f"{device_us / 1000 / steps:.3f} ms per denoise step ({len(events)} kinds of device op); "
+          f"busy {100 * device_us / 1000 / chain_ms:.1f}% of the timed chain")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{ptag}]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     # kernel B's own device time (its Hopper body: MLP_SM90_KERNELS); in the
     # int8 chain the same kernels also run row 11, split by the GEMM's epilogue
     mlp_us = sum(e.self_device_time_total for e in events if any(k in e.key for k in MLP_SM90_KERNELS))
     what = "rows 10, 11 and 12" if quantize else "kernel B"
-    print(f"[{tag}] {what} ({', '.join(MLP_SM90_KERNELS)}) {mlp_us / 1000 / STEPS:.3f} ms of device "
+    print(f"[{tag}] {what} ({', '.join(MLP_SM90_KERNELS)}) {mlp_us / 1000 / steps:.3f} ms of device "
           f"time per denoise step, {100 * mlp_us / max(device_us, 1e-9):.1f}% of the chain's")
     attn_us = sum(e.self_device_time_total for e in events if ATTN_FWD_KERNEL in e.key)
-    print(f"[{ptag}] row 1 ({ATTN_FWD_KERNEL}) {attn_us / 1000 / STEPS:.3f} ms of device time per "
+    print(f"[{ptag}] row 1 ({ATTN_FWD_KERNEL}) {attn_us / 1000 / steps:.3f} ms of device time per "
           f"denoise step")
     if quantize:
         skinny_us = sum(e.self_device_time_total for e in events if ADALN_SKINNY_KERNEL in e.key)
-        print(f"[{ptag}] row 13 ({ADALN_SKINNY_KERNEL}) {skinny_us / 1000 / STEPS:.3f} ms of device "
+        print(f"[{ptag}] row 13 ({ADALN_SKINNY_KERNEL}) {skinny_us / 1000 / steps:.3f} ms of device "
               f"time per denoise step")
         parts = {"modulate passes (rows 10 and 11)": 0.0, "up + down GEMMs (row 10)": 0.0,
                  "qkv GEMM (row 11)": 0.0, "out GEMM (row 12)": 0.0,
@@ -1464,8 +1671,179 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False):
                         4: "cast + ada GEMM (row 13's wide body)"}.get(epi, "up + down GEMMs (row 10)")
                 parts[part] += e.self_device_time_total
         print(f"[{ptag}] int8 Hopper bodies, device ms per denoise step: " + ", ".join(
-            f"{k} {v / 1000 / STEPS:.3f}" for k, v in parts.items()))
+            f"{k} {v / 1000 / steps:.3f}" for k, v in parts.items()))
     return launches, sampler, call_args, step_ms
+
+
+XL_MODEL = "DiT-XL"
+XL_STEPS = 20  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """While in use, every kernel wrapper the model calls (rows 1, 7 and
+    10-13) is its plain version at bf16 operands (the kernels' contract)
+    with f32 arithmetic, on whatever device its tensors lie: the XL
+    forward's reference on the card (TF32 is off in main)."""
+    import torch
+    from osu_diffusion_tpu_torch.models import dit
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import attention as attention_ops
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.ops import quant as tq
+
+    bf16 = torch.bfloat16
+    plain = {
+        (attention_ops, "banded_attention"):
+            lambda q, k, v, band, valid_len=None, matmul_dtype=None, out_dtype=None: ba.banded_attention_reference(
+                q, k, v, band, q.shape[-2] if valid_len is None else valid_len, bf16).to(out_dtype or q.dtype),
+        (dit, "adaln_mlp"): lambda x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype: am.adaln_mlp_reference(
+            x, shift, scale, gate, w1.t(), b1, w2.t(), b2, eps, bf16),
+        (dit, "adaln_mlp_quant"):
+            lambda x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_dtype: am.adaln_mlp_quant_reference(
+                x, shift, scale, gate, w1q.t(), s1, b1, w2q.t(), s2, b2, eps, bf16),
+        (dit, "int8_matmul"): lambda x, w_q, s, b, activation=None, matmul_dtype=None: tq.int8_matmul_reference(
+            x, w_q, s, b, activation, bf16),
+        (attention_ops, "int8_modulated_matmul"):
+            lambda x, shift, scale, w_q, s, b, eps=1e-6, matmul_dtype=None: tq.int8_modulated_matmul_reference(
+                x, shift, scale, w_q, s, b, eps, bf16),
+        (attention_ops, "int8_out_residual"):
+            lambda o, res, gate, w_q, s, b, matmul_dtype=None: tq.int8_out_residual_reference(
+                o, res, gate, w_q, s, b, bf16),
+    }
+    kept = {key: getattr(*key) for key in plain}
+    try:
+        for (module, name), fn in plain.items():
+            setattr(module, name, fn)
+        yield
+    finally:
+        for (module, name), fn in kept.items():
+            setattr(module, name, fn)
+
+
+def phase_xl_forward(dev, sampler, call_args, tag, dtype=None):
+    """One XL forward_with_cfg at `sampler`'s inputs (kimi, T 757 padded to
+    768, band BAND, t = 500) on the kernels against the same forward with
+    every kernel's plain version (bf16 operands, f32 arithmetic) on the
+    card, in the same stream: within FORWARD_REL_TOL of max |plain| in the
+    f32 stream (the f32 or the int8 model), within BF16_FORWARD_TOL
+    absolute for `dtype` bf16, where both forwards' gaps to the plain f32
+    stream are printed too (the bf16 stream's own rounding over 28 blocks:
+    [slice-bf16] holds DiT-B's to the f32 stream at BF16_FORWARD_TOL). Each
+    path kernel launched depth times by the kernels' forward, no kernel by
+    the plain one."""
+    import torch
+    from osu_diffusion_tpu_torch.sampling import _bucketed, _pad_time
+
+    f32 = torch.float32
+    z, o, c, y = call_args
+    t_real = z.shape[1]
+    t_pad = _bucketed(t_real, sampler.bucket)
+    t = torch.full((z.shape[0],), 500, dtype=torch.long, device=dev)
+    x, op, cp = (_pad_time(a.to(dev), t_pad) for a in (z, o, c))
+    depth = len(sampler.model.blocks)
+
+    def forward(stream):
+        with torch.no_grad():
+            out = sampler.model.forward_with_cfg(x, t, op, cp, y.to(dev), sampler.cfg_scale, band=sampler.band,
+                                                 valid_len=t_real, dtype=stream)
+        return out[:, :t_real].float()
+
+    read_counts = reset_launch_counts()
+    got = forward(dtype or f32)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    path = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual", "adaln_mlp_quant"]
+            if sampler.model.quant else ["banded_attention", "adaln_mlp"])
+    check(counts == {**dict.fromkeys(counts, 0), **dict.fromkeys(path, depth)}, f"{tag}: launches {counts}")
+    read_counts = reset_launch_counts()
+    with plain_kernels():
+        want = forward(dtype or f32)
+        want32 = forward(f32) if dtype == torch.bfloat16 else want
+    check(not any(read_counts().values()), f"{tag}: the plain forward launched a kernel")
+    err = max_err(got, want)
+    rel = err / want.abs().max().item()
+    stream = "bf16 stream" if dtype == torch.bfloat16 else "f32 stream"
+    what = f"{XL_MODEL} {'int8 ' * sampler.model.quant}forward_with_cfg"
+    tol = f"max_abs tol {BF16_FORWARD_TOL}" if dtype == torch.bfloat16 else f"relative tol {FORWARD_REL_TOL}"
+    print(f"[{tag}] {what}, {stream}, at batch {z.shape[0]} x {t_pad} (valid_len {t_real}, band "
+          f"{sampler.band}, t 500, depth {depth}), kernels ({depth} launches of each of {path}) vs their "
+          f"plain versions on the card in the same stream (bf16 operands, f32 arithmetic, TF32 off): "
+          f"max_abs_err {err:.3e}, relative to max |out| {rel:.3e} ({tol}); finite "
+          f"{bool(torch.isfinite(got).all())}")
+    if dtype == torch.bfloat16:
+        gap, plain_gap = max_err(got, want32), max_err(want, want32)
+        print(f"[{tag}] against the plain f32 stream (the bf16 stream's own rounding, not a check): "
+              f"kernels max_abs {gap:.3e} ({gap / want32.abs().max().item():.3e} of max), plain versions "
+              f"max_abs {plain_gap:.3e} ({plain_gap / want32.abs().max().item():.3e} of max)")
+    check(bool(torch.isfinite(got).all()), f"{tag}: non-finite output")
+    if dtype == torch.bfloat16:
+        check(err <= BF16_FORWARD_TOL, f"{tag}: forward {err} > {BF16_FORWARD_TOL}")
+    else:
+        check(rel <= FORWARD_REL_TOL, f"{tag}: forward disagrees: {rel} > {FORWARD_REL_TOL}")
+
+
+def phase_xl_train_refused(dev, tmp):
+    """[xl-train]: the train CLI at --model DiT-XL stops at its first step,
+    before any kernel launch, with the ValueError that names XL training
+    (the LSE forward takes head dim 64 only)."""
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+
+    argv = ["--data-path", train_dataset(tmp), "--data-start", "0", "--data-end", "2", "--model", XL_MODEL,
+            "--num-classes", "100", "--global-batch-size", "8", "--seq-len", str(TRAIN_SEQ), "--stride", "16",
+            "--num-workers", "0", "--results-dir", os.path.join(tmp, "train-xl"), "--device", dev,
+            "--max-steps", "1"]
+    read_counts = reset_launch_counts()
+    wall = time.perf_counter()
+    err = None
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            train_main(build_train_parser().parse_args(argv))
+    except ValueError as e:
+        err = str(e)
+    launches = {k: v for k, v in read_counts().items() if v}
+    print(f"[xl-train] train CLI --model {XL_MODEL}: ValueError {err!r} after {time.perf_counter() - wall:.1f} s; "
+          f"kernel launches before it {launches}")
+    check(err is not None and "XL training" in err and "ROADMAP" in err and not launches,
+          f"xl-train: {err!r}, launches {launches}")
+
+
+def phase_xl(dev, tmp, card):
+    """DiT-XL serving: a seeded random-weight XL checkpoint (52670 classes),
+    the sample CLI at --model DiT-XL on kimi over XL_STEPS steps, f32
+    ([slice-xl]) and --quantize-weights ([slice-xl-int8]): launch counts
+    (XL_STEPS x 28 of rows 1 and 7, or of rows 1 and 10-13), the .osu
+    reparsed, s per denoise step, device ms per step and the busy share;
+    one XL forward of each stream against its plain versions on the card
+    ([xl-forward], [xl-bf16-forward], [xl-int8-forward]); and the train CLI
+    at XL refused at its first step ([xl-train])."""
+    import torch
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = time.perf_counter()
+    model = DiT_models[XL_MODEL](num_classes=NUM_CLASSES)
+    sd = random_state_dict(model, torch.Generator().manual_seed(SEED))
+    ckpt = os.path.join(tmp, "dit_xl_random.pt")
+    torch.save({"ema": sd}, ckpt)
+    params = sum(p.numel() for p in sd.values())
+    del model, sd
+    print(f"[slice-xl] random {XL_MODEL} checkpoint: {params / 1e6:.1f} M values, "
+          f"{os.path.getsize(ckpt) / 1e9:.2f} GB, written in {time.perf_counter() - wall:.1f} s")
+    launches, sampler, call_args, f32_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results-xl"),
+                                                       model=XL_MODEL, steps=XL_STEPS, xl=True)
+    phase_xl_forward(dev, sampler, call_args, "xl-forward")
+    phase_xl_forward(dev, sampler, call_args, "xl-bf16-forward", dtype=torch.bfloat16)
+    del sampler
+    int8_launches, qsampler, _, int8_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results-xl-int8"),
+                                                      quantize=True, model=XL_MODEL, steps=XL_STEPS, xl=True)
+    phase_xl_forward(dev, qsampler, call_args, "xl-int8-forward")
+    del qsampler
+    os.remove(ckpt)
+    phase_xl_train_refused(dev, tmp)
+    print(f"[slice-xl] {card}: {XL_MODEL} on kimi (T 757 -> 768, CFG batch 2, band {BAND}), "
+          f"{f32_ms / 1000:.6f} s per denoise step f32, {int8_ms / 1000:.6f} int8 (--quantize-weights); "
+          f"launches per chain f32 {launches}, int8 {int8_launches}; the phase took "
+          f"{time.perf_counter() - wall:.1f} s")
 
 
 def gemm_epilogue(name: str) -> int | None:
@@ -3023,11 +3401,7 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     CP main paths (rank 0's)."""
     import torch
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
-    from osu_diffusion_tpu_torch.models import dit
     from osu_diffusion_tpu_torch.models.dit import DiT_models
-    from osu_diffusion_tpu_torch.ops import attention as attention_ops
-    from osu_diffusion_tpu_torch.ops.adaln_mlp import adaln_mlp_reference
-    from osu_diffusion_tpu_torch.ops.banded_attention import banded_attention_reference
     from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
 
     workdir = os.path.join(tmp, "cp")
@@ -3062,17 +3436,8 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     # same noise) with the plain bf16 versions of rows 1 and 7 in place of
     # their kernels for this run only; two correct chains that differ only
     # in the kernels' rounding order
-    kernels = (attention_ops.banded_attention, dit.adaln_mlp)
-    attention_ops.banded_attention = (
-        lambda q, k, v, band, valid_len=None, matmul_dtype=None, out_dtype=None:
-        banded_attention_reference(q, k, v, band, q.shape[-2] if valid_len is None else valid_len,
-                                   torch.bfloat16).to(out_dtype or q.dtype))
-    dit.adaln_mlp = (lambda x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype:
-                     adaln_mlp_reference(x, shift, scale, gate, w1.t(), b1, w2.t(), b2, eps, torch.bfloat16))
-    try:
+    with plain_kernels():
         plain = one_device_chain()
-    finally:
-        attention_ops.banded_attention, dit.adaln_mlp = kernels
     rel = rel_err(got["forward"], want)
     chain_diff = (got["chain"] - one).abs()
     floor = (plain - one).abs()
@@ -3181,6 +3546,9 @@ def main() -> int:
     mlp_bwd, mlp_bwd_ms = phase_mlp_bwd(dev)
     measured.update(mlp_bwd)
     measured.update(phase_quant(dev))
+    phase_attention_xl(dev)
+    phase_mlp(dev, "mlp-xl", MLP_XL_CASES)
+    phase_quant(dev, "quant-xl", QUANT_XL_CASES)
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -3206,6 +3574,7 @@ def main() -> int:
         phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
         launches.update({k: v for k, v in quant_launches.items() if k not in launches})
         del sampler, qsampler, call_args
+        phase_xl(dev, tmp, card)
         corpus = phase_loader(tmp)
         train_launches, default = phase_train(dev, tmp)
         launches.update({k: v for k, v in train_launches.items() if k not in launches})

@@ -113,6 +113,11 @@
 // What bounds them at DiT-B sampling (x 2 x 768 x 768 f32): row 10 as row
 // 7, the products (14.5 GFLOP, 14.7 us); row 11 the bytes (x 4.7 MB, codes
 // 1.8 MB, out 14.2 MB f32: 6.2 us, against 5.4 GFLOP, 5.5 us).
+// At DiT-XL (D = 1152, H = 4608) the modulate pass holds nine float4 a lane
+// and the GEMMs are the same builds: the down GEMM's and the out
+// projection's 1152 columns take 128-wide tiles (256 does not divide
+// them), the qkv projection's 3456 a ragged last 256-wide block where the
+// plan picks 256. The training forward and the backward stop at D = 1024.
 // What replaced what: row 10's first body streamed all 4.7 MB of codes
 // through each 32-token CTA and upcast each tile in shared memory before
 // WMMA 16x16x16 products (0.30 ms at DiT-B sampling, 20x its bound); row
@@ -463,8 +468,9 @@ int sm90_forward(const void* x, const float* shift, const float* scale, const fl
 // mod_stride; w1: fc1.weight (H, D) and w2: fc2.weight (D, H), bf16
 // contiguous; b1: f32 (H); b2: f32 (D); h: bf16 workspace (N*T, D); g: bf16
 // workspace (N*T, H); a: null (inference) or (N, T, H) contiguous in x's
-// type; mlp: null or f32 (N, T, D) contiguous. D in {384, 768, 1024}, H a
-// multiple of 128; bn_up / bn_down (256 or 128, dividing H / D) and
+// type; mlp: null or f32 (N, T, D) contiguous. D in {384, 768, 1024, 1152}
+// (1152, DiT-XL's, for inference only: a and mlp null), H a multiple of
+// 128; bn_up / bn_down (256 or 128, dividing H / D) and
 // grid_up / grid_down the tile plan's widths and CTA counts of the two
 // GEMMs; stages: 7 (a mask: 1 modulate, 2 up, 4 down). Launches on
 // `stream` without synchronizing; returns 0, a CUDA error code, or
@@ -488,6 +494,9 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
       return bf16 ? ADALN_MLP_SM90(768, __nv_bfloat16) : ADALN_MLP_SM90(768, float);
     case 1024:
       return bf16 ? ADALN_MLP_SM90(1024, __nv_bfloat16) : ADALN_MLP_SM90(1024, float);
+    case 1152:  // serving only: the training residuals' backward takes D up to 1024
+      if (a != nullptr || mlp != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+      return bf16 ? ADALN_MLP_SM90(1152, __nv_bfloat16) : ADALN_MLP_SM90(1152, float);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -497,8 +506,8 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
 // The int8 serving forward (row 10): x, out f32 (N, T, D) contiguous; w1:
 // fc1's int8 codes (H, D) and w2: fc2's (D, H), torch's layout,
 // contiguous; s1 (H) and s2 (D) their f32 per-output-channel scales; the
-// other arguments as adaln_mlp_fwd's, without residuals. Returns as
-// adaln_mlp_fwd.
+// other arguments as adaln_mlp_fwd's, without residuals, D in {384, 768,
+// 1024, 1152}. Returns as adaln_mlp_fwd.
 extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const float* scale,
                                    const float* gate, long long mod_stride, const void* w1,
                                    const float* s1, const float* b1, const void* w2,
@@ -519,6 +528,8 @@ extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const flo
       return ADALN_MLP_INT8(768);
     case 1024:
       return ADALN_MLP_INT8(1024);
+    case 1152:
+      return ADALN_MLP_INT8(1152);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -527,8 +538,8 @@ extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const flo
 
 // The int8 qkv projection (row 11): out (N, T, M) f32 = (LN(x) * (1 +
 // scale) + shift) . (w * s)^T + b; x (N, T, D) f32; shift/scale as
-// adaln_mlp_fwd's; w (M, D) int8 codes, contiguous; s, b f32 (M); h: bf16
-// workspace (N*T, D); M even; bn (256 or 128) and grid the tile plan's;
+// adaln_mlp_fwd's, D in {384, 768, 1024, 1152}; w (M, D) int8 codes,
+// contiguous; s, b f32 (M); h: bf16 workspace (N*T, D); M even; bn (256 or 128) and grid the tile plan's;
 // stages: 3 (1 modulate, 2 the GEMM). Returns as adaln_mlp_fwd.
 extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, const float* scale,
                                          long long mod_stride, const void* w, const float* s,
@@ -549,6 +560,9 @@ extern "C" int int8_modulated_matmul_fwd(const float* x, const float* shift, con
         break;
       case 1024:
         err = modulate<1024, float>(x, shift, scale, mod_stride, h, rows, t, eps, st);
+        break;
+      case 1152:
+        err = modulate<1152, float>(x, shift, scale, mod_stride, h, rows, t, eps, st);
         break;
       default:
         return static_cast<int>(cudaErrorInvalidValue);

@@ -1,11 +1,12 @@
 // Hopper building blocks of the banded-attention bodies and of the
-// adaLN-MLP GEMMs: TMA tensor maps over an (N, H, T, 64) bf16 tensor read
+// adaLN-MLP GEMMs: TMA tensor maps over an (N, H, T, Dh) bf16 tensor read
 // through its strides, or over a row-major (rows, cols) bf16 or int8
 // matrix read 64 columns at a time; the mbarrier ring that the loads complete on; and
-// warpgroup MMAs (wgmma m64nNk16 with N = 64, 128 or 256, bf16 operands,
+// warpgroup MMAs (wgmma m64nNk16 with N = 16, 64, 128 or 256, bf16 operands,
 // f32 accumulators in registers) on tiles in the 128-byte swizzle, which
 // TMA writes (or threads, at `swizzled` offsets, where an operand is
-// converted on chip).
+// converted on chip), or in the 32-byte swizzle (`swizzled32`, `desc32`):
+// the 16-column second slab of a head dim of 72.
 //
 // Tile layout: every operand tile is R rows x 64 bf16 (one 128-byte row per
 // row of the tensor), loaded by one TMA box {64, R} with
@@ -19,6 +20,11 @@
 //   and dO, Q in P^T.dO, dS^T.Q, and torch's Linear weights in the adaLN-MLP
 //   backward's products): a k16 step is 16 rows, 2048 bytes; an operand
 //   wider than 64 is several such tiles, a leading byte offset apart.
+// A 16-wide tile (R rows x 32 bytes, a TMA box {16, R} with
+// CU_TENSOR_MAP_SWIZZLE_32B into a 256-byte aligned buffer) holds 16-byte
+// chunk c of row r at chunk c ^ ((r / 4) % 2); wgmma reads it K-major (one
+// k16 step: the whole row; 8-row groups 256 bytes apart) or MN-major (a
+// 16-wide operand; a k16 step is 16 rows, 512 bytes).
 //
 // Register fragments of m64nNk16 (per warp w of the warpgroup, lane l):
 // accumulator register 4n + 2i + j holds row 16w + l/4 + 8i, column
@@ -71,25 +77,26 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A map of the (N, H, T, 64) bf16 tensor at `base` with element strides
-// (sn, sh, st) (unit stride over the 64), loading boxes of `rows` x 64 with
-// the 128-byte swizzle; rows past T (and before 0) read as 0. Strides and
-// base must be multiples of 16 bytes (the wrappers see to it). Returns 0 or
-// TMA_ENCODE_ERROR + the CUresult.
+// A map of the (N, H, T, dh) bf16 tensor at `base` with element strides
+// (sn, sh, st) (unit stride over the dh), loading boxes of `rows` x `cols`
+// with `swizzle` (by default 64 columns in the 128-byte swizzle; 16 in the
+// 32-byte one for the second slab of dh 72); rows past T (and before 0) and
+// columns past dh read as 0. Strides and base must be multiples of 16 bytes
+// (the wrappers see to it). Returns 0 or TMA_ENCODE_ERROR + the CUresult.
 inline int make_map(CUtensorMap* map, const void* base, int n, int h, int t, long long sn,
-                    long long sh, long long st, int rows) {
+                    long long sh, long long st, int rows, int dh = 64, int cols = 64,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiledFn encode = encode_tiled();
   if (encode == nullptr) return TMA_ENCODE_ERROR + CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(t), static_cast<cuuint64_t>(h),
-                              static_cast<cuuint64_t>(n)};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dh), static_cast<cuuint64_t>(t),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st) * 2, static_cast<cuuint64_t>(sh) * 2,
                                  static_cast<cuuint64_t>(sn) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), static_cast<cuuint32_t>(rows), 1, 1};
   const cuuint32_t elem_strides[4] = {1, 1, 1, 1};
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                            strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : TMA_ENCODE_ERROR + static_cast<int>(r);
 }
 
@@ -165,15 +172,15 @@ __device__ __forceinline__ void bar_wait(unsigned long long* bar, unsigned parit
   tile_io::mbar_wait(smem_addr(bar), parity);
 }
 
-// TMA: the box at coordinates (0, row, head, batch) of `map` into dst,
+// TMA: the box at coordinates (col, row, head, batch) of `map` into dst,
 // completing its bytes on `bar`
 __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, unsigned long long* bar,
-                                         int row, int head, int batch) {
+                                         int row, int head, int batch, int col = 0) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
       ::"r"(smem_addr(dst)), "l"(reinterpret_cast<unsigned long long>(map)), "r"(smem_addr(bar)),
-        "r"(0), "r"(row), "r"(head), "r"(batch)
+        "r"(col), "r"(row), "r"(head), "r"(batch)
       : "memory");
 }
 
@@ -227,6 +234,14 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 __device__ __forceinline__ unsigned long long desc(const void* tile, unsigned offset) {
   const unsigned long long addr = smem_addr(tile) + offset;
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (64ull << 32) | (1ull << 62);
+}
+
+// descriptor of a 32-byte swizzled 16-wide tile at `tile` (256-byte
+// aligned), advanced by `offset` bytes (MN-major: a k16 step of 512 bytes);
+// SBO 256 bytes (8 rows of 32), LBO unused by a 16-wide operand
+__device__ __forceinline__ unsigned long long desc32(const void* tile, unsigned offset) {
+  const unsigned long long addr = smem_addr(tile) + offset;
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (16ull << 32) | (3ull << 62);
 }
 
 // descriptor of an MN-major operand wider than 64: `boxes` 128-byte swizzled
@@ -295,6 +310,19 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const unsigned (&a)[4],
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : SM90_ACC32
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] . B[16 x 16], A in registers as mma_rs's, B an
+// MN-major 16-wide tile (desc32)
+__device__ __forceinline__ void mma_rs16(float (&d)[8], const unsigned (&a)[4],
+                                         unsigned long long db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -375,6 +403,11 @@ __device__ __forceinline__ void a_fragment(unsigned (&a)[4], const float (&x)[32
 // byte offset of element (r, c) of a 128-byte swizzled 64-wide bf16 tile
 __device__ __forceinline__ int swizzled(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
+}
+
+// byte offset of element (r, c) of a 32-byte swizzled 16-wide bf16 tile
+__device__ __forceinline__ int swizzled32(int r, int c) {
+  return r * 32 + ((((c >> 3) ^ (r >> 2)) & 1) << 4) + (c & 7) * 2;
 }
 
 }  // namespace sm90

@@ -55,6 +55,7 @@ from osu_diffusion_tpu_torch.ops.gemm_plan import (
     GEMM_ROWS,
     GEMM_WIDTHS,
     KERNEL_WIDTHS,
+    SERVE_WIDTHS,
     GemmPlan,
     gemm_plan,
 )
@@ -535,15 +536,23 @@ def hidden_split(n: int, t: int, hdim: int, sm_count: int) -> int:
     return max(s for s in range(1, chunks + 1) if chunks % s == 0 and (s == 1 or tiles * s <= sm_count))
 
 
-def _check_widths(x, hdim: int, matmul_dtype) -> None:
+XL_TRAINING = ("D {d}: the training forward and the backward take D in {widths}; XL training "
+               "(D 1152) is the next slice of the port, queued in ROADMAP.md")
+
+
+def _check_widths(x, hdim: int, matmul_dtype, serving: bool = False) -> None:
     """What every adaLN-MLP kernel takes: bf16 operands, D in
-    KERNEL_WIDTHS, H a multiple of 128, an f32 or bf16 stream, N <= 65535."""
+    KERNEL_WIDTHS (SERVE_WIDTHS for the inference forwards, `serving`), H
+    a multiple of 128, an f32 or bf16 stream, N <= 65535. A training
+    kernel at DiT-XL's D raises a ValueError naming XL training."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
     n, _, d = x.shape
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS}, got {d}")
+    widths = SERVE_WIDTHS if serving else KERNEL_WIDTHS
+    if d not in widths:
+        raise ValueError(XL_TRAINING.format(d=d, widths=widths) if d in SERVE_WIDTHS
+                         else f"the kernel takes D in {widths}, got {d}")
     if hdim % HIDDEN_CHUNK:
         raise ValueError(f"hidden width {hdim} is not a multiple of {HIDDEN_CHUNK}")
     if x.dtype not in ACT_DTYPES:
@@ -580,11 +589,13 @@ def _check_specs(x, expect: dict, mod_names) -> None:
                          f"cuda:{torch.cuda.current_device()}")
 
 
-def _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim: int, matmul_dtype, **weights) -> None:
+def _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim: int, matmul_dtype, serving: bool,
+                      **weights) -> None:
     """What both forward bodies take besides the activations: `weights`
-    maps each weight's name to (tensor, dtype, shape)."""
+    maps each weight's name to (tensor, dtype, shape); `serving`: an
+    inference forward (D in SERVE_WIDTHS)."""
     n, t, d = x.shape
-    _check_widths(x, hdim, matmul_dtype)
+    _check_widths(x, hdim, matmul_dtype, serving)
     expect = {
         "x": (x, x.dtype, (n, t, d)),
         "shift": (shift, torch.float32, (n, d)),
@@ -608,7 +619,7 @@ def _launch(fn, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype, 
     others are left unwritten)."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
-    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
+    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype, not residuals,
                       fc1_w=(fc1_w, torch.bfloat16, (hdim, d)),
                       fc2_w=(fc2_w, torch.bfloat16, (d, hdim)))
     up, down = mlp_plan(n, t, d, hdim, _sm_count(x.device.index))
@@ -874,7 +885,7 @@ def _quant_launch(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_d
     """The int8 Hopper body on x's device; `stages` as `_launch`'s."""
     n, t, d = x.shape
     hdim = w1q.shape[0]
-    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype,
+    _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype, True,
                       w1q=(w1q, torch.int8, (hdim, d)), w2q=(w2q, torch.int8, (d, hdim)),
                       s1=(s1, torch.float32, (hdim,)), s2=(s2, torch.float32, (d,)))
     up, down = mlp_plan(n, t, d, hdim, _sm_count(x.device.index))

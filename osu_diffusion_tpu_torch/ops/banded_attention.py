@@ -27,7 +27,14 @@ delta = rowsum(o * do) is derived from o and do.
 q, k, v (and o, do) are float32 or bfloat16, all of one type; matmul
 operands are rounded to `matmul_dtype` and accumulated in f32, the softmax
 and LSE are f32, and outputs come back in q's type. The LSE is one
-(N*H, T) float32 array.
+(N*H, T) float32 array. The query is scaled by Dh^-1/2 in f32 before its
+rounding, as the TPU kernel does (`_scores`).
+
+Head dims on the card: the inference forwards (`banded_attention` without
+grad, `banded_attention_ranged` without grad) take Dh in HEAD_DIMS, 64
+(DiT-S/B/L) or 72 (DiT-XL); the LSE forwards and the backward take
+TRAIN_HEAD_DIM (64) and refuse 72 with a ValueError before any launch
+(XL training is the next slice of the port, queued in ROADMAP.md).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
@@ -67,7 +74,8 @@ import torch
 
 from osu_diffusion_tpu_torch.ops import cuda_build
 
-HEAD_DIM = 64  # the only head dim the kernels are built for (DiT-S/B/L)
+HEAD_DIMS = (64, 72)  # head dims of the inference forward (DiT-S/B/L, DiT-XL)
+TRAIN_HEAD_DIM = 64  # the only head dim of the LSE forward and the backward
 NEG_INF = -1e30
 FWD_BLOCK = 128  # query rows of a CTA of the Hopper forward: two warpgroups of 64
 KEY_TILE = 64  # keys of one K/V tile of its ring
@@ -155,16 +163,24 @@ def banded_attention_fwd_staged(
     meet its own rows' band (none for a half past T or, ranged, of pad
     query rows: its o is 0, its LSE ~-1e30), each folded into an f32
     online softmax (row max, rescaled sum and accumulator) tile by tile.
-    Scores are bf16(q) . bf16(k) scaled in f32 (scale folding: bf16(q / 8)
-    = bf16(q) / 8), P is rounded to bf16 for P.V."""
+    At Dh = 64 scores are bf16(q) . bf16(k) scaled in f32 (scale folding:
+    bf16(q / 8) = bf16(q) / 8); at Dh = 72 they are bf16(q * Dh^-1/2) .
+    bf16(k), the head dim padded with zeros to 80 (a 64-column slab and a
+    16-column one, columns 72..79 zero in q, k and v) for Q.K^T and P.V,
+    whose padded columns are dropped. P is rounded to bf16 for P.V."""
     n, h, t, dh = q.shape
     f32 = torch.float32
     rnd = _rounder(torch.bfloat16)
     valid = t if valid_len is None or bounds is not None else int(valid_len)
     scale = 1.0 / math.sqrt(dh)
     tiles = -(-t // KEY_TILE) * KEY_TILE  # key rows past T read as 0, as TMA reads them
-    qr = rnd(q)
-    kr, vr = (torch.nn.functional.pad(rnd(a), (0, 0, 0, tiles - t)) for a in (k, v))
+    cols = -(-dh // 16) * 16 - dh  # the head dim's zero columns up to wgmma's k16 step
+    if dh == 64:
+        qr = rnd(q)
+    else:  # the scale before the rounding; S is not scaled again
+        qr = torch.nn.functional.pad(rnd(q.to(f32) * scale), (0, cols))
+        scale = 1.0
+    kr, vr = (torch.nn.functional.pad(rnd(a), (0, cols, 0, tiles - t)) for a in (k, v))
     dev = q.device
     o = torch.zeros((n, h, t, dh), dtype=f32, device=dev)
     lse = torch.full((n, h, t), NEG_INF, dtype=f32, device=dev)
@@ -183,7 +199,7 @@ def banded_attention_fwd_staged(
             rows = torch.arange(qw, min(qw + 64, t), device=dev)
             m = torch.full((n, h, len(rows), 1), NEG_INF, dtype=f32, device=dev)
             l = torch.zeros((n, h, len(rows), 1), dtype=f32, device=dev)
-            acc = torch.zeros((n, h, len(rows), dh), dtype=f32, device=dev)
+            acc = torch.zeros((n, h, len(rows), dh + cols), dtype=f32, device=dev)
             for kbase in range(kt0 * KEY_TILE, (kt0 + ntiles) * KEY_TILE, KEY_TILE):
                 if not (kbase <= w_hi and kbase + KEY_TILE - 1 >= w_lo):
                     continue  # the warpgroup skips the tile
@@ -200,7 +216,7 @@ def banded_attention_fwd_staged(
                 acc = acc * alpha + torch.matmul(rnd(p), vr[:, :, kbase:kbase + KEY_TILE])
                 m = mx
             denom = l.clamp_min(1e-30)
-            o[:, :, rows] = acc / denom
+            o[:, :, rows] = acc[..., :dh] / denom  # o's padded columns are never stored
             lse[:, :, rows] = (m + torch.log(denom))[..., 0]
     return o.to(out_dtype or q.dtype), lse.reshape(n * h, t)
 
@@ -245,18 +261,18 @@ def _bind(lib, name: str, argtypes) -> None:
 def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("banded_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # (q, k, v, o, [lse,] n, h, t, sn, sh, st, osn, osh, ost, band, valid,
+    # (q, k, v, o, [lse,] n, h, t, dh, sn, sh, st, osn, osh, ost, band, valid,
     #  scale, bf16, [out_bf16,] stream)
-    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, i, p])
-    _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, i, p])
+    _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     # ranged: (band, k_lo, k_hi, q_lo, q_hi) in place of (band, valid)
-    _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
-    _bind(lib, "banded_attention_fwd_ranged_lse", [p] * 5 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd_ranged_lse", [p] * 5 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_error_string.restype = ctypes.c_char_p
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
     lib.banded_attention_last_body.restype = ctypes.c_char_p
     lib.banded_attention_last_body.argtypes = []
-    lib.banded_attention_sm90_smem_bytes.argtypes = [ctypes.c_int]
+    lib.banded_attention_sm90_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
@@ -280,18 +296,35 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def sm90_smem_bytes() -> dict[str, int]:
-    """Dynamic shared memory per CTA of the forward (bf16 and f32 q/k/v)
-    and of the dq and dk/dv Hopper bodies, bytes."""
+    """Dynamic shared memory per CTA of the forward (bf16 and f32 q/k/v,
+    at Dh 64 and, as "... dh72", 72) and of the dq and dk/dv Hopper bodies,
+    bytes."""
     lib = _lib()
-    return {"fwd": lib.banded_attention_sm90_smem_bytes(0), "fwd f32": lib.banded_attention_sm90_smem_bytes(1),
-            "dq": _bwd_lib().banded_attention_bwd_sm90_dq_smem_bytes(),
+    fwd = {f"fwd{' f32' * f32}{' dh72' * (dh == 72)}": lib.banded_attention_sm90_smem_bytes(f32, dh)
+           for dh in HEAD_DIMS for f32 in (0, 1)}
+    return {**fwd, "dq": _bwd_lib().banded_attention_bwd_sm90_dq_smem_bytes(),
             "dkv": _bwd_lib().banded_attention_bwd_sm90_dkv_smem_bytes()}
 
 
-def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
+XL_TRAINING = ("head dim {dh}: the LSE forward and the backward take head dim 64 only; "
+               "XL training (Dh 72) is the next slice of the port, queued in ROADMAP.md")
+
+
+def _check_head_dim(dh: int, training: bool) -> None:
+    """The head dims of the kernels: HEAD_DIMS for the inference forward,
+    TRAIN_HEAD_DIM for the LSE forward and the backward (a ValueError
+    naming XL training for 72)."""
+    if training and dh != TRAIN_HEAD_DIM:
+        raise ValueError(XL_TRAINING.format(dh=dh))
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {dh}")
+
+
+def _check_kernel_inputs(matmul_dtype, training: bool = False, **tensors) -> None:
     """Every tensor: the first one's device, type, shape and strides, a
-    contiguous head dim, strides in multiples of 4 elements, 16-byte
-    aligned."""
+    contiguous head dim in HEAD_DIMS (TRAIN_HEAD_DIM when `training`: the
+    LSE forward and the backward), strides in multiples of 4 elements,
+    16-byte aligned."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernels compute with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
@@ -309,8 +342,7 @@ def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
             raise ValueError(f"{name} and {first_name} must share strides")
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    if first.shape[-1] != HEAD_DIM:
-        raise ValueError(f"the kernels take head dim {HEAD_DIM}, got {first.shape[-1]}")
+    _check_head_dim(first.shape[-1], training)
     if first.stride(-1) != 1 or any(s % 4 for s in first.stride()[:-1]):
         raise ValueError(
             "q/k/v need a contiguous head dim and strides that are multiples "
@@ -394,7 +426,7 @@ def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None, out_d
     # the inference entry's o type
     out_arg = (int(out.dtype == torch.bfloat16),) if entry == "banded_attention_fwd" else ()
     err = getattr(lib, entry)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t, dh,
         sn, sh, st, osn, osh, ost, *mask_args, 1.0 / math.sqrt(dh),
         int(q.dtype == torch.bfloat16), *out_arg, _stream(q),
     )
@@ -411,7 +443,7 @@ def banded_attention_fwd_lse(
     valid_len = _check_args(q, band, valid_len)
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)
-    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
     out = _launch_fwd(banded_attention_fwd_lse, q, k, v, band, valid_len, with_lse=True)
     banded_attention_fwd_lse.launches += 1
     return out
@@ -420,8 +452,8 @@ def banded_attention_fwd_lse(
 def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
     # o's layout) another; records the body that ran in `fn.body`
-    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    _check_kernel_inputs(matmul_dtype, o=o, do=do)
+    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, training=True, o=o, do=do)
     q, k, v = _fit_tma(q, k, v)
     if o.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
@@ -542,7 +574,7 @@ def banded_attention_ranged_fwd_lse(
     t = q.shape[-2]
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)
-    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
     out = _launch_fwd(banded_attention_ranged_fwd_lse, q, k, v, band, t, with_lse=True, bounds=bounds)
     banded_attention_ranged_fwd_lse.launches += 1
     return out

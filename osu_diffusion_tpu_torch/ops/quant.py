@@ -42,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from osu_diffusion_tpu_torch.ops import cuda_build
-from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, KERNEL_WIDTHS, GemmPlan, gemm_plan
+from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, SERVE_WIDTHS, GemmPlan, gemm_plan
 
 K_CHUNK = 64  # the kernels walk K in chunks of this depth
 MAX_K = 2048  # the deepest K the kernels take (the skinny body holds x's K part in shared memory)
@@ -476,8 +476,8 @@ def _modulated_launch(x, shift, scale, w_q, s, b, eps: float, matmul_dtype,
     for name, a in (("shift", shift), ("scale", scale)):
         if tuple(a.shape) != (n, d):
             raise ValueError(f"{name} must be ({n}, {d}), got {tuple(a.shape)}")
-    if d not in KERNEL_WIDTHS:
-        raise ValueError(f"the kernel takes D in {KERNEL_WIDTHS}, got {d}")
+    if d not in SERVE_WIDTHS:
+        raise ValueError(f"the kernel takes D in {SERVE_WIDTHS}, got {d}")
     if m % 2:
         raise ValueError(f"the kernel takes an even M, got {m}")
     _check_kernel_inputs(matmul_dtype, d, MAX_K, w_q, x=x, shift=shift, scale=scale, s=s, b=b)
@@ -502,7 +502,7 @@ def int8_modulated_matmul(x, shift, scale, w_q, s, b, eps: float = 1e-6,
     two-pass LayerNorm, reading w_q as int8. x: (N, T, D) f32; shift,
     scale: (N, D) f32 (row views of one modulation tensor are fine);
     w_q: (M, D) int8; s, b: (M,) f32. Returns (N, T, M) f32. The kernel
-    takes D in KERNEL_WIDTHS and an even M."""
+    takes D in SERVE_WIDTHS and an even M."""
     _check_input(x, "int8_modulated_matmul")
     d = x.shape[-1]
     _check_shapes(w_q, s, b, d)

@@ -4,10 +4,13 @@ The precision contract (JAX `osu_diffusion_tpu/ops/pallas_attention.py`,
 the port's `banded_attention_*_reference`) rounds q * Dh^-1/2 to bf16 before
 the score product, and the dk product takes that rounded q too. For
 Dh = 64 the scale 1/8 is a power of two, so bf16(q / 8) = bf16(q) / 8
-exactly and every f32 product and partial sum scales exactly: the kernels
-feed raw q through TMA and scale S (forward) or dK (backward) in f32 with
-the same bits (`static_assert(DH == 64)` in csrc/banded_attention*.cu). At
-Dh = 72 (DiT-XL) the scale is no power of two and the identity fails.
+exactly and every f32 product and partial sum scales exactly: the Dh 64
+kernels feed raw q through TMA and scale S (forward) or dK (backward) in
+f32 with the same bits. At Dh = 72 (DiT-XL) the scale is no power of two
+and the identity fails, so the forward body's Dh 72 build scales q in f32
+and rounds it before the first product (csrc/banded_attention.cu, the
+scale folding note), and the backward takes Dh 64 only
+(csrc/banded_attention_bwd.cu's static_assert).
 
 The f32 sums here run in one fixed order (a loop over the head dim of
 elementwise products and adds, no BLAS), so "the same bits" is a property

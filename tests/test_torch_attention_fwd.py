@@ -13,7 +13,9 @@ JAX package's Pallas forward at block 128 (`_banded_flash_fwd_impl`, and
 `_ranged_fwd_impl` for context parallelism) in interpret mode, from the
 same numpy inputs: f32 and bf16 inputs, ragged valid_len, a band that is
 not a multiple of 64, T below the band, rows with no valid key, and ranged
-bounds with pad query blocks.
+bounds with pad query blocks; at the head dim of DiT-S/B/L (64) and, in a
+few of those cases, at DiT-XL's (72: the query scaled before its rounding,
+the head dim padded to 80 in a 64-column and a 16-column slab).
 
 Tolerances:
 - the LSE against the plain version: 1e-5 absolute. It involves no bf16
@@ -50,7 +52,6 @@ TOL_O = {torch.float32: 5e-3, torch.bfloat16: 1e-2}
 TOL_LSE = 1e-5
 TOL_LSE_JAX = 1e-4
 BLOCK = 128  # the Hopper forward's query block
-DH = 64
 DTYPES = {"f32": (torch.float32, jnp.float32), "bf16": (torch.bfloat16, jnp.bfloat16)}
 
 
@@ -65,12 +66,12 @@ def _interpret_mode(monkeypatch):
     monkeypatch.setattr(pa.pl, "pallas_call", patched)
 
 
-def _inputs(n, h, t, seed, stream):
+def _inputs(n, h, t, seed, stream, dh=64):
     """q, k, v as numpy f32 (rounded to bf16 for the bf16 stream, so both
     packages see the same values) and as torch tensors of the stream."""
     r = np.random.RandomState(seed)
     tdt, _ = DTYPES[stream]
-    arrs = [torch.from_numpy(r.randn(n, h, t, DH).astype(np.float32)).to(tdt) for _ in range(3)]
+    arrs = [torch.from_numpy(r.randn(n, h, t, dh).astype(np.float32)).to(tdt) for _ in range(3)]
     return [a.float().numpy() for a in arrs], arrs
 
 
@@ -93,13 +94,22 @@ def _check_plain(o, lse, want_o, want_lse, rows=slice(None)):
 # a tile multiple with a band below one tile, T below the band, rows with no
 # valid key, and a band that is not a multiple of 64 over three blocks
 CASES = [(768, 757, 128), (200, 190, 20), (50, 50, 128), (256, 60, 16), (384, 370, 100)]
+XL_DH = 72  # DiT-XL's head dim, 1152 / 16
+
+
+def _with_dh(cases, xl_cases, ids):
+    """pytest params of `cases` at head dim 64 (ids as before) and of
+    `xl_cases` at XL_DH (ids prefixed dh72_)."""
+    return ([pytest.param(*c, 64, id=ids(c)) for c in cases]
+            + [pytest.param(*c, XL_DH, id=f"dh{XL_DH}_{ids(c)}") for c in xl_cases])
 
 
 @pytest.mark.parametrize("stream", list(DTYPES))
-@pytest.mark.parametrize("t,valid,band", CASES, ids=[f"t{c[0]}_valid{c[1]}_band{c[2]}" for c in CASES])
-def test_staged_forward_matches_plain_and_jax(t, valid, band, stream):
+@pytest.mark.parametrize("t,valid,band,dh", _with_dh(CASES, [CASES[0], CASES[1], CASES[3]],
+                                                      lambda c: f"t{c[0]}_valid{c[1]}_band{c[2]}"))
+def test_staged_forward_matches_plain_and_jax(t, valid, band, dh, stream):
     n, h = 1, 2
-    (q, k, v), (tq, tk, tv) = _inputs(n, h, t, t + valid + band, stream)
+    (q, k, v), (tq, tk, tv) = _inputs(n, h, t, t + valid + band, stream, dh)
     o, lse = tba.banded_attention_fwd_staged(tq, tk, tv, band, valid)
     assert o.dtype == tq.dtype and o.shape == tq.shape and lse.shape == (n * h, t)
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(tq, tk, tv, band, valid, torch.bfloat16)
@@ -141,9 +151,10 @@ RANGED_CASES = [(384, 128, 0, 2, 757), (384, 128, 1, 2, 757), (256, 128, 0, 2, N
 
 
 @pytest.mark.parametrize("stream", list(DTYPES))
-@pytest.mark.parametrize("t_loc,band,idx,p,valid", RANGED_CASES,
-                         ids=[f"tloc{c[0]}_band{c[1]}_shard{c[2]}of{c[3]}" for c in RANGED_CASES])
-def test_staged_ranged_forward_matches_plain_and_jax(t_loc, band, idx, p, valid, stream):
+@pytest.mark.parametrize("t_loc,band,idx,p,valid,dh",
+                         _with_dh(RANGED_CASES, [RANGED_CASES[1], RANGED_CASES[3]],
+                                  lambda c: f"tloc{c[0]}_band{c[1]}_shard{c[2]}of{c[3]}"))
+def test_staged_ranged_forward_matches_plain_and_jax(t_loc, band, idx, p, valid, dh, stream):
     """Ranged: the rows [q_lo, q_hi) against the plain version and JAX's
     `_ranged_fwd_impl`; the pad query halves, which the kernel does not
     compute, hold 0 and an LSE of ~-1e30."""
@@ -152,7 +163,7 @@ def test_staged_ranged_forward_matches_plain_and_jax(t_loc, band, idx, p, valid,
     k_lo, k_hi, q_lo, q_hi = bounds
     t = t_loc + 2 * halo
     n, h = 1, 2
-    (q, k, v), (tq, tk, tv) = _inputs(n, h, t, t_loc + band + idx, stream)
+    (q, k, v), (tq, tk, tv) = _inputs(n, h, t, t_loc + band + idx, stream, dh)
     o, lse = tba.banded_attention_fwd_staged(tq, tk, tv, band, bounds=bounds)
     want_o, want_lse = tba.banded_attention_fwd_lse_reference(tq, tk, tv, band, t, torch.bfloat16, bounds)
     rows = slice(q_lo, q_hi)
@@ -160,7 +171,7 @@ def test_staged_ranged_forward_matches_plain_and_jax(t_loc, band, idx, p, valid,
     _, jdt = DTYPES[stream]
     jo, jlse = pa._ranged_fwd_impl(*(jnp.asarray(a, jdt) for a in (q, k, v)), jnp.asarray(bounds, jnp.int32),
                                    band, BLOCK, jnp.bfloat16, with_lse=True)
-    jo = np.asarray(jo, np.float32).reshape(n, h, t, DH)
+    jo = np.asarray(jo, np.float32).reshape(n, h, t, dh)
     assert _rel(o[:, :, rows].float(), jo[:, :, rows]) <= TOL_O[o.dtype]
     jlse = np.asarray(jlse).reshape(n * h, t)[:, rows]
     has_key = want_lse.view(n * h, t)[:, rows].numpy() > -1e29

@@ -2,8 +2,8 @@
 CPU: its tile plan, and a plain staged version that walks that plan.
 
 - `mlp_plan`, which sizes the two persistent GEMMs' grids on the card,
-  hands every output tile of both GEMMs to exactly one CTA, at the three
-  kernel widths, ragged T, N from 1 to 256 and the DiT-B sampling and
+  hands every output tile of both GEMMs to exactly one CTA, at the four
+  serving widths (DiT-S/B/L and XL), ragged T, N from 1 to 256 and the DiT-B sampling and
   training shapes.
 - `adaln_mlp_train_staged` (modulate, then the up and down GEMMs tile by
   tile in each CTA's order, with their epilogues) against the port's plain
@@ -62,7 +62,7 @@ PLAN_SHAPES = [(1, 50), (3, 757), (256, 50), (1, 1), (2, 768), (256, 128)]
 
 
 @pytest.mark.parametrize("n,t", PLAN_SHAPES, ids=[f"n{n}_t{t}" for n, t in PLAN_SHAPES])
-@pytest.mark.parametrize("d", tam.KERNEL_WIDTHS)
+@pytest.mark.parametrize("d", tam.SERVE_WIDTHS)
 def test_plan_covers_every_tile_once(n, t, d):
     hdim = 4 * d
     plans = tam.mlp_plan(n, t, d, hdim, H100_SMS)

@@ -152,6 +152,11 @@ def test_without_gxx_the_python_featurizer_runs_after_one_warning(monkeypatch, c
     from osu_diffusion_tpu_torch.data import dataset
     from osu_diffusion_tpu_torch.native import build
 
+    # caplog listens on the root logger; a trainer run earlier in this
+    # process (utils/logger.create_logger) stops the package logger's
+    # propagation, so let this test's warning reach the root whatever ran
+    # before it
+    monkeypatch.setattr(logging.getLogger("osu_diffusion_tpu_torch"), "propagate", True)
     monkeypatch.delenv("OSU_DIFFUSION_NO_NATIVE", raising=False)
     monkeypatch.setattr(native_mod, "_lib", None)
     monkeypatch.setattr(native_mod, "_no_compiler", False)

@@ -3,8 +3,8 @@ tile plans, and plain staged versions that walk them.
 
 - `qkv_plan`, which sizes `int8_modulated_matmul`'s persistent GEMM on the
   card, hands every output tile to exactly one CTA, including a ragged last
-  column block (M = 1000), at the three kernel widths, ragged T and the
-  DiT-B sampling shape; `mlp_plan` sizes row 10's two GEMMs as it sizes
+  column block (M = 1000), at the four serving widths (DiT-S/B/L and XL),
+  ragged T and the DiT-B sampling shape; `mlp_plan` sizes row 10's two GEMMs as it sizes
   row 7's (tests/test_torch_mlp_fwd.py) and is held here at the `[quant]`
   shapes of chip_smoke.py.
 - `adaln_mlp_quant_staged` and `int8_modulated_matmul_staged` (the
@@ -47,7 +47,7 @@ import osu_diffusion_tpu.ops.pallas_mlp as pm
 import osu_diffusion_tpu.ops.pallas_quant as pq
 from osu_diffusion_tpu_torch.ops import adaln_mlp as tam
 from osu_diffusion_tpu_torch.ops import quant as tq
-from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, GEMM_WIDTHS, KERNEL_WIDTHS
+from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, GEMM_WIDTHS, SERVE_WIDTHS
 
 H100_SMS = 132
 TOL_PLAIN = {"qkv": 1e-5, "mlp": 1e-4}
@@ -197,7 +197,7 @@ def test_int8_modulated_matmul_staged_matches_plain_and_jax(interpret_mode, n, t
     assert rel_err(got, plain32) <= TOL_F32, rel_err(got, plain32)
 
 
-@pytest.mark.parametrize("d", KERNEL_WIDTHS)
+@pytest.mark.parametrize("d", SERVE_WIDTHS)
 def test_staged_qkv_masks_the_ragged_block(d):
     """A ragged last column block reads codes past M as 0 and stores no
     column past M: the staged version at M = 1000 equals the first 1000

@@ -31,7 +31,7 @@ import torch
 
 import osu_diffusion_tpu.ops.pallas_quant as pq
 from osu_diffusion_tpu_torch.ops import quant as tq
-from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, GEMM_WIDTHS, KERNEL_WIDTHS
+from osu_diffusion_tpu_torch.ops.gemm_plan import GEMM_ROWS, GEMM_WIDTHS, SERVE_WIDTHS
 
 H100_SMS = 132
 TOL_PLAIN = 1e-5
@@ -61,7 +61,7 @@ def rel_err(got, want) -> float:
 PLAN_SHAPES = [(3, 50), (2, 757)]
 
 
-@pytest.mark.parametrize("d", KERNEL_WIDTHS)
+@pytest.mark.parametrize("d", SERVE_WIDTHS)
 @pytest.mark.parametrize("n,t", PLAN_SHAPES, ids=[f"n{n}_t{t}" for n, t in PLAN_SHAPES])
 def test_out_plan_covers_every_tile_once(n, t, d):
     plan = tq.out_plan(n, t, d, H100_SMS)
