@@ -62,7 +62,8 @@ Phases (any failure raises and exits non-zero):
    against inside train_step, the busy share).
 8. One DiT-B training step at batch 4, card (kernels) against CPU (plain
    versions), same weights and draws: the L1 loss's terms (loss, l1, vb),
-   then the MSE loss and every parameter gradient.
+   then the MSE loss and every parameter gradient, and the card's launch
+   counts (rows 2 and 8 twice a block under remat, rows 3 and 4 once).
 9. The int8 weight-only kernels (`[quant]`): the adaLN projection
    (int8_matmul), the qkv projection with LayerNorm and modulation folded
    in (int8_modulated_matmul), the out projection with gate and residual
@@ -178,9 +179,23 @@ Phases (any failure raises and exits non-zero):
    launches of each path kernel, the .osu reparsed, s per step, device ms
    a step, busy share); one XL forward of each stream against the same
    forward with every kernel's plain version patched in on the card
-   (`[xl-forward]`, `[xl-bf16-forward]`, `[xl-int8-forward]`); and the
-   train CLI at XL, refused at its first step with the ValueError that
-   names XL training (`[xl-train]`).
+   (`[xl-forward]`, `[xl-bf16-forward]`, `[xl-int8-forward]`).
+19. DiT-XL training. After 18's kernels, rows 2-4 at head dim 72
+   (`[attn-train-xl]`: q/k/v (256, 16, 128, 72) in both streams, a ragged
+   T in both, three 128-row blocks; the registers, spills and shared
+   memory of the Dh 72 dq and dk/dv builds, Hopper and WMMA; times beside
+   bounds, the plain versions and SDPA without and with the band as a
+   mask) and row 8 at D 1152 (`[mlp-train-xl]`: x (256, 128, 1152) in
+   both streams and a ragged T), at `[attn-train]`'s and `[mlp-train]`'s
+   tolerances. After 18's forwards: one training step card against CPU at
+   XL's widths with the depth cut to XL_STEP_DEPTH (`[xl-train-step]`, 8's
+   checks and tolerances), then the train CLI at --model DiT-XL and its
+   defaults for XL_TRAIN_STEPS steps (`[xl-train]`: finite losses, per
+   optimizer step 56 launches of rows 2 and 8 and 28 of rows 3 and 4, s
+   per step, busy share, peak device memory), one --no-use-bf16 step (dq
+   and dk/dv on their WMMA bodies), and --mlp-bwd fused and --num-model 2
+   --context-parallel at XL refused with a ValueError naming ROADMAP.md
+   and no kernel launch.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -294,6 +309,17 @@ ATTN_TRAIN_CASES = [
     ("three_blocks_odd_heads", 3, 5, 384, 370, 128, "bf16"),
     ("f32_stream", 4, 12, 128, 128, 128, "f32"),
 ]
+# [attn-train-xl]: rows 2-4 at DiT-XL's head dim 72, the same way: the XL
+# training shape (batch 256 x 16 heads, T = band = 128) in both streams,
+# a ragged T (not a multiple of 64, valid_len < T, band < T) in both, and
+# three 128-row blocks (the persistent walks over several blocks and tiles)
+ATTN_TRAIN_XL_CASES = [
+    ("main", 256, 16, 128, 128, 128, "bf16"),
+    ("main_f32", 256, 16, 128, 128, 128, "f32"),
+    ("ragged_t", 3, 5, 200, 190, 20, "bf16"),
+    ("ragged_t_f32", 3, 5, 200, 190, 20, "f32"),
+    ("three_blocks", 3, 5, 384, 370, 128, "bf16"),
+]
 # the body each stream's forward, dq and dk/dv take (`.body` of the
 # wrappers): every forward entry the Hopper body in both streams; dq and
 # dk/dv bf16 the Hopper body, f32 the WMMA body
@@ -303,6 +329,10 @@ BODY = {"bf16": "sm90", "f32": "wmma"}
 MLP_TRAIN_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t", 3, 50, 768, "bf16"),
                    ("dit_s_width", 2, 100, 384, "bf16"), ("f32_stream", 4, 128, 768, "f32"),
                    ("dit_l_width_t757", 1, 757, 1024, "bf16")]
+# [mlp-train-xl]: row 8 at DiT-XL's D 1152 (H 4608), the XL training shape
+# in both streams and a ragged T
+MLP_TRAIN_XL_CASES = [("main", 256, 128, 1152, "bf16"), ("main_f32", 256, 128, 1152, "f32"),
+                      ("ragged_t", 3, 50, 1152, "bf16")]
 # kernel B's Hopper body: its kernels' names in a profile
 MLP_SM90_KERNELS = ("adaln_mlp_modulate_kernel", "adaln_mlp_gemm_kernel")
 # the banded-attention forward's (row 1's, in the sampling chains)
@@ -531,18 +561,21 @@ def phase_build():
 
 # the Hopper attention builds: the forward's five (q/k/v type, o type;
 # bf16 o from f32 q/k/v unranged only) at Dh 64 and at Dh 72 (DiT-XL), and
-# dq's and dk/dv's two, each unranged and ranged
+# dq's and dk/dv's two, each unranged and ranged, and unranged at Dh 72
 SM90_FWD_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32")
 SM90_FWD_XL_BUILDS = tuple(f"{name} dh72" for name in SM90_FWD_BUILDS)
-SM90_ATTN_BUILDS = SM90_FWD_BUILDS + SM90_FWD_XL_BUILDS + ("dq", "ranged dq", "dkv", "ranged dkv")
+SM90_BWD_XL_BUILDS = ("dq dh72", "dkv dh72")
+SM90_ATTN_BUILDS = (SM90_FWD_BUILDS + SM90_FWD_XL_BUILDS + ("dq", "ranged dq", "dkv", "ranged dkv")
+                    + SM90_BWD_XL_BUILDS)
 
 
 def attn_build_name(entry: str, kernel: str, key: str) -> str:
     """The SM90_ATTN_BUILDS name of a mangled Hopper attention kernel:
-    <RANGED[, q/k/v type, o type, head dim]> for the forward."""
+    <RANGED[, q/k/v type, o type], head dim> for the forward, <RANGED, head
+    dim> for dq and dk/dv."""
     name = ("ranged " if f"{kernel}ILb1E" in entry else "") + key
     if key != "fwd":
-        return name
+        return name + (" dh72" if "Li72E" in entry.split(kernel, 1)[1] else "")
     types = entry.split(f"{kernel}ILb", 1)[1][2:]  # past the flag and its E
     dh = " dh72" if "Li72E" in types else ""
     if types.startswith("ff"):
@@ -572,8 +605,9 @@ def sm90_resources() -> dict:
                 continue
             name = attn_build_name(entry, kernel, key)
             smem_key = key
-            if key == "fwd":  # the f32 staging buffer, and Dh 72's second slabs
-                smem_key += " f32" * (" f32" in name) + " dh72" * name.endswith("dh72")
+            if key == "fwd":  # the f32 staging buffer
+                smem_key += " f32" * (" f32" in name)
+            smem_key += " dh72" * name.endswith("dh72")  # Dh 72's second slabs
             res = found.setdefault(name, {"smem_bytes": smem[smem_key]})
             if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
                 res["spill_bytes"] = int(m[1]) + int(m[2])
@@ -582,6 +616,35 @@ def sm90_resources() -> dict:
     check(set(found) == set(SM90_ATTN_BUILDS) and all(len(r) == 3 for r in found.values()),
           f"ptxas lines of the {len(SM90_ATTN_BUILDS)} Hopper attention builds not found: {found}")
     check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper attention bodies spill: {found}")
+    return found
+
+
+def wmma_resources() -> dict:
+    """Registers, spill bytes and dynamic shared memory per CTA of the f32
+    stream's WMMA dq and dk/dv builds ("wmma dq", "wmma ranged dkv", ...
+    " dh72" at Dh 72), from this build's ptxas lines and the library."""
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    smem = ba.wmma_smem_bytes()
+    found = {}
+    entry = None
+    for line in cuda_build.build_info["banded_attention_bwd"]["log"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        kernel = next((k for k in ("dq", "dkv") if entry and f"banded_attn_bwd_{k}_kernelI" in entry), None)
+        if kernel is None:
+            continue
+        args = entry.split(f"banded_attn_bwd_{kernel}_kernelI", 1)[1]
+        dh = " dh72" if "Li72E" in args else ""
+        name = f"wmma {'ranged ' * ('Lb1E' in args)}{kernel}{dh}"
+        res = found.setdefault(name, {"smem_bytes": smem[f"wmma {kernel}{dh}"]})
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res["spill_bytes"] = int(m[1]) + int(m[2])
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res["registers"] = int(m[1])
     return found
 
 
@@ -1001,9 +1064,11 @@ def phase_mlp(dev, tag="mlp", cases=MLP_CASES):
     return result
 
 
-def phase_attention_train(dev):
+def phase_attention_train(dev, tag="attn-train", cases=ATTN_TRAIN_CASES, dh=64):
     """Rows 2-4: the forward with LSE, dq and dk/dv against their plain
-    versions (bf16 operands, and f32), every output checked."""
+    versions (bf16 operands, and f32), every output checked, at head dim
+    `dh`; the cases named main* timed. Returns the numbers of the case
+    named main."""
     import torch
     import torch.nn.functional as F
     from osu_diffusion_tpu_torch.ops import banded_attention as ba
@@ -1011,13 +1076,20 @@ def phase_attention_train(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-train", ("fwd bf16", "fwd f32", "dq", "dkv"))
-    for name, n, h, t, valid, band, stream in ATTN_TRAIN_CASES:
+    if dh == 64:
+        print_sm90_resources(tag, ("fwd bf16", "fwd f32", "dq", "dkv"))
+    else:  # the builds this head dim adds to training: dq and dk/dv, Hopper and WMMA
+        print_sm90_resources(tag, ("fwd bf16 dh72", "fwd f32 dh72") + SM90_BWD_XL_BUILDS)
+        wmma = wmma_resources()
+        print(f"[{tag}] WMMA bodies (ptxas): " + "; ".join(
+            f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes, {r['smem_bytes']} B shared "
+            f"memory a CTA" for n, r in sorted(wmma.items()) if n.endswith("dh72")))
+    for name, n, h, t, valid, band, stream in cases:
         dtype = f32 if stream == "f32" else bf16
-        qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=dev).to(dtype)
-        q, k, v = (a.view(n, t, h, 64).transpose(1, 2) for a in qkv.split(h * 64, dim=-1))
+        qkv = torch.randn((n, t, 3 * h * dh), generator=g, device=dev).to(dtype)
+        q, k, v = (a.view(n, t, h, dh).transpose(1, 2) for a in qkv.split(h * dh, dim=-1))
         # the gradient arrives in the (N, T, H, Dh) layout of the head merge
-        do = torch.randn((n, t, h, 64), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
+        do = torch.randn((n, t, h, dh), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
         o, lse = ba.banded_attention_fwd_lse(q, k, v, band, valid)
         dq = ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)
         dk, dv = ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid)
@@ -1025,7 +1097,7 @@ def phase_attention_train(dev):
         body = {"fwd": ba.banded_attention_fwd_lse.body, "dq": ba.banded_attention_bwd_dq.body,
                 "dkv": ba.banded_attention_bwd_dkv.body}
         want = {"fwd": FWD_BODY[stream], "dq": BODY[stream], "dkv": BODY[stream]}
-        check(body == want, f"attention train {name}: bodies {body}, want {want}")
+        check(body == want, f"{tag} {name}: bodies {body}, want {want}")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, bf16)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, bf16)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, valid, f32)
@@ -1034,27 +1106,27 @@ def phase_attention_train(dev):
         errs = {"lse": (max_err(lse[has_key], lse16[has_key]), max_err(lse[has_key], lse32[has_key]))}
         for out, got, w16, w32 in zip(("o", "dq", "dk", "dv"), (o, dq, dk, dv),
                                       (o16, *grads16), (o32, *grads32)):
-            check(bool(torch.isfinite(got).all()), f"attention train {name}: non-finite {out}")
+            check(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite {out}")
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
-        print(f"[attn-train] {name}: N={n} H={h} T={t} valid={valid} band={band} {stream} "
+        print(f"[{tag}] {name}: N={n} H={h} T={t} Dh={dh} valid={valid} band={band} {stream} "
               f"body fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
               + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
-        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"lse {name}: {errs['lse']}")
-        check(bool((lse[~has_key] < -1e29).all()), f"lse {name}: rows without a key not ~-1e30")
+        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"{tag} lse {name}: {errs['lse']}")
+        check(bool((lse[~has_key] < -1e29).all()), f"{tag} lse {name}: rows without a key not ~-1e30")
         for out in ("o", "dq", "dk", "dv"):
-            check(errs[out][0] <= TRAIN_TOL_BF16, f"{out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
-            check(errs[out][1] <= TRAIN_TOL_F32, f"{out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
+            check(errs[out][0] <= TRAIN_TOL_BF16, f"{tag} {out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
+            check(errs[out][1] <= TRAIN_TOL_F32, f"{tag} {out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
         check(bool((dq[:, :, valid:] == 0).all() and (dk[:, :, valid:] == 0).all()
-                   and (dv[:, :, valid:] == 0).all()), f"{name}: gradient past valid_len")
+                   and (dv[:, :, valid:] == 0).all()), f"{tag} {name}: gradient past valid_len")
         if name == "fully_masked_rows":
             check(bool((o[:, :, valid + band:] == 0).all()), "masked rows not 0")
-        if name != "main":
+        if not name.startswith("main"):
             continue
         # no atomics: one CTA owns each query block, so dq is the same bits run to run
         check(torch.equal(dq, ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid)),
-              "dq differs run to run")
+              f"{tag} {name}: dq differs run to run")
         fwd_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse(q, k, v, band, valid))
         dq_ms = cuda_ms(lambda: ba.banded_attention_bwd_dq(q, k, v, o, lse, do, band, valid))
         dkv_ms = cuda_ms(lambda: ba.banded_attention_bwd_dkv(q, k, v, o, lse, do, band, valid))
@@ -1068,17 +1140,28 @@ def phase_attention_train(dev):
         sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
         out = F.scaled_dot_product_attention(ql, kl, vl)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do, retain_graph=True))
+        mask_note = ""
+        if dh != 64:  # also with the band as a boolean mask (every pair allowed here)
+            mask = ba.banded_attention_mask(t, band, dev) & (torch.arange(t, device=dev) < valid)[None, :]
+            sdpa_mask_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
+            out_m = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+            sdpa_mask_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out_m, (ql, kl, vl), do, retain_graph=True))
+            mask_note = (f"; SDPA with the band as a bool mask fwd {sdpa_mask_fwd_ms:.4f} ms, "
+                         f"bwd {sdpa_mask_bwd_ms:.4f} ms")
         pairs_f = attention_pairs(t, band, valid) * n * h
         pairs_b = attention_pairs(t, band, valid, query_valid=True) * n * h
         bounds = {
-            "fwd_lse": bound(nbytes(q, k, v, o, lse), 4 * 64 * pairs_f),
-            "dq": bound(nbytes(q, k, v, o, do, lse, dq), 6 * 64 * pairs_b),
-            "dkv": bound(nbytes(q, k, v, o, do, lse, dk, dv), 8 * 64 * pairs_b),
+            "fwd_lse": bound(nbytes(q, k, v, o, lse), 4 * dh * pairs_f),
+            "dq": bound(nbytes(q, k, v, o, do, lse, dq), 6 * dh * pairs_b),
+            "dkv": bound(nbytes(q, k, v, o, do, lse, dk, dv), 8 * dh * pairs_b),
         }
-        print(f"[attn-train] main: fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
+        print(f"[{tag}] {name} ({stream}; bodies fwd {body['fwd']}, dq {body['dq']}, dk/dv {body['dkv']}): "
+              f"fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
               f"plain f32 fwd {fwd_plain_ms:.4f} ms, bwd (dq, dk, dv) {bwd_plain_ms:.4f} ms; "
-              f"SDPA fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms; bounds "
+              f"SDPA fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms{mask_note}; bounds "
               + ", ".join(f"{k} {b['bound_ms']:.4f} ms ({b['bound_by']})" for k, b in bounds.items()))
+        if name != "main":
+            continue
         results = {
             "banded_attention_fwd_lse": {"max_abs_err": max_err(o, o16), "ms": fwd_ms,
                                          "plain_ms": fwd_plain_ms, **bounds["fwd_lse"],
@@ -1093,19 +1176,20 @@ def phase_attention_train(dev):
     return results
 
 
-def phase_mlp_train(dev):
+def phase_mlp_train(dev, tag="mlp-train", cases=MLP_TRAIN_CASES):
     """Row 8: kernel B's training forward (out, a, mlp) against its plain
     version (bf16 operands, and f32); its body and repeatability; at the
-    main shape its three stages' times beside the whole, and the Hopper
-    GEMM builds' resources."""
+    shapes named main* its three stages' times beside the whole, and the
+    Hopper GEMM builds' resources. Returns the numbers of the case named
+    main."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
 
     g = torch.Generator(device=dev).manual_seed(4)
     bf16, f32 = torch.bfloat16, torch.float32
-    print(f"[mlp-train] Hopper GEMM builds (ptxas): {mlp_sm90_resources()}")
+    print(f"[{tag}] Hopper GEMM builds (ptxas): {mlp_sm90_resources()}")
     result = None
-    for name, n, t, d, stream in MLP_TRAIN_CASES:
+    for name, n, t, d, stream in cases:
         dtype = f32 if stream == "f32" else bf16
         hdim = 4 * d
 
@@ -1128,19 +1212,19 @@ def phase_mlp_train(dev):
         want32 = am.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
         errs = {}
         for out, a, w16, w32 in zip(("out", "a", "mlp"), got, want16, want32):
-            check(bool(torch.isfinite(a).all()), f"mlp train {name}: non-finite {out}")
-            check(a.shape == w16.shape and a.dtype == w16.dtype, f"mlp train {name}: {out} shape/type")
+            check(bool(torch.isfinite(a).all()), f"{tag} {name}: non-finite {out}")
+            check(a.shape == w16.shape and a.dtype == w16.dtype, f"{tag} {name}: {out} shape/type")
             errs[out] = (rel_err(a, w16), rel_err(a, w32))
-        print(f"[mlp-train] {name}: x=({n}, {t}, {d}) {stream} body {body} "
+        print(f"[{tag}] {name}: x=({n}, {t}, {d}) {stream} body {body} "
               + " ".join(f"{k}={a:.2e}/{b:.2e}" for k, (a, b) in errs.items())
               + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); "
               f"same bits on a second call: {same}")
-        check(body == "sm90", f"mlp train {name}: body {body}, expected sm90")
-        check(same, f"mlp train {name}: a second call gave other bits")
+        check(body == "sm90", f"{tag} {name}: body {body}, expected sm90")
+        check(same, f"{tag} {name}: a second call gave other bits")
         for out, (e16, e32) in errs.items():
-            check(e16 <= TRAIN_TOL_BF16, f"mlp train {name} {out}: {e16} > {TRAIN_TOL_BF16}")
-            check(e32 <= TRAIN_TOL_F32, f"mlp train {name} {out}: {e32} > {TRAIN_TOL_F32}")
-        if name == "main":
+            check(e16 <= TRAIN_TOL_BF16, f"{tag} {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"{tag} {name} {out}: {e32} > {TRAIN_TOL_F32}")
+        if name.startswith("main"):
             ms = cuda_ms(lambda: am.adaln_mlp_train(*args))
             # each stage alone (a timing run: the other stages' outputs unwritten)
             stage_ms = {stage: cuda_ms(lambda m=mask: am._launch(
@@ -1153,7 +1237,7 @@ def phase_mlp_train(dev):
                 x, shift, scale, gate, w1b, b1, w2b, b2, 1e-6, bf16))
             library_ms = cublas_mlp_ms(n, t, d, hdim, dev)
             b = bound(nbytes(*args, *got), 4 * n * t * d * hdim)
-            print(f"[mlp-train] main: kernel {ms:.4f} ms (stages alone: modulate "
+            print(f"[{tag}] {name} ({stream}): kernel {ms:.4f} ms (stages alone: modulate "
                   f"{stage_ms['modulate']:.4f}, up {stage_ms['up']:.4f} ({up.width}-wide tiles, "
                   f"{up.tiles} on {up.grid} CTAs), down {stage_ms['down']:.4f} ({down.width}-wide, "
                   f"{down.tiles} on {down.grid}); sum {sum(stage_ms.values()):.4f}), plain f32 "
@@ -1161,8 +1245,9 @@ def phase_mlp_train(dev):
                   f"{b['bound_ms']:.4f} ms ({b['bound_by']}); yardstick, not the same function: "
                   f"cuBLAS bf16 fc1 + fc2 ({n * t}, {d}) x ({d}, {hdim}), ({n * t}, {hdim}) x "
                   f"({hdim}, {d}) {library_ms:.4f} ms")
-            result = {"max_abs_err": max_err(got[0], want16[0]), "ms": ms, "plain_ms": plain_ms,
-                      **b, "library_ms": library_ms}
+            if name == "main":
+                result = {"max_abs_err": max_err(got[0], want16[0]), "ms": ms, "plain_ms": plain_ms,
+                          **b, "library_ms": library_ms}
     return result
 
 
@@ -1783,29 +1868,97 @@ def phase_xl_forward(dev, sampler, call_args, tag, dtype=None):
         check(rel <= FORWARD_REL_TOL, f"{tag}: forward disagrees: {rel} > {FORWARD_REL_TOL}")
 
 
-def phase_xl_train_refused(dev, tmp):
-    """[xl-train]: the train CLI at --model DiT-XL stops at its first step,
-    before any kernel launch, with the ValueError that names XL training
-    (the LSE forward takes head dim 64 only)."""
-    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+XL_TRAIN_STEPS = 8  # [xl-train]: the train CLI's optimizer steps at XL
+XL_TRAIN_TIMED = range(2, 6)  # its steady steps timed by CUDA events
+XL_TRAIN_PROFILED = range(6, 8)  # and traced by torch.profiler
+XL_TRAIN_LOG_EVERY = 2  # a Train Loss line (the mean of 2 steps' losses) every 2 steps
+XL_STEP_DEPTH = 4  # [xl-train-step]: DiT-XL's widths at this depth (the CPU side's time)
 
-    argv = ["--data-path", train_dataset(tmp), "--data-start", "0", "--data-end", "2", "--model", XL_MODEL,
-            "--num-classes", "100", "--global-batch-size", "8", "--seq-len", str(TRAIN_SEQ), "--stride", "16",
-            "--num-workers", "0", "--results-dir", os.path.join(tmp, "train-xl"), "--device", dev,
-            "--max-steps", "1"]
-    read_counts = reset_launch_counts()
+
+def xl_train_argv(tmp, dev, *flags) -> list[str]:
+    """The train CLI at --model DiT-XL and its defaults (global batch
+    TRAIN_BATCH, seq-len TRAIN_SEQ, bf16 stream, remat, --mlp-bwd xla) on
+    the kimi Track dataset, NUM_CLASSES classes, no checkpoint, plus
+    `flags`."""
+    return ["--data-path", train_dataset(tmp), "--data-start", "0", "--data-end", "2", "--model", XL_MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
+            "--ckpt-every", str(10 ** 9), "--results-dir", os.path.join(tmp, "train-xl"), "--device", dev,
+            *flags]
+
+
+def phase_xl_train(dev, tmp):
+    """[xl-train]: the train CLI at --model DiT-XL and its defaults for
+    XL_TRAIN_STEPS optimizer steps (run_train_cli: every logged loss
+    finite; per optimizer step 56 launches of rows 2 and 8, 28 of rows 3
+    and 4, none of another kernel; s per step start to start and inside
+    train_step, busy share, peak device memory); one step with
+    --no-use-bf16 (the f32 stream: dq and dk/dv on their WMMA bodies, the
+    same launch counts, a finite loss); and --mlp-bwd fused and
+    --num-model 2 --context-parallel at XL refused with a ValueError naming
+    ROADMAP.md before any kernel launch."""
+    import torch
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+
     wall = time.perf_counter()
-    err = None
-    try:
-        with contextlib.redirect_stdout(io.StringIO()):
-            train_main(build_train_parser().parse_args(argv))
-    except ValueError as e:
-        err = str(e)
-    launches = {k: v for k, v in read_counts().items() if v}
-    print(f"[xl-train] train CLI --model {XL_MODEL}: ValueError {err!r} after {time.perf_counter() - wall:.1f} s; "
-          f"kernel launches before it {launches}")
-    check(err is not None and "XL training" in err and "ROADMAP" in err and not launches,
-          f"xl-train: {err!r}, launches {launches}")
+    with torch.device("meta"):  # the depth only
+        depth = len(DiT_models[XL_MODEL](num_classes=2).blocks)
+    per_step = {"banded_attention_fwd_lse": 2 * depth, "adaln_mlp_train": 2 * depth,
+                "banded_attention_bwd_dq": depth, "banded_attention_bwd_dkv": depth}
+    summary, launches, numbers = run_train_cli(
+        "xl-train", xl_train_argv(tmp, dev, "--log-every", str(XL_TRAIN_LOG_EVERY)), XL_TRAIN_STEPS,
+        profiled=XL_TRAIN_PROFILED, model=XL_MODEL, timed=XL_TRAIN_TIMED, log_every=XL_TRAIN_LOG_EVERY)
+    print(f"[xl-train] launches per optimizer step: "
+          + ", ".join(f"{k} {launches[k] / XL_TRAIN_STEPS:g}" for k in per_step)
+          + f" (expected {per_step}); bodies dq {ba.banded_attention_bwd_dq.body}, "
+          f"dk/dv {ba.banded_attention_bwd_dkv.body}, forward {ba.banded_attention_fwd_lse.body}")
+    check((ba.banded_attention_bwd_dq.body, ba.banded_attention_bwd_dkv.body) == ("sm90", "sm90"),
+          "xl-train: the bf16 stream's dq and dk/dv did not run their Hopper bodies")
+    del summary
+    torch.cuda.empty_cache()
+
+    # one optimizer step in the f32 stream: the WMMA dq and dk/dv bodies
+    read_counts = reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        f32_run = train_main(build_train_parser().parse_args(
+            xl_train_argv(tmp, dev, "--no-use-bf16", "--max-steps", "1", "--log-every", "1")))
+    torch.cuda.synchronize()
+    f32_s = time.perf_counter() - start
+    counts = read_counts()
+    bodies = (ba.banded_attention_bwd_dq.body, ba.banded_attention_bwd_dkv.body)
+    print(f"[xl-train] --no-use-bf16: step {f32_run['final_step']}, loss {f32_run['last_loss']:.6f}, "
+          f"launches {({k: v for k, v in counts.items() if v})}, bodies dq {bodies[0]}, dk/dv {bodies[1]}; "
+          f"the run (model set-up, loader and the one step) {f32_s:.1f} s wall, peak device memory "
+          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(f32_run["final_step"] == 1 and math.isfinite(f32_run["last_loss"]), f"xl-train f32: {f32_run}")
+    check(bodies == ("wmma", "wmma"), f"xl-train f32: dq and dk/dv bodies {bodies}, expected wmma")
+    check(counts == {**dict.fromkeys(counts, 0), **per_step}, f"xl-train f32: launches {counts}")
+    del f32_run
+    torch.cuda.empty_cache()
+
+    # the paths whose kernels do not take XL's widths yet refuse before any launch
+    for flags in (["--mlp-bwd", "fused"], ["--num-model", "2", "--context-parallel"]):
+        read_counts = reset_launch_counts()
+        err = None
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                train_main(build_train_parser().parse_args(xl_train_argv(tmp, dev, *flags, "--max-steps", "1")))
+        except ValueError as e:
+            err = str(e)
+        refused_launches = {k: v for k, v in read_counts().items() if v}
+        print(f"[xl-train] {' '.join(flags)}: ValueError {err!r}; kernel launches before it {refused_launches}")
+        check(err is not None and "ROADMAP" in err and not refused_launches,
+              f"xl-train {flags}: {err!r}, launches {refused_launches}")
+    print(f"[xl-train] {XL_MODEL} train CLI ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}): "
+          f"{numbers['period_ms'] / 1000:.6f} s per optimizer step start to start, "
+          f"{numbers['step_ms'] / 1000:.6f} inside train_step, device {numbers['device_ms']:.2f} ms a step, "
+          f"busy {numbers['busy']:.1f}%, peak {numbers['peak_gb']:.2f} GB; the phase took "
+          f"{time.perf_counter() - wall:.1f} s")
+    return launches, numbers
 
 
 def phase_xl(dev, tmp, card):
@@ -1815,10 +1968,12 @@ def phase_xl(dev, tmp, card):
     (XL_STEPS x 28 of rows 1 and 7, or of rows 1 and 10-13), the .osu
     reparsed, s per denoise step, device ms per step and the busy share;
     one XL forward of each stream against its plain versions on the card
-    ([xl-forward], [xl-bf16-forward], [xl-int8-forward]); and the train CLI
-    at XL refused at its first step ([xl-train])."""
+    ([xl-forward], [xl-bf16-forward], [xl-int8-forward]). DiT-XL training:
+    one step's loss and gradients card against CPU at XL's widths, depth
+    cut to XL_STEP_DEPTH ([xl-train-step]), and the train CLI at --model
+    DiT-XL ([xl-train], phase_xl_train)."""
     import torch
-    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.models.dit import DiT, DiT_models
 
     wall = time.perf_counter()
     model = DiT_models[XL_MODEL](num_classes=NUM_CLASSES)
@@ -1839,7 +1994,12 @@ def phase_xl(dev, tmp, card):
     phase_xl_forward(dev, qsampler, call_args, "xl-int8-forward")
     del qsampler
     os.remove(ckpt)
-    phase_xl_train_refused(dev, tmp)
+    step_wall = time.perf_counter()
+    phase_train_step_vs_plain(dev, tag="xl-train-step", model=DiT(
+        depth=XL_STEP_DEPTH, hidden_size=1152, num_heads=16, num_classes=NUM_CLASSES, class_dropout_prob=0.2),
+        what=f"{XL_MODEL} widths at depth {XL_STEP_DEPTH}")
+    print(f"[xl-train-step] {time.perf_counter() - step_wall:.1f} s")
+    phase_xl_train(dev, tmp)
     print(f"[slice-xl] {card}: {XL_MODEL} on kimi (T 757 -> 768, CFG batch 2, band {BAND}), "
           f"{f32_ms / 1000:.6f} s per denoise step f32, {int8_ms / 1000:.6f} int8 (--quantize-weights); "
           f"launches per chain f32 {launches}, int8 {int8_launches}; the phase took "
@@ -2546,12 +2706,14 @@ def reset_launch_counts():
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
 
 
-def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
-    """The train CLI at DiT-B width for `steps` steps with --mlp-bwd
-    `mlp_bwd`: launch counts, finite losses (logged every 5 steps), seconds
-    per step over TIMED_STEPS and the device's busy share over the steps
-    `profiled`. Returns (summary, launches, {period_ms, step_ms, busy,
-    device_ms})."""
+def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, model=MODEL,
+                  timed=TIMED_STEPS, log_every=5):
+    """The train CLI (`argv`: its flags, --model `model` among them, bf16
+    stream and remat) for `steps` steps with --mlp-bwd `mlp_bwd`: launch
+    counts, finite losses (logged every `log_every` steps), seconds per
+    step over the steps `timed`, the device's busy share over the steps
+    `profiled`, and the peak of allocated device memory. Returns (summary,
+    launches, {period_ms, step_ms, busy, device_ms, peak_gb})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
@@ -2583,6 +2745,7 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
 
     trainer.train_step = timed_step
     read_counts = reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     wall = time.perf_counter()
     try:
         summary = train_main(build_train_parser().parse_args(argv + ["--max-steps", str(steps)]))
@@ -2591,15 +2754,17 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall
     launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
-    depth = len(DiT_models[MODEL](num_classes=2).blocks)
+    with torch.device("meta"):  # the depth only
+        depth = len(DiT_models[model](num_classes=2).blocks)
     with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
         log = f.read()
     losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
     print(f"[{tag}] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
           f"launches {launches}")
     check(summary["final_step"] == steps, f"stopped at step {summary['final_step']}")
-    check(len(losses) == steps // 5 and all(math.isfinite(v) for v in losses),
+    check(len(losses) == steps // log_every and all(math.isfinite(v) for v in losses),
           f"Train Loss lines: {losses}")
     check("Done!" in log, "no Done! in the log")
     expected = {**dict.fromkeys(launches, 0),  # the inference kernels
@@ -2612,14 +2777,14 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
                                       steps * depth))
     check(launches == expected, f"launches {launches}, expected {expected}")
 
-    # steady state: the train_step calls in TIMED_STEPS, by CUDA events
-    first, last = TIMED_STEPS.start, TIMED_STEPS.stop - 1
-    step_ms = sum(events[i][0].elapsed_time(events[i][1]) for i in TIMED_STEPS) / len(TIMED_STEPS)
+    # steady state: the train_step calls in `timed`, by CUDA events
+    first, last = timed.start, timed.stop - 1
+    step_ms = sum(events[i][0].elapsed_time(events[i][1]) for i in timed) / len(timed)
     period_ms = events[first][0].elapsed_time(events[last][0]) / (last - first)
     print(f"[{tag}] steady state over steps {first}..{last}: {period_ms / 1000:.6f} s per optimizer "
           f"step start to start ({TRAIN_BATCH * TRAIN_SEQ / period_ms * 1000:.0f} tokens/s), "
-          f"{step_ms / 1000:.6f} s inside train_step ({MODEL}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
-          f"bf16 stream, remat, --mlp-bwd {mlp_bwd})")
+          f"{step_ms / 1000:.6f} s inside train_step ({model}, batch {TRAIN_BATCH} x {TRAIN_SEQ}, "
+          f"bf16 stream, remat, --mlp-bwd {mlp_bwd}); peak device memory allocated {peak_gb:.2f} GB")
     events_dev = [e for e in prof["p"].key_averages()
                   if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     device_us = sum(e.self_device_time_total for e in events_dev)
@@ -2643,7 +2808,7 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS):
           f"{sum(bwd_us.values()) / 1000 / n_prof:.3f} ms of {device_us / 1000 / n_prof:.2f} ms device time "
           f"per step: " + ", ".join(f"{k} {v / 1000 / n_prof:.3f}" for k, v in bwd_us.items()))
     numbers = {"period_ms": period_ms, "step_ms": step_ms, "busy": busy,
-               "device_ms": device_us / 1000 / n_prof}
+               "device_ms": device_us / 1000 / n_prof, "peak_gb": peak_gb}
     return summary, launches, numbers
 
 
@@ -2894,12 +3059,14 @@ def train_dataset(tmp):
     return data
 
 
-def phase_train_step_vs_plain(dev, mlp_bwd="xla"):
-    """One DiT-B training step's loss and parameter gradients at batch 4:
-    the card's kernels against the CPU's plain versions, same weights and
+def phase_train_step_vs_plain(dev, mlp_bwd="xla", tag=None, model=None, what=MODEL):
+    """One training step's loss and parameter gradients at batch 4: the
+    card's kernels against the CPU's plain versions, same weights and
     draws, with the MLP backward `mlp_bwd` (with "fused" the card runs the
     two backward kernels, once per block, and the CPU their plain stages;
-    only the MSE gradients are compared then)."""
+    only the MSE gradients are compared then). `model`: the DiT (default
+    DiT-B at NUM_CLASSES, label dropout 0.2), `what` its name in the
+    lines."""
     import numpy as np
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
@@ -2909,14 +3076,16 @@ def phase_train_step_vs_plain(dev, mlp_bwd="xla"):
     from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.train.train_step import StepDraws, draw_step, loss_terms
 
-    tag = "step" if mlp_bwd == "xla" else f"step-{mlp_bwd}"
+    tag = tag or ("step" if mlp_bwd == "xla" else f"step-{mlp_bwd}")
 
     seq = beatmap_to_sequence(Beatmap.from_path(BEATMAP))
     wins = [default_win_func(seq, s, s + TRAIN_SEQ) for s in (0, 150, 300, 450)]
     batch = (torch.from_numpy(np.stack([w for w, _ in wins])),
              torch.from_numpy(np.stack([p for _, p in wins])),
              torch.tensor([3, 17, 100, NUM_CLASSES - 1]))
-    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2, mlp_bwd=mlp_bwd)
+    if model is None:
+        model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2, mlp_bwd=mlp_bwd)
+    wall = time.perf_counter()
     model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED + 1)))
     draws = draw_step(4, TRAIN_SEQ, 1000, 0.2, "cpu", torch.Generator().manual_seed(SEED + 2))
     draws = draws._replace(drop=torch.tensor([True, False, False, False]))
@@ -2943,19 +3112,24 @@ def phase_train_step_vs_plain(dev, mlp_bwd="xla"):
     fused = (counts["adaln_mlp_bwd_prologue"], counts["adaln_mlp_bwd_epilogue"])
     check(fused == ((depth, depth) if mlp_bwd == "fused" else (0, 0)),
           f"{tag}: backward kernel launches {fused} on the card")
+    # rows 2 and 8 in the forward and the remat recompute, rows 3 and 4 once a block
+    rows = {"banded_attention_fwd_lse": 2 * depth, "adaln_mlp_train": 2 * depth,
+            "banded_attention_bwd_dq": depth, "banded_attention_bwd_dkv": depth}
+    check({k: counts[k] for k in rows} == rows, f"{tag}: training kernel launches {counts}, expected {rows}")
     if l1_terms:
         l1_rel = {k: abs(l1_terms[dev][k] - v) / abs(v) for k, v in l1_terms["cpu"].items()}
-        print(f"[step] {MODEL} L1 loss terms, batch 4 x {TRAIN_SEQ}, bf16 stream: card {l1_terms[dev]} "
+        print(f"[{tag}] {what} L1 loss terms, batch 4 x {TRAIN_SEQ}, bf16 stream: card {l1_terms[dev]} "
               f"cpu {l1_terms['cpu']}; relative errors {l1_rel} (tol {STEP_LOSS_REL_TOL})")
         check(set(l1_rel) == {"loss", "l1", "vb"} and max(l1_rel.values()) <= STEP_LOSS_REL_TOL,
               f"L1 step terms: {l1_rel}")
     (loss_cpu, g_cpu), (loss_dev, g_dev) = results["cpu"], results[dev]
     loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     errs = sorted(((rel_err(g_dev[n], g_cpu[n]), n) for n in g_cpu), reverse=True)
-    print(f"[{tag}] {MODEL} --mlp-bwd {mlp_bwd} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
+    print(f"[{tag}] {what} --mlp-bwd {mlp_bwd} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
           f"cpu {loss_cpu:.6f} (rel {loss_rel:.2e}, tol {STEP_LOSS_REL_TOL}); gradient error of max, "
           f"worst {errs[0][0]:.2e} ({errs[0][1]}), median {errs[len(errs) // 2][0]:.2e} over "
-          f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL}); backward kernel launches on the card {fused}")
+          f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL}); backward kernel launches on the card {fused}; "
+          f"the phase took {time.perf_counter() - wall:.1f} s")
     check(loss_rel <= STEP_LOSS_REL_TOL, f"{tag} loss: {loss_rel} > {STEP_LOSS_REL_TOL}")
     check(errs[0][0] <= STEP_GRAD_REL_TOL, f"{tag} gradients: {errs[:5]}")
 
@@ -3329,6 +3503,7 @@ def cp_rank_main(workdir) -> int:
 
     trainer.train_step = timed_step
     read_counts = reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
     wall = time.perf_counter()
     summary = train_main(build_train_parser().parse_args(
         cp_argv(job["data"], os.path.join(workdir, f"results_w{world}"), world)))
@@ -3549,6 +3724,8 @@ def main() -> int:
     phase_attention_xl(dev)
     phase_mlp(dev, "mlp-xl", MLP_XL_CASES)
     phase_quant(dev, "quant-xl", QUANT_XL_CASES)
+    phase_attention_train(dev, "attn-train-xl", ATTN_TRAIN_XL_CASES, XL_HEAD_DIM)
+    phase_mlp_train(dev, "mlp-train-xl", MLP_TRAIN_XL_CASES)
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)

@@ -117,7 +117,11 @@
 // and the GEMMs are the same builds: the down GEMM's and the out
 // projection's 1152 columns take 128-wide tiles (256 does not divide
 // them), the qkv projection's 3456 a ragged last 256-wide block where the
-// plan picks 256. The training forward and the backward stop at D = 1024.
+// plan picks 256. The training forward (row 8) takes 1152 too: its
+// residuals a (N*T, 4608) and mlp (N*T, 1152) are the same epilogues' stores
+// at XL's widths (at XL training, x 256 x 128 x 1152 bf16: 696 GFLOP, 0.70
+// ms at 989 TFLOP/s, against 0.63 GB, 0.19 ms: the products). The fused
+// backward (csrc/adaln_mlp_bwd.cu) stops at D = 1024.
 // What replaced what: row 10's first body streamed all 4.7 MB of codes
 // through each 32-token CTA and upcast each tile in shared memory before
 // WMMA 16x16x16 products (0.30 ms at DiT-B sampling, 20x its bound); row
@@ -469,8 +473,7 @@ int sm90_forward(const void* x, const float* shift, const float* scale, const fl
 // contiguous; b1: f32 (H); b2: f32 (D); h: bf16 workspace (N*T, D); g: bf16
 // workspace (N*T, H); a: null (inference) or (N, T, H) contiguous in x's
 // type; mlp: null or f32 (N, T, D) contiguous. D in {384, 768, 1024, 1152}
-// (1152, DiT-XL's, for inference only: a and mlp null), H a multiple of
-// 128; bn_up / bn_down (256 or 128, dividing H / D) and
+// (1152: DiT-XL's, serving and training), H a multiple of 128; bn_up / bn_down (256 or 128, dividing H / D) and
 // grid_up / grid_down the tile plan's widths and CTA counts of the two
 // GEMMs; stages: 7 (a mask: 1 modulate, 2 up, 4 down). Launches on
 // `stream` without synchronizing; returns 0, a CUDA error code, or
@@ -494,8 +497,7 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
       return bf16 ? ADALN_MLP_SM90(768, __nv_bfloat16) : ADALN_MLP_SM90(768, float);
     case 1024:
       return bf16 ? ADALN_MLP_SM90(1024, __nv_bfloat16) : ADALN_MLP_SM90(1024, float);
-    case 1152:  // serving only: the training residuals' backward takes D up to 1024
-      if (a != nullptr || mlp != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    case 1152:
       return bf16 ? ADALN_MLP_SM90(1152, __nv_bfloat16) : ADALN_MLP_SM90(1152, float);
     default:
       return static_cast<int>(cudaErrorInvalidValue);

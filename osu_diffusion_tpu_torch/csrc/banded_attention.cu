@@ -18,7 +18,7 @@
 // tiles that meet [k_lo, k_hi).
 //
 // Computes, per (batch, head) and query row q, for a head dim Dh of 64
-// (DiT-S/B/L) or 72 (DiT-XL; the inference entries only):
+// (DiT-S/B/L) or 72 (DiT-XL; every entry but the ranged one with LSE):
 //   o[q] = sum_k softmax_k(s[q, k]) v[k],  s = bf16(q * Dh^-1/2) . bf16(k)
 // over the keys allowed by the band  q - L < k <= q + L  and k < valid_len,
 // with bf16 operands, f32 accumulation and an f32 online softmax, and with
@@ -42,7 +42,9 @@
 // band-limited products (1.3 us): bytes too, but only 144 CTAs, each
 // walking up to six key tiles in series, so the time is the length of that
 // chain. At DiT-XL's (N*H = 32, Dh = 72, f32) it reads 21.2 MB and writes
-// 7.1 MB (8.5 us) against 1.6 GFLOP (1.7 us): bytes. At the context-parallel training shard (N*H = 384, T_ext = 512 of
+// 7.1 MB (8.5 us) against 1.6 GFLOP (1.7 us): bytes; at its training shape
+// (N*H = 4096, T = L = 128, Dh = 72, bf16, with LSE) 304 MB (91 us) against
+// 19.3 GFLOP (20 us): bytes. At the context-parallel training shard (N*H = 384, T_ext = 512 of
 // which 256 are pad query rows, L = 128, bf16) the ranged call reads 3 x 25
 // MB of q/k/v and writes o and the LSE; the pad query blocks return at
 // once, so the work is that of the shard's 256 real rows.
@@ -648,8 +650,8 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// head dim dh: 64, or 72 without LSE (the LSE entries at 72 belong to the
-// training path, whose backward takes 64 only)
+// head dim dh: 64, or 72 but for the ranged entry with LSE (XL training
+// under context parallelism, whose ranged backward takes 64 only)
 template <bool RANGED>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
              int t, int dh, long long sn, long long sh, long long st, long long osn, long long osh,
@@ -661,7 +663,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
     return dispatch_dh<RANGED, 64>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
                                    valid_len, scale, bounds, in_bf16, out_bf16, s);
   }
-  if (dh == 72 && lse == nullptr) {
+  if (dh == 72 && (!RANGED || lse == nullptr)) {
     last_body = "sm90";
     return dispatch_dh<RANGED, 72>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
                                    valid_len, scale, bounds, in_bf16, out_bf16, s);
@@ -688,7 +690,7 @@ extern "C" int banded_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // The same with o in q's type, also writing lse: f32 (N*H, T) contiguous,
-// row n*H + h; dh 64 only.
+// row n*H + h; dh 64 or 72.
 extern "C" int banded_attention_fwd_lse(const void* q, const void* k, const void* v, void* o,
                                         float* lse, int n, int h, int t, int dh, long long sn,
                                         long long sh, long long st, long long osn, long long osh,

@@ -226,6 +226,12 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// a barrier over `threads` threads (a multiple of 32; ids 1.. : 0 is
+// __syncthreads), e.g. the two consumer warpgroups of a CTA
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 // ---- device: wgmma ----------------------------------------------------
 
 // descriptor of a 128-byte swizzled tile at `tile` (1024-byte aligned),

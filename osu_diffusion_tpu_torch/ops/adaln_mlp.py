@@ -54,8 +54,9 @@ from osu_diffusion_tpu_torch.ops import cuda_build
 from osu_diffusion_tpu_torch.ops.gemm_plan import (
     GEMM_ROWS,
     GEMM_WIDTHS,
-    KERNEL_WIDTHS,
+    BWD_WIDTHS,
     SERVE_WIDTHS,
+    TRAIN_WIDTHS,
     GemmPlan,
     gemm_plan,
 )
@@ -536,22 +537,21 @@ def hidden_split(n: int, t: int, hdim: int, sm_count: int) -> int:
     return max(s for s in range(1, chunks + 1) if chunks % s == 0 and (s == 1 or tiles * s <= sm_count))
 
 
-XL_TRAINING = ("D {d}: the training forward and the backward take D in {widths}; XL training "
-               "(D 1152) is the next slice of the port, queued in ROADMAP.md")
+XL_FUSED_BWD = ("D {d}: the fused MLP backward (--mlp-bwd fused) takes D in {widths}; DiT-XL's "
+                "(D 1152) is the next slice of the port, queued in ROADMAP.md")
 
 
-def _check_widths(x, hdim: int, matmul_dtype, serving: bool = False) -> None:
-    """What every adaLN-MLP kernel takes: bf16 operands, D in
-    KERNEL_WIDTHS (SERVE_WIDTHS for the inference forwards, `serving`), H
-    a multiple of 128, an f32 or bf16 stream, N <= 65535. A training
-    kernel at DiT-XL's D raises a ValueError naming XL training."""
+def _check_widths(x, hdim: int, matmul_dtype, widths) -> None:
+    """What every adaLN-MLP kernel takes: bf16 operands, D in `widths` (the
+    entry's: SERVE_WIDTHS, TRAIN_WIDTHS or BWD_WIDTHS), H a multiple of
+    128, an f32 or bf16 stream, N <= 65535. The fused backward at DiT-XL's
+    D raises a ValueError naming --mlp-bwd fused and ROADMAP.md."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
     n, _, d = x.shape
-    widths = SERVE_WIDTHS if serving else KERNEL_WIDTHS
     if d not in widths:
-        raise ValueError(XL_TRAINING.format(d=d, widths=widths) if d in SERVE_WIDTHS
+        raise ValueError(XL_FUSED_BWD.format(d=d, widths=widths) if d in TRAIN_WIDTHS
                          else f"the kernel takes D in {widths}, got {d}")
     if hdim % HIDDEN_CHUNK:
         raise ValueError(f"hidden width {hdim} is not a multiple of {HIDDEN_CHUNK}")
@@ -593,9 +593,9 @@ def _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim: int, matmul_dtype, se
                       **weights) -> None:
     """What both forward bodies take besides the activations: `weights`
     maps each weight's name to (tensor, dtype, shape); `serving`: an
-    inference forward (D in SERVE_WIDTHS)."""
+    inference forward (D in SERVE_WIDTHS; else TRAIN_WIDTHS)."""
     n, t, d = x.shape
-    _check_widths(x, hdim, matmul_dtype, serving)
+    _check_widths(x, hdim, matmul_dtype, SERVE_WIDTHS if serving else TRAIN_WIDTHS)
     expect = {
         "x": (x, x.dtype, (n, t, d)),
         "shift": (shift, torch.float32, (n, d)),
@@ -701,7 +701,7 @@ def _bwd_prologue_launch(g, mlp, a, gate, fc2_w, matmul_dtype, stages: int = BWD
     WMMA body over the packed fc2 weight. Records the body in `.body`."""
     n, t, d = g.shape
     hdim = fc2_w.shape[1]
-    _check_widths(g, hdim, matmul_dtype)
+    _check_widths(g, hdim, matmul_dtype, BWD_WIDTHS)
     _check_specs(g, {
         "g": (g, g.dtype, (n, t, d)), "mlp": (mlp, torch.float32, (n, t, d)),
         "a": (a, g.dtype, (n, t, hdim)), "gate": (gate, torch.float32, (n, d)),
@@ -760,7 +760,7 @@ def _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype,
     body over the packed fc1 weight. Records the body in `.body`."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
-    _check_widths(x, hdim, matmul_dtype)
+    _check_widths(x, hdim, matmul_dtype, BWD_WIDTHS)
     _check_specs(x, {
         "da": (da, x.dtype, (n, t, hdim)), "x": (x, x.dtype, (n, t, d)),
         "g": (g, x.dtype, (n, t, d)), "shift": (shift, torch.float32, (n, d)),

@@ -30,11 +30,13 @@ and LSE are f32, and outputs come back in q's type. The LSE is one
 (N*H, T) float32 array. The query is scaled by Dh^-1/2 in f32 before its
 rounding, as the TPU kernel does (`_scores`).
 
-Head dims on the card: the inference forwards (`banded_attention` without
-grad, `banded_attention_ranged` without grad) take Dh in HEAD_DIMS, 64
-(DiT-S/B/L) or 72 (DiT-XL); the LSE forwards and the backward take
-TRAIN_HEAD_DIM (64) and refuse 72 with a ValueError before any launch
-(XL training is the next slice of the port, queued in ROADMAP.md).
+Head dims on the card: Dh in HEAD_DIMS, 64 (DiT-S/B/L) or 72 (DiT-XL), in
+the inference forwards (`banded_attention` and `banded_attention_ranged`
+without grad) and the unranged training entries (the LSE forward, dq and
+dk/dv: XL training). The ranged training entries (context parallelism)
+take CP_HEAD_DIM (64) and refuse 72 with a ValueError before any launch
+(XL under context parallelism is the next slice of the port, queued in
+ROADMAP.md).
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
@@ -74,8 +76,8 @@ import torch
 
 from osu_diffusion_tpu_torch.ops import cuda_build
 
-HEAD_DIMS = (64, 72)  # head dims of the inference forward (DiT-S/B/L, DiT-XL)
-TRAIN_HEAD_DIM = 64  # the only head dim of the LSE forward and the backward
+HEAD_DIMS = (64, 72)  # head dims of the kernels (DiT-S/B/L, DiT-XL)
+CP_HEAD_DIM = 64  # the only head dim of the ranged LSE forward and backward
 NEG_INF = -1e30
 FWD_BLOCK = 128  # query rows of a CTA of the Hopper forward: two warpgroups of 64
 KEY_TILE = 64  # keys of one K/V tile of its ring
@@ -280,51 +282,64 @@ def _lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("banded_attention_bwd")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    # (q, k, v, o, do, lse, grad outputs, n, h, t, q/k/v strides, o/do/grad
-    #  strides, band, valid, scale, bf16, stream)
-    _bind(lib, "banded_attention_bwd_dq", [p] * 7 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
-    _bind(lib, "banded_attention_bwd_dkv", [p] * 8 + [i] * 3 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
-    _bind(lib, "banded_attention_bwd_dq_ranged", [p] * 7 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
-    _bind(lib, "banded_attention_bwd_dkv_ranged", [p] * 8 + [i] * 3 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    # (q, k, v, o, do, lse, grad outputs, n, h, t, dh, q/k/v strides,
+    #  o/do/grad strides, band, valid, scale, bf16, stream)
+    _bind(lib, "banded_attention_bwd_dq", [p] * 7 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dkv", [p] * 8 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dq_ranged", [p] * 7 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_bwd_dkv_ranged", [p] * 8 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_bwd_error_string.restype = ctypes.c_char_p
     lib.banded_attention_bwd_error_string.argtypes = [ctypes.c_int]
     for entry in ("dq", "dkv"):
         body = getattr(lib, f"banded_attention_bwd_last_{entry}_body")
         body.restype = ctypes.c_char_p
         body.argtypes = []
+        getattr(lib, f"banded_attention_bwd_sm90_{entry}_smem_bytes").argtypes = [ctypes.c_int]
+    lib.banded_attention_bwd_wmma_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
     return lib
 
 
 def sm90_smem_bytes() -> dict[str, int]:
-    """Dynamic shared memory per CTA of the forward (bf16 and f32 q/k/v,
-    at Dh 64 and, as "... dh72", 72) and of the dq and dk/dv Hopper bodies,
-    bytes."""
-    lib = _lib()
-    fwd = {f"fwd{' f32' * f32}{' dh72' * (dh == 72)}": lib.banded_attention_sm90_smem_bytes(f32, dh)
-           for dh in HEAD_DIMS for f32 in (0, 1)}
-    return {**fwd, "dq": _bwd_lib().banded_attention_bwd_sm90_dq_smem_bytes(),
-            "dkv": _bwd_lib().banded_attention_bwd_sm90_dkv_smem_bytes()}
+    """Dynamic shared memory per CTA of the Hopper bodies, bytes: the
+    forward (bf16 and f32 q/k/v), dq and dk/dv, at Dh 64 and, as
+    "... dh72", 72."""
+    lib, bwd = _lib(), _bwd_lib()
+    out = {}
+    for dh in HEAD_DIMS:
+        tag = " dh72" * (dh == 72)
+        out.update({f"fwd{' f32' * f32}{tag}": lib.banded_attention_sm90_smem_bytes(f32, dh) for f32 in (0, 1)})
+        out[f"dq{tag}"] = bwd.banded_attention_bwd_sm90_dq_smem_bytes(dh)
+        out[f"dkv{tag}"] = bwd.banded_attention_bwd_sm90_dkv_smem_bytes(dh)
+    return out
 
 
-XL_TRAINING = ("head dim {dh}: the LSE forward and the backward take head dim 64 only; "
-               "XL training (Dh 72) is the next slice of the port, queued in ROADMAP.md")
+def wmma_smem_bytes() -> dict[str, int]:
+    """Dynamic shared memory per CTA of the f32 stream's WMMA dq and dk/dv
+    bodies, bytes, at Dh 64 and, as "... dh72", 72."""
+    bwd = _bwd_lib()
+    return {f"wmma {entry}{' dh72' * (dh == 72)}": bwd.banded_attention_bwd_wmma_smem_bytes(dkv, dh)
+            for dh in HEAD_DIMS for dkv, entry in enumerate(("dq", "dkv"))}
 
 
-def _check_head_dim(dh: int, training: bool) -> None:
-    """The head dims of the kernels: HEAD_DIMS for the inference forward,
-    TRAIN_HEAD_DIM for the LSE forward and the backward (a ValueError
-    naming XL training for 72)."""
-    if training and dh != TRAIN_HEAD_DIM:
-        raise ValueError(XL_TRAINING.format(dh=dh))
+XL_CP = ("head dim {dh}: the ranged LSE forward and backward take head dim 64 only; DiT-XL "
+         "(Dh 72) under context parallelism is the next slice of the port, queued in ROADMAP.md")
+
+
+def _check_head_dim(dh: int, ranged_training: bool = False) -> None:
+    """The head dims of the kernels: HEAD_DIMS, and CP_HEAD_DIM for the
+    ranged LSE forward and backward (`ranged_training`: a ValueError naming
+    XL under context parallelism for 72)."""
+    if ranged_training and dh in HEAD_DIMS and dh != CP_HEAD_DIM:
+        raise ValueError(XL_CP.format(dh=dh))
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {dh}")
 
 
-def _check_kernel_inputs(matmul_dtype, training: bool = False, **tensors) -> None:
+def _check_kernel_inputs(matmul_dtype, ranged_training: bool = False, **tensors) -> None:
     """Every tensor: the first one's device, type, shape and strides, a
-    contiguous head dim in HEAD_DIMS (TRAIN_HEAD_DIM when `training`: the
-    LSE forward and the backward), strides in multiples of 4 elements,
-    16-byte aligned."""
+    contiguous head dim in HEAD_DIMS (CP_HEAD_DIM when `ranged_training`:
+    the ranged LSE forward and backward), strides in multiples of 4
+    elements, 16-byte aligned."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernels compute with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
@@ -342,7 +357,7 @@ def _check_kernel_inputs(matmul_dtype, training: bool = False, **tensors) -> Non
             raise ValueError(f"{name} and {first_name} must share strides")
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    _check_head_dim(first.shape[-1], training)
+    _check_head_dim(first.shape[-1], ranged_training)
     if first.stride(-1) != 1 or any(s % 4 for s in first.stride()[:-1]):
         raise ValueError(
             "q/k/v need a contiguous head dim and strides that are multiples "
@@ -443,7 +458,7 @@ def banded_attention_fwd_lse(
     valid_len = _check_args(q, band, valid_len)
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, valid_len, matmul_dtype)
-    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
     out = _launch_fwd(banded_attention_fwd_lse, q, k, v, band, valid_len, with_lse=True)
     banded_attention_fwd_lse.launches += 1
     return out
@@ -452,8 +467,9 @@ def banded_attention_fwd_lse(
 def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
     # o's layout) another; records the body that ran in `fn.body`
-    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
-    _check_kernel_inputs(matmul_dtype, training=True, o=o, do=do)
+    ranged = bounds is not None
+    _check_kernel_inputs(matmul_dtype, ranged_training=ranged, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, ranged_training=ranged, o=o, do=do)
     q, k, v = _fit_tma(q, k, v)
     if o.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
@@ -470,7 +486,7 @@ def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dty
     mask_args = (band, valid_len) if bounds is None else (band, *bounds)
     err = getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-        lse.data_ptr(), *(g.data_ptr() for g in grads), n, h, t,
+        lse.data_ptr(), *(g.data_ptr() for g in grads), n, h, t, dh,
         *q.stride()[:3], *grads[0].stride()[:3], *mask_args,
         1.0 / math.sqrt(dh), int(q.dtype == torch.bfloat16), _stream(q),
     )
@@ -574,7 +590,7 @@ def banded_attention_ranged_fwd_lse(
     t = q.shape[-2]
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)
-    _check_kernel_inputs(matmul_dtype, training=True, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, ranged_training=True, q=q, k=k, v=v)
     out = _launch_fwd(banded_attention_ranged_fwd_lse, q, k, v, band, t, with_lse=True, bounds=bounds)
     banded_attention_ranged_fwd_lse.launches += 1
     return out

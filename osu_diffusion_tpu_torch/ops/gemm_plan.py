@@ -1,8 +1,8 @@
 """The tile plan of the persistent Hopper GEMM (csrc/gemm_sm90.cuh) that
 kernel B's forward, the fused MLP backward and the int8 qkv projection run
-after their row passes; and the widths those row passes are built for
-(the serving forwards' also at DiT-XL's D = 1152, the training forward's
-and the backward's not yet).
+after their row passes; and the widths each entry's row passes are built
+for (DiT-XL's D = 1152 in the serving and the training forwards, not yet in
+the fused backward).
 
 A GEMM computes C (rows, cols) = A (rows, depth) . B in (GEMM_ROWS, width)
 output tiles, B a Linear weight (bf16, or int8 codes upcast on chip).
@@ -13,8 +13,9 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-KERNEL_WIDTHS = (384, 768, 1024)  # D of DiT-S/B/L; every row pass is built for these, the backward's too
-SERVE_WIDTHS = KERNEL_WIDTHS + (1152,)  # the serving forwards' (rows 7, 10, 11) also DiT-XL's
+SERVE_WIDTHS = (384, 768, 1024, 1152)  # the serving forwards' D (rows 7, 10, 11): DiT-S/B/L and DiT-XL
+TRAIN_WIDTHS = (384, 768, 1024, 1152)  # the training forward's (row 8)
+BWD_WIDTHS = (384, 768, 1024)  # the fused backward's (rows 9a/9b): DiT-XL's 1152 is not built
 GEMM_ROWS = 128  # rows of an output tile: two consumer warpgroups of 64
 GEMM_DEPTH = 64  # the reduction slab each ring stage holds
 GEMM_WIDTHS = (256, 128)  # output tile widths the kernel is built for, widest first

@@ -142,9 +142,9 @@ def _rel(got, want) -> float:
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
-def _qkv_heads(n, t, h, dtype, g, device):
-    qkv = torch.randn((n, t, 3 * h * 64), generator=g, device=device).to(dtype)
-    return [a.view(n, t, h, 64).transpose(1, 2) for a in qkv.split(h * 64, dim=-1)]
+def _qkv_heads(n, t, h, dtype, g, device, dh=64):
+    qkv = torch.randn((n, t, 3 * h * dh), generator=g, device=device).to(dtype)
+    return [a.view(n, t, h, dh).transpose(1, 2) for a in qkv.split(h * dh, dim=-1)]
 
 
 # (T, valid_len, band): the training shape's T = band = 128, T not a tile
@@ -247,6 +247,36 @@ def test_banded_attention_train_kernels_odd_head_count(cuda_device, t, valid, ba
     for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
         assert torch.isfinite(got).all(), name
         assert _rel(got, w) <= 1e-2, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,h,t,valid,band", [(256, 16, 128, 128, 128), (3, 5, 200, 190, 20),
+                                              (3, 5, 384, 370, 128)])
+def test_banded_attention_train_kernels_at_head_dim_72(cuda_device, n, h, t, valid, band, dtype):
+    """Rows 2-4 at DiT-XL's head dim 72 (the XL training shape, a ragged T
+    with valid_len < T and band < T, three 128-row blocks), Hopper bodies in
+    bf16 and WMMA dq and dk/dv in f32, against the plain versions at the
+    tolerances above; the ranged LSE forward and backward refuse 72."""
+    g = torch.Generator(device=cuda_device).manual_seed(t + band + 72)
+    q, k, v = _qkv_heads(n, t, h, dtype, g, cuda_device, dh=72)
+    do = torch.randn((n, t, h, 72), generator=g, device=cuda_device).to(dtype).permute(0, 2, 1, 3)
+    o, lse, dq, dk, dv = _train_attention(q, k, v, do, band, valid)
+    torch.cuda.synchronize()
+    assert tba.banded_attention_fwd_lse.body == FWD_BODY[dtype]
+    assert tba.banded_attention_bwd_dq.body == tba.banded_attention_bwd_dkv.body == BODY[dtype]
+    want_o, want_lse = tba.banded_attention_fwd_lse_reference(q, k, v, band, valid, torch.bfloat16)
+    want = tba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, valid, torch.bfloat16)
+    assert o.shape == dq.shape == dk.shape == dv.shape == (n, h, t, 72)
+    assert _rel(o, want_o) <= 1e-2
+    keyed = want_lse > -1e29
+    assert (lse - want_lse).abs()[keyed].max().item() <= 1e-3
+    for name, got, w in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, w) <= 1e-2, name
+    assert (dq[:, :, valid:] == 0).all() and (dk[:, :, valid:] == 0).all()
+    with pytest.raises(ValueError, match="context parallelism"):
+        tba.banded_attention_ranged_fwd_lse(q, k, v, band, (0, t, 0, t))
 
 
 @pytest.mark.cuda
@@ -432,7 +462,8 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (2, 757, 1024)])
+@pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (2, 757, 1024),
+                                   (4, 128, 1152), (3, 50, 1152)])
 def test_adaln_mlp_train_kernel_matches_plain(cuda_device, n, t, d, dtype):
     """The training forward's out, a and mlp against the plain version on
     the same bf16 operands, within 1e-2 of each max (a bf16 rounding flip of
@@ -846,7 +877,7 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda_device):
     wq = torch.zeros(64, 100, dtype=torch.int8, device=dev)
     with pytest.raises(ValueError):
         tq.int8_matmul(x, wq, torch.ones(64, device=dev), torch.zeros(64, device=dev))
-    x = torch.randn(1, 8, 2048, device=dev)  # the modulate pass takes D in KERNEL_WIDTHS
+    x = torch.randn(1, 8, 2048, device=dev)  # the modulate pass takes D in SERVE_WIDTHS
     wq = torch.zeros(64, 2048, dtype=torch.int8, device=dev)
     m = torch.zeros(1, 2048, device=dev)
     with pytest.raises(ValueError):

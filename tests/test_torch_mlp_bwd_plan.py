@@ -90,7 +90,7 @@ PLAN_SHAPES = [(3, 50), (1, 50), (1, 757), (256, 128)]
 
 
 @pytest.mark.parametrize("n,t", PLAN_SHAPES, ids=[f"n{n}_t{t}" for n, t in PLAN_SHAPES])
-@pytest.mark.parametrize("d", tam.KERNEL_WIDTHS)
+@pytest.mark.parametrize("d", tam.BWD_WIDTHS)
 def test_bwd_plan_covers_every_tile_once(n, t, d):
     hdim = 4 * d
     dgelu, dh1 = tam.mlp_bwd_plan(n, t, d, hdim, H100_SMS)

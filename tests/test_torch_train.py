@@ -161,11 +161,13 @@ def test_dataset_yields_the_jax_windows(tmp_path, monkeypatch):
         np.testing.assert_array_equal(gy, wy)
 
 
-def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla"):
+def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla", hidden=HIDDEN,
+            depth=DEPTH, heads=HEADS):
     """The JAX DiT and its params (adaLN-Zero layers perturbed, so every
     block contributes and gets gradient), and the port with the same
-    weights."""
-    jm = JaxDiT(DiTConfig(hidden_size=HIDDEN, depth=DEPTH, num_heads=HEADS, num_classes=CLASSES,
+    weights; `hidden`, `depth`, `heads` the widths (tests/test_torch_xl_train.py
+    passes DiT-XL's)."""
+    jm = JaxDiT(DiTConfig(hidden_size=hidden, depth=depth, num_heads=heads, num_classes=CLASSES,
                           context_size=CTX, class_dropout_prob=dropout, flash_block=16,
                           mlp_bwd=mlp_bwd))
     params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 2)), jnp.zeros((1,), jnp.int32),
@@ -180,7 +182,7 @@ def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla"):
         return jnp.asarray(a)
 
     params = jax.tree_util.tree_map_with_path(perturb, params)
-    port = DiT(hidden_size=HIDDEN, depth=DEPTH, num_heads=HEADS, num_classes=CLASSES,
+    port = DiT(hidden_size=hidden, depth=depth, num_heads=heads, num_classes=CLASSES,
                context_size=CTX, class_dropout_prob=dropout, matmul_dtype=matmul_dtype,
                mlp_bwd=mlp_bwd)
     port.load_state_dict(state_dict_from_jax_params(params, num_label_rows=CLASSES + (dropout > 0)))
@@ -215,10 +217,15 @@ def test_dit_loss_and_grads_match_jax(interpret_mode, path, stream):
     - fused: the pallas path with the MLP's fused backward on both sides
       (JAX `DiTConfig.mlp_bwd="fused"`, the port's `DiT(mlp_bwd="fused")`),
       at the pallas path's tolerances."""
+    _check_loss_and_grads(path, stream)
+
+
+def _check_loss_and_grads(path, stream, **widths):
+    """test_dit_loss_and_grads_match_jax's comparison at `widths` (`_models`'s)."""
     use_pallas = path != "xla"
     md = torch.bfloat16 if use_pallas else torch.float32
     dtype = torch.bfloat16 if stream == "bf16" else torch.float32
-    jm, params, port = _models(use_pallas, md, mlp_bwd="fused" if path == "fused" else "xla")
+    jm, params, port = _models(use_pallas, md, mlp_bwd="fused" if path == "fused" else "xla", **widths)
     band = T if use_pallas else None
     raw, prev_xy, y = _raw_batch(n=2, seed=4)
     r = np.random.RandomState(5)
@@ -296,20 +303,26 @@ def test_two_train_steps_match_jax():
     pass. At 0.5 it moves ~1e-4 like the params, and the EMA's movement from
     its starting copy is also held against JAX's within 5% of the largest
     movement (test_update_ema_formula holds the default decay)."""
+    _check_two_train_steps()
+
+
+def _check_two_train_steps(eps=1e-4, **widths):
+    """test_two_train_steps_match_jax's comparison at `widths` (`_models`'s),
+    both sides' AdamW at `eps`."""
     import optax
 
     from osu_diffusion_tpu.parallel.train_step import create_train_state, make_train_step
     from osu_diffusion_tpu_torch.train.train_step import make_ema, train_step
 
-    jm, params, port = _models(False, torch.float32, seed=2, dropout=1.0)
+    jm, params, port = _models(False, torch.float32, seed=2, dropout=1.0, **widths)
     jd = jax_create("", noise_schedule="squaredcos_cap_v2", use_l1=True)
     td = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True)
-    jax_opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=1e-4, weight_decay=0.0)
+    jax_opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=eps, weight_decay=0.0)
     step = jax.jit(make_train_step(jm, jd, jax_opt, compute_dtype=jnp.float32, band=T, ema_decay=0.5))
     state = create_train_state(params, jax_opt)
     ema = make_ema(port)
     init = {k: v.clone() for k, v in port.state_dict().items()}
-    opt = torch.optim.AdamW(port.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-4, weight_decay=0.0)
+    opt = torch.optim.AdamW(port.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=eps, weight_decay=0.0)
     rng = jax.random.PRNGKey(11)
     for i in range(2):
         raw, prev_xy, y = _raw_batch(n=3, seed=10 + i)
