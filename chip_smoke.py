@@ -192,10 +192,28 @@ Phases (any failure raises and exits non-zero):
    checks and tolerances), then the train CLI at --model DiT-XL and its
    defaults for XL_TRAIN_STEPS steps (`[xl-train]`: finite losses, per
    optimizer step 56 launches of rows 2 and 8 and 28 of rows 3 and 4, s
-   per step, busy share, peak device memory), one --no-use-bf16 step (dq
-   and dk/dv on their WMMA bodies), and --mlp-bwd fused and --num-model 2
-   --context-parallel at XL refused with a ValueError naming ROADMAP.md
-   and no kernel launch.
+   per step, busy share, peak device memory) and with --mlp-bwd fused
+   (`[xl-train-fused]`: also 28 launches of rows 9a and 9b a step and no
+   plain MLP backward), in turns (default, fused, fused, default), and one
+   --no-use-bf16 step of each (dq, dk/dv and rows 9a/9b on their WMMA
+   bodies).
+20. DiT-XL under context parallelism and with the fused MLP backward.
+   After 19's kernels, rows 5 (with LSE) and 6 at head dim 72
+   (`[attn-cp-xl]`: the XL CP training shard's two edges and a tail inside
+   a shard, both streams; the registers, spills (0 required) and shared
+   memory of the ranged Dh 72 builds, Hopper and WMMA; the left edge's
+   times beside bounds, plain versions and SDPA with the band-and-bounds
+   mask) and rows 9a/9b at D 1152 (`[mlp-bwd-xl]`: x (256, 128, 1152) in
+   both streams and a ragged T in both; the WMMA builds at D 1152 and the
+   Hopper ones, 0 spills required; times beside bounds, plain versions and
+   the cuBLAS product of each stage's shape, the Hopper body's kernels
+   alone, the whole fused MLP backward against the plain one in turns), at
+   `[attn-cp]`'s and `[mlp-bwd]`'s tolerances. After 19's train CLI runs,
+   the train CLI at --model DiT-XL --num-model 2 --context-parallel --dist
+   gloo --mlp-bwd fused on two ranks sharing the card beside one process
+   of the same seed (`[xl-train-cp]`: losses within CP_LOSS_REL_TOL, the
+   ranged entries' and rows 8 and 9a/9b's launch counts on every rank, s
+   per step, each rank's peak device memory).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -352,6 +370,11 @@ MLP_BWD_SM90_KERNELS = ("adaln_mlp_bwd_dmlp_kernel", "adaln_mlp_bwd_gemm_kernel"
 MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "bf16"),
                  ("dit_s_width", 2, 100, 384, "bf16"), ("dit_l_width_t757", 1, 757, 1024, "bf16"),
                  ("f32_stream", 4, 128, 768, "f32")]
+# [mlp-bwd-xl]: rows 9a/9b at DiT-XL's D 1152 (H 4608): the XL training
+# shape in both streams (bf16 the Hopper body, f32 the WMMA body) and a
+# ragged T with N = 3 in both
+MLP_BWD_XL_CASES = [("main", 256, 128, 1152, "bf16"), ("main_f32", 256, 128, 1152, "f32"),
+                    ("ragged_t_n3", 3, 50, 1152, "bf16"), ("ragged_t_n3_f32", 3, 50, 1152, "f32")]
 # context parallelism: two ranks share the card over gloo (NCCL refuses two
 # ranks on one device), so its times say nothing of NCCL across cards
 CP_RANKS = 2
@@ -403,6 +426,18 @@ ATTN_CP_CASES = [
     ("band160_halo256", 2, 3, 256, 160, 1, 3, None, "bf16"),
     ("tail_inside_shard", 2, 3, 256, 96, 1, 2, 380, "bf16"),
     ("f32_stream", 4, 12, 256, 128, 0, 2, None, "f32"),
+]
+# [attn-cp-xl]: rows 5 (with LSE) and 6 at DiT-XL's head dim 72, the same
+# way: the XL CP training shard (batch 32 x 16 heads, seq-len 512 over 2
+# ranks, band 128) at its two edges in both streams, and a tail inside a
+# shard (band 96) in both
+ATTN_CP_XL_CASES = [
+    ("train_left_edge", 32, 16, 256, 128, 0, 2, None, "bf16"),
+    ("train_right_edge", 32, 16, 256, 128, 1, 2, None, "bf16"),
+    ("train_left_edge_f32", 32, 16, 256, 128, 0, 2, None, "f32"),
+    ("train_right_edge_f32", 32, 16, 256, 128, 1, 2, None, "f32"),
+    ("tail_inside_shard", 2, 3, 256, 96, 1, 2, 380, "bf16"),
+    ("tail_inside_shard_f32", 2, 3, 256, 96, 1, 2, 380, "f32"),
 ]
 # the serving paths (14): the Δ-cache span at DiT-B, (depth // 6, depth -
 # depth // 6); a skipped step runs the blocks outside it
@@ -561,12 +596,13 @@ def phase_build():
 
 # the Hopper attention builds: the forward's five (q/k/v type, o type;
 # bf16 o from f32 q/k/v unranged only) at Dh 64 and at Dh 72 (DiT-XL), and
-# dq's and dk/dv's two, each unranged and ranged, and unranged at Dh 72
+# dq's and dk/dv's two, each unranged and ranged, at Dh 64 and 72
 SM90_FWD_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32")
 SM90_FWD_XL_BUILDS = tuple(f"{name} dh72" for name in SM90_FWD_BUILDS)
 SM90_BWD_XL_BUILDS = ("dq dh72", "dkv dh72")
+SM90_BWD_CP_XL_BUILDS = ("ranged dq dh72", "ranged dkv dh72")
 SM90_ATTN_BUILDS = (SM90_FWD_BUILDS + SM90_FWD_XL_BUILDS + ("dq", "ranged dq", "dkv", "ranged dkv")
-                    + SM90_BWD_XL_BUILDS)
+                    + SM90_BWD_XL_BUILDS + SM90_BWD_CP_XL_BUILDS)
 
 
 def attn_build_name(entry: str, kernel: str, key: str) -> str:
@@ -957,6 +993,35 @@ def skinny_resources() -> str:
                      for n, r in sorted(found.items(), key=lambda kv: int(kv[0].split()[0])))
 
 
+def mlp_bwd_wmma_resources(d: int) -> str:
+    """Registers, spill bytes (0 required) and dynamic shared memory a CTA
+    of the f32 stream's WMMA prologue and epilogue builds at width `d`, from
+    this build's ptxas lines and the library."""
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import cuda_build
+
+    found, entry = {}, None
+    for line in cuda_build.build_info["adaln_mlp_bwd"]["log"].splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        k = entry and re.search(r"bwd_(prologue|epilogue)_kernelILi(\d+)E", entry)
+        if not k or int(k[2]) != d:
+            continue
+        res = found.setdefault(k[1], {})
+        if (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            res["spill_bytes"] = int(m[1]) + int(m[2])
+        if (m := re.search(r"Used (\d+) registers", line)):
+            res["registers"] = int(m[1])
+    check(set(found) == {"prologue", "epilogue"} and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the WMMA MLP backward builds at D {d} not found: {found}")
+    check(all(r["spill_bytes"] == 0 for r in found.values()), f"WMMA MLP backward at D {d} spills: {found}")
+    smem = am.bwd_wmma_smem_bytes(d)
+    return "; ".join(f"{stage} D {d} {r['registers']} registers, {r['spill_bytes']} spill bytes, "
+                     f"{smem[stage]} B shared memory a CTA" for stage, r in found.items())
+
+
 def mlp_bwd_sm90_resources() -> str:
     """Registers and spill bytes (0 required) of the fused backward's Hopper
     body from this build's ptxas lines: the three GEMM builds (dgelu at 128,
@@ -981,8 +1046,9 @@ def mlp_bwd_sm90_resources() -> str:
             res["spill_bytes"] = int(m[1]) + int(m[2])
         if (m := re.search(r"Used (\d+) registers", line)):
             res["registers"] = int(m[1])
-    check(len(found) == 9 and all(len(r) == 2 for r in found.values()),
-          f"ptxas lines of the nine Hopper MLP backward builds not found: {found}")
+    want = 3 + 2 * len(am.BWD_WIDTHS)  # three GEMM builds, and two row passes at each D
+    check(len(found) == want and all(len(r) == 2 for r in found.values()),
+          f"ptxas lines of the {want} Hopper MLP backward builds not found: {found}")
     check(all(r["spill_bytes"] == 0 for r in found.values()), f"Hopper MLP backward spills: {found}")
     smem = am.bwd_sm90_smem_bytes()
     return ("; ".join(f"{n} {r['registers']} registers, {r['spill_bytes']} spill bytes"
@@ -1251,23 +1317,27 @@ def phase_mlp_train(dev, tag="mlp-train", cases=MLP_TRAIN_CASES):
     return result
 
 
-def phase_mlp_bwd(dev):
+def phase_mlp_bwd(dev, tag="mlp-bwd", cases=MLP_BWD_CASES):
     """Rows 9a/9b: the fused backward's prologue and epilogue against their
     plain versions (bf16 operands, and f32), each of the ten outputs, with
-    their bodies and the same bits on a second call; at the DiT-B training
-    shape their times and their Hopper body's four kernels alone beside
-    their bounds, their plain versions and the cuBLAS bf16 product of their
-    shape, and the whole fused backward beside the plain backward
-    (`adaln_mlp_bwd`) at the same inputs. Returns (the two kernels'
-    numbers, {plain, fused: mean ms of the whole backward})."""
+    their bodies and the same bits on a second call, in each case of
+    `cases`; at the shapes named main* (the training shape) their times
+    beside their bounds, their plain versions and the cuBLAS bf16 product
+    of their shape, and in the bf16 stream their Hopper body's four kernels
+    alone; at the one named main the whole fused backward beside the plain
+    backward (`adaln_mlp_bwd`) at the same inputs, in turns. [mlp-bwd-xl]
+    also prints the WMMA body's builds at D 1152. Returns (the two kernels'
+    numbers at main, {plain, fused: mean ms of the whole backward})."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
 
     g = torch.Generator(device=dev).manual_seed(6)
     bf16, f32 = torch.bfloat16, torch.float32
-    print(f"[mlp-bwd] Hopper body builds (ptxas): {mlp_bwd_sm90_resources()}")
+    print(f"[{tag}] Hopper body builds (ptxas): {mlp_bwd_sm90_resources()}")
+    if tag != "mlp-bwd":
+        print(f"[{tag}] WMMA body builds (ptxas): {mlp_bwd_wmma_resources(cases[0][3])}")
     results, whole_ms = {}, None
-    for name, n, t, d, stream in MLP_BWD_CASES:
+    for name, n, t, d, stream in cases:
         dtype = f32 if stream == "f32" else bf16
         hdim = 4 * d
 
@@ -1304,24 +1374,24 @@ def phase_mlp_bwd(dev):
         errs = {}
         for outs, got, (w16, w32) in zip(names, (pro, epi), wants):
             for out, u, v16, v32 in zip(outs, got, w16, w32):
-                check(bool(torch.isfinite(u).all()), f"mlp bwd {name}: non-finite {out}")
-                check(u.shape == v16.shape and u.dtype == v16.dtype, f"mlp bwd {name}: {out} shape/type")
+                check(bool(torch.isfinite(u).all()), f"{tag} {name}: non-finite {out}")
+                check(u.shape == v16.shape and u.dtype == v16.dtype, f"{tag} {name}: {out} shape/type")
                 errs[out] = (rel_err(u, v16), rel_err(u, v32))
-        print(f"[mlp-bwd] {name}: x=({n}, {t}, {d}) {stream} body prologue={body[0]} epilogue={body[1]} "
+        print(f"[{tag}] {name}: x=({n}, {t}, {d}) {stream} body prologue={body[0]} epilogue={body[1]} "
               + " ".join(f"{k}={u:.2e}/{v:.2e}" for k, (u, v) in errs.items())
               + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); "
               f"same bits on a second call: {same}")
-        check(body == (BODY[stream],) * 2, f"mlp bwd {name}: bodies {body}, want {BODY[stream]}")
-        check(same, f"mlp bwd {name}: a second call gave other bits")
+        check(body == (BODY[stream],) * 2, f"{tag} {name}: bodies {body}, want {BODY[stream]}")
+        check(same, f"{tag} {name}: a second call gave other bits")
         for out, (e16, e32) in errs.items():
-            check(e16 <= TRAIN_TOL_BF16, f"mlp bwd {name} {out}: {e16} > {TRAIN_TOL_BF16}")
-            check(e32 <= TRAIN_TOL_F32, f"mlp bwd {name} {out}: {e32} > {TRAIN_TOL_F32}")
-        if name != "main":
+            check(e16 <= TRAIN_TOL_BF16, f"{tag} {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"{tag} {name} {out}: {e32} > {TRAIN_TOL_F32}")
+        if not name.startswith("main"):
             continue
         pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, mlp, a, gate, fc2_w))
         epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w))
         # the Hopper body's kernels alone (timing runs: the others' outputs unwritten)
-        stage_ms = {
+        stage_ms = {} if stream == "f32" else {
             "dmlp pass": cuda_ms(lambda: am._bwd_prologue_launch(gout, mlp, a, gate, fc2_w, bf16, 1)),
             "dgelu GEMM": cuda_ms(lambda: am._bwd_prologue_launch(gout, mlp, a, gate, fc2_w, bf16, 2)),
             "dh1 GEMM": cuda_ms(lambda: am._bwd_epilogue_launch(pro[0], x, gout, shift, scale, fc1_w,
@@ -1343,6 +1413,21 @@ def phase_mlp_bwd(dev):
                              torch.randn(hdim, d, device=dev, dtype=bf16))}
         cublas = {k: cuda_ms(lambda u=u, v=v: torch.mm(u, v, out_dtype=f32)) for k, (u, v) in mats.items()}
         del mats
+        print(f"[{tag}] {name} ({stream}, body {body[0]}): prologue {pro_ms:.4f} ms (bound "
+              f"{bounds['prologue']['bound_ms']:.4f}, {bounds['prologue']['bound_by']}; plain f32 "
+              f"{pro_plain_ms:.4f}; yardstick, not the same function: cuBLAS bf16 ({n * t}, {d}) x ({d}, "
+              f"{hdim}) {cublas['prologue']:.4f}), epilogue {epi_ms:.4f} ms (bound "
+              f"{bounds['epilogue']['bound_ms']:.4f}, {bounds['epilogue']['bound_by']}; plain f32 "
+              f"{epi_plain_ms:.4f}; cuBLAS bf16 ({n * t}, {hdim}) x ({hdim}, {d}) {cublas['epilogue']:.4f}); "
+              "no single PyTorch call computes either")
+        if stage_ms:
+            print(f"[{tag}] {name}: the Hopper body's kernels alone: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
+                  + f" ms (dgelu {dgelu_plan.width}-wide tiles, {dgelu_plan.tiles} on {dgelu_plan.grid} CTAs; "
+                  f"dh1 {dh1_plan.width}-wide, {dh1_plan.tiles} on {dh1_plan.grid}; each GEMM with its sums "
+                  f"of partials, the row passes with theirs)")
+        if name != "main":
+            continue
         # the whole backward, fused against plain, at the same inputs, in turns
         fc1_m, fc2_m = w1.t(), w2.t()  # the f32 master weights in torch's layout
         runs = {"plain": lambda: am.adaln_mlp_bwd(x, shift, scale, gate, fc1_m, fc2_m, a, mlp, gout,
@@ -1353,23 +1438,12 @@ def phase_mlp_bwd(dev):
         whole = {k: [] for k in runs}
         for k in ("plain", "fused", "fused", "plain"):
             whole[k].append(cuda_ms(runs[k], iters=10))
-        print(f"[mlp-bwd] main: prologue {pro_ms:.4f} ms (bound {bounds['prologue']['bound_ms']:.4f}, "
-              f"{bounds['prologue']['bound_by']}; plain f32 {pro_plain_ms:.4f}; yardstick, not the same "
-              f"function: cuBLAS bf16 ({n * t}, {d}) x ({d}, {hdim}) {cublas['prologue']:.4f}), epilogue "
-              f"{epi_ms:.4f} ms (bound {bounds['epilogue']['bound_ms']:.4f}, {bounds['epilogue']['bound_by']}; "
-              f"plain f32 {epi_plain_ms:.4f}; cuBLAS bf16 ({n * t}, {hdim}) x ({hdim}, {d}) "
-              f"{cublas['epilogue']:.4f}); no single PyTorch call computes either")
-        print(f"[mlp-bwd] main: the Hopper body's kernels alone: "
-              + ", ".join(f"{k} {v:.4f}" for k, v in stage_ms.items())
-              + f" ms (dgelu {dgelu_plan.width}-wide tiles, {dgelu_plan.tiles} on {dgelu_plan.grid} CTAs; "
-              f"dh1 {dh1_plan.width}-wide, {dh1_plan.tiles} on {dh1_plan.grid}; each GEMM with its sums "
-              f"of partials, the row passes with theirs)")
-        print(f"[mlp-bwd] main: whole MLP backward in turns (plain, fused, fused, plain): plain "
+        print(f"[{tag}] main: whole MLP backward in turns (plain, fused, fused, plain): plain "
               + ", ".join(f"{v:.4f}" for v in whole["plain"]) + " ms, fused "
               + ", ".join(f"{v:.4f}" for v in whole["fused"]) + f" ms (fused = both kernels + the two "
               f"cuBLAS weight-gradient products); fused vs plain gradients differ by {diff:.2e} of max "
               f"(tol {TRAIN_TOL_F32})")
-        check(diff <= TRAIN_TOL_F32, f"fused vs plain MLP backward: {diff}")
+        check(diff <= TRAIN_TOL_F32, f"{tag}: fused vs plain MLP backward: {diff}")
         for kern, ms, plain_ms, err in (("adaln_mlp_bwd_prologue", pro_ms, pro_plain_ms,
                                          max_err(pro[0], wants[0][0][0])),
                                         ("adaln_mlp_bwd_epilogue", epi_ms, epi_plain_ms,
@@ -1868,11 +1942,17 @@ def phase_xl_forward(dev, sampler, call_args, tag, dtype=None):
         check(rel <= FORWARD_REL_TOL, f"{tag}: forward disagrees: {rel} > {FORWARD_REL_TOL}")
 
 
-XL_TRAIN_STEPS = 8  # [xl-train]: the train CLI's optimizer steps at XL
+XL_TRAIN_STEPS = 8  # [xl-train], [xl-train-fused]: the train CLI's optimizer steps at XL
 XL_TRAIN_TIMED = range(2, 6)  # its steady steps timed by CUDA events
 XL_TRAIN_PROFILED = range(6, 8)  # and traced by torch.profiler
 XL_TRAIN_LOG_EVERY = 2  # a Train Loss line (the mean of 2 steps' losses) every 2 steps
 XL_STEP_DEPTH = 4  # [xl-train-step]: DiT-XL's widths at this depth (the CPU side's time)
+# [xl-train-cp]: the train CLI at XL on CP_RANKS gloo ranks sharing the card
+# (seq-len CP_SEQ, band BAND, --mlp-bwd fused) beside one process: both
+# ranks hold the whole model, AdamW and EMA (~15 GB each), so the batch is
+# DiT-B's CP batch; steps 2..XL_CP_STEPS-1 are timed
+XL_CP_BATCH = CP_BATCH
+XL_CP_STEPS = 4
 
 
 def xl_train_argv(tmp, dev, *flags) -> list[str]:
@@ -1887,78 +1967,151 @@ def xl_train_argv(tmp, dev, *flags) -> list[str]:
             *flags]
 
 
-def phase_xl_train(dev, tmp):
-    """[xl-train]: the train CLI at --model DiT-XL and its defaults for
-    XL_TRAIN_STEPS optimizer steps (run_train_cli: every logged loss
-    finite; per optimizer step 56 launches of rows 2 and 8, 28 of rows 3
-    and 4, none of another kernel; s per step start to start and inside
-    train_step, busy share, peak device memory); one step with
-    --no-use-bf16 (the f32 stream: dq and dk/dv on their WMMA bodies, the
-    same launch counts, a finite loss); and --mlp-bwd fused and
-    --num-model 2 --context-parallel at XL refused with a ValueError naming
-    ROADMAP.md before any kernel launch."""
+def xl_f32_step(tmp, dev, tag, mlp_bwd, per_step) -> None:
+    """One optimizer step of the train CLI at XL with --no-use-bf16 and
+    --mlp-bwd `mlp_bwd` (the f32 stream: dq and dk/dv, and with fused the
+    MLP backward, on their WMMA bodies): a finite loss and `per_step`'s
+    launches."""
     import torch
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+    from osu_diffusion_tpu_torch.ops import banded_attention as ba
+
+    read_counts = reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    start = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        run = train_main(build_train_parser().parse_args(xl_train_argv(
+            tmp, dev, "--no-use-bf16", "--mlp-bwd", mlp_bwd, "--max-steps", "1", "--log-every", "1")))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - start
+    counts = read_counts()
+    bodies = {"dq": ba.banded_attention_bwd_dq.body, "dk/dv": ba.banded_attention_bwd_dkv.body}
+    if mlp_bwd == "fused":
+        bodies.update(prologue=am.adaln_mlp_bwd_prologue.body, epilogue=am.adaln_mlp_bwd_epilogue.body)
+    print(f"[{tag}] --no-use-bf16: step {run['final_step']}, loss {run['last_loss']:.6f}, "
+          f"launches {({k: v for k, v in counts.items() if v})}, bodies {bodies}; the run (model set-up, "
+          f"loader and the one step) {wall:.1f} s wall, peak device memory allocated "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    check(run["final_step"] == 1 and math.isfinite(run["last_loss"]), f"{tag} f32: {run}")
+    check(set(bodies.values()) == {"wmma"}, f"{tag} f32: bodies {bodies}, expected wmma")
+    check(counts == {**dict.fromkeys(counts, 0), **per_step}, f"{tag} f32: launches {counts}")
+    del run
+    torch.cuda.empty_cache()
+
+
+def phase_xl_train(dev, tmp):
+    """[xl-train] and [xl-train-fused]: the train CLI at --model DiT-XL and
+    its defaults, and with --mlp-bwd fused, XL_TRAIN_STEPS optimizer steps
+    each, in turns (default, fused, fused, default; run_train_cli: every
+    logged loss finite; per optimizer step 56 launches of rows 2 and 8, 28
+    of rows 3 and 4, with fused 28 of rows 9a and 9b and no plain MLP
+    backward, none of another kernel; s per step start to start and inside
+    train_step, busy share, peak device memory); then one step of each
+    with --no-use-bf16 (the f32 stream: dq, dk/dv and rows 9a/9b on their
+    WMMA bodies, the same launch counts, a finite loss)."""
+    import torch
     from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.ops import banded_attention as ba
 
     wall = time.perf_counter()
     with torch.device("meta"):  # the depth only
         depth = len(DiT_models[XL_MODEL](num_classes=2).blocks)
-    per_step = {"banded_attention_fwd_lse": 2 * depth, "adaln_mlp_train": 2 * depth,
-                "banded_attention_bwd_dq": depth, "banded_attention_bwd_dkv": depth}
-    summary, launches, numbers = run_train_cli(
-        "xl-train", xl_train_argv(tmp, dev, "--log-every", str(XL_TRAIN_LOG_EVERY)), XL_TRAIN_STEPS,
-        profiled=XL_TRAIN_PROFILED, model=XL_MODEL, timed=XL_TRAIN_TIMED, log_every=XL_TRAIN_LOG_EVERY)
-    print(f"[xl-train] launches per optimizer step: "
-          + ", ".join(f"{k} {launches[k] / XL_TRAIN_STEPS:g}" for k in per_step)
-          + f" (expected {per_step}); bodies dq {ba.banded_attention_bwd_dq.body}, "
-          f"dk/dv {ba.banded_attention_bwd_dkv.body}, forward {ba.banded_attention_fwd_lse.body}")
-    check((ba.banded_attention_bwd_dq.body, ba.banded_attention_bwd_dkv.body) == ("sm90", "sm90"),
-          "xl-train: the bf16 stream's dq and dk/dv did not run their Hopper bodies")
-    del summary
-    torch.cuda.empty_cache()
+    per_step = {"xla": {"banded_attention_fwd_lse": 2 * depth, "adaln_mlp_train": 2 * depth,
+                        "banded_attention_bwd_dq": depth, "banded_attention_bwd_dkv": depth}}
+    per_step["fused"] = {**per_step["xla"], "adaln_mlp_bwd_prologue": depth, "adaln_mlp_bwd_epilogue": depth}
+    runs = {"xla": [], "fused": []}
+    for mlp_bwd in ("xla", "fused", "fused", "xla"):
+        tag = "xl-train" if mlp_bwd == "xla" else "xl-train-fused"
+        summary, launches, numbers = run_train_cli(
+            tag, xl_train_argv(tmp, dev, "--log-every", str(XL_TRAIN_LOG_EVERY), "--mlp-bwd", mlp_bwd),
+            XL_TRAIN_STEPS, mlp_bwd, profiled=XL_TRAIN_PROFILED, model=XL_MODEL, timed=XL_TRAIN_TIMED,
+            log_every=XL_TRAIN_LOG_EVERY)
+        bodies = {"forward": ba.banded_attention_fwd_lse.body, "dq": ba.banded_attention_bwd_dq.body,
+                  "dk/dv": ba.banded_attention_bwd_dkv.body}
+        if mlp_bwd == "fused":
+            bodies.update(prologue=am.adaln_mlp_bwd_prologue.body, epilogue=am.adaln_mlp_bwd_epilogue.body)
+        print(f"[{tag}] launches per optimizer step: "
+              + ", ".join(f"{k} {launches[k] / XL_TRAIN_STEPS:g}" for k in per_step[mlp_bwd])
+              + f" (expected {per_step[mlp_bwd]}); bodies {bodies}")
+        check(set(bodies.values()) == {"sm90"}, f"{tag}: the bf16 stream's bodies {bodies}")
+        runs[mlp_bwd].append(numbers)
+        del summary
+        torch.cuda.empty_cache()
+    for mlp_bwd in ("xla", "fused"):
+        xl_f32_step(tmp, dev, "xl-train" if mlp_bwd == "xla" else "xl-train-fused", mlp_bwd, per_step[mlp_bwd])
 
-    # one optimizer step in the f32 stream: the WMMA dq and dk/dv bodies
-    read_counts = reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    start = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
-        f32_run = train_main(build_train_parser().parse_args(
-            xl_train_argv(tmp, dev, "--no-use-bf16", "--max-steps", "1", "--log-every", "1")))
-    torch.cuda.synchronize()
-    f32_s = time.perf_counter() - start
-    counts = read_counts()
-    bodies = (ba.banded_attention_bwd_dq.body, ba.banded_attention_bwd_dkv.body)
-    print(f"[xl-train] --no-use-bf16: step {f32_run['final_step']}, loss {f32_run['last_loss']:.6f}, "
-          f"launches {({k: v for k, v in counts.items() if v})}, bodies dq {bodies[0]}, dk/dv {bodies[1]}; "
-          f"the run (model set-up, loader and the one step) {f32_s:.1f} s wall, peak device memory "
-          f"allocated {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    check(f32_run["final_step"] == 1 and math.isfinite(f32_run["last_loss"]), f"xl-train f32: {f32_run}")
-    check(bodies == ("wmma", "wmma"), f"xl-train f32: dq and dk/dv bodies {bodies}, expected wmma")
-    check(counts == {**dict.fromkeys(counts, 0), **per_step}, f"xl-train f32: launches {counts}")
-    del f32_run
-    torch.cuda.empty_cache()
+    def each(key, scale=1.0, fmt=".6f"):
+        return {k: ", ".join(f"{v[key] * scale:{fmt}}" for v in r) for k, r in runs.items()}
 
-    # the paths whose kernels do not take XL's widths yet refuse before any launch
-    for flags in (["--mlp-bwd", "fused"], ["--num-model", "2", "--context-parallel"]):
-        read_counts = reset_launch_counts()
-        err = None
-        try:
-            with contextlib.redirect_stdout(io.StringIO()):
-                train_main(build_train_parser().parse_args(xl_train_argv(tmp, dev, *flags, "--max-steps", "1")))
-        except ValueError as e:
-            err = str(e)
-        refused_launches = {k: v for k, v in read_counts().items() if v}
-        print(f"[xl-train] {' '.join(flags)}: ValueError {err!r}; kernel launches before it {refused_launches}")
-        check(err is not None and "ROADMAP" in err and not refused_launches,
-              f"xl-train {flags}: {err!r}, launches {refused_launches}")
-    print(f"[xl-train] {XL_MODEL} train CLI ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}): "
-          f"{numbers['period_ms'] / 1000:.6f} s per optimizer step start to start, "
-          f"{numbers['step_ms'] / 1000:.6f} inside train_step, device {numbers['device_ms']:.2f} ms a step, "
-          f"busy {numbers['busy']:.1f}%, peak {numbers['peak_gb']:.2f} GB; the phase took "
+    period, inside = each("period_ms", 1e-3), each("step_ms", 1e-3)
+    device, busy, peak = each("device_ms", fmt=".2f"), each("busy", fmt=".1f"), each("peak_gb", fmt=".2f")
+    print(f"[xl-train-fused] {XL_MODEL} train CLI ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}) in turns "
+          f"(default, fused, fused, default): s per optimizer step start to start, fused {period['fused']} "
+          f"against default {period['xla']}; inside train_step fused {inside['fused']} against "
+          f"{inside['xla']}; device ms a step fused {device['fused']} against {device['xla']}; busy % "
+          f"fused {busy['fused']} against {busy['xla']}; peak GB fused {peak['fused']} against "
+          f"{peak['xla']}; the phase took {time.perf_counter() - wall:.1f} s")
+    return runs
+
+
+def phase_xl_train_cp(dev, tmp, card):
+    """[xl-train-cp]: the train CLI at --model DiT-XL with --num-model 2
+    --context-parallel --dist gloo --mlp-bwd fused on CP_RANKS ranks
+    sharing the card (this script with --cp-rank, train only) beside one
+    process of the same seed, flags and batch: every logged loss finite and
+    within CP_LOSS_REL_TOL of the one process's; per optimizer step on
+    every rank 56 launches of row 5 with LSE and of row 8, 28 of row 6's dq
+    and dk/dv and of rows 9a/9b, none of rows 2-4; s per step and each
+    rank's peak of allocated device memory."""
+    import torch
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = time.perf_counter()
+    workdir = os.path.join(tmp, "cp-xl")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump({"data": train_dataset(tmp), "train_only": True, "model": XL_MODEL, "batch": XL_CP_BATCH,
+                   "steps": XL_CP_STEPS, "flags": ["--mlp-bwd", "fused"]}, f)
+    ranks = run_cp_ranks(workdir, CP_RANKS, "xl-train-cp")
+    cp_wall = time.perf_counter() - wall
+    single = run_cp_ranks(workdir, 1, "xl-train-cp")[0]
+    with torch.device("meta"):  # the depth only
+        depth = len(DiT_models[XL_MODEL](num_classes=2).blocks)
+    steps = XL_CP_STEPS
+    fused = {"adaln_mlp_train": steps * depth * 2, "adaln_mlp_bwd_prologue": steps * depth,
+             "adaln_mlp_bwd_epilogue": steps * depth}
+    expected_cp = {**dict.fromkeys(ranks[0]["train_launches"], 0), **fused,
+                   "banded_attention_ranged_fwd_lse": steps * depth * 2,  # forward + remat recompute
+                   "banded_attention_ranged_bwd_dq": steps * depth,
+                   "banded_attention_ranged_bwd_dkv": steps * depth}
+    expected_one = {**dict.fromkeys(expected_cp, 0), **fused, "banded_attention_fwd_lse": steps * depth * 2,
+                    "banded_attention_bwd_dq": steps * depth, "banded_attention_bwd_dkv": steps * depth}
+    for rank, r in enumerate(ranks):
+        print(f"[xl-train-cp] rank {rank} of {CP_RANKS}: {r['final_step']} steps, launches {r['train_launches']}, "
+              f"peak device memory allocated {r['peak_gb']:.2f} GB")
+        check(r["final_step"] == steps and r["train_launches"] == expected_cp,
+              f"xl-train-cp rank {rank}: {r['final_step']} steps, launches {r['train_launches']}")
+    print(f"[xl-train-cp] one process: launches {single['train_launches']}, peak {single['peak_gb']:.2f} GB")
+    check(single["train_launches"] == expected_one, f"xl-train-cp one process launches {single['train_launches']}")
+    cp_losses, one_losses = ranks[0]["losses"], single["losses"]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(cp_losses, one_losses)]
+    print(f"[xl-train-cp] losses CP {cp_losses}; one process {one_losses}; relative differences "
+          + ", ".join(f"{d:.2e}" for d in diffs) + f" (tol {CP_LOSS_REL_TOL})")
+    check(len(cp_losses) == len(one_losses) == steps and all(math.isfinite(v) for v in cp_losses + one_losses),
+          f"xl-train-cp losses {cp_losses} {one_losses}")
+    check(max(diffs) <= CP_LOSS_REL_TOL, f"xl-train-cp losses differ: {diffs}")
+    check(ranks[0]["done"] and ranks[0]["mesh_line"], "xl-train-cp: no Done! or no mesh line in rank 0's log")
+    print(f"[xl-train-cp] {card}: {XL_MODEL} ({depth} blocks, batch {XL_CP_BATCH} x {CP_SEQ}, band {BAND}, bf16 "
+          f"stream, remat, --mlp-bwd fused): {ranks[0]['period_ms'] / 1000:.6f} s per optimizer step start to "
+          f"start with {CP_RANKS} gloo ranks sharing the card (rank 1 {ranks[1]['period_ms'] / 1000:.6f}), "
+          f"{single['period_ms'] / 1000:.6f} s in one process; peak device memory allocated "
+          + " + ".join(f"{r['peak_gb']:.2f}" for r in ranks) + f" = {sum(r['peak_gb'] for r in ranks):.2f} GB on "
+          f"the card, one process {single['peak_gb']:.2f} GB; wall {ranks[0]['wall_s']:.1f} s and "
+          f"{single['wall_s']:.1f} s for {steps} steps; the CP ranks' run took {cp_wall:.1f} s, the phase "
           f"{time.perf_counter() - wall:.1f} s")
-    return launches, numbers
+    return ranks[0]["train_launches"]
 
 
 def phase_xl(dev, tmp, card):
@@ -1970,8 +2123,9 @@ def phase_xl(dev, tmp, card):
     one XL forward of each stream against its plain versions on the card
     ([xl-forward], [xl-bf16-forward], [xl-int8-forward]). DiT-XL training:
     one step's loss and gradients card against CPU at XL's widths, depth
-    cut to XL_STEP_DEPTH ([xl-train-step]), and the train CLI at --model
-    DiT-XL ([xl-train], phase_xl_train)."""
+    cut to XL_STEP_DEPTH ([xl-train-step]), the train CLI at --model DiT-XL
+    and with --mlp-bwd fused ([xl-train], [xl-train-fused]: phase_xl_train)
+    and under context parallelism ([xl-train-cp]: phase_xl_train_cp)."""
     import torch
     from osu_diffusion_tpu_torch.models.dit import DiT, DiT_models
 
@@ -2000,6 +2154,7 @@ def phase_xl(dev, tmp, card):
         what=f"{XL_MODEL} widths at depth {XL_STEP_DEPTH}")
     print(f"[xl-train-step] {time.perf_counter() - step_wall:.1f} s")
     phase_xl_train(dev, tmp)
+    phase_xl_train_cp(dev, tmp, card)
     print(f"[slice-xl] {card}: {XL_MODEL} on kimi (T 757 -> 768, CFG batch 2, band {BAND}), "
           f"{f32_ms / 1000:.6f} s per denoise step f32, {int8_ms / 1000:.6f} int8 (--quantize-weights); "
           f"launches per chain f32 {launches}, int8 {int8_launches}; the phase took "
@@ -2710,14 +2865,17 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
                   timed=TIMED_STEPS, log_every=5):
     """The train CLI (`argv`: its flags, --model `model` among them, bf16
     stream and remat) for `steps` steps with --mlp-bwd `mlp_bwd`: launch
-    counts, finite losses (logged every `log_every` steps), seconds per
-    step over the steps `timed`, the device's busy share over the steps
-    `profiled`, and the peak of allocated device memory. Returns (summary,
-    launches, {period_ms, step_ms, busy, device_ms, peak_gb})."""
+    counts (and the calls of the plain MLP backward: one a block and step
+    with --mlp-bwd xla, none with fused), finite losses (logged every
+    `log_every` steps), seconds per step over the steps `timed`, the
+    device's busy share over the steps `profiled`, and the peak of
+    allocated device memory. Returns (summary, launches, {period_ms,
+    step_ms, busy, device_ms, peak_gb})."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
     from osu_diffusion_tpu_torch.train import trainer
 
     events = []  # (start, end) CUDA events around each train_step call
@@ -2743,7 +2901,15 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
             prof["p"].stop()
         return out
 
+    plain_bwd = []  # calls of the plain MLP backward (AdalnMlp's bwd_impl "xla")
+    orig_bwd = am.adaln_mlp_bwd
+
+    def counted_bwd(*args, **kwargs):
+        plain_bwd.append(1)
+        return orig_bwd(*args, **kwargs)
+
     trainer.train_step = timed_step
+    am.adaln_mlp_bwd = counted_bwd
     read_counts = reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     wall = time.perf_counter()
@@ -2751,6 +2917,7 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
         summary = train_main(build_train_parser().parse_args(argv + ["--max-steps", str(steps)]))
     finally:
         trainer.train_step = orig_step
+        am.adaln_mlp_bwd = orig_bwd
     torch.cuda.synchronize()
     wall = time.perf_counter() - wall
     launches = read_counts()
@@ -2762,7 +2929,7 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
         log = f.read()
     losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
     print(f"[{tag}] {summary['final_step']} steps in {wall:.1f} s wall; losses {losses}; "
-          f"launches {launches}")
+          f"launches {launches}; plain MLP backward calls {len(plain_bwd)}")
     check(summary["final_step"] == steps, f"stopped at step {summary['final_step']}")
     check(len(losses) == steps // log_every and all(math.isfinite(v) for v in losses),
           f"Train Loss lines: {losses}")
@@ -2776,6 +2943,8 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
         expected.update(dict.fromkeys(("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue"),
                                       steps * depth))
     check(launches == expected, f"launches {launches}, expected {expected}")
+    want_plain = 0 if mlp_bwd == "fused" else steps * depth
+    check(len(plain_bwd) == want_plain, f"{tag}: {len(plain_bwd)} plain MLP backward calls, expected {want_plain}")
 
     # steady state: the train_step calls in `timed`, by CUDA events
     first, last = timed.start, timed.stop - 1
@@ -3192,11 +3361,14 @@ def phase_train_modes(dev, tmp, ckpt_path):
     check(moved == [trainer.LABEL_TABLE], f"train modes: moved {moved}")
 
 
-def phase_attention_cp(dev):
+def phase_attention_cp(dev, tag="attn-cp", cases=ATTN_CP_CASES, dh=64):
     """Rows 5-6: the four ranged entries against their plain versions (bf16
-    operands, and f32), every output on the rows it defines; at the main
-    shapes their times beside bounds, plain versions and SDPA with the
-    band-and-bounds mask."""
+    operands, and f32), every output on the rows it defines, at head dim
+    `dh`; at the main shapes (the CP training shard's left edge, and at
+    DiT-B the sampling shard) their times beside bounds, plain versions and
+    SDPA with the band-and-bounds mask. [attn-cp-xl] prints the ranged
+    builds at Dh 72, Hopper and WMMA (0 spill bytes required of each).
+    Returns the numbers of the DiT-B main shapes."""
     import types
 
     import torch
@@ -3207,16 +3379,25 @@ def phase_attention_cp(dev):
     g = torch.Generator(device=dev).manual_seed(7)
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
-    print_sm90_resources("attn-cp", ("ranged fwd bf16", "ranged fwd f32", "ranged dq", "ranged dkv"))
-    for name, n, h, t_loc, band, idx, p, valid, stream in ATTN_CP_CASES:
+    if dh == 64:
+        print_sm90_resources(tag, ("ranged fwd bf16", "ranged fwd f32", "ranged dq", "ranged dkv"))
+    else:  # the builds XL under context parallelism runs: Hopper, and the f32 stream's WMMA dq and dk/dv
+        print_sm90_resources(tag, ("ranged fwd bf16 dh72", "ranged fwd f32 dh72") + SM90_BWD_CP_XL_BUILDS)
+        wmma = {n_: r for n_, r in wmma_resources().items() if n_.startswith("wmma ranged") and n_.endswith("dh72")}
+        print(f"[{tag}] WMMA bodies (ptxas): " + "; ".join(
+            f"{n_} {r['registers']} registers, {r['spill_bytes']} spill bytes, {r['smem_bytes']} B shared "
+            f"memory a CTA" for n_, r in sorted(wmma.items())))
+        check(len(wmma) == 2 and all(r["spill_bytes"] == 0 for r in wmma.values()),
+              f"{tag}: the ranged WMMA builds at Dh 72: {wmma}")
+    for name, n, h, t_loc, band, idx, p, valid, stream in cases:
         dtype = f32 if stream == "f32" else bf16
         halo = -(-band // BLOCK) * BLOCK
         bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
         k_lo, k_hi, q_lo, q_hi = bounds
         t = t_loc + 2 * halo
         # one contiguous layout for q/k/v, as parallel/context.py builds them
-        q, k, v = (torch.randn((n, h, t, 64), generator=g, device=dev).to(dtype) for _ in range(3))
-        do = torch.randn((n, t, h, 64), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
+        q, k, v = (torch.randn((n, h, t, dh), generator=g, device=dev).to(dtype) for _ in range(3))
+        do = torch.randn((n, t, h, dh), generator=g, device=dev).to(dtype).permute(0, 2, 1, 3)
         o_inf = ba.banded_attention_ranged(q, k, v, band, bounds)
         o, lse = ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds)
         dq = ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)
@@ -3225,12 +3406,12 @@ def phase_attention_cp(dev):
         body = {"no-lse": ba.banded_attention_ranged.body, "fwd": ba.banded_attention_ranged_fwd_lse.body,
                 "dq": ba.banded_attention_ranged_bwd_dq.body, "dkv": ba.banded_attention_ranged_bwd_dkv.body}
         want = {"no-lse": FWD_BODY[stream], "fwd": FWD_BODY[stream], "dq": BODY[stream], "dkv": BODY[stream]}
-        check(body == want, f"ranged {name}: bodies {body}, want {want}")
+        check(body == want, f"{tag} {name}: bodies {body}, want {want}")
         # the forward entries, no atomics: the same bits on a second call
         again = ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds)
         same = (torch.equal(ba.banded_attention_ranged(q, k, v, band, bounds), o_inf)
                 and torch.equal(again[0], o) and torch.equal(again[1], lse))
-        check(same, f"ranged {name}: a second forward call gave other bits")
+        check(same, f"{tag} {name}: a second forward call gave other bits")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)
@@ -3242,22 +3423,23 @@ def phase_attention_cp(dev):
         for out, got, w16, w32 in (("o", o[:, :, rows], o16[:, :, rows], o32[:, :, rows]),
                                    ("o_inf", o_inf[:, :, rows], o16[:, :, rows], o32[:, :, rows]),
                                    *zip(("dq", "dk", "dv"), (dq, dk, dv), grads16, grads32)):
-            check(bool(torch.isfinite(got).all()), f"ranged {name}: non-finite {out}")
+            check(bool(torch.isfinite(got).all()), f"{tag} {name}: non-finite {out}")
             errs[out] = (rel_err(got, w16), rel_err(got, w32))
-        print(f"[attn-cp] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} band={band} shard {idx} of {p} "
+        print(f"[{tag}] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} Dh={dh} band={band} shard {idx} of {p} "
               f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
               f"body no-lse={body['no-lse']} fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
               f"(forward: same bits on a second call {same}) "
               + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
-        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"ranged lse {name}: {errs['lse']}")
-        check(bool((lse_r[~has_key] < -1e29).all()), f"ranged lse {name}: rows without a key not ~-1e30")
+        check(errs["lse"][0] <= LSE_TOL and errs["lse"][1] <= LSE_TOL_F32, f"{tag} lse {name}: {errs['lse']}")
+        check(bool((lse_r[~has_key] < -1e29).all()), f"{tag} lse {name}: rows without a key not ~-1e30")
         for out in ("o", "o_inf", "dq", "dk", "dv"):
-            check(errs[out][0] <= TRAIN_TOL_BF16, f"ranged {out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
-            check(errs[out][1] <= TRAIN_TOL_F32, f"ranged {out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
-        check(not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any(), f"{name}: dq on pad query rows")
-        check(not dk[:, :, :k_lo].any() and not dv[:, :, max(k_lo, k_hi):].any(), f"{name}: dk/dv on masked keys")
+            check(errs[out][0] <= TRAIN_TOL_BF16, f"{tag} {out} {name}: {errs[out][0]} > {TRAIN_TOL_BF16}")
+            check(errs[out][1] <= TRAIN_TOL_F32, f"{tag} {out} {name}: {errs[out][1]} > {TRAIN_TOL_F32}")
+        check(not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any(), f"{tag} {name}: dq on pad query rows")
+        check(not dk[:, :, :k_lo].any() and not dv[:, :, max(k_lo, k_hi):].any(),
+              f"{tag} {name}: dk/dv on masked keys")
         if name not in ("train_left_edge", "sample_shard0"):
             continue
         # SDPA with the band and the key bounds as a boolean mask on the
@@ -3270,7 +3452,7 @@ def phase_attention_cp(dev):
         pairs = int(allowed.sum()) * n * h
         # the bytes the function needs: q, o, lse, do and dq on the rows
         # [q_lo, q_hi), k, v, dk and dv on the keys some query there reaches
-        row_bytes = n * h * 64 * q.element_size()
+        row_bytes = n * h * dh * q.element_size()
         n_q, n_k = q_hi - q_lo, int(allowed.any(dim=0).sum())
         lse_bytes = n_q * n * h * 4
 
@@ -3281,15 +3463,15 @@ def phase_attention_cp(dev):
             ms = cuda_ms(lambda: ba.banded_attention_ranged(q, k, v, band, bounds))
             plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds))
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_rows, k, v, attn_mask=mask))
-            b = bound(ranged_bytes(2, 2, with_lse=False), 4 * 64 * pairs)  # q, o; k, v
-            print(f"[attn-cp] {name}: ranged (no LSE) {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, SDPA "
+            b = bound(ranged_bytes(2, 2, with_lse=False), 4 * dh * pairs)  # q, o; k, v
+            print(f"[{tag}] {name}: ranged (no LSE) {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, SDPA "
                   f"(masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
             results["banded_attention_ranged"] = {
                 "max_abs_err": max_err(o_inf[:, :, rows], o16[:, :, rows]), "ms": ms,
                 "plain_ms": plain_ms, **b, "library_ms": library_ms}
             continue
         check(torch.equal(dq, ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds)),
-              f"ranged dq {name} differs run to run")
+              f"{tag} dq {name} differs run to run")
         fwd_ms = cuda_ms(lambda: ba.banded_attention_ranged_fwd_lse(q, k, v, band, bounds))
         dq_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dq(q, k, v, o, lse, do, band, bounds))
         dkv_ms = cuda_ms(lambda: ba.banded_attention_ranged_bwd_dkv(q, k, v, o, lse, do, band, bounds))
@@ -3300,13 +3482,15 @@ def phase_attention_cp(dev):
         sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask))
         out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
         sdpa_bwd_ms = cuda_ms(lambda: torch.autograd.grad(out, (ql, kl, vl), do[:, :, rows], retain_graph=True))
-        bounds_ms = {"fwd_lse": bound(ranged_bytes(2, 2), 4 * 64 * pairs),  # q, o; k, v
-                     "dq": bound(ranged_bytes(4, 2), 6 * 64 * pairs),  # q, o, do, dq; k, v
-                     "dkv": bound(ranged_bytes(3, 4), 8 * 64 * pairs)}  # q, o, do; k, v, dk, dv
-        print(f"[attn-cp] {name}: fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
+        bounds_ms = {"fwd_lse": bound(ranged_bytes(2, 2), 4 * dh * pairs),  # q, o; k, v
+                     "dq": bound(ranged_bytes(4, 2), 6 * dh * pairs),  # q, o, do, dq; k, v
+                     "dkv": bound(ranged_bytes(3, 4), 8 * dh * pairs)}  # q, o, do; k, v, dk, dv
+        print(f"[{tag}] {name}: fwd+lse {fwd_ms:.4f} ms, dq {dq_ms:.4f} ms, dk/dv {dkv_ms:.4f} ms; "
               f"plain f32 fwd {fwd_plain_ms:.4f} ms, bwd (dq, dk, dv) {bwd_plain_ms:.4f} ms; SDPA (masked) "
               f"fwd {sdpa_fwd_ms:.4f} ms, bwd {sdpa_bwd_ms:.4f} ms; bounds "
               + ", ".join(f"{k_} {b['bound_ms']:.4f} ms ({b['bound_by']})" for k_, b in bounds_ms.items()))
+        if tag != "attn-cp":
+            continue
         results.update({
             "banded_attention_ranged_fwd_lse": {
                 "max_abs_err": max_err(o[:, :, rows], o16[:, :, rows]), "ms": fwd_ms,
@@ -3399,24 +3583,28 @@ def cp_exchange_errors(dev, mesh) -> dict:
     return out
 
 
-def cp_argv(data, results, num_model):
-    """The train CLI at DiT-B on the kimi copies: seq-len 512, band 128,
-    batch 32, CP_STEPS steps, one loader thread-free (num-workers 0: the two
-    runs then read the same batches in the same order)."""
-    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
-            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(CP_BATCH),
+def cp_argv(job, results, num_model):
+    """The train CLI at the job's model (DiT-B: MODEL; [xl-train-cp]:
+    XL_MODEL), batch and steps (CP_BATCH, CP_STEPS at DiT-B) and extra
+    flags on the kimi copies: seq-len 512, band 128, the loader thread-free
+    (num-workers 0: the two runs then read the same batches in the same
+    order)."""
+    argv = ["--data-path", job["data"], "--data-start", "0", "--data-end", "2", "--model", job["model"],
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(job["batch"]),
             "--seq-len", str(CP_SEQ), "--band", str(BAND), "--stride", "16", "--num-workers", "0",
             "--log-every", "1", "--ckpt-every", str(10 ** 9), "--results-dir", results,
-            "--device", "cuda", "--max-steps", str(CP_STEPS), "--num-model", str(num_model)]
+            "--device", "cuda", "--max-steps", str(job["steps"]), "--num-model", str(num_model),
+            *job["flags"]]
     return argv + (["--context-parallel", "--dist", "gloo"] if num_model > 1 else [])
 
 
 def cp_rank_main(workdir) -> int:
-    """One process of the CP phases, run by phase_context_parallel: in
-    torchrun's environment, one of CP_RANKS gloo ranks sharing the card
-    ([forward-cp], [step-cp], then the CP train CLI); without it, the
-    one-process train CLI run. Writes its numbers to
-    <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
+    """One process of the CP phases, run by phase_context_parallel and
+    phase_xl_train_cp: in torchrun's environment, one of CP_RANKS gloo ranks
+    sharing the card ([forward-cp], [step-cp], unless the job is
+    `train_only`, then the CP train CLI); without it, the one-process train
+    CLI run. Writes its numbers (with its peak of allocated device memory
+    in the train CLI) to <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
     import datetime
 
     import torch
@@ -3437,7 +3625,7 @@ def cp_rank_main(workdir) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
     out = {}
-    if world > 1:
+    if world > 1 and not job["train_only"]:
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{job['check_port']}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(minutes=5))
@@ -3506,9 +3694,10 @@ def cp_rank_main(workdir) -> int:
     torch.cuda.reset_peak_memory_stats()
     wall = time.perf_counter()
     summary = train_main(build_train_parser().parse_args(
-        cp_argv(job["data"], os.path.join(workdir, f"results_w{world}"), world)))
+        cp_argv(job, os.path.join(workdir, f"results_w{world}"), world)))
     torch.cuda.synchronize()
     out["wall_s"] = time.perf_counter() - wall
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     trainer.train_step = orig_step
     out["train_launches"] = read_counts()
     out["final_step"] = summary["final_step"]
@@ -3533,7 +3722,7 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_cp_ranks(workdir, world) -> list[dict]:
+def run_cp_ranks(workdir, world, tag="train-cp") -> list[dict]:
     """This script with --cp-rank, as `world` ranks in torchrun's
     environment (or one plain process); fails unless every rank exits 0."""
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
@@ -3561,7 +3750,7 @@ def run_cp_ranks(workdir, world) -> list[dict]:
             tail = f.read()[-3000:]
         for line in tail.splitlines():
             if line.startswith(("[cp]", "[rank")):
-                print(f"[train-cp] rank {rank} of {world}: {line}")
+                print(f"[{tag}] rank {rank} of {world}: {line}")
         check(rc == 0, f"CP rank {rank} of {world} exited {rc}:\n{tail}")
     out = []
     for rank in range(world):
@@ -3585,7 +3774,8 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     torch.save((z, o, c, y), os.path.join(workdir, "inputs.pt"))
     with open(os.path.join(workdir, "job.json"), "w") as f:
         json.dump({"ckpt": ckpt, "inputs": os.path.join(workdir, "inputs.pt"), "data": train_dataset(tmp),
-                   "check_port": free_port()}, f)
+                   "check_port": free_port(), "train_only": False, "model": MODEL, "batch": CP_BATCH,
+                   "steps": CP_STEPS, "flags": []}, f)
     wall = time.perf_counter()
     ranks = run_cp_ranks(workdir, CP_RANKS)
     cp_wall = time.perf_counter() - wall
@@ -3726,6 +3916,8 @@ def main() -> int:
     phase_quant(dev, "quant-xl", QUANT_XL_CASES)
     phase_attention_train(dev, "attn-train-xl", ATTN_TRAIN_XL_CASES, XL_HEAD_DIM)
     phase_mlp_train(dev, "mlp-train-xl", MLP_TRAIN_XL_CASES)
+    phase_attention_cp(dev, "attn-cp-xl", ATTN_CP_XL_CASES, XL_HEAD_DIM)
+    phase_mlp_bwd(dev, "mlp-bwd-xl", MLP_BWD_XL_CASES)
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)

@@ -27,10 +27,9 @@ window's sequence over N of them (ranged attention kernels behind a halo
 exchange), --band narrows the attention for long windows, and --dist picks
 the backend (nccl on CUDA, gloo on the CPU by default; gloo also runs
 several ranks on one card). --num-model without --context-parallel (tensor
-parallelism) is not ported and raises. Every --model trains on the
-default path, DiT-XL included; at DiT-XL, --mlp-bwd fused and
---context-parallel raise before the first step (their kernels do not take
-its widths yet: ROADMAP.md). The JAX trainer's TPU-only knobs
+parallelism) is not ported and raises. Every --model trains on every
+path, DiT-XL included (--mlp-bwd fused and --context-parallel too). The
+JAX trainer's TPU-only knobs
 (--use-pallas, --pallas-ops, --flash-block, --scan-blocks,
 --steps-per-call, --multihost) have no counterpart here.
 """

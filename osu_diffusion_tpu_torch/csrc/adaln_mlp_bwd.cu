@@ -27,7 +27,9 @@
 // D 768, H 3072, bf16 stream): each stage is 154.6 GFLOP (0.156 ms at
 // 989 TFLOP/s). The prologue moves 805 MB (g, mlp, a in; da, gelu(a), dmlp
 // out: 0.240 ms at 3.35 TB/s), so bytes bound it; the epilogue moves ~403 MB
-// (0.120 ms), so its product bounds it.
+// (0.120 ms), so its product bounds it. At DiT-XL training (D 1152, H 4608)
+// each stage is 348 GFLOP (0.352 ms): the prologue moves 1.22 GB (0.365 ms,
+// bytes), the epilogue's product bounds it.
 //
 // ---- The Hopper body (bf16 stream: rows 9a and 9b) ----
 // The first body (the WMMA body below) gave each CTA a 32-token tile whose
@@ -95,6 +97,16 @@
 // - At the training shape both grids hold 1,024 CTAs (7.8 waves on 132
 //   SMs), so no hidden split is needed there; small shapes split the
 //   prologue's hidden range as kernel B does.
+// - DiT-XL's D = 1152 keeps this design: the prologue's three ring stages,
+//   bf16(dmlp) and the dgelu scratch take 223,616 of the 232,448 bytes a CTA
+//   may hold; the epilogue's 18 dh1 fragments a warp hold 144 accumulator
+//   registers a thread, under the 255 a thread that 256 threads a CTA allow.
+//   With every k16 step unrolled, ptxas kept the A fragments of a whole
+//   tile's reduction in registers across the streamed tiles (they do not
+//   change from tile to tile) and spilled at 1152 (prologue 8, epilogue 16
+//   bytes at 255 registers); unrolled two steps at a time (Cfg's P_UNROLL,
+//   E_UNROLL) they are read again for each tile: the same products in the
+//   same order (ptxas's registers and spills: chip_smoke.py [mlp-bwd-xl]).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -132,6 +144,12 @@ struct Cfg {
   static constexpr int KQ = D / 4;                    // a prologue warp's share of the reduction
   static constexpr int E_TILES = D / K1;              // epilogue tiles per hidden chunk
   static constexpr int LDH = D + 4;                   // f32 row stride of dh1
+  // k16 steps of a streamed tile's product unrolled together: every step
+  // (so ptxas keeps the CTA's A fragments in registers from tile to tile)
+  // below D 1152; at 1152 those fragments beside the accumulators spilled
+  // out of 255 registers, so two steps, and A is read again for each tile
+  static constexpr int P_UNROLL = D == 1152 ? 2 : KQ / 16;
+  static constexpr int E_UNROLL = D == 1152 ? 2 : BH / 16;
 };
 
 template <int D>
@@ -142,6 +160,8 @@ struct __align__(128) PSmem {
   float red[WARPS][BH];                                   // db1: each row group's column sums
   unsigned long long full[Cfg<D>::P_STAGES];              // mbarrier: the stage's tile landed
 };
+
+static_assert(sizeof(PSmem<1152>) <= 232448, "the prologue's shared memory at D 1152 fits a CTA");
 
 template <int D>
 struct __align__(128) ESmem {
@@ -244,7 +264,7 @@ bwd_prologue_kernel(const float* __restrict__ g, const float* __restrict__ mlp,
       mbar_wait(smem_addr(&sm.full[i % STAGES]), (i / STAGES) & 1);
       const __nv_bfloat16* buf = sm.ring[i % STAGES];
       // dgelu[:, 16 r .. + 16] += dmlp[:, K quarter] @ w2[16 rows, K quarter]^T
-#pragma unroll
+#pragma unroll(C::P_UNROLL)
       for (int k = 0; k < C::KQ; k += 16) {
         const int kk = q * C::KQ + k;
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
@@ -390,7 +410,7 @@ bwd_epilogue_kernel(const float* __restrict__ da, const float* __restrict__ x,
       mbar_wait(smem_addr(&sm.full[i % E_STAGES]), (i / E_STAGES) & 1);
       const __nv_bfloat16* buf = sm.u.ring[i % E_STAGES];
       // dh1[:, 64 r + 16 cw .. + 16] += da[:, chunk] @ w1[those rows, chunk]^T
-#pragma unroll
+#pragma unroll(C::E_UNROLL)
       for (int kk = 0; kk < BH; kk += 16) {
         wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> af;
         wmma::load_matrix_sync(af, abuf + rt * 16 * LDA + kk, LDA);
@@ -966,6 +986,8 @@ int epilogue(const void* da, const void* x, const void* g, const float* shift,
       return CALL(768);                               \
     case 1024:                                        \
       return CALL(1024);                              \
+    case 1152:                                        \
+      return CALL(1152);                              \
     default:                                          \
       return static_cast<int>(cudaErrorInvalidValue); \
   }
@@ -977,7 +999,7 @@ int epilogue(const void* da, const void* x, const void* g, const float* shift,
 // mlp (N, T, D) f32 contiguous; gate: f32 rows of D with row stride
 // mod_stride; w2: fc2.weight (D, H) bf16 contiguous. Writes da, gelu_out,
 // dmlp, dgate (N, D), db1 (H) and db2 (D) f32. ws: f32 workspace of 2 N
-// ceil(T / 32) D + ceil(N T / 128) H. D in {384, 768, 1024}; bn (256 or 128,
+// ceil(T / 32) D + ceil(N T / 128) H. D in {384, 768, 1024, 1152}; bn (256 or 128,
 // dividing H) and grid the tile plan of the dgelu GEMM; stages: 3 (a mask:
 // 1 the dmlp pass, 2 the GEMM). Launches on `stream` without
 // synchronizing; returns 0, a CUDA error code, or TMA_ENCODE_ERROR + a
@@ -1020,7 +1042,7 @@ extern "C" int adaln_mlp_bwd_epilogue_sm90(const void* da, const void* x, const 
 // contiguous; gate: f32 rows of D with row stride mod_stride; w2p: bf16
 // packed (H, D + 8). Writes da and gelu_out (N, T, H) and dmlp (N, T, D)
 // f32, dgate (N, D), db1 (H) and db2 (D). ws: f32 workspace of N * ceil(T /
-// 32) * (2 D + H). D in {384, 768, 1024}; H / 128 divisible by split.
+// 32) * (2 D + H). D in {384, 768, 1024, 1152}; H / 128 divisible by split.
 // Launches on `stream` without synchronizing; returns cudaGetLastError().
 extern "C" int adaln_mlp_bwd_prologue_wmma(const void* g, const float* mlp, const void* a,
                                            const float* gate, long long mod_stride,
@@ -1058,6 +1080,20 @@ extern "C" int adaln_mlp_bwd_epilogue_wmma(const void* da, const void* x, const 
 // the Hopper GEMM's dynamic shared memory per CTA at tile width bn, bytes
 extern "C" int adaln_mlp_bwd_sm90_smem_bytes(int bn) {
   return bn == 256 ? sm90_body::smem_bytes<256>() : sm90_body::smem_bytes<128>();
+}
+
+// the WMMA body's dynamic shared memory per CTA, bytes: the prologue's
+// (epilogue = 0) or the epilogue's (1) at width d (0 for another d)
+extern "C" int adaln_mlp_bwd_wmma_smem_bytes(int epilogue, int d) {
+#define SMEM(D) static_cast<int>(epilogue ? sizeof(ESmem<D>) : sizeof(PSmem<D>))
+  switch (d) {
+    case 384: return SMEM(384);
+    case 768: return SMEM(768);
+    case 1024: return SMEM(1024);
+    case 1152: return SMEM(1152);
+    default: return 0;
+  }
+#undef SMEM
 }
 
 extern "C" const char* adaln_mlp_bwd_error_string(int err) { return sm90::error_string(err); }

@@ -18,7 +18,7 @@
 // tiles that meet [k_lo, k_hi).
 //
 // Computes, per (batch, head) and query row q, for a head dim Dh of 64
-// (DiT-S/B/L) or 72 (DiT-XL; every entry but the ranged one with LSE):
+// (DiT-S/B/L) or 72 (DiT-XL), in every entry:
 //   o[q] = sum_k softmax_k(s[q, k]) v[k],  s = bf16(q * Dh^-1/2) . bf16(k)
 // over the keys allowed by the band  q - L < k <= q + L  and k < valid_len,
 // with bf16 operands, f32 accumulation and an f32 online softmax, and with
@@ -47,7 +47,10 @@
 // 19.3 GFLOP (20 us): bytes. At the context-parallel training shard (N*H = 384, T_ext = 512 of
 // which 256 are pad query rows, L = 128, bf16) the ranged call reads 3 x 25
 // MB of q/k/v and writes o and the LSE; the pad query blocks return at
-// once, so the work is that of the shard's 256 real rows.
+// once, so the work is that of the shard's 256 real rows. DiT-XL's shard
+// (N*H = 512, Dh = 72) reads and writes 1.5x that, as the unranged entry
+// at Dh 72 does: the same build computes the ranged LSE (the LSE is a
+// runtime pointer, so the ranged inference builds serve it).
 //
 // What the design does about it:
 // - One CTA per (n*h, 128-row query block): two consumer warpgroups of 64
@@ -650,8 +653,7 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// head dim dh: 64, or 72 but for the ranged entry with LSE (XL training
-// under context parallelism, whose ranged backward takes 64 only)
+// head dim dh: 64 or 72, in every entry
 template <bool RANGED>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
              int t, int dh, long long sn, long long sh, long long st, long long osn, long long osh,
@@ -663,7 +665,7 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
     return dispatch_dh<RANGED, 64>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
                                    valid_len, scale, bounds, in_bf16, out_bf16, s);
   }
-  if (dh == 72 && (!RANGED || lse == nullptr)) {
+  if (dh == 72) {
     last_body = "sm90";
     return dispatch_dh<RANGED, 72>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
                                    valid_len, scale, bounds, in_bf16, out_bf16, s);
@@ -713,7 +715,7 @@ extern "C" int banded_attention_fwd_ranged(const void* q, const void* k, const v
                         scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, bf16, stream);
 }
 
-// Ranged with lse (rows of uncomputed halves get -1e30); dh 64 only.
+// Ranged with lse (rows of uncomputed halves get -1e30); dh 64 or 72.
 extern "C" int banded_attention_fwd_ranged_lse(const void* q, const void* k, const void* v,
                                                void* o, float* lse, int n, int h, int t, int dh,
                                                long long sn, long long sh, long long st,

@@ -8,9 +8,9 @@
 //   with has_bounds, called via _ranged_bwd_impl for context parallelism
 //   (entries banded_attention_bwd_dq_ranged and banded_attention_bwd_dkv_ranged).
 //
-// Head dims: 64 (DiT-S/B/L) in every entry, and 72 (DiT-XL) in the
-// unranged ones (XL training; the ranged builds at 72, XL under context
-// parallelism, are not made). The DH template parameter picks the build.
+// Head dims: 64 (DiT-S/B/L) and 72 (DiT-XL) in every entry, ranged or not
+// (XL training, under context parallelism too). The DH template parameter
+// picks the build.
 //
 // Ranged (the RANGED template flag; the unranged build is the same code):
 // "allowed" also needs the key in [k_lo, k_hi) and the query in
@@ -45,7 +45,9 @@
 // gradients (34 us); the pad blocks return at once, and a real block walks
 // up to 6 key tiles. At DiT-XL training (N*H = 4096, T = L = 128, Dh = 72,
 // bf16) dq moves 455 MB (136 us) against 29.0 GFLOP (29 us), dk/dv 530 MB
-// (158 us) against 38.7 GFLOP (39 us): bytes again.
+// (158 us) against 38.7 GFLOP (39 us): bytes again; on DiT-XL's CP shard
+// (N*H = 512, Dh = 72) the ranged dq's bound is 40 us and dk/dv's 51 us,
+// bytes.
 //
 // Two bodies of each kernel; the C entries choose by dtype (`dq_entry`,
 // `dkv_entry`): bf16 (the training stream) takes the Hopper bodies below,
@@ -129,7 +131,12 @@
 // Dh = 72 (printed by [attn-train-xl]): dq 160 registers, 206944 bytes (the
 // second slabs add 40 KB), dk/dv 168 at launch, 177488 bytes, both 0 spill
 // bytes; the WMMA bodies at 72: dq 128 registers, 99328 bytes, dk/dv 184,
-// 111104 bytes, 0 spill bytes.
+// 111104 bytes, 0 spill bytes. The ranged builds at Dh = 72 (XL under
+// context parallelism, printed by [attn-cp-xl]): dq 162 registers, dk/dv
+// 168 at launch, the shared memory of the unranged ones, 0 spill bytes; the
+// bounds' checks fold into the per-row key or query interval (lo, hi) as
+// at 64, so they cost 2 registers in dq and none at dk/dv's cap; WMMA dq
+// 134, dk/dv 183, 0 spill bytes.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -146,8 +153,7 @@ constexpr int BK = 64;          // keys per tile
 constexpr int WARPS = 4;        // 16 rows (dq: queries, dk/dv: keys) per warp
 constexpr int THREADS = WARPS * 32;
 
-// the head dims the kernels take: 64 (DiT-S/B/L), and 72 (DiT-XL) in the
-// unranged entries
+// the head dims the kernels take: 64 (DiT-S/B/L) and 72 (DiT-XL)
 template <int DH>
 __host__ __device__ constexpr int padded() {  // the head dim in whole k16 steps: 64, or 80
   static_assert(DH == 64 || DH == 72, "the head dims the kernels take");
@@ -1331,8 +1337,7 @@ int dkv_dh(const void* q, const void* k, const void* v, const void* o, const voi
                              scale, bounds);
 }
 
-// head dim dh: 64, or 72 unranged (DiT-XL training; context parallelism at
-// 72 is not built)
+// head dim dh: 64 or 72 (DiT-XL training, ranged under context parallelism)
 template <bool RANGED>
 int dq_entry(const void* q, const void* k, const void* v, const void* o, const void* dout,
              const float* lse, void* dq, int n, int h, int t, int dh, long long sn, long long sh,
@@ -1342,11 +1347,9 @@ int dq_entry(const void* q, const void* k, const void* v, const void* o, const v
   if (dh == 64)
     return dq_dh<RANGED, 64>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt, band,
                              valid_len, scale, bounds, bf16, s);
-  if constexpr (!RANGED) {
-    if (dh == 72)
-      return dq_dh<false, 72>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt, band,
-                              valid_len, scale, bounds, bf16, s);
-  }
+  if (dh == 72)
+    return dq_dh<RANGED, 72>(q, k, v, o, dout, lse, dq, n, h, t, sn, sh, st, gn, gh, gt, band,
+                             valid_len, scale, bounds, bf16, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1359,11 +1362,9 @@ int dkv_entry(const void* q, const void* k, const void* v, const void* o, const 
   if (dh == 64)
     return dkv_dh<RANGED, 64>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh, gt,
                               band, valid_len, scale, bounds, bf16, s);
-  if constexpr (!RANGED) {
-    if (dh == 72)
-      return dkv_dh<false, 72>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh, gt,
-                               band, valid_len, scale, bounds, bf16, s);
-  }
+  if (dh == 72)
+    return dkv_dh<RANGED, 72>(q, k, v, o, dout, lse, dk, dv, n, h, t, sn, sh, st, gn, gh, gt,
+                              band, valid_len, scale, bounds, bf16, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1395,7 +1396,7 @@ extern "C" int banded_attention_bwd_dkv(const void* q, const void* k, const void
 }
 
 // Ranged: as above over all T (halo-extended) rows with valid_len = T, keys
-// in [k_lo, k_hi) and queries in [q_lo, q_hi), dh 64 only; lse from
+// in [k_lo, k_hi) and queries in [q_lo, q_hi), dh 64 or 72; lse from
 // banded_attention_fwd_ranged_lse.
 extern "C" int banded_attention_bwd_dq_ranged(const void* q, const void* k, const void* v,
                                               const void* o, const void* dout, const float* lse,

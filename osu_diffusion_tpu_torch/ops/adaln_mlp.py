@@ -513,6 +513,8 @@ def _bwd_lib() -> ctypes.CDLL:
     lib.adaln_mlp_bwd_error_string.argtypes = [i]
     lib.adaln_mlp_bwd_sm90_smem_bytes.restype = i
     lib.adaln_mlp_bwd_sm90_smem_bytes.argtypes = [i]
+    lib.adaln_mlp_bwd_wmma_smem_bytes.restype = i
+    lib.adaln_mlp_bwd_wmma_smem_bytes.argtypes = [i, i]
     return lib
 
 
@@ -520,6 +522,13 @@ def bwd_sm90_smem_bytes() -> dict[int, int]:
     """The backward's Hopper GEMM's dynamic shared memory per CTA, bytes,
     by tile width."""
     return {width: _bwd_lib().adaln_mlp_bwd_sm90_smem_bytes(width) for width in GEMM_WIDTHS}
+
+
+def bwd_wmma_smem_bytes(d: int) -> dict[str, int]:
+    """The f32 stream's WMMA prologue and epilogue: dynamic shared memory
+    per CTA at width D, bytes."""
+    lib = _bwd_lib()
+    return {stage: lib.adaln_mlp_bwd_wmma_smem_bytes(i, d) for i, stage in enumerate(("prologue", "epilogue"))}
 
 
 @functools.cache
@@ -537,22 +546,16 @@ def hidden_split(n: int, t: int, hdim: int, sm_count: int) -> int:
     return max(s for s in range(1, chunks + 1) if chunks % s == 0 and (s == 1 or tiles * s <= sm_count))
 
 
-XL_FUSED_BWD = ("D {d}: the fused MLP backward (--mlp-bwd fused) takes D in {widths}; DiT-XL's "
-                "(D 1152) is the next slice of the port, queued in ROADMAP.md")
-
-
 def _check_widths(x, hdim: int, matmul_dtype, widths) -> None:
     """What every adaLN-MLP kernel takes: bf16 operands, D in `widths` (the
     entry's: SERVE_WIDTHS, TRAIN_WIDTHS or BWD_WIDTHS), H a multiple of
-    128, an f32 or bf16 stream, N <= 65535. The fused backward at DiT-XL's
-    D raises a ValueError naming --mlp-bwd fused and ROADMAP.md."""
+    128, an f32 or bf16 stream, N <= 65535."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernel computes with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
     n, _, d = x.shape
     if d not in widths:
-        raise ValueError(XL_FUSED_BWD.format(d=d, widths=widths) if d in TRAIN_WIDTHS
-                         else f"the kernel takes D in {widths}, got {d}")
+        raise ValueError(f"the kernel takes D in {widths}, got {d}")
     if hdim % HIDDEN_CHUNK:
         raise ValueError(f"hidden width {hdim} is not a multiple of {HIDDEN_CHUNK}")
     if x.dtype not in ACT_DTYPES:

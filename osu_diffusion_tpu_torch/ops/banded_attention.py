@@ -31,12 +31,8 @@ and LSE are f32, and outputs come back in q's type. The LSE is one
 rounding, as the TPU kernel does (`_scores`).
 
 Head dims on the card: Dh in HEAD_DIMS, 64 (DiT-S/B/L) or 72 (DiT-XL), in
-the inference forwards (`banded_attention` and `banded_attention_ranged`
-without grad) and the unranged training entries (the LSE forward, dq and
-dk/dv: XL training). The ranged training entries (context parallelism)
-take CP_HEAD_DIM (64) and refuse 72 with a ValueError before any launch
-(XL under context parallelism is the next slice of the port, queued in
-ROADMAP.md).
+every entry, ranged or not (XL training, under context parallelism too);
+any other head dim raises a ValueError before any launch.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
 kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
@@ -77,7 +73,6 @@ import torch
 from osu_diffusion_tpu_torch.ops import cuda_build
 
 HEAD_DIMS = (64, 72)  # head dims of the kernels (DiT-S/B/L, DiT-XL)
-CP_HEAD_DIM = 64  # the only head dim of the ranged LSE forward and backward
 NEG_INF = -1e30
 FWD_BLOCK = 128  # query rows of a CTA of the Hopper forward: two warpgroups of 64
 KEY_TILE = 64  # keys of one K/V tile of its ring
@@ -321,25 +316,16 @@ def wmma_smem_bytes() -> dict[str, int]:
             for dh in HEAD_DIMS for dkv, entry in enumerate(("dq", "dkv"))}
 
 
-XL_CP = ("head dim {dh}: the ranged LSE forward and backward take head dim 64 only; DiT-XL "
-         "(Dh 72) under context parallelism is the next slice of the port, queued in ROADMAP.md")
-
-
-def _check_head_dim(dh: int, ranged_training: bool = False) -> None:
-    """The head dims of the kernels: HEAD_DIMS, and CP_HEAD_DIM for the
-    ranged LSE forward and backward (`ranged_training`: a ValueError naming
-    XL under context parallelism for 72)."""
-    if ranged_training and dh in HEAD_DIMS and dh != CP_HEAD_DIM:
-        raise ValueError(XL_CP.format(dh=dh))
+def _check_head_dim(dh: int) -> None:
+    """The head dims of the kernels: HEAD_DIMS, in every entry."""
     if dh not in HEAD_DIMS:
         raise ValueError(f"the kernels take head dims {HEAD_DIMS}, got {dh}")
 
 
-def _check_kernel_inputs(matmul_dtype, ranged_training: bool = False, **tensors) -> None:
+def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
     """Every tensor: the first one's device, type, shape and strides, a
-    contiguous head dim in HEAD_DIMS (CP_HEAD_DIM when `ranged_training`:
-    the ranged LSE forward and backward), strides in multiples of 4
-    elements, 16-byte aligned."""
+    contiguous head dim in HEAD_DIMS, strides in multiples of 4 elements,
+    16-byte aligned."""
     if matmul_dtype != torch.bfloat16:
         raise ValueError("the CUDA kernels compute with bf16 operands; "
                          f"matmul_dtype={matmul_dtype} has no kernel")
@@ -357,7 +343,7 @@ def _check_kernel_inputs(matmul_dtype, ranged_training: bool = False, **tensors)
             raise ValueError(f"{name} and {first_name} must share strides")
         if a.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
-    _check_head_dim(first.shape[-1], ranged_training)
+    _check_head_dim(first.shape[-1])
     if first.stride(-1) != 1 or any(s % 4 for s in first.stride()[:-1]):
         raise ValueError(
             "q/k/v need a contiguous head dim and strides that are multiples "
@@ -467,9 +453,8 @@ def banded_attention_fwd_lse(
 def _launch_bwd(fn, entry: str, q, k, v, o, lse, do, band, valid_len, matmul_dtype, bounds=None):
     # q/k/v share one set of strides, o/do (and the gradients, written in
     # o's layout) another; records the body that ran in `fn.body`
-    ranged = bounds is not None
-    _check_kernel_inputs(matmul_dtype, ranged_training=ranged, q=q, k=k, v=v)
-    _check_kernel_inputs(matmul_dtype, ranged_training=ranged, o=o, do=do)
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, o=o, do=do)
     q, k, v = _fit_tma(q, k, v)
     if o.dtype != q.dtype or o.shape != q.shape:
         raise ValueError(f"o is {o.dtype} {tuple(o.shape)}, q {q.dtype} {tuple(q.shape)}")
@@ -590,7 +575,7 @@ def banded_attention_ranged_fwd_lse(
     t = q.shape[-2]
     if q.device.type == "cpu":
         return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)
-    _check_kernel_inputs(matmul_dtype, ranged_training=True, q=q, k=k, v=v)
+    _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
     out = _launch_fwd(banded_attention_ranged_fwd_lse, q, k, v, band, t, with_lse=True, bounds=bounds)
     banded_attention_ranged_fwd_lse.launches += 1
     return out

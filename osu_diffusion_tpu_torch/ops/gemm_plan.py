@@ -1,8 +1,7 @@
 """The tile plan of the persistent Hopper GEMM (csrc/gemm_sm90.cuh) that
 kernel B's forward, the fused MLP backward and the int8 qkv projection run
 after their row passes; and the widths each entry's row passes are built
-for (DiT-XL's D = 1152 in the serving and the training forwards, not yet in
-the fused backward).
+for (DiT-S/B/L and DiT-XL's D: 384, 768, 1024 and 1152 in every entry).
 
 A GEMM computes C (rows, cols) = A (rows, depth) . B in (GEMM_ROWS, width)
 output tiles, B a Linear weight (bf16, or int8 codes upcast on chip).
@@ -15,7 +14,7 @@ from typing import NamedTuple
 
 SERVE_WIDTHS = (384, 768, 1024, 1152)  # the serving forwards' D (rows 7, 10, 11): DiT-S/B/L and DiT-XL
 TRAIN_WIDTHS = (384, 768, 1024, 1152)  # the training forward's (row 8)
-BWD_WIDTHS = (384, 768, 1024)  # the fused backward's (rows 9a/9b): DiT-XL's 1152 is not built
+BWD_WIDTHS = (384, 768, 1024, 1152)  # the fused backward's (rows 9a/9b)
 GEMM_ROWS = 128  # rows of an output tile: two consumer warpgroups of 64
 GEMM_DEPTH = 64  # the reduction slab each ring stage holds
 GEMM_WIDTHS = (256, 128)  # output tile widths the kernel is built for, widest first

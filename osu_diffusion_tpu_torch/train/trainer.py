@@ -25,10 +25,8 @@ attention forward with LSE and its dq and dk/dv kernels at band =
 `seq_len` (exactly full attention at T = seq_len; `band` narrows it for
 long windows), and the fused adaLN-MLP forward with residuals, and with
 `mlp_bwd="fused"` its two backward kernels. Every model of DiT_models
-trains on the default path, DiT-XL (head dim 72, D 1152) included;
-`check_kernel_widths` refuses the fused backward and context parallelism
-at DiT-XL's widths before anything starts (their kernels do not take them
-yet).
+trains on every path (the default and the fused MLP backward, one model
+rank or context parallelism), DiT-XL (head dim 72, D 1152) included.
 
 One process, or one per device under torchrun (RANK, WORLD_SIZE and
 LOCAL_RANK in the environment): each rank joins the process group
@@ -72,8 +70,6 @@ from osu_diffusion_tpu_torch.data.dataset import (
 )
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
-from osu_diffusion_tpu_torch.ops.banded_attention import CP_HEAD_DIM
-from osu_diffusion_tpu_torch.ops.gemm_plan import BWD_WIDTHS
 from osu_diffusion_tpu_torch.parallel.context import BLOCK
 from osu_diffusion_tpu_torch.parallel.mesh import make_mesh
 from osu_diffusion_tpu_torch.train import checkpoint as ckpt_lib
@@ -150,28 +146,6 @@ def check_parallel(config: TrainConfig) -> int:
     return band
 
 
-def check_kernel_widths(config: TrainConfig) -> None:
-    """The train paths whose kernels do not take the model's widths yet
-    raise a ValueError here, before any process group, model or launch:
-    the fused MLP backward at DiT-XL's D 1152, and context parallelism at
-    its head dim 72 (the ranged LSE forward and backward). ROADMAP.md
-    queues both; the default path (--mlp-bwd xla, one model rank) takes
-    every model."""
-    with torch.device("meta"):  # the widths only: no weights are made
-        attn = DiT_models[config.model](num_classes=1).blocks[0].attn
-    d = attn.in_proj_weight.shape[1]
-    dh = d // attn.num_heads
-    if config.mlp_bwd == "fused" and d not in BWD_WIDTHS:
-        raise ValueError(f"--model {config.model} --mlp-bwd fused: the fused MLP backward kernels take "
-                         f"D in {BWD_WIDTHS}, not {d}; at this width they are the next slice of the "
-                         "port, queued in ROADMAP.md (--mlp-bwd xla trains it)")
-    if config.num_model > 1 and dh != CP_HEAD_DIM:
-        raise ValueError(f"--model {config.model} --num-model {config.num_model} --context-parallel: "
-                         f"the ranged attention kernels take head dim {CP_HEAD_DIM}, not {dh}; at this "
-                         "head dim they are the next slice of the port, queued in ROADMAP.md (one model "
-                         "rank trains it)")
-
-
 def _join_process_group(config: TrainConfig) -> tuple[torch.device, bool]:
     """Under torchrun, join the process group (unless the caller did) and
     take this rank's device; returns (device, whether this call joined)."""
@@ -245,7 +219,6 @@ def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
     experiment_dir, checkpoint_dir, ema} (`ema`: the EMA model, on the
     training device)."""
-    check_kernel_widths(config)
     band = check_parallel(config)
     device, joined = _join_process_group(config)
     try:

@@ -4,11 +4,13 @@
   backward) against `banded_flash_attention_ranged` and its VJP (Pallas in
   interpret mode) on one device: left edge, interior, right edge with a
   padded tail, a band below one tile and a halo of two blocks; the output,
-  LSE and dq on the rows [q_lo, q_hi), dk and dv on every row.
-- `context_parallel_banded_attention` on gloo ranks (P = 2 and 4), against
-  the JAX one (`use_pallas=True`) on the virtual 8-device mesh and against
-  the port's one-device `banded_attention`: output and the gradients of
-  sum(sin(out)).
+  LSE and dq on the rows [q_lo, q_hi), dk and dv on every row; and the
+  first three again at DiT-XL's head dim 72 (the CP training shard, band
+  128).
+- `context_parallel_banded_attention` on gloo ranks (P = 2 and 4, and P = 2
+  at head dim 72), against the JAX one (`use_pallas=True`) on the virtual
+  8-device mesh and against the port's one-device `banded_attention`:
+  output and the gradients of sum(sin(out)).
 - One CP training step of a small DiT on a (1 x 4) and a (2 data x 2 model)
   grid of gloo ranks, with JAX's draws fed in, against `make_train_step`
   with the JAX mesh of the same shape.
@@ -82,24 +84,29 @@ def _qkv(n, h, t, dh, seed):
 # the ranged plain versions against the JAX ranged kernel, one device
 # ---------------------------------------------------------------------------
 
-# (name, T_loc, band, shard index, shards, valid_len)
+# (name, T_loc, band, shard index, shards, valid_len, head dim); the last
+# three: DiT-XL's CP training shard (head dim 72, band 128) at its left
+# edge, an interior shard and the right edge with a padded tail
 RANGED_CASES = [
-    ("left_edge", 256, 96, 0, 2, None),
-    ("interior", 256, 96, 1, 3, None),
-    ("right_edge_tail", 256, 96, 1, 2, 380),
-    ("band_below_tile", 128, 48, 0, 2, None),
-    ("halo_two_blocks", 256, 160, 1, 3, None),
+    ("left_edge", 256, 96, 0, 2, None, 16),
+    ("interior", 256, 96, 1, 3, None, 16),
+    ("right_edge_tail", 256, 96, 1, 2, 380, 16),
+    ("band_below_tile", 128, 48, 0, 2, None, 16),
+    ("halo_two_blocks", 256, 160, 1, 3, None, 16),
+    ("left_edge_dh72", 256, 128, 0, 2, None, 72),
+    ("interior_dh72", 256, 128, 1, 3, None, 72),
+    ("right_edge_tail_dh72", 256, 128, 1, 2, 380, 72),
 ]
 
 
-@pytest.mark.parametrize("name,t_loc,band,idx,p,valid", RANGED_CASES, ids=[c[0] for c in RANGED_CASES])
-def test_ranged_plain_matches_jax_ranged_kernel(name, t_loc, band, idx, p, valid):
+@pytest.mark.parametrize("name,t_loc,band,idx,p,valid,dh", RANGED_CASES, ids=[c[0] for c in RANGED_CASES])
+def test_ranged_plain_matches_jax_ranged_kernel(name, t_loc, band, idx, p, valid, dh):
     halo = -(-band // 128) * 128
     bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
     k_lo, k_hi, q_lo, q_hi = bounds
     t_ext = t_loc + 2 * halo
-    q, k, v = _qkv(1, 2, t_ext, 16, seed=t_ext + band + idx)
-    g = np.random.RandomState(7).randn(1, 2, t_ext, 16).astype(np.float32)
+    q, k, v = _qkv(1, 2, t_ext, dh, seed=t_ext + band + idx)
+    g = np.random.RandomState(7).randn(1, 2, t_ext, dh).astype(np.float32)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
 
     want_o, want_lse = pa._ranged_fwd_impl(jq, jk, jv, jnp.asarray(bounds, jnp.int32), band, 128,
@@ -136,20 +143,23 @@ def test_ranged_plain_matches_jax_ranged_kernel(name, t_loc, band, idx, p, valid
 # the spawned gloo worlds
 # ---------------------------------------------------------------------------
 
-# (name, world = shards, band, JAX block, T, valid_len): the configurations
-# of tests/test_context_parallel.py, the 8-shard one on 4 ranks
+# (name, world = shards, band, JAX block, T, valid_len, head dim): the
+# configurations of tests/test_context_parallel.py, the 8-shard one on 4
+# ranks; and DiT-XL's head dim 72 on the CP training window (seq-len 512
+# over 2 ranks, band 128)
 ATTN_CASES = [
-    ("p2_band48", 2, 48, 64, 256, None),
-    ("p4_band128", 4, 128, 128, 1024, None),
-    ("p4_band160_halo2", 4, 160, 128, 1024, None),
-    ("p4_tail380", 4, 96, 64, 512, 380),
+    ("p2_band48", 2, 48, 64, 256, None, 16),
+    ("p4_band128", 4, 128, 128, 1024, None, 16),
+    ("p4_band160_halo2", 4, 160, 128, 1024, None, 16),
+    ("p4_tail380", 4, 96, 64, 512, 380, 16),
+    ("p2_band128_dh72", 2, 128, 128, 512, None, 72),
 ]
 
 
-def _attn_case(name, p, band, block, t, valid):
-    q, k, v = _qkv(2, 2, t, 16, seed=t + band)
+def _attn_case(name, p, band, block, t, valid, dh):
+    q, k, v = _qkv(2, 2, t, dh, seed=t + band)
     if valid is not None:  # a loud padded tail past valid_len, as the JAX test pads it
-        g = np.random.RandomState(9).randn(2, 2, t - valid, 16).astype(np.float32) * 30
+        g = np.random.RandomState(9).randn(2, 2, t - valid, dh).astype(np.float32) * 30
         for a in (q, k, v):
             a[:, :, valid:] = g
     return {"name": name, "num_model": p, "band": band, "valid_len": valid,
@@ -275,7 +285,7 @@ def _spawn_world(world, workdir):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}: world 2 runs the P = 2
-    attention case and a sampler drawing from a generator; world 4 the
+    attention cases and a sampler drawing from a generator; world 4 the
     P = 4 attention cases, the (1 x 4) and (2 x 2) train steps and the
     sampler with JAX's noise."""
     workdir = tmp_path_factory.mktemp("cp")
@@ -309,9 +319,9 @@ def _gathered(results, kind, i, key):
     return torch.cat([r[kind][i][key] for r in results], dim=2).numpy()
 
 
-@pytest.mark.parametrize("name,p,band,block,t,valid", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
-def test_cp_attention_matches_jax_and_one_device(worlds, name, p, band, block, t, valid):
-    case = _attn_case(name, p, band, block, t, valid)
+@pytest.mark.parametrize("name,p,band,block,t,valid,dh", ATTN_CASES, ids=[c[0] for c in ATTN_CASES])
+def test_cp_attention_matches_jax_and_one_device(worlds, name, p, band, block, t, valid, dh):
+    case = _attn_case(name, p, band, block, t, valid, dh)
     i = [c[0] for c in ATTN_CASES if c[1] == p].index(name)
     results = worlds[p]
     got = {key: _gathered(results, "attn", i, key) for key in ("out", "dq", "dk", "dv")}

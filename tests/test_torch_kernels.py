@@ -257,7 +257,7 @@ def test_banded_attention_train_kernels_at_head_dim_72(cuda_device, n, h, t, val
     """Rows 2-4 at DiT-XL's head dim 72 (the XL training shape, a ragged T
     with valid_len < T and band < T, three 128-row blocks), Hopper bodies in
     bf16 and WMMA dq and dk/dv in f32, against the plain versions at the
-    tolerances above; the ranged LSE forward and backward refuse 72."""
+    tolerances above."""
     g = torch.Generator(device=cuda_device).manual_seed(t + band + 72)
     q, k, v = _qkv_heads(n, t, h, dtype, g, cuda_device, dh=72)
     do = torch.randn((n, t, h, 72), generator=g, device=cuda_device).to(dtype).permute(0, 2, 1, 3)
@@ -275,8 +275,6 @@ def test_banded_attention_train_kernels_at_head_dim_72(cuda_device, n, h, t, val
         assert torch.isfinite(got).all(), name
         assert _rel(got, w) <= 1e-2, name
     assert (dq[:, :, valid:] == 0).all() and (dk[:, :, valid:] == 0).all()
-    with pytest.raises(ValueError, match="context parallelism"):
-        tba.banded_attention_ranged_fwd_lse(q, k, v, band, (0, t, 0, t))
 
 
 @pytest.mark.cuda
@@ -375,15 +373,15 @@ def test_banded_attention_backward_is_bit_identical_run_to_run(cuda_device, rang
     assert first[0].abs().max().item() > 0
 
 
-def _ranged_inputs(n, h, t_loc, band, idx, p, valid, dtype, g, device):
-    """A shard's halo-extended (N, H, T_ext, 64) q, k, v (one contiguous
+def _ranged_inputs(n, h, t_loc, band, idx, p, valid, dtype, g, device, dh=64):
+    """A shard's halo-extended (N, H, T_ext, dh) q, k, v (one contiguous
     layout, as parallel/context.py builds them), an upstream gradient in
     the kernels' output layout, and the shard's bounds."""
     halo = -(-band // 128) * 128
     bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
     t_ext = t_loc + 2 * halo
-    q, k, v = (torch.randn((n, h, t_ext, 64), generator=g, device=device).to(dtype) for _ in range(3))
-    do = torch.randn((n, t_ext, h, 64), generator=g, device=device).to(dtype).permute(0, 2, 1, 3)
+    q, k, v = (torch.randn((n, h, t_ext, dh), generator=g, device=device).to(dtype) for _ in range(3))
+    do = torch.randn((n, t_ext, h, dh), generator=g, device=device).to(dtype).permute(0, 2, 1, 3)
     return q, k, v, do, bounds
 
 
@@ -429,8 +427,23 @@ def test_banded_attention_ranged_kernels_match_plain(cuda_device, t_loc, band, i
     bf16-rounded operands, at the tolerances of the unranged kernels: o and
     the LSE on the rows [q_lo, q_hi), dq there (0 on the pad rows), dk and
     dv on every row (0 on masked keys); one launch of each wrapper."""
-    g = torch.Generator(device=cuda_device).manual_seed(t_loc + band + idx)
-    q, k, v, do, bounds = _ranged_inputs(2, 3, t_loc, band, idx, p, valid, dtype, g, cuda_device)
+    _check_ranged_kernels(cuda_device, t_loc, band, idx, p, valid, dtype, dh=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("t_loc,band,idx,p,valid", [(256, 128, 0, 2, None), (256, 128, 1, 2, None),
+                                                    (256, 96, 1, 3, None), (384, 128, 1, 2, 757)])
+def test_banded_attention_ranged_kernels_at_head_dim_72(cuda_device, t_loc, band, idx, p, valid, dtype):
+    """The same at DiT-XL's head dim 72 (XL under context parallelism): the
+    CP training shard's two edges, an interior shard and a tail inside a
+    shard."""
+    _check_ranged_kernels(cuda_device, t_loc, band, idx, p, valid, dtype, dh=72)
+
+
+def _check_ranged_kernels(cuda_device, t_loc, band, idx, p, valid, dtype, dh):
+    g = torch.Generator(device=cuda_device).manual_seed(t_loc + band + idx + (dh != 64) * dh)
+    q, k, v, do, bounds = _ranged_inputs(2, 3, t_loc, band, idx, p, valid, dtype, g, cuda_device, dh)
     k_lo, k_hi, q_lo, q_hi = bounds
     wrappers = (tba.banded_attention_ranged, tba.banded_attention_ranged_fwd_lse,
                 tba.banded_attention_ranged_bwd_dq, tba.banded_attention_ranged_bwd_dkv)
@@ -539,7 +552,7 @@ def _bwd_inputs(n, t, d, dtype, g, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 @pytest.mark.parametrize("n,t,d", [(4, 128, 768), (3, 50, 768), (2, 100, 384), (1, 40, 1024),
-                                   (2, 757, 1024)])
+                                   (2, 757, 1024), (4, 128, 1152), (3, 50, 1152)])
 def test_adaln_mlp_bwd_kernels_match_plain(cuda_device, n, t, d, dtype):
     """The fused backward's two stages against their plain versions on the
     same bf16 operands, each output within 1e-2 of its max (the reasons of

@@ -5,7 +5,9 @@ on the CPU: its tile plan, and a plain staged version that walks it.
   columns over a depth of D, 128-wide tiles; dh1: D columns over H) on the
   card, hands every output tile to exactly one CTA, and every 128-row
   block's db1 partial is written by tiles that cover all H columns once,
-  at the three kernel widths, ragged T and the DiT-B training shape.
+  at the four kernel widths (DiT-S/B/L and DiT-XL's D; at 1152 the dh1
+  GEMM's 1152 columns take 128-wide tiles), ragged T and the DiT-B
+  training shape.
 - `adaln_mlp_bwd_staged` (the dmlp pass, the two GEMMs tile by tile in each
   CTA's order with B in torch's layout, their epilogues with the per-row-
   block db1 partials, the row pass, every sum of partials in the kernels'
@@ -124,7 +126,7 @@ def _inputs(n, t, d, hdim, seed):
 
 
 # (name, N, T, D, H, SMs, JAX block_t): few SMs at narrow widths, so that
-# each CTA walks several tiles; then the kernel widths at one short row
+# each CTA walks several tiles; then the kernel widths (DiT-XL's 1152 last) at one short row
 STAGED_CASES = [
     ("t50_n3_straddle", 3, 50, 128, 512, 2, 16),
     ("below_one_row_block", 1, 50, 128, 512, 2, 16),
@@ -132,6 +134,7 @@ STAGED_CASES = [
     ("d384", 1, 40, 384, 1536, H100_SMS, 8),
     ("d768", 1, 24, 768, 3072, H100_SMS, 8),
     ("d1024", 1, 16, 1024, 4096, H100_SMS, 8),
+    ("d1152", 1, 16, 1152, 4608, H100_SMS, 8),
 ]
 
 

@@ -1,10 +1,10 @@
 """DiT-XL in the PyTorch port against the JAX package, on the CPU: the
 model at XL widths (hidden 1152, 16 heads of 72, MLP 4608), depth cut to
 2 (the int8 model to 1), built from JAX params through the conversion;
-the tile plans of the XL GEMMs; and the training entries' widths: the
-unranged attention entries and kernel B's training forward take XL, the
-ones that do not take it yet (the ranged attention entries with LSE and
-backward, the fused MLP backward) refuse it plainly. XL training itself is
+the tile plans of the XL GEMMs; and the training entries' widths: every
+attention entry (unranged and ranged) and every MLP training entry
+(kernel B's training forward, the fused backward) takes XL, and refuses a
+width no kernel is built for before any launch. XL training itself is
 held to JAX in tests/test_torch_xl_train.py.
 
 Tolerances:
@@ -171,46 +171,45 @@ def _head_views(dh, dtype=torch.float32, n=1, h=2, t=64):
 
 
 def test_attention_training_entries_refuse_xl_head_dim():
-    """The unranged training entries (the LSE forward, dq and dk/dv) take
-    Dh 72 (DiT-XL training), as the inference forwards do; the ranged LSE
-    forward and backward (context parallelism) take Dh 64 only: at 72 the
-    input checks they run before any launch raise a ValueError naming XL
-    under context parallelism and ROADMAP.md. No other head dim passes."""
-    assert tba.HEAD_DIMS == (64, 72) and tba.CP_HEAD_DIM == 64
-    for dh in tba.HEAD_DIMS:  # the inference forwards and the unranged training entries
+    """Every training entry, unranged (the LSE forward, dq and dk/dv: XL
+    training) and ranged (context parallelism: XL under CP), takes Dh 72 as
+    the inference forwards do; the input checks the wrappers run before any
+    launch refuse any other head dim with a ValueError, the ranged
+    backward's launch path included."""
+    assert tba.HEAD_DIMS == (64, 72)
+    assert not hasattr(tba, "CP_HEAD_DIM")  # one set of head dims for every entry
+    for dh in tba.HEAD_DIMS:
         tba._check_head_dim(dh)
-    tba._check_head_dim(64, ranged_training=True)
-    q, k, v = _head_views(72, bf16)
+    q, k, v = _head_views(80, bf16)
     for tensors in (dict(q=q, k=k, v=v), dict(o=q, do=k)):
-        with pytest.raises(ValueError, match="context parallelism.*ROADMAP"):
-            tba._check_kernel_inputs(bf16, ranged_training=True, **tensors)
-    with pytest.raises(ValueError, match="context parallelism.*ROADMAP"):  # the ranged dq's launch path
+        with pytest.raises(ValueError, match=r"head dims \(64, 72\)"):
+            tba._check_kernel_inputs(bf16, **tensors)
+    with pytest.raises(ValueError, match=r"head dims \(64, 72\)"):  # the ranged dq's launch path
         tba._launch_bwd(tba.banded_attention_ranged_bwd_dq, "dq", q, k, v, q, torch.zeros(2, 64), k, 16, 64,
                         bf16, bounds=(0, 64, 0, 64))
-    with pytest.raises(ValueError, match=r"head dims \(64, 72\)"):
-        tba._check_head_dim(80)
 
 
 @pytest.mark.parametrize("entry", ["train_forward", "bwd_prologue", "bwd_epilogue"])
 def test_mlp_training_entries_refuse_xl_width(entry):
-    """Kernel B's training forward takes DiT-XL's D 1152, as the serving
-    forwards do; the fused backward's two stages take D up to 1024: at 1152
-    their input checks raise a ValueError naming --mlp-bwd fused and
-    ROADMAP.md before any launch."""
-    n, t, d, hdim = 1, 8, HIDDEN, 4 * HIDDEN
+    """Kernel B's training forward and the fused backward's two stages take
+    DiT-XL's D 1152, as the serving forwards do; at a width no kernel is
+    built for (1280) their input checks raise a ValueError before any
+    launch."""
+    n, t, hdim = 1, 8, 4 * HIDDEN
+    assert HIDDEN in tam.TRAIN_WIDTHS and HIDDEN in tam.BWD_WIDTHS and HIDDEN in SERVE_WIDTHS
+    widths = tam.TRAIN_WIDTHS if entry == "train_forward" else tam.BWD_WIDTHS
+    tam._check_widths(torch.randn(n, t, HIDDEN).to(bf16), hdim, bf16, widths)
+    d = 1280
     x = torch.randn(n, t, d).to(bf16)
     mod = torch.randn(n, d)
-    w1, w2 = torch.randn(hdim, d).to(bf16), torch.randn(d, hdim).to(bf16)
-    a = torch.randn(n, t, hdim).to(bf16)
+    w1, w2 = torch.randn(4 * d, d).to(bf16), torch.randn(d, 4 * d).to(bf16)
+    a = torch.randn(n, t, 4 * d).to(bf16)
     mlp = torch.randn(n, t, d)
-    if entry == "train_forward":
-        assert d in tam.TRAIN_WIDTHS and d in SERVE_WIDTHS
-        tam._check_widths(x, hdim, bf16, tam.TRAIN_WIDTHS)
-        return
-    assert d not in tam.BWD_WIDTHS
-    with pytest.raises(ValueError, match="--mlp-bwd fused.*ROADMAP"):
-        if entry == "bwd_prologue":
+    with pytest.raises(ValueError, match="the kernel takes D in"):
+        if entry == "train_forward":
+            tam._launch(tam.adaln_mlp_train, x, mod, mod, mod, w1, mod[0], w2, mod[0], 1e-6, bf16,
+                        residuals=True)
+        elif entry == "bwd_prologue":
             tam._bwd_prologue_launch(x, mlp, a, mod, w2, bf16)
         else:
             tam._bwd_epilogue_launch(a, x, x, mod, mod, w1, 1e-6, bf16)
-    tam._check_widths(x, hdim, bf16, SERVE_WIDTHS)  # the inference forwards take it

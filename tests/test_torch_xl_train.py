@@ -21,6 +21,16 @@ widths.
   `test_dit_loss_and_grads_match_jax` tolerances for the Pallas path (5e-3
   of each tensor's max in the f32 stream, 5e-2 in the bf16 stream, which is
   compared under the MSE loss).
+- The same with the MLP's fused backward on both sides (rows 9a/9b at D
+  1152: JAX's `_bwd_fused_impl` Pallas kernels, the port's plain
+  versions), at the same tolerances.
+- Rows 5 (with LSE) and 6 at head dim 72 alone, bf16 operands: the port's
+  ranged plain versions against JAX's `_ranged_fwd_impl` and
+  `_ranged_bwd_impl` (the backward from JAX's o and LSE) on the CP training
+  shard (band 128, halo 128) at its left edge, an interior shard and the
+  right edge with a padded tail, at the unranged rows' tolerances.
+- The train CLI's argument path at `--model DiT-XL` with `--mlp-bwd fused`,
+  `--num-model 2 --context-parallel` or both reaches the training loop.
 - Two full AdamW + EMA train steps of `train_step` against JAX
   `make_train_step`, as tests/test_torch_train.py's
   `test_two_train_steps_match_jax` and at its tolerances: f32 stream,
@@ -33,6 +43,8 @@ widths.
   the final layer's 4608 landed 8.4e-6 off, every other within 5e-6; at
   1e-3 every weight within 9e-7).
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,33 +116,85 @@ def test_two_xl_train_steps_match_jax():
     _check_two_train_steps(eps=1e-3, **XL_WIDTHS)
 
 
-@pytest.mark.parametrize("flags,match", [(["--mlp-bwd", "fused"], "fused MLP backward"),
-                                         (["--num-model", "2", "--context-parallel"], "ranged attention")],
-                         ids=["mlp_bwd_fused", "context_parallel"])
-def test_train_cli_refuses_xl_paths_before_the_first_step(tmp_path, monkeypatch, flags, match):
-    """`--model DiT-XL` with --mlp-bwd fused or --num-model 2
-    --context-parallel: the train CLI's argument path raises a ValueError
-    naming what is missing and ROADMAP.md before it joins a process group,
-    builds a model or writes anything (so no kernel can launch)."""
+@pytest.mark.parametrize("stream", ["f32", "bf16"])
+def test_xl_loss_and_grads_with_fused_mlp_bwd_match_jax(interpret_mode, stream):
+    """The same comparison with the MLP's fused backward on both sides (JAX
+    `DiTConfig.mlp_bwd="fused"`, whose `_bwd_fused_impl` runs its two Pallas
+    kernels at D 1152; the port's `DiT(mlp_bwd="fused")`, rows 9a/9b's plain
+    versions): tests/test_torch_train.py's fused-path tolerances."""
+    _check_loss_and_grads("fused", stream, **XL_WIDTHS)
+
+
+# (name, T_loc, shard index, shards, valid_len) of the CP training shard at
+# band 128 (halo 128): the left edge, an interior shard and the right edge
+# with a padded tail inside it
+RANGED_XL_CASES = [("left_edge", 256, 0, 2, None), ("interior", 256, 1, 3, None),
+                   ("right_edge_tail", 256, 1, 2, 380)]
+RANGED_BAND = 128
+
+
+@pytest.mark.parametrize("t_loc,idx,p,valid", [c[1:] for c in RANGED_XL_CASES], ids=[c[0] for c in RANGED_XL_CASES])
+def test_ranged_rows_at_head_dim_72_match_jax(interpret_mode, t_loc, idx, p, valid):
+    """Rows 5 (with LSE) and 6 at Dh 72 with bf16 operands (XL under context
+    parallelism): the port's ranged plain versions against JAX's
+    `_ranged_fwd_impl` and `_ranged_bwd_impl` (the `banded_flash_attention_ranged`
+    VJP's halves), the backward from JAX's o and LSE, at the unranged rows'
+    tolerances above: o, the LSE and dq on the rows [q_lo, q_hi) (dq 0 on the
+    pad rows), dk and dv on every row (0 on masked keys)."""
+    from osu_diffusion_tpu_torch.parallel.context import shard_bounds
+
+    halo = RANGED_BAND
+    bounds = shard_bounds(t_loc, halo, types.SimpleNamespace(model_rank=idx, num_model=p), valid)
+    k_lo, k_hi, q_lo, q_hi = bounds
+    t = t_loc + 2 * halo
+    n, h = 1, 2
+    r = np.random.RandomState(t_loc + idx + p)
+    q, k, v, g = (r.randn(n, h, t, DH).astype(np.float32) for _ in range(4))
+    jq, jk, jv, jg = (jnp.asarray(a) for a in (q, k, v, g))
+    jb = jnp.asarray(bounds, jnp.int32)
+    o, lse = pa._ranged_fwd_impl(jq, jk, jv, jb, RANGED_BAND, BLOCK, jnp.bfloat16, with_lse=True)
+    want_d = pa._ranged_bwd_impl(jq, jk, jv, o, lse, jg, jb, RANGED_BAND, BLOCK, jnp.bfloat16)
+    o, lse = np.array(o), np.array(lse)
+    tq, tk, tv, tg = (torch.from_numpy(a) for a in (q, k, v, g))
+    got_o, got_lse = tba.banded_attention_ranged_fwd_lse(tq, tk, tv, RANGED_BAND, bounds, torch.bfloat16)
+    rows = slice(q_lo, q_hi)
+    assert _rel(got_o[:, :, rows], o[:, :, rows]) <= ATTN_TOL
+    keyed = lse[:, rows] > -1e29
+    assert keyed.any()
+    assert np.abs(got_lse[:, rows].numpy()[keyed] - lse[:, rows][keyed]).max() <= LSE_TOL
+    to, tlse = torch.from_numpy(o), torch.from_numpy(lse)
+    dq = tba.banded_attention_ranged_bwd_dq(tq, tk, tv, to, tlse, tg, RANGED_BAND, bounds, torch.bfloat16)
+    dk, dv = tba.banded_attention_ranged_bwd_dkv(tq, tk, tv, to, tlse, tg, RANGED_BAND, bounds, torch.bfloat16)
+    want_d = [np.asarray(a) for a in want_d]
+    assert _rel(dq[:, :, rows], want_d[0][:, :, rows]) <= ATTN_TOL
+    assert not dq[:, :, :q_lo].any() and not dq[:, :, q_hi:].any()
+    for name, got, w in (("dk", dk, want_d[1]), ("dv", dv, want_d[2])):
+        assert _rel(got, w) <= ATTN_TOL, name
+    assert not dk[:, :, :k_lo].any() and not dv[:, :, max(k_lo, k_hi):].any()
+
+
+CP_FLAGS = ["--num-model", "2", "--context-parallel", "--seq-len", "512", "--band", "128"]
+
+
+@pytest.mark.parametrize("flags", [["--mlp-bwd", "fused"], CP_FLAGS, ["--mlp-bwd", "fused", *CP_FLAGS]],
+                         ids=["mlp_bwd_fused", "context_parallel", "both"])
+def test_train_cli_takes_xl_paths(tmp_path, monkeypatch, flags):
+    """`--model DiT-XL` with --mlp-bwd fused, --num-model 2
+    --context-parallel or both: the train CLI's argument path reaches the
+    training loop with those settings (the loop and the process group
+    replaced here: the card runs them, chip_smoke.py [xl-train-fused] and
+    [xl-train-cp])."""
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.train import trainer
 
     reached = []
-    monkeypatch.setattr(trainer, "_join_process_group", lambda *a, **k: reached.append("join"))
-    monkeypatch.setattr(trainer, "_train", lambda *a, **k: reached.append("train"))
-    out = tmp_path / "results"
+    monkeypatch.setattr(trainer, "_join_process_group", lambda config: (torch.device(config.device), False))
+    monkeypatch.setattr(trainer, "_train", lambda config, band, device: reached.append((config, band)) or {})
     args = build_train_parser().parse_args(["--data-path", str(tmp_path), "--model", "DiT-XL", "--device", "cpu",
-                                            "--results-dir", str(out), *flags])
-    with pytest.raises(ValueError, match=f"{match}.*ROADMAP"):
-        train_main(args)
-    assert not reached and not out.exists()
-
-
-def test_xl_default_train_path_passes_the_width_checks():
-    """The default path at DiT-XL (--mlp-bwd xla, one model rank) and the
-    refused paths at the other models' widths pass `check_kernel_widths`."""
-    from osu_diffusion_tpu_torch.train.trainer import TrainConfig, check_kernel_widths
-
-    check_kernel_widths(TrainConfig(data_path="", model="DiT-XL"))
-    for model in ("DiT-S", "DiT-B", "DiT-L"):
-        check_kernel_widths(TrainConfig(data_path="", model=model, mlp_bwd="fused", num_model=2))
+                                            "--results-dir", str(tmp_path / "results"), *flags])
+    train_main(args)
+    (config, band), = reached
+    assert config.model == "DiT-XL"
+    assert config.mlp_bwd == ("fused" if "fused" in flags else "xla")
+    assert config.num_model == (2 if "--context-parallel" in flags else 1)
+    assert band == (128 if "--context-parallel" in flags else config.seq_len)
