@@ -214,6 +214,22 @@ Phases (any failure raises and exits non-zero):
    of the same seed (`[xl-train-cp]`: losses within CP_LOSS_REL_TOL, the
    ranged entries' and rows 8 and 9a/9b's launch counts on every rank, s
    per step, each rank's peak device memory).
+21. Tensor parallelism. After 20's kernels, rows 8, 9a and 9b on one model
+   rank's shard of the hidden units, H = 4D/P (`[mlp-tp]`: DiT-B at P = 2
+   and 4, DiT-XL at P = 2 and 4, DiT-S and DiT-L widths, the f32 stream),
+   every rank of each case, the first whole and the others with the
+   rank-partial argument (no b2, residual x or residual g), against their
+   plain versions at `[mlp-train]`'s and `[mlp-bwd]`'s tolerances; the
+   row's sums of out, mlp, dx, dshift, dscale and dgate against the whole
+   MLP half's f32 plain version; the builds' registers and spills (0
+   required); at DiT-B P = 2 and DiT-XL P = 2 and 4 the times beside
+   bounds, plain versions and the cuBLAS products of the shard's shape.
+   After 13, the train CLI at DiT-B with --num-model 2 --dist gloo (no
+   --context-parallel) on two ranks sharing the card (this script with
+   --tp-rank), with the default and with --mlp-bwd fused, beside one
+   process of the same seed and flags (`[train-tp]`: losses within
+   CP_LOSS_REL_TOL, rows 2-4, 8 and 9a/9b launched on every rank as in one
+   process, s per step, each rank's parameters and peak device memory).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -375,6 +391,18 @@ MLP_BWD_CASES = [("main", 256, 128, 768, "bf16"), ("ragged_t_n3", 3, 50, 768, "b
 # ragged T with N = 3 in both
 MLP_BWD_XL_CASES = [("main", 256, 128, 1152, "bf16"), ("main_f32", 256, 128, 1152, "f32"),
                     ("ragged_t_n3", 3, 50, 1152, "bf16"), ("ragged_t_n3_f32", 3, 50, 1152, "f32")]
+# [mlp-tp]: rows 8, 9a and 9b on one tensor-parallel rank's hidden units,
+# H = 4D/P: (name, N, T, D, P, stream); the main_* cases (the training
+# shape at DiT-B P = 2 and DiT-XL P = 2 and 4) are timed
+MLP_TP_CASES = [("main_b_p2", 256, 128, 768, 2, "bf16"), ("main_xl_p2", 256, 128, 1152, 2, "bf16"),
+                ("main_xl_p4", 256, 128, 1152, 4, "bf16"), ("b_p4_ragged_t", 3, 50, 768, 4, "bf16"),
+                ("s_p4", 2, 100, 384, 4, "bf16"), ("l_p2_t757", 1, 757, 1024, 2, "bf16"),
+                ("b_p2_f32", 4, 128, 768, 2, "f32")]
+# [train-tp]: the train CLI at DiT-B, --num-model TP_RANKS without
+# --context-parallel, two gloo ranks sharing the card
+TP_RANKS = 2
+TP_BATCH = 32
+TP_STEPS = 5
 # context parallelism: two ranks share the card over gloo (NCCL refuses two
 # ranks on one device), so its times say nothing of NCCL across cards
 CP_RANKS = 2
@@ -1453,6 +1481,144 @@ def phase_mlp_bwd(dev, tag="mlp-bwd", cases=MLP_BWD_CASES):
                              "library_ms": None, "cublas_product_ms": cublas[stage]}
         whole_ms = {k: sum(v) / len(v) for k, v in whole.items()}
     return results, whole_ms
+
+
+def phase_mlp_tp(dev, cases=MLP_TP_CASES):
+    """[mlp-tp]: rows 8, 9a and 9b on the shards tensor parallelism gives
+    them: for each case every model rank's hidden units (fc1's rows and
+    b1, fc2's columns; H = 4D/P), rank 0 whole and the others with the
+    rank-partial argument, against their plain versions on the same shard
+    (bf16 operands, and f32) at [mlp-train]'s and [mlp-bwd]'s tolerances,
+    with their bodies; the row's sums (out, mlp, and the epilogue's dx,
+    dshift, dscale and the prologue's dgate) against the whole MLP half's
+    f32 plain forward and backward. At the main_* cases rank 1's (a
+    partial's) times beside bounds, plain versions and the cuBLAS products
+    of the shard's shape, and rank 0's forward. Returns {case: numbers}."""
+    import torch
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+
+    g = torch.Generator(device=dev).manual_seed(8)
+    bf16, f32 = torch.bfloat16, torch.float32
+    wall = time.perf_counter()
+    print(f"[mlp-tp] the builds these shards run (ptxas): forward {mlp_sm90_resources()}; backward "
+          f"{mlp_bwd_sm90_resources()}; f32 backward {mlp_bwd_wmma_resources(768)}")
+    results = {}
+    for name, n, t, d, p, stream in cases:
+        dtype = f32 if stream == "f32" else bf16
+        hdim = 4 * d
+        hs = hdim // p
+
+        def rnd(*shape, std):
+            return torch.randn(shape, generator=g, device=dev) * std
+
+        x = rnd(n, t, d, std=1.0).to(dtype)
+        mod = rnd(n, 6 * d, std=0.3)
+        shift, scale, gate = mod[:, 3 * d:4 * d], mod[:, 4 * d:5 * d], mod[:, 5 * d:]
+        w1, w2 = rnd(d, hdim, std=d ** -0.5), rnd(hdim, d, std=hdim ** -0.5)
+        b1, b2 = rnd(hdim, std=0.02), rnd(d, std=0.02)
+        w1b, w2b = w1.to(bf16), w2.to(bf16)
+        gout = rnd(n, t, d, std=1.0).to(dtype)
+        sums = {k: 0.0 for k in ("out", "mlp", "dx", "dshift", "dscale", "dgate")}
+        errs, bodies, row8 = {}, set(), {}
+        for r in range(p):
+            cols = slice(r * hs, (r + 1) * hs)
+            partial = r > 0
+            fc1_w, fc2_w = w1b[:, cols].t().contiguous(), w2b[cols].t().contiguous()
+            b1r = b1[cols].contiguous()
+            fwd = am.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1r, fc2_w, b2, partial=partial)
+            pro = am.adaln_mlp_bwd_prologue(gout, fwd[2], fwd[1], gate, fc2_w)
+            epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w, partial=partial)
+            torch.cuda.synchronize()
+            bodies.add((am.adaln_mlp_train.body, am.adaln_mlp_bwd_prologue.body, am.adaln_mlp_bwd_epilogue.body))
+            wants = {}
+            for key, w1k, w2k, mdt in (("bf16", w1b, w2b, bf16), ("f32", w1, w2, f32)):
+                wf = am.adaln_mlp_train_reference(x, shift, scale, gate, w1k[:, cols], b1r, w2k[cols], b2,
+                                                  1e-6, mdt, partial)
+                wp = am.adaln_mlp_bwd_prologue_reference(gout, fwd[2], fwd[1], gate, w2k[cols], mdt)
+                we = am.adaln_mlp_bwd_epilogue_reference(pro[0], x, gout, shift, scale, w1k[:, cols], 1e-6,
+                                                         mdt, partial)
+                wants[key] = (*wf, *wp, *we)
+            got = (*fwd, *pro, *epi)
+            names = ("out", "a", "mlp", "da", "gelu_out", "dmlp", "dgate", "db1", "db2", "dx", "h1", "dshift",
+                     "dscale")
+            for out, u, v16, v32 in zip(names, got, wants["bf16"], wants["f32"]):
+                check(bool(torch.isfinite(u).all()), f"mlp-tp {name} rank {r}: non-finite {out}")
+                check(u.shape == v16.shape and u.dtype == v16.dtype, f"mlp-tp {name} rank {r}: {out} shape/type")
+                e16, e32 = rel_err(u, v16), rel_err(u, v32)
+                old = errs.get(out, (0.0, 0.0))
+                errs[out] = (max(old[0], e16), max(old[1], e32))
+            for k, v in (("out", fwd[0]), ("mlp", fwd[2]), ("dgate", pro[3]), ("dx", epi[0]), ("dshift", epi[2]),
+                         ("dscale", epi[3])):
+                sums[k] = sums[k] + v.float()
+            if name.startswith("main") and r < 2:  # rank 0 whole, rank 1 a partial
+                row8[r] = lambda args=(x, shift, scale, gate, fc1_w, b1r, fc2_w, b2), part=partial: (
+                    am.adaln_mlp_train(*args, partial=part))
+            if name.startswith("main") and r == 1:
+                # rows 8 whole and partial in turns (whole, partial, partial, whole)
+                turns = {0: [], 1: []}
+                for k in (0, 1, 1, 0):
+                    turns[k].append(cuda_ms(row8[k]))
+                ms, whole_ms = sum(turns[1]) / 2, sum(turns[0]) / 2
+                pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, fwd[2], fwd[1], gate, fc2_w))
+                epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w,
+                                                                   partial=True))
+                w1c, w2c = w1[:, cols], w2[cols]
+                plain = {"fwd": cuda_ms(lambda: am.adaln_mlp_train_reference(
+                             x, shift, scale, gate, w1c, b1r, w2c, b2, 1e-6, f32, True)),
+                         "pro": cuda_ms(lambda: am.adaln_mlp_bwd_prologue_reference(gout, fwd[2], fwd[1], gate,
+                                                                                    w2c, f32)),
+                         "epi": cuda_ms(lambda: am.adaln_mlp_bwd_epilogue_reference(
+                             pro[0], x, gout, shift, scale, w1c, 1e-6, f32, True))}
+                flops = 2 * n * t * d * hs
+                bounds = {"fwd": bound(nbytes(x, shift, scale, gate, fc1_w, b1r, fc2_w, *fwd), 2 * flops),
+                          "pro": bound(nbytes(gout, fwd[2], fwd[1], gate, fc2_w, *pro), flops),
+                          "epi": bound(nbytes(pro[0], x, shift, scale, fc1_w, *epi), flops)}
+                mats = {"pro": (torch.randn(n * t, d, device=dev, dtype=bf16),
+                                torch.randn(d, hs, device=dev, dtype=bf16)),
+                        "epi": (torch.randn(n * t, hs, device=dev, dtype=bf16),
+                                torch.randn(hs, d, device=dev, dtype=bf16))}
+                cublas = {k: cuda_ms(lambda u=u, v=v: torch.mm(u, v, out_dtype=f32)) for k, (u, v) in mats.items()}
+                cublas["fwd"] = cublas_mlp_ms(n, t, d, hs, dev)
+                del mats
+                results[name] = {"ms": {"fwd": ms, "pro": pro_ms, "epi": epi_ms}, "plain_ms": plain,
+                                 "bounds": bounds, "cublas_ms": cublas}
+            del fwd, pro, epi, wants, got
+        # the row's sums against the whole MLP half (f32 plain)
+        fw = am.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
+        bw = am.adaln_mlp_bwd(x, shift, scale, gate, w1.t(), w2.t(), fw[1], fw[2], gout, 1e-6, f32)
+        whole = {"out": fw[0], "mlp": fw[2], "dx": bw[0], "dshift": bw[1], "dscale": bw[2], "dgate": bw[3]}
+        sum_errs = {k: rel_err(sums[k], whole[k]) for k in sums}
+        del fw, bw, whole, sums
+        print(f"[mlp-tp] {name}: x=({n}, {t}, {d}) {stream}, {p} ranks of H {hs} (of {hdim}), bodies "
+              f"{sorted(bodies)}; worst rank of "
+              + " ".join(f"{k}={u:.2e}/{v:.2e}" for k, (u, v) in errs.items())
+              + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); the row's sums against the "
+              "whole MLP half's f32 plain version " + " ".join(f"{k}={v:.2e}" for k, v in sum_errs.items())
+              + f" (tol {TRAIN_TOL_F32})")
+        want_body = ("sm90", BODY[stream], BODY[stream])
+        check(bodies == {want_body}, f"mlp-tp {name}: bodies {bodies}, want {want_body}")
+        for out, (e16, e32) in errs.items():
+            check(e16 <= TRAIN_TOL_BF16, f"mlp-tp {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"mlp-tp {name} {out}: {e32} > {TRAIN_TOL_F32}")
+        for k, e in sum_errs.items():
+            check(e <= TRAIN_TOL_F32, f"mlp-tp {name}: the row's sum of {k} is {e} of max from the whole MLP")
+        if name in results:
+            res = results[name]
+            res["whole_rank_fwd_ms"] = whole_ms
+            print(f"[mlp-tp] {name} ({stream}, H {hs}): rank 1 (a partial): row 8 {res['ms']['fwd']:.4f} ms "
+                  f"(rank 0, whole: {whole_ms:.4f}; in turns whole, partial, partial, whole; bound {res['bounds']['fwd']['bound_ms']:.4f}, "
+                  f"{res['bounds']['fwd']['bound_by']}; plain f32 {res['plain_ms']['fwd']:.4f}; yardstick, not "
+                  f"the same function: cuBLAS bf16 fc1 + fc2 ({n * t}, {d}) x ({d}, {hs}), ({n * t}, {hs}) x "
+                  f"({hs}, {d}) {res['cublas_ms']['fwd']:.4f}), row 9a {res['ms']['pro']:.4f} ms (bound "
+                  f"{res['bounds']['pro']['bound_ms']:.4f}, {res['bounds']['pro']['bound_by']}; plain f32 "
+                  f"{res['plain_ms']['pro']:.4f}; cuBLAS bf16 ({n * t}, {d}) x ({d}, {hs}) "
+                  f"{res['cublas_ms']['pro']:.4f}), row 9b {res['ms']['epi']:.4f} ms (bound "
+                  f"{res['bounds']['epi']['bound_ms']:.4f}, {res['bounds']['epi']['bound_by']}; plain f32 "
+                  f"{res['plain_ms']['epi']:.4f}; cuBLAS bf16 ({n * t}, {hs}) x ({hs}, {d}) "
+                  f"{res['cublas_ms']['epi']:.4f})")
+        torch.cuda.empty_cache()
+    print(f"[mlp-tp] the phase took {time.perf_counter() - wall:.1f} s")
+    return results
 
 
 def int8pack_ms(h, wq, s) -> float | None:
@@ -3583,6 +3749,45 @@ def cp_exchange_errors(dev, mesh) -> dict:
     return out
 
 
+def timed_train_cli(argv) -> tuple[dict, dict]:
+    """The train CLI on `argv` in this process, a CUDA event recorded as
+    each train_step call starts: (its summary, {wall_s, peak_gb (the peak
+    of allocated device memory), launches, final_step, period_ms (start to
+    start over the steps from the third on), log (the run's log.txt, which
+    only rank 0 writes, or None)})."""
+    import torch
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+    from osu_diffusion_tpu_torch.train import trainer
+
+    events = []
+    orig_step = trainer.train_step
+
+    def timed_step(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        events.append(start)
+        return orig_step(*args, **kwargs)
+
+    trainer.train_step = timed_step
+    read_counts = reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    wall = time.perf_counter()
+    try:
+        summary = train_main(build_train_parser().parse_args(argv))
+    finally:
+        trainer.train_step = orig_step
+    torch.cuda.synchronize()
+    log = os.path.join(summary["experiment_dir"], "log.txt")
+    return summary, {"wall_s": time.perf_counter() - wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     "launches": read_counts(), "final_step": summary["final_step"],
+                     "period_ms": events[2].elapsed_time(events[-1]) / (len(events) - 3),
+                     "log": open(log).read() if os.path.exists(log) else None}
+
+
+def logged_losses(log: str) -> list[float]:
+    return [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
+
+
 def cp_argv(job, results, num_model):
     """The train CLI at the job's model (DiT-B: MODEL; [xl-train-cp]:
     XL_MODEL), batch and steps (CP_BATCH, CP_STEPS at DiT-B) and extra
@@ -3609,13 +3814,11 @@ def cp_rank_main(workdir) -> int:
 
     import torch
     import torch.distributed as dist
-    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
     from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.parallel import make_mesh
     from osu_diffusion_tpu_torch.parallel.context import gather_slots, shard_rows
     from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
-    from osu_diffusion_tpu_torch.train import trainer
     from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
 
     with open(os.path.join(workdir, "job.json")) as f:
@@ -3680,35 +3883,12 @@ def cp_rank_main(workdir) -> int:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
     # [train-cp]: the train CLI (it joins its own process group under torchrun)
-    events = []
-    orig_step = trainer.train_step
-
-    def timed_step(*args, **kwargs):
-        start = torch.cuda.Event(enable_timing=True)
-        start.record()
-        events.append(start)
-        return orig_step(*args, **kwargs)
-
-    trainer.train_step = timed_step
-    read_counts = reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    wall = time.perf_counter()
-    summary = train_main(build_train_parser().parse_args(
-        cp_argv(job, os.path.join(workdir, f"results_w{world}"), world)))
-    torch.cuda.synchronize()
-    out["wall_s"] = time.perf_counter() - wall
-    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    trainer.train_step = orig_step
-    out["train_launches"] = read_counts()
-    out["final_step"] = summary["final_step"]
-    # start to start over the steady steps 2..CP_STEPS-1
-    out["period_ms"] = events[2].elapsed_time(events[-1]) / (len(events) - 3)
+    _, run = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_w{world}"), world))
+    log = run.pop("log")
+    run["train_launches"] = run.pop("launches")
+    out.update(run)
     if rank == 0:
-        with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
-            log = f.read()
-        out["losses"] = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
-        out["done"] = "Done!" in log
-        out["mesh_line"] = "context parallel, band" in log
+        out.update(losses=logged_losses(log), done="Done!" in log, mesh_line="context parallel, band" in log)
     with open(os.path.join(workdir, f"rank{rank}_w{world}.json"), "w") as f:
         json.dump(out, f)
     return 0
@@ -3722,9 +3902,10 @@ def free_port() -> int:
         return sock.getsockname()[1]
 
 
-def run_cp_ranks(workdir, world, tag="train-cp") -> list[dict]:
-    """This script with --cp-rank, as `world` ranks in torchrun's
-    environment (or one plain process); fails unless every rank exits 0."""
+def run_cp_ranks(workdir, world, tag="train-cp", mode="--cp-rank") -> list[dict]:
+    """This script with `mode` (--cp-rank or --tp-rank), as `world` ranks in
+    torchrun's environment (or one plain process); fails unless every rank
+    exits 0."""
     env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK")}
     if world > 1:
         env.update(MASTER_ADDR="localhost", MASTER_PORT=str(free_port()), WORLD_SIZE=str(world))
@@ -3732,7 +3913,7 @@ def run_cp_ranks(workdir, world, tag="train-cp") -> list[dict]:
     for rank in range(world):
         renv = {**env, "RANK": str(rank), "LOCAL_RANK": str(rank)} if world > 1 else env
         log = open(os.path.join(workdir, f"rank{rank}_w{world}.log"), "w")
-        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cp-rank", workdir],
+        procs.append((subprocess.Popen([sys.executable, os.path.abspath(__file__), mode, workdir],
                                        env=renv, stdout=log, stderr=subprocess.STDOUT), log))
     deadline = time.time() + CP_TIMEOUT
     rcs = []
@@ -3751,12 +3932,126 @@ def run_cp_ranks(workdir, world, tag="train-cp") -> list[dict]:
         for line in tail.splitlines():
             if line.startswith(("[cp]", "[rank")):
                 print(f"[{tag}] rank {rank} of {world}: {line}")
-        check(rc == 0, f"CP rank {rank} of {world} exited {rc}:\n{tail}")
+        check(rc == 0, f"{tag} rank {rank} of {world} exited {rc}:\n{tail}")
     out = []
     for rank in range(world):
         with open(os.path.join(workdir, f"rank{rank}_w{world}.json")) as f:
             out.append(json.load(f))
     return out
+
+
+def tp_argv(data, results, num_model, mlp_bwd) -> list[str]:
+    """The train CLI at DiT-B on the kimi copies ([train-tp]): batch
+    TP_BATCH x TRAIN_SEQ, TP_STEPS steps, the loader thread-free (the runs
+    then read the same batches in the same order), and with model ranks
+    --num-model and gloo, no --context-parallel."""
+    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TP_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "0", "--log-every", "1",
+            "--ckpt-every", str(10 ** 9), "--results-dir", results, "--device", "cuda",
+            "--max-steps", str(TP_STEPS), "--mlp-bwd", mlp_bwd]
+    return argv + (["--num-model", str(num_model), "--dist", "gloo"] if num_model > 1 else [])
+
+
+def tp_rank_main(workdir) -> int:
+    """One process of [train-tp]: in torchrun's environment one of TP_RANKS
+    gloo ranks sharing the card, else the one-process run. Joins the
+    process group itself (the trainer then keeps it), runs the train CLI
+    with the default and with the fused MLP backward, and writes each run's
+    launches, losses (rank 0), s per step, peak allocated device memory and
+    the parameters this rank holds to <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    with open(os.path.join(workdir, "job.json")) as f:
+        job = json.load(f)
+    world, rank = int(os.environ.get("WORLD_SIZE", 1)), int(os.environ.get("RANK", 0))
+    if world > 1:
+        torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
+        dist.init_process_group("gloo", timeout=datetime.timedelta(minutes=5))
+    out = {}
+    for mlp_bwd in ("xla", "fused"):
+        torch.cuda.empty_cache()
+        summary, r = timed_train_cli(
+            tp_argv(job["data"], os.path.join(workdir, f"results_{mlp_bwd}_w{world}"), world, mlp_bwd))
+        r["params"] = sum(p.numel() for p in summary["ema"].parameters())
+        log = r.pop("log")
+        if rank == 0:
+            r.update(losses=logged_losses(log), done="Done!" in log, mesh_line="tensor parallel" in log)
+        out[mlp_bwd] = r
+        del summary
+    if world > 1:
+        dist.barrier()
+        dist.destroy_process_group()
+    with open(os.path.join(workdir, f"rank{rank}_w{world}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def phase_train_tp(dev, tmp, card):
+    """[train-tp]: the train CLI at DiT-B with --num-model TP_RANKS --dist
+    gloo (tensor parallelism) on ranks sharing the card, with the default
+    and the fused MLP backward, beside one process of the same seed and
+    flags: every logged loss finite and within CP_LOSS_REL_TOL of the one
+    process's; per optimizer step on every rank 24 launches of rows 2 and
+    8 and 12 of rows 3 and 4 (with fused 12 of rows 9a and 9b), as in the
+    one process; s per step, the parameters each rank holds and its peak
+    allocated device memory. Returns rank 0's launches of the fused run."""
+    import torch
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = time.perf_counter()
+    workdir = os.path.join(tmp, "tp")
+    os.makedirs(workdir, exist_ok=True)
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump({"data": train_dataset(tmp)}, f)
+    ranks = run_cp_ranks(workdir, TP_RANKS, "train-tp", "--tp-rank")
+    tp_wall = time.perf_counter() - wall
+    single = run_cp_ranks(workdir, 1, "train-tp", "--tp-rank")[0]
+    with torch.device("meta"):  # the depth only
+        depth = len(DiT_models[MODEL](num_classes=2).blocks)
+    steps = TP_STEPS
+    for mlp_bwd in ("xla", "fused"):
+        tag = "train-tp" if mlp_bwd == "xla" else "train-tp-fused"
+        expected = {**dict.fromkeys(ranks[0][mlp_bwd]["launches"], 0),
+                    "banded_attention_fwd_lse": steps * depth * 2,  # forward + remat recompute
+                    "banded_attention_bwd_dq": steps * depth, "banded_attention_bwd_dkv": steps * depth,
+                    "adaln_mlp_train": steps * depth * 2}
+        if mlp_bwd == "fused":
+            expected.update(adaln_mlp_bwd_prologue=steps * depth, adaln_mlp_bwd_epilogue=steps * depth)
+        for rank, r in enumerate([*ranks, single]):
+            r = r[mlp_bwd]
+            who = f"rank {rank} of {TP_RANKS}" if rank < TP_RANKS else "one process"
+            print(f"[{tag}] {who}: {r['final_step']} steps, launches {r['launches']}, {r['params']:,} "
+                  f"parameters held, peak device memory allocated {r['peak_gb']:.2f} GB")
+            check(r["final_step"] == steps and r["launches"] == expected,
+                  f"{tag} {who}: {r['final_step']} steps, launches {r['launches']} (expected {expected})")
+        tp_losses, one_losses = ranks[0][mlp_bwd]["losses"], single[mlp_bwd]["losses"]
+        diffs = [abs(a - b) / abs(b) for a, b in zip(tp_losses, one_losses)]
+        print(f"[{tag}] losses TP {tp_losses}; one process {one_losses}; relative differences "
+              + ", ".join(f"{d:.2e}" for d in diffs) + f" (tol {CP_LOSS_REL_TOL})")
+        check(len(tp_losses) == len(one_losses) == steps
+              and all(math.isfinite(v) for v in tp_losses + one_losses), f"{tag} losses {tp_losses} {one_losses}")
+        check(max(diffs) <= CP_LOSS_REL_TOL, f"{tag} losses differ: {diffs}")
+        check(ranks[0][mlp_bwd]["done"] and ranks[0][mlp_bwd]["mesh_line"],
+              f"{tag}: no Done! or no tensor-parallel mesh line in rank 0's log")
+        check(all(r[mlp_bwd]["params"] < single[mlp_bwd]["params"] for r in ranks),
+              f"{tag}: a rank holds the whole model")
+        print(f"[{tag}] {card}: {MODEL} (batch {TP_BATCH} x {TRAIN_SEQ}, bf16 stream, remat, --mlp-bwd {mlp_bwd}): "
+              f"{ranks[0][mlp_bwd]['period_ms'] / 1000:.6f} s per optimizer step start to start with {TP_RANKS} "
+              f"gloo ranks sharing the card (rank 1 {ranks[1][mlp_bwd]['period_ms'] / 1000:.6f}), "
+              f"{single[mlp_bwd]['period_ms'] / 1000:.6f} s in one process; parameters held a rank "
+              + ", ".join(f"{r[mlp_bwd]['params']:,}" for r in ranks) + f" against {single[mlp_bwd]['params']:,} "
+              "(params, grads, two AdamW moments and EMA at 20 B each: "
+              + ", ".join(f"{r[mlp_bwd]['params'] * 20 / 1e9:.2f}" for r in ranks)
+              + f" against {single[mlp_bwd]['params'] * 20 / 1e9:.2f} GB); peak device memory allocated "
+              + ", ".join(f"{r[mlp_bwd]['peak_gb']:.2f}" for r in ranks) + f" GB a rank against "
+              f"{single[mlp_bwd]['peak_gb']:.2f} GB in one process; wall {ranks[0][mlp_bwd]['wall_s']:.1f} s and "
+              f"{single[mlp_bwd]['wall_s']:.1f} s for {steps} steps")
+    print(f"[train-tp] the TP ranks' run took {tp_wall:.1f} s, the phase {time.perf_counter() - wall:.1f} s")
+    return ranks[0]["fused"]["launches"]
 
 
 def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
@@ -3895,6 +4190,8 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--cp-rank"]:  # one process of phase_context_parallel
         return cp_rank_main(sys.argv[2])
+    if sys.argv[1:2] == ["--tp-rank"]:  # one process of phase_train_tp
+        return tp_rank_main(sys.argv[2])
     if sys.argv[1:2] == ["--longrun-child"]:  # the child of phase_longrun
         return longrun_child_main(sys.argv[2])
     from osu_diffusion_tpu_torch.models.dit import DiT_models
@@ -3918,6 +4215,7 @@ def main() -> int:
     phase_mlp_train(dev, "mlp-train-xl", MLP_TRAIN_XL_CASES)
     phase_attention_cp(dev, "attn-cp-xl", ATTN_CP_XL_CASES, XL_HEAD_DIM)
     phase_mlp_bwd(dev, "mlp-bwd-xl", MLP_BWD_XL_CASES)
+    phase_mlp_tp(dev)
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -3932,6 +4230,7 @@ def main() -> int:
         phase_unfuck(dev, ckpt)
         phase_longrun(tmp)
         launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
+        phase_train_tp(dev, tmp, card)
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
         turns = {name: sum(v) / len(v) for name, v in chains_in_turns(

@@ -294,8 +294,9 @@ def build_train_parser() -> argparse.ArgumentParser:
                              "fused reduction/LayerNorm-backward kernels")
     parser.add_argument("--device", type=str, default=d.device)
     parser.add_argument("--num-model", type=int, default=d.num_model,
-                        help="ranks on the mesh's model axis (with --context-parallel: the "
-                             "ranks that split one window's sequence)")
+                        help="ranks on the mesh's model axis: they shard the MLPs, the adaLN "
+                             "heads and the label table (tensor parallelism), or with "
+                             "--context-parallel split one window's sequence")
     parser.add_argument("--context-parallel", action=argparse.BooleanOptionalAction,
                         default=False,
                         help="split the sequence over the --num-model ranks (seq-len a multiple "
@@ -310,14 +311,8 @@ def build_train_parser() -> argparse.ArgumentParser:
 
 
 def check_context_parallel(args) -> None:
-    """--context-parallel names what --num-model > 1 does in the port: tensor
-    parallelism (--num-model without it) is not ported, and it needs model
-    ranks to split the sequence over."""
-    if args.num_model > 1 and not args.context_parallel:
-        raise ValueError(
-            f"--num-model {args.num_model} without --context-parallel is tensor parallelism "
-            "(the Megatron MLP and the vocab-parallel label table), which is not ported; add "
-            "--context-parallel to split the sequence over the model ranks")
+    """--context-parallel splits the sequence over the model ranks, so it
+    needs --num-model > 1 (--num-model alone is tensor parallelism)."""
     if args.context_parallel and args.num_model < 2:
         raise ValueError("--context-parallel splits the sequence over the mesh's model axis: "
                          "it needs --num-model > 1")
@@ -325,9 +320,9 @@ def check_context_parallel(args) -> None:
 
 def train_config_kwargs(args) -> dict:
     """Parsed train-CLI arguments -> TrainConfig keyword arguments (the
-    context-parallel flags checked: the trainer splits the sequence whenever
-    num_model > 1). Shared by train_main and train_nodist_torch.py (which
-    adds max_timestep=1), so the two cannot drift when flags are added."""
+    context-parallel flags checked). Shared by train_main and
+    train_nodist_torch.py (which adds max_timestep=1), so the two cannot
+    drift when flags are added."""
     check_context_parallel(args)
     return dict(
         data_path=args.data_path, num_classes=args.num_classes, data_start=args.data_start,
@@ -339,7 +334,8 @@ def train_config_kwargs(args) -> dict:
         relearn_embeds=args.relearn_embeds, embed_only_epochs=args.embed_only_epochs,
         use_bf16=args.use_bf16 if args.use_amp is None else args.use_amp, remat=args.remat,
         max_steps=args.max_steps, mlp_bwd=args.mlp_bwd, device=args.device,
-        num_model=args.num_model, band=args.band, dist_backend=args.dist_backend,
+        num_model=args.num_model, context_parallel=args.context_parallel, band=args.band,
+        dist_backend=args.dist_backend,
         profile_dir=args.profile_dir,
     )
 

@@ -249,10 +249,10 @@ enum Epi { UP, DOWN, QKV, OUT, ADA };
 
 // what the epilogues read and write besides the accumulator
 struct EpiArgs {
-  const float* bias;         // b1 (up), b2 (down) or b (qkv)
+  const float* bias;         // b1 (up), b2 (down; null: a rank's partial) or b (qkv)
   void* a;                   // up: pre-GELU a in x's type, or null (inference)
   __nv_bfloat16* g;          // up: bf16(gelu(pre)), the down GEMM's A
-  const void* x;             // down, out: the residual stream
+  const void* x;             // down, out: the residual stream (down: null for a rank's partial)
   const float* gate;         // down: gate rows, row stride mod_stride
   long long mod_stride;
   int t;                     // tokens per batch row: a token row's batch is row / t
@@ -334,7 +334,9 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
 #pragma unroll
       for (int n = 0; n < BN / 8; ++n) {
         const int c = cq + 8 * n;
-        const float2 bias = *reinterpret_cast<const float2*>(ep.bias + c);
+        // a rank's partial (null bias and x) adds neither b2 nor the residual
+        const float2 bias = ep.bias != nullptr ? *reinterpret_cast<const float2*>(ep.bias + c)
+                                               : make_float2(0.f, 0.f);
         const float2 sc = scales(c);
 #pragma unroll
         for (int i = 0; i < 2; ++i) {
@@ -345,7 +347,7 @@ adaln_mlp_gemm_kernel(const __grid_constant__ CUtensorMap a_map,
           const long long off = (long long)row * ncols + c;
           if (ep.mlp != nullptr) store2(ep.mlp + off, v0, v1);
           const float2 gt = *reinterpret_cast<const float2*>(gate_row[i] + c);
-          const float2 xv = load2(x + off);
+          const float2 xv = x != nullptr ? load2(x + off) : make_float2(0.f, 0.f);
           store2(out + off, __fmaf_rn(gt.x, v0, xv.x), __fmaf_rn(gt.y, v1, xv.y));
         }
       }
@@ -444,7 +446,7 @@ int sm90_forward(const void* x, const float* shift, const float* scale, const fl
                  long long mod_stride, const void* w1, const float* s1, const float* b1,
                  const void* w2, const float* s2, const float* b2, void* h, void* g, void* out,
                  void* a, float* mlp, int n, int t, int hdim, int bn_up, int grid_up, int bn_down,
-                 int grid_down, float eps, int stages, cudaStream_t stream) {
+                 int grid_down, float eps, int stages, int partial, cudaStream_t stream) {
   const int rows = n * t;
   auto* gb = static_cast<__nv_bfloat16*>(g);
   if (stages & 1) {
@@ -458,7 +460,8 @@ int sm90_forward(const void* x, const float* shift, const float* scale, const fl
     if (err != 0) return err;
   }
   if (stages & 4) {
-    const gemm::EpiArgs down{b2, nullptr, nullptr, x, gate, mod_stride, t, out, mlp, s2};
+    const gemm::EpiArgs down{partial ? nullptr : b2, nullptr, nullptr, partial ? nullptr : x, gate,
+                             mod_stride, t, out, mlp, s2};
     return gemm::launch_width<gemm::DOWN, TX, BL>(bn_down, gb, w2, rows, D, hdim, grid_down, down,
                                                   stream);
   }
@@ -475,7 +478,10 @@ int sm90_forward(const void* x, const float* shift, const float* scale, const fl
 // type; mlp: null or f32 (N, T, D) contiguous. D in {384, 768, 1024, 1152}
 // (1152: DiT-XL's, serving and training), H a multiple of 128; bn_up / bn_down (256 or 128, dividing H / D) and
 // grid_up / grid_down the tile plan's widths and CTA counts of the two
-// GEMMs; stages: 7 (a mask: 1 modulate, 2 up, 4 down). Launches on
+// GEMMs; stages: 7 (a mask: 1 modulate, 2 up, 4 down); partial: 1 for one
+// tensor-parallel rank's share (the down epilogue adds neither b2 nor x:
+// out = gate * mlp, mlp = g . W2 over the rank's hidden units; the row's
+// sum, with one rank passing 0, is the whole MLP half). Launches on
 // `stream` without synchronizing; returns 0, a CUDA error code, or
 // TMA_ENCODE_ERROR + a CUresult (adaln_mlp_error_string names either).
 extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* scale,
@@ -483,13 +489,13 @@ extern "C" int adaln_mlp_fwd(const void* x, const float* shift, const float* sca
                              const float* b1, const void* w2, const float* b2, void* h, void* g,
                              void* out, void* a, float* mlp, int n, int t, int d, int hdim,
                              int bn_up, int grid_up, int bn_down, int grid_down, float eps,
-                             int bf16, int stages, void* stream) {
+                             int bf16, int stages, int partial, void* stream) {
   last_body = "sm90";
   const auto s = static_cast<cudaStream_t>(stream);
 #define ADALN_MLP_SM90(D, TX)                                                                   \
   sm90_forward<D, TX, gemm::B_K_MAJOR>(x, shift, scale, gate, mod_stride, w1, nullptr, b1, w2,  \
                                        nullptr, b2, h, g, out, a, mlp, n, t, hdim, bn_up,       \
-                                       grid_up, bn_down, grid_down, eps, stages, s)
+                                       grid_up, bn_down, grid_down, eps, stages, partial, s)
   switch (d) {
     case 384:
       return bf16 ? ADALN_MLP_SM90(384, __nv_bfloat16) : ADALN_MLP_SM90(384, float);
@@ -522,7 +528,7 @@ extern "C" int adaln_mlp_quant_fwd(const float* x, const float* shift, const flo
 #define ADALN_MLP_INT8(D)                                                                        \
   sm90_forward<D, float, gemm::B_INT8>(x, shift, scale, gate, mod_stride, w1, s1, b1, w2, s2, b2, \
                                        h, g, out, nullptr, nullptr, n, t, hdim, bn_up, grid_up,    \
-                                       bn_down, grid_down, eps, stages, s)
+                                       bn_down, grid_down, eps, stages, 0, s)
   switch (d) {
     case 384:
       return ADALN_MLP_INT8(384);

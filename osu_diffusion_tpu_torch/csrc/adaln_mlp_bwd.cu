@@ -13,7 +13,9 @@
 //   epilogue: dh1 = bf16(da) . w1; h1 = LN(x) * (1 + scale) + shift;
 //             dshift = sum_t dh1, dscale = sum_t dh1 * LN(x);
 //             dx = g + LayerNorm backward of dh1 * (1 + scale);
-//             writes dx and h1 in the stream's type.
+//             writes dx and h1 in the stream's type. A null g (one
+//             tensor-parallel rank's share over its hidden units) leaves
+//             the residual term out: dx = the LayerNorm backward alone.
 // The weight gradients dmlp^T . gelu(a) and da^T . h1 stay outside, as the
 // JAX package leaves them to XLA. g, a, x and the emitted tensors are f32 or
 // bf16 (the training stream), one type per call; every sum is f32, and
@@ -107,6 +109,9 @@
 //   bytes at 255 registers); unrolled two steps at a time (Cfg's P_UNROLL,
 //   E_UNROLL) they are read again for each tile: the same products in the
 //   same order (ptxas's registers and spills: chip_smoke.py [mlp-bwd-xl]).
+//   The prologue at D 768 spilled the same way (40 bytes at 255 registers,
+//   first checked by [mlp-tp], whose f32 case runs it) and takes the same
+//   cure.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
@@ -146,9 +151,10 @@ struct Cfg {
   static constexpr int LDH = D + 4;                   // f32 row stride of dh1
   // k16 steps of a streamed tile's product unrolled together: every step
   // (so ptxas keeps the CTA's A fragments in registers from tile to tile)
-  // below D 1152; at 1152 those fragments beside the accumulators spilled
-  // out of 255 registers, so two steps, and A is read again for each tile
-  static constexpr int P_UNROLL = D == 1152 ? 2 : KQ / 16;
+  // where they fit; beside the accumulators they spilled out of 255
+  // registers in the prologue at D 768 (40 bytes; not at 1024) and in both
+  // stages at 1152, so two steps there, and A is read again for each tile
+  static constexpr int P_UNROLL = D == 768 || D == 1152 ? 2 : KQ / 16;
   static constexpr int E_UNROLL = D == 1152 ? 2 : BH / 16;
 };
 
@@ -492,7 +498,7 @@ bwd_epilogue_kernel(const float* __restrict__ da, const float* __restrict__ x,
       const int c = (i * 32 + lane) * 4;
       const float4 k4 = *reinterpret_cast<const float4*>(sc + c);
       const float4 d4 = *reinterpret_cast<const float4*>(sm.u.dh + row * C::LDH + c);
-      const float4 g4 = tile_io::load4(g + base + c);
+      const float4 g4 = g != nullptr ? tile_io::load4(g + base + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       tile_io::store4(dx + base + c, make_float4(
           g4.x + inv * (d4.x * (1.f + k4.x) - m1 - xv[i].x * m2),
           g4.y + inv * (d4.y * (1.f + k4.y) - m1 - xv[i].y * m2),
@@ -757,7 +763,7 @@ adaln_mlp_bwd_ln_kernel(const float* __restrict__ dh1, const bf16* __restrict__ 
     for (int i = 0; i < V4; ++i) {
       const int c = (i * 32 + lane) * 4;
       const float4 k4 = *reinterpret_cast<const float4*>(sc + c);
-      const float4 g4 = tile_io::load4(g + base + c);
+      const float4 g4 = g != nullptr ? tile_io::load4(g + base + c) : make_float4(0.f, 0.f, 0.f, 0.f);
       tile_io::store4(dx + base + c, make_float4(
           g4.x + inv * (dv[i].x * (1.f + k4.x) - m1 - xv[i].x * m2),
           g4.y + inv * (dv[i].y * (1.f + k4.y) - m1 - xv[i].y * m2),
@@ -1017,7 +1023,8 @@ extern "C" int adaln_mlp_bwd_prologue_sm90(const void* g, const float* mlp, cons
 #undef PROLOGUE
 }
 
-// Stage 2. da (N, T, H), x, g, dx and h1 (N, T, D) bf16 contiguous;
+// Stage 2. da (N, T, H), x, g (null: a rank's partial, no residual term),
+// dx and h1 (N, T, D) bf16 contiguous;
 // shift/scale: f32 rows of D with row stride mod_stride; w1: fc1.weight
 // (H, D) bf16 contiguous. Writes dx, h1, dshift and dscale (N, D) f32. ws:
 // f32 workspace of 2 N ceil(T / 32) D + N T D (the last N T D: the f32
@@ -1058,7 +1065,8 @@ extern "C" int adaln_mlp_bwd_prologue_wmma(const void* g, const float* mlp, cons
 #undef PROLOGUE
 }
 
-// Stage 2. da (N, T, H), x and g (N, T, D) f32 contiguous; shift/scale: f32
+// Stage 2. da (N, T, H), x and g (N, T, D; g null: a rank's partial, no
+// residual term) f32 contiguous; shift/scale: f32
 // rows of D with row stride mod_stride; w1p: bf16 packed (H / 128, D, 136).
 // Writes dx and h1 (N, T, D), dshift and dscale (N, D). ws: f32 workspace
 // of 2 * N * ceil(T / 32) * D. Launches on `stream` without synchronizing;

@@ -35,6 +35,21 @@ conditioning), so each rank runs the whole model on its rows and attention
 alone exchanges halos with the neighbouring ranks; `valid_len` is the
 global real length.
 
+Tensor parallelism (TP, parallel/sharding.py `shard_model`, which gives
+the modules below a mesh as `.tp`): each model rank holds its shard of the
+label table (rows), of every adaLN head (output columns) and of every MLP
+(fc1's rows, fc2's columns) and runs the same forward on the same batch.
+The label lookup zeroes the rows that are not this rank's and the row sums
+them; each head computes its columns of the modulation and the row
+gathers them before it is chunked; the MLP half runs kernel B on the
+rank's hidden units, every rank but the first as a partial (no residual x
+and no b2), and the row sums the outputs. The sums of the input gradients
+of the MLP and of each head run in the backward (`row_grad_sum`). A part
+that `shard_model` left whole (a degree that does not divide it) runs as
+it does without TP. `shard_model` swaps the parameters' data only, so a
+Linear's `out_features` and the table's `num_embeddings` keep the whole
+model's sizes, against which a module tells its shard.
+
 Training (`train=True`): labels drop to the null class `num_classes` with
 probability `class_dropout_prob` (from a generator, or a given mask), and
 with `remat` each block is recomputed in the backward
@@ -96,6 +111,12 @@ from osu_diffusion_tpu_torch.ops.embeddings import (
     timestep_embedding,
 )
 from osu_diffusion_tpu_torch.ops.quant import int8_matmul
+from osu_diffusion_tpu_torch.parallel.sharding import (
+    gather_columns,
+    row_grad_sum,
+    row_sum,
+    table_rows,
+)
 
 
 def modulate(x: torch.Tensor, shift: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -116,6 +137,16 @@ def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tenso
     """A Linear layer computed in `dtype`: input and weight cast at use, the
     product rounded to `dtype`, then the bias (cast to `dtype`) added."""
     return F.linear(x.to(dtype), linear.weight.to(dtype)) + linear.bias.to(dtype)
+
+
+def modulation(linear: nn.Linear, cond: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
+    """An adaLN head, silu(cond) through `linear` in `dtype`. Under tensor
+    parallelism a head split over the model ranks computes its columns and
+    gathers the row's; its input gradient is summed over the row."""
+    if tp is None or linear.weight.shape[0] == linear.out_features:
+        return dense(F.silu(cond), linear, dtype)
+    (cond,) = row_grad_sum(cond, mesh=tp)
+    return gather_columns(dense(F.silu(cond), linear, dtype), tp)
 
 
 class TimestepEmbedder(nn.Module):
@@ -144,6 +175,7 @@ class LabelEmbedder(nn.Module):
         self.num_classes = num_classes
         self.dropout_prob = dropout_prob
         self.embedding_table = nn.Embedding(num_classes + int(dropout_prob > 0), hidden_size)
+        self.tp = None  # the mesh, once parallel/sharding.py has split the table
 
     def forward(self, labels: torch.Tensor, train: bool = False, drop: torch.Tensor | None = None,
                 generator: torch.Generator | None = None) -> torch.Tensor:
@@ -154,7 +186,15 @@ class LabelEmbedder(nn.Module):
             drop = u < self.dropout_prob
         if drop is not None:
             labels = torch.where(drop, self.num_classes, labels)
-        return self.embedding_table(labels)
+        table = self.embedding_table.weight
+        rows = table.shape[0]
+        if self.tp is None or rows == table_rows(self.embedding_table.num_embeddings):
+            return self.embedding_table(labels)
+        # vocab-parallel: this rank's rows, the others' labels zero; the row sums
+        local = labels - self.tp.model_rank * rows
+        mine = (local >= 0) & (local < rows)
+        emb = F.embedding(torch.where(mine, local, 0), table)
+        return row_sum(torch.where(mine[..., None], emb, 0.0), self.tp)
 
 
 class FirstLayer(nn.Module):
@@ -236,15 +276,24 @@ class DiTBlock(nn.Module):
         self.attn = SelfAttention(hidden_size, num_heads)
         self.mlp = Mlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
+        self.tp = None  # the mesh, once parallel/sharding.py has split the head and the MLP
 
     def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
-        mod = dense(F.silu(cond), self.adaLN_modulation[1], x.dtype)
+        mod = modulation(self.adaLN_modulation[1], cond, x.dtype, self.tp)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
         x = x + gate_msa[:, None, :] * self.attn(h, band, valid_len, matmul_dtype, cp)
         # the MLP kernel takes its modulation vectors in f32
         shift, scale, gate = (a.to(torch.float32) for a in (shift_mlp, scale_mlp, gate_mlp))
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
+        tp = self.tp
+        if tp is not None and fc1.weight.shape[0] != fc1.out_features:
+            # Megatron: this rank's hidden units, x and b2 added by the first
+            # rank alone; the row sums the outputs and the input gradients
+            x, shift, scale, gate = row_grad_sum(x, shift, scale, gate, mesh=tp)
+            out = AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
+                                 1e-6, matmul_dtype, self.mlp_bwd, tp.model_rank != 0)
+            return row_sum(out, tp)
         if torch.is_grad_enabled() and (x.requires_grad or fc1.weight.requires_grad):
             return AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight,
                                   fc2.bias, 1e-6, matmul_dtype, self.mlp_bwd)
@@ -322,9 +371,11 @@ class FinalLayer(nn.Module):
         super().__init__()
         self.linear = nn.Linear(hidden_size, out_channels)
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
+        self.tp = None  # the mesh, once parallel/sharding.py has split the head
 
     def forward(self, x, cond):
-        shift, scale = dense(F.silu(cond), self.adaLN_modulation[1], x.dtype).chunk(2, dim=-1)
+        mod = modulation(self.adaLN_modulation[1], cond, x.dtype, self.tp)
+        shift, scale = mod.chunk(2, dim=-1)
         return self.linear(modulate(layer_norm(x), shift, scale).to(torch.float32))
 
 
@@ -367,6 +418,7 @@ class DiT(nn.Module):
             else DiTBlock(hidden_size, num_heads, mlp_ratio, mlp_bwd) for _ in range(depth)
         )
         self.final_layer = FinalLayer(hidden_size, self.out_channels)
+        self.tp = None  # the mesh, once parallel/sharding.py has split the weights
 
     @torch.no_grad()
     def initialize_weights(self, generator: torch.Generator | None = None) -> None:
@@ -401,7 +453,10 @@ class DiT(nn.Module):
         `train`: label dropout (`drop` mask, else drawn from `generator`)
         and, with `remat` under grad, recomputed blocks; `dtype`: the
         residual stream's type; `cp`: the context-parallel mesh (x, o, c
-        are this rank's rows).
+        are this rank's rows). A tensor-parallel model (`.tp`, set by
+        parallel/sharding.py `shard_model`) takes the whole x, o, c, y on
+        every rank of the row, with the same `drop`, and returns the whole
+        output on each.
 
         Δ-cache (cross-step reuse of the middle blocks' contribution, the
         JAX package's `delta_mode`): "off" returns the output; "record"
@@ -413,6 +468,9 @@ class DiT(nn.Module):
             raise RuntimeError("the int8 model serves only: train=True has no int8 path")
         if self.quant and cp is not None:
             raise NotImplementedError("int8 serving with context parallelism is not ported")
+        if self.tp is not None and cp is not None:
+            raise NotImplementedError("tensor parallelism under context parallelism is not ported "
+                                      "(the weights stay whole under CP)")
         if delta_mode not in ("off", "record", "apply"):
             raise ValueError(f"unknown delta_mode: {delta_mode}")
         lo = hi = -1

@@ -41,6 +41,13 @@ kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
 weights in torch's (out, in) layout, casts them itself (the fused backward
 reads the forward's casts), and returns their gradients in that layout;
 `bwd_impl` picks the plain or the fused backward.
+
+Tensor parallelism (parallel/sharding.py) splits the hidden units over the
+model ranks: each rank runs these on its fc1 rows and fc2 columns (H/P
+wide, any multiple of 128 on the card), and `partial=True` on every rank
+but one leaves out what must be added once: b2 and the residual x in the
+training forward, the residual's g in dx. The row's sums of out, mlp, dx,
+dshift, dscale and dgate are then the whole MLP half's.
 """
 from __future__ import annotations
 
@@ -111,20 +118,27 @@ def _layer_norm_f32(x, eps: float):
 
 def adaln_mlp_train_reference(
     x, shift, scale, gate, w1, b1, w2, b2, eps: float = 1e-6,
-    matmul_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32, partial: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the training forward: (out in x's type, a (N, T, H)
     in x's type, mlp (N, T, D) f32). x: (N, T, D); shift/scale/gate: (N, D);
     w1: (D, H); w2: (H, D). Matmul operands are rounded to `matmul_dtype`
     and multiplied in f32 (bf16 = the kernel's precision contract; f32 = the
-    f32 MLP); GELU takes the unrounded f32 pre-activation."""
+    f32 MLP); GELU takes the unrounded f32 pre-activation. `partial`: one
+    tensor-parallel rank's share, w1/b1 and w2 its hidden units: neither b2
+    nor the residual x is added (out = gate * mlp), so that the row's sum of
+    out and of mlp, with one rank not partial, is the whole MLP half's."""
     f32 = torch.float32
     rnd = _rounder(matmul_dtype)
     xn, _ = _layer_norm_f32(x, eps)
     h = xn * (1.0 + scale.to(f32)[:, None, :]) + shift.to(f32)[:, None, :]
     pre = torch.matmul(rnd(h), rnd(w1)) + b1.to(f32)
-    mlp = torch.matmul(rnd(F.gelu(pre, approximate="tanh")), rnd(w2)) + b2.to(f32)
-    out = x.to(f32) + gate.to(f32)[:, None, :] * mlp
+    mlp = torch.matmul(rnd(F.gelu(pre, approximate="tanh")), rnd(w2))
+    if partial:
+        out = gate.to(f32)[:, None, :] * mlp
+    else:
+        mlp = mlp + b2.to(f32)
+        out = x.to(f32) + gate.to(f32)[:, None, :] * mlp
     return out.to(x.dtype), pre.to(x.dtype), mlp
 
 
@@ -384,13 +398,16 @@ def _layer_norm_bwd(dxn, xn, inv):
 
 def adaln_mlp_bwd(
     x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float = 1e-6,
-    matmul_dtype: torch.dtype = torch.float32,
+    matmul_dtype: torch.dtype = torch.float32, partial: bool = False,
 ):
     """The FLOP-minimal backward (JAX `_bwd`): from the residuals a and mlp,
     only the four unavoidable matmuls; LayerNorm, modulation and GELU are
     recomputed elementwise. fc1_w (H, D) and fc2_w (D, H) are torch's
     Linear weights. Returns (dx in x's type, dshift, dscale, dgate, dfc1_w,
-    db1, dfc2_w, db2), the weight gradients in torch's (out, in) layout."""
+    db1, dfc2_w, db2), the weight gradients in torch's (out, in) layout.
+    `partial` (a tensor-parallel rank's share, as the forward's): dx leaves
+    out the residual's g; dx, dshift, dscale and dgate are then this rank's
+    partials, and db2 is b2's whole gradient on every rank."""
     f32 = torch.float32
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
@@ -414,7 +431,9 @@ def adaln_mlp_bwd(
     # h1 = xn * (1 + scale) + shift, then the non-affine LayerNorm
     dshift = dh1.sum(dim=1)
     dscale = (dh1 * xn).sum(dim=1)
-    dx = g + _layer_norm_bwd(dh1 * scale1, xn, inv)
+    dx = _layer_norm_bwd(dh1 * scale1, xn, inv)
+    if not partial:
+        dx = g + dx
     return (dx.to(x.dtype), dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1,
             dfc2_w.to(fc2_w.dtype), db2)
 
@@ -440,20 +459,24 @@ def adaln_mlp_bwd_prologue_reference(g, mlp, a, gate, w2, matmul_dtype: torch.dt
 
 
 def adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, w1, eps: float = 1e-6,
-                                     matmul_dtype: torch.dtype = torch.float32):
+                                     matmul_dtype: torch.dtype = torch.float32,
+                                     partial: bool = False):
     """Plain version of the fused backward's second stage (JAX
     `_bwd_epilogue_kernel`). da: (N, T, H) and x, g: (N, T, D) in the
     stream's type; shift/scale: (N, D); w1: (D, H). Returns (dx, h1 (N, T, D)
     in x's type; dshift, dscale (N, D) f32): dh1 = da @ w1^T (operands
     rounded to `matmul_dtype`, f32 sums), then the modulation and LayerNorm
-    backward."""
+    backward. `partial`: dx without the residual's g (a tensor-parallel
+    rank's share)."""
     f32 = torch.float32
     n, t, d = x.shape
     xn, inv = _layer_norm_f32(x, eps)
     scale1 = 1.0 + scale.to(f32)[:, None, :]
     h1 = xn * scale1 + shift.to(f32)[:, None, :]
     dh1 = _mm(da.reshape(n * t, -1), w1.t(), matmul_dtype).reshape(n, t, d)
-    dx = g.to(f32) + _layer_norm_bwd(dh1 * scale1, xn, inv)
+    dx = _layer_norm_bwd(dh1 * scale1, xn, inv)
+    if not partial:
+        dx = g.to(f32) + dx
     return dx.to(x.dtype), h1.to(x.dtype), dh1.sum(dim=1), (dh1 * xn).sum(dim=1)
 
 
@@ -463,10 +486,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.adaln_mlp_fwd
     fn.restype = ctypes.c_int
     # (x, shift, scale, gate, mod_stride, w1, b1, w2, b2, h, g, out, a, mlp,
-    #  n, t, d, hdim, bn_up, grid_up, bn_down, grid_down, eps, bf16, stages, stream)
+    #  n, t, d, hdim, bn_up, grid_up, bn_down, grid_down, eps, bf16, stages, partial, stream)
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     )
     fn = lib.adaln_mlp_quant_fwd
     fn.restype = ctypes.c_int
@@ -615,11 +638,11 @@ ALL_STAGES = 7  # the Hopper body's stage mask: 1 modulate, 2 up, 4 down
 
 
 def _launch(fn, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype, residuals: bool,
-            stages: int = ALL_STAGES):
+            stages: int = ALL_STAGES, partial: bool = False):
     """The Hopper body on x's device: (out, a, mlp), a and mlp None without
     residuals; records the body that ran in `fn.body`. `stages` below
     ALL_STAGES runs only those kernels (a timing run; the outputs of the
-    others are left unwritten)."""
+    others are left unwritten); `partial` as `adaln_mlp_train`'s."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
     _check_mod_inputs(x, shift, scale, gate, b1, b2, hdim, matmul_dtype, not residuals,
@@ -637,7 +660,7 @@ def _launch(fn, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype, 
         fc1_w.data_ptr(), b1.data_ptr(), fc2_w.data_ptr(), b2.data_ptr(), h.data_ptr(),
         g.data_ptr(), out.data_ptr(), a.data_ptr() if residuals else None,
         mlp.data_ptr() if residuals else None, n, t, d, hdim, up.width, up.grid, down.width,
-        down.grid, eps, int(x.dtype == torch.bfloat16), stages,
+        down.grid, eps, int(x.dtype == torch.bfloat16), stages, int(partial),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     if err:
@@ -673,16 +696,19 @@ def adaln_mlp(
 
 def adaln_mlp_train(
     x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float = 1e-6,
-    matmul_dtype: torch.dtype = torch.bfloat16,
+    matmul_dtype: torch.dtype = torch.bfloat16, partial: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Training forward, the inputs of `adaln_mlp`: (out, a (N, T, H) in
-    x's type, mlp (N, T, D) f32)."""
+    x's type, mlp (N, T, D) f32). `partial`: one tensor-parallel rank's
+    share over its hidden units (fc1_w/b1 its rows, fc2_w its columns): out
+    = gate * mlp and mlp leave out b2 and the residual x, as
+    `adaln_mlp_train_reference` says."""
     _check_device(x)
     if x.device.type == "cpu":
         return adaln_mlp_train_reference(x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps,
-                                         matmul_dtype)
+                                         matmul_dtype, partial)
     res = _launch(adaln_mlp_train, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps, matmul_dtype,
-                  residuals=True)
+                  residuals=True, partial=partial)
     adaln_mlp_train.launches += 1
     return res
 
@@ -757,10 +783,11 @@ def adaln_mlp_bwd_prologue(g, mlp, a, gate, fc2_w, matmul_dtype: torch.dtype = t
 
 
 def _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype,
-                         stages: int = BWD_ALL_STAGES):
+                         stages: int = BWD_ALL_STAGES, partial: bool = False):
     """The epilogue on x's device: bf16 stream, the Hopper body (`stages`: 1
     the dh1 GEMM, 2 the row pass, as `_bwd_prologue_launch`); f32, the WMMA
-    body over the packed fc1 weight. Records the body in `.body`."""
+    body over the packed fc1 weight. Records the body in `.body`. `partial`:
+    the kernels get no g (dx without the residual term)."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
     _check_widths(x, hdim, matmul_dtype, BWD_WIDTHS)
@@ -775,8 +802,8 @@ def _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype,
     h1 = torch.empty_like(x)
     dshift = torch.empty((n, d), device=x.device, dtype=torch.float32)
     dscale = torch.empty((n, d), device=x.device, dtype=torch.float32)
-    ins = (da.data_ptr(), x.data_ptr(), g.data_ptr(), shift.data_ptr(), scale.data_ptr(),
-           shift.stride(0))
+    ins = (da.data_ptr(), x.data_ptr(), None if partial else g.data_ptr(), shift.data_ptr(),
+           scale.data_ptr(), shift.stride(0))
     outs = (dx.data_ptr(), h1.data_ptr(), dshift.data_ptr(), dscale.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     lib = _bwd_lib()
@@ -800,29 +827,30 @@ def _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype,
 
 
 def adaln_mlp_bwd_epilogue(da, x, g, shift, scale, fc1_w, eps: float = 1e-6,
-                           matmul_dtype: torch.dtype = torch.bfloat16):
+                           matmul_dtype: torch.dtype = torch.bfloat16, partial: bool = False):
     """The fused backward's second stage: the inputs of
     `adaln_mlp_bwd_epilogue_reference`, with fc1's weight in torch's layout
     (fc1_w (H, D), bf16 and contiguous on the card). Returns (dx, h1,
-    dshift, dscale)."""
+    dshift, dscale); `partial`: dx without the residual's g."""
     _check_device(x)
     if x.device.type == "cpu":
-        return adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, fc1_w.t(), eps, matmul_dtype)
-    res = _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype)
+        return adaln_mlp_bwd_epilogue_reference(da, x, g, shift, scale, fc1_w.t(), eps, matmul_dtype,
+                                                partial)
+    res = _bwd_epilogue_launch(da, x, g, shift, scale, fc1_w, eps, matmul_dtype, partial=partial)
     adaln_mlp_bwd_epilogue.launches += 1
     return res
 
 
 def adaln_mlp_bwd_fused(
     x, shift, scale, gate, fc1_w, fc2_w, a, mlp, g, eps: float = 1e-6,
-    matmul_dtype: torch.dtype = torch.float32, weights=None,
+    matmul_dtype: torch.dtype = torch.float32, weights=None, partial: bool = False,
 ):
     """The fused backward (JAX `_bwd_fused_impl`), with the arguments and
-    returns of `adaln_mlp_bwd`: the prologue stage, dfc2_w = dmlp^T @
-    gelu(a), the epilogue stage, dfc1_w = da^T @ h1. The two weight-gradient
-    products stay on cuBLAS (`_mm`), as JAX leaves them to XLA. `weights`:
-    the forward's (fc1_w, fc2_w) cast to `matmul_dtype` and contiguous, else
-    they are cast here."""
+    returns of `adaln_mlp_bwd` (`partial` too): the prologue stage, dfc2_w =
+    dmlp^T @ gelu(a), the epilogue stage, dfc1_w = da^T @ h1. The two
+    weight-gradient products stay on cuBLAS (`_mm`), as JAX leaves them to
+    XLA. `weights`: the forward's (fc1_w, fc2_w) cast to `matmul_dtype` and
+    contiguous, else they are cast here."""
     n, t, d = x.shape
     hdim = fc1_w.shape[0]
     if weights is None:
@@ -831,7 +859,8 @@ def adaln_mlp_bwd_fused(
     g = g.to(x.dtype).contiguous()
     da, gelu_out, dmlp, dgate, db1, db2 = adaln_mlp_bwd_prologue(g, mlp, a, gate, w2, matmul_dtype)
     dfc2_w = _mm(dmlp.reshape(n * t, d).t(), gelu_out.reshape(n * t, hdim), matmul_dtype)
-    dx, h1, dshift, dscale = adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1, eps, matmul_dtype)
+    dx, h1, dshift, dscale = adaln_mlp_bwd_epilogue(da, x, g, shift, scale, w1, eps, matmul_dtype,
+                                                    partial)
     dfc1_w = _mm(da.reshape(n * t, hdim).t(), h1.reshape(n * t, d), matmul_dtype)
     return (dx, dshift, dscale, dgate, dfc1_w.to(fc1_w.dtype), db1, dfc2_w.to(fc2_w.dtype), db2)
 
@@ -843,7 +872,9 @@ class AdalnMlp(torch.autograd.Function):
     """The MLP half of a DiT block, differentiable: the training forward
     (kernel B with residuals on the card), then `adaln_mlp_bwd`
     (`bwd_impl="xla"`, the JAX default) or `adaln_mlp_bwd_fused`
-    (`"fused"`: the two backward kernels on the card).
+    (`"fused"`: the two backward kernels on the card). `partial`: one
+    tensor-parallel rank's share over its hidden units (fc1's rows, fc2's
+    columns), as `adaln_mlp_train` and `adaln_mlp_bwd` take it.
 
     fc1_w (H, D) and fc2_w (D, H) are the Linear weights themselves (not a
     cached bf16 copy, which holds no autograd history): the forward casts
@@ -855,32 +886,34 @@ class AdalnMlp(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, shift, scale, gate, fc1_w, b1, fc2_w, b2, eps: float, matmul_dtype,
-                bwd_impl: str = "xla"):
+                bwd_impl: str = "xla", partial: bool = False):
         if bwd_impl not in BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         _check_device(x)
         casts = ()
         if x.is_cuda:
             w1, w2 = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
-            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype)
+            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype,
+                                          partial)
             if bwd_impl == "fused":  # the backward kernels read the same casts
                 casts = (w1, w2)
         else:
             out, a, mlp = adaln_mlp_train_reference(
-                x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype)
+                x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype, partial)
         ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, *casts)
-        ctx.args = (eps, matmul_dtype, bwd_impl)
+        ctx.args = (eps, matmul_dtype, bwd_impl, partial)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        eps, matmul_dtype, bwd_impl = ctx.args
+        eps, matmul_dtype, bwd_impl, partial = ctx.args
         res = ctx.saved_tensors
         if bwd_impl == "fused":
-            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, weights=tuple(res[8:]) or None)
+            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, weights=tuple(res[8:]) or None,
+                                        partial=partial)
         else:
-            grads = adaln_mlp_bwd(*res, g, eps, matmul_dtype)
-        return (*grads, None, None, None)
+            grads = adaln_mlp_bwd(*res, g, eps, matmul_dtype, partial)
+        return (*grads, None, None, None, None)
 
 
 def _quant_launch(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_dtype,

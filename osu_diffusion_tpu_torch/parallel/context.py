@@ -66,15 +66,16 @@ def _exchange_dtype(x: torch.Tensor, group) -> torch.dtype:
 
 
 def gather_slots(x: torch.Tensor, mesh) -> torch.Tensor:
-    """(P, *x.shape): every CP rank's x, in rank order along the "model"
-    axis (a sum all_reduce of one slot per rank)."""
+    """(P, *x.shape): every x of this rank's row, in rank order along the
+    "model" axis (a sum all_reduce of one slot per rank). Tensor
+    parallelism gathers the adaLN heads' columns with it too."""
     p = mesh.num_model
     if p == 1:
         return x[None]
-    dtype = _exchange_dtype(x, mesh.cp_group)
+    dtype = _exchange_dtype(x, mesh.row_group)
     buf = torch.zeros((p, *x.shape), dtype=dtype, device=x.device)
     buf[mesh.model_rank] = x
-    dist.all_reduce(buf, group=mesh.cp_group)
+    dist.all_reduce(buf, group=mesh.row_group)
     return buf.to(x.dtype)
 
 

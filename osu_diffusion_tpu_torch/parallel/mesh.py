@@ -3,12 +3,22 @@
 The JAX package shapes its devices into a `Mesh` over ("data", "model").
 Here every rank of the default process group is one device, and the grid
 is `world // num_model` rows by `num_model` columns: rank r sits at
-(r // num_model, r % num_model). A row is a context-parallel (CP) group:
-its ranks hold one batch shard's sequence split over "model". A column is
-a data-parallel (DP) shard's ranks; no collective runs over one column (the
-gradient sum runs over the whole world), so a column has no group. Each
-rank keeps a full replica of the weights (the JAX package also shards them
-over "model"; that changes where weights live, not what is computed).
+(r // num_model, r % num_model).
+
+- A row holds the model ranks of one data shard. They take the same batch
+  and the same draws, and every collective of the model runs over the row:
+  under context parallelism (CP) the halo exchange of the sequence split
+  over "model"; under tensor parallelism (TP, parallel/sharding.py) the
+  gather of the adaLN heads' columns, the sum of the MLP's and the label
+  table's partial outputs and of their input gradients.
+- A column holds the data ranks of one model rank. Under TP a parameter's
+  gradient is summed over the column: each rank of a column holds the same
+  shard (or the same replica) of every parameter. Without TP the gradients
+  are summed over the world.
+
+Where the weights live: under TP each model rank holds its shard of the
+MLP, the adaLN heads and the label table and a replica of the rest; under
+CP and pure data parallelism every rank holds a full replica.
 """
 from __future__ import annotations
 
@@ -25,12 +35,17 @@ class Mesh:
     num_data: int
     num_model: int
     data_rank: int   # row: the batch shard
-    model_rank: int  # column: the sequence shard
-    cp_group: object = None  # this rank's row
+    model_rank: int  # column: the sequence shard (CP) or the weight shard (TP)
+    row_group: object = None  # this rank's row: the model ranks of its data shard
+    col_group: object = None  # this rank's column: the data ranks of its model rank
 
     @property
     def world(self) -> int:
         return self.num_data * self.num_model
+
+    def __deepcopy__(self, memo):
+        # a handle on process groups, shared by the model and its EMA copy
+        return self
 
 
 def make_mesh(num_model: int = 1) -> Mesh:
@@ -43,7 +58,8 @@ def make_mesh(num_model: int = 1) -> Mesh:
     num_data = world // num_model
     if world == 1:
         return Mesh(1, 1, 0, 0)
-    # every rank creates every row's group, in the same order
+    # every rank creates every row's and every column's group, in the same order
     rows = [dist.new_group([d * num_model + m for m in range(num_model)]) for d in range(num_data)]
+    cols = [dist.new_group([d * num_model + m for d in range(num_data)]) for m in range(num_model)]
     d, m = divmod(rank, num_model)
-    return Mesh(num_data, num_model, d, m, rows[d])
+    return Mesh(num_data, num_model, d, m, rows[d], cols[m])

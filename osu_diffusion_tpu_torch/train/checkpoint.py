@@ -5,8 +5,9 @@ The port's modules carry the reference torch state-dict names (see
 models/dit.py), so a reference checkpoint loads with `load_state_dict`.
 A training checkpoint is one `torch.save` dict in the reference layout,
 {"model", "ema", "opt", "args", "step"}, written as
-`<checkpoint dir>/<step, 7 digits>.pt`; `load_checkpoint` takes its EMA
-weights for sampling.
+`<checkpoint dir>/<step, 7 digits>.pt` (a tensor-parallel run gathers its
+shards into that layout first); `load_checkpoint` takes its EMA weights for
+sampling.
 `state_dict_from_jax_params` converts the JAX package's flax tree (as numpy
 arrays, no jax needed) into that layout; it mirrors
 osu_diffusion_tpu/train/checkpoint.py:params_to_torch_state_dict.
@@ -38,6 +39,7 @@ import numpy as np
 import torch
 
 from osu_diffusion_tpu_torch import PLAYFIELD
+from osu_diffusion_tpu_torch.parallel.sharding import gather_optimizer_state, gather_state_dict
 
 
 def _t(w) -> torch.Tensor:
@@ -121,14 +123,26 @@ def load_train_checkpoint(ckpt_path: str) -> dict[str, Any]:
         return torch.load(ckpt_path, map_location="cpu", weights_only=True)
 
 
-def save_checkpoint(checkpoint_dir: str, step: int, model, ema, optimizer, args: dict) -> str:
+def save_checkpoint(checkpoint_dir: str, step: int, model, ema, optimizer, args: dict,
+                    mesh=None) -> str | None:
     """Write {"model", "ema", "opt", "args", "step"} to
     `<checkpoint_dir>/<step:07d>.pt` (through a temporary file, so a reader
-    never sees half a checkpoint); returns the path."""
+    never sees half a checkpoint); returns the path. With `mesh` (tensor
+    parallelism: model and EMA sharded by parallel/sharding.py) every rank
+    of the mesh's row calls it: the model, EMA and AdamW moments are
+    gathered whole, in a one-process run's layout, and the row's first rank
+    writes them (the others return None)."""
+    if mesh is None:
+        parts = model.state_dict(), ema.state_dict(), optimizer.state_dict()
+    else:
+        parts = (gather_state_dict(model, mesh), gather_state_dict(ema, mesh),
+                 gather_optimizer_state(optimizer, model, mesh))
+        if mesh.model_rank:
+            return None
     path = os.path.join(checkpoint_dir, f"{step:07d}.pt")
     tmp = f"{path}.{os.getpid()}.tmp"
-    torch.save({"model": model.state_dict(), "ema": ema.state_dict(),
-                "opt": optimizer.state_dict(), "args": dict(args), "step": int(step)}, tmp)
+    torch.save({"model": parts[0], "ema": parts[1], "opt": parts[2], "args": dict(args),
+                "step": int(step)}, tmp)
     os.replace(tmp, path)
     return path
 

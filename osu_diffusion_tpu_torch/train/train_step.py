@@ -7,16 +7,24 @@ whole as `draws` so a test can feed in the JAX step's draws. The residual
 stream runs in `dtype` (bf16 in training) over f32 master weights; the
 optimizer state and the EMA are f32.
 
-Over a parallel/mesh.py `Mesh` of more than one rank, each rank holds a full
-replica and its DP shard of the batch. With context parallelism (the mesh's
-"model" axis > 1) the ranks of a CP group take the same batch and the same
-draws (one generator seed), featurize the whole window, and keep their rows
-of x, o, c and the noise; every shard has T_loc rows, so a sample's loss is
-the mean over the CP ranks of the local per-token means. Each rank back-
-propagates its local mean loss / world, and one sum `all_reduce` of all
-gradients (one flat buffer) over the world gives every rank the global
-mean gradient, DP included; the metrics are reduced the same way. Every
-replica then takes the same AdamW step.
+Over a parallel/mesh.py `Mesh` of more than one rank, each rank takes its
+DP shard of the batch; the ranks of one row (the "model" axis) take the
+same batch and the same draws (one generator seed).
+- Data parallelism alone, or context parallelism (`context_parallel`, the
+  "model" axis > 1): every rank holds a full replica. Under CP each rank
+  featurizes the whole window and keeps its rows of x, o, c and the noise;
+  every shard has T_loc rows, so a sample's loss is the mean over the CP
+  ranks of the local per-token means. Each rank backpropagates its local
+  mean loss / world, and one sum `all_reduce` of all gradients (one flat
+  buffer) over the world gives every rank the global mean gradient.
+- Tensor parallelism (the "model" axis > 1 without CP; the model sharded
+  by parallel/sharding.py): every rank of a row computes the same loss,
+  and the gradient each holds is already whole (a sharded parameter's for
+  its shard, a replicated one's the same bits on every rank of the row).
+  Each rank backpropagates its loss / the data degree, and one sum over
+  the column (the data ranks of its model rank) gives the global mean.
+The metrics are reduced the same way. Every rank then takes the same AdamW
+step on what it holds.
 """
 from __future__ import annotations
 
@@ -94,15 +102,15 @@ def loss_terms(model: DiT, diffusion: GaussianDiffusion, batch, draws: StepDraws
     return diffusion.training_losses(model_fn, x, draws.t, noise)
 
 
-def all_reduce_grads(params: list[torch.nn.Parameter]) -> None:
-    """Sum every parameter's gradient over the world, through one flat
-    buffer (a missing gradient counts as zeros, so every rank sends the
-    same layout)."""
+def all_reduce_grads(params: list[torch.nn.Parameter], group=None) -> None:
+    """Sum every parameter's gradient over `group` (None: the world),
+    through one flat buffer (a missing gradient counts as zeros, so every
+    rank sends the same layout)."""
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat)
+    dist.all_reduce(flat, group=group)
     offset = 0
     for p in params:
         p.grad.copy_(flat[offset:offset + p.numel()].view_as(p.grad))
@@ -124,6 +132,7 @@ def train_step(
     ema_decay: float = 0.9999,
     trainable_mask: dict[str, bool] | None = None,
     mesh=None,
+    context_parallel: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One optimizer step on `batch`; returns the step's mean {loss, l1|mse,
     vb} as device scalars (no host sync). `max_timestep` caps the timestep
@@ -132,20 +141,28 @@ def train_step(
     gradient (so AdamW's moments and step count advance as optax's do) and
     keeps its value bit for bit; the EMA still covers every parameter.
     `mesh`: a parallel/mesh.py `Mesh`; `batch` and `draws` are then this
-    rank's DP shard (whole windows), and the metrics the global means."""
+    rank's DP shard (whole windows), and the metrics the global means. With
+    `context_parallel` a "model" axis > 1 splits the sequence; without it,
+    the model must be sharded over it (tensor parallelism)."""
     raw = batch[0]
     if draws is None:
         t_hi = diffusion.num_timesteps if max_timestep is None else max_timestep
         draws = draw_step(raw.shape[0], raw.shape[1], t_hi, model.y_embedder.dropout_prob,
                           raw.device, generator)
     world = 1 if mesh is None else mesh.world
-    cp = mesh if mesh is not None and mesh.num_model > 1 else None
+    tp = mesh is not None and mesh.num_model > 1 and not context_parallel
+    if tp and model.tp is None:
+        raise ValueError("a mesh with model ranks and no context parallelism needs the model "
+                         "sharded over them (parallel/sharding.py shard_model)")
+    cp = mesh if context_parallel and mesh is not None and mesh.num_model > 1 else None
+    # the ranks whose losses make up the mean, and the group that sums the gradients
+    ranks, group = (mesh.num_data, mesh.col_group) if tp else (world, None)
     terms = loss_terms(model, diffusion, batch, draws, band, dtype, cp)
     loss = terms["loss"].mean()
     optimizer.zero_grad(set_to_none=True)
-    (loss / world).backward()
-    if world > 1:
-        all_reduce_grads(list(model.parameters()))
+    (loss / ranks).backward()
+    if ranks > 1:
+        all_reduce_grads(list(model.parameters()), group)
     frozen = [] if trainable_mask is None else [
         p for name, p in model.named_parameters() if not trainable_mask[name]]
     if frozen:
@@ -163,8 +180,8 @@ def train_step(
                 p.copy_(k)
     update_ema(ema, model, ema_decay)
     metrics = {k: v.detach().mean() for k, v in terms.items()}
-    if world > 1:
+    if ranks > 1:
         reduced = torch.stack(list(metrics.values()))
-        dist.all_reduce(reduced)
-        metrics = dict(zip(metrics, reduced / world))
+        dist.all_reduce(reduced, group=group)
+        metrics = dict(zip(metrics, reduced / ranks))
     return metrics

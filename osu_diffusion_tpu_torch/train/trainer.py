@@ -26,28 +26,35 @@ attention forward with LSE and its dq and dk/dv kernels at band =
 long windows), and the fused adaLN-MLP forward with residuals, and with
 `mlp_bwd="fused"` its two backward kernels. Every model of DiT_models
 trains on every path (the default and the fused MLP backward, one model
-rank or context parallelism), DiT-XL (head dim 72, D 1152) included.
+rank, context or tensor parallelism), DiT-XL (head dim 72, D 1152)
+included.
 
 One process, or one per device under torchrun (RANK, WORLD_SIZE and
 LOCAL_RANK in the environment): each rank joins the process group
 (`dist_backend`, nccl on CUDA and gloo on the CPU by default, with a
 timeout of a few minutes so a hang fails), takes `cuda:{LOCAL_RANK %
 device count}`, and sits on the parallel/mesh.py grid of `world //
-num_model` data by `num_model` model ranks. Every rank holds a full
-replica. The data ranks read their own contiguous share of the beatmap
-sets with seed `global_seed + data rank` (as the JAX trainer's processes
-do), at `global_batch_size // data ranks` each; the gradients are summed
-over the world in the step. With `num_model > 1` the ranks of one row
-split each window's sequence (`seq_len` a multiple of num_model * 128) and
-run the ranged attention kernels behind a halo exchange: they take the
-same batch (their first rank's, broadcast) and the same draws. Rank 0
-picks the experiment index and broadcasts it; only rank 0 logs and writes
-checkpoints, each the whole model in the reference layout, so a run
-resumes on any world size. Tensor parallelism (the JAX trainer's
-`--num-model` without `--context-parallel`) is not ported; the CLI refuses
-it. The data ranks' shares give different batch counts, so every step they
-agree (a flag `all_reduce` on a CPU gloo group) whether each still has a
-batch, and an epoch ends on all of them when the shortest share runs out.
+num_model` data by `num_model` model ranks. The data ranks read their
+own contiguous share of the beatmap sets with seed `global_seed + data
+rank` (as the JAX trainer's processes do), at `global_batch_size // data
+ranks` each. The ranks of one row take the same batch (their first
+rank's, broadcast) and the same draws. With `num_model > 1`:
+- `context_parallel`: every rank holds a full replica, the ranks of a row
+  split each window's sequence (`seq_len` a multiple of num_model * 128)
+  and run the ranged attention kernels behind a halo exchange;
+- otherwise tensor parallelism (the JAX trainer's `--num-model` alone):
+  after the init and after a resume each rank keeps its shard of the MLPs,
+  the adaLN heads and the label table (parallel/sharding.py), of their
+  AdamW moments and of their EMA; the MLP's shard width 4D / num_model
+  must be a multiple of 128 (`check_parallel` refuses others, on every
+  device alike).
+Rank 0 picks the experiment index and broadcasts it; only rank 0 logs and
+writes checkpoints, each the whole model, EMA and optimizer state in the
+reference layout (under TP gathered from the first row's shards first),
+so a run resumes on any world size and `sample_torch.py` loads it. The
+data ranks' shares give different batch counts, so every step they agree
+(a flag `all_reduce` on a CPU gloo group) whether each still has a batch,
+and an epoch ends on all of them when the shortest share runs out.
 """
 from __future__ import annotations
 
@@ -70,8 +77,10 @@ from osu_diffusion_tpu_torch.data.dataset import (
 )
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
+from osu_diffusion_tpu_torch.ops.adaln_mlp import HIDDEN_CHUNK
 from osu_diffusion_tpu_torch.parallel.context import BLOCK
 from osu_diffusion_tpu_torch.parallel.mesh import make_mesh
+from osu_diffusion_tpu_torch.parallel.sharding import shard_model, shard_optimizer_state
 from osu_diffusion_tpu_torch.train import checkpoint as ckpt_lib
 from osu_diffusion_tpu_torch.train.train_step import make_ema, make_optimizer, train_step
 from osu_diffusion_tpu_torch.utils.logger import create_logger
@@ -107,7 +116,8 @@ class TrainConfig:
     max_timestep: int | None = None  # cap the timestep draw; 1 = refine-model mode
     mlp_bwd: str = "xla"  # the MLP half's backward: "xla" (plain) or "fused" (kernels)
     device: str = "cuda"
-    num_model: int = 1  # the mesh's "model" axis: > 1 splits each window's sequence over it
+    num_model: int = 1  # the mesh's "model" axis: > 1 shards the weights (TP) or splits the sequence
+    context_parallel: bool = False  # with num_model > 1: split the sequence, not the weights
     band: int | None = None  # attention half-width; None: seq_len (full attention)
     dist_backend: str | None = None  # under torchrun; None: nccl on CUDA, gloo on the CPU
     profile_dir: str | None = None  # write a torch.profiler trace of the first steps here
@@ -123,17 +133,31 @@ def embed_only_mask(model) -> dict[str, bool]:
     return {name: "embedding_table" in name for name, _ in model.named_parameters()}
 
 
+def tp_hidden_width(model: str) -> int:
+    """The MLP hidden width of DiT_models[model] (built on the meta device:
+    no memory)."""
+    with torch.device("meta"):
+        return DiT_models[model](num_classes=1).blocks[0].mlp.fc1.out_features
+
+
 def check_parallel(config: TrainConfig) -> int:
     """The JAX trainer's checks of the mesh flags (its trainer.py:158-160,
-    264-272), before any process group exists; returns the band. (The CLI
-    checks that --context-parallel comes with --num-model > 1 and TP is
-    not asked for.)"""
+    264-272), and the shard width tensor parallelism takes, before any
+    process group exists; returns the band. (The CLI checks that
+    --context-parallel comes with --num-model > 1.)"""
     band = config.seq_len if config.band is None else config.band
     if band < 1:
         raise ValueError(f"--band must be >= 1, got {band}")
     if config.num_model < 1:
         raise ValueError(f"--num-model must be >= 1, got {config.num_model}")
-    if config.num_model > 1:  # context parallelism
+    if config.num_model > 1 and not config.context_parallel:  # tensor parallelism
+        hidden = tp_hidden_width(config.model)
+        if hidden % config.num_model or hidden // config.num_model % HIDDEN_CHUNK:
+            raise ValueError(
+                f"--num-model {config.num_model} splits {config.model}'s MLP hidden width "
+                f"{hidden} into shards of {hidden / config.num_model:g}: tensor parallelism "
+                f"takes shard widths that are multiples of {HIDDEN_CHUNK}")
+    elif config.num_model > 1:  # context parallelism
         step = config.num_model * BLOCK
         if config.seq_len % step:
             raise ValueError(f"--seq-len {config.seq_len} must be a multiple of num_model * "
@@ -182,9 +206,10 @@ def _batches_of_every_rank(loader, group):
         it.close()
 
 
-def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
-    """Restore from config.ckpt where the file has each part; returns the
-    step to continue from. With relearn_embeds: the weights without the
+def _load_state(config: TrainConfig, model, ema, logger) -> tuple[int, dict | None]:
+    """Restore the whole model and EMA from config.ckpt where the file has
+    each; returns the step to continue from and the optimizer's state dict
+    (None: a fresh optimizer). With relearn_embeds: the weights without the
     label table, and step 0 with the fresh optimizer."""
     ckpt = ckpt_lib.load_train_checkpoint(config.ckpt)
     if "model" in ckpt or "ema" in ckpt:
@@ -198,11 +223,9 @@ def _load_state(config: TrainConfig, model, ema, optimizer, logger) -> int:
     ema.load_state_dict(ema_sd)
     if config.relearn_embeds:
         logger.info(f"Restored from checkpoint at {config.ckpt} (label table re-initialised)")
-        return 0
-    if "opt" in ckpt:
-        optimizer.load_state_dict(ckpt["opt"])
+        return 0, None
     logger.info(f"Restored from checkpoint at {config.ckpt}")
-    return int(ckpt.get("step", 0))
+    return int(ckpt.get("step", 0)), ckpt.get("opt")
 
 
 def _write_trace(profiler, device, profile_dir: str, rank: int, logger) -> None:
@@ -218,7 +241,7 @@ def _write_trace(profiler, device, profile_dir: str, rank: int, logger) -> None:
 def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
     experiment_dir, checkpoint_dir, ema} (`ema`: the EMA model, on the
-    training device)."""
+    training device; under TP this rank's shards of it)."""
     band = check_parallel(config)
     device, joined = _join_process_group(config)
     try:
@@ -231,6 +254,7 @@ def train(config: TrainConfig) -> dict:
 
 def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     mesh = make_mesh(config.num_model)
+    tp = mesh.num_model > 1 and not config.context_parallel
     rank = dist.get_rank() if dist.is_initialized() else 0
     if config.global_batch_size % mesh.num_data:
         raise ValueError(f"--global-batch-size {config.global_batch_size} must be divisible by "
@@ -254,23 +278,33 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     logger = create_logger(experiment_dir, rank)
     logger.info(f"Experiment directory created at {experiment_dir}")
     if mesh.world > 1:
+        kind = (f", context parallel, band {band}" if config.context_parallel
+                else ", tensor parallel" if tp else "")
         logger.info(f"Mesh: {mesh.num_data} data x {mesh.num_model} model ranks over "
-                    f"{dist.get_backend()}" + (f", context parallel, band {band}"
-                                               if mesh.num_model > 1 else ""))
+                    f"{dist.get_backend()}{kind}")
 
+    # the whole model on the host (the same seeded init on every rank), then
+    # under TP this rank's shards alone go to the device
     model = DiT_models[config.model](
         num_classes=config.num_classes, context_size=CONTEXT_SIZE,
         class_dropout_prob=CLASS_DROPOUT_PROB, remat=config.remat, mlp_bwd=config.mlp_bwd,
     )
     model.initialize_weights(torch.Generator().manual_seed(config.global_seed))
-    model.to(device).train()
-    ema = make_ema(model).eval()
-    optimizer = make_optimizer(model.parameters(), lr=config.lr)
+    ema = make_ema(model)
     logger.info(f"DiT Parameters: {sum(p.numel() for p in model.parameters()):,}")
+    train_steps, opt_state = _load_state(config, model, ema, logger) if config.ckpt else (0, None)
+    if tp:
+        shard_model(model, mesh)
+        shard_model(ema, mesh)
+        logger.info(f"Parameters per model rank: {sum(p.numel() for p in model.parameters()):,}")
+    model.to(device).train()
+    ema.to(device).eval()
+    optimizer = make_optimizer(model.parameters(), lr=config.lr)
+    if opt_state is not None:
+        optimizer.load_state_dict(shard_optimizer_state(opt_state, model, mesh) if tp else opt_state)
     diffusion = create_diffusion("", noise_schedule=config.noise_schedule,
                                  use_l1=config.l1_loss, device=device)
     dtype = torch.bfloat16 if config.use_bf16 else torch.float32
-    train_steps = _load_state(config, model, ema, optimizer, logger) if config.ckpt else 0
 
     # this data rank's share of the beatmap sets, batch and seed
     num_sets = config.data_end - config.data_start
@@ -291,10 +325,10 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     logger.info(f"Dataset contains {ds_end - ds_start:,} beatmap sets ({config.data_path})")
     # builds the native featurizer before the loader's threads start, so a failed build raises here
     logger.info(f"Featurizer: {featurizer_name()}")
-    # one stream per data rank; the ranks of a CP group draw the same
+    # one stream per data rank; the ranks of a row draw the same
     generator = torch.Generator(device=device).manual_seed(
         (config.global_seed + train_steps) * mesh.num_data + mesh.data_rank)
-    cp_leader = mesh.data_rank * mesh.num_model  # the CP group's first rank
+    row_leader = mesh.data_rank * mesh.num_model  # the row's first rank
     # the data ranks agree on every step over a CPU group, which never waits for the card
     step_group = dist.new_group(backend="gloo") if mesh.num_data > 1 else None
     args = dataclasses.asdict(config)
@@ -330,14 +364,14 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
             batch = tuple(torch.from_numpy(a).to(device, non_blocking=True) for a in (win, prev_xy, y))
             if mesh.num_model > 1:
                 # threaded loaders may order a shard's batches differently on
-                # each rank: the CP group takes its first rank's
+                # each rank: the row takes its first rank's
                 for a in batch:
-                    dist.broadcast(a, src=cp_leader, group=mesh.cp_group)
+                    dist.broadcast(a, src=row_leader, group=mesh.row_group)
             metrics = train_step(
                 model, ema, optimizer, diffusion, (batch[0], batch[1], batch[2].long()),
                 band=band, dtype=dtype, generator=generator,
                 max_timestep=config.max_timestep, trainable_mask=mask,
-                mesh=mesh if mesh.world > 1 else None,
+                mesh=mesh if mesh.world > 1 else None, context_parallel=config.context_parallel,
             )
             running_loss += metrics["loss"]
             log_steps += 1
@@ -353,9 +387,12 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
                 running_loss.zero_()
                 log_steps = 0
                 start_time = time.time()
-            if train_steps % config.ckpt_every == 0 and rank == 0:
-                path = ckpt_lib.save_checkpoint(checkpoint_dir, train_steps, model, ema, optimizer, args)
-                logger.info(f"Saved checkpoint to {path}")
+            # under TP the first row gathers the shards, and rank 0 writes
+            if train_steps % config.ckpt_every == 0 and (rank == 0 or tp and mesh.data_rank == 0):
+                path = ckpt_lib.save_checkpoint(checkpoint_dir, train_steps, model, ema, optimizer,
+                                                args, mesh if tp else None)
+                if rank == 0:
+                    logger.info(f"Saved checkpoint to {path}")
             if config.max_steps is not None and train_steps >= config.max_steps:
                 stop = True
                 break

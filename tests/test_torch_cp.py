@@ -1,4 +1,5 @@
-"""The port's context parallelism against the JAX package, on the CPU.
+"""The port's context and tensor parallelism against the JAX package, on
+the CPU.
 
 - The ranged plain versions (forward with LSE, and the `BandedAttentionRanged`
   backward) against `banded_flash_attention_ranged` and its VJP (Pallas in
@@ -14,18 +15,26 @@
 - One CP training step of a small DiT on a (1 x 4) and a (2 data x 2 model)
   grid of gloo ranks, with JAX's draws fed in, against `make_train_step`
   with the JAX mesh of the same shape.
+- One tensor-parallel (TP) training step of a small DiT on (1 x 2), (1 x 4)
+  and (2 x 2) grids, with the default and the fused MLP backward, against
+  `make_train_step` over `shard_params`'d parameters on the JAX mesh of the
+  same shape: metrics, the gathered weights, EMA and AdamW moments, each
+  rank's shard shapes against JAX's, the replicas bit-identical on every
+  rank of a row.
 - `Sampler(cp=...)` on 4 ranks against the JAX CP sampler and the port's
   one-device sampler, with JAX's per-step noise, and on 2 ranks drawing
   its noise from a generator against the one-device chain of that seed.
 - The train CLI on 2 gloo ranks (torchrun's environment) with
   --num-model 2 --context-parallel, its checkpoint resumed by one process;
   on 2 data ranks whose shares give different batch counts, each epoch
-  ending on both together; and the flag checks.
+  ending on both together; and the flag checks (tests/test_torch_tp.py
+  runs the TP train CLI).
 
 The gloo ranks run tests/torch_cp_worker.py (no jax) as subprocesses on a
 free local port; one spawned world of each size runs all of that size's
 cases. Inputs are made with numpy from seeds.
 """
+import functools
 import os
 import socket
 import subprocess
@@ -45,6 +54,7 @@ from osu_diffusion_tpu.parallel.context import (
 )
 from osu_diffusion_tpu_torch.ops import banded_attention as ba
 from osu_diffusion_tpu_torch.parallel.context import shard_bounds
+from osu_diffusion_tpu_torch.parallel.sharding import LABEL_TABLE, table_rows
 from osu_diffusion_tpu_torch.train.checkpoint import state_dict_from_jax_params
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -232,6 +242,49 @@ def _train_case(num_model, params, batch, draws):
             "raw": raw, "prev_xy": prev_xy, "y": y, "draws": draws}
 
 
+# the TP step: TRAIN_CONFIG with 37 classes (a 48-row padded table, so that
+# the two samples' labels, 30 and 7, sit on different model ranks at P = 2
+# and 4); hidden 32 gives fc1 128 rows (64 or 32 a rank) and 192-wide block
+# heads (at P = 4 a rank's 48 columns cross the 32-wide chunk boundaries)
+TP_T, TP_CLASSES, TP_LABELS = 256, 37, (30, 7)
+TP_CONFIG = {**TRAIN_CONFIG, "num_classes": TP_CLASSES}
+# grid -> (world, num_model)
+TP_GRIDS = {"1x2": (2, 2), "1x4": (4, 4), "2x2": (4, 2)}
+TP_CASES = [(grid, bwd) for grid in TP_GRIDS for bwd in ("xla", "fused")]
+
+
+def _tp_setup():
+    """The JAX DiT of the TP step (adaLN-Zero layers perturbed as
+    _train_setup does), its params, batch and draws."""
+    from osu_diffusion_tpu.models.dit import DiT, DiTConfig
+
+    jm = DiT(DiTConfig(remat=False, **TP_CONFIG))
+    params = jm.init(jax.random.PRNGKey(1), jnp.zeros((1, 8, 2)), jnp.zeros((1,), jnp.int32),
+                     jnp.zeros((1, 8)), jnp.zeros((1, 8, CTX)), jnp.zeros((1,), jnp.int32))["params"]
+    r = np.random.RandomState(3)
+
+    def perturb(path, leaf):
+        names = [getattr(k, "key", str(k)) for k in path]
+        a = np.array(leaf)
+        if "adaLN" in names or ("final_layer" in names and "linear" in names):
+            a = a + (0.05 * r.randn(*a.shape)).astype(a.dtype)
+        return jnp.asarray(a)
+
+    params = jax.tree_util.tree_map_with_path(perturb, params)
+    raw, prev_xy, _ = _raw_batch(TRAIN_N, TP_T, TP_CLASSES, seed=4)
+    batch = (raw, prev_xy, np.array(TP_LABELS, np.int32))
+    draws = _jax_step_draws(jax.random.fold_in(jax.random.PRNGKey(TRAIN_RNG), 0), TRAIN_N, TP_T, 1000)
+    return jm, params, batch, draws
+
+
+def _tp_case(grid, mlp_bwd, params, batch, draws):
+    sd = state_dict_from_jax_params(jax.tree.map(np.asarray, params), num_label_rows=TP_CLASSES)
+    raw, prev_xy, y = batch
+    return {"num_model": TP_GRIDS[grid][1], "band": TRAIN_BAND, "config": TP_CONFIG, "mlp_bwd": mlp_bwd,
+            "state_dict": {k: v.numpy() for k, v in sd.items()},
+            "raw": raw, "prev_xy": prev_xy, "y": y, "draws": draws}
+
+
 SAMPLE_T, SAMPLE_STEPS, SAMPLE_BAND, SAMPLE_CFG, SAMPLE_SEED = 512, 3, 128, 2.0, 11
 SAMPLE_CONFIG = dict(hidden_size=32, depth=2, num_heads=2, num_classes=7, context_size=CTX,
                      class_dropout_prob=0.1)
@@ -285,11 +338,12 @@ def _spawn_world(world, workdir):
 @pytest.fixture(scope="module")
 def worlds(tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}: world 2 runs the P = 2
-    attention cases and a sampler drawing from a generator; world 4 the
-    P = 4 attention cases, the (1 x 4) and (2 x 2) train steps and the
-    sampler with JAX's noise."""
+    attention cases, a sampler drawing from a generator and the (1 x 2) TP
+    steps; world 4 the P = 4 attention cases, the (1 x 4) and (2 x 2) CP
+    and TP train steps and the sampler with JAX's noise."""
     workdir = tmp_path_factory.mktemp("cp")
     _, params, batch, draws = _train_setup()
+    _, tparams, tbatch, tdraws = _tp_setup()
     _, sparams, inputs, _, noise = _sample_setup()
     cases = {
         2: {"attn": [_attn_case(*c) for c in ATTN_CASES if c[1] == 2],
@@ -298,6 +352,8 @@ def worlds(tmp_path_factory):
             "train": [_train_case(m, params, batch, draws) for m in (4, 2)],
             "sample": [_sample_case(sparams, inputs, 4, noise=noise)]},
     }
+    for grid, bwd in TP_CASES:
+        cases[TP_GRIDS[grid][0]].setdefault("tp", []).append(_tp_case(grid, bwd, tparams, tbatch, tdraws))
     for world, c in cases.items():
         torch.save(c, workdir / f"cases_w{world}.pt")
     procs = {world: _spawn_world(world, workdir) for world in cases}  # both worlds at once
@@ -388,6 +444,75 @@ def test_cp_train_step_matches_jax(worlds, grid):
                 assert torch.equal(r[key][name], results[0][key][name]), name
 
 
+@functools.cache
+def _jax_tp_step(grid):
+    """JAX's TP step on the grid's mesh: (state, metrics, {port name: this
+    model rank's shard shape}) from `shard_params` and
+    `create_train_state(..., mesh)`."""
+    import optax
+
+    from osu_diffusion_tpu.diffusion import create_diffusion as jax_create
+    from osu_diffusion_tpu.parallel.sharding import shard_params
+    from osu_diffusion_tpu.parallel.train_step import create_train_state, make_train_step
+
+    world, num_model = TP_GRIDS[grid]
+    jm, params, (raw, prev_xy, y), _ = _tp_setup()
+    jd = jax_create("", noise_schedule="squaredcos_cap_v2", use_l1=True)
+    opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=1e-4, weight_decay=0.0)
+    mesh = jax_make_mesh(num_model=num_model, devices=jax.devices()[:world])
+    step = make_train_step(jm, jd, opt, compute_dtype=jnp.float32, band=TRAIN_BAND, ema_decay=0.5)
+    with mesh:
+        sharded = shard_params(params, mesh)
+        shard_shapes = state_dict_from_jax_params(jax.tree.map(
+            lambda a: np.zeros(a.sharding.shard_shape(a.shape), np.float32), sharded))
+        state, metrics = jax.jit(step)(create_train_state(sharded, opt, mesh),
+                                       (jnp.asarray(raw), jnp.asarray(prev_xy), jnp.asarray(y)),
+                                       jax.random.PRNGKey(TRAIN_RNG))
+    return state, metrics, {k: tuple(v.shape) for k, v in shard_shapes.items()}
+
+
+@pytest.mark.parametrize("grid,mlp_bwd", TP_CASES, ids=[f"{g}-{b}" for g, b in TP_CASES])
+def test_tp_train_step_matches_jax(worlds, grid, mlp_bwd):
+    """One AdamW + EMA step (AdamW eps 1e-4, EMA decay 0.5, as
+    test_cp_train_step_matches_jax) with the weights sharded over the model
+    ranks of a (1 x 2), (1 x 4) or (2 x 2) grid of gloo ranks, against
+    make_train_step over shard_params'd parameters on the JAX mesh of that
+    shape (the JAX step's MLP is its plain one: its backward options are
+    Pallas-only). Metrics rtol 1e-5; the gathered parameters, EMA and AdamW
+    moments within 5e-6 (the label table's padded rows left out); each
+    rank's tensors of JAX's shard shapes; the replicated tensors the same
+    bits on every rank of a row."""
+    world, num_model = TP_GRIDS[grid]
+    state, metrics, shard_shapes = _jax_tp_step(grid)
+    i = [c for c in TP_CASES if TP_GRIDS[c[0]][0] == world].index((grid, mlp_bwd))
+    results = [r["tp"][i] for r in worlds[world]]
+    for r in results:
+        assert set(r["metrics"]) == {"loss", "l1", "vb"}
+        for k, v in r["metrics"].items():
+            np.testing.assert_allclose(v, float(metrics[k]), rtol=1e-5, err_msg=k)
+    adam = state.opt_state[0]
+    for key, tree in (("params", state.params), ("ema", state.ema_params), ("exp_avg", adam.mu),
+                      ("exp_avg_sq", adam.nu)):
+        want = state_dict_from_jax_params(jax.tree.map(np.asarray, tree), num_label_rows=TP_CLASSES)
+        for name, w in want.items():
+            if key.startswith("exp") and name not in results[0][key]:
+                continue  # a buffer (playfield_size) has no moments
+            for r in results:
+                np.testing.assert_allclose(r[key][name].numpy(), w.numpy(), rtol=0, atol=5e-6,
+                                           err_msg=f"{key} {name}")
+    for rank, r in enumerate(results):
+        row = results[rank - rank % num_model:rank - rank % num_model + num_model]
+        for name, v in r["local"].items():
+            if name.endswith("playfield_size"):
+                continue
+            assert tuple(v.shape) == shard_shapes[name], (name, rank)
+            whole = (table_rows(TP_CLASSES),) if name == LABEL_TABLE else results[0]["params"][name].shape
+            if v.shape[0] == whole[0] and tuple(v.shape) == (*whole[:1], *results[0]["params"][name].shape[1:]):  # a replica: the same bits on the row's ranks
+                for other in row:
+                    assert torch.equal(other["local"][name], v), (name, rank)
+    assert results[0]["local"]["blocks.0.mlp.fc1.weight"].shape[0] == 128 // num_model
+
+
 def test_cp_sampler_matches_jax_and_one_device(worlds):
     """A 3-step CFG chain with the sequence over 4 gloo ranks (T = 512, band
     128), the same per-step noise (JAX's), against the port's one-device
@@ -466,13 +591,13 @@ def _cli_argv(data, results, *extra):
             "--results-dir", results, "--device", "cpu", *extra]
 
 
-def _two_ranks_of_train_cli(argv) -> list[str]:
-    """train_torch.py on 2 gloo ranks in torchrun's environment; each rank's
-    output, after checking that it exited 0."""
+def _ranks_of_train_cli(argv, world: int = 2) -> list[str]:
+    """train_torch.py on `world` gloo ranks in torchrun's environment; each
+    rank's output, after checking that it exited 0."""
     port = str(_free_port())
     procs = []
-    for rank in range(2):
-        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": "2",
+    for rank in range(world):
+        env = {**os.environ, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world),
                "MASTER_ADDR": "localhost", "MASTER_PORT": port, "OMP_NUM_THREADS": "1"}
         procs.append(subprocess.Popen([sys.executable, "train_torch.py", *argv], cwd=ROOT, env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
@@ -486,7 +611,7 @@ def _two_ranks_of_train_cli(argv) -> list[str]:
             raise
     for rank, (proc, out) in enumerate(zip(procs, outs)):
         assert proc.returncode == 0, f"rank {rank}:\n{out}"
-        assert f"[rank {rank} of 2] gloo on cpu" in out
+        assert f"[rank {rank} of {world}] gloo on cpu" in out
     return outs
 
 
@@ -501,7 +626,7 @@ def test_train_cli_two_ranks_context_parallel(tmp_path):
 
     data, results = str(tmp_path / "data"), str(tmp_path / "results")
     _dataset(data)
-    outs = _two_ranks_of_train_cli(_cli_argv(data, results, "--max-steps", "2", "--ckpt-every", "2",
+    outs = _ranks_of_train_cli(_cli_argv(data, results, "--max-steps", "2", "--ckpt-every", "2",
                                              "--num-model", "2", "--context-parallel", "--dist", "gloo"))
     assert "Train Loss:" not in outs[1]  # rank 1 logs nothing
     assert os.listdir(results) == ["000-DiT-S"]
@@ -549,7 +674,7 @@ def test_train_cli_two_data_ranks_end_each_epoch_together(tmp_path):
             "--model", "DiT-S", "--global-batch-size", "4", "--seq-len", str(seq_len), "--stride",
             str(stride), "--num-workers", str(workers), "--log-every", "1", "--epochs", "2",
             "--ckpt-every", "1000", "--results-dir", results, "--device", "cpu", "--dist", "gloo"]
-    outs = _two_ranks_of_train_cli(argv)
+    outs = _ranks_of_train_cli(argv)
     assert "Train Loss:" not in outs[1]
     log = open(os.path.join(results, "000-DiT-S", "log.txt")).read()
     assert "2 data x 1 model ranks over gloo" in log
@@ -559,10 +684,11 @@ def test_train_cli_two_data_ranks_end_each_epoch_together(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--num-model", "2"], "tensor parallelism"),
+    (["--num-model", "8"], "shards of 192: tensor parallelism takes shard widths that are multiples "
+                           "of 128"),
     (["--num-model", "2", "--context-parallel", "--seq-len", "200"], "multiple of num_model"),
     (["--context-parallel"], "needs --num-model > 1"),
-], ids=["tp_not_ported", "seq_len_not_divisible", "cp_needs_model_ranks"])
+], ids=["tp_shard_width_not_128", "seq_len_not_divisible", "cp_needs_model_ranks"])
 def test_train_cli_refuses_unported_or_uneven_parallelism(tmp_path, extra, match):
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
 

@@ -589,6 +589,42 @@ def test_adaln_mlp_bwd_kernels_match_plain(cuda_device, n, t, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("n,t,d,p", [(4, 128, 768, 2), (3, 50, 768, 4), (2, 100, 1152, 4)])
+def test_adaln_mlp_partial_kernels_at_shard_widths(cuda_device, n, t, d, p, dtype):
+    """Rows 8 and 9b on each tensor-parallel rank's hidden units (H = 4D/P),
+    the first rank whole and the others `partial` (no b2, no residual x in
+    the forward, no residual g in dx), against their plain versions on the
+    same shard within 1e-2 of each max (test_adaln_mlp_train_kernel_matches_plain's
+    reasons); the ranks' out summed within 2e-2 of the whole MLP half's
+    plain out (P bf16 roundings of out instead of one)."""
+    g = torch.Generator(device=cuda_device).manual_seed(n + t + d + p)
+    x, shift, scale, gate, w1, w2, _, _, gout = _bwd_inputs(n, t, d, dtype, g, cuda_device)
+    b1 = torch.randn(4 * d, generator=g, device=cuda_device) * 0.02
+    b2 = torch.randn(d, generator=g, device=cuda_device) * 0.02
+    hs = 4 * d // p
+    total = torch.zeros(n, t, d, device=cuda_device)
+    for r in range(p):
+        cols = slice(r * hs, (r + 1) * hs)
+        partial = r > 0
+        fc1_w, fc2_w, b1r = w1[:, cols].t().contiguous(), w2[cols].t().contiguous(), b1[cols].contiguous()
+        got = tam.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1r, fc2_w, b2, partial=partial)
+        want = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1[:, cols], b1r, w2[cols], b2, 1e-6,
+                                             torch.bfloat16, partial)
+        for name, u, v in zip(("out", "a", "mlp"), got, want):
+            assert _rel(u, v) <= 1e-2, (r, name, _rel(u, v))
+        total += got[0].float()
+        da = torch.randn(n, t, hs, generator=g, device=cuda_device).to(dtype)
+        epi = tam.adaln_mlp_bwd_epilogue(da, x, gout, shift, scale, fc1_w, partial=partial)
+        want = tam.adaln_mlp_bwd_epilogue_reference(da, x, gout, shift, scale, w1[:, cols], 1e-6,
+                                                    torch.bfloat16, partial)
+        for name, u, v in zip(("dx", "h1", "dshift", "dscale"), epi, want):
+            assert _rel(u, v) <= 1e-2, (r, name, _rel(u, v))
+    whole = tam.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, torch.bfloat16)[0]
+    assert _rel(total, whole) <= 2e-2
+
+
+@pytest.mark.cuda
 def test_adaln_mlp_fused_bf16_packs_no_weights(cuda_device, monkeypatch):
     """Under the fused backward with a bf16 stream, a training step's
     forward and backward read the weights in torch's layout: nothing

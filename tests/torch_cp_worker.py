@@ -1,4 +1,4 @@
-"""One gloo rank of the port's context-parallel tests (run by
+"""One gloo rank of the port's context- and tensor-parallel tests (run by
 tests/test_torch_cp.py, one subprocess per rank; imports torch and the port,
 never jax).
 
@@ -11,6 +11,9 @@ process, runs every case on this world, and writes this rank's results to
   and the gradients of sum(sin(out)) over the global rows below `loss_rows`;
 - "train": one AdamW + EMA `train_step` on a mesh of `num_model` model
   ranks with the given weights, batch and draws (this rank's DP shard);
+- "tp": the same step with the model sharded over the model ranks (tensor
+  parallelism, the case's MLP backward): the gathered weights, EMA and
+  AdamW moments, and this rank's own tensors;
 - "sample": a `Sampler(cp=mesh)` chain with the given per-step noise, or
   from a generator of the given seed.
 """
@@ -30,6 +33,11 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion  # noqa: E402
 from osu_diffusion_tpu_torch.models.dit import DiT  # noqa: E402
 from osu_diffusion_tpu_torch.parallel import context_parallel_banded_attention, make_mesh  # noqa: E402
+from osu_diffusion_tpu_torch.parallel.sharding import (  # noqa: E402
+    gather_optimizer_state,
+    gather_state_dict,
+    shard_model,
+)
 from osu_diffusion_tpu_torch.sampling import Sampler  # noqa: E402
 from osu_diffusion_tpu_torch.train.train_step import StepDraws, make_ema, train_step  # noqa: E402
 
@@ -63,15 +71,18 @@ def run_attn(case):
 
 
 def port_model(case):
-    model = DiT(matmul_dtype=torch.float32, **case["config"])
+    model = DiT(matmul_dtype=torch.float32, mlp_bwd=case.get("mlp_bwd", "xla"), **case["config"])
     model.load_state_dict({k: t(v) for k, v in case["state_dict"].items()})
     return model
 
 
-def run_train(case):
+def run_train(case, tp=False):
     mesh = mesh_of(case["num_model"])
     model = port_model(case).train()
     ema = make_ema(model)
+    if tp:
+        shard_model(model, mesh)
+        shard_model(ema, mesh)
     opt = torch.optim.AdamW(model.parameters(), lr=1e-4, betas=(0.9, 0.999), eps=1e-4,
                             weight_decay=0.0)
     diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True)
@@ -82,7 +93,15 @@ def run_train(case):
     draws = StepDraws(t(d["flip_x"][mine]), t(d["flip_y"][mine]), t(d["offset01"][mine]),
                       t(d["t"][mine]).long(), t(d["noise"][mine]), t(d["drop"][mine]))
     metrics = train_step(model, ema, opt, diffusion, batch, band=case["band"],
-                         dtype=torch.float32, draws=draws, ema_decay=0.5, mesh=mesh)
+                         dtype=torch.float32, draws=draws, ema_decay=0.5, mesh=mesh,
+                         context_parallel=not tp)
+    if tp:
+        names = [name for name, _ in model.named_parameters()]
+        state = gather_optimizer_state(opt, model, mesh)["state"]
+        return {"metrics": {k: v.item() for k, v in metrics.items()},
+                "params": gather_state_dict(model, mesh), "ema": gather_state_dict(ema, mesh),
+                **{k: {names[i]: s[k] for i, s in state.items()} for k in ("exp_avg", "exp_avg_sq")},
+                "local": {k: v.clone() for k, v in model.state_dict().items()}}
     return {"metrics": {k: v.item() for k, v in metrics.items()},
             "params": {k: v.clone() for k, v in model.state_dict().items()},
             "ema": {k: v.clone() for k, v in ema.state_dict().items()}}
@@ -105,7 +124,8 @@ def run_sample(case):
     return {"out": sampler(*inputs, noise_fn=noise_fn)}
 
 
-runners = {"attn": run_attn, "train": run_train, "sample": run_sample}
+runners = {"attn": run_attn, "train": run_train, "tp": lambda case: run_train(case, tp=True),
+           "sample": run_sample}
 results = {kind: [runners[kind](case) for case in kind_cases] for kind, kind_cases in cases.items()}
 torch.save(results, os.path.join(workdir, f"out_w{world}_r{rank}.pt"))
 dist.barrier()
