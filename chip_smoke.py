@@ -34,7 +34,7 @@ Phases (any failure raises and exits non-zero):
    second forward call in every case.
 5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
-   50 CFG denoise steps, the .osu written and reparsed, and each inference
+   STEPS CFG denoise steps, the .osu written and reparsed, and each inference
    kernel's launch count equal to steps x depth. A second, timed run gives
    the seconds per denoise step, and a profiled run the device time by kernel
    (kernel B's own per denoise step).
@@ -139,17 +139,17 @@ Phases (any failure raises and exits non-zero):
    known_x (`[inpaint]`); the Δ-cache on the f32 and the int8 model
    (`[slice-accel]`, `[slice-accel-int8]`: the CLI at interval 2 with
    launches full x depth + skipped x (depth - 8), tau 0 bit-equal to the
-   exact chain with 50 full steps, one forward recorded then applied at the
+   exact chain with STEPS full steps, one forward recorded then applied at the
    same input (record: the full forward's bits and block 2's input left as
    it was; apply: the full forward within DELTA_APPLY_REL_TOL), then
-   intervals 1-3 and two taus on both drift modes: launches, device time,
+   interval 1 and ACCEL_INTERVALS and a tau on both drift modes: launches, device time,
    the gap to the exact chain, s per step in turns and its ratio to both
    chains that run every block (the exact one and tau 0), and tau 0 against
    the exact chain for the cost of the per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
    depth more launches). `[serving]` prints these phases' wall time.
 15. The in-paint accuracy protocol (`[toy]`, evals/toy.py's main) at DiT-B on
    the stream suite: 100 predictions a fixture, the null class, no CFG,
-   seq_len and band 128, 25 sampling steps (the protocol's 1000, cut), f32
+   seq_len and band 128, TOY_STEPS sampling steps (the protocol's 1000, cut), f32
    and then --quantize-weights: launches by the schedule (rows 1 and 7, or
    rows 1 and 10-13, steps x depth x fixtures), row 13 on its wide body at
    100 rows, every pinned row exactly its known_x, every prediction finite;
@@ -174,7 +174,7 @@ Phases (any failure raises and exits non-zero):
    required) and the main shape's time beside its bound and SDPA
    (`[attn-xl]`); row 7 at D 1152 (`[mlp-xl]`) and rows 10-13 (`[quant-xl]`),
    each with its time, bound and library time. After 10, the sample CLI at
-   --model DiT-XL on kimi from a seeded random checkpoint, 20 steps, f32 and
+   --model DiT-XL on kimi from a seeded random checkpoint, XL_STEPS steps, f32 and
    --quantize-weights (`[slice-xl]`, `[slice-xl-int8]`: 28 x steps
    launches of each path kernel, the .osu reparsed, s per step, device ms
    a step, busy share); one XL forward of each stream against the same
@@ -230,6 +230,27 @@ Phases (any failure raises and exits non-zero):
    process of the same seed and flags (`[train-tp]`: losses within
    CP_LOSS_REL_TOL, rows 2-4, 8 and 9a/9b launched on every rank as in one
    process, s per step, each rank's parameters and peak device memory).
+22. The rest of the mesh. `[attn-cp]` and `[attn-cp-xl]` also check the
+   ranged forward's bf16 o from f32 q/k/v (the int8 block's) against its
+   f32 o rounded, with its builds' registers and spills (0 required).
+   After 21's kernels, rows 8, 9a and 9b at the shard widths the kernels
+   take only zero-padded to a multiple of 128 (`[mlp-tp-ragged]`: 192 at D
+   384, 576 and 288 at D 1152, both streams, as 21 checks them, the padded
+   units exactly 0; times at the padded width beside the bound at the true
+   one; and `AdalnMlp` on a ragged shard with each backward). Inside 13's
+   ranks, the int8 DiT-B (quantized at load) under `Sampler(cp=)`
+   (`[slice-int8-cp]`: its 10-step chain within CP_CHAIN_FLOOR_MULTIPLE of
+   the one-process int8 chain's noise floor, the launches of rows 5 and
+   10-13 on every rank, no f32 o cast, s per step); `[train-cp]` runs over
+   sharded weights (the trainer shards whenever --num-model > 1), and
+   `[train-tp-cp]` adds the same CLI with --mlp-bwd fused and both
+   backwards over whole weights on every rank (the replicated CP step:
+   `trainer.shard_model` a no-op for those runs), beside one process:
+   losses, launches on every rank, fewer parameters and less peak memory a
+   rank than the replicated runs. After 21's CLI runs, DiT-L with
+   --num-model 3 on three ranks sharing the card, a degree that leaves the
+   MLP whole (`[train-tp-whole-mlp]`: launches, finite losses, parameters
+   and peak memory a rank).
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -241,6 +262,7 @@ device.
 """
 import contextlib
 import copy
+import gc
 import glob
 import io
 import itertools
@@ -306,7 +328,7 @@ BF16_FLOPS = 989e12
 BEATMAP = os.path.join("assets", "toy_datasets", "kimi_no_bouken.osu")
 MODEL = "DiT-B"
 NUM_CLASSES = 52670
-STEPS = 50
+STEPS = 30  # the sample CLI's denoise steps at DiT-B (its default is 250, cut)
 CFG_SCALE = 2.0
 BAND = 128
 SEED = 0
@@ -398,17 +420,29 @@ MLP_TP_CASES = [("main_b_p2", 256, 128, 768, 2, "bf16"), ("main_xl_p2", 256, 128
                 ("main_xl_p4", 256, 128, 1152, 4, "bf16"), ("b_p4_ragged_t", 3, 50, 768, 4, "bf16"),
                 ("s_p4", 2, 100, 384, 4, "bf16"), ("l_p2_t757", 1, 757, 1024, 2, "bf16"),
                 ("b_p2_f32", 4, 128, 768, 2, "f32")]
+# [mlp-tp-ragged]: the shard widths the kernels take only zero-padded to a
+# multiple of 128 (ops/adaln_mlp.py `pad_hidden`): 192 (DiT-S over 8
+# ranks), 576 and 288 (DiT-XL over 8 and 16), in both streams; the main_*
+# cases timed at the padded width beside the bound at the true one
+MLP_TP_RAGGED_CASES = [("main_s_p8", 256, 128, 384, 8, "bf16"), ("main_xl_p8", 256, 128, 1152, 8, "bf16"),
+                       ("main_xl_p16", 256, 128, 1152, 16, "bf16"), ("s_p8_f32", 4, 128, 384, 8, "f32"),
+                       ("xl_p8_f32", 4, 128, 1152, 8, "f32"), ("xl_p16_f32_ragged_t", 3, 50, 1152, 16, "f32")]
 # [train-tp]: the train CLI at DiT-B, --num-model TP_RANKS without
 # --context-parallel, two gloo ranks sharing the card
 TP_RANKS = 2
 TP_BATCH = 32
 TP_STEPS = 5
+# [train-tp-whole-mlp]: DiT-L over 3 ranks (4096 hidden units do not split
+# over 3: the MLP stays whole, the block heads split)
+TP_WHOLE_MLP_MODEL = "DiT-L"
+TP_WHOLE_MLP_RANKS = 3
+TP_WHOLE_MLP_STEPS = 2
 # context parallelism: two ranks share the card over gloo (NCCL refuses two
 # ranks on one device), so its times say nothing of NCCL across cards
 CP_RANKS = 2
 CP_SEQ = 512  # the CP training window: two shards of 256
 CP_BATCH = 32
-CP_STEPS = 6
+CP_STEPS = 6  # timed from the third step
 CP_SAMPLE_STEPS = 10
 CP_TIMEOUT = 600  # seconds for the ranks' run (the process group's own timeout is 5 minutes)
 # the CP train run against the one-process run, relative difference of each
@@ -470,11 +504,11 @@ ATTN_CP_XL_CASES = [
 # the serving paths (14): the Δ-cache span at DiT-B, (depth // 6, depth -
 # depth // 6); a skipped step runs the blocks outside it
 ACCEL_SPAN = (2, 10)
-# the sweep's fixed intervals, and the quantiles of the exact chain's
-# one-step drifts taken as its two taus (so both land where the chain can
-# skip, whatever the weights)
-ACCEL_INTERVALS = (2, 3)
-ACCEL_TAU_QUANTILES = (0.5, 0.9)
+# the sweep's fixed interval, and the quantile of the exact chain's
+# one-step drifts taken as its tau (so it lands where the chain can skip,
+# whatever the weights); one of each keeps the script inside its time limit
+ACCEL_INTERVALS = (2,)
+ACCEL_TAU_QUANTILES = (0.9,)
 # [slice-bf16]: a bf16-stream DiT-B forward on the card against the CPU's
 # f32-stream forward, max |diff| (the JAX package's bf16 test holds its
 # bf16 forward to f32 at this atol)
@@ -499,7 +533,7 @@ PROFILED_STEPS = range(15, 18)  # steps traced by torch.profiler
 # run at DiT-S in a child process, two chunks and an eval round after each
 TOY_SUITE = "stream"
 TOY_PREDICTIONS = 100
-TOY_STEPS = 25  # the protocol's 1000, cut
+TOY_STEPS = 10  # the protocol's 1000, cut
 TOY_SEQ = 128
 UNFUCK_SUITE = "geometry"
 UNFUCK_STEPS = 10  # the protocol's 1000 t = 0 steps, cut
@@ -622,10 +656,12 @@ def phase_build():
     return card
 
 
-# the Hopper attention builds: the forward's five (q/k/v type, o type;
-# bf16 o from f32 q/k/v unranged only) at Dh 64 and at Dh 72 (DiT-XL), and
-# dq's and dk/dv's two, each unranged and ranged, at Dh 64 and 72
-SM90_FWD_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32")
+# the Hopper attention builds: the forward's six (q/k/v type, o type; bf16
+# o from f32 q/k/v for the int8 block, unranged and ranged) at Dh 64 and at
+# Dh 72 (DiT-XL), and dq's and dk/dv's two, each unranged and ranged, at Dh
+# 64 and 72
+SM90_FWD_BUILDS = ("fwd bf16", "fwd f32", "fwd f32->bf16", "ranged fwd bf16", "ranged fwd f32",
+                   "ranged fwd f32->bf16")
 SM90_FWD_XL_BUILDS = tuple(f"{name} dh72" for name in SM90_FWD_BUILDS)
 SM90_BWD_XL_BUILDS = ("dq dh72", "dkv dh72")
 SM90_BWD_CP_XL_BUILDS = ("ranged dq dh72", "ranged dkv dh72")
@@ -1483,7 +1519,7 @@ def phase_mlp_bwd(dev, tag="mlp-bwd", cases=MLP_BWD_CASES):
     return results, whole_ms
 
 
-def phase_mlp_tp(dev, cases=MLP_TP_CASES):
+def phase_mlp_tp(dev, cases=MLP_TP_CASES, tag="mlp-tp"):
     """[mlp-tp]: rows 8, 9a and 9b on the shards tensor parallelism gives
     them: for each case every model rank's hidden units (fc1's rows and
     b1, fc2's columns; H = 4D/P), rank 0 whole and the others with the
@@ -1493,20 +1529,30 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
     dshift, dscale and the prologue's dgate) against the whole MLP half's
     f32 plain forward and backward. At the main_* cases rank 1's (a
     partial's) times beside bounds, plain versions and the cuBLAS products
-    of the shard's shape, and rank 0's forward. Returns {case: numbers}."""
+    of the shard's shape, and rank 0's forward. [mlp-tp-ragged]: shard
+    widths that are not a multiple of 128 run the kernels zero-padded to
+    one, as `AdalnMlp` pads them (their outputs sliced back to the shard,
+    the padded units' a, da and db1 required to be exactly 0), against the
+    plain versions at the true width, the times at the padded width beside
+    the bound at the true one; and `AdalnMlp` itself on one rank's shard of
+    each main case, each backward, against the plain versions at the true
+    width. Returns {case: numbers}."""
     import torch
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
 
     g = torch.Generator(device=dev).manual_seed(8)
     bf16, f32 = torch.bfloat16, torch.float32
     wall = time.perf_counter()
-    print(f"[mlp-tp] the builds these shards run (ptxas): forward {mlp_sm90_resources()}; backward "
-          f"{mlp_bwd_sm90_resources()}; f32 backward {mlp_bwd_wmma_resources(768)}")
+    widths = sorted({d for _, _, _, d, _, stream in cases if stream == "f32"})
+    print(f"[{tag}] the builds these shards run (ptxas): forward {mlp_sm90_resources()}; backward "
+          f"{mlp_bwd_sm90_resources()}; f32 backward "
+          + "; ".join(mlp_bwd_wmma_resources(d) for d in widths))
     results = {}
     for name, n, t, d, p, stream in cases:
         dtype = f32 if stream == "f32" else bf16
         hdim = 4 * d
         hs = hdim // p
+        hp = am.padded_hidden(hs)  # the width the kernels run
 
         def rnd(*shape, std):
             return torch.randn(shape, generator=g, device=dev) * std
@@ -1519,17 +1565,25 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
         w1b, w2b = w1.to(bf16), w2.to(bf16)
         gout = rnd(n, t, d, std=1.0).to(dtype)
         sums = {k: 0.0 for k in ("out", "mlp", "dx", "dshift", "dscale", "dgate")}
-        errs, bodies, row8 = {}, set(), {}
+        errs, bodies, row8, pads_zero = {}, set(), {}, True
         for r in range(p):
             cols = slice(r * hs, (r + 1) * hs)
             partial = r > 0
             fc1_w, fc2_w = w1b[:, cols].t().contiguous(), w2b[cols].t().contiguous()
             b1r = b1[cols].contiguous()
-            fwd = am.adaln_mlp_train(x, shift, scale, gate, fc1_w, b1r, fc2_w, b2, partial=partial)
-            pro = am.adaln_mlp_bwd_prologue(gout, fwd[2], fwd[1], gate, fc2_w)
-            epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w, partial=partial)
+            kw1, kb1, kw2 = (fc1_w, b1r, fc2_w) if hp == hs else am.pad_hidden(fc1_w, b1r, fc2_w, hp)
+            fwd = am.adaln_mlp_train(x, shift, scale, gate, kw1, kb1, kw2, b2, partial=partial)
+            pro = am.adaln_mlp_bwd_prologue(gout, fwd[2], fwd[1], gate, kw2)
+            epi = am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, kw1, partial=partial)
             torch.cuda.synchronize()
             bodies.add((am.adaln_mlp_train.body, am.adaln_mlp_bwd_prologue.body, am.adaln_mlp_bwd_epilogue.body))
+            if hp != hs:  # the padded units' a, da, gelu(a) and db1 are exact zeros
+                pads_zero = pads_zero and not any(bool(v.any()) for v in (
+                    fwd[1][..., hs:], pro[0][..., hs:], pro[1][..., hs:], pro[4][hs:]))
+            kernel_out = (fwd, pro)
+            # the outputs at the shard's true width
+            fwd = (fwd[0], fwd[1][..., :hs], fwd[2])
+            pro = (pro[0][..., :hs], pro[1][..., :hs], *pro[2:4], pro[4][:hs], pro[5])
             wants = {}
             for key, w1k, w2k, mdt in (("bf16", w1b, w2b, bf16), ("f32", w1, w2, f32)):
                 wf = am.adaln_mlp_train_reference(x, shift, scale, gate, w1k[:, cols], b1r, w2k[cols], b2,
@@ -1551,7 +1605,7 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
                          ("dscale", epi[3])):
                 sums[k] = sums[k] + v.float()
             if name.startswith("main") and r < 2:  # rank 0 whole, rank 1 a partial
-                row8[r] = lambda args=(x, shift, scale, gate, fc1_w, b1r, fc2_w, b2), part=partial: (
+                row8[r] = lambda args=(x, shift, scale, gate, kw1, kb1, kw2, b2), part=partial: (
                     am.adaln_mlp_train(*args, partial=part))
             if name.startswith("main") and r == 1:
                 # rows 8 whole and partial in turns (whole, partial, partial, whole)
@@ -1559,8 +1613,9 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
                 for k in (0, 1, 1, 0):
                     turns[k].append(cuda_ms(row8[k]))
                 ms, whole_ms = sum(turns[1]) / 2, sum(turns[0]) / 2
-                pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, fwd[2], fwd[1], gate, fc2_w))
-                epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(pro[0], x, gout, shift, scale, fc1_w,
+                kfwd, kpro = kernel_out
+                pro_ms = cuda_ms(lambda: am.adaln_mlp_bwd_prologue(gout, kfwd[2], kfwd[1], gate, kw2))
+                epi_ms = cuda_ms(lambda: am.adaln_mlp_bwd_epilogue(kpro[0], x, gout, shift, scale, kw1,
                                                                    partial=True))
                 w1c, w2c = w1[:, cols], w2[cols]
                 plain = {"fwd": cuda_ms(lambda: am.adaln_mlp_train_reference(
@@ -1582,30 +1637,45 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
                 del mats
                 results[name] = {"ms": {"fwd": ms, "pro": pro_ms, "epi": epi_ms}, "plain_ms": plain,
                                  "bounds": bounds, "cublas_ms": cublas}
-            del fwd, pro, epi, wants, got
+                if hp != hs:
+                    results[name]["function"] = adaln_mlp_function_errors(
+                        x, shift, scale, gate, w1[:, cols].t().contiguous(), b1r, w2[cols].t().contiguous(), b2,
+                        gout)
+                    del kfwd, kpro
+            del fwd, pro, epi, wants, got, kernel_out
         # the row's sums against the whole MLP half (f32 plain)
         fw = am.adaln_mlp_train_reference(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, f32)
         bw = am.adaln_mlp_bwd(x, shift, scale, gate, w1.t(), w2.t(), fw[1], fw[2], gout, 1e-6, f32)
         whole = {"out": fw[0], "mlp": fw[2], "dx": bw[0], "dshift": bw[1], "dscale": bw[2], "dgate": bw[3]}
         sum_errs = {k: rel_err(sums[k], whole[k]) for k in sums}
         del fw, bw, whole, sums
-        print(f"[mlp-tp] {name}: x=({n}, {t}, {d}) {stream}, {p} ranks of H {hs} (of {hdim}), bodies "
+        print(f"[{tag}] {name}: x=({n}, {t}, {d}) {stream}, {p} ranks of H {hs} (of {hdim}; the kernels at "
+              f"{hp}, padded units' a, da, gelu(a), db1 exactly 0: {pads_zero}), bodies "
               f"{sorted(bodies)}; worst rank of "
               + " ".join(f"{k}={u:.2e}/{v:.2e}" for k, (u, v) in errs.items())
               + f" (bf16/f32 plain, of max; tol {TRAIN_TOL_BF16}/{TRAIN_TOL_F32}); the row's sums against the "
               "whole MLP half's f32 plain version " + " ".join(f"{k}={v:.2e}" for k, v in sum_errs.items())
               + f" (tol {TRAIN_TOL_F32})")
         want_body = ("sm90", BODY[stream], BODY[stream])
-        check(bodies == {want_body}, f"mlp-tp {name}: bodies {bodies}, want {want_body}")
+        check(bodies == {want_body}, f"{tag} {name}: bodies {bodies}, want {want_body}")
+        check(pads_zero, f"{tag} {name}: a padded hidden unit's a, da, gelu(a) or db1 is not 0")
         for out, (e16, e32) in errs.items():
-            check(e16 <= TRAIN_TOL_BF16, f"mlp-tp {name} {out}: {e16} > {TRAIN_TOL_BF16}")
-            check(e32 <= TRAIN_TOL_F32, f"mlp-tp {name} {out}: {e32} > {TRAIN_TOL_F32}")
+            check(e16 <= TRAIN_TOL_BF16, f"{tag} {name} {out}: {e16} > {TRAIN_TOL_BF16}")
+            check(e32 <= TRAIN_TOL_F32, f"{tag} {name} {out}: {e32} > {TRAIN_TOL_F32}")
         for k, e in sum_errs.items():
-            check(e <= TRAIN_TOL_F32, f"mlp-tp {name}: the row's sum of {k} is {e} of max from the whole MLP")
+            check(e <= TRAIN_TOL_F32, f"{tag} {name}: the row's sum of {k} is {e} of max from the whole MLP")
         if name in results:
             res = results[name]
             res["whole_rank_fwd_ms"] = whole_ms
-            print(f"[mlp-tp] {name} ({stream}, H {hs}): rank 1 (a partial): row 8 {res['ms']['fwd']:.4f} ms "
+            if "function" in res:
+                print(f"[{tag}] {name}: AdalnMlp on rank 1's shard (H {hs}, padded to {hp} inside the call), "
+                      "forward and backward against the plain versions at H " + str(hs) + ", error of max "
+                      + "; ".join(f"{bwd}: " + " ".join(f"{k}={e:.2e}" for k, e in errs_.items())
+                                  for bwd, errs_ in res["function"].items()) + f" (tol {TRAIN_TOL_BF16})")
+                for bwd, errs_ in res["function"].items():
+                    check(all(e <= TRAIN_TOL_BF16 for e in errs_.values()), f"{tag} {name} AdalnMlp {bwd}: {errs_}")
+            print(f"[{tag}] {name} ({stream}, H {hs}, the kernels at {hp}; bounds at H {hs}): rank 1 (a partial): "
+                  f"row 8 {res['ms']['fwd']:.4f} ms "
                   f"(rank 0, whole: {whole_ms:.4f}; in turns whole, partial, partial, whole; bound {res['bounds']['fwd']['bound_ms']:.4f}, "
                   f"{res['bounds']['fwd']['bound_by']}; plain f32 {res['plain_ms']['fwd']:.4f}; yardstick, not "
                   f"the same function: cuBLAS bf16 fc1 + fc2 ({n * t}, {d}) x ({d}, {hs}), ({n * t}, {hs}) x "
@@ -1617,8 +1687,29 @@ def phase_mlp_tp(dev, cases=MLP_TP_CASES):
                   f"{res['plain_ms']['epi']:.4f}; cuBLAS bf16 ({n * t}, {hs}) x ({hs}, {d}) "
                   f"{res['cublas_ms']['epi']:.4f})")
         torch.cuda.empty_cache()
-    print(f"[mlp-tp] the phase took {time.perf_counter() - wall:.1f} s")
+    print(f"[{tag}] the phase took {time.perf_counter() - wall:.1f} s")
     return results
+
+
+def adaln_mlp_function_errors(x, shift, scale, gate, fc1_w, b1, fc2_w, b2, gout) -> dict:
+    """`AdalnMlp` (a partial rank's share, bf16 operands) on f32 weights
+    of a shard width it pads, with each backward: {bwd: {output or
+    gradient: error of max against the plain versions at the true width}}."""
+    import torch
+    from osu_diffusion_tpu_torch.ops import adaln_mlp as am
+
+    bf16 = torch.bfloat16
+    want, a, mlp = am.adaln_mlp_train_reference(x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, 1e-6, bf16,
+                                                True)
+    wants = dict(zip(("dx", "dshift", "dscale", "dgate", "dw1", "db1", "dw2", "db2"), am.adaln_mlp_bwd(
+        x, shift, scale, gate, fc1_w, fc2_w, a, mlp, gout, 1e-6, bf16, True)))
+    out = {}
+    for bwd in ("xla", "fused"):
+        ins = [v.detach().clone().requires_grad_() for v in (x, shift, scale, gate, fc1_w, b1, fc2_w, b2)]
+        got = am.AdalnMlp.apply(*ins, 1e-6, bf16, bwd, True)
+        got.backward(gout)
+        out[bwd] = {"out": rel_err(got, want), **{k: rel_err(v.grad, wants[k]) for k, v in zip(wants, ins)}}
+    return out
 
 
 def int8pack_ms(h, wq, s) -> float | None:
@@ -2001,7 +2092,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
 
 
 XL_MODEL = "DiT-XL"
-XL_STEPS = 20  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
+XL_STEPS = 10  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
 
 
 @contextlib.contextmanager
@@ -2225,8 +2316,9 @@ def phase_xl_train(dev, tmp):
 def phase_xl_train_cp(dev, tmp, card):
     """[xl-train-cp]: the train CLI at --model DiT-XL with --num-model 2
     --context-parallel --dist gloo --mlp-bwd fused on CP_RANKS ranks
-    sharing the card (this script with --cp-rank, train only) beside one
-    process of the same seed, flags and batch: every logged loss finite and
+    sharing the card (this script with --cp-rank, train only; the weights
+    sharded over them, as the trainer holds them with model ranks) beside
+    one process of the same seed, flags and batch: every logged loss finite and
     within CP_LOSS_REL_TOL of the one process's; per optimizer step on
     every rank 56 launches of row 5 with LSE and of row 8, 28 of row 6's dq
     and dk/dv and of rows 9a/9b, none of rows 2-4; s per step and each
@@ -2662,7 +2754,7 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
     sample CLI with --accel-interval 2 (launches from the schedule, the .osu
     reparses); tau 0 bit-equal to the exact chain with every step full; a
     record-then-apply round trip of one forward (`delta_roundtrip`); a
-    sweep through the Sampler (intervals, two taus on both drift modes):
+    sweep through the Sampler (intervals, taus on both drift modes):
     full steps, launches, device ms per step and the gap to the exact chain,
     then s per denoise step in turns, with the cost of the adaptive chain's
     per-step read of the drift (tau 0 against the exact chain: the same
@@ -2709,7 +2801,7 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
           f"chain: {same}")
     check(same and tau0.last_full_model_steps == STEPS, f"{tag}: tau 0 chain")
     delta_roundtrip(tag, exact, args)
-    # the sweep's two taus: quantiles of the exact chain's one-step drifts
+    # the sweep's taus: quantiles of the exact chain's one-step drifts
     taus = [float(torch.tensor(drifts).quantile(q)) for q in ACCEL_TAU_QUANTILES]
     settings = [("exact (interval 1)", {})]
     settings += [(f"interval {k}", dict(accel_interval=k)) for k in ACCEL_INTERVALS]
@@ -3546,9 +3638,11 @@ def phase_attention_cp(dev, tag="attn-cp", cases=ATTN_CP_CASES, dh=64):
     bf16, f32 = torch.bfloat16, torch.float32
     results = {}
     if dh == 64:
-        print_sm90_resources(tag, ("ranged fwd bf16", "ranged fwd f32", "ranged dq", "ranged dkv"))
+        print_sm90_resources(tag, ("ranged fwd bf16", "ranged fwd f32", "ranged fwd f32->bf16", "ranged dq",
+                                   "ranged dkv"))
     else:  # the builds XL under context parallelism runs: Hopper, and the f32 stream's WMMA dq and dk/dv
-        print_sm90_resources(tag, ("ranged fwd bf16 dh72", "ranged fwd f32 dh72") + SM90_BWD_CP_XL_BUILDS)
+        print_sm90_resources(tag, ("ranged fwd bf16 dh72", "ranged fwd f32 dh72", "ranged fwd f32->bf16 dh72")
+                             + SM90_BWD_CP_XL_BUILDS)
         wmma = {n_: r for n_, r in wmma_resources().items() if n_.startswith("wmma ranged") and n_.endswith("dh72")}
         print(f"[{tag}] WMMA bodies (ptxas): " + "; ".join(
             f"{n_} {r['registers']} registers, {r['spill_bytes']} spill bytes, {r['smem_bytes']} B shared "
@@ -3578,6 +3672,14 @@ def phase_attention_cp(dev, tag="attn-cp", cases=ATTN_CP_CASES, dh=64):
         same = (torch.equal(ba.banded_attention_ranged(q, k, v, band, bounds), o_inf)
                 and torch.equal(again[0], o) and torch.equal(again[1], lse))
         check(same, f"{tag} {name}: a second forward call gave other bits")
+        rounded = None
+        if stream == "f32":  # o in bf16 from the same f32 q/k/v (the int8 block's): the f32 o, rounded
+            o_bf16 = ba.banded_attention_ranged(q, k, v, band, bounds, out_dtype=bf16)
+            torch.cuda.synchronize()
+            defined = slice(q_lo, q_hi)
+            rounded = o_bf16.dtype == bf16 and torch.equal(o_bf16[:, :, defined], o_inf[:, :, defined].to(bf16))
+            check(rounded and ba.banded_attention_ranged.body == "sm90",
+                  f"{tag} {name}: the ranged bf16 o is not the rounded f32 o ({ba.banded_attention_ranged.body})")
         o16, lse16 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, bf16, bounds)
         grads16 = ba.banded_attention_bwd_reference(q, k, v, o, lse, do, band, t, bf16, bounds)
         o32, lse32 = ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds)
@@ -3594,7 +3696,7 @@ def phase_attention_cp(dev, tag="attn-cp", cases=ATTN_CP_CASES, dh=64):
         print(f"[{tag}] {name}: N={n} H={h} T_loc={t_loc} T_ext={t} Dh={dh} band={band} shard {idx} of {p} "
               f"valid={valid} bounds k [{k_lo}, {k_hi}) q [{q_lo}, {q_hi}) {stream} "
               f"body no-lse={body['no-lse']} fwd={body['fwd']} dq={body['dq']} dkv={body['dkv']} "
-              f"(forward: same bits on a second call {same}) "
+              f"(forward: same bits on a second call {same}; bf16 o the rounded f32 o: {rounded}) "
               + " ".join(f"{k_}={a:.2e}/{b:.2e}" for k_, (a, b) in errs.items())
               + f" (bf16/f32 plain; tol lse {LSE_TOL}/{LSE_TOL_F32} abs, "
               f"others {TRAIN_TOL_BF16}/{TRAIN_TOL_F32} of max)")
@@ -3627,11 +3729,15 @@ def phase_attention_cp(dev, tag="attn-cp", cases=ATTN_CP_CASES, dh=64):
 
         if name == "sample_shard0":  # the sampling shard: the inference entry
             ms = cuda_ms(lambda: ba.banded_attention_ranged(q, k, v, band, bounds))
+            ms16 = cuda_ms(lambda: ba.banded_attention_ranged(q, k, v, band, bounds, out_dtype=bf16))
             plain_ms = cuda_ms(lambda: ba.banded_attention_fwd_lse_reference(q, k, v, band, t, f32, bounds))
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q_rows, k, v, attn_mask=mask))
             b = bound(ranged_bytes(2, 2, with_lse=False), 4 * dh * pairs)  # q, o; k, v
-            print(f"[{tag}] {name}: ranged (no LSE) {ms:.4f} ms, plain f32 {plain_ms:.4f} ms, SDPA "
-                  f"(masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+            # with a bf16 o: q, k, v in f32, o in half the bytes
+            b16 = bound(ranged_bytes(2, 2, with_lse=False) - n_q * n * h * dh * 2, 4 * dh * pairs)
+            print(f"[{tag}] {name}: ranged (no LSE) {ms:.4f} ms (bf16 o, the int8 block's, {ms16:.4f} ms), "
+                  f"plain f32 {plain_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
+                  f"({b['bound_by']}; bf16 o {b16['bound_ms']:.4f} ms)")
             results["banded_attention_ranged"] = {
                 "max_abs_err": max_err(o_inf[:, :, rows], o16[:, :, rows]), "ms": ms,
                 "plain_ms": plain_ms, **b, "library_ms": library_ms}
@@ -3753,8 +3859,9 @@ def timed_train_cli(argv) -> tuple[dict, dict]:
     """The train CLI on `argv` in this process, a CUDA event recorded as
     each train_step call starts: (its summary, {wall_s, peak_gb (the peak
     of allocated device memory), launches, final_step, period_ms (start to
-    start over the steps from the third on), log (the run's log.txt, which
-    only rank 0 writes, or None)})."""
+    start over the steps from the third on; in a run of 3 steps or fewer
+    from the first on), log (the run's log.txt, which only rank 0 writes, or
+    None)})."""
     import torch
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.train import trainer
@@ -3778,9 +3885,10 @@ def timed_train_cli(argv) -> tuple[dict, dict]:
         trainer.train_step = orig_step
     torch.cuda.synchronize()
     log = os.path.join(summary["experiment_dir"], "log.txt")
+    first = 2 if len(events) > 3 else 0  # a run of 3 steps or fewer: from its first step on
     return summary, {"wall_s": time.perf_counter() - wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "launches": read_counts(), "final_step": summary["final_step"],
-                     "period_ms": events[2].elapsed_time(events[-1]) / (len(events) - 3),
+                     "period_ms": events[first].elapsed_time(events[-1]) / (len(events) - 1 - first),
                      "log": open(log).read() if os.path.exists(log) else None}
 
 
@@ -3806,19 +3914,27 @@ def cp_argv(job, results, num_model):
 def cp_rank_main(workdir) -> int:
     """One process of the CP phases, run by phase_context_parallel and
     phase_xl_train_cp: in torchrun's environment, one of CP_RANKS gloo ranks
-    sharing the card ([forward-cp], [step-cp], unless the job is
-    `train_only`, then the CP train CLI); without it, the one-process train
-    CLI run. Writes its numbers (with its peak of allocated device memory
-    in the train CLI) to <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
+    sharing the card ([forward-cp], [slice-int8-cp], [step-cp], unless the
+    job is `train_only`, then the CP train CLI); without it, the
+    one-process train CLI run. With the job's `tp_cp` ([train-tp-cp]) the
+    train CLI runs again with --mlp-bwd fused and, with model ranks, both
+    backwards with the weights whole on every rank (the trainer's
+    `shard_model` a no-op for those runs, so that `train_step` takes the CP
+    mesh over an unsharded model). Writes its numbers (with its peak of
+    allocated device memory in the train CLI) to
+    <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
     import datetime
 
     import torch
     import torch.distributed as dist
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
     from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.models.quantize import restore_quantized
+    from osu_diffusion_tpu_torch.ops import quant as tq
     from osu_diffusion_tpu_torch.parallel import make_mesh
     from osu_diffusion_tpu_torch.parallel.context import gather_slots, shard_rows
     from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
+    from osu_diffusion_tpu_torch.train import trainer
     from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
 
     with open(os.path.join(workdir, "job.json")) as f:
@@ -3852,9 +3968,23 @@ def cp_rank_main(workdir) -> int:
         chain = sampler(z, o, c, y, generator=torch.Generator(device=dev).manual_seed(SEED))
         torch.cuda.synchronize()
         out["chain_launches"] = read_counts()
-        if rank == 0:
-            torch.save({"forward": fwd.cpu(), "chain": chain.cpu()}, os.path.join(workdir, "forward.pt"))
         del model, sampler
+        # [slice-int8-cp]: the int8 model (quantized at load, as the sample CLI's
+        # --quantize-weights) on this rank's rows; its launches from the first
+        # chain, its time from a second
+        qmodel = restore_quantized(job["ckpt"], DiT_models[MODEL], num_classes=NUM_CLASSES).to(dev).eval()
+        qsampler = Sampler(qmodel, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2",
+                                                    device=dev), cfg_scale=CFG_SCALE, band=BAND, cp=mesh)
+        read_counts = reset_launch_counts()
+        tq.int8_out_residual.o_casts = 0
+        qchain = qsampler(z, o, c, y, generator=torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        out["int8_chain_launches"], out["int8_o_casts"] = read_counts(), tq.int8_out_residual.o_casts
+        out["int8_chain_s"] = chain_seconds(qsampler, (z, o, c, y))
+        if rank == 0:
+            torch.save({"forward": fwd.cpu(), "chain": chain.cpu(), "int8_chain": qchain.cpu()},
+                       os.path.join(workdir, "forward.pt"))
+        del qmodel, qsampler
         out["exchange"] = cp_exchange_errors(dev, mesh)
         # [step-cp]
         loss, grads = cp_step_grads(dev, mesh)
@@ -3883,15 +4013,57 @@ def cp_rank_main(workdir) -> int:
         dist.destroy_process_group()
         torch.cuda.empty_cache()
     # [train-cp]: the train CLI (it joins its own process group under torchrun)
-    _, run = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_w{world}"), world))
+    gc.collect()
+    torch.cuda.empty_cache()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    summary, run = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_w{world}"), world))
+    run.update(params=sum(p.numel() for p in summary["ema"].parameters()), base_gb=base_gb)
+    del summary
     log = run.pop("log")
     run["train_launches"] = run.pop("launches")
     out.update(run)
     if rank == 0:
         out.update(losses=logged_losses(log), done="Done!" in log, mesh_line="context parallel, band" in log)
+    if job.get("tp_cp"):
+        # [train-tp-cp]: the fused backward; with model ranks, both backwards
+        # again over whole weights on every rank (the replicated CP step)
+        runs = [("fused", "fused", False)]
+        if world > 1:
+            runs += [("replicated_xla", "xla", True), ("replicated_fused", "fused", True)]
+        orig_shard = trainer.shard_model
+        for key, mlp_bwd, replicated in runs:
+            gc.collect()
+            torch.cuda.empty_cache()
+            base_gb = torch.cuda.memory_allocated() / 1e9
+            if replicated:
+                trainer.shard_model = lambda model, mesh: None
+            try:
+                summary, r = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_{key}_w{world}"), world)
+                                             + ["--mlp-bwd", mlp_bwd])
+            finally:
+                trainer.shard_model = orig_shard
+            r.update(params=sum(p.numel() for p in summary["ema"].parameters()), base_gb=base_gb,
+                     train_launches=r.pop("launches"))
+            del summary
+            log = r.pop("log")
+            if rank == 0:
+                r.update(losses=logged_losses(log), done="Done!" in log)
+            out[key] = r
     with open(os.path.join(workdir, f"rank{rank}_w{world}.json"), "w") as f:
         json.dump(out, f)
     return 0
+
+
+def chain_seconds(sampler, call_args) -> float:
+    """Seconds a denoise step of one more chain of `sampler` at its
+    inputs (host clock around the chain, which ends in a synchronize)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    sampler(*call_args, generator=torch.Generator(device=call_args[0].device).manual_seed(SEED))
+    torch.cuda.synchronize()
+    return (time.perf_counter() - start) / sampler.diffusion.num_timesteps
 
 
 def free_port() -> int:
@@ -3940,26 +4112,28 @@ def run_cp_ranks(workdir, world, tag="train-cp", mode="--cp-rank") -> list[dict]
     return out
 
 
-def tp_argv(data, results, num_model, mlp_bwd) -> list[str]:
-    """The train CLI at DiT-B on the kimi copies ([train-tp]): batch
-    TP_BATCH x TRAIN_SEQ, TP_STEPS steps, the loader thread-free (the runs
-    then read the same batches in the same order), and with model ranks
+def tp_argv(job, results, num_model, mlp_bwd) -> list[str]:
+    """The train CLI at the job's model (default MODEL) on the kimi copies
+    ([train-tp], [train-tp-whole-mlp]): batch TP_BATCH x TRAIN_SEQ, the
+    job's steps (default TP_STEPS), the loader thread-free (the runs then
+    read the same batches in the same order), and with model ranks
     --num-model and gloo, no --context-parallel."""
-    argv = ["--data-path", data, "--data-start", "0", "--data-end", "2", "--model", MODEL,
-            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TP_BATCH),
+    argv = ["--data-path", job["data"], "--data-start", "0", "--data-end", "2", "--model",
+            job.get("model", MODEL), "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TP_BATCH),
             "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "0", "--log-every", "1",
             "--ckpt-every", str(10 ** 9), "--results-dir", results, "--device", "cuda",
-            "--max-steps", str(TP_STEPS), "--mlp-bwd", mlp_bwd]
+            "--max-steps", str(job.get("steps", TP_STEPS)), "--mlp-bwd", mlp_bwd]
     return argv + (["--num-model", str(num_model), "--dist", "gloo"] if num_model > 1 else [])
 
 
 def tp_rank_main(workdir) -> int:
-    """One process of [train-tp]: in torchrun's environment one of TP_RANKS
-    gloo ranks sharing the card, else the one-process run. Joins the
-    process group itself (the trainer then keeps it), runs the train CLI
-    with the default and with the fused MLP backward, and writes each run's
-    launches, losses (rank 0), s per step, peak allocated device memory and
-    the parameters this rank holds to <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
+    """One process of [train-tp] or [train-tp-whole-mlp]: in torchrun's
+    environment one of the gloo ranks sharing the card, else the
+    one-process run. Joins the process group itself (the trainer then keeps
+    it), runs the train CLI with each of the job's MLP backwards (default:
+    the plain and the fused), and writes each run's launches, losses (rank
+    0), s per step, peak allocated device memory and the parameters this
+    rank holds to <workdir>/rank<RANK>_w<WORLD_SIZE>.json."""
     import datetime
 
     import torch
@@ -3972,10 +4146,10 @@ def tp_rank_main(workdir) -> int:
         torch.cuda.set_device(int(os.environ["LOCAL_RANK"]) % torch.cuda.device_count())
         dist.init_process_group("gloo", timeout=datetime.timedelta(minutes=5))
     out = {}
-    for mlp_bwd in ("xla", "fused"):
+    for mlp_bwd in job.get("bwds", ("xla", "fused")):
         torch.cuda.empty_cache()
         summary, r = timed_train_cli(
-            tp_argv(job["data"], os.path.join(workdir, f"results_{mlp_bwd}_w{world}"), world, mlp_bwd))
+            tp_argv(job, os.path.join(workdir, f"results_{mlp_bwd}_w{world}"), world, mlp_bwd))
         r["params"] = sum(p.numel() for p in summary["ema"].parameters())
         log = r.pop("log")
         if rank == 0:
@@ -4054,13 +4228,111 @@ def phase_train_tp(dev, tmp, card):
     return ranks[0]["fused"]["launches"]
 
 
+def train_tp_cp(ranks, single, depth, card) -> None:
+    """[train-tp-cp]: the CP train CLI at DiT-B over sharded weights (the
+    trainer's default with model ranks: [train-cp]'s run, and one with
+    --mlp-bwd fused) against the one process and against the same runs
+    with the weights whole on every rank (the replicated CP step): losses
+    within CP_LOSS_REL_TOL of both, the one-process launches of the CP
+    path on every rank, fewer parameters and less peak memory a rank than
+    the replicated runs."""
+    for mlp_bwd in ("xla", "fused"):
+        tag = "train-tp-cp" if mlp_bwd == "xla" else "train-tp-cp-fused"
+        sharded = [r if mlp_bwd == "xla" else r["fused"] for r in ranks]
+        replicated = [r[f"replicated_{mlp_bwd}"] for r in ranks]
+        one = single if mlp_bwd == "xla" else single["fused"]
+        expected = {**dict.fromkeys(replicated[0]["train_launches"], 0),
+                    "banded_attention_ranged_fwd_lse": CP_STEPS * depth * 2,  # forward + remat recompute
+                    "banded_attention_ranged_bwd_dq": CP_STEPS * depth,
+                    "banded_attention_ranged_bwd_dkv": CP_STEPS * depth, "adaln_mlp_train": CP_STEPS * depth * 2}
+        if mlp_bwd == "fused":
+            expected.update(adaln_mlp_bwd_prologue=CP_STEPS * depth, adaln_mlp_bwd_epilogue=CP_STEPS * depth)
+        for rank in range(CP_RANKS):
+            for kind, r in (("sharded", sharded[rank]), ("replicated", replicated[rank])):
+                launches = r["train_launches"]
+                print(f"[{tag}] rank {rank} of {CP_RANKS}, weights {kind}: {r['final_step']} steps, launches "
+                      f"{launches}, {r['params']:,} parameters held, peak device memory allocated "
+                      f"{r['peak_gb']:.2f} GB (allocated at the start {r.get('base_gb', 0.0):.2f} GB), "
+                      f"{r['period_ms'] / 1000:.6f} s per optimizer step start to start")
+                check(r["final_step"] == CP_STEPS and launches == expected,
+                      f"{tag} rank {rank} {kind}: {r['final_step']} steps, launches {launches} (expected {expected})")
+            check(sharded[rank]["params"] < replicated[rank]["params"]
+                  and sharded[rank]["peak_gb"] < replicated[rank]["peak_gb"],
+                  f"{tag} rank {rank}: sharded {sharded[rank]['params']} parameters, {sharded[rank]['peak_gb']} GB "
+                  f"against replicated {replicated[rank]['params']}, {replicated[rank]['peak_gb']} GB")
+        losses = {"sharded": sharded[0]["losses"], "replicated": replicated[0]["losses"], "one process": one["losses"]}
+        diffs = {k: [abs(a - b) / abs(b) for a, b in zip(losses["sharded"], losses[k])]
+                 for k in ("replicated", "one process")}
+        print(f"[{tag}] losses " + "; ".join(f"{k} {v}" for k, v in losses.items()) + "; sharded against "
+              + "; ".join(f"{k}: " + ", ".join(f"{d:.2e}" for d in v) for k, v in diffs.items())
+              + f" (tol {CP_LOSS_REL_TOL})")
+        check(all(len(v) == CP_STEPS and all(math.isfinite(x) for x in v) for v in losses.values()),
+              f"{tag} losses {losses}")
+        check(all(max(v) <= CP_LOSS_REL_TOL for v in diffs.values()), f"{tag} losses differ: {diffs}")
+        check(sharded[0]["done"], f"{tag}: no Done! in rank 0's log")
+        print(f"[{tag}] {card}: {MODEL} (batch {CP_BATCH} x {CP_SEQ}, band {BAND}, bf16 stream, remat, --mlp-bwd "
+              f"{mlp_bwd}) on {CP_RANKS} gloo ranks sharing the card: sharded {sharded[0]['period_ms'] / 1000:.6f} "
+              f"s per optimizer step (rank 1 {sharded[1]['period_ms'] / 1000:.6f}), replicated "
+              f"{replicated[0]['period_ms'] / 1000:.6f} (rank 1 {replicated[1]['period_ms'] / 1000:.6f}), one process "
+              f"{one['period_ms'] / 1000:.6f}; parameters held a rank " + ", ".join(f"{r['params']:,}" for r in sharded)
+              + f" against {replicated[0]['params']:,} replicated (params, grads, two AdamW moments and EMA at 20 B "
+              f"each: {sharded[0]['params'] * 20 / 1e9:.2f} against {replicated[0]['params'] * 20 / 1e9:.2f} GB); peak "
+              "device memory allocated " + ", ".join(f"{r['peak_gb']:.2f}" for r in sharded) + " GB a rank against "
+              + ", ".join(f"{r['peak_gb']:.2f}" for r in replicated) + f" replicated and {one['peak_gb']:.2f} in one "
+              "process")
+
+
+def phase_train_tp_whole_mlp(dev, tmp, card):
+    """[train-tp-whole-mlp]: the train CLI at TP_WHOLE_MLP_MODEL with
+    --num-model TP_WHOLE_MLP_RANKS --dist gloo on ranks sharing the card, a
+    degree that does not divide 4D (the MLP stays whole on every rank, as
+    JAX's `_fit_spec` leaves it) and divides 6D (the block heads split):
+    TP_WHOLE_MLP_STEPS steps, finite losses, on every rank the one-process
+    launches (row 8 on the whole MLP), fewer parameters a rank than the
+    model's, and each rank's peak memory."""
+    import torch
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = time.perf_counter()
+    workdir = os.path.join(tmp, "tp-whole-mlp")
+    os.makedirs(workdir, exist_ok=True)
+    steps = TP_WHOLE_MLP_STEPS
+    with open(os.path.join(workdir, "job.json"), "w") as f:
+        json.dump({"data": train_dataset(tmp), "model": TP_WHOLE_MLP_MODEL, "steps": steps, "bwds": ["xla"]}, f)
+    ranks = run_cp_ranks(workdir, TP_WHOLE_MLP_RANKS, "train-tp-whole-mlp", "--tp-rank")
+    with torch.device("meta"):
+        whole = DiT_models[TP_WHOLE_MLP_MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2)
+        depth, params = len(whole.blocks), sum(p.numel() for p in whole.parameters())
+        hidden = whole.blocks[0].mlp.fc1.out_features
+    expected = {**dict.fromkeys(ranks[0]["xla"]["launches"], 0),
+                "banded_attention_fwd_lse": steps * depth * 2,  # forward + remat recompute
+                "banded_attention_bwd_dq": steps * depth, "banded_attention_bwd_dkv": steps * depth,
+                "adaln_mlp_train": steps * depth * 2}
+    for rank, r in enumerate(ranks):
+        r = r["xla"]
+        print(f"[train-tp-whole-mlp] rank {rank} of {TP_WHOLE_MLP_RANKS}: {r['final_step']} steps, launches "
+              f"{r['launches']}, {r['params']:,} parameters held of {params:,}, peak device memory allocated "
+              f"{r['peak_gb']:.2f} GB")
+        check(r["final_step"] == steps and r["launches"] == expected,
+              f"train-tp-whole-mlp rank {rank}: {r['final_step']} steps, launches {r['launches']} (expected {expected})")
+        check(r["params"] < params, f"train-tp-whole-mlp rank {rank} holds the whole model")
+    losses = ranks[0]["xla"]["losses"]
+    print(f"[train-tp-whole-mlp] {card}: {TP_WHOLE_MLP_MODEL} (MLP {hidden} wide, {hidden % TP_WHOLE_MLP_RANKS} "
+          f"left over by {TP_WHOLE_MLP_RANKS} ranks: whole on each) over {TP_WHOLE_MLP_RANKS} gloo ranks sharing the "
+          f"card, batch {TP_BATCH} x {TRAIN_SEQ}: losses {losses}; the phase took {time.perf_counter() - wall:.1f} s")
+    check(len(losses) == steps and all(math.isfinite(v) for v in losses), f"train-tp-whole-mlp losses {losses}")
+    check(ranks[0]["xla"]["done"] and ranks[0]["xla"]["mesh_line"],
+          "train-tp-whole-mlp: no Done! or no tensor-parallel mesh line in rank 0's log")
+
+
 def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
-    """[forward-cp], [step-cp] and [train-cp]: CP_RANKS gloo ranks on the
-    card against one device. Returns the ranged kernels' launches on the
-    CP main paths (rank 0's)."""
+    """[forward-cp], [slice-int8-cp], [step-cp], [train-cp] and
+    [train-tp-cp]: CP_RANKS gloo ranks on the card against one device.
+    Returns the ranged kernels' launches on the CP main paths (rank 0's)."""
     import torch
     from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
     from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.models.quantize import restore_quantized
     from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time
 
     workdir = os.path.join(tmp, "cp")
@@ -4070,7 +4342,7 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     with open(os.path.join(workdir, "job.json"), "w") as f:
         json.dump({"ckpt": ckpt, "inputs": os.path.join(workdir, "inputs.pt"), "data": train_dataset(tmp),
                    "check_port": free_port(), "train_only": False, "model": MODEL, "batch": CP_BATCH,
-                   "steps": CP_STEPS, "flags": []}, f)
+                   "steps": CP_STEPS, "flags": [], "tp_cp": True}, f)
     wall = time.perf_counter()
     ranks = run_cp_ranks(workdir, CP_RANKS)
     cp_wall = time.perf_counter() - wall
@@ -4122,6 +4394,48 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     for rank, r in enumerate(ranks):
         print(f"[forward-cp] rank {rank} chain launches {r['chain_launches']}")
         check(r["chain_launches"] == chain_expected, f"forward-cp rank {rank} launches {r['chain_launches']}")
+
+    # [slice-int8-cp]: the one-process int8 chain on the card, same checkpoint, inputs and noise
+    qmodel = restore_quantized(ckpt, DiT_models[MODEL], num_classes=NUM_CLASSES).to(dev).eval()
+    qsampler = Sampler(qmodel, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2",
+                                                device=dev), cfg_scale=CFG_SCALE, band=BAND)
+    one_args = tuple(a.to(dev) for a in (z, o, c, y))
+    q_one = qsampler(*one_args, generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+    q_one_s = chain_seconds(qsampler, one_args)
+    # the noise floor: the same one-process int8 chain with the plain bf16
+    # versions of rows 1 and 10-13 in place of their kernels
+    with plain_kernels():
+        q_plain = qsampler(*one_args, generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+    del qmodel, qsampler
+    q_gap, q_floor = (got["int8_chain"] - q_one).abs(), (q_plain - q_one).abs()
+    print(f"[slice-int8-cp] {card}: the int8 {MODEL} (quantized at load) {CP_SAMPLE_STEPS}-step chain at the kimi "
+          f"inputs (T 757 -> 768 over {CP_RANKS} gloo ranks sharing the card, band {BAND}): shape "
+          f"{tuple(got['int8_chain'].shape)}, |CP - one process| max {q_gap.max().item():.3e}, median "
+          f"{q_gap.median().item():.3e}; noise floor, |one process with the plain bf16 rows 1 and 10-13 - with the "
+          f"kernels| max {q_floor.max().item():.3e}, median {q_floor.median().item():.3e}: gap / floor max "
+          f"{q_gap.max().item() / max(q_floor.max().item(), 1e-30):.3f}, median "
+          f"{q_gap.median().item() / max(q_floor.median().item(), 1e-30):.3f} (tol {CP_CHAIN_FLOOR_MULTIPLE}); "
+          f"s per denoise step {ranks[0]['int8_chain_s']:.6f} (rank 1 {ranks[1]['int8_chain_s']:.6f}) against "
+          f"{q_one_s:.6f} in one process")
+    check(tuple(got["int8_chain"].shape) == (2, t_real, 2) and bool(torch.isfinite(got["int8_chain"]).all()),
+          "slice-int8-cp chain: shape or non-finite")
+    for stat in ("max", "median"):
+        gap, noise = getattr(q_gap, stat)().item(), getattr(q_floor, stat)().item()
+        check(gap <= CP_CHAIN_FLOOR_MULTIPLE * noise,
+              f"slice-int8-cp chain: |CP - one process| {stat} {gap} above {CP_CHAIN_FLOOR_MULTIPLE} x the "
+              f"noise floor's {noise}")
+    int8_expected = {**dict.fromkeys(ranks[0]["int8_chain_launches"], 0),
+                     **dict.fromkeys(("banded_attention_ranged", "int8_matmul", "int8_modulated_matmul",
+                                      "int8_out_residual", "adaln_mlp_quant"), CP_SAMPLE_STEPS * depth)}
+    for rank, r in enumerate(ranks):
+        shown = {k: r["int8_chain_launches"][k] for k in ("banded_attention_ranged", "adaln_mlp_quant",
+                                                           "int8_modulated_matmul", "int8_out_residual",
+                                                           "int8_matmul")}
+        print(f"[slice-int8-cp] rank {rank} of {CP_RANKS}: launches of rows 5, 10, 11, 12, 13 {shown}; every "
+              f"other kernel 0: {r['int8_chain_launches'] == int8_expected}; f32 o cast for row 12: "
+              f"{r['int8_o_casts']}")
+        check(r["int8_chain_launches"] == int8_expected and r["int8_o_casts"] == 0,
+              f"slice-int8-cp rank {rank}: launches {r['int8_chain_launches']}, o casts {r['int8_o_casts']}")
 
     # [attn-cp-exchange]: each rank's errors against the one-device kernels
     for rank, r in enumerate(ranks):
@@ -4176,6 +4490,7 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
           f"({ranks[0]['grad_mb']:.1f} MB f32) {ranks[0]['grad_all_reduce_s']:.4f} s, one block's k/v halo "
           f"exchange {ranks[0]['halo_exchange_s']:.4f} s (x 3 a block a step: forward, remat, backward; "
           f"x {depth} blocks)")
+    train_tp_cp(ranks, single, depth, card)
     return {"banded_attention_ranged": ranks[0]["chain_launches"]["banded_attention_ranged"],
             **{k: ranks[0]["train_launches"][k] for k in ("banded_attention_ranged_fwd_lse",
                                                           "banded_attention_ranged_bwd_dq",
@@ -4216,6 +4531,7 @@ def main() -> int:
     phase_attention_cp(dev, "attn-cp-xl", ATTN_CP_XL_CASES, XL_HEAD_DIM)
     phase_mlp_bwd(dev, "mlp-bwd-xl", MLP_BWD_XL_CASES)
     phase_mlp_tp(dev)
+    phase_mlp_tp(dev, MLP_TP_RAGGED_CASES, "mlp-tp-ragged")
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -4231,6 +4547,7 @@ def main() -> int:
         phase_longrun(tmp)
         launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
         phase_train_tp(dev, tmp, card)
+        phase_train_tp_whole_mlp(dev, tmp, card)
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
         turns = {name: sum(v) / len(v) for name, v in chains_in_turns(

@@ -26,9 +26,12 @@ ranks train data-parallel; --num-model N --context-parallel splits each
 window's sequence over N of them (ranged attention kernels behind a halo
 exchange), --band narrows the attention for long windows, and --dist picks
 the backend (nccl on CUDA, gloo on the CPU by default; gloo also runs
-several ranks on one card). --num-model without --context-parallel (tensor
-parallelism) is not ported and raises. Every --model trains on every
-path, DiT-XL included (--mlp-bwd fused and --context-parallel too). The
+several ranks on one card). --num-model N shards the MLPs, the adaLN heads
+and the label table over the N model ranks at every degree the JAX rules
+take (a part N does not divide stays whole), without --context-parallel
+(tensor parallelism) and with it (each block gathers its shards whole).
+Every --model trains on every path, DiT-XL included (--mlp-bwd fused and
+--context-parallel too). The
 JAX trainer's TPU-only knobs
 (--use-pallas, --pallas-ops, --flash-block, --scan-blocks,
 --steps-per-call, --multihost) have no counterpart here.
@@ -295,8 +298,8 @@ def build_train_parser() -> argparse.ArgumentParser:
     parser.add_argument("--device", type=str, default=d.device)
     parser.add_argument("--num-model", type=int, default=d.num_model,
                         help="ranks on the mesh's model axis: they shard the MLPs, the adaLN "
-                             "heads and the label table (tensor parallelism), or with "
-                             "--context-parallel split one window's sequence")
+                             "heads and the label table (tensor parallelism), with "
+                             "--context-parallel also splitting one window's sequence")
     parser.add_argument("--context-parallel", action=argparse.BooleanOptionalAction,
                         default=False,
                         help="split the sequence over the --num-model ranks (seq-len a multiple "

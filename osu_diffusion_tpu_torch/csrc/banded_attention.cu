@@ -26,9 +26,9 @@
 // layout the port keeps: the TPU kernel's lane-broadcast and sublane-packed
 // layouts only work around Mosaic's (8, 128) tile). q/k/v are f32 (the
 // sampling stream) or bf16 (the training stream), one type per call; o is
-// q's type, or bf16 for an f32 q (the inference entry's `out_bf16`: the
-// int8 block's out projection rounds o to bf16 first, so the forward
-// writes it so, which equals rounding the f32 o). valid_len is a runtime
+// q's type, or bf16 for an f32 q (the inference entries' `out_bf16`,
+// unranged and ranged: the int8 block's out projection rounds o to bf16
+// first, so the forward writes it so, which equals rounding the f32 o). valid_len is a runtime
 // argument, so one build serves every sequence length. A row whose band
 // holds no valid key writes 0, never NaN: such rows are padding, and the
 // next layer reads them as K/V rows, where 0 * NaN would poison the valid
@@ -631,8 +631,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 const char* last_body = "none";
 
 // the build for q/k/v of type in_bf16 (1: bf16, 0: f32) and o of type
-// out_bf16, head dim DH; bf16 o from f32 q/k/v only unranged (the int8
-// block's inference)
+// out_bf16, head dim DH; bf16 o from f32 q/k/v for the int8 block's
+// inference, on one device and on a context-parallel shard
 template <bool RANGED, int DH>
 int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
                 int t, long long sn, long long sh, long long st, long long osn, long long osh,
@@ -645,11 +645,9 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse
   if (!in_bf16 && !out_bf16)
     return launch<RANGED, float, float, DH>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost,
                                             band, valid_len, scale, bounds, s);
-  if constexpr (!RANGED) {
-    if (!in_bf16)
-      return launch<false, float, __nv_bfloat16, DH>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh,
-                                                     ost, band, valid_len, scale, bounds, s);
-  }
+  if (!in_bf16)
+    return launch<RANGED, float, __nv_bfloat16, DH>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh,
+                                                    ost, band, valid_len, scale, bounds, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -702,17 +700,18 @@ extern "C" int banded_attention_fwd_lse(const void* q, const void* k, const void
                          scale, Bounds{}, bf16, bf16, stream);
 }
 
-// Ranged: as banded_attention_fwd over all T (halo-extended) rows, o in q's
-// type, with keys masked to [k_lo, k_hi) and only the query halves that
-// meet [q_lo, q_hi) computed (the others get 0).
+// Ranged: as banded_attention_fwd over all T (halo-extended) rows (o in
+// q's type or, for f32 q, bf16 with out_bf16 = 1), with keys masked to
+// [k_lo, k_hi) and only the query halves that meet [q_lo, q_hi) computed
+// (the others get 0).
 extern "C" int banded_attention_fwd_ranged(const void* q, const void* k, const void* v, void* o,
                                            int n, int h, int t, int dh, long long sn, long long sh,
                                            long long st, long long osn, long long osh,
                                            long long ost, int band, int k_lo, int k_hi,
                                            int q_lo, int q_hi, float scale, int bf16,
-                                           void* stream) {
+                                           int out_bf16, void* stream) {
   return dispatch<true>(q, k, v, o, nullptr, n, h, t, dh, sn, sh, st, osn, osh, ost, band, t,
-                        scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, bf16, stream);
+                        scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, out_bf16, stream);
 }
 
 // Ranged with lse (rows of uncomputed halves get -1e30); dh 64 or 72.

@@ -33,7 +33,7 @@ this rank's rows of the sequence. Everything but attention works per token
 (the first layer, the MLP half, the final layer) or per sample (the
 conditioning), so each rank runs the whole model on its rows and attention
 alone exchanges halos with the neighbouring ranks; `valid_len` is the
-global real length.
+global real length. The f32 and the int8 blocks both take it.
 
 Tensor parallelism (TP, parallel/sharding.py `shard_model`, which gives
 the modules below a mesh as `.tp`): each model rank holds its shard of the
@@ -48,7 +48,13 @@ of the MLP and of each head run in the backward (`row_grad_sum`). A part
 that `shard_model` left whole (a degree that does not divide it) runs as
 it does without TP. `shard_model` swaps the parameters' data only, so a
 Linear's `out_features` and the table's `num_embeddings` keep the whole
-model's sizes, against which a module tells its shard.
+model's sizes, against which a module tells its shard. Under `cp` as well
+(the row's ranks split the sequence and hold the weight shards), each
+block and the final layer gather their sharded weights whole first
+(`linear_params`, one collective each) and run the CP path on them, and the
+label lookup's row sum also sums its gradient over the row
+(parallel/sharding.py says why); under remat a block's gathered weights
+live only while it runs, and again in its recompute.
 
 Training (`train=True`): labels drop to the null class `num_classes` with
 probability `class_dropout_prob` (from a generator, or a given mask), and
@@ -113,6 +119,7 @@ from osu_diffusion_tpu_torch.ops.embeddings import (
 from osu_diffusion_tpu_torch.ops.quant import int8_matmul
 from osu_diffusion_tpu_torch.parallel.sharding import (
     gather_columns,
+    gather_shards,
     row_grad_sum,
     row_sum,
     table_rows,
@@ -133,20 +140,36 @@ def layer_norm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     return (xc * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def dense(x: torch.Tensor, linear: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """A Linear layer computed in `dtype`: input and weight cast at use, the
     product rounded to `dtype`, then the bias (cast to `dtype`) added."""
-    return F.linear(x.to(dtype), linear.weight.to(dtype)) + linear.bias.to(dtype)
+    return F.linear(x.to(dtype), weight.to(dtype)) + bias.to(dtype)
 
 
-def modulation(linear: nn.Linear, cond: torch.Tensor, dtype: torch.dtype, tp) -> torch.Tensor:
-    """An adaLN head, silu(cond) through `linear` in `dtype`. Under tensor
-    parallelism a head split over the model ranks computes its columns and
-    gathers the row's; its input gradient is summed over the row."""
-    if tp is None or linear.weight.shape[0] == linear.out_features:
-        return dense(F.silu(cond), linear, dtype)
+def linear_params(linears, tp, cp) -> list[torch.Tensor]:
+    """Each Linear's weight and bias, in order: under context parallelism
+    over a sharded model, whole (the row's shards gathered in one
+    collective, parallel/sharding.py `gather_shards`); else the parameters
+    themselves (a TP shard stays a shard)."""
+    params = [p for lin in linears for p in (lin.weight, lin.bias)]
+    if tp is None or cp is None:
+        return params
+    shapes = [s for lin in linears for s in ((lin.out_features, lin.in_features), (lin.out_features,))]
+    dims = [next((d for d, (a, b) in enumerate(zip(p.shape, shape)) if a != b), None)
+            for p, shape in zip(params, shapes)]
+    return gather_shards(tp, params, dims)
+
+
+def modulation(weight: torch.Tensor, bias: torch.Tensor, out_features: int, cond: torch.Tensor,
+               dtype: torch.dtype, tp) -> torch.Tensor:
+    """An adaLN head, silu(cond) through (weight, bias) in `dtype`. Under
+    tensor parallelism a head split over the model ranks (fewer than
+    `out_features` rows) computes its columns and gathers the row's; its
+    input gradient is summed over the row."""
+    if tp is None or weight.shape[0] == out_features:
+        return dense(F.silu(cond), weight, bias, dtype)
     (cond,) = row_grad_sum(cond, mesh=tp)
-    return gather_columns(dense(F.silu(cond), linear, dtype), tp)
+    return gather_columns(dense(F.silu(cond), weight, bias, dtype), tp)
 
 
 class TimestepEmbedder(nn.Module):
@@ -178,9 +201,11 @@ class LabelEmbedder(nn.Module):
         self.tp = None  # the mesh, once parallel/sharding.py has split the table
 
     def forward(self, labels: torch.Tensor, train: bool = False, drop: torch.Tensor | None = None,
-                generator: torch.Generator | None = None) -> torch.Tensor:
+                generator: torch.Generator | None = None, cp=None) -> torch.Tensor:
         """`drop`: a bool mask of the labels to drop (the draw when given);
-        else, in training, a Bernoulli(dropout_prob) draw from `generator`."""
+        else, in training, a Bernoulli(dropout_prob) draw from `generator`.
+        `cp`: the context-parallel mesh, under which a split table's row sum
+        also sums the gradient."""
         if drop is None and train and self.dropout_prob > 0:
             u = torch.rand(labels.shape, generator=generator, device=labels.device)
             drop = u < self.dropout_prob
@@ -194,7 +219,7 @@ class LabelEmbedder(nn.Module):
         local = labels - self.tp.model_rank * rows
         mine = (local >= 0) & (local < rows)
         emb = F.embedding(torch.where(mine, local, 0), table)
-        return row_sum(torch.where(mine[..., None], emb, 0.0), self.tp)
+        return row_sum(torch.where(mine[..., None], emb, 0.0), self.tp, grad_sum=cp is not None)
 
 
 class FirstLayer(nn.Module):
@@ -217,7 +242,7 @@ class FirstLayer(nn.Module):
         x_freq = position_sequence_embedding(x.to(torch.float32) * self.playfield_size, fe)
         o_freq = offset_sequence_embedding(o.to(torch.float32) / 10.0, fe)
         xoc = torch.cat([x_freq.to(dtype), o_freq.to(dtype), c.to(dtype)], dim=-1)
-        return dense(xoc, self.mlp[0], dtype)
+        return dense(xoc, self.mlp[0].weight, self.mlp[0].bias, dtype)
 
 
 class SelfAttention(nn.Module):
@@ -279,26 +304,30 @@ class DiTBlock(nn.Module):
         self.tp = None  # the mesh, once parallel/sharding.py has split the head and the MLP
 
     def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
-        mod = modulation(self.adaLN_modulation[1], cond, x.dtype, self.tp)
+        ada, fc1, fc2 = self.adaLN_modulation[1], self.mlp.fc1, self.mlp.fc2
+        # under CP a sharded block's weights are gathered whole: no TP collective below
+        ada_w, ada_b, w1, b1, w2, b2 = linear_params((ada, fc1, fc2), self.tp, cp)
+        tp = self.tp if cp is None else None
+        mod = modulation(ada_w, ada_b, ada.out_features, cond, x.dtype, tp)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
         h = modulate(layer_norm(x), shift_msa, scale_msa)
         x = x + gate_msa[:, None, :] * self.attn(h, band, valid_len, matmul_dtype, cp)
         # the MLP kernel takes its modulation vectors in f32
         shift, scale, gate = (a.to(torch.float32) for a in (shift_mlp, scale_mlp, gate_mlp))
-        fc1, fc2 = self.mlp.fc1, self.mlp.fc2
-        tp = self.tp
-        if tp is not None and fc1.weight.shape[0] != fc1.out_features:
+        if tp is not None and w1.shape[0] != fc1.out_features:
             # Megatron: this rank's hidden units, x and b2 added by the first
             # rank alone; the row sums the outputs and the input gradients
             x, shift, scale, gate = row_grad_sum(x, shift, scale, gate, mesh=tp)
-            out = AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight, fc2.bias,
-                                 1e-6, matmul_dtype, self.mlp_bwd, tp.model_rank != 0)
+            out = AdalnMlp.apply(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, matmul_dtype,
+                                 self.mlp_bwd, tp.model_rank != 0)
             return row_sum(out, tp)
-        if torch.is_grad_enabled() and (x.requires_grad or fc1.weight.requires_grad):
-            return AdalnMlp.apply(x, shift, scale, gate, fc1.weight, fc1.bias, fc2.weight,
-                                  fc2.bias, 1e-6, matmul_dtype, self.mlp_bwd)
-        w1, w2 = self.mlp.kernel_weights(matmul_dtype)
-        return adaln_mlp(x, shift, scale, gate, w1, fc1.bias, w2, fc2.bias, 1e-6, matmul_dtype)
+        if torch.is_grad_enabled() and (x.requires_grad or w1.requires_grad):
+            return AdalnMlp.apply(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, matmul_dtype, self.mlp_bwd)
+        if w1 is fc1.weight:
+            w1, w2 = self.mlp.kernel_weights(matmul_dtype)
+        else:  # gathered for this call
+            w1, w2 = (w.to(matmul_dtype).contiguous() for w in (w1, w2))
+        return adaln_mlp(x, shift, scale, gate, w1, b1, w2, b2, 1e-6, matmul_dtype)
 
 
 class QuantLinear(nn.Module):
@@ -326,11 +355,11 @@ class QuantSelfAttention(nn.Module):
         self.register_buffer("in_proj_bias", torch.zeros(3 * d))
         self.out_proj = QuantLinear(d, d)
 
-    def forward(self, x, quant_mod, band: int | None, valid_len: int | None, matmul_dtype):
+    def forward(self, x, quant_mod, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
         return multi_head_attention(
             x, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias,
             self.num_heads, band, valid_len, matmul_dtype,
-            quant_scales=(self.in_proj_scale, self.out_proj.scale), quant_mod=quant_mod,
+            quant_scales=(self.in_proj_scale, self.out_proj.scale), quant_mod=quant_mod, cp=cp,
         )
 
 
@@ -344,7 +373,10 @@ class QuantMlp(nn.Module):
 
 
 class QuantDiTBlock(nn.Module):
-    """adaLN-Zero block over int8 projections (serving only)."""
+    """adaLN-Zero block over int8 projections (serving only). Under `cp`
+    the projections and the MLP half run on this rank's rows (the adaLN
+    projection per sample, the same on every rank) and the attention core
+    through the halo exchange."""
 
     def __init__(self, hidden_size: int, num_heads: int, mlp_ratio: float = 4.0):
         super().__init__()
@@ -352,13 +384,13 @@ class QuantDiTBlock(nn.Module):
         self.mlp = QuantMlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), QuantLinear(hidden_size, 6 * hidden_size))
 
-    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype):
+    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
         if torch.is_grad_enabled():
             raise RuntimeError("the int8 model serves only: call it under torch.no_grad()")
         ada = self.adaLN_modulation[1]
         mod = int8_matmul(F.silu(cond), ada.weight, ada.scale, ada.bias, matmul_dtype=matmul_dtype)
         shift_msa, scale_msa, gate_msa, shift_mlp, scale_mlp, gate_mlp = mod.chunk(6, dim=-1)
-        x = self.attn(x, (shift_msa, scale_msa, gate_msa), band, valid_len, matmul_dtype)
+        x = self.attn(x, (shift_msa, scale_msa, gate_msa), band, valid_len, matmul_dtype, cp)
         fc1, fc2 = self.mlp.fc1, self.mlp.fc2
         return adaln_mlp_quant(x, shift_mlp, scale_mlp, gate_mlp, fc1.weight, fc1.scale, fc1.bias,
                                fc2.weight, fc2.scale, fc2.bias, 1e-6, matmul_dtype)
@@ -373,8 +405,10 @@ class FinalLayer(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 2 * hidden_size))
         self.tp = None  # the mesh, once parallel/sharding.py has split the head
 
-    def forward(self, x, cond):
-        mod = modulation(self.adaLN_modulation[1], cond, x.dtype, self.tp)
+    def forward(self, x, cond, cp=None):
+        ada = self.adaLN_modulation[1]
+        weight, bias = linear_params((ada,), self.tp, cp)
+        mod = modulation(weight, bias, ada.out_features, cond, x.dtype, self.tp if cp is None else None)
         shift, scale = mod.chunk(2, dim=-1)
         return self.linear(modulate(layer_norm(x), shift, scale).to(torch.float32))
 
@@ -456,7 +490,7 @@ class DiT(nn.Module):
         are this rank's rows). A tensor-parallel model (`.tp`, set by
         parallel/sharding.py `shard_model`) takes the whole x, o, c, y on
         every rank of the row, with the same `drop`, and returns the whole
-        output on each.
+        output on each; with `cp` too (the same mesh), each rank's rows.
 
         Δ-cache (cross-step reuse of the middle blocks' contribution, the
         JAX package's `delta_mode`): "off" returns the output; "record"
@@ -466,11 +500,6 @@ class DiT(nn.Module):
         lo..hi-1, which never run, and returns (out, delta)."""
         if self.quant and train:
             raise RuntimeError("the int8 model serves only: train=True has no int8 path")
-        if self.quant and cp is not None:
-            raise NotImplementedError("int8 serving with context parallelism is not ported")
-        if self.tp is not None and cp is not None:
-            raise NotImplementedError("tensor parallelism under context parallelism is not ported "
-                                      "(the weights stay whole under CP)")
         if delta_mode not in ("off", "record", "apply"):
             raise ValueError(f"unknown delta_mode: {delta_mode}")
         lo = hi = -1
@@ -481,9 +510,9 @@ class DiT(nn.Module):
             if delta_mode == "apply" and delta is None:
                 raise ValueError("delta_mode='apply' needs the recorded delta")
         x = self.xoc_embedder(x, o, c, dtype)
-        cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator)
+        cond = self.t_embedder(t) + self.y_embedder(y, train, drop, generator, cp)
         use_remat = train and self.remat and torch.is_grad_enabled()
-        extra = () if cp is None else (cp,)  # the int8 blocks take no cp (refused above)
+        extra = () if cp is None else (cp,)
         for i, block in enumerate(self.blocks):
             if delta_mode == "apply" and lo <= i < hi:
                 if i == lo:
@@ -501,7 +530,7 @@ class DiT(nn.Module):
                 x = block(x, cond, band, valid_len, self.matmul_dtype, *extra)
             if delta_mode == "record" and i == hi - 1:
                 delta = x - before
-        out = self.final_layer(x, cond)
+        out = self.final_layer(x, cond, cp)
         return out if delta_mode == "off" else (out, delta)
 
     def forward_with_cfg(self, x, t, o, c, y, cfg_scale: float,

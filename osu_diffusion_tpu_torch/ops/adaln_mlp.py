@@ -44,10 +44,17 @@ reads the forward's casts), and returns their gradients in that layout;
 
 Tensor parallelism (parallel/sharding.py) splits the hidden units over the
 model ranks: each rank runs these on its fc1 rows and fc2 columns (H/P
-wide, any multiple of 128 on the card), and `partial=True` on every rank
-but one leaves out what must be added once: b2 and the residual x in the
-training forward, the residual's g in dx. The row's sums of out, mlp, dx,
-dshift, dscale and dgate are then the whole MLP half's.
+wide), and `partial=True` on every rank but one leaves out what must be
+added once: b2 and the residual x in the training forward, the residual's
+g in dx. The row's sums of out, mlp, dx, dshift, dscale and dgate are then
+the whole MLP half's. The kernels take H in multiples of HIDDEN_CHUNK; a
+shard of another width (192 at DiT-S or DiT-B over 8 ranks, 576 at DiT-XL
+over 8) runs in `AdalnMlp` zero-padded to the next multiple
+(`pad_hidden`), on the CPU as on the card: a padded unit's pre-activation
+is 0, gelu(0) = 0 meets a zero column of fc2, and its da, dfc1, db1 and
+dfc2 are 0 (GELU'(0) times a zero row of dmlp . fc2^T), so the result and
+the true units' gradients are the unpadded call's, which the Function
+returns sliced back to the shard.
 """
 from __future__ import annotations
 
@@ -81,6 +88,19 @@ ROW_TILE = 32  # tokens per CTA of those kernels
 # db1 sums, the next block of `a`) beside 256-wide tiles' 128 accumulators a
 # thread spilled out of ptxas's 168-register cap and ran slower (PERF.md)
 BWD_DGELU_WIDTHS = (128,)
+
+
+def padded_hidden(hdim: int) -> int:
+    """hdim rounded up to a multiple of HIDDEN_CHUNK, the widths the
+    kernels take."""
+    return -(-hdim // HIDDEN_CHUNK) * HIDDEN_CHUNK
+
+
+def pad_hidden(fc1_w: torch.Tensor, b1: torch.Tensor, fc2_w: torch.Tensor, width: int):
+    """(fc1_w (H, D), b1 (H,), fc2_w (D, H)) with zero hidden units
+    appended up to `width`: fc1's rows, b1's entries and fc2's columns."""
+    extra = width - fc1_w.shape[0]
+    return F.pad(fc1_w, (0, 0, 0, extra)), F.pad(b1, (0, extra)), F.pad(fc2_w, (0, extra))
 
 
 def pack_w1(w1: torch.Tensor, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
@@ -849,10 +869,11 @@ def adaln_mlp_bwd_fused(
     returns of `adaln_mlp_bwd` (`partial` too): the prologue stage, dfc2_w =
     dmlp^T @ gelu(a), the epilogue stage, dfc1_w = da^T @ h1. The two
     weight-gradient products stay on cuBLAS (`_mm`), as JAX leaves them to
-    XLA. `weights`: the forward's (fc1_w, fc2_w) cast to `matmul_dtype` and
-    contiguous, else they are cast here."""
+    XLA. `weights`: the forward's (fc1_w, fc2_w) cast to `matmul_dtype`,
+    contiguous and at a's hidden width (fc1_w and fc2_w then give only
+    their dtypes), else fc1_w and fc2_w are cast here."""
     n, t, d = x.shape
-    hdim = fc1_w.shape[0]
+    hdim = a.shape[-1]
     if weights is None:
         weights = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
     w1, w2 = weights
@@ -874,7 +895,13 @@ class AdalnMlp(torch.autograd.Function):
     (`bwd_impl="xla"`, the JAX default) or `adaln_mlp_bwd_fused`
     (`"fused"`: the two backward kernels on the card). `partial`: one
     tensor-parallel rank's share over its hidden units (fc1's rows, fc2's
-    columns), as `adaln_mlp_train` and `adaln_mlp_bwd` take it.
+    columns), as `adaln_mlp_train` and `adaln_mlp_bwd` take it. A hidden
+    width that is not a multiple of HIDDEN_CHUNK runs zero-padded to one
+    (`pad_hidden`; the module docstring says why it is exact): the
+    forward and the fused backward at the padded width, the plain backward
+    at the true one; the saved `a` keeps the padded units (the plain
+    backward reads its true columns), and the weight gradients come back
+    at the true width.
 
     fc1_w (H, D) and fc2_w (D, H) are the Linear weights themselves (not a
     cached bf16 copy, which holds no autograd history): the forward casts
@@ -890,30 +917,40 @@ class AdalnMlp(torch.autograd.Function):
         if bwd_impl not in BWD_IMPLS:
             raise ValueError(f"bwd_impl must be one of {BWD_IMPLS}, got {bwd_impl!r}")
         _check_device(x)
+        hdim = fc1_w.shape[0]
+        width = padded_hidden(hdim)
+        w1, b1p, w2 = (fc1_w, b1, fc2_w) if width == hdim else pad_hidden(fc1_w, b1, fc2_w, width)
         casts = ()
         if x.is_cuda:
-            w1, w2 = (w.to(matmul_dtype).contiguous() for w in (fc1_w, fc2_w))
-            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1, w2, b2, eps, matmul_dtype,
+            w1, w2 = (w.to(matmul_dtype).contiguous() for w in (w1, w2))
+            out, a, mlp = adaln_mlp_train(x, shift, scale, gate, w1, b1p, w2, b2, eps, matmul_dtype,
                                           partial)
             if bwd_impl == "fused":  # the backward kernels read the same casts
                 casts = (w1, w2)
         else:
             out, a, mlp = adaln_mlp_train_reference(
-                x, shift, scale, gate, fc1_w.t(), b1, fc2_w.t(), b2, eps, matmul_dtype, partial)
-        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, a, mlp, *casts)
+                x, shift, scale, gate, w1.t(), b1p, w2.t(), b2, eps, matmul_dtype, partial)
+        ctx.save_for_backward(x, shift, scale, gate, fc1_w, fc2_w, b1, a, mlp, *casts)
         ctx.args = (eps, matmul_dtype, bwd_impl, partial)
         return out
 
     @staticmethod
     def backward(ctx, g):
         eps, matmul_dtype, bwd_impl, partial = ctx.args
-        res = ctx.saved_tensors
-        if bwd_impl == "fused":
-            grads = adaln_mlp_bwd_fused(*res[:8], g, eps, matmul_dtype, weights=tuple(res[8:]) or None,
-                                        partial=partial)
-        else:
-            grads = adaln_mlp_bwd(*res, g, eps, matmul_dtype, partial)
-        return (*grads, None, None, None, None)
+        x, shift, scale, gate, fc1_w, fc2_w, b1, a, mlp, *casts = ctx.saved_tensors
+        hdim, width = fc1_w.shape[0], a.shape[-1]
+        if bwd_impl != "fused":
+            grads = adaln_mlp_bwd(x, shift, scale, gate, fc1_w, fc2_w, a[..., :hdim], mlp, g, eps,
+                                  matmul_dtype, partial)
+            return (*grads, None, None, None, None)
+        w1, w2 = fc1_w, fc2_w
+        if width != hdim and not casts:  # the operands at the kernels' width (the card's casts already are)
+            w1, _, w2 = pad_hidden(fc1_w, b1, fc2_w, width)
+        dx, dshift, dscale, dgate, dw1, db1, dw2, db2 = adaln_mlp_bwd_fused(
+            x, shift, scale, gate, w1, w2, a, mlp, g, eps, matmul_dtype, weights=tuple(casts) or None,
+            partial=partial)
+        return (dx, dshift, dscale, dgate, dw1[:hdim], db1[:hdim], dw2[:, :hdim], db2,
+                None, None, None, None)
 
 
 def _quant_launch(x, shift, scale, gate, w1q, s1, b1, w2q, s2, b2, eps, matmul_dtype,

@@ -12,9 +12,12 @@ projection weights are int8 codes with per-output-channel scales, x is the
 raw residual stream, the adaLN LayerNorm and modulation fold into the qkv
 projection (`int8_modulated_matmul`) and the gate and residual into the out
 projection (`int8_out_residual`), and the result is the next residual
-stream. The attention core is the same; with a band it writes o in bf16,
-which the out projection takes as its operand (the contract rounds o to
-bf16 there first), so no f32 o is written or cast.
+stream. The attention core is the same, under context parallelism too;
+with a band it writes o in bf16, which the out projection takes as its
+operand (the contract rounds o to bf16 there first), so no f32 o is
+written or cast. Under context parallelism the shard's rows of o are a
+strided view of the halo-extended buffer, which is copied once (bf16) for
+the out projection's GEMM.
 
 Context parallelism (`cp`, a parallel/mesh.py `Mesh`): x holds this rank's
 rows of the sequence, and the core is `context_parallel_banded_attention`
@@ -90,20 +93,23 @@ def multi_head_attention(
         qkv = F.linear(x, in_proj_weight.to(dt)) + in_proj_bias.to(dt)
     # head views of the packed projection: (N, H, T, Dh), no copy
     q, k, v = (a.view(n, t, num_heads, d // num_heads).transpose(1, 2) for a in qkv.split(d, dim=-1))
+    # the int8 out projection's bf16 operand (bf16 matmuls), written by the kernel
+    bf16_o = quant_scales is not None and matmul_dtype == torch.bfloat16
+    out_dtype = torch.bfloat16 if bf16_o else None
     if cp is not None:
         if band is None:
             raise ValueError("context parallelism needs a band")
-        o = context_parallel_banded_attention(q, k, v, band, cp, valid_len, matmul_dtype)
+        o = context_parallel_banded_attention(q, k, v, band, cp, valid_len, matmul_dtype, out_dtype)
     elif band is not None:
-        # the int8 out projection's bf16 operand (bf16 matmuls), written by the kernel
-        bf16_o = quant_scales is not None and matmul_dtype == torch.bfloat16
-        out_dtype = torch.bfloat16 if bf16_o else None
         o = banded_attention(q, k, v, band, valid_len, matmul_dtype, out_dtype)
     else:
         mask = None if valid_len is None else torch.arange(t, device=x.device) < valid_len
         o = dot_product_attention(q, k, v, mask)
     o = o.transpose(1, 2).reshape(n, t, d)
     if quant_scales is not None:
+        # under CP o is the shard's rows of the halo-extended buffer, a strided
+        # view; the out projection's GEMM reads o as one matrix: one bf16 copy
+        o = o.contiguous()
         return int8_out_residual(o, x, gate, out_proj_weight, quant_scales[1], out_proj_bias,
                                  matmul_dtype=matmul_dtype)
     return F.linear(o, out_proj_weight.to(dt)) + out_proj_bias.to(dt)

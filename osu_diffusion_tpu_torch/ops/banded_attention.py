@@ -46,9 +46,10 @@ After a launch the wrapper's `.body` names the one that ran ("sm90" or
 q/k/v whose strides are multiples of 4 elements but not of 8 is copied to
 a contiguous layout first (`_fit_tma`); the model's layouts (head views of
 the packed qkv projection, contiguous shards) need no copy. The inference
-forward takes `out_dtype`: torch.bfloat16 for f32 q/k/v writes o in bf16
-from the kernel's registers (the int8 block's out projection rounds o to
-bf16 first; the plain version's o is rounded the same way).
+forwards, unranged and ranged, take `out_dtype`: torch.bfloat16 for f32
+q/k/v writes o in bf16 from the kernel's registers (the int8 block's out
+projection rounds o to bf16 first; the plain version's o is rounded the
+same way).
 `banded_attention` under grad (an input requires it) runs the
 `BandedAttention` autograd Function: the LSE forward, then dq and dk/dv.
 
@@ -263,7 +264,7 @@ def _lib() -> ctypes.CDLL:
     _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, i, p])
     _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     # ranged: (band, k_lo, k_hi, q_lo, q_hi) in place of (band, valid)
-    _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
+    _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, i, p])
     _bind(lib, "banded_attention_fwd_ranged_lse", [p] * 5 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, p])
     lib.banded_attention_error_string.restype = ctypes.c_char_p
     lib.banded_attention_error_string.argtypes = [ctypes.c_int]
@@ -412,8 +413,8 @@ def _stream(a: torch.Tensor) -> int:
 
 def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None, out_dtype=None):
     """Launch the forward entry of wrapper `fn` (o in `out_dtype`, default
-    q's type: only the unranged inference entry takes another) and record
-    its body in `fn.body`."""
+    q's type: only the inference entries, unranged and ranged, take
+    another) and record its body in `fn.body`."""
     q, k, v = _fit_tma(q, k, v)
     n, h, t, dh = q.shape
     out = _heads_out(q, out_dtype)
@@ -424,8 +425,8 @@ def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None, out_d
     lse_arg = (lse.data_ptr(),) if with_lse else ()
     entry = "banded_attention_fwd" + ("_ranged" if bounds is not None else "") + ("_lse" if with_lse else "")
     mask_args = (band, valid_len) if bounds is None else (band, *bounds)
-    # the inference entry's o type
-    out_arg = (int(out.dtype == torch.bfloat16),) if entry == "banded_attention_fwd" else ()
+    # the inference entries' o type
+    out_arg = (int(out.dtype == torch.bfloat16),) if not with_lse else ()
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *lse_arg, n, h, t, dh,
         sn, sh, st, osn, osh, ost, *mask_args, 1.0 / math.sqrt(dh),
@@ -535,6 +536,16 @@ class BandedAttention(torch.autograd.Function):
         return dq, dk, dv, None, None, None
 
 
+def _wants_grad(q, k, v) -> bool:
+    return torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+
+
+def _check_out_dtype(q, out_dtype, grad: bool) -> None:
+    if out_dtype not in (None, q.dtype) and (grad or (q.dtype, out_dtype) != (torch.float32, torch.bfloat16)):
+        raise ValueError(f"out_dtype {out_dtype} for {q.dtype} q: the inference forward writes "
+                         "o in q's type, or bf16 for f32 q")
+
+
 def banded_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
     valid_len: int | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
@@ -552,10 +563,8 @@ def banded_attention(
     the int8 out projection takes it; the kernel writes it so from its
     registers, the plain version rounds its f32 o)."""
     valid_len = _check_args(q, band, valid_len)
-    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
-    if out_dtype not in (None, q.dtype) and (grad or (q.dtype, out_dtype) != (torch.float32, torch.bfloat16)):
-        raise ValueError(f"out_dtype {out_dtype} for {q.dtype} q: the inference forward writes "
-                         "o in q's type, or bf16 for f32 q")
+    grad = _wants_grad(q, k, v)
+    _check_out_dtype(q, out_dtype, grad)
     if grad:
         return BandedAttention.apply(q, k, v, band, valid_len, matmul_dtype)
     if q.device.type == "cpu":
@@ -630,21 +639,25 @@ class BandedAttentionRanged(torch.autograd.Function):
 
 def banded_attention_ranged(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int, bounds,
-    matmul_dtype: torch.dtype = torch.bfloat16,
+    matmul_dtype: torch.dtype = torch.bfloat16, out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Ranged banded attention over one shard's halo-extended q, k, v
     (N, H, T_ext, Dh), bounds (k_lo, k_hi, q_lo, q_hi): (N, H, T_ext, Dh),
     rows outside [q_lo, q_hi) undefined. Under grad it runs
     `BandedAttentionRanged`; otherwise the inference forward (row 5, no
-    LSE)."""
+    LSE), whose o is in `out_dtype` as `banded_attention`'s."""
     bounds = _check_bounds(q, band, bounds)
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+    grad = _wants_grad(q, k, v)
+    _check_out_dtype(q, out_dtype, grad)
+    if grad:
         return BandedAttentionRanged.apply(q, k, v, band, bounds, matmul_dtype)
     t = q.shape[-2]
     if q.device.type == "cpu":
-        return banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)[0]
+        o = banded_attention_fwd_lse_reference(q, k, v, band, t, matmul_dtype, bounds)[0]
+        return o.to(out_dtype or q.dtype)
     _check_kernel_inputs(matmul_dtype, q=q, k=k, v=v)
-    out, _ = _launch_fwd(banded_attention_ranged, q, k, v, band, t, with_lse=False, bounds=bounds)
+    out, _ = _launch_fwd(banded_attention_ranged, q, k, v, band, t, with_lse=False, bounds=bounds,
+                         out_dtype=out_dtype)
     banded_attention_ranged.launches += 1
     return out
 

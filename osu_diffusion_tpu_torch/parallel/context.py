@@ -136,14 +136,17 @@ def shard_bounds(t_loc: int, halo: int, mesh, valid_len: int | None) -> tuple[in
 def context_parallel_banded_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int, mesh,
     valid_len: int | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Banded attention with the sequence split over the mesh's "model"
     axis. q, k, v: this rank's (N, H, T_loc, Dh) slice, rows
     [model_rank * T_loc, (model_rank + 1) * T_loc) of a sequence of
     T = num_model * T_loc, T_loc a multiple of 128; `valid_len`: the global
     real length when T is padded. The same function as `banded_attention`
-    on the whole sequence, returned as this rank's (N, H, T_loc, Dh) rows.
-    Every rank of the CP group must call it at the same point."""
+    on the whole sequence, returned as this rank's (N, H, T_loc, Dh) rows,
+    in `out_dtype` (without grad: bf16 for f32 q, as `banded_attention`
+    writes it for the int8 block). Every rank of the CP group must call it
+    at the same point."""
     n, h, t_loc, dh = q.shape
     halo = _cdiv(band, BLOCK) * BLOCK
     if t_loc % BLOCK:
@@ -157,5 +160,5 @@ def context_parallel_banded_attention(
     v_ext = torch.cat((left[1], v, right[1]), dim=2)
     q_ext = F.pad(q, (0, 0, halo, halo))
     bounds = shard_bounds(t_loc, halo, mesh, valid_len)
-    out = banded_attention_ranged(q_ext, k_ext, v_ext, band, bounds, matmul_dtype)
+    out = banded_attention_ranged(q_ext, k_ext, v_ext, band, bounds, matmul_dtype, out_dtype)
     return out[:, :, halo:halo + t_loc]

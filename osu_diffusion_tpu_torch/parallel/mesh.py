@@ -13,12 +13,16 @@ is `world // num_model` rows by `num_model` columns: rank r sits at
   table's partial outputs and of their input gradients.
 - A column holds the data ranks of one model rank. Under TP a parameter's
   gradient is summed over the column: each rank of a column holds the same
-  shard (or the same replica) of every parameter. Without TP the gradients
-  are summed over the world.
+  shard (or the same replica) of every parameter. Under CP over a sharded
+  model a sharded parameter's gradient is summed over the column (the row
+  summed it in the backward), a replicated one's over the world; under CP
+  over a whole model and pure data parallelism every gradient over the
+  world.
 
-Where the weights live: under TP each model rank holds its shard of the
-MLP, the adaLN heads and the label table and a replica of the rest; under
-CP and pure data parallelism every rank holds a full replica.
+Where the weights live: with model ranks (TP, and CP as the trainer runs
+it) each holds its shard of the MLP, the adaLN heads and the label table
+and a replica of the rest; under pure data parallelism every rank holds a
+full replica.
 """
 from __future__ import annotations
 

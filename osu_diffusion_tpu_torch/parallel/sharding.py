@@ -36,9 +36,24 @@ autograd Functions keep it so:
 A replicated parameter then gets the same gradient on every rank of a
 row, and a sharded one its shard's whole gradient; the train step sums
 both over the column (the data ranks).
+
+Under context parallelism (CP) the same model ranks also split the
+sequence: each computes other rows, so every activation gradient it holds
+is its own rows' partial, and the three Functions above would leave the
+replicas' gradients partial and count the row's shares wrongly. The model
+then gathers each sharded weight whole before use (`gather_shards`: one
+slot gather forward; backward, one f32 sum of the whole gradients over the
+row, then this rank's slices) and runs CP's path on whole weights: a
+sharded parameter leaves the backward with its shard's row-summed
+gradient, which the train step sums over the column, and a replicated one
+with this rank's partial, summed over the world as under CP alone. The
+label table keeps its vocab-parallel lookup, whose `row_sum` then also
+sums the gradient over the row (`grad_sum=True`): N rows cross the row
+instead of the table.
 """
 from __future__ import annotations
 
+import math
 import re
 
 import torch
@@ -188,15 +203,17 @@ def _sum_over_row(x: torch.Tensor, mesh) -> torch.Tensor:
 
 
 class _RowSum(torch.autograd.Function):
-    """Sum of the row's partial outputs; the gradient is already whole."""
+    """Sum of the row's partial outputs; the gradient is already whole
+    (TP), or with `grad_sum` (CP) summed over the row too."""
 
     @staticmethod
-    def forward(ctx, x, mesh):
+    def forward(ctx, x, mesh, grad_sum: bool):
+        ctx.mesh, ctx.grad_sum = mesh, grad_sum
         return _sum_over_row(x, mesh)
 
     @staticmethod
     def backward(ctx, g):
-        return g, None
+        return (_sum_over_row(g, ctx.mesh) if ctx.grad_sum else g), None, None
 
 
 class _RowSumGrad(torch.autograd.Function):
@@ -239,9 +256,60 @@ class _GatherColumns(torch.autograd.Function):
         return g[..., lo:lo + ctx.cols], None
 
 
-def row_sum(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The sum of x over the row (each rank's x a partial)."""
-    return _RowSum.apply(x, mesh)
+class _GatherShards(torch.autograd.Function):
+    """The whole tensors of the row's shards (`dims`: each one's split
+    dim), in one slot gather; the backward sums the whole gradients over
+    the row in one f32 all_reduce and returns this rank's slices."""
+
+    @staticmethod
+    def forward(ctx, mesh, dims, *shards):
+        ctx.mesh, ctx.dims, ctx.device = mesh, dims, shards[0].device
+        ctx.specs = [(x.shape, x.dtype) for x in shards]
+        slots = gather_slots(torch.cat([x.reshape(-1) for x in shards]), mesh)  # (P, numel)
+        out, offset = [], 0
+        for x, dim in zip(shards, dims):
+            pieces = slots[:, offset:offset + x.numel()].reshape(mesh.num_model, *x.shape)
+            out.append(torch.cat(pieces.unbind(), dim=dim))
+            offset += x.numel()
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh = ctx.mesh
+        wholes = [[n * mesh.num_model if d == dim else n for d, n in enumerate(shape)]
+                  for (shape, _), dim in zip(ctx.specs, ctx.dims)]
+        # a missing gradient counts as zeros, so every rank sends the same layout
+        flat = torch.cat([torch.zeros(math.prod(w), dtype=torch.float32, device=ctx.device) if g is None
+                          else g.to(torch.float32).reshape(-1) for g, w in zip(gs, wholes)])
+        dist.all_reduce(flat, group=mesh.row_group)
+        out, offset = [], 0
+        for (shape, dtype), dim, whole in zip(ctx.specs, ctx.dims, wholes):
+            n = math.prod(whole)
+            g = flat[offset:offset + n].view(whole).narrow(dim, mesh.model_rank * shape[dim], shape[dim])
+            out.append(g.to(dtype).contiguous())
+            offset += n
+        return (None, None, *out)
+
+
+def row_sum(x: torch.Tensor, mesh, grad_sum: bool = False) -> torch.Tensor:
+    """The sum of x over the row (each rank's x a partial); `grad_sum`:
+    its gradient summed over the row as well (under context parallelism)."""
+    return _RowSum.apply(x, mesh, grad_sum)
+
+
+def gather_shards(mesh, tensors, dims) -> list[torch.Tensor]:
+    """`tensors` whole: each one split on its entry of `dims` gathered from
+    the row's shards (one collective for all of them), each with dim None
+    as it is. Differentiable: a shard's gradient is this rank's slice of
+    the whole gradient summed over the row. Every rank of the row calls it
+    at the same point."""
+    split = [i for i, d in enumerate(dims) if d is not None]
+    out = list(tensors)
+    if split:
+        wholes = _GatherShards.apply(mesh, tuple(dims[i] for i in split), *(tensors[i] for i in split))
+        for i, w in zip(split, wholes):
+            out[i] = w
+    return out
 
 
 def row_grad_sum(*xs: torch.Tensor, mesh) -> tuple[torch.Tensor, ...]:

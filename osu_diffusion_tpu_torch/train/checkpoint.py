@@ -5,7 +5,7 @@ The port's modules carry the reference torch state-dict names (see
 models/dit.py), so a reference checkpoint loads with `load_state_dict`.
 A training checkpoint is one `torch.save` dict in the reference layout,
 {"model", "ema", "opt", "args", "step"}, written as
-`<checkpoint dir>/<step, 7 digits>.pt` (a tensor-parallel run gathers its
+`<checkpoint dir>/<step, 7 digits>.pt` (a run with model ranks gathers its
 shards into that layout first); `load_checkpoint` takes its EMA weights for
 sampling.
 `state_dict_from_jax_params` converts the JAX package's flax tree (as numpy
@@ -127,8 +127,8 @@ def save_checkpoint(checkpoint_dir: str, step: int, model, ema, optimizer, args:
                     mesh=None) -> str | None:
     """Write {"model", "ema", "opt", "args", "step"} to
     `<checkpoint_dir>/<step:07d>.pt` (through a temporary file, so a reader
-    never sees half a checkpoint); returns the path. With `mesh` (tensor
-    parallelism: model and EMA sharded by parallel/sharding.py) every rank
+    never sees half a checkpoint); returns the path. With `mesh` (model and
+    EMA sharded by parallel/sharding.py, with or without CP) every rank
     of the mesh's row calls it: the model, EMA and AdamW moments are
     gathered whole, in a one-process run's layout, and the row's first rank
     writes them (the others return None)."""

@@ -17,6 +17,11 @@ same batch and the same draws (one generator seed).
   ranks of the local per-token means. Each rank backpropagates its local
   mean loss / world, and one sum `all_reduce` of all gradients (one flat
   buffer) over the world gives every rank the global mean gradient.
+- CP over a sharded model (parallel/sharding.py `shard_model` on the same
+  mesh): the model gathers its sharded weights before use, so a sharded
+  parameter's gradient leaves the backward already summed over the row;
+  those are summed over the column, the replicated ones over the world as
+  under CP alone.
 - Tensor parallelism (the "model" axis > 1 without CP; the model sharded
   by parallel/sharding.py): every rank of a row computes the same loss,
   and the gradient each holds is already whole (a sharded parameter's for
@@ -142,8 +147,9 @@ def train_step(
     keeps its value bit for bit; the EMA still covers every parameter.
     `mesh`: a parallel/mesh.py `Mesh`; `batch` and `draws` are then this
     rank's DP shard (whole windows), and the metrics the global means. With
-    `context_parallel` a "model" axis > 1 splits the sequence; without it,
-    the model must be sharded over it (tensor parallelism)."""
+    `context_parallel` a "model" axis > 1 splits the sequence, over a whole
+    or a sharded model; without it, the model must be sharded over it
+    (tensor parallelism)."""
     raw = batch[0]
     if draws is None:
         t_hi = diffusion.num_timesteps if max_timestep is None else max_timestep
@@ -161,7 +167,13 @@ def train_step(
     loss = terms["loss"].mean()
     optimizer.zero_grad(set_to_none=True)
     (loss / ranks).backward()
-    if ranks > 1:
+    if cp is not None and model.tp is not None:
+        # a sharded parameter's gradient is the row's sum already (sharding.gather_shards)
+        split = [p for name, p in model.named_parameters() if model.tp_dims[name] is not None]
+        all_reduce_grads([p for name, p in model.named_parameters() if model.tp_dims[name] is None])
+        if mesh.num_data > 1:
+            all_reduce_grads(split, mesh.col_group)
+    elif ranks > 1:
         all_reduce_grads(list(model.parameters()), group)
     frozen = [] if trainable_mask is None else [
         p for name, p in model.named_parameters() if not trainable_mask[name]]

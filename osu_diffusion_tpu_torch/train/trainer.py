@@ -38,20 +38,27 @@ num_model` data by `num_model` model ranks. The data ranks read their
 own contiguous share of the beatmap sets with seed `global_seed + data
 rank` (as the JAX trainer's processes do), at `global_batch_size // data
 ranks` each. The ranks of one row take the same batch (their first
-rank's, broadcast) and the same draws. With `num_model > 1`:
-- `context_parallel`: every rank holds a full replica, the ranks of a row
-  split each window's sequence (`seq_len` a multiple of num_model * 128)
-  and run the ranged attention kernels behind a halo exchange;
+rank's, broadcast) and the same draws. With `num_model > 1`, after the
+init and after a resume each rank keeps its shard of the MLPs, the adaLN
+heads and the label table (parallel/sharding.py, the JAX rules: a part
+that num_model does not divide stays whole on every rank, as JAX's
+`_fit_spec` leaves it), of their AdamW moments and of their EMA, as the
+JAX trainer shards its parameters on any mesh; and
+- with `context_parallel` the ranks of a row split each window's
+  sequence (`seq_len` a multiple of num_model * 128) and run the ranged
+  attention kernels behind a halo exchange, each block gathering its
+  sharded weights whole first: with remat (the default) the gathered
+  weights live only while their block runs or is recomputed; without it
+  the backward keeps every block's;
 - otherwise tensor parallelism (the JAX trainer's `--num-model` alone):
-  after the init and after a resume each rank keeps its shard of the MLPs,
-  the adaLN heads and the label table (parallel/sharding.py), of their
-  AdamW moments and of their EMA; the MLP's shard width 4D / num_model
-  must be a multiple of 128 (`check_parallel` refuses others, on every
-  device alike).
+  each rank runs the MLP on its hidden units (a shard width 4D /
+  num_model that is not a multiple of 128 runs zero-padded to one;
+  `check_parallel` refuses one that is not a multiple of 16, a degree
+  above 32 at these models, whose padding would be most of the work).
 Rank 0 picks the experiment index and broadcasts it; only rank 0 logs and
 writes checkpoints, each the whole model, EMA and optimizer state in the
-reference layout (under TP gathered from the first row's shards first),
-so a run resumes on any world size and `sample_torch.py` loads it. The
+reference layout (gathered from the first row's shards first), so a run
+resumes on any world size and `sample_torch.py` loads it. The
 data ranks' shares give different batch counts, so every step they agree
 (a flag `all_reduce` on a CPU gloo group) whether each still has a batch,
 and an epoch ends on all of them when the shortest share runs out.
@@ -77,7 +84,6 @@ from osu_diffusion_tpu_torch.data.dataset import (
 )
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
-from osu_diffusion_tpu_torch.ops.adaln_mlp import HIDDEN_CHUNK
 from osu_diffusion_tpu_torch.parallel.context import BLOCK
 from osu_diffusion_tpu_torch.parallel.mesh import make_mesh
 from osu_diffusion_tpu_torch.parallel.sharding import shard_model, shard_optimizer_state
@@ -140,9 +146,12 @@ def tp_hidden_width(model: str) -> int:
         return DiT_models[model](num_classes=1).blocks[0].mlp.fc1.out_features
 
 
+TP_WIDTH_MULTIPLE = 16  # tensor parallelism's MLP shard widths: multiples of this
+
+
 def check_parallel(config: TrainConfig) -> int:
     """The JAX trainer's checks of the mesh flags (its trainer.py:158-160,
-    264-272), and the shard width tensor parallelism takes, before any
+    264-272), and the MLP shard widths tensor parallelism takes, before any
     process group exists; returns the band. (The CLI checks that
     --context-parallel comes with --num-model > 1.)"""
     band = config.seq_len if config.band is None else config.band
@@ -152,11 +161,12 @@ def check_parallel(config: TrainConfig) -> int:
         raise ValueError(f"--num-model must be >= 1, got {config.num_model}")
     if config.num_model > 1 and not config.context_parallel:  # tensor parallelism
         hidden = tp_hidden_width(config.model)
-        if hidden % config.num_model or hidden // config.num_model % HIDDEN_CHUNK:
+        # a degree that does not divide the MLP leaves it whole (fit_spec)
+        if hidden % config.num_model == 0 and hidden // config.num_model % TP_WIDTH_MULTIPLE:
             raise ValueError(
                 f"--num-model {config.num_model} splits {config.model}'s MLP hidden width "
-                f"{hidden} into shards of {hidden / config.num_model:g}: tensor parallelism "
-                f"takes shard widths that are multiples of {HIDDEN_CHUNK}")
+                f"{hidden} into shards of {hidden // config.num_model}: tensor parallelism "
+                f"takes shard widths that are multiples of {TP_WIDTH_MULTIPLE}")
     elif config.num_model > 1:  # context parallelism
         step = config.num_model * BLOCK
         if config.seq_len % step:
@@ -241,7 +251,7 @@ def _write_trace(profiler, device, profile_dir: str, rank: int, logger) -> None:
 def train(config: TrainConfig) -> dict:
     """Run training; returns a summary {final_step, last_loss,
     experiment_dir, checkpoint_dir, ema} (`ema`: the EMA model, on the
-    training device; under TP this rank's shards of it)."""
+    training device; with model ranks this rank's shards of it)."""
     band = check_parallel(config)
     device, joined = _join_process_group(config)
     try:
@@ -254,7 +264,8 @@ def train(config: TrainConfig) -> dict:
 
 def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     mesh = make_mesh(config.num_model)
-    tp = mesh.num_model > 1 and not config.context_parallel
+    sharded = mesh.num_model > 1  # the weights over the model ranks, with or without CP
+    tp = sharded and not config.context_parallel
     rank = dist.get_rank() if dist.is_initialized() else 0
     if config.global_batch_size % mesh.num_data:
         raise ValueError(f"--global-batch-size {config.global_batch_size} must be divisible by "
@@ -284,7 +295,7 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
                     f"{dist.get_backend()}{kind}")
 
     # the whole model on the host (the same seeded init on every rank), then
-    # under TP this rank's shards alone go to the device
+    # with model ranks this rank's shards alone go to the device
     model = DiT_models[config.model](
         num_classes=config.num_classes, context_size=CONTEXT_SIZE,
         class_dropout_prob=CLASS_DROPOUT_PROB, remat=config.remat, mlp_bwd=config.mlp_bwd,
@@ -293,7 +304,7 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     ema = make_ema(model)
     logger.info(f"DiT Parameters: {sum(p.numel() for p in model.parameters()):,}")
     train_steps, opt_state = _load_state(config, model, ema, logger) if config.ckpt else (0, None)
-    if tp:
+    if sharded:
         shard_model(model, mesh)
         shard_model(ema, mesh)
         logger.info(f"Parameters per model rank: {sum(p.numel() for p in model.parameters()):,}")
@@ -301,7 +312,7 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
     ema.to(device).eval()
     optimizer = make_optimizer(model.parameters(), lr=config.lr)
     if opt_state is not None:
-        optimizer.load_state_dict(shard_optimizer_state(opt_state, model, mesh) if tp else opt_state)
+        optimizer.load_state_dict(shard_optimizer_state(opt_state, model, mesh) if sharded else opt_state)
     diffusion = create_diffusion("", noise_schedule=config.noise_schedule,
                                  use_l1=config.l1_loss, device=device)
     dtype = torch.bfloat16 if config.use_bf16 else torch.float32
@@ -387,10 +398,10 @@ def _train(config: TrainConfig, band: int, device: torch.device) -> dict:
                 running_loss.zero_()
                 log_steps = 0
                 start_time = time.time()
-            # under TP the first row gathers the shards, and rank 0 writes
-            if train_steps % config.ckpt_every == 0 and (rank == 0 or tp and mesh.data_rank == 0):
+            # the first row gathers the shards, and rank 0 writes
+            if train_steps % config.ckpt_every == 0 and (rank == 0 or sharded and mesh.data_rank == 0):
                 path = ckpt_lib.save_checkpoint(checkpoint_dir, train_steps, model, ema, optimizer,
-                                                args, mesh if tp else None)
+                                                args, mesh if sharded else None)
                 if rank == 0:
                     logger.info(f"Saved checkpoint to {path}")
             if config.max_steps is not None and train_steps >= config.max_steps:

@@ -684,8 +684,8 @@ def test_train_cli_two_data_ranks_end_each_epoch_together(tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--num-model", "8"], "shards of 192: tensor parallelism takes shard widths that are multiples "
-                           "of 128"),
+    (["--num-model", "64"], "shards of 24: tensor parallelism takes shard widths that are multiples "
+                            "of 16"),
     (["--num-model", "2", "--context-parallel", "--seq-len", "200"], "multiple of num_model"),
     (["--context-parallel"], "needs --num-model > 1"),
 ], ids=["tp_shard_width_not_128", "seq_len_not_divisible", "cp_needs_model_ranks"])

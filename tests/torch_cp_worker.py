@@ -1,6 +1,6 @@
 """One gloo rank of the port's context- and tensor-parallel tests (run by
-tests/test_torch_cp.py, one subprocess per rank; imports torch and the port,
-never jax).
+tests/test_torch_cp.py and tests/test_torch_mesh.py, one subprocess per
+rank; imports torch and the port, never jax).
 
 Usage: torch_cp_worker.py <rank> <world> <port> <workdir>
 
@@ -14,8 +14,13 @@ process, runs every case on this world, and writes this rank's results to
 - "tp": the same step with the model sharded over the model ranks (tensor
   parallelism, the case's MLP backward): the gathered weights, EMA and
   AdamW moments, and this rank's own tensors;
+- "tp_cp": that step with the sharded model under context parallelism
+  (the row's ranks split the sequence and hold the shards);
 - "sample": a `Sampler(cp=mesh)` chain with the given per-step noise, or
-  from a generator of the given seed.
+  from a generator of the given seed; with "forward_t", also one
+  `forward_with_cfg` at that timestep on the rank's rows, gathered. The
+  case may ask for the int8 model ("quant", its state dict already int8)
+  and a `matmul_dtype`.
 """
 import os
 import sys
@@ -33,12 +38,13 @@ dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion  # noqa: E402
 from osu_diffusion_tpu_torch.models.dit import DiT  # noqa: E402
 from osu_diffusion_tpu_torch.parallel import context_parallel_banded_attention, make_mesh  # noqa: E402
+from osu_diffusion_tpu_torch.parallel.context import gather_slots, shard_rows  # noqa: E402
 from osu_diffusion_tpu_torch.parallel.sharding import (  # noqa: E402
     gather_optimizer_state,
     gather_state_dict,
     shard_model,
 )
-from osu_diffusion_tpu_torch.sampling import Sampler  # noqa: E402
+from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time  # noqa: E402
 from osu_diffusion_tpu_torch.train.train_step import StepDraws, make_ema, train_step  # noqa: E402
 
 cases = torch.load(os.path.join(workdir, f"cases_w{world}.pt"), weights_only=False)
@@ -71,12 +77,15 @@ def run_attn(case):
 
 
 def port_model(case):
-    model = DiT(matmul_dtype=torch.float32, mlp_bwd=case.get("mlp_bwd", "xla"), **case["config"])
+    model = DiT(matmul_dtype=getattr(torch, case.get("matmul_dtype", "float32")),
+                mlp_bwd=case.get("mlp_bwd", "xla"), quant=case.get("quant", False), **case["config"])
     model.load_state_dict({k: t(v) for k, v in case["state_dict"].items()})
     return model
 
 
-def run_train(case, tp=False):
+def run_train(case, tp, cp):
+    """`tp`: the model sharded over the model ranks; `cp`: the model ranks
+    split the sequence."""
     mesh = mesh_of(case["num_model"])
     model = port_model(case).train()
     ema = make_ema(model)
@@ -94,7 +103,7 @@ def run_train(case, tp=False):
                       t(d["t"][mine]).long(), t(d["noise"][mine]), t(d["drop"][mine]))
     metrics = train_step(model, ema, opt, diffusion, batch, band=case["band"],
                          dtype=torch.float32, draws=draws, ema_decay=0.5, mesh=mesh,
-                         context_parallel=not tp)
+                         context_parallel=cp)
     if tp:
         names = [name for name, _ in model.named_parameters()]
         state = gather_optimizer_state(opt, model, mesh)["state"]
@@ -113,19 +122,31 @@ def run_sample(case):
     sampler = Sampler(model, create_diffusion(str(case["steps"])), cfg_scale=case["cfg_scale"],
                       band=case["band"], cp=mesh)
     inputs = (t(case["z"]), t(case["o"]), t(case["c"]), t(case["y"]).long())
+    out = {}
+    if "forward_t" in case:  # one CFG forward on this rank's rows of the padded inputs
+        z, o, c, y = inputs
+        t_pad = _bucketed(z.shape[1], sampler.bucket)
+        rows = shard_rows(t_pad, mesh)
+        with torch.no_grad():
+            x, op, cpad = (_pad_time(a, t_pad)[:, rows] for a in (z, o, c))
+            fwd = model.forward_with_cfg(x, torch.full((z.shape[0],), case["forward_t"]), op, cpad, y,
+                                         case["cfg_scale"], band=case["band"], valid_len=z.shape[1],
+                                         cp=mesh)
+        out["forward"] = torch.cat(gather_slots(fwd, mesh).unbind(), dim=1)[:, :z.shape[1]]
     if "seed" in case:
-        return {"out": sampler(*inputs, generator=torch.Generator().manual_seed(case["seed"]))}
+        return {**out, "out": sampler(*inputs, generator=torch.Generator().manual_seed(case["seed"]))}
     noise = case["noise"]
 
     def noise_fn(k, shape):
         assert tuple(shape) == noise[k].shape, (shape, noise[k].shape)
         return t(noise[k])
 
-    return {"out": sampler(*inputs, noise_fn=noise_fn)}
+    return {**out, "out": sampler(*inputs, noise_fn=noise_fn)}
 
 
-runners = {"attn": run_attn, "train": run_train, "tp": lambda case: run_train(case, tp=True),
-           "sample": run_sample}
+runners = {"attn": run_attn, "train": lambda case: run_train(case, tp=False, cp=True),
+           "tp": lambda case: run_train(case, tp=True, cp=False),
+           "tp_cp": lambda case: run_train(case, tp=True, cp=True), "sample": run_sample}
 results = {kind: [runners[kind](case) for case in kind_cases] for kind, kind_cases in cases.items()}
 torch.save(results, os.path.join(workdir, f"out_w{world}_r{rank}.pt"))
 dist.barrier()
