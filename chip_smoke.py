@@ -251,6 +251,13 @@ Phases (any failure raises and exits non-zero):
    --num-model 3 on three ranks sharing the card, a degree that leaves the
    MLP whole (`[train-tp-whole-mlp]`: launches, finite losses, parameters
    and peak memory a rank).
+23. The bench tools (`[bench-tools]`, last): each of
+   osu_diffusion_tpu_torch/tools/bench_{sample,accel,quant,train,flash}.py
+   called in this process through its `main(argv)` at its smallest setting
+   (BENCH_TOOL_RUNS); every rate it prints finite and positive, and the
+   kernels each tool drives launched (bench_quant the four int8 kernels,
+   bench_flash the LSE forward, dq and dk/dv). Its times are smoke, not
+   findings: the tools give those in processes of their own.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -276,6 +283,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
 # max |kernel - plain| allowed. Against the plain version with the same
 # bf16-rounded operands only summation order, the online softmax's rounding
@@ -561,33 +570,6 @@ def host_us(fn, iters=50):
     return us
 
 
-def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device milliseconds per call of fn(), with CUDA events. A spin
-    kernel holds the stream while the host enqueues the timed calls, so the
-    events time the calls' device work back to back and not the host's
-    launch path (the card runs a 20-us kernel faster than the host launches
-    it)."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    host = time.perf_counter()
-    fn()
-    host = time.perf_counter() - host  # one call's enqueue while the card is idle
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    # ~2 GHz bounds the SM clock from above, so this spins at least as long
-    torch.cuda._sleep(int(min(2.0, 2 * iters * host + 1e-3) * 2e9))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
 def check(ok, msg) -> None:
     """A failed check fails the run (unlike assert, kept under -O)."""
     if not ok:
@@ -633,10 +615,7 @@ def phase_build():
     from osu_diffusion_tpu_torch import native
     from osu_diffusion_tpu_torch.ops import cuda_build
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    card = device_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
@@ -3095,6 +3074,56 @@ def phase_longrun(tmp):
     print(f"[longrun] the phase took {time.perf_counter() - wall:.1f} s")
 
 
+# (tool, argv, kernels it must launch): each tool's smallest setting
+ATTN_TRAIN_KERNELS = ("banded_attention_fwd_lse", "banded_attention_bwd_dq", "banded_attention_bwd_dkv")
+BENCH_TOOL_RUNS = [
+    ("bench_sample", ["--model", "DiT-B", "--steps", "10", "--groups", "2", "--runs", "2"],
+     ("banded_attention", "adaln_mlp")),
+    ("bench_accel", ["--intervals", "1,2", "--taus", "0.05", "--groups", "1", "--runs", "1"],
+     ("banded_attention", "adaln_mlp")),
+    ("bench_quant", ["--groups", "1", "--runs", "1"],
+     ("banded_attention", "adaln_mlp", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
+      "adaln_mlp_quant")),
+    ("bench_train", ["--batch", "32", "--calls", "2"], ATTN_TRAIN_KERNELS + ("adaln_mlp_train",)),
+    ("bench_flash", ["--iters", "2", "6"], ATTN_TRAIN_KERNELS),
+]
+
+
+def bench_rates(name: str, out) -> list[float]:
+    """The rates (steps/s, ms per iteration) a bench tool returned."""
+    if name == "bench_sample":
+        return [out["steps_per_sec_best"], *out["per_group"]]
+    if name in ("bench_accel", "bench_quant"):
+        return [r["steps_per_sec_best"] for r in out["results"].values() if isinstance(r, dict)]
+    if name == "bench_train":
+        return [out["steps_per_sec"], out["samples_per_sec"]]
+    return [row[k] for row in out if "fwd_ms" in row for k in ("fwd_ms", "fwd_bwd_ms")]
+
+
+def phase_bench_tools():
+    """Each bench tool's main(argv) in this process at its smallest setting:
+    finite positive rates, the card's line in its JSON, and the launches of
+    the kernels it drives."""
+    import importlib
+
+    for name, argv, kernels in BENCH_TOOL_RUNS:
+        tool = importlib.import_module(f"osu_diffusion_tpu_torch.tools.{name}")
+        read = reset_launch_counts()
+        wall = time.perf_counter()
+        out = tool.main(argv)
+        wall = time.perf_counter() - wall
+        counts = read()
+        rates = bench_rates(name, out)
+        card = (out[-1] if isinstance(out, list) else out)["card"]
+        check(card == device_line(), f"[bench-tools] {name} names the card {card!r}")
+        check(rates and all(math.isfinite(r) and r > 0 for r in rates),
+              f"[bench-tools] {name} rates {rates}")
+        check(all(counts[k] > 0 for k in kernels),
+              f"[bench-tools] {name} launches {({k: counts[k] for k in kernels})}")
+        print(f"[bench-tools] {name} {' '.join(argv)}: {wall:.1f} s; rates {rates}; launches "
+              f"{ {k: counts[k] for k in kernels} }", flush=True)
+
+
 def reset_launch_counts():
     """Every kernel wrapper's launch count to 0; returns a reader of them."""
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
@@ -4575,6 +4604,7 @@ def main() -> int:
         phase_train_modes(dev, tmp, default["ckpt"])
     phase_train_step_vs_plain(dev)
     phase_train_step_vs_plain(dev, "fused")
+    phase_bench_tools()
 
     attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"
     bwd_src = "osu_diffusion_tpu_torch/csrc/banded_attention_bwd.cu"

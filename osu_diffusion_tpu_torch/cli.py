@@ -14,8 +14,9 @@ residual stream; refused with --quantize-weights), the Δ-cache
 .osu per variant), and --plot-time/--plot-width/--make-animation (which
 import matplotlib when asked; nothing else needs it). --use-amp is accepted
 and changes nothing. The JAX CLI's --use-pallas and --scan-blocks have no
-counterpart, and its `serving_regime_warnings` (thresholds measured on a
-TPU) is not ported.
+counterpart. `serving_regime_warnings` is the JAX CLI's guardrail with the
+regime boundaries measured on the H100 (on that card neither fast flag
+has a losing regime, so it warns on nothing).
 
 train: trains a DiT on a Track dataset (train/trainer.py). On a CUDA device
 every block runs the training kernels (with --mlp-bwd fused also the MLP
@@ -64,6 +65,44 @@ from osu_diffusion_tpu_torch.train.checkpoint import load_checkpoint
 from osu_diffusion_tpu_torch.train.trainer import TrainConfig, train
 
 CLEAN_FILENAME_RX = re.compile(r"[/\\?%*:|\"<>\x7F\x00-\x1F]")
+
+
+def serving_regime_warnings(quantize_weights: bool, accel_interval: int, t_len: int,
+                            dispatch_batch: int) -> list[str]:
+    """Warnings for a fast serving flag asked for where it measured slower
+    than the chain it replaces: the JAX CLI's guardrail, same signature and
+    return (each warning also sent through warnings.warn(RuntimeWarning)).
+
+    The boundaries are the H100's, not the TPU's: two sweeps of
+    osu_diffusion_tpu_torch/tools/bench_quant.py (DiT-B, seeded reference
+    init, 100-step exact f32 chains, band 128, `--groups 5 --runs 5`, 3 at
+    T 768 from dispatch batch 32) on an NVIDIA H100 80GB HBM3 at 700.00 W
+    (PERF.md §6, the bench tools' readings), where neither flag has a
+    losing regime, so no combination warns:
+
+    - --quantize-weights: `bench_quant --variants f32,int8 --batch B
+      --seq-len T`. int8 over f32 steps/s (best group) at dispatch batch
+      2 / 8 / 16 / 32 / 64: T 32 1.259 / 1.324 / 1.337 / 1.476 / 1.373;
+      T 128 1.31 / 1.391 / 1.446 / 1.912 / 2.299; T 768 1.262 / 2.024 /
+      2.068 / 2.179 / 2.235. int8 is faster everywhere: at small batch
+      the chain is host-bound and an int8 block issues fewer ops (its
+      kernels fold the modulation, the gate and the residual), at large
+      batch f32's projections run as f32 SIMT GEMMs and int8's on the
+      tensor cores (the TPU's loss at batch 32 does not carry over).
+    - --accel-interval: `bench_quant --variants f32 --accel-interval K
+      --seq-len T` (dispatch batch 2), steps/s best / median group for K =
+      1..5: T 32 97.0/90.8, 170.9/168.6, 224.0/177.6, 171.0/161.3,
+      189.4/166.5; T 64 133.3/98.1, 143.4/123.5, 223.9/162.9,
+      171.1/166.2, 226.5/196.8; T 128 115.9/104.9, 156.3/130.8,
+      166.0/164.7, 243.5/214.6, 221.2/179.2. Every interval beats the
+      exact chain; intervals 3, 4, 5 again in turns at T 32 and 64 (10
+      groups each) put no deeper interval below 3 in both of its turns
+      by the median group, so no depth stops paying (the TPU's rule,
+      deeper than 3 at T <= 32, does not carry over).
+
+    The chains have no CUDA graph yet; a change that adds one must run the
+    sweeps again and put any losing regime here as module constants."""
+    return []
 
 
 def build_sample_parser() -> argparse.ArgumentParser:
@@ -188,6 +227,9 @@ def sample_main(args) -> list[str]:
     else:
         class_labels = [args.num_classes]
 
+    # CFG doubles the dispatched batch
+    serving_regime_warnings(args.quantize_weights, args.accel_interval, t_len=int(seq_len),
+                            dispatch_batch=2 * len(class_labels))
     z, o, c, y = prepare_cfg_inputs(seq_o, seq_c, class_labels, args.num_classes, generator)
     sampler = Sampler(
         model, diffusion, cfg_scale=args.cfg_scale, band=args.seq_len,

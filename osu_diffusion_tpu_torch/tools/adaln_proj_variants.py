@@ -44,7 +44,6 @@ import ctypes
 import glob
 import itertools
 import os
-import subprocess
 import types
 
 import torch
@@ -293,7 +292,8 @@ def check_gemm_rows_unchanged(baseline: str) -> None:
 
 
 def main() -> None:
-    from chip_smoke import COLD_COPIES, QUANT_TOL_BF16, cuda_ms, rel_err  # run from the root
+    from chip_smoke import COLD_COPIES, QUANT_TOL_BF16, rel_err  # run from the root
+    from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="another checkout of the repository whose int8_matmul.cu "
@@ -301,8 +301,7 @@ def main() -> None:
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("adaln_proj_variants: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(device_line())
     libs, logs = build(variant_sources(opts.baseline), main="int8_matmul.cu", out="adaln_proj_variants")
     for name, log in logs.items():
         lines = sorted({line.strip() for line in log.splitlines() if "registers" in line or "spill" in line})

@@ -74,12 +74,11 @@ def build(sources: dict[str, str]) -> dict[str, ctypes.CDLL]:
 
 
 def main() -> None:
-    from chip_smoke import cuda_ms  # the repository's kernel timer (run from the root)
+    from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
     if not torch.cuda.is_available():
         raise SystemExit("dq_variants: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(device_line())
     libs = build(variant_sources())
     load = cuda_build.load_library
 

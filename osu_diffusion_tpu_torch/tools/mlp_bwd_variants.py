@@ -25,7 +25,6 @@ import argparse
 import glob
 import os
 import re
-import subprocess
 
 import torch
 
@@ -83,7 +82,7 @@ def dgelu_resources(log: str) -> dict[int, str]:
 
 
 def main() -> None:
-    from chip_smoke import cuda_ms  # the repository's kernel timer (run from the root)
+    from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="another checkout of the repository, whose fused "
@@ -91,8 +90,7 @@ def main() -> None:
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mlp_bwd_variants: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(device_line())
     libs, logs = build(variant_sources(opts.baseline), main="adaln_mlp_bwd.cu", out="mlp_bwd_variants")
     for name, log in logs.items():
         print(f"[mlp-bwd-variants] {name}: dgelu GEMM (ptxas) "

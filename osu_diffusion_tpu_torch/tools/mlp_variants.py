@@ -99,7 +99,7 @@ def build(sources: dict[str, dict[str, str]], main: str = "adaln_mlp.cu",
 
 
 def main() -> None:
-    from chip_smoke import cuda_ms  # the repository's kernel timer (run from the root)
+    from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--baseline", help="another checkout of the repository, whose kernel B "
@@ -107,8 +107,7 @@ def main() -> None:
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("mlp_variants: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(device_line())
     libs, _ = build(variant_sources(opts.baseline))
     load, plan = cuda_build.load_library, am.mlp_plan
 

@@ -26,7 +26,6 @@ card:
 from __future__ import annotations
 
 import os
-import subprocess
 
 import torch
 
@@ -106,12 +105,11 @@ def variant_sources() -> dict[str, dict[str, str]]:
 
 
 def main() -> None:
-    from chip_smoke import cuda_ms  # the repository's kernel timer (run from the root)
+    from osu_diffusion_tpu_torch.utils.benchmark import cuda_ms, device_line
 
     if not torch.cuda.is_available():
         raise SystemExit("quant_variants: no CUDA device")
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip())
+    print(device_line())
     libs, logs = build(variant_sources(), out="quant_variants")
     for name, log in logs.items():
         spills = sorted({line.strip() for line in log.splitlines() if "spill stores" in line})

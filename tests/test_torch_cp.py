@@ -20,7 +20,10 @@ the CPU.
   `make_train_step` over `shard_params`'d parameters on the JAX mesh of the
   same shape: metrics, the gathered weights, EMA and AdamW moments, each
   rank's shard shapes against JAX's, the replicas bit-identical on every
-  rank of a row.
+  rank of a row; and the same step with the sharded model under context
+  parallelism on the (2 x 2) grid (two data ranks, each row's two ranks
+  splitting the sequence) against `make_train_step(cp_mesh=...)` over
+  `shard_params`'d parameters.
 - `Sampler(cp=...)` on 4 ranks against the JAX CP sampler and the port's
   one-device sampler, with JAX's per-step noise, and on 2 ranks drawing
   its noise from a generator against the one-device chain of that seed.
@@ -251,6 +254,9 @@ TP_CONFIG = {**TRAIN_CONFIG, "num_classes": TP_CLASSES}
 # grid -> (world, num_model)
 TP_GRIDS = {"1x2": (2, 2), "1x4": (4, 4), "2x2": (4, 2)}
 TP_CASES = [(grid, bwd) for grid in TP_GRIDS for bwd in ("xla", "fused")]
+# TP-sharded weights under CP with two data ranks: (2 data x 2 model), each
+# row's two ranks splitting the sequence (256 = two shards of 128) and the shards
+TP_CP_GRID, TP_CP_BWDS = "2x2", ("xla", "fused")
 
 
 def _tp_setup():
@@ -340,7 +346,8 @@ def worlds(tmp_path_factory):
     """{world: [rank 0's results, rank 1's, ...]}: world 2 runs the P = 2
     attention cases, a sampler drawing from a generator and the (1 x 2) TP
     steps; world 4 the P = 4 attention cases, the (1 x 4) and (2 x 2) CP
-    and TP train steps and the sampler with JAX's noise."""
+    and TP train steps, the (2 x 2) TP-sharded CP steps and the sampler
+    with JAX's noise."""
     workdir = tmp_path_factory.mktemp("cp")
     _, params, batch, draws = _train_setup()
     _, tparams, tbatch, tdraws = _tp_setup()
@@ -354,6 +361,7 @@ def worlds(tmp_path_factory):
     }
     for grid, bwd in TP_CASES:
         cases[TP_GRIDS[grid][0]].setdefault("tp", []).append(_tp_case(grid, bwd, tparams, tbatch, tdraws))
+    cases[4]["tp_cp"] = [_tp_case(TP_CP_GRID, bwd, tparams, tbatch, tdraws) for bwd in TP_CP_BWDS]
     for world, c in cases.items():
         torch.save(c, workdir / f"cases_w{world}.pt")
     procs = {world: _spawn_world(world, workdir) for world in cases}  # both worlds at once
@@ -445,10 +453,11 @@ def test_cp_train_step_matches_jax(worlds, grid):
 
 
 @functools.cache
-def _jax_tp_step(grid):
+def _jax_tp_step(grid, cp=False):
     """JAX's TP step on the grid's mesh: (state, metrics, {port name: this
     model rank's shard shape}) from `shard_params` and
-    `create_train_state(..., mesh)`."""
+    `create_train_state(..., mesh)`; with `cp` the mesh's model axis splits
+    the sequence too (`make_train_step(cp_mesh=mesh)`)."""
     import optax
 
     from osu_diffusion_tpu.diffusion import create_diffusion as jax_create
@@ -460,7 +469,8 @@ def _jax_tp_step(grid):
     jd = jax_create("", noise_schedule="squaredcos_cap_v2", use_l1=True)
     opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=1e-4, weight_decay=0.0)
     mesh = jax_make_mesh(num_model=num_model, devices=jax.devices()[:world])
-    step = make_train_step(jm, jd, opt, compute_dtype=jnp.float32, band=TRAIN_BAND, ema_decay=0.5)
+    step = make_train_step(jm, jd, opt, compute_dtype=jnp.float32, band=TRAIN_BAND, ema_decay=0.5,
+                           cp_mesh=mesh if cp else None)
     with mesh:
         sharded = shard_params(params, mesh)
         shard_shapes = state_dict_from_jax_params(jax.tree.map(
@@ -483,9 +493,29 @@ def test_tp_train_step_matches_jax(worlds, grid, mlp_bwd):
     rank's tensors of JAX's shard shapes; the replicated tensors the same
     bits on every rank of a row."""
     world, num_model = TP_GRIDS[grid]
-    state, metrics, shard_shapes = _jax_tp_step(grid)
     i = [c for c in TP_CASES if TP_GRIDS[c[0]][0] == world].index((grid, mlp_bwd))
-    results = [r["tp"][i] for r in worlds[world]]
+    _check_tp_step([r["tp"][i] for r in worlds[world]], num_model, *_jax_tp_step(grid))
+
+
+@pytest.mark.parametrize("mlp_bwd", TP_CP_BWDS)
+def test_tp_cp_train_step_matches_jax(worlds, mlp_bwd):
+    """One AdamW + EMA step with --num-model 2 --context-parallel over a
+    sharded model on a (2 data x 2 model) grid of gloo ranks: each rank
+    holds its shards and half the sequence of its data rank's windows, so a sharded
+    parameter's gradient is summed over the row (the shards' gathers) and
+    then over the column, a replicated one over the world
+    (train/train_step.py). Against make_train_step(cp_mesh=mesh) over
+    shard_params'd parameters on the JAX (2 x 2) mesh, with
+    test_tp_train_step_matches_jax's tolerances: metrics rtol 1e-5, the
+    gathered parameters, EMA and AdamW moments within 5e-6."""
+    results = [r["tp_cp"][TP_CP_BWDS.index(mlp_bwd)] for r in worlds[TP_GRIDS[TP_CP_GRID][0]]]
+    _check_tp_step(results, TP_GRIDS[TP_CP_GRID][1], *_jax_tp_step(TP_CP_GRID, cp=True))
+
+
+def _check_tp_step(results, num_model, state, metrics, shard_shapes):
+    """Every rank's metrics, gathered parameters, EMA and AdamW moments
+    against JAX's step; each rank's tensors of JAX's shard shapes, the
+    replicated ones the same bits on every rank of a row."""
     for r in results:
         assert set(r["metrics"]) == {"loss", "l1", "vb"}
         for k, v in r["metrics"].items():

@@ -3,7 +3,10 @@
 its second file, also under --quantize-weights; --plot-time trims the map
 and --make-animation writes animation.gif (with matplotlib, which the port
 imports only inside those branches); --quantize-weights with
---compute-dtype bf16 is refused. A 3-block, 32-wide DiT registered as a
+--compute-dtype bf16 is refused; `serving_regime_warnings` stays silent
+across the grid of the H100 sweeps behind it (neither fast flag measured
+a losing regime there), and sample_main hands it the flags, the map's
+length and the CFG-doubled batch. A 3-block, 32-wide DiT registered as a
 CLI model, 3 denoise steps, the toy fixture visual spacing (T = 34)."""
 import argparse
 import os
@@ -112,3 +115,61 @@ def test_sample_cli_make_animation_writes_a_gif(cli):
 def test_sample_cli_refuses_int8_with_the_bf16_stream(cli):
     with pytest.raises(ValueError, match="int8 under the bf16 stream"):
         cli("--quantize-weights", "--compute-dtype", "bf16")
+
+
+# the sweeps behind serving_regime_warnings (PERF.md §6): int8 against
+# f32 by dispatch batch and T, and Δ-cache intervals 1-5 by T
+SWEEP_BATCHES, SWEEP_INT8_TS = (2, 8, 16, 32, 64), (32, 128, 768)
+SWEEP_ACCEL_TS, SWEEP_INTERVALS = (32, 64, 128), (1, 2, 3, 4, 5)
+
+
+def _silent(*args, **kwargs):
+    """serving_regime_warnings' result, with any warning an error."""
+    import warnings
+
+    from osu_diffusion_tpu_torch.cli import serving_regime_warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        return serving_regime_warnings(*args, **kwargs)
+
+
+def test_int8_silent_across_the_measured_sweep():
+    """int8 measured faster than f32 at every point of the H100 sweep,
+    batch 32 at T 32 too (where the TPU's rule warned): no warning."""
+    for b in SWEEP_BATCHES:
+        for t in SWEEP_INT8_TS:
+            assert _silent(True, 1, t_len=t, dispatch_batch=b) == [], (b, t)
+
+
+def test_accel_depth_silent_across_the_measured_sweep():
+    """No Δ-cache depth measured slower than a shallower one on the H100,
+    interval 4 and 5 at T 32 too (where the TPU's rule warned)."""
+    for t in SWEEP_ACCEL_TS:
+        for k in SWEEP_INTERVALS:
+            assert _silent(False, k, t_len=t, dispatch_batch=2) == [], (t, k)
+
+
+def test_both_flags_in_no_losing_regime_return_nothing():
+    assert _silent(True, 5, t_len=32, dispatch_batch=64) == []
+    assert _silent(False, 1, t_len=757, dispatch_batch=2) == []
+
+
+def test_sample_cli_checks_the_serving_regime(cli, monkeypatch, capsys):
+    """sample_main passes the flags, the map's length and the CFG-doubled
+    dispatch batch, as the JAX CLI does, and (no losing regime on the
+    card) the run emits no RuntimeWarning."""
+    import warnings
+
+    import osu_diffusion_tpu_torch.cli as cli_module
+
+    calls = []
+    check = cli_module.serving_regime_warnings
+    monkeypatch.setattr(cli_module, "serving_regime_warnings",
+                        lambda *a, **k: calls.append((a, k)) or check(*a, **k))
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        written = cli("--quantize-weights", "--accel-interval", "5")
+    assert len(written) == 1
+    t_len = int(capsys.readouterr().out.split("seq len ")[1].split()[0])  # the map's length
+    assert calls == [((True, 5), {"t_len": t_len, "dispatch_batch": 2})]
