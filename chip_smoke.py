@@ -258,6 +258,21 @@ Phases (any failure raises and exits non-zero):
    kernels each tool drives launched (bench_quant the four int8 kernels,
    bench_flash the LSE forward, dq and dk/dv). Its times are smoke, not
    findings: the tools give those in processes of their own.
+24. The diffusion's other parameterizations at DiT-B (before 23, each
+   phase's seconds printed, `[modes]` their sum): `[bpd]`, calc_bpd_loop on
+   two kimi windows of 128 rows over BPD_STEPS respaced squaredcos steps,
+   through rows 1 and 7 (depth x BPD_STEPS launches each) against the same
+   loop through their plain versions on the card with the same draws
+   (BPD_REL_TOL, the t = 0 decoder NLL column on its own,
+   BPD_DECODER_REL_TOL; prior_bpd bit for bit); `[train-kl]`, 8's step
+   card vs CPU under create_diffusion(use_kl=True), and under
+   predict_xstart on a DiT with learn_sigma=False with --mlp-bwd fused (8's
+   tolerances and launch checks, rows 9a/9b too); `[sample-fixed-var]`, a
+   FIXED_VAR_STEPS-step CFG chain on kimi through the Sampler on a
+   learn_sigma=False DiT under sigma_small: one forward at t = 999 card vs
+   CPU (FORWARD_REL_TOL), then the chain with the kernels against the plain
+   versions on the card, gated at CP_CHAIN_FLOOR_MULTIPLE of the plain
+   chain's gap to itself with f32 operands.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -2075,11 +2090,12 @@ XL_STEPS = 10  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(operands=None):
     """While in use, every kernel wrapper the model calls (rows 1, 7 and
-    10-13) is its plain version at bf16 operands (the kernels' contract)
-    with f32 arithmetic, on whatever device its tensors lie: the XL
-    forward's reference on the card (TF32 is off in main)."""
+    10-13) is its plain version at bf16 operands (the kernels' contract;
+    `operands` another type) with f32 arithmetic, on whatever device its
+    tensors lie: the XL forward's reference on the card (TF32 is off in
+    main)."""
     import torch
     from osu_diffusion_tpu_torch.models import dit
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
@@ -2087,7 +2103,7 @@ def plain_kernels():
     from osu_diffusion_tpu_torch.ops import banded_attention as ba
     from osu_diffusion_tpu_torch.ops import quant as tq
 
-    bf16 = torch.bfloat16
+    bf16 = operands or torch.bfloat16
     plain = {
         (attention_ops, "banded_attention"):
             lambda q, k, v, band, valid_len=None, matmul_dtype=None, out_dtype=None: ba.banded_attention_reference(
@@ -3515,14 +3531,16 @@ def train_dataset(tmp):
     return data
 
 
-def phase_train_step_vs_plain(dev, mlp_bwd="xla", tag=None, model=None, what=MODEL):
+def phase_train_step_vs_plain(dev, mlp_bwd="xla", tag=None, model=None, what=MODEL, diffusion_kw=None):
     """One training step's loss and parameter gradients at batch 4: the
     card's kernels against the CPU's plain versions, same weights and
     draws, with the MLP backward `mlp_bwd` (with "fused" the card runs the
     two backward kernels, once per block, and the CPU their plain stages;
     only the MSE gradients are compared then). `model`: the DiT (default
     DiT-B at NUM_CLASSES, label dropout 0.2), `what` its name in the
-    lines."""
+    lines. `diffusion_kw`: create_diffusion's flags of the process whose
+    loss and gradients are compared (default: the MSE loss; the L1 loss's
+    terms are compared first only then). Returns the phase's seconds."""
     import numpy as np
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
@@ -3549,14 +3567,15 @@ def phase_train_step_vs_plain(dev, mlp_bwd="xla", tag=None, model=None, what=MOD
     for where in ("cpu", dev):
         m = copy.deepcopy(model).to(where).train()
         args = (tuple(a.to(where) for a in batch), StepDraws(*(a.to(where) for a in draws)))
-        if mlp_bwd == "xla":
+        if mlp_bwd == "xla" and diffusion_kw is None:
             # the main path's L1 loss: its terms (forward with grad, as in training)
             diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=where)
             terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
             l1_terms[where] = {k: v.mean().item() for k, v in terms.items()}
             del terms
-        # MSE for the gradients (see STEP_GRAD_REL_TOL)
-        diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=False, device=where)
+        # MSE for the gradients (see STEP_GRAD_REL_TOL), or the process asked for
+        diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", device=where,
+                                     **(dict(use_l1=False) if diffusion_kw is None else diffusion_kw))
         read_counts = reset_launch_counts()
         terms = loss_terms(m, diffusion, *args, band=TRAIN_SEQ, dtype=torch.bfloat16)
         loss = terms["loss"].mean()
@@ -3581,13 +3600,181 @@ def phase_train_step_vs_plain(dev, mlp_bwd="xla", tag=None, model=None, what=MOD
     (loss_cpu, g_cpu), (loss_dev, g_dev) = results["cpu"], results[dev]
     loss_rel = abs(loss_dev - loss_cpu) / abs(loss_cpu)
     errs = sorted(((rel_err(g_dev[n], g_cpu[n]), n) for n in g_cpu), reverse=True)
-    print(f"[{tag}] {what} --mlp-bwd {mlp_bwd} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, MSE: loss card {loss_dev:.6f} "
+    loss_name = "MSE" if diffusion_kw is None else " ".join(f"{k}={v}" for k, v in diffusion_kw.items())
+    wall = time.perf_counter() - wall
+    print(f"[{tag}] {what} --mlp-bwd {mlp_bwd} train step, batch 4 x {TRAIN_SEQ}, bf16 stream, {loss_name}: loss card {loss_dev:.6f} "
           f"cpu {loss_cpu:.6f} (rel {loss_rel:.2e}, tol {STEP_LOSS_REL_TOL}); gradient error of max, "
           f"worst {errs[0][0]:.2e} ({errs[0][1]}), median {errs[len(errs) // 2][0]:.2e} over "
           f"{len(errs)} tensors (tol {STEP_GRAD_REL_TOL}); backward kernel launches on the card {fused}; "
-          f"the phase took {time.perf_counter() - wall:.1f} s")
+          f"the phase took {wall:.1f} s")
     check(loss_rel <= STEP_LOSS_REL_TOL, f"{tag} loss: {loss_rel} > {STEP_LOSS_REL_TOL}")
     check(errs[0][0] <= STEP_GRAD_REL_TOL, f"{tag} gradients: {errs[:5]}")
+    return wall
+
+
+BPD_STEPS = 50  # [bpd]: the squaredcos_cap_v2 process respaced to this many steps
+BPD_STARTS = (0, 300)  # [bpd]: the two kimi windows' first rows, TRAIN_SEQ rows each
+# [bpd], calc_bpd_loop with the kernels against the same loop through the
+# plain versions (bf16 operands) on the card, same draws: total_bpd and each
+# (N, S) array within this share of its max |plain|. Each entry is a
+# function of one forward at its own t (no chain carries a difference from
+# step to step), so one forward's FORWARD_REL_TOL bounds it; prior_bpd reads
+# no model and must agree bit for bit.
+BPD_REL_TOL = FORWARD_REL_TOL
+# the t = 0 column (the decoder NLL, 1/255 bins) on its own, each entry
+# within this share of itself: the NLL is -log of a bin's probability mass
+# under N(mean, sigma) with sigma ~ 1e-2, so a mean that moves by one
+# forward's error, ~1e-3 of sigma, moves it by ~1e-3 of itself
+BPD_DECODER_REL_TOL = FORWARD_REL_TOL
+FIXED_VAR_STEPS = 10  # [sample-fixed-var]: the CFG chain's steps
+
+
+def phase_bpd(dev):
+    """calc_bpd_loop at DiT-B (the [slice] weights) on two kimi windows of
+    TRAIN_SEQ rows, BPD_STEPS respaced squaredcos steps, band BAND, the
+    same per-step noise_fn draws: once through the kernels (rows 1 and 7,
+    depth x BPD_STEPS launches each, no other kernel) and once through
+    their plain versions on the card (no launch). Returns the seconds."""
+    import numpy as np
+    import torch
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
+    from osu_diffusion_tpu_torch.data.dataset import default_win_func
+    from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+    from osu_diffusion_tpu_torch.data.process import process_batch
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = time.perf_counter()
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES)
+    model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED)))
+    model = model.to(dev).eval()
+    seq = beatmap_to_sequence(Beatmap.from_path(BEATMAP))
+    wins = [default_win_func(seq, s, s + TRAIN_SEQ) for s in BPD_STARTS]
+    raw, prev = (torch.from_numpy(np.stack([w[i] for w in wins])).to(dev) for i in (0, 1))
+    x0, o, c = process_batch(raw, prev, augment=False, offset01=torch.zeros((2, 1), device=dev))
+    y = torch.tensor([3, 17], device=dev)
+    diffusion = create_diffusion(str(BPD_STEPS), noise_schedule="squaredcos_cap_v2", device=dev)
+    g = torch.Generator().manual_seed(SEED + 3)
+    draws = [torch.randn(tuple(x0.shape), generator=g).to(dev) for _ in range(BPD_STEPS)]
+
+    def model_fn(x, t):
+        return model(x, t, o, c, y, band=BAND)
+
+    out, ms = {}, {}
+    for path in ("kernels", "plain"):
+        read_counts = reset_launch_counts()
+        start = time.perf_counter()
+        with plain_kernels() if path == "plain" else contextlib.nullcontext():
+            out[path] = diffusion.calc_bpd_loop(model_fn, x0, noise_fn=lambda k, shape: draws[k])
+        torch.cuda.synchronize()
+        ms[path] = (time.perf_counter() - start) * 1000
+        counts = read_counts()
+        depth = len(model.blocks)
+        want = dict.fromkeys(counts, 0)
+        if path == "kernels":
+            want.update(banded_attention=depth * BPD_STEPS, adaln_mlp=depth * BPD_STEPS)
+        check(counts == want, f"[bpd] {path} launches {counts}, expected {want}")
+    got, plain = ({k: v.float().cpu() for k, v in out[p].items()} for p in ("kernels", "plain"))
+    check(all(bool(torch.isfinite(v).all()) for v in got.values()), "[bpd] non-finite entries")
+    check(tuple(got["vb"].shape) == (2, BPD_STEPS) and tuple(got["total_bpd"].shape) == (2,),
+          f"[bpd] shapes {({k: tuple(v.shape) for k, v in got.items()})}")
+    rels = {k: rel_err(got[k], plain[k]) for k in ("total_bpd", "vb", "xstart_mse", "mse")}
+    decoder = ((got["vb"][:, -1] - plain["vb"][:, -1]).abs() / plain["vb"][:, -1].abs()).max().item()
+    prior_equal = torch.equal(got["prior_bpd"], plain["prior_bpd"])
+    wall = time.perf_counter() - wall
+    print(f"[bpd] {MODEL} calc_bpd_loop, batch 2 x {TRAIN_SEQ} (kimi rows {BPD_STARTS}), {BPD_STEPS} "
+          f"squaredcos steps, band {BAND}: total_bpd kernels {got['total_bpd'].tolist()} plain "
+          f"{plain['total_bpd'].tolist()}, prior_bpd {got['prior_bpd'].tolist()} (equal bit for bit: "
+          f"{prior_equal}); errors against the plain versions, share of max |plain| "
+          f"{ {k: f'{v:.3e}' for k, v in rels.items()} } (tol {BPD_REL_TOL}); the t = 0 column (decoder "
+          f"NLL) kernels {got['vb'][:, -1].tolist()} plain {plain['vb'][:, -1].tolist()} bits, "
+          f"relative error {decoder:.3e} (tol {BPD_DECODER_REL_TOL}); launches {depth * BPD_STEPS} each of "
+          f"rows 1 and 7; the loop {ms['kernels']:.1f} ms with the kernels, {ms['plain']:.1f} ms plain; "
+          f"the phase took {wall:.1f} s")
+    check(prior_equal, "[bpd] prior_bpd differs between the two runs")
+    check(max(rels.values()) <= BPD_REL_TOL, f"[bpd] errors {rels}")
+    check(decoder <= BPD_DECODER_REL_TOL, f"[bpd] decoder NLL error {decoder}")
+    return wall
+
+
+def phase_train_kl(dev):
+    """One DiT-B train step card vs CPU (phase_train_step_vs_plain's checks
+    and tolerances) under create_diffusion(use_kl=True), and under
+    predict_xstart=True on a DiT with learn_sigma=False (C output channels,
+    the fixed large variance) with --mlp-bwd fused. Returns the seconds."""
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+
+    wall = phase_train_step_vs_plain(dev, tag="train-kl", diffusion_kw=dict(use_kl=True))
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, class_dropout_prob=0.2, mlp_bwd="fused",
+                              learn_sigma=False)
+    wall += phase_train_step_vs_plain(dev, "fused", tag="train-kl", model=model,
+                                      what=f"{MODEL} learn_sigma=False",
+                                      diffusion_kw=dict(predict_xstart=True, learn_sigma=False))
+    return wall
+
+
+def phase_sample_fixed_var(dev):
+    """A FIXED_VAR_STEPS-step CFG chain through the Sampler on kimi's full
+    window (T 757 padded to 768, band BAND) on a DiT-B with learn_sigma=False
+    (the [slice] seed) under sigma_small (the fixed posterior variance).
+    First one forward_with_cfg at t = 999, card kernels against the CPU's
+    plain versions, within FORWARD_REL_TOL (phase_forward_vs_plain). Then
+    the chain with the kernels (rows 1 and 7, steps x depth launches each)
+    against the same chain through their plain versions on the card (bf16
+    operands), gated at CP_CHAIN_FLOOR_MULTIPLE of the noise floor: the
+    plain chain against itself with f32 operands (two correct chains; at t
+    near T the x0 prediction amplifies any rounding difference before the
+    clamp). Returns the seconds."""
+    import torch
+    from osu_diffusion_tpu_torch.beatmap import Beatmap
+    from osu_diffusion_tpu_torch.data.featurize import beatmap_to_sequence
+    from osu_diffusion_tpu_torch.data.process import split_and_process_sequence_no_augment
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.sampling import Sampler, prepare_cfg_inputs
+
+    wall = time.perf_counter()
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, learn_sigma=False)
+    model.load_state_dict(random_state_dict(model, torch.Generator().manual_seed(SEED)))
+    model = model.to(dev).eval()
+    seq = torch.from_numpy(beatmap_to_sequence(Beatmap.from_path(BEATMAP))).to(dev)
+    (_, seq_o, seq_c), t_real = split_and_process_sequence_no_augment(seq)
+    generator = torch.Generator(device=dev).manual_seed(SEED)
+    call_args = prepare_cfg_inputs(seq_o - seq_o[0], seq_c, [3], NUM_CLASSES, generator)
+    diffusion = create_diffusion(str(FIXED_VAR_STEPS), noise_schedule="squaredcos_cap_v2",
+                                 learn_sigma=False, sigma_small=True, device=dev)
+    check(diffusion.model_var_type == "fixed_small", f"variance type {diffusion.model_var_type}")
+    sampler = Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND)
+    phase_forward_vs_plain(dev, sampler, call_args, tag="sample-fixed-var-forward", step=999)
+
+    chains = {}
+    for path in ("kernels", "plain", "plain-f32"):
+        read_counts = reset_launch_counts()
+        operands = torch.float32 if path == "plain-f32" else None
+        with plain_kernels(operands) if path != "kernels" else contextlib.nullcontext():
+            chains[path] = sampler(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+        counts = read_counts()
+        depth = len(model.blocks)
+        want = dict.fromkeys(counts, 0)
+        if path == "kernels":
+            want.update(banded_attention=depth * FIXED_VAR_STEPS, adaln_mlp=depth * FIXED_VAR_STEPS)
+        check(counts == want, f"[sample-fixed-var] {path} launches {counts}, expected {want}")
+        check(tuple(chains[path].shape) == (2, t_real, 2) and bool(torch.isfinite(chains[path]).all()),
+              f"[sample-fixed-var] {path} chain {tuple(chains[path].shape)}")
+    gap = (chains["kernels"] - chains["plain"]).abs()
+    floor = (chains["plain"] - chains["plain-f32"]).abs()
+    wall = time.perf_counter() - wall
+    print(f"[sample-fixed-var] {MODEL} learn_sigma=False, fixed_small, {FIXED_VAR_STEPS} CFG steps on kimi "
+          f"(T {t_real} padded to 768, band {BAND}): |kernels - plain| max {gap.max().item():.3e} median "
+          f"{gap.median().item():.3e}; noise floor |plain - plain f32 operands| max {floor.max().item():.3e} "
+          f"median {floor.median().item():.3e}; ratios max {gap.max().item() / max(floor.max().item(), 1e-30):.3f} "
+          f"median {gap.median().item() / max(floor.median().item(), 1e-30):.3f} (tol {CP_CHAIN_FLOOR_MULTIPLE}); "
+          f"launches {depth * FIXED_VAR_STEPS} each of rows 1 and 7; the phase took {wall:.1f} s")
+    for stat in ("max", "median"):
+        g, f = getattr(gap, stat)().item(), getattr(floor, stat)().item()
+        check(g <= CP_CHAIN_FLOOR_MULTIPLE * f,
+              f"[sample-fixed-var] chain gap {stat} {g} above {CP_CHAIN_FLOOR_MULTIPLE} x the floor's {f}")
+    return wall
 
 
 def phase_train_modes(dev, tmp, ckpt_path):
@@ -4604,6 +4791,9 @@ def main() -> int:
         phase_train_modes(dev, tmp, default["ckpt"])
     phase_train_step_vs_plain(dev)
     phase_train_step_vs_plain(dev, "fused")
+    new_phases = {"bpd": phase_bpd(dev), "train-kl": phase_train_kl(dev), "sample-fixed-var": phase_sample_fixed_var(dev)}
+    print(f"[modes] the diffusion's other parameterizations: {({k: round(v, 1) for k, v in new_phases.items()})} s, "
+          f"{sum(new_phases.values()):.1f} s together")
     phase_bench_tools()
 
     attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"

@@ -232,6 +232,11 @@ class BeatmapDataset:
         self.seed = seed
         self.epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Pin the epoch counter (to replay a chosen epoch's stream); each
+        pass of __iter__ otherwise advances it."""
+        self.epoch = epoch
+
     def _get_beatmap_files(self) -> list[str]:
         if self.beatmap_files is not None:
             return list(self.beatmap_files)

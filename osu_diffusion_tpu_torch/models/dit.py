@@ -417,7 +417,8 @@ class DiT(nn.Module):
     """Diffusion Transformer.
 
     forward(x (N, T, C), t (N,), o (N, T), c (N, T, E), y (N,)) ->
-    (N, T, out_channels) f32: eps channels, then variance channels."""
+    (N, T, out_channels) f32: the C mean channels (eps or x0), then with
+    learn_sigma the C variance channels."""
 
     def __init__(
         self,

@@ -33,6 +33,7 @@ from osu_diffusion_tpu_torch.utils.benchmark import (
     headline_inputs,
     measure_sampler,
     serving_model,
+    significant,
 )
 
 BAND = 128  # the sample CLI's default --seq-len, its attention band
@@ -88,7 +89,7 @@ def main(argv=None) -> dict:
 
     # speedups once the base is known, so any --intervals order reports every row
     for row in results.values():
-        row["speedup_vs_exact"] = round(row["steps_per_sec_best"] / base, 3) if base else None
+        row["speedup_vs_exact"] = significant(row["steps_per_sec_best"] / base) if base else None
     result = {"model": args.model, "batch": n, "band": BAND, "results": results, **device_fields(device)}
     print(json.dumps(result), flush=True)
     return result

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from osu_diffusion_tpu_torch.ops import banded_attention as ba
-from osu_diffusion_tpu_torch.utils.benchmark import bench_device, cuda_ms, device_fields
+from osu_diffusion_tpu_torch.utils.benchmark import bench_device, cuda_ms, device_fields, significant
 
 H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA H100 SXM, dense bf16, 700 W
 
@@ -112,8 +112,8 @@ def main(argv=None) -> list[dict]:
     def lse_forward(q, k, v):
         return ba.banded_attention_fwd_lse(q, k, v, band)[0]
 
-    rows = [{"path": "kernels", "fwd_ms": round(timed(lse_forward), 4),
-             "fwd_bwd_ms": round(timed(fwd_bwd(kernels)), 4)}]
+    rows = [{"path": "kernels", "fwd_ms": significant(timed(lse_forward)),
+             "fwd_bwd_ms": significant(timed(fwd_bwd(kernels)))}]
     print(json.dumps(rows[0]), flush=True)
 
     if args.dense:
@@ -126,8 +126,8 @@ def main(argv=None) -> list[dict]:
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
         for name, attend in (("plain_dense", plain), ("sdpa_dense", sdpa)):
-            rows.append({"path": name, "fwd_ms": round(timed(attend), 4),
-                         "fwd_bwd_ms": round(timed(fwd_bwd(attend)), 4)})
+            rows.append({"path": name, "fwd_ms": significant(timed(attend)),
+                         "fwd_bwd_ms": significant(timed(fwd_bwd(attend)))})
             print(json.dumps(rows[-1]), flush=True)
 
     # ideal banded attention FLOPs for context (forward 4·pairs·dh; the
@@ -135,8 +135,8 @@ def main(argv=None) -> list[dict]:
     flops_fwd = 4.0 * banded_pairs(t, band) * dh * n * h
     summary = {
         "shapes": {"batch": n, "heads": h, "t": t, "dh": dh, "band": band},
-        "ideal_fwd_ms_at_peak": round(flops_fwd / H100_BF16_PEAK_FLOPS * 1e3, 4),
-        "ideal_fwdbwd_ms_at_peak": round(4.5 * flops_fwd / H100_BF16_PEAK_FLOPS * 1e3, 4),
+        "ideal_fwd_ms_at_peak": significant(flops_fwd / H100_BF16_PEAK_FLOPS * 1e3),
+        "ideal_fwdbwd_ms_at_peak": significant(4.5 * flops_fwd / H100_BF16_PEAK_FLOPS * 1e3),
         **device_fields(device),
     }
     print(json.dumps(summary), flush=True)

@@ -30,6 +30,7 @@ from osu_diffusion_tpu_torch.utils.benchmark import (
     headline_inputs,
     measure_sampler,
     serving_model,
+    significant,
 )
 
 BAND = 128  # the sample CLI's default --seq-len, its attention band
@@ -80,8 +81,8 @@ def main(argv=None) -> dict:
         del sampler, model
 
     if "f32" in results and "int8" in results:
-        results["speedup"] = round(results["int8"]["steps_per_sec_best"]
-                                   / results["f32"]["steps_per_sec_best"], 3)
+        results["speedup"] = significant(results["int8"]["steps_per_sec_best"]
+                                         / results["f32"]["steps_per_sec_best"])
     result = {"model": args.model, "batch": n, "seq_len": t_len, "band": BAND, "results": results,
               **device_fields(device)}
     print(json.dumps(result), flush=True)

@@ -37,7 +37,7 @@ from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
 from osu_diffusion_tpu_torch.train.train_step import make_ema, make_optimizer, train_step
 from osu_diffusion_tpu_torch.train.trainer import CLASS_DROPOUT_PROB
-from osu_diffusion_tpu_torch.utils.benchmark import bench_device, device_fields, fence
+from osu_diffusion_tpu_torch.utils.benchmark import bench_device, device_fields, fence, significant
 
 H100_BF16_PEAK_FLOPS = 989e12  # NVIDIA H100 SXM, dense bf16, 700 W
 GROUP_STEPS = 8  # steps per timed group (the JAX tool's default steps per call)
@@ -149,14 +149,14 @@ def main(argv=None) -> dict:
     result = {
         "model": args.model, "remat": not args.no_remat, "bf16": not args.no_bf16,
         "mlp_bwd": args.mlp_bwd, "band": band, "batch": n, "seq_len": t,
-        "steps_per_sec": round(steps_per_sec, 3),
-        "samples_per_sec": round(steps_per_sec * n, 1),
+        "steps_per_sec": significant(steps_per_sec),
+        "samples_per_sec": significant(steps_per_sec * n),
         "est_flops_per_step": flops,
         "attn_flops_per_step": attn_flops,
-        "mfu": round(steps_per_sec * flops / H100_BF16_PEAK_FLOPS, 4),
+        "mfu": significant(steps_per_sec * flops / H100_BF16_PEAK_FLOPS),
         "peak_flops": H100_BF16_PEAK_FLOPS,
         "loss": float(metrics["loss"]),
-        "peak_mem_gb": round(torch.cuda.max_memory_allocated(device) / 1e9, 3) if on_card else None,
+        "peak_mem_gb": significant(torch.cuda.max_memory_allocated(device) / 1e9) if on_card else None,
         **device_fields(device),
     }
     print(json.dumps(result), flush=True)

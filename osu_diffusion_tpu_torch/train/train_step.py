@@ -88,8 +88,10 @@ def draw_step(n: int, t_len: int, num_timesteps: int, dropout_prob: float, devic
 
 def loss_terms(model: DiT, diffusion: GaussianDiffusion, batch, draws: StepDraws,
                band: int | None, dtype: torch.dtype, cp=None) -> dict[str, torch.Tensor]:
-    """Per-sample {loss, l1|mse, vb} of one batch (raw (N, T, 19), prev_xy
-    (N, 2), labels (N,)) under the given draws, with grad. With `cp` (a
+    """Per-sample training_losses terms of one batch (raw (N, T, 19),
+    prev_xy (N, 2), labels (N,)) under the given draws, with grad: {loss,
+    l1|mse, vb} by default, {loss} under the KL losses, no vb under a fixed
+    variance. With `cp` (a
     mesh whose "model" axis splits the sequence) the window is featurized
     whole and the terms are the means over this rank's rows."""
     raw, prev_xy, y = batch
@@ -139,8 +141,8 @@ def train_step(
     mesh=None,
     context_parallel: bool = False,
 ) -> dict[str, torch.Tensor]:
-    """One optimizer step on `batch`; returns the step's mean {loss, l1|mse,
-    vb} as device scalars (no host sync). `max_timestep` caps the timestep
+    """One optimizer step on `batch`; returns the step's mean of each of
+    `loss_terms`' terms as device scalars (no host sync). `max_timestep` caps the timestep
     draw (1 trains t = 0 only, the refine model). `trainable_mask`: parameter
     name -> trainable, as the JAX step's mask: a frozen parameter gets a zero
     gradient (so AdamW's moments and step count advance as optax's do) and

@@ -41,6 +41,12 @@ def headline_inputs(n: int = 2, t_len: int = 128, num_classes: int = 52670, devi
     return z, o, c, y
 
 
+def significant(x: float, digits: int = 4) -> float:
+    """x rounded to `digits` significant figures, so that a small positive
+    rate or time never prints as 0 (as rounding to decimals can)."""
+    return float(f"{x:.{digits}g}")
+
+
 def fence(out=None) -> None:
     """Wait until every queued kernel has run (`out`, the work's result, is
     not read): on CUDA `torch.cuda.synchronize()` is a real execution fence,
@@ -83,10 +89,10 @@ def measure_sampler(sampler, inputs, steps: int, groups: int, runs: int) -> tupl
     full_steps = sampler.last_full_model_steps
     per_group = measure_grouped(dispatch, steps, groups, runs)
     return {
-        "steps_per_sec_best": round(max(per_group), 1),
-        "steps_per_sec_median": round(statistics.median(per_group), 1),
-        "per_group": [round(v, 1) for v in per_group],
-        "compile_s": round(compile_s, 1),
+        "steps_per_sec_best": significant(max(per_group)),
+        "steps_per_sec_median": significant(statistics.median(per_group)),
+        "per_group": [significant(v) for v in per_group],
+        "compile_s": significant(compile_s),
     }, full_steps
 
 

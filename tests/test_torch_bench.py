@@ -13,6 +13,11 @@ on the CPU.
   carry every key of the JAX tool's lines but the TPU-only ones, and the
   device they ran on; with no CUDA device and no `--device cpu` each tool
   exits non-zero instead of running on the CPU.
+
+Torch's intra-op threads are capped at 2 for this module: at its default
+(one thread a core) beside other busy processes, bench_train's step crawls
+(four copies of its case at once on 8 cores each ran ~110 s and printed
+samples_per_sec 0.0; capped at 2 threads each passed in ~8 s).
 """
 import ast
 import importlib
@@ -33,6 +38,15 @@ TOOLS = ("bench_sample", "bench_accel", "bench_quant", "bench_train", "bench_fla
 # the JAX tools' keys that name TPU-only knobs (Pallas tilings, the Pallas
 # switch): no counterpart in the port
 TPU_ONLY_KEYS = {"use_pallas", "flash_block", "slim_stats", "block", "skipped"}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def few_threads():
+    """Torch's intra-op threads at 2 while this module runs, then as they were."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(old)
 
 
 def _jax_tool(name):

@@ -54,9 +54,8 @@ def _close(port_out, jax_out, tol=STEP_TOL):
 @pytest.mark.parametrize("mode", ["learned_range", "no_denoised_fn"])
 @pytest.mark.parametrize("clip", [True, False])
 def test_p_mean_variance_modes_match_jax(mode, clip):
-    """The mean, log variance and x0 prediction (denoised_fn, where given,
-    before the clamp); JAX's extra "variance" entry has no reader in the
-    port."""
+    """The mean, variance, log variance and x0 prediction (denoised_fn,
+    where given, before the clamp)."""
     jd, pd = _both()
     jfn, pfn = _model_fns()
     denoised_fn = None if mode == "no_denoised_fn" else (lambda x0: 0.5 * x0 + 0.25)
@@ -67,7 +66,7 @@ def test_p_mean_variance_modes_match_jax(mode, clip):
                                   denoised_fn=denoised_fn)
         got = pd.p_mean_variance(pfn, torch.from_numpy(x), torch.from_numpy(t), clip_denoised=clip,
                                  denoised_fn=denoised_fn)
-        assert set(got) == set(want) - {"variance"}
+        assert set(got) == set(want)
         _close(got, want)
 
 

@@ -161,17 +161,54 @@ def test_dataset_yields_the_jax_windows(tmp_path, monkeypatch):
         np.testing.assert_array_equal(gy, wy)
 
 
+def test_set_epoch_replays_the_jax_epoch(tmp_path, monkeypatch):
+    """BeatmapDataset.set_epoch (mirror of tests/test_data_pipeline.py's
+    replay): for one seed, epoch 1 replayed by set_epoch on a fresh dataset
+    gives the JAX dataset's second pass window for window, and set_epoch(0)
+    its first (the two differ), both packages on the Python featurizer."""
+    from osu_diffusion_tpu.data.dataset import BeatmapDataset as JaxDataset
+    from osu_diffusion_tpu.data.dataset import BeatmapDatasetIterableFactory as JaxFactory
+    from osu_diffusion_tpu_torch.data.dataset import BeatmapDataset, BeatmapDatasetIterableFactory
+
+    monkeypatch.setenv("OSU_DIFFUSION_NO_NATIVE", "1")
+    track = tmp_path / "Track00000" / "beatmaps"
+    track.mkdir(parents=True)
+    for i in range(4):
+        shutil.copy(os.path.join(ROOT, "assets", "toy_datasets", "kimi_no_bouken.osu"),
+                    track / f"{i:06d} map.osu")
+
+    def make(dataset, factory):
+        return dataset(dataset_path=str(tmp_path), start=0, end=1, iterable_factory=factory(64, 16, seed=7),
+                       cycle_length=2, shuffle=True, seed=7)
+
+    def stream(ds):
+        return [(label, np.asarray(win), np.asarray(prev)) for (win, prev), label in ds]
+
+    jax_ds = make(JaxDataset, JaxFactory)
+    want = [stream(jax_ds), stream(jax_ds)]
+    assert len(want[0]) != len(want[1]) or any(not np.array_equal(a[1], b[1]) for a, b in zip(*want))
+    for epoch in (1, 0):
+        ds = make(BeatmapDataset, BeatmapDatasetIterableFactory)
+        ds.set_epoch(epoch)
+        got = stream(ds)
+        assert len(got) == len(want[epoch])
+        for (gl, gw, gp), (wl, ww, wp) in zip(got, want[epoch]):
+            assert gl == wl
+            np.testing.assert_array_equal(gw, ww)
+            np.testing.assert_array_equal(gp, wp)
+
+
 def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla", hidden=HIDDEN,
-            depth=DEPTH, heads=HEADS):
+            depth=DEPTH, heads=HEADS, learn_sigma=True):
     """The JAX DiT and its params (adaLN-Zero layers perturbed, so every
     block contributes and gets gradient), and the port with the same
     weights; `hidden`, `depth`, `heads` the widths (tests/test_torch_xl_train.py
-    passes DiT-XL's)."""
+    passes DiT-XL's); without `learn_sigma` the head emits C channels."""
     jm = JaxDiT(DiTConfig(hidden_size=hidden, depth=depth, num_heads=heads, num_classes=CLASSES,
                           context_size=CTX, class_dropout_prob=dropout, flash_block=16,
-                          mlp_bwd=mlp_bwd))
-    params = jm.init(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 2)), jnp.zeros((1,), jnp.int32),
-                     jnp.zeros((1, 8)), jnp.zeros((1, 8, CTX)), jnp.zeros((1,), jnp.int32))["params"]
+                          mlp_bwd=mlp_bwd, learn_sigma=learn_sigma))
+    params = jax.jit(jm.init)(jax.random.PRNGKey(seed), jnp.zeros((1, 8, 2)), jnp.zeros((1,), jnp.int32),
+                              jnp.zeros((1, 8)), jnp.zeros((1, 8, CTX)), jnp.zeros((1,), jnp.int32))["params"]
     r = np.random.RandomState(seed)
 
     def perturb(path, leaf):
@@ -184,7 +221,7 @@ def _models(use_pallas: bool, matmul_dtype, seed=0, dropout=0.2, mlp_bwd="xla", 
     params = jax.tree_util.tree_map_with_path(perturb, params)
     port = DiT(hidden_size=hidden, depth=depth, num_heads=heads, num_classes=CLASSES,
                context_size=CTX, class_dropout_prob=dropout, matmul_dtype=matmul_dtype,
-               mlp_bwd=mlp_bwd)
+               mlp_bwd=mlp_bwd, learn_sigma=learn_sigma)
     port.load_state_dict(state_dict_from_jax_params(params, num_label_rows=CLASSES + (dropout > 0)))
     return jm, params, port.train()
 
@@ -306,17 +343,20 @@ def test_two_train_steps_match_jax():
     _check_two_train_steps()
 
 
-def _check_two_train_steps(eps=1e-4, **widths):
+def _check_two_train_steps(eps=1e-4, diffusion_kw=None, keys=("loss", "l1", "vb"), **widths):
     """test_two_train_steps_match_jax's comparison at `widths` (`_models`'s),
-    both sides' AdamW at `eps`."""
+    both sides' AdamW at `eps`, both processes made by their factories from
+    `diffusion_kw` (default: the trainer's L1 loss), the step's metrics
+    `keys` on both sides."""
     import optax
 
     from osu_diffusion_tpu.parallel.train_step import create_train_state, make_train_step
     from osu_diffusion_tpu_torch.train.train_step import make_ema, train_step
 
+    diffusion_kw = dict(use_l1=True) if diffusion_kw is None else diffusion_kw
     jm, params, port = _models(False, torch.float32, seed=2, dropout=1.0, **widths)
-    jd = jax_create("", noise_schedule="squaredcos_cap_v2", use_l1=True)
-    td = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True)
+    jd = jax_create("", noise_schedule="squaredcos_cap_v2", **diffusion_kw)
+    td = create_diffusion("", noise_schedule="squaredcos_cap_v2", **diffusion_kw)
     jax_opt = optax.adamw(1e-4, b1=0.9, b2=0.999, eps=eps, weight_decay=0.0)
     step = jax.jit(make_train_step(jm, jd, jax_opt, compute_dtype=jnp.float32, band=T, ema_decay=0.5))
     state = create_train_state(params, jax_opt)
@@ -332,7 +372,7 @@ def _check_two_train_steps(eps=1e-4, **widths):
                                                   torch.from_numpy(y).long()),
                              band=T, dtype=torch.float32, draws=_port_draws(d, np.ones(3, bool)),
                              ema_decay=0.5)
-        assert set(metrics) == {"loss", "l1", "vb"}
+        assert set(metrics) == set(jm_metrics) == set(keys)
         for k in metrics:
             np.testing.assert_allclose(metrics[k].item(), float(jm_metrics[k]), rtol=1e-5, err_msg=k)
     for got_sd, tree in ((port.state_dict(), state.params), (ema.state_dict(), state.ema_params)):
