@@ -35,8 +35,9 @@ Phases (any failure raises and exits non-zero):
 5. The sample CLI end to end at DiT-B width (hidden 768, depth 12, 12 heads,
    52670 classes) with seeded random weights on the kimi_no_bouken fixture:
    STEPS CFG denoise steps, the .osu written and reparsed, and each inference
-   kernel's launch count equal to steps x depth. A second, timed run gives
-   the seconds per denoise step, and a profiled run the device time by kernel
+   kernel's launch count equal to steps x depth. The CLI's chain (its
+   capture included) and two more chains of its sampler (replays) give the
+   seconds per denoise step, and a profiled chain the device time by kernel
    (kernel B's own per denoise step).
 6. The model against its plain versions: one DiT-B forward at the sampling
    inputs on the card (kernels) and on the CPU (plain versions).
@@ -145,7 +146,8 @@ Phases (any failure raises and exits non-zero):
    interval 1 and ACCEL_INTERVALS and a tau on both drift modes: launches, device time,
    the gap to the exact chain, s per step in turns and its ratio to both
    chains that run every block (the exact one and tau 0), and tau 0 against
-   the exact chain for the cost of the per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
+   the exact chain for the cost of the adaptive chain's eager steps and
+   per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
    depth more launches). `[serving]` prints these phases' wall time.
 15. The in-paint accuracy protocol (`[toy]`, evals/toy.py's main) at DiT-B on
    the stream suite: 100 predictions a fixture, the null class, no CFG,
@@ -194,7 +196,7 @@ Phases (any failure raises and exits non-zero):
    optimizer step 56 launches of rows 2 and 8 and 28 of rows 3 and 4, s
    per step, busy share, peak device memory) and with --mlp-bwd fused
    (`[xl-train-fused]`: also 28 launches of rows 9a and 9b a step and no
-   plain MLP backward), in turns (default, fused, fused, default), and one
+   plain MLP backward), one run each, and one
    --no-use-bf16 step of each (dq, dk/dv and rows 9a/9b on their WMMA
    bodies).
 20. DiT-XL under context parallelism and with the fused MLP backward.
@@ -273,6 +275,21 @@ Phases (any failure raises and exits non-zero):
    CPU (FORWARD_REL_TOL), then the chain with the kernels against the plain
    versions on the card, gated at CP_CHAIN_FLOOR_MULTIPLE of the plain
    chain's gap to itself with f32 operands.
+25. The Sampler's CUDA graphs (`[graph]`, after 10, f32 and int8 at DiT-B
+   on kimi, T 757 -> 768, CFG 2, band 128): the ancestral, DDIM, fixed
+   Δ-cache (interval GRAPH_INTERVAL), in-painted and refine chains, each on
+   a graphed sampler (the default) and an eager one (`cuda_graph=False`):
+   graph against eager bit for bit at T 757 and at GRAPH_SHORT_T (the same
+   bucket), one cache entry and one capture per step kind across the two
+   lengths, each path kernel's launches equal to steps x depth (by the
+   Δ-cache's schedule) in the first (captured) chain and in a replayed
+   one, the replayed chain under torch.cuda.set_sync_debug_mode("error")
+   (no host sync), s per denoise step graph against eager in turns with
+   each one's busy share (device ms by torch.profiler), the capture's ms
+   and its pool's bytes. `[graph-xl]` (in 18): s per denoise step of the
+   f32 DiT-XL chain, graph against eager in turns. `[attn]` and
+   `[attn-xl]` hold row 1 with valid_len on the device against the int
+   form bit for bit and print both times.
 
 Every kernel is timed beside its plain version, its bound (the least time
 this card could take: bytes over 3.35 TB/s or bf16 operations over
@@ -352,7 +369,7 @@ BF16_FLOPS = 989e12
 BEATMAP = os.path.join("assets", "toy_datasets", "kimi_no_bouken.osu")
 MODEL = "DiT-B"
 NUM_CLASSES = 52670
-STEPS = 30  # the sample CLI's denoise steps at DiT-B (its default is 250, cut)
+STEPS = 20  # the sample CLI's denoise steps at DiT-B (its default is 250, cut)
 CFG_SCALE = 2.0
 BAND = 128
 SEED = 0
@@ -374,7 +391,7 @@ CORPUS_PARITY_MAPS = 64
 FEATURIZE_MAPS = 256  # maps/s of both featurizers over the first corpus maps
 FEATURIZE_NATIVE_PASSES = 16
 LOADER_THREADS = (2, 4)
-LOADER_BATCHES = {"native": 20, "python": 10}  # timed batches; the Python loader is slow
+LOADER_BATCHES = {"native": 20, "python": 5}  # timed batches; the Python loader is slow
 CACHE_MAPS = 256
 TRAIN_CORPUS_STEPS = 16
 TRAIN_CORPUS_PROFILED = range(14, 16)  # after TIMED_STEPS
@@ -466,7 +483,7 @@ TP_WHOLE_MLP_STEPS = 2
 CP_RANKS = 2
 CP_SEQ = 512  # the CP training window: two shards of 256
 CP_BATCH = 32
-CP_STEPS = 6  # timed from the third step
+CP_STEPS = 5  # timed from the third step
 CP_SAMPLE_STEPS = 10
 CP_TIMEOUT = 600  # seconds for the ranks' run (the process group's own timeout is 5 minutes)
 # the CP train run against the one-process run, relative difference of each
@@ -753,8 +770,11 @@ def phase_attention(dev):
     """Row 1: the inference forward on f32 q/k/v (the sampling stream)
     against its plain versions, its body (sm90) and the same bits on a
     second call in every case; o in bf16 (the int8 block's) equal to the
-    rounded f32 o; at the main shape its times (f32 and bf16 o) beside the
-    bound, the plain versions and SDPA."""
+    rounded f32 o; valid_len as a device operand (a 0-d int32 tensor, read
+    by the kernel: the Sampler's CUDA graphs pass it so) giving the int
+    form's bits, f32 and bf16 o; at the main shape its times (f32 and bf16
+    o, the int and the device valid_len) beside the bound, the plain
+    versions and SDPA."""
     import torch
     import torch.nn.functional as F
     from osu_diffusion_tpu_torch.ops.banded_attention import (
@@ -790,10 +810,18 @@ def phase_attention(dev):
         ref32 = banded_attention_reference(q, k, v, band, valid, torch.float32)
         e16, e32 = max_err(got, ref16), max_err(got, ref32)
         finite = bool(torch.isfinite(got).all())
+        valid_dev = torch.tensor(valid, dtype=torch.int32, device=dev)
+        launches = banded_attention.launches
+        same_dev = (torch.equal(banded_attention(q, k, v, band, valid_dev), got)
+                    and torch.equal(banded_attention(q, k, v, band, valid_dev, out_dtype=torch.bfloat16), got16))
+        launched = banded_attention.launches - launches
         print(f"[attn] {name}: N={n} H={h} T={t} valid={valid} band={band} body {body} "
               f"(bf16 o: {body16}) max_abs_err bf16={e16:.3e} (tol {ATTN_TOL_BF16}) "
               f"f32={e32:.3e} (tol {ATTN_TOL_F32}) finite={finite}; same bits on a second call: "
-              f"{same}; bf16 o is the rounded f32 o: {rounded}")
+              f"{same}; bf16 o is the rounded f32 o: {rounded}; valid_len on the device gives the int "
+              f"form's bits (f32 and bf16 o): {same_dev}")
+        check(same_dev and launched == 2, f"attention {name}: device valid_len bits {same_dev}, "
+              f"{launched} launches")
         check(body == body16 == "sm90", f"attention {name}: bodies {body}, {body16}, expected sm90")
         check(same, f"attention {name}: a second call gave other bits")
         check(rounded, f"attention {name}: bf16 o is not the rounded f32 o")
@@ -806,6 +834,8 @@ def phase_attention(dev):
         if name == "main":
             ms = cuda_ms(lambda: banded_attention(q, k, v, band, valid))
             ms16 = cuda_ms(lambda: banded_attention(q, k, v, band, valid, out_dtype=torch.bfloat16))
+            ms_dev = cuda_ms(lambda: banded_attention(q, k, v, band, valid_dev))
+            ms16_dev = cuda_ms(lambda: banded_attention(q, k, v, band, valid_dev, out_dtype=torch.bfloat16))
             plain_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.float32))
             plain16_ms = cuda_ms(lambda: banded_attention_reference(q, k, v, band, valid, torch.bfloat16))
             # yardstick: SDPA with the band and the valid keys as a boolean mask
@@ -814,6 +844,8 @@ def phase_attention(dev):
             flops = 4 * 64 * n * h * attention_pairs(t, band, valid)
             b = bound(nbytes(q, k, v, got), flops)
             b16 = bound(nbytes(q, k, v, got16), flops)
+            print(f"[attn] main: valid_len an int {ms:.4f} ms (bf16 o {ms16:.4f} ms), on the device "
+                  f"{ms_dev:.4f} ms (bf16 o {ms16_dev:.4f} ms)")
             print(f"[attn] main: kernel {ms:.4f} ms (bf16 o {ms16:.4f} ms), plain f32 {plain_ms:.4f} ms, "
                   f"plain bf16-rounded {plain16_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']}; bf16 o {b16['bound_ms']:.4f} ms)")
@@ -841,9 +873,10 @@ def head_views(qkv, n, t, h, dh):
 def phase_attention_xl(dev):
     """[attn-xl]: rows 1 and 5 (no LSE) at Dh 72 against their plain
     versions, f32 and bf16 q/k/v, o in q's type and (f32 q/k/v) in bf16;
-    the body (sm90) and the same bits on a second call in every case; the
-    five Dh 72 builds' registers and spills (0 required); at the XL
-    sampling shape the time beside the bound (4 x 72 FLOP a pair), the
+    the body (sm90) and the same bits on a second call in every case, and
+    with valid_len a device operand (row 1); the five Dh 72 builds'
+    registers and spills (0 required); at the XL sampling shape the time
+    (row 1 also with the device valid_len) beside the bound (4 x 72 FLOP a pair), the
     plain versions and SDPA with the band mask. Returns row 1's and row 5's
     numbers at their main shapes."""
     import types
@@ -865,10 +898,13 @@ def phase_attention_xl(dev):
             torch.cuda.synchronize()
             body = ba.banded_attention.body
             same = torch.equal(ba.banded_attention(q, k, v, band, valid), got)
+            valid_dev = torch.tensor(valid, dtype=torch.int32, device=dev)
+            same_dev = torch.equal(ba.banded_attention(q, k, v, band, valid_dev), got)
+            check(same_dev, f"attn-xl {name} {stream}: device valid_len gave other bits")
             ref16 = ba.banded_attention_reference(q, k, v, band, valid, bf16)
             ref32 = ba.banded_attention_reference(q, k, v, band, valid, f32)
             finite = bool(torch.isfinite(got).all())
-            extra = ""
+            extra = f"; valid_len on the device gives the int form's bits: {same_dev}"
             if stream == "f32":
                 # o in bf16 from the same f32 q/k/v: the f32 o, rounded
                 got16 = ba.banded_attention(q, k, v, band, valid, out_dtype=bf16)
@@ -886,7 +922,7 @@ def phase_attention_xl(dev):
                 check(rounded, f"attn-xl {name}: bf16 o is not the rounded f32 o")
                 e16, e32 = max_err(got, ref16), max_err(got, ref32)
                 tol16, tol32, how = ATTN_TOL_BF16, ATTN_TOL_F32, "max_abs_err"
-                extra = f"; bf16 o is the rounded f32 o: {rounded}"
+                extra += f"; bf16 o is the rounded f32 o: {rounded}"
             else:
                 # a bf16 o rounds to 2^-8 of itself: held as [slice-bf16] holds row 1's bf16 stream
                 e16, e32 = rel_err(got, ref16), rel_err(got, ref32)
@@ -907,6 +943,7 @@ def phase_attention_xl(dev):
             pairs = attention_pairs(t, band, valid)
             flops = 4 * dh * n * h * pairs
             ms = cuda_ms(lambda: ba.banded_attention(q, k, v, band, valid))
+            ms_dev = cuda_ms(lambda: ba.banded_attention(q, k, v, band, valid_dev))
             plain_ms = cuda_ms(lambda: ba.banded_attention_reference(q, k, v, band, valid, f32))
             mask = ba.banded_attention_mask(t, band, dev) & (torch.arange(t, device=dev) < valid)[None, :]
             library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask))
@@ -915,6 +952,7 @@ def phase_attention_xl(dev):
             if stream == "f32":
                 ms_o16 = cuda_ms(lambda: ba.banded_attention(q, k, v, band, valid, out_dtype=bf16))
                 ms16 = f" (bf16 o {ms_o16:.4f} ms)"
+            print(f"[attn-xl] main {stream} q/k/v: valid_len an int {ms:.4f} ms, on the device {ms_dev:.4f} ms")
             print(f"[attn-xl] main {stream} q/k/v: kernel {ms:.4f} ms{ms16}, "
                   f"{ms * 1e6 / (n * h * pairs):.4f} ns per (query, key) pair per head, plain f32 "
                   f"{plain_ms:.4f} ms, SDPA (masked) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms "
@@ -1968,14 +2006,15 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
     """The sample CLI at `model` (DiT-B; f32, or int8 with
     --quantize-weights) over `steps` steps: launch counts, the written
     .osu, seconds per denoise step, a profile. `xl`: the [slice-xl] tags.
-    Returns (launches of the path's kernels, sampler, its inputs, step ms)."""
+    Returns (launches of the path's kernels, sampler, its inputs, step ms
+    of its replayed chain)."""
     import torch
     from osu_diffusion_tpu_torch.beatmap import Beatmap
     from osu_diffusion_tpu_torch import sampling
     from osu_diffusion_tpu_torch.cli import build_sample_parser, sample_main
     from osu_diffusion_tpu_torch.ops import quant as tq
 
-    runs = []  # (sampler, inputs, output, chain ms, host enqueue ms) of each CLI run
+    runs = []  # (sampler, inputs, output, chain ms, host enqueue ms) of the CLI's chain
     orig_call = sampling.Sampler.__call__
 
     def timed_call(self, *args, **kwargs):
@@ -1999,12 +2038,16 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
     read_counts = reset_launch_counts()
     o_casts = tq.int8_out_residual.o_casts
     wall = time.perf_counter()
-    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
-        written = sample_main(args)
+    try:
+        with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+            written = sample_main(args)
+    finally:
+        sampling.Sampler.__call__ = orig_call
     wall = time.perf_counter() - wall
     counts = read_counts()
     o_casts = tq.int8_out_residual.o_casts - o_casts
-    depth = len(runs[-1][0].model.blocks)
+    sampler, call_args, samples, cli_ms, enqueue_ms = runs[-1]
+    depth = len(sampler.model.blocks)
     path = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
              "adaln_mlp_quant"] if quantize else ["banded_attention", "adaln_mlp"])
     print(f"[{tag}] launches {counts} (expected {steps} steps x depth {depth} = "
@@ -2019,7 +2062,6 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
     launches = dict.fromkeys(path, steps * depth)
     check(counts == {**dict.fromkeys(counts, 0), **launches}, f"sampling launches {counts}")
     launches = {name: counts[name] for name in launches}
-    _, _, samples, first_ms, _ = runs[-1]
     check(tuple(samples.shape) == (2, 757, 2), f"samples shape {tuple(samples.shape)}")
     check(bool(torch.isfinite(samples).all()), "non-finite coordinates")
     check(len(written) == 1, written)
@@ -2028,15 +2070,16 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
     print(f"[{tag}] wrote {written[0]} ({len(hit_objects)} hit objects), "
           f"coords range [{samples.min().item():.3f}, {samples.max().item():.3f}]")
 
-    # steady state: the same CLI command again, timed with CUDA events
-    with contextlib.redirect_stdout(io.StringIO()):
-        sample_main(args)
-    sampling.Sampler.__call__ = orig_call
-    sampler, call_args, _, chain_ms, enqueue_ms = runs[-1]
-    step_ms = chain_ms / steps
-    print(f"[{tag}] denoise chain {chain_ms:.2f} ms (first run {first_ms:.2f} ms): "
-          f"{step_ms / 1000:.6f} s per denoise step, {1000 / step_ms:.2f} denoise steps/s "
-          f"({model}, T=757 padded to 768, CFG batch 2); the host enqueued it in {enqueue_ms:.2f} ms")
+    # the CLI's chain (timed with CUDA events) includes its new Sampler's
+    # warm-up step and capture; the steady state is that sampler's chain
+    # again, replays of its captured step
+    replayed = [chain_ms(dev, sampler, call_args)[1] for _ in range(2)]
+    step_ms = min(replayed)
+    print(f"[{tag}] denoise chain of the CLI run {cli_ms:.2f} ms (its Sampler's warm-up step and capture "
+          f"included), {cli_ms / steps / 1000:.6f} s per denoise step; the host enqueued it in "
+          f"{enqueue_ms:.2f} ms. Its sampler's chain replayed: " + ", ".join(
+              f"{ms / 1000:.6f}" for ms in replayed) + f" s per denoise step, {1000 / step_ms:.2f} denoise "
+          f"steps/s at the better ({model}, T=757 padded to 768, CFG batch 2)")
 
     # device time by kernel over one more chain
     from torch.profiler import ProfilerActivity, profile
@@ -2051,7 +2094,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
     ptag = ("profile-xl" if xl else "profile") + "-int8" * quantize
     print(f"[{ptag}] device time {device_us / 1000:.2f} ms over {steps} steps, "
           f"{device_us / 1000 / steps:.3f} ms per denoise step ({len(events)} kinds of device op); "
-          f"busy {100 * device_us / 1000 / chain_ms:.1f}% of the timed chain")
+          f"busy {100 * device_us / 1000 / (step_ms * steps):.1f}% of the replayed chain")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"[{ptag}]   {e.self_device_time_total / 1000:9.3f} ms  {e.count:6d}x  {e.key[:90]}")
     # kernel B's own device time (its Hopper body: MLP_SM90_KERNELS); in the
@@ -2086,7 +2129,7 @@ def phase_slice(dev, ckpt_path, results_dir, quantize=False, model=MODEL, steps=
 
 
 XL_MODEL = "DiT-XL"
-XL_STEPS = 10  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
+XL_STEPS = 5  # the CLI's sampling steps at XL ([slice-xl], [slice-xl-int8])
 
 
 @contextlib.contextmanager
@@ -2198,13 +2241,14 @@ XL_TRAIN_STEPS = 8  # [xl-train], [xl-train-fused]: the train CLI's optimizer st
 XL_TRAIN_TIMED = range(2, 6)  # its steady steps timed by CUDA events
 XL_TRAIN_PROFILED = range(6, 8)  # and traced by torch.profiler
 XL_TRAIN_LOG_EVERY = 2  # a Train Loss line (the mean of 2 steps' losses) every 2 steps
+XL_TRAIN_RUNS = ("xla", "fused")  # [xl-train], [xl-train-fused]: one run each
 XL_STEP_DEPTH = 4  # [xl-train-step]: DiT-XL's widths at this depth (the CPU side's time)
 # [xl-train-cp]: the train CLI at XL on CP_RANKS gloo ranks sharing the card
 # (seq-len CP_SEQ, band BAND, --mlp-bwd fused) beside one process: both
 # ranks hold the whole model, AdamW and EMA (~15 GB each), so the batch is
-# DiT-B's CP batch; steps 2..XL_CP_STEPS-1 are timed
+# DiT-B's CP batch; step 1 to step 2 is timed
 XL_CP_BATCH = CP_BATCH
-XL_CP_STEPS = 4
+XL_CP_STEPS = 3
 
 
 def xl_train_argv(tmp, dev, *flags) -> list[str]:
@@ -2255,7 +2299,7 @@ def xl_f32_step(tmp, dev, tag, mlp_bwd, per_step) -> None:
 def phase_xl_train(dev, tmp):
     """[xl-train] and [xl-train-fused]: the train CLI at --model DiT-XL and
     its defaults, and with --mlp-bwd fused, XL_TRAIN_STEPS optimizer steps
-    each, in turns (default, fused, fused, default; run_train_cli: every
+    each, one run each (default, then fused; run_train_cli: every
     logged loss finite; per optimizer step 56 launches of rows 2 and 8, 28
     of rows 3 and 4, with fused 28 of rows 9a and 9b and no plain MLP
     backward, none of another kernel; s per step start to start and inside
@@ -2274,7 +2318,7 @@ def phase_xl_train(dev, tmp):
                         "banded_attention_bwd_dq": depth, "banded_attention_bwd_dkv": depth}}
     per_step["fused"] = {**per_step["xla"], "adaln_mlp_bwd_prologue": depth, "adaln_mlp_bwd_epilogue": depth}
     runs = {"xla": [], "fused": []}
-    for mlp_bwd in ("xla", "fused", "fused", "xla"):
+    for mlp_bwd in XL_TRAIN_RUNS:
         tag = "xl-train" if mlp_bwd == "xla" else "xl-train-fused"
         summary, launches, numbers = run_train_cli(
             tag, xl_train_argv(tmp, dev, "--log-every", str(XL_TRAIN_LOG_EVERY), "--mlp-bwd", mlp_bwd),
@@ -2299,8 +2343,8 @@ def phase_xl_train(dev, tmp):
 
     period, inside = each("period_ms", 1e-3), each("step_ms", 1e-3)
     device, busy, peak = each("device_ms", fmt=".2f"), each("busy", fmt=".1f"), each("peak_gb", fmt=".2f")
-    print(f"[xl-train-fused] {XL_MODEL} train CLI ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}) in turns "
-          f"(default, fused, fused, default): s per optimizer step start to start, fused {period['fused']} "
+    print(f"[xl-train-fused] {XL_MODEL} train CLI ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}), runs "
+          f"{XL_TRAIN_RUNS}: s per optimizer step start to start, fused {period['fused']} "
           f"against default {period['xla']}; inside train_step fused {inside['fused']} against "
           f"{inside['xla']}; device ms a step fused {device['fused']} against {device['xla']}; busy % "
           f"fused {busy['fused']} against {busy['xla']}; peak GB fused {peak['fused']} against "
@@ -2381,6 +2425,7 @@ def phase_xl(dev, tmp, card):
     and under context parallelism ([xl-train-cp]: phase_xl_train_cp)."""
     import torch
     from osu_diffusion_tpu_torch.models.dit import DiT, DiT_models
+    from osu_diffusion_tpu_torch.sampling import Sampler
 
     wall = time.perf_counter()
     model = DiT_models[XL_MODEL](num_classes=NUM_CLASSES)
@@ -2395,7 +2440,21 @@ def phase_xl(dev, tmp, card):
                                                        model=XL_MODEL, steps=XL_STEPS, xl=True)
     phase_xl_forward(dev, sampler, call_args, "xl-forward")
     phase_xl_forward(dev, sampler, call_args, "xl-bf16-forward", dtype=torch.bfloat16)
-    del sampler
+    # [graph-xl]: the CLI's graphed chain against the same chain eager, in turns
+    eager = Sampler(sampler.model, sampler.diffusion, cfg_scale=CFG_SCALE, band=BAND, cuda_graph=False)
+    chains = {name: (lambda s=s: s(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED)))
+              for name, s in (("graph", sampler), ("eager", eager))}
+    chains["eager"]()  # its warm-up (the graphed sampler's chain is captured)
+    turns = ms_per_step_in_turns(chains, XL_STEPS, GRAPH_ROUNDS)
+    device = {name: device_ms_per_step(run, XL_STEPS) for name, run in chains.items()}
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    print(f"[graph-xl] {card}: {XL_MODEL} f32 chain on kimi (T 757 -> 768, CFG 2, band {BAND}), s per denoise "
+          f"step in turns (graph, eager, eager, graph): graph " + ", ".join(f"{v / 1000:.6f}" for v in turns["graph"])
+          + " against eager " + ", ".join(f"{v / 1000:.6f}" for v in turns["eager"])
+          + f"; medians {ms['graph'] / 1000:.6f} against {ms['eager'] / 1000:.6f} ({ms['eager'] / ms['graph']:.3f}x); "
+          f"device ms a step {device['graph']:.3f} against {device['eager']:.3f}, busy "
+          f"{100 * device['graph'] / ms['graph']:.1f}% against {100 * device['eager'] / ms['eager']:.1f}%")
+    del sampler, eager, chains
     int8_launches, qsampler, _, int8_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results-xl-int8"),
                                                       quantize=True, model=XL_MODEL, steps=XL_STEPS, xl=True)
     phase_xl_forward(dev, qsampler, call_args, "xl-int8-forward")
@@ -2589,6 +2648,141 @@ def chains_in_turns(dev, tag, samplers, call_args, rounds=3):
     return turns
 
 
+GRAPH_INTERVAL = 3  # [graph]: the fixed Δ-cache's interval
+GRAPH_SHORT_T = 700  # [graph]: a second kimi length in the 768-row bucket
+GRAPH_ROUNDS = 2  # [graph]: rounds of graph against eager in turns
+
+
+def device_ms_per_step(run, steps) -> float:
+    """Device ms per step of one more run() (kernels, copies, memsets by
+    torch.profiler)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    check(us > 0, "the profiler saw no device op")
+    return us / 1000 / steps
+
+
+def ms_per_step_in_turns(runs: dict, steps: int, rounds: int) -> dict:
+    """{name: [ms per step of each round]}: every run once a round, the
+    order reversed each round, CUDA events around each."""
+    import torch
+
+    order, out = list(runs), {name: [] for name in runs}
+    for r in range(rounds):
+        for name in order[::-1] if r % 2 else order:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            runs[name]()
+            end.record()
+            torch.cuda.synchronize()
+            out[name].append(start.elapsed_time(end) / steps)
+    return out
+
+
+def phase_graph(dev, samplers, call_args, card):
+    """[graph] (25): each chain kind on the graphed Sampler against the same
+    chain eager, for the models of `samplers` ({"f32": ..., "int8": ...},
+    the [slice] samplers: their models and diffusion)."""
+    import torch
+    from osu_diffusion_tpu_torch.sampling import Sampler
+
+    wall = time.perf_counter()
+    z, o, c, y = call_args
+    g = torch.Generator(device=dev).manual_seed(4)
+    known_x = torch.rand(z.shape, generator=g, device=dev)
+    free = torch.ones(z.shape, dtype=torch.bool, device=dev)
+    free[:, z.shape[1] // 2:] = False  # False: pinned to known_x
+    lengths = {z.shape[1]: call_args, GRAPH_SHORT_T: tuple(a[:, :GRAPH_SHORT_T] for a in (z, o, c)) + (y,)}
+    chains = [("ancestral", {}), ("ddim", dict(method="ddim")),
+              (f"fixed Δ-cache interval {GRAPH_INTERVAL}", dict(accel_interval=GRAPH_INTERVAL, accel_span=ACCEL_SPAN)),
+              ("in-painting", {}), ("refine", {})]
+    for stream, base in samplers.items():
+        model, diffusion = base.model, base.diffusion
+        depth = len(model.blocks)
+        kernels = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
+                    "adaln_mlp_quant"] if model.quant else ["banded_attention", "adaln_mlp"])
+        for name, kw in chains:
+            tag = f"[graph] {stream} {name}"
+            graph, eager = (Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND, cuda_graph=on, **kw)
+                            for on in (True, False))
+            steps = REFINE_ITERS if name == "refine" else STEPS
+
+            def run(sampler, t):
+                args = lengths[t]
+                gen = torch.Generator(device=dev).manual_seed(SEED)
+                if name == "refine":
+                    return sampler.refine(*args, REFINE_ITERS, generator=gen)
+                extra = dict(known_x=known_x[:, :t], known_mask=free[:, :t]) if name == "in-painting" else {}
+                return sampler(*args, generator=gen, **extra)
+
+            def expected(sampler):
+                full = sampler.last_full_model_steps
+                return accel_launches(kernels, full, steps - full, depth) if full is not None else \
+                    dict.fromkeys(kernels, steps * depth)
+
+            read_counts = reset_launch_counts()
+            first = time.perf_counter()
+            out = {("graph", t): run(graph, t) for t in lengths}
+            torch.cuda.synchronize()
+            first = time.perf_counter() - first
+            first_counts, first_expected = read_counts(), expected(graph)
+            # the replayed chain: no host sync may happen inside it
+            read_counts = reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                replayed = run(graph, z.shape[1])
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            replay_counts = read_counts()
+            out.update({("eager", t): run(eager, t) for t in lengths})
+            torch.cuda.synchronize()
+            entries = list(graph._cache.values())
+            captures = [e.captures for e in entries]
+            graphs = [gr for e in entries for gr in e.graphs.values()]
+            same = {t: torch.equal(out["graph", t], out["eager", t]) for t in lengths}
+            same_replay = torch.equal(replayed, out["graph", z.shape[1]])
+            finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+            print(f"{tag}: graph against eager bit for bit at T {', '.join(f'{t}: {v}' for t, v in same.items())}; "
+                  f"the replayed chain's bits the first's: {same_replay}; cache entries {len(entries)}, captures "
+                  f"{captures}; launches in the two first chains {({k: v for k, v in first_counts.items() if v})} "
+                  f"(expected twice {first_expected}), in the replayed chain "
+                  f"{({k: v for k, v in replay_counts.items() if v})} (expected {expected(graph)}), no host sync "
+                  f"in it (sync debug mode 'error'); capture {sum(gr.capture_ms for gr in graphs):.1f} ms, "
+                  f"pool {sum(gr.pool_bytes for gr in graphs) / 2 ** 20:.1f} MiB; the two first chains "
+                  f"{first:.2f} s")
+            check(finite and all(same.values()) and same_replay, f"{tag}: graph against eager {same}, "
+                  f"replay {same_replay}, finite {finite}")
+            check(len(entries) == 1 and all(n == 1 for n in captures[0].values()), f"{tag}: captures {captures}")
+            want = {k: 2 * v for k, v in first_expected.items()}
+            check(first_counts == {**dict.fromkeys(first_counts, 0), **want}, f"{tag}: first launches {first_counts}")
+            check(replay_counts == {**dict.fromkeys(replay_counts, 0), **expected(graph)},
+                  f"{tag}: replayed launches {replay_counts}")
+            t = z.shape[1]
+            turns = ms_per_step_in_turns({"graph": lambda: run(graph, t), "eager": lambda: run(eager, t)},
+                                         steps, GRAPH_ROUNDS)
+            ms = {k: statistics.median(v) for k, v in turns.items()}
+            device = {k: device_ms_per_step(lambda s=s: run(s, t), steps) for k, s in
+                      (("graph", graph), ("eager", eager))}
+            print(f"{tag}: {card}: s per denoise step in turns (graph, eager, eager, graph) graph "
+                  + ", ".join(f"{v / 1000:.6f}" for v in turns["graph"]) + " against eager "
+                  + ", ".join(f"{v / 1000:.6f}" for v in turns["eager"])
+                  + f"; medians {ms['graph'] / 1000:.6f} against {ms['eager'] / 1000:.6f} "
+                  f"({ms['eager'] / ms['graph']:.3f}x); device ms a step {device['graph']:.3f} against "
+                  f"{device['eager']:.3f}, busy {100 * device['graph'] / ms['graph']:.1f}% against "
+                  f"{100 * device['eager'] / ms['eager']:.1f}%")
+            del graph, eager, out, replayed
+            torch.cuda.empty_cache()
+    print(f"[graph] the phase took {time.perf_counter() - wall:.1f} s")
+
+
 def phase_slice_ddim(dev, ckpt_path, tmp):
     """[slice-ddim]: the sample CLI with --sampling-method ddim: rows 1 and
     7 launched steps x depth times, the .osu reparses. Returns its sampler."""
@@ -2751,9 +2945,9 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
     record-then-apply round trip of one forward (`delta_roundtrip`); a
     sweep through the Sampler (intervals, taus on both drift modes):
     full steps, launches, device ms per step and the gap to the exact chain,
-    then s per denoise step in turns, with the cost of the adaptive chain's
-    per-step read of the drift (tau 0 against the exact chain: the same
-    work)."""
+    then s per denoise step in turns, with the cost of the adaptive chain
+    (eager, a drift read a step) against the exact chain's replayed graph
+    (tau 0 against the exact chain: the same device work)."""
     import torch
     from osu_diffusion_tpu_torch import sampling
 
@@ -2814,9 +3008,9 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
         diff = (out - exact_out).abs()
         print(f"[{tag}] {name}: {full} full steps of {STEPS}, device {device[name]:.3f} ms per step; "
               f"gap to the exact chain max {diff.max().item():.3e}, median {diff.median().item():.3e}")
-    # s per step in turns; tau 0 (a drift read a step, every step full)
-    # against the exact chain (no read) is what the adaptive chain's host
-    # read of the drift costs
+    # s per step in turns; tau 0 (eager, a drift read a step, every step
+    # full) against the exact chain (graphed) is what the adaptive chain's
+    # host side costs
     samplers["tau 0"] = tau0
     for name, v in chains_in_turns(dev, tag, samplers, args).items():
         ms[name] = statistics.median(v)
@@ -2827,8 +3021,9 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
     print(f"[{tag}] s per step against the two chains that run every block (exact, tau 0): " + "; ".join(
         f"{name} {v / exact_ms:.3f}x, {v / ms['tau 0']:.3f}x" for name, v in ms.items()
         if name not in (settings[0][0], "tau 0")))
-    print(f"[{tag}] per-step drift read (.item()): tau 0 {ms['tau 0'] / 1000:.6f} against exact "
-          f"{ms[settings[0][0]] / 1000:.6f} s per denoise step, {ms['tau 0'] - ms[settings[0][0]]:+.4f} ms")
+    print(f"[{tag}] the adaptive chain's cost (eager, a drift read a step, against the exact chain's "
+          f"replayed graph): tau 0 {ms['tau 0'] / 1000:.6f} against exact {ms[settings[0][0]] / 1000:.6f} s "
+          f"per denoise step, {ms['tau 0'] - ms[settings[0][0]]:+.4f} ms")
 
 
 def phase_refine(dev, ckpt_path, tmp):
@@ -3751,8 +3946,11 @@ def phase_sample_fixed_var(dev):
     for path in ("kernels", "plain", "plain-f32"):
         read_counts = reset_launch_counts()
         operands = torch.float32 if path == "plain-f32" else None
+        # the kernels' chain as the CLI runs it (graphed); the plain ones eager, as patched
+        chain_sampler = sampler if path == "kernels" else Sampler(
+            model, diffusion, cfg_scale=CFG_SCALE, band=BAND, cuda_graph=False)
         with plain_kernels(operands) if path != "kernels" else contextlib.nullcontext():
-            chains[path] = sampler(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED + 4))
+            chains[path] = chain_sampler(*call_args, generator=torch.Generator(device=dev).manual_seed(SEED + 4))
         counts = read_counts()
         depth = len(model.blocks)
         want = dict.fromkeys(counts, 0)
@@ -4075,8 +4273,8 @@ def timed_train_cli(argv) -> tuple[dict, dict]:
     """The train CLI on `argv` in this process, a CUDA event recorded as
     each train_step call starts: (its summary, {wall_s, peak_gb (the peak
     of allocated device memory), launches, final_step, period_ms (start to
-    start over the steps from the third on; in a run of 3 steps or fewer
-    from the first on), log (the run's log.txt, which only rank 0 writes, or
+    start over the steps from the third on; in a run of 3 steps from the
+    second, of 2 from the first), log (the run's log.txt, which only rank 0 writes, or
     None)})."""
     import torch
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
@@ -4101,7 +4299,7 @@ def timed_train_cli(argv) -> tuple[dict, dict]:
         trainer.train_step = orig_step
     torch.cuda.synchronize()
     log = os.path.join(summary["experiment_dir"], "log.txt")
-    first = 2 if len(events) > 3 else 0  # a run of 3 steps or fewer: from its first step on
+    first = max(0, min(2, len(events) - 2))  # the third step, or the latest that leaves an interval
     return summary, {"wall_s": time.perf_counter() - wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
                      "launches": read_counts(), "final_step": summary["final_step"],
                      "period_ms": events[first].elapsed_time(events[-1]) / (len(events) - 1 - first),
@@ -4573,19 +4771,21 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
         x, op, cpad = (_pad_time(a.to(dev), t_pad) for a in (z, o, c))
         want = model.forward_with_cfg(x, torch.full((z.shape[0],), 500, device=dev), op, cpad, y.to(dev),
                                       CFG_SCALE, band=BAND, valid_len=t_real)[:, :t_real].cpu()
-    def one_device_chain():
+    def one_device_chain(cuda_graph=True):
         sampler = Sampler(model, create_diffusion(str(CP_SAMPLE_STEPS), noise_schedule="squaredcos_cap_v2",
-                                                  device=dev), cfg_scale=CFG_SCALE, band=BAND)
+                                                  device=dev), cfg_scale=CFG_SCALE, band=BAND,
+                          cuda_graph=cuda_graph)
         return sampler(*(a.to(dev) for a in (z, o, c, y)),
                        generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
 
     one = one_device_chain()
     # the noise floor of such a gap: the same one-device chain (same weights,
     # same noise) with the plain bf16 versions of rows 1 and 7 in place of
-    # their kernels for this run only; two correct chains that differ only
-    # in the kernels' rounding order
+    # their kernels for this run only (eager: a graph replays what it
+    # captured); two correct chains that differ only in the kernels'
+    # rounding order
     with plain_kernels():
-        plain = one_device_chain()
+        plain = one_device_chain(cuda_graph=False)
     rel = rel_err(got["forward"], want)
     chain_diff = (got["chain"] - one).abs()
     floor = (plain - one).abs()
@@ -4619,10 +4819,11 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
     q_one = qsampler(*one_args, generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
     q_one_s = chain_seconds(qsampler, one_args)
     # the noise floor: the same one-process int8 chain with the plain bf16
-    # versions of rows 1 and 10-13 in place of their kernels
+    # versions of rows 1 and 10-13 in place of their kernels (eager)
+    qeager = Sampler(qmodel, qsampler.diffusion, cfg_scale=CFG_SCALE, band=BAND, cuda_graph=False)
     with plain_kernels():
-        q_plain = qsampler(*one_args, generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
-    del qmodel, qsampler
+        q_plain = qeager(*one_args, generator=torch.Generator(device=dev).manual_seed(SEED)).cpu()
+    del qmodel, qsampler, qeager
     q_gap, q_floor = (got["int8_chain"] - q_one).abs(), (q_plain - q_one).abs()
     print(f"[slice-int8-cp] {card}: the int8 {MODEL} (quantized at load) {CP_SAMPLE_STEPS}-step chain at the kimi "
           f"inputs (T 757 -> 768 over {CP_RANKS} gloo ranks sharing the card, band {BAND}): shape "
@@ -4769,10 +4970,11 @@ def main() -> int:
         turns = {name: sum(v) / len(v) for name, v in chains_in_turns(
             dev, "slice-int8", {"f32": sampler, "int8": qsampler}, call_args, rounds=2).items()}
         print(f"[slice-int8] int8 against f32 in this call: {int8_step_ms / 1000:.6f} against "
-              f"{f32_step_ms / 1000:.6f} s per denoise step in the CLI runs "
+              f"{f32_step_ms / 1000:.6f} s per denoise step in the CLI samplers' replayed chains "
               f"({f32_step_ms / int8_step_ms:.3f}x), {turns['int8'] / 1000:.6f} against "
               f"{turns['f32'] / 1000:.6f} in turns ({turns['f32'] / turns['int8']:.3f}x)")
         phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
+        phase_graph(dev, {"f32": sampler, "int8": qsampler}, call_args, card)
         launches.update({k: v for k, v in quant_launches.items() if k not in launches})
         del sampler, qsampler, call_args
         phase_xl(dev, tmp, card)

@@ -74,34 +74,35 @@ def serving_regime_warnings(quantize_weights: bool, accel_interval: int, t_len: 
     return (each warning also sent through warnings.warn(RuntimeWarning)).
 
     The boundaries are the H100's, not the TPU's: two sweeps of
-    osu_diffusion_tpu_torch/tools/bench_quant.py (DiT-B, seeded reference
-    init, 100-step exact f32 chains, band 128, `--groups 5 --runs 5`, 3 at
-    T 768 from dispatch batch 32) on an NVIDIA H100 80GB HBM3 at 700.00 W
-    (PERF.md §6, the bench tools' readings), where neither flag has a
-    losing regime, so no combination warns:
+    osu_diffusion_tpu_torch/tools/bench_quant.py over the graphed chains
+    (DiT-B, seeded reference init, 100-step exact f32 chains, band 128,
+    `--groups 5 --runs 5`, 3 groups at T 768 from dispatch batch 32, one
+    process a point) on an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md §6,
+    the bench tools' readings), where neither flag has a losing regime, so
+    no combination warns:
 
     - --quantize-weights: `bench_quant --variants f32,int8 --batch B
       --seq-len T`. int8 over f32 steps/s (best group) at dispatch batch
-      2 / 8 / 16 / 32 / 64: T 32 1.259 / 1.324 / 1.337 / 1.476 / 1.373;
-      T 128 1.31 / 1.391 / 1.446 / 1.912 / 2.299; T 768 1.262 / 2.024 /
-      2.068 / 2.179 / 2.235. int8 is faster everywhere: at small batch
-      the chain is host-bound and an int8 block issues fewer ops (its
-      kernels fold the modulation, the gate and the residual), at large
-      batch f32's projections run as f32 SIMT GEMMs and int8's on the
-      tensor cores (the TPU's loss at batch 32 does not carry over).
+      2 / 8 / 16 / 32 / 64: T 32 1.101 / 1.28 / 1.646 / 1.688 / 2.095;
+      T 128 1.233 / 1.773 / 2.205 / 2.18 / 2.35; T 768 1.856 / 2.071 /
+      2.077 / 2.162 / 2.24. The chains are device-bound CUDA graphs, so
+      int8 wins by its device time: its kernels fold the modulation, the
+      gate and the residual, and f32's projections run as f32 SIMT GEMMs
+      (the TPU's loss at batch 32 does not carry over).
     - --accel-interval: `bench_quant --variants f32 --accel-interval K
       --seq-len T` (dispatch batch 2), steps/s best / median group for K =
-      1..5: T 32 97.0/90.8, 170.9/168.6, 224.0/177.6, 171.0/161.3,
-      189.4/166.5; T 64 133.3/98.1, 143.4/123.5, 223.9/162.9,
-      171.1/166.2, 226.5/196.8; T 128 115.9/104.9, 156.3/130.8,
-      166.0/164.7, 243.5/214.6, 221.2/179.2. Every interval beats the
-      exact chain; intervals 3, 4, 5 again in turns at T 32 and 64 (10
-      groups each) put no deeper interval below 3 in both of its turns
-      by the median group, so no depth stops paying (the TPU's rule,
-      deeper than 3 at T <= 32, does not carry over).
+      1..5: T 32 622.4/622.3, 869.1/869.0, 1012/1011, 1093/1092,
+      1152/1152; T 64 620.0/619.6, 872.0/871.6, 934.0/933.9, 1013/1012,
+      1068/1068; T 128 491.2/491.0, 743.8/720.2, 872.5/870.6, 949.1/907.9,
+      928.6/928.1. Every interval beats the exact chain, and a deeper one
+      the shallower, except interval 5 against 4 at T 128, behind by the
+      best group (-2.2%) and ahead by the median (+2.2%): no depth stops
+      paying (the TPU's rule, deeper than 3 at T <= 32, does not carry
+      over).
 
-    The chains have no CUDA graph yet; a change that adds one must run the
-    sweeps again and put any losing regime here as module constants."""
+    The adaptive Δ-cache (`--accel-tau`) is not a parameter here, as in
+    the JAX guardrail; it runs eagerly (the host reads the drift each
+    step) and trails the graphed exact chain (PERF.md §5)."""
     return []
 
 

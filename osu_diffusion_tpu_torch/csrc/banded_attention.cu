@@ -29,7 +29,10 @@
 // q's type, or bf16 for an f32 q (the inference entries' `out_bf16`,
 // unranged and ranged: the int8 block's out projection rounds o to bf16
 // first, so the forward writes it so, which equals rounding the f32 o). valid_len is a runtime
-// argument, so one build serves every sequence length. A row whose band
+// argument, so one build serves every sequence length; the inference entry
+// also takes it from device memory (`valid_ptr`, read once by each CTA, as
+// the TPU kernel reads valid_ref from SMEM), so a CUDA graph captured
+// around it serves every length of its bucket. A row whose band
 // holds no valid key writes 0, never NaN: such rows are padding, and the
 // next layer reads them as K/V rows, where 0 * NaN would poison the valid
 // rows. Its LSE is about -1e30; the backward masks such rows itself.
@@ -363,13 +366,16 @@ __global__ void __launch_bounds__(threads<TI, DH>(), 2)
 banded_attn_fwd_sm90_kernel(const __grid_constant__ Maps maps, const F32Src src,
                             TO* __restrict__ o, float* __restrict__ lse, int h, int t,
                             long long osn, long long osh, long long ost, int band, int valid,
-                            float scale, Bounds bounds) {
+                            const int* __restrict__ valid_ptr, float scale, Bounds bounds) {
   constexpr bool F32 = std::is_same_v<TI, float>;
   constexpr int X = x_cols<DH>();  // second-slab columns
   constexpr unsigned TILE_BYTES = tile_bytes<DH>();
   extern __shared__ unsigned char smem_raw[];
   auto& sm = *reinterpret_cast<SmemOf<TI, DH>*>(smem_raw + (-sm90::smem_addr(smem_raw) & 1023));  // 1024-aligned
 
+  if constexpr (!RANGED) {  // the device operand, if given (the ranged entries have none)
+    if (valid_ptr != nullptr) valid = min(*valid_ptr, t);
+  }
   const int q0 = blockIdx.x * BQ;
   const int nb = blockIdx.y / h;
   const int hb = blockIdx.y % h;
@@ -599,7 +605,8 @@ banded_attn_fwd_sm90_kernel(const __grid_constant__ Maps maps, const F32Src src,
 template <bool RANGED, typename TI, typename TO, int DH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h, int t,
            long long sn, long long sh, long long st, long long osn, long long osh, long long ost,
-           int band, int valid_len, float scale, Bounds bounds, cudaStream_t stream) {
+           int band, int valid_len, const int* valid_ptr, float scale, Bounds bounds,
+           cudaStream_t stream) {
   Maps maps{};
   if constexpr (!std::is_same_v<TI, float>) {
     int err = 0;
@@ -623,7 +630,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid((t + BQ - 1) / BQ, n * h);
   kernel<<<grid, threads<TI, DH>(), smem, stream>>>(maps, src, static_cast<TO*>(o), lse, h, t, osn,
-                                                      osh, ost, band, valid_len, scale, bounds);
+                                                      osh, ost, band, valid_len, valid_ptr, scale,
+                                                      bounds);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -636,18 +644,19 @@ const char* last_body = "none";
 template <bool RANGED, int DH>
 int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
                 int t, long long sn, long long sh, long long st, long long osn, long long osh,
-                long long ost, int band, int valid_len, float scale, Bounds bounds, int in_bf16,
-                int out_bf16, cudaStream_t s) {
+                long long ost, int band, int valid_len, const int* valid_ptr, float scale,
+                Bounds bounds, int in_bf16, int out_bf16, cudaStream_t s) {
   if (in_bf16 && out_bf16)
     return launch<RANGED, __nv_bfloat16, __nv_bfloat16, DH>(q, k, v, o, lse, n, h, t, sn, sh, st,
-                                                             osn, osh, ost, band, valid_len, scale,
-                                                             bounds, s);
+                                                             osn, osh, ost, band, valid_len,
+                                                             valid_ptr, scale, bounds, s);
   if (!in_bf16 && !out_bf16)
     return launch<RANGED, float, float, DH>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost,
-                                            band, valid_len, scale, bounds, s);
+                                            band, valid_len, valid_ptr, scale, bounds, s);
   if (!in_bf16)
     return launch<RANGED, float, __nv_bfloat16, DH>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh,
-                                                    ost, band, valid_len, scale, bounds, s);
+                                                    ost, band, valid_len, valid_ptr, scale, bounds,
+                                                    s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -655,18 +664,18 @@ int dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse
 template <bool RANGED>
 int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, int n, int h,
              int t, int dh, long long sn, long long sh, long long st, long long osn, long long osh,
-             long long ost, int band, int valid_len, float scale, Bounds bounds, int in_bf16,
-             int out_bf16, void* stream) {
+             long long ost, int band, int valid_len, const int* valid_ptr, float scale,
+             Bounds bounds, int in_bf16, int out_bf16, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (dh == 64) {
     last_body = "sm90";
     return dispatch_dh<RANGED, 64>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
-                                   valid_len, scale, bounds, in_bf16, out_bf16, s);
+                                   valid_len, valid_ptr, scale, bounds, in_bf16, out_bf16, s);
   }
   if (dh == 72) {
     last_body = "sm90";
     return dispatch_dh<RANGED, 72>(q, k, v, o, lse, n, h, t, sn, sh, st, osn, osh, ost, band,
-                                   valid_len, scale, bounds, in_bf16, out_bf16, s);
+                                   valid_len, valid_ptr, scale, bounds, in_bf16, out_bf16, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -677,16 +686,18 @@ int dispatch(const void* q, const void* k, const void* v, void* o, float* lse, i
 // strides (sn, sh, st), unit stride over the head dim and 16-byte aligned
 // rows (bf16: strides multiples of 8 elements, for TMA; f32: of 4); o: q's
 // type (out_bf16 = bf16) or, for f32 q, bf16 (out_bf16 = 1), with strides
-// (osn, osh, ost). Launches on `stream` without synchronizing; returns 0, a
+// (osn, osh, ost). valid_ptr: null, or a device int read in place of
+// valid_len when the kernel runs (clamped to T; the caller checks it is in
+// [1, T]). Launches on `stream` without synchronizing; returns 0, a
 // CUDA error code, or TMA_ENCODE_ERROR + a CUresult
 // (banded_attention_error_string names either).
 extern "C" int banded_attention_fwd(const void* q, const void* k, const void* v, void* o, int n,
                                     int h, int t, int dh, long long sn, long long sh, long long st,
                                     long long osn, long long osh, long long ost, int band,
-                                    int valid_len, float scale, int bf16, int out_bf16,
-                                    void* stream) {
+                                    int valid_len, const int* valid_ptr, float scale, int bf16,
+                                    int out_bf16, void* stream) {
   return dispatch<false>(q, k, v, o, nullptr, n, h, t, dh, sn, sh, st, osn, osh, ost, band,
-                         valid_len, scale, Bounds{}, bf16, out_bf16, stream);
+                         valid_len, valid_ptr, scale, Bounds{}, bf16, out_bf16, stream);
 }
 
 // The same with o in q's type, also writing lse: f32 (N*H, T) contiguous,
@@ -697,7 +708,7 @@ extern "C" int banded_attention_fwd_lse(const void* q, const void* k, const void
                                         long long ost, int band, int valid_len, float scale,
                                         int bf16, void* stream) {
   return dispatch<false>(q, k, v, o, lse, n, h, t, dh, sn, sh, st, osn, osh, ost, band, valid_len,
-                         scale, Bounds{}, bf16, bf16, stream);
+                         nullptr, scale, Bounds{}, bf16, bf16, stream);
 }
 
 // Ranged: as banded_attention_fwd over all T (halo-extended) rows (o in
@@ -711,7 +722,7 @@ extern "C" int banded_attention_fwd_ranged(const void* q, const void* k, const v
                                            int q_lo, int q_hi, float scale, int bf16,
                                            int out_bf16, void* stream) {
   return dispatch<true>(q, k, v, o, nullptr, n, h, t, dh, sn, sh, st, osn, osh, ost, band, t,
-                        scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, out_bf16, stream);
+                        nullptr, scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, out_bf16, stream);
 }
 
 // Ranged with lse (rows of uncomputed halves get -1e30); dh 64 or 72.
@@ -721,8 +732,8 @@ extern "C" int banded_attention_fwd_ranged_lse(const void* q, const void* k, con
                                                long long osn, long long osh, long long ost,
                                                int band, int k_lo, int k_hi, int q_lo, int q_hi,
                                                float scale, int bf16, void* stream) {
-  return dispatch<true>(q, k, v, o, lse, n, h, t, dh, sn, sh, st, osn, osh, ost, band, t, scale,
-                        Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, bf16, stream);
+  return dispatch<true>(q, k, v, o, lse, n, h, t, dh, sn, sh, st, osn, osh, ost, band, t, nullptr,
+                        scale, Bounds{k_lo, k_hi, q_lo, q_hi}, bf16, bf16, stream);
 }
 
 extern "C" const char* banded_attention_error_string(int err) { return sm90::error_string(err); }

@@ -9,7 +9,11 @@ the sampling chains, guidance, the training losses and the likelihood.
   `ddim_sample_loop`) and `calc_bpd_loop` are Python loops over t = S-1 ..
   0. Each step's noise comes from an explicit `torch.Generator`, or from
   `noise_fn(step_index, shape)` so a test can feed in another framework's
-  draws (DDIM steps draw theirs too, scaled by eta). `denoised_fn`
+  draws (DDIM steps draw theirs too, scaled by eta). The chains run each
+  step as a `StepProgram`: one step over static buffers (x, t, the step's
+  noise) that writes x in place, the form the Sampler captures as a CUDA
+  graph (sampling.py); the noise is drawn outside the step, into its
+  buffer, so a captured chain draws the eager chain's bits. `denoised_fn`
   (in-painting) edits each x0 prediction before the clamp; `cond_fn(x, t,
   **model_kwargs)` guides the mean (ancestral steps) or the score (DDIM).
 - Channel layout is (N, T, C); the eps/variance split is over the last axis.
@@ -91,6 +95,33 @@ def _extract(arr: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
     """Gather per-timestep coefficients, (N,) -> (N, 1, ...) of `ndim` axes."""
     out = arr[t].to(torch.float32)
     return out.reshape(out.shape + (1,) * (ndim - 1))
+
+
+class StepProgram:
+    """One denoise step as a program over static buffers: a call reads x_t
+    from `x`, the local timesteps from `t` (N,) and the step's noise from
+    `noise`, runs `step` (p_sample or ddim_sample) with `model_fn` and the
+    chain's constants (`step_kwargs`), and writes x_{t-1} into `x` in
+    place. `set` fills t and the noise before each call, outside the
+    program. Programs may share their buffers (the Δ-cache's "record" and
+    "apply" steps do). The chains run it eagerly; the Sampler also captures
+    a call as a CUDA graph and replays it, each replay a step."""
+
+    def __init__(self, step: Callable, model_fn: ModelFn, x: torch.Tensor,
+                 t: torch.Tensor | None = None, noise: torch.Tensor | None = None, **step_kwargs):
+        self.step, self.model_fn, self.step_kwargs = step, model_fn, step_kwargs
+        self.x = x
+        self.t = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device) if t is None else t
+        self.noise = torch.zeros_like(x) if noise is None else noise
+
+    def set(self, i: int, noise: torch.Tensor) -> None:
+        """The next step's local timestep i and noise (copied in)."""
+        self.t.fill_(i)
+        self.noise.copy_(noise)
+
+    def __call__(self) -> None:
+        out = self.step(self.model_fn, self.x, self.t, self.noise, **self.step_kwargs)
+        self.x.copy_(out["sample"])
 
 
 @dataclass(frozen=True)
@@ -299,17 +330,17 @@ class GaussianDiffusion:
 
     def _loop(self, step: Callable, model_fn: ModelFn, noise: torch.Tensor, generator, noise_fn,
               progressive: bool, **step_kwargs):
-        """Run `step` over t = S-1 .. 0 from x_T = `noise`; step k draws its
-        noise by `draw_noise`. The last sample, or every sample stacked (S,
-        ...) when `progressive`."""
-        x = noise
+        """Run `step` over t = S-1 .. 0 from x_T = `noise` as a
+        `StepProgram`; step k draws its noise by `draw_noise`. The last
+        sample, or every sample stacked (S, ...) when `progressive`."""
+        program = StepProgram(step, model_fn, noise.clone(), **step_kwargs)
         frames = []
         for k, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
-            x = step(model_fn, x, t, draw_noise(k, x, generator, noise_fn), **step_kwargs)["sample"]
+            program.set(i, draw_noise(k, program.x, generator, noise_fn))
+            program()
             if progressive:
-                frames.append(x)
-        return torch.stack(frames) if progressive else x
+                frames.append(program.x.clone())
+        return torch.stack(frames) if progressive else program.x
 
     def p_sample_loop(self, model_fn: ModelFn, noise: torch.Tensor,
                       generator: torch.Generator | None = None, noise_fn: NoiseFn | None = None,

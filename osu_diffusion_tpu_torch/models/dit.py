@@ -257,7 +257,7 @@ class SelfAttention(nn.Module):
         self.out_proj = nn.Linear(hidden_size, hidden_size)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, band: int | None, valid_len: int | None, matmul_dtype,
+    def forward(self, x, band: int | None, valid_len: int | torch.Tensor | None, matmul_dtype,
                 cp=None) -> torch.Tensor:
         return multi_head_attention(
             x, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight,
@@ -303,7 +303,7 @@ class DiTBlock(nn.Module):
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), nn.Linear(hidden_size, 6 * hidden_size))
         self.tp = None  # the mesh, once parallel/sharding.py has split the head and the MLP
 
-    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
+    def forward(self, x, cond, band: int | None, valid_len: int | torch.Tensor | None, matmul_dtype, cp=None):
         ada, fc1, fc2 = self.adaLN_modulation[1], self.mlp.fc1, self.mlp.fc2
         # under CP a sharded block's weights are gathered whole: no TP collective below
         ada_w, ada_b, w1, b1, w2, b2 = linear_params((ada, fc1, fc2), self.tp, cp)
@@ -355,7 +355,7 @@ class QuantSelfAttention(nn.Module):
         self.register_buffer("in_proj_bias", torch.zeros(3 * d))
         self.out_proj = QuantLinear(d, d)
 
-    def forward(self, x, quant_mod, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
+    def forward(self, x, quant_mod, band: int | None, valid_len: int | torch.Tensor | None, matmul_dtype, cp=None):
         return multi_head_attention(
             x, self.in_proj_weight, self.in_proj_bias, self.out_proj.weight, self.out_proj.bias,
             self.num_heads, band, valid_len, matmul_dtype,
@@ -384,7 +384,7 @@ class QuantDiTBlock(nn.Module):
         self.mlp = QuantMlp(hidden_size, int(hidden_size * mlp_ratio))
         self.adaLN_modulation = nn.Sequential(nn.SiLU(), QuantLinear(hidden_size, 6 * hidden_size))
 
-    def forward(self, x, cond, band: int | None, valid_len: int | None, matmul_dtype, cp=None):
+    def forward(self, x, cond, band: int | None, valid_len: int | torch.Tensor | None, matmul_dtype, cp=None):
         if torch.is_grad_enabled():
             raise RuntimeError("the int8 model serves only: call it under torch.no_grad()")
         ada = self.adaLN_modulation[1]
@@ -478,13 +478,16 @@ class DiT(nn.Module):
             nn.init.zeros_(linear.weight)
             nn.init.zeros_(linear.bias)
 
-    def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | None = None,
+    def forward(self, x, t, o, c, y, band: int | None = None, valid_len: int | torch.Tensor | None = None,
                 train: bool = False, drop: torch.Tensor | None = None,
                 generator: torch.Generator | None = None,
                 dtype: torch.dtype = torch.float32, cp=None, delta_mode: str = "off",
                 delta_span: tuple[int, int] | None = None, delta: torch.Tensor | None = None):
         """`band`: attention half-width (None = full attention); `valid_len`:
-        the real length when T is padded (keys past it are masked);
+        the real length when T is padded (keys past it are masked), an int
+        or a 0-d int32 tensor on x's device (the Sampler's graphed chains
+        pass it so: the attention kernel reads it on the device; not under
+        `cp`, nor in training);
         `train`: label dropout (`drop` mask, else drawn from `generator`)
         and, with `remat` under grad, recomputed blocks; `dtype`: the
         residual stream's type; `cp`: the context-parallel mesh (x, o, c
@@ -535,7 +538,7 @@ class DiT(nn.Module):
         return out if delta_mode == "off" else (out, delta)
 
     def forward_with_cfg(self, x, t, o, c, y, cfg_scale: float,
-                         band: int | None = None, valid_len: int | None = None, cp=None,
+                         band: int | None = None, valid_len: int | torch.Tensor | None = None, cp=None,
                          dtype: torch.dtype = torch.float32, delta_mode: str = "off",
                          delta_span: tuple[int, int] | None = None,
                          delta: torch.Tensor | None = None):

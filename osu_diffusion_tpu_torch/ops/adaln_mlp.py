@@ -36,7 +36,9 @@ as they are; the f32 stream's WMMA body packs them first (`pack_w1`,
 ("sm90" or "wmma").
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+kernel or raises. Each kernel launch adds one to its wrapper's `.launches`
+(the Sampler's CUDA graphs count their captured launches there on each
+replay, and not at capture: sampling.py).
 `AdalnMlp` is the autograd Function of the training path: it takes fc1/fc2
 weights in torch's (out, in) layout, casts them itself (the fused backward
 reads the forward's casts), and returns their gradients in that layout;
@@ -1006,3 +1008,6 @@ adaln_mlp.body = adaln_mlp_train.body = adaln_mlp_quant.body = None
 adaln_mlp_bwd_prologue.launches = 0
 adaln_mlp_bwd_epilogue.launches = 0
 adaln_mlp_bwd_prologue.body = adaln_mlp_bwd_epilogue.body = None
+# the wrappers whose `.launches` count kernel launches (sampling.py adds a
+# CUDA graph's captured launches to them on each replay)
+WRAPPERS = (adaln_mlp, adaln_mlp_train, adaln_mlp_quant, adaln_mlp_bwd_prologue, adaln_mlp_bwd_epilogue)

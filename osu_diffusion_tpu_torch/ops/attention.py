@@ -62,7 +62,7 @@ def multi_head_attention(
     out_proj_bias: torch.Tensor,
     num_heads: int,
     band: int | None = None,
-    valid_len: int | None = None,
+    valid_len: int | torch.Tensor | None = None,
     matmul_dtype: torch.dtype = torch.bfloat16,
     quant_scales: tuple[torch.Tensor, torch.Tensor] | None = None,
     quant_mod: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
@@ -70,7 +70,8 @@ def multi_head_attention(
 ) -> torch.Tensor:
     """Self-attention over x (N, T, D) with the torch MultiheadAttention
     packed [q|k|v] projection (in_proj_weight (3D, D)). `valid_len` masks
-    keys of a padded tail; `matmul_dtype` is the operand type of the banded
+    keys of a padded tail (an int, or without grad a 0-d int32 tensor on
+    x's device, read on the device; an int under `cp`); `matmul_dtype` is the operand type of the banded
     core (and of the int8 projections).
 
     int8 serving: `quant_scales` = (in_proj scale (3D,), out_proj scale

@@ -21,8 +21,14 @@ Port of osu_diffusion_tpu/ops/pallas_attention.py:
 The band is the reference's: query q attends key k iff q - L < k <= q + L
 (asymmetric by one), and keys at or past the runtime `valid_len` are masked.
 A query row whose band holds no valid key returns 0, and its LSE is about
--1e30. In the backward, queries at or past `valid_len` get no gradient, and
-delta = rowsum(o * do) is derived from o and do.
+-1e30. The inference forward also takes `valid_len` as a 0-d int32 tensor
+on q's device, which the kernel reads when it runs (the TPU kernel's SMEM
+operand): a CUDA graph captured around it serves every length of its
+bucket, and nothing reads the length on the host. Its range is checked
+where the int is known (the Sampler). A CPU tensor is read as it is; the
+training entries (LSE, dq, dk/dv) take an int. In the backward, queries
+at or past `valid_len` get no gradient, and delta = rowsum(o * do) is
+derived from o and do.
 
 q, k, v (and o, do) are float32 or bfloat16, all of one type; matmul
 operands are rounded to `matmul_dtype` and accumulated in f32, the softmax
@@ -35,7 +41,9 @@ every entry, ranged or not (XL training, under context parallelism too);
 any other head dim raises a ValueError before any launch.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+kernel or raises. Each kernel launch adds one to its wrapper's `.launches`
+(the Sampler's CUDA graphs count their captured launches there on each
+replay, and not at capture: sampling.py).
 Every forward entry runs the Hopper body (wgmma, the softmax in registers)
 in both types: bf16 q/k/v arrive by a TMA ring, f32 ones by the consumer
 threads' own 16-byte loads, rounded to bf16 on the chip. dq and dk/dv have
@@ -87,10 +95,11 @@ def banded_attention_mask(seq_len: int, half_width: int, device=None) -> torch.T
     return (k > q - half_width) & (k <= q + half_width)
 
 
-def _allowed(t: int, band: int, valid_len: int, device, query_valid: bool = False,
+def _allowed(t: int, band: int, valid_len, device, query_valid: bool = False,
              bounds: tuple[int, int, int, int] | None = None):
-    """(T, T) mask: the band, keys below valid_len (and in [k_lo, k_hi)),
-    with `query_valid` also queries below valid_len (and in [q_lo, q_hi))."""
+    """(T, T) mask: the band, keys below valid_len (an int or a 0-d
+    tensor on `device`; and in [k_lo, k_hi)), with `query_valid` also
+    queries below valid_len (and in [q_lo, q_hi))."""
     idx = torch.arange(t, device=device)
     keys = rows = idx < valid_len
     if bounds is not None:
@@ -116,7 +125,7 @@ def _scores(q, k, matmul_dtype):
 
 def banded_attention_fwd_lse_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
-    valid_len: int, matmul_dtype: torch.dtype = torch.float32,
+    valid_len: int | torch.Tensor, matmul_dtype: torch.dtype = torch.float32,
     bounds: tuple[int, int, int, int] | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the forward with LSE: (o (N, H, T, Dh) in q's type,
@@ -138,7 +147,7 @@ def banded_attention_fwd_lse_reference(
 
 def banded_attention_reference(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
-    valid_len: int, matmul_dtype: torch.dtype = torch.float32,
+    valid_len: int | torch.Tensor, matmul_dtype: torch.dtype = torch.float32,
 ) -> torch.Tensor:
     """Plain version of the inference forward: (N, H, T, Dh) -> (N, H, T, Dh).
 
@@ -260,8 +269,8 @@ def _lib() -> ctypes.CDLL:
     lib = cuda_build.load_library("banded_attention")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # (q, k, v, o, [lse,] n, h, t, dh, sn, sh, st, osn, osh, ost, band, valid,
-    #  scale, bf16, [out_bf16,] stream)
-    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, i, p])
+    #  [valid_ptr,] scale, bf16, [out_bf16,] stream)
+    _bind(lib, "banded_attention_fwd", [p] * 4 + [i] * 4 + [ll] * 6 + [i, i, p, ctypes.c_float, i, i, p])
     _bind(lib, "banded_attention_fwd_lse", [p] * 5 + [i] * 4 + [ll] * 6 + [i, i, ctypes.c_float, i, p])
     # ranged: (band, k_lo, k_hi, q_lo, q_hi) in place of (band, valid)
     _bind(lib, "banded_attention_fwd_ranged", [p] * 4 + [i] * 4 + [ll] * 6 + [i] * 5 + [ctypes.c_float, i, i, p])
@@ -358,16 +367,29 @@ def _check_kernel_inputs(matmul_dtype, **tensors) -> None:
         raise ValueError(f"N*H = {n * h} exceeds the kernels' grid limit 65535")
 
 
-def _check_args(q, band: int, valid_len: int | None) -> int:
+def _check_args(q, band: int, valid_len, on_device: bool = False):
+    """valid_len as the entry takes it: an int (T when None), or with
+    `on_device` (the inference forward) a 0-d int32 tensor on q's device,
+    returned as it is; its range is checked here only on the CPU."""
     t = q.shape[-2]
-    valid_len = t if valid_len is None else int(valid_len)
     if band < 1:
         raise ValueError(f"band must be >= 1, got {band}")
-    if not 1 <= valid_len <= t:
-        raise ValueError(f"valid_len {valid_len} outside [1, {t}]")
     if q.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no banded attention for device {q.device}")
-    return valid_len
+    tensor = isinstance(valid_len, torch.Tensor)
+    if tensor:
+        if valid_len.ndim != 0 or valid_len.dtype != torch.int32 or valid_len.device != q.device:
+            raise TypeError(f"valid_len as a tensor must be 0-d int32 on {q.device}, got "
+                            f"{valid_len.dtype} {tuple(valid_len.shape)} on {valid_len.device}")
+        if q.device.type == "cuda":
+            if not on_device:
+                raise ValueError("only the inference forward reads valid_len on the device; "
+                                 "this entry takes an int")
+            return valid_len
+    length = t if valid_len is None else int(valid_len)
+    if not 1 <= length <= t:
+        raise ValueError(f"valid_len {length} outside [1, {t}]")
+    return valid_len if tensor and on_device else length
 
 
 def _check_bounds(q, band: int, bounds) -> tuple[int, int, int, int]:
@@ -424,7 +446,14 @@ def _launch_fwd(fn, q, k, v, band, valid_len, with_lse: bool, bounds=None, out_d
     osn, osh, ost, _ = out.stride()
     lse_arg = (lse.data_ptr(),) if with_lse else ()
     entry = "banded_attention_fwd" + ("_ranged" if bounds is not None else "") + ("_lse" if with_lse else "")
-    mask_args = (band, valid_len) if bounds is None else (band, *bounds)
+    if bounds is not None:
+        mask_args = (band, *bounds)
+    elif with_lse:
+        mask_args = (band, valid_len)
+    elif isinstance(valid_len, torch.Tensor):  # read by the kernel when it runs
+        mask_args = (band, t, valid_len.data_ptr())
+    else:
+        mask_args = (band, valid_len, None)
     # the inference entries' o type
     out_arg = (int(out.dtype == torch.bfloat16),) if not with_lse else ()
     err = getattr(lib, entry)(
@@ -548,13 +577,14 @@ def _check_out_dtype(q, out_dtype, grad: bool) -> None:
 
 def banded_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, band: int,
-    valid_len: int | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
+    valid_len: int | torch.Tensor | None = None, matmul_dtype: torch.dtype = torch.bfloat16,
     out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """q, k, v: (N, H, T, Dh) -> (N, H, T, Dh), band half-width L.
 
     `valid_len`: the real (unpadded) length when T was padded; keys at or
-    past it are masked. On a CUDA tensor the kernels read q/k/v through their
+    past it are masked. An int, or without grad a 0-d int32 tensor on q's
+    device (read by the kernel, never on the host). On a CUDA tensor the kernels read q/k/v through their
     strides (head views of a packed qkv projection need no copy) and write
     an (N, T, H, Dh) buffer returned as its (N, H, T, Dh) view. Under grad
     the call is differentiable through `BandedAttention`; otherwise it is
@@ -562,8 +592,8 @@ def banded_attention(
     (the default) or, for f32 q, torch.bfloat16 (o rounded from f32, as
     the int8 out projection takes it; the kernel writes it so from its
     registers, the plain version rounds its f32 o)."""
-    valid_len = _check_args(q, band, valid_len)
     grad = _wants_grad(q, k, v)
+    valid_len = _check_args(q, band, valid_len, on_device=not grad)
     _check_out_dtype(q, out_dtype, grad)
     if grad:
         return BandedAttention.apply(q, k, v, band, valid_len, matmul_dtype)
@@ -662,17 +692,13 @@ def banded_attention_ranged(
     return out
 
 
-banded_attention.launches = 0
-banded_attention_fwd_lse.launches = 0
-banded_attention_bwd_dq.launches = 0
-banded_attention_bwd_dkv.launches = 0
-banded_attention_ranged.launches = 0
-banded_attention_ranged_fwd_lse.launches = 0
-banded_attention_ranged_bwd_dq.launches = 0
-banded_attention_ranged_bwd_dkv.launches = 0
-# the body the last launch took ("sm90" or "wmma"); None before any launch
-for _fn in (banded_attention, banded_attention_fwd_lse, banded_attention_bwd_dq,
+# the wrappers whose `.launches` count kernel launches (sampling.py adds a
+# CUDA graph's captured launches to them on each replay), and the body the
+# last launch took ("sm90" or "wmma"; None before any launch)
+WRAPPERS = (banded_attention, banded_attention_fwd_lse, banded_attention_bwd_dq,
             banded_attention_bwd_dkv, banded_attention_ranged, banded_attention_ranged_fwd_lse,
-            banded_attention_ranged_bwd_dq, banded_attention_ranged_bwd_dkv):
+            banded_attention_ranged_bwd_dq, banded_attention_ranged_bwd_dkv)
+for _fn in WRAPPERS:
+    _fn.launches = 0
     _fn.body = None
 del _fn

@@ -30,7 +30,9 @@ apply the scale to the sum, as the TPU kernels do. The plain versions take
 over the dequantised weight w_q * s.
 
 Dispatch: a CPU tensor goes to the plain version; a CUDA tensor goes to the
-kernel or raises. Each kernel launch adds one to its wrapper's `.launches`.
+kernel or raises. Each kernel launch adds one to its wrapper's `.launches`
+(the Sampler's CUDA graphs count their captured launches there on each
+replay, and not at capture: sampling.py).
 """
 from __future__ import annotations
 
@@ -563,3 +565,6 @@ int8_out_residual.o_casts = 0  # f32 o rounded to a bf16 copy before a launch
 int8_matmul.body = None
 int8_modulated_matmul.body = None
 int8_out_residual.body = None
+# the wrappers whose `.launches` count kernel launches (sampling.py adds a
+# CUDA graph's captured launches, and o_casts, to them on each replay)
+WRAPPERS = (int8_matmul, int8_modulated_matmul, int8_out_residual)

@@ -6,41 +6,78 @@ refine pass and animation frames of the sample CLI.
 Length bucketing: sequences are padded to a multiple of `bucket` (default
 128), and the real length rides along as a runtime `valid_len`, which masks
 padded keys in every attention call; padded rows are sliced off the result.
-On the card the kernels take `valid_len` as an argument, so one build serves
-every length.
+
+One program per chain, as the JAX Sampler keeps one compiled XLA chain per
+(N, T_pad, inpaint, use_cfg): the Sampler keeps a cache keyed by (N, T_pad,
+inpaint, use_cfg, the step's kind, the stream's type), each entry a chain's
+static buffers (x, t, the step's noise, o, c, y, known_x/known_mask and
+`valid_len`, a 0-d int32 tensor) and its denoise step as a `StepProgram`
+(diffusion/process.py). A call copies its padded inputs and its length
+into the entry's buffers, then runs the step S times: each step's noise is
+drawn outside the step into its buffer (by `noise_fn` or the generator, so
+the bits are the eager chain's), and the step writes x in place. The
+result is a copy of the slice of x (x is the entry's buffer).
+
+- On a CUDA device (and `cuda_graph`, the default) the first step of each
+  kind runs eagerly on a side stream (a warm-up: the kernels are built,
+  their attributes set and the weight casts cached) and is then captured
+  as a `torch.cuda.CUDAGraph`; every later step of that kind is a replay.
+  Banded attention reads `valid_len` from its buffer when it runs, so one
+  graph serves every length of its bucket, and nothing in the chain reads
+  the card on the host. A capture or replay error raises: no chain falls
+  back to the eager loop. Each replay adds the launches its capture
+  recorded to the kernel wrappers' counters (the capture itself counts
+  none), so `.launches` still counts the launches that ran on the card.
+  An entry's graphs are captured again when the model's weights have moved
+  or changed in place since (a load, an optimizer step), since a graph
+  keeps the buffers it read (the MLP's bf16 weight copies among them).
+- On the CPU, or with `cuda_graph=False`, the same step program runs
+  eagerly: the tests' path, and the card's eager side of an A/B.
+- The fixed-interval Δ-cache captures two steps over the same buffers, a
+  "record" (every block, Δ copied into the entry's Δ buffer) and an
+  "apply" (Δ added in place of the span's blocks), and replays them by the
+  schedule the host fixes before the chain: a full step every
+  `accel_interval`-th step and on the last one. `refine` (t = 0 steps)
+  and `progressive` (every step's sample) use the same cache.
+
+What stays eager, and why:
+- the adaptive Δ-cache (`accel_tau`): it skips while the model input's
+  relative drift since the last full step, ||x - x_ref|| / ||x_ref|| (over
+  the batch, or the largest of its rows' under
+  `accel_drift="per_sample_max"`), stays at or below tau, at most
+  `accel_max_skip` steps in a row, never on the first or the last step.
+  JAX decides inside `lax.cond`; a graph would need conditional nodes, so
+  here the host reads the drift (one `.item()` a step that may skip) and
+  the chain waits for the card once a step;
+- context parallelism (`cp`, a parallel/mesh.py `Mesh`): its halo
+  exchanges are gloo collectives, host calls. The bucket is raised to a
+  multiple of num_model * 128, each rank of the CP group keeps its rows of
+  z, o and c and runs the chain on them, the per-step noise is drawn at the
+  whole padded shape on every rank from the same generator and sliced, so
+  the chain is the one-device chain, and the result is gathered from the
+  ranks at the end. Every rank of the group calls the sampler with the
+  same inputs and generator seed;
+- `GaussianDiffusion.calc_bpd_loop` (not a Sampler chain).
 
 The diffusion math runs in f32 whatever the model stream: x, o and c enter
 the model in f32 (the first layer's sincos needs them), only the residual
 stream runs in `compute_dtype`, and the model's head returns f32.
-
-Δ-cache (`accel_interval`, `accel_tau`): a full step runs every block and
-records Δ, the middle span's contribution (`DiT.forward`'s "record"); a
-skipped step adds the cached Δ in place of the span's blocks ("apply"). The
-fixed schedule runs a full step every `accel_interval`-th step and on the
-last one, decided on the host before the chain. The adaptive schedule
-(`accel_tau`) skips while the model input's relative drift since the last
-full step, ||x - x_ref|| / ||x_ref|| (over the batch, or the largest of its
-rows' under `accel_drift="per_sample_max"`), stays at or below tau, at most
-`accel_max_skip` steps in a row, never on the first or the last step. JAX
-decides inside `lax.cond`; here the host reads the drift (one `.item()` a
-step that may skip), so the adaptive chain waits for the card once a step
-where the fixed chain never waits.
-
-Context parallelism (`cp`, a parallel/mesh.py `Mesh`): the bucket is raised
-to a multiple of num_model * 128, each rank of the CP group keeps its rows
-of z, o and c and runs the chain on them (attention exchanges halos), the
-per-step noise is drawn at the whole padded shape on every rank from the
-same generator and sliced, so the chain is the one-device chain, and the
-result is gathered from the ranks at the end. Every rank of the group calls
-the sampler with the same inputs and generator seed.
 """
 from __future__ import annotations
+
+import time
 
 import torch
 import torch.nn.functional as F
 
-from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion, NoiseFn, draw_noise
+from osu_diffusion_tpu_torch.diffusion.process import (
+    GaussianDiffusion,
+    NoiseFn,
+    StepProgram,
+    draw_noise,
+)
 from osu_diffusion_tpu_torch.models.dit import DiT
+from osu_diffusion_tpu_torch.ops import adaln_mlp, banded_attention, quant
 from osu_diffusion_tpu_torch.parallel.context import BLOCK, gather_slots, shard_rows
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -83,6 +120,142 @@ def drift(x: torch.Tensor, x_ref: torch.Tensor, per_sample_max: bool) -> torch.T
     return (x - x_ref).norm() / x_ref.norm().clamp(min=1e-6)
 
 
+def launch_counters() -> list[tuple[object, str]]:
+    """(wrapper, attribute) of every launch counter of the kernels: each
+    wrapper's `.launches`, and the int8 out projection's `.o_casts`."""
+    wrappers = banded_attention.WRAPPERS + adaln_mlp.WRAPPERS + quant.WRAPPERS
+    return [(fn, "launches") for fn in wrappers] + [(quant.int8_out_residual, "o_casts")]
+
+
+class GraphedStep:
+    """A step program captured as a CUDA graph. `replay` runs it and adds
+    the counts its capture recorded to the launch counters; the capture's
+    own increments are taken back (it launched nothing). `capture_ms` is the
+    capture's host time, `pool_bytes` the device memory its private pool
+    reserved."""
+
+    def __init__(self, program: StepProgram):
+        counters = launch_counters()
+        device = program.x.device
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()  # as the capture does first: reserved is then what it keeps
+        reserved = torch.cuda.memory_reserved(device)
+        before = [getattr(fn, name) for fn, name in counters]
+        start = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            program()
+        self.capture_ms = (time.perf_counter() - start) * 1000
+        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        self.counts = [(fn, name, getattr(fn, name) - n)
+                       for (fn, name), n in zip(counters, before) if getattr(fn, name) != n]
+        for fn, name, n in self.counts:
+            setattr(fn, name, getattr(fn, name) - n)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for fn, name, n in self.counts:
+            setattr(fn, name, getattr(fn, name) + n)
+
+
+def _weights_key(model: torch.nn.Module) -> tuple:
+    """Where each parameter and buffer lies and its in-place version: a
+    captured graph is stale once this changes."""
+    return tuple((a.data_ptr(), a._version) for a in (*model.parameters(), *model.buffers()))
+
+
+class Chain:
+    """One entry of the Sampler's cache: the static buffers of a chain at
+    (N, T_pad, inpaint, use_cfg) and its step programs over them, "step"
+    (one kind), or "record" and "apply" (the fixed Δ-cache), each run
+    eagerly or, once warmed up, replayed as a CUDA graph (`graphs`, by
+    kind). `captures` counts the captures of each kind."""
+
+    def __init__(self, sampler: "Sampler", kind: str, z, o, c, y, inpaint: bool, use_cfg: bool):
+        model, diffusion, dev = sampler.model, sampler.diffusion, z.device
+        self.model = model
+        self.graphed = sampler.cuda_graph and dev.type == "cuda"
+        self.x = torch.zeros_like(z)
+        self.o, self.c, self.y = (torch.zeros_like(a, device=dev) for a in (o, c, y))
+        self.valid = torch.zeros((), dtype=torch.int32, device=dev)
+        self.known_x = self.known_mask = None
+        denoised_fn = None
+        if inpaint:
+            # known_mask True = free to generate, False = pinned to known_x;
+            # pad rows are pinned (to the padded zeros)
+            self.known_x = torch.zeros_like(self.x)
+            self.known_mask = torch.zeros(z.shape, dtype=torch.bool, device=dev)
+
+            def denoised_fn(x0):
+                return torch.where(self.known_mask, x0, self.known_x)
+
+        kwargs = dict(band=sampler.band, valid_len=self.valid, dtype=sampler.compute_dtype)
+
+        def model_fn(x, t, **delta_kwargs):
+            if use_cfg:
+                return model.forward_with_cfg(x, t, self.o, self.c, self.y, sampler.cfg_scale,
+                                              **kwargs, **delta_kwargs)
+            return model.forward(x, t, self.o, self.c, self.y, **kwargs, **delta_kwargs)
+
+        step = diffusion.ddim_sample if kind.startswith("ddim") else diffusion.p_sample
+        common = dict(clip_denoised=sampler.clip_denoised, denoised_fn=denoised_fn)
+        if not kind.endswith("delta"):
+            self.programs = {"step": StepProgram(step, model_fn, self.x, **common)}
+        else:
+            hidden = model.final_layer.linear.in_features
+            self.delta = torch.zeros((*z.shape[:2], hidden), dtype=sampler.compute_dtype, device=dev)
+            span = sampler.accel_span
+
+            def record(x, t):
+                out, delta = model_fn(x, t, delta_mode="record", delta_span=span)
+                self.delta.copy_(delta)
+                return out
+
+            def apply(x, t):
+                return model_fn(x, t, delta_mode="apply", delta_span=span, delta=self.delta)[0]
+
+            first = StepProgram(step, record, self.x, **common)
+            self.programs = {"record": first,
+                             "apply": StepProgram(step, apply, self.x, first.t, first.noise, **common)}
+        self.graphs: dict[str, GraphedStep] = {}
+        self.captures = dict.fromkeys(self.programs, 0)
+        self.weights = None
+
+    def load(self, z, o, c, y, t_real: int, known_x=None, known_mask=None) -> None:
+        """Copy one call's padded inputs and real length into the buffers;
+        drop the graphs if the model's weights changed since they were
+        captured."""
+        weights = _weights_key(self.model)
+        if weights != self.weights:
+            self.graphs.clear()
+            self.weights = weights
+        for buf, a in ((self.x, z), (self.o, o), (self.c, c), (self.y, y)):
+            buf.copy_(a)
+        if self.known_x is not None:
+            self.known_x.copy_(known_x)
+            self.known_mask.copy_(known_mask)
+        self.valid.fill_(t_real)
+
+    def step(self, kind: str, k: int, i: int, generator, noise_fn) -> None:
+        """Step k of the chain (local timestep i) with the `kind` program:
+        its noise drawn into the buffer, then the program run or replayed."""
+        program = self.programs[kind]
+        program.set(i, draw_noise(k, self.x, generator, noise_fn))
+        if not self.graphed:
+            program()
+        elif kind in self.graphs:
+            self.graphs[kind].replay()
+        else:
+            # the warm-up: this step runs eagerly on a side stream, then is captured
+            side = torch.cuda.Stream(self.x.device)
+            side.wait_stream(torch.cuda.current_stream(self.x.device))
+            with torch.cuda.stream(side):
+                program()
+            torch.cuda.current_stream(self.x.device).wait_stream(side)
+            self.graphs[kind] = GraphedStep(program)
+            self.captures[kind] += 1
+
+
 class Sampler:
     """With CFG (the default) the inputs are the doubled batch [cond |
     uncond] along axis 0 and the eps-only guidance happens inside
@@ -94,7 +267,7 @@ class Sampler:
                  method: str = "ancestral", compute_dtype: torch.dtype = torch.float32,
                  accel_interval: int = 1, accel_span: tuple[int, int] | None = None,
                  accel_tau: float | None = None, accel_max_skip: int = 7,
-                 accel_drift: str = "global"):
+                 accel_drift: str = "global", cuda_graph: bool = True):
         """`cp`: the mesh of context parallelism (needs a band); the bucket
         is rounded up to a multiple of num_model * 128, so every padded
         length splits evenly over the shards. `method`: "ancestral" or
@@ -103,7 +276,9 @@ class Sampler:
         docstring); `accel_span` defaults to (depth // 6, depth - depth //
         6), and interval 1 with no tau is the exact chain. After an
         accelerated call `last_full_model_steps` holds the number of steps
-        that ran every block."""
+        that ran every block. `cuda_graph`: on a CUDA device, replay each
+        chain's captured steps (the default); False runs the same step
+        programs eagerly (the card's A/B)."""
         if method not in ("ancestral", "ddim"):
             raise ValueError(f"unknown sampling method: {method}")
         if compute_dtype not in COMPUTE_DTYPES:
@@ -134,6 +309,8 @@ class Sampler:
         self.accel_drift = accel_drift
         self.accel = self.accel_interval > 1 or self.accel_tau is not None
         self.last_full_model_steps = None
+        self.cuda_graph = bool(cuda_graph)
+        self._cache: dict[tuple, Chain] = {}
         if self.accel:
             if cp is not None:
                 raise ValueError("Δ-cache sampling is not supported with context parallelism "
@@ -145,6 +322,32 @@ class Sampler:
             if not 0 <= lo < hi <= depth:
                 raise ValueError(f"accel_span {accel_span} outside depth {depth}")
         self.accel_span = accel_span
+
+    # -- the step-program chains (module docstring) --------------------------
+
+    def _chain(self, kind: str, z, o, c, y, known_x, known_mask, use_cfg: bool) -> tuple[Chain, int]:
+        """The cache entry of `kind` ("ancestral", "ddim", or with "-delta"
+        the fixed Δ-cache's pair) at the call's key, its buffers loaded
+        with the call's padded inputs; and the real length."""
+        t_real = z.shape[1]
+        t_pad = _bucketed(t_real, self.bucket)
+        if not 1 <= t_real <= t_pad:
+            raise ValueError(f"sequence length {t_real} outside [1, {t_pad}]")
+        inpaint = known_x is not None
+        zp, op, cpad = (_pad_time(a, t_pad) for a in (z, o, c))
+        key = (z.shape[0], t_pad, inpaint, use_cfg, kind, self.compute_dtype)
+        chain = self._cache.get(key)
+        if chain is None:
+            chain = self._cache[key] = Chain(self, kind, zp, op, cpad, y, inpaint, use_cfg)
+        known = (_pad_time(known_x, t_pad), _pad_time(known_mask.to(torch.bool), t_pad)) if inpaint else ()
+        chain.load(zp, op, cpad, y, t_real, *known)
+        return chain, t_real
+
+    def _steps(self):
+        """(k, i) of each step: step index k, local timestep i = S-1-k."""
+        return enumerate(range(self.diffusion.num_timesteps - 1, -1, -1))
+
+    # -- eager chains: context parallelism and the adaptive Δ-cache ---------
 
     def _setup(self, z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn):
         """Pad to the bucket (and shard under CP): (x_T, model_fn(x, t,
@@ -192,35 +395,42 @@ class Sampler:
         padded_shape)`. In-painting: `known_x` (N, T, 2) and `known_mask`
         (N, T, 2), True where the sampler generates and False where each x0
         prediction is replaced by known_x. Returns (N, T, 2)."""
-        zp, model_fn, denoised_fn, noise_fn, finish = self._setup(
-            z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn)
+        if self.cp is not None or self.accel_tau is not None:  # the eager chains
+            zp, model_fn, denoised_fn, noise_fn, finish = self._setup(
+                z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn)
+            if self.accel:
+                return finish(self._accel_chain(model_fn, zp, denoised_fn, generator, noise_fn))
+            loop = (self.diffusion.ddim_sample_loop if self.method == "ddim"
+                    else self.diffusion.p_sample_loop)
+            return finish(loop(model_fn, zp, generator=generator, noise_fn=noise_fn,
+                               clip_denoised=self.clip_denoised, denoised_fn=denoised_fn))
+        kind = self.method + "-delta" * self.accel
+        chain, t_real = self._chain(kind, z, o, c, y, known_x, known_mask, use_cfg)
+        s = self.diffusion.num_timesteps
+        n_full = 0
+        for k, i in self._steps():
+            # fixed Δ-cache: full every accel_interval-th step and on the last one
+            full = not self.accel or k % self.accel_interval == 0 or k == s - 1
+            n_full += full
+            chain.step(("record" if full else "apply") if self.accel else "step", k, i, generator,
+                       noise_fn)
         if self.accel:
-            return finish(self._accel_chain(model_fn, zp, denoised_fn, generator, noise_fn))
-        loop = (self.diffusion.ddim_sample_loop if self.method == "ddim"
-                else self.diffusion.p_sample_loop)
-        return finish(loop(model_fn, zp, generator=generator, noise_fn=noise_fn,
-                           clip_denoised=self.clip_denoised, denoised_fn=denoised_fn))
+            self.last_full_model_steps = n_full
+        return chain.x[:, :t_real].clone()
 
     def _accel_chain(self, model_fn, x, denoised_fn, generator, noise_fn) -> torch.Tensor:
-        """The Δ-cache chain: a full ("record") or a skipped ("apply") model
-        call a step, by the fixed or the adaptive schedule."""
+        """The adaptive Δ-cache chain: a full ("record") or a skipped
+        ("apply") model call a step, the host reading the drift."""
         diffusion = self.diffusion
-        s = diffusion.num_timesteps
         step_fn = diffusion.ddim_sample if self.method == "ddim" else diffusion.p_sample
-        adaptive = self.accel_tau is not None
-        # fixed: full every accel_interval-th step and on the last one
-        fixed_skip = [k % self.accel_interval != 0 and k < s - 1 for k in range(s)]
         delta = x_ref = None
         skips = n_full = 0
-        for k, i in enumerate(range(s - 1, -1, -1)):
-            if adaptive:
-                # a zero Δ is never applied (n_full > 0); the drift is read
-                # only where the other conditions let the step skip
-                skip = (n_full > 0 and i > 0 and skips < self.accel_max_skip
-                        and drift(x, x_ref, self.accel_drift == "per_sample_max").item()
-                        <= self.accel_tau)
-            else:
-                skip = fixed_skip[k]
+        for k, i in self._steps():
+            # a zero Δ is never applied (n_full > 0); the drift is read
+            # only where the other conditions let the step skip
+            skip = (n_full > 0 and i > 0 and skips < self.accel_max_skip
+                    and drift(x, x_ref, self.accel_drift == "per_sample_max").item()
+                    <= self.accel_tau)
             cell = {}  # the step calls the model once; its Δ comes out here
 
             def step_model(xx, tt):
@@ -246,10 +456,18 @@ class Sampler:
         """Every step's sample of the CFG ancestral chain, (S, N, T, 2): the
         frames of the denoising animation (as the JAX CLI, ancestral steps
         and every block whatever the method and Δ-cache)."""
-        zp, model_fn, _, noise_fn, finish = self._setup(
-            z, o, c, y, None, None, True, generator, noise_fn)
-        return finish(self.diffusion.p_sample_loop_progressive(
-            model_fn, zp, generator=generator, noise_fn=noise_fn, clip_denoised=self.clip_denoised))
+        if self.cp is not None:
+            zp, model_fn, _, noise_fn, finish = self._setup(
+                z, o, c, y, None, None, True, generator, noise_fn)
+            return finish(self.diffusion.p_sample_loop_progressive(
+                model_fn, zp, generator=generator, noise_fn=noise_fn,
+                clip_denoised=self.clip_denoised))
+        chain, t_real = self._chain("ancestral", z, o, c, y, None, None, True)
+        frames = []
+        for k, i in self._steps():
+            chain.step("step", k, i, generator, noise_fn)
+            frames.append(chain.x[:, :t_real].clone())
+        return torch.stack(frames)
 
     @torch.no_grad()
     def refine(self, x, o, c, y, iters: int, generator: torch.Generator | None = None,
@@ -261,15 +479,20 @@ class Sampler:
         rows where it is False are pinned to x in every x0 prediction (the
         pattern repair of evals/unfuck.py). At t = 0 a step adds no noise;
         each still draws its own, by the noise contract."""
-        xp, model_fn, denoised_fn, noise_fn, finish = self._setup(
-            x, o, c, y, None if known_mask is None else x, known_mask, use_cfg, generator,
-            noise_fn)
-        t0 = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+        known_x = None if known_mask is None else x
+        if self.cp is not None:
+            xp, model_fn, denoised_fn, noise_fn, finish = self._setup(
+                x, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn)
+            t0 = torch.zeros((x.shape[0],), dtype=torch.long, device=x.device)
+            for k in range(iters):
+                xp = self.diffusion.p_sample(model_fn, xp, t0, draw_noise(k, xp, generator, noise_fn),
+                                             clip_denoised=self.clip_denoised,
+                                             denoised_fn=denoised_fn)["sample"]
+            return finish(xp)
+        chain, t_real = self._chain("ancestral", x, o, c, y, known_x, known_mask, use_cfg)
         for k in range(iters):
-            xp = self.diffusion.p_sample(model_fn, xp, t0, draw_noise(k, xp, generator, noise_fn),
-                                         clip_denoised=self.clip_denoised,
-                                         denoised_fn=denoised_fn)["sample"]
-        return finish(xp)
+            chain.step("step", k, 0, generator, noise_fn)
+        return chain.x[:, :t_real].clone()
 
 
 def prepare_cfg_inputs(seq_o: torch.Tensor, seq_c: torch.Tensor, class_labels: list[int],

@@ -952,3 +952,59 @@ def test_quant_kernels_reject_what_they_do_not_take(cuda_device):
         tq.int8_out_residual(o, res, gate, wq, torch.ones(192, device=dev), torch.zeros(192, device=dev))
     with pytest.raises(TypeError):  # o in another type than f32 or bf16
         tq.int8_out_residual(o.half(), res, gate, wq, torch.ones(192, device=dev), torch.zeros(192, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_attention_reads_valid_len_on_the_device(cuda_device, dtype):
+    """valid_len as a 0-d int32 CUDA tensor (read by the kernel, as a CUDA
+    graph passes it): the int form's bits, one launch each; a training
+    entry refuses it (it needs the int on the host)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = _qkv_heads(2, 768, 3, dtype, g, cuda_device)
+    for valid in (757, 700, 768):
+        valid_dev = torch.tensor(valid, dtype=torch.int32, device=cuda_device)
+        before = tba.banded_attention.launches
+        got = tba.banded_attention(q, k, v, 128, valid_dev)
+        assert tba.banded_attention.launches == before + 1
+        assert torch.equal(got, tba.banded_attention(q, k, v, 128, valid))
+    with pytest.raises(ValueError):
+        tba.banded_attention_fwd_lse(q, k, v, 128, valid_dev)
+
+
+@pytest.mark.cuda
+def test_sampler_graph_equals_eager_chain(cuda_device):
+    """A DiT-S-width model (depth 2): the graphed chain equals the eager one
+    bit for bit at two lengths of one bucket, with one capture, launches
+    steps x depth in each chain (the capture counts none), and no host sync
+    in a replayed chain."""
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT
+    from osu_diffusion_tpu_torch.sampling import Sampler
+
+    torch.manual_seed(0)
+    model = DiT(hidden_size=384, depth=2, num_heads=6, num_classes=7).to(cuda_device).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.05)
+    diffusion = create_diffusion("4", noise_schedule="squaredcos_cap_v2", device=cuda_device)
+    graph, eager = (Sampler(model, diffusion, cfg_scale=2.0, band=16, cuda_graph=on) for on in (True, False))
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    z = torch.randn(1, 120, 2, generator=g, device=cuda_device).repeat(2, 1, 1)
+    o = torch.cumsum(torch.rand(1, 120, generator=g, device=cuda_device) * 300, 1).repeat(2, 1)
+    c = torch.rand(1, 120, 144, generator=g, device=cuda_device).repeat(2, 1, 1)
+    y = torch.tensor([1, 7], device=cuda_device)
+    for t in (120, 100, 120):
+        args = (z[:, :t], o[:, :t], c[:, :t], y)
+        before = tba.banded_attention.launches, tam.adaln_mlp.launches
+        if t == 120 and graph._cache:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graph(*args, generator=torch.Generator(device=cuda_device).manual_seed(t))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        assert (tba.banded_attention.launches - before[0], tam.adaln_mlp.launches - before[1]) == (8, 8)
+        want = eager(*args, generator=torch.Generator(device=cuda_device).manual_seed(t))
+        assert torch.equal(got, want)
+    (entry,) = graph._cache.values()
+    assert entry.captures == {"step": 1}
