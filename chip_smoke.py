@@ -4,7 +4,8 @@
 Run from the repository root with no arguments:  python3 chip_smoke.py
 
 Phases (any failure raises and exits non-zero):
-1. The card (nvidia-smi name and power limit), torch/CUDA versions, the
+1. The card (nvidia-smi name and power limit), torch's, the CUDA
+   runtime's, the CUDA driver's and nvcc's versions, the
    nvcc build of every kernel library from osu_diffusion_tpu_torch/csrc
    (one nvcc per source, all at once), and the g++ build of the native
    featurizer (csrc/osu_native.cpp).
@@ -143,11 +144,13 @@ Phases (any failure raises and exits non-zero):
    exact chain with STEPS full steps, one forward recorded then applied at the
    same input (record: the full forward's bits and block 2's input left as
    it was; apply: the full forward within DELTA_APPLY_REL_TOL), then
-   interval 1 and ACCEL_INTERVALS and a tau on both drift modes: launches, device time,
-   the gap to the exact chain, s per step in turns and its ratio to both
-   chains that run every block (the exact one and tau 0), and tau 0 against
-   the exact chain for the cost of the adaptive chain's eager steps and
-   per-step drift read); the refine pass (`[refine]`: a second .osu, 10 x
+   interval 1 and ACCEL_INTERVALS and a tau on both drift modes (taken
+   from a cuda_graph=False record of one-step drifts): launches, device
+   time, the gap to the exact chain; each adaptive chain graphed against
+   its eager form bit for bit with the same full steps; s per step in turns
+   with the busy share, the graphed adaptive chains against their eager
+   forms, the exact chain, tau 0 (graphed and eager) and the fixed
+   interval with the nearest count of full steps); the refine pass (`[refine]`: a second .osu, 10 x
    depth more launches). `[serving]` prints these phases' wall time.
 15. The in-paint accuracy protocol (`[toy]`, evals/toy.py's main) at DiT-B on
    the stream suite: 100 predictions a fixture, the null class, no CFG,
@@ -263,8 +266,10 @@ Phases (any failure raises and exits non-zero):
 24. The diffusion's other parameterizations at DiT-B (before 23, each
    phase's seconds printed, `[modes]` their sum): `[bpd]`, calc_bpd_loop on
    two kimi windows of 128 rows over BPD_STEPS respaced squaredcos steps,
-   through rows 1 and 7 (depth x BPD_STEPS launches each) against the same
-   loop through their plain versions on the card with the same draws
+   through rows 1 and 7 (depth x BPD_STEPS launches each), its step
+   program captured and replayed, bit for bit against the same loop eager
+   (cuda_graph=False; s per step in turns and the busy share of both), and
+   against the same loop through their plain versions on the card with the same draws
    (BPD_REL_TOL, the t = 0 decoder NLL column on its own,
    BPD_DECODER_REL_TOL; prior_bpd bit for bit); `[train-kl]`, 8's step
    card vs CPU under create_diffusion(use_kl=True), and under
@@ -277,14 +282,19 @@ Phases (any failure raises and exits non-zero):
    chain's gap to itself with f32 operands.
 25. The Sampler's CUDA graphs (`[graph]`, after 10, f32 and int8 at DiT-B
    on kimi, T 757 -> 768, CFG 2, band 128): the ancestral, DDIM, fixed
-   Δ-cache (interval GRAPH_INTERVAL), in-painted and refine chains, each on
+   Δ-cache (interval GRAPH_INTERVAL), in-painted and refine chains, and
+   the adaptive Δ-cache in both drift modes (tau the median of a
+   cuda_graph=False chain's one-step drifts; its step a "decide" part and
+   two bodies under conditional IF nodes), each on
    a graphed sampler (the default) and an eager one (`cuda_graph=False`):
    graph against eager bit for bit at T 757 and at GRAPH_SHORT_T (the same
-   bucket), one cache entry and one capture per step kind across the two
-   lengths, each path kernel's launches equal to steps x depth (by the
-   Δ-cache's schedule) in the first (captured) chain and in a replayed
+   bucket) with the same full steps, one cache entry and one capture per
+   step kind across the two lengths, each path kernel's launches equal to
+   steps x depth (by the Δ-cache's schedule; the adaptive warm-up's two
+   bodies once more) in the first (captured) chain and in a replayed
    one, the replayed chain under torch.cuda.set_sync_debug_mode("error")
-   (no host sync), s per denoise step graph against eager in turns with
+   (no host sync but the adaptive chain's read of its full steps at the
+   end), s per denoise step graph against eager in turns with
    each one's busy share (device ms by torch.profiler), the capture's ms
    and its pool's bytes. `[graph-xl]` (in 18): s per denoise step of the
    f32 DiT-XL chain, graph against eager in turns. `[attn]` and
@@ -301,6 +311,7 @@ device.
 """
 import contextlib
 import copy
+import ctypes
 import gc
 import glob
 import io
@@ -651,7 +662,17 @@ def phase_build():
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
-    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp", "adaln_mlp_bwd", "int8_matmul")
+    driver_api = ctypes.c_int()
+    ctypes.CDLL("libcuda.so.1").cuDriverGetVersion(ctypes.byref(driver_api))
+    driver = subprocess.run(["nvidia-smi", "--query-gpu=driver_version", "--format=csv,noheader"],
+                            capture_output=True, text=True).stdout.strip()
+    nvcc = subprocess.run([cuda_build.nvcc_path(), "--version"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[-2]
+    print(f"[build] CUDA runtime {torch.version.cuda} (torch's), driver {driver} (CUDA "
+          f"{driver_api.value // 1000}.{driver_api.value % 1000 // 10}), nvcc: {nvcc}; the adaptive "
+          f"chain's IF nodes need 12.4 or later")
+    names = ("banded_attention", "banded_attention_bwd", "adaln_mlp", "adaln_mlp_bwd", "int8_matmul",
+             "graph_cond")
     wall = time.perf_counter()
     cuda_build.build_all(names)  # one nvcc per source, all at once
     print(f"[build] {len(names)} libraries in {time.perf_counter() - wall:.1f} s wall")
@@ -2686,6 +2707,57 @@ def ms_per_step_in_turns(runs: dict, steps: int, rounds: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode("error") over the block (a host sync
+    raises), but for the adaptive Δ-cache's one read of its full steps at a
+    chain's end (`Chain.full_steps`)."""
+    import torch
+    from osu_diffusion_tpu_torch import sampling
+
+    orig = sampling.Chain.full_steps
+
+    def read_at_the_end(chain, steps):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig(chain, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    sampling.Chain.full_steps = read_at_the_end
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        sampling.Chain.full_steps = orig
+
+
+def eager_drifts(model, diffusion, call_args, **kw) -> dict:
+    """{drift mode: [each step's drift]} of a tau-0 adaptive chain (every
+    step full: each drift is one step's) on a cuda_graph=False sampler, both
+    modes read at every step (an .item() cannot run inside a capture)."""
+    import torch
+    from osu_diffusion_tpu_torch import sampling
+
+    drifts = {mode: [] for mode in sampling.ACCEL_DRIFTS}
+    orig = sampling.drift
+
+    def recorded(x, x_ref, per_sample_max):
+        for mode in drifts:
+            drifts[mode].append(orig(x, x_ref, mode == "per_sample_max").item())
+        return orig(x, x_ref, per_sample_max)
+
+    sampler = sampling.Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND, accel_tau=0.0,
+                               cuda_graph=False, **kw)
+    sampling.drift = recorded
+    try:
+        sampler(*call_args, generator=torch.Generator(device=call_args[0].device).manual_seed(SEED))
+    finally:
+        sampling.drift = orig
+    return drifts
+
+
 def phase_graph(dev, samplers, call_args, card):
     """[graph] (25): each chain kind on the graphed Sampler against the same
     chain eager, for the models of `samplers` ({"f32": ..., "int8": ...},
@@ -2708,11 +2780,17 @@ def phase_graph(dev, samplers, call_args, card):
         depth = len(model.blocks)
         kernels = (["banded_attention", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
                     "adaln_mlp_quant"] if model.quant else ["banded_attention", "adaln_mlp"])
-        for name, kw in chains:
+        # the adaptive Δ-cache at the median of the one-step drifts, so both bodies run
+        drifts = eager_drifts(model, diffusion, call_args, accel_span=ACCEL_SPAN)
+        adaptive = [(f"adaptive Δ-cache {mode} tau {statistics.median(d[1:-1]):.4f} (median one-step drift)",
+                     dict(accel_tau=statistics.median(d[1:-1]), accel_drift=mode, accel_span=ACCEL_SPAN))
+                    for mode, d in drifts.items()]
+        for name, kw in chains + adaptive:
             tag = f"[graph] {stream} {name}"
             graph, eager = (Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND, cuda_graph=on, **kw)
                             for on in (True, False))
             steps = REFINE_ITERS if name == "refine" else STEPS
+            is_adaptive = "accel_tau" in kw
 
             def run(sampler, t):
                 args = lengths[t]
@@ -2722,48 +2800,57 @@ def phase_graph(dev, samplers, call_args, card):
                 extra = dict(known_x=known_x[:, :t], known_mask=free[:, :t]) if name == "in-painting" else {}
                 return sampler(*args, generator=gen, **extra)
 
-            def expected(sampler):
-                full = sampler.last_full_model_steps
+            def expected(full):
                 return accel_launches(kernels, full, steps - full, depth) if full is not None else \
                     dict.fromkeys(kernels, steps * depth)
 
+            out, full = {}, {}
             read_counts = reset_launch_counts()
             first = time.perf_counter()
-            out = {("graph", t): run(graph, t) for t in lengths}
+            for t in lengths:
+                out["graph", t] = run(graph, t)
+                full["graph", t] = graph.last_full_model_steps
             torch.cuda.synchronize()
             first = time.perf_counter() - first
-            first_counts, first_expected = read_counts(), expected(graph)
+            first_counts = read_counts()
+            # twice the schedule; the adaptive warm-up also ran each body once
+            want = {k: sum(expected(full["graph", t])[k] for t in lengths)
+                    + is_adaptive * accel_launches(kernels, 1, 1, depth)[k] for k in kernels}
             # the replayed chain: no host sync may happen inside it
             read_counts = reset_launch_counts()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
+            with no_host_sync():
                 replayed = run(graph, z.shape[1])
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
             torch.cuda.synchronize()
-            replay_counts = read_counts()
-            out.update({("eager", t): run(eager, t) for t in lengths})
+            replay_counts, replay_full = read_counts(), graph.last_full_model_steps
+            for t in lengths:
+                out["eager", t] = run(eager, t)
+                full["eager", t] = eager.last_full_model_steps
             torch.cuda.synchronize()
             entries = list(graph._cache.values())
             captures = [e.captures for e in entries]
             graphs = [gr for e in entries for gr in e.graphs.values()]
             same = {t: torch.equal(out["graph", t], out["eager", t]) for t in lengths}
+            same_full = (all(full["graph", t] == full["eager", t] for t in lengths)
+                         and replay_full == full["graph", z.shape[1]])
             same_replay = torch.equal(replayed, out["graph", z.shape[1]])
             finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+            fulls = (f"; full steps graph, eager at T {', '.join(f'{t}: {full['graph', t]}, {full['eager', t]}' for t in lengths)}, "
+                     f"replayed {replay_full}" if is_adaptive else "")
             print(f"{tag}: graph against eager bit for bit at T {', '.join(f'{t}: {v}' for t, v in same.items())}; "
-                  f"the replayed chain's bits the first's: {same_replay}; cache entries {len(entries)}, captures "
+                  f"the replayed chain's bits the first's: {same_replay}{fulls}; cache entries {len(entries)}, captures "
                   f"{captures}; launches in the two first chains {({k: v for k, v in first_counts.items() if v})} "
-                  f"(expected twice {first_expected}), in the replayed chain "
-                  f"{({k: v for k, v in replay_counts.items() if v})} (expected {expected(graph)}), no host sync "
-                  f"in it (sync debug mode 'error'); capture {sum(gr.capture_ms for gr in graphs):.1f} ms, "
+                  f"(expected {want}), in the replayed chain "
+                  f"{({k: v for k, v in replay_counts.items() if v})} (expected {expected(replay_full)}), no host sync "
+                  f"in it (sync debug mode 'error'{', but the read of n_full at its end' * is_adaptive}); capture "
+                  f"{sum(gr.capture_ms for gr in graphs):.1f} ms, "
                   f"pool {sum(gr.pool_bytes for gr in graphs) / 2 ** 20:.1f} MiB; the two first chains "
                   f"{first:.2f} s")
-            check(finite and all(same.values()) and same_replay, f"{tag}: graph against eager {same}, "
-                  f"replay {same_replay}, finite {finite}")
+            check(finite and all(same.values()) and same_replay and same_full,
+                  f"{tag}: graph against eager {same}, replay {same_replay}, full steps {full} {replay_full}, "
+                  f"finite {finite}")
             check(len(entries) == 1 and all(n == 1 for n in captures[0].values()), f"{tag}: captures {captures}")
-            want = {k: 2 * v for k, v in first_expected.items()}
             check(first_counts == {**dict.fromkeys(first_counts, 0), **want}, f"{tag}: first launches {first_counts}")
-            check(replay_counts == {**dict.fromkeys(replay_counts, 0), **expected(graph)},
+            check(replay_counts == {**dict.fromkeys(replay_counts, 0), **expected(replay_full)},
                   f"{tag}: replayed launches {replay_counts}")
             t = z.shape[1]
             turns = ms_per_step_in_turns({"graph": lambda: run(graph, t), "eager": lambda: run(eager, t)},
@@ -2938,16 +3025,22 @@ def delta_roundtrip(tag, sampler, args) -> None:
           f"{tag}: Δ round trip: record bits {same}, snapshot kept {kept}, apply {rel}")
 
 
+def fixed_full_steps(interval: int, steps: int) -> int:
+    """Full steps of the fixed Δ-cache: every interval-th and the last."""
+    return len(range(0, steps, interval)) + ((steps - 1) % interval != 0)
+
+
 def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
     """[slice-accel] (f32) or [slice-accel-int8] (--quantize-weights): the
     sample CLI with --accel-interval 2 (launches from the schedule, the .osu
-    reparses); tau 0 bit-equal to the exact chain with every step full; a
-    record-then-apply round trip of one forward (`delta_roundtrip`); a
-    sweep through the Sampler (intervals, taus on both drift modes):
-    full steps, launches, device ms per step and the gap to the exact chain,
-    then s per denoise step in turns, with the cost of the adaptive chain
-    (eager, a drift read a step) against the exact chain's replayed graph
-    (tau 0 against the exact chain: the same device work)."""
+    reparses); tau 0 bit-equal to the exact chain with every step full,
+    graphed and eager; a record-then-apply round trip of one forward
+    (`delta_roundtrip`); a sweep through the Sampler (intervals, taus on
+    both drift modes from a cuda_graph=False record of one-step drifts):
+    full steps, launches, device ms per step and the gap to the exact
+    chain; then s per denoise step in turns with the busy share: each
+    graphed adaptive chain against its eager form, the exact chain, tau 0
+    and the fixed interval with the nearest count of full steps."""
     import torch
     from osu_diffusion_tpu_torch import sampling
 
@@ -2969,61 +3062,79 @@ def phase_slice_accel(dev, ckpt_path, tmp, quantize=False):
         return sampling.Sampler(model, diffusion, cfg_scale=CFG_SCALE, band=BAND, **kw)
 
     # tau 0: every step full (the drift is > 0 after the first), the exact chain's bits
-    drifts = []
-    orig_drift = sampling.drift
-
-    def recorded(*a):
-        d = orig_drift(*a)
-        drifts.append(d.item())
-        return d
-
     exact = make()
     exact_out, _ = chain_ms(dev, exact, args)
-    tau0 = make(accel_tau=0.0)
-    sampling.drift = recorded
-    try:
-        tau0_out, _ = chain_ms(dev, tau0, args)
-    finally:
-        sampling.drift = orig_drift
-    same = torch.equal(tau0_out, exact_out)
+    drifts = eager_drifts(model, diffusion, args)["global"]
+    tau0, tau0_eager = make(accel_tau=0.0), make(accel_tau=0.0, cuda_graph=False)
+    same = {}
+    for name, sampler in (("graphed", tau0), ("eager", tau0_eager)):
+        out, _ = chain_ms(dev, sampler, args)
+        same[name] = torch.equal(out, exact_out) and sampler.last_full_model_steps == STEPS
     print(f"[{tag}] tau 0: {tau0.last_full_model_steps} full steps of {STEPS}, bit-equal to the exact "
-          f"chain: {same}")
-    check(same and tau0.last_full_model_steps == STEPS, f"{tag}: tau 0 chain")
+          f"chain (graphed, eager): {same}")
+    check(all(same.values()), f"{tag}: tau 0 chains {same}")
     delta_roundtrip(tag, exact, args)
-    # the sweep's taus: quantiles of the exact chain's one-step drifts
-    taus = [float(torch.tensor(drifts).quantile(q)) for q in ACCEL_TAU_QUANTILES]
+    # the sweep's taus: quantiles of the one-step drifts (the exact chain's)
+    taus = [float(torch.tensor(drifts[1:-1]).quantile(q)) for q in ACCEL_TAU_QUANTILES]
     settings = [("exact (interval 1)", {})]
     settings += [(f"interval {k}", dict(accel_interval=k)) for k in ACCEL_INTERVALS]
-    settings += [(f"tau {tau:.4f} ({q:.0%} of one-step drifts) {mode}",
-                  dict(accel_tau=tau, accel_drift=mode))
-                 for q, tau in zip(ACCEL_TAU_QUANTILES, taus) for mode in sampling.ACCEL_DRIFTS]
-    samplers, device, ms = {}, {}, {}
-    for name, kw in settings:
+    adaptive = [(f"tau {tau:.4f} ({q:.0%} of one-step drifts) {mode}", dict(accel_tau=tau, accel_drift=mode))
+                for q, tau in zip(ACCEL_TAU_QUANTILES, taus) for mode in sampling.ACCEL_DRIFTS]
+    samplers, device, ms, fulls, outs = {}, {}, {}, {}, {}
+
+    def sweep(name, kw):
         samplers[name] = sampler = make(**kw)
         read_counts = reset_launch_counts()
-        out, _ = chain_ms(dev, sampler, args)
-        full = STEPS if sampler.last_full_model_steps is None else sampler.last_full_model_steps
-        check_launches(tag, read_counts(), accel_launches(kernels, full, STEPS - full, depth))
+        outs[name] = out = chain_ms(dev, sampler, args)[0]
+        fulls[name] = full = STEPS if sampler.last_full_model_steps is None else sampler.last_full_model_steps
+        want = accel_launches(kernels, full, STEPS - full, depth)
+        if "accel_tau" in kw and kw.get("cuda_graph", True):  # the warm-up ran each body once
+            want = {k: v + accel_launches(kernels, 1, 1, depth)[k] for k, v in want.items()}
+        check_launches(tag, read_counts(), want)
         device[name], _ = chain_profile(dev, sampler, args, host_ops=False)
         diff = (out - exact_out).abs()
         print(f"[{tag}] {name}: {full} full steps of {STEPS}, device {device[name]:.3f} ms per step; "
               f"gap to the exact chain max {diff.max().item():.3e}, median {diff.median().item():.3e}")
-    # s per step in turns; tau 0 (eager, a drift read a step, every step
-    # full) against the exact chain (graphed) is what the adaptive chain's
-    # host side costs
-    samplers["tau 0"] = tau0
+
+    for name, kw in settings + adaptive:
+        sweep(name, kw)
+    for name, kw in adaptive:
+        # its eager form, and the fixed interval with the nearest count of full steps
+        sweep(f"{name} eager", dict(kw, cuda_graph=False))
+        check(torch.equal(outs[name], outs[f"{name} eager"]) and fulls[f"{name} eager"] == fulls[name],
+              f"{tag}: {name} graphed against eager")
+        k = min(range(2, STEPS + 1), key=lambda k: (abs(fixed_full_steps(k, STEPS) - fulls[name]), k))
+        if f"interval {k}" not in samplers:
+            sweep(f"interval {k}", dict(accel_interval=k))
+    samplers["tau 0"], samplers["tau 0 eager"] = tau0, tau0_eager
+    ops = {}
+    for name in ("tau 0", "tau 0 eager", settings[0][0]):
+        device[name], ops[name] = chain_profile(dev, samplers[name], args, host_ops=False)
+    # what the graphed tau-0 chain runs beyond the exact chain's ops: the decide part, the IF nodes' setters
+    exact_ops = {key: (ms, n) for ms, n, key in ops[settings[0][0]]}
+    extra = sorted(((ms - exact_ops.get(key, (0.0, 0))[0], n - exact_ops.get(key, (0.0, 0))[1], key)
+                    for ms, n, key in ops["tau 0"] if n > exact_ops.get(key, (0.0, 0))[1]), reverse=True)
+    print(f"[{tag}] tau 0 graphed against exact, device ms a step {device['tau 0']:.3f} against "
+          f"{device[settings[0][0]]:.3f}; device ops beyond the exact chain's (ms a step, launches a chain): "
+          + "; ".join(f"{ms:.4f} {n}x {key[:70]}" for ms, n, key in extra[:10]))
     for name, v in chains_in_turns(dev, tag, samplers, args).items():
         ms[name] = statistics.median(v)
     print(f"[{tag}] medians, s per denoise step (busy share of the device time): " + "; ".join(
-        f"{name} {v / 1000:.6f}" + (f" ({100 * device[name] / v:.1f}%)" if name in device else "")
-        for name, v in ms.items()))
+        f"{name} {v / 1000:.6f} ({100 * device[name] / v:.1f}%)" for name, v in ms.items()))
     exact_ms = ms[settings[0][0]]
-    print(f"[{tag}] s per step against the two chains that run every block (exact, tau 0): " + "; ".join(
+    print(f"[{tag}] s per step against the two chains that run every block (exact, tau 0 graphed): " + "; ".join(
         f"{name} {v / exact_ms:.3f}x, {v / ms['tau 0']:.3f}x" for name, v in ms.items()
         if name not in (settings[0][0], "tau 0")))
-    print(f"[{tag}] the adaptive chain's cost (eager, a drift read a step, against the exact chain's "
-          f"replayed graph): tau 0 {ms['tau 0'] / 1000:.6f} against exact {ms[settings[0][0]] / 1000:.6f} s "
-          f"per denoise step, {ms['tau 0'] - ms[settings[0][0]]:+.4f} ms")
+    for name, _ in adaptive:
+        k = min(range(2, STEPS + 1), key=lambda k: (abs(fixed_full_steps(k, STEPS) - fulls[name]), k))
+        print(f"[{tag}] {name} ({fulls[name]} full steps): graphed {ms[name] / 1000:.6f} against its eager "
+              f"form {ms[f'{name} eager'] / 1000:.6f} ({ms[f'{name} eager'] / ms[name]:.3f}x), the exact "
+              f"chain {exact_ms / 1000:.6f} ({exact_ms / ms[name]:.3f}x) and interval {k} "
+              f"({fixed_full_steps(k, STEPS)} full steps) {ms[f'interval {k}'] / 1000:.6f} "
+              f"({ms[name] / ms[f'interval {k}']:.3f} of it) s per denoise step")
+    print(f"[{tag}] tau 0 (every step full, the exact chain's device work): graphed {ms['tau 0'] / 1000:.6f}, "
+          f"eager {ms['tau 0 eager'] / 1000:.6f}, exact {exact_ms / 1000:.6f} s per denoise step; graphed minus "
+          f"exact {ms['tau 0'] - exact_ms:+.4f} ms a step (the decide part and the IF nodes)")
 
 
 def phase_refine(dev, ckpt_path, tmp):
@@ -3827,8 +3938,9 @@ FIXED_VAR_STEPS = 10  # [sample-fixed-var]: the CFG chain's steps
 def phase_bpd(dev):
     """calc_bpd_loop at DiT-B (the [slice] weights) on two kimi windows of
     TRAIN_SEQ rows, BPD_STEPS respaced squaredcos steps, band BAND, the
-    same per-step noise_fn draws: once through the kernels (rows 1 and 7,
-    depth x BPD_STEPS launches each, no other kernel) and once through
+    same per-step noise_fn draws: through the kernels captured and replayed
+    (rows 1 and 7, depth x BPD_STEPS launches each, no other kernel), the
+    same eager (bit for bit; s per step in turns, busy shares), and through
     their plain versions on the card (no launch). Returns the seconds."""
     import numpy as np
     import torch
@@ -3855,20 +3967,38 @@ def phase_bpd(dev):
     def model_fn(x, t):
         return model(x, t, o, c, y, band=BAND)
 
+    def bpd(path):
+        return diffusion.calc_bpd_loop(model_fn, x0, noise_fn=lambda k, shape: draws[k],
+                                       cuda_graph=path == "kernels")
+
     out, ms = {}, {}
-    for path in ("kernels", "plain"):
+    depth = len(model.blocks)
+    # the kernels captured and replayed (the default), the same eager, and
+    # the plain versions (eager: a patched wrapper never reaches a graph)
+    for path in ("kernels", "eager", "plain"):
         read_counts = reset_launch_counts()
         start = time.perf_counter()
         with plain_kernels() if path == "plain" else contextlib.nullcontext():
-            out[path] = diffusion.calc_bpd_loop(model_fn, x0, noise_fn=lambda k, shape: draws[k])
+            out[path] = bpd(path)
         torch.cuda.synchronize()
         ms[path] = (time.perf_counter() - start) * 1000
         counts = read_counts()
-        depth = len(model.blocks)
         want = dict.fromkeys(counts, 0)
-        if path == "kernels":
+        if path != "plain":
             want.update(banded_attention=depth * BPD_STEPS, adaln_mlp=depth * BPD_STEPS)
         check(counts == want, f"[bpd] {path} launches {counts}, expected {want}")
+    same = all(torch.equal(out["kernels"][k], out["eager"][k]) for k in out["eager"])
+    turns = ms_per_step_in_turns({"graph": lambda: bpd("kernels"), "eager": lambda: bpd("eager")},
+                                 BPD_STEPS, 2)
+    step_ms = {k: statistics.median(v) for k, v in turns.items()}
+    busy = {k: 100 * device_ms_per_step(lambda p=p: bpd(p), BPD_STEPS) / step_ms[k]
+            for k, p in (("graph", "kernels"), ("eager", "eager"))}
+    print(f"[bpd] {device_line()}: graphed against eager, bit for bit {same}; s per step in turns (graph, "
+          f"eager, eager, graph) graph {', '.join(f'{v / 1000:.6f}' for v in turns['graph'])} against eager "
+          f"{', '.join(f'{v / 1000:.6f}' for v in turns['eager'])}; medians {step_ms['graph'] / 1000:.6f} "
+          f"against {step_ms['eager'] / 1000:.6f} ({step_ms['eager'] / step_ms['graph']:.3f}x), busy "
+          f"{busy['graph']:.1f}% against {busy['eager']:.1f}%")
+    check(same, "[bpd] the graphed loop's entries differ from the eager loop's")
     got, plain = ({k: v.float().cpu() for k, v in out[p].items()} for p in ("kernels", "plain"))
     check(all(bool(torch.isfinite(v).all()) for v in got.values()), "[bpd] non-finite entries")
     check(tuple(got["vb"].shape) == (2, BPD_STEPS) and tuple(got["total_bpd"].shape) == (2,),
@@ -3884,7 +4014,8 @@ def phase_bpd(dev):
           f"{ {k: f'{v:.3e}' for k, v in rels.items()} } (tol {BPD_REL_TOL}); the t = 0 column (decoder "
           f"NLL) kernels {got['vb'][:, -1].tolist()} plain {plain['vb'][:, -1].tolist()} bits, "
           f"relative error {decoder:.3e} (tol {BPD_DECODER_REL_TOL}); launches {depth * BPD_STEPS} each of "
-          f"rows 1 and 7; the loop {ms['kernels']:.1f} ms with the kernels, {ms['plain']:.1f} ms plain; "
+          f"rows 1 and 7; the loop {ms['kernels']:.1f} ms with the kernels (graphed; {ms['eager']:.1f} "
+          f"eager), {ms['plain']:.1f} ms plain; "
           f"the phase took {wall:.1f} s")
     check(prior_equal, "[bpd] prior_bpd differs between the two runs")
     check(max(rels.values()) <= BPD_REL_TOL, f"[bpd] errors {rels}")

@@ -13,7 +13,9 @@ the sampling chains, guidance, the training losses and the likelihood.
   step as a `StepProgram`: one step over static buffers (x, t, the step's
   noise) that writes x in place, the form the Sampler captures as a CUDA
   graph (sampling.py); the noise is drawn outside the step, into its
-  buffer, so a captured chain draws the eager chain's bits. `denoised_fn`
+  buffer, so a captured chain draws the eager chain's bits. `calc_bpd_loop`
+  runs each step as a `BpdProgram` over the same kind of buffers and, on
+  the card, captures and replays it itself (graphs.py). `denoised_fn`
   (in-painting) edits each x0 prediction before the clamp; `cond_fn(x, t,
   **model_kwargs)` guides the mean (ancestral steps) or the score (DDIM).
 - Channel layout is (N, T, C); the eps/variance split is over the last axis.
@@ -37,6 +39,7 @@ import numpy as np
 import torch
 
 from osu_diffusion_tpu_torch.diffusion import schedule as sched
+from osu_diffusion_tpu_torch.graphs import GraphedStep, warm_up
 
 ModelFn = Callable[..., torch.Tensor]  # model(x, t, **model_kwargs) -> (N, T, C')
 NoiseFn = Callable[[int, tuple], torch.Tensor]
@@ -122,6 +125,37 @@ class StepProgram:
     def __call__(self) -> None:
         out = self.step(self.model_fn, self.x, self.t, self.noise, **self.step_kwargs)
         self.x.copy_(out["sample"])
+
+
+class BpdProgram:
+    """One step of `calc_bpd_loop` as a program over static buffers: a call
+    reads x_start, the local timesteps from `t` (N,) and the step's noise
+    from `noise`, and writes the step's vb, xstart_mse and mse, each (N,),
+    into the rows of `out` (3, N). `set` fills t and the noise before each
+    call, outside the program."""
+
+    def __init__(self, diffusion: "GaussianDiffusion", model_fn: ModelFn, x_start: torch.Tensor,
+                 clip_denoised: bool = True, model_kwargs: dict | None = None):
+        self.diffusion, self.model_fn, self.x_start = diffusion, model_fn, x_start
+        self.clip_denoised, self.model_kwargs = clip_denoised, model_kwargs
+        self.t = torch.zeros((x_start.shape[0],), dtype=torch.long, device=x_start.device)
+        self.noise = torch.zeros_like(x_start)
+        self.out = x_start.new_zeros((3, x_start.shape[0]))
+
+    def set(self, i: int, noise: torch.Tensor) -> None:
+        """The next step's local timestep i and noise (copied in)."""
+        self.t.fill_(i)
+        self.noise.copy_(noise)
+
+    def __call__(self) -> None:
+        d, x_start, t, noise = self.diffusion, self.x_start, self.t, self.noise
+        x_t = d.q_sample(x_start, t, noise)
+        out = d._vb_terms_bpd(self.model_fn, x_start, x_t, t, clip_denoised=self.clip_denoised,
+                              model_kwargs=self.model_kwargs)
+        eps = d._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+        self.out[0].copy_(out["output"])
+        self.out[1].copy_(mean_flat((out["pred_xstart"] - x_start) ** 2))
+        self.out[2].copy_(mean_flat((eps - noise) ** 2))
 
 
 @dataclass(frozen=True)
@@ -445,23 +479,36 @@ class GaussianDiffusion:
     @torch.no_grad()
     def calc_bpd_loop(self, model_fn: ModelFn, x_start, generator: torch.Generator | None = None,
                       noise_fn: NoiseFn | None = None, clip_denoised: bool = True,
-                      model_kwargs: dict | None = None) -> dict[str, torch.Tensor]:
+                      model_kwargs: dict | None = None,
+                      cuda_graph: bool = True) -> dict[str, torch.Tensor]:
         """The whole variational bound of x_start, a step for each t = S-1
         .. 0; step k (t = S-1-k) draws its noise as the chains do. Returns
         {total_bpd (N,), prior_bpd (N,), vb, xstart_mse, mse}, the last
-        three (N, S) with column k for t = S-1-k (descending t)."""
-        vb, xstart_mse, mse = [], [], []
-        for k, i in enumerate(range(self.num_timesteps - 1, -1, -1)):
-            t = torch.full((x_start.shape[0],), i, dtype=torch.long, device=x_start.device)
-            noise = draw_noise(k, x_start, generator, noise_fn)
-            x_t = self.q_sample(x_start, t, noise)
-            out = self._vb_terms_bpd(model_fn, x_start, x_t, t, clip_denoised=clip_denoised,
-                                     model_kwargs=model_kwargs)
-            eps = self._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
-            vb.append(out["output"])
-            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
-            mse.append(mean_flat((eps - noise) ** 2))
-        vb, xstart_mse, mse = (torch.stack(a, dim=1) for a in (vb, xstart_mse, mse))
+        three (N, S) with column k for t = S-1-k (descending t).
+
+        Each step is a `BpdProgram`, its noise drawn into the program's
+        buffer outside it and its three outputs copied into column k on the
+        device. On a CUDA device with `cuda_graph` (the default) the first
+        step runs eagerly on a side stream, is captured as a CUDA graph, and
+        every later step replays it (a capture error raises); on the CPU, or
+        with `cuda_graph=False`, every step runs eagerly: the same bits."""
+        s = self.num_timesteps
+        program = BpdProgram(self, model_fn, x_start, clip_denoised=clip_denoised,
+                             model_kwargs=model_kwargs)
+        columns = x_start.new_empty((3, x_start.shape[0], s))
+        graphed = cuda_graph and x_start.device.type == "cuda"
+        graph = None
+        for k, i in enumerate(range(s - 1, -1, -1)):
+            program.set(i, draw_noise(k, x_start, generator, noise_fn))
+            if not graphed:
+                program()
+            elif graph is not None:
+                graph.replay()
+            else:
+                warm_up(program, x_start.device)  # the warm-up is step 0 itself
+                graph = GraphedStep(x_start.device, program)
+            columns[:, :, k].copy_(program.out)
+        vb, xstart_mse, mse = columns.unbind()
         prior_bpd = self._prior_bpd(x_start)
         return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
                 "xstart_mse": xstart_mse, "mse": mse}

@@ -21,16 +21,17 @@ result is a copy of the slice of x (x is the entry's buffer).
 - On a CUDA device (and `cuda_graph`, the default) the first step of each
   kind runs eagerly on a side stream (a warm-up: the kernels are built,
   their attributes set and the weight casts cached) and is then captured
-  as a `torch.cuda.CUDAGraph`; every later step of that kind is a replay.
-  Banded attention reads `valid_len` from its buffer when it runs, so one
-  graph serves every length of its bucket, and nothing in the chain reads
-  the card on the host. A capture or replay error raises: no chain falls
-  back to the eager loop. Each replay adds the launches its capture
-  recorded to the kernel wrappers' counters (the capture itself counts
-  none), so `.launches` still counts the launches that ran on the card.
-  An entry's graphs are captured again when the model's weights have moved
-  or changed in place since (a load, an optimizer step), since a graph
-  keeps the buffers it read (the MLP's bf16 weight copies among them).
+  as a `torch.cuda.CUDAGraph` (graphs.py); every later step of that kind
+  is a replay. Banded attention reads `valid_len` from its buffer when it
+  runs, so one graph serves every length of its bucket, and nothing in the
+  chain reads the card on the host. A capture or replay error raises: no
+  chain falls back to the eager loop. Each replay adds the launches its
+  capture recorded to the kernel wrappers' counters (the capture itself
+  counts none), so `.launches` still counts the launches that ran on the
+  card. An entry's graphs are captured again when the model's weights have
+  moved or changed in place since (a load, an optimizer step), since a
+  graph keeps the buffers it read (the MLP's bf16 weight copies among
+  them).
 - On the CPU, or with `cuda_graph=False`, the same step program runs
   eagerly: the tests' path, and the card's eager side of an A/B.
 - The fixed-interval Δ-cache captures two steps over the same buffers, a
@@ -39,33 +40,33 @@ result is a copy of the slice of x (x is the entry's buffer).
   schedule the host fixes before the chain: a full step every
   `accel_interval`-th step and on the last one. `refine` (t = 0 steps)
   and `progressive` (every step's sample) use the same cache.
-
-What stays eager, and why:
-- the adaptive Δ-cache (`accel_tau`): it skips while the model input's
+- The adaptive Δ-cache (`accel_tau`) skips while the model input's
   relative drift since the last full step, ||x - x_ref|| / ||x_ref|| (over
   the batch, or the largest of its rows' under
   `accel_drift="per_sample_max"`), stays at or below tau, at most
   `accel_max_skip` steps in a row, never on the first or the last step.
-  JAX decides inside `lax.cond`; a graph would need conditional nodes, so
-  here the host reads the drift (one `.item()` a step that may skip) and
-  the chain waits for the card once a step;
-- context parallelism (`cp`, a parallel/mesh.py `Mesh`): its halo
-  exchanges are gloo collectives, host calls. The bucket is raised to a
-  multiple of num_model * 128, each rank of the CP group keeps its rows of
-  z, o and c and runs the chain on them, the per-step noise is drawn at the
-  whole padded shape on every rank from the same generator and sliced, so
-  the chain is the one-device chain, and the result is gathered from the
-  ranks at the end. Every rank of the group calls the sampler with the
-  same inputs and generator seed;
-- `GaussianDiffusion.calc_bpd_loop` (not a Sampler chain).
+  As JAX decides inside its scan, the card decides (`adaptive_skip`, in
+  f32): each step is one "adaptive" graph of a "decide" part, which writes
+  two 0-d bool predicates, and the "record" and "apply" steps as bodies of
+  conditional IF nodes on them (CUDA 12.4 or later; a card or build
+  without them raises). The host reads the count of full steps once, at
+  the chain's end. Eagerly the host reads the predicate once a step.
+
+What stays eager, and why: context parallelism (`cp`, a
+parallel/mesh.py `Mesh`). Its halo exchanges are gloo collectives, host
+calls. The bucket is raised to a multiple of num_model * 128, each rank of
+the CP group keeps its rows of z, o and c and runs the chain on them, the
+per-step noise is drawn at the whole padded shape on every rank from the
+same generator and sliced, so the chain is the one-device chain, and the
+result is gathered from the ranks at the end. Every rank of the group
+calls the sampler with the same inputs and generator seed. The Δ-cache
+refuses CP.
 
 The diffusion math runs in f32 whatever the model stream: x, o and c enter
 the model in f32 (the first layer's sincos needs them), only the residual
 stream runs in `compute_dtype`, and the model's head returns f32.
 """
 from __future__ import annotations
-
-import time
 
 import torch
 import torch.nn.functional as F
@@ -76,8 +77,8 @@ from osu_diffusion_tpu_torch.diffusion.process import (
     StepProgram,
     draw_noise,
 )
+from osu_diffusion_tpu_torch.graphs import GraphedStep, launch_counters, warm_up  # noqa: F401
 from osu_diffusion_tpu_torch.models.dit import DiT
-from osu_diffusion_tpu_torch.ops import adaln_mlp, banded_attention, quant
 from osu_diffusion_tpu_torch.parallel.context import BLOCK, gather_slots, shard_rows
 
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
@@ -120,42 +121,18 @@ def drift(x: torch.Tensor, x_ref: torch.Tensor, per_sample_max: bool) -> torch.T
     return (x - x_ref).norm() / x_ref.norm().clamp(min=1e-6)
 
 
-def launch_counters() -> list[tuple[object, str]]:
-    """(wrapper, attribute) of every launch counter of the kernels: each
-    wrapper's `.launches`, and the int8 out projection's `.o_casts`."""
-    wrappers = banded_attention.WRAPPERS + adaln_mlp.WRAPPERS + quant.WRAPPERS
-    return [(fn, "launches") for fn in wrappers] + [(quant.int8_out_residual, "o_casts")]
-
-
-class GraphedStep:
-    """A step program captured as a CUDA graph. `replay` runs it and adds
-    the counts its capture recorded to the launch counters; the capture's
-    own increments are taken back (it launched nothing). `capture_ms` is the
-    capture's host time, `pool_bytes` the device memory its private pool
-    reserved."""
-
-    def __init__(self, program: StepProgram):
-        counters = launch_counters()
-        device = program.x.device
-        torch.cuda.synchronize(device)
-        torch.cuda.empty_cache()  # as the capture does first: reserved is then what it keeps
-        reserved = torch.cuda.memory_reserved(device)
-        before = [getattr(fn, name) for fn, name in counters]
-        start = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            program()
-        self.capture_ms = (time.perf_counter() - start) * 1000
-        self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
-        self.counts = [(fn, name, getattr(fn, name) - n)
-                       for (fn, name), n in zip(counters, before) if getattr(fn, name) != n]
-        for fn, name, n in self.counts:
-            setattr(fn, name, getattr(fn, name) - n)
-
-    def replay(self) -> None:
-        self.graph.replay()
-        for fn, name, n in self.counts:
-            setattr(fn, name, getattr(fn, name) + n)
+def adaptive_skip(x: torch.Tensor, x_ref: torch.Tensor, t: torch.Tensor, skips: torch.Tensor,
+                  n_full: torch.Tensor, tau, max_skip: int, per_sample_max: bool) -> torch.Tensor:
+    """The adaptive Δ-cache's decision for one step, a 0-d bool tensor on
+    x's device, as JAX's scan body decides it: skip where the drift of x
+    from x_ref is at most tau, compared in f32 (tau a float, or a 0-d f32
+    tensor on x's device, as a graph needs it), fewer than max_skip steps
+    in a row have skipped, the local timesteps t are not the last (t > 0)
+    and a Δ has been recorded (n_full > 0). The drift is read through the
+    module's `drift`."""
+    tau = torch.as_tensor(tau, dtype=torch.float32, device=x.device)
+    return ((drift(x, x_ref, per_sample_max) <= tau) & (skips < max_skip) & (t > 0).all()
+            & (n_full > 0))
 
 
 def _weights_key(model: torch.nn.Module) -> tuple:
@@ -166,10 +143,20 @@ def _weights_key(model: torch.nn.Module) -> tuple:
 
 class Chain:
     """One entry of the Sampler's cache: the static buffers of a chain at
-    (N, T_pad, inpaint, use_cfg) and its step programs over them, "step"
-    (one kind), or "record" and "apply" (the fixed Δ-cache), each run
-    eagerly or, once warmed up, replayed as a CUDA graph (`graphs`, by
-    kind). `captures` counts the captures of each kind."""
+    (N, T_pad, inpaint, use_cfg) and its step programs over them: "step"
+    (one kind), or "record" and "apply" (the fixed Δ-cache), each a step
+    kind of its own; or, for the adaptive Δ-cache, one step kind
+    "adaptive" over "record" and "apply". Each step kind runs eagerly or,
+    once warmed up, is replayed as a CUDA graph (`graphs`, by kind).
+    `captures` counts the captures of each kind.
+
+    The adaptive step is JAX's scan body over the buffers x, Δ, x_ref,
+    skips and n_full: "decide" writes the 0-d bool predicates `skip`
+    (`adaptive_skip`) and `full` (its negation) before either body runs;
+    the record body (x_ref = x, the "record" program, skips = 0, n_full +=
+    1) runs where `full` holds, the apply body (the "apply" program, skips
+    += 1) where `skip` holds. In the graph each body sits under an IF node
+    on its predicate; eagerly the host reads `full`."""
 
     def __init__(self, sampler: "Sampler", kind: str, z, o, c, y, inpaint: bool, use_cfg: bool):
         model, diffusion, dev = sampler.model, sampler.diffusion, z.device
@@ -199,7 +186,8 @@ class Chain:
 
         step = diffusion.ddim_sample if kind.startswith("ddim") else diffusion.p_sample
         common = dict(clip_denoised=sampler.clip_denoised, denoised_fn=denoised_fn)
-        if not kind.endswith("delta"):
+        self.adaptive = kind.endswith("adaptive")
+        if kind in ("ancestral", "ddim"):
             self.programs = {"step": StepProgram(step, model_fn, self.x, **common)}
         else:
             hidden = model.final_layer.linear.in_features
@@ -217,14 +205,21 @@ class Chain:
             first = StepProgram(step, record, self.x, **common)
             self.programs = {"record": first,
                              "apply": StepProgram(step, apply, self.x, first.t, first.noise, **common)}
+        if self.adaptive:
+            self.x_ref = torch.zeros_like(self.x)  # JAX's xref0
+            self.skips, self.n_full = (torch.zeros((), dtype=torch.int32, device=dev) for _ in range(2))
+            self.full, self.skip = (torch.zeros((), dtype=torch.bool, device=dev) for _ in range(2))
+            self.tau = torch.tensor(sampler.accel_tau, dtype=torch.float32, device=dev)
+            self.max_skip = sampler.accel_max_skip
+            self.per_sample_max = sampler.accel_drift == "per_sample_max"
         self.graphs: dict[str, GraphedStep] = {}
-        self.captures = dict.fromkeys(self.programs, 0)
+        self.captures = dict.fromkeys(["adaptive"] if self.adaptive else self.programs, 0)
         self.weights = None
 
     def load(self, z, o, c, y, t_real: int, known_x=None, known_mask=None) -> None:
-        """Copy one call's padded inputs and real length into the buffers;
-        drop the graphs if the model's weights changed since they were
-        captured."""
+        """Copy one call's padded inputs and real length into the buffers
+        (and reset the adaptive chain's state); drop the graphs if the
+        model's weights changed since they were captured."""
         weights = _weights_key(self.model)
         if weights != self.weights:
             self.graphs.clear()
@@ -235,25 +230,82 @@ class Chain:
             self.known_x.copy_(known_x)
             self.known_mask.copy_(known_mask)
         self.valid.fill_(t_real)
+        if self.adaptive:
+            for buf in (self.x_ref, self.skips, self.n_full):
+                buf.zero_()
+
+    # -- the adaptive step's parts (class docstring) -------------------------
+
+    def _decide(self) -> None:
+        skip = adaptive_skip(self.x, self.x_ref, self.programs["record"].t, self.skips, self.n_full,
+                             self.tau, self.max_skip, self.per_sample_max)
+        self.skip.copy_(skip)
+        torch.logical_not(skip, out=self.full)
+
+    def _record(self) -> None:
+        self.x_ref.copy_(self.x)
+        self.programs["record"]()
+        self.skips.zero_()
+        self.n_full.add_(1)
+
+    def _apply(self) -> None:
+        self.programs["apply"]()
+        self.skips.add_(1)
 
     def step(self, kind: str, k: int, i: int, generator, noise_fn) -> None:
-        """Step k of the chain (local timestep i) with the `kind` program:
-        its noise drawn into the buffer, then the program run or replayed."""
-        program = self.programs[kind]
+        """Step k of the chain (local timestep i) of step kind `kind`: its
+        noise drawn into the buffer, then the step run or replayed."""
+        program = self.programs["record" if kind == "adaptive" else kind]
         program.set(i, draw_noise(k, self.x, generator, noise_fn))
         if not self.graphed:
-            program()
+            if kind != "adaptive":
+                program()
+                return
+            self._decide()
+            (self._record if self.full.item() else self._apply)()
         elif kind in self.graphs:
             self.graphs[kind].replay()
         else:
-            # the warm-up: this step runs eagerly on a side stream, then is captured
-            side = torch.cuda.Stream(self.x.device)
-            side.wait_stream(torch.cuda.current_stream(self.x.device))
-            with torch.cuda.stream(side):
-                program()
-            torch.cuda.current_stream(self.x.device).wait_stream(side)
-            self.graphs[kind] = GraphedStep(program)
-            self.captures[kind] += 1
+            self._capture(kind)
+
+    def _capture(self, kind: str) -> None:
+        """The first step of `kind` on the card: a warm-up on a side stream,
+        then the capture. A plain kind's warm-up is the step itself. The
+        adaptive step's runs "decide" and both bodies, putting the chain's
+        state back after each (the first step always records, so the apply
+        body has not run; a capture cannot build a kernel, set an attribute
+        or fill a weight cast lazily), and its graph then replays for the
+        step."""
+        device = self.x.device
+        if kind != "adaptive":
+            warm_up(self.programs[kind], device)
+            self.graphs[kind] = GraphedStep(device, self.programs[kind])
+        else:
+            state = (self.x, self.delta, self.x_ref, self.skips, self.n_full)
+
+            def warm():
+                saved = [a.clone() for a in state]
+                self._decide()
+                for body in (self._record, self._apply):
+                    body()
+                    for a, s in zip(state, saved):
+                        a.copy_(s)
+
+            warm_up(warm, device)
+            self.graphs[kind] = GraphedStep(device, self._decide,
+                                            [(self.full, self._record), (self.skip, self._apply)])
+            self.graphs[kind].replay()
+        self.captures[kind] += 1
+
+    def full_steps(self, steps: int) -> int:
+        """The adaptive chain's full steps, n_full read once at its end (the
+        chain's one read of the card). A graphed chain replayed the
+        adaptive graph every step: its bodies' launches are added to the
+        counters here, n_full record bodies and steps - n_full apply ones."""
+        n_full = int(self.n_full)
+        if "adaptive" in self.graphs:
+            self.graphs["adaptive"].count_bodies((n_full, steps - n_full))
+        return n_full
 
 
 class Sampler:
@@ -326,9 +378,10 @@ class Sampler:
     # -- the step-program chains (module docstring) --------------------------
 
     def _chain(self, kind: str, z, o, c, y, known_x, known_mask, use_cfg: bool) -> tuple[Chain, int]:
-        """The cache entry of `kind` ("ancestral", "ddim", or with "-delta"
-        the fixed Δ-cache's pair) at the call's key, its buffers loaded
-        with the call's padded inputs; and the real length."""
+        """The cache entry of `kind` ("ancestral", "ddim", with "-delta"
+        the fixed Δ-cache's pair, with "-adaptive" the adaptive Δ-cache's
+        step) at the call's key, its buffers loaded with the call's padded
+        inputs; and the real length."""
         t_real = z.shape[1]
         t_pad = _bucketed(t_real, self.bucket)
         if not 1 <= t_real <= t_pad:
@@ -347,7 +400,7 @@ class Sampler:
         """(k, i) of each step: step index k, local timestep i = S-1-k."""
         return enumerate(range(self.diffusion.num_timesteps - 1, -1, -1))
 
-    # -- eager chains: context parallelism and the adaptive Δ-cache ---------
+    # -- the eager chain: context parallelism ---------------------------------
 
     def _setup(self, z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn):
         """Pad to the bucket (and shard under CP): (x_T, model_fn(x, t,
@@ -395,60 +448,32 @@ class Sampler:
         padded_shape)`. In-painting: `known_x` (N, T, 2) and `known_mask`
         (N, T, 2), True where the sampler generates and False where each x0
         prediction is replaced by known_x. Returns (N, T, 2)."""
-        if self.cp is not None or self.accel_tau is not None:  # the eager chains
+        if self.cp is not None:  # the eager chain (module docstring)
             zp, model_fn, denoised_fn, noise_fn, finish = self._setup(
                 z, o, c, y, known_x, known_mask, use_cfg, generator, noise_fn)
-            if self.accel:
-                return finish(self._accel_chain(model_fn, zp, denoised_fn, generator, noise_fn))
             loop = (self.diffusion.ddim_sample_loop if self.method == "ddim"
                     else self.diffusion.p_sample_loop)
             return finish(loop(model_fn, zp, generator=generator, noise_fn=noise_fn,
                                clip_denoised=self.clip_denoised, denoised_fn=denoised_fn))
-        kind = self.method + "-delta" * self.accel
+        adaptive = self.accel_tau is not None
+        kind = self.method + ("-adaptive" if adaptive else "-delta" if self.accel else "")
         chain, t_real = self._chain(kind, z, o, c, y, known_x, known_mask, use_cfg)
         s = self.diffusion.num_timesteps
         n_full = 0
         for k, i in self._steps():
-            # fixed Δ-cache: full every accel_interval-th step and on the last one
-            full = not self.accel or k % self.accel_interval == 0 or k == s - 1
-            n_full += full
-            chain.step(("record" if full else "apply") if self.accel else "step", k, i, generator,
-                       noise_fn)
-        if self.accel:
-            self.last_full_model_steps = n_full
-        return chain.x[:, :t_real].clone()
-
-    def _accel_chain(self, model_fn, x, denoised_fn, generator, noise_fn) -> torch.Tensor:
-        """The adaptive Δ-cache chain: a full ("record") or a skipped
-        ("apply") model call a step, the host reading the drift."""
-        diffusion = self.diffusion
-        step_fn = diffusion.ddim_sample if self.method == "ddim" else diffusion.p_sample
-        delta = x_ref = None
-        skips = n_full = 0
-        for k, i in self._steps():
-            # a zero Δ is never applied (n_full > 0); the drift is read
-            # only where the other conditions let the step skip
-            skip = (n_full > 0 and i > 0 and skips < self.accel_max_skip
-                    and drift(x, x_ref, self.accel_drift == "per_sample_max").item()
-                    <= self.accel_tau)
-            cell = {}  # the step calls the model once; its Δ comes out here
-
-            def step_model(xx, tt):
-                out, cell["delta"] = model_fn(xx, tt, delta_mode="apply" if skip else "record",
-                                              delta_span=self.accel_span, delta=delta)
-                return out
-
-            t = torch.full((x.shape[0],), i, dtype=torch.long, device=x.device)
-            x_next = step_fn(step_model, x, t, draw_noise(k, x, generator, noise_fn),
-                             clip_denoised=self.clip_denoised, denoised_fn=denoised_fn)["sample"]
-            delta = cell["delta"]
-            if skip:
-                skips += 1
+            if adaptive:
+                step = "adaptive"
+            elif self.accel:
+                # fixed Δ-cache: full every accel_interval-th step and on the last one
+                full = k % self.accel_interval == 0 or k == s - 1
+                n_full += full
+                step = "record" if full else "apply"
             else:
-                x_ref, skips, n_full = x, 0, n_full + 1
-            x = x_next
-        self.last_full_model_steps = n_full
-        return x
+                step = "step"
+            chain.step(step, k, i, generator, noise_fn)
+        if self.accel:
+            self.last_full_model_steps = chain.full_steps(s) if adaptive else n_full
+        return chain.x[:, :t_real].clone()
 
     @torch.no_grad()
     def progressive(self, z, o, c, y, generator: torch.Generator | None = None,

@@ -12,7 +12,9 @@ JAX package's, on the CPU (f32 on both sides, the same numpy inputs):
 - q_mean_variance and continuous_gaussian_log_likelihood; calc_bpd_loop
   with JAX's draws fed through noise_fn, on the closed-form model and on a
   small DiT with learn_sigma=False (2 blocks, hidden 64, one head) whose
-  weights cross by the JAX package's params_to_torch_state_dict;
+  weights cross by the JAX package's params_to_torch_state_dict; its step
+  program (`BpdProgram`) against the eager step loop it replaced, bit for
+  bit, on both;
 - forward_with_cfg on that DiT against JAX's, and the Sampler (ancestral
   and DDIM, the Δ-cache, the int8 blocks) on it under the fixed variances;
 - train_step with use_kl, and with predict_xstart on a DiT with
@@ -360,6 +362,58 @@ def test_calc_bpd_loop_matches_jax(mean, var):
                                rtol=1e-6)
 
 
+def _bpd_step_loop(d, model_fn, x_start, generator=None, noise_fn=None, model_kwargs=None):
+    """calc_bpd_loop as the port ran it before its step program: a Python
+    loop of eager steps, a fresh t and draw each step, the columns stacked."""
+    from osu_diffusion_tpu_torch.diffusion.process import draw_noise, mean_flat
+
+    vb, xstart_mse, mse = [], [], []
+    with torch.no_grad():
+        for k, i in enumerate(range(d.num_timesteps - 1, -1, -1)):
+            t = torch.full((x_start.shape[0],), i, dtype=torch.long)
+            noise = draw_noise(k, x_start, generator, noise_fn)
+            x_t = d.q_sample(x_start, t, noise)
+            out = d._vb_terms_bpd(model_fn, x_start, x_t, t, model_kwargs=model_kwargs)
+            eps = d._predict_eps_from_xstart(x_t, t, out["pred_xstart"])
+            vb.append(out["output"])
+            xstart_mse.append(mean_flat((out["pred_xstart"] - x_start) ** 2))
+            mse.append(mean_flat((eps - noise) ** 2))
+        vb, xstart_mse, mse = (torch.stack(a, dim=1) for a in (vb, xstart_mse, mse))
+        prior_bpd = d._prior_bpd(x_start)
+    return {"total_bpd": vb.sum(dim=1) + prior_bpd, "prior_bpd": prior_bpd, "vb": vb,
+            "xstart_mse": xstart_mse, "mse": mse}
+
+
+def _check_bpd_bits(got, want):
+    assert set(got) == set(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and torch.equal(got[key], want[key]), key
+
+
+@pytest.mark.parametrize("noise", ["generator", "noise_fn"])
+@pytest.mark.parametrize("mean,var", [("epsilon", "learned_range"), ("xstart", "fixed_small"),
+                                      ("xprev", "fixed_large")])
+def test_calc_bpd_loop_program_equals_the_step_loop(mean, var, noise):
+    """The step program (`BpdProgram`, its outputs copied into column k)
+    gives the eager step loop's five entries bit for bit, with
+    cuda_graph=True (eager on the CPU) and False, by both noise sources."""
+    steps = 5
+    jd, pd = _processes(str(steps), "mse", mean, var)
+    _, pfn = _models(jd, pd)
+    x0 = torch.from_numpy(np.clip(_x((3, 12, 2), seed=7, scale=0.6), -1, 1))
+    kwargs = dict(scale=0.7)
+
+    def draws():
+        if noise == "generator":
+            return dict(generator=torch.Generator().manual_seed(3))
+        return dict(noise_fn=lambda k, shape: torch.from_numpy(_x(shape, seed=50 + k)))
+
+    want = _bpd_step_loop(pd, pfn, x0, model_kwargs=kwargs, **draws())
+    for cuda_graph in (True, False):
+        _check_bpd_bits(pd.calc_bpd_loop(pfn, x0, model_kwargs=kwargs, cuda_graph=cuda_graph, **draws()),
+                        want)
+
+
 # -- a small DiT with C output channels ------------------------------------------
 
 DIT = dict(hidden_size=64, depth=2, num_heads=1, num_classes=7, context_size=144)
@@ -437,6 +491,22 @@ def test_calc_bpd_loop_through_a_dit_matches_jax(dit):
     assert got["vb"].shape == (2, steps)
     assert all(torch.isfinite(v).all() for v in got.values())
     _check_bpd(got, want, rel_tol=DIT_BPD_REL_TOL)
+
+
+def test_calc_bpd_loop_program_through_a_dit_equals_the_step_loop(dit):
+    """Through the 2-block DiT with a band and a valid_len (the model
+    forward [bpd] runs on the card), the step program's five entries are
+    the eager step loop's bits."""
+    port = dit[2]
+    pd = create_diffusion("4", noise_schedule="squaredcos_cap_v2", learn_sigma=False, sigma_small=True)
+    x0, o, c, y = (torch.from_numpy(a) for a in _dit_inputs(t=48))
+
+    def pfwd(x, t):
+        return port(x, t, o, c, y, band=BAND, valid_len=T_REAL)
+
+    want = _bpd_step_loop(pd, pfwd, x0, generator=torch.Generator().manual_seed(9))
+    got = pd.calc_bpd_loop(pfwd, x0, generator=torch.Generator().manual_seed(9))
+    _check_bpd_bits(got, want)
 
 
 def test_forward_with_cfg_without_learn_sigma_matches_jax(dit):

@@ -4,7 +4,9 @@ and the four ranged entries of context parallelism),
 the fused adaLN-MLP (inference and training forward, the two stages of the
 fused backward, int8 serving) and the
 int8 projections, each alone and, where it has one, inside its autograd
-Function. Imports torch only (no jax), so the card's
+Function; and the Sampler's and calc_bpd_loop's CUDA graphs (the adaptive
+Δ-cache's conditional IF nodes among them) against the same chains eager.
+Imports torch only (no jax), so the card's
 machine runs it:
 
     python -m pytest --noconftest tests/test_torch_kernels.py -q
@@ -972,28 +974,37 @@ def test_banded_attention_reads_valid_len_on_the_device(cuda_device, dtype):
         tba.banded_attention_fwd_lse(q, k, v, 128, valid_dev)
 
 
+def _small_dit(device, steps):
+    """A DiT-S-width model (depth 2, random weights) on the card, its
+    diffusion of `steps` steps, and CFG-doubled inputs (z, o, c, y) of 120
+    rows."""
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT
+
+    torch.manual_seed(0)
+    model = DiT(hidden_size=384, depth=2, num_heads=6, num_classes=7).to(device).eval()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.05)
+    diffusion = create_diffusion(str(steps), noise_schedule="squaredcos_cap_v2", device=device)
+    g = torch.Generator(device=device).manual_seed(1)
+    z = torch.randn(1, 120, 2, generator=g, device=device).repeat(2, 1, 1)
+    o = torch.cumsum(torch.rand(1, 120, generator=g, device=device) * 300, 1).repeat(2, 1)
+    c = torch.rand(1, 120, 144, generator=g, device=device).repeat(2, 1, 1)
+    y = torch.tensor([1, 7], device=device)
+    return model, diffusion, (z, o, c, y)
+
+
 @pytest.mark.cuda
 def test_sampler_graph_equals_eager_chain(cuda_device):
     """A DiT-S-width model (depth 2): the graphed chain equals the eager one
     bit for bit at two lengths of one bucket, with one capture, launches
     steps x depth in each chain (the capture counts none), and no host sync
     in a replayed chain."""
-    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
-    from osu_diffusion_tpu_torch.models.dit import DiT
     from osu_diffusion_tpu_torch.sampling import Sampler
 
-    torch.manual_seed(0)
-    model = DiT(hidden_size=384, depth=2, num_heads=6, num_classes=7).to(cuda_device).eval()
-    with torch.no_grad():
-        for p in model.parameters():
-            p.normal_(0.0, 0.05)
-    diffusion = create_diffusion("4", noise_schedule="squaredcos_cap_v2", device=cuda_device)
+    model, diffusion, (z, o, c, y) = _small_dit(cuda_device, 4)
     graph, eager = (Sampler(model, diffusion, cfg_scale=2.0, band=16, cuda_graph=on) for on in (True, False))
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    z = torch.randn(1, 120, 2, generator=g, device=cuda_device).repeat(2, 1, 1)
-    o = torch.cumsum(torch.rand(1, 120, generator=g, device=cuda_device) * 300, 1).repeat(2, 1)
-    c = torch.rand(1, 120, 144, generator=g, device=cuda_device).repeat(2, 1, 1)
-    y = torch.tensor([1, 7], device=cuda_device)
     for t in (120, 100, 120):
         args = (z[:, :t], o[:, :t], c[:, :t], y)
         before = tba.banded_attention.launches, tam.adaln_mlp.launches
@@ -1008,3 +1019,95 @@ def test_sampler_graph_equals_eager_chain(cuda_device):
         assert torch.equal(got, want)
     (entry,) = graph._cache.values()
     assert entry.captures == {"step": 1}
+
+
+ADAPTIVE_STEPS = 8
+ADAPTIVE_SPAN = (1, 2)  # of the 2 blocks: a skipped step runs block 0 only
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("drift_mode", ["global", "per_sample_max"])
+def test_sampler_adaptive_graph_equals_eager_chain(cuda_device, drift_mode, monkeypatch):
+    """The adaptive Δ-cache graphed (a "decide" part, the record and apply
+    bodies under IF nodes) against cuda_graph=False at two lengths of one
+    bucket: the same bits and full steps, one capture; launches by the
+    schedule (n_full x depth + skipped x (depth - span)), the first chain's
+    plus the warm-up's record and apply bodies; no host sync in a replayed
+    chain but its one read of n_full at the end. tau is the median of an
+    eager tau-0 chain's drifts, so both bodies run."""
+    from osu_diffusion_tpu_torch import sampling
+
+    model, diffusion, (z, o, c, y) = _small_dit(cuda_device, ADAPTIVE_STEPS)
+    drifts = []
+    orig_drift = sampling.drift
+
+    def recorded(*a):
+        d = orig_drift(*a)
+        drifts.append(d.item())
+        return d
+
+    def make(tau, cuda_graph):
+        return sampling.Sampler(model, diffusion, cfg_scale=2.0, band=16, accel_tau=tau,
+                                accel_span=ADAPTIVE_SPAN, accel_max_skip=2, accel_drift=drift_mode,
+                                cuda_graph=cuda_graph)
+
+    monkeypatch.setattr(sampling, "drift", recorded)
+    make(0.0, False)(z, o, c, y, generator=torch.Generator(device=cuda_device).manual_seed(2))
+    monkeypatch.setattr(sampling, "drift", orig_drift)
+    tau = sorted(drifts[1:-1])[len(drifts[1:-1]) // 2]
+    graph, eager = make(tau, True), make(tau, False)
+
+    orig_full_steps = sampling.Chain.full_steps
+
+    def read_n_full(self, steps):  # the chain's one read of the card, at its end
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            return orig_full_steps(self, steps)
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    depth, span = len(model.blocks), ADAPTIVE_SPAN[1] - ADAPTIVE_SPAN[0]
+    for n, t in enumerate((120, 100, 120)):
+        args = (z[:, :t], o[:, :t], c[:, :t], y)
+        before = tba.banded_attention.launches, tam.adaln_mlp.launches
+        if n:
+            monkeypatch.setattr(sampling.Chain, "full_steps", read_n_full)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = graph(*args, generator=torch.Generator(device=cuda_device).manual_seed(t))
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            monkeypatch.setattr(sampling.Chain, "full_steps", orig_full_steps)
+        full = graph.last_full_model_steps
+        launches = (tba.banded_attention.launches - before[0], tam.adaln_mlp.launches - before[1])
+        want_launches = full * depth + (ADAPTIVE_STEPS - full) * (depth - span)
+        if n == 0:
+            want_launches += depth + depth - span  # the warm-up ran each body once
+        assert launches == (want_launches, want_launches)
+        want = eager(*args, generator=torch.Generator(device=cuda_device).manual_seed(t))
+        assert torch.equal(got, want)
+        assert type(full) is int and full == eager.last_full_model_steps and 1 < full < ADAPTIVE_STEPS
+    (entry,) = graph._cache.values()
+    assert entry.captures == {"adaptive": 1}
+
+
+@pytest.mark.cuda
+def test_calc_bpd_loop_graph_equals_eager(cuda_device):
+    """calc_bpd_loop through the DiT-S-width model on the card, captured and
+    replayed against cuda_graph=False: the five entries bit for bit, and
+    steps x depth launches of rows 1 and 7 in each run."""
+    model, diffusion, (z, o, c, y) = _small_dit(cuda_device, 6)
+    x0 = z.clamp(-1, 1)
+
+    def model_fn(x, t):
+        return model(x, t, o, c, y, band=16)
+
+    out = {}
+    for cuda_graph in (True, False):
+        before = tba.banded_attention.launches, tam.adaln_mlp.launches
+        out[cuda_graph] = diffusion.calc_bpd_loop(model_fn, x0, generator=torch.Generator(device=cuda_device).manual_seed(3),
+                                                  cuda_graph=cuda_graph)
+        launches = (tba.banded_attention.launches - before[0], tam.adaln_mlp.launches - before[1])
+        assert launches == (6 * len(model.blocks),) * 2
+    assert all(torch.equal(out[True][k], out[False][k]) for k in out[False])
+    assert all(bool(torch.isfinite(v).all()) for v in out[True].values())

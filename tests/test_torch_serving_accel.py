@@ -14,7 +14,8 @@ chain, bit for bit. The chains against JAX run DDIM: an ancestral chain
 here amplifies the two packages' f32 ordering differences near t = T past
 5e-3 in single elements, the exact chain as much as an accelerated one (up
 to 7e-3 seen at 6 steps), where DDIM's deterministic steps keep the gap
-below 3e-4.
+below 3e-4. `adaptive_skip` at a drift of exactly f32(tau) against JAX's
+comparison: exact (one comparison of the same f32 value).
 """
 import copy
 
@@ -201,6 +202,49 @@ def test_adaptive_intermediate_tau_skips_and_is_deterministic(jittered):
     fixed = _sampler(port, steps=20, accel_interval=2, accel_span=SPAN)
     _chain(fixed)
     assert fixed.last_full_model_steps == 11  # the 10 even positions and the last step
+
+
+@pytest.mark.parametrize("drift_mode", sampling.ACCEL_DRIFTS)
+@pytest.mark.parametrize("tau", [0.1, 0.3])
+def test_adaptive_skip_compares_in_f32_as_jax(tau, drift_mode):
+    """A drift of exactly f32(tau) (x_ref [[1, 0]], x [[1, f32(tau)]]):
+    `adaptive_skip` returns JAX's `drift <= tau`, tau a weak-typed f32, as
+    its scan body computes it (exact: one comparison of the same f32
+    drift); the comparison of the drift as a Python double with the Python
+    tau decides the other way at both taus."""
+    x_ref = np.array([[1.0, 0.0]], np.float32)
+    x = np.array([[1.0, tau]], np.float32)
+    if drift_mode == "per_sample_max":
+        jax_drift = jax.numpy.max(
+            jax.numpy.linalg.norm((x - x_ref).reshape(1, -1), axis=1)
+            / jax.numpy.maximum(jax.numpy.linalg.norm(x_ref.reshape(1, -1), axis=1), 1e-6))
+    else:
+        jax_drift = jax.numpy.linalg.norm(x - x_ref) / jax.numpy.maximum(jax.numpy.linalg.norm(x_ref), 1e-6)
+    want = bool(jax_drift <= tau)
+    per_sample_max = drift_mode == "per_sample_max"
+    tx, tref = torch.from_numpy(x), torch.from_numpy(x_ref)
+    assert sampling.drift(tx, tref, per_sample_max).item() == float(np.float32(tau))
+    one = torch.tensor(1, dtype=torch.int32)
+    got = sampling.adaptive_skip(tx, tref, torch.tensor([3, 3]), one - 1, one, tau, 7, per_sample_max)
+    assert got.dtype == torch.bool and got.ndim == 0
+    assert bool(got) == want
+    assert (sampling.drift(tx, tref, per_sample_max).item() <= tau) != want
+
+
+def test_adaptive_skip_guards():
+    """With the drift below tau, each other condition alone refuses the
+    skip: max_skip steps skipped in a row, the last timestep (t = 0), no Δ
+    recorded yet (n_full = 0); the same with tau a 0-d f32 tensor."""
+    x_ref = torch.tensor([[1.0, 0.0]])
+    x = torch.tensor([[1.0, 0.05]])
+    i32 = dict(dtype=torch.int32)
+
+    def skip(t=3, skips=0, n_full=1, tau=0.1):
+        return bool(sampling.adaptive_skip(x, x_ref, torch.tensor([t, t]), torch.tensor(skips, **i32),
+                                           torch.tensor(n_full, **i32), tau, 3, False))
+
+    assert skip() and skip(skips=2) and skip(tau=torch.tensor(0.1))
+    assert not skip(skips=3) and not skip(t=0) and not skip(n_full=0) and not skip(tau=0.01)
 
 
 def test_adaptive_guards(jittered):

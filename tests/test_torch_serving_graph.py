@@ -5,12 +5,14 @@ length a 0-d int32 `valid_len` tensor (on the card a CUDA graph replays
 the step; here the same program runs eagerly).
 
 - (a) every chain kind the graphs cover (ancestral, DDIM, the fixed
-  Δ-cache, in-painting, the plain forward, refine, progressive), with a
+  Δ-cache, in-painting, the plain forward, refine, progressive, and the
+  adaptive Δ-cache in both drift modes and with DDIM in-painting), with a
   generator and with a `noise_fn`, equals the eager loop the Sampler ran
-  before the step programs (written out below) bit for bit;
+  before the step programs (written out below; its adaptive decision JAX's
+  f32 comparison) bit for bit, with the same full steps;
 - (b) two lengths in one bucket share one cache entry, and each chain
-  equals a fresh sampler's bit for bit; a weight change between calls is
-  seen;
+  (the adaptive one too, with its full steps an int) equals a fresh
+  sampler's bit for bit; a weight change between calls is seen;
 - (c) a forward with `valid_len` a 0-d tensor equals the int form bit for
   bit (f32 and int8 blocks, banded and full attention, and the banded
   attention wrappers alone), and equals JAX's `DiT.apply(...,
@@ -39,7 +41,7 @@ from osu_diffusion_tpu_torch.diffusion.process import create_diffusion, draw_noi
 from osu_diffusion_tpu_torch.models.dit import DiT
 from osu_diffusion_tpu_torch.models.quantize import quantize_state_dict
 from osu_diffusion_tpu_torch.ops import adaln_mlp, banded_attention, quant
-from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time, launch_counters
+from osu_diffusion_tpu_torch.sampling import Sampler, _bucketed, _pad_time, drift, launch_counters
 from osu_diffusion_tpu_torch.train.checkpoint import state_dict_from_jax_params
 
 HIDDEN, DEPTH, HEADS, CLASSES, CTX = 64, 3, 4, 7, 144
@@ -47,6 +49,10 @@ BAND, BUCKET, T, STEPS, CFG = 16, 16, 40, 6, 2.0
 SPAN = (1, 2)
 INTERVAL = 3
 REFINE_ITERS = 3
+# the adaptive Δ-cache's tau and cap: this chain's drifts after its first
+# step run 1.26 to 0.19 (global) and 1.27 to 0.19 (per_sample_max), so
+# both full and skipped steps come up
+ADAPTIVE = dict(accel_tau=1.0, accel_span=SPAN, accel_max_skip=2)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -139,8 +145,20 @@ def _eager_chain(sampler, z, o, c, y, generator, noise_fn, known_x=None, known_m
     steps = [(k, 0) for k in range(refine_iters)] if refine_iters else enumerate(range(s - 1, -1, -1))
     step_fn = diffusion.ddim_sample if sampler.method == "ddim" and not progressive else diffusion.p_sample
     x, delta, frames = zp, None, []
+    adaptive = sampler.accel_tau is not None
+    x_ref, skips, n_full = torch.zeros_like(zp), 0, 0
     for k, i in steps:
-        skip = sampler.accel and k % sampler.accel_interval != 0 and k < s - 1
+        if adaptive:
+            # JAX's decision: the f32 drift against tau rounded to f32
+            d = drift(x, x_ref, sampler.accel_drift == "per_sample_max").item()
+            skip = (d <= float(np.float32(sampler.accel_tau)) and skips < sampler.accel_max_skip
+                    and i > 0 and n_full > 0)
+            if skip:
+                skips += 1
+            else:
+                x_ref, skips, n_full = x, 0, n_full + 1
+        else:
+            skip = sampler.accel and k % sampler.accel_interval != 0 and k < s - 1
         cell = {}
 
         def step_model(xx, tt):
@@ -157,11 +175,13 @@ def _eager_chain(sampler, z, o, c, y, generator, noise_fn, known_x=None, known_m
         frames.append(x)
     if progressive:
         return torch.stack(frames)[..., :t_real, :]
+    if adaptive:
+        return x[:, :t_real], n_full
     return x[:, :t_real]
 
 
 CHAINS = ["ancestral", "ddim", "fixed_delta", "inpaint", "no_cfg", "refine", "refine_pinned",
-          "progressive"]
+          "progressive", "adaptive", "adaptive_per_sample_max", "adaptive_ddim_inpaint"]
 
 
 @pytest.mark.parametrize("noise", ["generator", "noise_fn"])
@@ -172,11 +192,15 @@ def test_step_program_chain_equals_eager_loop(models, chain, noise):
     kw = dict(method="ddim") if chain == "ddim" else {}
     if chain == "fixed_delta":
         kw = dict(accel_interval=INTERVAL, accel_span=SPAN)
+    if chain.startswith("adaptive"):
+        kw = dict(ADAPTIVE, accel_drift="per_sample_max" if chain.endswith("max") else "global")
+        if chain.endswith("inpaint"):
+            kw["method"] = "ddim"
     sampler = Sampler(port, create_diffusion(str(STEPS), noise_schedule="squaredcos_cap_v2"),
                       cfg_scale=CFG, band=BAND, bucket=BUCKET, **kw)
     z, o, c, y = _inputs(cfg=chain not in ("no_cfg", "refine_pinned"))
     call = dict(use_cfg=chain not in ("no_cfg", "refine_pinned"))
-    if chain == "inpaint":
+    if chain.endswith("inpaint"):
         call["known_x"], call["known_mask"] = _known(z)
 
     def draws():
@@ -196,6 +220,12 @@ def test_step_program_chain_equals_eager_loop(models, chain, noise):
     else:
         got = sampler(z, o, c, y, **draws(), **call)
         want = _eager_chain(sampler, z, o, c, y, **draws(), **call)
+    if chain.startswith("adaptive"):
+        want, n_full = want
+        assert type(sampler.last_full_model_steps) is int
+        assert sampler.last_full_model_steps == n_full and 1 < n_full < STEPS
+        (entry,) = sampler._cache.values()
+        assert set(entry.programs) == {"record", "apply"} and entry.captures == {"adaptive": 0}
     assert got.shape == want.shape and torch.isfinite(got).all()
     assert torch.equal(got, want)
     assert len(sampler._cache) == 1
@@ -203,7 +233,7 @@ def test_step_program_chain_equals_eager_loop(models, chain, noise):
         assert sampler.last_full_model_steps == len(range(0, STEPS, INTERVAL)) + ((STEPS - 1) % INTERVAL != 0)
         (entry,) = sampler._cache.values()
         assert set(entry.programs) == {"record", "apply"}
-    if chain == "inpaint":
+    if chain.endswith("inpaint"):
         known_x, free = call["known_x"], call["known_mask"]
         assert (got[~free] - known_x[~free]).abs().max().item() <= 1e-6
 
@@ -227,6 +257,36 @@ def test_one_cache_entry_per_bucket(models):
     assert list(sampler._cache) == [(2, 128, False, True, "ancestral", torch.float32)]
     (entry,) = sampler._cache.values()
     assert entry.captures == {"step": 0}  # no graph on the CPU
+
+
+@pytest.mark.parametrize("drift_mode", ["global", "per_sample_max"])
+def test_adaptive_one_cache_entry_per_bucket(models, drift_mode):
+    """(b) The adaptive Δ-cache through the cache: T 100, 120, then 100
+    again at bucket 128 share one entry ("ancestral-adaptive"), each chain
+    equals a fresh sampler's bit for bit with the same full steps (an
+    int), and a second call repeats the first's bits."""
+    port = models[2]()
+    diffusion = create_diffusion(str(STEPS), noise_schedule="squaredcos_cap_v2")
+
+    def make():
+        return Sampler(port, diffusion, cfg_scale=CFG, band=BAND, bucket=128, accel_drift=drift_mode,
+                       **ADAPTIVE)
+
+    sampler = make()
+    for t in (100, 120, 100):
+        args = _inputs(t=t, seed=t)
+        got = sampler(*args, generator=torch.Generator().manual_seed(t))
+        full = sampler.last_full_model_steps
+        fresh = make()
+        want = fresh(*args, generator=torch.Generator().manual_seed(t))
+        assert got.shape == (2, t, 2) and torch.isfinite(got).all()
+        assert torch.equal(got, want)
+        assert type(full) is int and full == fresh.last_full_model_steps and 1 < full <= STEPS
+        assert torch.equal(sampler(*args, generator=torch.Generator().manual_seed(t)), got)
+        assert sampler.last_full_model_steps == full
+    assert list(sampler._cache) == [(2, 128, False, True, "ancestral-adaptive", torch.float32)]
+    (entry,) = sampler._cache.values()
+    assert entry.captures == {"adaptive": 0}  # no graph on the CPU
 
 
 def test_weight_change_between_calls(models):
