@@ -494,7 +494,7 @@ TP_WHOLE_MLP_STEPS = 2
 CP_RANKS = 2
 CP_SEQ = 512  # the CP training window: two shards of 256
 CP_BATCH = 32
-CP_STEPS = 5  # timed from the third step
+CP_STEPS = 3  # timed from the second step
 CP_SAMPLE_STEPS = 10
 CP_TIMEOUT = 600  # seconds for the ranks' run (the process group's own timeout is 5 minutes)
 # the CP train run against the one-process run, relative difference of each
@@ -2258,9 +2258,9 @@ def phase_xl_forward(dev, sampler, call_args, tag, dtype=None):
         check(rel <= FORWARD_REL_TOL, f"{tag}: forward disagrees: {rel} > {FORWARD_REL_TOL}")
 
 
-XL_TRAIN_STEPS = 8  # [xl-train], [xl-train-fused]: the train CLI's optimizer steps at XL
-XL_TRAIN_TIMED = range(2, 6)  # its steady steps timed by CUDA events
-XL_TRAIN_PROFILED = range(6, 8)  # and traced by torch.profiler
+XL_TRAIN_STEPS = 6  # [xl-train], [xl-train-fused]: the train CLI's optimizer steps at XL
+XL_TRAIN_TIMED = range(2, 4)  # its steady steps timed by CUDA events
+XL_TRAIN_PROFILED = range(4, 6)  # and traced by torch.profiler
 XL_TRAIN_LOG_EVERY = 2  # a Train Loss line (the mean of 2 steps' losses) every 2 steps
 XL_TRAIN_RUNS = ("xla", "fused")  # [xl-train], [xl-train-fused]: one run each
 XL_STEP_DEPTH = 4  # [xl-train-step]: DiT-XL's widths at this depth (the CPU side's time)
@@ -2270,6 +2270,22 @@ XL_STEP_DEPTH = 4  # [xl-train-step]: DiT-XL's widths at this depth (the CPU sid
 # DiT-B's CP batch; step 1 to step 2 is timed
 XL_CP_BATCH = CP_BATCH
 XL_CP_STEPS = 3
+XL_CP_DEPTH = XL_STEP_DEPTH  # [xl-train-cp]'s ranks and one process: XL's widths at this depth
+
+
+@contextlib.contextmanager
+def xl_at_depth(depth: int):
+    """DiT_models[XL_MODEL] built `depth` blocks deep inside the block, its
+    widths whole (hidden 1152, 16 heads): the train CLI's XL paths at a
+    cut depth."""
+    from osu_diffusion_tpu_torch.models.dit import DiT, DiT_models
+
+    whole = DiT_models[XL_MODEL]
+    DiT_models[XL_MODEL] = lambda **kw: DiT(depth=depth, hidden_size=1152, num_heads=16, **kw)
+    try:
+        yield
+    finally:
+        DiT_models[XL_MODEL] = whole
 
 
 def xl_train_argv(tmp, dev, *flags) -> list[str]:
@@ -2284,11 +2300,12 @@ def xl_train_argv(tmp, dev, *flags) -> list[str]:
             *flags]
 
 
-def xl_f32_step(tmp, dev, tag, mlp_bwd, per_step) -> None:
-    """One optimizer step of the train CLI at XL with --no-use-bf16 and
-    --mlp-bwd `mlp_bwd` (the f32 stream: dq and dk/dv, and with fused the
-    MLP backward, on their WMMA bodies): a finite loss and `per_step`'s
-    launches."""
+def xl_f32_step(tmp, dev, tag, mlp_bwd, per_block) -> None:
+    """One optimizer step of the train CLI at --model DiT-XL, its depth cut
+    to XL_STEP_DEPTH (the widths and the CLI's path whole), with
+    --no-use-bf16 and --mlp-bwd `mlp_bwd` (the f32 stream: dq and
+    dk/dv, and with fused the MLP backward, on their WMMA bodies): a finite
+    loss and `per_block`'s launches times the depth."""
     import torch
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
@@ -2297,16 +2314,17 @@ def xl_f32_step(tmp, dev, tag, mlp_bwd, per_step) -> None:
     read_counts = reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     start = time.perf_counter()
-    with contextlib.redirect_stdout(io.StringIO()):
+    with xl_at_depth(XL_STEP_DEPTH), contextlib.redirect_stdout(io.StringIO()):
         run = train_main(build_train_parser().parse_args(xl_train_argv(
             tmp, dev, "--no-use-bf16", "--mlp-bwd", mlp_bwd, "--max-steps", "1", "--log-every", "1")))
+    per_step = {k: v * XL_STEP_DEPTH for k, v in per_block.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - start
     counts = read_counts()
     bodies = {"dq": ba.banded_attention_bwd_dq.body, "dk/dv": ba.banded_attention_bwd_dkv.body}
     if mlp_bwd == "fused":
         bodies.update(prologue=am.adaln_mlp_bwd_prologue.body, epilogue=am.adaln_mlp_bwd_epilogue.body)
-    print(f"[{tag}] --no-use-bf16: step {run['final_step']}, loss {run['last_loss']:.6f}, "
+    print(f"[{tag}] --no-use-bf16 at depth {XL_STEP_DEPTH}: step {run['final_step']}, loss {run['last_loss']:.6f}, "
           f"launches {({k: v for k, v in counts.items() if v})}, bodies {bodies}; the run (model set-up, "
           f"loader and the one step) {wall:.1f} s wall, peak device memory allocated "
           f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -2325,8 +2343,9 @@ def phase_xl_train(dev, tmp):
     of rows 3 and 4, with fused 28 of rows 9a and 9b and no plain MLP
     backward, none of another kernel; s per step start to start and inside
     train_step, busy share, peak device memory); then one step of each
-    with --no-use-bf16 (the f32 stream: dq, dk/dv and rows 9a/9b on their
-    WMMA bodies, the same launch counts, a finite loss)."""
+    with --no-use-bf16 at depth XL_STEP_DEPTH (xl_f32_step: the f32
+    stream, dq, dk/dv and rows 9a/9b on their WMMA bodies, the same
+    launches a block, a finite loss)."""
     import torch
     from osu_diffusion_tpu_torch.models.dit import DiT_models
     from osu_diffusion_tpu_torch.ops import adaln_mlp as am
@@ -2357,7 +2376,8 @@ def phase_xl_train(dev, tmp):
         del summary
         torch.cuda.empty_cache()
     for mlp_bwd in ("xla", "fused"):
-        xl_f32_step(tmp, dev, "xl-train" if mlp_bwd == "xla" else "xl-train-fused", mlp_bwd, per_step[mlp_bwd])
+        xl_f32_step(tmp, dev, "xl-train" if mlp_bwd == "xla" else "xl-train-fused", mlp_bwd,
+                    {k: v // depth for k, v in per_step[mlp_bwd].items()})
 
     def each(key, scale=1.0, fmt=".6f"):
         return {k: ", ".join(f"{v[key] * scale:{fmt}}" for v in r) for k, r in runs.items()}
@@ -2378,25 +2398,22 @@ def phase_xl_train_cp(dev, tmp, card):
     --context-parallel --dist gloo --mlp-bwd fused on CP_RANKS ranks
     sharing the card (this script with --cp-rank, train only; the weights
     sharded over them, as the trainer holds them with model ranks) beside
-    one process of the same seed, flags and batch: every logged loss finite and
-    within CP_LOSS_REL_TOL of the one process's; per optimizer step on
-    every rank 56 launches of row 5 with LSE and of row 8, 28 of row 6's dq
+    one process of the same seed, flags and batch, both at XL's widths with
+    the depth cut to XL_CP_DEPTH: every logged loss finite and within
+    CP_LOSS_REL_TOL of the one process's; per optimizer step on every rank
+    2 x depth launches of row 5 with LSE and of row 8, depth of row 6's dq
     and dk/dv and of rows 9a/9b, none of rows 2-4; s per step and each
     rank's peak of allocated device memory."""
-    import torch
-    from osu_diffusion_tpu_torch.models.dit import DiT_models
-
     wall = time.perf_counter()
     workdir = os.path.join(tmp, "cp-xl")
     os.makedirs(workdir, exist_ok=True)
     with open(os.path.join(workdir, "job.json"), "w") as f:
         json.dump({"data": train_dataset(tmp), "train_only": True, "model": XL_MODEL, "batch": XL_CP_BATCH,
-                   "steps": XL_CP_STEPS, "flags": ["--mlp-bwd", "fused"]}, f)
+                   "steps": XL_CP_STEPS, "flags": ["--mlp-bwd", "fused"], "xl_depth": XL_CP_DEPTH}, f)
     ranks = run_cp_ranks(workdir, CP_RANKS, "xl-train-cp")
     cp_wall = time.perf_counter() - wall
     single = run_cp_ranks(workdir, 1, "xl-train-cp")[0]
-    with torch.device("meta"):  # the depth only
-        depth = len(DiT_models[XL_MODEL](num_classes=2).blocks)
+    depth = XL_CP_DEPTH
     steps = XL_CP_STEPS
     fused = {"adaln_mlp_train": steps * depth * 2, "adaln_mlp_bwd_prologue": steps * depth,
              "adaln_mlp_bwd_epilogue": steps * depth}
@@ -2421,7 +2438,7 @@ def phase_xl_train_cp(dev, tmp, card):
           f"xl-train-cp losses {cp_losses} {one_losses}")
     check(max(diffs) <= CP_LOSS_REL_TOL, f"xl-train-cp losses differ: {diffs}")
     check(ranks[0]["done"] and ranks[0]["mesh_line"], "xl-train-cp: no Done! or no mesh line in rank 0's log")
-    print(f"[xl-train-cp] {card}: {XL_MODEL} ({depth} blocks, batch {XL_CP_BATCH} x {CP_SEQ}, band {BAND}, bf16 "
+    print(f"[xl-train-cp] {card}: {XL_MODEL} widths at depth {depth} (batch {XL_CP_BATCH} x {CP_SEQ}, band {BAND}, bf16 "
           f"stream, remat, --mlp-bwd fused): {ranks[0]['period_ms'] / 1000:.6f} s per optimizer step start to "
           f"start with {CP_RANKS} gloo ranks sharing the card (rank 1 {ranks[1]['period_ms'] / 1000:.6f}), "
           f"{single['period_ms'] / 1000:.6f} s in one process; peak device memory allocated "
@@ -3407,6 +3424,8 @@ BENCH_TOOL_RUNS = [
      ("banded_attention", "adaln_mlp", "int8_matmul", "int8_modulated_matmul", "int8_out_residual",
       "adaln_mlp_quant")),
     ("bench_train", ["--batch", "32", "--calls", "2"], ATTN_TRAIN_KERNELS + ("adaln_mlp_train",)),
+    ("bench_train", ["--batch", "32", "--calls", "2", "--steps-per-call", "8"],
+     ATTN_TRAIN_KERNELS + ("adaln_mlp_train",)),
     ("bench_flash", ["--iters", "2", "6"], ATTN_TRAIN_KERNELS),
 ]
 
@@ -3442,6 +3461,9 @@ def phase_bench_tools():
               f"[bench-tools] {name} rates {rates}")
         check(all(counts[k] > 0 for k in kernels),
               f"[bench-tools] {name} launches {({k: counts[k] for k in kernels})}")
+        if "--steps-per-call" in argv:  # its calls are graphs: the warm-up call captured one
+            check(out["capture_ms"] is not None and out["capture_ms"] > 0,
+                  f"[bench-tools] {name} capture_ms {out['capture_ms']}")
         print(f"[bench-tools] {name} {' '.join(argv)}: {wall:.1f} s; rates {rates}; launches "
               f"{ {k: counts[k] for k in kernels} }", flush=True)
 
@@ -3468,6 +3490,18 @@ def reset_launch_counts():
     for fn in wrappers.values():
         fn.launches = 0
     return lambda: {name: fn.launches for name, fn in wrappers.items()}
+
+
+def train_step_launches(steps: int, depth: int, mlp_bwd: str = "xla") -> dict:
+    """The training kernels' launches in `steps` optimizer steps of a model
+    `depth` blocks deep: rows 2 and 8 in the forward and the remat
+    recompute, rows 3 and 4 once a block, and with the fused MLP backward
+    rows 9a/9b once a block (remat recomputes the forward only)."""
+    out = {"banded_attention_fwd_lse": steps * depth * 2, "adaln_mlp_train": steps * depth * 2,
+           "banded_attention_bwd_dq": steps * depth, "banded_attention_bwd_dkv": steps * depth}
+    if mlp_bwd == "fused":
+        out.update(dict.fromkeys(("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue"), steps * depth))
+    return out
 
 
 def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, model=MODEL,
@@ -3543,14 +3577,7 @@ def run_train_cli(tag, argv, steps, mlp_bwd="xla", profiled=PROFILED_STEPS, mode
     check(len(losses) == steps // log_every and all(math.isfinite(v) for v in losses),
           f"Train Loss lines: {losses}")
     check("Done!" in log, "no Done! in the log")
-    expected = {**dict.fromkeys(launches, 0),  # the inference kernels
-                "banded_attention_fwd_lse": steps * depth * 2,  # forward + remat recompute
-                "adaln_mlp_train": steps * depth * 2,
-                "banded_attention_bwd_dq": steps * depth,
-                "banded_attention_bwd_dkv": steps * depth}
-    if mlp_bwd == "fused":  # the backward runs once per block and step; remat recomputes the forward only
-        expected.update(dict.fromkeys(("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue"),
-                                      steps * depth))
+    expected = {**dict.fromkeys(launches, 0), **train_step_launches(steps, depth, mlp_bwd)}
     check(launches == expected, f"launches {launches}, expected {expected}")
     want_plain = 0 if mlp_bwd == "fused" else steps * depth
     check(len(plain_bwd) == want_plain, f"{tag}: {len(plain_bwd)} plain MLP backward calls, expected {want_plain}")
@@ -3644,6 +3671,239 @@ def phase_train(dev, tmp, mlp_bwd="xla"):
                   f"{(time.perf_counter() - wall) / batches:.6f} s per batch of {TRAIN_BATCH} "
                   f"over {batches} batches")
     return launches, numbers
+
+
+TRAIN_GRAPH_K = 8  # [train-graph]: optimizer steps a call (the train CLI's --steps-per-call)
+TRAIN_GRAPH_ROUNDS = 3  # its graphed and eager calls timed in turns (the median resists one slow round)
+TRAIN_GRAPH_MAX_STEPS = 20  # its CLI run's --max-steps: the call boundary past it is step 24
+TRAIN_GRAPH_CKPT_EVERY = 15  # and --ckpt-every: the checkpoint of the call boundary past it, 16
+TRAIN_GRAPH_LOG_EVERY = 5  # and --log-every: a Train Loss line at every call boundary
+
+
+def train_state_tensors(model, ema, optimizer) -> dict:
+    """Every tensor an optimizer step moves, by name: the weights, AdamW's
+    step counts and moments, the EMA."""
+    out = {}
+    for name, p in model.named_parameters():
+        out[f"weight {name}"] = p
+        out.update({f"{key} {name}": v for key, v in optimizer.state[p].items()})
+    out.update({f"ema {name}": p for name, p in ema.named_parameters()})
+    return out
+
+
+def device_busy(run, steps) -> tuple[float, float]:
+    """(device ms per step, busy %) of one run() from an idle card:
+    torch.profiler's device time (kernels, copies, memsets) over the host's
+    wall time up to a synchronize."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        wall = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0)
+    check(us > 0, "the profiler saw no device op")
+    return us / 1000 / steps, 100 * us / 1000 / (wall * 1000)
+
+
+def graph_against_eager(tag, state, saved, graphed, got, want) -> None:
+    """(a) of [train-graph]: the replayed call's metrics and every tensor
+    it moved (`graphed`) against the eager steps' (`state` after them),
+    from the same `saved` start. The same bits are expected (the kernels
+    use no atomics); else the largest gap is printed and held to bounds:
+    the loss mean within STEP_LOSS_REL_TOL, each weight and EMA tensor
+    within STEP_GRAD_REL_TOL of the largest move of that tensor over the
+    call, each moment within STEP_GRAD_REL_TOL of its largest value, and
+    the step counts exact."""
+    import torch
+
+    same = [n for n, v in state.items() if torch.equal(graphed[n], v)]
+    metrics_same = all(torch.equal(got[m], want[m]) for m in want)
+    print(f"[{tag}] (a) the replayed call against {TRAIN_GRAPH_K} eager train_steps from one state: "
+          f"metrics {({m: got[m].item() for m in got})} against {({m: want[m].item() for m in want})} "
+          f"({'the same bits' if metrics_same else 'differ'}); {len(same)} of {len(state)} tensors "
+          f"(weights, AdamW steps and moments, EMA) the same bits")
+    if metrics_same and len(same) == len(state):
+        return
+    loss_rel = abs(got["loss"].item() - want["loss"].item()) / abs(want["loss"].item())
+    worst = (0.0, None, 0.0, 0.0)  # (gap over bound, tensor, gap, bound)
+    for n, v in state.items():
+        gap = (graphed[n] - v).abs().max().item()
+        kind = n.split(" ")[0]
+        if kind == "step":
+            bound = 0.0
+        elif kind in ("weight", "ema"):
+            bound = STEP_GRAD_REL_TOL * (v - saved[n]).abs().max().item()
+        else:
+            bound = STEP_GRAD_REL_TOL * v.abs().max().item()
+        ratio = gap / bound if bound else (math.inf if gap else 0.0)
+        worst = max(worst, (ratio, n, gap, bound), key=lambda w: w[0])
+    print(f"[{tag}] (a) bounds: loss mean relative gap {loss_rel:.3e} (tol {STEP_LOSS_REL_TOL}); the largest "
+          f"gap over its bound is {worst[1]}'s: {worst[2]:.3e} against {worst[3]:.3e}")
+    check(loss_rel <= STEP_LOSS_REL_TOL, f"{tag}: loss mean {loss_rel} > {STEP_LOSS_REL_TOL}")
+    check(worst[0] <= 1.0, f"{tag}: {worst[1]} differs by {worst[2]} > {worst[3]}")
+
+
+def phase_train_graph(dev, tmp, card, mlp_bwd="xla"):
+    """[train-graph]: the train step's CUDA graph (train_step.TrainCall, k =
+    TRAIN_GRAPH_K) at DiT-B's full width, batch TRAIN_BATCH x TRAIN_SEQ,
+    bf16 stream, remat, `mlp_bwd`, on k batches of [train]'s kimi copies:
+    (a) from one state (weights, EMA, moments and generator, put back into
+    the same tensors) one replayed call against k eager train_steps
+    (graph_against_eager) and the generator's offset after both; (b) each
+    call adds k steps' launches (the first, eager one too); (c) s per
+    optimizer step graphed against eager in turns by CUDA events, device
+    ms, busy share and the peak of allocated memory over one call of each,
+    the capture's ms and pool bytes; (d) with the default backward, the
+    train CLI with --steps-per-call k (train_graph_cli)."""
+    import numpy as np
+    import torch
+    from osu_diffusion_tpu_torch import CONTEXT_SIZE
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT_models
+    from osu_diffusion_tpu_torch.train.train_step import TrainCall, make_ema, make_optimizer, train_steps
+    from osu_diffusion_tpu_torch.train.trainer import CLASS_DROPOUT_PROB
+
+    tag = "train-graph" if mlp_bwd == "xla" else f"train-graph-{mlp_bwd}"
+    k = TRAIN_GRAPH_K
+    wall = time.perf_counter()
+    loader, items = train_loader(train_dataset(tmp), 2, 2), []
+    while len(items) < k:
+        items.extend(loader)
+    raw, prev_xy, y = (torch.from_numpy(np.stack(parts)).to(dev)
+                       for parts in zip(*((w, p, label) for (w, p), label in items[:k])))
+    batches = (raw, prev_xy, y.long())
+    model = DiT_models[MODEL](num_classes=NUM_CLASSES, context_size=CONTEXT_SIZE,
+                              class_dropout_prob=CLASS_DROPOUT_PROB, remat=True, mlp_bwd=mlp_bwd)
+    model.initialize_weights(torch.Generator().manual_seed(SEED))
+    ema = make_ema(model)
+    model.to(dev).train()
+    ema.to(dev).eval()
+    opt = make_optimizer(model.parameters())
+    diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    kwargs = dict(band=TRAIN_SEQ, dtype=torch.bfloat16)
+    depth = len(model.blocks)
+    call = TrainCall(model, ema, opt, diffusion, generator=gen, graphed=True, **kwargs)
+
+    def eager():
+        return train_steps(model, ema, opt, diffusion, batches, generator=gen, **kwargs)
+
+    # (b) the first call: k eager steps on a side stream, then the capture
+    read = reset_launch_counts()
+    call(batches)
+    torch.cuda.synchronize()
+    counts = {"first": read()}
+    # (a) and (b): one replay against k eager steps from the same state
+    state = train_state_tensors(model, ema, opt)
+    saved = {n: v.clone() for n, v in state.items()}
+    offset = gen.get_offset()
+    read = reset_launch_counts()
+    got = call(batches)
+    torch.cuda.synchronize()
+    counts["replay"] = read()
+    graphed, graphed_offset = {n: v.clone() for n, v in state.items()}, gen.get_offset()
+    with torch.no_grad():
+        for n, v in state.items():
+            v.copy_(saved[n])
+    gen.set_offset(offset)
+    want = eager()
+    graph_against_eager(tag, state, saved, graphed, got, want)
+    print(f"[{tag}] (a) the generator's offset {offset} -> {graphed_offset} replayed, {gen.get_offset()} eager")
+    check(graphed_offset == gen.get_offset() > offset,
+          f"{tag}: generator offset {graphed_offset} replayed, {gen.get_offset()} eager, from {offset}")
+    del saved, graphed
+    expected = train_step_launches(k, depth, mlp_bwd)
+    for name, c in counts.items():
+        print(f"[{tag}] (b) launches of the {name} call: { {n: v for n, v in c.items() if v} }")
+        check(c == {**dict.fromkeys(c, 0), **expected}, f"{tag}: the {name} call's launches {c}, expected {expected}")
+
+    # (c) s per optimizer step in turns, busy share, capture, pool, peak memory
+    runs = {"graph": lambda: call(batches), "eager": eager}
+    turns = ms_per_step_in_turns(runs, k, TRAIN_GRAPH_ROUNDS)
+    busy, peak = {}, {}
+    for name, run in runs.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        busy[name] = device_busy(run, k)
+        peak[name] = torch.cuda.max_memory_allocated() / 1e9
+    ms = {name: statistics.median(v) for name, v in turns.items()}
+    print(f"[{tag}] (c) {card}: {MODEL} ({depth} blocks, batch {TRAIN_BATCH} x {TRAIN_SEQ}, bf16 stream, "
+          f"remat, --mlp-bwd {mlp_bwd}), {k} optimizer steps a call: s per optimizer step in "
+          f"{TRAIN_GRAPH_ROUNDS} rounds of turns, the order reversed each round: graph " + ", ".join(f"{v / 1000:.6f}" for v in turns["graph"])
+          + " against eager " + ", ".join(f"{v / 1000:.6f}" for v in turns["eager"])
+          + f"; medians {ms['graph'] / 1000:.6f} against {ms['eager'] / 1000:.6f} "
+          f"({ms['eager'] / ms['graph']:.4f}x); device ms a step {busy['graph'][0]:.3f} against "
+          f"{busy['eager'][0]:.3f}, busy {busy['graph'][1]:.1f}% against {busy['eager'][1]:.1f}% over one "
+          f"call; capture {call.graph.capture_ms:.1f} ms, pool {call.graph.pool_bytes / 2 ** 20:.0f} MiB; "
+          f"peak allocated over a call {peak['graph']:.2f} GB graphed, {peak['eager']:.2f} GB eager")
+    check(all(math.isfinite(v) and v > 0 for v in ms.values()), f"{tag}: s per step {ms}")
+    del call, runs, model, ema, opt, state
+    torch.cuda.empty_cache()
+    if mlp_bwd == "xla":
+        train_graph_cli(dev, tmp, tag, mlp_bwd, depth)
+    print(f"[{tag}] the phase took {time.perf_counter() - wall:.1f} s")
+    return ms
+
+
+def train_graph_cli(dev, tmp, tag, mlp_bwd, depth) -> None:
+    """(d) of [train-graph]: the train CLI at DiT-B with --steps-per-call
+    TRAIN_GRAPH_K --max-steps 20 --log-every 5 --ckpt-every 15 stops at
+    the call boundary past 20 (24), logs at 8, 16 and 24, saves only step
+    16's checkpoint and launches 24 steps' kernels; a resume from that
+    checkpoint with --max-steps 24 runs one call and ends at 24. Run with
+    the default backward only (the fused one runs (a)-(c): the CLI's path
+    is the same)."""
+    import torch
+    from osu_diffusion_tpu_torch.cli import build_train_parser, train_main
+
+    k = TRAIN_GRAPH_K
+    argv = ["--data-path", train_dataset(tmp), "--data-start", "0", "--data-end", "2", "--model", MODEL,
+            "--num-classes", str(NUM_CLASSES), "--global-batch-size", str(TRAIN_BATCH),
+            "--seq-len", str(TRAIN_SEQ), "--stride", "16", "--num-workers", "2",
+            "--log-every", str(TRAIN_GRAPH_LOG_EVERY), "--ckpt-every", str(TRAIN_GRAPH_CKPT_EVERY),
+            "--results-dir", os.path.join(tmp, tag), "--device", dev, "--mlp-bwd", mlp_bwd,
+            "--steps-per-call", str(k)]
+    end = -(-TRAIN_GRAPH_MAX_STEPS // k) * k
+    ckpt_step = -(-TRAIN_GRAPH_CKPT_EVERY // k) * k
+    for start in (None, ckpt_step):
+        read = reset_launch_counts()
+        wall = time.perf_counter()
+        flags = (["--max-steps", str(TRAIN_GRAPH_MAX_STEPS)] if start is None else
+                 ["--max-steps", str(end), "--ckpt", os.path.join(ckpt_dir, f"{start:07d}.pt")])
+        summary = train_main(build_train_parser().parse_args(argv + flags))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - wall
+        launches = read()
+        with open(os.path.join(summary["experiment_dir"], "log.txt")) as f:
+            log = f.read()
+        logged = [int(v) for v in re.findall(r"\(step=(\d+)\) Train Loss: ", log)]
+        losses = [float(v) for v in re.findall(r"Train Loss: ([^,]+),", log)]
+        saved = sorted(os.listdir(summary["checkpoint_dir"]))
+        steps = end - (start or 0)
+        print(f"[{tag}] (d) the train CLI with --steps-per-call {k}" + (f" resumed from step {start}" if start else "")
+              + f": final step {summary['final_step']}, Train Loss at steps {logged} ({losses}), checkpoints "
+              f"{saved}, {wall:.1f} s wall; launches { {n: v for n, v in launches.items() if v} }")
+        # JAX's call-boundary tests
+        bounds = range((start or 0) + k, end + 1, k)
+        want_logged = [b for b in bounds if b % TRAIN_GRAPH_LOG_EVERY < k]
+        want_saved = [f"{b:07d}.pt" for b in bounds
+                      if b % TRAIN_GRAPH_CKPT_EVERY < k and b >= TRAIN_GRAPH_CKPT_EVERY]
+        check(summary["final_step"] == end and logged == want_logged and saved == want_saved,
+              f"{tag} (d): final {summary['final_step']}, logged {logged}, saved {saved}")
+        check(all(math.isfinite(v) for v in losses), f"{tag} (d): losses {losses}")
+        check(f"{k} optimizer steps a call, one CUDA graph" in log and "Done!" in log,
+              f"{tag} (d): the log lacks the call line or Done!")
+        check(start is None or "Restored from checkpoint" in log, f"{tag} (d): the resume did not restore")
+        check(launches == {**dict.fromkeys(launches, 0), **train_step_launches(steps, depth, mlp_bwd)},
+              f"{tag} (d): launches {launches}")
+        ckpt_dir = summary["checkpoint_dir"]
+        del summary
+        torch.cuda.empty_cache()
 
 
 FEATURIZERS = ("native", "python")
@@ -4561,7 +4821,9 @@ def cp_rank_main(workdir) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     base_gb = torch.cuda.memory_allocated() / 1e9
-    summary, run = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_w{world}"), world))
+    # [xl-train-cp]: XL's widths at the job's depth
+    with xl_at_depth(job["xl_depth"]) if "xl_depth" in job else contextlib.nullcontext():
+        summary, run = timed_train_cli(cp_argv(job, os.path.join(workdir, f"results_w{world}"), world))
     run.update(params=sum(p.numel() for p in summary["ema"].parameters()), base_gb=base_gb)
     del summary
     log = run.pop("log")
@@ -5045,6 +5307,21 @@ def phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card):
                                                           "banded_attention_ranged_bwd_dkv")}}
 
 
+def phase_clock():
+    """mark(label): prints the wall seconds since the last mark and since
+    the first, as each phase ends (what the script's time limit is spent
+    on)."""
+    start = last = time.perf_counter()
+
+    def mark(label):
+        nonlocal last
+        now = time.perf_counter()
+        print(f"[clock] {label}: {now - last:.1f} s ({now - start:.1f} s in all)", flush=True)
+        last = now
+
+    return mark
+
+
 def main() -> int:
     import torch
 
@@ -5063,7 +5340,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = "cuda"
+    mark = phase_clock()
     card = phase_build()
+    mark("build")
     measured = {"banded_attention": phase_attention(dev), "adaln_mlp": phase_mlp(dev)}
     measured.update(phase_attention_cp(dev))
     measured.update(phase_attention_train(dev))
@@ -5071,6 +5350,7 @@ def main() -> int:
     mlp_bwd, mlp_bwd_ms = phase_mlp_bwd(dev)
     measured.update(mlp_bwd)
     measured.update(phase_quant(dev))
+    mark("the DiT-B kernel phases")
     phase_attention_xl(dev)
     phase_mlp(dev, "mlp-xl", MLP_XL_CASES)
     phase_quant(dev, "quant-xl", QUANT_XL_CASES)
@@ -5080,6 +5360,7 @@ def main() -> int:
     phase_mlp_bwd(dev, "mlp-bwd-xl", MLP_BWD_XL_CASES)
     phase_mlp_tp(dev)
     phase_mlp_tp(dev, MLP_TP_RAGGED_CASES, "mlp-tp-ragged")
+    mark("the XL and TP kernel phases")
 
     with tempfile.TemporaryDirectory() as tmp:
         model = DiT_models[MODEL](num_classes=NUM_CLASSES)
@@ -5089,13 +5370,21 @@ def main() -> int:
         del model, sd
         launches, sampler, call_args, f32_step_ms = phase_slice(dev, ckpt, os.path.join(tmp, "results"))
         forward = phase_forward_vs_plain(dev, sampler, call_args)
+        mark("[slice], [forward]")
         phase_serving(dev, tmp, ckpt, sampler, call_args, forward["cpu"])
+        mark("[serving]")
         phase_toy(dev, ckpt)
+        mark("[toy]")
         phase_unfuck(dev, ckpt)
+        mark("[unfuck]")
         phase_longrun(tmp)
+        mark("[longrun]")
         launches.update(phase_context_parallel(dev, tmp, ckpt, sampler, call_args, card))
+        mark("the CP phase")
         phase_train_tp(dev, tmp, card)
+        mark("[train-tp]")
         phase_train_tp_whole_mlp(dev, tmp, card)
+        mark("[train-tp-whole-mlp]")
         quant_launches, qsampler, _, int8_step_ms = phase_slice(
             dev, ckpt, os.path.join(tmp, "results-int8"), quantize=True)
         turns = {name: sum(v) / len(v) for name, v in chains_in_turns(
@@ -5105,15 +5394,22 @@ def main() -> int:
               f"({f32_step_ms / int8_step_ms:.3f}x), {turns['int8'] / 1000:.6f} against "
               f"{turns['f32'] / 1000:.6f} in turns ({turns['f32'] / turns['int8']:.3f}x)")
         phase_forward_vs_plain(dev, qsampler, call_args, "forward-int8", f32_model=sampler.model)
+        mark("[slice-int8], [forward-int8]")
         phase_graph(dev, {"f32": sampler, "int8": qsampler}, call_args, card)
+        mark("[graph]")
         launches.update({k: v for k, v in quant_launches.items() if k not in launches})
         del sampler, qsampler, call_args
         phase_xl(dev, tmp, card)
+        mark("[slice-xl] and the XL phases")
         corpus = phase_loader(tmp)
+        mark("[loader]")
         train_launches, default = phase_train(dev, tmp)
+        mark("[train]")
         launches.update({k: v for k, v in train_launches.items() if k not in launches})
         phase_train_corpus(dev, tmp, corpus)
+        mark("[train-corpus]")
         fused_launches, fused = phase_train(dev, tmp, "fused")
+        mark("[train-fused]")
         launches.update({k: fused_launches[k] for k in ("adaln_mlp_bwd_prologue", "adaln_mlp_bwd_epilogue")})
         print(f"[train-fused] against the default run in this call: {fused['period_ms'] / 1000:.6f} against "
               f"{default['period_ms'] / 1000:.6f} s per optimizer step start to start, "
@@ -5122,12 +5418,19 @@ def main() -> int:
               f"{fused['busy']:.1f}% against {default['busy']:.1f}%; the MLP backward alone (fused, plain) "
               f"{mlp_bwd_ms['fused']:.4f}, {mlp_bwd_ms['plain']:.4f} ms per block")
         phase_train_modes(dev, tmp, default["ckpt"])
+        mark("[train-modes]")
+        for mlp_bwd in ("xla", "fused"):
+            phase_train_graph(dev, tmp, card, mlp_bwd)
+            mark(f"[train-graph] --mlp-bwd {mlp_bwd}")
     phase_train_step_vs_plain(dev)
     phase_train_step_vs_plain(dev, "fused")
+    mark("[step], [step-fused]")
     new_phases = {"bpd": phase_bpd(dev), "train-kl": phase_train_kl(dev), "sample-fixed-var": phase_sample_fixed_var(dev)}
     print(f"[modes] the diffusion's other parameterizations: {({k: round(v, 1) for k, v in new_phases.items()})} s, "
           f"{sum(new_phases.values()):.1f} s together")
+    mark("[bpd], [train-kl], [sample-fixed-var]")
     phase_bench_tools()
+    mark("[bench-tools]")
 
     attn_src = "osu_diffusion_tpu_torch/csrc/banded_attention.cu"
     bwd_src = "osu_diffusion_tpu_torch/csrc/banded_attention_bwd.cu"

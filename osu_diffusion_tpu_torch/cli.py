@@ -32,10 +32,12 @@ and the label table over the N model ranks at every degree the JAX rules
 take (a part N does not divide stays whole), without --context-parallel
 (tensor parallelism) and with it (each block gathers its shards whole).
 Every --model trains on every path, DiT-XL included (--mlp-bwd fused and
---context-parallel too). The
-JAX trainer's TPU-only knobs
-(--use-pallas, --pallas-ops, --flash-block, --scan-blocks,
---steps-per-call, --multihost) have no counterpart here.
+--context-parallel too). --steps-per-call k runs k optimizer steps a call
+(the JAX trainer's flag): one CUDA graph of the k steps on a card in one
+process, eager under a process group and on the CPU; its default is 1, not
+JAX's 8 (train/trainer.py says why). The JAX trainer's TPU-only knobs
+(--use-pallas, --pallas-ops, --flash-block, --scan-blocks, --multihost)
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -330,6 +332,9 @@ def build_train_parser() -> argparse.ArgumentParser:
                              "checkpoint's may have another class count) and start a fresh "
                              "optimizer at step 0")
     parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--steps-per-call", type=int, default=d.steps_per_call,
+                        help="optimizer steps a call (one CUDA graph on a card in one process); "
+                             "the log, checkpoint and stop tests run at a call's end")
     parser.add_argument("--l1-loss", action=argparse.BooleanOptionalAction, default=d.l1_loss)
     parser.add_argument("--use-bf16", action=argparse.BooleanOptionalAction, default=d.use_bf16,
                         help="bf16 residual stream over f32 master weights")
@@ -385,7 +390,8 @@ def train_config_kwargs(args) -> dict:
         noise_schedule=args.noise_schedule, l1_loss=args.l1_loss, lr=args.lr,
         relearn_embeds=args.relearn_embeds, embed_only_epochs=args.embed_only_epochs,
         use_bf16=args.use_bf16 if args.use_amp is None else args.use_amp, remat=args.remat,
-        max_steps=args.max_steps, mlp_bwd=args.mlp_bwd, device=args.device,
+        max_steps=args.max_steps, steps_per_call=args.steps_per_call, mlp_bwd=args.mlp_bwd,
+        device=args.device,
         num_model=args.num_model, context_parallel=args.context_parallel, band=args.band,
         dist_backend=args.dist_backend,
         profile_dir=args.profile_dir,

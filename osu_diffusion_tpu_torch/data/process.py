@@ -20,6 +20,12 @@ DIST_EMBED_DIM = 128
 MAX_TIME_OFFSET = 100000.0  # ms; time offsets are uniform in [0, this)
 
 
+def _constants(like: torch.Tensor, values) -> torch.Tensor:
+    """`values` as a 1-D tensor of `like`'s type on its device, filled there
+    (no copy from the host, so that a CUDA graph can capture it)."""
+    return torch.stack([like.new_full((), v) for v in values])
+
+
 def calc_distances(seq: torch.Tensor, prev_xy: torch.Tensor | None = None) -> torch.Tensor:
     """Euclidean distance of each datapoint to its predecessor.
 
@@ -27,7 +33,7 @@ def calc_distances(seq: torch.Tensor, prev_xy: torch.Tensor | None = None) -> to
     to the playfield center). Returns (..., T)."""
     xy = seq[..., :2]
     if prev_xy is None:
-        prev_first = xy.new_tensor(CENTER).expand(xy[..., :1, :].shape)
+        prev_first = _constants(xy, CENTER).expand(xy[..., :1, :].shape)
     else:
         prev_first = prev_xy[..., None, :]
     diff = xy - torch.cat([prev_first, xy[..., :-1, :]], dim=-2)
@@ -37,7 +43,7 @@ def calc_distances(seq: torch.Tensor, prev_xy: torch.Tensor | None = None) -> to
 
 def _split(seq: torch.Tensor, xy: torch.Tensor, prev_xy: torch.Tensor | None):
     seq_d = calc_distances(seq, prev_xy)
-    seq_x = xy / xy.new_tensor(PLAYFIELD)
+    seq_x = xy / _constants(xy, PLAYFIELD)
     seq_o = seq[..., 2]
     seq_c = torch.cat([timestep_embedding(seq_d, DIST_EMBED_DIM), seq[..., 3:]], dim=-1)
     return seq_x, seq_o, seq_c

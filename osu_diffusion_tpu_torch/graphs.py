@@ -1,6 +1,8 @@
-"""CUDA graphs of step programs (the Sampler's chains, `calc_bpd_loop`):
-the warm-up before a capture, the capture itself, with optional bodies
-under conditional IF nodes, and the launch accounting of the replays.
+"""CUDA graphs of step programs (the Sampler's chains, `calc_bpd_loop`,
+the trainer's k-step calls): the warm-up before a capture, the capture
+itself, with optional bodies under conditional IF nodes and the random
+generators the program draws from, and the launch accounting of the
+replays.
 
 An IF node is made by `csrc/graph_cond.cu` (built by nvcc at first use,
 like the kernels) through the CUDA runtime, as PyTorch's own
@@ -21,8 +23,10 @@ launches that ran on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import gc
 import time
 import weakref
 from typing import Callable, Sequence
@@ -83,6 +87,20 @@ def _body_stream(device: torch.device, k: int) -> torch.cuda.ExternalStream:
     return streams[k]
 
 
+@contextlib.contextmanager
+def _no_collection():
+    """No garbage collection inside the block: a capture's. A collection
+    there may reset a dead graph held in a reference cycle (a Sampler and
+    its chains form one), which invalidates the capture in progress."""
+    collecting = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if collecting:
+            gc.enable()
+
+
 def _release(graph: torch.cuda.CUDAGraph, device_index: int, pools: list) -> None:
     """Drop the graph, then give back its bodies' pools."""
     graph.reset()
@@ -97,11 +115,16 @@ class GraphedStep:
     the node is reached. A capture error raises; nothing falls back.
     `replay` adds `program`'s counts to the launch counters; `count_bodies`
     adds each body's, times the number of replays that ran it.
-    `capture_ms` is the capture's host time, `pool_bytes` the device memory
-    its private pool reserved."""
+    `generators`: the CUDA generators (besides the default one) that the
+    program draws from, registered with the graph: each replay then draws
+    the numbers that follow the last ones and moves the generator's offset
+    on as an eager run would (an unregistered one cannot be drawn from
+    under capture). `capture_ms` is the capture's host time, `pool_bytes`
+    the device memory its private pool reserved."""
 
     def __init__(self, device: torch.device, program: Callable[[], None],
-                 bodies: Sequence[tuple[torch.Tensor, Callable[[], None]]] = ()):
+                 bodies: Sequence[tuple[torch.Tensor, Callable[[], None]]] = (),
+                 generators: Sequence[torch.Generator] = ()):
         device = torch.device(device)
         if device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
@@ -119,9 +142,11 @@ class GraphedStep:
         marks = [read()]
         start = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
+        for generator in generators:
+            self.graph.register_generator_state(generator)
         if pools:
             weakref.finalize(self, _release, self.graph, device.index, pools).atexit = False
-        with torch.cuda.graph(self.graph):
+        with _no_collection(), torch.cuda.graph(self.graph):
             program()
             marks.append(read())
             capturing = torch.cuda.current_stream(device).cuda_stream

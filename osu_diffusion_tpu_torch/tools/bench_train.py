@@ -11,7 +11,12 @@ seq-len unless `--band` narrows it, kernel B's training forward, and with
 `--mlp-bwd fused` the MLP backward's two kernels).
 
 One group of GROUP_STEPS steps warms up (the kernels build in it), then
-`--calls` groups are timed by the host clock up to a synchronize. MFU is
+`--calls` groups are timed by the host clock up to a synchronize. With
+`--steps-per-call k` > 1 a group is one call of k steps
+(train_step.TrainCall, as the JAX tool times its `multi`): on the card
+one CUDA graph of the k steps, which the warm-up call captures after
+running its steps eagerly (the JSON's `capture_ms`); on the CPU the k
+steps eagerly. MFU is
 the 6·P·tokens estimate plus the banded attention's ideal FLOPs over the
 H100's published dense bf16 peak (989 TFLOP/s, SXM at 700 W: the JSON
 prints the card's power limit beside it).
@@ -19,8 +24,9 @@ prints the card's power limit beside it).
     python -m osu_diffusion_tpu_torch.tools.bench_train --model DiT-B --mlp-bwd fused
 
 The JAX tool's TPU-only flags (--use-pallas, --scan-blocks,
---steps-per-call, --attn-layout, --pallas-ops, --flash-block,
---slim-stats) have no counterpart.
+--attn-layout, --pallas-ops, --flash-block, --slim-stats) have no
+counterpart. --steps-per-call defaults to 1 here, not the JAX tool's 8
+(the trainer's default, train/trainer.py).
 """
 from __future__ import annotations
 
@@ -35,7 +41,7 @@ import torch
 from osu_diffusion_tpu_torch import CONTEXT_SIZE
 from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
 from osu_diffusion_tpu_torch.models.dit import DiT_models
-from osu_diffusion_tpu_torch.train.train_step import make_ema, make_optimizer, train_step
+from osu_diffusion_tpu_torch.train.train_step import TrainCall, make_ema, make_optimizer, train_step
 from osu_diffusion_tpu_torch.train.trainer import CLASS_DROPOUT_PROB
 from osu_diffusion_tpu_torch.utils.benchmark import bench_device, device_fields, fence, significant
 
@@ -83,7 +89,11 @@ def main(argv=None) -> dict:
     parser.add_argument("--model", default="DiT-B")
     parser.add_argument("--batch", type=int, default=256)
     parser.add_argument("--seq-len", type=int, default=128)
-    parser.add_argument("--calls", type=int, default=3, help="timed groups of GROUP_STEPS steps")
+    parser.add_argument("--calls", type=int, default=3,
+                        help="timed groups: calls of --steps-per-call steps, or GROUP_STEPS steps at 1")
+    parser.add_argument("--steps-per-call", type=int, default=1,
+                        help="optimizer steps a call: > 1 times TrainCall's calls (one CUDA graph of "
+                             "the k steps on the card)")
     parser.add_argument("--num-classes", type=int, default=52670)
     parser.add_argument("--no-bf16", action="store_true")
     parser.add_argument("--no-remat", action="store_true", help="disable per-block rematerialization")
@@ -116,13 +126,22 @@ def main(argv=None) -> dict:
     batch = synthetic_batch(n, t, args.num_classes, device)
     generator = torch.Generator(device=device).manual_seed(1)
 
+    k = args.steps_per_call
+    call = None
+    if k > 1:
+        call = TrainCall(model, ema, opt, diffusion, generator=generator, graphed=on_card,
+                         band=band, dtype=dtype)
+        batches = tuple(a.unsqueeze(0).expand(k, *a.shape) for a in batch)
+
     def group():
+        if call is not None:
+            return call(batches)
         for _ in range(GROUP_STEPS):
             metrics = train_step(model, ema, opt, diffusion, batch, band=band, dtype=dtype,
                                  generator=generator)
         return metrics
 
-    fence(group())  # builds the kernels and warms up
+    fence(group())  # builds the kernels and warms up (at k > 1 on the card: captures the graph)
     if on_card:
         torch.cuda.reset_peak_memory_stats(device)
     prof = None
@@ -141,14 +160,15 @@ def main(argv=None) -> dict:
         os.makedirs(args.profile_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.profile_dir, "trace.json"))
 
-    steps_per_sec = args.calls * GROUP_STEPS / elapsed
+    steps_per_sec = args.calls * (GROUP_STEPS if call is None else k) / elapsed
     depth, hidden = len(model.blocks), model.t_embedder.mlp[2].out_features
     mm_flops = model_flops_per_step(n_active, n, t)
     attn_flops = attention_flops_per_step(depth, hidden, n, t, band)
     flops = mm_flops + attn_flops
     result = {
         "model": args.model, "remat": not args.no_remat, "bf16": not args.no_bf16,
-        "mlp_bwd": args.mlp_bwd, "band": band, "batch": n, "seq_len": t,
+        "mlp_bwd": args.mlp_bwd, "band": band, "batch": n, "seq_len": t, "steps_per_call": k,
+        "capture_ms": None if call is None or call.graph is None else call.graph.capture_ms,
         "steps_per_sec": significant(steps_per_sec),
         "samples_per_sec": significant(steps_per_sec * n),
         "est_flops_per_step": flops,

@@ -14,7 +14,10 @@ Run from the repository root:
   python -m osu_diffusion_tpu_torch.tools.longrun_toy --seq-len 128 --stride 16 --pad-rows 160
 On the card (the default `--device cuda`) every training step runs the
 training kernels and every eval chain the inference kernels; `--device cpu`
-runs the plain versions.
+runs the plain versions. `--steps-per-call k` goes to the trainer (k
+optimizer steps a call, one CUDA graph on the card), as the JAX tool
+passes it; its default is 1, not the JAX tool's 32 (train/trainer.py says
+why). A chunk then ends at the first call boundary at or past its target.
 """
 from __future__ import annotations
 
@@ -160,6 +163,7 @@ def main(argv=None) -> None:
     parser.add_argument("--batch", type=int, default=64)
     parser.add_argument("--seq-len", type=int, default=32)
     parser.add_argument("--stride", type=int, default=8)
+    parser.add_argument("--steps-per-call", type=int, default=1)
     parser.add_argument("--num-predictions", type=int, default=100)
     parser.add_argument("--num-sampling-steps", type=int, default=1000)
     parser.add_argument("--suites", type=str, nargs="*",
@@ -292,6 +296,7 @@ def main(argv=None) -> None:
             ckpt_every=args.chunk,
             ckpt=ckpt,
             max_steps=target,
+            steps_per_call=args.steps_per_call,
             lr=lr_at(step),
             device=args.device,
         )

@@ -123,6 +123,17 @@ def load_train_checkpoint(ckpt_path: str) -> dict[str, Any]:
         return torch.load(ckpt_path, map_location="cpu", weights_only=True)
 
 
+def load_optimizer_state(optimizer: torch.optim.Optimizer, opt_sd: dict) -> None:
+    """optimizer.load_state_dict(opt_sd), each group keeping the live
+    optimizer's `capturable`: torch would copy the file's flag over it, and
+    the flag says where the step counts live (on the card for a capturable
+    AdamW, train_step.make_optimizer), so a checkpoint written on a card
+    resumes on the CPU and the other way round."""
+    groups = [{**saved, "capturable": live["capturable"]}
+              for saved, live in zip(opt_sd["param_groups"], optimizer.param_groups)]
+    optimizer.load_state_dict({**opt_sd, "param_groups": groups})
+
+
 def save_checkpoint(checkpoint_dir: str, step: int, model, ema, optimizer, args: dict,
                     mesh=None) -> str | None:
     """Write {"model", "ema", "opt", "args", "step"} to

@@ -30,6 +30,12 @@ same batch and the same draws (one generator seed).
   the column (the data ranks of its model rank) gives the global mean.
 The metrics are reduced the same way. Every rank then takes the same AdamW
 step on what it holds.
+
+`train_steps` is JAX's `make_multi_train_step`: k steps on k stacked
+batches, returning each metric's mean over them. `TrainCall` runs it as
+one CUDA graph of the k steps on a card in one process (the trainer's
+`steps_per_call`); under a process group and on the CPU it runs the k
+steps eagerly.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ from typing import NamedTuple
 import torch
 import torch.distributed as dist
 
+from osu_diffusion_tpu_torch import graphs
 from osu_diffusion_tpu_torch.data.process import draw_flips, process_batch
 from osu_diffusion_tpu_torch.diffusion.process import GaussianDiffusion
 from osu_diffusion_tpu_torch.models.dit import DiT
@@ -56,8 +63,19 @@ class StepDraws(NamedTuple):
 
 def make_optimizer(params, lr: float = 1e-4) -> torch.optim.AdamW:
     """AdamW with the reference's settings: lr 1e-4, betas (0.9, 0.999),
-    eps 1e-8 and weight decay 0 (torch's default decay is 0.01)."""
-    return torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0)
+    eps 1e-8 and weight decay 0 (torch's default decay is 0.01). Over
+    parameters on a card it is capturable (its step counts live on the
+    card, its bias corrections are computed there), as a CUDA graph of the
+    step (`TrainCall`) needs; a checkpoint carries the flag, and
+    checkpoint.load_optimizer_state keeps the live one."""
+    params = list(params)
+    optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                                  capturable=any(p.is_cuda for p in params))
+    # eager steps of a capturable AdamW are the trainer's default (one step
+    # a call): torch's one-time advice to drop the flag would print on
+    # every run on a card
+    optimizer._warned_capturable_if_run_uncaptured = True
+    return optimizer
 
 
 def make_ema(model: DiT) -> DiT:
@@ -199,3 +217,86 @@ def train_step(
         dist.all_reduce(reduced, group=group)
         metrics = dict(zip(metrics, reduced / ranks))
     return metrics
+
+
+def train_steps(model: DiT, ema: DiT, optimizer: torch.optim.Optimizer,
+                diffusion: GaussianDiffusion, batches, *, draws=None,
+                **step_kwargs) -> dict[str, torch.Tensor]:
+    """k optimizer steps (JAX `make_multi_train_step`): `batches` are
+    stacked (k, N, T, 19) windows, (k, N, 2) predecessors and (k, N)
+    int64 labels, `draws` None or k `StepDraws`, `step_kwargs`
+    `train_step`'s. Returns each metric's mean over the k steps as a
+    device scalar."""
+    raw, prev_xy, y = batches
+    steps = [train_step(model, ema, optimizer, diffusion, (raw[i], prev_xy[i], y[i]),
+                        draws=None if draws is None else draws[i], **step_kwargs)
+             for i in range(raw.shape[0])]
+    return {name: torch.stack([m[name] for m in steps]).mean() for name in steps[0]}
+
+
+class TrainCall:
+    """`train_steps` with one trainable mask (JAX jits one `multi_fn` a
+    mask): with `graphed`, the k steps as one CUDA graph, else eagerly (on
+    the CPU, and under a process group: gloo's collectives cannot be
+    captured, NCCL's are untried). `step_kwargs` are `train_step`'s, the
+    draws from `generator`.
+
+    Graphed, the first call runs its k steps eagerly on a side stream, and
+    they are real steps (a train step cannot be run for warm-up and thrown
+    away: it moves the weights, the EMA, the moments and the generator);
+    then it captures them, `generator` registered with the graph, and every
+    later call copies its batches into static device buffers on the current
+    stream and replays. The graph writes each metric's k-step mean into
+    static 0-d outputs, which a call returns copies of. What the steps
+    allocate under capture (the gradients after `zero_grad(set_to_none=True)`,
+    the activations, the frozen parameters' saved values) comes from the
+    graph's private pool; a replay adds k steps' launches to the kernel
+    wrappers' counters. A capture error raises: nothing falls back to eager.
+
+    Invariant: after the capture nothing may replace a parameter, an AdamW
+    state tensor or an EMA tensor (the graph holds their addresses; in-place
+    updates, such as eager `train_step`s between calls, are fine); a resume
+    or `load_state_dict` comes before the first call."""
+
+    def __init__(self, model: DiT, ema: DiT, optimizer: torch.optim.Optimizer,
+                 diffusion: GaussianDiffusion, *, generator: torch.Generator | None,
+                 graphed: bool, **step_kwargs):
+        self.model, self.ema, self.optimizer, self.diffusion = model, ema, optimizer, diffusion
+        self.generator, self.graphed, self.step_kwargs = generator, graphed, step_kwargs
+        self.inputs = None  # the static (k, N, T, 19), (k, N, 2), (k, N) buffers
+        self.outputs = None  # the static 0-d metrics
+        self.graph = None  # graphs.GraphedStep, after the first call
+
+    def _steps(self, batches) -> dict[str, torch.Tensor]:
+        return train_steps(self.model, self.ema, self.optimizer, self.diffusion, batches,
+                           generator=self.generator, **self.step_kwargs)
+
+    def _program(self) -> None:
+        metrics = self._steps(self.inputs)
+        if self.outputs is None:
+            self.outputs = {name: torch.empty_like(v) for name, v in metrics.items()}
+        for name, v in metrics.items():
+            self.outputs[name].copy_(v)
+
+    def __call__(self, batches) -> dict[str, torch.Tensor]:
+        """k optimizer steps on `batches` (stacked as `train_steps` takes
+        them, on any device); returns each metric's mean over the k steps
+        (device scalars)."""
+        device = next(self.model.parameters()).device
+        if not self.graphed:
+            return self._steps(tuple(a.to(device, non_blocking=True) for a in batches))
+        if self.inputs is None:
+            self.inputs = tuple(torch.empty(a.shape, dtype=a.dtype, device=device) for a in batches)
+        for dst, src in zip(self.inputs, batches):
+            if src.shape != dst.shape or src.dtype != dst.dtype:
+                raise ValueError(f"a call of {tuple(dst.shape)} {dst.dtype} got {tuple(src.shape)} "
+                                 f"{src.dtype}: the graph's inputs are static")
+            # a pageable source is staged by the copy before it returns
+            dst.copy_(src, non_blocking=True)
+        if self.graph is None:
+            graphs.warm_up(self._program, device)
+            self.graph = graphs.GraphedStep(device, self._program, generators=(
+                () if self.generator is None else (self.generator,)))
+        else:
+            self.graph.replay()
+        return {name: v.clone() for name, v in self.outputs.items()}

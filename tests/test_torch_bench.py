@@ -12,7 +12,8 @@ on the CPU.
   batch 2, 2-3 steps, one group; the plain versions run): its JSON lines
   carry every key of the JAX tool's lines but the TPU-only ones, and the
   device they ran on; with no CUDA device and no `--device cpu` each tool
-  exits non-zero instead of running on the CPU.
+  exits non-zero instead of running on the CPU. bench_train also with
+  `--steps-per-call 2` (its calls of 2 steps, eager on the CPU).
 
 Torch's intra-op threads are capped at 2 for this module: at its default
 (one thread a core) beside other busy processes, bench_train's step crawls
@@ -151,6 +152,22 @@ def test_tool_runs_on_cpu_with_the_jax_tools_keys(name, capsys, monkeypatch):
     rates += [r["steps_per_sec_best"] for line in lines for r in line.get("results", {}).values()
               if isinstance(r, dict)]
     assert all(math.isfinite(r) and r > 0 for r in rates)
+
+
+def test_bench_train_steps_per_call_on_cpu(capsys):
+    """bench_train --steps-per-call 2 --device cpu: the warm-up call and one
+    timed call of 2 eager steps (train_step.TrainCall; no graph on the CPU,
+    so no capture time); its JSON line names k, carries the JAX tool's keys
+    and a finite positive rate."""
+    from osu_diffusion_tpu_torch.tools import bench_train
+
+    argv, _ = TOOL_RUNS["bench_train"]
+    out = bench_train.main(argv + ["--steps-per-call", "2", "--device", "cpu"])
+    (line,) = [json.loads(x) for x in capsys.readouterr().out.splitlines() if x.startswith("{")]
+    assert line == out
+    assert (out["steps_per_call"], out["capture_ms"], out["device"]) == (2, None, "cpu")
+    assert not (_jax_tool_keys("bench_train") - TPU_ONLY_KEYS) - set(out)
+    assert all(math.isfinite(out[k]) and out[k] > 0 for k in ("steps_per_sec", "samples_per_sec"))
 
 
 @pytest.mark.parametrize("name", TOOLS)

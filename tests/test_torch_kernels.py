@@ -4,8 +4,10 @@ and the four ranged entries of context parallelism),
 the fused adaLN-MLP (inference and training forward, the two stages of the
 fused backward, int8 serving) and the
 int8 projections, each alone and, where it has one, inside its autograd
-Function; and the Sampler's and calc_bpd_loop's CUDA graphs (the adaptive
-Δ-cache's conditional IF nodes among them) against the same chains eager.
+Function; the Sampler's and calc_bpd_loop's CUDA graphs (the adaptive
+Δ-cache's conditional IF nodes among them) against the same chains eager;
+and the train call's graph (`train_step.TrainCall`) against eager train
+steps.
 Imports torch only (no jax), so the card's
 machine runs it:
 
@@ -1111,3 +1113,159 @@ def test_calc_bpd_loop_graph_equals_eager(cuda_device):
         assert launches == (6 * len(model.blocks),) * 2
     assert all(torch.equal(out[True][k], out[False][k]) for k in out[False])
     assert all(bool(torch.isfinite(v).all()) for v in out[True].values())
+
+
+def _train_state(model, ema, optimizer) -> list[torch.Tensor]:
+    """Every tensor a train step moves: the weights, the EMA, AdamW's
+    moments and step counts, in a fixed order."""
+    moments = [t for p in model.parameters() for t in optimizer.state[p].values()]
+    return [*model.parameters(), *ema.parameters(), *moments]
+
+
+def _small_train(device, mlp_bwd, k, n=4, t=128):
+    """A DiT-S-width model in training (depth 2, 7 classes, random weights)
+    on the card, its EMA, AdamW (`make_optimizer`), the L1 process, a
+    generator, and batches(seed): k stacked batches of n windows of t rows."""
+    from osu_diffusion_tpu_torch.diffusion.process import create_diffusion
+    from osu_diffusion_tpu_torch.models.dit import DiT
+    from osu_diffusion_tpu_torch.train.train_step import make_ema, make_optimizer
+
+    torch.manual_seed(0)
+    model = DiT(hidden_size=384, depth=2, num_heads=6, num_classes=7, class_dropout_prob=0.2,
+                mlp_bwd=mlp_bwd).to(device).train()
+    with torch.no_grad():
+        for p in model.parameters():
+            p.normal_(0.0, 0.05)
+    diffusion = create_diffusion("", noise_schedule="squaredcos_cap_v2", use_l1=True, device=device)
+
+    def batches(seed):
+        r = torch.Generator().manual_seed(seed)
+        raw = torch.rand(k, n, t, 19, generator=r)
+        raw[..., :2] *= torch.tensor([512.0, 384.0])
+        raw[..., 2] = torch.cumsum(torch.rand(k, n, t, generator=r), -1) * 200
+        return (raw.to(device), torch.full((k, n, 2), 256.0, device=device),
+                torch.randint(0, 7, (k, n), generator=r).to(device))
+
+    return (model, make_ema(model), make_optimizer(model.parameters()), diffusion,
+            torch.Generator(device=device).manual_seed(1), batches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mlp_bwd,embed_only", [("xla", False), ("fused", False), ("xla", True)])
+def test_train_call_graph_equals_eager_steps(cuda_device, mlp_bwd, embed_only):
+    """A DiT-S-width model (depth 2, batch 4 x 128, bf16 stream, remat)
+    through train_step.TrainCall with k = 3 (its first call eager, then
+    captured) against 3 eager train_steps from the same state (weights,
+    EMA, moments, step counts and generator, put back into the same
+    tensors): the replayed call gives the same metrics and moves every
+    tensor to the same bits, the generator's offset to the same place, adds
+    3 steps' launches of rows 2, 3, 4 and 8 (9a/9b with the fused MLP
+    backward) and makes no host sync; with the embed-only mask only the
+    label table moves."""
+    from osu_diffusion_tpu_torch.train.train_step import TrainCall, train_steps
+    from osu_diffusion_tpu_torch.train.trainer import embed_only_mask
+
+    k, t = 3, 128
+    model, ema, opt, diffusion, g, batches = _small_train(cuda_device, mlp_bwd, k)
+    assert all(group["capturable"] for group in opt.param_groups)
+    kwargs = dict(band=t, dtype=torch.bfloat16,
+                  trainable_mask=embed_only_mask(model) if embed_only else None)
+    call = TrainCall(model, ema, opt, diffusion, generator=g, graphed=True, **kwargs)
+    call(batches(0))  # eager, then captured
+    assert call.graph is not None
+    state = _train_state(model, ema, opt)
+    saved, offset = [s.clone() for s in state], g.get_offset()
+    inputs = batches(1)
+    rows = (tba.banded_attention_fwd_lse, tam.adaln_mlp_train, tba.banded_attention_bwd_dq,
+            tba.banded_attention_bwd_dkv, tam.adaln_mlp_bwd_prologue, tam.adaln_mlp_bwd_epilogue)
+    before = [fn.launches for fn in rows]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call(inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    depth = len(model.blocks)
+    fused = depth if mlp_bwd == "fused" else 0
+    assert [fn.launches - b for fn, b in zip(rows, before)] == \
+        [k * c for c in (2 * depth, 2 * depth, depth, depth, fused, fused)]
+    graphed, graphed_offset = [s.clone() for s in state], g.get_offset()
+
+    with torch.no_grad():
+        for s, v in zip(state, saved):
+            s.copy_(v)
+    g.set_offset(offset)
+    want = train_steps(model, ema, opt, diffusion, inputs, generator=g, **kwargs)
+    assert graphed_offset == g.get_offset() > offset
+    assert set(got) == set(want) and all(torch.equal(got[m], want[m]) for m in want)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, state))
+    moved = [name for (name, _), a, b in zip(model.named_parameters(), graphed, saved) if not torch.equal(a, b)]
+    assert moved == (["y_embedder.embedding_table.weight"] if embed_only
+                     else [name for name, _ in model.named_parameters()])
+
+
+@pytest.mark.cuda
+def test_train_call_captures_under_the_profiler(cuda_device, tmp_path):
+    """The trainer's --profile-dir traces its first calls, so a TrainCall
+    may capture inside an active torch.profiler (CPU and CUDA activities):
+    at DiT-S width, k = 2, the capture and a replay under the profiler, the
+    trace written with the replay's kernels in it, and a replay after it
+    equal to eager steps from the same state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from osu_diffusion_tpu_torch.train.train_step import TrainCall, train_steps
+
+    model, ema, opt, diffusion, g, batches = _small_train(cuda_device, "xla", 2)
+    call = TrainCall(model, ema, opt, diffusion, generator=g, graphed=True, band=128, dtype=torch.bfloat16)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        call(batches(0))
+        call(batches(1))
+        torch.cuda.synchronize()
+    assert any("banded_attn" in e.key and e.self_device_time_total > 0 for e in prof.key_averages())
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    state = _train_state(model, ema, opt)
+    saved, offset = [s.clone() for s in state], g.get_offset()
+    got = call(batches(2))
+    graphed = [s.clone() for s in state]
+    with torch.no_grad():
+        for s, v in zip(state, saved):
+            s.copy_(v)
+    g.set_offset(offset)
+    want = train_steps(model, ema, opt, diffusion, batches(2), generator=g, band=128, dtype=torch.bfloat16)
+    assert all(torch.equal(got[m], want[m]) for m in want)
+    assert all(torch.equal(a, b) for a, b in zip(graphed, state))
+
+
+@pytest.mark.cuda
+def test_capture_survives_dead_graphs_in_reference_cycles(cuda_device):
+    """A dead GraphedStep held in a reference cycle (a Sampler and its
+    chains hold theirs so) is freed only by the garbage collector, and a
+    collection that resets its CUDA graph during another capture would
+    invalidate that capture: with the collector at its most eager
+    thresholds and such garbage made before each capture, every capture of
+    a program that allocates Python objects succeeds and replays."""
+    import gc
+
+    from osu_diffusion_tpu_torch.graphs import GraphedStep
+
+    x = torch.zeros(1024, device=cuda_device)
+
+    def program():
+        for row in [[i] for i in range(200)]:  # containers: each may trigger a collection
+            x.add_(row[0])
+
+    def dead_cycle():
+        holder = {"graph": GraphedStep(cuda_device, program)}
+        holder["self"] = holder
+
+    thresholds = gc.get_threshold()
+    gc.collect()
+    gc.set_threshold(1, 1, 1)
+    try:
+        for _ in range(3):
+            dead_cycle()
+            GraphedStep(cuda_device, program).replay()
+    finally:
+        gc.set_threshold(*thresholds)
+    torch.cuda.synchronize()
+    assert x[0].item() == 3 * sum(range(200))

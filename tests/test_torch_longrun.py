@@ -3,7 +3,8 @@ on the CPU: its dataset builder writes the same files, byte for byte, as
 tools/longrun_toy.py (loaded by path), and a tiny run (hidden 32, two chunks
 of 2 steps, one suite, 2 predictions of 2 sampling steps) writes one JSON
 line per chunk, resumes the second chunk from the first one's checkpoint
-and scores the EMA weights."""
+and scores the EMA weights; with `--steps-per-call 2` each chunk is one
+call of 2 steps."""
 import importlib.util
 import json
 import os
@@ -84,3 +85,34 @@ def test_tiny_run_resumes_between_chunks(tmp_path, monkeypatch, capfd):
     assert len(scored) == 2 and scored[-1].keys() == final["ema"].keys()
     assert all(torch.equal(scored[-1][k], final["ema"][k]) for k in scored[-1])
     assert not all(torch.equal(scored[-1][k], final["model"][k]) for k in scored[-1])
+
+
+def test_steps_per_call_reaches_the_trainer(tmp_path, monkeypatch, capfd):
+    """--steps-per-call 2 over two chunks of 2 steps: every chunk's
+    TrainConfig has steps_per_call 2, each chunk is one call (the trainer
+    logs it), and the run ends at step 4 with one JSON line a chunk."""
+    from osu_diffusion_tpu_torch.train import trainer
+
+    monkeypatch.setitem(DiT_models, "DiT-T",
+                        lambda **kw: DiT(hidden_size=32, depth=1, num_heads=2, **kw))
+    configs = []
+    train = trainer.train
+
+    def recording(config):
+        configs.append(config)
+        return train(config)
+
+    monkeypatch.setattr(trainer, "train", recording)  # main imports it when it starts
+    results, log = tmp_path / "results", tmp_path / "evals.jsonl"
+    longrun_toy.main([
+        "--model", "DiT-T", "--total-steps", "4", "--chunk", "2", "--batch", "4",
+        "--seq-len", "32", "--stride", "8", "--steps-per-call", "2", "--num-predictions", "2",
+        "--num-sampling-steps", "2", "--suites", "symmetry", "--results-dir", str(results),
+        "--data-dir", str(tmp_path / "data"), "--log", str(log), "--device", "cpu",
+    ])
+    assert "longrun done" in capfd.readouterr().out
+    assert [(c.steps_per_call, c.max_steps) for c in configs] == [(2, 2), (2, 4)]
+    assert [json.loads(line)["step"] for line in log.read_text().splitlines()] == [2, 4]
+    for exp in sorted(os.listdir(results)):
+        with open(results / exp / "log.txt") as f:
+            assert "2 optimizer steps a call, run eagerly on cpu" in f.read()

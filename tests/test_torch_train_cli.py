@@ -195,7 +195,10 @@ def test_train_nodist_launcher_pins_the_refine_timestep(monkeypatch):
 def test_train_flags_give_the_jax_config(amp):
     """--use-amp (the reference's name) overrides --use-bf16 when given, and
     --fine-tune-ids and --profile-dir are taken: every config key that both
-    packages have gets JAX's value for the same arguments."""
+    packages have gets JAX's value for the same arguments, but for the one
+    default the port sets apart: one optimizer step a call, not JAX's 8
+    (train/trainer.py; tests/test_torch_train_calls.py holds the flag when
+    given)."""
     from osu_diffusion_tpu.cli import build_train_parser as jax_parser
     from osu_diffusion_tpu.cli import train_config_kwargs as jax_kwargs
     from osu_diffusion_tpu_torch.cli import build_train_parser, train_config_kwargs
@@ -205,7 +208,9 @@ def test_train_flags_give_the_jax_config(amp):
     want = jax_kwargs(jax_parser().parse_args(argv))
     got = train_config_kwargs(build_train_parser().parse_args(argv))
     shared = set(want) & set(got)
-    assert {"use_bf16", "profile_dir", "model", "seq_len", "num_workers"} <= shared
+    assert {"use_bf16", "profile_dir", "model", "seq_len", "num_workers", "steps_per_call"} <= shared
+    assert (got["steps_per_call"], want["steps_per_call"]) == (1, 8)
+    shared.remove("steps_per_call")
     assert {k: got[k] for k in shared} == {k: want[k] for k in shared}
     assert got["use_bf16"] == ("--no-use-amp" not in amp)
     assert got["profile_dir"] == "p"
